@@ -1,0 +1,407 @@
+"""OFA encoder and incremental decoder in PyTorch (port of ``models/ofa.py``).
+
+The caption-inference slice of the JAX model: ``encode`` on its flash branch
+(every encoder self-attention through K1, ``ops/flash_attention_infer.py``),
+and ``init_decoder_state`` / ``decode_step`` / ``output_layer`` on the
+incremental, cached branch with the beam-shared cross cache. Public layouts
+are the JAX package's: NHWC images, ``[B, H, T, hd]`` head tensors, self caches
+``[L, rows, H, Tmax, hd]``, cross caches ``[L, B, H, S, hd]``.
+
+Numerics kept from the JAX model: attention scale ``(hd·2)^-0.5``, erf gelu,
+LayerNorm in fp32 with eps 1e-5, no positions added to encoder embeddings and
+always to decoder embeddings (``decoder_entangle_positions``), padded encoder
+embeddings zeroed, decoder self-attention masked with the finite −1e9 and
+cross-attention with −inf (NaN rows → 0), the decoder's abs-pos and cross
+biases in fp32. The JAX encoder pads its rel bias to the TPU kernel's tiles;
+here rel is composed at ``[H, S, S]``.
+
+``decode_step`` writes the step's K/V into the self cache in place and
+returns the same state object.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..ops.flash_attention_infer import flash_attention_inference
+from ..params import check_supported
+from . import positions as pos_lib
+from .resnet import resnet_forward
+
+Params = Dict[str, Any]
+
+NEG_INF = -1e9
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    if cfg.dtype not in _DTYPES:
+        raise NotImplementedError(f"musketeer_tpu_torch does not support dtype={cfg.dtype!r}")
+    return _DTYPES[cfg.dtype]
+
+
+def _scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX rounds a scalar multiplied into an array."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _index(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=torch.long)
+
+
+# ---------------------------------------------------------------------------
+# small pieces
+# ---------------------------------------------------------------------------
+
+def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, p["w"], p["b"])
+
+
+def _layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in fp32, returned in x's dtype."""
+    return F.layer_norm(x.float(), x.shape[-1:], p["scale"], p["bias"], eps).to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.view(b, t, heads, d // heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, hd = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def _linear_heads(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
+    """x @ W + b as a contiguous ``[B, H, T, hd]`` tensor."""
+    return _split_heads(_linear(p, x), heads).contiguous()
+
+
+def _out_proj_heads(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``[B, H, T, hd]`` attention output → out_proj ``[B, T, d]``."""
+    return _linear(p, _merge_heads(x))
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+class EncoderOut(NamedTuple):
+    x: torch.Tensor  # [B, S, d] final hidden states
+    padding_mask: torch.Tensor  # [B, S] bool, True = pad
+    pos_embed: torch.Tensor  # [B, S, d] LN'd positional embeddings (cross bias)
+
+
+def _pos_proj(lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig, scale_q: bool) -> torch.Tensor:
+    """LN'd positional embeddings → per-head projections ``[B, H, T, hd]`` (compute dtype)."""
+    x = _linear_heads(lin, pos_embed, cfg.attention_heads)
+    if scale_q:
+        x = x * _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
+    return x
+
+
+def _rel_gather(table: torch.Tensor, rp: torch.Tensor) -> torch.Tensor:
+    """table ``[L, Vb, H]`` gathered by bucket ids ``rp [T, T]`` → ``[L, H, T, T]``."""
+    L, Vb, H = table.shape
+    T = rp.shape[0]
+    flat = table.permute(1, 0, 2).reshape(Vb, L * H)[rp.reshape(-1)]
+    return flat.view(T, T, L, H).permute(2, 3, 0, 1)
+
+
+def _flash_self_attn(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, kpad, causal: bool):
+    H = cfg.attention_heads
+    scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
+    q = _linear_heads(p["q_proj"], x, H) * scaling
+    k = _linear_heads(p["k_proj"], x, H)
+    v = _linear_heads(p["v_proj"], x, H)
+    out = flash_attention_inference(
+        q, k, v, pos_q, pos_k, rel, kpad, causal=causal,
+        skip_max=cfg.flash_skip_max_subtract,
+    )
+    return _out_proj_heads(p["out_proj"], out)
+
+
+def _encoder_layer(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, padding_mask):
+    """Pre-LN encoder block, flash branch."""
+    h = _layer_norm(p["self_attn_layer_norm"], x)
+    x = x + _flash_self_attn(p["self_attn"], cfg, h, pos_q, pos_k, rel, padding_mask, causal=False)
+    h = _layer_norm(p["final_layer_norm"], x)
+    h = _linear(p["fc2"], _gelu(_linear(p["fc1"], h)))
+    return x + h
+
+
+def encode(
+    params: Params,
+    cfg: ModelConfig,
+    src_tokens: torch.Tensor,  # [B, T] int
+    patch_images: Optional[torch.Tensor] = None,  # [B, Himg, Wimg, 3]
+    patch_masks: Optional[torch.Tensor] = None,  # [B] bool, False = no image
+    sample_patch_order: Optional[torch.Tensor] = None,
+) -> EncoderOut:
+    """Joint image + text encoder forward (inference, flash branch)."""
+    check_supported(cfg)
+    if sample_patch_order is not None:
+        raise NotImplementedError("musketeer_tpu_torch does not support sample_patch_order")
+    enc = params["encoder"]
+    dtype = compute_dtype(cfg)
+    device = src_tokens.device
+    B, T = src_tokens.shape
+    d, H = cfg.embed_dim, cfg.attention_heads
+
+    x_text = params["embed_tokens"][src_tokens].to(dtype) + enc["type_embedding"][0]
+    x_text = _layer_norm(enc["layernorm_embedding"], x_text)
+    text_pad = src_tokens == cfg.pad
+    pos_embed = enc["embed_positions"][:T][None].expand(B, T, d)
+
+    N = 0
+    if patch_images is not None:
+        feats = resnet_forward(enc["resnet"], patch_images.to(dtype))
+        _, h, w, _ = feats.shape
+        N = h * w
+        image_embed = feats.reshape(B, N, -1)
+        ids0 = pos_lib.encoder_image_position_ids(h, w, cfg.image_bucket_size)
+        image_pos_embed = enc["embed_image_positions"][_index(ids0, device)][None].expand(B, N, d)
+        x_img = _linear(enc["image_proj"], image_embed) + enc["type_embedding"][1]
+        x_img = _layer_norm(enc["patch_layernorm_embedding"], x_img)
+        if patch_masks is None:
+            image_pad = torch.zeros((B, N), dtype=torch.bool, device=device)
+        else:
+            image_pad = (~patch_masks.bool())[:, None].expand(B, N)
+        x = torch.cat([x_img, x_text], dim=1)
+        padding_mask = torch.cat([image_pad, text_pad], dim=1)
+        pos_for_bias = torch.cat([
+            _layer_norm(enc["image_pos_ln"], image_pos_embed),
+            _layer_norm(enc["pos_ln"], pos_embed),
+        ], dim=1)
+    else:
+        x = x_text
+        padding_mask = text_pad
+        pos_for_bias = _layer_norm(enc["pos_ln"], pos_embed)
+
+    # zero out padded embeddings (ref: unify_transformer.py:894)
+    x = x * (1.0 - padding_mask[:, :, None].to(x.dtype))
+    S = x.shape[1]
+
+    pos_q = _pos_proj(enc["pos_q_linear"], pos_for_bias, cfg, True)
+    pos_k = _pos_proj(enc["pos_k_linear"], pos_for_bias, cfg, False)
+    # rel gathers for all layers at once, outside the layer loop
+    token_rp = pos_lib.make_token_bucket_position(cfg.token_bucket_size, cfg.max_source_positions)
+    rel_tok_all = _rel_gather(enc["token_rel_pos_table"], _index(token_rp[:T, :T], device))
+    if N:
+        image_rp_full = pos_lib.make_image_bucket_position(cfg.image_bucket_size, cfg.image_num_rel_dis)
+        image_rp = image_rp_full[ids0[:, None], ids0[None, :]]
+        rel_img_all = _rel_gather(enc["image_rel_pos_table"], _index(image_rp, device))
+
+    for i, layer_p in enumerate(enc["layers"]):
+        rel = torch.zeros((H, S, S), dtype=dtype, device=device)
+        rel[:, S - T:, S - T:] = rel_tok_all[i]
+        if N:
+            rel[:, :N, :N] = rel_img_all[i]
+        x = _encoder_layer(layer_p, cfg, x, pos_q, pos_k, rel, padding_mask)
+
+    x = _layer_norm(enc["layer_norm"], x)
+    return EncoderOut(x=x, padding_mask=padding_mask, pos_embed=pos_for_bias)
+
+
+# ---------------------------------------------------------------------------
+# decoder (incremental, cached)
+# ---------------------------------------------------------------------------
+
+def _abs_pos_bias(q_lin: Params, k_lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig):
+    """(pos_q · scaling) · pos_kᵀ per head → ``[B, H, T, T]`` fp32."""
+    H = cfg.attention_heads
+    scaling = float(cfg.embed_dim / H * cfg.attn_scale_factor) ** -0.5
+    pe = pos_embed.float()
+    pos_q = _split_heads(_linear(q_lin, pe), H) * scaling
+    pos_k = _split_heads(_linear(k_lin, pe), H)
+    return pos_q @ pos_k.transpose(-1, -2)
+
+
+def _decoder_pos_setup(params: Params, cfg: ModelConfig, B: int, T: int,
+                       encoder_pos: torch.Tensor, dtype: torch.dtype):
+    """Target positions and the self / cross abs-pos biases (token positions only).
+
+    Returns (tgt_pos_embed [B, T, d], self_bias [B, H, T, T] fp32, cross_bias [B, H, T, S] fp32).
+    """
+    dec = params["decoder"]
+    H = cfg.attention_heads
+    tgt_pos_embed = dec["embed_positions"][:T][None].expand(B, T, cfg.embed_dim)
+    pe = _layer_norm(dec["pos_ln"], tgt_pos_embed[:1].to(dtype))
+    self_bias = _abs_pos_bias(dec["self_pos_q_linear"], dec["self_pos_k_linear"], pe, cfg)
+    scaling = float(cfg.embed_dim / H * cfg.attn_scale_factor) ** -0.5
+    pq = _split_heads(_linear(dec["cross_pos_q_linear"], pe.float()), H) * scaling
+    pk = _split_heads(_linear(dec["cross_pos_k_linear"], encoder_pos.float()), H)
+    cross_bias = pq @ pk.transpose(-1, -2)
+    return tgt_pos_embed, self_bias.expand(B, -1, -1, -1), cross_bias
+
+
+def _decoder_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   tgt_pos_embed: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    dec = params["decoder"]
+    x = params["embed_tokens"][tokens].to(dtype)
+    if cfg.decoder_entangle_positions:
+        x = x + tgt_pos_embed.to(dtype)
+    return _layer_norm(dec["layernorm_embedding"], x)
+
+
+def _decoder_rel_bias(params: Params, cfg: ModelConfig, T: int) -> torch.Tensor:
+    """Per-layer self-attention rel bias ``[L, H, T, T]`` fp32 (token buckets)."""
+    token_rp = pos_lib.make_token_bucket_position(
+        cfg.token_bucket_size, max(cfg.max_target_positions, T)
+    )[:T, :T]
+    table = params["decoder"]["token_rel_pos_table"]
+    return _rel_gather(table, _index(token_rp, table.device))
+
+
+def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pad,
+                   cache: Dict[str, torch.Tensor], cache_index: int):
+    """Pre-LN decoder block, one incremental step: x ``[rows, 1, d]``.
+
+    ``cache`` holds this layer's self K/V ``[rows, H, Tmax, hd]`` (written in
+    place at ``cache_index``) and the beam-shared cross K/V ``[Bs, H, S, hd]``;
+    ``cross_bias`` is ``[Bs, H, 1, S]``.
+    """
+    H = cfg.attention_heads
+    scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
+
+    # self attention over the cached prefix
+    h = _layer_norm(p["self_attn_layer_norm"], x)
+    pa = p["self_attn"]
+    q = _split_heads(_linear(pa["q_proj"], h) * scaling, H)
+    k, v = cache["self_k"], cache["self_v"]
+    k[:, :, cache_index] = _split_heads(_linear(pa["k_proj"], h), H)[:, :, 0].to(k.dtype)
+    v[:, :, cache_index] = _split_heads(_linear(pa["v_proj"], h), H)[:, :, 0].to(v.dtype)
+    w = q.float() @ k.float().transpose(-1, -2) + self_bias
+    valid = torch.arange(k.shape[2], device=x.device) <= cache_index
+    w = w.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(w, dim=-1).to(x.dtype)
+    x = x + _linear(pa["out_proj"], _merge_heads(probs @ v.to(x.dtype)))
+
+    # beam-shared cross attention: rows = Bs samples × Kb beams; a sample's
+    # beams are the query rows of one product with its K/V (a broadcast beam
+    # dim would make matmul copy the cache per beam)
+    h = _layer_norm(p["encoder_attn_layer_norm"], x)
+    pc = p["encoder_attn"]
+    ck, cv = cache["cross_k"], cache["cross_v"]
+    rows, Bs = h.shape[0], ck.shape[0]
+    Kb = rows // Bs
+    q = (_linear(pc["q_proj"], h) * scaling).view(Bs, Kb, H, -1).transpose(1, 2)
+    w = q.float() @ ck.transpose(-1, -2)  # [Bs, H, Kb, S], ck fp32
+    w = w + cross_bias
+    w = w.masked_fill(enc_pad[:, None, None, :], float("-inf"))
+    probs = torch.nan_to_num(torch.softmax(w, dim=-1), nan=0.0).to(x.dtype)
+    out = (probs @ cv.to(x.dtype)).transpose(1, 2).reshape(rows, 1, -1)
+    x = x + _linear(pc["out_proj"], out)
+
+    h = _layer_norm(p["final_layer_norm"], x)
+    return x + _linear(p["fc2"], _gelu(_linear(p["fc1"], h)))
+
+
+def output_layer(params: Params, cfg: ModelConfig, features: torch.Tensor) -> torch.Tensor:
+    """Tied output projection; padded vocab ids masked to −1e9."""
+    logits = features @ params["embed_tokens_c"].t()
+    if cfg.padded_vocab_size > cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits
+
+
+class DecoderState(NamedTuple):
+    # self_k/self_v [L, rows, H, Tmax, hd]; cross_k (fp32) / cross_v [L, B, H, S, hd]
+    cache: Dict[str, torch.Tensor]
+    enc_pad: torch.Tensor  # [B, S]
+    self_bias_full: torch.Tensor  # [rows, H, Tmax, Tmax] fp32 (abs pos)
+    cross_bias_full: torch.Tensor  # [B, H, Tmax, S] fp32
+    rel_full: torch.Tensor  # [L, 1, H, Tmax, Tmax] fp32 self rel bias
+    tgt_pos_embed: torch.Tensor  # [rows, Tmax, d]
+
+
+def init_decoder_state(
+    params: Params,
+    cfg: ModelConfig,
+    encoder_out: EncoderOut,
+    max_len: int,
+    code_masks: Optional[torch.Tensor] = None,
+    beam_size: int = 1,
+) -> DecoderState:
+    """Everything reusable across decode steps; cross K/V once per sample.
+
+    Pass the untiled encoder output: with ``beam_size`` > 1 the cross K/V,
+    bias and padding are shared by a sample's beams inside ``decode_step``.
+    """
+    check_supported(cfg)
+    if code_masks is not None:
+        raise NotImplementedError("musketeer_tpu_torch does not support code_masks")
+    dec = params["decoder"]
+    dtype = compute_dtype(cfg)
+    B, S, _ = encoder_out.x.shape
+    rows = B * beam_size
+    H, hd, L = cfg.attention_heads, cfg.head_dim, cfg.decoder_layers
+    device = encoder_out.x.device
+
+    tgt_pos_embed, self_bias, cross_bias = _decoder_pos_setup(
+        params, cfg, B, max_len, encoder_out.pos_embed, dtype
+    )
+    rel = _decoder_rel_bias(params, cfg, max_len)[:, None]
+
+    enc_x = encoder_out.x.to(dtype)
+    # the cross scores are fp32 products of the compute-dtype K: widen K once
+    # here, not once per step
+    cross_k = torch.stack([_split_heads(_linear(lp["encoder_attn"]["k_proj"], enc_x), H)
+                           for lp in dec["layers"]]).float()
+    cross_v = torch.stack([_split_heads(_linear(lp["encoder_attn"]["v_proj"], enc_x), H)
+                           for lp in dec["layers"]])
+    cache = {
+        "self_k": torch.zeros((L, rows, H, max_len, hd), dtype=dtype, device=device),
+        "self_v": torch.zeros((L, rows, H, max_len, hd), dtype=dtype, device=device),
+        "cross_k": cross_k,
+        "cross_v": cross_v,
+    }
+    return DecoderState(
+        cache=cache,
+        enc_pad=encoder_out.padding_mask,
+        self_bias_full=self_bias[:1].expand(rows, -1, -1, -1),
+        cross_bias_full=cross_bias,
+        rel_full=rel,
+        tgt_pos_embed=tgt_pos_embed[:1].expand(rows, -1, -1),
+    )
+
+
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [rows] current input token
+    step: int,  # current position
+    state: DecoderState,
+    code_masks: Optional[torch.Tensor] = None,
+    features_only: bool = False,
+):
+    """One incremental decode step → (logits [rows, Vp] or features [rows, d], state).
+
+    The step's self K/V are written into ``state.cache`` in place.
+    """
+    if code_masks is not None:
+        raise NotImplementedError("musketeer_tpu_torch does not support code_masks")
+    dec = params["decoder"]
+    dtype = compute_dtype(cfg)
+    x = _decoder_embed(params, cfg, tokens[:, None], state.tgt_pos_embed[:, step:step + 1], dtype)
+    self_bias_t = state.self_bias_full[:, :, step:step + 1]  # [rows, H, 1, T]
+    cross_bias_t = state.cross_bias_full[:, :, step:step + 1]  # [B, H, 1, S]
+    cache = state.cache
+    for i, layer_p in enumerate(dec["layers"]):
+        cache_i = {name: t[i] for name, t in cache.items()}
+        bias_i = self_bias_t + state.rel_full[i, :, :, step:step + 1]
+        x = _decoder_layer(layer_p, cfg, x, bias_i, cross_bias_t, state.enc_pad, cache_i, step)
+    x = _layer_norm(dec["layer_norm"], x)[:, 0]
+    if features_only:
+        return x, state
+    return output_layer(params, cfg, x), state

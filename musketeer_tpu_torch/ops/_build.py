@@ -1,0 +1,101 @@
+"""Build the port's CUDA kernels with nvcc and bind them through ctypes.
+
+At first use every ``csrc/*.cu`` is compiled for ``sm_90a`` into one shared
+library with a plain C interface, under ``csrc/build/<hash of the sources and
+flags>/`` (listed in ``.gitignore``), and loaded with ``ctypes``. Each C entry
+point launches on the stream it is given and returns ``cudaGetLastError()``;
+``check`` raises on a non-zero code. A CUDA machine without ``nvcc`` is an
+error: the wrappers never fall back to their plain versions for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+LIB_NAME = "libmusketeer_tpu_torch_kernels.so"
+
+# ctypes argument kinds: every pointer and the stream are c_void_p
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+I64 = ctypes.c_int64
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cu*"))
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    cu, hashed = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in hashed:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    so = out_dir / LIB_NAME
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    lib.mk_cuda_error_string.argtypes = [INT]
+    lib.mk_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def kernel_function(name: str, argtypes: tuple):
+    fn = getattr(library(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = INT
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = library().mk_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, tensors: dict, dtypes) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of one allowed dtype."""
+    first = next(iter(tensors.values()))
+    if first.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {first.dtype} not in {dtypes}")
+    for arg, t in tensors.items():
+        if t.device != first.device:
+            raise ValueError(f"{name}: {arg} on {t.device}, expected {first.device}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected {first.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")

@@ -1,0 +1,123 @@
+"""K1: forward-only attention with decomposed positional bias.
+
+Port of ``musketeer_tpu/ops/flash_attention_infer.py::flash_attention_inference``
+(Pallas ``_kernel``). Computes, per (batch, head),
+
+    softmax(q·kᵀ + pos_q·pos_kᵀ + rel + causal/pad masks) · v
+
+with the JAX kernel's numerics: scores in fp32, masks as the finite −1e9 (a
+fully masked row therefore gives the mean of v, not zeros), the
+probabilities rounded to v's dtype before the P·v product and the
+normalisation after it; ``skip_max`` drops the max-subtract and floors the
+denominator at 1e-38. ``rel`` is ``[H, Tr ≥ T, Sr ≥ S]`` and may be wider than
+the stream (only its top-left ``[T, S]`` is read); ``rel=None`` is cross
+attention.
+
+``flash_attention_inference`` runs the plain PyTorch version for CPU tensors
+and the CUDA kernel (``csrc/flash_attention_infer.cu``) for CUDA tensors; it
+never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e9
+HEAD_DIM = 64  # the kernel's compiled head dim (ofa_tiny and ofa_base)
+_DTYPES = (torch.float32, torch.bfloat16)
+_SIG = (_build.INT,) + (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 \
+    + (_build.INT,) * 2 + (_build.PTR,)
+
+
+def _check_shapes(q, k, v, pos_q, pos_k, rel, kpad) -> None:
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    for name, t, shape in (("pos_q", pos_q, (B, H, T, D)), ("k", k, (B, H, S, D)),
+                           ("v", v, (B, H, S, D)), ("pos_k", pos_k, (B, H, S, D))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"flash_attention_inference: {name} {tuple(t.shape)} != {shape}")
+    if tuple(kpad.shape) != (B, S) or kpad.dtype != torch.bool:
+        raise ValueError(f"flash_attention_inference: kpad must be bool [{B}, {S}]")
+    if rel is not None and (rel.dim() != 3 or rel.shape[0] != H
+                            or rel.shape[1] < T or rel.shape[2] < S):
+        raise ValueError(f"flash_attention_inference: rel {tuple(rel.shape)} "
+                         f"must be [{H}, >={T}, >={S}]")
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    pos_q: torch.Tensor, pos_k: torch.Tensor, rel: Optional[torch.Tensor],
+    kpad: torch.Tensor, causal: bool = False, skip_max: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of K1 (the CPU path and the kernel's reference)."""
+    T, S = q.shape[2], k.shape[2]
+    # bf16 products are exact in fp32: this matches the TPU kernel's
+    # fp32-accumulated dots
+    w = q.float() @ k.float().transpose(-1, -2)
+    w = w + pos_q.to(q.dtype).float() @ pos_k.to(q.dtype).float().transpose(-1, -2)
+    if rel is not None:
+        w = w + rel[:, :T, :S].to(q.dtype).float()[None]
+    if causal:
+        cmask = torch.arange(S, device=q.device)[None, :] > torch.arange(T, device=q.device)[:, None]
+        w = w.masked_fill(cmask, NEG_INF)
+    w = w.masked_fill(kpad[:, None, None, :], NEG_INF)
+    if skip_max:
+        e = torch.exp(w)
+        denom = e.sum(-1, keepdim=True).clamp_min(1e-38)
+    else:
+        e = torch.exp(w - w.amax(-1, keepdim=True))
+        denom = e.sum(-1, keepdim=True)
+    acc = e.to(v.dtype).float() @ v.float()
+    return (acc / denom).to(q.dtype)
+
+
+def flash_attention_inference(
+    q: torch.Tensor,      # [B, H, T, D] (pre-scaled)
+    k: torch.Tensor,      # [B, H, S, D]
+    v: torch.Tensor,      # [B, H, S, D]
+    pos_q: torch.Tensor,  # [B, H, T, D] (pre-scaled)
+    pos_k: torch.Tensor,  # [B, H, S, D]
+    rel: Optional[torch.Tensor],  # [H, Tr >= T, Sr >= S] additive bias, or None
+    kpad: torch.Tensor,   # [B, S] bool, True = masked key
+    causal: bool = False,
+    skip_max: bool = False,
+) -> torch.Tensor:
+    """→ [B, H, T, D] in q's dtype. Plain version on CPU, CUDA kernel on CUDA."""
+    _check_shapes(q, k, v, pos_q, pos_k, rel, kpad)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, pos_q, pos_k, rel, kpad, causal, skip_max)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_inference: unsupported device {q.device}")
+    _build.require_cuda("flash_attention_inference",
+                        {"q": q, "k": k, "v": v, "pos_q": pos_q, "pos_k": pos_k}, _DTYPES)
+    # rel may be a row-strided view; only its rows must be contiguous
+    if rel is not None and (rel.device != q.device or rel.dtype != q.dtype or rel.stride(2) != 1):
+        raise ValueError("flash_attention_inference: rel must be on q's device, "
+                         "in q's dtype, with contiguous rows")
+    if kpad.device != q.device or not kpad.is_contiguous():
+        raise ValueError("flash_attention_inference: kpad must be contiguous on q's device")
+    B, H, T, D = q.shape
+    if D != HEAD_DIM:
+        raise NotImplementedError(f"flash_attention_inference: head dim {D} (kernel has {HEAD_DIM})")
+    S = k.shape[2]
+    out = torch.empty_like(q)
+    fn = _build.kernel_function("mk_flash_attention_infer", _SIG)
+    with torch.cuda.device(q.device):
+        err = fn(
+            int(q.dtype == torch.bfloat16),
+            q.data_ptr(), pos_q.data_ptr(), k.data_ptr(), pos_k.data_ptr(), v.data_ptr(),
+            rel.data_ptr() if rel is not None else None, kpad.data_ptr(), out.data_ptr(),
+            B, H, T, S,
+            rel.stride(0) if rel is not None else 0, rel.stride(1) if rel is not None else 0,
+            int(causal), int(skip_max), _build.stream_of(q),
+        )
+    _build.check(err, "flash_attention_inference")
+    flash_attention_inference.launches += 1
+    return out
+
+
+flash_attention_inference.launches = 0

@@ -1,0 +1,364 @@
+"""Parameters of the port: random init in the JAX layout, and the bridge from it.
+
+``init_ofa_params`` builds the JAX package's parameter tree (nested dicts,
+per-layer leaves stacked on a leading ``[L, ...]`` axis, linear weights
+``[din, dout]``, convolutions HWIO) from a ``torch.Generator``, with the JAX
+package's shapes and distributions. ``from_jax`` turns such a tree, with numpy
+or torch leaves, into the port's parameters:
+
+- stacked ``layers`` and the ResNet ``rest`` blocks become per-layer lists;
+- linear weights are transposed to ``[dout, din]`` for ``F.linear``;
+- convolutions become OIHW in ``channels_last`` memory;
+- every leaf lands in the dtype its consumer computes in, cast once here and
+  never per call: matmul and convolution weights, embeddings and the
+  encoder's rel-pos tables in the compute dtype; LayerNorm, BatchNorm, the
+  decoder's positional linears (its abs-pos and cross biases are fp32 in the
+  JAX model) and the decoder's rel-pos tables in fp32. The tied embedding is
+  kept twice: the fp32 master for the token gathers and a compute-dtype copy
+  ``embed_tokens_c`` for the output projection.
+
+Every leaf of the JAX tree is consumed exactly once; a missing, extra or twice
+consumed leaf raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first model option the port lacks."""
+    unsupported = {
+        "encoder_prompt": cfg.encoder_prompt,
+        "decoder_prompt": cfg.decoder_prompt,
+        "use_adapter": cfg.use_adapter,
+        "scale_attn": cfg.scale_attn,
+        "scale_fc": cfg.scale_fc,
+        "scale_heads": cfg.scale_heads,
+        "scale_resids": cfg.scale_resids,
+        "seq_parallel": cfg.seq_parallel,
+        "pipeline_microbatches": cfg.pipeline_microbatches > 0,
+        "interpolate_position": cfg.interpolate_position,
+        "decode_stack_kernel": cfg.decode_stack_kernel,
+        "decode_int8_kv_kernel": cfg.decode_int8_kv_kernel,
+        "use_flash_attention=False": not cfg.use_flash_attention,
+        f"activation_fn={cfg.activation_fn!r}": cfg.activation_fn != "gelu",
+    }
+    for name, on in unsupported.items():
+        if on:
+            raise NotImplementedError(f"musketeer_tpu_torch does not support {name}")
+
+
+# ---------------------------------------------------------------------------
+# random init in the JAX layout (mirrors models/ofa.py and models/resnet.py)
+# ---------------------------------------------------------------------------
+
+class _Init:
+    def __init__(self, generator: torch.Generator, device):
+        self.g = generator
+        self.device = device
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device)
+
+    def normal(self, shape, std: float) -> torch.Tensor:
+        t = torch.randn(shape, generator=self.g, device=self.g.device) * std
+        return self._out(t)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, device=self.device)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, device=self.device)
+
+    def linear(self, din: int, dout: int, gain: float = 1.0) -> Params:
+        # xavier uniform (fairseq Linear default), bias zero
+        bound = gain * math.sqrt(6.0 / (din + dout))
+        w = torch.rand((din, dout), generator=self.g, device=self.g.device)
+        return {"w": self._out(w * (2 * bound) - bound), "b": self.zeros((dout,))}
+
+    def ln(self, d: int) -> Params:
+        return {"scale": self.ones((d,)), "bias": self.zeros((d,))}
+
+    def embed(self, n: int, d: int) -> torch.Tensor:
+        return self.normal((n, d), d ** -0.5)
+
+    def attention(self, d: int) -> Params:
+        gain = 1.0 / math.sqrt(2.0)
+        return {
+            "q_proj": self.linear(d, d, gain),
+            "k_proj": self.linear(d, d, gain),
+            "v_proj": self.linear(d, d, gain),
+            "out_proj": self.linear(d, d),
+        }
+
+    def enc_layer(self, cfg: ModelConfig) -> Params:
+        d, f = cfg.embed_dim, cfg.ffn_dim
+        return {
+            "self_attn": self.attention(d),
+            "self_attn_layer_norm": self.ln(d),
+            "fc1": self.linear(d, f),
+            "fc2": self.linear(f, d),
+            "final_layer_norm": self.ln(d),
+        }
+
+    def dec_layer(self, cfg: ModelConfig) -> Params:
+        p = self.enc_layer(cfg)
+        p["encoder_attn"] = self.attention(cfg.embed_dim)
+        p["encoder_attn_layer_norm"] = self.ln(cfg.embed_dim)
+        return p
+
+    def conv(self, kh: int, kw: int, cin: int, cout: int) -> torch.Tensor:
+        # kaiming normal, fan_out, relu
+        return self.normal((kh, kw, cin, cout), math.sqrt(2.0 / (kh * kw * cout)))
+
+    def bn(self, c: int) -> Params:
+        return {"scale": self.ones((c,)), "bias": self.zeros((c,)),
+                "mean": self.zeros((c,)), "var": self.ones((c,))}
+
+    def block(self, cin: int, width: int, cout: int, downsample: bool) -> Params:
+        p = {
+            "conv1": self.conv(1, 1, cin, width), "bn1": self.bn(width),
+            "conv2": self.conv(3, 3, width, width), "bn2": self.bn(width),
+            "conv3": self.conv(1, 1, width, cout), "bn3": self.bn(cout),
+        }
+        if downsample:
+            p["downsample_conv"] = self.conv(1, 1, cin, cout)
+            p["downsample_bn"] = self.bn(cout)
+        return p
+
+    def resnet(self, layers) -> Params:
+        params: Params = {"conv1": self.conv(7, 7, 3, 64), "bn1": self.bn(64)}
+        inplanes = 64
+        for s, (blocks, planes) in enumerate(zip(layers, (64, 128, 256))):
+            cout = planes * 4
+            first = self.block(inplanes, planes, cout, downsample=True)
+            rest = [self.block(cout, planes, cout, False) for _ in range(1, blocks)]
+            params[f"layer{s + 1}"] = {"first": first, "rest": _stack(rest) if rest else None}
+            inplanes = cout
+        return params
+
+
+def _stack(trees: List[Params]) -> Params:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_ofa_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
+    """Random fp32 parameters in the JAX layout (``ofa.init_ofa_params``'s tree).
+
+    Same shapes and distributions as the JAX init, zero rel-pos tables and
+    zeroed padded-vocab rows; the numbers differ, since the generators do.
+    Draws on ``generator``'s device and moves the result to ``device``.
+    """
+    check_supported(cfg)
+    ini = _Init(generator, device)
+    d, V = cfg.embed_dim, cfg.padded_vocab_size
+    H, Le, Ld = cfg.attention_heads, cfg.encoder_layers, cfg.decoder_layers
+    embed_tokens = ini.embed(V, d)
+    embed_tokens[cfg.vocab_size:] = 0.0
+    return {
+        "embed_tokens": embed_tokens,
+        "encoder": {
+            "layernorm_embedding": ini.ln(d),
+            "patch_layernorm_embedding": ini.ln(d),
+            "type_embedding": ini.embed(2, d),
+            "embed_positions": ini.embed(cfg.max_source_positions + 2, d),
+            "embed_image_positions": ini.embed(cfg.image_bucket_size ** 2 + 1, d),
+            "pos_ln": ini.ln(d),
+            "image_pos_ln": ini.ln(d),
+            "pos_q_linear": ini.linear(d, d),
+            "pos_k_linear": ini.linear(d, d),
+            "image_proj": ini.linear(1024, d),
+            "resnet": ini.resnet(cfg.resnet_layers),
+            "layers": _stack([ini.enc_layer(cfg) for _ in range(Le)]),
+            "layer_norm": ini.ln(d),
+            "token_rel_pos_table": ini.zeros((Le, cfg.token_num_rel_dis, H)),
+            "image_rel_pos_table": ini.zeros((Le, cfg.image_num_rel_dis, H)),
+        },
+        "decoder": {
+            "layernorm_embedding": ini.ln(d),
+            "code_layernorm_embedding": ini.ln(d),
+            "embed_positions": ini.embed(cfg.max_target_positions + 2, d),
+            "embed_image_positions": ini.embed(cfg.image_bucket_size ** 2 + 1, d),
+            "pos_ln": ini.ln(d),
+            "image_pos_ln": ini.ln(d),
+            "self_pos_q_linear": ini.linear(d, d),
+            "self_pos_k_linear": ini.linear(d, d),
+            "cross_pos_q_linear": ini.linear(d, d),
+            "cross_pos_k_linear": ini.linear(d, d),
+            "layers": _stack([ini.dec_layer(cfg) for _ in range(Ld)]),
+            "layer_norm": ini.ln(d),
+            "token_rel_pos_table": ini.zeros((Ld, cfg.token_num_rel_dis, H)),
+            "image_rel_pos_table": ini.zeros((Ld, cfg.image_num_rel_dis, H)),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# the bridge
+# ---------------------------------------------------------------------------
+
+def _flatten(tree, prefix: str, out: Dict[str, Any]) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}/{k}" if prefix else str(k), out)
+    elif tree is not None:
+        out[prefix] = tree
+
+
+class _Leaves:
+    """The JAX tree's leaves by path; each may be taken exactly once."""
+
+    def __init__(self, tree: Params, device):
+        self.leaves: Dict[str, Any] = {}
+        _flatten(tree, "", self.leaves)
+        self.taken: set = set()
+        self.device = device
+
+    def take(self, path: str) -> torch.Tensor:
+        if path in self.taken:
+            raise ValueError(f"parameter {path!r} consumed twice")
+        if path not in self.leaves:
+            raise ValueError(f"parameter {path!r} missing from the JAX tree")
+        self.taken.add(path)
+        x = self.leaves.pop(path)
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
+        return t.to(device=self.device, dtype=torch.float32)
+
+    def finish(self) -> None:
+        if self.leaves:
+            raise ValueError(f"parameters not consumed: {sorted(self.leaves)}")
+
+
+def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) -> Params:
+    """JAX parameter tree (numpy or torch leaves) → the port's parameters."""
+    check_supported(cfg)
+    lv = _Leaves(params_np, device)
+    take = lv.take
+
+    def lin(path: str, dt=dtype) -> Params:
+        return {"w": take(f"{path}/w").t().contiguous().to(dt),
+                "b": take(f"{path}/b").to(dt)}
+
+    def ln(path: str) -> Params:
+        return {"scale": take(f"{path}/scale"), "bias": take(f"{path}/bias")}
+
+    def stacked(path: str, n: int, split) -> List:
+        """Per-layer values of the stacked leaf at ``path``, through ``split``."""
+        x = take(path)
+        if x.shape[0] != n:
+            raise ValueError(f"{path!r} stacks {x.shape[0]} layers, config says {n}")
+        return [split(x[i]) for i in range(n)]
+
+    def s_lin(path: str, n: int) -> List[Params]:
+        ws = stacked(f"{path}/w", n, lambda w: w.t().contiguous().to(dtype))
+        bs = stacked(f"{path}/b", n, lambda b: b.to(dtype))
+        return [{"w": w, "b": b} for w, b in zip(ws, bs)]
+
+    def s_ln(path: str, n: int) -> List[Params]:
+        sc = stacked(f"{path}/scale", n, lambda x: x)
+        bi = stacked(f"{path}/bias", n, lambda x: x)
+        return [{"scale": s, "bias": b} for s, b in zip(sc, bi)]
+
+    def s_attn(path: str, n: int) -> List[Params]:
+        parts = {k: s_lin(f"{path}/{k}", n) for k in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+    def layers(path: str, n: int, decoder: bool) -> List[Params]:
+        parts = {
+            "self_attn": s_attn(f"{path}/self_attn", n),
+            "self_attn_layer_norm": s_ln(f"{path}/self_attn_layer_norm", n),
+            "fc1": s_lin(f"{path}/fc1", n),
+            "fc2": s_lin(f"{path}/fc2", n),
+            "final_layer_norm": s_ln(f"{path}/final_layer_norm", n),
+        }
+        if decoder:
+            parts["encoder_attn"] = s_attn(f"{path}/encoder_attn", n)
+            parts["encoder_attn_layer_norm"] = s_ln(f"{path}/encoder_attn_layer_norm", n)
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+    def conv(w: torch.Tensor) -> torch.Tensor:  # HWIO → OIHW, channels_last
+        return w.permute(3, 2, 0, 1).to(dtype).contiguous(memory_format=torch.channels_last)
+
+    def bn(path: str) -> Params:
+        return {k: take(f"{path}/{k}") for k in ("scale", "bias", "mean", "var")}
+
+    def s_bn(path: str, n: int) -> List[Params]:
+        parts = {k: stacked(f"{path}/{k}", n, lambda x: x) for k in ("scale", "bias", "mean", "var")}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+    def block(path: str, downsample: bool) -> Params:
+        p = {}
+        for i in (1, 2, 3):
+            p[f"conv{i}"] = conv(take(f"{path}/conv{i}"))
+            p[f"bn{i}"] = bn(f"{path}/bn{i}")
+        if downsample:
+            p["downsample_conv"] = conv(take(f"{path}/downsample_conv"))
+            p["downsample_bn"] = bn(f"{path}/downsample_bn")
+        return p
+
+    def s_blocks(path: str, n: int) -> List[Params]:
+        parts = {}
+        for i in (1, 2, 3):
+            parts[f"conv{i}"] = stacked(f"{path}/conv{i}", n, conv)
+            parts[f"bn{i}"] = s_bn(f"{path}/bn{i}", n)
+        return [{k: v[j] for k, v in parts.items()} for j in range(n)]
+
+    resnet: Params = {"conv1": conv(take("encoder/resnet/conv1")), "bn1": bn("encoder/resnet/bn1")}
+    for s, blocks in enumerate(cfg.resnet_layers):
+        path = f"encoder/resnet/layer{s + 1}"
+        resnet[f"layer{s + 1}"] = [block(f"{path}/first", True)] + (
+            s_blocks(f"{path}/rest", blocks - 1) if blocks > 1 else []
+        )
+
+    embed_tokens = take("embed_tokens")
+    Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+    out: Params = {
+        "embed_tokens": embed_tokens,
+        "embed_tokens_c": embed_tokens.to(dtype),
+        "encoder": {
+            "layernorm_embedding": ln("encoder/layernorm_embedding"),
+            "patch_layernorm_embedding": ln("encoder/patch_layernorm_embedding"),
+            "type_embedding": take("encoder/type_embedding").to(dtype),
+            "embed_positions": take("encoder/embed_positions").to(dtype),
+            "embed_image_positions": take("encoder/embed_image_positions").to(dtype),
+            "pos_ln": ln("encoder/pos_ln"),
+            "image_pos_ln": ln("encoder/image_pos_ln"),
+            "pos_q_linear": lin("encoder/pos_q_linear"),
+            "pos_k_linear": lin("encoder/pos_k_linear"),
+            "image_proj": lin("encoder/image_proj"),
+            "resnet": resnet,
+            "layers": layers("encoder/layers", Le, decoder=False),
+            "layer_norm": ln("encoder/layer_norm"),
+            "token_rel_pos_table": take("encoder/token_rel_pos_table").to(dtype),
+            "image_rel_pos_table": take("encoder/image_rel_pos_table").to(dtype),
+        },
+        "decoder": {
+            "layernorm_embedding": ln("decoder/layernorm_embedding"),
+            "code_layernorm_embedding": ln("decoder/code_layernorm_embedding"),
+            "embed_positions": take("decoder/embed_positions").to(dtype),
+            "embed_image_positions": take("decoder/embed_image_positions").to(dtype),
+            "pos_ln": ln("decoder/pos_ln"),
+            "image_pos_ln": ln("decoder/image_pos_ln"),
+            "self_pos_q_linear": lin("decoder/self_pos_q_linear", torch.float32),
+            "self_pos_k_linear": lin("decoder/self_pos_k_linear", torch.float32),
+            "cross_pos_q_linear": lin("decoder/cross_pos_q_linear", torch.float32),
+            "cross_pos_k_linear": lin("decoder/cross_pos_k_linear", torch.float32),
+            "layers": layers("decoder/layers", Ld, decoder=True),
+            "layer_norm": ln("decoder/layer_norm"),
+            "token_rel_pos_table": take("decoder/token_rel_pos_table"),
+            "image_rel_pos_table": take("decoder/image_rel_pos_table"),
+        },
+    }
+    lv.finish()
+    return out

@@ -1,0 +1,140 @@
+"""Boundaries of the PyTorch port: no jax, a complete parameter bridge, restated
+host code equal to the JAX package's, and refusal of unported options."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import musketeer_tpu.config as jax_config
+from musketeer_tpu.models import ofa as jofa
+from musketeer_tpu.models import positions as jax_positions
+from musketeer_tpu_torch import config
+from musketeer_tpu_torch.generation import beam_search
+from musketeer_tpu_torch.models import ofa, positions
+from musketeer_tpu_torch.params import from_jax, init_ofa_params
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _tiny_cfgs():
+    cfg_j = dataclasses.replace(
+        jax_config.ofa_tiny(), dtype="float32", use_flash_attention=True,
+        encoder_layers=2, decoder_layers=2, resnet_layers=(2, 1, 2),
+    )
+    return cfg_j, config.ModelConfig(**dataclasses.asdict(cfg_j))
+
+
+def test_port_imports_no_jax():
+    """Every module of the port loads without jax or the JAX package (own process:
+    the test harness has already imported jax here)."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "musketeer_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'musketeer_tpu' or m.startswith('musketeer_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    assert len(modules) >= 10
+
+
+@pytest.mark.parametrize("cls", ["ModelConfig", "GenerationConfig"])
+def test_config_fields_match_jax(cls):
+    ours = {f.name: f.default for f in dataclasses.fields(getattr(config, cls))}
+    theirs = {f.name: f.default for f in dataclasses.fields(getattr(jax_config, cls))}
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("preset", ["ofa_tiny", "ofa_base"])
+def test_config_presets_match_jax(preset):
+    assert dataclasses.asdict(getattr(config, preset)()) == dataclasses.asdict(
+        getattr(jax_config, preset)())
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("make_token_bucket_position", (256, 1024)),
+    ("make_token_bucket_position", (256, 17)),
+    ("make_image_bucket_position", (42, (2 * 42 - 1) ** 2 + 3)),
+    ("encoder_image_position_ids", (30, 30, 42)),
+])
+def test_position_tables_match_jax(fn, args):
+    np.testing.assert_array_equal(getattr(positions, fn)(*args), getattr(jax_positions, fn)(*args))
+
+
+def _shapes(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_shapes(v, f"{prefix}/{k}"))
+        return out
+    return {} if tree is None else {prefix: tuple(tree.shape)}
+
+
+def test_init_params_tree_matches_jax():
+    cfg_j, cfg_t = _tiny_cfgs()
+    ref = _shapes(jax.eval_shape(lambda k: jofa.init_ofa_params(k, cfg_j), jax.random.PRNGKey(0)))
+    tree = init_ofa_params(cfg_t, torch.Generator().manual_seed(0), "cpu")
+    assert _shapes(tree) == ref
+    emb = tree["embed_tokens"]
+    assert (emb[cfg_t.vocab_size:] == 0).all() and (emb[: cfg_t.vocab_size] != 0).any()
+    assert abs(float(emb[: cfg_t.vocab_size].std()) - cfg_t.embed_dim ** -0.5) < 1e-3
+    bound = np.sqrt(6.0 / (2 * cfg_t.embed_dim)) / np.sqrt(2.0)
+    q_w = tree["encoder"]["layers"]["self_attn"]["q_proj"]["w"]
+    assert float(q_w.abs().max()) <= bound and float(q_w.abs().max()) > 0.9 * bound
+    assert not tree["encoder"]["token_rel_pos_table"].any()
+
+
+def test_from_jax_consumes_every_leaf_once():
+    cfg_j, cfg_t = _tiny_cfgs()
+    tree = init_ofa_params(cfg_t, torch.Generator().manual_seed(0), "cpu")
+    p = from_jax(tree, cfg_t, "cpu", torch.bfloat16)
+    assert p["encoder"]["layers"][0]["fc1"]["w"].shape == (cfg_t.ffn_dim, cfg_t.embed_dim)
+    assert p["encoder"]["layers"][1]["fc1"]["w"].dtype == torch.bfloat16
+    assert p["decoder"]["self_pos_q_linear"]["w"].dtype == torch.float32
+    assert p["embed_tokens"].dtype == torch.float32 and p["embed_tokens_c"].dtype == torch.bfloat16
+    assert [len(p["encoder"]["resnet"][f"layer{i}"]) for i in (1, 2, 3)] == [2, 1, 2]
+    assert p["encoder"]["resnet"]["conv1"].shape == (64, 3, 7, 7)
+
+    extra = dict(tree, stray=torch.zeros(3))
+    with pytest.raises(ValueError, match="stray"):
+        from_jax(extra, cfg_t, "cpu", torch.float32)
+    missing = dict(tree, decoder={k: v for k, v in tree["decoder"].items() if k != "pos_ln"})
+    with pytest.raises(ValueError, match="decoder/pos_ln"):
+        from_jax(missing, cfg_t, "cpu", torch.float32)
+
+
+@pytest.mark.parametrize("option", [
+    dict(encoder_prompt=True), dict(seq_parallel=True), dict(pipeline_microbatches=2),
+    dict(interpolate_position=True), dict(scale_attn=True), dict(use_flash_attention=False),
+    dict(decode_stack_kernel=True),
+])
+def test_unported_model_options_raise(option):
+    cfg = dataclasses.replace(_tiny_cfgs()[1], **option)
+    with pytest.raises(NotImplementedError, match=next(iter(option))):
+        ofa.encode({}, cfg, torch.zeros((1, 4), dtype=torch.long))
+
+
+@pytest.mark.parametrize("gen,kw", [
+    (dict(sampling=True), {}), (dict(diverse_beam_groups=2), {}), (dict(int8_cross_kv=True), {}),
+    (dict(constraint_range=(4, 10)), {}), ({}, dict(prefix_tokens=torch.zeros(1, 2))),
+    ({}, dict(n_models=2)),
+])
+def test_unported_search_options_raise(gen, kw):
+    cfg = _tiny_cfgs()[1]
+    enc = ofa.EncoderOut(torch.zeros(1, 3, cfg.embed_dim), torch.zeros(1, 3, dtype=torch.bool),
+                         torch.zeros(1, 3, cfg.embed_dim))
+    name = next(iter(gen or kw))
+    with pytest.raises(NotImplementedError, match=name):
+        beam_search({}, cfg, config.GenerationConfig(**gen), enc, max_len=4, **kw)
