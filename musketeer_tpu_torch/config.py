@@ -1,12 +1,14 @@
-"""Model and generation settings of the port, restated from ``musketeer_tpu.config``.
+"""Model, generation and training settings of the port, restated from
+``musketeer_tpu.config``.
 
 The port runs where the JAX package is absent, so it carries its own copy of
-the two frozen dataclasses it reads. Field names and defaults are those of
-``musketeer_tpu.config.ModelConfig`` and ``GenerationConfig``;
-``tests/test_torch_port_boundary.py`` holds them equal, so a JAX config
-converts with ``ModelConfig(**dataclasses.asdict(jax_cfg))``. Options the port
-does not implement stay here as fields so that the model can refuse them by
-name (``NotImplementedError``) instead of computing something else.
+the frozen dataclasses it reads. Field names and defaults are those of
+``musketeer_tpu.config.ModelConfig``, ``GenerationConfig``, ``OptimConfig``
+and ``CriterionConfig``; ``tests/test_torch_port_boundary.py`` holds them
+equal, so a JAX config converts with
+``ModelConfig(**dataclasses.asdict(jax_cfg))``. Options the port does not
+implement stay here as fields so that the model can refuse them by name
+(``NotImplementedError``) instead of computing something else.
 """
 
 from __future__ import annotations
@@ -135,3 +137,42 @@ class GenerationConfig:
     diversity_rate: float = 0.0
     int8_cross_kv: bool = False
     use_fast_path: bool = True
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """AdamW + polynomial decay with warmup (same fields as the JAX package's)."""
+
+    lr: float = 1e-4
+    end_lr: float = 0.0
+    warmup_updates: int = 1000
+    total_updates: int = 30000
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.01  # decoupled
+    clip_norm: float = 0.1
+    power: float = 1.0  # polynomial decay power
+    # dotted parameter-path prefixes excluded from training ("embed_tokens" is
+    # the one tied embedding)
+    freeze_params: tuple = ()
+
+
+@dataclass(frozen=True)
+class CriterionConfig:
+    """Label-smoothed cross-entropy options (same fields as the JAX package's)."""
+
+    label_smoothing: float = 0.1
+    ignore_prefix_size: int = 0
+    ignore_eos: bool = False
+    report_accuracy: bool = False
+    drop_worst_ratio: float = 0.0
+    drop_worst_after: int = 0
+    drop_best_ratio: float = 0.0
+    drop_best_after: int = 0
+    encouraging_log_end: Optional[float] = None
+    use_rdrop: bool = False
+    reg_alpha: float = 1.0
+    sample_patch_num: int = 196
+    constraint_start: Optional[int] = None
+    constraint_end: Optional[int] = None

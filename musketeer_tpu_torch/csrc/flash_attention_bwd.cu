@@ -1,0 +1,432 @@
+// K3 and K4: the training forward (with logsumexp) and the fused backward of
+// attention with decomposed positional bias, for sm_90a.
+//
+// K3 replaces musketeer_tpu/ops/flash_attention_bwd.py::_fwd (_fwd_kernel;
+// pallas_call at :265). It is K1's kernel (flash_fwd.cuh) with the per-row
+//   lse = m + log(l)      (log(max(l, 1e-38)) under skip_max)
+// written in fp32 beside the output.
+//
+// K4 replaces musketeer_tpu/ops/flash_attention_bwd.py::_bwd
+// (_bwd_kernel_fused; pallas_call at :388). With P rebuilt from lse,
+//   P  = exp(w - lse),   w = [q|pos_q].[k|pos_k]^T + rel + masks
+//   dW = P o (dO.v^T - rowsum(dO o O))
+//   [dq|dpos_q] = dW.[k|pos_k]      [dk|dpos_k] = dW^T.[q|pos_q]
+//   dv = P^T.dO                      drel = sum_b dW
+// everything in fp32 (P is not rounded in the backward, as on the TPU) and
+// the outputs rounded once to the input dtype; drel comes out in fp32.
+//
+// Translation. On the TPU one kernel carries dk/dv/dpos_k across its
+// sequential q-tile grid axis and sums drel over an in-cell batch loop. An
+// H100 runs blocks in no order and carries nothing between them, so the
+// backward is three launches, each of which writes every output element
+// exactly once (deterministic, no atomics):
+//   1. dsum: rowsum(dO o O) per query row (one warp a row);
+//   2. key-major: one block per (b, h, 64-key tile) loops over the q tiles
+//      and writes dk, dpos_k and dv;
+//   3. query-major: one block per (h, 64-row q tile) loops over the batch
+//      and the key tiles and writes dq, dpos_q per batch row and the drel
+//      tile summed over the batch in order; without drel (cross attention)
+//      the batch is a grid axis.
+// P and dW are recomputed in both 2 and 3: that costs a second 128-deep score
+// dot and a 64-deep dO.v^T dot over every tile, in return for no carried
+// state and no atomics. Causally masked tiles are not skipped: on a row whose
+// every key is masked the saved lse rounds to -1e9 in fp32, so P = 1 on all
+// of its columns, as in the TPU kernel, and those columns carry gradient.
+//
+// Bound. At the encoder train shape (B4 H12 T=S=980 D64) the key-major
+// launch does 17.7 G fp32 multiply-adds (384-deep per score: 128 + 64 to
+// rebuild P and dW, 64 for dv, 128 for [dk|dpos_k]) and the query-major one
+// 14.8 G (320-deep), against ~50 MB of streams, the 23 MB rel and a 46 MB
+// fp32 drel read-modify-write per batch row: ~0.4 GB in all, so the call is
+// bound by the CUDA cores' fp32 FMA rate (~67 TFLOP/s), like K1.
+// Each thread owns a 4x4 tile of P/dW and a 4x8 (or 4x4) tile of its
+// gradient accumulators; shared row strides are padded by one word against
+// bank conflicts. wgmma tiles are the next step.
+#include "flash_fwd.cuh"
+
+namespace {
+
+using mk::to_f;
+
+constexpr int D = mk::flash_fwd::D;
+constexpr int D2 = mk::flash_fwd::D2;
+constexpr int BQ = mk::flash_fwd::BQ;  // query rows per tile
+constexpr int BK = mk::flash_fwd::BK;  // keys per tile
+constexpr int NT = mk::flash_fwd::NT;  // 16 x 16 threads
+constexpr int QS = D2 + 1;
+constexpr int VS = D + 1;
+constexpr int PS = BK + 1;
+constexpr float NEG = mk::flash_fwd::NEG;
+
+constexpr int KV_SMEM_FLOATS = BK * QS + BK * VS + BQ * QS + BQ * VS + 2 * BQ * PS + 2 * BQ;
+constexpr int Q_SMEM_FLOATS = BQ * QS + BQ * VS + BK * QS + BK * VS + BQ * PS + 2 * BQ;
+
+// delta[row] = sum_d dO[row, d] * O[row, d] in fp32; one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(256) dsum_kernel(const T* __restrict__ o,
+                                                   const T* __restrict__ dout,
+                                                   float* __restrict__ delta, long long rows) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // a whole warp leaves together
+  const T* op = o + row * D;
+  const T* gp = dout + row * D;
+  float s = to_f(gp[lane]) * to_f(op[lane]) + to_f(gp[lane + 32]) * to_f(op[lane + 32]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+// Rows [r0, r0 + 64) of a [rows, D] stream pair (x | y) into a shared
+// [64][QS] tile, zeros past `rows`.
+template <typename T>
+__device__ __forceinline__ void load_pair(float* dst, const T* x, const T* y, int r0, int rows) {
+  for (int i = threadIdx.x; i < 64 * D; i += NT) {
+    const int r = i / D, c = i % D, t = r0 + r;
+    float a = 0.f, p = 0.f;
+    if (t < rows) {
+      a = to_f(x[(long long)t * D + c]);
+      p = to_f(y[(long long)t * D + c]);
+    }
+    dst[r * QS + c] = a;
+    dst[r * QS + D + c] = p;
+  }
+}
+
+// Rows [r0, r0 + 64) of a [rows, D] stream into a shared [64][VS] tile.
+template <typename T>
+__device__ __forceinline__ void load_one(float* dst, const T* x, int r0, int rows) {
+  for (int i = threadIdx.x; i < 64 * D; i += NT) {
+    const int r = i / D, c = i % D, t = r0 + r;
+    dst[r * VS + c] = t < rows ? to_f(x[(long long)t * D + c]) : 0.f;
+  }
+}
+
+// For the thread's 4x4 entries (query row q0 + ty + 16i, key k0 + tx + 16j)
+// of one (q tile, key tile) pair: P = exp(w - lse) and dW = P (dP - delta),
+// with P = 0 past the ends of the query rows and the keys.
+template <typename T>
+__device__ __forceinline__ void probs_and_dw(
+    const float* qs, const float* ks, const float* dos, const float* vs, const float* lse_s,
+    const float* dl_s, const T* relh, long long rel_rs, const uint8_t* kp, int q0, int k0,
+    int Tq, int S, int causal, float p[4][4], float dw[4][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float sc[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D2; ++d) {
+    float a[4], c[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QS + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * QS + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
+  }
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[4], c[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = dos[(ty + 16 * i) * VS + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = vs[(tx + 16 * j) * VS + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(a[i], c[j], dp[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i, t = q0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = k0 + tx + 16 * j;
+      float pv = 0.f;
+      if (t < Tq && s < S) {
+        float w = sc[i][j];
+        if (relh) w += to_f(relh[t * rel_rs + s]);
+        if (causal && s > t) w = NEG;
+        if (kp[s]) w = NEG;
+        pv = expf(w - lse_s[r]);
+      }
+      p[i][j] = pv;
+      dw[i][j] = pv * (dp[i][j] - dl_s[r]);
+    }
+  }
+}
+
+// dk, dpos_k, dv for one (b, h, 64-key tile).
+template <typename T>
+__global__ void __launch_bounds__(NT) bwd_kv_kernel(
+    const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
+    const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
+    const uint8_t* __restrict__ kpad, const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dpk,
+    T* __restrict__ dv, int H, int Tq, int S, long long rel_hs, long long rel_rs, int causal) {
+  extern __shared__ float smem[];
+  float* ks = smem;             // [BK][QS]  k | pos_k of this block's keys
+  float* vs = ks + BK * QS;     // [BK][VS]
+  float* qs = vs + BK * VS;     // [BQ][QS]  q | pos_q of the current q tile
+  float* dos = qs + BQ * QS;    // [BQ][VS]  dO
+  float* ps = dos + BQ * VS;    // [BQ][PS]  P
+  float* ws = ps + BQ * PS;     // [BQ][PS]  dW
+  float* lse_s = ws + BQ * PS;  // [BQ]
+  float* dl_s = lse_s + BQ;     // [BQ]
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const T* relh = rel ? rel + h * rel_hs : nullptr;
+  const uint8_t* kp = kpad + (long long)b * S;
+  load_pair(ks, k + bh * S * D, pk + bh * S * D, k0, S);
+  load_one(vs, v + bh * S * D, k0, S);
+
+  float adk[4][8], adv[4][4];  // key rows ty + 16i; columns tx + 16c
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) adk[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) adv[i][c] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < Tq; q0 += BQ) {
+    __syncthreads();  // the previous q tile's shared reads are done
+    load_pair(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
+    load_one(dos, dout + bh * Tq * D, q0, Tq);
+    for (int i = threadIdx.x; i < BQ; i += NT) {
+      const int t = q0 + i;
+      lse_s[i] = t < Tq ? lse[bh * Tq + t] : 0.f;
+      dl_s[i] = t < Tq ? delta[bh * Tq + t] : 0.f;
+    }
+    __syncthreads();
+
+    float p[4][4], dw[4][4];
+    probs_and_dw(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p, dw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ps[(ty + 16 * i) * PS + tx + 16 * j] = p[i][j];
+        ws[(ty + 16 * i) * PS + tx + 16 * j] = dw[i][j];
+      }
+    __syncthreads();
+
+    // dv[key] += sum_r P[r][key] dO[r];  [dk|dpos_k][key] += sum_r dW[r][key] [q|pos_q][r]
+#pragma unroll 2
+    for (int r = 0; r < BQ; ++r) {
+      float pa[4], wa[4], g[4], x[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[i] = ps[r * PS + ty + 16 * i];
+        wa[i] = ws[r * PS + ty + 16 * i];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) g[c] = dos[r * VS + tx + 16 * c];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) x[c] = qs[r * QS + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) adv[i][c] = fmaf(pa[i], g[c], adv[i][c]);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) adk[i][c] = fmaf(wa[i], x[c], adk[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = k0 + ty + 16 * i;
+    if (s >= S) continue;
+    const long long row = (bh * S + s) * D;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dk[row + tx + 16 * c] = mk::from_f<T>(adk[i][c]);
+      dpk[row + tx + 16 * c] = mk::from_f<T>(adk[i][c + 4]);
+      dv[row + tx + 16 * c] = mk::from_f<T>(adv[i][c]);
+    }
+  }
+}
+
+// dq, dpos_q (and the drel tile) for one (h, 64-row q tile) over batch rows
+// [b0, b1): all of them when drel is wanted, else blockIdx.z alone.
+template <typename T>
+__global__ void __launch_bounds__(NT) bwd_q_kernel(
+    const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
+    const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
+    const uint8_t* __restrict__ kpad, const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, T* __restrict__ dpq,
+    float* __restrict__ drel, int B, int H, int Tq, int S, long long rel_hs, long long rel_rs,
+    int causal) {
+  extern __shared__ float smem[];
+  float* qs = smem;             // [BQ][QS]  q | pos_q of this block's rows
+  float* dos = qs + BQ * QS;    // [BQ][VS]
+  float* ks = dos + BQ * VS;    // [BK][QS]  k | pos_k of the current key tile
+  float* vs = ks + BK * QS;     // [BK][VS]
+  float* ws = vs + BK * VS;     // [BQ][PS]  dW
+  float* lse_s = ws + BQ * PS;  // [BQ]
+  float* dl_s = lse_s + BQ;     // [BQ]
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y;
+  const int b0 = drel ? 0 : blockIdx.z, b1 = drel ? B : b0 + 1;
+  const T* relh = rel ? rel + h * rel_hs : nullptr;
+
+  for (int b = b0; b < b1; ++b) {
+    const long long bh = (long long)b * H + h;
+    const uint8_t* kp = kpad + (long long)b * S;
+    __syncthreads();  // the previous batch row's shared reads are done
+    load_pair(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
+    load_one(dos, dout + bh * Tq * D, q0, Tq);
+    for (int i = threadIdx.x; i < BQ; i += NT) {
+      const int t = q0 + i;
+      lse_s[i] = t < Tq ? lse[bh * Tq + t] : 0.f;
+      dl_s[i] = t < Tq ? delta[bh * Tq + t] : 0.f;
+    }
+
+    float adq[4][8];  // query rows ty + 16i; [dq|dpos_q] columns tx + 16c
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) adq[i][c] = 0.f;
+
+    for (int k0 = 0; k0 < S; k0 += BK) {
+      __syncthreads();  // the previous key tile's shared reads are done
+      load_pair(ks, k + bh * S * D, pk + bh * S * D, k0, S);
+      load_one(vs, v + bh * S * D, k0, S);
+      __syncthreads();
+
+      float p[4][4], dw[4][4];
+      probs_and_dw(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p,
+                   dw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = q0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s = k0 + tx + 16 * j;
+          ws[(ty + 16 * i) * PS + tx + 16 * j] = dw[i][j];
+          // this block alone owns drel[h, q tile, :]: batch rows add in order
+          if (drel && t < Tq && s < S) drel[((long long)h * Tq + t) * S + s] += dw[i][j];
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 2
+      for (int j = 0; j < BK; ++j) {
+        float wa[4], x[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wa[i] = ws[(ty + 16 * i) * PS + j];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) x[c] = ks[j * QS + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) adq[i][c] = fmaf(wa[i], x[c], adq[i][c]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = q0 + ty + 16 * i;
+      if (t >= Tq) continue;
+      const long long row = (bh * Tq + t) * D;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dq[row + tx + 16 * c] = mk::from_f<T>(adq[i][c]);
+        dpq[row + tx + 16 * c] = mk::from_f<T>(adq[i][c + 4]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, const void* v,
+               const void* rel, const void* kpad, const void* o, const void* dout,
+               const float* lse, float* delta, void* dq, void* dpq, void* dk, void* dpk,
+               void* dv, float* drel, int B, int H, int Tq, int S, long long rel_hs,
+               long long rel_rs, int causal, cudaStream_t stream) {
+  const size_t kv_smem = KV_SMEM_FLOATS * sizeof(float);
+  const size_t q_smem = Q_SMEM_FLOATS * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_kv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_q_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_smem);
+  if (err != cudaSuccess) return (int)err;
+
+  const long long rows = (long long)B * H * Tq;
+  dsum_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const T* qt = static_cast<const T*>(q);
+  const T* pqt = static_cast<const T*>(pq);
+  const T* kt = static_cast<const T*>(k);
+  const T* pkt = static_cast<const T*>(pk);
+  const T* vt = static_cast<const T*>(v);
+  const T* relt = static_cast<const T*>(rel);
+  const T* dot = static_cast<const T*>(dout);
+  const uint8_t* kp = static_cast<const uint8_t*>(kpad);
+  bwd_kv_kernel<T><<<dim3((S + BK - 1) / BK, H, B), NT, kv_smem, stream>>>(
+      qt, pqt, kt, pkt, vt, relt, kp, dot, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dpk), static_cast<T*>(dv), H, Tq, S, rel_hs, rel_rs, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  bwd_q_kernel<T><<<dim3((Tq + BQ - 1) / BQ, H, drel ? 1 : B), NT, q_smem, stream>>>(
+      qt, pqt, kt, pkt, vt, relt, kp, dot, lse, delta, static_cast<T*>(dq),
+      static_cast<T*>(dpq), drel, B, H, Tq, S, rel_hs, rel_rs, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K3. bf16 != 0 selects __nv_bfloat16 streams, else float. rel may be null
+// (cross attention); kpad is bool [B, S]; lse is fp32 [B, H, Tq].
+extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q,
+                                      const void* k, const void* pos_k, const void* v,
+                                      const void* rel, const void* kpad, void* out, void* lse,
+                                      int B, int H, int Tq, int S, long long rel_head_stride,
+                                      long long rel_row_stride, int causal, int skip_max,
+                                      void* stream) {
+  using mk::flash_fwd::launch;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto l = static_cast<float*>(lse);
+  if (bf16)
+    return launch<__nv_bfloat16, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B, H, Tq, S,
+                                       rel_head_stride, rel_row_stride, causal, skip_max, st);
+  return launch<float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B, H, Tq, S,
+                             rel_head_stride, rel_row_stride, causal, skip_max, st);
+}
+
+// K4. Streams as K3's plus the forward output o, its cotangent dout and K3's
+// lse; delta is fp32 scratch [B, H, Tq]; drel is a zeroed fp32 [H, Tq, S]
+// buffer that receives sum_b dW, or null when rel needs no gradient.
+extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q,
+                                      const void* k, const void* pos_k, const void* v,
+                                      const void* rel, const void* kpad, const void* o,
+                                      const void* dout, const void* lse, void* delta, void* dq,
+                                      void* dpos_q, void* dk, void* dpos_k, void* dv,
+                                      void* drel, int B, int H, int Tq, int S,
+                                      long long rel_head_stride, long long rel_row_stride,
+                                      int causal, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto l = static_cast<const float*>(lse);
+  auto dl = static_cast<float*>(delta);
+  auto dr = static_cast<float*>(drel);
+  if (bf16)
+    return launch_bwd<__nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq,
+                                     dpos_q, dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
+                                     rel_row_stride, causal, st);
+  return launch_bwd<float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q, dk,
+                           dpos_k, dv, dr, B, H, Tq, S, rel_head_stride, rel_row_stride,
+                           causal, st);
+}

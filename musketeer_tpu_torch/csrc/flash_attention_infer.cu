@@ -1,208 +1,10 @@
 // K1: forward-only attention with decomposed positional bias, for sm_90a.
 //
 // Replaces the Pallas kernel musketeer_tpu/ops/flash_attention_infer.py::
-// flash_attention_inference (_kernel; pallas_call at :143). Per (b, h):
-//   out = softmax(q.k^T + pos_q.pos_k^T + rel[h] + causal/pad masks) . v
-// with the TPU kernel's numerics: fp32 scores, masks as the finite -1e9 (a
-// fully masked row gives the mean of v), probabilities rounded to v's dtype
-// before P.v, normalisation after it; skip_max drops the running max and
-// floors the denominator at 1e-38.
-//
-// Translation. The TPU grid walks (batch chunk, head, 128-row q tile) in
-// order and holds all S keys of a head in VMEM. Here one block owns one
-// (b, h, 64-row q tile) and loops over 64-key tiles with an online softmax
-// (running max and sum in fp32, accumulator rescaled), so nothing depends on
-// block order and shared memory holds one key tile at a time. The two
-// 64-deep score dots are one 128-deep dot over [q|pos_q].[k|pos_k] staged in
-// shared memory. rel is read in place through its own head and row strides,
-// so a rel wider than S (as the JAX encoder composes it) needs no copy.
-//
-// Bound. At the caption encoder shape (B16 H12 T=S=908 D64, bf16) a call
-// reads ~112 MB of q/k/v/pos streams plus a 20 MB rel and does ~30 G
-// multiply-adds (10.1 G each for q.k^T, pos_q.pos_k^T and P.v): ~400 flop
-// per byte, above the H100's ridge, so the call is compute bound. This first
-// version does the products as fp32 FMAs on the CUDA cores (no wgmma yet):
-// each thread owns a 4x4 tile of scores and of outputs, which gives 16 FMAs
-// per 8 shared-memory loads; row strides padded by one word keep the column
-// reads free of bank conflicts. Its floor is the fp32 FMA rate (~67 TFLOP/s),
-// about 1 ms a call; tensor-core MMAs are the next step.
-#include <stdint.h>
-
-#include "common.cuh"
-
-namespace {
-
-constexpr int D = 64;          // head dim
-constexpr int D2 = 2 * D;      // depth of [q|pos_q]
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per tile
-constexpr int NT = 256;        // threads: 16 x 16, each a 4x4 tile
-constexpr int QS = D2 + 1;     // shared row strides, +1 word against bank conflicts
-constexpr int VS = D + 1;
-constexpr int PS = BK + 1;
-constexpr int SMEM_FLOATS = BQ * QS + BK * QS + BK * VS + BQ * PS;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
-constexpr float NEG = -1e9f;
-
-template <typename T>
-__global__ void __launch_bounds__(NT) flash_infer_kernel(
-    const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
-    const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
-    const uint8_t* __restrict__ kpad, T* __restrict__ out, int H, int Tq, int S,
-    long long rel_hs, long long rel_rs, int causal, int skip_max) {
-  extern __shared__ float smem[];
-  float* qs = smem;            // [BQ][QS]  q | pos_q
-  float* ks = qs + BQ * QS;    // [BK][QS]  k | pos_k
-  float* vs = ks + BK * QS;    // [BK][VS]
-  float* ps = vs + BK * VS;    // [BQ][PS]  probabilities, rounded to T
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // rows ty + 16 i, columns tx + 16 j
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * H + h;
-  const T* qb = q + bh * Tq * D;
-  const T* pqb = pq + bh * Tq * D;
-  const T* kb = k + bh * S * D;
-  const T* pkb = pk + bh * S * D;
-  const T* vb = v + bh * S * D;
-  const uint8_t* kp = kpad + (long long)b * S;
-  const T* relh = rel ? rel + h * rel_hs : nullptr;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D, t = q0 + r;
-    float a = 0.f, p = 0.f;
-    if (t < Tq) {
-      a = mk::to_f(qb[(long long)t * D + c]);
-      p = mk::to_f(pqb[(long long)t * D + c]);
-    }
-    qs[r * QS + c] = a;
-    qs[r * QS + D + c] = p;
-  }
-
-  float m[4], l[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = skip_max ? 0.f : -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D, s = k0 + r;
-      float a = 0.f, p = 0.f, w = 0.f;
-      if (s < S) {
-        a = mk::to_f(kb[(long long)s * D + c]);
-        p = mk::to_f(pkb[(long long)s * D + c]);
-        w = mk::to_f(vb[(long long)s * D + c]);
-      }
-      ks[r * QS + c] = a;
-      ks[r * QS + D + c] = p;
-      vs[r * VS + c] = w;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D2; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, t = q0 + r;
-      float tmax = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = k0 + tx + 16 * j;
-        float w = -CUDART_INF_F;  // past the end: no part of the softmax
-        if (s < S) {
-          w = sc[i][j];
-          if (relh && t < Tq) w += mk::to_f(relh[t * rel_rs + s]);
-          if (causal && s > t) w = NEG;
-          if (kp[s]) w = NEG;
-        }
-        sc[i][j] = w;
-        tmax = fmaxf(tmax, w);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float mnew = skip_max ? 0.f : fmaxf(m[i], tmax);
-      const float scale = skip_max ? 1.f : expf(m[i] - mnew);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(sc[i][j] - mnew);
-        rs += e;  // the denominator sums the unrounded e, as the TPU kernel does
-        ps[r * PS + tx + 16 * j] = mk::round_to<T>(e);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * scale + rs;
-      m[i] = mnew;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= scale;
-    }
-    __syncthreads();  // ps complete
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = vs[c * VS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= Tq) continue;
-    const float denom = skip_max ? fmaxf(l[i], 1e-38f) : l[i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[(bh * Tq + t) * D + tx + 16 * j] = mk::from_f<T>(acc[i][j] / denom);
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
-           const void* rel, const void* kpad, void* out, int B, int H, int Tq, int S,
-           long long rel_hs, long long rel_rs, int causal, int skip_max, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_infer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_infer_kernel<T><<<grid, NT, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pq), static_cast<const T*>(k),
-      static_cast<const T*>(pk), static_cast<const T*>(v), static_cast<const T*>(rel),
-      static_cast<const uint8_t*>(kpad), static_cast<T*>(out), H, Tq, S, rel_hs, rel_rs,
-      causal, skip_max);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+// flash_attention_inference (_kernel; pallas_call at :143). The kernel, its
+// numerics, its translation from the TPU and what bounds it are described in
+// flash_fwd.cuh, which K3 shares (K3 also writes the per-row logsumexp).
+#include "flash_fwd.cuh"
 
 // bf16 != 0 selects __nv_bfloat16 streams, else float. rel may be null
 // (cross attention); kpad is bool [B, S]. Returns cudaGetLastError().
@@ -212,10 +14,12 @@ extern "C" int mk_flash_attention_infer(int bf16, const void* q, const void* pos
                                         int H, int Tq, int S, long long rel_head_stride,
                                         long long rel_row_stride, int causal, int skip_max,
                                         void* stream) {
+  using mk::flash_fwd::launch;
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S,
-                                 rel_head_stride, rel_row_stride, causal, skip_max, st);
-  return launch<float>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, rel_head_stride,
-                       rel_row_stride, causal, skip_max, st);
+    return launch<__nv_bfloat16, false>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B, H,
+                                        Tq, S, rel_head_stride, rel_row_stride, causal,
+                                        skip_max, st);
+  return launch<float, false>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B, H, Tq, S,
+                              rel_head_stride, rel_row_stride, causal, skip_max, st);
 }

@@ -92,7 +92,7 @@ def beam_search(
     ngram = gen_cfg.no_repeat_ngram_size
 
     state = ofa.init_decoder_state(params, cfg, encoder_out, max_len=max_len + 1, beam_size=K)
-    w_proj = params["embed_tokens_c"]  # cast to the compute dtype once, at load
+    w_proj = ofa.output_weight(params, ofa.compute_dtype(cfg))  # cast once, not per step
     nb_sel = min(2 * K + 2 + (T - ngram + 1 if ngram > 0 else 0), Vp // 128)
 
     def length_norm(step: int) -> float:

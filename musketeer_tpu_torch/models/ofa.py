@@ -1,19 +1,30 @@
-"""OFA encoder and incremental decoder in PyTorch (port of ``models/ofa.py``).
+"""OFA encoder and decoders in PyTorch (port of ``models/ofa.py``).
 
-The caption-inference slice of the JAX model: ``encode`` on its flash branch
-(every encoder self-attention through K1, ``ops/flash_attention_infer.py``),
-and ``init_decoder_state`` / ``decode_step`` / ``output_layer`` on the
-incremental, cached branch with the beam-shared cross cache. Public layouts
-are the JAX package's: NHWC images, ``[B, H, T, hd]`` head tensors, self caches
-``[L, rows, H, Tmax, hd]``, cross caches ``[L, B, H, S, hd]``.
+The JAX model's flash branch: ``encode`` (inference, or training with dropout
+and drop-path from a ``torch.Generator``), the teacher-forced ``decode`` and
+``forward`` that training runs, and ``init_decoder_state`` / ``decode_step`` /
+``output_layer`` on the incremental, cached branch with the beam-shared cross
+cache. Every attention goes through ``ops/flash_attention_bwd.py::
+flash_attention``: K1 where autograd tracks nothing, K3 forward and K4
+backward where it does. Public layouts are the JAX package's: NHWC images,
+``[B, H, T, hd]`` head tensors, self caches ``[L, rows, H, Tmax, hd]``, cross
+caches ``[L, B, H, S, hd]``.
+
+Parameters may be an inference tree (``params.from_jax``: weights stored in
+the compute dtype) or a training tree (``params.trainable``: fp32 masters);
+the model casts each weight to its input's dtype where it uses it, as the JAX
+model does, which is a no-op on an inference tree.
 
 Numerics kept from the JAX model: attention scale ``(hd·2)^-0.5``, erf gelu,
 LayerNorm in fp32 with eps 1e-5, no positions added to encoder embeddings and
 always to decoder embeddings (``decoder_entangle_positions``), padded encoder
-embeddings zeroed, decoder self-attention masked with the finite −1e9 and
-cross-attention with −inf (NaN rows → 0), the decoder's abs-pos and cross
-biases in fp32. The JAX encoder pads its rel bias to the TPU kernel's tiles;
-here rel is composed at ``[H, S, S]``.
+embeddings zeroed. The incremental decoder masks self-attention with the
+finite −1e9 and cross-attention with −inf (NaN rows → 0) and keeps its abs-pos
+and rel biases in fp32; the teacher-forced decoder, like the JAX flash
+branch, projects positions and gathers its rel table in the compute dtype.
+The JAX encoder pads its rel bias to the TPU kernel's tiles; here rel is
+composed at ``[H, S, S]``. The JAX model draws every layer's dropout masks
+from one key; here each draw advances the generator (ROADMAP §3).
 
 ``decode_step`` writes the step's K/V into the self cache in place and
 returns the same state object.
@@ -21,14 +32,14 @@ returns the same state object.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..ops.flash_attention_infer import flash_attention_inference
+from ..ops.flash_attention_bwd import flash_attention
 from ..params import check_supported
 from . import positions as pos_lib
 from .resnet import resnet_forward
@@ -60,7 +71,7 @@ def _index(a: np.ndarray, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, p["w"], p["b"])
+    return F.linear(x, p["w"].to(x.dtype), p["b"].to(x.dtype))
 
 
 def _layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -70,6 +81,39 @@ def _layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
+
+
+def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+             deterministic: bool) -> torch.Tensor:
+    if deterministic or rate == 0.0 or gen is None:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _drop_path(x: torch.Tensor, rate: Optional[float], gen: Optional[torch.Generator],
+               deterministic: bool) -> torch.Tensor:
+    """Stochastic depth: drop the whole residual branch per sample."""
+    if deterministic or gen is None or rate is None:
+        return x
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / max(1.0 - rate, 1e-6), 0.0)
+
+
+def _drop_path_rates(rate: float, layers: int, on: bool) -> List[Optional[float]]:
+    """Per-layer rates, linear over depth in fp32 as ``jnp.linspace`` gives them."""
+    if not on:
+        return [None] * layers
+    return torch.linspace(0.0, rate, layers, dtype=torch.float32).tolist()
+
+
+def _check_train_mode(cfg: ModelConfig, deterministic: bool, train_bn: bool = False) -> None:
+    # the JAX model leaves its flash branch for these; the port has only that branch
+    if not deterministic and cfg.attention_dropout > 0.0:
+        raise NotImplementedError("musketeer_tpu_torch does not support attention_dropout in training")
+    if train_bn:
+        raise NotImplementedError("musketeer_tpu_torch does not support train_bn")
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -111,33 +155,39 @@ def _pos_proj(lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig, scale_q: b
 
 
 def _rel_gather(table: torch.Tensor, rp: torch.Tensor) -> torch.Tensor:
-    """table ``[L, Vb, H]`` gathered by bucket ids ``rp [T, T]`` → ``[L, H, T, T]``."""
+    """table ``[L, Vb, H]`` gathered by bucket ids ``rp [T, T]`` → ``[L, H, T, T]``,
+    contiguous (the attention kernels read rel rows in place)."""
     L, Vb, H = table.shape
     T = rp.shape[0]
     flat = table.permute(1, 0, 2).reshape(Vb, L * H)[rp.reshape(-1)]
-    return flat.view(T, T, L, H).permute(2, 3, 0, 1)
+    return flat.view(T, T, L, H).permute(2, 3, 0, 1).contiguous()
 
 
-def _flash_self_attn(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, kpad, causal: bool):
+def _flash_attn(p: Params, cfg: ModelConfig, x, kv, pos_q, pos_k, rel, kpad, causal: bool):
+    """Self (``kv`` is ``x``) or cross attention through ``flash_attention``."""
     H = cfg.attention_heads
     scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
     q = _linear_heads(p["q_proj"], x, H) * scaling
-    k = _linear_heads(p["k_proj"], x, H)
-    v = _linear_heads(p["v_proj"], x, H)
-    out = flash_attention_inference(
+    k = _linear_heads(p["k_proj"], kv, H)
+    v = _linear_heads(p["v_proj"], kv, H)
+    out = flash_attention(
         q, k, v, pos_q, pos_k, rel, kpad, causal=causal,
         skip_max=cfg.flash_skip_max_subtract,
     )
     return _out_proj_heads(p["out_proj"], out)
 
 
-def _encoder_layer(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, padding_mask):
+def _encoder_layer(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, padding_mask,
+                   gen=None, deterministic=True, dp_rate=None):
     """Pre-LN encoder block, flash branch."""
     h = _layer_norm(p["self_attn_layer_norm"], x)
-    x = x + _flash_self_attn(p["self_attn"], cfg, h, pos_q, pos_k, rel, padding_mask, causal=False)
+    h = _flash_attn(p["self_attn"], cfg, h, h, pos_q, pos_k, rel, padding_mask, causal=False)
+    h = _dropout(h, cfg.dropout, gen, deterministic)
+    x = x + _drop_path(h, dp_rate, gen, deterministic)
     h = _layer_norm(p["final_layer_norm"], x)
-    h = _linear(p["fc2"], _gelu(_linear(p["fc1"], h)))
-    return x + h
+    h = _dropout(_gelu(_linear(p["fc1"], h)), cfg.activation_dropout, gen, deterministic)
+    h = _dropout(_linear(p["fc2"], h), cfg.dropout, gen, deterministic)
+    return x + _drop_path(h, dp_rate, gen, deterministic)
 
 
 def encode(
@@ -147,9 +197,18 @@ def encode(
     patch_images: Optional[torch.Tensor] = None,  # [B, Himg, Wimg, 3]
     patch_masks: Optional[torch.Tensor] = None,  # [B] bool, False = no image
     sample_patch_order: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    train_bn: bool = False,
+    resnet_feats: Optional[torch.Tensor] = None,  # [B, h, w, C] precomputed stem output
 ) -> EncoderOut:
-    """Joint image + text encoder forward (inference, flash branch)."""
+    """Joint image + text encoder forward (flash branch).
+
+    ``deterministic=False`` with a ``generator`` applies dropout and
+    drop-path; ``resnet_feats`` bypasses the ResNet stem with feature maps
+    computed for several tasks at once (the joint step's stem packing)."""
     check_supported(cfg)
+    _check_train_mode(cfg, deterministic, train_bn)
     if sample_patch_order is not None:
         raise NotImplementedError("musketeer_tpu_torch does not support sample_patch_order")
     enc = params["encoder"]
@@ -158,21 +217,27 @@ def encode(
     B, T = src_tokens.shape
     d, H = cfg.embed_dim, cfg.attention_heads
 
-    x_text = params["embed_tokens"][src_tokens].to(dtype) + enc["type_embedding"][0]
+    x_text = params["embed_tokens"][src_tokens].to(dtype) + enc["type_embedding"][0].to(dtype)
     x_text = _layer_norm(enc["layernorm_embedding"], x_text)
+    x_text = _dropout(x_text, cfg.dropout, generator, deterministic)
     text_pad = src_tokens == cfg.pad
-    pos_embed = enc["embed_positions"][:T][None].expand(B, T, d)
+    pos_embed = enc["embed_positions"][:T].to(dtype)[None].expand(B, T, d)
 
     N = 0
-    if patch_images is not None:
-        feats = resnet_forward(enc["resnet"], patch_images.to(dtype))
+    if patch_images is not None or resnet_feats is not None:
+        if resnet_feats is not None:
+            feats = resnet_feats.to(dtype)
+        else:
+            feats = resnet_forward(enc["resnet"], patch_images.to(dtype))
         _, h, w, _ = feats.shape
         N = h * w
         image_embed = feats.reshape(B, N, -1)
         ids0 = pos_lib.encoder_image_position_ids(h, w, cfg.image_bucket_size)
-        image_pos_embed = enc["embed_image_positions"][_index(ids0, device)][None].expand(B, N, d)
-        x_img = _linear(enc["image_proj"], image_embed) + enc["type_embedding"][1]
+        image_pos_embed = enc["embed_image_positions"][_index(ids0, device)].to(dtype)
+        image_pos_embed = image_pos_embed[None].expand(B, N, d)
+        x_img = _linear(enc["image_proj"], image_embed) + enc["type_embedding"][1].to(dtype)
         x_img = _layer_norm(enc["patch_layernorm_embedding"], x_img)
+        x_img = _dropout(x_img, cfg.dropout, generator, deterministic)
         if patch_masks is None:
             image_pad = torch.zeros((B, N), dtype=torch.bool, device=device)
         else:
@@ -196,25 +261,28 @@ def encode(
     pos_k = _pos_proj(enc["pos_k_linear"], pos_for_bias, cfg, False)
     # rel gathers for all layers at once, outside the layer loop
     token_rp = pos_lib.make_token_bucket_position(cfg.token_bucket_size, cfg.max_source_positions)
-    rel_tok_all = _rel_gather(enc["token_rel_pos_table"], _index(token_rp[:T, :T], device))
+    rel_tok_all = _rel_gather(enc["token_rel_pos_table"].to(dtype), _index(token_rp[:T, :T], device))
     if N:
         image_rp_full = pos_lib.make_image_bucket_position(cfg.image_bucket_size, cfg.image_num_rel_dis)
         image_rp = image_rp_full[ids0[:, None], ids0[None, :]]
-        rel_img_all = _rel_gather(enc["image_rel_pos_table"], _index(image_rp, device))
+        rel_img_all = _rel_gather(enc["image_rel_pos_table"].to(dtype), _index(image_rp, device))
 
+    dp_rates = _drop_path_rates(cfg.encoder_drop_path_rate, cfg.encoder_layers,
+                                cfg.encoder_drop_path_rate > 0 and not deterministic)
     for i, layer_p in enumerate(enc["layers"]):
         rel = torch.zeros((H, S, S), dtype=dtype, device=device)
         rel[:, S - T:, S - T:] = rel_tok_all[i]
         if N:
             rel[:, :N, :N] = rel_img_all[i]
-        x = _encoder_layer(layer_p, cfg, x, pos_q, pos_k, rel, padding_mask)
+        x = _encoder_layer(layer_p, cfg, x, pos_q, pos_k, rel, padding_mask,
+                           generator, deterministic, dp_rates[i])
 
     x = _layer_norm(enc["layer_norm"], x)
     return EncoderOut(x=x, padding_mask=padding_mask, pos_embed=pos_for_bias)
 
 
 # ---------------------------------------------------------------------------
-# decoder (incremental, cached)
+# decoder
 # ---------------------------------------------------------------------------
 
 def _abs_pos_bias(q_lin: Params, k_lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig):
@@ -254,13 +322,102 @@ def _decoder_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _layer_norm(dec["layernorm_embedding"], x)
 
 
-def _decoder_rel_bias(params: Params, cfg: ModelConfig, T: int) -> torch.Tensor:
-    """Per-layer self-attention rel bias ``[L, H, T, T]`` fp32 (token buckets)."""
+def _decoder_rel_bias(params: Params, cfg: ModelConfig, T: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Per-layer self-attention rel bias ``[L, H, T, T]`` in ``dtype`` (token buckets)."""
     token_rp = pos_lib.make_token_bucket_position(
         cfg.token_bucket_size, max(cfg.max_target_positions, T)
     )[:T, :T]
     table = params["decoder"]["token_rel_pos_table"]
-    return _rel_gather(table, _index(token_rp, table.device))
+    return _rel_gather(table.to(dtype), _index(token_rp, table.device))
+
+
+def _decoder_layer_flash(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, self_pad,
+                         enc_x, enc_pad, cross_pos_q, cross_pos_k,
+                         gen=None, deterministic=True, dp_rate=None):
+    """Pre-LN decoder block over a whole target (teacher forcing), flash branch."""
+    h = _layer_norm(p["self_attn_layer_norm"], x)
+    h = _flash_attn(p["self_attn"], cfg, h, h, pos_q, pos_k, rel, self_pad, causal=True)
+    h = _dropout(h, cfg.dropout, gen, deterministic)
+    x = x + _drop_path(h, dp_rate, gen, deterministic)
+    # cross attention: no rel bias, so no drel (the JAX model passes zeros with
+    # need_drel=False)
+    h = _layer_norm(p["encoder_attn_layer_norm"], x)
+    h = _flash_attn(p["encoder_attn"], cfg, h, enc_x, cross_pos_q, cross_pos_k, None, enc_pad,
+                    causal=False)
+    h = _dropout(h, cfg.dropout, gen, deterministic)
+    x = x + _drop_path(h, dp_rate, gen, deterministic)
+    h = _layer_norm(p["final_layer_norm"], x)
+    h = _dropout(_gelu(_linear(p["fc1"], h)), cfg.activation_dropout, gen, deterministic)
+    h = _dropout(_linear(p["fc2"], h), cfg.dropout, gen, deterministic)
+    return x + _drop_path(h, dp_rate, gen, deterministic)
+
+
+def decode(
+    params: Params,
+    cfg: ModelConfig,
+    prev_output_tokens: torch.Tensor,  # [B, T]
+    encoder_out: EncoderOut,
+    code_masks: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    features_only: bool = False,
+) -> torch.Tensor:
+    """Teacher-forced decoder forward → logits ``[B, T, Vp]`` (flash branch).
+
+    Positions are projected, and the rel table gathered, in the compute
+    dtype, as the JAX flash branch does (the incremental decoder keeps both
+    in fp32)."""
+    check_supported(cfg)
+    _check_train_mode(cfg, deterministic)
+    if code_masks is not None:
+        raise NotImplementedError("musketeer_tpu_torch does not support code_masks")
+    dec = params["decoder"]
+    dtype = compute_dtype(cfg)
+    B, T = prev_output_tokens.shape
+    self_pad = prev_output_tokens == cfg.pad
+    enc_x = encoder_out.x.to(dtype)
+
+    tgt_pos_embed = dec["embed_positions"][:T].to(dtype)[None].expand(B, T, cfg.embed_dim)
+    pe = _layer_norm(dec["pos_ln"], tgt_pos_embed)
+    pos_q = _pos_proj(dec["self_pos_q_linear"], pe, cfg, True)
+    pos_k = _pos_proj(dec["self_pos_k_linear"], pe, cfg, False)
+    cross_pos_q = _pos_proj(dec["cross_pos_q_linear"], pe, cfg, True)
+    cross_pos_k = _pos_proj(dec["cross_pos_k_linear"], encoder_out.pos_embed.to(dtype), cfg, False)
+    x = _decoder_embed(params, cfg, prev_output_tokens, tgt_pos_embed, dtype)
+    x = _dropout(x, cfg.dropout, generator, deterministic)
+    rel_all = _decoder_rel_bias(params, cfg, T, dtype)
+
+    dp_rates = _drop_path_rates(cfg.decoder_drop_path_rate, cfg.decoder_layers,
+                                cfg.decoder_drop_path_rate > 0 and not deterministic)
+    for i, layer_p in enumerate(dec["layers"]):
+        x = _decoder_layer_flash(layer_p, cfg, x, pos_q, pos_k, rel_all[i], self_pad,
+                                 enc_x, encoder_out.padding_mask, cross_pos_q, cross_pos_k,
+                                 generator, deterministic, dp_rates[i])
+    x = _layer_norm(dec["layer_norm"], x)
+    return x if features_only else output_layer(params, cfg, x)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    src_tokens: torch.Tensor,
+    prev_output_tokens: torch.Tensor,
+    patch_images: Optional[torch.Tensor] = None,
+    patch_masks: Optional[torch.Tensor] = None,
+    code_masks: Optional[torch.Tensor] = None,
+    sample_patch_order: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    train_bn: bool = False,
+    resnet_feats: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full model forward → logits ``[B, T, Vp]``."""
+    enc_out = encode(params, cfg, src_tokens, patch_images, patch_masks,
+                     sample_patch_order=sample_patch_order, generator=generator,
+                     deterministic=deterministic, train_bn=train_bn, resnet_feats=resnet_feats)
+    return decode(params, cfg, prev_output_tokens, enc_out, code_masks=code_masks,
+                  generator=generator, deterministic=deterministic)
 
 
 def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pad,
@@ -307,9 +464,16 @@ def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pa
     return x + _linear(p["fc2"], _gelu(_linear(p["fc1"], h)))
 
 
+def output_weight(params: Params, dtype: torch.dtype) -> torch.Tensor:
+    """The tied output projection ``[Vp, d]`` in ``dtype``: an inference tree's
+    copy stored in the compute dtype, else the master embedding cast here."""
+    w = params.get("embed_tokens_c")
+    return w if w is not None and w.dtype == dtype else params["embed_tokens"].to(dtype)
+
+
 def output_layer(params: Params, cfg: ModelConfig, features: torch.Tensor) -> torch.Tensor:
     """Tied output projection; padded vocab ids masked to −1e9."""
-    logits = features @ params["embed_tokens_c"].t()
+    logits = features @ output_weight(params, features.dtype).t()
     if cfg.padded_vocab_size > cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits

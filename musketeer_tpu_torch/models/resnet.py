@@ -1,10 +1,18 @@
-"""ResNet image embedder in frozen-BN inference mode (port of ``models/resnet.py``).
+"""ResNet image embedder with frozen BatchNorm (port of ``models/resnet.py``).
 
 conv 7×7/s2 → maxpool 3/2/1 → layer1..3 (stride 16, 1024 channels, no layer4).
 The JAX package computes the stem as a space-to-depth conv, a TPU layout
 trick with the same sums; here it is the plain 7×7 / stride 2 / pad 3 conv.
-Convolutions are cuDNN (``F.conv2d``) in ``channels_last``; BatchNorm uses the
-stored statistics and runs in fp32, as the JAX package does.
+Convolutions are cuDNN (``F.conv2d``) in ``channels_last``, with the weights
+cast to the activations' dtype where they are used (a no-op on an inference
+tree, whose weights are stored in the compute dtype).
+
+BatchNorm uses the stored statistics and runs in fp32, as the JAX package
+does. When autograd tracks the statistics (a training tree), it is written
+as the JAX arithmetic ``(x − mean)·rsqrt(var + eps)·scale + bias``, so that
+``mean`` and ``var`` get the JAX step's gradients: the JAX package keeps them
+as leaves of the parameter tree and its optimizer moves them (ROADMAP §3).
+Otherwise it is the single fused ``F.batch_norm``.
 """
 
 from __future__ import annotations
@@ -21,11 +29,15 @@ BN_EPS = 1e-5
 
 def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     # explicit torch-style padding kernel//2, as the JAX package pads
-    return F.conv2d(x, w, stride=stride, padding=(w.shape[-1] - 1) // 2)
+    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=(w.shape[-1] - 1) // 2)
 
 
 def _bn(x: torch.Tensor, p: Params) -> torch.Tensor:
     """Frozen BatchNorm; fp32 statistics and arithmetic, output in x's dtype."""
+    if torch.is_grad_enabled() and p["mean"].requires_grad:
+        inv = (torch.rsqrt(p["var"] + BN_EPS) * p["scale"])[:, None, None]
+        out = (x.float() - p["mean"][:, None, None]) * inv + p["bias"][:, None, None]
+        return out.to(x.dtype)
     return F.batch_norm(x, p["mean"], p["var"], p["scale"], p["bias"],
                         training=False, eps=BN_EPS)
 

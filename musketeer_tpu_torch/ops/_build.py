@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
-At first use every ``csrc/*.cu`` is compiled for ``sm_90a`` into one shared
-library with a plain C interface, under ``csrc/build/<hash of the sources and
-flags>/`` (listed in ``.gitignore``), and loaded with ``ctypes``. Each C entry
+At first use every ``csrc/*.cu`` is compiled for ``sm_90a`` (one ``nvcc``
+per source, all running at once) and linked into one shared library with a
+plain C interface, under ``csrc/build/<hash of the sources and flags>/``
+(listed in ``.gitignore``), and loaded with ``ctypes``. Each C entry
 point launches on the stream it is given and returns ``cudaGetLastError()``;
 ``check`` raises on a non-zero code. A CUDA machine without ``nvcc`` is an
 error: the wrappers never fall back to their plain versions for CUDA tensors.
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "libmusketeer_tpu_torch_kernels.so"
 
 # ctypes argument kinds: every pointer and the stream are c_void_p
@@ -45,6 +46,16 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cu*"))
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the first failure's stderr after all end."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{err}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
@@ -57,12 +68,15 @@ def library() -> ctypes.CDLL:
     so = out_dir / LIB_NAME
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
+        nvcc, tag = find_nvcc(), os.getpid()
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in cu]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(cu, objs)])
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(so))
     lib.mk_cuda_error_string.argtypes = [INT]
     lib.mk_cuda_error_string.restype = ctypes.c_char_p

@@ -15,12 +15,15 @@ attention.
 
 ``flash_attention_inference`` runs the plain PyTorch version for CPU tensors
 and the CUDA kernel (``csrc/flash_attention_infer.cu``) for CUDA tensors; it
-never falls back from one to the other.
+never falls back from one to the other. It has no backward and refuses
+inputs that autograd tracks: the model reaches it through
+``ops/flash_attention_bwd.py::flash_attention``, which sends differentiated
+calls to K3/K4 instead.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,27 +36,39 @@ _SIG = (_build.INT,) + (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2
     + (_build.INT,) * 2 + (_build.PTR,)
 
 
-def _check_shapes(q, k, v, pos_q, pos_k, rel, kpad) -> None:
+def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
     B, H, T, D = q.shape
     S = k.shape[2]
-    for name, t, shape in (("pos_q", pos_q, (B, H, T, D)), ("k", k, (B, H, S, D)),
-                           ("v", v, (B, H, S, D)), ("pos_k", pos_k, (B, H, S, D))):
+    for arg, t, shape in (("pos_q", pos_q, (B, H, T, D)), ("k", k, (B, H, S, D)),
+                          ("v", v, (B, H, S, D)), ("pos_k", pos_k, (B, H, S, D))):
         if tuple(t.shape) != shape:
-            raise ValueError(f"flash_attention_inference: {name} {tuple(t.shape)} != {shape}")
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} != {shape}")
     if tuple(kpad.shape) != (B, S) or kpad.dtype != torch.bool:
-        raise ValueError(f"flash_attention_inference: kpad must be bool [{B}, {S}]")
+        raise ValueError(f"{name}: kpad must be bool [{B}, {S}]")
     if rel is not None and (rel.dim() != 3 or rel.shape[0] != H
                             or rel.shape[1] < T or rel.shape[2] < S):
-        raise ValueError(f"flash_attention_inference: rel {tuple(rel.shape)} "
-                         f"must be [{H}, >={T}, >={S}]")
+        raise ValueError(f"{name}: rel {tuple(rel.shape)} must be [{H}, >={T}, >={S}]")
 
 
-def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    pos_q: torch.Tensor, pos_k: torch.Tensor, rel: Optional[torch.Tensor],
-    kpad: torch.Tensor, causal: bool = False, skip_max: bool = False,
-) -> torch.Tensor:
-    """The plain PyTorch version of K1 (the CPU path and the kernel's reference)."""
+def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> Tuple[Optional[int], int, int]:
+    """Validate CUDA inputs of the attention kernels → (rel pointer, head and row strides)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    _build.require_cuda(name, {"q": q, "k": k, "v": v, "pos_q": pos_q, "pos_k": pos_k}, _DTYPES)
+    # rel may be a row-strided view; only its rows must be contiguous
+    if rel is not None and (rel.device != q.device or rel.dtype != q.dtype or rel.stride(2) != 1):
+        raise ValueError(f"{name}: rel must be on q's device, in q's dtype, with contiguous rows")
+    if kpad.device != q.device or not kpad.is_contiguous():
+        raise ValueError(f"{name}: kpad must be contiguous on q's device")
+    if q.shape[-1] != HEAD_DIM:
+        raise NotImplementedError(f"{name}: head dim {q.shape[-1]} (kernel has {HEAD_DIM})")
+    if rel is None:
+        return None, 0, 0
+    return rel.data_ptr(), rel.stride(0), rel.stride(1)
+
+
+def attention_scores(q, k, pos_q, pos_k, rel, kpad, causal: bool) -> torch.Tensor:
+    """fp32 scores ``[B, H, T, S]`` with the bias added and the masks at −1e9."""
     T, S = q.shape[2], k.shape[2]
     # bf16 products are exact in fp32: this matches the TPU kernel's
     # fp32-accumulated dots
@@ -64,7 +79,16 @@ def flash_attention_plain(
     if causal:
         cmask = torch.arange(S, device=q.device)[None, :] > torch.arange(T, device=q.device)[:, None]
         w = w.masked_fill(cmask, NEG_INF)
-    w = w.masked_fill(kpad[:, None, None, :], NEG_INF)
+    return w.masked_fill(kpad[:, None, None, :], NEG_INF)
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    pos_q: torch.Tensor, pos_k: torch.Tensor, rel: Optional[torch.Tensor],
+    kpad: torch.Tensor, causal: bool = False, skip_max: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of K1 (the CPU path and the kernel's reference)."""
+    w = attention_scores(q, k, pos_q, pos_k, rel, kpad, causal)
     if skip_max:
         e = torch.exp(w)
         denom = e.sum(-1, keepdim=True).clamp_min(1e-38)
@@ -87,22 +111,18 @@ def flash_attention_inference(
     skip_max: bool = False,
 ) -> torch.Tensor:
     """→ [B, H, T, D] in q's dtype. Plain version on CPU, CUDA kernel on CUDA."""
-    _check_shapes(q, k, v, pos_q, pos_k, rel, kpad)
+    name = "flash_attention_inference"
+    check_shapes(name, q, k, v, pos_q, pos_k, rel, kpad)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, pos_q, pos_k, rel)):
+        # the kernel writes through raw pointers: its result would carry no
+        # gradient, and on the card training would silently get zeros
+        raise RuntimeError(f"{name} has no backward; differentiate through "
+                           "ops.flash_attention_bwd.flash_attention")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, pos_q, pos_k, rel, kpad, causal, skip_max)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_inference: unsupported device {q.device}")
-    _build.require_cuda("flash_attention_inference",
-                        {"q": q, "k": k, "v": v, "pos_q": pos_q, "pos_k": pos_k}, _DTYPES)
-    # rel may be a row-strided view; only its rows must be contiguous
-    if rel is not None and (rel.device != q.device or rel.dtype != q.dtype or rel.stride(2) != 1):
-        raise ValueError("flash_attention_inference: rel must be on q's device, "
-                         "in q's dtype, with contiguous rows")
-    if kpad.device != q.device or not kpad.is_contiguous():
-        raise ValueError("flash_attention_inference: kpad must be contiguous on q's device")
-    B, H, T, D = q.shape
-    if D != HEAD_DIM:
-        raise NotImplementedError(f"flash_attention_inference: head dim {D} (kernel has {HEAD_DIM})")
+    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad)
+    B, H, T, _ = q.shape
     S = k.shape[2]
     out = torch.empty_like(q)
     fn = _build.kernel_function("mk_flash_attention_infer", _SIG)
@@ -110,12 +130,10 @@ def flash_attention_inference(
         err = fn(
             int(q.dtype == torch.bfloat16),
             q.data_ptr(), pos_q.data_ptr(), k.data_ptr(), pos_k.data_ptr(), v.data_ptr(),
-            rel.data_ptr() if rel is not None else None, kpad.data_ptr(), out.data_ptr(),
-            B, H, T, S,
-            rel.stride(0) if rel is not None else 0, rel.stride(1) if rel is not None else 0,
+            rel_ptr, kpad.data_ptr(), out.data_ptr(), B, H, T, S, rel_hs, rel_rs,
             int(causal), int(skip_max), _build.stream_of(q),
         )
-    _build.check(err, "flash_attention_inference")
+    _build.check(err, name)
     flash_attention_inference.launches += 1
     return out
 

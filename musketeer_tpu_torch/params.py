@@ -19,6 +19,13 @@ or torch leaves, into the port's parameters:
 
 Every leaf of the JAX tree is consumed exactly once; a missing, extra or twice
 consumed leaf raises ``ValueError``.
+
+``trainable`` turns an fp32 tree into the training step's parameters: the
+same layout, so the model code is shared, with fp32 masters that the model
+casts to the compute dtype where it uses them, as the JAX model does (the
+cast is a no-op on an inference tree), and one tied embedding. Applied to
+the JAX step's gradient tree, ``from_jax`` gives the gradients in the port's
+layout.
 """
 
 from __future__ import annotations
@@ -325,7 +332,6 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
     Le, Ld = cfg.encoder_layers, cfg.decoder_layers
     out: Params = {
         "embed_tokens": embed_tokens,
-        "embed_tokens_c": embed_tokens.to(dtype),
         "encoder": {
             "layernorm_embedding": ln("encoder/layernorm_embedding"),
             "patch_layernorm_embedding": ln("encoder/patch_layernorm_embedding"),
@@ -361,4 +367,28 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
         },
     }
     lv.finish()
+    if dtype != torch.float32:
+        out["embed_tokens_c"] = embed_tokens.to(dtype)
     return out
+
+
+def map_leaves(fn, tree):
+    """``tree`` with ``fn`` applied to every tensor leaf (dicts and lists kept)."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def trainable(params: Params) -> Params:
+    """Training parameters (the JAX step's fp32 masters, one tied embedding):
+    every leaf an independent copy that requires grad, in the inference
+    tree's layout, from ``from_jax(..., torch.float32)``."""
+    def master(t: torch.Tensor) -> torch.Tensor:
+        if t.dtype != torch.float32:
+            raise ValueError(f"trainable needs fp32 leaves, got {t.dtype}: build the tree with "
+                             "from_jax(..., torch.float32)")
+        return t.detach().clone().requires_grad_(True)
+
+    return map_leaves(master, params)

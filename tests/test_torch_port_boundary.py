@@ -48,9 +48,13 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     assert len(modules) >= 10
+    assert {"musketeer_tpu_torch.ops.flash_attention_bwd", "musketeer_tpu_torch.training.train_step",
+            "musketeer_tpu_torch.training.train_state", "musketeer_tpu_torch.training.lr_schedule",
+            "musketeer_tpu_torch.criterions.label_smoothed_ce"} <= set(modules)
 
 
-@pytest.mark.parametrize("cls", ["ModelConfig", "GenerationConfig"])
+@pytest.mark.parametrize("cls", ["ModelConfig", "GenerationConfig", "OptimConfig",
+                                 "CriterionConfig"])
 def test_config_fields_match_jax(cls):
     ours = {f.name: f.default for f in dataclasses.fields(getattr(config, cls))}
     theirs = {f.name: f.default for f in dataclasses.fields(getattr(jax_config, cls))}
