@@ -43,11 +43,37 @@ Phases; any failure raises and the script exits non-zero:
    loss and gradient norm to 1e-5 relative, every gradient leaf to 1e-3 of
    its largest |g|, floored at 1e-4 of the largest |g| of the whole tree (the
    key biases' exact gradient is zero: softmax ignores a shift shared by a
-   row's scores, so both sides hold rounding noise there).
+   row's scores, so both sides hold rounding noise there);
+10. K2-q8 (K2 over the int8 projection with row scales) against its plain
+    version at the beam decode shape, bf16 and fp32 features;
+11. K6 (a decode step of cross-attention over the int8 cache) against its
+    plain version at B16 H12 Kb5 S908 in bf16 (10 % padded keys, one fully
+    padded sample, which must give exact zeros) and a small fp32 case;
+12. K7 (all decoder layers of a step) against its plain version at rows 80
+    (16 × 5), L6, d768, f3072, Tmax 17, S908, cache_index 0, 5 and 16, in
+    bf16 and fp32;
+13. the serving slices, the caption slice of phase 5 with the JAX package's
+    serving options: A (int8: ``quantize_output_proj``, ``int8_cross_kv``,
+    ``decode_int8_kv_kernel``) must launch K1 6 times per encode, K2-q8 once
+    and K6 6 times per beam step, K2 and K7 never; B (``decode_stack_kernel``)
+    K7 and K2 once per beam step, K6 and K2-q8 never; tokens well formed;
+    p50 batch latency and samples/s over 3 timed runs;
+14. serving exactness: each serving slice in float32 at batch 2, once
+    through the kernels and once through their plain versions, must give
+    identical tokens;
+15. profile: one run of the caption slice and of each serving slice under
+    ``torch.profiler``: device operations per beam step, device time and the
+    device's busy share.
 
-Prints a JSON line of the kernels (launches in phases 5 and 8, error against
-the plain version, times), then as its last line
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+The counters of every kernel are set to 0 just before each main path (the
+caption slice, the training step, serving A, serving B) and read just after.
+The new phases' bf16 checks allow 2⁻⁶ of the reference's largest magnitude,
+their fp32 checks 1e-4 of it (floored at 1).
+
+Prints a JSON line of the seven kernels (launches on their main path, error
+against the plain version, kernel, plain and library times, the bound of the
+same work on an H100 SXM at 3.35 TB/s and 989 TFLOP/s bf16), then as its
+last line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
@@ -73,6 +99,12 @@ SEED = 0
 BATCH, BEAM, MAX_LEN, IMAGE = 16, 5, 16, 480
 K1_SHAPE = dict(B=16, H=12, T=908, S=908, D=64)  # 900 patches + 8 prompt tokens
 K2_SHAPE = dict(N=BATCH * BEAM, D=768, Vp=59520, vocab_size=59457)
+K6_SHAPE = dict(B=BATCH, H=12, Kb=BEAM, S=908, D=64)
+K7_SHAPE = dict(L=6, B=BATCH, Kb=BEAM, H=12, f=3072, Tmax=MAX_LEN + 1, S=908)
+K7_INDICES = (0, 5, 16)
+# the card's published peaks (H100 SXM data sheet, dense): bytes and bf16 operations per ms
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+BF16_OPS_PER_MS = 989e12 / 1e3
 # bf16 tolerances: the kernel and the plain version round the probabilities
 # (K1) or the logits (K2) to bf16 after fp32 sums taken in different orders,
 # so a value may land one or two bf16 steps apart: 2**-7 relative to the
@@ -164,6 +196,78 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time of the work on the card: bytes over the memory rate or
+    operations over the bf16 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, ops / BF16_OPS_PER_MS
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _check_close(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
+    """Max abs error, which must be ≤ tol · max(1, max|ref|), on finite outputs."""
+    err = _max_err(out, ref)
+    lim = tol * max(1.0, float(ref.float().abs().max()))
+    if not (err <= lim and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{name}: max abs err {err:.3e} > {lim:.3e} (or not finite)")
+    return err
+
+
+def _sdpa_inputs(x: dict):
+    """K1/K3's inputs as one scaled_dot_product_attention call: [q|pos_q]·[k|pos_k]
+    with rel and the padding (−1e9) as a float mask, scale 1."""
+    (B, H, T, _), S = x["q"].shape, x["k"].shape[2]
+    # the memory-efficient kernel wants the mask's row stride a multiple of 8:
+    # a view of a wider buffer
+    mask = torch.zeros((B, H, T, -(-S // 8) * 8), dtype=x["q"].dtype, device=x["q"].device)
+    mask = mask[..., :S]
+    mask += x["kpad"][:, None, None, :].to(mask.dtype) * -1e9
+    if x["rel"] is not None:
+        mask += x["rel"][None, :, :T, :S]
+    return (torch.cat([x["q"], x["pos_q"]], -1), torch.cat([x["k"], x["pos_k"]], -1),
+            x["v"], mask)
+
+
+def _library_ms(name: str, fn, iters: int = 10):
+    """The time of one PyTorch library call computing the kernel's function, or
+    None where the library refuses these inputs."""
+    try:
+        ms = cuda_ms(fn, iters)
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"[{name}] library call refused: {type(e).__name__}: {str(e).splitlines()[0][:160]}")
+        return None
+    log(f"[{name}] library call {ms:.3f} ms")
+    return ms
+
+
+def _counter_owners() -> dict:
+    """Each kernel's wrapper and the attribute that counts its launches."""
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+    from musketeer_tpu_torch.ops import decode_stack as k7
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+    from musketeer_tpu_torch.ops import topk_projection as k2
+
+    return {"K1": (k1.flash_attention_inference, "launches"),
+            "K2": (k2.project_with_stats, "launches"),
+            "K2-q8": (k2.project_with_stats, "launches_q8"),
+            "K3": (kb.flash_attention_fwd, "launches"), "K4": (kb.flash_attention_bwd, "launches"),
+            "K6": (k6.decode_cross_attention_int8, "launches"),
+            "K7": (k7.decode_stack_step, "launches")}
+
+
+def _counters() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counter_owners().items()}
+
+
+def _reset_counters() -> None:
+    for fn, attr in _counter_owners().values():
+        setattr(fn, attr, 0)
+
+
 def _k1_inputs(g, B, H, T, S, D, dtype, rel=True, pad_frac=0.1, masked_row=None):
     dev = "cuda"
     rnd = lambda *s: (torch.randn(*s, generator=g, device=dev) * 0.5).to(dtype)
@@ -193,7 +297,12 @@ def phase_k1(g) -> dict:
     ms = cuda_ms(lambda: k1.flash_attention_inference(*args), 10)
     plain_ms = cuda_ms(lambda: k1.flash_attention_plain(*args), 10)
     log(f"[K1] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
-    del x, args, out, ref
+    B, H, T, D = x["q"].shape
+    bound = _bound(_nbytes(*args, out), 6.0 * B * H * T * x["k"].shape[2] * D)
+    qc, kc, v, mask = _sdpa_inputs(x)
+    library_ms = _library_ms("K1", lambda: torch.nn.functional.scaled_dot_product_attention(
+        qc, kc, v, attn_mask=mask, scale=1.0))
+    del x, args, out, ref, qc, kc, v, mask
 
     cases = {
         "causal": dict(shape=dict(B=2, H=2, T=100, S=100, D=64), causal=True),
@@ -216,7 +325,7 @@ def phase_k1(g) -> dict:
                 mean_v = xs["v"][1].float().mean(dim=1, keepdim=True).expand_as(b[1])
                 if _max_err(a[1], mean_v) > tol:
                     raise AssertionError("K1: a fully masked row must give the mean of v")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
 
 
 def phase_k2(g) -> dict:
@@ -246,7 +355,8 @@ def phase_k2(g) -> dict:
     ms = cuda_ms(lambda: k2.project_with_stats(h, w, vocab_size=vs), 20)
     plain_ms = cuda_ms(lambda: k2.project_plain(h, w, vocab_size=vs), 20)
     log(f"[K2] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
-    return dict(max_abs_err=errs["logits"], ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=errs["logits"], ms=ms, plain_ms=plain_ms, library_ms=None,
+                **_bound(_nbytes(h, w, *out), 2.0 * N * Vp * D))
 
 
 def _random_model_tree(cfg, seed: int):
@@ -310,33 +420,66 @@ def _check_tokens(tokens, scores, cfg, batch):
         raise AssertionError("pad must fill exactly the positions after eos")
 
 
-def phase_slice(tree, smi: str) -> dict:
+# the caption slice and its two serving variants: model options,
+# search options, whether the int8 output projection is used
+SLICES = {
+    "slice": dict(model={}, gen={}, q8=False),
+    "serving A": dict(model=dict(decode_int8_kv_kernel=True), gen=dict(int8_cross_kv=True),
+                      q8=True),
+    "serving B": dict(model=dict(decode_stack_kernel=True), gen={}, q8=False),
+}
+
+
+def _slice_setup(tree, name: str, dtype: str):
     from musketeer_tpu_torch.config import GenerationConfig, ofa_base
     from musketeer_tpu_torch.models import ofa
-    from musketeer_tpu_torch.ops import flash_attention_infer as k1
-    from musketeer_tpu_torch.ops import topk_projection as k2
     from musketeer_tpu_torch.params import from_jax
 
-    cfg = dataclasses.replace(ofa_base(), dtype="bfloat16", use_flash_attention=True)
-    params = from_jax(tree, cfg, "cuda", torch.bfloat16)
-    gen_cfg = GenerationConfig(beam_size=BEAM, max_len_b=MAX_LEN, min_len=1, no_repeat_ngram_size=3)
+    spec = SLICES[name]
+    cfg = dataclasses.replace(ofa_base(), dtype=dtype, use_flash_attention=True, **spec["model"])
+    params = from_jax(tree, cfg, "cuda", getattr(torch, dtype))
+    if spec["q8"]:
+        params = ofa.quantize_output_proj(params)
+    gen_cfg = GenerationConfig(beam_size=BEAM, max_len_b=MAX_LEN, min_len=1, no_repeat_ngram_size=3,
+                               **spec["gen"])
+    return cfg, params, gen_cfg
+
+
+def _expected_launches(name: str, cfg, steps: int) -> dict:
+    """Each kernel's launches in one encode + beam search of the slice."""
+    want = dict.fromkeys(("K1", "K2", "K2-q8", "K3", "K4", "K6", "K7"), 0)
+    want["K1"] = cfg.encoder_layers
+    if name == "serving A":
+        want.update({"K2-q8": steps, "K6": cfg.decoder_layers * steps})
+    elif name == "serving B":
+        want.update({"K2": steps, "K7": steps})
+    else:
+        want["K2"] = steps
+    return want
+
+
+def phase_slice(tree, smi: str, name: str) -> dict:
+    """One main path: encode + beam search of the slice in bf16, counted and timed."""
+    from musketeer_tpu_torch.models import ofa
+
+    cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16")
     src, images, masks = _inputs(BATCH, SEED)
+    tag = f"[{name}]"
 
     _caption(params, cfg, gen_cfg, src, images, masks)  # warm-up
-    k1.flash_attention_inference.launches = 0
-    k2.project_with_stats.launches = 0
+    _reset_counters()
     with mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps:
         enc, tokens, scores = _caption(params, cfg, gen_cfg, src, images, masks)
-    launches = {"K1": k1.flash_attention_inference.launches, "K2": k2.project_with_stats.launches}
-    log(f"[slice] launches {launches}, beam steps {steps.call_count}")
-    if launches["K1"] != cfg.encoder_layers:
-        raise AssertionError(f"K1 ran {launches['K1']} times in one encode, expected 6")
-    if not (1 <= steps.call_count <= MAX_LEN + 1 and launches["K2"] == steps.call_count):
-        raise AssertionError(f"K2 ran {launches['K2']} times over {steps.call_count} steps")
+    launches = _counters()
+    log(f"{tag} launches {launches}, beam steps {steps.call_count}")
+    want = _expected_launches(name, cfg, steps.call_count)
+    if not (1 <= steps.call_count <= MAX_LEN + 1 and launches == want):
+        raise AssertionError(f"{name}: launches {launches} over {steps.call_count} steps, "
+                             f"expected {want}")
     if tuple(enc.x.shape) != (BATCH, 908, 768) or not bool(torch.isfinite(enc.x).all()):
         raise AssertionError("encoder output must be finite [16, 908, 768]")
     _check_tokens(tokens, scores, cfg, BATCH)
-    log(f"[slice] first hypothesis: {tokens[0, 0].tolist()} score {float(scores[0, 0]):.4f}")
+    log(f"{tag} first hypothesis: {tokens[0, 0].tolist()} score {float(scores[0, 0]):.4f}")
 
     times = []
     for _ in range(3):
@@ -344,44 +487,70 @@ def phase_slice(tree, smi: str) -> dict:
         _caption(params, cfg, gen_cfg, src, images, masks)
         times.append(time.perf_counter() - t0)
     p50 = statistics.median(times)
-    log(f"[slice] ofa_base bf16 batch {BATCH} beam {BEAM} 480²: p50 batch latency "
+    log(f"{tag} ofa_base bf16 batch {BATCH} beam {BEAM} 480²: p50 batch latency "
         f"{p50 * 1e3:.1f} ms, {BATCH / p50:.2f} samples/s (runs {[round(t * 1e3, 1) for t in times]} ms) "
         f"on {smi}")
     return launches
 
 
-def phase_exactness(tree) -> None:
-    from musketeer_tpu_torch.config import GenerationConfig, ofa_base
+def phase_exactness(tree, name: str) -> None:
+    """The slice in fp32 at batch 2 through the kernels and through their plain
+    versions: the tokens must be identical."""
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+    from musketeer_tpu_torch.ops import decode_stack as k7
     from musketeer_tpu_torch.ops import flash_attention_infer as k1
     from musketeer_tpu_torch.ops import topk_projection as k2
-    from musketeer_tpu_torch.params import from_jax
 
     search_module = importlib.import_module("musketeer_tpu_torch.generation.beam_search")
     attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
-    cfg = dataclasses.replace(ofa_base(), dtype="float32", use_flash_attention=True)
-    params = from_jax(tree, cfg, "cuda", torch.float32)
-    gen_cfg = GenerationConfig(beam_size=BEAM, max_len_b=MAX_LEN, min_len=1, no_repeat_ngram_size=3)
+    cfg, params, gen_cfg = _slice_setup(tree, name, "float32")
     src, images, masks = _inputs(2, SEED + 1)
 
-    before = (k1.flash_attention_inference.launches, k2.project_with_stats.launches)
+    before = _counters()
     _, tok_k, sc_k = _caption(params, cfg, gen_cfg, src, images, masks)
-    mid = (k1.flash_attention_inference.launches, k2.project_with_stats.launches)
+    mid = _counters()
     with mock.patch.object(attn_module, "flash_attention_inference", k1.flash_attention_plain), \
-            mock.patch.object(search_module, "project_with_stats", k2.project_plain):
+            mock.patch.object(search_module, "project_with_stats", k2.project_plain), \
+            mock.patch.object(ofa, "decode_cross_attention_int8",
+                              k6.decode_cross_attention_int8_plain), \
+            mock.patch.object(ofa, "decode_stack_step", k7.decode_stack_plain):
         _, tok_p, sc_p = _caption(params, cfg, gen_cfg, src, images, masks)
-    after = (k1.flash_attention_inference.launches, k2.project_with_stats.launches)
-    if not (mid[0] > before[0] and mid[1] > before[1] and after == mid):
-        raise AssertionError(f"kernel/plain routing wrong: {before} {mid} {after}")
+    after = _counters()
+    ran = {k for k in mid if mid[k] > before[k]}
+    want = {k for k, n in _expected_launches(name, cfg, 1).items() if n}
+    if ran != want or after != mid:
+        raise AssertionError(f"{name}: kernel/plain routing wrong: {before} {mid} {after}")
     _check_tokens(tok_k, sc_k, cfg, 2)
-    log(f"[exact] fp32 batch 2: kernel tokens {tok_k[:, 0].tolist()}; "
+    log(f"[{name} exact] fp32 batch 2: kernel tokens {tok_k[:, 0].tolist()}; "
         f"max score diff {_max_err(sc_k, sc_p):.3e}")
     if not torch.equal(tok_k, tok_p):
-        raise AssertionError("fp32 tokens through the kernels differ from the plain versions'")
+        raise AssertionError(f"{name}: fp32 tokens through the kernels differ from the plain versions'")
 
 
 def _elem_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a − b| / max(1, |b|), element by element (lse is −1e9 on masked rows)."""
     return float(((a.float() - b.float()).abs() / b.float().abs().clamp_min(1.0)).max())
+
+
+def _library_k3(x: dict):
+    """aten's memory-efficient attention with its logsumexp, on K3's inputs."""
+    qc, kc, v, mask = _sdpa_inputs(x)
+    return _library_ms("K3", lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qc, kc, v, mask, True, scale=1.0))
+
+
+def _library_k4(x: dict, do: torch.Tensor):
+    """The backward of scaled_dot_product_attention on K4's inputs: d[q|pos_q],
+    d[k|pos_k], dv and the mask's gradient (drel before its sum over the batch)."""
+    qc, kc, v, mask = (t.detach().requires_grad_(True) for t in _sdpa_inputs(x))
+    try:
+        out = torch.nn.functional.scaled_dot_product_attention(qc, kc, v, attn_mask=mask, scale=1.0)
+    except RuntimeError as e:
+        log(f"[K4] library call refused: {str(e).splitlines()[0][:160]}")
+        return None
+    return _library_ms("K4", lambda: torch.autograd.grad(out, (qc, kc, v, mask), do,
+                                                         retain_graph=True))
 
 
 def phase_k3_k4(g) -> dict:
@@ -432,9 +601,16 @@ def phase_k3_k4(g) -> dict:
         for kname, (ms, plain_ms) in times.items():
             log(f"[{kname}] {name} {c['shape']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
         if name == "encoder":
-            stats["K3"] = dict(max_abs_err=e_o, ms=times["K3"][0], plain_ms=times["K3"][1])
+            B, H, T, D = x["q"].shape
+            unit = 2.0 * B * H * T * x["k"].shape[2] * D  # one [T, S] x D product
+            stats["K3"] = dict(max_abs_err=e_o, ms=times["K3"][0], plain_ms=times["K3"][1],
+                               library_ms=_library_k3(x),
+                               **_bound(_nbytes(*args, o, lse), 3 * unit))
+            # K4 without its recomputes: the two score products, then dV, dP, dq,
+            # dk, dpos_q and dpos_k
             stats["K4"] = dict(max_abs_err=max(errs.values()), ms=times["K4"][0],
-                               plain_ms=times["K4"][1])
+                               plain_ms=times["K4"][1], library_ms=_library_k4(x, do),
+                               **_bound(_nbytes(*bwd_args, *grads), 8 * unit))
         del x, args, o, lse, o_p, lse_p, do, bwd_args, grads, ref
     return stats
 
@@ -501,8 +677,6 @@ def _expected_forwards(batches: dict) -> int:
 def phase_train(tree, smi: str) -> dict:
     from musketeer_tpu_torch.config import ofa_base
     from musketeer_tpu_torch.models import ofa
-    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
-    from musketeer_tpu_torch.ops import flash_attention_infer as k1
     from musketeer_tpu_torch.params import from_jax, trainable
     from musketeer_tpu_torch.training import init_train_state, make_train_step
     from musketeer_tpu_torch.training.train_state import named_leaves
@@ -530,18 +704,18 @@ def phase_train(tree, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state, loss, secs = run(state)
     log(f"[train] warm-up step: loss {loss:.4f} in {secs * 1e3:.1f} ms")
-    k1.flash_attention_inference.launches = 0
-    kb.flash_attention_fwd.launches = kb.flash_attention_bwd.launches = 0
+    _reset_counters()
     with mock.patch.object(ofa, "forward", wraps=ofa.forward) as fwd:
         state, loss, secs = run(state)
-    launches = {"K1": k1.flash_attention_inference.launches,
-                "K3": kb.flash_attention_fwd.launches, "K4": kb.flash_attention_bwd.launches}
+    launches = _counters()
     log(f"[train] launches {launches} over {fwd.call_count} transformer forwards "
         f"(expected {forwards} from the packing groups, {per_forward} attentions each)")
     if fwd.call_count != forwards:
         raise AssertionError(f"{fwd.call_count} forwards in a step, expected {forwards}")
-    if launches != {"K1": 0, "K3": per_forward * forwards, "K4": per_forward * forwards}:
-        raise AssertionError(f"training launches {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update({"K3": per_forward * forwards, "K4": per_forward * forwards})
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
     losses, times = [loss], [secs]
     for _ in range(2):
         state, loss, secs = run(state)
@@ -609,39 +783,210 @@ def phase_train_exactness(tree) -> None:
         raise AssertionError("fp32 step through K3/K4 differs from the plain versions'")
 
 
+def phase_k2q8(g) -> dict:
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import topk_projection as k2
+
+    N, D, Vp, vs = (K2_SHAPE[k] for k in ("N", "D", "Vp", "vocab_size"))
+    w = torch.randn(Vp, D, generator=g, device="cuda") * D ** -0.5
+    w[vs:] = 0
+    q = ofa.quantize_output_proj({"embed_tokens": w})
+    w8, scale = q["embed_tokens_q8"], q["embed_tokens_scale"]
+    stats = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+        h = torch.randn(N, D, generator=g, device="cuda").to(dtype)
+        out = k2.project_with_stats(h, w8, scale, vocab_size=vs)
+        ref = k2.project_plain(h, w8, scale, vocab_size=vs)
+        torch.cuda.synchronize()
+        err = _check_close("K2-q8 logits", out[0], ref[0], tol)
+        for name, a, b in zip(("bmax", "Z"), out[1:], ref[1:]):
+            _check_close(f"K2-q8 {name}", a, b, FP32_TOL)
+        if not bool((out[0][:, vs:] == k2.NEG_INF).all()):
+            raise AssertionError("K2-q8: padded vocab columns must be -1e9")
+        log(f"[K2-q8] N80 Vp59520 D768 int8 w, {str(dtype)[6:]} h: max abs err logits {err:.3e}, "
+            f"bmax {_max_err(out[1], ref[1]):.3e}, Z {_max_err(out[2], ref[2]):.3e}")
+        if dtype == torch.bfloat16:
+            ms = cuda_ms(lambda: k2.project_with_stats(h, w8, scale, vocab_size=vs), 20)
+            plain_ms = cuda_ms(lambda: k2.project_plain(h, w8, scale, vocab_size=vs), 20)
+            log(f"[K2-q8] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
+            stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         **_bound(_nbytes(h, w8, scale, *out), 2.0 * N * Vp * D))
+    return stats
+
+
+def _k6_inputs(g, B, H, Kb, S, D, dtype, full_pad=None):
+    dev = "cuda"
+    x = dict(q=(torch.randn(B, H, Kb, D, generator=g, device=dev) * 0.3).to(dtype),
+             k_i8=torch.randint(-127, 128, (B, H, S, D), generator=g, device=dev, dtype=torch.int8),
+             v_i8=torch.randint(-127, 128, (B, H, S, D), generator=g, device=dev, dtype=torch.int8),
+             k_scale=torch.rand(B, H, S, generator=g, device=dev) * 0.02,
+             v_scale=torch.rand(B, H, S, generator=g, device=dev) * 0.02,
+             bias=torch.randn(B, H, S, generator=g, device=dev),
+             enc_pad=torch.rand(B, S, generator=g, device=dev) < 0.1)
+    if full_pad is not None:
+        x["enc_pad"][full_pad] = True
+    return x
+
+
+def phase_k6(g) -> dict:
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+
+    names = ("q", "k_i8", "v_i8", "k_scale", "v_scale", "bias", "enc_pad")
+    stats = {}
+    cases = (("B16 H12 Kb5 S908", K6_SHAPE, torch.bfloat16, BF16_TOL),
+             ("B3 H2 Kb3 S37", dict(B=3, H=2, Kb=3, S=37, D=64), torch.float32, FP32_TOL))
+    for name, shape, dtype, tol in cases:
+        x = _k6_inputs(g, **shape, dtype=dtype, full_pad=1)
+        args = [x[n] for n in names]
+        out = k6.decode_cross_attention_int8(*args)
+        ref = k6.decode_cross_attention_int8_plain(*args)
+        torch.cuda.synchronize()
+        err = _check_close(f"K6 {name}", out, ref, tol)
+        if not bool((out[1] == 0).all()):
+            raise AssertionError("K6: a fully padded sample must give exact zeros")
+        log(f"[K6] {name} {str(dtype)[6:]}, 10 % padded keys, sample 1 fully padded: "
+            f"max abs err {err:.3e}")
+        if dtype == torch.bfloat16:
+            ms = cuda_ms(lambda: k6.decode_cross_attention_int8(*args), 20)
+            plain_ms = cuda_ms(lambda: k6.decode_cross_attention_int8_plain(*args), 20)
+            log(f"[K6] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
+            B, H, Kb, S, D = (shape[k] for k in ("B", "H", "Kb", "S", "D"))
+            stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         **_bound(_nbytes(*args, out), 4.0 * B * H * Kb * S * D))
+    return stats
+
+
+def _k7_inputs(g, L, B, Kb, H, f, Tmax, S, dtype):
+    dev, d, rows = "cuda", H * 64, B * Kb
+    rnd = lambda *shape, std=1.0: torch.randn(*shape, generator=g, device=dev) * std
+    pack = {"w_self3": rnd(L, 3 * d, d, std=d ** -0.5), "b_self3": rnd(L, 3 * d, std=0.02),
+            "w_so": rnd(L, d, d, std=d ** -0.5), "w_cq": rnd(L, d, d, std=d ** -0.5),
+            "w_co": rnd(L, d, d, std=d ** -0.5), "w_fc1": rnd(L, f, d, std=d ** -0.5),
+            "b_fc1": rnd(L, f, std=0.02), "w_fc2": rnd(L, d, f, std=f ** -0.5),
+            "b_misc": rnd(L, 4, d, std=0.02)}
+    pack = {k: v.to(dtype) for k, v in pack.items()}
+    ln = torch.stack([1 + rnd(L, d, std=0.1), rnd(L, d, std=0.1)] * 3, dim=1)
+    pack["ln"] = ln.contiguous()
+    cbias = rnd(B, H, S)
+    cbias.masked_fill_((torch.rand(B, S, generator=g, device=dev) < 0.1)[:, None, :], -1e9)
+    x = dict(x0=rnd(rows, d).to(dtype), sbias=rnd(L, rows, H, Tmax), cbias=cbias,
+             self_k=rnd(L, rows, H, Tmax, 64).to(dtype), self_v=rnd(L, rows, H, Tmax, 64).to(dtype),
+             cross_k=rnd(L, B, H, S, 64).to(dtype), cross_v=rnd(L, B, H, S, 64).to(dtype))
+    return pack, x
+
+
+def _k7_work(pack, x, idx: int) -> dict:
+    """K7's bound: its weights, the cross K/V, the cache rows before idx (the
+    only ones the step reads), the biases; the products and both attentions."""
+    L, rows, H, _, hd = x["self_k"].shape
+    d, f, S = H * hd, pack["w_fc1"].shape[1], x["cross_k"].shape[3]
+    el = x["x0"].element_size()
+    cache = 2 * L * rows * H * idx * hd * el
+    nbytes = (_nbytes(*pack.values(), x["x0"], x["sbias"], x["cbias"], x["cross_k"], x["cross_v"])
+              + cache + (2 * L + 1) * rows * d * el)  # k_new, v_new, x_out
+    ops = L * (2.0 * rows * (6 * d * d + 2 * d * f) + 4.0 * rows * H * hd * (idx + 1 + S))
+    return _bound(nbytes, ops)
+
+
+def phase_k7(g) -> dict:
+    from musketeer_tpu_torch.ops import decode_stack as k7
+
+    names = ("x0", "sbias", "cbias", "self_k", "self_v", "cross_k", "cross_v")
+    scaling = (64 * 2.0) ** -0.5
+    stats = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+        pack, x = _k7_inputs(g, **K7_SHAPE, dtype=dtype)
+        args = [x[n] for n in names]
+        for idx in K7_INDICES:
+            call = lambda fn: fn(pack, *args, idx, beam_size=BEAM, scaling=scaling)
+            out, ref = call(k7.decode_stack_step), call(k7.decode_stack_plain)
+            torch.cuda.synchronize()
+            errs = [_check_close(f"K7 {n} cache_index {idx}", a, b, tol)
+                    for n, a, b in zip(("x_out", "k_new", "v_new"), out, ref)]
+            log(f"[K7] rows 80 L6 d768 f3072 Tmax 17 S908 {str(dtype)[6:]} cache_index {idx}: "
+                f"max abs err x_out {errs[0]:.3e}, k_new {errs[1]:.3e}, v_new {errs[2]:.3e} "
+                f"(max |x_out| {float(ref[0].float().abs().max()):.2f})")
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: call(k7.decode_stack_step), 10)
+                plain_ms = cuda_ms(lambda: call(k7.decode_stack_plain), 5)
+                work = _k7_work(pack, x, idx)
+                log(f"[K7] cache_index {idx}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per step, "
+                    f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+                stats = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **work)  # the last index, the fullest cache
+        del pack, x, args
+    return stats
+
+
+def phase_profile(tree) -> None:
+    """Device operations per beam step and the device's busy share, from
+    torch.profiler, over one run of each slice (after a warm-up run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from musketeer_tpu_torch.generation import beam_search
+    from musketeer_tpu_torch.models import ofa
+
+    for name in SLICES:
+        cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16")
+        src, images, masks = _inputs(BATCH, SEED)
+        _caption(params, cfg, gen_cfg, src, images, masks)
+        with mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps, \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            enc = ofa.encode(params, cfg, src, images, masks)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            beam_search(params, cfg, gen_cfg, enc, max_len=MAX_LEN)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        enc_us = (t1 - t0) * 1e6
+        # device operations that started during the search (the trace's clock
+        # starts with the profiler, as t0 does, up to the profiler's set-up)
+        first = min(e.time_range.start for e in dev)
+        search = [e for e in dev if e.time_range.start - first >= enc_us]
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        wall = (t2 - t0) * 1e3
+        log(f"[profile {name}] {len(dev)} device operations, {busy:.2f} ms device time over "
+            f"{wall:.2f} ms wall under the profiler (busy share {busy / wall:.3f}); encode "
+            f"{(t1 - t0) * 1e3:.2f} ms wall; search: {steps.call_count} beam steps, about "
+            f"{len(search)} device operations ({len(search) / steps.call_count:.1f} per step)")
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    k1_stats = phase_k1(g)
-    k2_stats = phase_k2(g)
+    stats = {"K1": phase_k1(g), "K2": phase_k2(g), "K2-q8": phase_k2q8(g), "K6": phase_k6(g),
+             "K7": phase_k7(g)}
     from musketeer_tpu_torch.config import ofa_base
 
     tree = _random_model_tree(dataclasses.replace(ofa_base(), use_flash_attention=True), SEED)
-    launches = phase_slice(tree, smi)
-    phase_exactness(tree)
-    k34_stats = phase_k3_k4(g)
+    launches = {name: phase_slice(tree, smi, name) for name in SLICES}
+    for name in SLICES:
+        phase_exactness(tree, name)
+    stats.update(phase_k3_k4(g))
     train_launches = phase_train(tree, smi)
     phase_train_exactness(tree)
+    phase_profile(tree)
 
-    kernels = [
-        dict(name="flash_attention_inference", route="cuda",
-             source="musketeer_tpu_torch/csrc/flash_attention_infer.cu",
-             replaces="musketeer_tpu/ops/flash_attention_infer.py:109",
-             launches=launches["K1"], **k1_stats),
-        dict(name="project_with_stats", route="cuda",
-             source="musketeer_tpu_torch/csrc/topk_projection.cu",
-             replaces="musketeer_tpu/ops/topk_projection.py:95",
-             launches=launches["K2"], **k2_stats),
-        dict(name="flash_attention_fwd", route="cuda",
-             source="musketeer_tpu_torch/csrc/flash_attention_bwd.cu",
-             replaces="musketeer_tpu/ops/flash_attention_bwd.py:247",
-             launches=train_launches["K3"], **k34_stats["K3"]),
-        dict(name="flash_attention_bwd", route="cuda",
-             source="musketeer_tpu_torch/csrc/flash_attention_bwd.cu",
-             replaces="musketeer_tpu/ops/flash_attention_bwd.py:296",
-             launches=train_launches["K4"], **k34_stats["K4"]),
+    # each kernel's launches on its main path
+    on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
+               "K3": train_launches, "K4": train_launches, "K6": launches["serving A"],
+               "K7": launches["serving B"]}
+    table = [
+        ("K1", "flash_attention_inference", "flash_attention_infer.cu", "flash_attention_infer.py:109"),
+        ("K2", "project_with_stats", "topk_projection.cu", "topk_projection.py:95"),
+        ("K2-q8", "project_with_stats_q8", "topk_projection.cu", "topk_projection.py:71"),
+        ("K3", "flash_attention_fwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:247"),
+        ("K4", "flash_attention_bwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:296"),
+        ("K6", "decode_cross_attention_int8", "decode_cross_attn.cu", "decode_cross_attn.py:71"),
+        ("K7", "decode_stack_step", "decode_stack.cu", "decode_stack.py:384"),
     ]
+    kernels = [dict(name=name, route="cuda", source=f"musketeer_tpu_torch/csrc/{src}",
+                    replaces=f"musketeer_tpu/ops/{tpu}", launches=on_path[k][k], **stats[k])
+               for k, name, src, tpu in table]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,197 @@
+// Beam-shared cross-attention of one decode step, for one (head, sample):
+// the device function that K6 (int8 K/V with per-position scales) and K7's
+// cross-attention (K/V in the compute dtype) share.
+//
+// For the Kb beams j of sample b and head h, over the sample's S keys:
+//   w[j, s] = q[j] . k[s]            (int8: times k_scale[s]) + bias[s]
+//   int8:   pads -> -1e9, m = max(max_s w, -1e8), l = max(sum_s e, 1e-38),
+//           p = e / l * v_scale[s]   (a fully padded sample gives zeros)
+//   else:   m = max_s w, l = sum_s e, p = e / l   (pads folded into bias)
+//   out[j]  = sum_s round_T(p[j, s]) * v[s]      (fp32 sums, rounded to T)
+// with e = exp(w - m): the normalised probabilities are rounded to the
+// compute dtype T before the value product, as both TPU kernels do.
+//
+// Design. One block of 256 threads reads the (b, h) K and V once for all Kb
+// beams. Scores: one key row per thread, loaded with 16-byte vector loads
+// and widened in registers, dotted with the Kb query rows held in shared
+// memory; all Kb x S scores stay in shared memory for an exact (two-pass)
+// softmax, one warp per beam row. Values: thread (d, part) sums the keys of
+// its part for all Kb beams in registers; the four parts are added in order.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace mk {
+namespace cross_attn {
+
+constexpr int D = 64;          // head dim
+constexpr int NT = 256;        // threads per block
+constexpr int MAX_KB = 16;     // beams (query rows) of one sample
+constexpr int PARTS = NT / D;  // key partitions of the value product
+constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on sm_90
+constexpr float NEG = -1e9f;
+
+struct Args {
+  const void* q;         // T: element (b, h, j, d) at b * q_bs + h * q_hs + j * q_js + d
+  const void* k;         // KV [B, H, S, D]
+  const void* v;         // KV [B, H, S, D]
+  const float* k_scale;  // [B, H, S] (int8 K/V only)
+  const float* v_scale;  // [B, H, S] (int8 K/V only)
+  const float* bias;     // element (b, h, s) at b * bias_bs + h * bias_hs + s
+  const uint8_t* pad;    // [B, S] bool (int8 only: K7 folds pads into the bias)
+  void* out;             // T, in q's layout
+  int H, Kb, S;
+  long long q_bs, q_hs, q_js, bias_bs, bias_hs;
+};
+
+inline size_t smem_bytes(int Kb, int S) {
+  return sizeof(float) * ((size_t)Kb * D + (size_t)Kb * S + (size_t)PARTS * Kb * D);
+}
+
+// a D-element row, 16 bytes at a time, widened to fp32
+__device__ __forceinline__ void load_row(const float* p, float* r) {
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(p)[i];
+    r[4 * i] = v.x;
+    r[4 * i + 1] = v.y;
+    r[4 * i + 2] = v.z;
+    r[4 * i + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* r) {
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      r[8 * i + 2 * j] = __uint_as_float(w[j] << 16);
+      r[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+}
+
+__device__ __forceinline__ void load_row(const int8_t* p, float* r) {
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i) {
+    const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      r[16 * i + j] = static_cast<float>(static_cast<int8_t>((w[j / 4] >> (8 * (j % 4))) & 0xffu));
+  }
+}
+
+template <typename T, typename KV, bool kInt8>
+__device__ void block(const Args& a, int h, int b) {
+  extern __shared__ __align__(16) float smem[];
+  const int Kb = a.Kb, S = a.S, tid = threadIdx.x;
+  float* qs = smem;                  // [Kb][D]
+  float* sc = qs + Kb * D;           // [Kb][S] scores, then probabilities
+  float* red = sc + (size_t)Kb * S;  // [PARTS][Kb][D]
+  const long long bh = (long long)b * a.H + h;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const KV* kp = static_cast<const KV*>(a.k) + bh * S * D;
+  const KV* vp = static_cast<const KV*>(a.v) + bh * S * D;
+  const float* bias = a.bias + b * a.bias_bs + h * a.bias_hs;
+
+  for (int i = tid; i < Kb * D; i += NT) qs[i] = to_f(q[(i / D) * a.q_js + i % D]);
+  __syncthreads();
+
+  // scores: one key row per thread
+  for (int s = tid; s < S; s += NT) {
+    float kr[D];
+    load_row(kp + (long long)s * D, kr);
+    for (int j = 0; j < Kb; ++j) {
+      const float4* qj = reinterpret_cast<const float4*>(qs + j * D);
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) {
+        const float4 qv = qj[i];
+        acc = fmaf(qv.x, kr[4 * i], acc);
+        acc = fmaf(qv.y, kr[4 * i + 1], acc);
+        acc = fmaf(qv.z, kr[4 * i + 2], acc);
+        acc = fmaf(qv.w, kr[4 * i + 3], acc);
+      }
+      float w;
+      if (kInt8) {
+        w = acc * a.k_scale[bh * S + s] + bias[s];
+        if (a.pad[(long long)b * S + s]) w = NEG;
+      } else {
+        w = acc + bias[s];
+      }
+      sc[j * S + s] = w;
+    }
+  }
+  __syncthreads();
+
+  // softmax, one warp per beam row
+  const int warp = tid / 32, lane = tid % 32;
+  for (int j = warp; j < Kb; j += NT / 32) {
+    float* row = sc + (size_t)j * S;
+    float m = -CUDART_INF_F;
+    for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
+    m = warp_max(m);
+    if (kInt8) m = fmaxf(m, -1e8f);
+    float l = 0.f;
+    for (int s = lane; s < S; s += 32) l += expf(row[s] - m);
+    l = warp_sum(l);
+    if (kInt8) l = fmaxf(l, 1e-38f);  // subnormal: the build does not flush it
+    for (int s = lane; s < S; s += 32) {
+      float p = expf(row[s] - m) / l;
+      if (kInt8) p *= a.v_scale[bh * S + s];
+      row[s] = round_to<T>(p);
+    }
+  }
+  __syncthreads();
+
+  // values: thread (d, part) over the keys s = part (mod PARTS), all beams
+  const int d = tid % D, part = tid / D;
+  float acc[MAX_KB];
+#pragma unroll
+  for (int j = 0; j < MAX_KB; ++j) acc[j] = 0.f;
+  for (int s = part; s < S; s += PARTS) {
+    const float v = to_f(vp[(long long)s * D + d]);
+#pragma unroll
+    for (int j = 0; j < MAX_KB; ++j)
+      if (j < Kb) acc[j] = fmaf(sc[(size_t)j * S + s], v, acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < MAX_KB; ++j)
+    if (j < Kb) red[(part * Kb + j) * D + d] = acc[j];
+  __syncthreads();
+  T* out = static_cast<T*>(a.out) + b * a.q_bs + h * a.q_hs;
+  for (int i = tid; i < Kb * D; i += NT) {
+    const int j = i / D, dd = i % D;
+    float o = 0.f;
+    for (int p = 0; p < PARTS; ++p) o += red[(p * Kb + j) * D + dd];
+    out[j * a.q_js + dd] = from_f<T>(o);
+  }
+}
+
+template <typename T, typename KV, bool kInt8>
+__global__ void __launch_bounds__(NT) kernel(Args a) {
+  block<T, KV, kInt8>(a, blockIdx.x, blockIdx.y);
+}
+
+// grid (H, B); returns a CUDA error code (cudaErrorInvalidValue when Kb or
+// the scores do not fit)
+template <typename T, typename KV, bool kInt8>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.Kb, a.S);
+  if (a.Kb < 1 || a.Kb > MAX_KB || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel<T, KV, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<T, KV, kInt8><<<dim3(a.H, B), NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace cross_attn
+}  // namespace mk

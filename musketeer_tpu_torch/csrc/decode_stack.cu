@@ -1,0 +1,358 @@
+// K7: all L decoder layers of one incremental decode step, for sm_90a.
+//
+// Replaces the Pallas kernel musketeer_tpu/ops/decode_stack.py::
+// decode_stack_step (_kernel; pallas_call at :467). Per layer, on the step's
+// hidden state x [rows, d] (rows = B samples x Kb beams):
+//   self:  LN, x . [Wq|Wk|Wv] + b -> q, k_new, v_new; scores of q against
+//          the cached prefix with position idx replaced by k_new (+ the fp32
+//          bias row, later positions masked), softmax, . V (v_new at idx),
+//          out-proj + bias + residual;
+//   cross: LN, (x . Wq + b) * scaling; per sample its Kb beams against its
+//          [S, 64] K/V per head with the bias row (pads folded to -1e9),
+//          softmax, . V, out-proj + bias + residual;
+//   FFN:   LN, fc1 + bias, erf-gelu, fc2 + bias + residual.
+// k_new and v_new of every layer are outputs; the caller writes them into
+// the cache at idx. Numerics are the TPU kernel's: each product sums in fp32
+// and is rounded to the compute dtype T before its bias and again after it;
+// LayerNorm, softmax and the attention sums in fp32; probabilities rounded
+// to T before each value product; gelu = round(round(h * 0.5) *
+// round(erfc(round(-h * round(1/sqrt 2))))) with CUDA's erfcf in place of
+// the TPU kernel's restated XLA expansion.
+//
+// Translation. The TPU kernel walks L as a sequential grid with x in VMEM
+// scratch and streams each sample's cross K/V with manual DMAs from a
+// transposed, S-padded copy of the cache. An H100 runs the blocks of one
+// launch in no order, so the C entry point runs, on one stream, a fixed
+// sequence of 8 launches per layer, x living in the output buffer:
+//   1 LN + q|k|v product   2 self-attention      3 out-proj + residual
+//   4 LN + cross-q product 5 cross-attention     6 out-proj + residual
+//   7 LN + fc1 + gelu      8 fc2 + residual
+// The products are one small-M kernel: a block computes 32 rows x 64
+// columns of x . W^T with W's rows contiguous along the input (the pack's
+// [dout, din] layout), staging 32-deep chunks of both in shared memory, fp32
+// FMAs on the CUDA cores, 8 rows per thread; the LayerNorm before it is
+// applied while its input is staged (the block computes its rows'
+// statistics first); bias, scaling, gelu and residual are its epilogue. The
+// cross K/V are read in the cache's own [L, B, H, S, 64] layout in T by the
+// device function K6 uses (csrc/cross_attn.cuh).
+//
+// Bound. At the caption decode shape (rows 80 = 16 x 5, L 6, d 768, f 3072,
+// Tmax 17, S 908, bf16) a step must read 99 MB of weights, 268 MB of cross
+// K/V and up to 25 MB of self cache: 392 MB, 117 us at 3.35 TB/s. Its
+// 4.0 G multiply-adds in the products and 0.9 G in the cross-attention are
+// ~1.5 ms of fp32 FMAs at the rate this first, untuned version reaches; the
+// 48 launches add ~0.1 ms. Tensor-core products (mma.sync / wgmma) and one
+// persistent launch are the next steps.
+#include <stdint.h>
+
+#include "common.cuh"
+#include "cross_attn.cuh"
+
+namespace {
+
+using mk::from_f;
+using mk::round_to;
+using mk::to_f;
+
+constexpr int D = 64;     // head dim
+constexpr int MT = 32;    // product rows per block
+constexpr int NTL = 64;   // product columns per block
+constexpr int KC = 32;    // depth chunk staged in shared memory
+constexpr int GT = 256;   // threads: column tid % 64, rows 8 * (tid / 64) + 0..7
+constexpr int RPT = 8;    // rows per thread
+constexpr int SA_WARPS = 4;  // self-attention: (row, head) tasks per block
+constexpr float NEG = -1e9f;
+
+// the epilogue of a product, per element (m, n), after the fp32 sum:
+// v = round(sum); v = round(v + bias[n]); v = round(v * scale); v = gelu(v);
+// v = round(residual[m, n] + v); out[n / seg][m, n % seg] = v
+template <typename T>
+struct Epi {
+  const T* bias;      // [N] or nullptr
+  float scale;        // 0: none (else already a value of T)
+  int gelu;
+  const T* residual;  // [M, N] or nullptr; may be out[0]
+  T* out[3];          // up to three column segments, each [M, seg]
+  int seg;
+};
+
+template <typename T>
+__device__ __forceinline__ float gelu_exact(float h) {
+  const float y = round_to<T>((-h) * round_to<T>(0.7071067811865476f));
+  const float e = round_to<T>(erfcf(y));
+  return round_to<T>(round_to<T>(h * 0.5f) * e);
+}
+
+// Y = epi(LN?(A) . W^T): A [M, K], W [N, K], both T; ln_g/ln_b fp32 [K] or nullptr
+template <typename T>
+__global__ void __launch_bounds__(GT) gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
+                                                  const float* __restrict__ ln_g,
+                                                  const float* __restrict__ ln_b, Epi<T> epi, int M,
+                                                  int N, int K) {
+  __shared__ __align__(16) float as[MT][KC];
+  __shared__ float ws[KC][NTL + 1];  // +1 word: conflict-free transposed stores
+  __shared__ float mu[MT], rstd[MT];
+  const int tid = threadIdx.x;
+  const int c = tid % NTL, rg = tid / NTL;
+  const int m0 = blockIdx.x * MT, n0 = blockIdx.y * NTL;
+
+  if (ln_g != nullptr) {  // fp32 LayerNorm statistics of this block's rows, eps 1e-5
+    const int warp = tid / 32, lane = tid % 32;
+    for (int r = warp; r < MT; r += GT / 32) {
+      const int m = m0 + r;
+      float mean = 0.f, var = 0.f;
+      if (m < M) {
+        const T* x = A + (long long)m * K;
+        float s = 0.f;
+        for (int k = lane; k < K; k += 32) s += to_f(x[k]);
+        mean = mk::warp_sum(s) / K;
+        float s2 = 0.f;
+        for (int k = lane; k < K; k += 32) {
+          const float t = to_f(x[k]) - mean;
+          s2 += t * t;
+        }
+        var = mk::warp_sum(s2) / K;
+      }
+      if (lane == 0) {
+        mu[r] = mean;
+        rstd[r] = rsqrtf(var + 1e-5f);
+      }
+    }
+    __syncthreads();
+  }
+
+  float acc[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    for (int i = tid; i < MT * KC; i += GT) {
+      const int r = i / KC, kk = i % KC, m = m0 + r, k = k0 + kk;
+      float a = 0.f;
+      if (m < M && k < K) {
+        a = to_f(A[(long long)m * K + k]);
+        if (ln_g != nullptr) a = round_to<T>((a - mu[r]) * rstd[r] * ln_g[k] + ln_b[k]);
+      }
+      as[r][kk] = a;
+    }
+    for (int i = tid; i < NTL * KC; i += GT) {
+      const int r = i / KC, kk = i % KC, n = n0 + r, k = k0 + kk;
+      ws[kk][r] = (n < N && k < K) ? to_f(W[(long long)n * K + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 4) {
+      const float w0 = ws[kk][c], w1 = ws[kk + 1][c], w2 = ws[kk + 2][c], w3 = ws[kk + 3][c];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const float4 av = *reinterpret_cast<const float4*>(&as[rg * RPT + r][kk]);
+        acc[r] = fmaf(av.x, w0, acc[r]);
+        acc[r] = fmaf(av.y, w1, acc[r]);
+        acc[r] = fmaf(av.z, w2, acc[r]);
+        acc[r] = fmaf(av.w, w3, acc[r]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int n = n0 + c;
+  if (n >= N) return;
+  const int seg = n / epi.seg, ns = n % epi.seg;
+  T* out = epi.out[seg];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int m = m0 + rg * RPT + r;
+    if (m >= M) break;
+    float v = round_to<T>(acc[r]);
+    if (epi.bias != nullptr) v = round_to<T>(v + to_f(epi.bias[n]));
+    if (epi.scale != 0.f) v = round_to<T>(v * epi.scale);
+    if (epi.gelu) v = gelu_exact<T>(v);
+    if (epi.residual != nullptr) v = round_to<T>(to_f(epi.residual[(long long)m * N + n]) + v);
+    out[(long long)m * epi.seg + ns] = from_f<T>(v);
+  }
+}
+
+// Self-attention of one step: one warp per (row, head), 2 of the 64 dims per
+// lane. Only positions t <= idx are read: later ones are masked to -1e9 in
+// the TPU kernel, whose exp is exactly 0 after the max subtraction.
+template <typename T>
+__global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
+    const T* __restrict__ cache_k, const T* __restrict__ cache_v, const float* __restrict__ sbias,
+    T* __restrict__ out, int rows, int H, int Tmax, int idx, float scaling) {
+  extern __shared__ float sa_scores[];  // [SA_WARPS][Tmax]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int task = blockIdx.x * SA_WARPS + warp;
+  if (task >= rows * H) return;
+  const int row = task / H, h = task % H, d = H * D;
+  float* w = sa_scores + warp * Tmax;
+  const long long qo = (long long)row * d + h * D + 2 * lane;  // this lane's dims in [rows, d]
+  const float q0 = round_to<T>(to_f(q[qo]) * scaling);
+  const float q1 = round_to<T>(to_f(q[qo + 1]) * scaling);
+  const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
+  const float* sb = sbias + co;
+
+  float m = -CUDART_INF_F;
+  for (int t = 0; t <= idx; ++t) {
+    const T* kt = t == idx ? k_new + qo : cache_k + (co + t) * D + 2 * lane;
+    const float s = mk::warp_sum(q0 * to_f(kt[0]) + q1 * to_f(kt[1])) + sb[t];
+    if (lane == 0) w[t] = s;
+    m = fmaxf(m, s);
+  }
+  __syncwarp();
+  float l = 0.f;
+  for (int t = 0; t <= idx; ++t) l += expf(w[t] - m);
+  float a0 = 0.f, a1 = 0.f;
+  for (int t = 0; t <= idx; ++t) {
+    const float p = round_to<T>(expf(w[t] - m) / l);
+    const T* vt = t == idx ? v_new + qo : cache_v + (co + t) * D + 2 * lane;
+    a0 = fmaf(p, to_f(vt[0]), a0);
+    a1 = fmaf(p, to_f(vt[1]), a1);
+  }
+  out[qo] = from_f<T>(a0);
+  out[qo + 1] = from_f<T>(a1);
+}
+
+template <typename T>
+int gemm(const T* A, const T* W, const float* ln_g, const float* ln_b, Epi<T> epi, int M, int N,
+         int K, cudaStream_t st) {
+  const dim3 grid((M + MT - 1) / MT, (N + NTL - 1) / NTL);
+  gemm_kernel<T><<<grid, GT, 0, st>>>(A, W, ln_g, ln_b, epi, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+Epi<T> epi_of(const T* bias, T* out, int seg, const T* residual = nullptr, float scale = 0.f,
+              int gelu = 0) {
+  Epi<T> e;
+  e.bias = bias;
+  e.scale = scale;
+  e.gelu = gelu;
+  e.residual = residual;
+  e.out[0] = out;
+  e.out[1] = e.out[2] = nullptr;
+  e.seg = seg;
+  return e;
+}
+
+struct Pack {
+  const void *w_self3, *b_self3, *w_so, *w_cq, *w_co, *w_fc1, *b_fc1, *w_fc2, *b_misc;
+  const float* ln;
+};
+
+#define MK_TRY(call)                 \
+  do {                               \
+    const int err_ = (call);         \
+    if (err_ != 0) return err_;      \
+  } while (0)
+
+template <typename T>
+int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, const T* self_k,
+         const T* self_v, const T* cross_k, const T* cross_v, T* x, T* k_new, T* v_new,
+         T* scratch, int L, int B, int Kb, int H, int S, int Tmax, int f, int idx, float scaling,
+         cudaStream_t st) {
+  namespace ca = mk::cross_attn;
+  const int d = H * D, rows = B * Kb;
+  const size_t sa_smem = sizeof(float) * SA_WARPS * Tmax;
+  if (sa_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  T* qbuf = scratch;         // [rows, d] self q (unscaled)
+  T* attn = qbuf + rows * d;  // [rows, d] attention output, head-major columns
+  T* q2 = attn + rows * d;    // [rows, d] cross q (scaled)
+  T* g = q2 + rows * d;       // [rows, f] gelu(fc1)
+  MK_TRY((int)cudaMemcpyAsync(x, x0, sizeof(T) * rows * d, cudaMemcpyDeviceToDevice, st));
+  for (int l = 0; l < L; ++l) {
+    const float* ln = pk.ln + (long long)l * 6 * d;
+    const T* bm = static_cast<const T*>(pk.b_misc) + (long long)l * 4 * d;
+    const T* w_dd = nullptr;
+    T* kn = k_new + (long long)l * rows * d;
+    T* vn = v_new + (long long)l * rows * d;
+    // 1. LN + q|k|v: columns [0, d) -> qbuf, [d, 2d) -> k_new[l], [2d, 3d) -> v_new[l]
+    Epi<T> e = epi_of<T>(static_cast<const T*>(pk.b_self3) + (long long)l * 3 * d, qbuf, d);
+    e.out[1] = kn;
+    e.out[2] = vn;
+    MK_TRY(gemm<T>(x, static_cast<const T*>(pk.w_self3) + (long long)l * 3 * d * d, ln, ln + d, e,
+                   rows, 3 * d, d, st));
+    // 2. self-attention over the cache
+    const long long cl = (long long)l * rows * H * Tmax;
+    self_attn_kernel<T><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
+        qbuf, kn, vn, self_k + cl * D, self_v + cl * D, sbias + cl, attn, rows, H, Tmax, idx,
+        scaling);
+    MK_TRY((int)cudaGetLastError());
+    // 3. out-proj + bias + residual
+    w_dd = static_cast<const T*>(pk.w_so) + (long long)l * d * d;
+    MK_TRY(gemm<T>(attn, w_dd, nullptr, nullptr, epi_of<T>(bm, x, d, x), rows, d, d, st));
+    // 4. LN + cross q, scaled
+    w_dd = static_cast<const T*>(pk.w_cq) + (long long)l * d * d;
+    MK_TRY(gemm<T>(x, w_dd, ln + 2 * d, ln + 3 * d, epi_of<T>(bm + d, q2, d, nullptr, scaling),
+                   rows, d, d, st));
+    // 5. beam-shared cross-attention over this layer's [B, H, S, 64] K/V
+    ca::Args a;
+    a.q = q2;
+    a.k = cross_k + (long long)l * B * H * S * D;
+    a.v = cross_v + (long long)l * B * H * S * D;
+    a.k_scale = a.v_scale = nullptr;
+    a.bias = cbias;
+    a.pad = nullptr;
+    a.out = attn;
+    a.H = H;
+    a.Kb = Kb;
+    a.S = S;
+    a.q_bs = (long long)Kb * d;  // row b * Kb + j, column h * 64 + dd
+    a.q_hs = D;
+    a.q_js = d;
+    a.bias_bs = (long long)H * S;
+    a.bias_hs = S;
+    MK_TRY((ca::launch<T, T, false>(a, B, st)));
+    // 6. out-proj + bias + residual
+    w_dd = static_cast<const T*>(pk.w_co) + (long long)l * d * d;
+    MK_TRY(gemm<T>(attn, w_dd, nullptr, nullptr, epi_of<T>(bm + 2 * d, x, d, x), rows, d, d, st));
+    // 7. LN + fc1 + bias + gelu
+    MK_TRY(gemm<T>(x, static_cast<const T*>(pk.w_fc1) + (long long)l * f * d, ln + 4 * d,
+                   ln + 5 * d,
+                   epi_of<T>(static_cast<const T*>(pk.b_fc1) + (long long)l * f, g, f, nullptr,
+                             0.f, 1),
+                   rows, f, d, st));
+    // 8. fc2 + bias + residual
+    MK_TRY(gemm<T>(g, static_cast<const T*>(pk.w_fc2) + (long long)l * d * f, nullptr, nullptr,
+                   epi_of<T>(bm + 3 * d, x, d, x), rows, d, f, st));
+  }
+  return 0;
+}
+
+}  // namespace
+
+// bf16 != 0 selects __nv_bfloat16 tensors, else float (sbias, cbias and ln
+// are fp32 either way). Shapes: the pack as ops/decode_stack.py builds it;
+// x0 [rows, d]; sbias [L, rows, H, Tmax]; cbias [B, H, S]; self_k/self_v
+// [L, rows, H, Tmax, 64]; cross_k/cross_v [L, B, H, S, 64]; outputs x_out
+// [rows, d], k_new/v_new [L, rows, d]; scratch rows * (3 d + f) elements.
+// rows = B * Kb, d = 64 H. scaling is already a value of the element type.
+// Returns a CUDA error code.
+extern "C" int mk_decode_stack_step(int bf16, const void* w_self3, const void* b_self3,
+                                    const void* w_so, const void* w_cq, const void* w_co,
+                                    const void* w_fc1, const void* b_fc1, const void* w_fc2,
+                                    const void* b_misc, const void* ln, const void* x0,
+                                    const void* sbias, const void* cbias, const void* self_k,
+                                    const void* self_v, const void* cross_k, const void* cross_v,
+                                    void* x_out, void* k_new, void* v_new, void* scratch, int L,
+                                    int B, int Kb, int H, int S, int Tmax, int f, int idx,
+                                    float scaling, void* stream) {
+  const Pack pk{w_self3, b_self3, w_so, w_cq, w_co, w_fc1, b_fc1, w_fc2, b_misc,
+                static_cast<const float*>(ln)};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto sb = static_cast<const float*>(sbias);
+  auto cb = static_cast<const float*>(cbias);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return step<T>(pk, static_cast<const T*>(x0), sb, cb, static_cast<const T*>(self_k),
+                   static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
+                   static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
+                   static_cast<T*>(v_new), static_cast<T*>(scratch), L, B, Kb, H, S, Tmax, f, idx,
+                   scaling, st);
+  }
+  using T = float;
+  return step<T>(pk, static_cast<const T*>(x0), sb, cb, static_cast<const T*>(self_k),
+                 static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
+                 static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
+                 static_cast<T*>(v_new), static_cast<T*>(scratch), L, B, Kb, H, S, Tmax, f, idx,
+                 scaling, st);
+}

@@ -24,6 +24,15 @@
 // 256 threads, each one vocab column by 8 rows, reading h as float4 from
 // shared memory (8 vector loads and 4 scalar loads per 32 FMAs); the fp32
 // FMA rate (~0.1 ms for 3.7 G) rather than the weight read limits it.
+//
+// K2-q8 (mk_project_with_stats_q8) replaces _proj_kernel_q8 (:71), the same
+// function over the int8 serving projection: w int8 [Vp, D] with fp32 row
+// scales. The kernel is the same template with the weight type int8_t: it
+// reads the int8 rows straight from device memory (half K2's weight bytes:
+// 46 MB at the decode shape, 14 us at 3.35 TB/s), widens them in registers
+// (exact), and multiplies each column's fp32 dot by its row scale before the
+// mask and the statistics, as the TPU kernel does. Its bound is K2's: the
+// fp32 FMA rate of this first version, not the halved weight read.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -37,22 +46,12 @@ constexpr int NT = 256;   // threads: column tid % 128, rows 8 * (tid / 128) + 0
 constexpr int RPT = 8;    // rows per thread
 constexpr float NEG = -1e9f;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <typename T>
+// W is T (K2) or int8_t (K2-q8, with fp32 row scales `scale`; else nullptr)
+template <typename T, typename W>
 __global__ void __launch_bounds__(NT) proj_stats_kernel(
-    const T* __restrict__ h, const T* __restrict__ w, T* __restrict__ logits,
-    float* __restrict__ bmax, float* __restrict__ bsum, int N, int D, int Vp, int vocab_size) {
+    const T* __restrict__ h, const W* __restrict__ w, const float* __restrict__ scale,
+    T* __restrict__ logits, float* __restrict__ bmax, float* __restrict__ bsum, int N, int D,
+    int Vp, int vocab_size) {
   __shared__ __align__(16) float hs[RB][KC];
   __shared__ float ws[KC][BLK + 1];  // +1 word: conflict-free transposed stores
   __shared__ float red[NT / 32][RPT];
@@ -93,6 +92,13 @@ __global__ void __launch_bounds__(NT) proj_stats_kernel(
     __syncthreads();
   }
 
+  // int8 rows: the fp32 dot times the row scale, before the mask and the stats
+  if (scale != nullptr) {
+    const float s = scale[col];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) acc[r] *= s;
+  }
+
   // mask the padded vocab, store the logits
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
@@ -105,7 +111,7 @@ __global__ void __launch_bounds__(NT) proj_stats_kernel(
   float mx[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
-    const float x = warp_max(acc[r]);
+    const float x = mk::warp_max(acc[r]);
     if (lane == 0) red[warp][r] = x;
   }
   __syncthreads();
@@ -116,7 +122,7 @@ __global__ void __launch_bounds__(NT) proj_stats_kernel(
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
-    const float x = warp_sum(expf(acc[r] - mx[r]));
+    const float x = mk::warp_sum(expf(acc[r] - mx[r]));
     if (lane == 0) red[warp][r] = x;
   }
   __syncthreads();
@@ -131,13 +137,14 @@ __global__ void __launch_bounds__(NT) proj_stats_kernel(
   }
 }
 
-template <typename T>
-int launch(const void* h, const void* w, void* logits, void* bmax, void* bsum, int N, int D,
-           int Vp, int vocab_size, cudaStream_t stream) {
+template <typename T, typename W>
+int launch(const void* h, const void* w, const void* scale, void* logits, void* bmax, void* bsum,
+           int N, int D, int Vp, int vocab_size, cudaStream_t stream) {
   const dim3 grid((N + RB - 1) / RB, Vp / BLK);
-  proj_stats_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<T*>(logits),
-      static_cast<float*>(bmax), static_cast<float*>(bsum), N, D, Vp, vocab_size);
+  proj_stats_kernel<T, W><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(h), static_cast<const W*>(w), static_cast<const float*>(scale),
+      static_cast<T*>(logits), static_cast<float*>(bmax), static_cast<float*>(bsum), N, D, Vp,
+      vocab_size);
   return (int)cudaGetLastError();
 }
 
@@ -149,6 +156,19 @@ extern "C" int mk_project_with_stats(int bf16, const void* h, const void* w, voi
                                      void* bmax, void* bsum, int N, int D, int Vp,
                                      int vocab_size, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(h, w, logits, bmax, bsum, N, D, Vp, vocab_size, st);
-  return launch<float>(h, w, logits, bmax, bsum, N, D, Vp, vocab_size, st);
+  if (bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(h, w, nullptr, logits, bmax, bsum, N, D, Vp,
+                                                vocab_size, st);
+  return launch<float, float>(h, w, nullptr, logits, bmax, bsum, N, D, Vp, vocab_size, st);
+}
+
+// K2-q8: w int8 [Vp, D], scale fp32 [Vp]; h and logits as for K2.
+extern "C" int mk_project_with_stats_q8(int bf16, const void* h, const void* w,
+                                        const void* scale, void* logits, void* bmax, void* bsum,
+                                        int N, int D, int Vp, int vocab_size, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16, int8_t>(h, w, scale, logits, bmax, bsum, N, D, Vp, vocab_size,
+                                         st);
+  return launch<float, int8_t>(h, w, scale, logits, bmax, bsum, N, D, Vp, vocab_size, st);
 }

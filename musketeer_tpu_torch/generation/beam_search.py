@@ -3,7 +3,8 @@
 Restates ``body_fast`` step for step. Each step runs the incremental decoder
 for its features, projects them through K2 (``ops/topk_projection.py``:
 logits, 128-token block maxes, exact logsumexp in one pass over the tied
-embedding), selects candidate blocks, and applies every ban in the candidate
+embedding; K2-q8 when ``params`` carry the int8 projection of
+``ofa.quantize_output_proj``), selects candidate blocks, and applies every ban in the candidate
 domain: pad, the min-length eos ban, the n-gram ban and the at-max cut, with
 the forced-eos column. The beam competition is the JAX package's two-stage
 top-2K with alive / finished bookkeeping and length-normalised scores.
@@ -12,10 +13,12 @@ top-2K with alive / finished bookkeeping and length-normalised scores.
 each step (one host sync per step). Ties keep index order, as ``lax.top_k``
 does, so the tokens match the JAX search exactly.
 
+``int8_cross_kv`` quantizes the cross K/V cache right after
+``init_decoder_state`` (``ofa.quantize_cross_kv``), as the JAX search does.
+
 Only the fast path is ported: any option that selects the general path
 (tries, prefix tokens, constraints, sampling, diverse beams, ensembles,
-``gen_box``/``gen_code``, ``unk_penalty``, int8 cross K/V) raises
-``NotImplementedError``.
+``gen_box``/``gen_code``, ``unk_penalty``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ def _check_fast_path(gen_cfg: GenerationConfig, cfg: ModelConfig, args: dict) ->
         "gen_box": gen_cfg.gen_box,
         "gen_code": gen_cfg.gen_code,
         "zero_shot": gen_cfg.zero_shot,
-        "int8_cross_kv": gen_cfg.int8_cross_kv,
         "padded_vocab_size % 128": cfg.padded_vocab_size % 128 != 0,
     }
     for name, on in unsupported.items():
@@ -92,7 +94,13 @@ def beam_search(
     ngram = gen_cfg.no_repeat_ngram_size
 
     state = ofa.init_decoder_state(params, cfg, encoder_out, max_len=max_len + 1, beam_size=K)
-    w_proj = ofa.output_weight(params, ofa.compute_dtype(cfg))  # cast once, not per step
+    if gen_cfg.int8_cross_kv:
+        state = ofa.quantize_cross_kv(state)
+    proj_dtype = ofa.compute_dtype(cfg)
+    if "embed_tokens_q8" in params:
+        w_proj, w_scale = params["embed_tokens_q8"], params["embed_tokens_scale"]
+    else:
+        w_proj, w_scale = ofa.output_weight(params, proj_dtype), None  # cast once, not per step
     nb_sel = min(2 * K + 2 + (T - ngram + 1 if ngram > 0 else 0), Vp // 128)
 
     def length_norm(step: int) -> float:
@@ -115,10 +123,10 @@ def beam_search(
             break
         cur = alive_tokens[:, :, step].reshape(N)
         feats, state = ofa.decode_step(params, cfg, cur, step, state, features_only=True)
-        h = feats.to(w_proj.dtype)
+        h = feats.to(proj_dtype)
         if gen_cfg.temperature != 1.0:
             h = h / gen_cfg.temperature  # projection is linear with no bias
-        logits, bmax, Z = project_with_stats(h, w_proj, vocab_size=cfg.vocab_size)
+        logits, bmax, Z = project_with_stats(h, w_proj, w_scale, vocab_size=cfg.vocab_size)
         vals, ids = select_candidate_blocks(logits, bmax, nb_sel)
         alive_flat = alive_scores.reshape(N)
         cand = vals.float() - Z[:, None] + alive_flat[:, None]

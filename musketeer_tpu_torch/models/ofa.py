@@ -28,6 +28,16 @@ from one key; here each draw advances the generator (ROADMAP §3).
 
 ``decode_step`` writes the step's K/V into the self cache in place and
 returns the same state object.
+
+Serving options, as in the JAX model: ``quantize_output_proj`` (int8 tied
+projection with per-row scales: ``output_layer`` and the beam search's K2-q8
+read it), ``quantize_cross_kv`` (int8 cross K/V with per-position scales;
+``cfg.decode_int8_kv_kernel`` sends a step's cross-attention to K6,
+``ops/decode_cross_attn.py``), and ``cfg.decode_stack_kernel`` (a weight pack
+built once per decode session; a step whose cache is not int8 and whose
+samples are even in number runs all L layers through K7,
+``ops/decode_stack.py``). The JAX model also pads S to a multiple of 8 and
+builds a transposed cross cache for its TPU kernel; the port does neither.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..ops.decode_cross_attn import decode_cross_attention_int8
+from ..ops.decode_stack import decode_stack_step, pack_decoder_weights
 from ..ops.flash_attention_bwd import flash_attention
 from ..params import check_supported
 from . import positions as pos_lib
@@ -425,8 +437,9 @@ def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pa
     """Pre-LN decoder block, one incremental step: x ``[rows, 1, d]``.
 
     ``cache`` holds this layer's self K/V ``[rows, H, Tmax, hd]`` (written in
-    place at ``cache_index``) and the beam-shared cross K/V ``[Bs, H, S, hd]``;
-    ``cross_bias`` is ``[Bs, H, 1, S]``.
+    place at ``cache_index``) and the beam-shared cross K/V ``[Bs, H, S, hd]``
+    (fp32 or the compute dtype; int8 with ``cross_k_scale`` / ``cross_v_scale``
+    ``[Bs, H, S]`` after ``quantize_cross_kv``); ``cross_bias`` is ``[Bs, H, 1, S]``.
     """
     H = cfg.attention_heads
     scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
@@ -453,12 +466,22 @@ def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pa
     rows, Bs = h.shape[0], ck.shape[0]
     Kb = rows // Bs
     q = (_linear(pc["q_proj"], h) * scaling).view(Bs, Kb, H, -1).transpose(1, 2)
-    w = q.float() @ ck.transpose(-1, -2)  # [Bs, H, Kb, S], ck fp32
-    w = w + cross_bias
-    w = w.masked_fill(enc_pad[:, None, None, :], float("-inf"))
-    probs = torch.nan_to_num(torch.softmax(w, dim=-1), nan=0.0).to(x.dtype)
-    out = (probs @ cv.to(x.dtype)).transpose(1, 2).reshape(rows, 1, -1)
-    x = x + _linear(pc["out_proj"], out)
+    int8_kv = "cross_k_scale" in cache
+    if int8_kv and cfg.decode_int8_kv_kernel:
+        out = decode_cross_attention_int8(
+            q.contiguous(), ck, cv, cache["cross_k_scale"], cache["cross_v_scale"],
+            cross_bias[:, :, 0], enc_pad)
+    else:
+        w = q.float() @ ck.float().transpose(-1, -2)  # [Bs, H, Kb, S]
+        if int8_kv:  # the per-position scale factors out of the hd contraction
+            w = w * cache["cross_k_scale"][:, :, None, :]
+        w = w + cross_bias
+        w = w.masked_fill(enc_pad[:, None, None, :], float("-inf"))
+        probs = torch.nan_to_num(torch.softmax(w, dim=-1), nan=0.0)
+        if int8_kv:
+            probs = probs * cache["cross_v_scale"][:, :, None, :]
+        out = probs.to(x.dtype) @ cv.to(x.dtype)
+    x = x + _linear(pc["out_proj"], out.transpose(1, 2).reshape(rows, 1, -1))
 
     h = _layer_norm(p["final_layer_norm"], x)
     return x + _linear(p["fc2"], _gelu(_linear(p["fc1"], h)))
@@ -472,21 +495,62 @@ def output_weight(params: Params, dtype: torch.dtype) -> torch.Tensor:
 
 
 def output_layer(params: Params, cfg: ModelConfig, features: torch.Tensor) -> torch.Tensor:
-    """Tied output projection; padded vocab ids masked to −1e9."""
-    logits = features @ output_weight(params, features.dtype).t()
+    """Tied output projection (int8 with row scales after ``quantize_output_proj``);
+    padded vocab ids masked to −1e9."""
+    if "embed_tokens_q8" in params:
+        logits = features @ params["embed_tokens_q8"].to(features.dtype).t()
+        logits = logits * params["embed_tokens_scale"].to(features.dtype)
+    else:
+        logits = features @ output_weight(params, features.dtype).t()
     if cfg.padded_vocab_size > cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits
 
 
+def _absmax_int8(a: torch.Tensor, dim: int):
+    """Absmax int8 along ``dim`` → (int8 values, fp32 scales with ``dim`` kept)."""
+    af = a.float()
+    scale = af.abs().amax(dim=dim, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(af / scale), -127, 127).to(torch.int8), scale
+
+
+def quantize_output_proj(params: Params) -> Params:
+    """Per-row absmax int8 of the tied output projection (a serving option).
+
+    Adds ``embed_tokens_q8 [Vp, d]`` int8 and ``embed_tokens_scale [Vp]``
+    fp32, from the fp32 master embedding; the token gathers keep the master.
+    Never for a training tree (the extra leaves would be optimised)."""
+    q, scale = _absmax_int8(params["embed_tokens"], 1)
+    return {**params, "embed_tokens_q8": q, "embed_tokens_scale": scale[:, 0]}
+
+
 class DecoderState(NamedTuple):
-    # self_k/self_v [L, rows, H, Tmax, hd]; cross_k (fp32) / cross_v [L, B, H, S, hd]
+    # self_k/self_v [L, rows, H, Tmax, hd]; cross_k / cross_v [L, B, H, S, hd]:
+    # cross_k fp32 (widened once), or the compute dtype when kernel_pack is
+    # set (K7 reads it); both int8 after quantize_cross_kv, with
+    # cross_k_scale / cross_v_scale [L, B, H, S] fp32
     cache: Dict[str, torch.Tensor]
     enc_pad: torch.Tensor  # [B, S]
     self_bias_full: torch.Tensor  # [rows, H, Tmax, Tmax] fp32 (abs pos)
     cross_bias_full: torch.Tensor  # [B, H, Tmax, S] fp32
     rel_full: torch.Tensor  # [L, 1, H, Tmax, Tmax] fp32 self rel bias
     tgt_pos_embed: torch.Tensor  # [rows, Tmax, d]
+    # K7's weight pack (ops/decode_stack.py), built once per decode session
+    # when cfg.decode_stack_kernel is set
+    kernel_pack: Optional[Dict[str, torch.Tensor]] = None
+
+
+def quantize_cross_kv(state: DecoderState) -> DecoderState:
+    """Per-position absmax int8 of the cross K/V cache (a serving option).
+
+    The scale of each (layer, sample, head, position) factors out of both
+    contractions: ``q·(k·s) = (q·k)·s`` on the scores, ``Σ p·(v·s) = Σ (p·s)·v``
+    on the probabilities. Quantizes from the cache's fp32 or compute-dtype
+    K/V, whose widening to fp32 is exact."""
+    ck, ck_s = _absmax_int8(state.cache["cross_k"], -1)
+    cv, cv_s = _absmax_int8(state.cache["cross_v"], -1)
+    return state._replace(cache={**state.cache, "cross_k": ck, "cross_v": cv,
+                                 "cross_k_scale": ck_s[..., 0], "cross_v_scale": cv_s[..., 0]})
 
 
 def init_decoder_state(
@@ -518,12 +582,18 @@ def init_decoder_state(
     rel = _decoder_rel_bias(params, cfg, max_len)[:, None]
 
     enc_x = encoder_out.x.to(dtype)
-    # the cross scores are fp32 products of the compute-dtype K: widen K once
-    # here, not once per step
     cross_k = torch.stack([_split_heads(_linear(lp["encoder_attn"]["k_proj"], enc_x), H)
-                           for lp in dec["layers"]]).float()
+                           for lp in dec["layers"]])
     cross_v = torch.stack([_split_heads(_linear(lp["encoder_attn"]["v_proj"], enc_x), H)
                            for lp in dec["layers"]])
+    kernel_pack = None
+    if cfg.decode_stack_kernel:
+        # K7 reads the cross K/V in the compute dtype, half the bytes of fp32
+        kernel_pack = pack_decoder_weights(dec["layers"], dtype)
+    else:
+        # the per-layer cross scores are fp32 products of the compute-dtype
+        # K: widen K once here, not once per step
+        cross_k = cross_k.float()
     cache = {
         "self_k": torch.zeros((L, rows, H, max_len, hd), dtype=dtype, device=device),
         "self_v": torch.zeros((L, rows, H, max_len, hd), dtype=dtype, device=device),
@@ -537,6 +607,7 @@ def init_decoder_state(
         cross_bias_full=cross_bias,
         rel_full=rel,
         tgt_pos_embed=tgt_pos_embed[:1].expand(rows, -1, -1),
+        kernel_pack=kernel_pack,
     )
 
 
@@ -551,7 +622,10 @@ def decode_step(
 ):
     """One incremental decode step → (logits [rows, Vp] or features [rows, d], state).
 
-    The step's self K/V are written into ``state.cache`` in place.
+    The step's self K/V are written into ``state.cache`` in place. With a
+    weight pack, a cache that is not int8 and an even number of samples that
+    divides the rows (the JAX model's routing on the CPU backend, without its
+    TPU layout clauses), all L layers run through K7; else layer by layer.
     """
     if code_masks is not None:
         raise NotImplementedError("musketeer_tpu_torch does not support code_masks")
@@ -561,10 +635,24 @@ def decode_step(
     self_bias_t = state.self_bias_full[:, :, step:step + 1]  # [rows, H, 1, T]
     cross_bias_t = state.cross_bias_full[:, :, step:step + 1]  # [B, H, 1, S]
     cache = state.cache
-    for i, layer_p in enumerate(dec["layers"]):
-        cache_i = {name: t[i] for name, t in cache.items()}
-        bias_i = self_bias_t + state.rel_full[i, :, :, step:step + 1]
-        x = _decoder_layer(layer_p, cfg, x, bias_i, cross_bias_t, state.enc_pad, cache_i, step)
+    rows, Bs = tokens.shape[0], cache["cross_k"].shape[1]
+    if (state.kernel_pack is not None and "cross_k_scale" not in cache
+            and rows % Bs == 0 and Bs % 2 == 0):
+        sbias = (self_bias_t[None, :, :, 0] + state.rel_full[:, :, :, step]).contiguous()
+        cbias = cross_bias_t[:, :, 0].masked_fill(state.enc_pad[:, None, :], NEG_INF).contiguous()
+        x1, k_new, v_new = decode_stack_step(
+            state.kernel_pack, x[:, 0], sbias, cbias, cache["self_k"], cache["self_v"],
+            cache["cross_k"], cache["cross_v"], step, beam_size=rows // Bs,
+            scaling=float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5)
+        L, H = cfg.decoder_layers, cfg.attention_heads
+        cache["self_k"][:, :, :, step] = k_new.view(L, rows, H, -1)
+        cache["self_v"][:, :, :, step] = v_new.view(L, rows, H, -1)
+        x = x1[:, None]
+    else:
+        for i, layer_p in enumerate(dec["layers"]):
+            cache_i = {name: t[i] for name, t in cache.items()}
+            bias_i = self_bias_t + state.rel_full[i, :, :, step:step + 1]
+            x = _decoder_layer(layer_p, cfg, x, bias_i, cross_bias_t, state.enc_pad, cache_i, step)
     x = _layer_norm(dec["layer_norm"], x)[:, 0]
     if features_only:
         return x, state

@@ -31,6 +31,7 @@ LIB_NAME = "libmusketeer_tpu_torch_kernels.so"
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 I64 = ctypes.c_int64
+FLOAT = ctypes.c_float
 
 
 def find_nvcc() -> str:

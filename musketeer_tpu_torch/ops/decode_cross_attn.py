@@ -1,0 +1,109 @@
+"""K6: one decode step of beam-shared cross-attention over the int8 K/V cache.
+
+Port of ``musketeer_tpu/ops/decode_cross_attn.py::decode_cross_attention_int8``
+(Pallas ``_kernel``). The serving option ``quantize_cross_kv``
+(``models/ofa.py``) stores the cross K/V as int8 with one fp32 scale per
+(layer, sample, head, position); the scales factor out of both contractions:
+
+    w   = (q·k_i8ᵀ)·k_scale + bias          fp32, pads → −1e9
+    m   = max(max_s w, −1e8)                 (clamped)
+    p   = exp(w − m) / max(Σ exp(w − m), 1e-38) · v_scale
+    out = p.to(q.dtype) · v_i8               fp32 sums → q's dtype
+
+A sample's Kb beams are the query rows of one product with its K/V, which is
+read once for all of them. A fully padded sample gives exact zeros (clamped
+max, floored denominator). The 1e-38 floor is subnormal in fp32: the kernel
+is built without flushing subnormals; XLA:CPU flushes it, so the JAX kernel
+gives NaN on such a sample in the CPU tests (ROADMAP §3).
+
+``decode_cross_attention_int8`` runs the plain PyTorch version for CPU
+tensors and the CUDA kernel (``csrc/decode_cross_attn.cu``) for CUDA
+tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e9
+HEAD_DIM = 64  # the kernel's compiled head dim (ofa_tiny and ofa_base)
+MAX_BEAMS = 16  # query rows per sample the kernel holds in registers
+_DTYPES = (torch.float32, torch.bfloat16)
+_SIG = (_build.INT,) + (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.PTR,)
+
+
+def _check(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad) -> None:
+    name = "decode_cross_attention_int8"
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be [B, H, Kb, D]")
+    B, H, _, D = q.shape
+    S = k_i8.shape[2]
+    for arg, t, shape in (("k_i8", k_i8, (B, H, S, D)), ("v_i8", v_i8, (B, H, S, D)),
+                          ("k_scale", k_scale, (B, H, S)), ("v_scale", v_scale, (B, H, S)),
+                          ("bias", bias, (B, H, S)), ("enc_pad", enc_pad, (B, S))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} != {shape}")
+    if k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8 or enc_pad.dtype != torch.bool:
+        raise ValueError(f"{name}: k_i8 and v_i8 must be int8, enc_pad bool")
+
+
+def decode_cross_attention_int8_plain(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad):
+    """The plain PyTorch version of K6 (the CPU path and the kernel's reference)."""
+    w = q.float() @ k_i8.float().transpose(-1, -2)  # [B, H, Kb, S]; int8 · q exact in fp32
+    w = w * k_scale.float()[:, :, None, :] + bias.float()[:, :, None, :]
+    w = w.masked_fill(enc_pad[:, None, None, :], NEG_INF)
+    m = w.amax(dim=-1, keepdim=True).clamp_min(-1e8)
+    e = torch.exp(w - m)
+    denom = e.sum(dim=-1, keepdim=True).clamp_min(1e-38)
+    p = (e / denom) * v_scale.float()[:, :, None, :]
+    return (p.to(q.dtype).float() @ v_i8.float()).to(q.dtype)
+
+
+def decode_cross_attention_int8(
+    q: torch.Tensor,        # [B, H, Kb, D] pre-scaled, compute dtype
+    k_i8: torch.Tensor,     # [B, H, S, D] int8
+    v_i8: torch.Tensor,     # [B, H, S, D] int8
+    k_scale: torch.Tensor,  # [B, H, S] fp32
+    v_scale: torch.Tensor,  # [B, H, S] fp32
+    bias: torch.Tensor,     # [B, H, S] fp32 this step's cross-pos bias row (rows contiguous)
+    enc_pad: torch.Tensor,  # [B, S] bool, True = padded key
+) -> torch.Tensor:
+    """→ [B, H, Kb, D] in q's dtype. Plain version on CPU, CUDA kernel on CUDA."""
+    name = "decode_cross_attention_int8"
+    _check(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad)
+    if q.device.type == "cpu":
+        return decode_cross_attention_int8_plain(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    _build.require_cuda(name, {"q": q}, _DTYPES)
+    _build.require_cuda(name, {"k_i8": k_i8, "v_i8": v_i8}, (torch.int8,))
+    _build.require_cuda(name, {"k_scale": k_scale, "v_scale": v_scale}, (torch.float32,))
+    _build.require_cuda(name, {"enc_pad": enc_pad}, (torch.bool,))
+    # bias may be a view of the [B, H, Tmax, S] table: only its rows must be contiguous
+    if bias.dtype != torch.float32 or bias.stride(2) != 1:
+        raise ValueError(f"{name}: bias must be fp32 with contiguous rows")
+    if len({t.device for t in (q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad)}) != 1:
+        raise ValueError(f"{name}: all inputs must be on one device")
+    if k_i8.data_ptr() % 16 or v_i8.data_ptr() % 16:
+        raise ValueError(f"{name}: k_i8 and v_i8 must start on 16-byte boundaries (vector loads)")
+    B, H, Kb, D = q.shape
+    S = k_i8.shape[2]
+    if D != HEAD_DIM or Kb > MAX_BEAMS:
+        raise NotImplementedError(f"{name}: head dim {D} (kernel has {HEAD_DIM}), "
+                                  f"{Kb} beams (kernel holds at most {MAX_BEAMS})")
+    out = torch.empty_like(q)
+    fn = _build.kernel_function("mk_decode_cross_attn_int8", _SIG)
+    with torch.cuda.device(q.device):
+        err = fn(
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), bias.data_ptr(), enc_pad.data_ptr(),
+            out.data_ptr(), B, H, Kb, S, bias.stride(0), bias.stride(1), _build.stream_of(q),
+        )
+    _build.check(err, name)
+    decode_cross_attention_int8.launches += 1
+    return out
+
+
+decode_cross_attention_int8.launches = 0

@@ -1,0 +1,222 @@
+"""K7: all L decoder layers of one incremental decode step in one call.
+
+Port of ``musketeer_tpu/ops/decode_stack.py::decode_stack_step`` (Pallas
+``_kernel``, with ``pack_decoder_weights`` and ``_gelu_exact``). Per layer,
+on the step's hidden state ``x [rows, d]`` (rows = samples × beams):
+
+1. self-attention over the growing cache: LN, the fused q|k|v product, the
+   scores of the cached prefix with the current position's K/V substituted,
+   softmax, the value product, the out-projection and the residual;
+2. beam-shared cross-attention: LN, the cross q product, a sample's beams
+   against its K/V ``[S, hd]`` with the bias row (pads folded to −1e9),
+   softmax, the value product, the out-projection and the residual;
+3. the FFN: LN, fc1, erf-gelu, fc2, the residual.
+
+It returns ``x_out [rows, d]`` and the step's new self K/V ``k_new, v_new
+[L, rows, d]``, which the caller writes into the cache at ``cache_index``.
+
+Numerics are the TPU kernel's: every product accumulates in fp32 and is
+rounded to the compute dtype before its bias (``_dot``), the self
+out-projection is one fp32 sum rounded once, LayerNorm is fp32 with eps
+1e-5, the probabilities are rounded to the compute dtype before each value
+product, and gelu is ``_gelu_exact``'s three roundings around an fp32 erfc
+(PyTorch's ``erfc`` here, CUDA's ``erfcf`` in the kernel, in place of the
+TPU kernel's restated XLA expansion).
+
+The TPU kernel streams the cross K/V in a transposed, S-padded layout
+(``transpose_cross_kv``), a constraint of its DMAs; here the cross K/V are
+read in the cache's own ``[L, B, H, S, hd]`` layout, in the compute dtype.
+
+``decode_stack_step`` runs the plain PyTorch version for CPU tensors and the
+CUDA kernel (``csrc/decode_stack.cu``, one C call per step) for CUDA
+tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+NEG_INF = -1e9
+HEAD_DIM = 64  # the kernel's compiled head dim (ofa_tiny and ofa_base)
+MAX_BEAMS = 16  # query rows per sample the cross-attention holds in registers
+MAX_TMAX = 2048  # self-cache length the kernel's scores fit in shared memory
+_DTYPES = (torch.float32, torch.bfloat16)
+_PACK = ("w_self3", "b_self3", "w_so", "w_cq", "w_co", "w_fc1", "b_fc1", "w_fc2", "b_misc", "ln")
+_SIG = (_build.INT,) + (_build.PTR,) * 21 + (_build.INT,) * 8 + (_build.FLOAT, _build.PTR)
+
+Pack = Dict[str, torch.Tensor]
+
+
+def pack_decoder_weights(dec_layers: List[dict], dtype: torch.dtype) -> Pack:
+    """Stack the per-layer decoder weights into the kernel's layout, once per decode session.
+
+    Linear weights keep the port's ``[dout, din]`` rows (contiguous along the
+    input, as a small-M product reads them): ``w_self3 [L, 3d, d]`` (q|k|v),
+    ``w_so``, ``w_cq``, ``w_co [L, d, d]``, ``w_fc1 [L, f, d]``, ``w_fc2 [L, d, f]``;
+    biases ``b_self3 [L, 3d]``, ``b_fc1 [L, f]``, ``b_misc [L, 4, d]`` (self out,
+    cross q, cross out, fc2), all in ``dtype``; ``ln [L, 6, d]`` fp32 (self,
+    cross and final LayerNorm scale and bias)."""
+    def stack(get, dt=dtype):
+        return torch.stack([get(p).to(dt) for p in dec_layers]).contiguous()
+
+    sa, ca = "self_attn", "encoder_attn"
+    return {
+        "w_self3": stack(lambda p: torch.cat([p[sa][n]["w"] for n in ("q_proj", "k_proj", "v_proj")])),
+        "b_self3": stack(lambda p: torch.cat([p[sa][n]["b"] for n in ("q_proj", "k_proj", "v_proj")])),
+        "w_so": stack(lambda p: p[sa]["out_proj"]["w"]),
+        "w_cq": stack(lambda p: p[ca]["q_proj"]["w"]),
+        "w_co": stack(lambda p: p[ca]["out_proj"]["w"]),
+        "w_fc1": stack(lambda p: p["fc1"]["w"]),
+        "b_fc1": stack(lambda p: p["fc1"]["b"]),
+        "w_fc2": stack(lambda p: p["fc2"]["w"]),
+        "b_misc": stack(lambda p: torch.stack([p[sa]["out_proj"]["b"], p[ca]["q_proj"]["b"],
+                                               p[ca]["out_proj"]["b"], p["fc2"]["b"]])),
+        "ln": stack(lambda p: torch.stack([p[n][k] for n in ("self_attn_layer_norm",
+                                                             "encoder_attn_layer_norm",
+                                                             "final_layer_norm")
+                                           for k in ("scale", "bias")]), torch.float32),
+    }
+
+
+def _scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX rounds a Python scalar multiplied into an array."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ wᵀ with fp32 sums, rounded to a's dtype (the TPU kernel's ``_dot``)."""
+    return (a.float() @ w.float().t()).to(a.dtype)
+
+
+def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x.float(), x.shape[-1:], scale, bias, 1e-5).to(x.dtype)
+
+
+def _gelu_exact(h: torch.Tensor) -> torch.Tensor:
+    """0.5·h·erfc(−h/√2): the product and the halving in h's dtype, erfc in fp32."""
+    y = (-h) * _scalar(0.7071067811865476, h.dtype)
+    e = torch.special.erfc(y.float()).to(h.dtype)
+    return (h * _scalar(0.5, h.dtype)) * e
+
+
+def decode_stack_plain(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v,
+                       cache_index: int, beam_size: int, scaling: float):
+    """The plain PyTorch version of K7 (the CPU path and the kernel's reference)."""
+    rows, d = x0.shape
+    L, _, H, Tmax, hd = self_k.shape
+    B, Kb, dt = rows // beam_size, beam_size, x0.dtype
+    s = _scalar(scaling, dt)
+    idx = int(cache_index)
+    k_new = torch.empty((L, rows, d), dtype=dt, device=x0.device)
+    v_new = torch.empty_like(k_new)
+    later = torch.arange(Tmax, device=x0.device) > idx
+    x = x0
+    for l in range(L):
+        ln, b_misc = pack["ln"][l], pack["b_misc"][l]
+        # self attention over the cache, the current position's K/V substituted
+        qkv = _dot(_ln(x, ln[0], ln[1]), pack["w_self3"][l]) + pack["b_self3"][l]
+        q, kn, vn = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
+        k_new[l], v_new[l] = kn, vn
+        kc, vc = self_k[l].float(), self_v[l].float()  # [rows, H, Tmax, hd] copies
+        kc[:, :, idx] = kn.float().view(rows, H, hd)
+        vc[:, :, idx] = vn.float().view(rows, H, hd)
+        qf = (q * s).float().view(rows, H, 1, hd)
+        w = (qf @ kc.transpose(-1, -2))[:, :, 0] + sbias[l]  # [rows, H, Tmax]
+        probs = torch.softmax(w.masked_fill(later, NEG_INF), dim=-1).to(dt)
+        o = (probs.float()[:, :, None, :] @ vc)[:, :, 0].to(dt)  # [rows, H, hd]
+        x = x + (_dot(o.reshape(rows, d), pack["w_so"][l]) + b_misc[0])
+        # beam-shared cross attention: a sample's beams against its K/V
+        q2 = (_dot(_ln(x, ln[2], ln[3]), pack["w_cq"][l]) + b_misc[1]) * s
+        qb = q2.float().view(B, Kb, H, hd).transpose(1, 2)  # [B, H, Kb, hd]
+        w2 = qb @ cross_k[l].float().transpose(-1, -2) + cbias[:, :, None, :]
+        p2 = torch.softmax(w2, dim=-1).to(dt)
+        o2 = (p2.float() @ cross_v[l].float()).to(dt)  # [B, H, Kb, hd]
+        x = x + (_dot(o2.transpose(1, 2).reshape(rows, d), pack["w_co"][l]) + b_misc[2])
+        # FFN
+        h1 = _dot(_ln(x, ln[4], ln[5]), pack["w_fc1"][l]) + pack["b_fc1"][l]
+        x = x + (_dot(_gelu_exact(h1), pack["w_fc2"][l]) + b_misc[3])
+    return x, k_new, v_new
+
+
+def _check_cuda(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v,
+                cache_index: int, beam_size: int) -> None:
+    name = "decode_stack_step"
+    if x0.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x0.device}")
+    rows, d = x0.shape
+    L, _, H, Tmax, hd = self_k.shape
+    B, S = cross_k.shape[1], cross_k.shape[3]
+    f = pack["w_fc1"].shape[1]
+    _build.require_cuda(name, {"x0": x0, "self_k": self_k, "self_v": self_v, "cross_k": cross_k,
+                               "cross_v": cross_v, **{n: pack[n] for n in _PACK if n != "ln"}},
+                        _DTYPES)
+    _build.require_cuda(name, {"sbias": sbias, "cbias": cbias, "ln": pack["ln"]}, (torch.float32,))
+    if sbias.device != x0.device:
+        raise ValueError(f"{name}: all inputs must be on {x0.device}")
+    shapes = {"self_v": (self_v, (L, rows, H, Tmax, hd)), "cross_k": (cross_k, (L, B, H, S, hd)),
+              "cross_v": (cross_v, (L, B, H, S, hd)), "sbias": (sbias, (L, rows, H, Tmax)),
+              "cbias": (cbias, (B, H, S)), "w_self3": (pack["w_self3"], (L, 3 * d, d)),
+              "b_self3": (pack["b_self3"], (L, 3 * d)), "w_so": (pack["w_so"], (L, d, d)),
+              "w_cq": (pack["w_cq"], (L, d, d)), "w_co": (pack["w_co"], (L, d, d)),
+              "w_fc1": (pack["w_fc1"], (L, f, d)), "b_fc1": (pack["b_fc1"], (L, f)),
+              "w_fc2": (pack["w_fc2"], (L, d, f)), "b_misc": (pack["b_misc"], (L, 4, d)),
+              "ln": (pack["ln"], (L, 6, d))}
+    for arg, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} != {shape}")
+    if hd != HEAD_DIM or beam_size > MAX_BEAMS or Tmax > MAX_TMAX or rows != B * beam_size:
+        raise NotImplementedError(
+            f"{name}: head dim {hd} (kernel has {HEAD_DIM}), beams {beam_size} (at most "
+            f"{MAX_BEAMS}), Tmax {Tmax} (at most {MAX_TMAX}), rows {rows} != {B} x {beam_size}")
+    if not 0 <= cache_index < Tmax:
+        raise ValueError(f"{name}: cache_index {cache_index} outside [0, {Tmax})")
+
+
+def decode_stack_step(
+    pack: Pack,
+    x0: torch.Tensor,       # [rows, d] compute-dtype decoder input of this step
+    sbias: torch.Tensor,    # [L, rows, H, Tmax] fp32 self bias + rel of this step
+    cbias: torch.Tensor,    # [B, H, S] fp32 cross bias row, pads folded to −1e9
+    self_k: torch.Tensor,   # [L, rows, H, Tmax, hd] (read only)
+    self_v: torch.Tensor,
+    cross_k: torch.Tensor,  # [L, B, H, S, hd] compute dtype
+    cross_v: torch.Tensor,
+    cache_index: int,
+    beam_size: int,
+    scaling: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ (x_out [rows, d], k_new, v_new [L, rows, d]). Plain version on CPU, kernel on CUDA."""
+    args = (pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v)
+    if x0.device.type == "cpu":
+        return decode_stack_plain(*args, cache_index, beam_size, scaling)
+    _check_cuda(*args, cache_index, beam_size)
+    rows, d = x0.shape
+    L, _, H, Tmax, _ = self_k.shape
+    B, S = cross_k.shape[1], cross_k.shape[3]
+    f = pack["w_fc1"].shape[1]
+    dt = x0.dtype
+    x_out = torch.empty_like(x0)
+    k_new = torch.empty((L, rows, d), dtype=dt, device=x0.device)
+    v_new = torch.empty_like(k_new)
+    scratch = torch.empty(rows * (3 * d + f), dtype=dt, device=x0.device)
+    fn = _build.kernel_function("mk_decode_stack_step", _SIG)
+    with torch.cuda.device(x0.device):
+        err = fn(
+            int(dt == torch.bfloat16), *(pack[n].data_ptr() for n in _PACK),
+            x0.data_ptr(), sbias.data_ptr(), cbias.data_ptr(), self_k.data_ptr(),
+            self_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(), x_out.data_ptr(),
+            k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
+            L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, dt),
+            _build.stream_of(x0),
+        )
+    _build.check(err, "decode_stack_step")
+    decode_stack_step.launches += 1
+    return x_out, k_new, v_new
+
+
+decode_stack_step.launches = 0

@@ -14,6 +14,13 @@ logits are rounded. ``project_with_stats`` runs the plain PyTorch version for
 CPU tensors and the CUDA kernel (``csrc/topk_projection.cu``) for CUDA
 tensors; it never falls back from one to the other.
 
+K2-q8 (``_proj_kernel_q8``) is the same function over the int8 serving
+projection (``models/ofa.py::quantize_output_proj``): ``w`` int8 ``[Vp, D]``
+with fp32 row scales ``w_scale [Vp]``. The logits are the fp32 dot of the
+features with ``w`` (converted to the features' dtype, exact for |w| ≤ 127)
+times the row scale, before the padding mask and the statistics. Its
+launches are counted apart, in ``project_with_stats.launches_q8``.
+
 ``select_candidate_blocks`` (plain PyTorch, as in the JAX package) then picks
 the top ``nb_sel`` blocks per row and gathers their logits.
 """
@@ -30,6 +37,7 @@ NEG_INF = -1e9
 BLK = 128  # block-max granularity
 _DTYPES = (torch.float32, torch.bfloat16)
 _SIG = (_build.INT,) + (_build.PTR,) * 5 + (_build.INT,) * 4 + (_build.PTR,)
+_SIG_Q8 = (_build.INT,) + (_build.PTR,) * 6 + (_build.INT,) * 4 + (_build.PTR,)
 
 
 def _logsumexp_from_blocks(bmax: torch.Tensor, bsum: torch.Tensor) -> torch.Tensor:
@@ -38,9 +46,11 @@ def _logsumexp_from_blocks(bmax: torch.Tensor, bsum: torch.Tensor) -> torch.Tens
     return mstar + torch.log(torch.sum(bsum * torch.exp(bmax - mstar[:, None]), dim=1))
 
 
-def _block_stats_plain(features, w, vocab_size) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _block_stats_plain(features, w, w_scale, vocab_size) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     N, Vp = features.shape[0], w.shape[0]
-    logits = features.float() @ w.float().t()  # fp32 sums of exact bf16 products
+    logits = features.float() @ w.float().t()  # fp32 sums of exact bf16 (or int8) products
+    if w_scale is not None:
+        logits = logits * w_scale.float()[None, :]
     if vocab_size < Vp:
         logits[:, vocab_size:] = NEG_INF
     blocks = logits.view(N, Vp // BLK, BLK)
@@ -50,45 +60,64 @@ def _block_stats_plain(features, w, vocab_size) -> Tuple[torch.Tensor, torch.Ten
 
 
 def project_plain(features: torch.Tensor, w: torch.Tensor,
-                  vocab_size: Optional[int] = None):
-    """The plain PyTorch version of K2 (the CPU path and the kernel's reference)."""
+                  w_scale: Optional[torch.Tensor] = None, vocab_size: Optional[int] = None):
+    """The plain PyTorch version of K2 and K2-q8 (the CPU path and the kernels' reference)."""
     vs = w.shape[0] if vocab_size is None else vocab_size
-    logits, bmax, bsum = _block_stats_plain(features, w, vs)
+    logits, bmax, bsum = _block_stats_plain(features, w, w_scale, vs)
     return logits, bmax, _logsumexp_from_blocks(bmax, bsum)
 
 
 def project_with_stats(
     features: torch.Tensor,  # [N, D] post-LN decoder features
-    w: torch.Tensor,  # [Vp, D] tied embedding, features' dtype
+    w: torch.Tensor,  # [Vp, D] tied embedding: features' dtype, or int8
+    w_scale: Optional[torch.Tensor] = None,  # [Vp] fp32 row scales of an int8 w
     vocab_size: Optional[int] = None,  # real vocab (< Vp when padded)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """→ (logits [N, Vp], block_max [N, Vp/128] fp32, Z [N] fp32)."""
+    name = "project_with_stats"
     N, D = features.shape
     Vp = w.shape[0]
     if w.dim() != 2 or w.shape[1] != D or Vp % BLK:
-        raise ValueError(f"project_with_stats: w {tuple(w.shape)} must be [Vp % {BLK} == 0, {D}]")
+        raise ValueError(f"{name}: w {tuple(w.shape)} must be [Vp % {BLK} == 0, {D}]")
+    q8 = w.dtype == torch.int8
+    if q8 != (w_scale is not None) or (q8 and tuple(w_scale.shape) != (Vp,)):
+        raise ValueError(f"{name}: an int8 w needs w_scale [{Vp}], and only an int8 w takes one")
     vs = Vp if vocab_size is None else vocab_size
     if features.device.type == "cpu":
-        return project_plain(features, w, vs)
+        return project_plain(features, w, w_scale, vs)
     if features.device.type != "cuda":
-        raise ValueError(f"project_with_stats: unsupported device {features.device}")
-    _build.require_cuda("project_with_stats", {"features": features, "w": w}, _DTYPES)
+        raise ValueError(f"{name}: unsupported device {features.device}")
+    if q8:
+        _build.require_cuda(name, {"features": features}, _DTYPES)
+        _build.require_cuda(name, {"w": w}, (torch.int8,))
+        _build.require_cuda(name, {"w_scale": w_scale}, (torch.float32,))
+        if not (w.device == w_scale.device == features.device):
+            raise ValueError(f"{name}: w and w_scale must be on {features.device}")
+    else:
+        _build.require_cuda(name, {"features": features, "w": w}, _DTYPES)
     logits = torch.empty((N, Vp), dtype=features.dtype, device=features.device)
     bmax = torch.empty((N, Vp // BLK), dtype=torch.float32, device=features.device)
     bsum = torch.empty_like(bmax)
-    fn = _build.kernel_function("mk_project_with_stats", _SIG)
+    bf16 = int(features.dtype == torch.bfloat16)
     with torch.cuda.device(features.device):
-        err = fn(
-            int(features.dtype == torch.bfloat16), features.data_ptr(), w.data_ptr(),
-            logits.data_ptr(), bmax.data_ptr(), bsum.data_ptr(), N, D, Vp, vs,
-            _build.stream_of(features),
-        )
-    _build.check(err, "project_with_stats")
-    project_with_stats.launches += 1
+        if q8:
+            err = _build.kernel_function("mk_project_with_stats_q8", _SIG_Q8)(
+                bf16, features.data_ptr(), w.data_ptr(), w_scale.data_ptr(), logits.data_ptr(),
+                bmax.data_ptr(), bsum.data_ptr(), N, D, Vp, vs, _build.stream_of(features))
+        else:
+            err = _build.kernel_function("mk_project_with_stats", _SIG)(
+                bf16, features.data_ptr(), w.data_ptr(), logits.data_ptr(), bmax.data_ptr(),
+                bsum.data_ptr(), N, D, Vp, vs, _build.stream_of(features))
+    _build.check(err, name)
+    if q8:
+        project_with_stats.launches_q8 += 1
+    else:
+        project_with_stats.launches += 1
     return logits, bmax, _logsumexp_from_blocks(bmax, bsum)
 
 
-project_with_stats.launches = 0
+project_with_stats.launches = 0  # K2
+project_with_stats.launches_q8 = 0  # K2-q8
 
 
 def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

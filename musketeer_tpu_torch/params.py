@@ -15,7 +15,10 @@ or torch leaves, into the port's parameters:
   decoder's positional linears (its abs-pos and cross biases are fp32 in the
   JAX model) and the decoder's rel-pos tables in fp32. The tied embedding is
   kept twice: the fp32 master for the token gathers and a compute-dtype copy
-  ``embed_tokens_c`` for the output projection.
+  ``embed_tokens_c`` for the output projection. A tree that went through
+  ``quantize_output_proj`` also carries the int8 serving projection
+  ``embed_tokens_q8 [Vp, d]`` (kept int8) and its fp32 row scales
+  ``embed_tokens_scale [Vp]``.
 
 Every leaf of the JAX tree is consumed exactly once; a missing, extra or twice
 consumed leaf raises ``ValueError``.
@@ -54,8 +57,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "seq_parallel": cfg.seq_parallel,
         "pipeline_microbatches": cfg.pipeline_microbatches > 0,
         "interpolate_position": cfg.interpolate_position,
-        "decode_stack_kernel": cfg.decode_stack_kernel,
-        "decode_int8_kv_kernel": cfg.decode_int8_kv_kernel,
         "use_flash_attention=False": not cfg.use_flash_attention,
         f"activation_fn={cfg.activation_fn!r}": cfg.activation_fn != "gelu",
     }
@@ -232,15 +233,17 @@ class _Leaves:
         self.taken: set = set()
         self.device = device
 
-    def take(self, path: str) -> torch.Tensor:
+    def take(self, path: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         if path in self.taken:
             raise ValueError(f"parameter {path!r} consumed twice")
         if path not in self.leaves:
             raise ValueError(f"parameter {path!r} missing from the JAX tree")
         self.taken.add(path)
         x = self.leaves.pop(path)
-        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
-        return t.to(device=self.device, dtype=torch.float32)
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)  # int8 stays int8; anything else (bf16 too) goes through fp32
+            x = torch.from_numpy(x if x.dtype == np.int8 else x.astype(np.float32, copy=False))
+        return x.to(device=self.device, dtype=dtype)
 
     def finish(self) -> None:
         if self.leaves:
@@ -366,6 +369,9 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
             "image_rel_pos_table": take("decoder/image_rel_pos_table"),
         },
     }
+    if "embed_tokens_q8" in lv.leaves:  # a tree that went through quantize_output_proj
+        out["embed_tokens_q8"] = take("embed_tokens_q8", torch.int8)
+        out["embed_tokens_scale"] = take("embed_tokens_scale")
     lv.finish()
     if dtype != torch.float32:
         out["embed_tokens_c"] = embed_tokens.to(dtype)

@@ -122,7 +122,7 @@ def test_from_jax_consumes_every_leaf_once():
 @pytest.mark.parametrize("option", [
     dict(encoder_prompt=True), dict(seq_parallel=True), dict(pipeline_microbatches=2),
     dict(interpolate_position=True), dict(scale_attn=True), dict(use_flash_attention=False),
-    dict(decode_stack_kernel=True),
+    dict(decoder_prompt=True),
 ])
 def test_unported_model_options_raise(option):
     cfg = dataclasses.replace(_tiny_cfgs()[1], **option)
@@ -131,7 +131,7 @@ def test_unported_model_options_raise(option):
 
 
 @pytest.mark.parametrize("gen,kw", [
-    (dict(sampling=True), {}), (dict(diverse_beam_groups=2), {}), (dict(int8_cross_kv=True), {}),
+    (dict(sampling=True), {}), (dict(diverse_beam_groups=2), {}), (dict(unk_penalty=0.5), {}),
     (dict(constraint_range=(4, 10)), {}), ({}, dict(prefix_tokens=torch.zeros(1, 2))),
     ({}, dict(n_models=2)),
 ])
