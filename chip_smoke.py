@@ -63,17 +63,38 @@ Phases; any failure raises and the script exits non-zero:
     identical tokens;
 15. profile: one run of the caption slice and of each serving slice under
     ``torch.profiler``: device operations per beam step, device time and the
-    device's busy share.
+    device's busy share;
+16. K5, the JAX package's attention entry points (``musketeer_tpu_torch.ops``):
+    its main path calls ``flash_attention_bias`` at the ``ofa_base`` encoder
+    shape (B16 H12 S908 D64, bf16, rel [12, 908, 908], 10 % padded keys) and
+    causal at B4 H12 S90, and ``flash_cross_attention`` at B4 H12 T90 S990,
+    each once: 2 + 1 launches and nothing else; each against its plain
+    version; small fp32 and bf16 cases: a fully masked sample, which must give
+    sum(v) / Sp (Sp the JAX wrapper's padded key count), S not a multiple of
+    block_q (also block_q 64), rel in fp32 with bf16 streams; kernel, plain
+    and ``scaled_dot_product_attention`` times;
+17. K8, the fused ResNet bottleneck, on the path the JAX package's probe
+    drives it (``probe_bottleneck.py``): ``ofa_base``'s ResNet-101 on 16
+    seeded 480² images in bf16, the stem and each stage's first block through
+    the port's model code, each stage's stride-1 blocks (2 at 120², 3 at 60²,
+    22 at 30²) through ``fused_bottleneck``: exactly 27 K8 launches and
+    nothing else; each block against its plain version on the same input;
+    fp32 cases (widths not multiples of 64, layer3's widths); the autograd
+    Function's gradients against autograd through the unfused block; per
+    stage, the kernel chain, the plain chain and the port's unfused cuDNN
+    chain (what the model runs; no single library call) timed.
 
 The counters of every kernel are set to 0 just before each main path (the
-caption slice, the training step, serving A, serving B) and read just after.
-The new phases' bf16 checks allow 2⁻⁶ of the reference's largest magnitude,
-their fp32 checks 1e-4 of it (floored at 1).
+caption slice, the training step, serving A, serving B, K5's calls, the K8
+stage chain) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
-Prints a JSON line of the seven kernels (launches on their main path, error
-against the plain version, kernel, plain and library times, the bound of the
-same work on an H100 SXM at 3.35 TB/s and 989 TFLOP/s bf16), then as its
-last line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
+on their main path, error against the plain version, kernel, plain and
+library times, the bound of the same work on an H100 SXM at 3.35 TB/s and
+989 TFLOP/s bf16; K8's times are the 27-block chain's, with the cuDNN chain
+as ``cudnn_block_ms``), then as its last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
@@ -138,6 +159,23 @@ TRAIN_TASKS = {
 TRAIN_BATCH = 2
 TRAIN_STEP0 = 7000  # TrainState.step: drop-worst active
 EXACT_TASKS = ("caption", "gigaword")  # fp32 exactness: a vision and a text task
+# K5's main path: flash_attention_bias at the encoder shape and causal,
+# flash_cross_attention (no rel) at a decoder cross shape; bf16
+K5_SHAPES = {
+    "encoder": dict(shape=dict(B=16, H=12, T=908, S=908, D=64)),
+    "causal": dict(shape=dict(B=4, H=12, T=90, S=90, D=64), causal=True),
+    "cross": dict(shape=dict(B=4, H=12, T=90, S=990, D=64), cross=True),
+}
+# small K5 cases, each in fp32 and bf16 (rel_f32: bf16 only)
+K5_SMALL = {
+    "fully masked sample": dict(shape=dict(B=2, H=2, T=70, S=70, D=64), masked_row=1),
+    "causal, masked sample": dict(shape=dict(B=2, H=2, T=70, S=70, D=64), causal=True,
+                                  masked_row=0),
+    "block_q 64": dict(shape=dict(B=3, H=2, T=100, S=100, D=64), block_q=64),
+    "cross, masked sample": dict(shape=dict(B=2, H=2, T=33, S=70, D=64), cross=True,
+                                 masked_row=1),
+    "rel fp32": dict(shape=dict(B=2, H=2, T=70, S=70, D=64), rel_f32=True),
+}
 
 
 def _train_configs():
@@ -245,8 +283,10 @@ def _library_ms(name: str, fn, iters: int = 10):
 
 def _counter_owners() -> dict:
     """Each kernel's wrapper and the attribute that counts its launches."""
+    from musketeer_tpu_torch.ops import bottleneck as k8
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
     from musketeer_tpu_torch.ops import decode_stack as k7
+    from musketeer_tpu_torch.ops import flash_attention as k5
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
     from musketeer_tpu_torch.ops import flash_attention_infer as k1
     from musketeer_tpu_torch.ops import topk_projection as k2
@@ -255,8 +295,11 @@ def _counter_owners() -> dict:
             "K2": (k2.project_with_stats, "launches"),
             "K2-q8": (k2.project_with_stats, "launches_q8"),
             "K3": (kb.flash_attention_fwd, "launches"), "K4": (kb.flash_attention_bwd, "launches"),
+            "K5": (k5.flash_attention_bias, "launches"),
+            "K5-cross": (k5.flash_cross_attention, "launches"),
             "K6": (k6.decode_cross_attention_int8, "launches"),
-            "K7": (k7.decode_stack_step, "launches")}
+            "K7": (k7.decode_stack_step, "launches"),
+            "K8": (k8.fused_bottleneck, "launches")}
 
 
 def _counters() -> dict:
@@ -447,7 +490,7 @@ def _slice_setup(tree, name: str, dtype: str):
 
 def _expected_launches(name: str, cfg, steps: int) -> dict:
     """Each kernel's launches in one encode + beam search of the slice."""
-    want = dict.fromkeys(("K1", "K2", "K2-q8", "K3", "K4", "K6", "K7"), 0)
+    want = dict.fromkeys(_counter_owners(), 0)
     want["K1"] = cfg.encoder_layers
     if name == "serving A":
         want.update({"K2-q8": steps, "K6": cfg.decoder_layers * steps})
@@ -954,6 +997,234 @@ def phase_profile(tree) -> None:
             f"{len(search)} device operations ({len(search) / steps.call_count:.1f} per step)")
 
 
+def _k5_call(k5, x: dict, c: dict, plain: bool = False):
+    """One K5 call on ``_k1_inputs``: flash_cross_attention (no rel) or
+    flash_attention_bias, through the wrapper or its plain version."""
+    args = [x[n] for n in ("q", "k", "v", "pos_q", "pos_k")]
+    block_q = c.get("block_q", 128)
+    if c.get("cross"):
+        fn = k5.flash_cross_attention_plain if plain else k5.flash_cross_attention
+        return fn(*args, x["kpad"], block_q=block_q)
+    fn = k5.flash_attention_bias_plain if plain else k5.flash_attention_bias
+    return fn(*args, x["rel"], x["kpad"], causal=c.get("causal", False), block_q=block_q)
+
+
+def phase_k5(g):
+    """K5's main path (three calls, counted), each against its plain version
+    and timed, then the small fp32 and bf16 cases."""
+    from musketeer_tpu_torch.ops import flash_attention as k5
+
+    xs = {name: _k1_inputs(g, **c["shape"], dtype=torch.bfloat16, rel=not c.get("cross"))
+          for name, c in K5_SHAPES.items()}
+    _reset_counters()
+    outs = {name: _k5_call(k5, xs[name], c) for name, c in K5_SHAPES.items()}
+    torch.cuda.synchronize()
+    launches = _counters()
+    want = dict.fromkeys(launches, 0)
+    want.update({"K5": 2, "K5-cross": 1})
+    log(f"[K5] launches {launches}")
+    if launches != want:
+        raise AssertionError(f"K5 main path: launches {launches}, expected {want}")
+
+    stats = {}
+    for name, c in K5_SHAPES.items():
+        x = xs[name]
+        ref = _k5_call(k5, x, c, plain=True)
+        torch.cuda.synchronize()
+        err = _check_close(f"K5 {name}", outs[name], ref, BF16_TOL)
+        ms = cuda_ms(lambda: _k5_call(k5, x, c), 10)
+        plain_ms = cuda_ms(lambda: _k5_call(k5, x, c, plain=True), 5)
+        B, H, T, D = x["q"].shape
+        S = x["k"].shape[2]
+        args = [x[n] for n in ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")]
+        bound = _bound(_nbytes(*args, outs[name]), 6.0 * B * H * T * S * D)
+        log(f"[K5] {name} {c['shape']} bf16: max abs err {err:.3e}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms per call, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        if name in ("encoder", "cross"):
+            qc, kc, v, mask = _sdpa_inputs(x)
+            library_ms = _library_ms(f"K5 {name}", lambda: torch.nn.functional.
+                                     scaled_dot_product_attention(qc, kc, v, attn_mask=mask,
+                                                                  scale=1.0))
+            stats["K5" if name == "encoder" else "K5-cross"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+            del qc, kc, v, mask
+        del ref
+    del xs, outs
+
+    for name, c in K5_SMALL.items():
+        dtypes = ((torch.bfloat16, BF16_TOL),) if c.get("rel_f32") else \
+            ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL))
+        for dtype, tol in dtypes:
+            x = _k1_inputs(g, **c["shape"], dtype=dtype, rel=not c.get("cross"),
+                           masked_row=c.get("masked_row"))
+            if c.get("rel_f32"):
+                x["rel"] = torch.randn(x["rel"].shape, generator=g, device="cuda") * 2
+            a, b = _k5_call(k5, x, c), _k5_call(k5, x, c, plain=True)
+            e = _check_close(f"K5 {name} {dtype}", a, b, tol)
+            log(f"[K5] {name} {c['shape']} {str(dtype)[6:]}: max abs err {e:.3e}")
+            if "masked_row" in c:
+                S = x["k"].shape[2]
+                mult = 128 if c.get("cross") else c.get("block_q", 128)
+                Sp = -(-S // mult) * mult
+                want_row = (x["v"][c["masked_row"]].float().sum(dim=1, keepdim=True) / Sp)
+                e_row = _max_err(a[c["masked_row"]], want_row.expand_as(a[c["masked_row"]]))
+                if e_row > tol * max(1.0, float(want_row.abs().max())):
+                    raise AssertionError(f"K5 {name}: a fully masked sample must give "
+                                         f"sum(v) / Sp (Sp {Sp}), err {e_row}")
+    return stats, launches
+
+
+def _rest_block(tree_rest: dict, i: int) -> dict:
+    """Block i of a stacked "rest" subtree in the JAX layout."""
+    return {k: _rest_block(v, i) if isinstance(v, dict) else v[i] for k, v in tree_rest.items()}
+
+
+def _k8_work(x: torch.Tensor, p: dict) -> dict:
+    """K8's bound: x read, the output written, the weights and affines read; the
+    three convolutions' operations, 2·B·H·W·(2·C·Wd + 9·Wd²)."""
+    B, H, W, C = x.shape
+    Wd = p["conv1"].shape[0]
+    nbytes = 2 * _nbytes(x) + _nbytes(p["conv1"], p["conv2"], p["conv3"]) + 4 * (4 * Wd + 2 * C)
+    return _bound(nbytes, 2.0 * B * H * W * (2 * C * Wd + 9 * Wd * Wd))
+
+
+def _k8_checks(g, tree) -> None:
+    """fp32 K8 against its plain version (widths not multiples of 64, layer1's
+    and layer3's widths), and the Function's gradients against autograd
+    through the unfused block."""
+    from musketeer_tpu_torch.models import resnet as rn
+    from musketeer_tpu_torch.ops import bottleneck as k8
+    from musketeer_tpu_torch.params import block_from_jax
+
+    res = tree["encoder"]["resnet"]
+    rnd = lambda *shape, std=1.0: torch.randn(*shape, generator=g, device="cuda") * std
+    small = {"conv1": rnd(1, 1, 16, 8, std=0.35), "conv2": rnd(3, 3, 8, 8, std=0.16),
+             "conv3": rnd(1, 1, 8, 16, std=0.35)}
+    for i, c in ((1, 8), (2, 8), (3, 16)):
+        small[f"bn{i}"] = {"scale": 1 + rnd(c, std=0.1), "bias": rnd(c, std=0.1),
+                           "mean": rnd(c, std=0.1), "var": rnd(c).abs() + 0.5}
+    cases = {"B2 12x12 C16 Wd8": (small, (2, 12, 12, 16)),
+             "B2 10x6 C256 Wd64": (_rest_block(res["layer1"]["rest"], 0), (2, 10, 6, 256)),
+             "B1 30x30 C1024 Wd256": (_rest_block(res["layer3"]["rest"], 0), (1, 30, 30, 1024))}
+    for name, (blk, shape) in cases.items():
+        p = block_from_jax(blk, "cuda", torch.float32)
+        x = torch.randn(*shape, generator=g, device="cuda")
+        a, b = k8.fused_bottleneck(x, p), k8.fused_bottleneck_plain(x, p)
+        torch.cuda.synchronize()
+        log(f"[K8] {name} fp32: max abs err {_check_close(f'K8 {name}', a, b, FP32_TOL):.3e}")
+
+    # gradients: the Function (forward K8, backward the unfused block recomputed)
+    # against autograd through the unfused block with the same leaves
+    p = block_from_jax(_rest_block(res["layer1"]["rest"], 1), "cuda", torch.float32)
+    leaves = k8._flat(p)
+    x = torch.randn(2, 12, 10, 256, generator=g, device="cuda")
+    cot = torch.randn(x.shape, generator=g, device="cuda")
+    grads = {}
+    for route in ("kernel", "unfused"):
+        xs = x.clone().requires_grad_(True)
+        ls = [t.detach().clone().requires_grad_(True) for t in leaves]
+        if route == "kernel":
+            before = k8.fused_bottleneck.launches
+            out = k8.fused_bottleneck(xs, k8._unflat(ls))
+            if k8.fused_bottleneck.launches != before + 1:
+                raise AssertionError("K8's Function did not launch the kernel")
+        else:
+            out = rn._bottleneck(xs.permute(0, 3, 1, 2), k8._unflat(ls)).permute(0, 2, 3, 1)
+        grads[route] = torch.autograd.grad((out * cot).sum(), [xs, *ls])
+    worst = max(_max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(grads["kernel"], grads["unfused"]))
+    log(f"[K8] gradients of x and {len(leaves)} leaves, fp32: worst max abs err / max|g| "
+        f"{worst:.3e}")
+    if worst > 1e-5:
+        raise AssertionError(f"K8's gradients differ from the unfused block's: {worst}")
+
+
+def phase_k8(g, tree, smi: str) -> tuple:
+    """K8 on the ResNet-101 stage path at B16 480² in bf16: the counted chain,
+    each block against its plain version, the fp32 checks, per-stage times."""
+    from musketeer_tpu_torch.config import ofa_base
+    from musketeer_tpu_torch.models import resnet as rn
+    from musketeer_tpu_torch.ops import bottleneck as k8
+    from musketeer_tpu_torch.params import from_jax
+
+    cfg = dataclasses.replace(ofa_base(), dtype="bfloat16", use_flash_attention=True)
+    params = from_jax(tree, cfg, "cuda", torch.bfloat16)["encoder"]["resnet"]
+    images = _inputs(BATCH, SEED)[1].to(torch.bfloat16)
+
+    def chain(x, blocks, fn):
+        """A stage's stride-1 blocks through fn, on NHWC views of channels_last x."""
+        h = x.permute(0, 2, 3, 1)
+        for p in blocks:
+            h = fn(h, p)
+        return h.permute(0, 3, 1, 2)
+
+    def unfused(h, p):
+        return rn._bottleneck(h.permute(0, 3, 1, 2), p).permute(0, 2, 3, 1)
+
+    def fused_recording(h, p):
+        block_inputs.append((h, p))
+        return k8.fused_bottleneck(h, p)
+
+    with torch.no_grad():
+        stage_inputs, block_inputs = {}, []
+        _reset_counters()
+        x = rn.stem(params, images)
+        for s, stride in rn.STAGES:
+            x = rn._bottleneck(x, params[f"layer{s}"][0], stride)
+            stage_inputs[s] = x
+            x = chain(x, params[f"layer{s}"][1:], fused_recording)
+        torch.cuda.synchronize()
+        launches = _counters()
+        want = dict.fromkeys(launches, 0)
+        want["K8"] = sum(len(params[f"layer{s}"]) - 1 for s, _ in rn.STAGES)
+        log(f"[K8] stage path launches {launches}")
+        if launches != want or want["K8"] != 27:
+            raise AssertionError(f"K8 stage path: launches {launches}, expected {want}")
+        if tuple(x.shape) != (BATCH, 1024, IMAGE // 16, IMAGE // 16) \
+                or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"ResNet features {tuple(x.shape)} must be finite "
+                                 f"[{BATCH}, 1024, 30, 30]")
+
+        errs, rel_errs = [], []
+        for i, (h, p) in enumerate(block_inputs):
+            ref = k8.fused_bottleneck_plain(h, p)
+            errs.append(_check_close(f"K8 block {i}", k8.fused_bottleneck(h, p), ref, BF16_TOL))
+            rel_errs.append(errs[-1] / float(ref.float().abs().max()))
+        # the seeded BN statistics grow the activations block by block (max|ref|
+        # from ~10 to ~1e7), so the error is read against each block's max|ref|
+        log(f"[K8] 27 blocks bf16 against the plain version: max abs err {max(errs):.3e}; "
+            f"max abs err / max|ref| per block {[float(f'{e:.2e}') for e in rel_errs]}")
+        del block_inputs, ref
+
+        totals = dict(ms=0.0, plain_ms=0.0, cudnn_block_ms=0.0, bound_ms=0.0)
+        ops_bound_ms = 0.0  # the part of the chain's bound set by operations
+        for s, _ in rn.STAGES:
+            x0, blocks = stage_inputs[s], params[f"layer{s}"][1:]
+            work = _k8_work(x0.permute(0, 2, 3, 1), blocks[0])
+            times = {k: cuda_ms(lambda: chain(x0, blocks, fn), iters) for k, fn, iters in (
+                ("ms", k8.fused_bottleneck, 3), ("plain_ms", k8.fused_bottleneck_plain, 3),
+                ("cudnn_block_ms", unfused, 10))}
+            n = len(blocks)
+            for k, v in times.items():
+                totals[k] += v
+            totals["bound_ms"] += n * work["bound_ms"]
+            ops_bound_ms += n * work["bound_ms"] * (work["bound_by"] == "operations")
+            B, C, H, W = x0.shape
+            log(f"[K8] layer{s}: {n} blocks at B{B} {H}x{W} C{C} Wd{blocks[0]['conv1'].shape[0]}: "
+                f"kernel {times['ms']:.3f} ms, plain {times['plain_ms']:.3f} ms, cuDNN block "
+                f"{times['cudnn_block_ms']:.3f} ms per chain; per block kernel "
+                f"{times['ms'] / n:.3f} ms, bound {work['bound_ms']:.4f} ms ({work['bound_by']}) "
+                f"on {smi}")
+        del stage_inputs
+    _k8_checks(g, tree)
+    log(f"[K8] 27-block chain: kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
+        f"cuDNN block {totals['cudnn_block_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms")
+    stats = dict(max_abs_err=max(errs), library_ms=None,
+                 bound_by="operations" if ops_bound_ms >= totals["bound_ms"] / 2 else "bytes",
+                 **totals)
+    return stats, launches
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -970,19 +1241,26 @@ def main() -> int:
     train_launches = phase_train(tree, smi)
     phase_train_exactness(tree)
     phase_profile(tree)
+    k5_stats, k5_launches = phase_k5(g)
+    stats.update(k5_stats)
+    stats["K8"], k8_launches = phase_k8(g, tree, smi)
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
-               "K3": train_launches, "K4": train_launches, "K6": launches["serving A"],
-               "K7": launches["serving B"]}
+               "K3": train_launches, "K4": train_launches, "K5": k5_launches,
+               "K5-cross": k5_launches, "K6": launches["serving A"], "K7": launches["serving B"],
+               "K8": k8_launches}
     table = [
         ("K1", "flash_attention_inference", "flash_attention_infer.cu", "flash_attention_infer.py:109"),
         ("K2", "project_with_stats", "topk_projection.cu", "topk_projection.py:95"),
         ("K2-q8", "project_with_stats_q8", "topk_projection.cu", "topk_projection.py:71"),
         ("K3", "flash_attention_fwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:247"),
         ("K4", "flash_attention_bwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:296"),
+        ("K5", "flash_attention_bias", "flash_attention.cu", "flash_attention.py:154"),
+        ("K5-cross", "flash_cross_attention", "flash_attention.cu", "flash_attention.py:112"),
         ("K6", "decode_cross_attention_int8", "decode_cross_attn.cu", "decode_cross_attn.py:71"),
         ("K7", "decode_stack_step", "decode_stack.cu", "decode_stack.py:384"),
+        ("K8", "fused_bottleneck", "bottleneck.cu", "bottleneck.py:191"),
     ]
     kernels = [dict(name=name, route="cuda", source=f"musketeer_tpu_torch/csrc/{src}",
                     replaces=f"musketeer_tpu/ops/{tpu}", launches=on_path[k][k], **stats[k])

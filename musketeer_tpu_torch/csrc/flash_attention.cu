@@ -1,0 +1,198 @@
+// K5: the JAX package's first-generation attention entry points, for sm_90a.
+//
+// Replaces the Pallas kernels of musketeer_tpu/ops/flash_attention.py:
+// flash_attention_bias (_attn_kernel, _causal_attn_kernel; pallas_call at
+// :186) and flash_cross_attention (_attn_kernel_norel; pallas_call at :134).
+// Per (b, h):
+//   w   = q.k^T + pos_q.pos_k^T (+ rel[h]) in fp32, causal and pad masks -1e9
+//   p   = round_T(exp(w - m) / l)      m, l over S real and Sp - S padded keys
+//   out = p . v                         fp32 sums, rounded to T
+// Three things set it apart from K1 (flash_fwd.cuh):
+//   - p is normalised in fp32 and then rounded, before P.v; K1 rounds e and
+//     divides after P.v. An online softmax cannot normalise before P.v, so a
+//     block makes two passes over the keys: the first finds each row's max m
+//     and denominator l (online, as K3's lse), the second recomputes the
+//     scores, forms p and accumulates P.v.
+//   - The JAX wrappers pad the keys to Sp (a multiple of block_q, or of 128
+//     for cross attention): masked, with zero v. They are not materialised
+//     here: they add (Sp - S) exp(-1e9 - m) to l, which is exactly 0 unless
+//     every real key of the row is masked, where it gives sum(v[:S]) / Sp.
+//   - rel is read in its own dtype, TR: T or fp32.
+//
+// Translation. The TPU grid walks (b, h, q tile) with all Sp keys of a head
+// in VMEM. Here one block owns one (b, h, 64-row q tile) and streams 64-key
+// tiles through shared memory twice, with K1's staging and its 128-deep score
+// dot over [q|pos_q].[k|pos_k] (flash_fwd.cuh).
+//
+// Bound. At the ofa_base encoder shape (B16 H12 S908 D64, bf16) the function
+// is ~30 G multiply-adds against ~130 MB of streams and rel: compute bound
+// on the card. The second pass repeats the score dot, so the kernel does
+// 1.67x that work on fp32 FMAs (no tensor cores yet), about 1.7x K1's time.
+#include "flash_fwd.cuh"
+
+namespace {
+
+namespace ff = mk::flash_fwd;
+using mk::from_f;
+using mk::round_to;
+using mk::to_f;
+
+constexpr int BQ = ff::BQ, BK = ff::BK, NT = ff::NT, D = ff::D;
+constexpr int QS = ff::QS, VS = ff::VS, PS = ff::PS;
+constexpr float NEG = ff::NEG;
+
+// Scores of key tile k0 for this thread's 4 x 4 (row, key) pairs: bias added,
+// masks at -1e9, -inf past S (no part of the softmax).
+template <typename TR>
+__device__ __forceinline__ void scores(const float* qs, const float* ks, int tx, int ty, int q0,
+                                       int k0, int Tq, int S, const TR* relh,
+                                       long long rel_rs, const uint8_t* kp, int causal,
+                                       float (&sc)[4][4]) {
+  ff::score_tile(qs, ks, tx, ty, sc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = k0 + tx + 16 * j;
+      float w = -CUDART_INF_F;
+      if (s < S) {
+        w = sc[i][j];
+        if (relh && t < Tq) w += to_f(relh[t * rel_rs + s]);
+        if (causal && s > t) w = NEG;
+        if (kp[s]) w = NEG;
+      }
+      sc[i][j] = w;
+    }
+  }
+}
+
+template <typename T, typename TR>
+__global__ void __launch_bounds__(NT) kernel(
+    const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
+    const T* __restrict__ pk, const T* __restrict__ v, const TR* __restrict__ rel,
+    const uint8_t* __restrict__ kpad, T* __restrict__ out, int H, int Tq, int S, int Sp,
+    long long rel_hs, long long rel_rs, int causal) {
+  extern __shared__ float smem[];
+  float* qs = smem;            // [BQ][QS]  q | pos_q
+  float* ks = qs + BQ * QS;    // [BK][QS]  k | pos_k
+  float* vs = ks + BK * QS;    // [BK][VS]
+  float* ps = vs + BK * VS;    // [BQ][PS]  normalised probabilities, rounded to T
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;  // rows ty + 16 i, columns tx + 16 j
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const T* kb = k + bh * S * D;
+  const T* pkb = pk + bh * S * D;
+  const T* vb = v + bh * S * D;
+  const uint8_t* kp = kpad + (long long)b * S;
+  const TR* relh = rel ? rel + h * rel_hs : nullptr;
+
+  ff::stage_q(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
+
+  // pass 1: each row's max and denominator over the real keys
+  float m[4], l[4], sc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+  }
+  for (int k0 = 0; k0 < S; k0 += BK) {
+    __syncthreads();  // the previous tile's ks reads are done
+    ff::stage_kv<T, false>(ks, nullptr, kb, pkb, nullptr, k0, S);
+    __syncthreads();
+    scores(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tmax = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float mnew = fmaxf(m[i], tmax);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) rs += expf(sc[i][j] - mnew);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * expf(m[i] - mnew) + rs;
+      m[i] = mnew;
+    }
+  }
+  // the wrapper's Sp - S padded keys: score -1e9, v zero
+  if (Sp > S) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mnew = fmaxf(m[i], NEG);
+      l[i] = l[i] * expf(m[i] - mnew) + (float)(Sp - S) * expf(NEG - mnew);
+      m[i] = mnew;
+    }
+  }
+
+  // pass 2: p = round_T(exp(w - m) / l), accumulated against v
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < S; k0 += BK) {
+    __syncthreads();  // the previous tile's ks/vs/ps reads are done
+    ff::stage_kv<T, true>(ks, vs, kb, pkb, vb, k0, S);
+    __syncthreads();
+    scores(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ps[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(expf(sc[i][j] - m[i]) / l[i]);
+    __syncthreads();  // ps complete
+    ff::pv_tile(ps, vs, tx, ty, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+    if (t >= Tq) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[(bh * Tq + t) * D + tx + 16 * j] = from_f<T>(acc[i][j]);
+  }
+}
+
+template <typename T, typename TR>
+int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
+           const void* rel, const void* kpad, void* out, int B, int H, int Tq, int S, int Sp,
+           long long rel_hs, long long rel_rs, int causal, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel<T, TR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ff::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  kernel<T, TR><<<grid, NT, ff::SMEM_BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pq), static_cast<const T*>(k),
+      static_cast<const T*>(pk), static_cast<const T*>(v), static_cast<const TR*>(rel),
+      static_cast<const uint8_t*>(kpad), static_cast<T*>(out), H, Tq, S, Sp, rel_hs, rel_rs,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 != 0 selects __nv_bfloat16 streams (q, k, v, pos_q, pos_k, out), else
+// float; rel_f32 != 0 reads rel as float, else in the streams' type. rel may
+// be null (cross attention); kpad is bool [B, S]; Sp >= S counts the padded
+// keys of the JAX wrapper. Returns cudaGetLastError().
+extern "C" int mk_flash_attention_k5(int bf16, int rel_f32, const void* q, const void* pos_q,
+                                     const void* k, const void* pos_k, const void* v,
+                                     const void* rel, const void* kpad, void* out, int B, int H,
+                                     int Tq, int S, int Sp, long long rel_head_stride,
+                                     long long rel_row_stride, int causal, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (!bf16)
+    return launch<float, float>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp,
+                                rel_head_stride, rel_row_stride, causal, st);
+  if (rel_f32)
+    return launch<__nv_bfloat16, float>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp,
+                                        rel_head_stride, rel_row_stride, causal, st);
+  return launch<__nv_bfloat16, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S,
+                                              Sp, rel_head_stride, rel_row_stride, causal, st);
+}

@@ -1,5 +1,7 @@
 // The online-softmax attention forward shared by K1 (inference) and K3
-// (training forward, which also writes the per-row logsumexp).
+// (training forward, which also writes the per-row logsumexp). Its tile
+// staging, score dot and P.v steps are device functions that K5
+// (flash_attention.cu) reuses.
 //
 // Per (b, h):
 //   out = softmax(q.k^T + pos_q.pos_k^T + rel[h] + causal/pad masks) . v
@@ -49,6 +51,81 @@ constexpr int SMEM_FLOATS = BQ * QS + BK * QS + BK * VS + BQ * PS;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 constexpr float NEG = -1e9f;
 
+// Rows [q0, q0 + BQ) of q | pos_q, widened to fp32, into qs [BQ][QS]; zeros
+// past Tq. qb and pqb point at the (b, h) stream.
+template <typename T>
+__device__ __forceinline__ void stage_q(float* qs, const T* __restrict__ qb,
+                                        const T* __restrict__ pqb, int q0, int Tq) {
+  for (int i = threadIdx.x; i < BQ * D; i += NT) {
+    const int r = i / D, c = i % D, t = q0 + r;
+    float a = 0.f, p = 0.f;
+    if (t < Tq) {
+      a = to_f(qb[(long long)t * D + c]);
+      p = to_f(pqb[(long long)t * D + c]);
+    }
+    qs[r * QS + c] = a;
+    qs[r * QS + D + c] = p;
+  }
+}
+
+// Keys [k0, k0 + BK) of k | pos_k into ks [BK][QS] and, with kV, of v into
+// vs [BK][VS]; zeros past S.
+template <typename T, bool kV>
+__device__ __forceinline__ void stage_kv(float* ks, float* vs, const T* __restrict__ kb,
+                                         const T* __restrict__ pkb, const T* __restrict__ vb,
+                                         int k0, int S) {
+  for (int i = threadIdx.x; i < BK * D; i += NT) {
+    const int r = i / D, c = i % D, s = k0 + r;
+    float a = 0.f, p = 0.f, w = 0.f;
+    if (s < S) {
+      a = to_f(kb[(long long)s * D + c]);
+      p = to_f(pkb[(long long)s * D + c]);
+      if (kV) w = to_f(vb[(long long)s * D + c]);
+    }
+    ks[r * QS + c] = a;
+    ks[r * QS + D + c] = p;
+    if (kV) vs[r * VS + c] = w;
+  }
+}
+
+// sc[i][j] = [q|pos_q][ty + 16 i] . [k|pos_k][tx + 16 j], one 128-deep fp32 dot.
+__device__ __forceinline__ void score_tile(const float* qs, const float* ks, int tx, int ty,
+                                           float (&sc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D2; ++d) {
+    float a[4], c[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QS + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * QS + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_c ps[ty + 16 i][c] . vs[c][tx + 16 j] over the BK keys of a tile.
+__device__ __forceinline__ void pv_tile(const float* ps, const float* vs, int tx, int ty,
+                                        float (&acc)[4][4]) {
+#pragma unroll 4
+  for (int c = 0; c < BK; ++c) {
+    float p[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PS + c];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = vs[c * VS + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
+  }
+}
+
 template <typename T, bool kLse>
 __global__ void __launch_bounds__(NT) kernel(
     const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
@@ -74,16 +151,7 @@ __global__ void __launch_bounds__(NT) kernel(
   const uint8_t* kp = kpad + (long long)b * S;
   const T* relh = rel ? rel + h * rel_hs : nullptr;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D, t = q0 + r;
-    float a = 0.f, p = 0.f;
-    if (t < Tq) {
-      a = to_f(qb[(long long)t * D + c]);
-      p = to_f(pqb[(long long)t * D + c]);
-    }
-    qs[r * QS + c] = a;
-    qs[r * QS + D + c] = p;
-  }
+  stage_q(qs, qb, pqb, q0, Tq);
 
   float m[4], l[4], acc[4][4];
 #pragma unroll
@@ -96,37 +164,11 @@ __global__ void __launch_bounds__(NT) kernel(
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D, s = k0 + r;
-      float a = 0.f, p = 0.f, w = 0.f;
-      if (s < S) {
-        a = to_f(kb[(long long)s * D + c]);
-        p = to_f(pkb[(long long)s * D + c]);
-        w = to_f(vb[(long long)s * D + c]);
-      }
-      ks[r * QS + c] = a;
-      ks[r * QS + D + c] = p;
-      vs[r * VS + c] = w;
-    }
+    stage_kv<T, true>(ks, vs, kb, pkb, vb, k0, S);
     __syncthreads();
 
     float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D2; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
-    }
+    score_tile(qs, ks, tx, ty, sc);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -166,18 +208,7 @@ __global__ void __launch_bounds__(NT) kernel(
     }
     __syncthreads();  // ps complete
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = vs[c * VS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
+    pv_tile(ps, vs, tx, ty, acc);
   }
 
 #pragma unroll

@@ -52,12 +52,22 @@ def _bottleneck(x: torch.Tensor, p: Params, stride: int = 1) -> torch.Tensor:
     return F.relu(identity + out)
 
 
-def resnet_forward(params: Params, images: torch.Tensor) -> torch.Tensor:
-    """images [B, H, W, 3] (NHWC) → features [B, H/16, W/16, 1024] (NHWC)."""
+# (stage, stride of its first block)
+STAGES = ((1, 1), (2, 2), (3, 2))
+
+
+def stem(params: Params, images: torch.Tensor) -> torch.Tensor:
+    """images [B, H, W, 3] (NHWC) → conv 7×7/s2, BN, relu, maxpool: [B, 64, H/4, W/4]
+    (NCHW, channels_last)."""
     x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     x = F.relu(_bn(_conv(x, params["conv1"], stride=2), params["bn1"]))
-    x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
-    for s, stride in ((1, 1), (2, 2), (3, 2)):
+    return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+
+
+def resnet_forward(params: Params, images: torch.Tensor) -> torch.Tensor:
+    """images [B, H, W, 3] (NHWC) → features [B, H/16, W/16, 1024] (NHWC)."""
+    x = stem(params, images)
+    for s, stride in STAGES:
         blocks = params[f"layer{s}"]
         x = _bottleneck(x, blocks[0], stride)
         for p in blocks[1:]:

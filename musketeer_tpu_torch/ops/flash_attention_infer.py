@@ -50,14 +50,19 @@ def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
         raise ValueError(f"{name}: rel {tuple(rel.shape)} must be [{H}, >={T}, >={S}]")
 
 
-def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> Tuple[Optional[int], int, int]:
-    """Validate CUDA inputs of the attention kernels → (rel pointer, head and row strides)."""
+def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
+              rel_f32: bool = False) -> Tuple[Optional[int], int, int]:
+    """Validate CUDA inputs of the attention kernels → (rel pointer, head and row strides).
+    ``rel_f32``: the kernel also reads an fp32 rel (K5), not only one in q's dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     _build.require_cuda(name, {"q": q, "k": k, "v": v, "pos_q": pos_q, "pos_k": pos_k}, _DTYPES)
     # rel may be a row-strided view; only its rows must be contiguous
-    if rel is not None and (rel.device != q.device or rel.dtype != q.dtype or rel.stride(2) != 1):
-        raise ValueError(f"{name}: rel must be on q's device, in q's dtype, with contiguous rows")
+    rel_dtypes = (q.dtype, torch.float32) if rel_f32 else (q.dtype,)
+    if rel is not None and (rel.device != q.device or rel.dtype not in rel_dtypes
+                            or rel.stride(2) != 1):
+        raise ValueError(f"{name}: rel must be on q's device, in one of {rel_dtypes}, "
+                         "with contiguous rows")
     if kpad.device != q.device or not kpad.is_contiguous():
         raise ValueError(f"{name}: kpad must be contiguous on q's device")
     if q.shape[-1] != HEAD_DIM:

@@ -33,6 +33,7 @@ layout.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List
 
@@ -250,6 +251,40 @@ class _Leaves:
             raise ValueError(f"parameters not consumed: {sorted(self.leaves)}")
 
 
+BN_KEYS = ("scale", "bias", "mean", "var")  # a BatchNorm's leaves
+
+
+def _conv(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """HWIO → OIHW in ``dtype``, channels_last."""
+    return w.permute(3, 2, 0, 1).to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _bn(take, path: str) -> Params:
+    return {k: take(f"{path}/{k}") for k in BN_KEYS}
+
+
+def _block(take, prefix: str, dtype: torch.dtype, downsample: bool) -> Params:
+    """One bottleneck block whose leaves ``take`` finds under ``prefix``."""
+    p = {}
+    for i in (1, 2, 3):
+        p[f"conv{i}"] = _conv(take(f"{prefix}conv{i}"), dtype)
+        p[f"bn{i}"] = _bn(take, f"{prefix}bn{i}")
+    if downsample:
+        p["downsample_conv"] = _conv(take(f"{prefix}downsample_conv"), dtype)
+        p["downsample_bn"] = _bn(take, f"{prefix}downsample_bn")
+    return p
+
+
+def block_from_jax(block_np: Params, device, dtype: torch.dtype) -> Params:
+    """One ResNet bottleneck block of the JAX tree (HWIO convolutions, BN dicts;
+    numpy or torch leaves) → the port's block dict, as ``from_jax`` converts
+    each block: OIHW convolutions in ``dtype`` (channels_last), fp32 BN."""
+    lv = _Leaves(block_np, device)
+    p = _block(lv.take, "", dtype, "downsample_conv" in block_np)
+    lv.finish()
+    return p
+
+
 def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) -> Params:
     """JAX parameter tree (numpy or torch leaves) → the port's parameters."""
     check_supported(cfg)
@@ -297,25 +332,11 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
             parts["encoder_attn_layer_norm"] = s_ln(f"{path}/encoder_attn_layer_norm", n)
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
-    def conv(w: torch.Tensor) -> torch.Tensor:  # HWIO → OIHW, channels_last
-        return w.permute(3, 2, 0, 1).to(dtype).contiguous(memory_format=torch.channels_last)
-
-    def bn(path: str) -> Params:
-        return {k: take(f"{path}/{k}") for k in ("scale", "bias", "mean", "var")}
+    conv = functools.partial(_conv, dtype=dtype)
 
     def s_bn(path: str, n: int) -> List[Params]:
-        parts = {k: stacked(f"{path}/{k}", n, lambda x: x) for k in ("scale", "bias", "mean", "var")}
+        parts = {k: stacked(f"{path}/{k}", n, lambda x: x) for k in BN_KEYS}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-
-    def block(path: str, downsample: bool) -> Params:
-        p = {}
-        for i in (1, 2, 3):
-            p[f"conv{i}"] = conv(take(f"{path}/conv{i}"))
-            p[f"bn{i}"] = bn(f"{path}/bn{i}")
-        if downsample:
-            p["downsample_conv"] = conv(take(f"{path}/downsample_conv"))
-            p["downsample_bn"] = bn(f"{path}/downsample_bn")
-        return p
 
     def s_blocks(path: str, n: int) -> List[Params]:
         parts = {}
@@ -324,10 +345,11 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
             parts[f"bn{i}"] = s_bn(f"{path}/bn{i}", n)
         return [{k: v[j] for k, v in parts.items()} for j in range(n)]
 
-    resnet: Params = {"conv1": conv(take("encoder/resnet/conv1")), "bn1": bn("encoder/resnet/bn1")}
+    resnet: Params = {"conv1": conv(take("encoder/resnet/conv1")),
+                      "bn1": _bn(take, "encoder/resnet/bn1")}
     for s, blocks in enumerate(cfg.resnet_layers):
         path = f"encoder/resnet/layer{s + 1}"
-        resnet[f"layer{s + 1}"] = [block(f"{path}/first", True)] + (
+        resnet[f"layer{s + 1}"] = [_block(take, f"{path}/first/", dtype, True)] + (
             s_blocks(f"{path}/rest", blocks - 1) if blocks > 1 else []
         )
 
