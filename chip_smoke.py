@@ -9,10 +9,14 @@ Phases; any failure raises and the script exits non-zero:
 
 1. device: requires CUDA (never runs on the CPU) and prints ``nvidia-smi``'s
    name and power limit of the card;
-2. build: compiles the kernels from ``musketeer_tpu_torch/csrc`` with nvcc, timed;
+2. build: compiles the kernels from ``musketeer_tpu_torch/csrc`` with nvcc,
+   timed, and prints ptxas's registers and spills of the tensor-core
+   attention core (``flash_fwd_sm90.cuh``);
 3. K1 (attention) against its plain PyTorch version at the caption encoder
    shape, and at small causal, cross (``rel=None``), ``skip_max`` and fully
-   masked cases;
+   masked cases; in bf16 also against the function in fp32 on the same bf16
+   inputs (the plain version on ``.float()`` inputs): the kernel's error may
+   exceed the bf16 plain version's by at most one bf16 step of max|ref|;
 4. K2 (projection + softmax stats) against its plain version at the beam
    decode shape;
 5. the slice: ``ofa_base`` (random weights from a seed, random rel-pos tables
@@ -71,8 +75,11 @@ Phases; any failure raises and the script exits non-zero:
     each once: 2 + 1 launches and nothing else; each against its plain
     version; small fp32 and bf16 cases: a fully masked sample, which must give
     sum(v) / Sp (Sp the JAX wrapper's padded key count), S not a multiple of
-    block_q (also block_q 64), rel in fp32 with bf16 streams; kernel, plain
-    and ``scaled_dot_product_attention`` times;
+    block_q (also block_q 64), rel in fp32 with bf16 streams, an odd S (with
+    rel in bf16 and in fp32, and cross); every bf16 call also against the
+    function in fp32, as in phase 3; kernel, plain and
+    ``scaled_dot_product_attention`` times, and each main call's device time
+    under ``torch.profiler`` beside its host time;
 17. K8, the fused ResNet bottleneck, on the path the JAX package's probe
     drives it (``probe_bottleneck.py``): ``ofa_base``'s ResNet-101 on 16
     seeded 480² images in bf16, the stem and each stage's first block through
@@ -175,6 +182,11 @@ K5_SMALL = {
     "cross, masked sample": dict(shape=dict(B=2, H=2, T=33, S=70, D=64), cross=True,
                                  masked_row=1),
     "rel fp32": dict(shape=dict(B=2, H=2, T=70, S=70, D=64), rel_f32=True),
+    # odd S: rel's rows are not pair-aligned, so the bf16 core reads them
+    # column by column, and the last key tile is ragged by an odd count
+    "odd S": dict(shape=dict(B=2, H=2, T=67, S=67, D=64)),
+    "odd S, rel fp32": dict(shape=dict(B=2, H=2, T=67, S=67, D=64), rel_f32=True),
+    "cross, odd S": dict(shape=dict(B=2, H=2, T=33, S=67, D=64), cross=True, masked_row=0),
 }
 
 
@@ -227,11 +239,48 @@ def phase_build() -> float:
     _build.library()
     secs = time.perf_counter() - t0
     log(f"[build] nvcc sm_90a library in {secs:.1f} s")
+    for line in _ptxas_lines(_build.ptxas_log().read_text()):
+        log(f"[build] ptxas {line}")
     return secs
+
+
+def _ptxas_lines(text: str) -> list:
+    """ptxas's lines on the tensor-core attention core's entry functions (those
+    whose mangled names hold ``sm90``): each entry's name, then its registers
+    and spills; and every line that names wgmma or GMMA (where ptxas
+    serialises the products or injects waits around them)."""
+    out, ours = [], False
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            ours = "sm90" in line
+            if ours:
+                out.append(line.strip())
+        elif "wgmma" in line or "GMMA" in line or (
+                ours and ("registers" in line or "spill" in line)):
+            out.append(line.strip())
+    return out
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _as_f32(x: dict) -> dict:
+    """The same inputs with every floating tensor widened to fp32."""
+    return {n: t.float() if t is not None and t.is_floating_point() else t for n, t in x.items()}
+
+
+def _check_function(name: str, out: torch.Tensor, plain: torch.Tensor, fn: torch.Tensor) -> str:
+    """A bf16 kernel against the function in fp32 on the same bf16 inputs: its
+    max error may exceed the bf16 plain version's by at most one bf16 step of
+    max|ref|, so that a new summation order cannot drift unseen."""
+    top = float(fn.abs().max())
+    step = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    e_k, e_p = _max_err(out, fn), _max_err(plain, fn)
+    if not e_k <= e_p + step:
+        raise AssertionError(f"{name}: max abs err against the fp32 function {e_k:.3e} > "
+                             f"plain's {e_p:.3e} + one bf16 step {step:.3e}")
+    return f"against the fp32 function {e_k:.3e} (plain {e_p:.3e}, step {step:.3e})"
 
 
 def _nbytes(*tensors) -> int:
@@ -334,12 +383,16 @@ def phase_k1(g) -> dict:
     torch.cuda.synchronize()
     err = _max_err(out, ref)
     tol = BF16_TOL * max(1.0, float(ref.float().abs().max()))
-    log(f"[K1] B16 H12 T=S=908 D64 bf16: max abs err {err:.3e} (tol {tol:.3e})")
+    fn_msg = _check_function("K1", out, ref, k1.flash_attention_plain(
+        *(_as_f32(x)[n] for n in names)))
+    log(f"[K1] B16 H12 T=S=908 D64 bf16: max abs err {err:.3e} (tol {tol:.3e}); {fn_msg}")
     if not (err <= tol and torch.isfinite(out).all()):
         raise AssertionError(f"K1 disagrees with its plain version: {err} > {tol}")
     ms = cuda_ms(lambda: k1.flash_attention_inference(*args), 10)
     plain_ms = cuda_ms(lambda: k1.flash_attention_plain(*args), 10)
-    log(f"[K1] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
+    no_rel = args[:5] + [None, x["kpad"]]  # what reading rel costs the kernel
+    log(f"[K1] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call; the kernel without rel "
+        f"{cuda_ms(lambda: k1.flash_attention_inference(*no_rel), 10):.3f} ms")
     B, H, T, D = x["q"].shape
     bound = _bound(_nbytes(*args, out), 6.0 * B * H * T * x["k"].shape[2] * D)
     qc, kc, v, mask = _sdpa_inputs(x)
@@ -361,7 +414,10 @@ def phase_k1(g) -> dict:
             a = k1.flash_attention_inference(*(xs[n] for n in names), **kw)
             b = k1.flash_attention_plain(*(xs[n] for n in names), **kw)
             e = _max_err(a, b)
-            log(f"[K1] {name} {str(dtype)[6:]}: max abs err {e:.3e}")
+            fn_msg = "" if dtype != torch.bfloat16 else "; " + _check_function(
+                f"K1 {name}", a, b, k1.flash_attention_plain(
+                    *(_as_f32(xs)[n] for n in names), **kw))
+            log(f"[K1] {name} {str(dtype)[6:]}: max abs err {e:.3e}{fn_msg}")
             if not e <= tol * max(1.0, float(b.float().abs().max())):
                 raise AssertionError(f"K1 {name} {dtype}: {e}")
             if "masked_row" in c:
@@ -995,6 +1051,37 @@ def phase_profile(tree) -> None:
             f"{wall:.2f} ms wall under the profiler (busy share {busy / wall:.3f}); encode "
             f"{(t1 - t0) * 1e3:.2f} ms wall; search: {steps.call_count} beam steps, about "
             f"{len(search)} device operations ({len(search) / steps.call_count:.1f} per step)")
+        dev_us = lambda e: getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0))
+        top = sorted((e for e in prof.key_averages() if dev_us(e) > 0), key=dev_us, reverse=True)
+        log(f"[profile {name}] device time by operation: " + "; ".join(
+            f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:6]))
+
+
+def _device_host_ms(fn, iters: int) -> tuple:
+    """Where back-to-back calls of ``fn`` spend their time: the device time of
+    the operations they launch (torch.profiler) and the host time of the calls
+    alone (perf_counter around the loop, before the closing synchronize), each
+    per call, after two warm-ups. CUDA events see the larger of the two."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("torch.profiler recorded no device operations")
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters, host_ms
 
 
 def _k5_call(k5, x: dict, c: dict, plain: bool = False):
@@ -1032,14 +1119,19 @@ def phase_k5(g):
         ref = _k5_call(k5, x, c, plain=True)
         torch.cuda.synchronize()
         err = _check_close(f"K5 {name}", outs[name], ref, BF16_TOL)
+        log(f"[K5] {name} bf16: " + _check_function(f"K5 {name}", outs[name], ref,
+                                                     _k5_call(k5, _as_f32(x), c, plain=True)))
         ms = cuda_ms(lambda: _k5_call(k5, x, c), 10)
         plain_ms = cuda_ms(lambda: _k5_call(k5, x, c, plain=True), 5)
+        dev_ms, host_ms = _device_host_ms(lambda: _k5_call(k5, x, c), 10)
         B, H, T, D = x["q"].shape
         S = x["k"].shape[2]
         args = [x[n] for n in ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")]
         bound = _bound(_nbytes(*args, outs[name]), 6.0 * B * H * T * S * D)
         log(f"[K5] {name} {c['shape']} bf16: max abs err {err:.3e}; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms per call, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            f"{plain_ms:.3f} ms per call, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+            f"the kernel's device time under torch.profiler {dev_ms:.4f} ms, the wrapper's host "
+            f"time {host_ms:.4f} ms per call")
         if name in ("encoder", "cross"):
             qc, kc, v, mask = _sdpa_inputs(x)
             library_ms = _library_ms(f"K5 {name}", lambda: torch.nn.functional.
@@ -1061,7 +1153,9 @@ def phase_k5(g):
                 x["rel"] = torch.randn(x["rel"].shape, generator=g, device="cuda") * 2
             a, b = _k5_call(k5, x, c), _k5_call(k5, x, c, plain=True)
             e = _check_close(f"K5 {name} {dtype}", a, b, tol)
-            log(f"[K5] {name} {c['shape']} {str(dtype)[6:]}: max abs err {e:.3e}")
+            fn_msg = "" if dtype != torch.bfloat16 else "; " + _check_function(
+                f"K5 {name}", a, b, _k5_call(k5, _as_f32(x), c, plain=True))
+            log(f"[K5] {name} {c['shape']} {str(dtype)[6:]}: max abs err {e:.3e}{fn_msg}")
             if "masked_row" in c:
                 S = x["k"].shape[2]
                 mult = 128 if c.get("cross") else c.get("block_q", 128)
@@ -1251,13 +1345,13 @@ def main() -> int:
                "K5-cross": k5_launches, "K6": launches["serving A"], "K7": launches["serving B"],
                "K8": k8_launches}
     table = [
-        ("K1", "flash_attention_inference", "flash_attention_infer.cu", "flash_attention_infer.py:109"),
+        ("K1", "flash_attention_inference", "flash_fwd_sm90.cuh", "flash_attention_infer.py:109"),
         ("K2", "project_with_stats", "topk_projection.cu", "topk_projection.py:95"),
         ("K2-q8", "project_with_stats_q8", "topk_projection.cu", "topk_projection.py:71"),
         ("K3", "flash_attention_fwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:247"),
         ("K4", "flash_attention_bwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:296"),
-        ("K5", "flash_attention_bias", "flash_attention.cu", "flash_attention.py:154"),
-        ("K5-cross", "flash_cross_attention", "flash_attention.cu", "flash_attention.py:112"),
+        ("K5", "flash_attention_bias", "flash_fwd_sm90.cuh", "flash_attention.py:154"),
+        ("K5-cross", "flash_cross_attention", "flash_fwd_sm90.cuh", "flash_attention.py:112"),
         ("K6", "decode_cross_attention_int8", "decode_cross_attn.cu", "decode_cross_attn.py:71"),
         ("K7", "decode_stack_step", "decode_stack.cu", "decode_stack.py:384"),
         ("K8", "fused_bottleneck", "bottleneck.cu", "bottleneck.py:191"),

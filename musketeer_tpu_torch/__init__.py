@@ -1,18 +1,34 @@
-"""musketeer_tpu_torch — the caption-inference path of musketeer_tpu in PyTorch + CUDA.
+"""musketeer_tpu_torch — musketeer_tpu in PyTorch + CUDA, for one NVIDIA H100.
 
 A port of the JAX package ``musketeer_tpu`` (the reference, which stays
-beside it) to PyTorch on one NVIDIA H100. Layout mirrors the JAX package:
+beside it). Ported so far: caption inference with its serving options, the
+joint multi-task training step, and the JAX package's kernel entry points.
+Layout mirrors the JAX package:
 
-  config.py                      model / generation dataclasses (same fields)
-  params.py                      random init in the JAX layout; JAX tree → port params
-  models/resnet.py               frozen-BN ResNet image embedder
-  models/ofa.py                  encoder (flash branch) + incremental decoder
-  ops/flash_attention_infer.py   K1: attention with decomposed bias (CUDA kernel)
-  ops/topk_projection.py         K2: output projection + softmax stats (CUDA kernel)
+  config.py                      model / generation / optimizer / criterion dataclasses
+  params.py                      random init in the JAX layout; JAX tree → port params;
+                                 trainable fp32 masters; one ResNet block (block_from_jax)
+  models/positions.py            position tables (restated from the JAX package)
+  models/resnet.py               frozen-BN ResNet image embedder (cuDNN)
+  models/ofa.py                  encoder, teacher-forced decoder, incremental decoder,
+                                 int8 serving branches
+  criterions/label_smoothed_ce.py  the training criterion
+  training/                      lr schedule, train state (AdamW, EMA), the joint step
   generation/beam_search.py      beam search, fast candidate path
-  csrc/                          the kernels' CUDA C++ sources (sm_90a)
+  ops/flash_attention_infer.py   K1: attention with decomposed bias
+  ops/topk_projection.py         K2, K2-q8: output projection + softmax stats
+  ops/flash_attention_bwd.py     K3, K4: training attention forward / backward
+  ops/flash_attention.py         K5: the JAX ``ops`` attention API
+  ops/decode_cross_attn.py       K6: decode cross-attention over the int8 cache
+  ops/decode_stack.py            K7: all decoder layers of a decode step
+  ops/bottleneck.py              K8: the fused ResNet bottleneck
+  ops/_build.py                  nvcc → one shared library, bound with ctypes
+  csrc/                          the kernels' CUDA C++ sources (sm_90a); bf16 attention
+                                 (K1, K5) on tensor cores (flash_fwd_sm90.cuh), the
+                                 rest on the CUDA cores
 
-Imports torch and never jax.
+Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
+CUDA kernel for CUDA tensors. Imports torch and never jax.
 """
 
 __version__ = "0.1.0"

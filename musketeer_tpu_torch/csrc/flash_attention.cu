@@ -19,33 +19,32 @@
 //     every real key of the row is masked, where it gives sum(v[:S]) / Sp.
 //   - rel is read in its own dtype, TR: T or fp32.
 //
-// Translation. The TPU grid walks (b, h, q tile) with all Sp keys of a head
-// in VMEM. Here one block owns one (b, h, 64-row q tile) and streams 64-key
-// tiles through shared memory twice, with K1's staging and its 128-deep score
-// dot over [q|pos_q].[k|pos_k] (flash_fwd.cuh).
+// Two cores, chosen by the streams' dtype. bf16 runs the tensor-core core of
+// flash_fwd_sm90.cuh (wgmma fed by TMA; both passes in one CTA), which also
+// serves K1. fp32 (rel fp32 too) runs the kernel below: one block owns one
+// (b, h, 64-row q tile) and streams 64-key tiles through shared memory
+// twice, with the FMA staging and the 128-deep score dot over
+// [q|pos_q].[k|pos_k] of flash_fwd.cuh; on tensor cores fp32 would mean TF32.
 //
 // Bound. At the ofa_base encoder shape (B16 H12 S908 D64, bf16) the function
 // is ~30 G multiply-adds against ~130 MB of streams and rel: compute bound
-// on the card. The second pass repeats the score dot, so the kernel does
-// 1.67x that work on fp32 FMAs (no tensor cores yet), about 1.7x K1's time.
+// on the card (0.0615 ms at 989 TFLOP/s). The second pass repeats the score
+// products, 1.67x the function's work.
 #include "flash_fwd.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
 namespace ff = mk::flash_fwd;
-using mk::from_f;
-using mk::round_to;
-using mk::to_f;
 
 constexpr int BQ = ff::BQ, BK = ff::BK, NT = ff::NT, D = ff::D;
 constexpr int QS = ff::QS, VS = ff::VS, PS = ff::PS;
 constexpr float NEG = ff::NEG;
 
-// Scores of key tile k0 for this thread's 4 x 4 (row, key) pairs: bias added,
-// masks at -1e9, -inf past S (no part of the softmax).
-template <typename TR>
+// The fp32 kernel. Scores of key tile k0 for this thread's 4 x 4 (row, key)
+// pairs: bias added, masks at -1e9, -inf past S (no part of the softmax).
 __device__ __forceinline__ void scores(const float* qs, const float* ks, int tx, int ty, int q0,
-                                       int k0, int Tq, int S, const TR* relh,
+                                       int k0, int Tq, int S, const float* relh,
                                        long long rel_rs, const uint8_t* kp, int causal,
                                        float (&sc)[4][4]) {
   ff::score_tile(qs, ks, tx, ty, sc);
@@ -58,7 +57,7 @@ __device__ __forceinline__ void scores(const float* qs, const float* ks, int tx,
       float w = -CUDART_INF_F;
       if (s < S) {
         w = sc[i][j];
-        if (relh && t < Tq) w += to_f(relh[t * rel_rs + s]);
+        if (relh && t < Tq) w += relh[t * rel_rs + s];
         if (causal && s > t) w = NEG;
         if (kp[s]) w = NEG;
       }
@@ -67,28 +66,27 @@ __device__ __forceinline__ void scores(const float* qs, const float* ks, int tx,
   }
 }
 
-template <typename T, typename TR>
 __global__ void __launch_bounds__(NT) kernel(
-    const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
-    const T* __restrict__ pk, const T* __restrict__ v, const TR* __restrict__ rel,
-    const uint8_t* __restrict__ kpad, T* __restrict__ out, int H, int Tq, int S, int Sp,
+    const float* __restrict__ q, const float* __restrict__ pq, const float* __restrict__ k,
+    const float* __restrict__ pk, const float* __restrict__ v, const float* __restrict__ rel,
+    const uint8_t* __restrict__ kpad, float* __restrict__ out, int H, int Tq, int S, int Sp,
     long long rel_hs, long long rel_rs, int causal) {
   extern __shared__ float smem[];
   float* qs = smem;            // [BQ][QS]  q | pos_q
   float* ks = qs + BQ * QS;    // [BK][QS]  k | pos_k
   float* vs = ks + BK * QS;    // [BK][VS]
-  float* ps = vs + BK * VS;    // [BQ][PS]  normalised probabilities, rounded to T
+  float* ps = vs + BK * VS;    // [BQ][PS]  normalised probabilities
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;  // rows ty + 16 i, columns tx + 16 j
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = (long long)b * H + h;
-  const T* kb = k + bh * S * D;
-  const T* pkb = pk + bh * S * D;
-  const T* vb = v + bh * S * D;
+  const float* kb = k + bh * S * D;
+  const float* pkb = pk + bh * S * D;
+  const float* vb = v + bh * S * D;
   const uint8_t* kp = kpad + (long long)b * S;
-  const TR* relh = rel ? rel + h * rel_hs : nullptr;
+  const float* relh = rel ? rel + h * rel_hs : nullptr;
 
   ff::stage_q(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
 
@@ -101,7 +99,7 @@ __global__ void __launch_bounds__(NT) kernel(
   }
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile's ks reads are done
-    ff::stage_kv<T, false>(ks, nullptr, kb, pkb, nullptr, k0, S);
+    ff::stage_kv<float, false>(ks, nullptr, kb, pkb, nullptr, k0, S);
     __syncthreads();
     scores(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
 #pragma unroll
@@ -130,7 +128,7 @@ __global__ void __launch_bounds__(NT) kernel(
     }
   }
 
-  // pass 2: p = round_T(exp(w - m) / l), accumulated against v
+  // pass 2: p = exp(w - m) / l, accumulated against v
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -138,14 +136,14 @@ __global__ void __launch_bounds__(NT) kernel(
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    ff::stage_kv<T, true>(ks, vs, kb, pkb, vb, k0, S);
+    ff::stage_kv<float, true>(ks, vs, kb, pkb, vb, k0, S);
     __syncthreads();
     scores(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        ps[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(expf(sc[i][j] - m[i]) / l[i]);
+        ps[(ty + 16 * i) * PS + tx + 16 * j] = expf(sc[i][j] - m[i]) / l[i];
     __syncthreads();  // ps complete
     ff::pv_tile(ps, vs, tx, ty, acc);
   }
@@ -155,22 +153,21 @@ __global__ void __launch_bounds__(NT) kernel(
     const int t = q0 + ty + 16 * i;
     if (t >= Tq) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[(bh * Tq + t) * D + tx + 16 * j] = from_f<T>(acc[i][j]);
+    for (int j = 0; j < 4; ++j) out[(bh * Tq + t) * D + tx + 16 * j] = acc[i][j];
   }
 }
 
-template <typename T, typename TR>
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
            const void* rel, const void* kpad, void* out, int B, int H, int Tq, int S, int Sp,
            long long rel_hs, long long rel_rs, int causal, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel<T, TR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ff::SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)ff::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  kernel<T, TR><<<grid, NT, ff::SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pq), static_cast<const T*>(k),
-      static_cast<const T*>(pk), static_cast<const T*>(v), static_cast<const TR*>(rel),
-      static_cast<const uint8_t*>(kpad), static_cast<T*>(out), H, Tq, S, Sp, rel_hs, rel_rs,
+  kernel<<<grid, NT, ff::SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(pq), static_cast<const float*>(k),
+      static_cast<const float*>(pk), static_cast<const float*>(v), static_cast<const float*>(rel),
+      static_cast<const uint8_t*>(kpad), static_cast<float*>(out), H, Tq, S, Sp, rel_hs, rel_rs,
       causal);
   return (int)cudaGetLastError();
 }
@@ -188,11 +185,12 @@ extern "C" int mk_flash_attention_k5(int bf16, int rel_f32, const void* q, const
                                      long long rel_row_stride, int causal, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (!bf16)
-    return launch<float, float>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp,
-                                rel_head_stride, rel_row_stride, causal, st);
+    return launch(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp, rel_head_stride,
+                  rel_row_stride, causal, st);
   if (rel_f32)
-    return launch<__nv_bfloat16, float>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp,
-                                        rel_head_stride, rel_row_stride, causal, st);
-  return launch<__nv_bfloat16, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S,
-                                              Sp, rel_head_stride, rel_row_stride, causal, st);
+    return mk::sm90::launch<true, float>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp,
+                                         rel_head_stride, rel_row_stride, causal, 0, st);
+  return mk::sm90::launch<true, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq,
+                                               S, Sp, rel_head_stride, rel_row_stride, causal, 0,
+                                               st);
 }

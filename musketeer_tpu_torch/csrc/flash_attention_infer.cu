@@ -1,10 +1,13 @@
 // K1: forward-only attention with decomposed positional bias, for sm_90a.
 //
 // Replaces the Pallas kernel musketeer_tpu/ops/flash_attention_infer.py::
-// flash_attention_inference (_kernel; pallas_call at :143). The kernel, its
-// numerics, its translation from the TPU and what bounds it are described in
-// flash_fwd.cuh, which K3 shares (K3 also writes the per-row logsumexp).
+// flash_attention_inference (_kernel; pallas_call at :143). bf16 streams run
+// on the tensor-core core of flash_fwd_sm90.cuh (wgmma fed by TMA); fp32
+// streams on the FMA core of flash_fwd.cuh, which K3 shares (K3 also writes
+// the per-row logsumexp). Both files describe the numerics, the translation
+// from the TPU and what bounds the call.
 #include "flash_fwd.cuh"
+#include "flash_fwd_sm90.cuh"
 
 // bf16 != 0 selects __nv_bfloat16 streams, else float. rel may be null
 // (cross attention); kpad is bool [B, S]. Returns cudaGetLastError().
@@ -14,12 +17,12 @@ extern "C" int mk_flash_attention_infer(int bf16, const void* q, const void* pos
                                         int H, int Tq, int S, long long rel_head_stride,
                                         long long rel_row_stride, int causal, int skip_max,
                                         void* stream) {
-  using mk::flash_fwd::launch;
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16, false>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B, H,
-                                        Tq, S, rel_head_stride, rel_row_stride, causal,
-                                        skip_max, st);
-  return launch<float, false>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B, H, Tq, S,
-                              rel_head_stride, rel_row_stride, causal, skip_max, st);
+    return mk::sm90::launch<false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H,
+                                                  Tq, S, S, rel_head_stride, rel_row_stride,
+                                                  causal, skip_max, st);
+  return mk::flash_fwd::launch<float, false>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B,
+                                             H, Tq, S, rel_head_stride, rel_row_stride, causal,
+                                             skip_max, st);
 }

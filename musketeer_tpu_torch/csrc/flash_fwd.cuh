@@ -1,7 +1,9 @@
-// The online-softmax attention forward shared by K1 (inference) and K3
-// (training forward, which also writes the per-row logsumexp). Its tile
-// staging, score dot and P.v steps are device functions that K5
-// (flash_attention.cu) reuses.
+// The online-softmax attention forward on fp32 FMAs: K3 (training forward,
+// which also writes the per-row logsumexp) in every dtype, and K1's fp32
+// launches. Its tile staging, score dot and P.v steps are device functions
+// that K5's fp32 kernel (flash_attention.cu) reuses, and K4
+// (flash_attention_bwd.cu) takes its tile sizes from here. K1's and K5's
+// bf16 launches run on the tensor-core core of flash_fwd_sm90.cuh instead.
 //
 // Per (b, h):
 //   out = softmax(q.k^T + pos_q.pos_k^T + rel[h] + causal/pad masks) . v
@@ -24,12 +26,12 @@
 // Bound. At the caption encoder shape (B16 H12 T=S=908 D64, bf16) a call
 // reads ~112 MB of q/k/v/pos streams plus a 20 MB rel and does ~30 G
 // multiply-adds (10.1 G each for q.k^T, pos_q.pos_k^T and P.v): ~400 flop
-// per byte, above the H100's ridge, so the call is compute bound. This first
-// version does the products as fp32 FMAs on the CUDA cores (no wgmma yet):
+// per byte, above the H100's ridge, so the call is compute bound. This core
+// does the products as fp32 FMAs on the CUDA cores (no wgmma):
 // each thread owns a 4x4 tile of scores and of outputs, which gives 16 FMAs
 // per 8 shared-memory loads; row strides padded by one word keep the column
 // reads free of bank conflicts. Its floor is the fp32 FMA rate (~67 TFLOP/s),
-// about 1 ms a call; tensor-core MMAs are the next step.
+// about 1 ms a call; flash_fwd_sm90.cuh is the tensor-core version.
 #pragma once
 
 #include <stdint.h>

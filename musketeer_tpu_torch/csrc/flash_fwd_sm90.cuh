@@ -1,0 +1,594 @@
+// The bf16 attention core of K1 and K5 on Hopper's tensor cores: wgmma
+// products fed by TMA through a ring of shared-memory stages.
+//
+// Replaces, for bf16 streams, the Pallas kernels
+//   musketeer_tpu/ops/flash_attention_infer.py::flash_attention_inference
+//     (K1, _kernel; pallas_call at :143), and
+//   musketeer_tpu/ops/flash_attention.py::flash_attention_bias and
+//     ::flash_cross_attention (K5; pallas_calls at :186 and :134).
+// Their fp32 launches, and K3/K4, stay on the FMA core of flash_fwd.cuh: on
+// tensor cores fp32 would mean TF32, and the fp32 checks hold full fp32. The
+// dtype alone picks the core, never the shape.
+//
+// Per (b, h), with the TPU kernels' numerics:
+//   w   = q.k^T + pos_q.pos_k^T (+ rel[h]) in fp32; causal and pad masks -1e9,
+//         -inf past S
+//   K1: online max and sum in fp32 (the sum over the unrounded e), e rounded
+//       to bf16 for P.v, the accumulator rescaled, out = acc / l; skip_max
+//       drops the max and floors l at 1e-38
+//   K5: pass 1 gives each row's m and l online, plus (Sp - S) exp(-1e9 - m)
+//       for the JAX wrapper's padded keys; pass 2 recomputes w and forms
+//       p = round_bf16(exp(w - m) / l) before P.v; out = acc
+//
+// Design. A CTA owns one (b, h, 64-row query tile), as the FMA core does (15
+// tiles x 192 heads = 2880 CTAs at the encoder shape), with one consumer
+// warpgroup (128 threads) and one producer warp.
+//   - Operands. The producer loads the q and pos_q tiles once, then streams
+//     64-key tiles of k, pos_k and v (24 KB a stage; K5's first pass only k
+//     and pos_k) through a ring of STAGES stages, each by TMA into the
+//     128-byte swizzled layout wgmma reads, with one mbarrier for "full" and
+//     one for "empty" per stage, so the next tile's copies overlap this
+//     tile's products. The tensor maps are 3-D over [B*H, rows, 64]: rows
+//     past the end are zero-filled and no box reaches into the next head.
+//   - Scores: wgmma m64n64k16, four k-steps over q.k then four over
+//     pos_q.pos_k, into one fp32 accumulator of 32 registers a thread.
+//   - rel does not fit a tensor map (a bf16 row of 908 is 1816 bytes, not a
+//     multiple of 16), so each thread reads its own accumulator positions:
+//     two adjacent columns, one 4-byte (bf16) or 8-byte (fp32) load where the
+//     rows' alignment allows, else two scalar loads. Those loads and the pad
+//     bits (one ballot per 32 keys) are issued while the products run. They
+//     are the largest cost left: without rel K1 runs in ~60 % of the time.
+//   - Softmax: each row lives in a quad of threads; its max and sum are two
+//     shuffles.
+//   - P.v: wgmma m64n64k16 x 4 with A = the bf16 probabilities straight from
+//     registers (the fp32 m64n64 accumulator layout, packed in pairs, is the
+//     A-fragment layout) and B = v read MN-major from the stage (the
+//     transpose bit).
+//   - K5 keeps its two passes in one CTA: repeating the score products costs
+//     little on tensor cores, where keeping a row block's fp32 scores in
+//     shared memory (64 x S x 4 bytes) would fit 227 KB only up to S ~ 880.
+//
+// Bound. At the encoder shape (B16 H12 T=S=908 D64) the function is
+// ~60.8 GFLOP against ~150 MB: 0.0615 ms at 989 TFLOP/s bf16, set by the
+// operations. ptxas (CUDA 12.8): 133 registers (K1), 139 (K5), 149 (K5, fp32
+// rel), no spills, so two CTAs fit an SM; chip_smoke.py's build phase prints
+// the report of each build.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace mk {
+namespace sm90 {
+
+constexpr int D = 64;                  // head dim: one 128-byte bf16 row
+constexpr int BQ = 64;                 // query rows per CTA (one wgmma M)
+constexpr int BK = 64;                 // keys per tile
+constexpr int STAGES = 3;              // ring depth
+constexpr int NC = 128;                // consumer threads: one warpgroup
+constexpr int NT = NC + 32;            // + the producer warp
+constexpr uint32_t TILE = BK * D * 2;  // bytes of one 64 x 64 bf16 tile
+constexpr uint32_t OFF_KV = 2 * TILE;  // the ring, after q and pos_q
+constexpr uint32_t STAGE = 3 * TILE;   // k, pos_k, v
+constexpr uint32_t OFF_BAR = OFF_KV + STAGES * STAGE;
+// + 1 KB of slack: the base is aligned to 1024 bytes, the 128-byte swizzle's period
+constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
+constexpr float NEG = -1e9f;
+
+// ---- shared memory, mbarriers, TMA ---------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA transfer
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed; a phase that
+// never completes (a lost copy) traps after ~2^28 tries, an error and not a hang
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// a 64 x 64 bf16 box at (0, row, bh) of a [B*H, rows, 64] map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// ---- wgmma ---------------------------------------------------------------
+
+// Descriptor of a 128-byte swizzled tile: rows of 128 bytes, 8-row groups
+// 1024 bytes apart (SBO); LBO is not read at these widths. Serves the K-major
+// q, pos_q, k, pos_k tiles and v read MN-major.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {  // every committed group done
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across a wait
+__device__ __forceinline__ void fence_operand(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define MK_WG_D                                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define MK_WG_ACC(d)                                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (+)= A . B^T, A and B both K-major in shared memory; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MK_WG_D
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MK_WG_ACC(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A . B, A from registers (four bf16 pairs), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MK_WG_D
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MK_WG_ACC(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// round to nearest even, lo in the low half (the smaller k index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- rel: two adjacent columns of a row, in rel's dtype ------------------
+
+template <typename TR> struct RelPair;
+template <> struct RelPair<__nv_bfloat16> { using type = uint32_t; };  // raw bf16 pair
+template <> struct RelPair<float> { using type = float2; };
+
+__device__ __forceinline__ typename RelPair<__nv_bfloat16>::type load_pair(
+    const __nv_bfloat16* p, bool vec, bool second) {
+  if (vec) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  const uint32_t lo = __bfloat16_as_ushort(p[0]);
+  return second ? lo | (static_cast<uint32_t>(__bfloat16_as_ushort(p[1])) << 16) : lo;
+}
+__device__ __forceinline__ typename RelPair<float>::type load_pair(const float* p, bool vec,
+                                                                   bool second) {
+  if (vec) return __ldg(reinterpret_cast<const float2*>(p));
+  return make_float2(p[0], second ? p[1] : 0.f);
+}
+__device__ __forceinline__ float pair_at(uint32_t r, int e) {
+  return __uint_as_float(e ? r & 0xffff0000u : r << 16);
+}
+__device__ __forceinline__ float pair_at(float2 r, int e) { return e ? r.y : r.x; }
+
+// ---- one key tile ---------------------------------------------------------
+
+// What the masks of one key tile need from device memory, loaded while the
+// tile's score products run: this thread's rel pairs (two adjacent columns in
+// the accumulator layout, one 4-byte bf16 or 8-byte fp32 load where rel's
+// base, rows and heads keep it aligned, else two scalar loads) and this lane's
+// two pad flags (keys k0 + lane, + 32). Loaded any earlier, during the
+// previous tile's softmax, they compete with it and the kernel ran slower.
+template <typename TR> struct TileBias {
+  typename RelPair<TR>::type rv[2][8];
+  bool pad0, pad1;
+};
+
+template <typename TR>
+__device__ __forceinline__ void load_bias(TileBias<TR>& a, const TR* relh, long long rel_rs,
+                                          bool rel_vec, const uint8_t* kp, int k0, int S, int t0,
+                                          int Tq, int lane, int cq) {
+  const int lim = S - k0;  // keys of the tile that exist
+  a.pad0 = lane < lim && kp[k0 + lane];
+  a.pad1 = lane + 32 < lim && kp[k0 + 32 + lane];
+  if (!relh) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + 8 * hh;
+    const TR* row = relh + (long long)t * rel_rs + k0 + cq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + cq;
+      a.rv[hh][j] = {};
+      if (t < Tq && c < lim) a.rv[hh][j] = load_pair(row + 8 * j, rel_vec, c + 1 < lim);
+    }
+  }
+}
+
+// sc = [q|pos_q] . [k|pos_k]^T of the stage at sk (k, then pos_k): eight
+// wgmma k-steps into one fp32 accumulator, issued and committed, not waited.
+__device__ __forceinline__ void issue_scores(float (&sc)[32], uint32_t sq, uint32_t sk) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // q . k
+    wgmma_ss(sc, sw128_desc(sq + 32 * kk), sw128_desc(sk + 32 * kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // + pos_q . pos_k
+    wgmma_ss(sc, sw128_desc(sq + TILE + 32 * kk), sw128_desc(sk + TILE + 32 * kk), 1);
+  wgmma_commit();
+  fence_operand(sc);
+}
+
+// The finished scores of key tile k0, bias added and masked as flash_fwd.cuh
+// does: rel in fp32, then causal and pad masks at -1e9, -inf past S.
+// Accumulator position i = 4 j + 2 hh + e holds row r0 + 8 hh, key
+// k0 + 8 j + cq + e. kEdge: the tile is causal or holds the end of S.
+template <bool kEdge, typename TR>
+__device__ __forceinline__ void mask_tile(float (&sc)[32], const TileBias<TR>& a, bool rel,
+                                          unsigned pad_lo, unsigned pad_hi, int lim, int k0,
+                                          int t0, int Tq, int causal, int lane) {
+  const int cq = 2 * (lane & 3);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + 8 * hh;
+    const bool add_rel = rel && t < Tq;
+    const int cmax = causal ? t - k0 : BK;  // keys of the tile past cmax are in the future
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e, c = 8 * j + cq + e;
+        float w = sc[i];
+        if (add_rel) w += pair_at(a.rv[hh][j], e);
+        bool neg = ((j < 4 ? pad_lo : pad_hi) >> (8 * (j & 3) + e)) & 1u;
+        if (kEdge) neg = neg || c > cmax;
+        w = neg ? NEG : w;
+        sc[i] = !kEdge || c < lim ? w : -CUDART_INF_F;  // past the end: no part of the softmax
+      }
+  }
+}
+
+template <typename TR>
+__device__ __forceinline__ void mask_scores(float (&sc)[32], const TileBias<TR>& a, bool rel,
+                                            int k0, int S, int t0, int Tq, int causal, int lane) {
+  const int lim = S - k0, cq = 2 * (lane & 3);
+  // the tile's pad bits, shifted so that this thread's columns sit at 8 j' + e
+  const unsigned pad_lo = __ballot_sync(0xffffffffu, a.pad0) >> cq;
+  const unsigned pad_hi = __ballot_sync(0xffffffffu, a.pad1) >> cq;
+  if (causal || lim < BK)
+    mask_tile<true, TR>(sc, a, rel, pad_lo, pad_hi, lim, k0, t0, Tq, causal, lane);
+  else
+    mask_tile<false, TR>(sc, a, rel, pad_lo, pad_hi, lim, k0, t0, Tq, causal, lane);
+}
+
+// acc += P . v over the tile's 64 keys, P (bf16 pairs in the A layout) from
+// registers, v from the stage: issued and committed, not waited.
+__device__ __forceinline__ void issue_pv(float (&acc)[32], const uint32_t (&pa)[16], uint32_t sv) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // 16 keys = 16 rows of 128 bytes per k-step
+    wgmma_rs(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+             sw128_desc(sv + 2048 * kk));
+  wgmma_commit();
+  fence_operand(acc);
+}
+
+// The score accumulator, as probabilities, into P.v's A fragments: positions
+// 8 kk + 2 m and + 1 are register m of k-step kk.
+__device__ __forceinline__ void to_a_fragments(const float (&p)[32], uint32_t (&pa)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(p[2 * i], p[2 * i + 1]);
+}
+
+// max and sum over the quad of threads that holds a row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// exp(x) as one ex2 of x log2(e): within a few fp32 ulps of expf for the
+// arguments here (|x| up to ~100, or -inf and -1e9-sized ones that give 0),
+// far below the bf16 rounding that follows
+__device__ __forceinline__ float fexp(float x) { return exp2f(x * 1.4426950408889634f); }
+
+// ---- the kernel ------------------------------------------------------------
+
+// kNorm: K5 (two passes, p normalised before P.v, Sp - S padded keys);
+// else K1. TR: rel's dtype.
+//
+// The consumer walks tiles it = 0 .. n - 1 (K5: 2 ntiles, both passes): the
+// scores' products, their masks, the softmax, P.v, each waited for before
+// the next. Keeping the next tile's score products in flight during this
+// tile's softmax made ptxas serialise every wgmma of the kernel (C7514) and
+// ran slower; the overlap comes from the second CTA on the SM instead.
+template <bool kNorm, typename TR>
+__global__ void __launch_bounds__(NT, 2) kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_pq,
+    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_pk,
+    const __grid_constant__ CUtensorMap map_v, const TR* __restrict__ rel,
+    const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, int H, int Tq, int S,
+    int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal, int skip_max) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;  // q, then pos_q at + TILE
+  const uint32_t bars = base + OFF_BAR;
+  const uint32_t qbar = bars + 16 * STAGES;
+  auto full = [=](int st) { return bars + 8u * st; };
+  auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
+  auto stage = [=](int st) { return base + OFF_KV + STAGE * st; };  // k, pos_k, v
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int ntiles = (S + BK - 1) / BK;
+  const int n = kNorm ? 2 * ntiles : ntiles;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), NC);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == NC) {
+      mbar_expect_tx(qbar, 2 * TILE);
+      tma_load(sq, &map_q, qbar, q0, bh);
+      tma_load(sq + TILE, &map_pq, qbar, q0, bh);
+      for (int it = 0; it < n; ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
+        const int k0 = (it % ntiles) * BK;
+        const bool with_v = !kNorm || it >= ntiles;  // K5's first pass needs no v
+        mbar_expect_tx(full(st), (with_v ? 3 : 2) * TILE);
+        tma_load(stage(st), &map_k, full(st), k0, bh);
+        tma_load(stage(st) + TILE, &map_pk, full(st), k0, bh);
+        if (with_v) tma_load(stage(st) + 2 * TILE, &map_v, full(st), k0, bh);
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);  // rows r0 and r0 + 8 of the tile
+  const int cq = 2 * (lane & 3);                          // columns 8 j + cq and + 1
+  const int t0 = q0 + r0;
+  const uint8_t* kp = kpad + (long long)b * S;
+  const TR* relh = rel ? rel + h * rel_hs : nullptr;
+
+  float m[2], l[2], rl[2], acc[32], sc[32];
+  uint32_t pa[16];
+  TileBias<TR> bias;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    m[hh] = (!kNorm && skip_max) ? 0.f : -CUDART_INF_F;
+    l[hh] = 0.f;
+    rl[hh] = 0.f;
+  }
+
+  // the finished, masked scores of tile it into sc
+  auto scores = [&](int it) {
+    const int st = it % STAGES, k0 = (it % ntiles) * BK;
+    mbar_wait(full(st), (it / STAGES) & 1);
+    issue_scores(sc, sq, stage(st));
+    load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
+    wgmma_wait();
+    fence_operand(sc);
+    mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
+  };
+  mbar_wait(qbar, 0);
+  scores(0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES;
+    const bool pv = !kNorm || it >= ntiles;
+    if (!kNorm) {  // K1: the running max; acc and l rescaled to it
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float tmax = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          tmax = fmaxf(tmax, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+        const float mnew = skip_max ? 0.f : fmaxf(m[hh], quad_max(tmax));
+        const float scale = skip_max ? 1.f : fexp(m[hh] - mnew);
+        l[hh] *= scale;
+        m[hh] = mnew;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[4 * j + 2 * hh] *= scale;
+          acc[4 * j + 2 * hh + 1] *= scale;
+        }
+      }
+      // e = exp(w - m), rounded to bf16 for P.v below
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * hh + e;
+            sc[i] = fexp(sc[i] - m[hh]);
+            rs += sc[i];  // the denominator sums the unrounded e, as the TPU kernel does
+          }
+        l[hh] += quad_sum(rs);
+      }
+    } else if (!pv) {  // K5 pass 1: each row's max and denominator
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float tmax = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          tmax = fmaxf(tmax, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+        const float mnew = fmaxf(m[hh], quad_max(tmax));
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) rs += fexp(sc[4 * j + 2 * hh + e] - mnew);
+        l[hh] = l[hh] * fexp(m[hh] - mnew) + quad_sum(rs);
+        m[hh] = mnew;
+      }
+      if (it == ntiles - 1) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (Sp > S) {  // the wrapper's Sp - S padded keys: score -1e9, v zero
+            const float mnew = fmaxf(m[hh], NEG);
+            l[hh] = l[hh] * fexp(m[hh] - mnew) + (float)(Sp - S) * fexp(NEG - mnew);
+            m[hh] = mnew;
+          }
+          rl[hh] = 1.f / l[hh];
+        }
+      }
+    } else {  // K5 pass 2: p = exp(w - m) / l, by a reciprocal and one correction
+              // step (correctly rounded but in rare cases, an fp32 ulp off there)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const float e = fexp(sc[i] - m[hh]);
+        const float p = e * rl[hh];
+        sc[i] = fmaf(fmaf(-p, l[hh], e), rl[hh], p);
+      }
+    }
+    if (pv) {
+      to_a_fragments(sc, pa);  // rounded to bf16
+      issue_pv(acc, pa, stage(st) + 2 * TILE);
+      wgmma_wait();
+      fence_operand(acc);
+    }
+    if (it + 1 < n) scores(it + 1);  // before this stage is released: measured faster
+    mbar_arrive(empty(st));          // the products have read the stage
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + 8 * hh;
+    if (t >= Tq) continue;
+    const float denom = kNorm ? 1.f : (skip_max ? fmaxf(l[hh], 1e-38f) : l[hh]);
+    __nv_bfloat16* o = out + ((long long)bh * Tq + t) * D + cq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float a = acc[4 * j + 2 * hh], c = acc[4 * j + 2 * hh + 1];
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          kNorm ? __floats2bfloat162_rn(a, c) : __floats2bfloat162_rn(a / denom, c / denom);
+    }
+  }
+}
+
+// ---- host side -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A [bh, rows, 64] bf16 stream as 64 x 64 boxes, 128-byte swizzled, zeros past the end.
+inline int stream_map(CUtensorMap* map, const void* ptr, int rows, long long bh) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorInvalidDeviceFunction;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};  // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BK, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Launches the core on `stream` for bf16 streams [B, H, Tq or S, 64] (16-byte
+// aligned) and rel of type TR (or null); returns a cudaError_t code.
+template <bool kNorm, typename TR>
+int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
+           const void* rel, const void* kpad, void* out, int B, int H, int Tq, int S, int Sp,
+           long long rel_hs, long long rel_rs, int causal, int skip_max, cudaStream_t stream) {
+  const long long bh = (long long)B * H;
+  CUtensorMap maps[5];
+  const void* ptrs[5] = {q, pq, k, pk, v};
+  for (int i = 0; i < 5; ++i) {
+    const int err = stream_map(&maps[i], ptrs[i], i < 2 ? Tq : S, bh);
+    if (err) return err;
+  }
+  // a pair of rel columns is one load where base, rows, heads and S keep it aligned
+  const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % (2 * sizeof(TR)) == 0 &&
+                      rel_rs % 2 == 0 && rel_hs % 2 == 0 && S % 2 == 0;
+  constexpr size_t smem = SMEM_BYTES;
+  // the opt-in to more than 48 KB of dynamic shared memory, once per instance
+  // and device (a second setting from a racing thread is harmless)
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel<kNorm, TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  kernel<kNorm, TR><<<grid, NT, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const TR*>(rel),
+      static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), H, Tq, S, Sp, rel_hs,
+      rel_rs, rel_vec, causal, skip_max);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace mk

@@ -3,7 +3,9 @@
 At first use every ``csrc/*.cu`` is compiled for ``sm_90a`` (one ``nvcc``
 per source, all running at once) and linked into one shared library with a
 plain C interface, under ``csrc/build/<hash of the sources and flags>/``
-(listed in ``.gitignore``), and loaded with ``ctypes``. Each C entry
+(listed in ``.gitignore``), and loaded with ``ctypes``; ptxas's report of
+each kernel's registers, shared memory and spills is kept beside it in
+``ptxas.log`` (``ptxas_log``). Each C entry
 point launches on the stream it is given and returns ``cudaGetLastError()``;
 ``check`` raises on a non-zero code. A CUDA machine without ``nvcc`` is an
 error: the wrappers never fall back to their plain versions for CUDA tensors.
@@ -24,8 +26,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "libmusketeer_tpu_torch_kernels.so"
+PTXAS_LOG = "ptxas.log"
 
 # ctypes argument kinds: every pointer and the stream are c_void_p
 PTR = ctypes.c_void_p
@@ -47,32 +50,46 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cu*"))
 
 
-def _run_all(cmds) -> None:
-    """Run the commands at once; raise with the first failure's stderr after all end."""
+def _run_all(cmds) -> list:
+    """Run the commands at once; raise with the first failure's stderr after all
+    end, else return each command's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
     errs = [p.communicate()[1] for p in procs]
     for cmd, p, err in zip(cmds, procs, errs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{err}")
+    return errs
+
+
+def _build_dir() -> Path:
+    _, hashed = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in hashed:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16]
+
+
+def ptxas_log() -> Path:
+    """ptxas's report of the built library (registers, shared memory, spills)."""
+    return _build_dir() / PTXAS_LOG
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    cu, hashed = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in hashed:
-        digest.update(path.name.encode())
-        digest.update(path.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    cu, _ = _sources()
+    out_dir = _build_dir()
     so = out_dir / LIB_NAME
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc, tag = find_nvcc(), os.getpid()
         objs = [out_dir / f"{src.stem}.{tag}.o" for src in cu]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                  for src, obj in zip(cu, objs)])
+        errs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                         for src, obj in zip(cu, objs)])
+        (out_dir / PTXAS_LOG).write_text(
+            "".join(f"== {src.name}\n{err}" for src, err in zip(cu, errs)))
         tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, so)

@@ -25,7 +25,9 @@ the same scores, a plain softmax over the S real keys, P rounded to v's dtype.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and the CUDA
 kernel (``csrc/flash_attention.cu``) for CUDA tensors, never falling back
-from one to the other, and counts its launches. Like K1 they have no
+from one to another, and counts its launches. bf16 streams run on the
+tensor-core core that K1 also uses (``csrc/flash_fwd_sm90.cuh``), fp32 on the
+FMA kernel. Like K1 they have no
 backward and refuse inputs that autograd tracks.
 """
 
@@ -105,7 +107,8 @@ def _launch(name: str, q, k, v, pos_q, pos_k, rel: Optional[torch.Tensor], kpad,
             causal: bool, Sp: int) -> torch.Tensor:
     """Validate CUDA inputs and launch K5 → ``[B, H, T, D]`` in q's dtype. rel is
     read in its own dtype, q's or fp32; any other raises, never cast."""
-    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, rel_f32=True)
+    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, rel_f32=True,
+                                        tma=True)
     B, H, T, _ = q.shape
     S = k.shape[2]
     out = torch.empty_like(q)

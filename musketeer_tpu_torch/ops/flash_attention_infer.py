@@ -14,8 +14,10 @@ the stream (only its top-left ``[T, S]`` is read); ``rel=None`` is cross
 attention.
 
 ``flash_attention_inference`` runs the plain PyTorch version for CPU tensors
-and the CUDA kernel (``csrc/flash_attention_infer.cu``) for CUDA tensors; it
-never falls back from one to the other. It has no backward and refuses
+and the CUDA kernel (``csrc/flash_attention_infer.cu``) for CUDA tensors: bf16
+on the tensor-core core (``csrc/flash_fwd_sm90.cuh``, wgmma fed by TMA), fp32
+on the FMA core (``csrc/flash_fwd.cuh``). It never falls back from one to
+another. It has no backward and refuses
 inputs that autograd tracks: the model reaches it through
 ``ops/flash_attention_bwd.py::flash_attention``, which sends differentiated
 calls to K3/K4 instead.
@@ -51,9 +53,11 @@ def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
 
 
 def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
-              rel_f32: bool = False) -> Tuple[Optional[int], int, int]:
+              rel_f32: bool = False, tma: bool = False) -> Tuple[Optional[int], int, int]:
     """Validate CUDA inputs of the attention kernels → (rel pointer, head and row strides).
-    ``rel_f32``: the kernel also reads an fp32 rel (K5), not only one in q's dtype."""
+    ``rel_f32``: the kernel also reads an fp32 rel (K5), not only one in q's dtype.
+    ``tma``: bf16 streams go to the tensor-core core (K1, K5), whose TMA copies
+    need 16-byte aligned bases; K3/K4 read them with plain loads."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     _build.require_cuda(name, {"q": q, "k": k, "v": v, "pos_q": pos_q, "pos_k": pos_k}, _DTYPES)
@@ -67,6 +71,10 @@ def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
         raise ValueError(f"{name}: kpad must be contiguous on q's device")
     if q.shape[-1] != HEAD_DIM:
         raise NotImplementedError(f"{name}: head dim {q.shape[-1]} (kernel has {HEAD_DIM})")
+    if tma and q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, pos_q, pos_k)):
+        raise ValueError(f"{name}: bf16 q, k, v, pos_q and pos_k must start on 16-byte "
+                         "boundaries (TMA)")
     if rel is None:
         return None, 0, 0
     return rel.data_ptr(), rel.stride(0), rel.stride(1)
@@ -126,7 +134,7 @@ def flash_attention_inference(
                            "ops.flash_attention_bwd.flash_attention")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, pos_q, pos_k, rel, kpad, causal, skip_max)
-    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad)
+    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, tma=True)
     B, H, T, _ = q.shape
     S = k.shape[2]
     out = torch.empty_like(q)
