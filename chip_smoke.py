@@ -4,6 +4,11 @@
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train-only   # phases 1, 2 and 8 with its profiled step
+
+``--train-only`` also runs against an older tree's package when this file is
+copied into that tree's root, so that one call can time the training step of
+both trees on one card; it prints no result line.
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -11,7 +16,8 @@ Phases; any failure raises and the script exits non-zero:
    name and power limit of the card;
 2. build: compiles the kernels from ``musketeer_tpu_torch/csrc`` with nvcc,
    timed, and prints ptxas's registers and spills of the tensor-core
-   attention core (``flash_fwd_sm90.cuh``);
+   attention kernels (``flash_fwd_sm90.cuh``: K1, K3, K5;
+   ``flash_bwd_sm90.cuh``: K4's two launches);
 3. K1 (attention) against its plain PyTorch version at the caption encoder
    shape, and at small causal, cross (``rel=None``), ``skip_max`` and fully
    masked cases; in bf16 also against the function in fp32 on the same bf16
@@ -31,8 +37,11 @@ Phases; any failure raises and the script exits non-zero:
 7. K3 (training attention forward with logsumexp) and K4 (its backward, six
    gradients) against their plain versions at the encoder train shape
    (B4 H12 T=S=980, 10 % padded keys), a causal decoder shape (T=90) and a
-   cross shape (T=90, S=990, ``rel=None``) in bf16, and at small fp32 cases
-   (``skip_max``, a fully masked row, an odd batch);
+   cross shape (T=90, S=990, ``rel=None``) in bf16, and at small cases in
+   fp32 and bf16 (``skip_max``, a fully masked row, an odd batch, an odd S,
+   a ragged T of two q tiles, cross with an odd S); every bf16 call also
+   against the function in fp32, as in phase 3; the encoder call also
+   timed without rel (and drel);
 8. the training slice: the joint multi-task step of ``ofa_base`` in bf16 on
    8 tasks (the JAX bench's 9-task envelope without ``image_gen`` and with
    ``caption`` unsubsampled), batch 2 per task, R-Drop, label smoothing 0.1,
@@ -41,7 +50,9 @@ Phases; any failure raises and the script exits non-zero:
    and 3 timed steps; the loss must be finite at every step and the
    parameters must move; in a step K1 runs 0 times and K3 and K4 each
    ``encoder_layers + 2 · decoder_layers`` times per transformer forward, the
-   forwards counted from the step's packing groups;
+   forwards counted from the step's packing groups; then one more step under
+   ``torch.profiler`` (phase 15's training part): device time, device
+   operations, busy share, and K3's and K4's kernel time and share;
 9. training exactness: the step's loss and gradients in float32 on 2 tasks
    at batch 1, once through K3/K4 and once through their plain versions:
    loss and gradient norm to 1e-5 relative, every gradient leaf to 1e-3 of
@@ -145,10 +156,15 @@ K34_SHAPES = {
     "decoder causal": dict(shape=dict(B=4, H=12, T=90, S=90, D=64), causal=True),
     "cross rel=None": dict(shape=dict(B=4, H=12, T=90, S=990, D=64), rel=False),
 }
+# small K3/K4 cases, each in fp32 and bf16
 K34_SMALL = {
     "skip_max": dict(shape=dict(B=2, H=2, T=70, S=70, D=64), skip_max=True),
     "fully masked row": dict(shape=dict(B=2, H=2, T=33, S=33, D=64), masked_row=1),
     "odd batch causal": dict(shape=dict(B=3, H=2, T=41, S=41, D=64), causal=True),
+    # odd S: rel's scalar loads and a ragged last key tile
+    "odd S": dict(shape=dict(B=2, H=2, T=67, S=67, D=64)),
+    "ragged T, two q tiles": dict(shape=dict(B=2, H=2, T=70, S=70, D=64)),
+    "cross, odd S": dict(shape=dict(B=2, H=2, T=33, S=67, D=64), rel=False),
 }
 GRAD_NAMES = ("dq", "dk", "dv", "dpos_q", "dpos_k", "drel")
 # the training slice: bench.py's joint envelope without image_gen, caption
@@ -632,6 +648,27 @@ def _elem_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(((a.float() - b.float()).abs() / b.float().abs().clamp_min(1.0)).max())
 
 
+def _device_ms_by_kernel(fn, iters: int = 5) -> dict:
+    """Each CUDA kernel's device time per call of ``fn`` (torch.profiler, after a
+    warm-up), keyed by the kernel's name without its namespace and arguments."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            key = name.split("(")[0].split("<")[0].split("::")[-1]
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
 def _library_k3(x: dict):
     """aten's memory-efficient attention with its logsumexp, on K3's inputs."""
     qc, kc, v, mask = _sdpa_inputs(x)
@@ -657,7 +694,8 @@ def phase_k3_k4(g) -> dict:
 
     names = ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")
     cases = [(n, c, torch.bfloat16, BF16_TOL) for n, c in K34_SHAPES.items()]
-    cases += [(n, c, torch.float32, FP32_TOL) for n, c in K34_SMALL.items()]
+    cases += [(n, c, dtype, tol) for n, c in K34_SMALL.items()
+              for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL))]
     stats = {}
     for name, c, dtype, tol in cases:
         x = _k1_inputs(g, **c["shape"], dtype=dtype, rel=c.get("rel", True),
@@ -691,6 +729,18 @@ def phase_k3_k4(g) -> dict:
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         if dtype != torch.bfloat16:
             continue
+        # the function in fp32 on the same bf16 inputs (and the same o, lse, do)
+        xf = _as_f32(x)
+        log(f"[K3] {name} bf16 o: " + _check_function(
+            f"K3 {name}", o, o_p, kb.flash_attention_fwd_plain(*(xf[n] for n in names), **kw)[0]))
+        fn = kb.flash_attention_bwd_plain(*(xf[n] for n in names), o_p.float(), lse_p, do.float(),
+                                          causal=kw["causal"])
+        log(f"[K4] {name} bf16: " + "; ".join(
+            f"{gname} " + _check_function(f"K4 {name} {gname}", a, b, f)
+            for gname, a, b, f in zip(GRAD_NAMES, grads, ref, fn) if f is not None))
+        del xf, fn
+        if name in K34_SMALL:
+            continue
         times = {
             "K3": (cuda_ms(lambda: kb.flash_attention_fwd(*args, **kw), 10),
                    cuda_ms(lambda: kb.flash_attention_fwd_plain(*args, **kw), 10)),
@@ -700,6 +750,14 @@ def phase_k3_k4(g) -> dict:
         for kname, (ms, plain_ms) in times.items():
             log(f"[{kname}] {name} {c['shape']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
         if name == "encoder":
+            # what reading rel (and writing drel) costs each kernel
+            no_rel = args[:5] + [None, x["kpad"]]
+            log(f"[K3] encoder without rel {cuda_ms(lambda: kb.flash_attention_fwd(*no_rel), 10):.3f}"
+                f" ms; [K4] encoder without rel or drel "
+                f"{cuda_ms(lambda: kb.flash_attention_bwd(*no_rel, o_p, lse_p, do), 10):.3f} ms")
+            by_kernel = _device_ms_by_kernel(lambda: kb.flash_attention_bwd(*bwd_args))
+            log("[K4] encoder device time by kernel (torch.profiler): " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in by_kernel.items()))
             B, H, T, D = x["q"].shape
             unit = 2.0 * B * H * T * x["k"].shape[2] * D  # one [T, S] x D product
             stats["K3"] = dict(max_abs_err=e_o, ms=times["K3"][0], plain_ms=times["K3"][1],
@@ -832,7 +890,49 @@ def phase_train(tree, smi: str) -> dict:
     log(f"[train] ofa_base bf16 {len(TRAIN_TASKS)} tasks x batch {TRAIN_BATCH}: p50 step "
         f"{p50 * 1e3:.1f} ms, {samples / p50:.2f} samples/s (steps "
         f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}")
+    _profile_train_step(step, state, batches, smi)
     return launches
+
+
+# the demangled names of K3's and K4's CUDA kernels, on either core (K1 shares
+# K3's kernels but runs 0 times in a training step)
+K3_KERNELS = ("flash_fwd::kernel<", "sm90::kernel<false")
+K4_KERNELS = ("dsum_kernel", "bwd_kv", "bwd_q", "drel_sum")
+
+
+def _profile_train_step(step, state, batches, smi: str) -> None:
+    """Phase 15's training part: one more step (the earlier ones warm it up)
+    under torch.profiler; its device time, device operations and busy share,
+    and the device time of K3's and K4's kernels. The step's p50 is host-noisy,
+    so a kernel change is read from these numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step(state, batches)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("torch.profiler recorded no device operations")
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+
+    def kernels(keys):
+        sel = [e for e in dev if any(k in e.name for k in keys)]
+        return sum(e.time_range.elapsed_us() for e in sel) / 1e3, len(sel)
+
+    (k3_ms, k3_n), (k4_ms, k4_n) = kernels(K3_KERNELS), kernels(K4_KERNELS)
+    log(f"[profile train] one step: {len(dev)} device operations, {busy:.2f} ms device time "
+        f"over {wall:.2f} ms wall under the profiler (busy share {busy / wall:.3f}); K3 "
+        f"{k3_ms:.2f} ms in {k3_n} kernels ({k3_ms / busy:.3f} of the device time), K4 "
+        f"{k4_ms:.2f} ms in {k4_n} kernels ({k4_ms / busy:.3f}) on {smi}")
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    top = sorted((e for e in prof.key_averages() if dev_us(e) > 0), key=dev_us, reverse=True)
+    log("[profile train] device time by operation: " + "; ".join(
+        f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:8]))
 
 
 def phase_train_exactness(tree) -> None:
@@ -1319,15 +1419,26 @@ def phase_k8(g, tree, smi: str) -> tuple:
     return stats, launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train-only", action="store_true",
+                    help="after phases 1-2, run only phase 8 with its profiled step, and print "
+                         "no result line")
+    train_only = ap.parse_args(argv).train_only
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    stats = {"K1": phase_k1(g), "K2": phase_k2(g), "K2-q8": phase_k2q8(g), "K6": phase_k6(g),
-             "K7": phase_k7(g)}
     from musketeer_tpu_torch.config import ofa_base
 
     tree = _random_model_tree(dataclasses.replace(ofa_base(), use_flash_attention=True), SEED)
+    if train_only:
+        phase_train(tree, smi)
+        return 0
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    stats = {"K1": phase_k1(g), "K2": phase_k2(g), "K2-q8": phase_k2q8(g), "K6": phase_k6(g),
+             "K7": phase_k7(g)}
     launches = {name: phase_slice(tree, smi, name) for name in SLICES}
     for name in SLICES:
         phase_exactness(tree, name)
@@ -1348,8 +1459,8 @@ def main() -> int:
         ("K1", "flash_attention_inference", "flash_fwd_sm90.cuh", "flash_attention_infer.py:109"),
         ("K2", "project_with_stats", "topk_projection.cu", "topk_projection.py:95"),
         ("K2-q8", "project_with_stats_q8", "topk_projection.cu", "topk_projection.py:71"),
-        ("K3", "flash_attention_fwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:247"),
-        ("K4", "flash_attention_bwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:296"),
+        ("K3", "flash_attention_fwd", "flash_fwd_sm90.cuh", "flash_attention_bwd.py:247"),
+        ("K4", "flash_attention_bwd", "flash_bwd_sm90.cuh", "flash_attention_bwd.py:296"),
         ("K5", "flash_attention_bias", "flash_fwd_sm90.cuh", "flash_attention.py:154"),
         ("K5-cross", "flash_cross_attention", "flash_fwd_sm90.cuh", "flash_attention.py:112"),
         ("K6", "decode_cross_attention_int8", "decode_cross_attn.cu", "decode_cross_attn.py:71"),
@@ -1359,6 +1470,7 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=f"musketeer_tpu_torch/csrc/{src}",
                     replaces=f"musketeer_tpu/ops/{tpu}", launches=on_path[k][k], **stats[k])
                for k, name, src, tpu in table]
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,9 @@ Layout mirrors the JAX package:
   ops/bottleneck.py              K8: the fused ResNet bottleneck
   ops/_build.py                  nvcc → one shared library, bound with ctypes
   csrc/                          the kernels' CUDA C++ sources (sm_90a); bf16 attention
-                                 (K1, K5) on tensor cores (flash_fwd_sm90.cuh), the
-                                 rest on the CUDA cores
+                                 (K1, K3, K5: flash_fwd_sm90.cuh; K4:
+                                 flash_bwd_sm90.cuh) on tensor cores, the rest on
+                                 the CUDA cores
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel for CUDA tensors. Imports torch and never jax.

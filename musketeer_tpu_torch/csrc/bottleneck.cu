@@ -226,9 +226,8 @@ template <typename T>
 int launch(const void* x, const void* w1, const void* w2, const void* w3, const float* aff,
            void* out, int B, int H, int W, int C, int Wd, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(round_up(Wd, NC));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static mk::SmemOptIn opt_in;  // raised to the largest size launched so far
+  if (const int err = opt_in.ensure((const void*)kernel<T>, smem)) return err;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   kernel<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(w2),

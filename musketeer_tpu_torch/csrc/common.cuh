@@ -1,5 +1,5 @@
-// Shared helpers of the port's CUDA kernels: element type conversions and
-// warp reductions.
+// Shared helpers of the port's CUDA kernels: element type conversions, warp
+// reductions and the launchers' shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +24,31 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
+
+// The opt-in to more than 48 KB of dynamic shared memory, set once per
+// kernel and device rather than at every launch (the call costs more than a
+// small launch). A launcher keeps one static record per kernel; a larger size
+// than any set before sets it again. The record names its kernel, since the
+// static of an inline launcher may be shared with another library's copy. A
+// second setting from a racing thread is harmless.
+struct SmemOptIn {
+  static constexpr int kMaxDevices = 64;
+  const void* kernel[kMaxDevices] = {};
+  size_t bytes[kMaxDevices] = {};
+
+  int ensure(const void* fn, size_t need) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (kernel[dev] == fn && bytes[dev] >= need) return 0;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+    if (err != cudaSuccess) return (int)err;
+    kernel[dev] = fn;
+    bytes[dev] = need;
+    return 0;
+  }
+};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll

@@ -184,11 +184,9 @@ template <typename T, typename KV, bool kInt8>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.Kb, a.S);
   if (a.Kb < 1 || a.Kb > MAX_KB || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel<T, KV, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static SmemOptIn opt_in;
+  if (smem > 48 * 1024)
+    if (const int err = opt_in.ensure((const void*)kernel<T, KV, kInt8>, smem)) return err;
   kernel<T, KV, kInt8><<<dim3(a.H, B), NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -160,9 +160,8 @@ __global__ void __launch_bounds__(NT) kernel(
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
            const void* rel, const void* kpad, void* out, int B, int H, int Tq, int S, int Sp,
            long long rel_hs, long long rel_rs, int causal, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)ff::SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  static mk::SmemOptIn opt_in;
+  if (const int err = opt_in.ensure((const void*)kernel, ff::SMEM_BYTES)) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, ff::SMEM_BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pq), static_cast<const float*>(k),
@@ -188,9 +187,10 @@ extern "C" int mk_flash_attention_k5(int bf16, int rel_f32, const void* q, const
     return launch(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp, rel_head_stride,
                   rel_row_stride, causal, st);
   if (rel_f32)
-    return mk::sm90::launch<true, float>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp,
-                                         rel_head_stride, rel_row_stride, causal, 0, st);
-  return mk::sm90::launch<true, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq,
-                                               S, Sp, rel_head_stride, rel_row_stride, causal, 0,
-                                               st);
+    return mk::sm90::launch<true, float>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B, H,
+                                         Tq, S, Sp, rel_head_stride, rel_row_stride, causal, 0,
+                                         st);
+  return mk::sm90::launch<true, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B,
+                                               H, Tq, S, Sp, rel_head_stride, rel_row_stride,
+                                               causal, 0, st);
 }

@@ -1,8 +1,11 @@
 // K3 and K4: the training forward (with logsumexp) and the fused backward of
-// attention with decomposed positional bias, for sm_90a.
+// attention with decomposed positional bias, for sm_90a. The dtype alone
+// picks the core: bf16 runs on Hopper's tensor cores (K3 on the core of
+// flash_fwd_sm90.cuh, K4 on flash_bwd_sm90.cuh's two launches), fp32 on the
+// FMA kernels below and in flash_fwd.cuh, which keep full fp32 products.
 //
 // K3 replaces musketeer_tpu/ops/flash_attention_bwd.py::_fwd (_fwd_kernel;
-// pallas_call at :265). It is K1's kernel (flash_fwd.cuh) with the per-row
+// pallas_call at :265). It is K1's kernel with the per-row
 //   lse = m + log(l)      (log(max(l, 1e-38)) under skip_max)
 // written in fp32 beside the output.
 //
@@ -12,8 +15,9 @@
 //   dW = P o (dO.v^T - rowsum(dO o O))
 //   [dq|dpos_q] = dW.[k|pos_k]      [dk|dpos_k] = dW^T.[q|pos_q]
 //   dv = P^T.dO                      drel = sum_b dW
-// everything in fp32 (P is not rounded in the backward, as on the TPU) and
-// the outputs rounded once to the input dtype; drel comes out in fp32.
+// The fp32 kernels below do everything in fp32 (P is not rounded, as on the
+// TPU) and round each output once; drel comes out in fp32. The bf16 launches
+// round P and dW to bf16 as the products' operands (flash_bwd_sm90.cuh).
 //
 // Translation. On the TPU one kernel carries dk/dv/dpos_k across its
 // sequential q-tile grid axis and sums drel over an in-cell batch loop. An
@@ -37,11 +41,12 @@
 // launch does 17.7 G fp32 multiply-adds (384-deep per score: 128 + 64 to
 // rebuild P and dW, 64 for dv, 128 for [dk|dpos_k]) and the query-major one
 // 14.8 G (320-deep), against ~50 MB of streams, the 23 MB rel and a 46 MB
-// fp32 drel read-modify-write per batch row: ~0.4 GB in all, so the call is
-// bound by the CUDA cores' fp32 FMA rate (~67 TFLOP/s), like K1.
+// fp32 drel read-modify-write per batch row: ~0.4 GB in all, so the fp32
+// call is bound by the CUDA cores' fp32 FMA rate (~67 TFLOP/s).
 // Each thread owns a 4x4 tile of P/dW and a 4x8 (or 4x4) tile of its
 // gradient accumulators; shared row strides are padded by one word against
-// bank conflicts. wgmma tiles are the next step.
+// bank conflicts.
+#include "flash_bwd_sm90.cuh"
 #include "flash_fwd.cuh"
 
 namespace {
@@ -346,6 +351,17 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
   }
 }
 
+// The dsum pre-pass of either core.
+template <typename T>
+int launch_dsum(const void* o, const void* dout, float* delta, int B, int H, int Tq,
+                cudaStream_t stream) {
+  const long long rows = (long long)B * H * Tq;
+  dsum_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 launches: dsum, key-major, query-major.
 template <typename T>
 int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, const void* v,
                const void* rel, const void* kpad, const void* o, const void* dout,
@@ -354,18 +370,10 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
                long long rel_rs, int causal, cudaStream_t stream) {
   const size_t kv_smem = KV_SMEM_FLOATS * sizeof(float);
   const size_t q_smem = Q_SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_kv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_q_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)q_smem);
-  if (err != cudaSuccess) return (int)err;
-
-  const long long rows = (long long)B * H * Tq;
-  dsum_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  static mk::SmemOptIn kv_opt_in, q_opt_in;
+  if (const int err = kv_opt_in.ensure((const void*)bwd_kv_kernel<T>, kv_smem)) return err;
+  if (const int err = q_opt_in.ensure((const void*)bwd_q_kernel<T>, q_smem)) return err;
+  if (const int err = launch_dsum<T>(o, dout, delta, B, H, Tq, stream)) return err;
 
   const T* qt = static_cast<const T*>(q);
   const T* pqt = static_cast<const T*>(pq);
@@ -378,7 +386,7 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
   bwd_kv_kernel<T><<<dim3((S + BK - 1) / BK, H, B), NT, kv_smem, stream>>>(
       qt, pqt, kt, pkt, vt, relt, kp, dot, lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dpk), static_cast<T*>(dv), H, Tq, S, rel_hs, rel_rs, causal);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   bwd_q_kernel<T><<<dim3((Tq + BQ - 1) / BQ, H, drel ? 1 : B), NT, q_smem, stream>>>(
@@ -397,19 +405,22 @@ extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q
                                       int B, int H, int Tq, int S, long long rel_head_stride,
                                       long long rel_row_stride, int causal, int skip_max,
                                       void* stream) {
-  using mk::flash_fwd::launch;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
   if (bf16)
-    return launch<__nv_bfloat16, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B, H, Tq, S,
-                                       rel_head_stride, rel_row_stride, causal, skip_max, st);
-  return launch<float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B, H, Tq, S,
-                             rel_head_stride, rel_row_stride, causal, skip_max, st);
+    return mk::sm90::launch<false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B,
+                                                  H, Tq, S, S, rel_head_stride, rel_row_stride,
+                                                  causal, skip_max, st);
+  return mk::flash_fwd::launch<float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B, H, Tq,
+                                            S, rel_head_stride, rel_row_stride, causal,
+                                            skip_max, st);
 }
 
 // K4. Streams as K3's plus the forward output o, its cotangent dout and K3's
-// lse; delta is fp32 scratch [B, H, Tq]; drel is a zeroed fp32 [H, Tq, S]
-// buffer that receives sum_b dW, or null when rel needs no gradient.
+// lse; delta is fp32 scratch [B, H, Tq]. drel receives sum_b dW in fp32, or
+// is null when rel needs no gradient: with fp32 streams a zeroed [H, Tq, S]
+// buffer; with bf16 streams [B, H, Tq, S] scratch for the batch rows' dW,
+// whose first [H, Tq, S] receives the sum.
 extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q,
                                       const void* k, const void* pos_k, const void* v,
                                       const void* rel, const void* kpad, const void* o,
@@ -422,10 +433,12 @@ extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q
   auto l = static_cast<const float*>(lse);
   auto dl = static_cast<float*>(delta);
   auto dr = static_cast<float*>(drel);
-  if (bf16)
-    return launch_bwd<__nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq,
-                                     dpos_q, dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
-                                     rel_row_stride, causal, st);
+  if (bf16) {
+    if (const int err = launch_dsum<__nv_bfloat16>(o, dout, dl, B, H, Tq, st)) return err;
+    return mk::sm90::launch_bwd(q, pos_q, k, pos_k, v, rel, kpad, dout, l, dl, dq, dpos_q, dk,
+                                dpos_k, dv, dr, B, H, Tq, S, rel_head_stride, rel_row_stride,
+                                causal, st);
+  }
   return launch_bwd<float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q, dk,
                            dpos_k, dv, dr, B, H, Tq, S, rel_head_stride, rel_row_stride,
                            causal, st);

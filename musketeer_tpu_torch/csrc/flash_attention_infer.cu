@@ -19,9 +19,9 @@ extern "C" int mk_flash_attention_infer(int bf16, const void* q, const void* pos
                                         void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return mk::sm90::launch<false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H,
-                                                  Tq, S, S, rel_head_stride, rel_row_stride,
-                                                  causal, skip_max, st);
+    return mk::sm90::launch<false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out,
+                                                  nullptr, B, H, Tq, S, S, rel_head_stride,
+                                                  rel_row_stride, causal, skip_max, st);
   return mk::flash_fwd::launch<float, false>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B,
                                              H, Tq, S, rel_head_stride, rel_row_stride, causal,
                                              skip_max, st);

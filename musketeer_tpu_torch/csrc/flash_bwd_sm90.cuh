@@ -1,0 +1,487 @@
+// K4 in bf16 on Hopper's tensor cores: the attention backward, built from the
+// primitives of flash_fwd_sm90.cuh (TMA ring, mbarriers, wgmma, the rel loads
+// and masks of K1's walk).
+//
+// Replaces, for bf16 streams, musketeer_tpu/ops/flash_attention_bwd.py::_bwd
+// (_bwd_kernel_fused; pallas_call at :388). With P rebuilt from K3's lse,
+//   P  = exp(w - lse),   w = [q|pos_q].[k|pos_k]^T + rel + masks
+//   dW = P o (dP - dsum),   dP = dO.v^T,   dsum = rowsum(dO o O)
+//   [dq|dpos_q] = dW.[k|pos_k]      [dk|dpos_k] = dW^T.[q|pos_q]
+//   dv = P^T.dO                      drel = sum_b dW
+// fp32 launches stay on the FMA kernels of flash_attention_bwd.cu.
+//
+// Numerics. Scores, bias, masks, P and dW are fp32, as in the TPU kernel. dP
+// comes from the bf16 dO and v with fp32 sums. P and dW are rounded to bf16
+// once, only as the A operands of the dv, dk|dpos_k and dq|dpos_q products
+// (tensor cores take bf16; the TPU kernel widens its operands to fp32). The
+// accumulators are fp32 and each gradient is rounded once to bf16. drel sums
+// the unrounded fp32 dW over the batch, in order.
+//
+// Design. After flash_attention_bwd.cu's dsum pre-pass, two launches, each
+// writing every element of its outputs once (deterministic, no atomics,
+// nothing carried between CTAs), then drel's in-order sum; both launches
+// rebuild P and dW, about 3 of the 11 [T, S] x 64 products. Each CTA has one
+// consumer warpgroup and a producer warp, as K1's.
+//   - Key-major, one CTA per (b, h, 64-key tile). k, pos_k and v are resident
+//     (one TMA load); the q, pos_q and dO tiles of each 64-row q tile stream
+//     through a ring of STAGES stages (24 KB each, as K1's), beside the tile's
+//     64 lse and 64 dsum values, which the producer warp's 32 lanes copy in
+//     and release with their own mbarrier arrivals. The scores come out
+//     transposed, S^T = [k|pos_k].[q|pos_q]^T and dP^T = v.dO^T (12 wgmma
+//     k-steps, all operands K-major as in K1's scores), so that P^T and dW^T
+//     sit in the accumulator layout, which packed to bf16 pairs is the A
+//     fragment layout: dv += P^T.dO, dk += dW^T.q and dpos_k += dW^T.pos_q
+//     (12 k-steps, B read MN-major from the stage as K1 reads v).
+//     Registers: the three 64x64 fp32 accumulators are 96 a thread and S^T
+//     and dP^T 64 more while P and dW form; those 64 then pack into the 32
+//     registers of the two A operands.
+//     rel is read transposed here: each accumulator pair spans two query rows
+//     of rel[h]. Loaded directly in the accumulator layout that is 32
+//     two-byte loads a thread a tile, each warp load touching 4 rows; instead
+//     the consumer warpgroup stages the tile (64 rows of 128 bytes, whole
+//     rows per warp load, pairs where aligned) in shared memory while the
+//     score products run, behind one named barrier, and each thread reads its
+//     transposed values from there (row stride 72 bf16: no bank conflicts).
+//     On the card that ran faster than the direct loads.
+//   - Query-major, one CTA per (b, h, 64-row q tile). q, pos_q and dO are
+//     resident, k, pos_k and v stream as in K1; S and dP in K1's orientation,
+//     rel and the masks by K1's load_bias and mask_scores (rel staged as
+//     above ran slower here, as it did in K1); dq += dW.k and dpos_q +=
+//     dW.pos_k. drel: each CTA writes its batch row's unrounded fp32 dW into
+//     a [B, H, Tq, S] scratch, and drel_sum adds the B rows in order into the
+//     first. Looping over the batch in one CTA per (h, q tile) with a
+//     read-modify-write, as the FMA kernel does, leaves 192 CTAs at the
+//     encoder train shape (1.45 waves of 132 SMs at the one CTA per SM these
+//     registers allow) and exposes the loads; it ran slower than the
+//     partials and their sum.
+//
+// Edges. TMA zero-fills rows past S and past Tq, where a zero score against
+// a zero lse would give P = exp(0) = 1: P and dW are forced to 0 for keys
+// >= S and query rows >= Tq. The causal and pad masks stay at -1e9, so a
+// fully masked row, whose lse rounds to -1e9, gets P = 1 on its S real keys,
+// as in the TPU kernel and the FMA kernels; causally masked tiles are not
+// skipped for the same reason.
+//
+// Bound. At the encoder train shape (B4 H12 T=S=980 D64) the function is 8
+// [T, S] x 64 products (the two score products, dP, dv, dq, dk, dpos_q,
+// dpos_k), 47.2 GFLOP against ~0.1 GB of streams and drel: 0.0477 ms at 989
+// TFLOP/s bf16, set by the operations; these launches do 11 such products.
+// ptxas (CUDA 12.8): 212 registers (key-major), 219 (query-major), no
+// spills, so one CTA of 160 threads per SM; chip_smoke.py's build phase
+// prints the report of each build.
+#pragma once
+
+#include "flash_fwd_sm90.cuh"
+
+namespace mk {
+namespace sm90 {
+
+constexpr uint32_t OFF_RING = 3 * TILE;              // after the 3 resident tiles
+constexpr uint32_t ROWS = 2 * BQ * sizeof(float);    // a stage's lse and dsum (key-major)
+constexpr uint32_t OFF_ROWS = OFF_RING + STAGES * STAGE;
+constexpr int REL_STRIDE = BK + 8;                   // bf16 row stride of a staged rel tile
+constexpr uint32_t REL_TILE = BQ * REL_STRIDE * 2;   // bytes; two, one per tile parity
+constexpr uint32_t OFF_REL = OFF_ROWS + STAGES * ROWS;
+constexpr uint32_t OFF_BAR_BWD = OFF_REL + 2 * REL_TILE;
+constexpr size_t SMEM_BWD = OFF_BAR_BWD + 8 * (2 * STAGES + 1) + 1024;
+
+// a barrier among the consumer warpgroup alone (id 0 is __syncthreads')
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
+}
+
+// rel[h] rows q0 .. q0 + 63, columns k0 .. k0 + 63 into buf [64][REL_STRIDE]
+// (zeros past Tq and S), by the consumer warpgroup: each warp load reads one
+// whole 128-byte row piece, a bf16 pair a lane (a 4-byte load where rel's
+// base, rows and S keep pairs aligned).
+__device__ __forceinline__ void stage_rel(__nv_bfloat16* buf, const __nv_bfloat16* relh,
+                                          long long rel_rs, bool vec, int q0, int k0, int Tq,
+                                          int S) {
+  const int c = 2 * (threadIdx.x & 31), w = threadIdx.x >> 5, s = k0 + c;
+  uint32_t v[BQ / 4];
+#pragma unroll
+  for (int i = 0; i < BQ / 4; ++i) {
+    const int t = q0 + w + 4 * i;
+    v[i] = 0;
+    if (t < Tq && s < S) {
+      const __nv_bfloat16* p = relh + (long long)t * rel_rs + s;
+      if (vec)
+        v[i] = __ldg(reinterpret_cast<const unsigned int*>(p));
+      else
+        v[i] = __bfloat16_as_ushort(p[0]) |
+               (s + 1 < S ? static_cast<uint32_t>(__bfloat16_as_ushort(p[1])) << 16 : 0u);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BQ / 4; ++i)
+    *reinterpret_cast<uint32_t*>(buf + (w + 4 * i) * REL_STRIDE + c) = v[i];
+}
+
+// sc = [a|pos_a].[b|pos_b]^T and dp = c.d^T, with a, pos_a, c the resident
+// tiles at sa and b, pos_b, d the stage at sb: twelve wgmma k-steps into two
+// fp32 accumulators, issued and committed, not waited.
+__device__ __forceinline__ void issue_s_dp(float (&sc)[32], float (&dp)[32], uint32_t sa,
+                                           uint32_t sb) {
+  issue_scores(sc, sa, sb);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(dp, sw128_desc(sa + 2 * TILE + 32 * kk), sw128_desc(sb + 2 * TILE + 32 * kk), kk);
+  wgmma_commit();
+  fence_operand(dp);
+}
+
+__device__ __forceinline__ void zero(float (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a[i] = 0.f;
+}
+
+// This thread's two rows (accumulator halves hh = 0, 1) of a 64 x 64 fp32
+// accumulator, rounded to bf16, at out + off[hh] (rows with off < 0 skipped).
+__device__ __forceinline__ void store_rows(const float (&acc)[32], __nv_bfloat16* out,
+                                           const long long (&off)[2], int cq) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (off[hh] < 0) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + off[hh] + 8 * j + cq) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+}
+
+// dk, dpos_k and dv for one (b, h, 64-key tile).
+__global__ void __launch_bounds__(NT, 1) bwd_kv(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_pq,
+    const __grid_constant__ CUtensorMap map_do, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_pk, const __grid_constant__ CUtensorMap map_v,
+    const __nv_bfloat16* __restrict__ rel, const uint8_t* __restrict__ kpad,
+    const float* __restrict__ lse, const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dpk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
+    long long rel_hs, long long rel_rs, int rel_vec, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // k, pos_k, v
+  uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));  // the same, generic
+  float* const rows_base = reinterpret_cast<float*>(smem + OFF_ROWS);
+  __nv_bfloat16* const rel_base = reinterpret_cast<__nv_bfloat16*>(smem + OFF_REL);
+  const uint32_t bars = base + OFF_BAR_BWD;
+  const uint32_t res_full = bars + 16 * STAGES;
+  auto full = [=](int st) { return bars + 8u * st; };
+  auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
+  auto stage = [=](int st) { return base + OFF_RING + STAGE * st; };  // q, pos_q, dO
+  auto rows = [=](int st) { return rows_base + 2 * BQ * st; };        // lse[64], dsum[64]
+
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int n = (Tq + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1 + 32);  // the copies' arrival, then one per producer lane
+      mbar_init(empty(st), NC);
+    }
+    mbar_init(res_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NC) {  // the producer warp: lane 0 issues the copies, all lanes the rows
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(res_full, 3 * TILE);
+      tma_load(base, &map_k, res_full, k0, bh);
+      tma_load(base + TILE, &map_pk, res_full, k0, bh);
+      tma_load(base + 2 * TILE, &map_v, res_full, k0, bh);
+    }
+    for (int it = 0; it < n; ++it) {
+      const int st = it % STAGES, q0 = it * BQ;
+      if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(full(st), 3 * TILE);
+        tma_load(stage(st), &map_q, full(st), q0, bh);
+        tma_load(stage(st) + TILE, &map_pq, full(st), q0, bh);
+        tma_load(stage(st) + 2 * TILE, &map_do, full(st), q0, bh);
+      }
+      float* r = rows(st);
+      for (int i = lane; i < BQ; i += 32) {
+        const int t = q0 + i;
+        r[i] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
+        r[BQ + i] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
+      }
+      mbar_arrive(full(st));  // releases this lane's stores to the consumers
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);  // key rows r0 and r0 + 8 of the tile
+  const int cq = 2 * (lane & 3);                          // query columns 8 j + cq and + 1
+  const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
+  int s_of[2];
+  bool key_ok[2], key_pad[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    s_of[hh] = k0 + r0 + 8 * hh;
+    key_ok[hh] = s_of[hh] < S;
+    key_pad[hh] = key_ok[hh] && kpad[(long long)b * S + s_of[hh]];
+  }
+
+  float adv[32], adk[32], adpk[32], sc[32], dp[32];
+  uint32_t pa[16], wa[16];
+  zero(adv);
+  zero(adk);
+  zero(adpk);
+  mbar_wait(res_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES, q0 = it * BQ;
+    mbar_wait(full(st), (it / STAGES) & 1);
+    issue_s_dp(sc, dp, base, stage(st));
+    // rel's tile while the products run, staged in its own layout and read
+    // transposed below (each accumulator pair spans two query rows)
+    __nv_bfloat16* rt = nullptr;
+    if (relh) {
+      rt = rel_base + (it & 1) * (BQ * REL_STRIDE);  // the other parity is still being read
+      stage_rel(rt, relh, rel_rs, rel_vec != 0, q0, k0, Tq, S);
+      consumer_sync();
+    }
+    wgmma_wait();
+    fence_operand(sc);
+    fence_operand(dp);
+
+    // P^T and dW^T in fp32, 0 past S and past Tq; each rounded once to bf16 below
+    const float* r = rows(st);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 ls = *reinterpret_cast<const float2*>(r + 8 * j + cq);
+      const float2 ds = *reinterpret_cast<const float2*>(r + BQ + 8 * j + cq);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e, t = q0 + 8 * j + cq + e;
+          float w = sc[i];
+          if (rt) w += __bfloat162float(rt[(8 * j + cq + e) * REL_STRIDE + r0 + 8 * hh]);
+          const bool neg = key_pad[hh] || (causal && s_of[hh] > t);
+          w = neg ? NEG : w;
+          const float p = key_ok[hh] && t < Tq ? fexp(w - (e ? ls.y : ls.x)) : 0.f;
+          sc[i] = p;
+          dp[i] = p * (dp[i] - (e ? ds.y : ds.x));
+        }
+    }
+    to_a_fragments(sc, pa);
+    to_a_fragments(dp, wa);
+    issue_pv(adv, pa, stage(st) + 2 * TILE);  // dv     += P^T . dO
+    issue_pv(adk, wa, stage(st));             // dk     += dW^T . q
+    issue_pv(adpk, wa, stage(st) + TILE);     // dpos_k += dW^T . pos_q
+    wgmma_wait();
+    fence_operand(adv);
+    fence_operand(adk);
+    fence_operand(adpk);
+    mbar_arrive(empty(st));  // the products have read the stage
+  }
+
+  long long off[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) off[hh] = key_ok[hh] ? ((long long)bh * S + s_of[hh]) * D : -1;
+  store_rows(adk, dk, off, cq);
+  store_rows(adpk, dpk, off, cq);
+  store_rows(adv, dv, off, cq);
+}
+
+// dq, dpos_q and this batch row's dW (drel's partial) for one (b, h, 64-row q tile).
+__global__ void __launch_bounds__(NT, 1) bwd_q(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_pq,
+    const __grid_constant__ CUtensorMap map_do, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_pk, const __grid_constant__ CUtensorMap map_v,
+    const __nv_bfloat16* __restrict__ rel, const uint8_t* __restrict__ kpad,
+    const float* __restrict__ lse, const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq,
+    __nv_bfloat16* __restrict__ dpq, float* __restrict__ drel_part, int H, int Tq, int S,
+    long long rel_hs, long long rel_rs, int rel_vec, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // q, pos_q, dO
+  const uint32_t bars = base + OFF_BAR_BWD;
+  const uint32_t res_full = bars + 16 * STAGES;
+  auto full = [=](int st) { return bars + 8u * st; };
+  auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
+  auto stage = [=](int st) { return base + OFF_RING + STAGE * st; };  // k, pos_k, v
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int n = (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), NC);
+    }
+    mbar_init(res_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == NC) {
+      mbar_expect_tx(res_full, 3 * TILE);
+      tma_load(base, &map_q, res_full, q0, bh);
+      tma_load(base + TILE, &map_pq, res_full, q0, bh);
+      tma_load(base + 2 * TILE, &map_do, res_full, q0, bh);
+      for (int it = 0; it < n; ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
+        mbar_expect_tx(full(st), 3 * TILE);
+        tma_load(stage(st), &map_k, full(st), it * BK, bh);
+        tma_load(stage(st) + TILE, &map_pk, full(st), it * BK, bh);
+        tma_load(stage(st) + 2 * TILE, &map_v, full(st), it * BK, bh);
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);  // query rows r0 and r0 + 8 of the tile
+  const int cq = 2 * (lane & 3);                          // key columns 8 j + cq and + 1
+  const int t0 = q0 + r0;
+  const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
+  const uint8_t* kp = kpad + (long long)b * S;
+  // this row's dW partial of drel: [H, Tq, S] fp32 of batch row b
+  float* const part = drel_part ? drel_part + (long long)b * H * Tq * S : nullptr;
+  const bool part_vec = S % 2 == 0;  // then a column pair is one aligned float2
+  float ls[2], ds[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + 8 * hh;
+    ls[hh] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
+    ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
+  }
+
+  float adq[32], adpq[32], sc[32], dp[32];
+  uint32_t wa[16];
+  TileBias<__nv_bfloat16> bias;
+  zero(adq);
+  zero(adpq);
+  mbar_wait(res_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES, k0 = it * BK, lim = S - k0;
+    mbar_wait(full(st), (it / STAGES) & 1);
+    issue_s_dp(sc, dp, base, stage(st));
+    load_bias(bias, relh, rel_rs, rel_vec != 0, kp, k0, S, t0, Tq, lane, cq);  // while they run
+    wgmma_wait();
+    fence_operand(sc);
+    fence_operand(dp);
+    mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
+    // dW in fp32 (P = 0 past S, where the scores are -inf, and past Tq)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const float p = t0 + 8 * hh < Tq ? fexp(sc[i] - ls[hh]) : 0.f;
+      dp[i] = p * (dp[i] - ds[hh]);
+    }
+    if (part) {  // the unrounded dW; this CTA alone writes these elements
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = t0 + 8 * hh;
+        if (t >= Tq) continue;
+        float* d = part + ((long long)h * Tq + t) * S + k0 + cq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + cq;
+          const float2 x = make_float2(dp[4 * j + 2 * hh], dp[4 * j + 2 * hh + 1]);
+          if (c >= lim) continue;
+          if (part_vec) {
+            *reinterpret_cast<float2*>(d + 8 * j) = x;
+          } else {
+            d[8 * j] = x.x;
+            if (c + 1 < lim) d[8 * j + 1] = x.y;
+          }
+        }
+      }
+    }
+    to_a_fragments(dp, wa);
+    issue_pv(adq, wa, stage(st));          // dq     += dW . k
+    issue_pv(adpq, wa, stage(st) + TILE);  // dpos_q += dW . pos_k
+    wgmma_wait();
+    fence_operand(adq);
+    fence_operand(adpq);
+    mbar_arrive(empty(st));  // the products have read the stage
+  }
+
+  long long off[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + 8 * hh;
+    off[hh] = t < Tq ? ((long long)bh * Tq + t) * D : -1;
+  }
+  store_rows(adq, dq, off, cq);
+  store_rows(adpq, dpq, off, cq);
+}
+
+// drel = the sum over the batch, in order, of the B partials [B, n], into
+// partial 0; four elements a thread where n keeps float4s aligned.
+__global__ void __launch_bounds__(256) drel_sum(float* __restrict__ part, long long n, int B) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n % 4 == 0) {
+    float4* p = reinterpret_cast<float4*>(part);
+    const long long n4 = n / 4;
+    for (long long i = i0; i < n4; i += stride) {
+      float4 a = p[i];
+      for (int b = 1; b < B; ++b) {
+        const float4 x = p[b * n4 + i];
+        a.x += x.x;
+        a.y += x.y;
+        a.z += x.z;
+        a.w += x.w;
+      }
+      p[i] = a;
+    }
+    return;
+  }
+  for (long long i = i0; i < n; i += stride) {
+    float a = part[i];
+    for (int b = 1; b < B; ++b) a += part[b * n + i];
+    part[i] = a;
+  }
+}
+
+// Launches the three on `stream` for bf16 streams [B, H, Tq or S, 64] (16-byte
+// aligned), bf16 rel (or null), K3's lse and the pre-pass's dsum (fp32
+// [B, H, Tq]); drel_part is fp32 [B, H, Tq, S] scratch whose first [H, Tq, S]
+// receives drel, or null. Returns a cudaError_t code.
+inline int launch_bwd(const void* q, const void* pq, const void* k, const void* pk,
+                      const void* v, const void* rel, const void* kpad, const void* dout,
+                      const float* lse, const float* dsum, void* dq, void* dpq, void* dk,
+                      void* dpk, void* dv, float* drel_part, int B, int H, int Tq, int S,
+                      long long rel_hs, long long rel_rs, int causal, cudaStream_t stream) {
+  const long long bh = (long long)B * H;
+  CUtensorMap maps[6];  // q, pos_q, dO (Tq rows), k, pos_k, v (S rows)
+  const void* ptrs[6] = {q, pq, dout, k, pk, v};
+  for (int i = 0; i < 6; ++i) {
+    const int err = stream_map(&maps[i], ptrs[i], i < 3 ? Tq : S, bh);
+    if (err) return err;
+  }
+  const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % 4 == 0 && rel_rs % 2 == 0 &&
+                      rel_hs % 2 == 0 && S % 2 == 0;
+  static SmemOptIn kv_opt_in, q_opt_in;
+  if (const int err = kv_opt_in.ensure((const void*)bwd_kv, SMEM_BWD)) return err;
+  if (const int err = q_opt_in.ensure((const void*)bwd_q, SMEM_BWD)) return err;
+  const auto* relt = static_cast<const __nv_bfloat16*>(rel);
+  const auto* kp = static_cast<const uint8_t*>(kpad);
+  bwd_kv<<<dim3((S + BK - 1) / BK, H, B), NT, SMEM_BWD, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], relt, kp, lse, dsum,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dpk),
+      static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs, rel_rs, rel_vec, causal);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_q<<<dim3((Tq + BQ - 1) / BQ, H, B), NT, SMEM_BWD, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], relt, kp, lse, dsum,
+      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dpq), drel_part, H, Tq, S,
+      rel_hs, rel_rs, rel_vec, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !drel_part || B == 1) return (int)err;
+  const long long n = (long long)H * Tq * S, threads = n % 4 == 0 ? n / 4 : n;
+  drel_sum<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(drel_part, n, B);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace mk

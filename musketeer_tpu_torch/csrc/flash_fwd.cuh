@@ -1,9 +1,9 @@
-// The online-softmax attention forward on fp32 FMAs: K3 (training forward,
-// which also writes the per-row logsumexp) in every dtype, and K1's fp32
-// launches. Its tile staging, score dot and P.v steps are device functions
-// that K5's fp32 kernel (flash_attention.cu) reuses, and K4
-// (flash_attention_bwd.cu) takes its tile sizes from here. K1's and K5's
-// bf16 launches run on the tensor-core core of flash_fwd_sm90.cuh instead.
+// The online-softmax attention forward on fp32 FMAs: the fp32 launches of K1
+// and K3 (training forward, which also writes the per-row logsumexp). Its
+// tile staging, score dot and P.v steps are device functions that K5's fp32
+// kernel (flash_attention.cu) reuses, and K4's fp32 kernels
+// (flash_attention_bwd.cu) take their tile sizes from here. The bf16 launches
+// of K1, K3 and K5 run on the tensor-core core of flash_fwd_sm90.cuh instead.
 //
 // Per (b, h):
 //   out = softmax(q.k^T + pos_q.pos_k^T + rel[h] + causal/pad masks) . v
@@ -231,9 +231,8 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
            const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq,
            int S, long long rel_hs, long long rel_rs, int causal, int skip_max,
            cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel<T, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  static SmemOptIn opt_in;
+  if (const int err = opt_in.ensure((const void*)kernel<T, kLse>, SMEM_BYTES)) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kernel<T, kLse><<<grid, NT, SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pq), static_cast<const T*>(k),

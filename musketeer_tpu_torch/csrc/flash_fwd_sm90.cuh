@@ -1,14 +1,19 @@
-// The bf16 attention core of K1 and K5 on Hopper's tensor cores: wgmma
-// products fed by TMA through a ring of shared-memory stages.
+// The bf16 attention core of K1, K3 and K5 on Hopper's tensor cores: wgmma
+// products fed by TMA through a ring of shared-memory stages. Its primitives
+// (mbarriers, TMA, wgmma, the rel loads and masks) also build K4's backward
+// (flash_bwd_sm90.cuh).
 //
 // Replaces, for bf16 streams, the Pallas kernels
 //   musketeer_tpu/ops/flash_attention_infer.py::flash_attention_inference
-//     (K1, _kernel; pallas_call at :143), and
+//     (K1, _kernel; pallas_call at :143),
+//   musketeer_tpu/ops/flash_attention_bwd.py::_fwd (K3, _fwd_kernel;
+//     pallas_call at :265): K1's walk plus each row's logsumexp in fp32,
+//     lse = m + log(l) (log(max(l, 1e-38)) under skip_max), and
 //   musketeer_tpu/ops/flash_attention.py::flash_attention_bias and
 //     ::flash_cross_attention (K5; pallas_calls at :186 and :134).
-// Their fp32 launches, and K3/K4, stay on the FMA core of flash_fwd.cuh: on
-// tensor cores fp32 would mean TF32, and the fp32 checks hold full fp32. The
-// dtype alone picks the core, never the shape.
+// Their fp32 launches stay on the FMA core of flash_fwd.cuh: on tensor cores
+// fp32 would mean TF32, and the fp32 checks hold full fp32. The dtype alone
+// picks the core, never the shape.
 //
 // Per (b, h), with the TPU kernels' numerics:
 //   w   = q.k^T + pos_q.pos_k^T (+ rel[h]) in fp32; causal and pad masks -1e9,
@@ -50,7 +55,8 @@
 //
 // Bound. At the encoder shape (B16 H12 T=S=908 D64) the function is
 // ~60.8 GFLOP against ~150 MB: 0.0615 ms at 989 TFLOP/s bf16, set by the
-// operations. ptxas (CUDA 12.8): 133 registers (K1), 139 (K5), 149 (K5, fp32
+// operations; K3 at the encoder train shape (B4 H12 T=S=980) 0.0179 ms, set
+// by the operations too. ptxas (CUDA 12.8): 133 registers (K1), 139 (K5), 149 (K5, fp32
 // rel), no spills, so two CTAs fit an SM; chip_smoke.py's build phase prints
 // the report of each build.
 #pragma once
@@ -346,8 +352,9 @@ __global__ void __launch_bounds__(NT, 2) kernel(
     const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_pq,
     const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_pk,
     const __grid_constant__ CUtensorMap map_v, const TR* __restrict__ rel,
-    const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, int H, int Tq, int S,
-    int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal, int skip_max) {
+    const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
+    int skip_max) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;  // q, then pos_q at + TILE
@@ -515,6 +522,9 @@ __global__ void __launch_bounds__(NT, 2) kernel(
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
           kNorm ? __floats2bfloat162_rn(a, c) : __floats2bfloat162_rn(a / denom, c / denom);
     }
+    // K3: the row's logsumexp, from one thread of the quad that holds it
+    if (!kNorm && lse && (lane & 3) == 0)
+      lse[(long long)bh * Tq + t] = skip_max ? logf(denom) : m[hh] + logf(denom);
   }
 }
 
@@ -552,11 +562,13 @@ inline int stream_map(CUtensorMap* map, const void* ptr, int rows, long long bh)
 }
 
 // Launches the core on `stream` for bf16 streams [B, H, Tq or S, 64] (16-byte
-// aligned) and rel of type TR (or null); returns a cudaError_t code.
+// aligned) and rel of type TR (or null); K1's walk also writes the fp32
+// logsumexp [B, H, Tq] where lse is not null (K3). Returns a cudaError_t code.
 template <bool kNorm, typename TR>
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
-           const void* rel, const void* kpad, void* out, int B, int H, int Tq, int S, int Sp,
-           long long rel_hs, long long rel_rs, int causal, int skip_max, cudaStream_t stream) {
+           const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq, int S,
+           int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max,
+           cudaStream_t stream) {
   const long long bh = (long long)B * H;
   CUtensorMap maps[5];
   const void* ptrs[5] = {q, pq, k, pk, v};
@@ -568,25 +580,13 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
   const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % (2 * sizeof(TR)) == 0 &&
                       rel_rs % 2 == 0 && rel_hs % 2 == 0 && S % 2 == 0;
   constexpr size_t smem = SMEM_BYTES;
-  // the opt-in to more than 48 KB of dynamic shared memory, once per instance
-  // and device (a second setting from a racing thread is harmless)
-  constexpr int kMaxDevices = 64;
-  static bool smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(kernel<kNorm, TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = true;
-  }
+  static SmemOptIn opt_in;
+  if (const int err = opt_in.ensure((const void*)kernel<kNorm, TR>, smem)) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kernel<kNorm, TR><<<grid, NT, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const TR*>(rel),
-      static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), H, Tq, S, Sp, rel_hs,
-      rel_rs, rel_vec, causal, skip_max);
+      static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp,
+      rel_hs, rel_rs, rel_vec, causal, skip_max);
   return (int)cudaGetLastError();
 }
 

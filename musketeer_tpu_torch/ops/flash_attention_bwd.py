@@ -17,15 +17,21 @@ inputs and the Function otherwise.
 
 K3 keeps K1's numerics (fp32 scores, −1e9 masks, P rounded to v's dtype before
 P·v, normalisation after it, the 1e-38 floor under ``skip_max``) and returns
-``lse = m + log(l)`` (``log(max(l, 1e-38))`` under ``skip_max``) in fp32. K4 runs
-in fp32 throughout, as the TPU kernel does, and rounds each gradient once to
-its input's dtype; drel comes out in fp32 and is cast to rel's dtype here.
-``rel=None`` (cross attention) has no drel.
+``lse = m + log(l)`` (``log(max(l, 1e-38))`` under ``skip_max``) in fp32. K4
+forms P and dW in fp32, as the TPU kernel does, and rounds each gradient once
+to its input's dtype; drel (Σ_b of the unrounded dW) comes out in fp32 and is
+cast to rel's dtype here. ``rel=None`` (cross attention) has no drel.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and its CUDA
-kernel (``csrc/flash_attention_bwd.cu``) for CUDA tensors, never falling back
+kernels (``csrc/flash_attention_bwd.cu``) for CUDA tensors, never falling back
 from one to the other, and counts its launches (one per call, however many
-CUDA kernels the call runs).
+CUDA kernels the call runs). The dtype picks the core: bf16 runs on Hopper's
+tensor cores (K3 on ``csrc/flash_fwd_sm90.cuh``, K4 on
+``csrc/flash_bwd_sm90.cuh``), whose products take bf16 operands, so K4 rounds
+P and dW to bf16 once as the operands of its gradient products; fp32 runs on
+the FMA kernels in full fp32. The tensor-core kernels read their streams by
+TMA, so bf16 q, k, v, pos_q, pos_k (and K4's o and do) must start on 16-byte
+boundaries; the wrappers raise otherwise.
 """
 
 from __future__ import annotations
@@ -101,7 +107,7 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False,
     check_shapes(name, q, k, v, pos_q, pos_k, rel, kpad)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, pos_q, pos_k, rel, kpad, causal, skip_max)
-    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad)
+    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, tma=True)
     B, H, T, _ = q.shape
     S = k.shape[2]
     out = torch.empty_like(q)
@@ -130,7 +136,7 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
                                          causal, need_drel)
-    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad)
+    rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, tma=True)
     B, H, T, _ = q.shape
     S = k.shape[2]
     _build.require_cuda(name, {"q": q, "o": o, "do": do}, (q.dtype,))
@@ -138,11 +144,16 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
             or tuple(lse.shape) != (B, H, T):
         raise ValueError(f"{name}: o and do must be [B, H, T, D] like q, lse [B, H, T]")
+    if q.dtype == torch.bfloat16 and (o.data_ptr() % 16 or do.data_ptr() % 16):
+        raise ValueError(f"{name}: bf16 o and do must start on 16-byte boundaries (TMA)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dpq, dpk = torch.empty_like(pos_q), torch.empty_like(pos_k)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    drel = torch.zeros((rel.shape[0], T, S), dtype=torch.float32, device=q.device) \
-        if need_drel else None
+    drel = None
+    if need_drel:  # bf16: each batch row's dW, then their sum in the first
+        drel = torch.empty((B, H, T, S), dtype=torch.float32, device=q.device) \
+            if q.dtype == torch.bfloat16 else \
+            torch.zeros((H, T, S), dtype=torch.float32, device=q.device)
     fn = _build.kernel_function("mk_flash_attention_bwd", _BWD_SIG)
     with torch.cuda.device(q.device):
         err = fn(
@@ -155,6 +166,8 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
         )
     _build.check(err, name)
     flash_attention_bwd.launches += 1
+    if drel is not None and drel.dim() == 4:
+        drel = drel[0]
     return dq, dk, dv, dpq, dpk, drel
 
 

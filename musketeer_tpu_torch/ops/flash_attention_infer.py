@@ -56,8 +56,8 @@ def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
               rel_f32: bool = False, tma: bool = False) -> Tuple[Optional[int], int, int]:
     """Validate CUDA inputs of the attention kernels → (rel pointer, head and row strides).
     ``rel_f32``: the kernel also reads an fp32 rel (K5), not only one in q's dtype.
-    ``tma``: bf16 streams go to the tensor-core core (K1, K5), whose TMA copies
-    need 16-byte aligned bases; K3/K4 read them with plain loads."""
+    ``tma``: bf16 streams go to the tensor-core kernels (K1, K3, K4, K5), whose
+    TMA copies need 16-byte aligned bases."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     _build.require_cuda(name, {"q": q, "k": k, "v": v, "pos_q": pos_q, "pos_k": pos_k}, _DTYPES)

@@ -30,12 +30,15 @@ WALK_CASES = {name: {k: v for k, v in spec.items() if k not in ("dtype", "tol")}
 WALK_CASES["ragged_S"] = dict(T=70, S=150, rel=(72, 152))
 
 
-def walk(q, k, v, pos_q, pos_k, rel, kpad, causal=False, skip_max=False):
-    """K1 as the tensor-core core walks it → ``[B, H, T, D]`` in q's dtype."""
+def walk(q, k, v, pos_q, pos_k, rel, kpad, causal=False, skip_max=False, want_lse=False):
+    """K1 as the tensor-core core walks it → ``[B, H, T, D]`` in q's dtype; with
+    ``want_lse`` also K3's fp32 ``lse = m + log(l)`` (``log(max(l, 1e-38))``
+    under ``skip_max``), which the same core writes for K3."""
     T, S = q.shape[2], k.shape[2]
     w_all = k1.attention_scores(q, k, pos_q, pos_k, rel, kpad, causal)  # fp32, masked
     vf = v.float()
     out = torch.empty(q.shape, dtype=torch.float32)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32)
     for t0 in range(0, T, BQ):
         w_rows = w_all[:, :, t0:t0 + BQ]
         shape = w_rows.shape[:-1] + (1,)
@@ -51,8 +54,10 @@ def walk(q, k, v, pos_q, pos_k, rel, kpad, causal=False, skip_max=False):
             e = torch.exp(w - m)
             l = l + e.sum(-1, keepdim=True)  # the unrounded e
             acc = acc + e.to(v.dtype).float() @ vf[:, :, k0:k0 + BK]
-        out[:, :, t0:t0 + BQ] = acc / (l.clamp_min(1e-38) if skip_max else l)
-    return out.to(q.dtype)
+        denom = l.clamp_min(1e-38) if skip_max else l
+        out[:, :, t0:t0 + BQ] = acc / denom
+        lse[:, :, t0:t0 + BQ] = (torch.log(denom) if skip_max else m + torch.log(denom))[..., 0]
+    return (out.to(q.dtype), lse) if want_lse else out.to(q.dtype)
 
 
 def _case(name, dtype):
