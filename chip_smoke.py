@@ -5,10 +5,12 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train-only   # phases 1, 2 and 8 with its profiled step
+    python3 chip_smoke.py --decode-only  # phases 1, 2, 4, 12, 5 and 13, and 15
 
-``--train-only`` also runs against an older tree's package when this file is
-copied into that tree's root, so that one call can time the training step of
-both trees on one card; it prints no result line.
+``--train-only`` and ``--decode-only`` also run against an older tree's
+package when this file is copied into that tree's root, so that one call can
+time the training step, or K2, K7 and the caption slices, of both trees on
+one card; they print no result line.
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -16,20 +18,27 @@ Phases; any failure raises and the script exits non-zero:
    name and power limit of the card;
 2. build: compiles the kernels from ``musketeer_tpu_torch/csrc`` with nvcc,
    timed, and prints ptxas's registers and spills of the tensor-core
-   attention kernels (``flash_fwd_sm90.cuh``: K1, K3, K5;
-   ``flash_bwd_sm90.cuh``: K4's two launches);
+   kernels (``flash_fwd_sm90.cuh``: K1, K3, K5; ``flash_bwd_sm90.cuh``: K4's
+   two launches; ``skinny_gemm_sm90.cuh``: K7's products and K2's
+   ``proj_sm90_kernel``; ``decode_attn_sm90.cuh``: K7's cross-attention);
 3. K1 (attention) against its plain PyTorch version at the caption encoder
    shape, and at small causal, cross (``rel=None``), ``skip_max`` and fully
    masked cases; in bf16 also against the function in fp32 on the same bf16
    inputs (the plain version on ``.float()`` inputs): the kernel's error may
    exceed the bf16 plain version's by at most one bf16 step of max|ref|;
 4. K2 (projection + softmax stats) against its plain version at the beam
-   decode shape;
+   decode shape: bf16 on the tensor-core route (its counter must move),
+   also against the function in fp32 as in phase 3, the padded columns
+   exactly -1e9; fp32 on the FMA kernel alone; the call, plain and bound
+   times (CUDA events, as every kernel's), the kernel's own device time
+   (``torch.profiler``; the wrapper's host time exceeds it), and one
+   ``torch.matmul`` of the product alone as a yardstick;
 5. the slice: ``ofa_base`` (random weights from a seed, random rel-pos tables
    and BatchNorm statistics) encodes 16 seeded 480² images with the caption
    prompt and beam-searches them (beam 5, 16 tokens, no repeated trigrams) in
    bf16, through the entry points a user calls; the launch counters must show
-   6 K1 launches per encode and one K2 launch per beam step; tokens and
+   6 K1 launches per encode and one K2 launch per beam step (the bf16
+   tensor-core route's counter too); tokens and
    scores must be well formed; samples/s and p50 batch latency over a warm-up
    and 3 timed runs;
 6. exactness: the same slice in float32 at batch 2, once through the kernels
@@ -66,12 +75,18 @@ Phases; any failure raises and the script exits non-zero:
     padded sample, which must give exact zeros) and a small fp32 case;
 12. K7 (all decoder layers of a step) against its plain version at rows 80
     (16 × 5), L6, d768, f3072, Tmax 17, S908, cache_index 0, 5 and 16, in
-    bf16 and fp32;
+    bf16 (the tensor-core route; also against the function in fp32 as in
+    phase 3) and fp32 (the FMA route); per index the kernel, plain and bound
+    times and the device time by kernel (products, self-attention,
+    cross-attention, copies; the tensor-core route's C call without
+    programmatic dependent launch); then that C call with and without it,
+    in turns;
 13. the serving slices, the caption slice of phase 5 with the JAX package's
     serving options: A (int8: ``quantize_output_proj``, ``int8_cross_kv``,
     ``decode_int8_kv_kernel``) must launch K1 6 times per encode, K2-q8 once
     and K6 6 times per beam step, K2 and K7 never; B (``decode_stack_kernel``)
-    K7 and K2 once per beam step, K6 and K2-q8 never; tokens well formed;
+    K7 and K2 once per beam step, both on their tensor-core routes, K6 and
+    K2-q8 never; tokens well formed;
     p50 batch latency and samples/s over 3 timed runs;
 14. serving exactness: each serving slice in float32 at batch 2, once
     through the kernels and once through their plain versions, must give
@@ -111,7 +126,8 @@ Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
 on their main path, error against the plain version, kernel, plain and
 library times, the bound of the same work on an H100 SXM at 3.35 TB/s and
 989 TFLOP/s bf16; K8's times are the 27-block chain's, with the cuDNN chain
-as ``cudnn_block_ms``), then as its last line
+as ``cudnn_block_ms``, K2's kernel device time as ``device_ms``), then as
+its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -260,6 +276,12 @@ def phase_build() -> float:
     return secs
 
 
+# substrings of the mangled names of the tensor-core kernels: the attention
+# cores (mk::sm90), the weight-streaming products (mk::skinny, K7; K2's
+# proj_sm90_kernel) and K7's cross-attention (mk::decode_attn)
+TENSOR_CORE_KERNELS = ("sm90", "skinny", "decode_attn")
+
+
 def _ptxas_lines(text: str) -> list:
     """ptxas's lines on the tensor-core attention core's entry functions (those
     whose mangled names hold ``sm90``): each entry's name, then its registers
@@ -268,7 +290,7 @@ def _ptxas_lines(text: str) -> list:
     out, ours = [], False
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            ours = "sm90" in line
+            ours = any(k in line for k in TENSOR_CORE_KERNELS)
             if ours:
                 out.append(line.strip())
         elif "wgmma" in line or "GMMA" in line or (
@@ -346,8 +368,10 @@ def _library_ms(name: str, fn, iters: int = 10):
     return ms
 
 
-def _counter_owners() -> dict:
-    """Each kernel's wrapper and the attribute that counts its launches."""
+def _counter_owners(sm90: bool = True) -> dict:
+    """Each kernel's wrapper and the attribute that counts its launches; without
+    the bf16 tensor-core routes' counters if ``sm90`` is False (an older tree,
+    run by ``--decode-only``)."""
     from musketeer_tpu_torch.ops import bottleneck as k8
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
     from musketeer_tpu_torch.ops import decode_stack as k7
@@ -356,23 +380,38 @@ def _counter_owners() -> dict:
     from musketeer_tpu_torch.ops import flash_attention_infer as k1
     from musketeer_tpu_torch.ops import topk_projection as k2
 
-    return {"K1": (k1.flash_attention_inference, "launches"),
-            "K2": (k2.project_with_stats, "launches"),
-            "K2-q8": (k2.project_with_stats, "launches_q8"),
-            "K3": (kb.flash_attention_fwd, "launches"), "K4": (kb.flash_attention_bwd, "launches"),
-            "K5": (k5.flash_attention_bias, "launches"),
-            "K5-cross": (k5.flash_cross_attention, "launches"),
-            "K6": (k6.decode_cross_attention_int8, "launches"),
-            "K7": (k7.decode_stack_step, "launches"),
-            "K8": (k8.fused_bottleneck, "launches")}
+    owners = {"K1": (k1.flash_attention_inference, "launches"),
+              "K2": (k2.project_with_stats, "launches"),
+              "K2-sm90": (k2.project_with_stats, "launches_sm90"),
+              "K2-q8": (k2.project_with_stats, "launches_q8"),
+              "K3": (kb.flash_attention_fwd, "launches"),
+              "K4": (kb.flash_attention_bwd, "launches"),
+              "K5": (k5.flash_attention_bias, "launches"),
+              "K5-cross": (k5.flash_cross_attention, "launches"),
+              "K6": (k6.decode_cross_attention_int8, "launches"),
+              "K7": (k7.decode_stack_step, "launches"),
+              "K7-sm90": (k7.decode_stack_step, "launches_sm90"),
+              "K8": (k8.fused_bottleneck, "launches")}
+    return owners if sm90 else {k: v for k, v in owners.items() if not k.endswith("-sm90")}
 
 
-def _counters() -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in _counter_owners().items()}
+def _sm90_decode_routes() -> bool:
+    """Whether the tree routes bf16 K2 and K7 to tensor-core kernels counted
+    apart: ``--train-only`` and ``--decode-only`` ask, since they also run
+    against older trees; the full run requires those routes."""
+    from musketeer_tpu_torch.ops import decode_stack as k7
+    from musketeer_tpu_torch.ops import topk_projection as k2
+
+    return hasattr(k2.project_with_stats, "launches_sm90") and hasattr(
+        k7.decode_stack_step, "launches_sm90")
 
 
-def _reset_counters() -> None:
-    for fn, attr in _counter_owners().values():
+def _counters(sm90: bool = True) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counter_owners(sm90).items()}
+
+
+def _reset_counters(sm90: bool = True) -> None:
+    for fn, attr in _counter_owners(sm90).values():
         setattr(fn, attr, 0)
 
 
@@ -443,35 +482,59 @@ def phase_k1(g) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
 
 
-def phase_k2(g) -> dict:
+def phase_k2(g, sm90: bool = True) -> dict:
+    """K2 at the beam decode shape; ``sm90`` False only for an older tree,
+    whose bf16 K2 has no tensor-core route (``--decode-only``)."""
     from musketeer_tpu_torch.ops import topk_projection as k2
 
     N, D, Vp, vs = (K2_SHAPE[k] for k in ("N", "D", "Vp", "vocab_size"))
     h = torch.randn(N, D, generator=g, device="cuda").to(torch.bfloat16)
     w = (torch.randn(Vp, D, generator=g, device="cuda") * D ** -0.5).to(torch.bfloat16)
     w[vs:] = 0
+    before = _counters(sm90)
     out = k2.project_with_stats(h, w, vocab_size=vs)
     ref = k2.project_plain(h, w, vocab_size=vs)
     torch.cuda.synchronize()
-    errs = {name: _max_err(a, b) for name, a, b in zip(("logits", "bmax", "Z"), out, ref)}
+    if sm90 and _counters()["K2-sm90"] != before["K2-sm90"] + 1:
+        raise AssertionError("K2: a bf16 call must run the tensor-core kernel")
+    # the logits of the real vocabulary (the padded columns are -1e9 on both sides,
+    # checked below, and would set the tolerance)
+    real = lambda t: t[:, :vs]
+    errs = {name: _max_err(a, b) for name, a, b in
+            zip(("logits", "bmax", "Z"), (real(out[0]), *out[1:]), (real(ref[0]), *ref[1:]))}
+    fn_msg = _check_function("K2 logits", real(out[0]), real(ref[0]),
+                             real(k2.project_plain(h.float(), w.float(), vocab_size=vs)[0]))
     log(f"[K2] N80 Vp59520 D768 bf16: max abs err logits {errs['logits']:.3e} "
-        f"bmax {errs['bmax']:.3e} Z {errs['Z']:.3e}")
-    logit_tol = BF16_TOL * max(1.0, float(ref[0].float().abs().max()))
+        f"bmax {errs['bmax']:.3e} Z {errs['Z']:.3e}; logits {fn_msg}")
+    logit_tol = BF16_TOL * max(1.0, float(real(ref[0]).float().abs().max()))
     if not (errs["logits"] <= logit_tol and errs["bmax"] <= FP32_TOL and errs["Z"] <= FP32_TOL):
         raise AssertionError(f"K2 disagrees with its plain version: {errs}")
     if not bool((out[0][:, vs:] == k2.NEG_INF).all()):
         raise AssertionError("K2: padded vocab columns must be -1e9")
+    mid = _counters(sm90)
     a = k2.project_with_stats(h.float(), w.float(), vocab_size=vs)
     b = k2.project_plain(h.float(), w.float(), vocab_size=vs)
     e = max(_max_err(x, y) for x, y in zip(a, b))
-    log(f"[K2] fp32: max abs err {e:.3e}")
-    if not e <= FP32_TOL:
-        raise AssertionError(f"K2 fp32: {e}")
-    ms = cuda_ms(lambda: k2.project_with_stats(h, w, vocab_size=vs), 20)
+    log(f"[K2] fp32 (FMA kernel): max abs err {e:.3e}")
+    if not e <= FP32_TOL or _counters(sm90) != {**mid, "K2": mid["K2"] + 1}:
+        raise AssertionError(f"K2 fp32: err {e}, or it did not run the FMA kernel alone")
+    call = lambda: k2.project_with_stats(h, w, vocab_size=vs)
+    ms = cuda_ms(call, 20)
+    # the kernel's own device time: at ~0.05 ms the wrapper's host time can
+    # exceed it, and CUDA events then time the host
+    kernel = "proj_sm90_kernel" if sm90 else "proj_stats_kernel"
+    device_ms = _device_ms_by_kernel(call, 20)[kernel]
+    dev_ms, host_ms = _device_host_ms(call, 20)
     plain_ms = cuda_ms(lambda: k2.project_plain(h, w, vocab_size=vs), 20)
-    log(f"[K2] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
-    return dict(max_abs_err=errs["logits"], ms=ms, plain_ms=plain_ms, library_ms=None,
-                **_bound(_nbytes(h, w, *out), 2.0 * N * Vp * D))
+    # a yardstick only: the product alone, no statistics (no one call gives them)
+    matmul_ms = cuda_ms(lambda: torch.matmul(h, w.t()), 20)
+    work = _bound(_nbytes(h, w, *out), 2.0 * N * Vp * D)
+    log(f"[K2] kernel {ms:.4f} ms per call by CUDA events ({kernel} {device_ms:.4f} ms of "
+        f"device time; the whole call {dev_ms:.4f} ms of device and {host_ms:.4f} ms of host "
+        f"time), plain {plain_ms:.3f} ms per call, bound {work['bound_ms']:.4f} ms "
+        f"({work['bound_by']}); torch.matmul of the product alone {matmul_ms:.4f} ms")
+    return dict(max_abs_err=errs["logits"], ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=None, **work)
 
 
 def _random_model_tree(cfg, seed: int):
@@ -560,9 +623,9 @@ def _slice_setup(tree, name: str, dtype: str):
     return cfg, params, gen_cfg
 
 
-def _expected_launches(name: str, cfg, steps: int) -> dict:
+def _expected_launches(name: str, cfg, steps: int, sm90: bool = True) -> dict:
     """Each kernel's launches in one encode + beam search of the slice."""
-    want = dict.fromkeys(_counter_owners(), 0)
+    want = dict.fromkeys(_counter_owners(sm90), 0)
     want["K1"] = cfg.encoder_layers
     if name == "serving A":
         want.update({"K2-q8": steps, "K6": cfg.decoder_layers * steps})
@@ -570,11 +633,14 @@ def _expected_launches(name: str, cfg, steps: int) -> dict:
         want.update({"K2": steps, "K7": steps})
     else:
         want["K2"] = steps
+    if sm90 and cfg.dtype == "bfloat16":  # bf16 K2 and K7 on the tensor cores
+        want.update({f"{k}-sm90": want[k] for k in ("K2", "K7")})
     return want
 
 
-def phase_slice(tree, smi: str, name: str) -> dict:
-    """One main path: encode + beam search of the slice in bf16, counted and timed."""
+def phase_slice(tree, smi: str, name: str, sm90: bool = True) -> dict:
+    """One main path: encode + beam search of the slice in bf16, counted and
+    timed (``sm90`` as in ``phase_k2``)."""
     from musketeer_tpu_torch.models import ofa
 
     cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16")
@@ -582,12 +648,12 @@ def phase_slice(tree, smi: str, name: str) -> dict:
     tag = f"[{name}]"
 
     _caption(params, cfg, gen_cfg, src, images, masks)  # warm-up
-    _reset_counters()
+    _reset_counters(sm90)
     with mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps:
         enc, tokens, scores = _caption(params, cfg, gen_cfg, src, images, masks)
-    launches = _counters()
+    launches = _counters(sm90)
     log(f"{tag} launches {launches}, beam steps {steps.call_count}")
-    want = _expected_launches(name, cfg, steps.call_count)
+    want = _expected_launches(name, cfg, steps.call_count, sm90)
     if not (1 <= steps.call_count <= MAX_LEN + 1 and launches == want):
         raise AssertionError(f"{name}: launches {launches} over {steps.call_count} steps, "
                              f"expected {want}")
@@ -831,7 +897,7 @@ def _expected_forwards(batches: dict) -> int:
     return keys.count(None) + len(groups)
 
 
-def phase_train(tree, smi: str) -> dict:
+def phase_train(tree, smi: str, sm90: bool = True) -> dict:
     from musketeer_tpu_torch.config import ofa_base
     from musketeer_tpu_torch.models import ofa
     from musketeer_tpu_torch.params import from_jax, trainable
@@ -861,10 +927,10 @@ def phase_train(tree, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state, loss, secs = run(state)
     log(f"[train] warm-up step: loss {loss:.4f} in {secs * 1e3:.1f} ms")
-    _reset_counters()
+    _reset_counters(sm90)
     with mock.patch.object(ofa, "forward", wraps=ofa.forward) as fwd:
         state, loss, secs = run(state)
-    launches = _counters()
+    launches = _counters(sm90)
     log(f"[train] launches {launches} over {fwd.call_count} transformer forwards "
         f"(expected {forwards} from the packing groups, {per_forward} attentions each)")
     if fwd.call_count != forwards:
@@ -1087,7 +1153,26 @@ def _k7_work(pack, x, idx: int) -> dict:
     return _bound(nbytes, ops)
 
 
-def phase_k7(g) -> dict:
+# K7's CUDA kernels by profiler key (_device_ms_by_kernel), on either route
+K7_PARTS = {"gemm_kernel": "products", "self_attn_kernel": "self-attention",
+            "self_attn_bf16": "self-attention",
+            "kernel": "cross-attention"}
+
+
+def _k7_by_kernel(fn) -> dict:
+    """K7's device time per step by part: its products, self-attention,
+    cross-attention, and copies or fills (anything else under its own name).
+    ``fn`` runs a step without programmatic dependent launch: a kernel that
+    starts early spends its wait inside its own time."""
+    parts = {}
+    for key, ms in _device_ms_by_kernel(fn).items():
+        part = K7_PARTS.get(key, "copy" if key.startswith(("Memcpy", "Memset")) else key)
+        parts[part] = parts.get(part, 0.0) + ms
+    return parts
+
+
+def phase_k7(g, sm90: bool = True) -> dict:
+    """K7 at the serving B decode shape (``sm90`` as in ``phase_k2``)."""
     from musketeer_tpu_torch.ops import decode_stack as k7
 
     names = ("x0", "sbias", "cbias", "self_k", "self_v", "cross_k", "cross_v")
@@ -1097,22 +1182,52 @@ def phase_k7(g) -> dict:
         pack, x = _k7_inputs(g, **K7_SHAPE, dtype=dtype)
         args = [x[n] for n in names]
         for idx in K7_INDICES:
-            call = lambda fn: fn(pack, *args, idx, beam_size=BEAM, scaling=scaling)
+            call = lambda fn, p=pack, a=args: fn(p, *a, idx, beam_size=BEAM, scaling=scaling)
+            before = _counters(sm90)
             out, ref = call(k7.decode_stack_step), call(k7.decode_stack_plain)
             torch.cuda.synchronize()
+            routed = _counters()["K7-sm90"] - before["K7-sm90"] if sm90 else None
+            if sm90 and routed != (dtype == torch.bfloat16):
+                raise AssertionError(f"K7 {dtype}: bf16 must run the tensor-core route, fp32 the "
+                                     f"FMA route ({routed} tensor-core launches)")
             errs = [_check_close(f"K7 {n} cache_index {idx}", a, b, tol)
                     for n, a, b in zip(("x_out", "k_new", "v_new"), out, ref)]
             log(f"[K7] rows 80 L6 d768 f3072 Tmax 17 S908 {str(dtype)[6:]} cache_index {idx}: "
                 f"max abs err x_out {errs[0]:.3e}, k_new {errs[1]:.3e}, v_new {errs[2]:.3e} "
                 f"(max |x_out| {float(ref[0].float().abs().max()):.2f})")
-            if dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: call(k7.decode_stack_step), 10)
-                plain_ms = cuda_ms(lambda: call(k7.decode_stack_plain), 5)
-                work = _k7_work(pack, x, idx)
-                log(f"[K7] cache_index {idx}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per step, "
-                    f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
-                stats = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
-                             **work)  # the last index, the fullest cache
+            if dtype != torch.bfloat16:
+                continue
+            # the function in fp32 on the same bf16 inputs
+            fn = call(k7.decode_stack_plain, {k: v.float() for k, v in pack.items()},
+                      [a.float() for a in args])
+            log(f"[K7] cache_index {idx} bf16: " + "; ".join(
+                f"{n} " + _check_function(f"K7 {n} cache_index {idx}", a, b, c)
+                for n, a, b, c in zip(("x_out", "k_new", "v_new"), out, ref, fn)))
+            del fn
+            ms = cuda_ms(lambda: call(k7.decode_stack_step), 10)
+            plain_ms = cuda_ms(lambda: call(k7.decode_stack_plain), 5)
+            work = _k7_work(pack, x, idx)
+            if sm90:  # the route's C call itself, without programmatic dependent launch
+                outs = tuple(torch.empty_like(t) for t in out)
+                serial = lambda: k7._run_sm90(pack, *args, idx, BEAM, scaling, outs, pdl=False)
+            else:  # an older tree: no programmatic dependent launch
+                serial = lambda: call(k7.decode_stack_step)
+            parts = _k7_by_kernel(serial)
+            log(f"[K7] cache_index {idx}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per step, "
+                f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}); device time by kernel "
+                f"(torch.profiler, no PDL): " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+            stats = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+                         **work)  # the last index, the fullest cache
+        if dtype == torch.bfloat16 and sm90:
+            # the route's C call with programmatic dependent launch and without,
+            # in turns, at the fullest cache
+            outs = tuple(torch.empty_like(t) for t in out)
+            times = {True: [], False: []}
+            for pdl in (True, False, False, True):
+                times[pdl].append(cuda_ms(lambda: k7._run_sm90(
+                    pack, *args, K7_INDICES[-1], BEAM, scaling, outs, pdl=pdl), 20))
+            log(f"[K7] cache_index {K7_INDICES[-1]}: the C call with programmatic dependent "
+                f"launch {times[True]} ms, without {times[False]} ms per step")
         del pack, x, args
     return stats
 
@@ -1423,18 +1538,35 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--train-only", action="store_true",
-                    help="after phases 1-2, run only phase 8 with its profiled step, and print "
-                         "no result line")
-    train_only = ap.parse_args(argv).train_only
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--train-only", action="store_true",
+                      help="after phases 1-2, run only phase 8 with its profiled step, and print "
+                           "no result line")
+    only.add_argument("--decode-only", action="store_true",
+                      help="after phases 1-2, run only phases 4 and 12 (K2, K7), the three "
+                           "caption slices (5, 13) and their profile (15), and print no result "
+                           "line")
+    opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     from musketeer_tpu_torch.config import ofa_base
 
     tree = _random_model_tree(dataclasses.replace(ofa_base(), use_flash_attention=True), SEED)
-    if train_only:
-        phase_train(tree, smi)
+    if opts.train_only or opts.decode_only:
+        sm90 = _sm90_decode_routes()  # False on a tree older than the bf16 K2/K7 routes
+        log(f"[routes] bf16 K2 and K7 on their tensor-core routes: {sm90}")
+    if opts.train_only:
+        phase_train(tree, smi, sm90)
+        return 0
+    if opts.decode_only:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        phase_k2(g, sm90)
+        phase_k7(g, sm90)
+        for name in SLICES:
+            phase_slice(tree, smi, name, sm90)
+        phase_profile(tree)
+        log(f"[done] decode phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     g = torch.Generator(device="cuda").manual_seed(SEED)
     stats = {"K1": phase_k1(g), "K2": phase_k2(g), "K2-q8": phase_k2q8(g), "K6": phase_k6(g),

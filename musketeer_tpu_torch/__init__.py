@@ -22,11 +22,15 @@ Layout mirrors the JAX package:
   ops/decode_cross_attn.py       K6: decode cross-attention over the int8 cache
   ops/decode_stack.py            K7: all decoder layers of a decode step
   ops/bottleneck.py              K8: the fused ResNet bottleneck
-  ops/_build.py                  nvcc → one shared library, bound with ctypes
-  csrc/                          the kernels' CUDA C++ sources (sm_90a); bf16 attention
-                                 (K1, K3, K5: flash_fwd_sm90.cuh; K4:
-                                 flash_bwd_sm90.cuh) on tensor cores, the rest on
-                                 the CUDA cores
+  ops/_build.py                  nvcc → one shared library, bound with ctypes; the
+                                 route by device and dtype
+  csrc/                          the kernels' CUDA C++ sources (sm_90a); in bf16 on
+                                 tensor cores: attention (K1, K3, K5:
+                                 flash_fwd_sm90.cuh; K4: flash_bwd_sm90.cuh) and the
+                                 decode step's products (K7, K2: skinny_gemm_sm90.cuh;
+                                 K7's cross-attention: decode_attn_sm90.cuh), on
+                                 sm90.cuh's primitives; the rest, and fp32, on the
+                                 CUDA cores
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel for CUDA tensors. Imports torch and never jax.

@@ -1,0 +1,256 @@
+// K7's beam-shared cross-attention in bf16 on Hopper: the sample's [S, 64]
+// K and V rows streamed by TMA, the products on the tensor cores
+// (mma.sync m16n8k16). K6's int8 cross-attention (cross_attn.cuh) is not
+// touched.
+//
+// For the Kb beams j of sample b and head h, over the sample's S keys, with
+// the TPU kernel's numerics (musketeer_tpu/ops/decode_stack.py::_kernel's
+// cross block; the pads folded into the bias as -1e9):
+//   w[j, s] = q[j] . k[s] + bias[s]            fp32 sums of bf16 products
+//   p[j, s] = round_bf16(exp(w - max_s w) / sum_s exp(w - max_s w))
+//   out[j]  = round_bf16(sum_s p[j, s] v[s])   fp32 sums
+// as cross_attn.cuh computes it, exact two-pass softmax included.
+//
+// Design. One CTA per (h, b): a producer warp streams the S / 64 key tiles
+// and then the S / 64 value tiles (64 x 64 bf16, 8 KB, 128-byte swizzled,
+// zeros past S) through a ring of STAGES stages; one consumer warpgroup.
+//   - Scores: q (the Kb beam rows, padded to 16 with zeros) is the A operand,
+//     held in registers for the whole walk; each of the 8 warps takes 8 keys
+//     of a tile (one n8 block), the B fragments read as 4-byte pairs straight
+//     from the swizzled rows (conflict-free). Scores + the bias row (staged
+//     in shared memory) go to shared memory, fp32 [Kb][S].
+//   - Softmax: one warp per beam over the row in shared memory; p rounded
+//     to bf16 into [Kb][S'] (zeros from S to the tile end).
+//   - P.v: A = p (its rows from shared memory), B = the value tile read by
+//     ldmatrix.trans (key-major rows are B's k); each warp owns 8 of the 64
+//     columns, accumulating in fp32 registers across all tiles.
+// Eight warps rather than four: the softmax and the per-tile work are
+// latency-bound chains, and one warp a scheduler leaves them exposed.
+// The value tiles arrive while the softmax runs. Launched with programmatic
+// stream serialization: the K/V copies (the cache, written before the step)
+// start before the kernel waits for the cross-q product.
+//
+// Bound: the cross K/V, 2 x S x 64 x 2 bytes per (b, h), 268 MB a step at
+// the caption decode shape (rows 80, L6, H12, S908), 80 us at 3.35 TB/s.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace mk {
+namespace decode_attn {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int D = 64;                  // head dim
+constexpr int BKT = 64;                // keys per tile
+constexpr int STAGES = 8;              // ring depth: value tiles arrive during the softmax
+constexpr int NC = 256;                // consumer threads: two warpgroups, 8 warps
+constexpr int NT = NC + 32;            // + the producer warp
+constexpr int MAX_KB = 16;             // beams of a sample: one m16 tile
+constexpr uint32_t TILE = BKT * D * 2;  // bytes of one 64 x 64 bf16 tile
+
+struct Args {
+  const bf16* q;      // [B * Kb, H * 64]: row b * Kb + j, columns h * 64 ..
+  const float* bias;  // [B, H, S]
+  bf16* out;          // in q's layout
+  int B, H, Kb, S, layer;
+};
+
+inline size_t smem_bytes(int Kb, int S) {
+  const int sp = (S + BKT - 1) / BKT * BKT;
+  return 1024 + STAGES * TILE + 16 * STAGES + sizeof(float) * ((size_t)Kb * sp + sp) +
+         2 * (size_t)Kb * (sp + 8);
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// byte offset of (row, 16-byte unit u) in a 128-byte swizzled tile
+__device__ __forceinline__ uint32_t swz(int row, int u) {
+  return row * 128 + ((u ^ (row & 7)) * 16);
+}
+
+// kmap, vmap: the layer-stacked cache [L * B * H, S, 64] with 64 x 64 boxes
+__global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CUtensorMap kmap,
+                                             const __grid_constant__ CUtensorMap vmap, Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + STAGES * TILE;
+  const int h = blockIdx.x, b = blockIdx.y, Kb = a.Kb, S = a.S;
+  const int ntiles = (S + BKT - 1) / BKT, sp = ntiles * BKT, pst = sp + 8;
+  float* sc = reinterpret_cast<float*>(smem_raw + (bars + 16 * STAGES - raw));  // [Kb][sp]
+  float* bias = sc + (size_t)Kb * sp;                                           // [sp]
+  bf16* P = reinterpret_cast<bf16*>(bias + sp);                                 // [Kb][pst]
+  auto full = [=](int st) { return bars + 8u * st; };
+  auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
+  auto stage = [=](int st) { return base + TILE * st; };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(full(st), 1);
+      sm90::mbar_init(empty(st), NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  sm90::launch_dependents();
+
+  const int bh = (a.layer * a.B + b) * a.H + h;
+  if (tid >= NC) {  // the producer warp: K tiles, then V tiles
+    if (tid == NC) {
+      for (int it = 0; it < 2 * ntiles; ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) sm90::mbar_wait(empty(st), (it / STAGES - 1) & 1);
+        sm90::mbar_expect_tx(full(st), TILE);
+        sm90::tma_load3(stage(st), it < ntiles ? &kmap : &vmap, full(st), 0,
+                        (it % ntiles) * BKT, bh);
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  // the bias row into shared memory (a constant of the step: before the wait)
+  sm90::copy_f32(bias, a.bias + ((long long)b * a.H + h) * S, S, S, tid, NC);
+  sm90::grid_wait();  // q is the cross-q product's
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int d = a.H * D;
+  // q's A fragments for the four 16-deep k-steps: rows g and g + 8 (beams)
+  uint32_t qa[4][4];
+  {
+    const bf16* q = a.q + (long long)b * Kb * d + h * D;
+    auto pair = [&](int j, int c) -> uint32_t {
+      return j < Kb ? *reinterpret_cast<const uint32_t*>(q + (long long)j * d + c) : 0u;
+    };
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      qa[kk][0] = pair(g, 16 * kk + 2 * t);
+      qa[kk][1] = pair(g + 8, 16 * kk + 2 * t);
+      qa[kk][2] = pair(g, 16 * kk + 8 + 2 * t);
+      qa[kk][3] = pair(g + 8, 16 * kk + 8 + 2 * t);
+    }
+  }
+  sm90::named_sync(1, NC);  // the bias row
+
+  // scores: warp w, keys 8 w .. 8 w + 7 of each tile
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % STAGES;
+    sm90::mbar_wait(full(st), (it / STAGES) & 1);
+    const int key = 8 * warp + g;  // this lane's B column
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t b0 = lds32(stage(st) + swz(key, 2 * kk) + 4 * t);
+      const uint32_t b1 = lds32(stage(st) + swz(key, 2 * kk + 1) + 4 * t);
+      mma16816(c, qa[kk], b0, b1);
+    }
+    sm90::mbar_arrive(empty(st));
+    const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (s + e >= S) continue;
+      if (g < Kb) sc[(size_t)g * sp + s + e] = c[e] + bias[s + e];
+      if (g + 8 < Kb) sc[(size_t)(g + 8) * sp + s + e] = c[2 + e] + bias[s + e];
+    }
+  }
+  sm90::named_sync(1, NC);
+
+  // softmax, one warp per beam row; p rounded to bf16, zeros past S
+  for (int j = warp; j < Kb; j += NC / 32) {
+    const float* row = sc + (size_t)j * sp;
+    float m = -CUDART_INF_F;
+    for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int s = lane; s < S; s += 32) l += expf(row[s] - m);
+    l = warp_sum(l);
+    bf16* pr = P + (size_t)j * pst;
+    for (int s = lane; s < sp; s += 32)
+      pr[s] = __float2bfloat16_rn(s < S ? expf(row[s] - m) / l : 0.f);
+  }
+  sm90::named_sync(1, NC);
+
+  // P.v: warp w owns columns 8 w .. 8 w + 7 (one n8 block)
+  float o[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int it = ntiles; it < 2 * ntiles; ++it) {
+    const int st = it % STAGES, k0 = (it - ntiles) * BKT;
+    sm90::mbar_wait(full(st), (it / STAGES) & 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int kc = k0 + 16 * ks + 2 * t;  // this lane's A columns kc, kc + 1 (and + 8)
+      uint32_t pa[4];
+      pa[0] = g < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)g * pst + kc) : 0u;
+      pa[1] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)(g + 8) * pst + kc) : 0u;
+      pa[2] = g < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)g * pst + kc + 8) : 0u;
+      pa[3] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)(g + 8) * pst + kc + 8)
+                         : 0u;
+      // two 8 x 8 value blocks: keys +0 / +8 of this k-step, the warp's 8 columns
+      const int key = 16 * ks + (lane % 8) + 8 * ((lane / 8) & 1);
+      const uint32_t addr = stage(st) + swz(key, warp);
+      uint32_t r0, r1;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                   : "=r"(r0), "=r"(r1)
+                   : "r"(addr)
+                   : "memory");
+      mma16816(o, pa, r0, r1);
+    }
+    sm90::mbar_arrive(empty(st));
+  }
+
+  bf16* out = a.out + (long long)b * Kb * d + h * D;
+  const int c = 8 * warp + 2 * t;
+  if (g < Kb)
+    *reinterpret_cast<__nv_bfloat162*>(out + (long long)g * d + c) =
+        __floats2bfloat162_rn(o[0], o[1]);
+  if (g + 8 < Kb)
+    *reinterpret_cast<__nv_bfloat162*>(out + (long long)(g + 8) * d + c) =
+        __floats2bfloat162_rn(o[2], o[3]);
+}
+
+// The layer-stacked cross cache [L, B, H, S, 64] bf16 as [L * B * H, S, 64]
+// with 64 x 64 boxes.
+inline int cache_map(CUtensorMap* map, const void* ptr, long long lbh, int S) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)lbh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BKT, 1};
+  return sm90::bf16_map(map, ptr, 3, dims, strides, box);
+}
+
+// grid (H, B), with programmatic stream serialization (pdl). A cudaError_t code.
+inline int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int pdl,
+                  cudaStream_t stream) {
+  if (a.Kb < 1 || a.Kb > MAX_KB) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(a.Kb, a.S);
+  static SmemOptIn opt_in;
+  if (const int err = opt_in.ensure((const void*)kernel, smem)) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.H, a.B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, kmap, vmap, a);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+}  // namespace decode_attn
+}  // namespace mk

@@ -14,45 +14,63 @@
 // k_new and v_new of every layer are outputs; the caller writes them into
 // the cache at idx. Numerics are the TPU kernel's: each product sums in fp32
 // and is rounded to the compute dtype T before its bias and again after it;
-// LayerNorm, softmax and the attention sums in fp32; probabilities rounded
-// to T before each value product; gelu = round(round(h * 0.5) *
-// round(erfc(round(-h * round(1/sqrt 2))))) with CUDA's erfcf in place of
-// the TPU kernel's restated XLA expansion.
+// LayerNorm, softmax and the attention sums in fp32, the LayerNorm's output
+// rounded to T before its product; probabilities rounded to T before each
+// value product; gelu = round(round(h * 0.5) * round(erfc(round(-h *
+// round(1/sqrt 2))))) with CUDA's erfcf in place of the TPU kernel's
+// restated XLA expansion.
 //
 // Translation. The TPU kernel walks L as a sequential grid with x in VMEM
 // scratch and streams each sample's cross K/V with manual DMAs from a
 // transposed, S-padded copy of the cache. An H100 runs the blocks of one
-// launch in no order, so the C entry point runs, on one stream, a fixed
+// launch in no order, so the C entry points run, on one stream, a fixed
 // sequence of 8 launches per layer, x living in the output buffer:
 //   1 LN + q|k|v product   2 self-attention      3 out-proj + residual
 //   4 LN + cross-q product 5 cross-attention     6 out-proj + residual
 //   7 LN + fc1 + gelu      8 fc2 + residual
-// The products are one small-M kernel: a block computes 32 rows x 64
-// columns of x . W^T with W's rows contiguous along the input (the pack's
-// [dout, din] layout), staging 32-deep chunks of both in shared memory, fp32
-// FMAs on the CUDA cores, 8 rows per thread; the LayerNorm before it is
-// applied while its input is staged (the block computes its rows'
-// statistics first); bias, scaling, gelu and residual are its epilogue. The
-// cross K/V are read in the cache's own [L, B, H, S, 64] layout in T by the
-// device function K6 uses (csrc/cross_attn.cuh).
+// Layer 0 reads x0 where later layers read x. The cross K/V are read in the
+// cache's own [L, B, H, S, 64] layout.
+//
+// bf16 (mk_decode_stack_step_sm90): the six products run on the
+// weight-streaming tensor-core core (skinny_gemm_sm90.cuh: W tiles by TMA,
+// wgmma with the beam rows as N, the LayerNorm applied to the staged X with
+// one-pass row statistics that the product writing X hands on, split-K with
+// the partials summed in split order by the last CTA of each tile; a split-K
+// sum is still one fp32 sum rounded once), the
+// cross-attention on decode_attn_sm90.cuh (K/V tiles by TMA, mma.sync), the
+// self-attention on CUDA cores (self_attn_bf16: a lane per cached position).
+// Every launch but the self-attention's uses programmatic stream
+// serialization, so each product streams its first weight tiles while the
+// previous launch finishes.
+//
+// fp32 (mk_decode_stack_step): the FMA route of the first port, kept for
+// the exact fp32 checks (tensor cores would mean TF32). Its products are one
+// small-M kernel: a block computes 32 rows x 64 columns of x . W^T, staging
+// 32-deep chunks of both in shared memory, fp32 FMAs on the CUDA cores, 8
+// rows per thread, the LayerNorm applied while its input is staged; the
+// cross-attention is the device function K6 uses (csrc/cross_attn.cuh).
 //
 // Bound. At the caption decode shape (rows 80 = 16 x 5, L 6, d 768, f 3072,
 // Tmax 17, S 908, bf16) a step must read 99 MB of weights, 268 MB of cross
-// K/V and up to 25 MB of self cache: 392 MB, 117 us at 3.35 TB/s. Its
-// 4.0 G multiply-adds in the products and 0.9 G in the cross-attention are
-// ~1.5 ms of fp32 FMAs at the rate this first, untuned version reaches; the
-// 48 launches add ~0.1 ms. Tensor-core products (mma.sync / wgmma) and one
-// persistent launch are the next steps.
+// K/V and up to 25 MB of self cache: 392 MB, 117 us at 3.35 TB/s; its 4.0 G
+// multiply-adds in the products are ~8 us on the tensor cores. On an H100 the
+// FMA route takes ~4.2 ms a step, the bf16 route ~0.8 ms: its 48 launches
+// each spend ~12 us on fixed latency (PERF.md).
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "cross_attn.cuh"
+#include "decode_attn_sm90.cuh"
+#include "skinny_gemm_sm90.cuh"
 
 namespace {
 
 using mk::from_f;
 using mk::round_to;
 using mk::to_f;
+using bf16 = __nv_bfloat16;
 
 constexpr int D = 64;     // head dim
 constexpr int MT = 32;    // product rows per block
@@ -63,6 +81,13 @@ constexpr int RPT = 8;    // rows per thread
 constexpr int SA_WARPS = 4;  // self-attention: (row, head) tasks per block
 constexpr float NEG = -1e9f;
 
+template <typename T>
+__device__ __forceinline__ float gelu_exact(float h) {
+  const float y = round_to<T>((-h) * round_to<T>(0.7071067811865476f));
+  const float e = round_to<T>(erfcf(y));
+  return round_to<T>(round_to<T>(h * 0.5f) * e);
+}
+
 // the epilogue of a product, per element (m, n), after the fp32 sum:
 // v = round(sum); v = round(v + bias[n]); v = round(v * scale); v = gelu(v);
 // v = round(residual[m, n] + v); out[n / seg][m, n % seg] = v
@@ -71,19 +96,34 @@ struct Epi {
   const T* bias;      // [N] or nullptr
   float scale;        // 0: none (else already a value of T)
   int gelu;
-  const T* residual;  // [M, N] or nullptr; may be out[0]
+  const T* residual;  // [M, seg] or nullptr (only with one segment); may be out[0]
   T* out[3];          // up to three column segments, each [M, seg]
   int seg;
+
+  struct Pre {
+    float bias, residual;
+  };
+  __device__ __forceinline__ Pre load(int m, int n) const {
+    return {bias != nullptr ? to_f(bias[n]) : 0.f,
+            residual != nullptr ? to_f(residual[(long long)m * seg + n]) : 0.f};
+  }
+  __device__ __forceinline__ float operator()(int m, int n, float acc, Pre p) const {
+    float v = round_to<T>(acc);
+    if (bias != nullptr) v = round_to<T>(v + p.bias);
+    if (scale != 0.f) v = round_to<T>(v * scale);
+    if (gelu) v = gelu_exact<T>(v);
+    if (residual != nullptr) v = round_to<T>(p.residual + v);
+    // the segment by comparison: an index into out[] would move the struct to local memory
+    const int s = n < seg ? 0 : (n < 2 * seg ? 1 : 2);
+    T* o = s == 0 ? out[0] : (s == 1 ? out[1] : out[2]);
+    o[(long long)m * seg + n - s * seg] = from_f<T>(v);
+    return v;
+  }
+  __device__ __forceinline__ float operator()(int m, int n, float acc) const {
+    return (*this)(m, n, acc, load(m, n));
+  }
 };
 
-template <typename T>
-__device__ __forceinline__ float gelu_exact(float h) {
-  const float y = round_to<T>((-h) * round_to<T>(0.7071067811865476f));
-  const float e = round_to<T>(erfcf(y));
-  return round_to<T>(round_to<T>(h * 0.5f) * e);
-}
-
-// Y = epi(LN?(A) . W^T): A [M, K], W [N, K], both T; ln_g/ln_b fp32 [K] or nullptr
 template <typename T>
 __global__ void __launch_bounds__(GT) gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
                                                   const float* __restrict__ ln_g,
@@ -156,18 +196,11 @@ __global__ void __launch_bounds__(GT) gemm_kernel(const T* __restrict__ A, const
 
   const int n = n0 + c;
   if (n >= N) return;
-  const int seg = n / epi.seg, ns = n % epi.seg;
-  T* out = epi.out[seg];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int m = m0 + rg * RPT + r;
     if (m >= M) break;
-    float v = round_to<T>(acc[r]);
-    if (epi.bias != nullptr) v = round_to<T>(v + to_f(epi.bias[n]));
-    if (epi.scale != 0.f) v = round_to<T>(v * epi.scale);
-    if (epi.gelu) v = gelu_exact<T>(v);
-    if (epi.residual != nullptr) v = round_to<T>(to_f(epi.residual[(long long)m * N + n]) + v);
-    out[(long long)m * epi.seg + ns] = from_f<T>(v);
+    epi(m, n, acc[r]);
   }
 }
 
@@ -210,6 +243,75 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
   }
   out[qo] = from_f<T>(a0);
   out[qo + 1] = from_f<T>(a1);
+}
+
+// The bf16 route's self-attention of one step: one warp per (row, head),
+// lane t on positions t, t + 32, ... <= idx (the full 64-deep dot of q with
+// that position's key, 16-byte loads), the softmax by warp reductions, then
+// lane l on value dims 2 l, 2 l + 1, summing the positions in order. Every
+// lane's loads are independent of the others', so a warp waits on memory a
+// few times, not once per position; numerics as self_attn_kernel's, the
+// sums in another fp32 order.
+__global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
+    const bf16* __restrict__ cache_k, const bf16* __restrict__ cache_v,
+    const float* __restrict__ sbias, bf16* __restrict__ out, int rows, int H, int Tmax, int idx,
+    float scaling) {
+  extern __shared__ float sa_scores[];  // [SA_WARPS][Tmax]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int task = blockIdx.x * SA_WARPS + warp;
+  if (task >= rows * H) return;
+  const int row = task / H, h = task % H, d = H * D;
+  float* w = sa_scores + warp * Tmax;
+  const long long qo = (long long)row * d + h * D;  // (row, head) in [rows, d]
+  const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
+  float qf[D];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const uint4 v = *reinterpret_cast<const uint4*>(q + qo + 8 * i);
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      qf[8 * i + 2 * j] = round_to<bf16>(__uint_as_float(u[j] << 16) * scaling);
+      qf[8 * i + 2 * j + 1] = round_to<bf16>(__uint_as_float(u[j] & 0xffff0000u) * scaling);
+    }
+  }
+  float m = -CUDART_INF_F;
+  for (int t = lane; t <= idx; t += 32) {
+    const bf16* kt = t == idx ? k_new + qo : cache_k + (co + t) * D;
+    uint4 kv[D / 8];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) kv[i] = *reinterpret_cast<const uint4*>(kt + 8 * i);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const uint32_t u[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s = fmaf(qf[8 * i + 2 * j], __uint_as_float(u[j] << 16), s);
+        s = fmaf(qf[8 * i + 2 * j + 1], __uint_as_float(u[j] & 0xffff0000u), s);
+      }
+    }
+    s += sbias[co + t];
+    w[t] = s;
+    m = fmaxf(m, s);
+  }
+  m = mk::warp_max(m);
+  float l = 0.f;
+  for (int t = lane; t <= idx; t += 32) l += expf(w[t] - m);
+  l = mk::warp_sum(l);
+  __syncwarp();
+  for (int t = lane; t <= idx; t += 32) w[t] = round_to<bf16>(expf(w[t] - m) / l);
+  __syncwarp();
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+  for (int t = 0; t <= idx; ++t) {
+    const bf16* vt = t == idx ? v_new + qo : cache_v + (co + t) * D;
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(vt + 2 * lane);
+    a0 = fmaf(w[t], __low2float(v), a0);
+    a1 = fmaf(w[t], __high2float(v), a1);
+  }
+  *reinterpret_cast<__nv_bfloat162*>(out + qo + 2 * lane) = __floats2bfloat162_rn(a0, a1);
 }
 
 template <typename T>
@@ -318,41 +420,167 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
   return 0;
 }
 
+// Each 64-column tile's sum and sum of squares of every row of x [rows, K]
+// bf16, in the layout gemm_kernel's stats_out writes: [K / 64][rows][2]. One
+// warp per (row, tile), two columns a lane: for the first LayerNorm of a
+// step, whose input no product of the step wrote.
+__global__ void __launch_bounds__(128) row_tile_stats(const bf16* __restrict__ x, int rows, int K,
+                                                      float* __restrict__ stats) {
+  mk::sm90::launch_dependents();
+  const int tiles = (K + mk::skinny::BM - 1) / mk::skinny::BM;
+  const int task = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (task >= rows * tiles) return;
+  const int row = task / tiles, t = task % tiles, k = t * mk::skinny::BM + 2 * lane;
+  float s = 0.f, s2 = 0.f;
+  if (k < K) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(x + (long long)row * K + k);
+    const float a = __low2float(v), b = __high2float(v);
+    s = a + b;
+    s2 = a * a + b * b;
+  }
+  s = mk::warp_sum(s);
+  s2 = mk::warp_sum(s2);
+  if (lane == 0)
+    *reinterpret_cast<float2*>(stats + 2 * ((long long)t * rows + row)) = make_float2(s, s2);
+}
+
+// The bf16 route: the products on the weight-streaming core, the
+// cross-attention on decode_attn_sm90.cuh. part: fp32 split-K partials;
+// counters: one int per (row tile, m64 tile) of the widest product, zero on
+// entry (each product leaves them zero); stats: [d / 64][rows][2] fp32, the
+// row statistics of x handed from each residual product to the next
+// LayerNorm. n_tile: the row tile (16, 32, 48, 80); cps: chunks of 64 per
+// split of the q|k|v, d x d, fc1 and fc2 products.
+int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* cbias,
+              const bf16* self_k, const bf16* self_v, const bf16* cross_k, const bf16* cross_v,
+              bf16* x, bf16* k_new, bf16* v_new, bf16* scratch, float* part, int* counters,
+              float* stats, int L, int B, int Kb, int H, int S, int Tmax, int f, int idx,
+              float scaling, int n_tile, const int* cps, int pdl, cudaStream_t st) {
+  namespace sk = mk::skinny;
+  const int d = H * D, rows = B * Kb;
+  const size_t sa_smem = sizeof(float) * SA_WARPS * Tmax;
+  if (sa_smem > 48 * 1024 || d % 64 || f % 8) return (int)cudaErrorInvalidValue;
+  bf16* qbuf = scratch;          // [rows, d] self q (unscaled)
+  bf16* attn = qbuf + rows * d;  // [rows, d] attention output, head-major columns
+  bf16* q2 = attn + rows * d;    // [rows, d] cross q (scaled)
+  bf16* g = q2 + rows * d;       // [rows, f] gelu(fc1)
+  CUtensorMap m_self3, m_so, m_cq, m_co, m_fc1, m_fc2, m_k, m_v;
+  MK_TRY(sk::weight_map(&m_self3, pk.w_self3, L, 3 * d, d, sk::BM));
+  MK_TRY(sk::weight_map(&m_so, pk.w_so, L, d, d, sk::BM));
+  MK_TRY(sk::weight_map(&m_cq, pk.w_cq, L, d, d, sk::BM));
+  MK_TRY(sk::weight_map(&m_co, pk.w_co, L, d, d, sk::BM));
+  MK_TRY(sk::weight_map(&m_fc1, pk.w_fc1, L, f, d, sk::BM));
+  MK_TRY(sk::weight_map(&m_fc2, pk.w_fc2, L, d, f, sk::BM));
+  MK_TRY(mk::decode_attn::cache_map(&m_k, cross_k, (long long)L * B * H, S));
+  MK_TRY(mk::decode_attn::cache_map(&m_v, cross_v, (long long)L * B * H, S));
+  // the first LayerNorm's statistics: x0's, by tile
+  row_tile_stats<<<(rows * (d / 64) + 3) / 4, 128, 0, st>>>(x0, rows, d, stats);
+  MK_TRY((int)cudaGetLastError());
+  return sk::with_row_tile(n_tile, [&](auto nt) -> int {
+    constexpr int N = decltype(nt)::value;
+    CUtensorMap m_x0, m_x, m_attn, m_g;  // the products' X, in boxes of N rows
+    MK_TRY(sk::weight_map(&m_x0, x0, 1, rows, d, N));
+    MK_TRY(sk::weight_map(&m_x, x, 1, rows, d, N));
+    MK_TRY(sk::weight_map(&m_attn, attn, 1, rows, d, N));
+    MK_TRY(sk::weight_map(&m_g, g, 1, rows, f, N));
+    const int tiles = d / 64;
+    auto ln_of = [&](const float* ln_gb) { return sk::LnArgs{ln_gb, ln_gb + d, stats, tiles}; };
+    const sk::LnArgs none{nullptr, nullptr, nullptr, 0};
+    auto product = [&](const CUtensorMap& w, const CUtensorMap& xm, int l, const sk::LnArgs& ln,
+                       int dout, int K, int c, float* stats_out, const Epi<bf16>& e) {
+      return sk::launch_gemm<N>(w, xm, l, ln, rows, dout, K, c, part, counters, stats_out, e, pdl,
+                                st);
+    };
+    for (int l = 0; l < L; ++l) {
+      const float* ln = pk.ln + (long long)l * 6 * d;
+      const bf16* bm = static_cast<const bf16*>(pk.b_misc) + (long long)l * 4 * d;
+      const bf16* xin = l == 0 ? x0 : x;
+      const CUtensorMap& m_xin = l == 0 ? m_x0 : m_x;
+      bf16* kn = k_new + (long long)l * rows * d;
+      bf16* vn = v_new + (long long)l * rows * d;
+      // 1. LN + q|k|v: columns [0, d) -> qbuf, [d, 2d) -> k_new[l], [2d, 3d) -> v_new[l]
+      Epi<bf16> e = epi_of<bf16>(static_cast<const bf16*>(pk.b_self3) + (long long)l * 3 * d,
+                                 qbuf, d);
+      e.out[1] = kn;
+      e.out[2] = vn;
+      MK_TRY(product(m_self3, m_xin, l, ln_of(ln), 3 * d, d, cps[0], nullptr, e));
+      // 2. self-attention over the cache
+      const long long cl = (long long)l * rows * H * Tmax;
+      self_attn_bf16<<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
+          qbuf, kn, vn, self_k + cl * D, self_v + cl * D, sbias + cl, attn, rows, H, Tmax, idx,
+          scaling);
+      MK_TRY((int)cudaGetLastError());
+      // 3. out-proj + bias + residual; x's statistics for step 4
+      MK_TRY(product(m_so, m_attn, l, none, d, d, cps[1], stats, epi_of<bf16>(bm, x, d, xin)));
+      // 4. LN + cross q, scaled
+      MK_TRY(product(m_cq, m_x, l, ln_of(ln + 2 * d), d, d, cps[1], nullptr,
+                     epi_of<bf16>(bm + d, q2, d, nullptr, scaling)));
+      // 5. beam-shared cross-attention over this layer's [B, H, S, 64] K/V
+      mk::decode_attn::Args a{q2, cbias, attn, B, H, Kb, S, l};
+      MK_TRY(mk::decode_attn::launch(m_k, m_v, a, pdl, st));
+      // 6. out-proj + bias + residual; x's statistics for step 7
+      MK_TRY(product(m_co, m_attn, l, none, d, d, cps[1], stats,
+                     epi_of<bf16>(bm + 2 * d, x, d, x)));
+      // 7. LN + fc1 + bias + gelu
+      MK_TRY(product(m_fc1, m_x, l, ln_of(ln + 4 * d), f, d, cps[2], nullptr,
+                     epi_of<bf16>(static_cast<const bf16*>(pk.b_fc1) + (long long)l * f, g, f,
+                                  nullptr, 0.f, 1)));
+      // 8. fc2 + bias + residual; x's statistics for the next layer's step 1
+      MK_TRY(product(m_fc2, m_g, l, none, d, f, cps[3], stats, epi_of<bf16>(bm + 3 * d, x, d, x)));
+    }
+    return 0;
+  });
+}
+
 }  // namespace
 
-// bf16 != 0 selects __nv_bfloat16 tensors, else float (sbias, cbias and ln
-// are fp32 either way). Shapes: the pack as ops/decode_stack.py builds it;
-// x0 [rows, d]; sbias [L, rows, H, Tmax]; cbias [B, H, S]; self_k/self_v
-// [L, rows, H, Tmax, 64]; cross_k/cross_v [L, B, H, S, 64]; outputs x_out
-// [rows, d], k_new/v_new [L, rows, d]; scratch rows * (3 d + f) elements.
-// rows = B * Kb, d = 64 H. scaling is already a value of the element type.
-// Returns a CUDA error code.
-extern "C" int mk_decode_stack_step(int bf16, const void* w_self3, const void* b_self3,
-                                    const void* w_so, const void* w_cq, const void* w_co,
-                                    const void* w_fc1, const void* b_fc1, const void* w_fc2,
-                                    const void* b_misc, const void* ln, const void* x0,
-                                    const void* sbias, const void* cbias, const void* self_k,
-                                    const void* self_v, const void* cross_k, const void* cross_v,
-                                    void* x_out, void* k_new, void* v_new, void* scratch, int L,
-                                    int B, int Kb, int H, int S, int Tmax, int f, int idx,
-                                    float scaling, void* stream) {
+// The fp32 route (FMA kernels). Shapes: the pack as ops/decode_stack.py
+// builds it; x0 [rows, d]; sbias [L, rows, H, Tmax]; cbias [B, H, S]; self_k/
+// self_v [L, rows, H, Tmax, 64]; cross_k/cross_v [L, B, H, S, 64]; outputs
+// x_out [rows, d], k_new/v_new [L, rows, d]; scratch rows * (3 d + f)
+// elements. rows = B * Kb, d = 64 H. Returns a CUDA error code.
+extern "C" int mk_decode_stack_step(const void* w_self3, const void* b_self3, const void* w_so,
+                                    const void* w_cq, const void* w_co, const void* w_fc1,
+                                    const void* b_fc1, const void* w_fc2, const void* b_misc,
+                                    const void* ln, const void* x0, const void* sbias,
+                                    const void* cbias, const void* self_k, const void* self_v,
+                                    const void* cross_k, const void* cross_v, void* x_out,
+                                    void* k_new, void* v_new, void* scratch, int L, int B, int Kb,
+                                    int H, int S, int Tmax, int f, int idx, float scaling,
+                                    void* stream) {
   const Pack pk{w_self3, b_self3, w_so, w_cq, w_co, w_fc1, b_fc1, w_fc2, b_misc,
                 static_cast<const float*>(ln)};
-  auto st = static_cast<cudaStream_t>(stream);
-  auto sb = static_cast<const float*>(sbias);
-  auto cb = static_cast<const float*>(cbias);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    return step<T>(pk, static_cast<const T*>(x0), sb, cb, static_cast<const T*>(self_k),
-                   static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
-                   static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
-                   static_cast<T*>(v_new), static_cast<T*>(scratch), L, B, Kb, H, S, Tmax, f, idx,
-                   scaling, st);
-  }
   using T = float;
-  return step<T>(pk, static_cast<const T*>(x0), sb, cb, static_cast<const T*>(self_k),
+  return step<T>(pk, static_cast<const T*>(x0), static_cast<const float*>(sbias),
+                 static_cast<const float*>(cbias), static_cast<const T*>(self_k),
                  static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
                  static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
                  static_cast<T*>(v_new), static_cast<T*>(scratch), L, B, Kb, H, S, Tmax, f, idx,
-                 scaling, st);
+                 scaling, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 route (tensor cores): the fp32 route's arguments in bf16 (sbias,
+// cbias and ln fp32), every bf16 tensor on a 16-byte boundary; part and
+// stats fp32, counters int32, as step_sm90 describes them; cps four ints; pdl != 0
+// launches with programmatic stream serialization. Returns a CUDA error code.
+extern "C" int mk_decode_stack_step_sm90(
+    const void* w_self3, const void* b_self3, const void* w_so, const void* w_cq,
+    const void* w_co, const void* w_fc1, const void* b_fc1, const void* w_fc2, const void* b_misc,
+    const void* ln, const void* x0, const void* sbias, const void* cbias, const void* self_k,
+    const void* self_v, const void* cross_k, const void* cross_v, void* x_out, void* k_new,
+    void* v_new, void* scratch, void* part, void* counters, void* stats, int L, int B, int Kb,
+    int H, int S,
+    int Tmax, int f, int idx, float scaling, int n_tile, int cps_qkv, int cps_dd, int cps_fc1,
+    int cps_fc2, int pdl, void* stream) {
+  const Pack pk{w_self3, b_self3, w_so, w_cq, w_co, w_fc1, b_fc1, w_fc2, b_misc,
+                static_cast<const float*>(ln)};
+  const int cps[4] = {cps_qkv, cps_dd, cps_fc1, cps_fc2};
+  using T = __nv_bfloat16;
+  return step_sm90(pk, static_cast<const T*>(x0), static_cast<const float*>(sbias),
+                   static_cast<const float*>(cbias), static_cast<const T*>(self_k),
+                   static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
+                   static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
+                   static_cast<T*>(v_new), static_cast<T*>(scratch), static_cast<float*>(part),
+                   static_cast<int*>(counters), static_cast<float*>(stats), L, B, Kb, H, S, Tmax,
+                   f, idx, scaling, n_tile, cps, pdl, static_cast<cudaStream_t>(stream));
 }

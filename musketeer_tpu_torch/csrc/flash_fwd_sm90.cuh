@@ -1,6 +1,7 @@
 // The bf16 attention core of K1, K3 and K5 on Hopper's tensor cores: wgmma
-// products fed by TMA through a ring of shared-memory stages. Its primitives
-// (mbarriers, TMA, wgmma, the rel loads and masks) also build K4's backward
+// products fed by TMA through a ring of shared-memory stages. Its pieces (the
+// rel loads and masks, the score and P.v products) and the Hopper primitives
+// of sm90.cuh (mbarriers, TMA, wgmma) also build K4's backward
 // (flash_bwd_sm90.cuh).
 //
 // Replaces, for bf16 streams, the Pallas kernels
@@ -61,10 +62,10 @@
 // the report of each build.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <stdint.h>
 
 #include "common.cuh"
+#include "sm90.cuh"  // mbarriers, TMA, wgmma, encode_tiled
 
 namespace mk {
 namespace sm90 {
@@ -83,113 +84,6 @@ constexpr uint32_t OFF_BAR = OFF_KV + STAGES * STAGE;
 constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
 constexpr float NEG = -1e9f;
 
-// ---- shared memory, mbarriers, TMA ---------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// one arrival that also announces `bytes` of TMA transfer
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait until the barrier's phase of this parity has completed; a phase that
-// never completes (a lost copy) traps after ~2^28 tries, an error and not a hang
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (tries == (1u << 28)) __trap();
-  }
-}
-
-// a 64 x 64 bf16 box at (0, row, bh) of a [B*H, rows, 64] map into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
-      : "memory");
-}
-
-// ---- wgmma ---------------------------------------------------------------
-
-// Descriptor of a 128-byte swizzled tile: rows of 128 bytes, 8-row groups
-// 1024 bytes apart (SBO); LBO is not read at these widths. Serves the K-major
-// q, pos_q, k, pos_k tiles and v read MN-major.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {  // every committed group done
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across a wait
-__device__ __forceinline__ void fence_operand(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define MK_WG_D                                                                                 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define MK_WG_ACC(d)                                                                           \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// d (+)= A . B^T, A and B both K-major in shared memory; accumulate = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MK_WG_D
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : MK_WG_ACC(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A . B, A from registers (four bf16 pairs), B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MK_WG_D
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : MK_WG_ACC(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// round to nearest even, lo in the low half (the smaller k index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ---- rel: two adjacent columns of a row, in rel's dtype ------------------
 
@@ -529,22 +423,6 @@ __global__ void __launch_bounds__(NT, 2) kernel(
 }
 
 // ---- host side -------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
 
 // A [bh, rows, 64] bf16 stream as 64 x 64 boxes, 128-byte swizzled, zeros past the end.
 inline int stream_map(CUtensorMap* map, const void* ptr, int rows, long long bh) {

@@ -11,31 +11,44 @@
 //
 // Translation. The TPU version walks 3968-wide vocab tiles in order and
 // writes [ntiles, N, ...] layouts that Mosaic's (8, 128) block rule forced,
-// with rows padded to 8. Here one block owns one 128-token vocab block and a
-// 16-row chunk of h: the per-block max is then the block max itself, written
-// straight into [N, Vp/128], and rows need no padding (the chunk is masked).
-// Chunks of the same vocab block are neighbours in the grid, so the blocks
-// that read one weight tile run together and share it through L2.
+// with rows padded to 8. Here a CTA owns whole 128-token vocab blocks, so
+// the per-block max is the block max itself, written straight into
+// [N, Vp/128].
 //
 // Bound. At the decode shape (N=80 beam rows, Vp=59520, D=768, bf16) a call
 // must read the 91 MB weight once (27 us at 3.35 TB/s) and does 3.7 G
-// multiply-adds (~4 us on the tensor cores): it is bound by the weight read.
-// This first version multiplies on the CUDA cores in fp32 (no wgmma yet):
-// 256 threads, each one vocab column by 8 rows, reading h as float4 from
-// shared memory (8 vector loads and 4 scalar loads per 32 FMAs); the fp32
-// FMA rate (~0.1 ms for 3.7 G) rather than the weight read limits it.
+// multiply-adds (~7 us on the tensor cores): it is bound by the weight read.
 //
-// K2-q8 (mk_project_with_stats_q8) replaces _proj_kernel_q8 (:71), the same
+// bf16 (mk_project_with_stats_sm90) runs on the weight-streaming tensor-core
+// core of skinny_gemm_sm90.cuh: a persistent grid of one CTA per SM keeps its
+// h rows (80 x 768 bf16, 123 KB, copied once by TMA) in shared memory and walks vocab blocks
+// vb = blockIdx.x, + gridDim.x, ...; the producer warp streams each block's
+// W as 128 x 64 tiles by TMA through a 4-stage ring without a break between
+// blocks; the consumer warpgroup multiplies each tile as two m64 halves
+// against the N rows (wgmma m64nNk16, swap AB). The epilogue reduces each
+// row's max and then its sum of exp over the block's 128 positions: in the
+// thread (both halves, both accumulator rows), across the 8 lanes of a quad
+// column (xor 4, 8, 16), then across the 4 warps through shared memory,
+// (w0 + w1) + (w2 + w3); it stores the logits through a shared-memory
+// transpose as 256-byte rows (coalesced) and bmax, bsum straight into
+// [N, Vp/128].
+//
+// fp32 (mk_project_with_stats) and K2-q8 stay on the FMA kernel below: 256
+// threads, each one vocab column by 8 rows of a 16-row chunk, 32-deep chunks
+// of both operands staged in shared memory. K2-q8
+// (mk_project_with_stats_q8) replaces _proj_kernel_q8 (:71), the same
 // function over the int8 serving projection: w int8 [Vp, D] with fp32 row
-// scales. The kernel is the same template with the weight type int8_t: it
-// reads the int8 rows straight from device memory (half K2's weight bytes:
-// 46 MB at the decode shape, 14 us at 3.35 TB/s), widens them in registers
-// (exact), and multiplies each column's fp32 dot by its row scale before the
-// mask and the statistics, as the TPU kernel does. Its bound is K2's: the
-// fp32 FMA rate of this first version, not the halved weight read.
+// scales. It reads the int8 rows straight from device memory (half K2's
+// weight bytes: 46 MB at the decode shape, 14 us at 3.35 TB/s), widens them
+// in registers (exact), and multiplies each column's fp32 dot by its row
+// scale before the mask and the statistics, as the TPU kernel does; its
+// fp32 FMAs, not the halved weight read, bound it.
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "skinny_gemm_sm90.cuh"
 
 namespace {
 
@@ -148,18 +161,181 @@ int launch(const void* h, const void* w, const void* scale, void* logits, void* 
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16: the weight-streaming tensor-core core ---------------------------
+
+namespace sk = mk::skinny;
+using bf16 = __nv_bfloat16;
+
+constexpr uint32_t WT2 = 2 * sk::WTILE;  // a stage: 128 vocab rows x 64 deep
+constexpr int LGS = BLK + 8;              // row stride of the logits transpose (bf16)
+
+template <int N>
+constexpr size_t proj_smem(int nch) {
+  return 1024 + sk::STAGES * WT2 + (size_t)nch * sk::x_chunk_bytes<N>() + 2 * (size_t)N * LGS +
+         sizeof(float) * 5 * N + 8 * (2 * sk::STAGES + 1);
+}
+
+// grid (CTAs, row tiles); wmap: w as a [1, Vp, D] map with 128 x 64 boxes,
+// hmap: h as a [1, rows, D] map with 64 x N boxes
+template <int N>
+__global__ void __launch_bounds__(sk::NT) proj_sm90_kernel(
+    const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap hmap,
+    bf16* __restrict__ logits,
+    float* __restrict__ bmax, float* __restrict__ bsum, int rows, int D, int Vp, int vocab_size) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = mk::sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int nch = (D + sk::BKC - 1) / sk::BKC, nblk = Vp / BLK;
+  const uint32_t ring = base, xs = base + sk::STAGES * WT2;
+  const uint32_t lg_s = xs + nch * sk::x_chunk_bytes<N>();
+  bf16* lg = reinterpret_cast<bf16*>(smem_raw + (lg_s - raw));  // [N][LGS] logits tile
+  float* red = reinterpret_cast<float*>(lg + N * LGS);           // [4][N] per-warp partials
+  float* fin = red + 4 * N;                                      // [N] block max
+  const uint32_t bars = mk::sm90::smem_u32(fin + N);
+  auto full = [=](int st) { return bars + 8u * st; };
+  auto empty = [=](int st) { return bars + 8u * (sk::STAGES + st); };
+  const uint32_t xbar = bars + 8u * (2 * sk::STAGES);
+  const int tid = threadIdx.x, r0 = blockIdx.y * N;
+  if (tid == 0) {
+    for (int st = 0; st < sk::STAGES; ++st) {
+      mk::sm90::mbar_init(full(st), 1);
+      mk::sm90::mbar_init(empty(st), sk::NC);
+    }
+    mk::sm90::mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= sk::NC) {  // the producer warp: h once, then every block's W tiles, back to back
+    if (tid == sk::NC) {
+      sk::load_x<N>(xs, &hmap, xbar, r0, 0, nch);
+      int it = 0;
+      for (int vb = blockIdx.x; vb < nblk; vb += gridDim.x)
+        for (int c = 0; c < nch; ++c, ++it) {
+          const int st = it % sk::STAGES;
+          if (it >= sk::STAGES) mk::sm90::mbar_wait(empty(st), (it / sk::STAGES - 1) & 1);
+          mk::sm90::mbar_expect_tx(full(st), WT2);
+          mk::sm90::tma_load3(ring + st * WT2, &wmap, full(st), c * sk::BKC, vb * BLK, 0);
+        }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  mk::sm90::mbar_wait(xbar, 0);
+  const int warp = tid / 32, lane = tid % 32;
+  int it = 0;
+  for (int vb = blockIdx.x; vb < nblk; vb += gridDim.x) {
+    float acc[2][N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int c = 0; c < nch; ++c, ++it) {
+      const int st = it % sk::STAGES;
+      mk::sm90::mbar_wait(full(st), (it / sk::STAGES) & 1);
+      mk::sm90::wgmma_fence();
+      sk::mma_chunk<N>(acc[0], ring + st * WT2, xs + c * sk::x_chunk_bytes<N>());
+      sk::mma_chunk<N>(acc[1], ring + st * WT2 + sk::WTILE, xs + c * sk::x_chunk_bytes<N>());
+      mk::sm90::wgmma_commit();
+      mk::sm90::wgmma_wait();
+      mk::sm90::fence_regs(acc[0]);
+      mk::sm90::fence_regs(acc[1]);
+      mk::sm90::mbar_arrive(empty(st));
+    }
+    // mask the padded vocab; the logits, rounded, into the transpose tile
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const int col = 64 * hf + sk::acc_col(i, tid);
+        if (vb * BLK + col >= vocab_size) acc[hf][i] = NEG;
+        lg[sk::acc_row(i, tid) * LGS + col] = __float2bfloat16_rn(acc[hf][i]);
+      }
+    // row max: the thread's four values of a row, the 8 lanes of its quad
+    // column, then the 4 warps
+#pragma unroll
+    for (int i = 0; i < N / 2; i += 4)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float m = fmaxf(fmaxf(acc[0][i + e], acc[0][i + 2 + e]),
+                        fmaxf(acc[1][i + e], acc[1][i + 2 + e]));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+        if (lane < 4) red[warp * N + sk::acc_row(i + e, tid)] = m;
+      }
+    mk::sm90::named_sync(1, sk::NC);
+    if (tid < N)
+      fin[tid] = fmaxf(fmaxf(red[tid], red[N + tid]), fmaxf(red[2 * N + tid], red[3 * N + tid]));
+    mk::sm90::named_sync(1, sk::NC);
+    // sum of exp(x - max), reduced in the same order
+#pragma unroll
+    for (int i = 0; i < N / 2; i += 4)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float m = fin[sk::acc_row(i + e, tid)];
+        float s = ((expf(acc[0][i + e] - m) + expf(acc[0][i + 2 + e] - m)) +
+                   expf(acc[1][i + e] - m)) + expf(acc[1][i + 2 + e] - m);
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (lane < 4) red[warp * N + sk::acc_row(i + e, tid)] = s;
+      }
+    mk::sm90::named_sync(1, sk::NC);
+    if (tid < N && r0 + tid < rows) {
+      const long long o = (long long)(r0 + tid) * nblk + vb;
+      bmax[o] = fin[tid];
+      bsum[o] = (red[tid] + red[N + tid]) + (red[2 * N + tid] + red[3 * N + tid]);
+    }
+    // the logits tile as 256-byte rows
+    for (int u = tid; u < N * (BLK / 8); u += sk::NC) {
+      const int r = u / (BLK / 8), q = u % (BLK / 8);
+      if (r0 + r < rows)
+        *reinterpret_cast<uint4*>(logits + (long long)(r0 + r) * Vp + vb * BLK + 8 * q) =
+            *reinterpret_cast<const uint4*>(lg + r * LGS + 8 * q);
+    }
+    mk::sm90::named_sync(1, sk::NC);  // lg, red and fin are rewritten by the next block
+  }
+}
+
+template <int N>
+int launch_sm90(const void* h, const void* w, void* logits, void* bmax, void* bsum, int rows,
+                int D, int Vp, int vocab_size, int ctas, cudaStream_t stream) {
+  CUtensorMap wmap, hmap;
+  if (const int err = sk::weight_map(&wmap, w, 1, Vp, D, BLK)) return err;
+  if (const int err = sk::weight_map(&hmap, h, 1, rows, D, N)) return err;
+  const size_t smem = proj_smem<N>((D + sk::BKC - 1) / sk::BKC);
+  static mk::SmemOptIn opt_in;
+  if (const int err = opt_in.ensure((const void*)proj_sm90_kernel<N>, smem)) return err;
+  const dim3 grid(ctas, (rows + N - 1) / N);
+  proj_sm90_kernel<N><<<grid, sk::NT, smem, stream>>>(
+      wmap, hmap, static_cast<bf16*>(logits), static_cast<float*>(bmax),
+      static_cast<float*>(bsum), rows, D, Vp, vocab_size);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// bf16 != 0 selects __nv_bfloat16 h, w and logits, else float. Vp % 128 == 0.
-// Returns cudaGetLastError().
-extern "C" int mk_project_with_stats(int bf16, const void* h, const void* w, void* logits,
-                                     void* bmax, void* bsum, int N, int D, int Vp,
-                                     int vocab_size, void* stream) {
+// fp32 h, w and logits (the FMA kernel). Vp % 128 == 0. Returns
+// cudaGetLastError().
+extern "C" int mk_project_with_stats(const void* h, const void* w, void* logits, void* bmax,
+                                     void* bsum, int N, int D, int Vp, int vocab_size,
+                                     void* stream) {
+  return launch<float, float>(h, w, nullptr, logits, bmax, bsum, N, D, Vp, vocab_size,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// bf16 h, w and logits (the tensor-core core), every tensor on a 16-byte
+// boundary, D % 8 == 0, Vp % 128 == 0; n_tile the row tile (16, 32, 48 or
+// 80), ctas the persistent grid. Returns a CUDA error code.
+extern "C" int mk_project_with_stats_sm90(const void* h, const void* w, void* logits, void* bmax,
+                                          void* bsum, int N, int D, int Vp, int vocab_size,
+                                          int n_tile, int ctas, void* stream) {
+  if (D % 8 || Vp % BLK || ctas < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(h, w, nullptr, logits, bmax, bsum, N, D, Vp,
-                                                vocab_size, st);
-  return launch<float, float>(h, w, nullptr, logits, bmax, bsum, N, D, Vp, vocab_size, st);
+  return sk::with_row_tile(n_tile, [&](auto nt) -> int {
+    return launch_sm90<decltype(nt)::value>(h, w, logits, bmax, bsum, N, D, Vp, vocab_size, ctas,
+                                            st);
+  });
 }
 
 // K2-q8: w int8 [Vp, D], scale fp32 [Vp]; h and logits as for K2.

@@ -51,14 +51,15 @@ def _sources():
 
 
 def _run_all(cmds) -> list:
-    """Run the commands at once; raise with the first failure's stderr after all
+    """Run the commands at once; raise with every failure's stderr after all
     end, else return each command's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
     errs = [p.communicate()[1] for p in procs]
-    for cmd, p, err in zip(cmds, procs, errs):
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{err}")
+    failed = [f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{err}"
+              for cmd, p, err in zip(cmds, procs, errs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return errs
 
 
@@ -117,6 +118,50 @@ def check(err: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the row tiles (wgmma N) of the weight-streaming tensor-core core
+# (csrc/skinny_gemm_sm90.cuh): rows are padded to the smallest that covers
+# them; more rows than the last loop over row tiles
+ROW_TILES = (16, 32, 48, 80)
+SMEM_MAX = 232448  # a block's shared memory on sm_90
+
+
+def route(name: str, device: torch.device, dtype: torch.dtype, tensors: dict) -> str:
+    """Which version a kernel wrapper runs: ``"plain"`` (the PyTorch version) for
+    CPU tensors; on CUDA, ``"fma"`` (the fp32 kernels on the CUDA cores) for
+    fp32 and ``"sm90"`` (the tensor-core kernels, fed by TMA) for bf16. The
+    bf16 ``tensors`` must start on 16-byte boundaries with rows (last
+    dimension) of a multiple of 16 bytes, as TMA and the 16-byte loads need;
+    anything else raises: no route falls back to another."""
+    if device.type == "cpu":
+        return "plain"
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{name}: dtype {dtype} not in (torch.float32, torch.bfloat16)")
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
+            raise ValueError(f"{name}: bf16 {arg} must start on a 16-byte boundary and have rows "
+                             f"of a multiple of 16 bytes (the tensor-core route's TMA copies)")
+    return "sm90"
+
+
+def row_tile(rows: int) -> int:
+    """The smallest row tile of ``ROW_TILES`` that covers ``rows`` (else the largest)."""
+    return next((n for n in ROW_TILES if rows <= n), ROW_TILES[-1])
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (the split and grid plans of the tensor-core products)."""
+    return _sm_count(torch.device(device).index or 0)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require_cuda(name: str, tensors: dict, dtypes) -> None:

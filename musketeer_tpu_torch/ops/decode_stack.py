@@ -28,8 +28,15 @@ The TPU kernel streams the cross K/V in a transposed, S-padded layout
 read in the cache's own ``[L, B, H, S, hd]`` layout, in the compute dtype.
 
 ``decode_stack_step`` runs the plain PyTorch version for CPU tensors and the
-CUDA kernel (``csrc/decode_stack.cu``, one C call per step) for CUDA
-tensors; it never falls back from one to the other.
+CUDA kernels (``csrc/decode_stack.cu``, one C call per step) for CUDA
+tensors, picked by dtype (``_build.route``): bf16 on the tensor cores (the
+six products on the weight-streaming core of ``csrc/skinny_gemm_sm90.cuh``,
+split over the card's SMs as ``split_plan`` says; the cross-attention on
+``csrc/decode_attn_sm90.cuh``, each launched with programmatic dependent
+launch), its launches also counted in
+``decode_stack_step.launches_sm90``; fp32 on the FMA kernels, which the exact
+fp32 checks hold to the plain version. Unaligned bf16 inputs raise; it never
+falls back from one version to another.
 """
 
 from __future__ import annotations
@@ -47,7 +54,10 @@ MAX_BEAMS = 16  # query rows per sample the cross-attention holds in registers
 MAX_TMAX = 2048  # self-cache length the kernel's scores fit in shared memory
 _DTYPES = (torch.float32, torch.bfloat16)
 _PACK = ("w_self3", "b_self3", "w_so", "w_cq", "w_co", "w_fc1", "b_fc1", "w_fc2", "b_misc", "ln")
-_SIG = (_build.INT,) + (_build.PTR,) * 21 + (_build.INT,) * 8 + (_build.FLOAT, _build.PTR)
+_SIG = (_build.PTR,) * 21 + (_build.INT,) * 8 + (_build.FLOAT, _build.PTR)
+_SIG_SM90 = (_build.PTR,) * 24 + (_build.INT,) * 8 + (_build.FLOAT,) + (_build.INT,) * 6 + (_build.PTR,)
+MAX_CPS = 16  # 64-deep chunks of one split (csrc/skinny_gemm_sm90.cuh)
+MAX_SPLITS = 4  # splits of one product that fit MAX_CPS: the last CTA of a tile adds them in turn
 
 Pack = Dict[str, torch.Tensor]
 
@@ -177,6 +187,72 @@ def _check_cuda(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v,
         raise ValueError(f"{name}: cache_index {cache_index} outside [0, {Tmax})")
 
 
+def split_plan(dout: int, K: int, rows: int, n_sm: int) -> int:
+    """Chunks of 64 per split of a ``[rows, K] x [dout, K]^T`` product on the
+    weight-streaming core: as many splits as keep the (row tile, m64 tile,
+    split) CTAs within ``n_sm`` SMs (a second CTA on an SM doubles that SM's
+    latency-bound epilogue), at most ``MAX_SPLITS``, each split at least one
+    chunk and the last split what is left. A split holds at most ``MAX_CPS``
+    chunks, so a K deeper than ``MAX_SPLITS * MAX_CPS`` chunks takes
+    ``ceil(chunks / MAX_CPS)`` splits, more than ``MAX_SPLITS``."""
+    tiles = -(-rows // _build.row_tile(rows)) * -(-dout // 64)
+    nch = -(-K // 64)
+    splits = min(max(1, n_sm // tiles), MAX_SPLITS, nch)
+    return min(MAX_CPS, -(-nch // splits))
+
+
+def _products(d: int, f: int) -> Dict[str, Tuple[int, int]]:
+    """(dout, K) of the q|k|v, d x d, fc1 and fc2 products, in the C call's order."""
+    return {"qkv": (3 * d, d), "dd": (d, d), "fc1": (f, d), "fc2": (d, f)}
+
+
+def _cross_smem(Kb: int, S: int) -> int:
+    """Shared memory of the bf16 cross-attention (``decode_attn::smem_bytes``)."""
+    sp = -(-S // 64) * 64
+    return 1024 + 8 * 8192 + 128 + 4 * (Kb + 1) * sp + 2 * Kb * (sp + 8)
+
+
+def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, cache_index: int,
+              beam_size: int, scaling: float, out, pdl: bool = True) -> None:
+    """The bf16 route's one C call. Its products and cross-attention start with
+    programmatic dependent launch (their weight and K/V copies overlap the
+    previous launch's tail); ``pdl=False`` serialises them, so that a profile
+    can split the step's device time by kernel."""
+    rows, d = x0.shape
+    L, _, H, Tmax, _ = self_k.shape
+    B, S = cross_k.shape[1], cross_k.shape[3]
+    f = pack["w_fc1"].shape[1]
+    if d % 64 or _cross_smem(beam_size, S) > _build.SMEM_MAX:
+        raise NotImplementedError(f"decode_stack_step: d {d} (a multiple of 64), or S {S} x beams "
+                                  f"{beam_size} in the cross-attention's shared memory")
+    n_sm, n_tile = _build.sm_count(x0.device), _build.row_tile(rows)
+    rtiles = -(-rows // n_tile)
+    cps, part_elems, tiles = [], 1, 1
+    for dout, K in _products(d, f).values():
+        c = split_plan(dout, K, rows, n_sm)
+        cps.append(c)
+        nch = -(-K // 64)
+        mtiles, splits = -(-dout // 64), -(-nch // c)
+        tiles = max(tiles, rtiles * mtiles)
+        part_elems = max(part_elems, rtiles * mtiles * splits * 64 * n_tile)
+    dev = x0.device
+    scratch = torch.empty(rows * (3 * d + f), dtype=x0.dtype, device=dev)
+    part = torch.empty(part_elems, dtype=torch.float32, device=dev)
+    counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    stats = torch.empty((d // 64, rows, 2), dtype=torch.float32, device=dev)
+    x_out, k_new, v_new = out
+    fn = _build.kernel_function("mk_decode_stack_step_sm90", _SIG_SM90)
+    with torch.cuda.device(dev):
+        err = fn(
+            *(pack[n].data_ptr() for n in _PACK), x0.data_ptr(), sbias.data_ptr(),
+            cbias.data_ptr(), self_k.data_ptr(), self_v.data_ptr(), cross_k.data_ptr(),
+            cross_v.data_ptr(), x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            scratch.data_ptr(), part.data_ptr(), counters.data_ptr(), stats.data_ptr(),
+            L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, x0.dtype),
+            n_tile, *cps, int(pdl), _build.stream_of(x0))
+    _build.check(err, "decode_stack_step")
+
+
 def decode_stack_step(
     pack: Pack,
     x0: torch.Tensor,       # [rows, d] compute-dtype decoder input of this step
@@ -190,9 +266,13 @@ def decode_stack_step(
     beam_size: int,
     scaling: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """→ (x_out [rows, d], k_new, v_new [L, rows, d]). Plain version on CPU, kernel on CUDA."""
+    """→ (x_out [rows, d], k_new, v_new [L, rows, d]). The plain version for CPU
+    tensors; on CUDA the tensor-core kernels for bf16, the FMA kernels for fp32."""
     args = (pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v)
-    if x0.device.type == "cpu":
+    bf16_tensors = {"x0": x0, "self_k": self_k, "self_v": self_v, "cross_k": cross_k,
+                    "cross_v": cross_v, **{n: pack[n] for n in _PACK if n != "ln"}}
+    kind = _build.route("decode_stack_step", x0.device, x0.dtype, bf16_tensors)
+    if kind == "plain":
         return decode_stack_plain(*args, cache_index, beam_size, scaling)
     _check_cuda(*args, cache_index, beam_size)
     rows, d = x0.shape
@@ -203,20 +283,25 @@ def decode_stack_step(
     x_out = torch.empty_like(x0)
     k_new = torch.empty((L, rows, d), dtype=dt, device=x0.device)
     v_new = torch.empty_like(k_new)
-    scratch = torch.empty(rows * (3 * d + f), dtype=dt, device=x0.device)
-    fn = _build.kernel_function("mk_decode_stack_step", _SIG)
-    with torch.cuda.device(x0.device):
-        err = fn(
-            int(dt == torch.bfloat16), *(pack[n].data_ptr() for n in _PACK),
-            x0.data_ptr(), sbias.data_ptr(), cbias.data_ptr(), self_k.data_ptr(),
-            self_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(), x_out.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
-            L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, dt),
-            _build.stream_of(x0),
-        )
-    _build.check(err, "decode_stack_step")
+    if kind == "sm90":
+        _run_sm90(*args, cache_index, beam_size, scaling, (x_out, k_new, v_new))
+        decode_stack_step.launches_sm90 += 1
+    else:
+        scratch = torch.empty(rows * (3 * d + f), dtype=dt, device=x0.device)
+        fn = _build.kernel_function("mk_decode_stack_step", _SIG)
+        with torch.cuda.device(x0.device):
+            err = fn(
+                *(pack[n].data_ptr() for n in _PACK),
+                x0.data_ptr(), sbias.data_ptr(), cbias.data_ptr(), self_k.data_ptr(),
+                self_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(), x_out.data_ptr(),
+                k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
+                L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, dt),
+                _build.stream_of(x0),
+            )
+        _build.check(err, "decode_stack_step")
     decode_stack_step.launches += 1
     return x_out, k_new, v_new
 
 
-decode_stack_step.launches = 0
+decode_stack_step.launches = 0  # K7, either route
+decode_stack_step.launches_sm90 = 0  # K7 on the tensor-core route (bf16)

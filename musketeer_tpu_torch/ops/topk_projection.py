@@ -11,8 +11,12 @@ gives, for every row of ``features``:
 
 bmax and the sums come from the fp32 logits, before the cast; only the stored
 logits are rounded. ``project_with_stats`` runs the plain PyTorch version for
-CPU tensors and the CUDA kernel (``csrc/topk_projection.cu``) for CUDA
-tensors; it never falls back from one to the other.
+CPU tensors and a CUDA kernel (``csrc/topk_projection.cu``) for CUDA tensors,
+picked by dtype (``_build.route``): bf16 on the weight-streaming tensor-core
+core (``csrc/skinny_gemm_sm90.cuh``: a persistent grid, h in shared memory,
+W by TMA, wgmma), its launches also counted in
+``project_with_stats.launches_sm90``; fp32 on the FMA kernel. Unaligned bf16
+inputs raise; it never falls back from one version to another.
 
 K2-q8 (``_proj_kernel_q8``) is the same function over the int8 serving
 projection (``models/ofa.py::quantize_output_proj``): ``w`` int8 ``[Vp, D]``
@@ -36,7 +40,8 @@ from . import _build
 NEG_INF = -1e9
 BLK = 128  # block-max granularity
 _DTYPES = (torch.float32, torch.bfloat16)
-_SIG = (_build.INT,) + (_build.PTR,) * 5 + (_build.INT,) * 4 + (_build.PTR,)
+_SIG = (_build.PTR,) * 5 + (_build.INT,) * 4 + (_build.PTR,)
+_SIG_SM90 = (_build.PTR,) * 5 + (_build.INT,) * 6 + (_build.PTR,)
 _SIG_Q8 = (_build.INT,) + (_build.PTR,) * 6 + (_build.INT,) * 4 + (_build.PTR,)
 
 
@@ -67,6 +72,24 @@ def project_plain(features: torch.Tensor, w: torch.Tensor,
     return logits, bmax, _logsumexp_from_blocks(bmax, bsum)
 
 
+def _proj_smem(n_tile: int, D: int) -> int:
+    """Shared memory of the bf16 kernel (``proj_smem``): the 4-stage ring of
+    16 KB W tiles, the h rows, the logits transpose, the reductions, the
+    mbarriers."""
+    nch = -(-D // 64)
+    return 1024 + 4 * 16384 + nch * n_tile * 128 + 2 * n_tile * (BLK + 8) + 20 * n_tile + 72
+
+
+def proj_plan(rows: int, D: int, n_sm: int, Vp: int) -> Tuple[int, int]:
+    """(row tile, CTAs) of the bf16 kernel: the row tile that covers ``rows``,
+    or the largest whose h rows fit in shared memory; one CTA per SM."""
+    fits = [n for n in _build.ROW_TILES if n <= _build.row_tile(rows)
+            and _proj_smem(n, D) <= _build.SMEM_MAX]
+    if not fits:
+        raise NotImplementedError(f"project_with_stats: D {D} leaves no room for h in shared memory")
+    return fits[-1], min(n_sm, Vp // BLK)
+
+
 def project_with_stats(
     features: torch.Tensor,  # [N, D] post-LN decoder features
     w: torch.Tensor,  # [Vp, D] tied embedding: features' dtype, or int8
@@ -83,40 +106,53 @@ def project_with_stats(
     if q8 != (w_scale is not None) or (q8 and tuple(w_scale.shape) != (Vp,)):
         raise ValueError(f"{name}: an int8 w needs w_scale [{Vp}], and only an int8 w takes one")
     vs = Vp if vocab_size is None else vocab_size
-    if features.device.type == "cpu":
-        return project_plain(features, w, w_scale, vs)
-    if features.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {features.device}")
+    dev = features.device
     if q8:
+        if dev.type == "cpu":
+            return project_plain(features, w, w_scale, vs)
+        if dev.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {dev}")
         _build.require_cuda(name, {"features": features}, _DTYPES)
         _build.require_cuda(name, {"w": w}, (torch.int8,))
         _build.require_cuda(name, {"w_scale": w_scale}, (torch.float32,))
-        if not (w.device == w_scale.device == features.device):
-            raise ValueError(f"{name}: w and w_scale must be on {features.device}")
+        if not (w.device == w_scale.device == dev):
+            raise ValueError(f"{name}: w and w_scale must be on {dev}")
+        kind = "q8"
     else:
+        kind = _build.route(name, dev, features.dtype, {"features": features, "w": w})
+        if kind == "plain":
+            return project_plain(features, w, w_scale, vs)
         _build.require_cuda(name, {"features": features, "w": w}, _DTYPES)
-    logits = torch.empty((N, Vp), dtype=features.dtype, device=features.device)
-    bmax = torch.empty((N, Vp // BLK), dtype=torch.float32, device=features.device)
+    logits = torch.empty((N, Vp), dtype=features.dtype, device=dev)
+    bmax = torch.empty((N, Vp // BLK), dtype=torch.float32, device=dev)
     bsum = torch.empty_like(bmax)
-    bf16 = int(features.dtype == torch.bfloat16)
-    with torch.cuda.device(features.device):
-        if q8:
+    stream = _build.stream_of(features)
+    with torch.cuda.device(dev):
+        if kind == "q8":
             err = _build.kernel_function("mk_project_with_stats_q8", _SIG_Q8)(
-                bf16, features.data_ptr(), w.data_ptr(), w_scale.data_ptr(), logits.data_ptr(),
-                bmax.data_ptr(), bsum.data_ptr(), N, D, Vp, vs, _build.stream_of(features))
+                int(features.dtype == torch.bfloat16), features.data_ptr(), w.data_ptr(),
+                w_scale.data_ptr(), logits.data_ptr(), bmax.data_ptr(), bsum.data_ptr(), N, D,
+                Vp, vs, stream)
+        elif kind == "sm90":
+            n_tile, ctas = proj_plan(N, D, _build.sm_count(dev), Vp)
+            err = _build.kernel_function("mk_project_with_stats_sm90", _SIG_SM90)(
+                features.data_ptr(), w.data_ptr(), logits.data_ptr(), bmax.data_ptr(),
+                bsum.data_ptr(), N, D, Vp, vs, n_tile, ctas, stream)
         else:
             err = _build.kernel_function("mk_project_with_stats", _SIG)(
-                bf16, features.data_ptr(), w.data_ptr(), logits.data_ptr(), bmax.data_ptr(),
-                bsum.data_ptr(), N, D, Vp, vs, _build.stream_of(features))
+                features.data_ptr(), w.data_ptr(), logits.data_ptr(), bmax.data_ptr(),
+                bsum.data_ptr(), N, D, Vp, vs, stream)
     _build.check(err, name)
-    if q8:
+    if kind == "q8":
         project_with_stats.launches_q8 += 1
     else:
         project_with_stats.launches += 1
+        project_with_stats.launches_sm90 += kind == "sm90"
     return logits, bmax, _logsumexp_from_blocks(bmax, bsum)
 
 
-project_with_stats.launches = 0  # K2
+project_with_stats.launches = 0  # K2, either route
+project_with_stats.launches_sm90 = 0  # K2 on the tensor-core route (bf16)
 project_with_stats.launches_q8 = 0  # K2-q8
 
 
