@@ -5,12 +5,12 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train-only   # phases 1, 2 and 8 with its profiled step
-    python3 chip_smoke.py --decode-only  # phases 1, 2, 4, 12, 5 and 13, and 15
+    python3 chip_smoke.py --decode-only  # phases 1, 2, 4, 10, 11, 12, 5 and 13, and 15
 
 ``--train-only`` and ``--decode-only`` also run against an older tree's
 package when this file is copied into that tree's root, so that one call can
-time the training step, or K2, K7 and the caption slices, of both trees on
-one card; they print no result line.
+time the training step, or K2, K2-q8, K6, K7 and the caption slices, of both
+trees on one card; they print no result line.
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -19,8 +19,10 @@ Phases; any failure raises and the script exits non-zero:
 2. build: compiles the kernels from ``musketeer_tpu_torch/csrc`` with nvcc,
    timed, and prints ptxas's registers and spills of the tensor-core
    kernels (``flash_fwd_sm90.cuh``: K1, K3, K5; ``flash_bwd_sm90.cuh``: K4's
-   two launches; ``skinny_gemm_sm90.cuh``: K7's products and K2's
-   ``proj_sm90_kernel``; ``decode_attn_sm90.cuh``: K7's cross-attention);
+   two launches; ``skinny_gemm_sm90.cuh``: K7's products, K2's
+   ``proj_sm90_kernel`` and K2-q8's ``proj_q8_sm90_kernel``;
+   ``decode_attn_sm90.cuh``: K7's cross-attention; ``decode_cross_attn.cu``:
+   K6's ``cross_attn_i8_sm90_kernel``);
 3. K1 (attention) against its plain PyTorch version at the caption encoder
    shape, and at small causal, cross (``rel=None``), ``skip_max`` and fully
    masked cases; in bf16 also against the function in fp32 on the same bf16
@@ -69,10 +71,17 @@ Phases; any failure raises and the script exits non-zero:
    key biases' exact gradient is zero: softmax ignores a shift shared by a
    row's scores, so both sides hold rounding noise there);
 10. K2-q8 (K2 over the int8 projection with row scales) against its plain
-    version at the beam decode shape, bf16 and fp32 features;
+    version at the beam decode shape (the real vocabulary's logits; the
+    padded columns exactly -1e9): bf16 features on the tensor-core route
+    (its counter must move), also against the function in fp32 as in phase
+    3; fp32 features on the FMA kernel alone; the call, plain and bound
+    times, the kernel's own device time and the call's device and host time;
 11. K6 (a decode step of cross-attention over the int8 cache) against its
-    plain version at B16 H12 Kb5 S908 in bf16 (10 % padded keys, one fully
-    padded sample, which must give exact zeros) and a small fp32 case;
+    plain version at B16 H12 Kb5 S908 in bf16 (10 % padded keys, the bias a
+    strided view as the model passes it, one fully padded sample, which must
+    give exact zeros) and small cases (S37, Kb 1 with S130, Kb 16): bf16 on
+    the tensor-core route (its counter must move), also against the function
+    in fp32; fp32 (S37) on the FMA kernel alone; timed as in phase 10;
 12. K7 (all decoder layers of a step) against its plain version at rows 80
     (16 × 5), L6, d768, f3072, Tmax 17, S908, cache_index 0, 5 and 16, in
     bf16 (the tensor-core route; also against the function in fp32 as in
@@ -84,9 +93,9 @@ Phases; any failure raises and the script exits non-zero:
 13. the serving slices, the caption slice of phase 5 with the JAX package's
     serving options: A (int8: ``quantize_output_proj``, ``int8_cross_kv``,
     ``decode_int8_kv_kernel``) must launch K1 6 times per encode, K2-q8 once
-    and K6 6 times per beam step, K2 and K7 never; B (``decode_stack_kernel``)
-    K7 and K2 once per beam step, both on their tensor-core routes, K6 and
-    K2-q8 never; tokens well formed;
+    and K6 6 times per beam step, both on their tensor-core routes, K2 and K7
+    never; B (``decode_stack_kernel``) K7 and K2 once per beam step, both on
+    their tensor-core routes, K6 and K2-q8 never; tokens well formed;
     p50 batch latency and samples/s over 3 timed runs;
 14. serving exactness: each serving slice in float32 at batch 2, once
     through the kernels and once through their plain versions, must give
@@ -126,8 +135,9 @@ Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
 on their main path, error against the plain version, kernel, plain and
 library times, the bound of the same work on an H100 SXM at 3.35 TB/s and
 989 TFLOP/s bf16; K8's times are the 27-block chain's, with the cuDNN chain
-as ``cudnn_block_ms``, K2's kernel device time as ``device_ms``), then as
-its last line
+as ``cudnn_block_ms``; for K2, K2-q8 and K6 the kernel's own device time as
+``device_ms`` and the wrapper call's host time as ``host_ms``), then as its
+last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -278,7 +288,8 @@ def phase_build() -> float:
 
 # substrings of the mangled names of the tensor-core kernels: the attention
 # cores (mk::sm90), the weight-streaming products (mk::skinny, K7; K2's
-# proj_sm90_kernel) and K7's cross-attention (mk::decode_attn)
+# proj_sm90_kernel, K2-q8's proj_q8_sm90_kernel), K7's cross-attention
+# (mk::decode_attn) and K6's cross_attn_i8_sm90_kernel
 TENSOR_CORE_KERNELS = ("sm90", "skinny", "decode_attn")
 
 
@@ -368,10 +379,14 @@ def _library_ms(name: str, fn, iters: int = 10):
     return ms
 
 
-def _counter_owners(sm90: bool = True) -> dict:
-    """Each kernel's wrapper and the attribute that counts its launches; without
-    the bf16 tensor-core routes' counters if ``sm90`` is False (an older tree,
-    run by ``--decode-only``)."""
+# the bf16 tensor-core routes counted apart from their kernel's other launches
+SM90_ROUTES = frozenset({"K2-sm90", "K2-q8-sm90", "K6-sm90", "K7-sm90"})
+
+
+def _counter_owners(routes: frozenset = SM90_ROUTES) -> dict:
+    """Each kernel's wrapper and the attribute that counts its launches; of the
+    bf16 tensor-core routes' counters only those in ``routes`` (an older tree,
+    run by ``--decode-only`` or ``--train-only``, lacks some)."""
     from musketeer_tpu_torch.ops import bottleneck as k8
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
     from musketeer_tpu_torch.ops import decode_stack as k7
@@ -384,34 +399,33 @@ def _counter_owners(sm90: bool = True) -> dict:
               "K2": (k2.project_with_stats, "launches"),
               "K2-sm90": (k2.project_with_stats, "launches_sm90"),
               "K2-q8": (k2.project_with_stats, "launches_q8"),
+              "K2-q8-sm90": (k2.project_with_stats, "launches_q8_sm90"),
               "K3": (kb.flash_attention_fwd, "launches"),
               "K4": (kb.flash_attention_bwd, "launches"),
               "K5": (k5.flash_attention_bias, "launches"),
               "K5-cross": (k5.flash_cross_attention, "launches"),
               "K6": (k6.decode_cross_attention_int8, "launches"),
+              "K6-sm90": (k6.decode_cross_attention_int8, "launches_sm90"),
               "K7": (k7.decode_stack_step, "launches"),
               "K7-sm90": (k7.decode_stack_step, "launches_sm90"),
               "K8": (k8.fused_bottleneck, "launches")}
-    return owners if sm90 else {k: v for k, v in owners.items() if not k.endswith("-sm90")}
+    return {k: v for k, v in owners.items() if k in routes or k not in SM90_ROUTES}
 
 
-def _sm90_decode_routes() -> bool:
-    """Whether the tree routes bf16 K2 and K7 to tensor-core kernels counted
-    apart: ``--train-only`` and ``--decode-only`` ask, since they also run
-    against older trees; the full run requires those routes."""
-    from musketeer_tpu_torch.ops import decode_stack as k7
-    from musketeer_tpu_torch.ops import topk_projection as k2
-
-    return hasattr(k2.project_with_stats, "launches_sm90") and hasattr(
-        k7.decode_stack_step, "launches_sm90")
+def _sm90_routes() -> frozenset:
+    """The bf16 tensor-core routes this tree counts apart: ``--train-only`` and
+    ``--decode-only`` ask, since they also run against older trees; the full
+    run requires them all."""
+    owners = _counter_owners()
+    return frozenset(k for k in SM90_ROUTES if hasattr(*owners[k]))
 
 
-def _counters(sm90: bool = True) -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in _counter_owners(sm90).items()}
+def _counters(routes: frozenset = SM90_ROUTES) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counter_owners(routes).items()}
 
 
-def _reset_counters(sm90: bool = True) -> None:
-    for fn, attr in _counter_owners(sm90).values():
+def _reset_counters(routes: frozenset = SM90_ROUTES) -> None:
+    for fn, attr in _counter_owners(routes).values():
         setattr(fn, attr, 0)
 
 
@@ -482,20 +496,37 @@ def phase_k1(g) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
 
 
-def phase_k2(g, sm90: bool = True) -> dict:
-    """K2 at the beam decode shape; ``sm90`` False only for an older tree,
-    whose bf16 K2 has no tensor-core route (``--decode-only``)."""
+def _timings(tag: str, call, plain, kernel: str, iters: int = 20) -> dict:
+    """A kernel wrapper's call time by CUDA events (``ms``), its kernel's own
+    device time (``device_ms``, torch.profiler), the call's device and host
+    time (``_device_host_ms``), and the plain version's time by events. At a
+    few hundredths of a ms the wrapper's host time can exceed the kernel's,
+    and CUDA events then time the host."""
+    ms = cuda_ms(call, iters)
+    device_ms = _device_ms_by_kernel(call, iters)[kernel]
+    dev_ms, host_ms = _device_host_ms(call, iters)
+    plain_ms = cuda_ms(plain, iters)
+    log(f"[{tag}] kernel {ms:.4f} ms per call by CUDA events ({kernel} {device_ms:.4f} ms of "
+        f"device time; the whole call {dev_ms:.4f} ms of device and {host_ms:.4f} ms of host "
+        f"time), plain {plain_ms:.3f} ms per call")
+    return dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms)
+
+
+def phase_k2(g, routes: frozenset = SM90_ROUTES) -> dict:
+    """K2 at the beam decode shape; ``routes`` without ``K2-sm90`` only for an
+    older tree, whose bf16 K2 has no tensor-core route (``--decode-only``)."""
     from musketeer_tpu_torch.ops import topk_projection as k2
 
     N, D, Vp, vs = (K2_SHAPE[k] for k in ("N", "D", "Vp", "vocab_size"))
     h = torch.randn(N, D, generator=g, device="cuda").to(torch.bfloat16)
     w = (torch.randn(Vp, D, generator=g, device="cuda") * D ** -0.5).to(torch.bfloat16)
     w[vs:] = 0
-    before = _counters(sm90)
+    sm90 = "K2-sm90" in routes
+    before = _counters(routes)
     out = k2.project_with_stats(h, w, vocab_size=vs)
     ref = k2.project_plain(h, w, vocab_size=vs)
     torch.cuda.synchronize()
-    if sm90 and _counters()["K2-sm90"] != before["K2-sm90"] + 1:
+    if sm90 and _counters(routes)["K2-sm90"] != before["K2-sm90"] + 1:
         raise AssertionError("K2: a bf16 call must run the tensor-core kernel")
     # the logits of the real vocabulary (the padded columns are -1e9 on both sides,
     # checked below, and would set the tolerance)
@@ -511,30 +542,22 @@ def phase_k2(g, sm90: bool = True) -> dict:
         raise AssertionError(f"K2 disagrees with its plain version: {errs}")
     if not bool((out[0][:, vs:] == k2.NEG_INF).all()):
         raise AssertionError("K2: padded vocab columns must be -1e9")
-    mid = _counters(sm90)
+    mid = _counters(routes)
     a = k2.project_with_stats(h.float(), w.float(), vocab_size=vs)
     b = k2.project_plain(h.float(), w.float(), vocab_size=vs)
     e = max(_max_err(x, y) for x, y in zip(a, b))
     log(f"[K2] fp32 (FMA kernel): max abs err {e:.3e}")
-    if not e <= FP32_TOL or _counters(sm90) != {**mid, "K2": mid["K2"] + 1}:
+    if not e <= FP32_TOL or _counters(routes) != {**mid, "K2": mid["K2"] + 1}:
         raise AssertionError(f"K2 fp32: err {e}, or it did not run the FMA kernel alone")
-    call = lambda: k2.project_with_stats(h, w, vocab_size=vs)
-    ms = cuda_ms(call, 20)
-    # the kernel's own device time: at ~0.05 ms the wrapper's host time can
-    # exceed it, and CUDA events then time the host
-    kernel = "proj_sm90_kernel" if sm90 else "proj_stats_kernel"
-    device_ms = _device_ms_by_kernel(call, 20)[kernel]
-    dev_ms, host_ms = _device_host_ms(call, 20)
-    plain_ms = cuda_ms(lambda: k2.project_plain(h, w, vocab_size=vs), 20)
+    times = _timings("K2", lambda: k2.project_with_stats(h, w, vocab_size=vs),
+                     lambda: k2.project_plain(h, w, vocab_size=vs),
+                     "proj_sm90_kernel" if sm90 else "proj_stats_kernel")
     # a yardstick only: the product alone, no statistics (no one call gives them)
     matmul_ms = cuda_ms(lambda: torch.matmul(h, w.t()), 20)
     work = _bound(_nbytes(h, w, *out), 2.0 * N * Vp * D)
-    log(f"[K2] kernel {ms:.4f} ms per call by CUDA events ({kernel} {device_ms:.4f} ms of "
-        f"device time; the whole call {dev_ms:.4f} ms of device and {host_ms:.4f} ms of host "
-        f"time), plain {plain_ms:.3f} ms per call, bound {work['bound_ms']:.4f} ms "
-        f"({work['bound_by']}); torch.matmul of the product alone {matmul_ms:.4f} ms")
-    return dict(max_abs_err=errs["logits"], ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                library_ms=None, **work)
+    log(f"[K2] bound {work['bound_ms']:.4f} ms ({work['bound_by']}); torch.matmul of the "
+        f"product alone {matmul_ms:.4f} ms")
+    return dict(max_abs_err=errs["logits"], library_ms=None, **times, **work)
 
 
 def _random_model_tree(cfg, seed: int):
@@ -623,9 +646,9 @@ def _slice_setup(tree, name: str, dtype: str):
     return cfg, params, gen_cfg
 
 
-def _expected_launches(name: str, cfg, steps: int, sm90: bool = True) -> dict:
+def _expected_launches(name: str, cfg, steps: int, routes: frozenset = SM90_ROUTES) -> dict:
     """Each kernel's launches in one encode + beam search of the slice."""
-    want = dict.fromkeys(_counter_owners(sm90), 0)
+    want = dict.fromkeys(_counter_owners(routes), 0)
     want["K1"] = cfg.encoder_layers
     if name == "serving A":
         want.update({"K2-q8": steps, "K6": cfg.decoder_layers * steps})
@@ -633,14 +656,14 @@ def _expected_launches(name: str, cfg, steps: int, sm90: bool = True) -> dict:
         want.update({"K2": steps, "K7": steps})
     else:
         want["K2"] = steps
-    if sm90 and cfg.dtype == "bfloat16":  # bf16 K2 and K7 on the tensor cores
-        want.update({f"{k}-sm90": want[k] for k in ("K2", "K7")})
+    if cfg.dtype == "bfloat16":  # bf16 K2, K2-q8, K6 and K7 on the tensor cores
+        want.update({r: want[r[:-len("-sm90")]] for r in routes})
     return want
 
 
-def phase_slice(tree, smi: str, name: str, sm90: bool = True) -> dict:
+def phase_slice(tree, smi: str, name: str, routes: frozenset = SM90_ROUTES) -> dict:
     """One main path: encode + beam search of the slice in bf16, counted and
-    timed (``sm90`` as in ``phase_k2``)."""
+    timed (``routes`` as in ``phase_k2``)."""
     from musketeer_tpu_torch.models import ofa
 
     cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16")
@@ -648,12 +671,12 @@ def phase_slice(tree, smi: str, name: str, sm90: bool = True) -> dict:
     tag = f"[{name}]"
 
     _caption(params, cfg, gen_cfg, src, images, masks)  # warm-up
-    _reset_counters(sm90)
+    _reset_counters(routes)
     with mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps:
         enc, tokens, scores = _caption(params, cfg, gen_cfg, src, images, masks)
-    launches = _counters(sm90)
+    launches = _counters(routes)
     log(f"{tag} launches {launches}, beam steps {steps.call_count}")
-    want = _expected_launches(name, cfg, steps.call_count, sm90)
+    want = _expected_launches(name, cfg, steps.call_count, routes)
     if not (1 <= steps.call_count <= MAX_LEN + 1 and launches == want):
         raise AssertionError(f"{name}: launches {launches} over {steps.call_count} steps, "
                              f"expected {want}")
@@ -897,7 +920,7 @@ def _expected_forwards(batches: dict) -> int:
     return keys.count(None) + len(groups)
 
 
-def phase_train(tree, smi: str, sm90: bool = True) -> dict:
+def phase_train(tree, smi: str, routes: frozenset = SM90_ROUTES) -> dict:
     from musketeer_tpu_torch.config import ofa_base
     from musketeer_tpu_torch.models import ofa
     from musketeer_tpu_torch.params import from_jax, trainable
@@ -927,10 +950,10 @@ def phase_train(tree, smi: str, sm90: bool = True) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state, loss, secs = run(state)
     log(f"[train] warm-up step: loss {loss:.4f} in {secs * 1e3:.1f} ms")
-    _reset_counters(sm90)
+    _reset_counters(routes)
     with mock.patch.object(ofa, "forward", wraps=ofa.forward) as fwd:
         state, loss, secs = run(state)
-    launches = _counters(sm90)
+    launches = _counters(routes)
     log(f"[train] launches {launches} over {fwd.call_count} transformer forwards "
         f"(expected {forwards} from the packing groups, {per_forward} attentions each)")
     if fwd.call_count != forwards:
@@ -1048,76 +1071,113 @@ def phase_train_exactness(tree) -> None:
         raise AssertionError("fp32 step through K3/K4 differs from the plain versions'")
 
 
-def phase_k2q8(g) -> dict:
+def phase_k2q8(g, routes: frozenset = SM90_ROUTES) -> dict:
+    """K2-q8 at the beam decode shape: bf16 features on the tensor-core route
+    (``routes`` without ``K2-q8-sm90`` only for an older tree), also against
+    the function in fp32 as in phase 3; fp32 features on the FMA kernel alone."""
     from musketeer_tpu_torch.models import ofa
     from musketeer_tpu_torch.ops import topk_projection as k2
 
     N, D, Vp, vs = (K2_SHAPE[k] for k in ("N", "D", "Vp", "vocab_size"))
+    sm90 = "K2-q8-sm90" in routes
     w = torch.randn(Vp, D, generator=g, device="cuda") * D ** -0.5
     w[vs:] = 0
     q = ofa.quantize_output_proj({"embed_tokens": w})
     w8, scale = q["embed_tokens_q8"], q["embed_tokens_scale"]
+    real = lambda t: t[:, :vs]  # the -1e9 columns, checked apart, would set the tolerance
     stats = {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
         h = torch.randn(N, D, generator=g, device="cuda").to(dtype)
+        before = _counters(routes)
         out = k2.project_with_stats(h, w8, scale, vocab_size=vs)
         ref = k2.project_plain(h, w8, scale, vocab_size=vs)
         torch.cuda.synchronize()
-        err = _check_close("K2-q8 logits", out[0], ref[0], tol)
+        moved = {k: n - before[k] for k, n in _counters(routes).items() if n != before[k]}
+        want = {"K2-q8": 1, **({"K2-q8-sm90": 1} if sm90 and dtype == torch.bfloat16 else {})}
+        if moved != want:
+            raise AssertionError(f"K2-q8 {dtype}: launches {moved}, expected {want} (bf16 on "
+                                 f"the tensor-core kernel, fp32 on the FMA kernel alone)")
+        err = _check_close("K2-q8 logits", real(out[0]), real(ref[0]), tol)
         for name, a, b in zip(("bmax", "Z"), out[1:], ref[1:]):
             _check_close(f"K2-q8 {name}", a, b, FP32_TOL)
         if not bool((out[0][:, vs:] == k2.NEG_INF).all()):
             raise AssertionError("K2-q8: padded vocab columns must be -1e9")
+        fn_msg = "" if dtype != torch.bfloat16 else "; logits " + _check_function(
+            "K2-q8 logits", real(out[0]), real(ref[0]),
+            real(k2.project_plain(h.float(), w8, scale, vocab_size=vs)[0]))
         log(f"[K2-q8] N80 Vp59520 D768 int8 w, {str(dtype)[6:]} h: max abs err logits {err:.3e}, "
-            f"bmax {_max_err(out[1], ref[1]):.3e}, Z {_max_err(out[2], ref[2]):.3e}")
+            f"bmax {_max_err(out[1], ref[1]):.3e}, Z {_max_err(out[2], ref[2]):.3e}{fn_msg}")
         if dtype == torch.bfloat16:
-            ms = cuda_ms(lambda: k2.project_with_stats(h, w8, scale, vocab_size=vs), 20)
-            plain_ms = cuda_ms(lambda: k2.project_plain(h, w8, scale, vocab_size=vs), 20)
-            log(f"[K2-q8] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
-            stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                         **_bound(_nbytes(h, w8, scale, *out), 2.0 * N * Vp * D))
+            times = _timings("K2-q8", lambda: k2.project_with_stats(h, w8, scale, vocab_size=vs),
+                             lambda: k2.project_plain(h, w8, scale, vocab_size=vs),
+                             "proj_q8_sm90_kernel" if sm90 else "proj_stats_kernel")
+            work = _bound(_nbytes(h, w8, scale, *out), 2.0 * N * Vp * D)
+            log(f"[K2-q8] bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+            stats = dict(max_abs_err=err, library_ms=None, **times, **work)
     return stats
 
 
 def _k6_inputs(g, B, H, Kb, S, D, dtype, full_pad=None):
+    """K6's inputs; the bias a strided [B, H, S] view of a [B, H, 4, S] table,
+    as the model passes its cross-position bias row."""
     dev = "cuda"
     x = dict(q=(torch.randn(B, H, Kb, D, generator=g, device=dev) * 0.3).to(dtype),
              k_i8=torch.randint(-127, 128, (B, H, S, D), generator=g, device=dev, dtype=torch.int8),
              v_i8=torch.randint(-127, 128, (B, H, S, D), generator=g, device=dev, dtype=torch.int8),
              k_scale=torch.rand(B, H, S, generator=g, device=dev) * 0.02,
              v_scale=torch.rand(B, H, S, generator=g, device=dev) * 0.02,
-             bias=torch.randn(B, H, S, generator=g, device=dev),
+             bias=torch.randn(B, H, 4, S, generator=g, device=dev)[:, :, 2],
              enc_pad=torch.rand(B, S, generator=g, device=dev) < 0.1)
     if full_pad is not None:
         x["enc_pad"][full_pad] = True
     return x
 
 
-def phase_k6(g) -> dict:
+# K6's main call (serving A's shape) and small cases: (name, shape, dtype)
+K6_CASES = (("B16 H12 Kb5 S908", K6_SHAPE, torch.bfloat16),
+            ("B3 H2 Kb3 S37", dict(B=3, H=2, Kb=3, S=37, D=64), torch.bfloat16),
+            ("B2 H3 Kb1 S130", dict(B=2, H=3, Kb=1, S=130, D=64), torch.bfloat16),
+            ("B2 H2 Kb16 S908", dict(B=2, H=2, Kb=16, S=908, D=64), torch.bfloat16),
+            ("B3 H2 Kb3 S37", dict(B=3, H=2, Kb=3, S=37, D=64), torch.float32))
+
+
+def phase_k6(g, routes: frozenset = SM90_ROUTES) -> dict:
+    """K6 against its plain version: bf16 on the tensor-core route (``routes``
+    without ``K6-sm90`` only for an older tree), also against the function in
+    fp32; fp32 on the FMA kernel alone; sample 1 fully padded in every case."""
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
 
     names = ("q", "k_i8", "v_i8", "k_scale", "v_scale", "bias", "enc_pad")
+    sm90 = "K6-sm90" in routes
     stats = {}
-    cases = (("B16 H12 Kb5 S908", K6_SHAPE, torch.bfloat16, BF16_TOL),
-             ("B3 H2 Kb3 S37", dict(B=3, H=2, Kb=3, S=37, D=64), torch.float32, FP32_TOL))
-    for name, shape, dtype, tol in cases:
+    for name, shape, dtype in K6_CASES:
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
         x = _k6_inputs(g, **shape, dtype=dtype, full_pad=1)
         args = [x[n] for n in names]
+        before = _counters(routes)
         out = k6.decode_cross_attention_int8(*args)
         ref = k6.decode_cross_attention_int8_plain(*args)
         torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in _counters(routes).items() if n != before[k]}
+        want = {"K6": 1, **({"K6-sm90": 1} if sm90 and dtype == torch.bfloat16 else {})}
+        if moved != want:
+            raise AssertionError(f"K6 {name} {dtype}: launches {moved}, expected {want}")
         err = _check_close(f"K6 {name}", out, ref, tol)
         if not bool((out[1] == 0).all()):
             raise AssertionError("K6: a fully padded sample must give exact zeros")
-        log(f"[K6] {name} {str(dtype)[6:]}, 10 % padded keys, sample 1 fully padded: "
-            f"max abs err {err:.3e}")
-        if dtype == torch.bfloat16:
-            ms = cuda_ms(lambda: k6.decode_cross_attention_int8(*args), 20)
-            plain_ms = cuda_ms(lambda: k6.decode_cross_attention_int8_plain(*args), 20)
-            log(f"[K6] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call")
+        fn_msg = "" if dtype != torch.bfloat16 else "; " + _check_function(
+            f"K6 {name}", out, ref, k6.decode_cross_attention_int8_plain(
+                x["q"].float(), *args[1:]))
+        log(f"[K6] {name} {str(dtype)[6:]}, 10 % padded keys, sample 1 fully padded (exact "
+            f"zeros): max abs err {err:.3e}{fn_msg}")
+        if shape is K6_SHAPE:
+            times = _timings("K6", lambda: k6.decode_cross_attention_int8(*args),
+                             lambda: k6.decode_cross_attention_int8_plain(*args),
+                             "cross_attn_i8_sm90_kernel" if sm90 else "kernel")
             B, H, Kb, S, D = (shape[k] for k in ("B", "H", "Kb", "S", "D"))
-            stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                         **_bound(_nbytes(*args, out), 4.0 * B * H * Kb * S * D))
+            work = _bound(_nbytes(*args, out), 4.0 * B * H * Kb * S * D)
+            log(f"[K6] bound {work['bound_ms']:.5f} ms ({work['bound_by']})")
+            stats = dict(max_abs_err=err, library_ms=None, **times, **work)
     return stats
 
 
@@ -1171,22 +1231,23 @@ def _k7_by_kernel(fn) -> dict:
     return parts
 
 
-def phase_k7(g, sm90: bool = True) -> dict:
-    """K7 at the serving B decode shape (``sm90`` as in ``phase_k2``)."""
+def phase_k7(g, routes: frozenset = SM90_ROUTES) -> dict:
+    """K7 at the serving B decode shape (``routes`` as in ``phase_k2``)."""
     from musketeer_tpu_torch.ops import decode_stack as k7
 
     names = ("x0", "sbias", "cbias", "self_k", "self_v", "cross_k", "cross_v")
     scaling = (64 * 2.0) ** -0.5
+    sm90 = "K7-sm90" in routes
     stats = {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
         pack, x = _k7_inputs(g, **K7_SHAPE, dtype=dtype)
         args = [x[n] for n in names]
         for idx in K7_INDICES:
             call = lambda fn, p=pack, a=args: fn(p, *a, idx, beam_size=BEAM, scaling=scaling)
-            before = _counters(sm90)
+            before = _counters(routes)
             out, ref = call(k7.decode_stack_step), call(k7.decode_stack_plain)
             torch.cuda.synchronize()
-            routed = _counters()["K7-sm90"] - before["K7-sm90"] if sm90 else None
+            routed = _counters(routes)["K7-sm90"] - before["K7-sm90"] if sm90 else None
             if sm90 and routed != (dtype == torch.bfloat16):
                 raise AssertionError(f"K7 {dtype}: bf16 must run the tensor-core route, fp32 the "
                                      f"FMA route ({routed} tensor-core launches)")
@@ -1543,9 +1604,9 @@ def main(argv=None) -> int:
                       help="after phases 1-2, run only phase 8 with its profiled step, and print "
                            "no result line")
     only.add_argument("--decode-only", action="store_true",
-                      help="after phases 1-2, run only phases 4 and 12 (K2, K7), the three "
-                           "caption slices (5, 13) and their profile (15), and print no result "
-                           "line")
+                      help="after phases 1-2, run only phases 4, 10, 11 and 12 (K2, K2-q8, "
+                           "K6, K7), the three caption slices (5, 13) and their profile (15), "
+                           "and print no result line")
     opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1554,17 +1615,19 @@ def main(argv=None) -> int:
 
     tree = _random_model_tree(dataclasses.replace(ofa_base(), use_flash_attention=True), SEED)
     if opts.train_only or opts.decode_only:
-        sm90 = _sm90_decode_routes()  # False on a tree older than the bf16 K2/K7 routes
-        log(f"[routes] bf16 K2 and K7 on their tensor-core routes: {sm90}")
+        routes = _sm90_routes()  # an older tree counts fewer tensor-core routes apart
+        log(f"[routes] bf16 routes on the tensor cores, counted apart: {sorted(routes)}")
     if opts.train_only:
-        phase_train(tree, smi, sm90)
+        phase_train(tree, smi, routes)
         return 0
     if opts.decode_only:
         g = torch.Generator(device="cuda").manual_seed(SEED)
-        phase_k2(g, sm90)
-        phase_k7(g, sm90)
+        phase_k2(g, routes)
+        phase_k2q8(g, routes)
+        phase_k6(g, routes)
+        phase_k7(g, routes)
         for name in SLICES:
-            phase_slice(tree, smi, name, sm90)
+            phase_slice(tree, smi, name, routes)
         phase_profile(tree)
         log(f"[done] decode phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0

@@ -26,11 +26,13 @@ Layout mirrors the JAX package:
                                  route by device and dtype
   csrc/                          the kernels' CUDA C++ sources (sm_90a); in bf16 on
                                  tensor cores: attention (K1, K3, K5:
-                                 flash_fwd_sm90.cuh; K4: flash_bwd_sm90.cuh) and the
-                                 decode step's products (K7, K2: skinny_gemm_sm90.cuh;
-                                 K7's cross-attention: decode_attn_sm90.cuh), on
-                                 sm90.cuh's primitives; the rest, and fp32, on the
-                                 CUDA cores
+                                 flash_fwd_sm90.cuh; K4: flash_bwd_sm90.cuh), the
+                                 decode step's products (K7, K2, K2-q8 with int8
+                                 widened on chip: skinny_gemm_sm90.cuh) and
+                                 cross-attentions (K7: decode_attn_sm90.cuh; K6 over
+                                 the int8 cache: decode_cross_attn.cu), on
+                                 sm90.cuh's primitives; K8, and fp32, on the CUDA
+                                 cores
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel for CUDA tensors. Imports torch and never jax.

@@ -1,6 +1,7 @@
-// Beam-shared cross-attention of one decode step, for one (head, sample):
-// the device function that K6 (int8 K/V with per-position scales) and K7's
-// cross-attention (K/V in the compute dtype) share.
+// Beam-shared cross-attention of one decode step, for one (head, sample), on
+// fp32 FMAs: the device function of K6's and K7's fp32 routes (int8 K/V with
+// per-position scales, and fp32 K/V). Their bf16 routes run on the tensor
+// cores (decode_cross_attn.cu, decode_attn_sm90.cuh).
 //
 // For the Kb beams j of sample b and head h, over the sample's S keys:
 //   w[j, s] = q[j] . k[s]            (int8: times k_scale[s]) + bias[s]
@@ -59,19 +60,6 @@ __device__ __forceinline__ void load_row(const float* p, float* r) {
     r[4 * i + 1] = v.y;
     r[4 * i + 2] = v.z;
     r[4 * i + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* r) {
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const uint4 v = reinterpret_cast<const uint4*>(p)[i];
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      r[8 * i + 2 * j] = __uint_as_float(w[j] << 16);
-      r[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
   }
 }
 

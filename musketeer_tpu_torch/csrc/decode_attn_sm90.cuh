@@ -1,7 +1,7 @@
-// K7's beam-shared cross-attention in bf16 on Hopper: the sample's [S, 64]
-// K and V rows streamed by TMA, the products on the tensor cores
-// (mma.sync m16n8k16). K6's int8 cross-attention (cross_attn.cuh) is not
-// touched.
+// K7's beam-shared cross-attention in bf16 on Hopper: the sample's [S, 64] K
+// and V rows streamed by TMA, the products on the tensor cores (mma.sync
+// m16n8k16). K6's cross-attention over the int8 cache (decode_cross_attn.cu)
+// takes this layout and the primitives it shares from sm90.cuh.
 //
 // For the Kb beams j of sample b and head h, over the sample's S keys, with
 // the TPU kernel's numerics (musketeer_tpu/ops/decode_stack.py::_kernel's
@@ -65,25 +65,9 @@ inline size_t smem_bytes(int Kb, int S) {
          2 * (size_t)Kb * (sp + 8);
 }
 
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-// byte offset of (row, 16-byte unit u) in a 128-byte swizzled tile
-__device__ __forceinline__ uint32_t swz(int row, int u) {
-  return row * 128 + ((u ^ (row & 7)) * 16);
-}
+using sm90::lds32;
+using sm90::mma16816;
+using sm90::swz;
 
 // kmap, vmap: the layer-stacked cache [L * B * H, S, 64] with 64 x 64 boxes
 __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CUtensorMap kmap,

@@ -11,34 +11,302 @@
 //
 // Translation. The TPU kernel runs one grid cell per sample with all H
 // heads of its [H, S, D] int8 K/V in VMEM and one batched dot. Here one
-// block of 256 threads owns one (head, sample): it reads that head's int8 K
-// and V once for all Kb beams and widens them in registers; scores, the
-// clamped softmax and the value sums are fp32 (csrc/cross_attn.cuh, shared
-// with K7's cross-attention).
+// block owns one (head, sample) and reads that head's int8 K and V once for
+// all Kb beams.
 //
 // Bound. At the caption decode shape (B16 H12 Kb5 S908 D64) a call must
 // read 2 x 11.2 MB of int8 K/V plus 2 x 0.7 MB of scales and the bias row:
-// ~24 MB, 7 us at 3.35 TB/s; its 2 x 0.45 G multiply-adds are ~1 us on the
-// fp32 CUDA cores. It is bound by the bytes; 192 blocks fill the 132 SMs
-// about 1.5 times, each streaming its 116 KB of K/V with 16-byte loads.
+// ~24 MB, 7 us at 3.35 TB/s; its 2 x 0.45 G multiply-adds are under 1 us on
+// the tensor cores. It is bound by the bytes.
+//
+// bf16 q (mk_decode_cross_attn_int8_sm90) runs on the tensor cores, in
+// K7's cross-attention layout (decode_attn_sm90.cuh) with the int8 cache:
+//   - one CTA per (h, b): a producer warp streams TMA tiles of 64 keys x 64
+//     int8 (4 KB, unswizzled: the 16-byte loads below are conflict-free as
+//     they lie) through an 8-stage ring, K then V; 8 consumer warps;
+//   - scores: lane (g, t) of warp w loads key 8 w + g's bytes 16 t .. + 15
+//     once and widens them exactly (sm90::widen_i8x4) into its mma.sync B
+//     fragments, word j for k-step j. That permutes the 64 dims inside the
+//     product (k-slot 16 j + s is dim 16 t + 4 j + e, t = (s % 8) / 2,
+//     e = s % 2 + 2 (s / 8)); q's A fragments are loaded in the same
+//     permutation, so every product is unchanged. w = acc * k_scale + bias
+//     with both rows staged once and the pads folded in (k_scale 0, bias
+//     -1e9: w is -1e9 exactly);
+//   - softmax: one warp per beam row, clamped and floored, e kept from the
+//     sum's pass, p = e / l * v_scale rounded to bf16;
+//   - P.v: each thread widens 16 bytes of the value tile into a bf16 tile
+//     (two, alternating: one barrier a tile), read by ldmatrix.trans as K7's.
+// Shared memory ~89 KB at Kb 5, S 908: two CTAs an SM, so the 192 (h, b)
+// CTAs of the serving shape run in one wave on 132 SMs. Launched with
+// programmatic stream serialization: the K/V copies start before the kernel
+// waits on the previous kernel; q, the bias, the scales and the pads are
+// read after the wait.
+//
+// fp32 q (mk_decode_cross_attn_int8) stays on the FMA kernel of
+// cross_attn.cuh: 256 threads, one key row a thread, widened in registers,
+// fp32 scores, softmax and value sums.
 #include <stdint.h>
 
 #include "common.cuh"
 #include "cross_attn.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* bias, const void* pad, void* out, int B, int H, int Kb, int S,
-           long long bias_bs, long long bias_hs, cudaStream_t stream) {
+namespace sm90 = mk::sm90;
+using bf16 = __nv_bfloat16;
+using sm90::mma16816;
+using sm90::swz;
+
+constexpr int D = 64;                   // head dim
+constexpr int BKT = 64;                 // keys per tile
+constexpr int STAGES = 8;               // ring depth: value tiles arrive during the softmax
+constexpr int NC = 256;                 // consumer threads: 8 warps
+constexpr int NT = NC + 32;             // + the producer warp
+constexpr int MAX_KB = 16;              // beams of a sample: one m16 tile
+constexpr uint32_t KV_TILE = BKT * D;   // bytes of one 64 x 64 int8 K or V tile
+constexpr uint32_t TILE = BKT * D * 2;  // bytes of one 64 x 64 bf16 value tile
+constexpr float NEG_BIAS = -1e9f;       // the score of a padded key
+
+struct Args {
+  const bf16* q;          // [B, H, Kb, 64]
+  const float* k_scale;   // [B, H, S]
+  const float* v_scale;   // [B, H, S]
+  const float* bias;      // element (b, h, s) at b * bias_bs + h * bias_hs + s
+  const uint8_t* pad;     // [B, S] bool
+  bf16* out;              // [B, H, Kb, 64]
+  int H, Kb, S;
+  long long bias_bs, bias_hs;
+};
+
+inline size_t smem_bytes(int Kb, int S) {
+  const int sp = (S + BKT - 1) / BKT * BKT;
+  return 1024 + STAGES * KV_TILE + 2 * TILE + 16 * STAGES +
+         sizeof(float) * ((size_t)Kb * sp + 3 * (size_t)sp) + 2 * (size_t)Kb * (sp + 8);
+}
+
+// kmap, vmap: this layer's cache [B * H, S, 64] int8 with 64 x 64 boxes
+__global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t vt = base + STAGES * KV_TILE;  // two bf16 value tiles
+  const uint32_t bars = vt + 2 * TILE;
+  const int h = blockIdx.x, b = blockIdx.y, Kb = a.Kb, S = a.S;
+  const int ntiles = (S + BKT - 1) / BKT, sp = ntiles * BKT, pst = sp + 8;
+  float* sc = reinterpret_cast<float*>(smem_raw + (bars + 16 * STAGES - raw));  // [Kb][sp]
+  float* ks = sc + (size_t)Kb * sp;  // [sp] k_scale, 0 at pads
+  float* vs = ks + sp;               // [sp] v_scale
+  float* bias = vs + sp;             // [sp] the bias row, -1e9 at pads
+  bf16* P = reinterpret_cast<bf16*>(bias + sp);  // [Kb][pst]
+  auto full = [=](int st) { return bars + 8u * st; };
+  auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
+  auto stage = [=](int st) { return smem_raw + (base + KV_TILE * st - raw); };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(full(st), 1);
+      sm90::mbar_init(empty(st), NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  sm90::launch_dependents();
+
+  const long long bh = (long long)b * a.H + h;
+  if (tid >= NC) {  // the producer warp: K tiles, then V tiles
+    if (tid == NC) {
+      for (int it = 0; it < 2 * ntiles; ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) sm90::mbar_wait(empty(st), (it / STAGES - 1) & 1);
+        sm90::mbar_expect_tx(full(st), KV_TILE);
+        sm90::tma_load3(base + KV_TILE * st, it < ntiles ? &kmap : &vmap, full(st), 0,
+                        (it % ntiles) * BKT, (int)bh);
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  sm90::grid_wait();  // q and the bias row may be the previous kernel's
+  // the scale and bias rows, the pads folded in; zeros past S
+  const float* bias_row = a.bias + (long long)b * a.bias_bs + h * a.bias_hs;
+  for (int s = tid; s < sp; s += NC) {
+    float k_s = 0.f, v_s = 0.f, bi = 0.f;
+    if (s < S) {
+      const bool padded = a.pad[(long long)b * S + s] != 0;
+      k_s = padded ? 0.f : a.k_scale[bh * S + s];
+      v_s = a.v_scale[bh * S + s];
+      bi = padded ? NEG_BIAS : bias_row[s];
+    }
+    ks[s] = k_s;
+    vs[s] = v_s;
+    bias[s] = bi;
+  }
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  // q's A fragments in the permuted dim order of the K fragments: k-step j,
+  // rows g and g + 8 (beams), dims 16 t + 4 j .. + 3
+  uint32_t qa[4][4];
+  {
+    const bf16* q = a.q + bh * Kb * D;
+    auto quad = [&](int j, int c) -> uint2 {
+      return j < Kb ? *reinterpret_cast<const uint2*>(q + j * D + c) : make_uint2(0u, 0u);
+    };
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint2 lo = quad(g, 16 * t + 4 * kk), hi = quad(g + 8, 16 * t + 4 * kk);
+      qa[kk][0] = lo.x;
+      qa[kk][1] = hi.x;
+      qa[kk][2] = lo.y;
+      qa[kk][3] = hi.y;
+    }
+  }
+  sm90::named_sync(1, NC);  // the rows
+
+  // scores: warp w, keys 8 w .. 8 w + 7 of each tile
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % STAGES;
+    sm90::mbar_wait(full(st), (it / STAGES) & 1);
+    const uint4 kw = *reinterpret_cast<const uint4*>(stage(st) + (8 * warp + g) * D + 16 * t);
+    const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
+    uint32_t kb[4][2];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
+    sm90::mbar_arrive(empty(st));
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
+    const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (s + e >= S) continue;
+      if (g < Kb) sc[(size_t)g * sp + s + e] = c[e] * ks[s + e] + bias[s + e];
+      if (g + 8 < Kb) sc[(size_t)(g + 8) * sp + s + e] = c[2 + e] * ks[s + e] + bias[s + e];
+    }
+  }
+  sm90::named_sync(1, NC);
+
+  // softmax, one warp per beam row: the max clamped at -1e8, the sum floored
+  // at 1e-38 (subnormal, kept: no flush to zero), p = e / l * v_scale rounded
+  // to bf16, zeros past S
+  for (int j = warp; j < Kb; j += NC / 32) {
+    float* row = sc + (size_t)j * sp;
+    float m = -CUDART_INF_F;
+    for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
+    m = fmaxf(mk::warp_max(m), -1e8f);
+    float l = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float e = expf(row[s] - m);
+      row[s] = e;
+      l += e;
+    }
+    l = fmaxf(mk::warp_sum(l), 1e-38f);
+    bf16* pr = P + (size_t)j * pst;
+    for (int s = lane; s < sp; s += 32)
+      pr[s] = __float2bfloat16_rn(s < S ? row[s] / l * vs[s] : 0.f);
+  }
+  sm90::named_sync(1, NC);
+
+  // P.v: each value tile widened into a bf16 tile (key-major 128-byte rows,
+  // swizzled), then read as K7's; warp w owns columns 8 w .. 8 w + 7
+  float o[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int it = ntiles; it < 2 * ntiles; ++it) {
+    const int st = it % STAGES, k0 = (it - ntiles) * BKT;
+    const uint32_t vb = vt + TILE * ((it - ntiles) & 1);
+    sm90::mbar_wait(full(st), (it / STAGES) & 1);
+    {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
+      const uint4 vw = *reinterpret_cast<const uint4*>(stage(st) + 16 * tid);
+      const uint32_t words[4] = {vw.x, vw.y, vw.z, vw.w};
+      uint32_t wv[8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sm90::widen_i8x4(words[k], wv[2 * k], wv[2 * k + 1]);
+      sm90::mbar_arrive(empty(st));
+      const int key = tid / 4, u = 2 * (tid % 4);
+      uint8_t* row = smem_raw + (vb - raw);
+      *reinterpret_cast<uint4*>(row + swz(key, u)) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+      *reinterpret_cast<uint4*>(row + swz(key, u + 1)) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+    }
+    // the tile complete; the other tile's readers have passed this barrier
+    // before this one is written again
+    sm90::named_sync(1, NC);
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      const int kc = k0 + 16 * kq + 2 * t;  // this lane's A columns kc, kc + 1 (and + 8)
+      uint32_t pa[4];
+      const bf16* p0 = P + (size_t)g * pst + kc;
+      const bf16* p1 = P + (size_t)(g + 8) * pst + kc;
+      pa[0] = g < Kb ? *reinterpret_cast<const uint32_t*>(p0) : 0u;
+      pa[1] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(p1) : 0u;
+      pa[2] = g < Kb ? *reinterpret_cast<const uint32_t*>(p0 + 8) : 0u;
+      pa[3] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(p1 + 8) : 0u;
+      const int key = 16 * kq + (lane % 8) + 8 * ((lane / 8) & 1);
+      const uint32_t addr = vb + swz(key, warp);
+      uint32_t r0, r1;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                   : "=r"(r0), "=r"(r1)
+                   : "r"(addr)
+                   : "memory");
+      mma16816(o, pa, r0, r1);
+    }
+  }
+
+  bf16* out = a.out + bh * Kb * D;
+  const int c = 8 * warp + 2 * t;
+  if (g < Kb)
+    *reinterpret_cast<__nv_bfloat162*>(out + g * D + c) = __floats2bfloat162_rn(o[0], o[1]);
+  if (g + 8 < Kb)
+    *reinterpret_cast<__nv_bfloat162*>(out + (g + 8) * D + c) =
+        __floats2bfloat162_rn(o[2], o[3]);
+}
+
+// One layer's cache [B * H, S, 64] int8 with 64 x 64 boxes, unswizzled.
+inline int cache_map(CUtensorMap* map, const void* ptr, long long bh, int S) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D, (cuuint64_t)S * D};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BKT, 1};
+  return sm90::tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 3, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// grid (H, B), always with programmatic stream serialization. A cudaError_t
+// code (cudaErrorInvalidValue when Kb or the shared memory does not fit).
+inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int B,
+                       cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.Kb, a.S);
+  if (a.Kb < 1 || a.Kb > MAX_KB || smem > 232448) return (int)cudaErrorInvalidValue;
+  static mk::SmemOptIn opt_in;
+  if (const int err = opt_in.ensure((const void*)cross_attn_i8_sm90_kernel, smem)) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.H, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel, kmap, vmap, a);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// fp32 q and out (the FMA kernel). k, v int8 [B, H, S, 64]; scales fp32
+// [B, H, S]; bias fp32 with strides (bias_bs, bias_hs, 1); pad bool [B, S].
+// Returns a CUDA error code.
+extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const void* v,
+                                         const void* k_scale, const void* v_scale,
+                                         const void* bias, const void* pad, void* out, int B,
+                                         int H, int Kb, int S, long long bias_bs,
+                                         long long bias_hs, void* stream) {
   namespace ca = mk::cross_attn;
   ca::Args a;
   a.q = q;
   a.k = k;
   a.v = v;
-  a.k_scale = static_cast<const float*>(ks);
-  a.v_scale = static_cast<const float*>(vs);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
   a.bias = static_cast<const float*>(bias);
   a.pad = static_cast<const uint8_t*>(pad);
   a.out = out;
@@ -50,23 +318,32 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   a.q_js = ca::D;
   a.bias_bs = bias_bs;
   a.bias_hs = bias_hs;
-  return ca::launch<T, int8_t, true>(a, B, stream);
+  return ca::launch<float, int8_t, true>(a, B, static_cast<cudaStream_t>(stream));
 }
 
-}  // namespace
-
-// bf16 != 0 selects __nv_bfloat16 q and out, else float. k, v int8
-// [B, H, S, 64]; scales fp32 [B, H, S]; bias fp32 with strides (bias_bs,
-// bias_hs, 1); pad bool [B, S]. Returns a CUDA error code.
-extern "C" int mk_decode_cross_attn_int8(int bf16, const void* q, const void* k, const void* v,
-                                         const void* k_scale, const void* v_scale,
-                                         const void* bias, const void* pad, void* out, int B,
-                                         int H, int Kb, int S, long long bias_bs,
-                                         long long bias_hs, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, k_scale, v_scale, bias, pad, out, B, H, Kb, S, bias_bs,
-                                 bias_hs, st);
-  return launch<float>(q, k, v, k_scale, v_scale, bias, pad, out, B, H, Kb, S, bias_bs, bias_hs,
-                       st);
+// bf16 q and out (the tensor cores), the other arguments as above; q, k and v
+// on 16-byte boundaries. The K/V copies start before the kernel waits on the
+// previous kernel of the stream (programmatic dependent launch): k and v must
+// not be written by that kernel. Returns a CUDA error code.
+extern "C" int mk_decode_cross_attn_int8_sm90(const void* q, const void* k, const void* v,
+                                              const void* k_scale, const void* v_scale,
+                                              const void* bias, const void* pad, void* out,
+                                              int B, int H, int Kb, int S, long long bias_bs,
+                                              long long bias_hs, void* stream) {
+  CUtensorMap kmap, vmap;
+  if (const int err = cache_map(&kmap, k, (long long)B * H, S)) return err;
+  if (const int err = cache_map(&vmap, v, (long long)B * H, S)) return err;
+  Args a;
+  a.q = static_cast<const bf16*>(q);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.bias = static_cast<const float*>(bias);
+  a.pad = static_cast<const uint8_t*>(pad);
+  a.out = static_cast<bf16*>(out);
+  a.H = H;
+  a.Kb = Kb;
+  a.S = S;
+  a.bias_bs = bias_bs;
+  a.bias_hs = bias_hs;
+  return launch_sm90(kmap, vmap, a, B, static_cast<cudaStream_t>(stream));
 }

@@ -48,7 +48,8 @@
 // small-M kernel: a block computes 32 rows x 64 columns of x . W^T, staging
 // 32-deep chunks of both in shared memory, fp32 FMAs on the CUDA cores, 8
 // rows per thread, the LayerNorm applied while its input is staged; the
-// cross-attention is the device function K6 uses (csrc/cross_attn.cuh).
+// cross-attention is the device function K6's fp32 route uses
+// (csrc/cross_attn.cuh).
 //
 // Bound. At the caption decode shape (rows 80 = 16 x 5, L 6, d 768, f 3072,
 // Tmax 17, S 908, bf16) a step must read 99 MB of weights, 268 MB of cross

@@ -39,8 +39,11 @@
 // weights depend on nothing the previous kernel writes; X, the statistics,
 // the partials and the counters are touched only after the wait.
 //
-// K2's persistent kernel (topk_projection.cu) is built from the same
-// pieces: the ring, the X copy and mma_chunk at two m64 tiles a stage.
+// K2's persistent kernels (topk_projection.cu) are built from the same
+// pieces: the ring, the X copy and mma_chunk at two m64 tiles a stage; K2-q8
+// streams int8 W stages (128 rows x 128 deep, 16 KB) through the same ring
+// and widens them in registers into wgmma's A fragments (mma_stage_i8), with
+// X rearranged once to match (permute_x_i8).
 #pragma once
 
 #include <stdint.h>
@@ -79,6 +82,109 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[N / 2], uint32_t wt, uint
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     sm90::Wgmma<N>::ss(acc, sm90::sw128_desc(wt + 32 * kk), sm90::sw128_desc(xc + 32 * kk), 1);
+}
+
+// ---- int8 W: A fragments from registers ----------------------------------
+//
+// An int8 W tile cannot be wgmma's shared-memory A operand (an int8 product
+// would need X in int8). The consumers load it, widen it exactly to bf16 in
+// registers (sm90::widen_i8x4) and issue wgmma with A from registers; the
+// products and their fp32 sums are those of the bf16 route.
+//
+// Lane (g, t) of warp w holds, for A rows 16 w + g and + 8 of an m64 half,
+// the k-slots 2t, 2t+1 and 2t+8, 2t+9 of each 16-deep k-step j. Taking them
+// from the row's bytes 32 t + 4 j .. + 3 (one word; two 16-byte loads a row
+// a stage) permutes the depth inside each 128-deep group: k-slot 16 j + s is
+// depth 32 t + 4 j + e with t = (s % 8) / 2, e = s % 2 + 2 (s / 8). The same
+// permutation applied to X, once, leaves every product unchanged. As 32-bit
+// words (bf16 pairs): word 8 j + 4 hh + t of a group is X's word
+// 16 t + 2 j + hh.
+
+constexpr int BKQ = 128;  // depth of an int8 stage: one 128-byte swizzled row
+
+// Rearranges the staged X (at x, generic; chunk tiles of N rows x 64 deep) for
+// int8 stages, in place: nst groups of two chunks a row, chunks from nx on (past
+// the depth, never copied) set to zeros. The caller fences and synchronises.
+template <int N, int THREADS>
+__device__ __forceinline__ void permute_x_i8(uint8_t* x, int nst, int nx, int tid) {
+  for (int u = tid; u < N * nst; u += THREADS) {
+    const int r = u / nst, c = u % nst;
+    uint8_t* row = x + (r / 8) * 1024 + (r % 8) * 128;
+    uint32_t w[64], o[64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int ch = 2 * c + h;
+        const uint4 v = ch < nx ? *reinterpret_cast<const uint4*>(
+                                      row + ch * x_chunk_bytes<N>() + ((q ^ (r % 8)) * 16))
+                                : make_uint4(0u, 0u, 0u, 0u);
+        w[32 * h + 4 * q] = v.x;
+        w[32 * h + 4 * q + 1] = v.y;
+        w[32 * h + 4 * q + 2] = v.z;
+        w[32 * h + 4 * q + 3] = v.w;
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) o[8 * j + 4 * hh + t] = w[16 * t + 2 * j + hh];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        *reinterpret_cast<uint4*>(row + (2 * c + h) * x_chunk_bytes<N>() +
+                                  ((q ^ (r % 8)) * 16)) =
+            make_uint4(o[32 * h + 4 * q], o[32 * h + 4 * q + 1], o[32 * h + 4 * q + 2],
+                       o[32 * h + 4 * q + 3]);
+  }
+}
+
+// acc[hf] += W rows 64 hf .. 64 hf + 63 of the int8 stage at wt (128 rows x 128
+// deep, 128-byte swizzled) . the X group at xc (two permuted chunks of N rows)^T.
+// Loads the stage, arrives on empty_bar, then per half waits for the group
+// that last read its fragments (the previous stage's same half: at most one
+// group left running), widens into them and issues and commits its eight
+// wgmma. So each half's widening overlaps the other half's products, across
+// stages too; a (the fragments) lives across the caller's stages, and the
+// caller waits for every group before reading acc.
+template <int N>
+__device__ __forceinline__ void mma_stage_i8(float (&acc)[2][N / 2], uint32_t (&a)[2][8][4],
+                                             const uint8_t* wt, uint32_t xc, uint32_t empty_bar,
+                                             int tid) {
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  uint4 v[2][2][2];  // [half][row R, R + 8][16-byte unit 2t, 2t + 1]
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const uint8_t* row = wt + (64 * hf + 16 * warp + g) * 128;  // R % 8 == g
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        v[hf][rr][k] =
+            *reinterpret_cast<const uint4*>(row + rr * 1024 + (((2 * t + k) ^ g) * 16));
+  }
+  sm90::mbar_arrive(empty_bar);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    sm90::wgmma_wait_n<1>();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint4& p = v[hf][0][j / 4];
+      const uint4& q = v[hf][1][j / 4];
+      const uint32_t w0 = j % 4 == 0 ? p.x : j % 4 == 1 ? p.y : j % 4 == 2 ? p.z : p.w;
+      const uint32_t w1 = j % 4 == 0 ? q.x : j % 4 == 1 ? q.y : j % 4 == 2 ? q.z : q.w;
+      sm90::widen_i8x4(w0, a[hf][j][0], a[hf][j][2]);
+      sm90::widen_i8x4(w1, a[hf][j][1], a[hf][j][3]);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sm90::Wgmma<N>::rs(acc[hf], a[hf][j][0], a[hf][j][1], a[hf][j][2], a[hf][j][3],
+                         sm90::sw128_desc(xc + (j / 4) * x_chunk_bytes<N>() + 32 * (j % 4)));
+    sm90::wgmma_commit();
+  }
 }
 
 // Accumulator position i of this thread: output column (within the m64
@@ -369,6 +475,17 @@ inline int weight_map(CUtensorMap* map, const void* w, int L, int dout, int din,
   const cuuint64_t strides[2] = {(cuuint64_t)din * 2, (cuuint64_t)dout * din * 2};
   const cuuint32_t box[3] = {(cuuint32_t)BKC, (cuuint32_t)box_rows, 1};
   return sm90::bf16_map(map, w, 3, dims, strides, box);
+}
+
+// W [L, dout, din] int8 as a map of 128-deep boxes (one 128-byte swizzled row)
+// of `box_rows` rows.
+inline int weight_map_i8(CUtensorMap* map, const void* w, int L, int dout, int din,
+                         int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)din, (cuuint64_t)dout, (cuuint64_t)L};
+  const cuuint64_t strides[2] = {(cuuint64_t)din, (cuuint64_t)dout * din};
+  const cuuint32_t box[3] = {(cuuint32_t)BKQ, (cuuint32_t)box_rows, 1};
+  return sm90::tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 3, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Launches gemm_kernel<N, Epi> with programmatic stream serialization (pdl)

@@ -1,9 +1,11 @@
 // Hopper primitives shared by the port's tensor-core kernels: shared-memory
 // addresses, mbarriers, TMA copies, wgmma (m64n64k16 for the attention
 // cores, m64nNk16 at the N extents of the beam rows for the weight-streaming
-// products), programmatic dependent launch, and the run-time lookup of
+// products, with A from shared memory or from registers), the exact int8 ->
+// bf16 widening, programmatic dependent launch, and the run-time lookup of
 // cuTensorMapEncodeTiled. Used by flash_fwd_sm90.cuh and flash_bwd_sm90.cuh
-// (K1, K3, K4, K5) and skinny_gemm_sm90.cuh (K2, K7).
+// (K1, K3, K4, K5), skinny_gemm_sm90.cuh (K2, K2-q8, K7) and
+// decode_attn_sm90.cuh (K6, K7).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
@@ -76,9 +78,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait() {  // every committed group done
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>  // at most N committed groups still running
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wgmma_wait() { wgmma_wait_n<0>(); }  // every committed group done
 // dst[i] = i < n ? src[i] : 0 for i < m, by the first `threads` threads of the
 // block (tid below that), eight loads in flight a thread before their stores
 __device__ __forceinline__ void copy_f32(float* dst, const float* __restrict__ src, int n, int m,
@@ -137,6 +141,46 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- mma.sync m16n8k16 (the decode cross-attentions) ----------------------
+
+// c += A . B, bf16 products, fp32 sums; a and b as mma.sync's fragments
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// byte offset of (row, 16-byte unit u) in a 128-byte swizzled tile
+__device__ __forceinline__ uint32_t swz(int row, int u) {
+  return row * 128 + ((u ^ (row & 7)) * 16);
+}
+
+// Four int8 (one 32-bit word, byte 0 the lowest) widened to two bf16 pairs,
+// lo = {b0, b1} and hi = {b2, b3} (the smaller index in the low half), exactly:
+// 2^23 + 128 + x is built as fp32 bits with the byte x ^ 0x80 as its low
+// mantissa bits, 2^23 + 128 subtracted gives x, and an integer of |x| <= 128
+// leaves the fp32 value's low 16 bits zero, so its high half is x in bf16.
+// Bit moves and fp32 adds only: no conversion instructions.
+__device__ __forceinline__ void widen_i8x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const uint32_t magic = 0x4B000000u;
+  const float f0 = __uint_as_float(__byte_perm(u, magic, 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, magic, 0x7441)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, magic, 0x7442)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, magic, 0x7443)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 // a box at (c0, c1, c2) of a 3-D map into shared memory
@@ -239,6 +283,19 @@ struct Wgmma<16> {
         "+f"(d[7])
       : "l"(da), "l"(db), "r"(acc));
   }
+  // d += A . B^T, A (64 x 16) from registers (four bf16 pairs a thread, as
+  // mma.sync's m16n8k16 A fragment per warp), B K-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[8], uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  }
 };
 
 template <>
@@ -253,6 +310,20 @@ struct Wgmma<32> {
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(acc));
+  }
+  // d += A . B^T, A (64 x 16) from registers (four bf16 pairs a thread, as
+  // mma.sync's m16n8k16 A fragment per warp), B K-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[16], uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
   }
 };
 
@@ -270,6 +341,22 @@ struct Wgmma<48> {
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(da), "l"(db), "r"(acc));
+  }
+  // d += A . B^T, A (64 x 16) from registers (four bf16 pairs a thread, as
+  // mma.sync's m16n8k16 A fragment per warp), B K-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[24], uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23}"
+      ", {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
   }
 };
 
@@ -292,6 +379,25 @@ struct Wgmma<80> {
         "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(acc));
   }
+  // d += A . B^T, A (64 x 16) from registers (four bf16 pairs a thread, as
+  // mma.sync's m16n8k16 A fragment per warp), B K-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[40], uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39}"
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  }
 };
 
 // ---- host side -------------------------------------------------------------
@@ -312,19 +418,25 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of rank 2 or 3 (dims and box innermost first, strides in
-// bytes of dims 1..), 128-byte swizzled, zeros past the end. 0 or a
-// cudaError_t code.
-inline int bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of rank 2 or 3 (dims and box innermost first, strides in
+// bytes of dims 1..), zeros past the end. 0 or a cudaError_t code.
+inline int tiled_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorInvalidDeviceFunction;
   const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A bf16 tensor map, 128-byte swizzled.
+inline int bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -33,16 +33,25 @@
 // transpose as 256-byte rows (coalesced) and bmax, bsum straight into
 // [N, Vp/128].
 //
-// fp32 (mk_project_with_stats) and K2-q8 stay on the FMA kernel below: 256
-// threads, each one vocab column by 8 rows of a 16-row chunk, 32-deep chunks
-// of both operands staged in shared memory. K2-q8
-// (mk_project_with_stats_q8) replaces _proj_kernel_q8 (:71), the same
-// function over the int8 serving projection: w int8 [Vp, D] with fp32 row
-// scales. It reads the int8 rows straight from device memory (half K2's
-// weight bytes: 46 MB at the decode shape, 14 us at 3.35 TB/s), widens them
-// in registers (exact), and multiplies each column's fp32 dot by its row
-// scale before the mask and the statistics, as the TPU kernel does; its
-// fp32 FMAs, not the halved weight read, bound it.
+// K2-q8 (_proj_kernel_q8, :71) is the same function over the int8 serving
+// projection: w int8 [Vp, D] with fp32 row scales; logits = (h . w) * scale[v]
+// in fp32, before the mask and the statistics. Its weight read is half K2's
+// (46 MB at the decode shape, 14 us at 3.35 TB/s), which bounds it. In bf16
+// (mk_project_with_stats_q8_sm90, proj_q8_sm90_kernel) it runs the same
+// persistent kernel: each stage is 128 vocab rows x 128 deep of int8 (16 KB,
+// the same bytes in flight), which the consumers widen exactly to bf16 in
+// registers and feed to wgmma as its A operand from registers, with h's
+// depth permuted once in shared memory to match the fragments
+// (skinny_gemm_sm90.cuh: mma_stage_i8, permute_x_i8); each thread's four row
+// scales multiply its accumulators before the epilogue, which is K2's.
+// The widening (~2.75 instructions a weight, on the one consumer warpgroup)
+// overlaps the other half's products; a second consumer warpgroup would
+// double its issue rate.
+//
+// fp32 (mk_project_with_stats, mk_project_with_stats_q8) stays on the FMA
+// kernel below: 256 threads, each one vocab column by 8 rows of a 16-row
+// chunk, 32-deep chunks of both operands staged in shared memory; fp32 FMAs
+// bound it.
 #include <stdint.h>
 
 #include <type_traits>
@@ -167,26 +176,32 @@ int launch(const void* h, const void* w, const void* scale, void* logits, void* 
 namespace sk = mk::skinny;
 using bf16 = __nv_bfloat16;
 
-constexpr uint32_t WT2 = 2 * sk::WTILE;  // a stage: 128 vocab rows x 64 deep
+constexpr uint32_t WT2 = 2 * sk::WTILE;  // a stage: 128 vocab rows x 64 deep (int8: x 128)
 constexpr int LGS = BLK + 8;              // row stride of the logits transpose (bf16)
 
+// nch: the h chunks of 64 deep staged (int8 W: two per 128-deep stage)
 template <int N>
 constexpr size_t proj_smem(int nch) {
   return 1024 + sk::STAGES * WT2 + (size_t)nch * sk::x_chunk_bytes<N>() + 2 * (size_t)N * LGS +
          sizeof(float) * 5 * N + 8 * (2 * sk::STAGES + 1);
 }
 
-// grid (CTAs, row tiles); wmap: w as a [1, Vp, D] map with 128 x 64 boxes,
-// hmap: h as a [1, rows, D] map with 64 x N boxes
-template <int N>
-__global__ void __launch_bounds__(sk::NT) proj_sm90_kernel(
-    const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap hmap,
-    bf16* __restrict__ logits,
-    float* __restrict__ bmax, float* __restrict__ bsum, int rows, int D, int Vp, int vocab_size) {
+// The persistent kernel's body; Q8: W int8 with fp32 row scales `scale`.
+// wmap: w as a [1, Vp, D] map with 128-row boxes, 64 deep (bf16) or 128 deep
+// (int8); hmap: h as a [1, rows, D] map with 64 x N boxes.
+template <int N, bool Q8>
+__device__ __forceinline__ void proj_body(const CUtensorMap* wmap, const CUtensorMap* hmap,
+                                          const float* __restrict__ scale,
+                                          bf16* __restrict__ logits, float* __restrict__ bmax,
+                                          float* __restrict__ bsum, int rows, int D, int Vp,
+                                          int vocab_size) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = mk::sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const int nch = (D + sk::BKC - 1) / sk::BKC, nblk = Vp / BLK;
+  constexpr int SK = Q8 ? sk::BKQ : sk::BKC;  // depth of a stage
+  const int nst = (D + SK - 1) / SK, nblk = Vp / BLK;  // stages a block
+  const int nx = (D + sk::BKC - 1) / sk::BKC;          // h chunks copied
+  const int nch = Q8 ? 2 * nst : nx;                   // h chunks staged
   const uint32_t ring = base, xs = base + sk::STAGES * WT2;
   const uint32_t lg_s = xs + nch * sk::x_chunk_bytes<N>();
   bf16* lg = reinterpret_cast<bf16*>(smem_raw + (lg_s - raw));  // [N][LGS] logits tile
@@ -207,40 +222,71 @@ __global__ void __launch_bounds__(sk::NT) proj_sm90_kernel(
   }
   __syncthreads();
 
-  if (tid >= sk::NC) {  // the producer warp: h once, then every block's W tiles, back to back
+  if (tid >= sk::NC) {  // the producer warp: h once, then every block's W stages, back to back
     if (tid == sk::NC) {
-      sk::load_x<N>(xs, &hmap, xbar, r0, 0, nch);
+      sk::load_x<N>(xs, hmap, xbar, r0, 0, nx);
       int it = 0;
       for (int vb = blockIdx.x; vb < nblk; vb += gridDim.x)
-        for (int c = 0; c < nch; ++c, ++it) {
+        for (int c = 0; c < nst; ++c, ++it) {
           const int st = it % sk::STAGES;
           if (it >= sk::STAGES) mk::sm90::mbar_wait(empty(st), (it / sk::STAGES - 1) & 1);
           mk::sm90::mbar_expect_tx(full(st), WT2);
-          mk::sm90::tma_load3(ring + st * WT2, &wmap, full(st), c * sk::BKC, vb * BLK, 0);
+          mk::sm90::tma_load3(ring + st * WT2, wmap, full(st), c * SK, vb * BLK, 0);
         }
     }
     return;  // no block-wide barrier follows
   }
 
   mk::sm90::mbar_wait(xbar, 0);
+  if constexpr (Q8) {  // h's depth permuted to match the widened int8 fragments
+    sk::permute_x_i8<N, sk::NC>(smem_raw + (xs - raw), nst, nx, tid);
+    mk::sm90::fence_async_smem();
+    mk::sm90::named_sync(1, sk::NC);
+  }
   const int warp = tid / 32, lane = tid % 32;
   int it = 0;
   for (int vb = blockIdx.x; vb < nblk; vb += gridDim.x) {
+    float rs[2][2];  // int8: the row scales of this thread's columns (half, 8-row group)
+    if constexpr (Q8)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          rs[hf][hh] = __ldg(scale + vb * BLK + 64 * hf + sk::acc_col(2 * hh, tid));
     float acc[2][N / 2];
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[0][i] = acc[1][i] = 0.f;
-    for (int c = 0; c < nch; ++c, ++it) {
-      const int st = it % sk::STAGES;
-      mk::sm90::mbar_wait(full(st), (it / sk::STAGES) & 1);
-      mk::sm90::wgmma_fence();
-      sk::mma_chunk<N>(acc[0], ring + st * WT2, xs + c * sk::x_chunk_bytes<N>());
-      sk::mma_chunk<N>(acc[1], ring + st * WT2 + sk::WTILE, xs + c * sk::x_chunk_bytes<N>());
-      mk::sm90::wgmma_commit();
+    if constexpr (Q8) {
+      uint32_t a[2][8][4];  // the widened fragments, in flight across stages
+      for (int c = 0; c < nst; ++c, ++it) {
+        const int st = it % sk::STAGES;
+        mk::sm90::mbar_wait(full(st), (it / sk::STAGES) & 1);
+        sk::mma_stage_i8<N>(acc, a, smem_raw + (ring + st * WT2 - raw),
+                            xs + 2 * c * sk::x_chunk_bytes<N>(), empty(st), tid);
+      }
       mk::sm90::wgmma_wait();
       mk::sm90::fence_regs(acc[0]);
       mk::sm90::fence_regs(acc[1]);
-      mk::sm90::mbar_arrive(empty(st));
+    } else {
+      for (int c = 0; c < nst; ++c, ++it) {
+        const int st = it % sk::STAGES;
+        mk::sm90::mbar_wait(full(st), (it / sk::STAGES) & 1);
+        mk::sm90::wgmma_fence();
+        sk::mma_chunk<N>(acc[0], ring + st * WT2, xs + c * sk::x_chunk_bytes<N>());
+        sk::mma_chunk<N>(acc[1], ring + st * WT2 + sk::WTILE, xs + c * sk::x_chunk_bytes<N>());
+        mk::sm90::wgmma_commit();
+        mk::sm90::wgmma_wait();
+        mk::sm90::fence_regs(acc[0]);
+        mk::sm90::fence_regs(acc[1]);
+        mk::sm90::mbar_arrive(empty(st));
+      }
     }
+    // int8: the fp32 dot times the row scale, before the mask and the statistics
+    if constexpr (Q8)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[hf][i] *= rs[hf][(i / 2) % 2];
     // mask the padded vocab; the logits, rounded, into the transpose tile
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
@@ -297,19 +343,51 @@ __global__ void __launch_bounds__(sk::NT) proj_sm90_kernel(
   }
 }
 
+// grid (CTAs, row tiles)
 template <int N>
-int launch_sm90(const void* h, const void* w, void* logits, void* bmax, void* bsum, int rows,
-                int D, int Vp, int vocab_size, int ctas, cudaStream_t stream) {
+__global__ void __launch_bounds__(sk::NT) proj_sm90_kernel(
+    const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap hmap,
+    bf16* __restrict__ logits, float* __restrict__ bmax, float* __restrict__ bsum, int rows,
+    int D, int Vp, int vocab_size) {
+  proj_body<N, false>(&wmap, &hmap, nullptr, logits, bmax, bsum, rows, D, Vp, vocab_size);
+}
+
+template <int N>
+__global__ void __launch_bounds__(sk::NT) proj_q8_sm90_kernel(
+    const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap hmap,
+    const float* __restrict__ scale, bf16* __restrict__ logits, float* __restrict__ bmax,
+    float* __restrict__ bsum, int rows, int D, int Vp, int vocab_size) {
+  proj_body<N, true>(&wmap, &hmap, scale, logits, bmax, bsum, rows, D, Vp, vocab_size);
+}
+
+// scale == nullptr: bf16 w (proj_sm90_kernel); else int8 w (proj_q8_sm90_kernel)
+template <int N>
+int launch_sm90(const void* h, const void* w, const void* scale, void* logits, void* bmax,
+                void* bsum, int rows, int D, int Vp, int vocab_size, int ctas,
+                cudaStream_t stream) {
+  const bool q8 = scale != nullptr;
   CUtensorMap wmap, hmap;
-  if (const int err = sk::weight_map(&wmap, w, 1, Vp, D, BLK)) return err;
+  if (const int err = q8 ? sk::weight_map_i8(&wmap, w, 1, Vp, D, BLK)
+                         : sk::weight_map(&wmap, w, 1, Vp, D, BLK))
+    return err;
   if (const int err = sk::weight_map(&hmap, h, 1, rows, D, N)) return err;
-  const size_t smem = proj_smem<N>((D + sk::BKC - 1) / sk::BKC);
-  static mk::SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)proj_sm90_kernel<N>, smem)) return err;
+  const int nch = q8 ? 2 * ((D + sk::BKQ - 1) / sk::BKQ) : (D + sk::BKC - 1) / sk::BKC;
+  const size_t smem = proj_smem<N>(nch);
   const dim3 grid(ctas, (rows + N - 1) / N);
-  proj_sm90_kernel<N><<<grid, sk::NT, smem, stream>>>(
-      wmap, hmap, static_cast<bf16*>(logits), static_cast<float*>(bmax),
-      static_cast<float*>(bsum), rows, D, Vp, vocab_size);
+  auto* out = static_cast<bf16*>(logits);
+  auto* mx = static_cast<float*>(bmax);
+  auto* sm = static_cast<float*>(bsum);
+  if (q8) {
+    static mk::SmemOptIn opt_in;
+    if (const int err = opt_in.ensure((const void*)proj_q8_sm90_kernel<N>, smem)) return err;
+    proj_q8_sm90_kernel<N><<<grid, sk::NT, smem, stream>>>(
+        wmap, hmap, static_cast<const float*>(scale), out, mx, sm, rows, D, Vp, vocab_size);
+  } else {
+    static mk::SmemOptIn opt_in;
+    if (const int err = opt_in.ensure((const void*)proj_sm90_kernel<N>, smem)) return err;
+    proj_sm90_kernel<N><<<grid, sk::NT, smem, stream>>>(wmap, hmap, out, mx, sm, rows, D, Vp,
+                                                        vocab_size);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -333,18 +411,30 @@ extern "C" int mk_project_with_stats_sm90(const void* h, const void* w, void* lo
   if (D % 8 || Vp % BLK || ctas < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return sk::with_row_tile(n_tile, [&](auto nt) -> int {
-    return launch_sm90<decltype(nt)::value>(h, w, logits, bmax, bsum, N, D, Vp, vocab_size, ctas,
-                                            st);
+    return launch_sm90<decltype(nt)::value>(h, w, nullptr, logits, bmax, bsum, N, D, Vp,
+                                            vocab_size, ctas, st);
   });
 }
 
-// K2-q8: w int8 [Vp, D], scale fp32 [Vp]; h and logits as for K2.
-extern "C" int mk_project_with_stats_q8(int bf16, const void* h, const void* w,
-                                        const void* scale, void* logits, void* bmax, void* bsum,
-                                        int N, int D, int Vp, int vocab_size, void* stream) {
+// K2-q8, fp32 h and logits (the FMA kernel): w int8 [Vp, D], scale fp32 [Vp].
+extern "C" int mk_project_with_stats_q8(const void* h, const void* w, const void* scale,
+                                        void* logits, void* bmax, void* bsum, int N, int D,
+                                        int Vp, int vocab_size, void* stream) {
+  return launch<float, int8_t>(h, w, scale, logits, bmax, bsum, N, D, Vp, vocab_size,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// K2-q8, bf16 h and logits (the tensor-core core): w int8 [Vp, D], scale fp32
+// [Vp]; h, w and logits on 16-byte boundaries, D % 16 == 0, Vp % 128 == 0;
+// n_tile and ctas as for mk_project_with_stats_sm90. Returns a CUDA error code.
+extern "C" int mk_project_with_stats_q8_sm90(const void* h, const void* w, const void* scale,
+                                             void* logits, void* bmax, void* bsum, int N, int D,
+                                             int Vp, int vocab_size, int n_tile, int ctas,
+                                             void* stream) {
+  if (D % 16 || Vp % BLK || ctas < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16, int8_t>(h, w, scale, logits, bmax, bsum, N, D, Vp, vocab_size,
-                                         st);
-  return launch<float, int8_t>(h, w, scale, logits, bmax, bsum, N, D, Vp, vocab_size, st);
+  return sk::with_row_tile(n_tile, [&](auto nt) -> int {
+    return launch_sm90<decltype(nt)::value>(h, w, scale, logits, bmax, bsum, N, D, Vp,
+                                            vocab_size, ctas, st);
+  });
 }

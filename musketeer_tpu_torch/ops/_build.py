@@ -130,10 +130,11 @@ SMEM_MAX = 232448  # a block's shared memory on sm_90
 def route(name: str, device: torch.device, dtype: torch.dtype, tensors: dict) -> str:
     """Which version a kernel wrapper runs: ``"plain"`` (the PyTorch version) for
     CPU tensors; on CUDA, ``"fma"`` (the fp32 kernels on the CUDA cores) for
-    fp32 and ``"sm90"`` (the tensor-core kernels, fed by TMA) for bf16. The
-    bf16 ``tensors`` must start on 16-byte boundaries with rows (last
-    dimension) of a multiple of 16 bytes, as TMA and the 16-byte loads need;
-    anything else raises: no route falls back to another."""
+    fp32 and ``"sm90"`` (the tensor-core kernels, fed by TMA) for bf16. On
+    that route ``tensors`` (bf16, or an int8 weight or cache) must start on
+    16-byte boundaries with rows (last dimension) of a multiple of 16 bytes,
+    as TMA and the 16-byte loads need; anything else raises: no route falls
+    back to another."""
     if device.type == "cpu":
         return "plain"
     if device.type != "cuda":
@@ -144,8 +145,8 @@ def route(name: str, device: torch.device, dtype: torch.dtype, tensors: dict) ->
         raise TypeError(f"{name}: dtype {dtype} not in (torch.float32, torch.bfloat16)")
     for arg, t in tensors.items():
         if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
-            raise ValueError(f"{name}: bf16 {arg} must start on a 16-byte boundary and have rows "
-                             f"of a multiple of 16 bytes (the tensor-core route's TMA copies)")
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary and have rows of "
+                             f"a multiple of 16 bytes (the bf16 tensor-core route's TMA copies)")
     return "sm90"
 
 

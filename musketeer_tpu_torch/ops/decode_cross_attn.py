@@ -17,8 +17,15 @@ is built without flushing subnormals; XLA:CPU flushes it, so the JAX kernel
 gives NaN on such a sample in the CPU tests (ROADMAP §3).
 
 ``decode_cross_attention_int8`` runs the plain PyTorch version for CPU
-tensors and the CUDA kernel (``csrc/decode_cross_attn.cu``) for CUDA
-tensors; it never falls back from one to the other.
+tensors and a CUDA kernel (``csrc/decode_cross_attn.cu``) for CUDA tensors,
+picked by q's dtype (``_build.route``): bf16 on the tensor cores (the K/V
+tiles by TMA, widened to bf16 in registers and shared memory, ``mma.sync``,
+two CTAs an SM; launched with programmatic dependent launch, so its K/V
+copies start before the previous kernel on the stream ends: that kernel must
+not write the cache), its launches also counted in
+``decode_cross_attention_int8.launches_sm90``; fp32 on the FMA kernel
+(``csrc/cross_attn.cuh``). Unaligned bf16 inputs raise; it never falls back
+from one version to another.
 """
 
 from __future__ import annotations
@@ -31,7 +38,24 @@ NEG_INF = -1e9
 HEAD_DIM = 64  # the kernel's compiled head dim (ofa_tiny and ofa_base)
 MAX_BEAMS = 16  # query rows per sample the kernel holds in registers
 _DTYPES = (torch.float32, torch.bfloat16)
-_SIG = (_build.INT,) + (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.PTR,)
+_SIG = (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.PTR,)
+
+
+def sm90_smem(Kb: int, S: int) -> int:
+    """Shared memory of the tensor-core kernel (``smem_bytes``): the 8-stage
+    ring of 4 KB int8 tiles, two 8 KB bf16 value tiles, the mbarriers, the
+    fp32 scores ``[Kb, S']`` and the k_scale, v_scale and bias rows, the bf16
+    probabilities ``[Kb, S' + 8]`` (S' = S rounded up to 64)."""
+    sp = -(-S // 64) * 64
+    return 1024 + 8 * 4096 + 2 * 8192 + 128 + 4 * (Kb * sp + 3 * sp) + 2 * Kb * (sp + 8)
+
+
+def _route(device: torch.device, q: torch.Tensor, k_i8: torch.Tensor, v_i8: torch.Tensor) -> str:
+    """The version ``decode_cross_attention_int8`` runs (``_build.route``):
+    ``"plain"`` on the CPU, ``"fma"`` for fp32 q, ``"sm90"`` for bf16 q, whose
+    q and int8 cache must then be TMA-aligned too."""
+    return _build.route("decode_cross_attention_int8", device, q.dtype,
+                        {"q": q, "k_i8": k_i8, "v_i8": v_i8})
 
 
 def _check(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad) -> None:
@@ -73,10 +97,9 @@ def decode_cross_attention_int8(
     """→ [B, H, Kb, D] in q's dtype. Plain version on CPU, CUDA kernel on CUDA."""
     name = "decode_cross_attention_int8"
     _check(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad)
-    if q.device.type == "cpu":
+    kind = _route(q.device, q, k_i8, v_i8)
+    if kind == "plain":
         return decode_cross_attention_int8_plain(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad)
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
     _build.require_cuda(name, {"q": q}, _DTYPES)
     _build.require_cuda(name, {"k_i8": k_i8, "v_i8": v_i8}, (torch.int8,))
     _build.require_cuda(name, {"k_scale": k_scale, "v_scale": v_scale}, (torch.float32,))
@@ -93,17 +116,22 @@ def decode_cross_attention_int8(
     if D != HEAD_DIM or Kb > MAX_BEAMS:
         raise NotImplementedError(f"{name}: head dim {D} (kernel has {HEAD_DIM}), "
                                   f"{Kb} beams (kernel holds at most {MAX_BEAMS})")
+    if kind == "sm90" and sm90_smem(Kb, S) > _build.SMEM_MAX:
+        raise NotImplementedError(f"{name}: {Kb} beams x {S} keys exceed the tensor-core "
+                                  f"kernel's shared memory")
     out = torch.empty_like(q)
-    fn = _build.kernel_function("mk_decode_cross_attn_int8", _SIG)
+    entry = "mk_decode_cross_attn_int8_sm90" if kind == "sm90" else "mk_decode_cross_attn_int8"
     with torch.cuda.device(q.device):
-        err = fn(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), bias.data_ptr(), enc_pad.data_ptr(),
-            out.data_ptr(), B, H, Kb, S, bias.stride(0), bias.stride(1), _build.stream_of(q),
+        err = _build.kernel_function(entry, _SIG)(
+            q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), bias.data_ptr(), enc_pad.data_ptr(), out.data_ptr(), B, H, Kb,
+            S, bias.stride(0), bias.stride(1), _build.stream_of(q),
         )
     _build.check(err, name)
     decode_cross_attention_int8.launches += 1
+    decode_cross_attention_int8.launches_sm90 += kind == "sm90"
     return out
 
 
-decode_cross_attention_int8.launches = 0
+decode_cross_attention_int8.launches = 0  # either route
+decode_cross_attention_int8.launches_sm90 = 0  # the tensor-core route (bf16)

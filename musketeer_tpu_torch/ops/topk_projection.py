@@ -22,8 +22,12 @@ K2-q8 (``_proj_kernel_q8``) is the same function over the int8 serving
 projection (``models/ofa.py::quantize_output_proj``): ``w`` int8 ``[Vp, D]``
 with fp32 row scales ``w_scale [Vp]``. The logits are the fp32 dot of the
 features with ``w`` (converted to the features' dtype, exact for |w| ≤ 127)
-times the row scale, before the padding mask and the statistics. Its
-launches are counted apart, in ``project_with_stats.launches_q8``.
+times the row scale, before the padding mask and the statistics. It routes
+as K2 does: bf16 features on the same persistent tensor-core kernel
+(``proj_q8_sm90_kernel``: int8 W stages by TMA, widened in registers into
+wgmma's A operand, the row scales in the epilogue), fp32 on the FMA kernel.
+Its launches are counted apart, in ``project_with_stats.launches_q8`` (either
+route) and ``.launches_q8_sm90`` (the tensor cores).
 
 ``select_candidate_blocks`` (plain PyTorch, as in the JAX package) then picks
 the top ``nb_sel`` blocks per row and gathers their logits.
@@ -42,7 +46,8 @@ BLK = 128  # block-max granularity
 _DTYPES = (torch.float32, torch.bfloat16)
 _SIG = (_build.PTR,) * 5 + (_build.INT,) * 4 + (_build.PTR,)
 _SIG_SM90 = (_build.PTR,) * 5 + (_build.INT,) * 6 + (_build.PTR,)
-_SIG_Q8 = (_build.INT,) + (_build.PTR,) * 6 + (_build.INT,) * 4 + (_build.PTR,)
+_SIG_Q8 = (_build.PTR,) * 6 + (_build.INT,) * 4 + (_build.PTR,)
+_SIG_Q8_SM90 = (_build.PTR,) * 6 + (_build.INT,) * 6 + (_build.PTR,)
 
 
 def _logsumexp_from_blocks(bmax: torch.Tensor, bsum: torch.Tensor) -> torch.Tensor:
@@ -72,22 +77,32 @@ def project_plain(features: torch.Tensor, w: torch.Tensor,
     return logits, bmax, _logsumexp_from_blocks(bmax, bsum)
 
 
-def _proj_smem(n_tile: int, D: int) -> int:
-    """Shared memory of the bf16 kernel (``proj_smem``): the 4-stage ring of
-    16 KB W tiles, the h rows, the logits transpose, the reductions, the
-    mbarriers."""
-    nch = -(-D // 64)
+def _proj_smem(n_tile: int, D: int, q8: bool = False) -> int:
+    """Shared memory of the tensor-core kernel (``proj_smem``): the 4-stage
+    ring of 16 KB W stages (bf16 128 × 64, or int8 128 × 128), the h rows (in
+    64-deep chunks; int8: whole 128-deep stages), the logits transpose, the
+    reductions, the mbarriers."""
+    nch = 2 * -(-D // 128) if q8 else -(-D // 64)
     return 1024 + 4 * 16384 + nch * n_tile * 128 + 2 * n_tile * (BLK + 8) + 20 * n_tile + 72
 
 
-def proj_plan(rows: int, D: int, n_sm: int, Vp: int) -> Tuple[int, int]:
-    """(row tile, CTAs) of the bf16 kernel: the row tile that covers ``rows``,
-    or the largest whose h rows fit in shared memory; one CTA per SM."""
+def proj_plan(rows: int, D: int, n_sm: int, Vp: int, q8: bool = False) -> Tuple[int, int]:
+    """(row tile, CTAs) of the tensor-core kernel (int8 ``w`` if ``q8``): the
+    row tile that covers ``rows``, or the largest whose h rows fit in shared
+    memory; one CTA per SM."""
     fits = [n for n in _build.ROW_TILES if n <= _build.row_tile(rows)
-            and _proj_smem(n, D) <= _build.SMEM_MAX]
+            and _proj_smem(n, D, q8) <= _build.SMEM_MAX]
     if not fits:
         raise NotImplementedError(f"project_with_stats: D {D} leaves no room for h in shared memory")
     return fits[-1], min(n_sm, Vp // BLK)
+
+
+def _route(device: torch.device, features: torch.Tensor, w: torch.Tensor) -> str:
+    """The version ``project_with_stats`` runs (``_build.route``): ``"plain"`` on
+    the CPU, ``"fma"`` for fp32 features, ``"sm90"`` for bf16 ones, whose ``w``
+    (bf16 or int8) must then be TMA-aligned too."""
+    return _build.route("project_with_stats", device, features.dtype,
+                        {"features": features, "w": w})
 
 
 def project_with_stats(
@@ -107,44 +122,43 @@ def project_with_stats(
         raise ValueError(f"{name}: an int8 w needs w_scale [{Vp}], and only an int8 w takes one")
     vs = Vp if vocab_size is None else vocab_size
     dev = features.device
+    kind = _route(dev, features, w)
+    if kind == "plain":
+        return project_plain(features, w, w_scale, vs)
+    _build.require_cuda(name, {"features": features}, _DTYPES)
     if q8:
-        if dev.type == "cpu":
-            return project_plain(features, w, w_scale, vs)
-        if dev.type != "cuda":
-            raise ValueError(f"{name}: unsupported device {dev}")
-        _build.require_cuda(name, {"features": features}, _DTYPES)
         _build.require_cuda(name, {"w": w}, (torch.int8,))
         _build.require_cuda(name, {"w_scale": w_scale}, (torch.float32,))
         if not (w.device == w_scale.device == dev):
             raise ValueError(f"{name}: w and w_scale must be on {dev}")
-        kind = "q8"
     else:
-        kind = _build.route(name, dev, features.dtype, {"features": features, "w": w})
-        if kind == "plain":
-            return project_plain(features, w, w_scale, vs)
         _build.require_cuda(name, {"features": features, "w": w}, _DTYPES)
     logits = torch.empty((N, Vp), dtype=features.dtype, device=dev)
     bmax = torch.empty((N, Vp // BLK), dtype=torch.float32, device=dev)
     bsum = torch.empty_like(bmax)
     stream = _build.stream_of(features)
+    outs = (logits.data_ptr(), bmax.data_ptr(), bsum.data_ptr())
     with torch.cuda.device(dev):
-        if kind == "q8":
+        if kind == "sm90":
+            n_tile, ctas = proj_plan(N, D, _build.sm_count(dev), Vp, q8)
+        if q8 and kind == "sm90":
+            err = _build.kernel_function("mk_project_with_stats_q8_sm90", _SIG_Q8_SM90)(
+                features.data_ptr(), w.data_ptr(), w_scale.data_ptr(), *outs, N, D, Vp, vs,
+                n_tile, ctas, stream)
+        elif q8:
             err = _build.kernel_function("mk_project_with_stats_q8", _SIG_Q8)(
-                int(features.dtype == torch.bfloat16), features.data_ptr(), w.data_ptr(),
-                w_scale.data_ptr(), logits.data_ptr(), bmax.data_ptr(), bsum.data_ptr(), N, D,
-                Vp, vs, stream)
+                features.data_ptr(), w.data_ptr(), w_scale.data_ptr(), *outs, N, D, Vp, vs,
+                stream)
         elif kind == "sm90":
-            n_tile, ctas = proj_plan(N, D, _build.sm_count(dev), Vp)
             err = _build.kernel_function("mk_project_with_stats_sm90", _SIG_SM90)(
-                features.data_ptr(), w.data_ptr(), logits.data_ptr(), bmax.data_ptr(),
-                bsum.data_ptr(), N, D, Vp, vs, n_tile, ctas, stream)
+                features.data_ptr(), w.data_ptr(), *outs, N, D, Vp, vs, n_tile, ctas, stream)
         else:
             err = _build.kernel_function("mk_project_with_stats", _SIG)(
-                features.data_ptr(), w.data_ptr(), logits.data_ptr(), bmax.data_ptr(),
-                bsum.data_ptr(), N, D, Vp, vs, stream)
+                features.data_ptr(), w.data_ptr(), *outs, N, D, Vp, vs, stream)
     _build.check(err, name)
-    if kind == "q8":
+    if q8:
         project_with_stats.launches_q8 += 1
+        project_with_stats.launches_q8_sm90 += kind == "sm90"
     else:
         project_with_stats.launches += 1
         project_with_stats.launches_sm90 += kind == "sm90"
@@ -153,7 +167,8 @@ def project_with_stats(
 
 project_with_stats.launches = 0  # K2, either route
 project_with_stats.launches_sm90 = 0  # K2 on the tensor-core route (bf16)
-project_with_stats.launches_q8 = 0  # K2-q8
+project_with_stats.launches_q8 = 0  # K2-q8, either route
+project_with_stats.launches_q8_sm90 = 0  # K2-q8 on the tensor-core route (bf16)
 
 
 def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

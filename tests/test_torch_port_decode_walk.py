@@ -170,10 +170,17 @@ def test_fp32_stack_walk_is_the_plain_version(stack_inputs, cache_index, split):
 
 def walk_proj(h: torch.Tensor, w: torch.Tensor, vocab_size: int):
     """K2 as the tensor-core route computes it → (logits, bmax, Z)."""
-    N, Vp = h.shape[0], w.shape[0]
-    nblk = Vp // k2.BLK
     x = h.float() @ w.float().t()
     x[:, vocab_size:] = k2.NEG_INF
+    return walk_stats(x, h.dtype)
+
+
+def walk_stats(x: torch.Tensor, dtype: torch.dtype):
+    """The tensor-core route's epilogue on the masked fp32 logits x [N, Vp]:
+    the logits rounded to ``dtype``, each block's max and sum of exp in the
+    kernel's order → (logits, bmax, Z)."""
+    N, Vp = x.shape
+    nblk = Vp // k2.BLK
     # block position v = 64 half + 16 warp + 8 hh + g -> [N, nblk, warp, g, half, hh]
     t = x.view(N, nblk, 2, 4, 2, 8).permute(0, 1, 3, 5, 2, 4)
     bmax = t.amax(dim=(2, 3, 4, 5))
@@ -183,7 +190,7 @@ def walk_proj(h: torch.Tensor, w: torch.Tensor, vocab_size: int):
     p = p[..., 0::2] + p[..., 1::2]  # xor 8
     p = p[..., 0] + p[..., 1]  # xor 16 -> [N, nblk, warp]
     bsum = (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
-    return x.to(h.dtype), bmax, k2._logsumexp_from_blocks(bmax, bsum)
+    return x.to(dtype), bmax, k2._logsumexp_from_blocks(bmax, bsum)
 
 
 @pytest.mark.parametrize("N,D,Vp,vocab_size", [(80, 256, 1024, 1000), (10, 128, 768, 768),
