@@ -6,11 +6,12 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
     python3 chip_smoke.py --train-only   # phases 1, 2 and 8 with its profiled step
     python3 chip_smoke.py --decode-only  # phases 1, 2, 4, 10, 11, 12, 5 and 13, and 15
+    python3 chip_smoke.py --k8-only      # phases 1, 2 and 17
 
-``--train-only`` and ``--decode-only`` also run against an older tree's
-package when this file is copied into that tree's root, so that one call can
-time the training step, or K2, K2-q8, K6, K7 and the caption slices, of both
-trees on one card; they print no result line.
+``--train-only``, ``--decode-only`` and ``--k8-only`` also run against an
+older tree's package when this file is copied into that tree's root, so that
+one call can time the training step, or K2, K2-q8, K6, K7 and the caption
+slices, or K8, of both trees on one card; they print no result line.
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -22,7 +23,8 @@ Phases; any failure raises and the script exits non-zero:
    two launches; ``skinny_gemm_sm90.cuh``: K7's products, K2's
    ``proj_sm90_kernel`` and K2-q8's ``proj_q8_sm90_kernel``;
    ``decode_attn_sm90.cuh``: K7's cross-attention; ``decode_cross_attn.cu``:
-   K6's ``cross_attn_i8_sm90_kernel``);
+   K6's ``cross_attn_i8_sm90_kernel``; ``bottleneck_sm90.cuh``: K8's
+   ``mk::bneck::kernel``);
 3. K1 (attention) against its plain PyTorch version at the caption encoder
    shape, and at small causal, cross (``rel=None``), ``skip_max`` and fully
    masked cases; in bf16 also against the function in fp32 on the same bf16
@@ -119,12 +121,18 @@ Phases; any failure raises and the script exits non-zero:
     drives it (``probe_bottleneck.py``): ``ofa_base``'s ResNet-101 on 16
     seeded 480² images in bf16, the stem and each stage's first block through
     the port's model code, each stage's stride-1 blocks (2 at 120², 3 at 60²,
-    22 at 30²) through ``fused_bottleneck``: exactly 27 K8 launches and
-    nothing else; each block against its plain version on the same input;
-    fp32 cases (widths not multiples of 64, layer3's widths); the autograd
+    22 at 30²) through ``fused_bottleneck``: exactly 27 K8 launches, all 27
+    on the bf16 tensor-core route, and nothing else; each block against its
+    plain version on the same input and against the function in fp32, as in
+    phase 3; small cases in fp32 (the FMA kernel) and bf16 (the tensor-core
+    route): ragged edges, an image smaller than one tile, widths not
+    multiples of 64, layer3's widths, Wd 192 (a partial conv2 pass); the autograd
     Function's gradients against autograd through the unfused block; per
-    stage, the kernel chain, the plain chain and the port's unfused cuDNN
-    chain (what the model runs; no single library call) timed.
+    stage, the kernel chain (CUDA events; its kernels' device time under
+    ``torch.profiler`` and the wrapper calls' host time), the plain chain and
+    the port's unfused cuDNN chain (what the model runs; no single library
+    call; cuDNN's benchmark mode pinned on, 5 timings for a range, and the
+    heuristic choice beside it).
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
@@ -135,7 +143,9 @@ Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
 on their main path, error against the plain version, kernel, plain and
 library times, the bound of the same work on an H100 SXM at 3.35 TB/s and
 989 TFLOP/s bf16; K8's times are the 27-block chain's, with the cuDNN chain
-as ``cudnn_block_ms``; for K2, K2-q8 and K6 the kernel's own device time as
+as ``cudnn_block_ms`` (the median; ``cudnn_block_ms_range`` its range) and
+the kernels' device time and the calls' host time as ``device_ms`` and
+``host_ms``; for K2, K2-q8 and K6 the kernel's own device time as
 ``device_ms`` and the wrapper call's host time as ``host_ms``), then as its
 last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -289,8 +299,8 @@ def phase_build() -> float:
 # substrings of the mangled names of the tensor-core kernels: the attention
 # cores (mk::sm90), the weight-streaming products (mk::skinny, K7; K2's
 # proj_sm90_kernel, K2-q8's proj_q8_sm90_kernel), K7's cross-attention
-# (mk::decode_attn) and K6's cross_attn_i8_sm90_kernel
-TENSOR_CORE_KERNELS = ("sm90", "skinny", "decode_attn")
+# (mk::decode_attn), K6's cross_attn_i8_sm90_kernel and K8's mk::bneck::kernel
+TENSOR_CORE_KERNELS = ("sm90", "skinny", "decode_attn", "bneck")
 
 
 def _ptxas_lines(text: str) -> list:
@@ -380,13 +390,13 @@ def _library_ms(name: str, fn, iters: int = 10):
 
 
 # the bf16 tensor-core routes counted apart from their kernel's other launches
-SM90_ROUTES = frozenset({"K2-sm90", "K2-q8-sm90", "K6-sm90", "K7-sm90"})
+SM90_ROUTES = frozenset({"K2-sm90", "K2-q8-sm90", "K6-sm90", "K7-sm90", "K8-sm90"})
 
 
 def _counter_owners(routes: frozenset = SM90_ROUTES) -> dict:
     """Each kernel's wrapper and the attribute that counts its launches; of the
     bf16 tensor-core routes' counters only those in ``routes`` (an older tree,
-    run by ``--decode-only`` or ``--train-only``, lacks some)."""
+    run by ``--decode-only``, ``--train-only`` or ``--k8-only``, lacks some)."""
     from musketeer_tpu_torch.ops import bottleneck as k8
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
     from musketeer_tpu_torch.ops import decode_stack as k7
@@ -408,14 +418,15 @@ def _counter_owners(routes: frozenset = SM90_ROUTES) -> dict:
               "K6-sm90": (k6.decode_cross_attention_int8, "launches_sm90"),
               "K7": (k7.decode_stack_step, "launches"),
               "K7-sm90": (k7.decode_stack_step, "launches_sm90"),
-              "K8": (k8.fused_bottleneck, "launches")}
+              "K8": (k8.fused_bottleneck, "launches"),
+              "K8-sm90": (k8.fused_bottleneck, "launches_sm90")}
     return {k: v for k, v in owners.items() if k in routes or k not in SM90_ROUTES}
 
 
 def _sm90_routes() -> frozenset:
-    """The bf16 tensor-core routes this tree counts apart: ``--train-only`` and
-    ``--decode-only`` ask, since they also run against older trees; the full
-    run requires them all."""
+    """The bf16 tensor-core routes this tree counts apart: ``--train-only``,
+    ``--decode-only`` and ``--k8-only`` ask, since they also run against older
+    trees; the full run requires them all."""
     owners = _counter_owners()
     return frozenset(k for k in SM90_ROUTES if hasattr(*owners[k]))
 
@@ -1458,30 +1469,75 @@ def _k8_work(x: torch.Tensor, p: dict) -> dict:
     return _bound(nbytes, 2.0 * B * H * W * (2 * C * Wd + 9 * Wd * Wd))
 
 
-def _k8_checks(g, tree) -> None:
-    """fp32 K8 against its plain version (widths not multiples of 64, layer1's
-    and layer3's widths), and the Function's gradients against autograd
-    through the unfused block."""
+# K8's small cases, each in fp32 (the FMA kernel) and bf16 (the tensor-core
+# route): the block ("random": seeded widths; "layerN": that stage's first
+# stride-1 block of the model tree) and x's [B, H, W, C]
+K8_SMALL = {
+    "B2 12x12 C16 Wd8 (ragged columns, widths padded to 64)": ("random", (2, 12, 12, 16), 8),
+    "B2 10x6 C256 Wd64 (an image smaller than one tile)": ("layer1", (2, 10, 6, 256), 64),
+    "B1 17x9 C200 Wd72 (ragged, C and Wd not multiples of 64)": ("random", (1, 17, 9, 200), 72),
+    "B1 30x30 C1024 Wd256": ("layer3", (1, 30, 30, 1024), 256),
+    "B1 9x11 C64 Wd192 (six ring stages, a partial conv2 pass)": ("random", (1, 9, 11, 64), 192),
+}
+
+
+def _random_block(g, C: int, Wd: int) -> dict:
+    """A seeded stride-1 block in the JAX layout (HWIO) with non-trivial frozen BN."""
+    rnd = lambda *shape, std=1.0: torch.randn(*shape, generator=g, device="cuda") * std
+    blk = {"conv1": rnd(1, 1, C, Wd, std=C ** -0.5), "conv2": rnd(3, 3, Wd, Wd, std=(9 * Wd) ** -0.5),
+           "conv3": rnd(1, 1, Wd, C, std=Wd ** -0.5)}
+    for i, c in ((1, Wd), (2, Wd), (3, C)):
+        blk[f"bn{i}"] = {"scale": 1 + rnd(c, std=0.1), "bias": rnd(c, std=0.1),
+                         "mean": rnd(c, std=0.1), "var": rnd(c).abs() + 0.5}
+    return blk
+
+
+def _widen(p: dict) -> dict:
+    """A block dict with every tensor in fp32 (the same values)."""
+    return {k: _widen(v) if isinstance(v, dict) else v.float() for k, v in p.items()}
+
+
+def _k8_bf16(k8, name: str, x: torch.Tensor, p: dict, sm90: bool) -> tuple:
+    """bf16 K8 on x against its plain version (BF16_TOL) and against the
+    function in fp32 on the same bf16 inputs (``_check_function``); with
+    ``sm90`` its tensor-core counter must move by one. → (error, message,
+    max|ref|)."""
+    before = k8.fused_bottleneck.launches_sm90 if sm90 else 0
+    out = k8.fused_bottleneck(x, p)
+    torch.cuda.synchronize()
+    if sm90 and k8.fused_bottleneck.launches_sm90 != before + 1:
+        raise AssertionError(f"K8 {name}: bf16 did not run on the tensor-core route")
+    ref = k8.fused_bottleneck_plain(x, p)
+    err = _check_close(f"K8 {name}", out, ref, BF16_TOL)
+    msg = _check_function(f"K8 {name}", out, ref, k8.fused_bottleneck_plain(x.float(), _widen(p)))
+    return err, msg, float(ref.float().abs().max())
+
+
+def _k8_checks(g, tree, sm90: bool) -> None:
+    """K8's small cases in fp32 against its plain version and in bf16 as
+    ``_k8_bf16``, the fold kernel's affines against ``fold_bn`` bit for bit,
+    and the Function's gradients against autograd through the unfused block."""
     from musketeer_tpu_torch.models import resnet as rn
     from musketeer_tpu_torch.ops import bottleneck as k8
     from musketeer_tpu_torch.params import block_from_jax
 
     res = tree["encoder"]["resnet"]
-    rnd = lambda *shape, std=1.0: torch.randn(*shape, generator=g, device="cuda") * std
-    small = {"conv1": rnd(1, 1, 16, 8, std=0.35), "conv2": rnd(3, 3, 8, 8, std=0.16),
-             "conv3": rnd(1, 1, 8, 16, std=0.35)}
-    for i, c in ((1, 8), (2, 8), (3, 16)):
-        small[f"bn{i}"] = {"scale": 1 + rnd(c, std=0.1), "bias": rnd(c, std=0.1),
-                           "mean": rnd(c, std=0.1), "var": rnd(c).abs() + 0.5}
-    cases = {"B2 12x12 C16 Wd8": (small, (2, 12, 12, 16)),
-             "B2 10x6 C256 Wd64": (_rest_block(res["layer1"]["rest"], 0), (2, 10, 6, 256)),
-             "B1 30x30 C1024 Wd256": (_rest_block(res["layer3"]["rest"], 0), (1, 30, 30, 1024))}
-    for name, (blk, shape) in cases.items():
-        p = block_from_jax(blk, "cuda", torch.float32)
+    for name, (src, shape, Wd) in K8_SMALL.items():
+        blk = _random_block(g, shape[3], Wd) if src == "random" else \
+            _rest_block(res[src]["rest"], 0)
         x = torch.randn(*shape, generator=g, device="cuda")
+        p = block_from_jax(blk, "cuda", torch.float32)
         a, b = k8.fused_bottleneck(x, p), k8.fused_bottleneck_plain(x, p)
         torch.cuda.synchronize()
         log(f"[K8] {name} fp32: max abs err {_check_close(f'K8 {name}', a, b, FP32_TOL):.3e}")
+        pb = block_from_jax(blk, "cuda", torch.bfloat16)
+        err, msg, _ = _k8_bf16(k8, name, x.to(torch.bfloat16), pb, sm90)
+        log(f"[K8] {name} bf16: max abs err {err:.3e}; {msg}")
+        if sm90:  # the fold kernel's affines against fold_bn's torch ops, bit for bit
+            folds = [k8.fold_bn(p[f"bn{i}"]) for i in (1, 2, 3)]
+            if not torch.equal(k8._affines(p), torch.cat([g for g, _ in folds] +
+                                                         [b for _, b in folds])):
+                raise AssertionError(f"K8 {name}: the folded affines differ from fold_bn's")
 
     # gradients: the Function (forward K8, backward the unfused block recomputed)
     # against autograd through the unfused block with the same leaves
@@ -1509,14 +1565,37 @@ def _k8_checks(g, tree) -> None:
         raise AssertionError(f"K8's gradients differ from the unfused block's: {worst}")
 
 
-def phase_k8(g, tree, smi: str) -> tuple:
+def _k8_kernel_ms(fn, iters: int) -> float:
+    """The device time of K8's own kernel launches per call of ``fn``
+    (torch.profiler): the BN fold and the tensor-core kernel
+    ``mk::bneck::kernel`` or, in an older tree, the FMA kernel
+    ``(anonymous namespace)::kernel``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and any(k in e.name for k in ("bneck::kernel", "fold_bn_kernel",
+                                             "namespace)::kernel<"))) / 1e3 / iters
+
+
+def phase_k8(g, tree, smi: str, routes: frozenset = SM90_ROUTES) -> tuple:
     """K8 on the ResNet-101 stage path at B16 480² in bf16: the counted chain,
-    each block against its plain version, the fp32 checks, per-stage times."""
+    each block against its plain version and the fp32 function, the small
+    cases, per-stage times. ``routes`` without ``K8-sm90`` only for an older
+    tree (``--k8-only``), whose bf16 K8 has no tensor-core route."""
     from musketeer_tpu_torch.config import ofa_base
     from musketeer_tpu_torch.models import resnet as rn
     from musketeer_tpu_torch.ops import bottleneck as k8
     from musketeer_tpu_torch.params import from_jax
 
+    sm90 = "K8-sm90" in routes
     cfg = dataclasses.replace(ofa_base(), dtype="bfloat16", use_flash_attention=True)
     params = from_jax(tree, cfg, "cuda", torch.bfloat16)["encoder"]["resnet"]
     images = _inputs(BATCH, SEED)[1].to(torch.bfloat16)
@@ -1537,16 +1616,18 @@ def phase_k8(g, tree, smi: str) -> tuple:
 
     with torch.no_grad():
         stage_inputs, block_inputs = {}, []
-        _reset_counters()
+        _reset_counters(routes)
         x = rn.stem(params, images)
         for s, stride in rn.STAGES:
             x = rn._bottleneck(x, params[f"layer{s}"][0], stride)
             stage_inputs[s] = x
             x = chain(x, params[f"layer{s}"][1:], fused_recording)
         torch.cuda.synchronize()
-        launches = _counters()
+        launches = _counters(routes)
         want = dict.fromkeys(launches, 0)
         want["K8"] = sum(len(params[f"layer{s}"]) - 1 for s, _ in rn.STAGES)
+        if sm90:  # every bf16 block on the tensor-core route
+            want["K8-sm90"] = want["K8"]
         log(f"[K8] stage path launches {launches}")
         if launches != want or want["K8"] != 27:
             raise AssertionError(f"K8 stage path: launches {launches}, expected {want}")
@@ -1557,41 +1638,66 @@ def phase_k8(g, tree, smi: str) -> tuple:
 
         errs, rel_errs = [], []
         for i, (h, p) in enumerate(block_inputs):
-            ref = k8.fused_bottleneck_plain(h, p)
-            errs.append(_check_close(f"K8 block {i}", k8.fused_bottleneck(h, p), ref, BF16_TOL))
-            rel_errs.append(errs[-1] / float(ref.float().abs().max()))
+            err, msg, top = _k8_bf16(k8, f"block {i}", h, p, sm90)
+            errs.append(err)
+            rel_errs.append(err / top)
+            log(f"[K8] block {i} bf16: max abs err {err:.3e}; {msg}")
         # the seeded BN statistics grow the activations block by block (max|ref|
         # from ~10 to ~1e7), so the error is read against each block's max|ref|
         log(f"[K8] 27 blocks bf16 against the plain version: max abs err {max(errs):.3e}; "
             f"max abs err / max|ref| per block {[float(f'{e:.2e}') for e in rel_errs]}")
-        del block_inputs, ref
+        del block_inputs
 
-        totals = dict(ms=0.0, plain_ms=0.0, cudnn_block_ms=0.0, bound_ms=0.0)
+        # cuDNN picks its algorithms by heuristics unless benchmark mode is on,
+        # and then by timing them at the first call of each shape: pinned on
+        # here, each chain warmed up, then timed 5 times to give its range; the
+        # heuristic choice is timed too, for the comparison
+        totals = dict(ms=0.0, plain_ms=0.0, cudnn_block_ms=0.0, bound_ms=0.0, device_ms=0.0,
+                      host_ms=0.0, cudnn_device_ms=0.0, cudnn_host_ms=0.0)
+        cudnn_lo = cudnn_hi = 0.0
         ops_bound_ms = 0.0  # the part of the chain's bound set by operations
+        benchmark = torch.backends.cudnn.benchmark
         for s, _ in rn.STAGES:
             x0, blocks = stage_inputs[s], params[f"layer{s}"][1:]
             work = _k8_work(x0.permute(0, 2, 3, 1), blocks[0])
-            times = {k: cuda_ms(lambda: chain(x0, blocks, fn), iters) for k, fn, iters in (
-                ("ms", k8.fused_bottleneck, 3), ("plain_ms", k8.fused_bottleneck_plain, 3),
-                ("cudnn_block_ms", unfused, 10))}
+            fused = lambda: chain(x0, blocks, k8.fused_bottleneck)
+            times = {"ms": cuda_ms(fused, 5),
+                     "plain_ms": cuda_ms(lambda: chain(x0, blocks, k8.fused_bottleneck_plain), 3)}
+            times["device_ms"] = _k8_kernel_ms(fused, 3)
+            _, times["host_ms"] = _device_host_ms(fused, 3)
+            torch.backends.cudnn.benchmark = False
+            heur = [cuda_ms(lambda: chain(x0, blocks, unfused), 10) for _ in range(3)]
+            torch.backends.cudnn.benchmark = True
+            tuned = [cuda_ms(lambda: chain(x0, blocks, unfused), 10) for _ in range(5)]
+            times["cudnn_block_ms"] = statistics.median(tuned)
+            times["cudnn_device_ms"], times["cudnn_host_ms"] = _device_host_ms(
+                lambda: chain(x0, blocks, unfused), 5)
             n = len(blocks)
             for k, v in times.items():
                 totals[k] += v
+            cudnn_lo, cudnn_hi = cudnn_lo + min(tuned), cudnn_hi + max(tuned)
             totals["bound_ms"] += n * work["bound_ms"]
             ops_bound_ms += n * work["bound_ms"] * (work["bound_by"] == "operations")
             B, C, H, W = x0.shape
             log(f"[K8] layer{s}: {n} blocks at B{B} {H}x{W} C{C} Wd{blocks[0]['conv1'].shape[0]}: "
-                f"kernel {times['ms']:.3f} ms, plain {times['plain_ms']:.3f} ms, cuDNN block "
-                f"{times['cudnn_block_ms']:.3f} ms per chain; per block kernel "
-                f"{times['ms'] / n:.3f} ms, bound {work['bound_ms']:.4f} ms ({work['bound_by']}) "
-                f"on {smi}")
+                f"kernel {times['ms']:.3f} ms per chain by CUDA events (its kernels' device time "
+                f"{times['device_ms']:.3f} ms, the wrapper calls' host time "
+                f"{times['host_ms']:.3f} ms), plain {times['plain_ms']:.3f} ms, cuDNN block chain "
+                f"{min(tuned):.3f}-{max(tuned):.3f} ms (benchmark mode: device "
+                f"{times['cudnn_device_ms']:.3f} ms, host {times['cudnn_host_ms']:.3f} ms; "
+                f"heuristics {min(heur):.3f}-{max(heur):.3f} ms); per block kernel "
+                f"{times['ms'] / n:.4f} ms, "
+                f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}) on {smi}")
+        torch.backends.cudnn.benchmark = benchmark
         del stage_inputs
-    _k8_checks(g, tree)
-    log(f"[K8] 27-block chain: kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
-        f"cuDNN block {totals['cudnn_block_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms")
+    _k8_checks(g, tree, sm90)
+    log(f"[K8] 27-block chain: kernel {totals['ms']:.3f} ms (device {totals['device_ms']:.3f}, "
+        f"host {totals['host_ms']:.3f}), plain {totals['plain_ms']:.3f} ms, cuDNN block chain "
+        f"{cudnn_lo:.3f}-{cudnn_hi:.3f} ms (device {totals['cudnn_device_ms']:.3f}, host "
+        f"{totals['cudnn_host_ms']:.3f}), bound {totals['bound_ms']:.4f} ms on {smi}")
     stats = dict(max_abs_err=max(errs), library_ms=None,
                  bound_by="operations" if ops_bound_ms >= totals["bound_ms"] / 2 else "bytes",
-                 **totals)
+                 cudnn_block_ms_range=[cudnn_lo, cudnn_hi], **totals)
     return stats, launches
 
 
@@ -1607,6 +1713,9 @@ def main(argv=None) -> int:
                       help="after phases 1-2, run only phases 4, 10, 11 and 12 (K2, K2-q8, "
                            "K6, K7), the three caption slices (5, 13) and their profile (15), "
                            "and print no result line")
+    only.add_argument("--k8-only", action="store_true",
+                      help="after phases 1-2, run only phase 17 (K8's stage path, its checks "
+                           "and times), and print no result line")
     opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1614,11 +1723,15 @@ def main(argv=None) -> int:
     from musketeer_tpu_torch.config import ofa_base
 
     tree = _random_model_tree(dataclasses.replace(ofa_base(), use_flash_attention=True), SEED)
-    if opts.train_only or opts.decode_only:
+    if opts.train_only or opts.decode_only or opts.k8_only:
         routes = _sm90_routes()  # an older tree counts fewer tensor-core routes apart
         log(f"[routes] bf16 routes on the tensor cores, counted apart: {sorted(routes)}")
     if opts.train_only:
         phase_train(tree, smi, routes)
+        return 0
+    if opts.k8_only:
+        phase_k8(torch.Generator(device="cuda").manual_seed(SEED), tree, smi, routes)
+        log(f"[done] K8 phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.decode_only:
         g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1660,7 +1773,7 @@ def main(argv=None) -> int:
         ("K5-cross", "flash_cross_attention", "flash_fwd_sm90.cuh", "flash_attention.py:112"),
         ("K6", "decode_cross_attention_int8", "decode_cross_attn.cu", "decode_cross_attn.py:71"),
         ("K7", "decode_stack_step", "decode_stack.cu", "decode_stack.py:384"),
-        ("K8", "fused_bottleneck", "bottleneck.cu", "bottleneck.py:191"),
+        ("K8", "fused_bottleneck", "bottleneck_sm90.cuh", "bottleneck.py:191"),
     ]
     kernels = [dict(name=name, route="cuda", source=f"musketeer_tpu_torch/csrc/{src}",
                     replaces=f"musketeer_tpu/ops/{tpu}", launches=on_path[k][k], **stats[k])

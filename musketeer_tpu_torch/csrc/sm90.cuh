@@ -1,11 +1,12 @@
 // Hopper primitives shared by the port's tensor-core kernels: shared-memory
 // addresses, mbarriers, TMA copies, wgmma (m64n64k16 for the attention
 // cores, m64nNk16 at the N extents of the beam rows for the weight-streaming
-// products, with A from shared memory or from registers), the exact int8 ->
-// bf16 widening, programmatic dependent launch, and the run-time lookup of
-// cuTensorMapEncodeTiled. Used by flash_fwd_sm90.cuh and flash_bwd_sm90.cuh
-// (K1, K3, K4, K5), skinny_gemm_sm90.cuh (K2, K2-q8, K7) and
-// decode_attn_sm90.cuh (K6, K7).
+// products and at N = 64 and 128 for K8, with A from shared memory or from
+// registers; descriptors of 128-byte swizzled and of unswizzled tiles), the
+// exact int8 -> bf16 widening, programmatic dependent launch, and the
+// run-time lookup of cuTensorMapEncodeTiled. Used by flash_fwd_sm90.cuh and
+// flash_bwd_sm90.cuh (K1, K3, K4, K5), skinny_gemm_sm90.cuh (K2, K2-q8, K7),
+// decode_attn_sm90.cuh (K6, K7) and bottleneck_sm90.cuh (K8).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
@@ -70,6 +71,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// Descriptor of a K-major tile without swizzle ("interleave"): 8 x 16-byte
+// core matrices, each 8 rows of 16 bytes stored contiguously; `lbo` bytes
+// from one core matrix to the next along K, `sbo` bytes from one 8-row group
+// to the next along M (or N). K8's h1 and h2 (bottleneck_sm90.cuh).
+__device__ __forceinline__ uint64_t interleave_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFFu) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFFu) >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -191,6 +202,39 @@ __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, 
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// a box at (c0, c1, c2, c3) of a 4-D map into shared memory; coordinates
+// off the tensor (negative too) read as zeros
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a box of a 4-D map from shared memory to device memory, in this thread's
+// bulk group; coordinates off the tensor are not written
+__device__ __forceinline__ void tma_store4(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                           int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores: all but N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// this thread's bulk stores: all complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // generic-proxy writes to shared memory made visible to wgmma and TMA (the
@@ -400,6 +444,41 @@ struct Wgmma<80> {
   }
 };
 
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    wgmma_ss(d, da, db, acc);
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}"
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
 // ---- host side -------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -418,14 +497,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of rank 2 or 3 (dims and box innermost first, strides in
+// A tensor map of rank 2 to 5 (dims and box innermost first, strides in
 // bytes of dims 1..), zeros past the end. 0 or a cudaError_t code.
 inline int tiled_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
                      CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorInvalidDeviceFunction;
-  const cuuint32_t step[3] = {1, 1, 1};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
