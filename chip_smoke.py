@@ -7,6 +7,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --train-only   # phases 1, 2 and 8 with its profiled step
     python3 chip_smoke.py --decode-only  # phases 1, 2, 4, 10, 11, 12, 5 and 13, and 15
     python3 chip_smoke.py --k8-only      # phases 1, 2 and 17
+    python3 chip_smoke.py --eval-only    # phases 1, 2 and 18
 
 ``--train-only``, ``--decode-only`` and ``--k8-only`` also run against an
 older tree's package when this file is copied into that tree's root, so that
@@ -132,11 +133,27 @@ Phases; any failure raises and the script exits non-zero:
     ``torch.profiler`` and the wrapper calls' host time), the plain chain and
     the port's unfused cuDNN chain (what the model runs; no single library
     call; cuDNN's benchmark mode pinned on, 5 timings for a range, and the
-    heuristic choice beside it).
+    heuristic choice beside it);
+18. the eval path: each task of ``musketeer_tpu_torch.tasks`` through its own
+    ``evaluate`` at ``ofa_base`` in bf16, full width and depth, on a seeded
+    TSV written to a temporary directory (PNG images, base64, at the task's
+    size; without PIL each task's ``builder()`` returns seeded arrays at the
+    builders' output shapes, and the phase says which ran): caption (32 rows,
+    batch 16, 480², beam 5, 16 tokens: the fast path, K1 and K2), refcoco (16
+    rows, 512²: the general body with ``gen_box`` and ``constraint_range``),
+    snli_ve allcand (16 rows, 3 candidates: K1 in the encoder and the
+    teacher-forced decoder), VQA with 64 answers through ``evaluate``
+    (allcand) and ``evaluate_beam`` (trie + per-row prefix), gigaword (text
+    only; its generation alone where ``rouge_score`` is missing); per task the
+    K1 and K2 counters against its encodes, teacher-forced decodes and beam
+    steps (nothing else launched), its metric, rows/s, and host against
+    device time (``torch.profiler``); then each task at batch 2 in fp32
+    through the kernels and through their plain versions: identical
+    predictions (beam tokens, allcand picks, the task's output).
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
-stage chain) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+stage chain, each eval task) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
 the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
 Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
@@ -149,6 +166,8 @@ the kernels' device time and the calls' host time as ``device_ms`` and
 ``device_ms`` and the wrapper call's host time as ``host_ms``), then as its
 last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+K1's and K2's entries also carry ``eval_launches``: their launches in each
+eval task of phase 18.
 """
 
 from __future__ import annotations
@@ -160,15 +179,14 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import torch
 
-# " what does the image describe?" with bos/eos, from the JAX package's GPT-2
-# BPE dictionary: default_vocab().encode_text(prompt, append_bos=True,
-# append_eos=True); a constant because the tokenizer needs the `regex`
-# package, which the port does not depend on
+# " what does the image describe?" with bos/eos: default_vocab().encode_text(
+# prompt, append_bos=True, append_eos=True) (phase 18 runs the tokenizer)
 PROMPT_IDS = [0, 99, 473, 5, 2274, 6190, 116, 2]
 SEED = 0
 BATCH, BEAM, MAX_LEN, IMAGE = 16, 5, 16, 480
@@ -1701,6 +1719,310 @@ def phase_k8(g, tree, smi: str, routes: frozenset = SM90_ROUTES) -> tuple:
     return stats, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the eval tasks, TSV row to metric
+# ---------------------------------------------------------------------------
+
+# 64 closed-set answers for VQA: yes/no, counts, colours, colour + object
+_COLOURS = ("red", "blue", "green", "white", "black", "yellow", "brown", "gray")
+_OBJECTS = ("dog", "car", "cat", "bus", "tree")
+VQA_ANSWERS = (["yes", "no"] + [str(i) for i in range(14)] + list(_COLOURS)
+               + [f"{c} {o}" for c in _COLOURS for o in _OBJECTS])
+# name: (task class or registry key, TSV rows, image size, evaluate method, batch size)
+EVAL_TASKS = {
+    "caption": ("CaptionTask", 32, 480, "evaluate", 16),
+    "refcoco": ("RefcocoTask", 16, 512, "evaluate", 8),
+    "snli_ve": ("SnliVeTask", 16, 480, "evaluate", 8),
+    "vqa allcand": ("VqaTask", 16, 480, "evaluate", 4),
+    "vqa beam": ("VqaTask", 16, 480, "evaluate_beam", 4),
+    "gigaword": ("GigawordTask", 16, None, "evaluate", 8),
+}
+_SENTENCES = ("a man rides a horse on the beach", "two dogs play with a red ball in the park",
+              "a bus parked beside a tall tree", "a cat sleeps on a white sofa near the window")
+
+
+def _eval_rows(name: str, n: int, size, rng) -> list:
+    """``n`` seeded TSV rows in the task's format: smooth random images (a
+    random 40 × 30 image upsampled to 4/3 · size × size, PNG, base64) and
+    sentences, boxes and answers drawn from small seeded lists."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    def image():
+        small = Image.fromarray(rng.randint(0, 256, (30, 40, 3)).astype("uint8"))
+        buf = io.BytesIO()
+        small.resize((size * 4 // 3, size), Image.BILINEAR).save(buf, format="PNG")
+        return base64.urlsafe_b64encode(buf.getvalue()).decode()
+
+    text = lambda: _SENTENCES[rng.randint(len(_SENTENCES))]
+    rows = []
+    for i in range(n):
+        if name == "caption":
+            rows.append([str(i), image(), f"{text()}&&{text()}"])
+        elif name == "refcoco":
+            x0, y0 = rng.randint(0, size // 2, 2)
+            rows.append([str(i), image(), text(), f"{x0}.0,{y0}.0,{x0 + size // 2}.0,{y0 + size // 3}.0"])
+        elif name == "snli_ve":
+            rows.append([str(i), image(), text(), text(),
+                         ("entailment", "neutral", "contradiction")[i % 3]])
+        elif name.startswith("vqa"):
+            picks = rng.choice(len(VQA_ANSWERS), 3, replace=False)
+            ref = "&&".join(f"{c}|!+{VQA_ANSWERS[a]}" for c, a in zip((1.0, 0.6, 0.3), picks))
+            rows.append([str(i), image(), f"what is in the picture number {i}", ref])
+        else:  # gigaword
+            rows.append([f"{text()} , officials said on {text()} .", text()])
+    return rows
+
+
+def _eval_task(name: str, size):
+    """The task of ``EVAL_TASKS[name]`` (description "base", the task's image
+    size)."""
+    from musketeer_tpu_torch import tasks
+    from musketeer_tpu_torch.tokenization import default_vocab
+
+    cls = getattr(tasks, EVAL_TASKS[name][0])
+    kw = {"patch_image_size": size} if size else {}
+    if name.startswith("vqa"):
+        kw["answers"] = VQA_ANSWERS
+    return cls(default_vocab(), description="base", **kw)
+
+
+def _has_rouge() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("rouge_score") is not None
+
+
+def _run_eval(task, name: str, params, cfg, path: str, batch: int, limit=None):
+    """One evaluate call of the task (for gigaword without ``rouge_score``:
+    its generation, ``hypotheses``) → its result."""
+    from musketeer_tpu_torch.data import FileDataset
+
+    method = EVAL_TASKS[name][3]
+    if name == "gigaword" and not _has_rouge():
+        method = "hypotheses"
+    return getattr(task, method)(params, cfg, FileDataset(path), batch_size=batch, limit=limit)
+
+
+def _summary(name: str, out) -> str:
+    if isinstance(out, list):  # gigaword's hypotheses
+        return f"{len(out)} summaries generated (rouge_score missing: no ROUGE); first {out[0][1]!r}"
+    return json.dumps({k: v for k, v in out.items() if k not in ("predictions", "pairs")})
+
+
+def _eval_expected(name: str, cfg, calls: dict) -> dict:
+    """K1 and K2 launches of one evaluate call: K1 once per encoder layer of
+    every encode and twice per decoder layer (self and cross attention) of
+    every teacher-forced decode; K2 once per beam step on the fast path
+    (caption, gigaword); nothing else."""
+    want = dict.fromkeys(_counter_owners(), 0)
+    want["K1"] = cfg.encoder_layers * calls["encode"] + 2 * cfg.decoder_layers * calls["decode"]
+    if name in ("caption", "gigaword"):
+        want["K2"] = want["K2-sm90"] = calls["decode_step"]
+    return want
+
+
+def _snapshot(t):
+    """A copy of a tensor argument with the same strides (a view of a wider
+    table stays such a view), so that a kernel call can be replayed later."""
+    if not torch.is_tensor(t):
+        return t
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _recording(fn, calls: dict, key):
+    """``fn``, keeping the arguments of its first call for each ``key(*args)``."""
+    def call(*a, **kw):
+        calls.setdefault(key(*a, **kw), ([_snapshot(t) for t in a], kw))
+        return fn(*a, **kw)
+    return call
+
+
+def _k1_key(q, k, v, pos_q, pos_k, rel, kpad, causal=False, skip_max=False):
+    return (f"B{q.shape[0]} H{q.shape[1]} T{q.shape[2]} S{k.shape[2]} D{q.shape[3]}"
+            f"{' rel' if rel is not None else ''}{' causal' if causal else ''}"
+            f"{' skip_max' if skip_max else ''} {str(q.dtype)[6:]}")
+
+
+def _k2_key(h, w, w_scale=None, vocab_size=None):
+    return f"N{h.shape[0]} Vp{w.shape[0]} D{h.shape[1]} {str(w.dtype)[6:]}"
+
+
+def _check_eval_calls(tag: str, k1_calls: dict, k2_calls: dict, seen: set) -> None:
+    """Each K1 and K2 call of the eval path at a shape not checked before, on
+    the inputs the path gave it: against its plain version (bf16, within
+    ``BF16_TOL`` · max|ref|; K2's block maxes and logsumexp within
+    ``FP32_TOL`` · max|ref|) and against the function in fp32, as phases 3
+    and 4 hold K1 and K2."""
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+    from musketeer_tpu_torch.ops import topk_projection as k2
+
+    f32 = lambda a: [t.float() if torch.is_tensor(t) and t.is_floating_point() else t for t in a]
+    for key, (a, kw) in k1_calls.items():
+        if ("K1", key) in seen:
+            continue
+        seen.add(("K1", key))
+        out, ref = k1.flash_attention_inference(*a, **kw), k1.flash_attention_plain(*a, **kw)
+        err = _check_close(f"K1 {tag} {key}", out, ref, BF16_TOL)
+        fn_msg = _check_function(f"K1 {tag} {key}", out, ref, k1.flash_attention_plain(*f32(a), **kw))
+        log(f"[K1 {tag}] {key}: max abs err {err:.3e}; {fn_msg}")
+    for key, (a, kw) in k2_calls.items():
+        if ("K2", key) in seen:
+            continue
+        seen.add(("K2", key))
+        vs = kw["vocab_size"]
+        out, ref = k2.project_with_stats(*a, **kw), k2.project_plain(*a, **kw)
+        real = lambda t: t[:, :vs]
+        err = _check_close(f"K2 {tag} {key} logits", real(out[0]), real(ref[0]), BF16_TOL)
+        stats = [_check_close(f"K2 {tag} {key} {n}", x, y, FP32_TOL)
+                 for n, x, y in zip(("bmax", "Z"), out[1:], ref[1:])]
+        fn_msg = _check_function(f"K2 {tag} {key} logits", real(out[0]), real(ref[0]),
+                                 real(k2.project_plain(*f32(a), **kw)[0]))
+        if not bool((out[0][:, vs:] == k2.NEG_INF).all()):
+            raise AssertionError(f"K2 {tag} {key}: padded vocab columns must be -1e9")
+        log(f"[K2 {tag}] {key}: max abs err logits {err:.3e} bmax {stats[0]:.3e} Z "
+            f"{stats[1]:.3e}; logits {fn_msg}")
+
+
+def phase_eval(tree, smi: str, tmp: str) -> dict:
+    """Phase 18: each eval task at ``ofa_base`` in bf16, full width and depth,
+    through its own ``evaluate`` on a seeded TSV: the K1 and K2 counters
+    against the encodes, teacher-forced decodes and beam steps it ran; each
+    K1 and K2 shape it reached, on its own inputs, against the plain version
+    and the fp32 function; its metric, rows/s, and device against host time;
+    then at batch 2 in fp32 through the kernels and through their plain
+    versions: identical predictions. → each task's launches."""
+    import os
+
+    import numpy as np
+    import PIL
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from musketeer_tpu_torch.config import ofa_base
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+    from musketeer_tpu_torch.ops import topk_projection as k2
+    from musketeer_tpu_torch.params import from_jax
+
+    search_module = importlib.import_module("musketeer_tpu_torch.generation.beam_search")
+    attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
+    log(f"[eval] PIL {PIL.__version__}: the builders decode the TSV's images")
+    cfg = dataclasses.replace(ofa_base(), dtype="bfloat16", use_flash_attention=True)
+    params = from_jax(tree, cfg, "cuda", torch.bfloat16)
+    rng = np.random.RandomState(SEED)
+    paths = {}
+    for name, (_, n, size, _, _) in EVAL_TASKS.items():
+        paths[name] = os.path.join(tmp, f"{name.replace(' ', '_')}.tsv")
+        with open(paths[name], "w") as f:
+            f.writelines("\t".join(r) + "\n" for r in _eval_rows(name, n, size, rng))
+    launches, seen = {}, set()
+    for name, (_, n, size, _, batch) in EVAL_TASKS.items():
+        task = _eval_task(name, size)
+        tag = f"[eval {name}]"
+        k1_calls, k2_calls = {}, {}
+        _reset_counters()
+        with mock.patch.object(ofa, "encode", wraps=ofa.encode) as enc, \
+                mock.patch.object(ofa, "decode", wraps=ofa.decode) as dec, \
+                mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps, \
+                mock.patch.object(attn_module, "flash_attention_inference",
+                                  _recording(k1.flash_attention_inference, k1_calls, _k1_key)), \
+                mock.patch.object(search_module, "project_with_stats",
+                                  _recording(k2.project_with_stats, k2_calls, _k2_key)):
+            out = _run_eval(task, name, params, cfg, paths[name], batch)
+        got = _counters()
+        calls = dict(encode=enc.call_count, decode=dec.call_count, decode_step=steps.call_count)
+        want = _eval_expected(name, cfg, calls)
+        log(f"{tag} launches {{K1: {got['K1']}, K2: {got['K2']}}} over {calls}")
+        if got != want or enc.call_count != n // batch:
+            raise AssertionError(f"{name}: launches {got}, expected {want} ({calls})")
+        launches[name] = got
+        _check_eval_calls(name, k1_calls, k2_calls, seen)
+        del k1_calls, k2_calls
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _run_eval(task, name, params, cfg, paths[name], batch)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _run_eval(task, name, params, cfg, paths[name], batch)
+            torch.cuda.synchronize()
+        dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA) / 1e3
+        log(f"{tag} {_summary(name, out)}; ofa_base bf16, {n} rows at batch {batch}: "
+            f"{n / host_s:.2f} rows/s, host {host_s * 1e3:.1f} ms (data, encode, search or "
+            f"scoring, metric) against device {dev_ms:.1f} ms (busy share "
+            f"{dev_ms / (host_s * 1e3):.3f}) on {smi}")
+    _eval_exactness(tree, paths)
+    return launches
+
+
+def _eval_exactness(tree, paths: dict) -> None:
+    """Each eval task at batch 2 in fp32, through the kernels and through
+    their plain versions: identical predictions (beam tokens, allcand picks),
+    and scores within ``FP32_TOL`` · max(1, max|ref|)."""
+    from musketeer_tpu_torch.config import ofa_base
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+    from musketeer_tpu_torch.ops import topk_projection as k2
+    from musketeer_tpu_torch.params import from_jax
+
+    tasks_module = importlib.import_module("musketeer_tpu_torch.tasks.tasks")
+    search_module = importlib.import_module("musketeer_tpu_torch.generation.beam_search")
+    attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
+    cfg = dataclasses.replace(ofa_base(), dtype="float32", use_flash_attention=True)
+    params = from_jax(tree, cfg, "cuda", torch.float32)
+
+    def recorded(name: str, plain: bool):
+        record = []
+
+        def keep(fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                record.append([t.cpu() for t in (out if isinstance(out, tuple) else (out,))])
+                return out
+            return call
+
+        with mock.patch.object(tasks_module, "generate", keep(tasks_module.generate)), \
+                mock.patch.object(tasks_module, "score_candidates_span",
+                                  keep(tasks_module.score_candidates_span)), \
+                mock.patch.object(attn_module, "flash_attention_inference",
+                                  k1.flash_attention_plain if plain else k1.flash_attention_inference), \
+                mock.patch.object(search_module, "project_with_stats",
+                                  k2.project_plain if plain else k2.project_with_stats):
+            task = _eval_task(name, EVAL_TASKS[name][2])
+            out = _run_eval(task, name, params, cfg, paths[name], 2, limit=2)
+        return out, record
+
+    for name in EVAL_TASKS:
+        before = _counters()
+        out_k, rec_k = recorded(name, False)
+        mid = _counters()
+        out_p, rec_p = recorded(name, True)
+        after = _counters()
+        fast = name in ("caption", "gigaword")
+        if mid["K1"] == before["K1"] or (mid["K2"] > before["K2"]) != fast or after != mid:
+            raise AssertionError(f"{name}: kernel/plain routing wrong: {before} {mid} {after}")
+        allcand = "allcand" in name or name == "snli_ve"
+        # beam tokens, or the allcand scores' argmax, and the task's own output
+        preds = lambda rec: [r[0].argmax(-1) if allcand else r[0] for r in rec]
+        same = all(torch.equal(a, b) for a, b in zip(preds(rec_k), preds(rec_p)))
+        if not len(rec_k) == len(rec_p) > 0:
+            raise AssertionError(f"{name}: {len(rec_k)} and {len(rec_p)} recorded calls")
+        diff = max(_max_err(a[-1], b[-1]) for a, b in zip(rec_k, rec_p))
+        lim = FP32_TOL * max(1.0, *(float(b[-1].abs().max()) for b in rec_p))
+        log(f"[eval {name} exact] fp32 batch 2: {'scores' if allcand else 'beam scores'} "
+            f"max diff {diff:.3e} (tol {lim:.3e}); predictions identical: {same and out_k == out_p}")
+        if not (same and out_k == out_p):
+            raise AssertionError(f"{name}: fp32 predictions through the kernels differ from the "
+                                 "plain versions'")
+        if not diff <= lim:
+            raise AssertionError(f"{name}: fp32 scores through the kernels differ from the plain "
+                                 f"versions' by {diff:.3e} > {lim:.3e}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1716,6 +2038,9 @@ def main(argv=None) -> int:
     only.add_argument("--k8-only", action="store_true",
                       help="after phases 1-2, run only phase 17 (K8's stage path, its checks "
                            "and times), and print no result line")
+    only.add_argument("--eval-only", action="store_true",
+                      help="after phases 1-2, run only phase 18 (the eval tasks, their "
+                           "counters, times and fp32 exactness), and print no result line")
     opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1732,6 +2057,11 @@ def main(argv=None) -> int:
     if opts.k8_only:
         phase_k8(torch.Generator(device="cuda").manual_seed(SEED), tree, smi, routes)
         log(f"[done] K8 phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.eval_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_eval(tree, smi, tmp)
+        log(f"[done] eval phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.decode_only:
         g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1757,6 +2087,8 @@ def main(argv=None) -> int:
     k5_stats, k5_launches = phase_k5(g)
     stats.update(k5_stats)
     stats["K8"], k8_launches = phase_k8(g, tree, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_launches = phase_eval(tree, smi, tmp)
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -1778,6 +2110,9 @@ def main(argv=None) -> int:
     kernels = [dict(name=name, route="cuda", source=f"musketeer_tpu_torch/csrc/{src}",
                     replaces=f"musketeer_tpu/ops/{tpu}", launches=on_path[k][k], **stats[k])
                for k, name, src, tpu in table]
+    for entry, (k, *_) in zip(kernels, table):
+        if k in ("K1", "K2"):  # the eval path's launches, task by task (phase 18)
+            entry["eval_launches"] = {task: n[k] for task, n in eval_launches.items()}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 A port of the JAX package ``musketeer_tpu`` (the reference, which stays
 beside it). Ported so far: caption inference with its serving options, the
-joint multi-task training step, and the JAX package's kernel entry points.
+joint multi-task training step, the evaluation path (TSV row to metric), and
+the JAX package's kernel entry points.
 Layout mirrors the JAX package:
 
   config.py                      model / generation / optimizer / criterion dataclasses
@@ -14,7 +15,16 @@ Layout mirrors the JAX package:
                                  int8 serving branches
   criterions/label_smoothed_ce.py  the training criterion
   training/                      lr schedule, train state (AdamW, EMA), the joint step
-  generation/beam_search.py      beam search, fast candidate path
+  generation/beam_search.py      beam search: the fast candidate path and the general
+                                 body (tries, prefixes, constraints, boxes, sampling,
+                                 diverse and lexical search, ensembles); generate
+  generation/trie.py, lexical.py constrained-decoding tables
+  tokenization/                  GPT-2 BPE (stdlib ``re``) and the OFA vocabulary,
+                                 over the port's copy of assets/bpe/
+  data/                          eval example builders, collate, the TSV reader
+  utils/                         CIDEr-D, the summary normalizer, eval utilities
+                                 (boxes, IoU, allcand scoring)
+  tasks/                         Task, iter_batches and the eval tasks (TASK_REGISTRY)
   ops/flash_attention_infer.py   K1: attention with decomposed bias
   ops/topk_projection.py         K2, K2-q8: output projection + softmax stats
   ops/flash_attention_bwd.py     K3, K4: training attention forward / backward
@@ -35,7 +45,8 @@ Layout mirrors the JAX package:
                                  cores
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
-CUDA kernel for CUDA tensors. Imports torch and never jax.
+CUDA kernel for CUDA tensors. Imports torch, numpy and the standard library
+(PIL where an image is decoded), never jax or the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -2,6 +2,7 @@
 host code equal to the JAX package's, and refusal of unported options."""
 
 import dataclasses
+import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +17,7 @@ from musketeer_tpu.models import ofa as jofa
 from musketeer_tpu.models import positions as jax_positions
 from musketeer_tpu_torch import config
 from musketeer_tpu_torch.generation import beam_search
+from musketeer_tpu_torch.generation.beam_search import use_fast_path
 from musketeer_tpu_torch.models import ofa, positions
 from musketeer_tpu_torch.params import from_jax, init_ofa_params
 
@@ -31,17 +33,22 @@ def _tiny_cfgs():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port loads without jax or the JAX package (own process:
-    the test harness has already imported jax here)."""
+    """Every module of the port, and ``chip_smoke.py``, loads with jax, the JAX
+    package and ``regex`` blocked, and the tokenizer runs (own process: the
+    test harness has already imported jax here)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "musketeer_tpu_torch").rglob("*.py")
     )
     code = (
         "import importlib, sys\n"
-        f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'musketeer_tpu' or m.startswith('musketeer_tpu.')]\n"
+        "for name in ('jax', 'jaxlib', 'musketeer_tpu', 'regex'): sys.modules[name] = None\n"
+        f"for m in {modules + ['chip_smoke']!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
+        "from musketeer_tpu_torch.tokenization import default_vocab\n"
+        "assert default_vocab().encode_text(' a dog on a ½ beach²').tolist()\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and (\n"
+        "       m == 'jax' or m.startswith('jax.') or m == 'regex'\n"
+        "       or m == 'musketeer_tpu' or m.startswith('musketeer_tpu.'))]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -50,7 +57,22 @@ def test_port_imports_no_jax():
     assert len(modules) >= 10
     assert {"musketeer_tpu_torch.ops.flash_attention_bwd", "musketeer_tpu_torch.training.train_step",
             "musketeer_tpu_torch.training.train_state", "musketeer_tpu_torch.training.lr_schedule",
-            "musketeer_tpu_torch.criterions.label_smoothed_ce"} <= set(modules)
+            "musketeer_tpu_torch.criterions.label_smoothed_ce",
+            "musketeer_tpu_torch.tokenization.bpe", "musketeer_tpu_torch.tokenization.dictionary",
+            "musketeer_tpu_torch.data.transforms", "musketeer_tpu_torch.data.prompts",
+            "musketeer_tpu_torch.data.task_data", "musketeer_tpu_torch.data.file_dataset",
+            "musketeer_tpu_torch.utils.cider", "musketeer_tpu_torch.utils.summary_detok",
+            "musketeer_tpu_torch.utils.eval_utils", "musketeer_tpu_torch.generation.trie",
+            "musketeer_tpu_torch.generation.lexical", "musketeer_tpu_torch.tasks.base",
+            "musketeer_tpu_torch.tasks.tasks"} <= set(modules)
+
+
+@pytest.mark.parametrize("name", ["dict.txt", "encoder.json", "vocab.bpe"])
+def test_bpe_assets_are_copies(name):
+    """The port's BPE assets are byte for byte the JAX package's."""
+    ours = (REPO / "musketeer_tpu_torch" / "assets" / "bpe" / name).read_bytes()
+    theirs = (REPO / "musketeer_tpu" / "assets" / "bpe" / name).read_bytes()
+    assert hashlib.sha256(ours).hexdigest() == hashlib.sha256(theirs).hexdigest()
 
 
 @pytest.mark.parametrize("cls", ["ModelConfig", "GenerationConfig", "OptimConfig",
@@ -130,15 +152,33 @@ def test_unported_model_options_raise(option):
         ofa.encode({}, cfg, torch.zeros((1, 4), dtype=torch.long))
 
 
-@pytest.mark.parametrize("gen,kw", [
+SEARCH_OPTIONS = [
     (dict(sampling=True), {}), (dict(diverse_beam_groups=2), {}), (dict(unk_penalty=0.5), {}),
     (dict(constraint_range=(4, 10)), {}), ({}, dict(prefix_tokens=torch.zeros(1, 2))),
     ({}, dict(n_models=2)),
-])
+]
+
+
+@pytest.mark.parametrize("gen,kw", SEARCH_OPTIONS)
+def test_search_options_route_to_general_body(gen, kw):
+    """These options take the general body (the JAX routing predicate); the
+    default configuration takes the fast path."""
+    cfg = _tiny_cfgs()[1]
+    n = kw.get("n_models", 1)
+    route = {k: v for k, v in kw.items() if k != "n_models"}
+    assert not use_fast_path(config.GenerationConfig(**gen), cfg, n_models=n, **route)
+    assert use_fast_path(config.GenerationConfig(), cfg)
+
+
+@pytest.mark.parametrize("gen,kw", SEARCH_OPTIONS)
 def test_unported_search_options_raise(gen, kw):
+    """``gen_code``, the one search option still unported (the decoder's code
+    masks), raises before the search starts, whatever it is combined with."""
     cfg = _tiny_cfgs()[1]
     enc = ofa.EncoderOut(torch.zeros(1, 3, cfg.embed_dim), torch.zeros(1, 3, dtype=torch.bool),
                          torch.zeros(1, 3, cfg.embed_dim))
-    name = next(iter(gen or kw))
-    with pytest.raises(NotImplementedError, match=name):
-        beam_search({}, cfg, config.GenerationConfig(**gen), enc, max_len=4, **kw)
+    gen_cfg = config.GenerationConfig(**gen, gen_code=True)
+    n = kw.get("n_models", 1)
+    with pytest.raises(NotImplementedError, match="gen_code"):
+        beam_search([{}] * n if n > 1 else {}, cfg, gen_cfg, [enc] * n if n > 1 else enc,
+                    max_len=4, **kw)
