@@ -8,6 +8,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --decode-only  # phases 1, 2, 4, 10, 11, 12, 5 and 13, and 15
     python3 chip_smoke.py --k8-only      # phases 1, 2 and 17
     python3 chip_smoke.py --eval-only    # phases 1, 2 and 18
+    python3 chip_smoke.py --entry-only   # phases 1, 2 and 19
 
 ``--train-only``, ``--decode-only`` and ``--k8-only`` also run against an
 older tree's package when this file is copied into that tree's root, so that
@@ -46,8 +47,11 @@ Phases; any failure raises and the script exits non-zero:
    tensor-core route's counter too); tokens and
    scores must be well formed; samples/s and p50 batch latency over a warm-up
    and 3 timed runs;
-6. exactness: the same slice in float32 at batch 2, once through the kernels
-   and once through their plain versions, must give identical tokens;
+6. exactness: the same slice in float32 at batch 2, the second row's image
+   masked out (a text-only row) so that the two rows' best hypotheses differ
+   (asserted), once through the kernels and once through their plain
+   versions: identical tokens, scores within 1e-4 of the largest (floored
+   at 1);
 7. K3 (training attention forward with logsumexp) and K4 (its backward, six
    gradients) against their plain versions at the encoder train shape
    (B4 H12 T=S=980, 10 % padded keys), a causal decoder shape (T=90) and a
@@ -100,9 +104,8 @@ Phases; any failure raises and the script exits non-zero:
     never; B (``decode_stack_kernel``) K7 and K2 once per beam step, both on
     their tensor-core routes, K6 and K2-q8 never; tokens well formed;
     p50 batch latency and samples/s over 3 timed runs;
-14. serving exactness: each serving slice in float32 at batch 2, once
-    through the kernels and once through their plain versions, must give
-    identical tokens;
+14. serving exactness: each serving slice in float32 at batch 2, as in
+    phase 6;
 15. profile: one run of the caption slice and of each serving slice under
     ``torch.profiler``: device operations per beam step, device time and the
     device's busy share;
@@ -149,11 +152,33 @@ Phases; any failure raises and the script exits non-zero:
     steps (nothing else launched), its metric, rows/s, and host against
     device time (``torch.profiler``); then each task at batch 2 in fp32
     through the kernels and through their plain versions: identical
-    predictions (beam tokens, allcand picks, the task's output).
+    predictions (beam tokens, allcand picks, the task's output);
+19. the entry points: ``ofa_base`` at full width and depth in bf16 with all
+    four NormFormer options, their leaves drawn from a seed, written as a
+    fairseq ``.pt`` by ``export_pt``; ``python -m musketeer_tpu_torch.cli
+    convert`` on it in a process of its own; ``import_pt`` of the ``.pt`` and
+    the converted checkpoint must give every leaf bit for bit; ``cli train``
+    (in this process, through ``cli.main``) on seeded caption, vqa_gen and
+    snli_ve TSVs at batch 2 each, uint8 transport, prefetch depth 2, from the
+    ``.pt`` with EMA: 4 updates saving every 2, then a resumed run to 6 that
+    must start at update 4; vqa_gen given its answer list (the CLI passes
+    none); every task's loss in (0, 2 ln V] at every update; K3 and K4 each
+    ``encoder_layers + 2 · decoder_layers`` times per transformer forward and
+    nothing else launched; the loop's time per update (updates/s), the step
+    call's, the share outside it, and each save's and the resume load's
+    seconds; each K3 and K4 shape the loop reached, on its own inputs,
+    against the plain version and the fp32 function, as in phase 7; a third
+    run resumed from update 2's checkpoint to 4 against the straight run's
+    state (parameters and EMA within 1e-3 of their change since update 2,
+    the AdamW moments within 1e-3 of their norm); ``cli evaluate --task caption`` from ``checkpoint_last`` with
+    ``--use-ema`` and from the ``.pt`` on a 32-row TSV at batch 16 with
+    ``decode_stack_kernel`` forced on: K1 6 per encode, K2 once per beam step
+    on its tensor-core route, K7 never (the NormFormer model refuses it);
+    rows/s; then the NormFormer caption slice in fp32 as in phase 6.
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
-stage chain, each eval task) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+stage chain, each eval task, each CLI run of phase 19) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
 the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
 Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
@@ -167,7 +192,8 @@ the kernels' device time and the calls' host time as ``device_ms`` and
 last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 K1's and K2's entries also carry ``eval_launches``: their launches in each
-eval task of phase 18.
+eval task of phase 18; K1's, K2's, K3's and K4's ``entry_launches``: theirs
+in each CLI run of phase 19.
 """
 
 from __future__ import annotations
@@ -660,13 +686,14 @@ SLICES = {
 }
 
 
-def _slice_setup(tree, name: str, dtype: str):
+def _slice_setup(tree, name: str, dtype: str, model: dict = None):
     from musketeer_tpu_torch.config import GenerationConfig, ofa_base
     from musketeer_tpu_torch.models import ofa
     from musketeer_tpu_torch.params import from_jax
 
     spec = SLICES[name]
-    cfg = dataclasses.replace(ofa_base(), dtype=dtype, use_flash_attention=True, **spec["model"])
+    cfg = dataclasses.replace(ofa_base(), dtype=dtype, use_flash_attention=True, **spec["model"],
+                              **(model or {}))
     params = from_jax(tree, cfg, "cuda", getattr(torch, dtype))
     if spec["q8"]:
         params = ofa.quantize_output_proj(params)
@@ -726,9 +753,13 @@ def phase_slice(tree, smi: str, name: str, routes: frozenset = SM90_ROUTES) -> d
     return launches
 
 
-def phase_exactness(tree, name: str) -> None:
+def phase_exactness(tree, name: str, model: dict = None) -> None:
     """The slice in fp32 at batch 2 through the kernels and through their plain
-    versions: the tokens must be identical."""
+    versions: identical tokens, scores within ``FP32_TOL`` · max(1, max|ref|)
+    (``model``: options the tree was made with, such as NormFormer's). The
+    second row has its image masked out, as a text-only row: the seeded
+    ResNet maps any two images to nearly the same features, so two images
+    alone decode the same tokens; the two rows' best hypotheses must differ."""
     from musketeer_tpu_torch.models import ofa
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
     from musketeer_tpu_torch.ops import decode_stack as k7
@@ -737,8 +768,9 @@ def phase_exactness(tree, name: str) -> None:
 
     search_module = importlib.import_module("musketeer_tpu_torch.generation.beam_search")
     attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
-    cfg, params, gen_cfg = _slice_setup(tree, name, "float32")
-    src, images, masks = _inputs(2, SEED + 1)
+    cfg, params, gen_cfg = _slice_setup(tree, name, "float32", model)
+    src, images, _ = _inputs(2, SEED + 1)
+    masks = torch.tensor([True, False], device="cuda")
 
     before = _counters()
     _, tok_k, sc_k = _caption(params, cfg, gen_cfg, src, images, masks)
@@ -755,10 +787,16 @@ def phase_exactness(tree, name: str) -> None:
     if ran != want or after != mid:
         raise AssertionError(f"{name}: kernel/plain routing wrong: {before} {mid} {after}")
     _check_tokens(tok_k, sc_k, cfg, 2)
-    log(f"[{name} exact] fp32 batch 2: kernel tokens {tok_k[:, 0].tolist()}; "
-        f"max score diff {_max_err(sc_k, sc_p):.3e}")
-    if not torch.equal(tok_k, tok_p):
-        raise AssertionError(f"{name}: fp32 tokens through the kernels differ from the plain versions'")
+    tag = name if not model else f"{name}, {', '.join(sorted(model))}"
+    gap, lim = _max_err(sc_k, sc_p), FP32_TOL * max(1.0, float(sc_p.abs().max()))
+    log(f"[{tag} exact] fp32 batch 2: kernel tokens {tok_k[:, 0].tolist()}; "
+        f"max score diff {gap:.3e} (tol {lim:.3e})")
+    if torch.equal(tok_k[0, 0], tok_k[1, 0]):
+        raise AssertionError(f"{name}: both rows' best hypotheses are the same tokens: the "
+                             "check would not see its input")
+    if not torch.equal(tok_k, tok_p) or not gap <= lim:
+        raise AssertionError(f"{name}: fp32 tokens or scores through the kernels differ from "
+                             f"the plain versions' (score gap {gap:.3e}, tol {lim:.3e})")
 
 
 def _elem_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -807,57 +845,83 @@ def _library_k4(x: dict, do: torch.Tensor):
                                                          retain_graph=True))
 
 
+def _widened(args) -> list:
+    """The same arguments with every floating tensor widened to fp32."""
+    return [t.float() if torch.is_tensor(t) and t.is_floating_point() else t for t in args]
+
+
+def _check_k3(tag: str, args, kw: dict):
+    """K3 on ``args`` against its plain version: o within the dtype's
+    tolerance · max(1, max|ref|) and finite, lse within ``FP32_TOL`` element
+    by element; in bf16 also o against the function in fp32 (``_check_function``).
+    → (o, lse, plain o, plain lse, o's max abs err)."""
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+
+    tol = BF16_TOL if args[0].dtype == torch.bfloat16 else FP32_TOL
+    o, lse = kb.flash_attention_fwd(*args, **kw)
+    o_p, lse_p = kb.flash_attention_fwd_plain(*args, **kw)
+    e_o, e_lse = _max_err(o, o_p), _elem_rel_err(lse, lse_p)
+    if not (e_o <= tol * max(1.0, float(o_p.float().abs().max())) and e_lse <= FP32_TOL
+            and bool(torch.isfinite(o).all())):
+        raise AssertionError(f"K3 {tag}: o err {e_o}, lse err {e_lse}")
+    msg = ""
+    if args[0].dtype == torch.bfloat16:
+        msg = "; o " + _check_function(f"K3 {tag}", o, o_p, kb.flash_attention_fwd_plain(
+            *_widened(args), **kw)[0])
+    log(f"[K3] {tag}: max abs err o {e_o:.3e}, lse rel {e_lse:.3e}{msg}")
+    return o, lse, o_p, lse_p, e_o
+
+
+def _check_k4(tag: str, args, kw: dict):
+    """K4 on ``args`` (q … kpad, o, lse, do) against its plain version: each
+    gradient within the tolerance of its dtype · max(1, max|ref|) and finite;
+    in bf16 also against the function in fp32. → (grads, max abs errs)."""
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+
+    tol = BF16_TOL if args[0].dtype == torch.bfloat16 else FP32_TOL
+    grads = kb.flash_attention_bwd(*args, **kw)
+    ref = kb.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for gname, a, b in zip(GRAD_NAMES, grads, ref):
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"K4 {tag}: {gname} without rel")
+            continue
+        errs[gname] = _max_err(a, b)
+        lim = (FP32_TOL if b.dtype == torch.float32 else tol) * max(1.0, float(b.abs().max()))
+        if not (errs[gname] <= lim and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"K4 {tag}: {gname} err {errs[gname]} > {lim}")
+    msg = ""
+    if args[0].dtype == torch.bfloat16:
+        fn = kb.flash_attention_bwd_plain(*_widened(args), **kw)
+        msg = "; " + "; ".join(f"{gname} " + _check_function(f"K4 {tag} {gname}", a, b, f)
+                               for gname, a, b, f in zip(GRAD_NAMES, grads, ref, fn)
+                               if f is not None)
+    log(f"[K4] {tag}: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + msg)
+    return grads, errs
+
+
 def phase_k3_k4(g) -> dict:
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
 
     names = ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")
-    cases = [(n, c, torch.bfloat16, BF16_TOL) for n, c in K34_SHAPES.items()]
-    cases += [(n, c, dtype, tol) for n, c in K34_SMALL.items()
-              for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL))]
+    cases = [(n, c, torch.bfloat16) for n, c in K34_SHAPES.items()]
+    cases += [(n, c, dtype) for n, c in K34_SMALL.items()
+              for dtype in (torch.float32, torch.bfloat16)]
     stats = {}
-    for name, c, dtype, tol in cases:
+    for name, c, dtype in cases:
         x = _k1_inputs(g, **c["shape"], dtype=dtype, rel=c.get("rel", True),
                        masked_row=c.get("masked_row"))
         args = [x[n] for n in names]
         kw = dict(causal=c.get("causal", False), skip_max=c.get("skip_max", False))
-        o, lse = kb.flash_attention_fwd(*args, **kw)
-        o_p, lse_p = kb.flash_attention_fwd_plain(*args, **kw)
-        e_o, e_lse = _max_err(o, o_p), _elem_rel_err(lse, lse_p)
-        if not (e_o <= tol * max(1.0, float(o_p.float().abs().max())) and e_lse <= FP32_TOL
-                and bool(torch.isfinite(o).all())):
-            raise AssertionError(f"K3 {name}: o err {e_o}, lse err {e_lse}")
+        tag = f"{name} {str(dtype)[6:]}"
+        o, lse, o_p, lse_p, e_o = _check_k3(tag, args, kw)
         # K4 on the plain forward's o and lse, so that it alone is compared
         do = (torch.randn(o_p.shape, generator=g, device="cuda") * 0.5).to(dtype)
         bwd_args = (*args, o_p, lse_p, do)
-        grads = kb.flash_attention_bwd(*bwd_args, causal=kw["causal"])
-        ref = kb.flash_attention_bwd_plain(*bwd_args, causal=kw["causal"])
-        torch.cuda.synchronize()
-        errs = {}
-        for gname, a, b in zip(GRAD_NAMES, grads, ref):
-            if b is None:
-                if a is not None:
-                    raise AssertionError(f"K4 {name}: {gname} without rel")
-                continue
-            errs[gname] = _max_err(a, b)
-            lim = (FP32_TOL if b.dtype == torch.float32 else tol) * max(1.0, float(b.abs().max()))
-            if not (errs[gname] <= lim and bool(torch.isfinite(a).all())):
-                raise AssertionError(f"K4 {name}: {gname} err {errs[gname]} > {lim}")
-        log(f"[K3] {name} {str(dtype)[6:]}: max abs err o {e_o:.3e}, lse rel {e_lse:.3e}")
-        log(f"[K4] {name} {str(dtype)[6:]}: max abs err "
-            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-        if dtype != torch.bfloat16:
-            continue
-        # the function in fp32 on the same bf16 inputs (and the same o, lse, do)
-        xf = _as_f32(x)
-        log(f"[K3] {name} bf16 o: " + _check_function(
-            f"K3 {name}", o, o_p, kb.flash_attention_fwd_plain(*(xf[n] for n in names), **kw)[0]))
-        fn = kb.flash_attention_bwd_plain(*(xf[n] for n in names), o_p.float(), lse_p, do.float(),
-                                          causal=kw["causal"])
-        log(f"[K4] {name} bf16: " + "; ".join(
-            f"{gname} " + _check_function(f"K4 {name} {gname}", a, b, f)
-            for gname, a, b, f in zip(GRAD_NAMES, grads, ref, fn) if f is not None))
-        del xf, fn
-        if name in K34_SMALL:
+        grads, errs = _check_k4(tag, bwd_args, dict(causal=kw["causal"]))
+        if dtype != torch.bfloat16 or name in K34_SMALL:
             continue
         times = {
             "K3": (cuda_ms(lambda: kb.flash_attention_fwd(*args, **kw), 10),
@@ -886,7 +950,7 @@ def phase_k3_k4(g) -> dict:
             stats["K4"] = dict(max_abs_err=max(errs.values()), ms=times["K4"][0],
                                plain_ms=times["K4"][1], library_ms=_library_k4(x, do),
                                **_bound(_nbytes(*bwd_args, *grads), 8 * unit))
-        del x, args, o, lse, o_p, lse_p, do, bwd_args, grads, ref
+        del x, args, o, lse, o_p, lse_p, do, bwd_args, grads
     return stats
 
 
@@ -1009,7 +1073,7 @@ def phase_train(tree, smi: str, routes: frozenset = SM90_ROUTES) -> dict:
         f"{p50 * 1e3:.1f} ms, {samples / p50:.2f} samples/s (steps "
         f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}")
     _profile_train_step(step, state, batches, smi)
-    return launches
+    return launches, p50 * 1e3
 
 
 # the demangled names of K3's and K4's CUDA kernels, on either core (K1 shares
@@ -1859,14 +1923,13 @@ def _check_eval_calls(tag: str, k1_calls: dict, k2_calls: dict, seen: set) -> No
     from musketeer_tpu_torch.ops import flash_attention_infer as k1
     from musketeer_tpu_torch.ops import topk_projection as k2
 
-    f32 = lambda a: [t.float() if torch.is_tensor(t) and t.is_floating_point() else t for t in a]
     for key, (a, kw) in k1_calls.items():
         if ("K1", key) in seen:
             continue
         seen.add(("K1", key))
         out, ref = k1.flash_attention_inference(*a, **kw), k1.flash_attention_plain(*a, **kw)
         err = _check_close(f"K1 {tag} {key}", out, ref, BF16_TOL)
-        fn_msg = _check_function(f"K1 {tag} {key}", out, ref, k1.flash_attention_plain(*f32(a), **kw))
+        fn_msg = _check_function(f"K1 {tag} {key}", out, ref, k1.flash_attention_plain(*_widened(a), **kw))
         log(f"[K1 {tag}] {key}: max abs err {err:.3e}; {fn_msg}")
     for key, (a, kw) in k2_calls.items():
         if ("K2", key) in seen:
@@ -1879,7 +1942,7 @@ def _check_eval_calls(tag: str, k1_calls: dict, k2_calls: dict, seen: set) -> No
         stats = [_check_close(f"K2 {tag} {key} {n}", x, y, FP32_TOL)
                  for n, x, y in zip(("bmax", "Z"), out[1:], ref[1:])]
         fn_msg = _check_function(f"K2 {tag} {key} logits", real(out[0]), real(ref[0]),
-                                 real(k2.project_plain(*f32(a), **kw)[0]))
+                                 real(k2.project_plain(*_widened(a), **kw)[0]))
         if not bool((out[0][:, vs:] == k2.NEG_INF).all()):
             raise AssertionError(f"K2 {tag} {key}: padded vocab columns must be -1e9")
         log(f"[K2 {tag}] {key}: max abs err logits {err:.3e} bmax {stats[0]:.3e} Z "
@@ -2023,6 +2086,390 @@ def _eval_exactness(tree, paths: dict) -> None:
                                  f"versions' by {diff:.3e} > {lim:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the entry points (the CLI) on a NormFormer ofa_base
+# ---------------------------------------------------------------------------
+
+NORMFORMER = ("scale_attn", "scale_fc", "scale_heads", "scale_resids")
+ENTRY_TASKS = ("caption", "vqa_gen", "snli_ve")
+ENTRY_ROWS = 16  # per training TSV: 6 updates at batch 2 fit one epoch
+ENTRY_EVAL_ROWS, ENTRY_EVAL_BATCH = 32, 16
+ENTRY_UPDATES = (4, 6)  # a run to 4 updates, then a resumed run to 6
+# a run resumed at update 2 against the straight run at 4: the state read back,
+# the iterator position and the (seed, update) dropout draws make the same
+# two updates, and only the order of a few fp32 sums on the card may differ,
+# which moves the state by far less than this share of the two updates' change;
+# a wrong moment, step count, batch or dropout draw moves it by its own size
+RESUME_TOL = 1e-3
+
+
+def _normformer_tree(seed: int):
+    """``ofa_base`` with all four NormFormer options: ``_random_model_tree``
+    with every NormFormer leaf drawn from a seed (c_attn and w_resid in
+    [0.5, 1.5), the extra LayerNorms' scales too, their biases N(0, 0.1)),
+    so that a dropped multiply or LayerNorm would show."""
+    from musketeer_tpu_torch.config import ofa_base
+
+    cfg = dataclasses.replace(ofa_base(), use_flash_attention=True, **dict.fromkeys(NORMFORMER, True))
+    tree = _random_model_tree(cfg, seed)
+    g = torch.Generator().manual_seed(seed + 19)
+
+    def walk(node):
+        for k, v in node.items():
+            if k in ("c_attn", "w_resid"):
+                node[k] = torch.rand(v.shape, generator=g) + 0.5
+            elif k in ("attn_ln", "self_attn_ln", "cross_attn_ln", "ffn_layernorm"):
+                v["scale"] = torch.rand(v["scale"].shape, generator=g) + 0.5
+                v["bias"] = torch.randn(v["bias"].shape, generator=g) * 0.1
+            elif isinstance(v, dict):
+                walk(v)
+
+    walk(tree)
+    return cfg, tree
+
+
+def _flat(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _flat(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _assert_bitwise(got, want, what: str) -> int:
+    """Same leaves, dtypes and values, bit for bit → the number of leaves."""
+    a, b = _flat(got), _flat(want)
+    if [p for p, _ in a] != [p for p, _ in b]:
+        raise AssertionError(f"{what}: the trees' leaves differ")
+    for (path, x), (_, y) in zip(a, b):
+        if x.dtype != y.dtype or not torch.equal(x.detach().cpu(), y.detach().cpu()):
+            raise AssertionError(f"{what}: leaf {path} differs")
+    return len(a)
+
+
+def _timed(fn, record: list):
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        record.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def _k4_key(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do, causal=False, need_drel=True):
+    return _k1_key(q, k, v, pos_q, pos_k, rel, kpad, causal) + (
+        " drel" if need_drel and rel is not None else "")
+
+
+def _recording_attention(k3_calls: dict, k4_calls: dict):
+    """The model's K3/K4 autograd Function, keeping the arguments of its first
+    K3 and K4 call at each shape. (The kernel wrappers count their launches
+    through their module's names, so those names stay as they are.)"""
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+
+    parent = kb.FlashAttentionTrainable
+
+    class Recording(parent):
+        @staticmethod
+        def forward(ctx, *args):
+            k3_calls.setdefault(_k1_key(*args), ([_snapshot(t) for t in args], {}))
+            return parent.forward(ctx, *args)
+
+        @staticmethod
+        def backward(ctx, do):
+            # K4's arguments as the parent's backward passes them
+            args = (*ctx.saved_tensors, do.contiguous(), ctx.causal, ctx.needs_input_grad[5])
+            k4_calls.setdefault(_k4_key(*args), ([_snapshot(t) for t in args], {}))
+            return parent.backward(ctx, do)
+
+    return Recording
+
+
+def _gap(got, want, base=None) -> float:
+    """‖got − want‖ / ‖want − base‖ over every leaf of two trees (‖want‖ with
+    no ``base``), in fp64."""
+    num = den = 0.0
+    base = _flat(base) if base is not None else [(p, None) for p, _ in _flat(want)]
+    for (path, a), (_, b), (_, c) in zip(_flat(got), _flat(want), base):
+        a, b = a.detach().double(), b.detach().double()
+        num += float((a - b).pow(2).sum())
+        den += float((b if c is None else b - c.detach().double()).pow(2).sum())
+    return (num / den) ** 0.5 if den else float("inf")
+
+
+def _check_resume(resumed, straight, mid) -> str:
+    """The state of a run resumed from ``mid``'s checkpoint against the
+    straight run's at the same update: parameters and EMA within
+    ``RESUME_TOL`` of the change since ``mid``, the AdamW moments within
+    ``RESUME_TOL`` of their norm, the same step and AdamW count."""
+    count = lambda st: (st.step, int(st.opt_state["count"]))
+    if count(resumed) != count(straight):
+        raise AssertionError(f"resumed run at step {resumed.step}, the straight run at "
+                             f"{straight.step}")
+    gaps = {"params": _gap(resumed.params, straight.params, mid.params),
+            "ema": _gap(resumed.ema_params, straight.ema_params, mid.ema_params),
+            "mu": _gap(resumed.opt_state["mu"], straight.opt_state["mu"]),
+            "nu": _gap(resumed.opt_state["nu"], straight.opt_state["nu"])}
+    if not all(g <= RESUME_TOL for g in gaps.values()):
+        raise AssertionError(f"the resumed run's state differs from the straight run's: {gaps}")
+    return ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+
+
+def _check_train_calls(k3_calls: dict, k4_calls: dict) -> None:
+    """Each K3 and K4 call of the loop at a new shape, on the inputs the loop
+    gave it, against its plain version and the function in fp32 (as phase 6)."""
+    for key, (a, kw) in k3_calls.items():
+        _check_k3(f"entry train {key}", a, kw)
+    for key, (a, kw) in k4_calls.items():
+        _check_k4(f"entry train {key}", a, kw)
+
+
+def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
+    """``cli train`` on caption, vqa_gen and snli_ve (batch 2 each, uint8
+    transport, prefetch depth 2) from the NormFormer ``.pt``: 4 updates with
+    saves every 2, then a resumed run to 6. Each task's loss in (0, 2 ln V]
+    at every update; each K3 and K4 shape of the loop held to its plain
+    version; a third run, resumed from update 2's checkpoint to 4, against
+    the straight run's state at 4. → K1-K8 launches of the first two runs."""
+    import glob
+    import math
+    import os
+    import shutil
+
+    import numpy as np
+
+    from musketeer_tpu_torch import cli
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.training import checkpoint as ckpt_module
+    from musketeer_tpu_torch.training import trainer as trainer_module
+
+    rng = np.random.RandomState(SEED + 19)
+    paths = {}
+    for name in ENTRY_TASKS:
+        paths[name] = os.path.join(tmp, f"train_{name}.tsv")
+        rows = _eval_rows("vqa" if name == "vqa_gen" else name, ENTRY_ROWS, IMAGE, rng)
+        with open(paths[name], "w") as f:
+            f.writelines("\t".join(r) + "\n" for r in rows)
+    run_dir, twin_dir = os.path.join(tmp, "run"), os.path.join(tmp, "resumed_at_2")
+
+    def args(save_dir: str, updates: int) -> list:
+        return ["train", "--tasks", ",".join(f"{n}={paths[n]}" for n in ENTRY_TASKS),
+                "--arch", "ofa_base", "--device", "cuda", "--batch-size", "2",
+                "--restore-pt", pt, "--save-dir", save_dir, "--save-interval-updates", "2",
+                "--ema-decay", "0.999", "--warmup-updates", "1", "--prefetch-depth", "2",
+                "--max-update", str(updates)]
+
+    # vqa_gen trains against its answer list's trie, as a library caller
+    # passes it in SubTaskSpec.task_kwargs; the CLI passes none (nor does
+    # the JAX CLI), and without one every answer token is masked
+    task_kwargs = cli._task_kwargs
+
+    def with_answers(name: str, patch_image_size: int) -> dict:
+        kw = task_kwargs(name, patch_image_size)
+        return {**kw, "answers": VQA_ANSWERS} if name == "vqa_gen" else kw
+
+    rec = dict(step=[], start=[], secs=[], forwards=[], losses=[])
+    saves, loads, prefetchers, k3_calls, k4_calls = [], [], [], {}, {}
+    make_train_step = trainer_module.make_train_step
+    prefetch_cls = trainer_module.PrefetchIterator
+
+    def recording_prefetch(*a, **kw):
+        it = prefetch_cls(*a, **kw)
+        prefetchers.append(it)
+        return it
+
+    def recording_make(*a, **kw):
+        step = make_train_step(*a, **kw)
+
+        def recorded(state, batches, generator=None):
+            rec["step"].append(state.step)
+            rec["forwards"].append(_expected_forwards(batches))
+            t0 = time.perf_counter()
+            rec["start"].append(t0)
+            state, m = step(state, batches, generator)
+            rec["secs"].append(time.perf_counter() - t0)
+            rec["losses"].append({k: v.detach() for k, v in m.items() if k.startswith("loss")})
+            return state, m
+        return recorded
+
+    _reset_counters()
+    with mock.patch.object(cli, "_task_kwargs", with_answers), \
+            mock.patch.object(trainer_module, "make_train_step", recording_make), \
+            mock.patch.object(ofa, "forward", wraps=ofa.forward) as fwd, \
+            mock.patch.object(kb, "FlashAttentionTrainable",
+                              _recording_attention(k3_calls, k4_calls)), \
+            mock.patch.object(ckpt_module, "save_checkpoint",
+                              _timed(ckpt_module.save_checkpoint, saves)), \
+            mock.patch.object(trainer_module, "load_checkpoint",
+                              _timed(trainer_module.load_checkpoint, loads)), \
+            mock.patch.object(trainer_module, "PrefetchIterator", recording_prefetch):
+        states, walls = [], []
+        for updates in ENTRY_UPDATES:
+            t0 = time.perf_counter()
+            states.append(cli.main(args(run_dir, updates)))
+            walls.append(time.perf_counter() - t0)
+            if updates == ENTRY_UPDATES[0]:  # update 2's checkpoint, for the third run
+                (mid,) = glob.glob(os.path.join(run_dir, "checkpoint_*_2"))
+                os.makedirs(twin_dir)
+                for ext in ("", ".meta.json"):
+                    shutil.copy(mid + ext, os.path.join(twin_dir, "checkpoint_last" + ext))
+    launches = _counters()
+    per_forward = cfg.encoder_layers + 2 * cfg.decoder_layers
+    forwards = sum(rec["forwards"])
+    want = dict.fromkeys(launches, 0)
+    want.update({"K3": per_forward * forwards, "K4": per_forward * forwards})
+    losses = [{k: float(v) for k, v in m.items()} for m in rec["losses"]]
+    log(f"[entry train] launches {launches} over {fwd.call_count} transformer forwards "
+        f"(expected {forwards} from the packing groups, {per_forward} attentions each) in "
+        f"{len(rec['step'])} updates; losses by update {losses}")
+    if fwd.call_count != forwards or launches != want:
+        raise AssertionError(f"cli train: launches {launches}, expected {want}")
+    # near ln V for a seeded model on the open vocabulary, ln of the choices
+    # under a trie: outside (0, 2 ln V] the loss, the masks or the update is wrong
+    top = 2 * math.log(cfg.vocab_size)
+    bad = [(i + 1, k, v) for i, m in enumerate(losses) for k, v in m.items()
+           if k.startswith("loss/") and k != "loss/total" and not 0.0 < v <= top]
+    if bad or sorted(losses[0]) != sorted(["loss", "loss/total"] + [f"loss/{n}" for n in ENTRY_TASKS]):
+        raise AssertionError(f"cli train: a task's loss outside (0, {top:.2f}]: {bad or losses[0]}")
+    first, last = ENTRY_UPDATES
+    if [s.step for s in states] != list(ENTRY_UPDATES) or rec["step"] != list(range(last)):
+        raise AssertionError(f"cli train: updates {[s.step for s in states]}, steps {rec['step']}")
+    if len(loads) != 1:
+        raise AssertionError(f"the resumed run must load checkpoint_last once, loaded {len(loads)}")
+    # the loop's time per update: between successive step starts of one run,
+    # leaving out the intervals that hold a checkpoint save
+    saved_after = {u for u in range(1, last + 1) if u % 2 == 0}
+    intervals = [rec["start"][i + 1] - rec["start"][i] for i in range(last - 1)
+                 if i + 1 != first and (i + 1) not in saved_after]
+    loop_ms = statistics.median(intervals) * 1e3
+    step_ms = statistics.median(rec["secs"][1:]) * 1e3
+    state_gb = sum(t.numel() * t.element_size() for _, t in _flat({
+        "p": states[-1].params, "mu": states[-1].opt_state["mu"],
+        "nu": states[-1].opt_state["nu"], "e": states[-1].ema_params})) / 1e9
+    log(f"[entry train] ofa_base bf16 NormFormer, {len(ENTRY_TASKS)} tasks x batch 2: loop "
+        f"{loop_ms:.1f} ms per update ({1e3 / loop_ms:.2f} updates/s; intervals without a save "
+        f"{[round(x * 1e3, 1) for x in intervals]} ms), the step call {step_ms:.1f} ms "
+        f"(median after the first: host share of the loop outside the step "
+        f"{max(0.0, loop_ms - step_ms) / loop_ms:.3f})"
+        + (f", phase 8's 8-task step p50 {phase8_ms:.1f} ms" if phase8_ms else "")
+        + f"; runs {[round(w, 1) for w in walls]} s on {smi}")
+    items = sum(p.producer_items for p in prefetchers)
+    log(f"[entry train] prefetch (depth 2, the copy to the card in its thread): {items} "
+        f"batches, the producer {sum(p.producer_wall_s for p in prefetchers) / items * 1e3:.1f} "
+        f"ms wall and {sum(p.producer_cpu_s for p in prefetchers) / items * 1e3:.1f} ms CPU a "
+        f"batch; the loop waited {sum(p.stall_s for p in prefetchers) * 1e3:.1f} ms in all, "
+        f"{sum(p.stall_count for p in prefetchers)} times over 1 ms")
+    log(f"[entry train] checkpoint state {state_gb:.2f} GB (fp32 params, AdamW moments, EMA): "
+        f"{len(saves)} saves {[round(x, 2) for x in saves]} s, resume load "
+        f"{loads[0]:.2f} s on {smi}")
+    # a third run, resumed from update 2's checkpoint, to 4: the straight run's state
+    with mock.patch.object(cli, "_task_kwargs", with_answers):
+        twin = cli.main(args(twin_dir, first))
+    mid_state, _ = ckpt_module.load_checkpoint(run_dir, None, os.path.basename(mid), device="cuda")
+    log(f"[entry train] resumed at update 2 to {first} against the straight run, "
+        f"relative gaps: {_check_resume(twin, states[0], mid_state)} (bound {RESUME_TOL})")
+    del twin, mid_state, states
+    _check_train_calls(k3_calls, k4_calls)
+    log(f"[entry train] {len(k3_calls)} K3 and {len(k4_calls)} K4 shapes of the loop held to "
+        f"their plain versions and the fp32 function")
+    return launches
+
+
+def _entry_eval(cfg, pt: str, tmp: str, smi: str) -> dict:
+    """``cli evaluate --task caption`` from the run's checkpoint_last with
+    ``--use-ema`` and from the ``.pt``, on a 32-row TSV at batch 16, with
+    ``decode_stack_kernel`` set (its refusal of a NormFormer model is what is
+    checked): K1 6 per encode, K2 once per beam step on its tensor-core
+    route, K7 never. → the launches of each run."""
+    import os
+
+    import numpy as np
+
+    from musketeer_tpu_torch import cli
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.tasks import tasks as tasks_module
+
+    path = os.path.join(tmp, "eval_caption.tsv")
+    with open(path, "w") as f:
+        f.writelines("\t".join(r) + "\n" for r in _eval_rows(
+            "caption", ENTRY_EVAL_ROWS, IMAGE, np.random.RandomState(SEED + 20)))
+    init_state = ofa.init_decoder_state
+
+    def with_stack_flag(params, model_cfg, *a, **kw):
+        return init_state(params, dataclasses.replace(model_cfg, decode_stack_kernel=True), *a, **kw)
+
+    runs = {"ckpt --use-ema": ["--ckpt", os.path.join(tmp, "run", "checkpoint_last"), "--use-ema"],
+            "pt": ["--pt", pt]}
+    launches = {}
+    for run, src in runs.items():
+        evals = []
+        _reset_counters()
+        with mock.patch.object(ofa, "init_decoder_state", with_stack_flag), \
+                mock.patch.object(ofa, "encode", wraps=ofa.encode) as enc, \
+                mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps, \
+                mock.patch.object(tasks_module.CaptionTask, "evaluate",
+                                  _timed(tasks_module.CaptionTask.evaluate, evals)):
+            t0 = time.perf_counter()
+            out = cli.main(["evaluate", "--task", "caption", "--data", path, "--device", "cuda",
+                            "--arch", "ofa_base", "--batch-size", str(ENTRY_EVAL_BATCH), *src])
+            wall = time.perf_counter() - t0
+        got = _counters()
+        want = dict.fromkeys(got, 0)
+        want["K1"] = cfg.encoder_layers * enc.call_count
+        want["K2"] = want["K2-sm90"] = steps.call_count
+        log(f"[entry eval {run}] launches {{K1: {got['K1']}, K2: {got['K2']}, K2-sm90: "
+            f"{got['K2-sm90']}, K7: {got['K7']}}} over {enc.call_count} encodes and "
+            f"{steps.call_count} beam steps; cider {out['cider']:.4f}")
+        if got != want or enc.call_count != ENTRY_EVAL_ROWS // ENTRY_EVAL_BATCH \
+                or out["n"] != ENTRY_EVAL_ROWS:
+            raise AssertionError(f"cli evaluate ({run}): launches {got}, expected {want}")
+        log(f"[entry eval {run}] ofa_base bf16 NormFormer caption, {ENTRY_EVAL_ROWS} rows at "
+            f"batch {ENTRY_EVAL_BATCH}: evaluate {ENTRY_EVAL_ROWS / evals[0]:.2f} rows/s "
+            f"({evals[0]:.2f} s; the CLI call {wall:.2f} s with the checkpoint's load) on {smi}")
+        launches[f"eval {run}"] = got
+    return launches
+
+
+def phase_entry(smi: str, tmp: str, phase8_ms=None) -> dict:
+    """Phase 19: the port's CLI, the way a user runs it, on ``ofa_base`` in
+    bf16 at full width and depth with all four NormFormer options (their
+    leaves drawn from a seed). → K1-K8 launches of each CLI run."""
+    import os
+
+    from musketeer_tpu_torch.params import from_jax
+    from musketeer_tpu_torch.training.checkpoint import export_pt, import_pt, load_checkpoint
+
+    cfg, tree = _normformer_tree(SEED)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    params = from_jax(tree, cfg, "cpu", torch.float32)
+    pt = os.path.join(tmp, "normformer_ofa_base.pt")
+    t0 = time.perf_counter()
+    export_pt(params, cfg, pt)
+    export_s = time.perf_counter() - t0
+    # 1. convert, in a process of its own, as a user runs it
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "musketeer_tpu_torch.cli", "convert", "--pt", pt,
+                    "--out", os.path.join(tmp, "converted"), "--device", "cuda"],
+                   cwd=os.path.dirname(os.path.abspath(__file__)), check=True)
+    convert_s = time.perf_counter() - t0
+    back, back_cfg = import_pt(pt, device="cpu")
+    n = _assert_bitwise(back, params, "import_pt of the exported .pt")
+    converted, _ = load_checkpoint(tmp, None, "converted", device="cpu")
+    _assert_bitwise(converted.params, params, "cli convert's checkpoint")
+    if not all(getattr(back_cfg, o) for o in NORMFORMER):
+        raise AssertionError(f"infer_config lost a NormFormer option: {back_cfg}")
+    log(f"[entry convert] export_pt {export_s:.2f} s; cli convert (its own process) "
+        f"{convert_s:.2f} s; import_pt and the converted checkpoint: all {n} leaves bit for bit")
+    launches = {"train": _entry_train(cfg, pt, tmp, smi, phase8_ms)}
+    launches.update(_entry_eval(cfg, pt, tmp, smi))
+    # 4. the NormFormer caption slice in fp32 through the kernels and the plain versions
+    phase_exactness(tree, "slice", dict.fromkeys(NORMFORMER, True))
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2041,6 +2488,10 @@ def main(argv=None) -> int:
     only.add_argument("--eval-only", action="store_true",
                       help="after phases 1-2, run only phase 18 (the eval tasks, their "
                            "counters, times and fp32 exactness), and print no result line")
+    only.add_argument("--entry-only", action="store_true",
+                      help="after phases 1-2, run only phase 19 (the CLI's convert, train "
+                           "with its resume, and evaluate on a NormFormer ofa_base), and print "
+                           "no result line")
     opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2053,6 +2504,11 @@ def main(argv=None) -> int:
         log(f"[routes] bf16 routes on the tensor cores, counted apart: {sorted(routes)}")
     if opts.train_only:
         phase_train(tree, smi, routes)
+        return 0
+    if opts.entry_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_entry(smi, tmp)
+        log(f"[done] entry-point phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.k8_only:
         phase_k8(torch.Generator(device="cuda").manual_seed(SEED), tree, smi, routes)
@@ -2081,7 +2537,7 @@ def main(argv=None) -> int:
     for name in SLICES:
         phase_exactness(tree, name)
     stats.update(phase_k3_k4(g))
-    train_launches = phase_train(tree, smi)
+    train_launches, train_p50_ms = phase_train(tree, smi)
     phase_train_exactness(tree)
     phase_profile(tree)
     k5_stats, k5_launches = phase_k5(g)
@@ -2089,6 +2545,8 @@ def main(argv=None) -> int:
     stats["K8"], k8_launches = phase_k8(g, tree, smi)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches = phase_eval(tree, smi, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        entry_launches = phase_entry(smi, tmp, train_p50_ms)
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -2113,6 +2571,8 @@ def main(argv=None) -> int:
     for entry, (k, *_) in zip(kernels, table):
         if k in ("K1", "K2"):  # the eval path's launches, task by task (phase 18)
             entry["eval_launches"] = {task: n[k] for task, n in eval_launches.items()}
+        if k in ("K1", "K2", "K3", "K4"):  # the CLI's launches (phase 19)
+            entry["entry_launches"] = {run: n[k] for run, n in entry_launches.items()}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,29 +2,38 @@
 
 A port of the JAX package ``musketeer_tpu`` (the reference, which stays
 beside it). Ported so far: caption inference with its serving options, the
-joint multi-task training step, the evaluation path (TSV row to metric), and
+joint multi-task training step and loop, fairseq checkpoint I/O with the
+NormFormer options, the evaluation path (TSV row to metric), the CLI, and
 the JAX package's kernel entry points.
 Layout mirrors the JAX package:
 
-  config.py                      model / generation / optimizer / criterion dataclasses
+  cli.py                         train / evaluate / evaluate-all / convert (--device)
+  config.py                      model / generation / optimizer / criterion / mesh /
+                                 train dataclasses and the arch presets
   params.py                      random init in the JAX layout; JAX tree → port params;
-                                 trainable fp32 masters; one ResNet block (block_from_jax)
+                                 trainable fp32 masters; to_inference casts; one ResNet
+                                 block (block_from_jax)
+  convert/fairseq.py             fairseq state dicts ↔ the port's tree
   models/positions.py            position tables (restated from the JAX package)
   models/resnet.py               frozen-BN ResNet image embedder (cuDNN)
   models/ofa.py                  encoder, teacher-forced decoder, incremental decoder,
-                                 int8 serving branches
+                                 int8 serving branches, the NormFormer options
+  models/heads.py                classification heads, vocab growth
   criterions/label_smoothed_ce.py  the training criterion
-  training/                      lr schedule, train state (AdamW, EMA), the joint step
+  training/                      lr schedule, train state (AdamW, EMA), the joint step,
+                                 train_loop, checkpoints, prefetch, metrics
   generation/beam_search.py      beam search: the fast candidate path and the general
                                  body (tries, prefixes, constraints, boxes, sampling,
                                  diverse and lexical search, ensembles); generate
   generation/trie.py, lexical.py constrained-decoding tables
   tokenization/                  GPT-2 BPE (stdlib ``re``) and the OFA vocabulary,
                                  over the port's copy of assets/bpe/
-  data/                          eval example builders, collate, the TSV reader
+  data/                          example builders (uint8 transport), collate, train
+                                 augmentation, the TSV reader
   utils/                         CIDEr-D, the summary normalizer, eval utilities
                                  (boxes, IoU, allcand scoring)
-  tasks/                         Task, iter_batches and the eval tasks (TASK_REGISTRY)
+  tasks/                         Task, iter_batches, the eval tasks (TASK_REGISTRY), the
+                                 joint loader (MusketeerDataLoader)
   ops/flash_attention_infer.py   K1: attention with decomposed bias
   ops/topk_projection.py         K2, K2-q8: output projection + softmax stats
   ops/flash_attention_bwd.py     K3, K4: training attention forward / backward

@@ -3,8 +3,9 @@
 
 The port runs where the JAX package is absent, so it carries its own copy of
 the frozen dataclasses it reads. Field names and defaults are those of
-``musketeer_tpu.config.ModelConfig``, ``GenerationConfig``, ``OptimConfig``
-and ``CriterionConfig``; ``tests/test_torch_port_boundary.py`` holds them
+``musketeer_tpu.config.ModelConfig``, ``GenerationConfig``, ``OptimConfig``,
+``CriterionConfig``, ``MeshConfig`` and ``TrainConfig``, and the presets are
+its ``ARCH_PRESETS``; ``tests/test_torch_port_boundary.py`` holds them
 equal, so a JAX config converts with
 ``ModelConfig(**dataclasses.asdict(jax_cfg))``. Options the port does not
 implement stay here as fields so that the model can refuse them by name
@@ -13,7 +14,7 @@ implement stay here as fields so that the model can refuse them by name
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 
@@ -103,12 +104,41 @@ def ofa_tiny() -> ModelConfig:
     )
 
 
+def ofa_medium() -> ModelConfig:
+    return replace(
+        ModelConfig(),
+        embed_dim=512, ffn_dim=2048, encoder_layers=4, decoder_layers=4,
+        attention_heads=8, resnet_layers=(3, 4, 23),
+    )
+
+
 def ofa_base() -> ModelConfig:
     return replace(
         ModelConfig(),
         embed_dim=768, ffn_dim=3072, encoder_layers=6, decoder_layers=6,
         attention_heads=12, resnet_layers=(3, 4, 23),
     )
+
+
+def ofa_large() -> ModelConfig:
+    return ModelConfig()
+
+
+def ofa_huge() -> ModelConfig:
+    return replace(
+        ModelConfig(),
+        embed_dim=1280, ffn_dim=5120, encoder_layers=24, decoder_layers=12,
+        attention_heads=16, resnet_layers=(3, 8, 36),
+    )
+
+
+ARCH_PRESETS = {
+    "ofa_tiny": ofa_tiny,
+    "ofa_medium": ofa_medium,
+    "ofa_base": ofa_base,
+    "ofa_large": ofa_large,
+    "ofa_huge": ofa_huge,
+}
 
 
 @dataclass(frozen=True)
@@ -176,3 +206,49 @@ class CriterionConfig:
     sample_patch_num: int = 196
     constraint_start: Optional[int] = None
     constraint_end: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout (same fields as the JAX package's). The port runs on
+    one device: ``cli train`` refuses any axis above 1 but ``data``."""
+
+    data: int = -1  # -1: all remaining devices
+    fsdp: int = 1
+    model: int = 1
+    pipe: int = 1
+    seq: int = 1
+
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int, int, int, int]:
+        d, f, m, p, s = self.data, self.fsdp, self.model, self.pipe, self.seq
+        if d == -1:
+            d = n_devices // (f * m * p * s)
+        if d * f * m * p * s != n_devices:
+            raise ValueError(f"mesh {d}x{f}x{m}x{p}x{s} != {n_devices} devices")
+        return d, f, m, p, s
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The training loop's settings (same fields as the JAX package's)."""
+
+    arch: str = "ofa_base"
+    batch_size: int = 8
+    update_freq: int = 1  # gradient accumulation microbatches
+    seed: int = 7
+    bf16: bool = True
+    ema_decay: float = 0.0  # 0 disables EMA
+    save_interval_updates: int = 0
+    validate_interval_updates: int = 0
+    async_save: bool = False  # background checkpoint writes
+    keep_best_checkpoints: int = -1
+    best_checkpoint_metric: str = "score"
+    maximize_best_checkpoint_metric: bool = True
+    patience: int = -1
+    max_epoch: int = 0
+    max_update: int = 0
+    stop_time_hours: float = 0.0
+    prefetch_depth: int = 2  # background batch prefetch depth (0 = synchronous)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    criterion: CriterionConfig = field(default_factory=CriterionConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)

@@ -61,7 +61,7 @@ class Example:
     src_ids: np.ndarray  # int32, incl. bos/eos
     target_ids: Optional[np.ndarray] = None  # int32, ends with eos
     prev_ids: Optional[np.ndarray] = None  # int32, starts with bos/prompt
-    patch_image: Optional[np.ndarray] = None  # [S,S,3] f32
+    patch_image: Optional[np.ndarray] = None  # [S,S,3] f32, or uint8 when transport_uint8
     patch_mask: bool = False
     constraint_mask: Optional[np.ndarray] = None  # [T_tgt, V] bool
     conf: float = 1.0
@@ -89,6 +89,14 @@ class BuilderBase:
         self.max_tgt_length = max_tgt_length
         self.patch_image_size = patch_image_size
         self.imagenet_stats = imagenet_stats
+        # False when the builder's output holds float-domain augmentation
+        # values off the uint8 pixel grid; the loader's uint8 transport would
+        # clip them (tasks/musketeer.py::_compress_batch checks)
+        self.uint8_safe = True
+        # set by MusketeerDataLoader when the uint8 transport is on: builders
+        # whose post-resize chain is exactly `normalize` emit raw uint8
+        # pixels (bit-identical after the in-step dequantization)
+        self.transport_uint8 = False
 
     def enc(self, text: str, length=None, use_bpe=True) -> np.ndarray:
         return self.vocab.encode_text(text, length=length, use_bpe=use_bpe)
@@ -117,7 +125,8 @@ class CaptionBuilder(BuilderBase):
     def __call__(self, row: Sequence[str]) -> Example:
         uniq_id, image_b64, caption = row[0], row[1], row[2]
         patch = patch_resize(
-            decode_base64_image(image_b64), self.patch_image_size, self.imagenet_stats
+            decode_base64_image(image_b64), self.patch_image_size,
+            self.imagenet_stats, as_uint8=self.transport_uint8,
         )
         if self.split == "train" and not self.scst:
             caption = caption.translate(_PUNCT_TABLE).strip()
@@ -152,7 +161,8 @@ class RefcocoBuilder(BuilderBase):
         image = decode_base64_image(image_b64)
         box = np.asarray([[float(v) for v in region.strip().split(",")]], np.float32)
         patch, boxes_norm, w_ratio, h_ratio = positioning_resize(
-            image, box, self.patch_image_size, self.max_image_size, self.imagenet_stats
+            image, box, self.patch_image_size, self.max_image_size,
+            self.imagenet_stats, as_uint8=self.transport_uint8,
         )
         quant = np.round(boxes_norm[0] * (self.num_bins - 1)).astype(int)
         region_tokens = " ".join(f"<bin_{int(v)}>" for v in quant)
@@ -199,7 +209,8 @@ class VqaBuilder(BuilderBase):
         uniq_id, image_b64, question, ref = row[0], row[1], row[2], row[3]
         predict_objects = row[4] if len(row) > 4 else None
         patch = patch_resize(
-            decode_base64_image(image_b64), self.patch_image_size, self.imagenet_stats
+            decode_base64_image(image_b64), self.patch_image_size,
+            self.imagenet_stats, as_uint8=self.transport_uint8,
         )
         question = pre_question(question, self.max_src_length)
         question = question + "?" if not question.endswith("?") else question
@@ -270,7 +281,8 @@ class SnliVeBuilder(BuilderBase):
         )
         label = self.LABEL_MAP[label]
         patch = patch_resize(
-            decode_base64_image(image_b64), self.patch_image_size, self.imagenet_stats
+            decode_base64_image(image_b64), self.patch_image_size,
+            self.imagenet_stats, as_uint8=self.transport_uint8,
         )
         hypothesis = pre_caption(hypothesis, self.max_src_length)
         caption = pre_caption(caption, self.max_src_length)
@@ -292,26 +304,56 @@ class SnliVeBuilder(BuilderBase):
 
 class ImageClassifyBuilder(BuilderBase):
     """ref: data/cv_data/image_classify_dataset.py — 480² bicubic resize at
-    eval. The train split's augmentation (the JAX package's
-    ``data/augment.py``: RandomResizedCrop, flip, ColorJitter, RandAugment,
-    RandomErasing) is not ported: a train split raises."""
+    eval; the train split runs the reference's timm pipeline
+    (image_classify_dataset.py:68-90): RandomResizedCrop → hflip →
+    ColorJitter(0.4) → RandAugment(2, 7, OFA op list) → normalize →
+    RandomErasing(p=0.25, 'pixel'), drawn from Python's ``random`` and numpy
+    as the JAX package draws them (``data/augment.py``)."""
 
     task = "image_classify"
 
     def __init__(self, *a, trie=None, prompt_type: str = "prev_output",
                  seed: int = 0, **kw):
         super().__init__(*a, **kw)
-        if self.split == "train":
-            raise NotImplementedError(
-                "musketeer_tpu_torch does not port image_classify's training augmentation")
         self.trie = trie
         self.prompt_type = prompt_type
+        import random as _random
+
+        self._aug_rng = _random.Random(seed)
+        from .augment import OFA_RANDAUG_OPS, RandAugment
+
+        self._randaug = RandAugment(2, 7, ops=OFA_RANDAUG_OPS)
+        # uint8_safe stays True: _train_patch clamps the erasing noise to the
+        # pixel gamut, so the uint8 transport represents the patch to half a
+        # pixel step
+
+    def _train_patch(self, image) -> np.ndarray:
+        from PIL import Image as PILImage
+
+        from .augment import color_jitter, random_erasing, random_resized_crop
+        from .transforms import normalize
+
+        rng = self._aug_rng
+        img = random_resized_crop(image.convert("RGB"), self.patch_image_size, rng=rng)
+        if rng.random() < 0.5:
+            img = img.transpose(PILImage.FLIP_LEFT_RIGHT)
+        img = color_jitter(img, 0.4, rng=rng)
+        img = self._randaug(img)
+        arr = normalize(np.asarray(img, np.float32) / 255.0, self.imagenet_stats)
+        arr = random_erasing(arr, 0.25, rng=rng)
+        # the erasing noise clamped to the pixel gamut (the JAX package's
+        # deviation from timm, kept: ref image_classify_dataset.py:68-90)
+        lo = normalize(np.zeros((3,), np.float32), self.imagenet_stats)
+        hi = normalize(np.ones((3,), np.float32), self.imagenet_stats)
+        return np.clip(arr, lo, hi)
 
     def __call__(self, row: Sequence[str]) -> Example:
         uniq_id, image_b64, label = row[0], row[1], row[2]
-        patch = patch_resize(
-            decode_base64_image(image_b64), self.patch_image_size, self.imagenet_stats
-        )
+        image = decode_base64_image(image_b64)
+        if self.split == "train":
+            patch = self._train_patch(image)
+        else:
+            patch = patch_resize(image, self.patch_image_size, self.imagenet_stats)
         src = self.wrap_src(self.enc(self.prompt()))
         tgt = self.enc(f" {label}")
         prev, target = VqaBuilder._decoder_io(self, src, tgt)

@@ -1,8 +1,9 @@
 """Host-side image preprocessing (PIL + numpy), box-aware (port of
-``musketeer_tpu/data/transforms.py``, the eval transforms).
+``musketeer_tpu/data/transforms.py``).
 
-Produces normalized NHWC float32 arrays, as the JAX package does (its uint8
-transport for the joint loader is not ported):
+Produces normalized NHWC float32 arrays, or raw uint8 pixels with the affine
+that normalizes them (``norm_constants``) for the joint loader's uint8
+transport, as the JAX package does:
 
 - square bicubic resize + mean/std 0.5 normalize (ref: caption_dataset.py:69-74),
 - the "positioning transform" for grounding tasks: resize to
@@ -40,11 +41,29 @@ def normalize(arr: np.ndarray, imagenet_stats: bool = False) -> np.ndarray:
     return (arr - mean) / std
 
 
-def patch_resize(image, size: int, imagenet_stats: bool = False) -> np.ndarray:
-    """Square bicubic resize → normalized NHWC float32 [size, size, 3]."""
+def norm_constants(imagenet_stats: bool = False) -> np.ndarray:
+    """[2, 3] (scale row, bias row) such that for uint8 pixels p:
+    p * scale + bias == normalize(p / 255) (up to fp rounding).
+
+    The uint8 image transport: PIL's resize output is uint8, so raw bytes plus
+    this affine carry what the normalized float32 carries at a quarter of the
+    host→device bytes (``train_step.dequantize_batch`` applies it on the
+    device)."""
+    mean, std = (IMAGENET_MEAN, IMAGENET_STD) if imagenet_stats else (MEAN, STD)
+    mean = np.broadcast_to(np.asarray(mean, np.float32), (3,))
+    std = np.broadcast_to(np.asarray(std, np.float32), (3,))
+    return np.stack([1.0 / (255.0 * std), -mean / std]).astype(np.float32)
+
+
+def patch_resize(image, size: int, imagenet_stats: bool = False,
+                 as_uint8: bool = False) -> np.ndarray:
+    """Square bicubic resize → normalized NHWC float32 [size, size, 3], or raw
+    uint8 pixels when ``as_uint8`` (pair with :func:`norm_constants`)."""
     from PIL import Image
 
     img = image.convert("RGB").resize((size, size), Image.BICUBIC)
+    if as_uint8:
+        return np.asarray(img, np.uint8)
     arr = np.asarray(img, np.float32) / 255.0
     return normalize(arr, imagenet_stats)
 
@@ -55,6 +74,7 @@ def positioning_resize(
     patch_size: int,
     max_image_size: int = 512,
     imagenet_stats: bool = False,
+    as_uint8: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, float, float]:
     """Grounding-task resize.
 
@@ -68,7 +88,11 @@ def positioning_resize(
     image = image.convert("RGB")
     w, h = image.size
     img = image.resize((patch_size, patch_size), Image.BICUBIC)
-    arr = normalize(np.asarray(img, np.float32) / 255.0, imagenet_stats)
+    arr = (
+        np.asarray(img, np.uint8)
+        if as_uint8
+        else normalize(np.asarray(img, np.float32) / 255.0, imagenet_stats)
+    )
     w_ratio = patch_size / w
     h_ratio = patch_size / h
     scaled = boxes.astype(np.float32) * np.asarray(

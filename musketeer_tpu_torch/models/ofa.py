@@ -29,6 +29,14 @@ from one key; here each draw advances the generator (ROADMAP §3).
 ``decode_step`` writes the step's K/V into the self cache in place and
 returns the same state object.
 
+NormFormer (``scale_attn``, ``scale_fc``, ``scale_heads``, ``scale_resids``),
+where a layer's parameters carry its leaves, as in the JAX model: ``c_attn``
+scales each head's attention output (after K1/K3 or the cached attention),
+``attn_ln`` / ``self_attn_ln`` / ``cross_attn_ln`` normalise an attention's
+output and ``ffn_layernorm`` the FFN's hidden activations, and ``w_resid``
+scales the FFN's residual. K7 has none of them: a session with any of them
+runs its steps layer by layer (``stack_kernel_allowed``).
+
 Serving options, as in the JAX model: ``quantize_output_proj`` (int8 tied
 projection with per-row scales: ``output_layer`` and the beam search's K2-q8
 read it), ``quantize_cross_kv`` (int8 cross K/V with per-position scales;
@@ -52,7 +60,7 @@ from ..config import ModelConfig
 from ..ops.decode_cross_attn import decode_cross_attention_int8
 from ..ops.decode_stack import decode_stack_step, pack_decoder_weights
 from ..ops.flash_attention_bwd import flash_attention
-from ..params import check_supported
+from ..params import check_supported, normformer_flags
 from . import positions as pos_lib
 from .resnet import resnet_forward
 
@@ -175,8 +183,35 @@ def _rel_gather(table: torch.Tensor, rp: torch.Tensor) -> torch.Tensor:
     return flat.view(T, T, L, H).permute(2, 3, 0, 1).contiguous()
 
 
+def _head_scale(p: Params, out: torch.Tensor) -> torch.Tensor:
+    """NormFormer's per-head scale (``scale_heads``) of an attention output
+    ``[B, H, T, hd]``, in its dtype; the output itself without ``c_attn``."""
+    if "c_attn" not in p:
+        return out
+    return out * p["c_attn"].to(out.dtype)[None, :, None, None]
+
+
+def _post_ln(p: Params, name: str, h: torch.Tensor) -> torch.Tensor:
+    """``h`` through the layer's NormFormer LayerNorm ``name`` where it has one
+    (``attn_ln``, ``self_attn_ln``, ``cross_attn_ln``, ``ffn_layernorm``)."""
+    return _layer_norm(p[name], h) if name in p else h
+
+
+def _ffn_block(p: Params, cfg: ModelConfig, x, gen=None, deterministic=True, dp_rate=None):
+    """The pre-LN feed-forward half of a layer, with NormFormer's
+    ``ffn_layernorm`` and ``w_resid`` where the layer has them."""
+    h = _layer_norm(p["final_layer_norm"], x)
+    h = _dropout(_gelu(_linear(p["fc1"], h)), cfg.activation_dropout, gen, deterministic)
+    h = _post_ln(p, "ffn_layernorm", h)
+    h = _dropout(_linear(p["fc2"], h), cfg.dropout, gen, deterministic)
+    if "w_resid" in p:
+        x = x * p["w_resid"].to(x.dtype)
+    return x + _drop_path(h, dp_rate, gen, deterministic)
+
+
 def _flash_attn(p: Params, cfg: ModelConfig, x, kv, pos_q, pos_k, rel, kpad, causal: bool):
-    """Self (``kv`` is ``x``) or cross attention through ``flash_attention``."""
+    """Self (``kv`` is ``x``) or cross attention through ``flash_attention``;
+    ``c_attn`` scales each head's output after the kernel."""
     H = cfg.attention_heads
     scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
     q = _linear_heads(p["q_proj"], x, H) * scaling
@@ -186,7 +221,7 @@ def _flash_attn(p: Params, cfg: ModelConfig, x, kv, pos_q, pos_k, rel, kpad, cau
         q, k, v, pos_q, pos_k, rel, kpad, causal=causal,
         skip_max=cfg.flash_skip_max_subtract,
     )
-    return _out_proj_heads(p["out_proj"], out)
+    return _out_proj_heads(p["out_proj"], _head_scale(p, out))
 
 
 def _encoder_layer(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, padding_mask,
@@ -194,12 +229,9 @@ def _encoder_layer(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, padding_ma
     """Pre-LN encoder block, flash branch."""
     h = _layer_norm(p["self_attn_layer_norm"], x)
     h = _flash_attn(p["self_attn"], cfg, h, h, pos_q, pos_k, rel, padding_mask, causal=False)
-    h = _dropout(h, cfg.dropout, gen, deterministic)
+    h = _dropout(_post_ln(p, "attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
-    h = _layer_norm(p["final_layer_norm"], x)
-    h = _dropout(_gelu(_linear(p["fc1"], h)), cfg.activation_dropout, gen, deterministic)
-    h = _dropout(_linear(p["fc2"], h), cfg.dropout, gen, deterministic)
-    return x + _drop_path(h, dp_rate, gen, deterministic)
+    return _ffn_block(p, cfg, x, gen, deterministic, dp_rate)
 
 
 def encode(
@@ -350,19 +382,16 @@ def _decoder_layer_flash(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, self
     """Pre-LN decoder block over a whole target (teacher forcing), flash branch."""
     h = _layer_norm(p["self_attn_layer_norm"], x)
     h = _flash_attn(p["self_attn"], cfg, h, h, pos_q, pos_k, rel, self_pad, causal=True)
-    h = _dropout(h, cfg.dropout, gen, deterministic)
+    h = _dropout(_post_ln(p, "self_attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
     # cross attention: no rel bias, so no drel (the JAX model passes zeros with
     # need_drel=False)
     h = _layer_norm(p["encoder_attn_layer_norm"], x)
     h = _flash_attn(p["encoder_attn"], cfg, h, enc_x, cross_pos_q, cross_pos_k, None, enc_pad,
                     causal=False)
-    h = _dropout(h, cfg.dropout, gen, deterministic)
+    h = _dropout(_post_ln(p, "cross_attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
-    h = _layer_norm(p["final_layer_norm"], x)
-    h = _dropout(_gelu(_linear(p["fc1"], h)), cfg.activation_dropout, gen, deterministic)
-    h = _dropout(_linear(p["fc2"], h), cfg.dropout, gen, deterministic)
-    return x + _drop_path(h, dp_rate, gen, deterministic)
+    return _ffn_block(p, cfg, x, gen, deterministic, dp_rate)
 
 
 def decode(
@@ -455,7 +484,8 @@ def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pa
     valid = torch.arange(k.shape[2], device=x.device) <= cache_index
     w = w.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(w, dim=-1).to(x.dtype)
-    x = x + _linear(pa["out_proj"], _merge_heads(probs @ v.to(x.dtype)))
+    h = _linear(pa["out_proj"], _merge_heads(_head_scale(pa, probs @ v.to(x.dtype))))
+    x = x + _post_ln(p, "self_attn_ln", h)
 
     # beam-shared cross attention: rows = Bs samples × Kb beams; a sample's
     # beams are the query rows of one product with its K/V (a broadcast beam
@@ -481,10 +511,9 @@ def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pa
         if int8_kv:
             probs = probs * cache["cross_v_scale"][:, :, None, :]
         out = probs.to(x.dtype) @ cv.to(x.dtype)
-    x = x + _linear(pc["out_proj"], out.transpose(1, 2).reshape(rows, 1, -1))
-
-    h = _layer_norm(p["final_layer_norm"], x)
-    return x + _linear(p["fc2"], _gelu(_linear(p["fc1"], h)))
+    h = _linear(pc["out_proj"], _head_scale(pc, out).transpose(1, 2).reshape(rows, 1, -1))
+    x = x + _post_ln(p, "cross_attn_ln", h)
+    return _ffn_block(p, cfg, x)
 
 
 def output_weight(params: Params, dtype: torch.dtype) -> torch.Tensor:
@@ -553,6 +582,17 @@ def quantize_cross_kv(state: DecoderState) -> DecoderState:
                                  "cross_k_scale": ck_s[..., 0], "cross_v_scale": cv_s[..., 0]})
 
 
+def stack_kernel_allowed(cfg: ModelConfig, params: Params) -> bool:
+    """Does a decode session build K7's weight pack? As in the JAX model:
+    ``decode_stack_kernel`` set and no NormFormer option, since the fused
+    stack has no c_attn, post-LayerNorms or residual scale. The port also
+    refuses a tree that carries NormFormer leaves under a config that does
+    not say so (a training checkpoint evaluated under its preset)."""
+    return cfg.decode_stack_kernel and not (
+        cfg.scale_attn or cfg.scale_fc or cfg.scale_heads or cfg.scale_resids
+        or any(normformer_flags(params).values()))
+
+
 def init_decoder_state(
     params: Params,
     cfg: ModelConfig,
@@ -587,7 +627,7 @@ def init_decoder_state(
     cross_v = torch.stack([_split_heads(_linear(lp["encoder_attn"]["v_proj"], enc_x), H)
                            for lp in dec["layers"]])
     kernel_pack = None
-    if cfg.decode_stack_kernel:
+    if stack_kernel_allowed(cfg, params):
         # K7 reads the cross K/V in the compute dtype, half the bytes of fp32
         kernel_pack = pack_decoder_weights(dec["layers"], dtype)
     else:

@@ -18,7 +18,14 @@ or torch leaves, into the port's parameters:
   ``embed_tokens_c`` for the output projection. A tree that went through
   ``quantize_output_proj`` also carries the int8 serving projection
   ``embed_tokens_q8 [Vp, d]`` (kept int8) and its fp32 row scales
-  ``embed_tokens_scale [Vp]``.
+  ``embed_tokens_scale [Vp]``. The NormFormer options' leaves (``c_attn`` per
+attention, ``attn_ln`` or the decoder's ``self_attn_ln`` and
+``cross_attn_ln``, ``ffn_layernorm``, ``w_resid``) come where the config
+turns them on: the LayerNorms in fp32, ``c_attn`` and ``w_resid`` in the
+compute dtype (the JAX model casts both to its activations' dtype).
+These casts are ``to_inference``'s, the one rule: ``from_jax`` builds the
+port's layout in fp32 and ends with it, and the converter and the CLI apply
+it to fp32 trees of their own (a training state's, a ``.pt``'s).
 
 Every leaf of the JAX tree is consumed exactly once; a missing, extra or twice
 consumed leaf raises ``ValueError``.
@@ -51,10 +58,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "encoder_prompt": cfg.encoder_prompt,
         "decoder_prompt": cfg.decoder_prompt,
         "use_adapter": cfg.use_adapter,
-        "scale_attn": cfg.scale_attn,
-        "scale_fc": cfg.scale_fc,
-        "scale_heads": cfg.scale_heads,
-        "scale_resids": cfg.scale_resids,
         "seq_parallel": cfg.seq_parallel,
         "pipeline_microbatches": cfg.pipeline_microbatches > 0,
         "interpolate_position": cfg.interpolate_position,
@@ -64,6 +67,24 @@ def check_supported(cfg: ModelConfig) -> None:
     for name, on in unsupported.items():
         if on:
             raise NotImplementedError(f"musketeer_tpu_torch does not support {name}")
+
+
+def normformer_flags(params: Params) -> Dict[str, bool]:
+    """The NormFormer options a tree in the port's layout carries, read from
+    its first encoder layer's leaves (as the converter reads a state dict's keys)."""
+    lp = params["encoder"]["layers"][0]
+    return dict(scale_attn="attn_ln" in lp, scale_fc="ffn_layernorm" in lp,
+                scale_heads="c_attn" in lp["self_attn"], scale_resids="w_resid" in lp)
+
+
+def normformer_lns(cfg: ModelConfig, decoder: bool) -> List[str]:
+    """The NormFormer LayerNorms of an encoder or decoder layer under ``cfg``."""
+    names = []
+    if cfg.scale_attn:
+        names += ["self_attn_ln", "cross_attn_ln"] if decoder else ["attn_ln"]
+    if cfg.scale_fc:
+        names.append("ffn_layernorm")
+    return names
 
 
 # ---------------------------------------------------------------------------
@@ -100,29 +121,44 @@ class _Init:
     def embed(self, n: int, d: int) -> torch.Tensor:
         return self.normal((n, d), d ** -0.5)
 
-    def attention(self, d: int) -> Params:
+    def attention(self, cfg: ModelConfig) -> Params:
+        d = cfg.embed_dim
         gain = 1.0 / math.sqrt(2.0)
-        return {
+        p = {
             "q_proj": self.linear(d, d, gain),
             "k_proj": self.linear(d, d, gain),
             "v_proj": self.linear(d, d, gain),
             "out_proj": self.linear(d, d),
         }
+        if cfg.scale_heads:
+            p["c_attn"] = self.ones((cfg.attention_heads,))
+        return p
 
     def enc_layer(self, cfg: ModelConfig) -> Params:
         d, f = cfg.embed_dim, cfg.ffn_dim
-        return {
-            "self_attn": self.attention(d),
+        p = {
+            "self_attn": self.attention(cfg),
             "self_attn_layer_norm": self.ln(d),
             "fc1": self.linear(d, f),
             "fc2": self.linear(f, d),
             "final_layer_norm": self.ln(d),
         }
+        # NormFormer (scale_attn / scale_fc / scale_resids), as the JAX init
+        if cfg.scale_attn:
+            p["attn_ln"] = self.ln(d)
+        if cfg.scale_fc:
+            p["ffn_layernorm"] = self.ln(f)
+        if cfg.scale_resids:
+            p["w_resid"] = self.ones((d,))
+        return p
 
     def dec_layer(self, cfg: ModelConfig) -> Params:
         p = self.enc_layer(cfg)
-        p["encoder_attn"] = self.attention(cfg.embed_dim)
+        p["encoder_attn"] = self.attention(cfg)
         p["encoder_attn_layer_norm"] = self.ln(cfg.embed_dim)
+        if cfg.scale_attn:
+            p["self_attn_ln"] = p.pop("attn_ln")
+            p["cross_attn_ln"] = self.ln(cfg.embed_dim)
         return p
 
     def conv(self, kh: int, kw: int, cin: int, cout: int) -> torch.Tensor:
@@ -286,19 +322,20 @@ def block_from_jax(block_np: Params, device, dtype: torch.dtype) -> Params:
 
 
 def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) -> Params:
-    """JAX parameter tree (numpy or torch leaves) → the port's parameters."""
+    """JAX parameter tree (numpy or torch leaves) → the port's parameters: the
+    port's layout in fp32 on ``device``, then ``to_inference``'s casts to
+    ``dtype`` (the one casting rule, shared with the converter and the CLI)."""
     check_supported(cfg)
     lv = _Leaves(params_np, device)
     take = lv.take
 
-    def lin(path: str, dt=dtype) -> Params:
-        return {"w": take(f"{path}/w").t().contiguous().to(dt),
-                "b": take(f"{path}/b").to(dt)}
+    def lin(path: str) -> Params:
+        return {"w": take(f"{path}/w").t().contiguous(), "b": take(f"{path}/b")}
 
     def ln(path: str) -> Params:
         return {"scale": take(f"{path}/scale"), "bias": take(f"{path}/bias")}
 
-    def stacked(path: str, n: int, split) -> List:
+    def stacked(path: str, n: int, split=lambda x: x) -> List:
         """Per-layer values of the stacked leaf at ``path``, through ``split``."""
         x = take(path)
         if x.shape[0] != n:
@@ -306,17 +343,18 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
         return [split(x[i]) for i in range(n)]
 
     def s_lin(path: str, n: int) -> List[Params]:
-        ws = stacked(f"{path}/w", n, lambda w: w.t().contiguous().to(dtype))
-        bs = stacked(f"{path}/b", n, lambda b: b.to(dtype))
+        ws = stacked(f"{path}/w", n, lambda w: w.t().contiguous())
+        bs = stacked(f"{path}/b", n)
         return [{"w": w, "b": b} for w, b in zip(ws, bs)]
 
     def s_ln(path: str, n: int) -> List[Params]:
-        sc = stacked(f"{path}/scale", n, lambda x: x)
-        bi = stacked(f"{path}/bias", n, lambda x: x)
+        sc, bi = stacked(f"{path}/scale", n), stacked(f"{path}/bias", n)
         return [{"scale": s, "bias": b} for s, b in zip(sc, bi)]
 
     def s_attn(path: str, n: int) -> List[Params]:
         parts = {k: s_lin(f"{path}/{k}", n) for k in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        if cfg.scale_heads:
+            parts["c_attn"] = stacked(f"{path}/c_attn", n)
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
     def layers(path: str, n: int, decoder: bool) -> List[Params]:
@@ -330,12 +368,16 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
         if decoder:
             parts["encoder_attn"] = s_attn(f"{path}/encoder_attn", n)
             parts["encoder_attn_layer_norm"] = s_ln(f"{path}/encoder_attn_layer_norm", n)
+        for name in normformer_lns(cfg, decoder):
+            parts[name] = s_ln(f"{path}/{name}", n)
+        if cfg.scale_resids:
+            parts["w_resid"] = stacked(f"{path}/w_resid", n)
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
-    conv = functools.partial(_conv, dtype=dtype)
+    conv = functools.partial(_conv, dtype=torch.float32)
 
     def s_bn(path: str, n: int) -> List[Params]:
-        parts = {k: stacked(f"{path}/{k}", n, lambda x: x) for k in BN_KEYS}
+        parts = {k: stacked(f"{path}/{k}", n) for k in BN_KEYS}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
     def s_blocks(path: str, n: int) -> List[Params]:
@@ -349,20 +391,19 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
                       "bn1": _bn(take, "encoder/resnet/bn1")}
     for s, blocks in enumerate(cfg.resnet_layers):
         path = f"encoder/resnet/layer{s + 1}"
-        resnet[f"layer{s + 1}"] = [_block(take, f"{path}/first/", dtype, True)] + (
+        resnet[f"layer{s + 1}"] = [_block(take, f"{path}/first/", torch.float32, True)] + (
             s_blocks(f"{path}/rest", blocks - 1) if blocks > 1 else []
         )
 
-    embed_tokens = take("embed_tokens")
     Le, Ld = cfg.encoder_layers, cfg.decoder_layers
     out: Params = {
-        "embed_tokens": embed_tokens,
+        "embed_tokens": take("embed_tokens"),
         "encoder": {
             "layernorm_embedding": ln("encoder/layernorm_embedding"),
             "patch_layernorm_embedding": ln("encoder/patch_layernorm_embedding"),
-            "type_embedding": take("encoder/type_embedding").to(dtype),
-            "embed_positions": take("encoder/embed_positions").to(dtype),
-            "embed_image_positions": take("encoder/embed_image_positions").to(dtype),
+            "type_embedding": take("encoder/type_embedding"),
+            "embed_positions": take("encoder/embed_positions"),
+            "embed_image_positions": take("encoder/embed_image_positions"),
             "pos_ln": ln("encoder/pos_ln"),
             "image_pos_ln": ln("encoder/image_pos_ln"),
             "pos_q_linear": lin("encoder/pos_q_linear"),
@@ -371,20 +412,20 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
             "resnet": resnet,
             "layers": layers("encoder/layers", Le, decoder=False),
             "layer_norm": ln("encoder/layer_norm"),
-            "token_rel_pos_table": take("encoder/token_rel_pos_table").to(dtype),
-            "image_rel_pos_table": take("encoder/image_rel_pos_table").to(dtype),
+            "token_rel_pos_table": take("encoder/token_rel_pos_table"),
+            "image_rel_pos_table": take("encoder/image_rel_pos_table"),
         },
         "decoder": {
             "layernorm_embedding": ln("decoder/layernorm_embedding"),
             "code_layernorm_embedding": ln("decoder/code_layernorm_embedding"),
-            "embed_positions": take("decoder/embed_positions").to(dtype),
-            "embed_image_positions": take("decoder/embed_image_positions").to(dtype),
+            "embed_positions": take("decoder/embed_positions"),
+            "embed_image_positions": take("decoder/embed_image_positions"),
             "pos_ln": ln("decoder/pos_ln"),
             "image_pos_ln": ln("decoder/image_pos_ln"),
-            "self_pos_q_linear": lin("decoder/self_pos_q_linear", torch.float32),
-            "self_pos_k_linear": lin("decoder/self_pos_k_linear", torch.float32),
-            "cross_pos_q_linear": lin("decoder/cross_pos_q_linear", torch.float32),
-            "cross_pos_k_linear": lin("decoder/cross_pos_k_linear", torch.float32),
+            "self_pos_q_linear": lin("decoder/self_pos_q_linear"),
+            "self_pos_k_linear": lin("decoder/self_pos_k_linear"),
+            "cross_pos_q_linear": lin("decoder/cross_pos_q_linear"),
+            "cross_pos_k_linear": lin("decoder/cross_pos_k_linear"),
             "layers": layers("decoder/layers", Ld, decoder=True),
             "layer_norm": ln("decoder/layer_norm"),
             "token_rel_pos_table": take("decoder/token_rel_pos_table"),
@@ -395,9 +436,7 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
         out["embed_tokens_q8"] = take("embed_tokens_q8", torch.int8)
         out["embed_tokens_scale"] = take("embed_tokens_scale")
     lv.finish()
-    if dtype != torch.float32:
-        out["embed_tokens_c"] = embed_tokens.to(dtype)
-    return out
+    return to_inference(out, dtype)
 
 
 def map_leaves(fn, tree):
@@ -407,6 +446,42 @@ def map_leaves(fn, tree):
     if isinstance(tree, list):
         return [map_leaves(fn, v) for v in tree]
     return fn(tree)
+
+
+_FP32_KEYS = {"scale", "bias", "mean", "var", "embed_tokens", "embed_tokens_scale",
+              "self_pos_q_linear", "self_pos_k_linear", "cross_pos_q_linear",
+              "cross_pos_k_linear"}
+
+
+def to_inference(params: Params, dtype: torch.dtype) -> Params:
+    """An fp32 tree in the port's layout (``from_jax``'s before its casts,
+    ``trainable``'s, a checkpoint's or the converter's) → the inference tree:
+    each leaf detached and cast to the dtype its consumer computes in
+    (LayerNorm and BatchNorm leaves, the master embedding, the decoder's
+    positional linears and rel-pos tables in fp32; the rest in ``dtype``,
+    convolutions channels_last), plus ``embed_tokens_c`` below fp32. The int8
+    serving projection stays int8."""
+    def cast(t: torch.Tensor, fp32: bool) -> torch.Tensor:
+        t = t.detach()
+        if t.dtype == torch.int8:
+            return t
+        t = t.to(torch.float32 if fp32 else dtype)
+        return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
+
+    def walk(node, fp32: bool, decoder: bool):
+        if isinstance(node, dict):
+            return {k: walk(v, fp32 or k in _FP32_KEYS
+                            or (decoder and k in ("token_rel_pos_table", "image_rel_pos_table")),
+                            decoder or k == "decoder")
+                    for k, v in node.items() if k != "embed_tokens_c"}
+        if isinstance(node, list):
+            return [walk(v, fp32, decoder) for v in node]
+        return cast(node, fp32)
+
+    out = walk(params, False, False)
+    if dtype != torch.float32:
+        out["embed_tokens_c"] = out["embed_tokens"].to(dtype)
+    return out
 
 
 def trainable(params: Params) -> Params:

@@ -64,7 +64,12 @@ def test_port_imports_no_jax():
             "musketeer_tpu_torch.utils.cider", "musketeer_tpu_torch.utils.summary_detok",
             "musketeer_tpu_torch.utils.eval_utils", "musketeer_tpu_torch.generation.trie",
             "musketeer_tpu_torch.generation.lexical", "musketeer_tpu_torch.tasks.base",
-            "musketeer_tpu_torch.tasks.tasks"} <= set(modules)
+            "musketeer_tpu_torch.tasks.tasks", "musketeer_tpu_torch.cli",
+            "musketeer_tpu_torch.convert.fairseq", "musketeer_tpu_torch.models.heads",
+            "musketeer_tpu_torch.data.augment", "musketeer_tpu_torch.tasks.musketeer",
+            "musketeer_tpu_torch.training.checkpoint", "musketeer_tpu_torch.training.trainer",
+            "musketeer_tpu_torch.training.prefetch",
+            "musketeer_tpu_torch.training.metrics"} <= set(modules)
 
 
 @pytest.mark.parametrize("name", ["dict.txt", "encoder.json", "vocab.bpe"])
@@ -75,18 +80,35 @@ def test_bpe_assets_are_copies(name):
     assert hashlib.sha256(ours).hexdigest() == hashlib.sha256(theirs).hexdigest()
 
 
+def _default(f):
+    """A field's default, a default factory's product as a dict."""
+    if f.default_factory is not dataclasses.MISSING:
+        return dataclasses.asdict(f.default_factory())
+    return f.default
+
+
 @pytest.mark.parametrize("cls", ["ModelConfig", "GenerationConfig", "OptimConfig",
-                                 "CriterionConfig"])
+                                 "CriterionConfig", "MeshConfig", "TrainConfig"])
 def test_config_fields_match_jax(cls):
-    ours = {f.name: f.default for f in dataclasses.fields(getattr(config, cls))}
-    theirs = {f.name: f.default for f in dataclasses.fields(getattr(jax_config, cls))}
+    ours = {f.name: _default(f) for f in dataclasses.fields(getattr(config, cls))}
+    theirs = {f.name: _default(f) for f in dataclasses.fields(getattr(jax_config, cls))}
     assert ours == theirs
 
 
-@pytest.mark.parametrize("preset", ["ofa_tiny", "ofa_base"])
+@pytest.mark.parametrize("preset", ["ofa_tiny", "ofa_medium", "ofa_base", "ofa_large",
+                                    "ofa_huge"])
 def test_config_presets_match_jax(preset):
     assert dataclasses.asdict(getattr(config, preset)()) == dataclasses.asdict(
         getattr(jax_config, preset)())
+    assert dataclasses.asdict(config.ARCH_PRESETS[preset]()) == dataclasses.asdict(
+        jax_config.ARCH_PRESETS[preset]())
+
+
+def test_mesh_axis_sizes_match_jax():
+    for kw, n in ((dict(), 8), (dict(fsdp=2, seq=2), 8), (dict(data=1), 1)):
+        assert config.MeshConfig(**kw).axis_sizes(n) == jax_config.MeshConfig(**kw).axis_sizes(n)
+    with pytest.raises(ValueError):
+        config.MeshConfig(data=3).axis_sizes(8)
 
 
 @pytest.mark.parametrize("fn,args", [
@@ -143,7 +165,7 @@ def test_from_jax_consumes_every_leaf_once():
 
 @pytest.mark.parametrize("option", [
     dict(encoder_prompt=True), dict(seq_parallel=True), dict(pipeline_microbatches=2),
-    dict(interpolate_position=True), dict(scale_attn=True), dict(use_flash_attention=False),
+    dict(interpolate_position=True), dict(use_adapter=True), dict(use_flash_attention=False),
     dict(decoder_prompt=True),
 ])
 def test_unported_model_options_raise(option):

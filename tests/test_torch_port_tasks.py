@@ -1,15 +1,22 @@
 """The port's eval tasks against the JAX package's, TSV row to metric, on
 ``ofa_tiny`` (2 + 2 layers, ResNet (1, 1, 1)) in float32 with one seeded
 parameter tree in the JAX layout, carried to the port through ``from_jax``
-(random rel-pos tables and BN statistics): each task's ``evaluate`` on the same TSV (written as
-``tests/test_tasks.py`` writes its TSVs, with seeded noise images) must return
-the same metric dict, predictions included, exactly. The allcand scores
-themselves are held to 1e-5 of max|ref|.
+(random rel-pos tables and BN statistics, and ``row_dependent``'s scalings,
+so that the encoded image or source moves the top tokens: with the plain
+seeded tree every row of a task decodes to the same tokens, and the metrics
+are constants): each task's
+``evaluate`` on the same TSV (written as ``tests/test_tasks.py`` writes its
+TSVs, with seeded noise images) must return the same metric dict,
+predictions included, exactly, and the generation tasks the same per-row
+outputs (each decoded token sequence and its text; refcoco's top tokens and
+boxes), with at least two rows that differ. The allcand scores themselves
+are held to 1e-5 of max|ref|.
 """
 
 import base64
 import dataclasses
 import io
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +30,7 @@ from musketeer_tpu.config import ofa_tiny
 from musketeer_tpu.data import FileDataset as JaxFileDataset
 from musketeer_tpu.generation.trie import DenseTrie as JaxTrie
 from musketeer_tpu.models import ofa as jofa
+from musketeer_tpu.tasks import tasks as jtasks_module
 from musketeer_tpu.tokenization import default_vocab as jax_vocab
 from musketeer_tpu.utils import eval_utils as jeval
 from musketeer_tpu_torch import tasks as ttasks
@@ -31,12 +39,26 @@ from musketeer_tpu_torch.data import FileDataset
 from musketeer_tpu_torch.generation import DenseTrie
 from musketeer_tpu_torch.models import ofa
 from musketeer_tpu_torch.params import from_jax
+from musketeer_tpu_torch.tasks import tasks as ttasks_module
 from musketeer_tpu_torch.tokenization import default_vocab
 from musketeer_tpu_torch.utils import eval_utils as teval
 from tests.test_tasks import write_tsv
 from tests.test_torch_port_search import numpy_tree
 
 REL_TOL = 1e-5
+
+
+def row_dependent(tree):
+    """Scale a seeded JAX-layout tree so that its outputs depend on the input
+    rows: the decoder's cross-attention output ×64 and its q/k ×4 (sharper,
+    larger reads of the encoder), the tied embedding ×¼ (a weaker token prior
+    in the logits). ``test_task_rows_match_jax`` asserts the effect."""
+    cross = tree["decoder"]["layers"]["encoder_attn"]
+    cross["out_proj"]["w"] *= 64.0
+    cross["q_proj"]["w"] *= 4.0
+    cross["k_proj"]["w"] *= 4.0
+    tree["embed_tokens"] *= 0.25
+    return tree
 VQA_ANSWERS = ["yes", "no", "two", "red", "a dog", "blue car"]
 CLASSES = ["tabby cat", "golden retriever", "sports car", "tree"]
 
@@ -79,7 +101,7 @@ def setup(tmp_path_factory):
     cfg_j = dataclasses.replace(ofa_tiny(), dtype="float32", use_flash_attention=True,
                                 encoder_layers=2, decoder_layers=2, resnet_layers=(1, 1, 1))
     cfg_t = ModelConfig(**dataclasses.asdict(cfg_j))
-    tree = numpy_tree(cfg_t, 0)
+    tree = row_dependent(numpy_tree(cfg_t, 0))
     d = tmp_path_factory.mktemp("tsv")
     paths = {k: write_tsv(d / f"{k}.tsv", rows)
              for k, rows in _rows(np.random.RandomState(11)).items()}
@@ -114,19 +136,88 @@ def _task(module, name, vocab, kw):
     return getattr(module, name)(vocab, description="base", **kw)
 
 
+def _recorded(task, module, run):
+    """``run()``'s result, with every (ids, text) the task decodes and every
+    (top tokens, boxes) it de-bins, in call order: the per-row outputs."""
+    decoded, boxes = [], []
+    decode_ids, debin = task.vocab.decode_ids, module.debin_boxes
+
+    def decode(ids):
+        text = decode_ids(ids)
+        decoded.append(([int(t) for t in ids], text))
+        return text
+
+    def debin_rec(bins, *a):
+        out = debin(bins, *a)
+        boxes.append((np.array(bins), np.array(out)))
+        return out
+
+    with mock.patch.object(task.vocab, "decode_ids", decode), \
+            mock.patch.object(module, "debin_boxes", debin_rec):
+        result = run()
+    return result, decoded, boxes
+
+
+@pytest.fixture(scope="module")
+def evaluated(setup):
+    """case → each side's (metrics, decoded rows, de-binned rows), run once."""
+    runs = {}
+
+    def run(case):
+        if case not in runs:
+            name, data, kw, method, bs, *overrides = CASES[case]
+            s = setup
+            path = s["paths"][data]
+            tasks = _task(jtasks, name, s["vocab_j"], kw), _task(ttasks, name, s["vocab_t"], kw)
+            for t in tasks:
+                if overrides:
+                    t.set_generation_overrides(**overrides[0])
+            ref = _recorded(tasks[0], jtasks_module, lambda: getattr(tasks[0], method)(
+                s["params_j"], s["cfg_j"], JaxFileDataset(path), batch_size=bs))
+            out = _recorded(tasks[1], ttasks_module, lambda: getattr(tasks[1], method)(
+                s["params_t"], s["cfg_t"], FileDataset(path), batch_size=bs))
+            runs[case] = ref, out, tasks[1]
+        return runs[case]
+
+    return run
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_task_metrics_match_jax(setup, case):
-    name, data, kw, method, bs, *overrides = CASES[case]
-    s = setup
-    path = s["paths"][data]
-    tasks = _task(jtasks, name, s["vocab_j"], kw), _task(ttasks, name, s["vocab_t"], kw)
-    for t in tasks:
-        if overrides:
-            t.set_generation_overrides(**overrides[0])
-    ref = getattr(tasks[0], method)(s["params_j"], s["cfg_j"], JaxFileDataset(path), batch_size=bs)
-    out = getattr(tasks[1], method)(s["params_t"], s["cfg_t"], FileDataset(path), batch_size=bs)
+def test_task_metrics_match_jax(evaluated, case):
+    (ref, _, _), (out, _, _), _ = evaluated(case)
     assert out == ref
     assert out["n"] == 4 if "n" in ref else len(out) == 3  # gigaword: ROUGE-1/2/L
+
+
+GENERATION_CASES = ("caption", "refcoco", "vqa_beam", "vqa_zero_shot", "gigaword")
+
+
+@pytest.mark.parametrize("case", GENERATION_CASES)
+def test_task_rows_match_jax(setup, evaluated, case):
+    """Per row, on the same collated batches: the decoded tokens and text
+    (captions, VQA answers, summaries), refcoco's top tokens and boxes; and
+    the fixture makes at least two rows differ, so that a constant output
+    cannot pass."""
+    (_, dec_j, box_j), (_, dec_t, box_t), task_t = evaluated(case)
+    if case == "refcoco":
+        assert len(box_t) == len(box_j) == 2  # two batches of 2
+        rows = []
+        for (bins_j, b_j), (bins_t, b_t) in zip(box_j, box_t):
+            np.testing.assert_array_equal(bins_t, bins_j)
+            np.testing.assert_array_equal(b_t, b_j)
+            rows += [tuple(r) for r in bins_t]
+    else:
+        assert len(dec_t) == len(dec_j) == 4
+        assert dec_t == dec_j
+        rows = [tuple(ids) for ids, _ in dec_t]
+    assert len(set(rows)) >= 2, f"{case}: every row gave {rows[0]}"
+    if case == "gigaword":  # the port's generation half of evaluate, on its own
+        from musketeer_tpu.utils.summary_detok import normalize_summary_hyp
+
+        s = setup
+        hyps = task_t.hypotheses(s["params_t"], s["cfg_t"], FileDataset(s["paths"]["gigaword"]),
+                                 batch_size=CASES[case][4])
+        assert [h for _, h in hyps] == [normalize_summary_hyp(text) for _, text in dec_j]
 
 
 def test_task_registry_matches_jax():
