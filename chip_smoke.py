@@ -9,6 +9,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --k8-only      # phases 1, 2 and 17
     python3 chip_smoke.py --eval-only    # phases 1, 2 and 18
     python3 chip_smoke.py --entry-only   # phases 1, 2 and 19
+    python3 chip_smoke.py --xla-only     # phases 1, 2 and 20
 
 ``--train-only``, ``--decode-only`` and ``--k8-only`` also run against an
 older tree's package when this file is copied into that tree's root, so that
@@ -59,7 +60,10 @@ Phases; any failure raises and the script exits non-zero:
    fp32 and bf16 (``skip_max``, a fully masked row, an odd batch, an odd S,
    a ragged T of two q tiles, cross with an odd S); every bf16 call also
    against the function in fp32, as in phase 3; the encoder call also
-   timed without rel (and drel);
+   timed without rel (and drel); then K4 on inputs saved from a training
+   run (``K4_SAVED_CASE``), held against the fp32 function to the bound of
+   its bf16 operands (within one bf16 step of the error of the plain
+   version with P and dW rounded to bf16, ``_k4_rounding_model``);
 8. the training slice: the joint multi-task step of ``ofa_base`` in bf16 on
    8 tasks (the JAX bench's 9-task envelope without ``image_gen`` and with
    ``caption`` unsubsampled), batch 2 per task, R-Drop, label smoothing 0.1,
@@ -172,13 +176,40 @@ Phases; any failure raises and the script exits non-zero:
     state (parameters and EMA within 1e-3 of their change since update 2,
     the AdamW moments within 1e-3 of their norm); ``cli evaluate --task caption`` from ``checkpoint_last`` with
     ``--use-ema`` and from the ``.pt`` on a 32-row TSV at batch 16 with
-    ``decode_stack_kernel`` forced on: K1 6 per encode, K2 once per beam step
-    on its tensor-core route, K7 never (the NormFormer model refuses it);
-    rows/s; then the NormFormer caption slice in fp32 as in phase 6.
+    ``decode_stack_kernel`` forced on: the preset's (and the ``.pt``'s)
+    ``use_flash_attention`` is False, as the JAX CLI runs it, so the encoder
+    takes the XLA branch (6 calls per encode) and K1 is not launched; K2
+    once per beam step on its tensor-core route, K7 never (the NormFormer
+    model refuses it); rows/s; then the NormFormer caption slice in fp32 as
+    in phase 6;
+20. the XLA attention branch and the detection and pretraining tasks at
+    ``ofa_base`` (6 + 6 layers, 768/3072, 12 heads, 480² images): (a) ``cli
+    evaluate --task caption`` under the preset (XLA: K1 0, 6 XLA calls per
+    encode, K2 per beam step) in bf16 and fp32, the fp32 tokens equal to the
+    same run's with ``use_flash_attention=True`` and the scores within
+    ``FP32_TOL`` · max|ref|, and one encode of the caption slice timed on
+    each branch; ``DetectionTask.evaluate`` on 4 rows under the preset and
+    with the flag (XLA calls or K1 per attention, K2 per beam step); each K1
+    and K2 shape of the bf16 runs held to its plain version and the fp32
+    function, as in phase 18; (b) the reference's joint recipe, 6 updates of
+    ``train_loop`` (flash) on caption subsampled to 196 patches, pure_image
+    (256 code targets) and detection at batch 2: each task's loss in
+    (0, w · 2 ln V] (w its conf weight) at every update, K3 = K4 = 6 per
+    encode that is not subsampled + 12 per decode, 6 XLA calls per
+    subsampled encode, each K3 and K4 shape held to its plain version and the
+    fp32 function as in phase 7, a second run from the same seed with
+    bit-equal losses; then 2 updates of ``cli train --no-flash``: K3 = K4 =
+    0; (c) one update each with attention dropout, encoder and decoder
+    prompts (100), adapters (200), ``interpolate_position`` and
+    ``train_bn``: the loss in range and finite gradients, the counters JAX's
+    gates predict, each K3 and K4 shape held as in (b); then the fp32
+    caption search with a decoder prompt through the kernels and their plain
+    versions: equal tokens, K7 not launched.
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
-stage chain, each eval task, each CLI run of phase 19) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+stage chain, each eval task, each CLI run of phase 19, each part of phase
+20) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
 the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
 Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
@@ -193,7 +224,8 @@ last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 K1's and K2's entries also carry ``eval_launches``: their launches in each
 eval task of phase 18; K1's, K2's, K3's and K4's ``entry_launches``: theirs
-in each CLI run of phase 19.
+in each CLI run of phase 19, and ``xla_phase_launches``: theirs in each part
+of phase 20.
 """
 
 from __future__ import annotations
@@ -247,6 +279,14 @@ K34_SMALL = {
     "cross, odd S": dict(shape=dict(B=2, H=2, T=33, S=67, D=64), rel=False),
 }
 GRAD_NAMES = ("dq", "dk", "dv", "dpos_q", "dpos_k", "drel")
+# K4's inputs at one batch row and head of a call of phase 19's ``cli train``
+# (B2 H12 T232 S232, causal, rel, bf16), saved from a run whose encoder summed
+# the image positions' gradient in another order: K4's dq there (on an H100)
+# is 1.78 bf16 steps of max|dq| from the fp32 function, the plain version's 0.49, more
+# than the one step that ``_check_function`` allows over plain; it equals the
+# bf16-operand model (``_k4_rounding_model``), which is the bound phase 7
+# holds this case to
+K4_SAVED_CASE = "chip_smoke_cases/k4_causal_t232.pt"
 # the training slice: bench.py's joint envelope without image_gen, caption
 # without patch subsampling; name: (src len, tgt len, image, constraint masks, conf)
 TRAIN_TASKS = {
@@ -373,17 +413,19 @@ def _as_f32(x: dict) -> dict:
     return {n: t.float() if t is not None and t.is_floating_point() else t for n, t in x.items()}
 
 
-def _check_function(name: str, out: torch.Tensor, plain: torch.Tensor, fn: torch.Tensor) -> str:
+def _check_function(name: str, out: torch.Tensor, plain: torch.Tensor, fn: torch.Tensor,
+                    ref: str = "plain") -> str:
     """A bf16 kernel against the function in fp32 on the same bf16 inputs: its
-    max error may exceed the bf16 plain version's by at most one bf16 step of
-    max|ref|, so that a new summation order cannot drift unseen."""
+    max error may exceed the bf16 plain version's (or another reference's,
+    named by ``ref``) by at most one bf16 step of max|ref|, so that a new
+    summation order cannot drift unseen."""
     top = float(fn.abs().max())
     step = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
     e_k, e_p = _max_err(out, fn), _max_err(plain, fn)
     if not e_k <= e_p + step:
         raise AssertionError(f"{name}: max abs err against the fp32 function {e_k:.3e} > "
-                             f"plain's {e_p:.3e} + one bf16 step {step:.3e}")
-    return f"against the fp32 function {e_k:.3e} (plain {e_p:.3e}, step {step:.3e})"
+                             f"{ref}'s {e_p:.3e} + one bf16 step {step:.3e}")
+    return f"against the fp32 function {e_k:.3e} ({ref} {e_p:.3e}, step {step:.3e})"
 
 
 def _nbytes(*tensors) -> int:
@@ -440,7 +482,9 @@ SM90_ROUTES = frozenset({"K2-sm90", "K2-q8-sm90", "K6-sm90", "K7-sm90", "K8-sm90
 def _counter_owners(routes: frozenset = SM90_ROUTES) -> dict:
     """Each kernel's wrapper and the attribute that counts its launches; of the
     bf16 tensor-core routes' counters only those in ``routes`` (an older tree,
-    run by ``--decode-only``, ``--train-only`` or ``--k8-only``, lacks some)."""
+    run by ``--decode-only``, ``--train-only`` or ``--k8-only``, lacks some);
+    and ``XLA``, the calls of the model's XLA attention branch, where the tree
+    has that branch."""
     from musketeer_tpu_torch.ops import bottleneck as k8
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
     from musketeer_tpu_torch.ops import decode_stack as k7
@@ -448,6 +492,8 @@ def _counter_owners(routes: frozenset = SM90_ROUTES) -> dict:
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
     from musketeer_tpu_torch.ops import flash_attention_infer as k1
     from musketeer_tpu_torch.ops import topk_projection as k2
+
+    from musketeer_tpu_torch.models import ofa
 
     owners = {"K1": (k1.flash_attention_inference, "launches"),
               "K2": (k2.project_with_stats, "launches"),
@@ -464,6 +510,8 @@ def _counter_owners(routes: frozenset = SM90_ROUTES) -> dict:
               "K7-sm90": (k7.decode_stack_step, "launches_sm90"),
               "K8": (k8.fused_bottleneck, "launches"),
               "K8-sm90": (k8.fused_bottleneck, "launches_sm90")}
+    if hasattr(ofa, "xla_attention"):  # the XLA branch's attention calls (no kernel)
+        owners["XLA"] = (ofa.xla_attention, "calls")
     return {k: v for k, v in owners.items() if k in routes or k not in SM90_ROUTES}
 
 
@@ -872,10 +920,31 @@ def _check_k3(tag: str, args, kw: dict):
     return o, lse, o_p, lse_p, e_o
 
 
-def _check_k4(tag: str, args, kw: dict):
+def _k4_rounding_model(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do, causal=False,
+                       need_drel=True):
+    """K4's plain version with P and dW rounded to bf16 where K4's tensor-core
+    route takes them as the operands of its gradient products (the rounding
+    its design states, ``ops/flash_attention_bwd.py``); drel stays the sum of
+    the unrounded dW. → the six gradients."""
+    from musketeer_tpu_torch.ops.flash_attention_infer import attention_scores
+
+    p = torch.exp(attention_scores(q, k, pos_q, pos_k, rel, kpad, causal) - lse[..., None])
+    dof = do.float()
+    dw = p * (dof @ v.float().transpose(-1, -2) - (dof * o.float()).sum(-1, keepdim=True))
+    pb, dwb = (t.to(torch.bfloat16).float() for t in (p, dw))
+    dwt = dwb.transpose(-1, -2)
+    return ((dwb @ k.float()).to(q.dtype), (dwt @ q.float()).to(k.dtype),
+            (pb.transpose(-1, -2) @ dof).to(v.dtype), (dwb @ pos_k.float()).to(pos_q.dtype),
+            (dwt @ pos_q.float()).to(pos_k.dtype),
+            dw.sum(0) if need_drel and rel is not None else None)
+
+
+def _check_k4(tag: str, args, kw: dict, bound: str = "plain"):
     """K4 on ``args`` (q … kpad, o, lse, do) against its plain version: each
     gradient within the tolerance of its dtype · max(1, max|ref|) and finite;
-    in bf16 also against the function in fp32. → (grads, max abs errs)."""
+    in bf16 also against the function in fp32, within one bf16 step of the
+    plain version's error, or with ``bound="model"`` of the bf16-operand
+    model's (``_k4_rounding_model``). → (grads, max abs errs)."""
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
 
     tol = BF16_TOL if args[0].dtype == torch.bfloat16 else FP32_TOL
@@ -895,11 +964,38 @@ def _check_k4(tag: str, args, kw: dict):
     msg = ""
     if args[0].dtype == torch.bfloat16:
         fn = kb.flash_attention_bwd_plain(*_widened(args), **kw)
-        msg = "; " + "; ".join(f"{gname} " + _check_function(f"K4 {tag} {gname}", a, b, f)
-                               for gname, a, b, f in zip(GRAD_NAMES, grads, ref, fn)
+        base = ref if bound == "plain" else _k4_rounding_model(*args, **kw)
+        msg = "; " + "; ".join(f"{gname} " + _check_function(f"K4 {tag} {gname}", a, b, f, bound)
+                               for gname, a, b, f in zip(GRAD_NAMES, grads, base, fn)
                                if f is not None)
     log(f"[K4] {tag}: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + msg)
     return grads, errs
+
+
+def _k4_saved_case() -> None:
+    """K4 on ``K4_SAVED_CASE``'s inputs: against its plain version as every
+    case, and against the fp32 function within one bf16 step of the
+    bf16-operand model's error, the bound its design meets, and dq within one
+    bf16 step of the model's; the margin over the plain version's error + one
+    step, which this input exceeds on the card, printed."""
+    import os
+
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+
+    case = torch.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), K4_SAVED_CASE),
+                      map_location="cuda")
+    args, kw = case["args"], dict(causal=case["causal"], need_drel=case["need_drel"])
+    grads, _ = _check_k4("saved causal T232", args, kw, bound="model")
+    fn = kb.flash_attention_bwd_plain(*_widened(args), **kw)[0]
+    plain, model = kb.flash_attention_bwd_plain(*args, **kw)[0], _k4_rounding_model(*args, **kw)[0]
+    step = 2.0 ** (math.floor(math.log2(float(fn.abs().max()))) - 7)
+    e_k, e_p, e_m = _max_err(grads[0], fn), _max_err(plain, fn), _max_err(grads[0], model)
+    log(f"[K4] saved causal T232: dq {e_k / step:.3f} bf16 steps from the fp32 function, plain "
+        f"{e_p / step:.3f}, over plain + one step by {(e_k - e_p) / step - 1:.3f} steps; K4 against "
+        f"the bf16-operand model: max abs diff {e_m:.3e} ({e_m / step:.3f} steps)")
+    if not e_m <= step:
+        raise AssertionError(f"K4 saved causal T232: dq {e_m:.3e} from the bf16-operand model, "
+                             f"more than one bf16 step {step:.3e}")
 
 
 def phase_k3_k4(g) -> dict:
@@ -951,6 +1047,7 @@ def phase_k3_k4(g) -> dict:
                                plain_ms=times["K4"][1], library_ms=_library_k4(x, do),
                                **_bound(_nbytes(*bwd_args, *grads), 8 * unit))
         del x, args, o, lse, o_p, lse_p, do, bwd_args, grads
+    _k4_saved_case()
     return stats
 
 
@@ -1914,6 +2011,24 @@ def _k2_key(h, w, w_scale=None, vocab_size=None):
     return f"N{h.shape[0]} Vp{w.shape[0]} D{h.shape[1]} {str(w.dtype)[6:]}"
 
 
+def _recording_k1_k2(k1_calls: dict, k2_calls: dict):
+    """The model's K1 and the beam search's K2, keeping the arguments of their
+    first call at each shape (one context manager)."""
+    from contextlib import ExitStack
+
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+    from musketeer_tpu_torch.ops import topk_projection as k2
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(
+        importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd"),
+        "flash_attention_inference", _recording(k1.flash_attention_inference, k1_calls, _k1_key)))
+    stack.enter_context(mock.patch.object(
+        importlib.import_module("musketeer_tpu_torch.generation.beam_search"),
+        "project_with_stats", _recording(k2.project_with_stats, k2_calls, _k2_key)))
+    return stack
+
+
 def _check_eval_calls(tag: str, k1_calls: dict, k2_calls: dict, seen: set) -> None:
     """Each K1 and K2 call of the eval path at a shape not checked before, on
     the inputs the path gave it: against its plain version (bf16, within
@@ -1966,12 +2081,8 @@ def phase_eval(tree, smi: str, tmp: str) -> dict:
 
     from musketeer_tpu_torch.config import ofa_base
     from musketeer_tpu_torch.models import ofa
-    from musketeer_tpu_torch.ops import flash_attention_infer as k1
-    from musketeer_tpu_torch.ops import topk_projection as k2
     from musketeer_tpu_torch.params import from_jax
 
-    search_module = importlib.import_module("musketeer_tpu_torch.generation.beam_search")
-    attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
     log(f"[eval] PIL {PIL.__version__}: the builders decode the TSV's images")
     cfg = dataclasses.replace(ofa_base(), dtype="bfloat16", use_flash_attention=True)
     params = from_jax(tree, cfg, "cuda", torch.bfloat16)
@@ -1990,10 +2101,7 @@ def phase_eval(tree, smi: str, tmp: str) -> dict:
         with mock.patch.object(ofa, "encode", wraps=ofa.encode) as enc, \
                 mock.patch.object(ofa, "decode", wraps=ofa.decode) as dec, \
                 mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps, \
-                mock.patch.object(attn_module, "flash_attention_inference",
-                                  _recording(k1.flash_attention_inference, k1_calls, _k1_key)), \
-                mock.patch.object(search_module, "project_with_stats",
-                                  _recording(k2.project_with_stats, k2_calls, _k2_key)):
+                _recording_k1_k2(k1_calls, k2_calls):
             out = _run_eval(task, name, params, cfg, paths[name], batch)
         got = _counters()
         calls = dict(encode=enc.call_count, decode=dec.call_count, decode_step=steps.call_count)
@@ -2217,13 +2325,32 @@ def _check_resume(resumed, straight, mid) -> str:
     return ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
 
 
-def _check_train_calls(k3_calls: dict, k4_calls: dict) -> None:
-    """Each K3 and K4 call of the loop at a new shape, on the inputs the loop
-    gave it, against its plain version and the function in fp32 (as phase 6)."""
+def _check_train_calls(tag: str, k3_calls: dict, k4_calls: dict) -> None:
+    """Each K3 and K4 call of a training run at a new shape, on the inputs the
+    run gave it, against its plain version and the function in fp32 (as
+    phase 7)."""
     for key, (a, kw) in k3_calls.items():
-        _check_k3(f"entry train {key}", a, kw)
+        _check_k3(f"{tag} {key}", a, kw)
     for key, (a, kw) in k4_calls.items():
-        _check_k4(f"entry train {key}", a, kw)
+        _check_k4(f"{tag} {key}", a, kw)
+
+
+def _check_task_losses(tag: str, losses: list, tasks, updates: int, vocab_size: int,
+                       conf=None) -> float:
+    """``updates`` updates' losses, each with one entry per task and the
+    total, and each task's in (0, w · 2 ln V], w its samples' conf weight
+    (``conf`` by task, else 1): near ln V for a seeded model on the open
+    vocabulary, ln of the choices under a trie; outside it the loss, the masks
+    or the update is wrong. → 2 ln V."""
+    top = 2 * math.log(vocab_size)
+    keys = sorted(["loss", "loss/total"] + [f"loss/{t}" for t in tasks])
+    bad = [(i + 1, k, v) for i, m in enumerate(losses) for k, v in m.items()
+           if k.startswith("loss/") and k != "loss/total"
+           and not 0.0 < v <= top * (conf or {}).get(k[len("loss/"):], 1.0)]
+    if len(losses) != updates or bad or any(sorted(m) != keys for m in losses):
+        raise AssertionError(f"{tag}: {len(losses)} updates (expected {updates}); a task's loss "
+                             f"outside (0, w · {top:.2f}] or a loss missing: {bad or losses}")
+    return top
 
 
 def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
@@ -2234,7 +2361,6 @@ def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
     version; a third run, resumed from update 2's checkpoint to 4, against
     the straight run's state at 4. → K1-K8 launches of the first two runs."""
     import glob
-    import math
     import os
     import shutil
 
@@ -2327,14 +2453,8 @@ def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
         f"{len(rec['step'])} updates; losses by update {losses}")
     if fwd.call_count != forwards or launches != want:
         raise AssertionError(f"cli train: launches {launches}, expected {want}")
-    # near ln V for a seeded model on the open vocabulary, ln of the choices
-    # under a trie: outside (0, 2 ln V] the loss, the masks or the update is wrong
-    top = 2 * math.log(cfg.vocab_size)
-    bad = [(i + 1, k, v) for i, m in enumerate(losses) for k, v in m.items()
-           if k.startswith("loss/") and k != "loss/total" and not 0.0 < v <= top]
-    if bad or sorted(losses[0]) != sorted(["loss", "loss/total"] + [f"loss/{n}" for n in ENTRY_TASKS]):
-        raise AssertionError(f"cli train: a task's loss outside (0, {top:.2f}]: {bad or losses[0]}")
     first, last = ENTRY_UPDATES
+    _check_task_losses("cli train", losses, ENTRY_TASKS, last, cfg.vocab_size)
     if [s.step for s in states] != list(ENTRY_UPDATES) or rec["step"] != list(range(last)):
         raise AssertionError(f"cli train: updates {[s.step for s in states]}, steps {rec['step']}")
     if len(loads) != 1:
@@ -2372,7 +2492,7 @@ def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
     log(f"[entry train] resumed at update 2 to {first} against the straight run, "
         f"relative gaps: {_check_resume(twin, states[0], mid_state)} (bound {RESUME_TOL})")
     del twin, mid_state, states
-    _check_train_calls(k3_calls, k4_calls)
+    _check_train_calls("entry train", k3_calls, k4_calls)
     log(f"[entry train] {len(k3_calls)} K3 and {len(k4_calls)} K4 shapes of the loop held to "
         f"their plain versions and the fp32 function")
     return launches
@@ -2382,8 +2502,10 @@ def _entry_eval(cfg, pt: str, tmp: str, smi: str) -> dict:
     """``cli evaluate --task caption`` from the run's checkpoint_last with
     ``--use-ema`` and from the ``.pt``, on a 32-row TSV at batch 16, with
     ``decode_stack_kernel`` set (its refusal of a NormFormer model is what is
-    checked): K1 6 per encode, K2 once per beam step on its tensor-core
-    route, K7 never. → the launches of each run."""
+    checked). ``evaluate`` runs the preset's (and the ``.pt``'s inferred)
+    ``use_flash_attention``, False, as the JAX CLI does: the encoder takes
+    the XLA branch, 6 calls per encode, and K1 is never launched; K2 once per
+    beam step on its tensor-core route, K7 never. → the launches of each run."""
     import os
 
     import numpy as np
@@ -2418,10 +2540,10 @@ def _entry_eval(cfg, pt: str, tmp: str, smi: str) -> dict:
             wall = time.perf_counter() - t0
         got = _counters()
         want = dict.fromkeys(got, 0)
-        want["K1"] = cfg.encoder_layers * enc.call_count
+        want["XLA"] = cfg.encoder_layers * enc.call_count  # the preset's branch: no K1
         want["K2"] = want["K2-sm90"] = steps.call_count
-        log(f"[entry eval {run}] launches {{K1: {got['K1']}, K2: {got['K2']}, K2-sm90: "
-            f"{got['K2-sm90']}, K7: {got['K7']}}} over {enc.call_count} encodes and "
+        log(f"[entry eval {run}] launches {{K1: {got['K1']}, XLA: {got['XLA']}, K2: {got['K2']}, "
+            f"K2-sm90: {got['K2-sm90']}, K7: {got['K7']}}} over {enc.call_count} encodes and "
             f"{steps.call_count} beam steps; cider {out['cider']:.4f}")
         if got != want or enc.call_count != ENTRY_EVAL_ROWS // ENTRY_EVAL_BATCH \
                 or out["n"] != ENTRY_EVAL_ROWS:
@@ -2470,6 +2592,475 @@ def phase_entry(smi: str, tmp: str, phase8_ms=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the XLA attention branch and the detection and pretraining tasks
+# ---------------------------------------------------------------------------
+
+XLA_EVAL_ROWS, XLA_EVAL_BATCH = 8, 4
+JOINT_ROWS, JOINT_UPDATES, JOINT_PATCHES = 12, 6, 196  # 6 updates at batch 2: one epoch
+JOINT_CONF = {"pure_image": 2.0, "detection": 2.0}  # their builders' conf weights
+OPTION_TREE = dict(use_adapter=True, encoder_prompt=True, decoder_prompt=True)
+# one update each at ofa_base (flash config): model options, and whether the
+# encoder and the decoder leave the flash branch (the JAX model's gates)
+OPTION_CASES = {
+    "attention_dropout 0.1": (dict(attention_dropout=0.1), True, True),
+    "encoder + decoder prompts (100)": (dict(encoder_prompt=True, decoder_prompt=True), True, True),
+    "adapter (200)": (dict(use_adapter=True), False, False),
+    "interpolate_position (480² over 256²)": (dict(interpolate_position=True), False, False),
+    "train_bn": ({}, False, False),
+}
+
+
+def _strip_options(tree: dict, cfg) -> dict:
+    """``tree`` (the JAX layout) without the adapter and prompt leaves ``cfg``
+    does not turn on."""
+    out = {**tree, "encoder": dict(tree["encoder"]), "decoder": dict(tree["decoder"])}
+    for side, prompt in (("encoder", cfg.encoder_prompt), ("decoder", cfg.decoder_prompt)):
+        if not prompt:
+            out[side].pop("prompt_embedding", None)
+        if not cfg.use_adapter:
+            out[side]["layers"] = {k: v for k, v in out[side]["layers"].items() if k != "adapter"}
+    return out
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _xla_eval(tree, tmp: str, smi: str) -> dict:
+    """(a) ``cli evaluate --task caption --arch ofa_base`` under the preset
+    (``use_flash_attention`` False: the XLA branch) in bf16 and fp32, and in
+    fp32 with the flag set (K1): the XLA runs launch no K1, the fp32 tokens of
+    the two branches are equal and their scores within ``FP32_TOL``; each K2
+    shape of the bf16 run held to its plain version and the fp32 function."""
+    import os
+
+    import numpy as np
+
+    from musketeer_tpu_torch import cli
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.params import from_jax
+    from musketeer_tpu_torch.tasks import tasks as tasks_module
+
+    path = os.path.join(tmp, "xla_caption.tsv")
+    with open(path, "w") as f:
+        f.writelines("\t".join(r) + "\n" for r in _eval_rows(
+            "caption", XLA_EVAL_ROWS, IMAGE, np.random.RandomState(SEED + 21)))
+    preset, generate = cli._preset, tasks_module.generate
+    runs = {"bf16": dict(dtype="bfloat16"), "fp32": dict(dtype="float32"),
+            "fp32 flash": dict(dtype="float32", use_flash_attention=True)}
+    launches, outputs, seen = {}, {}, set()
+    for run, over in runs.items():
+        gens, k1_calls, k2_calls = [], {}, {}
+
+        def recording(*a, **kw):
+            out = generate(*a, **kw)
+            gens.append(out)
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        with mock.patch.object(cli, "_preset", lambda arch: dataclasses.replace(preset(arch), **over)), \
+                mock.patch.object(cli, "_seeded_params",
+                                  lambda cfg, seed, device, dtype: from_jax(tree, cfg, device, dtype)), \
+                mock.patch.object(tasks_module, "generate", recording), \
+                mock.patch.object(ofa, "encode", wraps=ofa.encode) as enc, \
+                mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps, \
+                _recording_k1_k2(k1_calls, k2_calls):
+            t0 = time.perf_counter()
+            out = cli.main(["evaluate", "--task", "caption", "--data", path, "--device", "cuda",
+                            "--arch", "ofa_base", "--batch-size", str(XLA_EVAL_BATCH),
+                            "--patch-image-size", str(IMAGE)])
+            secs = time.perf_counter() - t0
+        cfg = dataclasses.replace(preset("ofa_base"), **over)
+        got = _counters()
+        want = dict.fromkeys(got, 0)
+        want["K1" if cfg.use_flash_attention else "XLA"] = cfg.encoder_layers * enc.call_count
+        want["K2"] = steps.call_count
+        if cfg.dtype == "bfloat16":
+            want["K2-sm90"] = steps.call_count
+        tokens = torch.cat([g[0] for g in gens])
+        scores = torch.cat([g[1] for g in gens])
+        log(f"[xla eval {run}] launches {{K1: {got['K1']}, XLA: {got['XLA']}, K2: {got['K2']}}} "
+            f"over {enc.call_count} encodes and {steps.call_count} beam steps; cider "
+            f"{out['cider']:.4f}; {secs:.2f} s ({XLA_EVAL_ROWS / secs:.2f} rows/s with the "
+            f"parameters' build), peak {_peak_gb():.2f} GB on {smi}")
+        if got != want or not steps.call_count or enc.call_count != XLA_EVAL_ROWS // XLA_EVAL_BATCH \
+                or out["n"] != XLA_EVAL_ROWS or not math.isfinite(out["cider"]):
+            raise AssertionError(f"xla eval ({run}): launches {got}, expected {want}")
+        _check_tokens(tokens, scores, cfg, XLA_EVAL_ROWS)
+        if cfg.dtype == "bfloat16":
+            _check_eval_calls(f"xla eval {run}", k1_calls, k2_calls, seen)
+        launches[f"xla eval {run}"], outputs[run] = got, (tokens, scores)
+        del k1_calls, k2_calls
+    (tok_x, sc_x), (tok_f, sc_f) = outputs["fp32"], outputs["fp32 flash"]
+    gap, lim = _max_err(sc_x, sc_f), FP32_TOL * float(sc_f.abs().max())
+    log(f"[xla eval] fp32 XLA branch against the flash branch: tokens "
+        f"{'equal' if torch.equal(tok_x, tok_f) else 'DIFFER'}, max score diff {gap:.3e} "
+        f"(tol {lim:.3e}); first hypotheses {tok_x[:2, 0].tolist()}")
+    if not torch.equal(tok_x, tok_f) or not gap <= lim:
+        raise AssertionError(f"xla eval: the fp32 XLA branch's tokens or scores differ from the "
+                             f"flash branch's (score gap {gap:.3e}, tol {lim:.3e})")
+    # the cost of the preset's branch: one encode of the caption slice (batch
+    # 16, bf16) on each branch, by CUDA events, with its peak memory
+    src, images, masks = _inputs(BATCH, SEED)
+    params = from_jax(tree, preset("ofa_base"), "cuda", torch.bfloat16)
+    times = {}
+    for name, flash in (("XLA", False), ("K1", True)):
+        cfg = dataclasses.replace(preset("ofa_base"), use_flash_attention=flash)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            times[name] = cuda_ms(lambda: ofa.encode(params, cfg, src, images, masks), 5)
+        times[name + " peak GB"] = _peak_gb()
+    log(f"[xla eval] one encode of the caption slice (ofa_base bf16, batch {BATCH}, 480²): XLA "
+        f"branch {times['XLA']:.2f} ms (peak {times['XLA peak GB']:.2f} GB), K1 branch "
+        f"{times['K1']:.2f} ms (peak {times['K1 peak GB']:.2f} GB) by CUDA events on {smi}")
+    return launches
+
+
+def _joint_rows(name: str, n: int, rng) -> list:
+    """Seeded TSV rows: caption as phase 18's; pure_image a 256² image with 256
+    VQGAN codes; detection a 480² image with two or three labelled boxes."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    if name == "caption":
+        return _eval_rows("caption", n, IMAGE, rng)
+
+    def image(size):
+        small = Image.fromarray(rng.randint(0, 256, (30, 40, 3)).astype("uint8"))
+        buf = io.BytesIO()
+        small.resize((size * 4 // 3, size), Image.BILINEAR).save(buf, format="PNG")
+        return base64.urlsafe_b64encode(buf.getvalue()).decode()
+
+    rows = []
+    for i in range(n):
+        if name == "pure_image":
+            rows.append([str(i), image(256), " ".join(str(c) for c in rng.randint(0, 8192, 256))])
+        else:  # detection
+            boxes = []
+            for j in range(2 + i % 2):
+                x0, y0 = rng.randint(0, IMAGE // 2, 2)
+                boxes.append(f"{x0}.0,{y0}.0,{x0 + IMAGE // 3}.0,{y0 + IMAGE // 4}.0,{j},"
+                             f"{_OBJECTS[rng.randint(len(_OBJECTS))]}")
+            rows.append([str(i), image(IMAGE), "&&".join(boxes)])
+    return rows
+
+
+def _recording_steps(trainer_module, losses: list):
+    """``trainer.make_train_step``, keeping each update's losses."""
+    make_train_step = trainer_module.make_train_step
+
+    def make(*a, **kw):
+        step = make_train_step(*a, **kw)
+
+        def recorded(state, batches, generator=None):
+            state, m = step(state, batches, generator)
+            losses.append({k: float(v) for k, v in m.items() if k.startswith("loss")})
+            return state, m
+        return recorded
+    return make
+
+
+def _joint_recipe(tree, tmp: str, smi: str) -> dict:
+    """(b) 6 updates of ``train_loop`` with ``use_flash_attention=True`` on
+    caption (the head task, ``sample_patch_num=196``), pure_image and
+    detection at batch 2, twice from one seed: each task's loss in range at
+    every update, bit-equal between the runs, and each K3 and K4 shape of the
+    first run held to its plain version and the fp32 function; then 2
+    updates of ``cli train --no-flash`` on the same TSVs."""
+    import os
+
+    import numpy as np
+
+    from musketeer_tpu_torch import cli
+    from musketeer_tpu_torch.config import OptimConfig, TrainConfig, ofa_base
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.params import from_jax, trainable
+    from musketeer_tpu_torch.tasks import MusketeerDataLoader, SubTaskSpec
+    from musketeer_tpu_torch.tokenization import default_vocab
+    from musketeer_tpu_torch.training import init_train_state, train_loop
+    from musketeer_tpu_torch.training import trainer as trainer_module
+
+    rng = np.random.RandomState(SEED + 22)
+    names = ("caption", "pure_image", "detection")
+    paths = {}
+    for name in names:
+        paths[name] = os.path.join(tmp, f"joint_{name}.tsv")
+        with open(paths[name], "w") as f:
+            f.writelines("\t".join(r) + "\n" for r in _joint_rows(name, JOINT_ROWS, rng))
+    cfg = dataclasses.replace(ofa_base(), use_flash_attention=True)
+    train_cfg = TrainConfig(max_update=JOINT_UPDATES, optim=OptimConfig(warmup_updates=1))
+    Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+    launches, runs, k3_calls, k4_calls = {}, [], {}, {}
+    for run in range(2):
+        specs = [SubTaskSpec("caption", paths["caption"], batch_size=2,
+                             sample_patch_num=JOINT_PATCHES, task_kwargs={"patch_image_size": IMAGE}),
+                 SubTaskSpec("pure_image", paths["pure_image"], batch_size=2),
+                 SubTaskSpec("detection", paths["detection"], batch_size=2,
+                             task_kwargs={"patch_image_size": IMAGE})]
+        loader = MusketeerDataLoader(default_vocab(), specs)
+        state = init_train_state(trainable(from_jax(tree, cfg, "cuda", torch.float32)), train_cfg.optim)
+        losses = []
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        # the first run keeps each K3 and K4 shape's first arguments
+        attention = (_recording_attention(k3_calls, k4_calls) if run == 0
+                     else kb.FlashAttentionTrainable)
+        try:
+            with mock.patch.object(trainer_module, "make_train_step",
+                                   _recording_steps(trainer_module, losses)), \
+                    mock.patch.object(ofa, "encode", wraps=ofa.encode) as enc, \
+                    mock.patch.object(ofa, "decode", wraps=ofa.decode) as dec, \
+                    mock.patch.object(kb, "FlashAttentionTrainable", attention):
+                t0 = time.perf_counter()
+                state = train_loop(train_cfg, cfg, state, loader, max_epoch=1)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+        finally:
+            loader.close()
+        got = _counters()
+        subsampled = sum(c.kwargs.get("sample_patch_order") is not None for c in enc.call_args_list)
+        whole = enc.call_count - subsampled
+        want = dict.fromkeys(got, 0)
+        want["K3"] = want["K4"] = Le * whole + 2 * Ld * dec.call_count
+        want["XLA"] = Le * subsampled
+        log(f"[joint recipe run {run + 1}] launches {{K3: {got['K3']}, K4: {got['K4']}, XLA: "
+            f"{got['XLA']}}} over {whole} whole and {subsampled} subsampled encodes and "
+            f"{dec.call_count} decodes in {len(losses)} updates; losses by update "
+            f"{[round(m['loss'], 4) for m in losses]} (update 1 by task "
+            f"{ {k: round(v, 4) for k, v in losses[0].items() if k.startswith('loss/')} }, "
+            f"pure_image and detection weighted by their conf 2.0); {secs:.2f} s "
+            f"({len(losses) / secs:.2f} updates/s), peak {_peak_gb():.2f} GB on {smi}")
+        if got != want or (whole, subsampled, dec.call_count) != (
+                2 * JOINT_UPDATES, JOINT_UPDATES, 3 * JOINT_UPDATES) or state.step != JOINT_UPDATES:
+            raise AssertionError(f"joint recipe: launches {got}, expected {want} "
+                                 f"({whole} whole, {subsampled} subsampled, {dec.call_count} decodes)")
+        _check_task_losses("joint recipe", losses, names, JOINT_UPDATES, cfg.vocab_size, JOINT_CONF)
+        launches[f"joint recipe run {run + 1}"] = got
+        runs.append(losses)
+        del state
+    if runs[0] != runs[1]:
+        raise AssertionError(f"joint recipe: two runs from one seed differ: {runs}")
+    log(f"[joint recipe] two runs from seed {train_cfg.seed}: every task's loss at every update "
+        f"bit-equal, each within (0, w · 2 ln V] (w: {JOINT_CONF}, else 1)")
+    _check_train_calls("joint recipe", k3_calls, k4_calls)
+    log(f"[joint recipe] {len(k3_calls)} K3 and {len(k4_calls)} K4 shapes of the first run held "
+        f"to their plain versions and the fp32 function")
+    del k3_calls, k4_calls
+
+    # 2 updates of cli train --no-flash on the same TSVs: the XLA branch throughout
+    losses = []
+    _reset_counters()
+    with mock.patch.object(cli, "_seeded_params",
+                           lambda cfg, seed, device, dtype: from_jax(tree, cfg, device, dtype)), \
+            mock.patch.object(trainer_module, "make_train_step",
+                              _recording_steps(trainer_module, losses)), \
+            mock.patch.object(ofa, "forward", wraps=ofa.forward) as fwd:
+        t0 = time.perf_counter()
+        state = cli.main(["train", "--tasks", ",".join(f"{n}={paths[n]}" for n in names),
+                          "--arch", "ofa_base", "--device", "cuda", "--batch-size", "2",
+                          "--patch-image-size", str(IMAGE), "--warmup-updates", "1",
+                          "--max-update", "2", "--no-flash"])
+        secs = time.perf_counter() - t0
+    got = _counters()
+    want = dict.fromkeys(got, 0)
+    want["XLA"] = (Le + 2 * Ld) * fwd.call_count
+    log(f"[joint recipe cli --no-flash] launches {{K3: {got['K3']}, K4: {got['K4']}, XLA: "
+        f"{got['XLA']}}} over {fwd.call_count} forwards in {len(losses)} updates; losses "
+        f"{[round(m['loss'], 4) for m in losses]}; {secs:.2f} s on {smi}")
+    if got != want or fwd.call_count != 3 * 2 or state.step != 2:
+        raise AssertionError(f"cli train --no-flash: launches {got}, expected {want}")
+    _check_task_losses("cli train --no-flash", losses, names, 2, cfg.vocab_size, JOINT_CONF)
+    launches["cli train --no-flash"] = got
+    return launches
+
+
+def _detection_eval(tree, tmp: str, smi: str) -> dict:
+    """``DetectionTask.evaluate`` (teacher-forced loss, beam search, box F1) on
+    4 seeded rows at batch 2, in bf16, under the preset (the XLA branch) and
+    with ``use_flash_attention`` set (K1): each attention of every encode and
+    teacher-forced decode on the branch the flag picks, K2 once per beam step;
+    each K1 and K2 shape held to its plain version and the fp32 function."""
+    import os
+
+    import numpy as np
+
+    from musketeer_tpu_torch.config import ofa_base
+    from musketeer_tpu_torch.data import FileDataset
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.params import from_jax
+    from musketeer_tpu_torch.tasks import DetectionTask
+    from musketeer_tpu_torch.tokenization import default_vocab
+
+    path = os.path.join(tmp, "eval_detection.tsv")
+    with open(path, "w") as f:
+        f.writelines("\t".join(r) + "\n" for r in _joint_rows(
+            "detection", 4, np.random.RandomState(SEED + 24)))
+    launches, seen = {}, set()
+    for flash in (False, True):
+        cfg = dataclasses.replace(ofa_base(), use_flash_attention=flash)
+        params = from_jax(tree, cfg, "cuda", torch.bfloat16)
+        task = DetectionTask(default_vocab(), description="base", patch_image_size=IMAGE)
+        k1_calls, k2_calls = {}, {}
+        _reset_counters()
+        with mock.patch.object(ofa, "encode", wraps=ofa.encode) as enc, \
+                mock.patch.object(ofa, "decode", wraps=ofa.decode) as dec, \
+                mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps, \
+                _recording_k1_k2(k1_calls, k2_calls):
+            t0 = time.perf_counter()
+            out = task.evaluate(params, cfg, FileDataset(path), batch_size=2)
+            secs = time.perf_counter() - t0
+        got = _counters()
+        want = dict.fromkeys(got, 0)
+        want["K1" if flash else "XLA"] = (cfg.encoder_layers * enc.call_count
+                                          + 2 * cfg.decoder_layers * dec.call_count)
+        want["K2"] = want["K2-sm90"] = steps.call_count
+        tag = f"[detection eval {'K1' if flash else 'XLA'} branch]"
+        log(f"{tag} launches {{K1: {got['K1']}, XLA: {got['XLA']}, K2: {got['K2']}}} over "
+            f"{enc.call_count} encodes, {dec.call_count} decodes and {steps.call_count} beam "
+            f"steps; {json.dumps(out)}; {secs:.2f} s on {smi}")
+        if got != want or out["n"] != 4 or (enc.call_count, dec.call_count) != (4, 2) \
+                or not math.isfinite(out["loss"]):
+            raise AssertionError(f"detection eval: launches {got}, expected {want}; {out}")
+        _check_eval_calls(tag[1:-1], k1_calls, k2_calls, seen)
+        launches[tag[1:-1]] = got
+        del params, k1_calls, k2_calls
+    return launches
+
+
+def _option_batch(cfg):
+    """A caption batch at batch 2 (the JAX step's layout, accumulation axis 1)."""
+    from musketeer_tpu_torch.training import TaskBatch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    src, images, masks = _inputs(2, SEED + 23)
+    tgt = torch.randint(4, 30000, (2, 20), generator=g, device="cuda")
+    tgt[:, -1] = cfg.eos
+    prev = torch.roll(tgt, 1, 1)
+    prev[:, 0] = cfg.bos
+    return TaskBatch(src_tokens=src[None], prev_output_tokens=prev[None], target=tgt[None],
+                     patch_images=images[None], patch_masks=masks[None])
+
+
+def _xla_options(smi: str) -> dict:
+    """(c) One update at ofa_base (bf16, flash config) with each option of
+    ``OPTION_CASES``: the loss in (0, 2 ln V], finite gradients, K3/K4 and
+    XLA counters as the JAX gates predict, each K3 and K4 shape held to its
+    plain version and the fp32 function; then the fp32 caption search with a
+    decoder prompt through the kernels and their plain versions."""
+    from musketeer_tpu_torch.config import CriterionConfig, GenerationConfig, OptimConfig, ofa_base
+    from musketeer_tpu_torch.criterions import label_smoothed_ce
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+    from musketeer_tpu_torch.ops import topk_projection as k2
+    from musketeer_tpu_torch.params import from_jax, trainable
+    from musketeer_tpu_torch.training import TaskBatch, init_train_state, make_train_step
+    from musketeer_tpu_torch.training.train_state import global_norm, named_leaves
+
+    t0 = time.perf_counter()
+    full = _random_model_tree(dataclasses.replace(ofa_base(), **OPTION_TREE), SEED + 20)
+    log(f"[xla options] ofa_base tree with adapters and prompts built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for case, (options, enc_xla, dec_xla) in OPTION_CASES.items():
+        cfg = dataclasses.replace(ofa_base(), use_flash_attention=True, **options)
+        params = trainable(from_jax(_strip_options(full, cfg), cfg, "cuda", torch.float32))
+        batch = _option_batch(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        k3_calls, k4_calls = {}, {}
+        recording = mock.patch.object(kb, "FlashAttentionTrainable",
+                                      _recording_attention(k3_calls, k4_calls))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        t0 = time.perf_counter()
+        state = None
+        recording.start()
+        if case == "train_bn":  # the encoder's batch-statistics BN: a forward and backward
+            b = TaskBatch(*[None if x is None else x[0] for x in batch])
+            logits = ofa.forward(params, cfg, b.src_tokens, b.prev_output_tokens, b.patch_images,
+                                 b.patch_masks, generator=gen, deterministic=False, train_bn=True)
+            out = label_smoothed_ce(logits, b.target, epsilon=0.1, pad_id=cfg.pad,
+                                    vocab_size=cfg.vocab_size)
+            loss = out.loss / out.ntokens
+            loss.backward()
+            grads = [p.grad for _, p in named_leaves(params) if p.grad is not None]
+            loss, gnorm = loss.item(), float(global_norm(grads))
+            skipped = 0.0
+        else:
+            state = init_train_state(params, OptimConfig(warmup_updates=1))
+            step = make_train_step(cfg, CriterionConfig(), OptimConfig(warmup_updates=1))
+            state, m = step(state, {"caption": batch}, gen)
+            loss, gnorm, skipped = float(m["loss"]), float(m["gnorm"]), float(m["skipped_nonfinite"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        recording.stop()
+        got = _counters()
+        want = dict.fromkeys(got, 0)
+        flash = cfg.encoder_layers * (not enc_xla) + 2 * cfg.decoder_layers * (not dec_xla)
+        want.update(K3=flash, K4=flash, XLA=cfg.encoder_layers * enc_xla
+                    + 2 * cfg.decoder_layers * dec_xla)
+        log(f"[xla options {case}] launches {{K3: {got['K3']}, K4: {got['K4']}, XLA: "
+            f"{got['XLA']}}}; loss {loss:.4f}, gradient norm {gnorm:.4f}; {secs:.2f} s, peak "
+            f"{_peak_gb():.2f} GB on {smi}")
+        top = 2 * math.log(cfg.vocab_size)
+        if got != want or not (0.0 < loss <= top and math.isfinite(gnorm)) or skipped:
+            raise AssertionError(f"{case}: launches {got}, expected {want}; loss {loss} (range "
+                                 f"(0, {top:.2f}]), gradient norm {gnorm}")
+        _check_train_calls(f"option {case}", k3_calls, k4_calls)
+        launches[f"option {case}"] = got
+        del params, state, k3_calls, k4_calls
+    # the fp32 caption search with a decoder prompt, K7 asked for and refused
+    cfg = dataclasses.replace(ofa_base(), dtype="float32", use_flash_attention=True,
+                              decoder_prompt=True, decode_stack_kernel=True)
+    params = from_jax(_strip_options(full, cfg), cfg, "cuda", torch.float32)
+    gen_cfg = GenerationConfig(beam_size=BEAM, max_len_b=MAX_LEN, min_len=1, no_repeat_ngram_size=3)
+    src, images, _ = _inputs(2, SEED + 1)
+    masks = torch.tensor([True, False], device="cuda")
+    search_module = importlib.import_module("musketeer_tpu_torch.generation.beam_search")
+    attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
+    _reset_counters()
+    with mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps:
+        _, tok_k, sc_k = _caption(params, cfg, gen_cfg, src, images, masks)
+    got = _counters()
+    want = dict.fromkeys(got, 0)
+    want.update(K1=cfg.encoder_layers, K2=steps.call_count)
+    with mock.patch.object(attn_module, "flash_attention_inference", k1.flash_attention_plain), \
+            mock.patch.object(search_module, "project_with_stats", k2.project_plain):
+        _, tok_p, sc_p = _caption(params, cfg, gen_cfg, src, images, masks)
+    _check_tokens(tok_k, sc_k, cfg, 2)
+    gap, lim = _max_err(sc_k, sc_p), FP32_TOL * max(1.0, float(sc_p.abs().max()))
+    log(f"[xla options decoder prompt search] fp32 batch 2: launches {{K1: {got['K1']}, K2: "
+        f"{got['K2']}, K7: {got['K7']}}} over {steps.call_count} steps; kernel tokens "
+        f"{tok_k[:, 0].tolist()}; max score diff against the plain versions {gap:.3e} (tol {lim:.3e})")
+    if got != want or _counters() != got or not torch.equal(tok_k, tok_p) or not gap <= lim:
+        raise AssertionError(f"decoder prompt search: launches {got}, expected {want}, or the "
+                             f"plain versions' tokens or scores differ (gap {gap:.3e})")
+    if torch.equal(tok_k[0, 0], tok_k[1, 0]):
+        raise AssertionError("decoder prompt search: both rows' best hypotheses are equal")
+    launches["decoder prompt search"] = got
+    return launches
+
+
+def phase_xla(tree, smi: str, tmp: str) -> dict:
+    """Phase 20: the XLA attention branch and the detection and pretraining
+    tasks at ``ofa_base`` on the card, through the port's entry points
+    (``tree``: the seeded ofa_base tree). → each part's counters."""
+    launches = {}
+    for part, fn in (("eval", lambda: _xla_eval(tree, tmp, smi)),
+                     ("detection", lambda: _detection_eval(tree, tmp, smi)),
+                     ("joint", lambda: _joint_recipe(tree, tmp, smi)),
+                     ("options", lambda: _xla_options(smi))):
+        t0 = time.perf_counter()
+        launches.update(fn())
+        log(f"[xla {part}] part done in {time.perf_counter() - t0:.1f} s on {smi}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2488,6 +3079,10 @@ def main(argv=None) -> int:
     only.add_argument("--eval-only", action="store_true",
                       help="after phases 1-2, run only phase 18 (the eval tasks, their "
                            "counters, times and fp32 exactness), and print no result line")
+    only.add_argument("--xla-only", action="store_true",
+                      help="after phases 1-2, run only phase 20 (the XLA attention branch, "
+                           "the joint recipe with detection and pure_image, the options), "
+                           "and print no result line")
     only.add_argument("--entry-only", action="store_true",
                       help="after phases 1-2, run only phase 19 (the CLI's convert, train "
                            "with its resume, and evaluate on a NormFormer ofa_base), and print "
@@ -2509,6 +3104,11 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_entry(smi, tmp)
         log(f"[done] entry-point phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.xla_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_xla(tree, smi, tmp)
+        log(f"[done] XLA-branch phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.k8_only:
         phase_k8(torch.Generator(device="cuda").manual_seed(SEED), tree, smi, routes)
@@ -2547,6 +3147,8 @@ def main(argv=None) -> int:
         eval_launches = phase_eval(tree, smi, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         entry_launches = phase_entry(smi, tmp, train_p50_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        xla_launches = phase_xla(tree, smi, tmp)
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -2571,8 +3173,9 @@ def main(argv=None) -> int:
     for entry, (k, *_) in zip(kernels, table):
         if k in ("K1", "K2"):  # the eval path's launches, task by task (phase 18)
             entry["eval_launches"] = {task: n[k] for task, n in eval_launches.items()}
-        if k in ("K1", "K2", "K3", "K4"):  # the CLI's launches (phase 19)
+        if k in ("K1", "K2", "K3", "K4"):  # the CLI's launches (phase 19), phase 20's
             entry["entry_launches"] = {run: n[k] for run, n in entry_launches.items()}
+            entry["xla_phase_launches"] = {part: n[k] for part, n in xla_launches.items()}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

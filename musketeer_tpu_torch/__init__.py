@@ -2,9 +2,11 @@
 
 A port of the JAX package ``musketeer_tpu`` (the reference, which stays
 beside it). Ported so far: caption inference with its serving options, the
-joint multi-task training step and loop, fairseq checkpoint I/O with the
-NormFormer options, the evaluation path (TSV row to metric), the CLI, and
-the JAX package's kernel entry points.
+joint multi-task training step and loop, both attention branches (the
+kernels' and the XLA one with attention dropout, patch subsampling, prompts
+and code masks), fairseq checkpoint I/O with the NormFormer options, the
+evaluation path (TSV row to metric), the detection and pretraining tasks,
+the CLI, and the JAX package's kernel entry points.
 Layout mirrors the JAX package:
 
   cli.py                         train / evaluate / evaluate-all / convert (--device)
@@ -15,9 +17,11 @@ Layout mirrors the JAX package:
                                  block (block_from_jax)
   convert/fairseq.py             fairseq state dicts ↔ the port's tree
   models/positions.py            position tables (restated from the JAX package)
-  models/resnet.py               frozen-BN ResNet image embedder (cuDNN)
-  models/ofa.py                  encoder, teacher-forced decoder, incremental decoder,
-                                 int8 serving branches, the NormFormer options
+  models/resnet.py               ResNet image embedder, frozen or batch-statistics BN
+                                 (cuDNN)
+  models/ofa.py                  encoder, teacher-forced decoder (flash and XLA
+                                 branches), incremental decoder, int8 serving branches,
+                                 the NormFormer options, adapters, prompts
   models/heads.py                classification heads, vocab growth
   criterions/label_smoothed_ce.py  the training criterion
   training/                      lr schedule, train state (AdamW, EMA), the joint step,
@@ -28,12 +32,14 @@ Layout mirrors the JAX package:
   generation/trie.py, lexical.py constrained-decoding tables
   tokenization/                  GPT-2 BPE (stdlib ``re``) and the OFA vocabulary,
                                  over the port's copy of assets/bpe/
-  data/                          example builders (uint8 transport), collate, train
-                                 augmentation, the TSV reader
+  data/                          example builders (uint8 transport; detection and the
+                                 pretraining mixture), collate, train augmentation,
+                                 the TSV reader
   utils/                         CIDEr-D, the summary normalizer, eval utilities
                                  (boxes, IoU, allcand scoring)
-  tasks/                         Task, iter_batches, the eval tasks (TASK_REGISTRY), the
-                                 joint loader (MusketeerDataLoader)
+  tasks/                         Task, iter_batches, the eval, detection and pretraining
+                                 tasks (TASK_REGISTRY), the joint loader
+                                 (MusketeerDataLoader)
   ops/flash_attention_infer.py   K1: attention with decomposed bias
   ops/topk_projection.py         K2, K2-q8: output projection + softmax stats
   ops/flash_attention_bwd.py     K3, K4: training attention forward / backward

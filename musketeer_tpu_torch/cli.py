@@ -10,8 +10,11 @@ Usage:
 
 Every command runs on ``--device`` (default ``cuda``, which must exist: the
 port never falls back to the CPU unasked; ``--device cpu`` runs the kernels'
-plain versions). The paths the port lacks raise ``NotImplementedError`` and
-name the ROADMAP queue 1 item that holds them.
+plain versions). The model config follows the JAX CLI's: ``evaluate`` and
+``evaluate-all`` keep the preset's (or the ``.pt``'s) ``use_flash_attention``,
+False, so they run the XLA attention branch as the JAX package's do; ``train``
+sets it from ``--no-flash``. The paths the port lacks raise
+``NotImplementedError`` and name the ROADMAP queue 1 item that holds them.
 """
 
 from __future__ import annotations
@@ -53,10 +56,11 @@ def _unported(what: str, item: str):
 
 
 def _preset(arch: str):
+    """The preset as it is: ``use_flash_attention`` False, the XLA branch, as
+    the JAX CLI's ``evaluate`` runs it."""
     from .config import ARCH_PRESETS
 
-    # the flash branch is the port's only attention branch
-    return dataclasses.replace(ARCH_PRESETS[arch](), use_flash_attention=True)
+    return ARCH_PRESETS[arch]()
 
 
 def _seeded_params(model_cfg, seed: int, device, dtype):
@@ -86,8 +90,6 @@ def _make_task(name: str, vocab, description: str, kw: dict):
 def _refuse_unported_train_options(args) -> None:
     if args.criterion in ("scst", "clip_scst"):
         raise _unported(f"--criterion {args.criterion}", "SCST and image generation")
-    if args.no_flash:
-        raise _unported("--no-flash", "the non-flash attention branch")
     for flag, value in (("--fsdp", args.fsdp), ("--model-parallel", args.model_parallel),
                         ("--pipeline", args.pipeline), ("--seq-parallel", args.seq_parallel)):
         if value > 1:
@@ -158,6 +160,11 @@ def cmd_train(args):
         logger.info("restored reference checkpoint %s", args.restore_pt)
     else:
         params = _seeded_params(model_cfg, cfg.seed, device, torch.float32)
+    # training runs the flash branch unless --no-flash (the JAX CLI's default);
+    # the JAX gates still send what its kernels lack (attention dropout,
+    # patch subsampling, prompts, mixed code masks) to the XLA branch
+    model_cfg = dataclasses.replace(model_cfg, use_flash_attention=not args.no_flash,
+                                    unroll_layers=args.unroll_layers)
 
     validate_fn = None
     if args.valid_data:
@@ -403,12 +410,13 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--prefetch-depth", type=int, default=2,
                     help="background batch-prefetch queue depth (0 = off)")
     pt.add_argument("--no-flash", action="store_true",
-                    help="the non-flash attention branch (not ported)")
+                    help="train on the XLA attention branch (plain PyTorch products) "
+                         "instead of the K3/K4 kernels")
     pt.add_argument("--remat", action="store_true",
                     help="activation checkpointing per layer (not ported)")
     pt.add_argument("--unroll-layers", action="store_true",
-                    help="accepted for the JAX CLI's sake: the port's layer loops are "
-                         "Python loops, always unrolled")
+                    help="kept in the config for the JAX CLI's sake: the port's layer "
+                         "loops are Python loops, always unrolled")
     pt.add_argument("--pipeline", type=int, default=1)
     pt.add_argument("--microbatches", type=int, default=0)
     pt.add_argument("--pipeline-interleave", type=int, default=1)

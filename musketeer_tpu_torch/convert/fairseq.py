@@ -19,11 +19,10 @@ converter does:
   ``self_attn_ln``, ``cross_attn_ln``) are taken where the state dict has
   them, and ``infer_config`` turns the four options on from its keys.
 
-The port's config always sets ``use_flash_attention=True``: the flash branch
-is the port's only attention branch, and it computes the same function as
-the JAX package's XLA branch (the JAX converter leaves the flag at its
-default, False). Where a config is passed in, its NormFormer flags are set
-from the state dict's keys, so that the config agrees with the tree.
+``infer_config`` leaves ``use_flash_attention`` at its default, False, as
+the JAX converter does, so that a ``.pt`` evaluates on the JAX package's
+branch (the XLA one). Where a config is passed in, its NormFormer flags are
+set from the state dict's keys, so that the config agrees with the tree.
 
 The trees land on ``device`` in ``dtype`` with ``params.from_jax``'s casts
 (``params.to_inference``); ``tests/test_torch_port_convert.py`` holds the
@@ -116,8 +115,7 @@ def _strip(sd: Dict[str, Any]) -> Dict[str, Any]:
 
 def infer_config(sd: Dict[str, Any]) -> ModelConfig:
     """The full ModelConfig from a state dict's shapes and keys (no preset),
-    as the JAX converter infers it (the keys without a ``module.`` prefix), with
-    ``use_flash_attention=True``."""
+    as the JAX converter infers it (the keys without a ``module.`` prefix)."""
 
     def n_layers(pat):
         return 1 + max(int(m.group(1)) for k in sd if (m := re.match(pat, k)))
@@ -137,7 +135,6 @@ def infer_config(sd: Dict[str, Any]) -> ModelConfig:
         max_target_positions=sd["decoder.embed_positions.weight"].shape[0] - 2,
         resnet_layers=tuple(n_layers(rf"encoder\.embed_images\.layer{s}\.(\d+)\.")
                             for s in (1, 2, 3)),
-        use_flash_attention=True,
         **_normformer_flags(sd),
     )
 

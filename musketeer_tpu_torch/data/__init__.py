@@ -1,4 +1,9 @@
+from .detection import DetectionBuilder
 from .file_dataset import FileDataset
+from .pretrain import (
+    ImageTextMatchingBuilder, ImageTextPairBuilder, PureImageBuilder, TextInfillingBuilder,
+    VisualGroundingBuilder,
+)
 from .task_data import (
     CaptionBuilder, Example, GigawordBuilder, GlueBuilder, ImageClassifyBuilder,
     RefcocoBuilder, SnliVeBuilder, VqaBuilder, collate, parse_ref_dict, pre_caption,
@@ -6,7 +11,8 @@ from .task_data import (
 )
 
 __all__ = [
-    "FileDataset", "CaptionBuilder", "Example", "GigawordBuilder", "GlueBuilder",
+    "DetectionBuilder", "ImageTextMatchingBuilder", "ImageTextPairBuilder", "PureImageBuilder",
+    "TextInfillingBuilder", "VisualGroundingBuilder", "FileDataset", "CaptionBuilder", "Example", "GigawordBuilder", "GlueBuilder",
     "ImageClassifyBuilder", "RefcocoBuilder", "SnliVeBuilder", "VqaBuilder", "collate",
     "parse_ref_dict", "pre_caption", "pre_question",
 ]

@@ -100,3 +100,11 @@ def positioning_resize(
     )
     boxes_norm = scaled / max_image_size
     return arr, boxes_norm, w_ratio, h_ratio
+
+
+def center_crop(image, size: int):
+    """The central ``size × size`` square of a ``PIL.Image.Image``."""
+    w, h = image.size
+    left = (w - size) // 2
+    top = (h - size) // 2
+    return image.crop((left, top, left + size, top + size))

@@ -1,41 +1,64 @@
 """OFA encoder and decoders in PyTorch (port of ``models/ofa.py``).
 
-The JAX model's flash branch: ``encode`` (inference, or training with dropout
-and drop-path from a ``torch.Generator``), the teacher-forced ``decode`` and
-``forward`` that training runs, and ``init_decoder_state`` / ``decode_step`` /
-``output_layer`` on the incremental, cached branch with the beam-shared cross
-cache. Every attention goes through ``ops/flash_attention_bwd.py::
-flash_attention``: K1 where autograd tracks nothing, K3 forward and K4
-backward where it does. Public layouts are the JAX package's: NHWC images,
-``[B, H, T, hd]`` head tensors, self caches ``[L, rows, H, Tmax, hd]``, cross
-caches ``[L, B, H, S, hd]``.
+Both of the JAX model's attention branches, each chosen by the JAX model's
+own gates (``encode``: ``use_flash_attention``, no ``sample_patch_order``, no
+encoder prompt, no attention dropout in training; ``decode``: the same with
+``code_masks`` absent or all-code and no decoder prompt):
+
+- the flash branch: every attention goes through ``ops/flash_attention_bwd.py::
+  flash_attention``, K1 where autograd tracks nothing, K3 forward and K4
+  backward where it does;
+- the XLA branch (``xla_attention``): plain PyTorch products, as the JAX
+  package computes this branch outside any Pallas kernel. q is scaled before
+  the head split, scores and the ``[B, H, Tq, Tk]`` bias are fp32, causal
+  positions get −1e9 and key padding −inf, the softmax is fp32 with fully
+  masked rows zeroed, attention dropout acts on the probabilities, which are
+  cast to the values' dtype before the second product, and prefix-tuning
+  prompt keys come first with no bias and no causality. It carries patch
+  subsampling (``sample_patch_order``), per-sample ``code_masks``, encoder
+  and decoder prompts and attention dropout; ``xla_attention.calls`` counts
+  its calls.
+
+``encode`` runs inference or training (dropout, drop-path and attention
+dropout from a ``torch.Generator``; ``train_bn`` normalises the ResNet with
+batch statistics); the teacher-forced ``decode`` and ``forward`` serve
+training; ``init_decoder_state`` / ``decode_step`` / ``output_layer`` are
+the incremental, cached decoder with the beam-shared cross cache, whose
+attention core (``_attend``) is the XLA branch's. Public layouts are the JAX
+package's: NHWC images, ``[B, H, T, hd]`` head tensors, self caches
+``[L, rows, H, P + Tmax, hd]`` (P prompt slots first under
+``decoder_prompt``), cross caches ``[L, B, H, S, hd]``.
 
 Parameters may be an inference tree (``params.from_jax``: weights stored in
-the compute dtype) or a training tree (``params.trainable``: fp32 masters);
-the model casts each weight to its input's dtype where it uses it, as the JAX
-model does, which is a no-op on an inference tree.
+the dtype their consumer computes in) or a training tree
+(``params.trainable``: fp32 masters); the model casts each weight to its
+input's dtype where it uses it, as the JAX model does.
 
 Numerics kept from the JAX model: attention scale ``(hd·2)^-0.5``, erf gelu,
 LayerNorm in fp32 with eps 1e-5, no positions added to encoder embeddings and
 always to decoder embeddings (``decoder_entangle_positions``), padded encoder
 embeddings zeroed. The incremental decoder masks self-attention with the
 finite −1e9 and cross-attention with −inf (NaN rows → 0) and keeps its abs-pos
-and rel biases in fp32; the teacher-forced decoder, like the JAX flash
-branch, projects positions and gathers its rel table in the compute dtype.
-The JAX encoder pads its rel bias to the TPU kernel's tiles; here rel is
-composed at ``[H, S, S]``. The JAX model draws every layer's dropout masks
-from one key; here each draw advances the generator (ROADMAP §3).
+and rel biases in fp32; the teacher-forced flash branch, like the JAX one,
+projects positions and gathers its rel table in the compute dtype, the XLA
+branch builds them in fp32. ``interpolate_position`` resamples the trained
+position grid with ``F.interpolate(..., align_corners=False)``, the JAX
+model's half-pixel bilinear resize. The JAX encoder pads its rel bias to the
+TPU kernel's tiles; here rel is composed at ``[H, S, S]``. The JAX model draws
+every layer's dropout masks from one key per layer; here each draw advances
+the generator (ROADMAP §3).
 
 ``decode_step`` writes the step's K/V into the self cache in place and
 returns the same state object.
 
 NormFormer (``scale_attn``, ``scale_fc``, ``scale_heads``, ``scale_resids``),
 where a layer's parameters carry its leaves, as in the JAX model: ``c_attn``
-scales each head's attention output (after K1/K3 or the cached attention),
-``attn_ln`` / ``self_attn_ln`` / ``cross_attn_ln`` normalise an attention's
-output and ``ffn_layernorm`` the FFN's hidden activations, and ``w_resid``
-scales the FFN's residual. K7 has none of them: a session with any of them
-runs its steps layer by layer (``stack_kernel_allowed``).
+scales each head's attention output, ``attn_ln`` / ``self_attn_ln`` /
+``cross_attn_ln`` normalise an attention's output and ``ffn_layernorm`` the
+FFN's hidden activations, and ``w_resid`` scales the FFN's residual. A
+layer's ``adapter`` (``use_adapter``) follows fc2. K7 has none of these
+options and no prompts: such a session runs its steps layer by layer
+(``stack_kernel_allowed``).
 
 Serving options, as in the JAX model: ``quantize_output_proj`` (int8 tied
 projection with per-row scales: ``output_layer`` and the beam search's K2-q8
@@ -50,7 +73,8 @@ builds a transposed cross cache for its TPU kernel; the port does neither.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional
+import functools
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +108,13 @@ def _scalar(value: float, dtype: torch.dtype) -> float:
 
 def _index(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=torch.long)
+
+
+@functools.lru_cache(maxsize=None)
+def _image_bucket_table(bucket_size: int, num_rel_dis: int, device: torch.device) -> torch.Tensor:
+    """The image rel-bucket table on ``device``, uploaded once (the XLA branch
+    gathers its buckets from it by the patches' position ids)."""
+    return _index(pos_lib.make_image_bucket_position(bucket_size, num_rel_dis), device)
 
 
 # ---------------------------------------------------------------------------
@@ -128,14 +159,6 @@ def _drop_path_rates(rate: float, layers: int, on: bool) -> List[Optional[float]
     return torch.linspace(0.0, rate, layers, dtype=torch.float32).tolist()
 
 
-def _check_train_mode(cfg: ModelConfig, deterministic: bool, train_bn: bool = False) -> None:
-    # the JAX model leaves its flash branch for these; the port has only that branch
-    if not deterministic and cfg.attention_dropout > 0.0:
-        raise NotImplementedError("musketeer_tpu_torch does not support attention_dropout in training")
-    if train_bn:
-        raise NotImplementedError("musketeer_tpu_torch does not support train_bn")
-
-
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     b, t, d = x.shape
     return x.view(b, t, heads, d // heads).transpose(1, 2)
@@ -156,6 +179,93 @@ def _out_proj_heads(p: Params, x: torch.Tensor) -> torch.Tensor:
     return _linear(p, _merge_heads(x))
 
 
+def _apply_adapter(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Bottleneck adapter: down → relu → up, plus the residual."""
+    return _linear(p["up_proj"], F.relu(_linear(p["down_proj"], x))) + x
+
+
+def _prompt_kv(embed: torch.Tensor, L: int, H: int, hd: int, B: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``[P, L·2·d]`` prompt table → per-layer prefix K/V ``[L, 2, B, H, P, hd]``
+    (ref: get_encoder_prompt's reshape, unify_transformer.py:700-711)."""
+    P = embed.shape[0]
+    kv = embed.to(dtype).view(P, L, 2, H, hd).permute(1, 2, 3, 0, 4)
+    return kv[:, :, None].expand(L, 2, B, H, P, hd)
+
+
+# ---------------------------------------------------------------------------
+# attention: the XLA branch and its core
+# ---------------------------------------------------------------------------
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor] = None, kpad: Optional[torch.Tensor] = None,
+            causal_offset: Optional[int] = None, prompt_len: int = 0,
+            dropout_rate: float = 0.0, gen: Optional[torch.Generator] = None,
+            deterministic: bool = True, k_scale: Optional[torch.Tensor] = None,
+            v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q·kᵀ + bias)·v over ``[..., Tq, hd]`` / ``[..., Tk, hd]`` heads,
+    as the JAX model's ``attention`` and incremental decoder compute it.
+
+    Scores, ``bias`` and softmax in fp32. ``causal_offset``: query i sits at
+    position offset + i and keys past it get −1e9, the first ``prompt_len``
+    keys (prefix prompts) being visible to all. ``kpad [B, Tk]`` True keys get
+    −inf and rows with no key left are zeroed. ``k_scale`` / ``v_scale`` are
+    the int8 cache's per-position scales, factored out of the two products.
+    The probabilities (dropped out in training) are cast to ``v``'s dtype."""
+    w = q.float() @ k.float().transpose(-1, -2)
+    if k_scale is not None:
+        w = w * k_scale
+    if bias is not None:
+        w = w + bias
+    if causal_offset is not None:
+        tq, tk = w.shape[-2:]
+        qpos = torch.arange(tq, device=w.device) + causal_offset
+        kpos = torch.arange(tk, device=w.device) - prompt_len
+        w = w.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+    if kpad is not None:
+        w = w.masked_fill(kpad[:, None, None, :], float("-inf"))
+    probs = torch.softmax(w, dim=-1)
+    if kpad is not None:  # fully masked rows (padded queries) are NaN: zero them
+        probs = torch.nan_to_num(probs, nan=0.0)
+    if v_scale is not None:
+        probs = probs * v_scale
+    probs = _dropout(probs, dropout_rate, gen, deterministic)
+    return probs.to(v.dtype) @ v
+
+
+def xla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, kv: torch.Tensor,
+                  bias: Optional[torch.Tensor], kpad: Optional[torch.Tensor],
+                  causal: bool = False, gen: Optional[torch.Generator] = None,
+                  deterministic: bool = True,
+                  prompt_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """The XLA branch's multi-head attention (the JAX model's ``attention``):
+    self (``kv`` is ``x``) or cross attention with the additive fp32 ``bias
+    [B, H, Tq, Tk]``, attention dropout in training, and prefix-tuning
+    ``prompt_kv`` ``([B, H, P, hd], [B, H, P, hd])`` before the keys."""
+    xla_attention.calls += 1
+    H = cfg.attention_heads
+    scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
+    q = _split_heads(_linear(p["q_proj"], x) * scaling, H)
+    k = _split_heads(_linear(p["k_proj"], kv), H)
+    v = _split_heads(_linear(p["v_proj"], kv), H)
+    P = 0
+    if prompt_kv is not None:
+        pk, pv = prompt_kv
+        P = pk.shape[2]
+        k = torch.cat([pk.to(k.dtype), k], dim=2)
+        v = torch.cat([pv.to(v.dtype), v], dim=2)
+        if bias is not None:  # prompt keys carry no position bias
+            bias = F.pad(bias, (P, 0))
+        if kpad is not None:
+            kpad = torch.cat([kpad.new_zeros((kpad.shape[0], P)), kpad], dim=1)
+    out = _attend(q, k, v, bias, kpad, 0 if causal else None, P,
+                  cfg.attention_dropout, gen, deterministic)
+    return _out_proj_heads(p["out_proj"], _head_scale(p, out))
+
+
+xla_attention.calls = 0
+
+
 # ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
@@ -172,6 +282,16 @@ def _pos_proj(lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig, scale_q: b
     if scale_q:
         x = x * _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
     return x
+
+
+def _abs_pos_bias(q_lin: Params, k_lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig):
+    """(pos_q · scaling) · pos_kᵀ per head → ``[B, H, T, T]`` fp32."""
+    H = cfg.attention_heads
+    scaling = float(cfg.embed_dim / H * cfg.attn_scale_factor) ** -0.5
+    pe = pos_embed.float()
+    pos_q = _split_heads(_linear(q_lin, pe), H) * scaling
+    pos_k = _split_heads(_linear(k_lin, pe), H)
+    return pos_q @ pos_k.transpose(-1, -2)
 
 
 def _rel_gather(table: torch.Tensor, rp: torch.Tensor) -> torch.Tensor:
@@ -199,11 +319,13 @@ def _post_ln(p: Params, name: str, h: torch.Tensor) -> torch.Tensor:
 
 def _ffn_block(p: Params, cfg: ModelConfig, x, gen=None, deterministic=True, dp_rate=None):
     """The pre-LN feed-forward half of a layer, with NormFormer's
-    ``ffn_layernorm`` and ``w_resid`` where the layer has them."""
+    ``ffn_layernorm`` and ``w_resid`` and the ``adapter`` where the layer has them."""
     h = _layer_norm(p["final_layer_norm"], x)
     h = _dropout(_gelu(_linear(p["fc1"], h)), cfg.activation_dropout, gen, deterministic)
     h = _post_ln(p, "ffn_layernorm", h)
     h = _dropout(_linear(p["fc2"], h), cfg.dropout, gen, deterministic)
+    if "adapter" in p:
+        h = _apply_adapter(p["adapter"], h)
     if "w_resid" in p:
         x = x * p["w_resid"].to(x.dtype)
     return x + _drop_path(h, dp_rate, gen, deterministic)
@@ -224,14 +346,52 @@ def _flash_attn(p: Params, cfg: ModelConfig, x, kv, pos_q, pos_k, rel, kpad, cau
     return _out_proj_heads(p["out_proj"], _head_scale(p, out))
 
 
-def _encoder_layer(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, padding_mask,
+Attend = Callable[[Params, torch.Tensor], torch.Tensor]  # (attention params, post-LN h) → out
+
+
+def _encoder_layer(p: Params, cfg: ModelConfig, x, attend: Attend,
                    gen=None, deterministic=True, dp_rate=None):
-    """Pre-LN encoder block, flash branch."""
-    h = _layer_norm(p["self_attn_layer_norm"], x)
-    h = _flash_attn(p["self_attn"], cfg, h, h, pos_q, pos_k, rel, padding_mask, causal=False)
+    """Pre-LN encoder block; ``attend`` is the branch's self-attention."""
+    h = attend(p["self_attn"], _layer_norm(p["self_attn_layer_norm"], x))
     h = _dropout(_post_ln(p, "attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
     return _ffn_block(p, cfg, x, gen, deterministic, dp_rate)
+
+
+def _encoder_image(enc: Params, cfg: ModelConfig, feats: torch.Tensor,
+                   sample_patch_order: Optional[torch.Tensor], dtype: torch.dtype):
+    """ResNet features ``[B, h, w, C]`` → (patch embeddings ``[B, N, C]``, their
+    position ids ``[B, N]`` and position embeddings ``[B, N, d]`` in ``dtype``,
+    the grid's ids ``[h·w]`` in numpy), subsampled by ``sample_patch_order [B, N]``.
+
+    The grid's position embeddings are taken once and expanded over the
+    batch (the gradient summed over it in ``dtype``); subsampling gathers
+    each sample's rows from that."""
+    B, h, w, _ = feats.shape
+    device = feats.device
+    image_embed = feats.reshape(B, h * w, -1)
+    ids0 = pos_lib.encoder_image_position_ids(h, w, cfg.image_bucket_size)
+    ids = _index(ids0, device)[None].expand(B, h * w)
+    table = enc["embed_image_positions"]
+    orig_hw = cfg.orig_patch_image_size // 16
+    if cfg.interpolate_position and h * w > orig_hw * orig_hw:
+        # the trained grid resampled to the larger one (ref: unify_transformer.py:685-693);
+        # the rel buckets stay id-based
+        old_ids = pos_lib.encoder_image_position_ids(orig_hw, orig_hw, cfg.image_bucket_size)
+        old = table[_index(old_ids, device)].float().view(orig_hw, orig_hw, -1)
+        grid = F.interpolate(old.permute(2, 0, 1)[None], size=(h, w), mode="bilinear",
+                             align_corners=False)
+        pos = grid[0].permute(1, 2, 0).reshape(h * w, -1)
+    else:
+        pos = table[ids[0]]
+    pos = pos.to(dtype)[None].expand(B, h * w, pos.shape[-1])
+    if sample_patch_order is not None:
+        # training-time patch subsampling (ref: unify_transformer.py:671-682)
+        order = sample_patch_order.to(device=device, dtype=torch.long)
+        image_embed = torch.gather(image_embed, 1, order[:, :, None].expand(-1, -1, image_embed.shape[-1]))
+        ids = torch.gather(ids, 1, order)
+        pos = torch.gather(pos, 1, order[:, :, None].expand(-1, -1, pos.shape[-1]))
+    return image_embed, ids, pos, ids0
 
 
 def encode(
@@ -240,21 +400,19 @@ def encode(
     src_tokens: torch.Tensor,  # [B, T] int
     patch_images: Optional[torch.Tensor] = None,  # [B, Himg, Wimg, 3]
     patch_masks: Optional[torch.Tensor] = None,  # [B] bool, False = no image
-    sample_patch_order: Optional[torch.Tensor] = None,
+    sample_patch_order: Optional[torch.Tensor] = None,  # [B, N] patch subsample indices
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     train_bn: bool = False,
     resnet_feats: Optional[torch.Tensor] = None,  # [B, h, w, C] precomputed stem output
 ) -> EncoderOut:
-    """Joint image + text encoder forward (flash branch).
+    """Joint image + text encoder forward.
 
-    ``deterministic=False`` with a ``generator`` applies dropout and
-    drop-path; ``resnet_feats`` bypasses the ResNet stem with feature maps
-    computed for several tasks at once (the joint step's stem packing)."""
+    ``deterministic=False`` with a ``generator`` applies dropout, drop-path
+    and attention dropout; ``train_bn`` runs the ResNet on batch statistics;
+    ``resnet_feats`` bypasses the ResNet stem with feature maps computed for
+    several tasks at once (the joint step's stem packing)."""
     check_supported(cfg)
-    _check_train_mode(cfg, deterministic, train_bn)
-    if sample_patch_order is not None:
-        raise NotImplementedError("musketeer_tpu_torch does not support sample_patch_order")
     enc = params["encoder"]
     dtype = compute_dtype(cfg)
     device = src_tokens.device
@@ -272,13 +430,10 @@ def encode(
         if resnet_feats is not None:
             feats = resnet_feats.to(dtype)
         else:
-            feats = resnet_forward(enc["resnet"], patch_images.to(dtype))
-        _, h, w, _ = feats.shape
-        N = h * w
-        image_embed = feats.reshape(B, N, -1)
-        ids0 = pos_lib.encoder_image_position_ids(h, w, cfg.image_bucket_size)
-        image_pos_embed = enc["embed_image_positions"][_index(ids0, device)].to(dtype)
-        image_pos_embed = image_pos_embed[None].expand(B, N, d)
+            feats = resnet_forward(enc["resnet"], patch_images.to(dtype), train=train_bn)
+        image_embed, image_ids, image_pos_embed, ids0 = _encoder_image(
+            enc, cfg, feats, sample_patch_order, dtype)
+        N = image_embed.shape[1]
         x_img = _linear(enc["image_proj"], image_embed) + enc["type_embedding"][1].to(dtype)
         x_img = _layer_norm(enc["patch_layernorm_embedding"], x_img)
         x_img = _dropout(x_img, cfg.dropout, generator, deterministic)
@@ -301,24 +456,53 @@ def encode(
     x = x * (1.0 - padding_mask[:, :, None].to(x.dtype))
     S = x.shape[1]
 
-    pos_q = _pos_proj(enc["pos_q_linear"], pos_for_bias, cfg, True)
-    pos_k = _pos_proj(enc["pos_k_linear"], pos_for_bias, cfg, False)
-    # rel gathers for all layers at once, outside the layer loop
+    # the JAX model's gate: its Pallas kernels have no attention dropout, a
+    # batch-invariant rel bias (no per-sample subsampling) and no prompts
+    use_flash = (cfg.use_flash_attention and sample_patch_order is None
+                 and not cfg.encoder_prompt and (deterministic or cfg.attention_dropout == 0.0))
     token_rp = pos_lib.make_token_bucket_position(cfg.token_bucket_size, cfg.max_source_positions)
-    rel_tok_all = _rel_gather(enc["token_rel_pos_table"].to(dtype), _index(token_rp[:T, :T], device))
-    if N:
-        image_rp_full = pos_lib.make_image_bucket_position(cfg.image_bucket_size, cfg.image_num_rel_dis)
-        image_rp = image_rp_full[ids0[:, None], ids0[None, :]]
-        rel_img_all = _rel_gather(enc["image_rel_pos_table"].to(dtype), _index(image_rp, device))
+    token_rp = _index(token_rp[:T, :T], device)
+    if use_flash:
+        pos_q = _pos_proj(enc["pos_q_linear"], pos_for_bias, cfg, True)
+        pos_k = _pos_proj(enc["pos_k_linear"], pos_for_bias, cfg, False)
+        # rel gathers for all layers at once, outside the layer loop
+        rel_tok_all = _rel_gather(enc["token_rel_pos_table"].to(dtype), token_rp)
+        if N:
+            full = pos_lib.make_image_bucket_position(cfg.image_bucket_size, cfg.image_num_rel_dis)
+            image_rp = _index(full[ids0[:, None], ids0[None, :]], device)
+            rel_img_all = _rel_gather(enc["image_rel_pos_table"].to(dtype), image_rp)
+
+        def attend(i: int, pa: Params, h: torch.Tensor) -> torch.Tensor:
+            rel = torch.zeros((H, S, S), dtype=dtype, device=device)
+            rel[:, S - T:, S - T:] = rel_tok_all[i]
+            if N:
+                rel[:, :N, :N] = rel_img_all[i]
+            return _flash_attn(pa, cfg, h, h, pos_q, pos_k, rel, padding_mask, causal=False)
+    else:
+        abs_bias = _abs_pos_bias(enc["pos_q_linear"], enc["pos_k_linear"], pos_for_bias, cfg)
+        rel_tok_all = _rel_gather(enc["token_rel_pos_table"].float(), token_rp)
+        Br = 1
+        if N:  # image buckets [Br, N, N]: per sample under subsampling, else one for all
+            ids = image_ids if sample_patch_order is not None else image_ids[:1]
+            Br = ids.shape[0]
+            full = _image_bucket_table(cfg.image_bucket_size, cfg.image_num_rel_dis, device)
+            image_rp = full[ids[:, :, None], ids[:, None, :]]
+        prompt_kv = (_prompt_kv(enc["prompt_embedding"], cfg.encoder_layers, H, cfg.head_dim,
+                                B, dtype) if cfg.encoder_prompt else None)
+
+        def attend(i: int, pa: Params, h: torch.Tensor) -> torch.Tensor:
+            rel = torch.zeros((Br, H, S, S), dtype=torch.float32, device=device)
+            rel[:, :, S - T:, S - T:] = rel_tok_all[i]
+            if N:  # [Br, N, N, H] → [Br, H, N, N]
+                rel[:, :, :N, :N] = enc["image_rel_pos_table"][i].float()[image_rp].permute(0, 3, 1, 2)
+            pkv = None if prompt_kv is None else (prompt_kv[i, 0], prompt_kv[i, 1])
+            return xla_attention(pa, cfg, h, h, abs_bias + rel, padding_mask, gen=generator,
+                                 deterministic=deterministic, prompt_kv=pkv)
 
     dp_rates = _drop_path_rates(cfg.encoder_drop_path_rate, cfg.encoder_layers,
                                 cfg.encoder_drop_path_rate > 0 and not deterministic)
     for i, layer_p in enumerate(enc["layers"]):
-        rel = torch.zeros((H, S, S), dtype=dtype, device=device)
-        rel[:, S - T:, S - T:] = rel_tok_all[i]
-        if N:
-            rel[:, :N, :N] = rel_img_all[i]
-        x = _encoder_layer(layer_p, cfg, x, pos_q, pos_k, rel, padding_mask,
+        x = _encoder_layer(layer_p, cfg, x, functools.partial(attend, i),
                            generator, deterministic, dp_rates[i])
 
     x = _layer_norm(enc["layer_norm"], x)
@@ -329,27 +513,43 @@ def encode(
 # decoder
 # ---------------------------------------------------------------------------
 
-def _abs_pos_bias(q_lin: Params, k_lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig):
-    """(pos_q · scaling) · pos_kᵀ per head → ``[B, H, T, T]`` fp32."""
-    H = cfg.attention_heads
-    scaling = float(cfg.embed_dim / H * cfg.attn_scale_factor) ** -0.5
-    pe = pos_embed.float()
-    pos_q = _split_heads(_linear(q_lin, pe), H) * scaling
-    pos_k = _split_heads(_linear(k_lin, pe), H)
-    return pos_q @ pos_k.transpose(-1, -2)
+def _image_target_ids(cfg: ModelConfig, T: int, rows: int) -> np.ndarray:
+    """The decoder's image position ids of a T-token code target, clamped into a
+    table of ``rows`` rows as the JAX model's gather clamps them."""
+    idx = pos_lib.decoder_image_position_idx(cfg.code_image_size, cfg.image_bucket_size,
+                                             cfg.max_target_positions)[:T]
+    return np.minimum(idx, rows - 1)
+
+
+def _decoder_image_pos(dec: Params, cfg: ModelConfig, T: int, dtype: torch.dtype):
+    """A code target's image-grid positions → (embeddings ``[1, T, d]`` in
+    ``dtype``, the same under ``image_pos_ln``) (ref: unify_transformer.py:1451-1465)."""
+    table = dec["embed_image_positions"]
+    pos = table[_index(_image_target_ids(cfg, T, table.shape[0]), table.device)].to(dtype)[None]
+    return pos, _layer_norm(dec["image_pos_ln"], pos)
 
 
 def _decoder_pos_setup(params: Params, cfg: ModelConfig, B: int, T: int,
-                       encoder_pos: torch.Tensor, dtype: torch.dtype):
-    """Target positions and the self / cross abs-pos biases (token positions only).
+                       encoder_pos: torch.Tensor, code_masks: Optional[torch.Tensor],
+                       dtype: torch.dtype):
+    """Target positions and the self / cross abs-pos biases: token positions,
+    or per sample (``code_masks [B]``) the image grid's under ``image_pos_ln``.
 
     Returns (tgt_pos_embed [B, T, d], self_bias [B, H, T, T] fp32, cross_bias [B, H, T, S] fp32).
     """
     dec = params["decoder"]
     H = cfg.attention_heads
-    tgt_pos_embed = dec["embed_positions"][:T][None].expand(B, T, cfg.embed_dim)
-    pe = _layer_norm(dec["pos_ln"], tgt_pos_embed[:1].to(dtype))
+    tok_pos = dec["embed_positions"][:T].to(dtype)[None]
+    pe = _layer_norm(dec["pos_ln"], tok_pos)
     self_bias = _abs_pos_bias(dec["self_pos_q_linear"], dec["self_pos_k_linear"], pe, cfg)
+    tgt_pos_embed = tok_pos.expand(B, T, cfg.embed_dim)
+    if code_masks is not None:
+        img_pos, pe_img = _decoder_image_pos(dec, cfg, T, dtype)
+        bias_img = _abs_pos_bias(dec["self_pos_q_linear"], dec["self_pos_k_linear"], pe_img, cfg)
+        m = code_masks.bool()[:, None, None]
+        tgt_pos_embed = torch.where(m, img_pos, tok_pos)
+        self_bias = torch.where(m[..., None], bias_img, self_bias)
+        pe = torch.where(m, pe_img, pe)
     scaling = float(cfg.embed_dim / H * cfg.attn_scale_factor) ** -0.5
     pq = _split_heads(_linear(dec["cross_pos_q_linear"], pe.float()), H) * scaling
     pk = _split_heads(_linear(dec["cross_pos_k_linear"], encoder_pos.float()), H)
@@ -358,37 +558,47 @@ def _decoder_pos_setup(params: Params, cfg: ModelConfig, B: int, T: int,
 
 
 def _decoder_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   tgt_pos_embed: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+                   tgt_pos_embed: torch.Tensor, dtype: torch.dtype,
+                   code_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings plus target positions, through ``layernorm_embedding``,
+    or ``code_layernorm_embedding`` for the rows ``code_masks`` marks."""
     dec = params["decoder"]
     x = params["embed_tokens"][tokens].to(dtype)
     if cfg.decoder_entangle_positions:
         x = x + tgt_pos_embed.to(dtype)
-    return _layer_norm(dec["layernorm_embedding"], x)
+    x_tok = _layer_norm(dec["layernorm_embedding"], x)
+    if code_masks is None:
+        return x_tok
+    x_code = _layer_norm(dec["code_layernorm_embedding"], x)
+    return torch.where(code_masks.bool()[:, None, None], x_code, x_tok)
 
 
 def _decoder_rel_bias(params: Params, cfg: ModelConfig, T: int,
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Per-layer self-attention rel bias ``[L, H, T, T]`` in ``dtype`` (token buckets)."""
-    token_rp = pos_lib.make_token_bucket_position(
-        cfg.token_bucket_size, max(cfg.max_target_positions, T)
-    )[:T, :T]
-    table = params["decoder"]["token_rel_pos_table"]
-    return _rel_gather(table.to(dtype), _index(token_rp, table.device))
+                      dtype: torch.dtype = torch.float32, image: bool = False) -> torch.Tensor:
+    """Per-layer self-attention rel bias ``[L, H, T, T]`` in ``dtype``: token
+    buckets (the grid extends past ``max_target_positions`` for longer
+    targets), or with ``image`` the code grid's image buckets."""
+    dec = params["decoder"]
+    if image:
+        table = dec["image_rel_pos_table"]
+        full = pos_lib.make_image_bucket_position(cfg.image_bucket_size, cfg.image_num_rel_dis)
+        idx = _image_target_ids(cfg, T, full.shape[0])
+        rp = full[idx[:, None], idx[None, :]]
+    else:
+        table = dec["token_rel_pos_table"]
+        rp = pos_lib.make_token_bucket_position(
+            cfg.token_bucket_size, max(cfg.max_target_positions, T))[:T, :T]
+    return _rel_gather(table.to(dtype), _index(rp, table.device))
 
 
-def _decoder_layer_flash(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, self_pad,
-                         enc_x, enc_pad, cross_pos_q, cross_pos_k,
-                         gen=None, deterministic=True, dp_rate=None):
-    """Pre-LN decoder block over a whole target (teacher forcing), flash branch."""
-    h = _layer_norm(p["self_attn_layer_norm"], x)
-    h = _flash_attn(p["self_attn"], cfg, h, h, pos_q, pos_k, rel, self_pad, causal=True)
+def _decoder_layer_full(p: Params, cfg: ModelConfig, x, self_attend: Attend,
+                        cross_attend: Attend, gen=None, deterministic=True, dp_rate=None):
+    """Pre-LN decoder block over a whole target (teacher forcing);
+    ``self_attend`` / ``cross_attend`` are the branch's attentions."""
+    h = self_attend(p["self_attn"], _layer_norm(p["self_attn_layer_norm"], x))
     h = _dropout(_post_ln(p, "self_attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
-    # cross attention: no rel bias, so no drel (the JAX model passes zeros with
-    # need_drel=False)
-    h = _layer_norm(p["encoder_attn_layer_norm"], x)
-    h = _flash_attn(p["encoder_attn"], cfg, h, enc_x, cross_pos_q, cross_pos_k, None, enc_pad,
-                    causal=False)
+    h = cross_attend(p["encoder_attn"], _layer_norm(p["encoder_attn_layer_norm"], x))
     h = _dropout(_post_ln(p, "cross_attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
     return _ffn_block(p, cfg, x, gen, deterministic, dp_rate)
@@ -399,42 +609,81 @@ def decode(
     cfg: ModelConfig,
     prev_output_tokens: torch.Tensor,  # [B, T]
     encoder_out: EncoderOut,
-    code_masks: Optional[torch.Tensor] = None,
+    code_masks: Optional[torch.Tensor] = None,  # [B] bool: the rows that are code targets
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     features_only: bool = False,
+    code_masks_all: bool = False,  # every row is a code target
 ) -> torch.Tensor:
-    """Teacher-forced decoder forward → logits ``[B, T, Vp]`` (flash branch).
+    """Teacher-forced decoder forward → logits ``[B, T, Vp]``.
 
-    Positions are projected, and the rel table gathered, in the compute
-    dtype, as the JAX flash branch does (the incremental decoder keeps both
-    in fp32)."""
+    ``code_masks_all`` promises that every row of ``code_masks`` is set (an
+    image-generation or pure-image batch), which keeps the flash branch, as
+    in the JAX model. The flash branch projects positions, and gathers its
+    rel table, in the compute dtype; the XLA branch builds its biases in fp32."""
     check_supported(cfg)
-    _check_train_mode(cfg, deterministic)
-    if code_masks is not None:
-        raise NotImplementedError("musketeer_tpu_torch does not support code_masks")
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
     B, T = prev_output_tokens.shape
     self_pad = prev_output_tokens == cfg.pad
     enc_x = encoder_out.x.to(dtype)
+    enc_pad = encoder_out.padding_mask
 
-    tgt_pos_embed = dec["embed_positions"][:T].to(dtype)[None].expand(B, T, cfg.embed_dim)
-    pe = _layer_norm(dec["pos_ln"], tgt_pos_embed)
-    pos_q = _pos_proj(dec["self_pos_q_linear"], pe, cfg, True)
-    pos_k = _pos_proj(dec["self_pos_k_linear"], pe, cfg, False)
-    cross_pos_q = _pos_proj(dec["cross_pos_q_linear"], pe, cfg, True)
-    cross_pos_k = _pos_proj(dec["cross_pos_k_linear"], encoder_out.pos_embed.to(dtype), cfg, False)
-    x = _decoder_embed(params, cfg, prev_output_tokens, tgt_pos_embed, dtype)
+    use_flash = (cfg.use_flash_attention and (code_masks is None or code_masks_all)
+                 and not cfg.decoder_prompt and (deterministic or cfg.attention_dropout == 0.0))
+    if use_flash:
+        all_code = code_masks is not None
+        if all_code:
+            tgt_pos_embed, pe = (t.expand(B, T, cfg.embed_dim)
+                                 for t in _decoder_image_pos(dec, cfg, T, dtype))
+        else:
+            tgt_pos_embed = dec["embed_positions"][:T].to(dtype)[None].expand(B, T, cfg.embed_dim)
+            pe = _layer_norm(dec["pos_ln"], tgt_pos_embed)
+        pos_q = _pos_proj(dec["self_pos_q_linear"], pe, cfg, True)
+        pos_k = _pos_proj(dec["self_pos_k_linear"], pe, cfg, False)
+        cross_pos_q = _pos_proj(dec["cross_pos_q_linear"], pe, cfg, True)
+        cross_pos_k = _pos_proj(dec["cross_pos_k_linear"], encoder_out.pos_embed.to(dtype), cfg, False)
+        x = _decoder_embed(params, cfg, prev_output_tokens, tgt_pos_embed, dtype,
+                           code_masks if all_code else None)
+        rel_all = _decoder_rel_bias(params, cfg, T, dtype, image=all_code)
+
+        def self_attend(i, pa, h):
+            return _flash_attn(pa, cfg, h, h, pos_q, pos_k, rel_all[i], self_pad, causal=True)
+
+        def cross_attend(i, pa, h):
+            # no rel bias, so no drel (the JAX model passes zeros with need_drel=False)
+            return _flash_attn(pa, cfg, h, enc_x, cross_pos_q, cross_pos_k, None, enc_pad,
+                               causal=False)
+    else:
+        tgt_pos_embed, self_bias, cross_bias = _decoder_pos_setup(
+            params, cfg, B, T, encoder_out.pos_embed, code_masks, dtype)
+        x = _decoder_embed(params, cfg, prev_output_tokens, tgt_pos_embed, dtype, code_masks)
+        rel_tok = _decoder_rel_bias(params, cfg, T)
+        rel_img = None if code_masks is None else _decoder_rel_bias(params, cfg, T, image=True)
+        # the JAX model seeds prompts only for batches without code masks
+        prompt_kv = (_prompt_kv(dec["prompt_embedding"], cfg.decoder_layers, cfg.attention_heads,
+                                cfg.head_dim, B, dtype)
+                     if cfg.decoder_prompt and code_masks is None else None)
+
+        def self_attend(i, pa, h):
+            rel = rel_tok[i][None]
+            if rel_img is not None:
+                rel = torch.where(code_masks.bool()[:, None, None, None], rel_img[i][None], rel)
+            pkv = None if prompt_kv is None else (prompt_kv[i, 0], prompt_kv[i, 1])
+            return xla_attention(pa, cfg, h, h, self_bias + rel, self_pad, causal=True,
+                                 gen=generator, deterministic=deterministic, prompt_kv=pkv)
+
+        def cross_attend(i, pa, h):
+            return xla_attention(pa, cfg, h, enc_x, cross_bias, enc_pad, gen=generator,
+                                 deterministic=deterministic)
+
     x = _dropout(x, cfg.dropout, generator, deterministic)
-    rel_all = _decoder_rel_bias(params, cfg, T, dtype)
-
     dp_rates = _drop_path_rates(cfg.decoder_drop_path_rate, cfg.decoder_layers,
                                 cfg.decoder_drop_path_rate > 0 and not deterministic)
     for i, layer_p in enumerate(dec["layers"]):
-        x = _decoder_layer_flash(layer_p, cfg, x, pos_q, pos_k, rel_all[i], self_pad,
-                                 enc_x, encoder_out.padding_mask, cross_pos_q, cross_pos_k,
-                                 generator, deterministic, dp_rates[i])
+        x = _decoder_layer_full(layer_p, cfg, x, functools.partial(self_attend, i),
+                                functools.partial(cross_attend, i), generator, deterministic,
+                                dp_rates[i])
     x = _layer_norm(dec["layer_norm"], x)
     return x if features_only else output_layer(params, cfg, x)
 
@@ -452,23 +701,25 @@ def forward(
     deterministic: bool = True,
     train_bn: bool = False,
     resnet_feats: Optional[torch.Tensor] = None,
+    code_masks_all: bool = False,
 ) -> torch.Tensor:
     """Full model forward → logits ``[B, T, Vp]``."""
     enc_out = encode(params, cfg, src_tokens, patch_images, patch_masks,
                      sample_patch_order=sample_patch_order, generator=generator,
                      deterministic=deterministic, train_bn=train_bn, resnet_feats=resnet_feats)
     return decode(params, cfg, prev_output_tokens, enc_out, code_masks=code_masks,
-                  generator=generator, deterministic=deterministic)
+                  generator=generator, deterministic=deterministic, code_masks_all=code_masks_all)
 
 
 def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pad,
                    cache: Dict[str, torch.Tensor], cache_index: int):
     """Pre-LN decoder block, one incremental step: x ``[rows, 1, d]``.
 
-    ``cache`` holds this layer's self K/V ``[rows, H, Tmax, hd]`` (written in
-    place at ``cache_index``) and the beam-shared cross K/V ``[Bs, H, S, hd]``
-    (fp32 or the compute dtype; int8 with ``cross_k_scale`` / ``cross_v_scale``
-    ``[Bs, H, S]`` after ``quantize_cross_kv``); ``cross_bias`` is ``[Bs, H, 1, S]``.
+    ``cache`` holds this layer's self K/V ``[rows, H, P + Tmax, hd]`` (written in
+    place at ``cache_index``, after any P prompt slots) and the beam-shared cross
+    K/V ``[Bs, H, S, hd]`` (fp32 or the compute dtype; int8 with ``cross_k_scale`` /
+    ``cross_v_scale`` ``[Bs, H, S]`` after ``quantize_cross_kv``); ``cross_bias`` is
+    ``[Bs, H, 1, S]``.
     """
     H = cfg.attention_heads
     scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
@@ -480,11 +731,8 @@ def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pa
     k, v = cache["self_k"], cache["self_v"]
     k[:, :, cache_index] = _split_heads(_linear(pa["k_proj"], h), H)[:, :, 0].to(k.dtype)
     v[:, :, cache_index] = _split_heads(_linear(pa["v_proj"], h), H)[:, :, 0].to(v.dtype)
-    w = q.float() @ k.float().transpose(-1, -2) + self_bias
-    valid = torch.arange(k.shape[2], device=x.device) <= cache_index
-    w = w.masked_fill(~valid, NEG_INF)
-    probs = torch.softmax(w, dim=-1).to(x.dtype)
-    h = _linear(pa["out_proj"], _merge_heads(_head_scale(pa, probs @ v.to(x.dtype))))
+    out = _attend(q, k, v.to(x.dtype), self_bias, causal_offset=cache_index)
+    h = _linear(pa["out_proj"], _merge_heads(_head_scale(pa, out)))
     x = x + _post_ln(p, "self_attn_ln", h)
 
     # beam-shared cross attention: rows = Bs samples × Kb beams; a sample's
@@ -502,15 +750,11 @@ def _decoder_layer(p: Params, cfg: ModelConfig, x, self_bias, cross_bias, enc_pa
             q.contiguous(), ck, cv, cache["cross_k_scale"], cache["cross_v_scale"],
             cross_bias[:, :, 0], enc_pad)
     else:
-        w = q.float() @ ck.float().transpose(-1, -2)  # [Bs, H, Kb, S]
-        if int8_kv:  # the per-position scale factors out of the hd contraction
-            w = w * cache["cross_k_scale"][:, :, None, :]
-        w = w + cross_bias
-        w = w.masked_fill(enc_pad[:, None, None, :], float("-inf"))
-        probs = torch.nan_to_num(torch.softmax(w, dim=-1), nan=0.0)
-        if int8_kv:
-            probs = probs * cache["cross_v_scale"][:, :, None, :]
-        out = probs.to(x.dtype) @ cv.to(x.dtype)
+        # the int8 cache's per-position scales factor out of the hd contraction
+        scales = ((cache["cross_k_scale"][:, :, None, :], cache["cross_v_scale"][:, :, None, :])
+                  if int8_kv else (None, None))
+        out = _attend(q, ck, cv.to(x.dtype), cross_bias, enc_pad,
+                      k_scale=scales[0], v_scale=scales[1])  # [Bs, H, Kb, hd]
     h = _linear(pc["out_proj"], _head_scale(pc, out).transpose(1, 2).reshape(rows, 1, -1))
     x = x + _post_ln(p, "cross_attn_ln", h)
     return _ffn_block(p, cfg, x)
@@ -554,18 +798,18 @@ def quantize_output_proj(params: Params) -> Params:
 
 
 class DecoderState(NamedTuple):
-    # self_k/self_v [L, rows, H, Tmax, hd]; cross_k / cross_v [L, B, H, S, hd]:
-    # cross_k fp32 (widened once), or the compute dtype when kernel_pack is
-    # set (K7 reads it); both int8 after quantize_cross_kv, with
-    # cross_k_scale / cross_v_scale [L, B, H, S] fp32
+    # self_k/self_v [L, rows, H, P + Tmax, hd] (P decoder-prompt slots first);
+    # cross_k / cross_v [L, B, H, S, hd]: cross_k fp32 (widened once), or the
+    # compute dtype when kernel_pack is set (K7 reads it); both int8 after
+    # quantize_cross_kv, with cross_k_scale / cross_v_scale [L, B, H, S] fp32
     cache: Dict[str, torch.Tensor]
     enc_pad: torch.Tensor  # [B, S]
-    self_bias_full: torch.Tensor  # [rows, H, Tmax, Tmax] fp32 (abs pos)
+    self_bias_full: torch.Tensor  # [rows, H, Tmax, P + Tmax] fp32 (abs pos)
     cross_bias_full: torch.Tensor  # [B, H, Tmax, S] fp32
-    rel_full: torch.Tensor  # [L, 1, H, Tmax, Tmax] fp32 self rel bias
+    rel_full: torch.Tensor  # [L, 1 or rows, H, Tmax, P + Tmax] fp32 self rel bias
     tgt_pos_embed: torch.Tensor  # [rows, Tmax, d]
     # K7's weight pack (ops/decode_stack.py), built once per decode session
-    # when cfg.decode_stack_kernel is set
+    # when stack_kernel_allowed holds
     kernel_pack: Optional[Dict[str, torch.Tensor]] = None
 
 
@@ -584,13 +828,14 @@ def quantize_cross_kv(state: DecoderState) -> DecoderState:
 
 def stack_kernel_allowed(cfg: ModelConfig, params: Params) -> bool:
     """Does a decode session build K7's weight pack? As in the JAX model:
-    ``decode_stack_kernel`` set and no NormFormer option, since the fused
-    stack has no c_attn, post-LayerNorms or residual scale. The port also
-    refuses a tree that carries NormFormer leaves under a config that does
-    not say so (a training checkpoint evaluated under its preset)."""
+    ``decode_stack_kernel`` set, no decoder prompt and no NormFormer option,
+    since the fused stack has no prompt slots, c_attn, post-LayerNorms or
+    residual scale. The port also refuses a tree that carries NormFormer
+    leaves under a config that does not say so (a training checkpoint
+    evaluated under its preset)."""
     return cfg.decode_stack_kernel and not (
-        cfg.scale_attn or cfg.scale_fc or cfg.scale_heads or cfg.scale_resids
-        or any(normformer_flags(params).values()))
+        cfg.decoder_prompt or cfg.scale_attn or cfg.scale_fc or cfg.scale_heads
+        or cfg.scale_resids or any(normformer_flags(params).values()))
 
 
 def init_decoder_state(
@@ -598,17 +843,18 @@ def init_decoder_state(
     cfg: ModelConfig,
     encoder_out: EncoderOut,
     max_len: int,
-    code_masks: Optional[torch.Tensor] = None,
+    code_masks: Optional[torch.Tensor] = None,  # [rows] bool, a sample's beams alike
     beam_size: int = 1,
 ) -> DecoderState:
     """Everything reusable across decode steps; cross K/V once per sample.
 
     Pass the untiled encoder output: with ``beam_size`` > 1 the cross K/V,
     bias and padding are shared by a sample's beams inside ``decode_step``.
+    ``code_masks`` marks the rows that decode code tokens (image positions
+    and rel buckets). With ``decoder_prompt`` the self cache's first P slots
+    hold the prompt K/V, with zero position bias, and steps write after them.
     """
     check_supported(cfg)
-    if code_masks is not None:
-        raise NotImplementedError("musketeer_tpu_torch does not support code_masks")
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
     B, S, _ = encoder_out.x.shape
@@ -616,10 +862,19 @@ def init_decoder_state(
     H, hd, L = cfg.attention_heads, cfg.head_dim, cfg.decoder_layers
     device = encoder_out.x.device
 
+    sample_code_masks = None if code_masks is None else code_masks[::beam_size]
     tgt_pos_embed, self_bias, cross_bias = _decoder_pos_setup(
-        params, cfg, B, max_len, encoder_out.pos_embed, dtype
+        params, cfg, B, max_len, encoder_out.pos_embed, sample_code_masks, dtype
     )
     rel = _decoder_rel_bias(params, cfg, max_len)[:, None]
+    if code_masks is None:
+        self_bias = self_bias[:1].expand(rows, -1, -1, -1)
+        tgt_pos_embed = tgt_pos_embed[:1].expand(rows, -1, -1)
+    else:
+        self_bias = self_bias.repeat_interleave(beam_size, dim=0)
+        tgt_pos_embed = tgt_pos_embed.repeat_interleave(beam_size, dim=0)
+        rel_img = _decoder_rel_bias(params, cfg, max_len, image=True)[:, None]
+        rel = torch.where(code_masks.bool()[None, :, None, None, None], rel_img, rel)
 
     enc_x = encoder_out.x.to(dtype)
     cross_k = torch.stack([_split_heads(_linear(lp["encoder_attn"]["k_proj"], enc_x), H)
@@ -634,19 +889,24 @@ def init_decoder_state(
         # the per-layer cross scores are fp32 products of the compute-dtype
         # K: widen K once here, not once per step
         cross_k = cross_k.float()
-    cache = {
-        "self_k": torch.zeros((L, rows, H, max_len, hd), dtype=dtype, device=device),
-        "self_v": torch.zeros((L, rows, H, max_len, hd), dtype=dtype, device=device),
-        "cross_k": cross_k,
-        "cross_v": cross_v,
-    }
+    self_k = torch.zeros((L, rows, H, max_len, hd), dtype=dtype, device=device)
+    self_v = torch.zeros((L, rows, H, max_len, hd), dtype=dtype, device=device)
+    if cfg.decoder_prompt:
+        # prefix-tuning: the prompt K/V seed the first P slots; prompt keys
+        # carry no position bias (ref: attn_weights[:, :, -src_len:] += attn_bias)
+        P = cfg.decoder_prompt_length
+        pkv = _prompt_kv(dec["prompt_embedding"], L, H, hd, rows, dtype)
+        self_k = torch.cat([pkv[:, 0], self_k], dim=3)
+        self_v = torch.cat([pkv[:, 1], self_v], dim=3)
+        self_bias, rel = F.pad(self_bias, (P, 0)), F.pad(rel, (P, 0))
+    cache = {"self_k": self_k, "self_v": self_v, "cross_k": cross_k, "cross_v": cross_v}
     return DecoderState(
         cache=cache,
         enc_pad=encoder_out.padding_mask,
-        self_bias_full=self_bias[:1].expand(rows, -1, -1, -1),
+        self_bias_full=self_bias,
         cross_bias_full=cross_bias,
         rel_full=rel,
-        tgt_pos_embed=tgt_pos_embed[:1].expand(rows, -1, -1),
+        tgt_pos_embed=tgt_pos_embed,
         kernel_pack=kernel_pack,
     )
 
@@ -657,26 +917,27 @@ def decode_step(
     tokens: torch.Tensor,  # [rows] current input token
     step: int,  # current position
     state: DecoderState,
-    code_masks: Optional[torch.Tensor] = None,
+    code_masks: Optional[torch.Tensor] = None,  # [rows] bool
     features_only: bool = False,
 ):
     """One incremental decode step → (logits [rows, Vp] or features [rows, d], state).
 
-    The step's self K/V are written into ``state.cache`` in place. With a
-    weight pack, a cache that is not int8 and an even number of samples that
-    divides the rows (the JAX model's routing on the CPU backend, without its
-    TPU layout clauses), all L layers run through K7; else layer by layer.
+    The step's self K/V are written into ``state.cache`` in place, at
+    ``step`` after the cache's prompt slots. With a weight pack, a cache that
+    is not int8, no prompt slots and an even number of samples that divides
+    the rows (the JAX model's routing on the CPU backend, without its TPU
+    layout clauses), all L layers run through K7; else layer by layer.
     """
-    if code_masks is not None:
-        raise NotImplementedError("musketeer_tpu_torch does not support code_masks")
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
-    x = _decoder_embed(params, cfg, tokens[:, None], state.tgt_pos_embed[:, step:step + 1], dtype)
-    self_bias_t = state.self_bias_full[:, :, step:step + 1]  # [rows, H, 1, T]
+    x = _decoder_embed(params, cfg, tokens[:, None], state.tgt_pos_embed[:, step:step + 1], dtype,
+                       code_masks)
+    self_bias_t = state.self_bias_full[:, :, step:step + 1]  # [rows, H, 1, P + T]
     cross_bias_t = state.cross_bias_full[:, :, step:step + 1]  # [B, H, 1, S]
     cache = state.cache
+    prompt_len = cache["self_k"].shape[3] - state.tgt_pos_embed.shape[1]
     rows, Bs = tokens.shape[0], cache["cross_k"].shape[1]
-    if (state.kernel_pack is not None and "cross_k_scale" not in cache
+    if (state.kernel_pack is not None and "cross_k_scale" not in cache and prompt_len == 0
             and rows % Bs == 0 and Bs % 2 == 0):
         sbias = (self_bias_t[None, :, :, 0] + state.rel_full[:, :, :, step]).contiguous()
         cbias = cross_bias_t[:, :, 0].masked_fill(state.enc_pad[:, None, :], NEG_INF).contiguous()
@@ -692,7 +953,8 @@ def decode_step(
         for i, layer_p in enumerate(dec["layers"]):
             cache_i = {name: t[i] for name, t in cache.items()}
             bias_i = self_bias_t + state.rel_full[i, :, :, step:step + 1]
-            x = _decoder_layer(layer_p, cfg, x, bias_i, cross_bias_t, state.enc_pad, cache_i, step)
+            x = _decoder_layer(layer_p, cfg, x, bias_i, cross_bias_t, state.enc_pad, cache_i,
+                               step + prompt_len)
     x = _layer_norm(dec["layer_norm"], x)[:, 0]
     if features_only:
         return x, state

@@ -63,3 +63,16 @@ def encoder_image_position_ids(h: int, w: int, image_bucket_size: int) -> np.nda
         + 1
     )
     return idx.reshape(-1)
+
+
+def decoder_image_position_idx(code_image_size: int, image_bucket_size: int,
+                               max_target_positions: int = 1024) -> np.ndarray:
+    """Decoder target-side image position ids: [0] (bos), the window² grid ids,
+    then id 1024 out to 1026 entries (ref: unify_transformer.py:1211-1216)."""
+    window = code_image_size // 8
+    grid = (
+        np.arange(window, dtype=np.int64)[None, :].repeat(window, 0)
+        + np.arange(window, dtype=np.int64)[:, None] * image_bucket_size
+        + 1
+    )
+    return np.concatenate([[0], grid.reshape(-1), [1024] * 769]).astype(np.int32)

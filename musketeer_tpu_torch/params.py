@@ -9,11 +9,12 @@ or torch leaves, into the port's parameters:
 - stacked ``layers`` and the ResNet ``rest`` blocks become per-layer lists;
 - linear weights are transposed to ``[dout, din]`` for ``F.linear``;
 - convolutions become OIHW in ``channels_last`` memory;
-- every leaf lands in the dtype its consumer computes in, cast once here and
-  never per call: matmul and convolution weights, embeddings and the
-  encoder's rel-pos tables in the compute dtype; LayerNorm, BatchNorm, the
-  decoder's positional linears (its abs-pos and cross biases are fp32 in the
-  JAX model) and the decoder's rel-pos tables in fp32. The tied embedding is
+- every leaf lands in the dtype its consumer computes in: matmul and
+  convolution weights and the token-position embeddings in the compute
+  dtype; LayerNorm, BatchNorm, the positional linears, the image position
+  table and the rel-pos tables in fp32, since the JAX model's XLA attention
+  branch builds its biases in fp32 from them (its flash branch casts them to
+  the compute dtype where it uses them, as the port's does). The tied embedding is
   kept twice: the fp32 master for the token gathers and a compute-dtype copy
   ``embed_tokens_c`` for the output projection. A tree that went through
   ``quantize_output_proj`` also carries the int8 serving projection
@@ -23,6 +24,9 @@ attention, ``attn_ln`` or the decoder's ``self_attn_ln`` and
 ``cross_attn_ln``, ``ffn_layernorm``, ``w_resid``) come where the config
 turns them on: the LayerNorms in fp32, ``c_attn`` and ``w_resid`` in the
 compute dtype (the JAX model casts both to its activations' dtype).
+Where the config turns them on, each layer's bottleneck ``adapter``
+(``down_proj``, ``up_proj``) comes in the compute dtype, and the encoder's
+and decoder's prefix-tuning ``prompt_embedding [P, L·2·d]`` too.
 These casts are ``to_inference``'s, the one rule: ``from_jax`` builds the
 port's layout in fp32 and ends with it, and the converter and the CLI apply
 it to fp32 trees of their own (a training state's, a ``.pt``'s).
@@ -55,13 +59,8 @@ Params = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first model option the port lacks."""
     unsupported = {
-        "encoder_prompt": cfg.encoder_prompt,
-        "decoder_prompt": cfg.decoder_prompt,
-        "use_adapter": cfg.use_adapter,
         "seq_parallel": cfg.seq_parallel,
         "pipeline_microbatches": cfg.pipeline_microbatches > 0,
-        "interpolate_position": cfg.interpolate_position,
-        "use_flash_attention=False": not cfg.use_flash_attention,
         f"activation_fn={cfg.activation_fn!r}": cfg.activation_fn != "gelu",
     }
     for name, on in unsupported.items():
@@ -150,6 +149,11 @@ class _Init:
             p["ffn_layernorm"] = self.ln(f)
         if cfg.scale_resids:
             p["w_resid"] = self.ones((d,))
+        if cfg.use_adapter:
+            # bottleneck adapter, bert-style init std 0.02
+            a = cfg.adapter_dim
+            p["adapter"] = {"down_proj": {"w": self.normal((d, a), 0.02), "b": self.zeros((a,))},
+                            "up_proj": {"w": self.normal((a, d), 0.02), "b": self.zeros((d,))}}
         return p
 
     def dec_layer(self, cfg: ModelConfig) -> Params:
@@ -211,6 +215,11 @@ def init_ofa_params(cfg: ModelConfig, generator: torch.Generator, device) -> Par
     H, Le, Ld = cfg.attention_heads, cfg.encoder_layers, cfg.decoder_layers
     embed_tokens = ini.embed(V, d)
     embed_tokens[cfg.vocab_size:] = 0.0
+    # prefix-tuning tables [P, L·2·d] (the reference's PromptEncoder without projection)
+    enc_prompt = ({"prompt_embedding": ini.embed(cfg.encoder_prompt_length, Le * 2 * d)}
+                  if cfg.encoder_prompt else {})
+    dec_prompt = ({"prompt_embedding": ini.embed(cfg.decoder_prompt_length, Ld * 2 * d)}
+                  if cfg.decoder_prompt else {})
     return {
         "embed_tokens": embed_tokens,
         "encoder": {
@@ -227,6 +236,7 @@ def init_ofa_params(cfg: ModelConfig, generator: torch.Generator, device) -> Par
             "resnet": ini.resnet(cfg.resnet_layers),
             "layers": _stack([ini.enc_layer(cfg) for _ in range(Le)]),
             "layer_norm": ini.ln(d),
+            **enc_prompt,
             "token_rel_pos_table": ini.zeros((Le, cfg.token_num_rel_dis, H)),
             "image_rel_pos_table": ini.zeros((Le, cfg.image_num_rel_dis, H)),
         },
@@ -243,6 +253,7 @@ def init_ofa_params(cfg: ModelConfig, generator: torch.Generator, device) -> Par
             "cross_pos_k_linear": ini.linear(d, d),
             "layers": _stack([ini.dec_layer(cfg) for _ in range(Ld)]),
             "layer_norm": ini.ln(d),
+            **dec_prompt,
             "token_rel_pos_table": ini.zeros((Ld, cfg.token_num_rel_dis, H)),
             "image_rel_pos_table": ini.zeros((Ld, cfg.image_num_rel_dis, H)),
         },
@@ -372,6 +383,9 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
             parts[name] = s_ln(f"{path}/{name}", n)
         if cfg.scale_resids:
             parts["w_resid"] = stacked(f"{path}/w_resid", n)
+        if cfg.use_adapter:
+            down, up = s_lin(f"{path}/adapter/down_proj", n), s_lin(f"{path}/adapter/up_proj", n)
+            parts["adapter"] = [{"down_proj": a, "up_proj": b} for a, b in zip(down, up)]
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
     conv = functools.partial(_conv, dtype=torch.float32)
@@ -432,6 +446,9 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
             "image_rel_pos_table": take("decoder/image_rel_pos_table"),
         },
     }
+    for side, on in (("encoder", cfg.encoder_prompt), ("decoder", cfg.decoder_prompt)):
+        if on:
+            out[side]["prompt_embedding"] = take(f"{side}/prompt_embedding")
     if "embed_tokens_q8" in lv.leaves:  # a tree that went through quantize_output_proj
         out["embed_tokens_q8"] = take("embed_tokens_q8", torch.int8)
         out["embed_tokens_scale"] = take("embed_tokens_scale")
@@ -449,18 +466,19 @@ def map_leaves(fn, tree):
 
 
 _FP32_KEYS = {"scale", "bias", "mean", "var", "embed_tokens", "embed_tokens_scale",
-              "self_pos_q_linear", "self_pos_k_linear", "cross_pos_q_linear",
-              "cross_pos_k_linear"}
+              "pos_q_linear", "pos_k_linear", "self_pos_q_linear", "self_pos_k_linear",
+              "cross_pos_q_linear", "cross_pos_k_linear", "token_rel_pos_table",
+              "image_rel_pos_table", "embed_image_positions"}
 
 
 def to_inference(params: Params, dtype: torch.dtype) -> Params:
     """An fp32 tree in the port's layout (``from_jax``'s before its casts,
     ``trainable``'s, a checkpoint's or the converter's) → the inference tree:
     each leaf detached and cast to the dtype its consumer computes in
-    (LayerNorm and BatchNorm leaves, the master embedding, the decoder's
-    positional linears and rel-pos tables in fp32; the rest in ``dtype``,
-    convolutions channels_last), plus ``embed_tokens_c`` below fp32. The int8
-    serving projection stays int8."""
+    (LayerNorm and BatchNorm leaves, the master embedding, the positional
+    linears, the image position table and the rel-pos tables in fp32; the
+    rest in ``dtype``, convolutions channels_last), plus ``embed_tokens_c``
+    below fp32. The int8 serving projection stays int8."""
     def cast(t: torch.Tensor, fp32: bool) -> torch.Tensor:
         t = t.detach()
         if t.dtype == torch.int8:
@@ -468,17 +486,15 @@ def to_inference(params: Params, dtype: torch.dtype) -> Params:
         t = t.to(torch.float32 if fp32 else dtype)
         return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
 
-    def walk(node, fp32: bool, decoder: bool):
+    def walk(node, fp32: bool):
         if isinstance(node, dict):
-            return {k: walk(v, fp32 or k in _FP32_KEYS
-                            or (decoder and k in ("token_rel_pos_table", "image_rel_pos_table")),
-                            decoder or k == "decoder")
+            return {k: walk(v, fp32 or k in _FP32_KEYS)
                     for k, v in node.items() if k != "embed_tokens_c"}
         if isinstance(node, list):
-            return [walk(v, fp32, decoder) for v in node]
+            return [walk(v, fp32) for v in node]
         return cast(node, fp32)
 
-    out = walk(params, False, False)
+    out = walk(params, False)
     if dtype != torch.float32:
         out["embed_tokens_c"] = out["embed_tokens"].to(dtype)
     return out

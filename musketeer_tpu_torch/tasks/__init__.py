@@ -1,13 +1,17 @@
 from .base import Task, batch_to_taskbatch, iter_batches
+from .detection import DetectionTask
 from .musketeer import MusketeerDataLoader, SubTaskSpec
 from .tasks import (
     TASK_REGISTRY, AllCandTask, CaptionTask, GigawordTask, GlueTask,
     ImageClassifyTask, RefcocoTask, SnliVeTask, VqaTask,
 )
 
+# detection registers here, as in the JAX package
+TASK_REGISTRY["detection"] = DetectionTask
+
 __all__ = [
     "Task", "batch_to_taskbatch", "iter_batches", "MusketeerDataLoader", "SubTaskSpec",
     "TASK_REGISTRY", "AllCandTask",
-    "CaptionTask", "GigawordTask", "GlueTask", "ImageClassifyTask", "RefcocoTask",
-    "SnliVeTask", "VqaTask",
+    "CaptionTask", "DetectionTask", "GigawordTask", "GlueTask", "ImageClassifyTask",
+    "RefcocoTask", "SnliVeTask", "VqaTask",
 ]

@@ -12,7 +12,10 @@ data/mm_data/musketeer_data.py:184-319, tasks/mm_tasks/musketeer_task.py:
   accumulation axis; the train step consumes the dict of ``TaskBatch``es;
 - with ``compress_transport`` images travel as uint8 with their [2, 3]
   dequantization affine, constraint masks bit-packed
-  (``train_step.dequantize_batch`` expands them on the device).
+  (``train_step.dequantize_batch`` expands them on the device);
+- a spec's ``sample_patch_num`` (the reference's 196 for the head task) gives
+  its batches a ``sample_patch_order``, each sample's patches drawn from the
+  epoch's ``RandomState`` as the JAX loader draws them.
 
 The batches are CPU tensors; the prefetch thread (``training/prefetch.py``)
 or the train loop copies them to the device.
@@ -38,12 +41,6 @@ from .tasks import TASK_REGISTRY, Task
 # ROADMAP queue 1 item that holds each
 UNPORTED_TASKS = {
     "image_gen": "SCST and image generation",
-    "detection": "the remaining tasks",
-    "text_infilling": "the remaining tasks",
-    "image_text_pair": "the remaining tasks",
-    "image_text_matching": "the remaining tasks",
-    "pure_image": "the remaining tasks",
-    "visual_grounding": "the remaining tasks",
 }
 
 
@@ -90,10 +87,6 @@ class MusketeerDataLoader:
                 raise NotImplementedError(
                     f"musketeer_tpu_torch does not port the {spec.name!r} task "
                     f"(ROADMAP queue 1: {UNPORTED_TASKS[spec.name]})")
-            if spec.sample_patch_num:
-                raise NotImplementedError(
-                    "musketeer_tpu_torch does not support sample_patch_num: it needs "
-                    "sample_patch_order (ROADMAP queue 1: the non-flash attention branch)")
             task = TASK_REGISTRY[spec.name](vocab, description=description, **spec.task_kwargs)
             self.tasks[spec.name] = task
             builder = task.builder("train")
@@ -172,6 +165,14 @@ class MusketeerDataLoader:
                                 tgt_len=spec.tgt_len)
                     if self.compress_transport:
                         b = _compress_batch(b, self.builders[spec.name])
+                    if spec.sample_patch_num and "patch_images" in b:
+                        # each sample's patches, drawn from the epoch's stream
+                        # as the JAX loader draws them
+                        n = (b["patch_images"].shape[1] // 16) ** 2
+                        k = min(spec.sample_patch_num, n)
+                        b["sample_patch_order"] = np.stack(
+                            [rng.permutation(n)[:k] for _ in range(spec.batch_size)]
+                        ).astype(np.int32)
                     step_batches[spec.name].append(b)
             yield {
                 name: _stack_micro([batch_to_taskbatch(b, "cpu") for b in micro_list])

@@ -443,6 +443,22 @@ class GigawordTask(Task):
         return {k: float(np.mean(vs)) if vs else 0.0 for k, vs in agg.items()}
 
 
+def _pretrain_entries():
+    # detection registers in tasks/__init__.py, as in the JAX package
+    from .pretrain import (
+        ImageTextMatchingTask, ImageTextPairTask, PureImageTask, TextInfillingTask,
+        VisualGroundingTask,
+    )
+
+    return {
+        "text_infilling": TextInfillingTask,
+        "image_text_pair": ImageTextPairTask,
+        "image_text_matching": ImageTextMatchingTask,
+        "pure_image": PureImageTask,
+        "visual_grounding": VisualGroundingTask,
+    }
+
+
 TASK_REGISTRY = {
     "caption": CaptionTask,
     "refcoco": RefcocoTask,
@@ -458,3 +474,4 @@ TASK_REGISTRY = {
     "rte": lambda *a, **kw: GlueTask("rte", *a, **kw),
     "mnli": lambda *a, **kw: GlueTask("mnli", *a, **kw),
 }
+TASK_REGISTRY.update(_pretrain_entries())

@@ -10,6 +10,10 @@ packings keep the step's forwards few, with per-task losses exact:
   has run) agree share one transformer forward; the criterion then runs per
   task on its rows.
 
+A batch with ``sample_patch_order`` runs its encoder on the XLA branch and
+one with ``code_masks`` sets ``code_masks_all`` (the JAX step's gates), and
+``generator`` draws every dropout mask, attention dropout's too.
+
 ``make_train_step`` returns ``step(state, batches, generator)``: gradients
 summed over the leading accumulation axis A and divided by A, the global
 norm, and the optimizer update, skipped (params, optimizer state and step
@@ -104,6 +108,10 @@ def task_loss(params, model_cfg: ModelConfig, crit_cfg: CriterionConfig, batch: 
         patch_images=batch.patch_images, patch_masks=batch.patch_masks,
         code_masks=batch.code_masks, sample_patch_order=batch.sample_patch_order,
         generator=generator, deterministic=not train, resnet_feats=batch.resnet_feats,
+        # task batches are homogeneous: a batch with code masks (image
+        # generation, pure image) has every row a code target, which keeps
+        # the decoder on the flash branch, as in the JAX step
+        code_masks_all=batch.code_masks is not None,
     )
     return label_smoothed_ce(logits, batch.target, constraint_masks=batch.constraint_masks,
                              conf=batch.conf,
@@ -111,8 +119,10 @@ def task_loss(params, model_cfg: ModelConfig, crit_cfg: CriterionConfig, batch: 
 
 
 def _pack_key(batch: TaskBatch):
-    """Grouping key of the packed forward, or None if the batch does not pack:
-    token shapes, constraint masks or not, and the stem's feature shape."""
+    """Grouping key of the packed forward, or None if the batch does not pack
+    (raw images, code targets and patch subsampling keep their own forwards,
+    as in the JAX step): token shapes, constraint masks or not, and the
+    stem's feature shape."""
     if (batch.patch_images is not None or batch.code_masks is not None
             or batch.sample_patch_order is not None):
         return None

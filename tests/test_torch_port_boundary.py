@@ -19,7 +19,7 @@ from musketeer_tpu_torch import config
 from musketeer_tpu_torch.generation import beam_search
 from musketeer_tpu_torch.generation.beam_search import use_fast_path
 from musketeer_tpu_torch.models import ofa, positions
-from musketeer_tpu_torch.params import from_jax, init_ofa_params
+from musketeer_tpu_torch.params import check_supported, from_jax, init_ofa_params
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -69,7 +69,9 @@ def test_port_imports_no_jax():
             "musketeer_tpu_torch.data.augment", "musketeer_tpu_torch.tasks.musketeer",
             "musketeer_tpu_torch.training.checkpoint", "musketeer_tpu_torch.training.trainer",
             "musketeer_tpu_torch.training.prefetch",
-            "musketeer_tpu_torch.training.metrics"} <= set(modules)
+            "musketeer_tpu_torch.training.metrics", "musketeer_tpu_torch.data.detection",
+            "musketeer_tpu_torch.data.pretrain", "musketeer_tpu_torch.tasks.detection",
+            "musketeer_tpu_torch.tasks.pretrain"} <= set(modules)
 
 
 @pytest.mark.parametrize("name", ["dict.txt", "encoder.json", "vocab.bpe"])
@@ -116,6 +118,8 @@ def test_mesh_axis_sizes_match_jax():
     ("make_token_bucket_position", (256, 17)),
     ("make_image_bucket_position", (42, (2 * 42 - 1) ** 2 + 3)),
     ("encoder_image_position_ids", (30, 30, 42)),
+    ("decoder_image_position_idx", (128, 42, 1024)),
+    ("decoder_image_position_idx", (256, 42)),
 ])
 def test_position_tables_match_jax(fn, args):
     np.testing.assert_array_equal(getattr(positions, fn)(*args), getattr(jax_positions, fn)(*args))
@@ -164,14 +168,22 @@ def test_from_jax_consumes_every_leaf_once():
 
 
 @pytest.mark.parametrize("option", [
-    dict(encoder_prompt=True), dict(seq_parallel=True), dict(pipeline_microbatches=2),
-    dict(interpolate_position=True), dict(use_adapter=True), dict(use_flash_attention=False),
-    dict(decoder_prompt=True),
+    dict(seq_parallel=True), dict(pipeline_microbatches=2), dict(activation_fn="relu"),
 ])
 def test_unported_model_options_raise(option):
     cfg = dataclasses.replace(_tiny_cfgs()[1], **option)
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         ofa.encode({}, cfg, torch.zeros((1, 4), dtype=torch.long))
+
+
+@pytest.mark.parametrize("option", [
+    dict(encoder_prompt=True), dict(decoder_prompt=True), dict(interpolate_position=True),
+    dict(use_adapter=True), dict(use_flash_attention=False),
+])
+def test_ported_model_options_pass_the_check(option):
+    """The options the XLA branch carries are no longer refused (the
+    parity tests in ``test_torch_port_xla_branch.py`` hold them to JAX)."""
+    check_supported(dataclasses.replace(_tiny_cfgs()[1], **option))
 
 
 SEARCH_OPTIONS = [

@@ -7,8 +7,8 @@ The fairseq ``.pt`` is the interchange format between the packages: the JAX
 ``export_state_dict`` of the tree, converted by the port, equals ``from_jax``
 of the tree bit for bit (in fp32 and in bf16); the port's
 ``export_state_dict``, converted by JAX's ``convert_state_dict``, equals the
-tree bit for bit; ``infer_config`` agrees (the port sets
-``use_flash_attention``); the files go both ways; the port's round trip is
+tree bit for bit; ``infer_config`` agrees, ``use_flash_attention`` too; the
+files go both ways; the port's round trip is
 the identity. The heads match JAX's to 1e-5 of max|ref|.
 """
 
@@ -89,20 +89,20 @@ def test_jax_converts_the_port_export_bit_for_bit(tree):
 def test_infer_config_matches_jax(tree, prefix):
     sd = jconv.export_state_dict(tree["np"], tree["cfg_j"])
     ref = jconv.infer_config(sd)
-    assert dataclasses.asdict(infer_config(sd)) == _cfg_dict(ref, use_flash_attention=True)
+    assert dataclasses.asdict(infer_config(sd)) == dataclasses.asdict(ref)
     assert ref.scale_attn and ref.scale_heads
     # a module. prefix converts as JAX converts it
     params, cfg = convert_state_dict({prefix + k: v for k, v in sd.items()}, device="cpu")
     assert_trees_equal(params, from_jax(tree["np"], tree["cfg_t"], "cpu", torch.float32))
-    assert dataclasses.asdict(cfg) == _cfg_dict(ref, use_flash_attention=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
 
 
 def test_pt_files_both_ways(tree, tmp_path):
     jax_export_pt(tree["np"], tree["cfg_j"], str(tmp_path / "from_jax.pt"))
     params, cfg = import_pt(str(tmp_path / "from_jax.pt"), device="cpu")
     assert_trees_equal(params, from_jax(tree["np"], tree["cfg_t"], "cpu", torch.float32))
-    assert dataclasses.asdict(cfg) == _cfg_dict(jax_import_pt(str(tmp_path / "from_jax.pt"))[1],
-                                                use_flash_attention=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jax_import_pt(str(tmp_path / "from_jax.pt"))[1])
     export_pt(params, cfg, str(tmp_path / "from_port.pt"))
     back, _ = jax_import_pt(str(tmp_path / "from_port.pt"))
     assert_trees_equal(back, tree["np"])
@@ -117,7 +117,8 @@ def test_port_round_trip_is_the_identity(tree, dtype):
     back, cfg = convert_state_dict(export_state_dict(params, tree["cfg_t"]), device="cpu",
                                    dtype=dtype)
     assert_trees_equal(back, params)
-    assert dataclasses.asdict(cfg) == _cfg_dict(tree["cfg_t"], dtype="bfloat16")
+    assert dataclasses.asdict(cfg) == _cfg_dict(tree["cfg_t"], dtype="bfloat16",
+                                                use_flash_attention=False)
 
 
 def _rel_err(a, ref):

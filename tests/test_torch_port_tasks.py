@@ -221,10 +221,11 @@ def test_task_rows_match_jax(setup, evaluated, case):
 
 
 def test_task_registry_matches_jax():
-    ported = set(ttasks.TASK_REGISTRY)
-    pretrain = {"text_infilling", "image_text_pair", "image_text_matching", "pure_image",
-                "visual_grounding", "image_gen", "detection"}
-    assert ported == set(jtasks.TASK_REGISTRY) - pretrain
+    """Every JAX task but ``image_gen`` (SCST and image generation wait)."""
+    from musketeer_tpu_torch.tasks.musketeer import UNPORTED_TASKS
+
+    assert set(UNPORTED_TASKS) == {"image_gen"}
+    assert set(ttasks.TASK_REGISTRY) == set(jtasks.TASK_REGISTRY) - {"image_gen"}
 
 
 def test_allcand_scores_match_jax(setup):

@@ -440,7 +440,10 @@ def test_training_forward_with_dropout_is_seeded(pair):
     assert torch.equal(a, a2)
     assert not torch.equal(a, c) and not torch.equal(a, det)
     assert torch.equal(det, run(None))  # no generator: no dropout
-    with pytest.raises(NotImplementedError, match="attention_dropout"):
-        ofa.forward(params, dataclasses.replace(cfg, attention_dropout=0.1),
-                    b["src_tokens"].long(), b["prev_output_tokens"].long(), deterministic=False)
+    # attention dropout takes the XLA branch (the JAX gate), seeded as well
+    cfg = dataclasses.replace(cfg, attention_dropout=0.1)
+    calls = ofa.xla_attention.calls
+    x1, x2 = run(0), run(0)
+    assert torch.equal(x1, x2) and not torch.equal(x1, a)
+    assert ofa.xla_attention.calls - calls == 2 * (cfg.encoder_layers + 2 * cfg.decoder_layers)
 
