@@ -10,6 +10,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --eval-only    # phases 1, 2 and 18
     python3 chip_smoke.py --entry-only   # phases 1, 2 and 19
     python3 chip_smoke.py --xla-only     # phases 1, 2 and 20
+    python3 chip_smoke.py --scst-only    # phases 1, 2 and 21
 
 ``--train-only``, ``--decode-only`` and ``--k8-only`` also run against an
 older tree's package when this file is copied into that tree's root, so that
@@ -204,12 +205,31 @@ Phases; any failure raises and the script exits non-zero:
     ``train_bn``: the loss in range and finite gradients, the counters JAX's
     gates predict, each K3 and K4 shape held as in (b); then the fp32
     caption search with a decoder prompt through the kernels and their plain
-    versions: equal tokens, K7 not launched.
+    versions: equal tokens, K7 not launched;
+21. SCST, CLIP-SCST and image generation at ``ofa_base`` (bf16, 6 + 6
+    layers), with a seeded full-width CLIP ViT-B/16 and VQGAN (8192 codes,
+    ch 128, ch_mult (1, 1, 2, 2, 4)) that the phase writes as upstream
+    ``.pt`` files: (a) ``cli train --criterion scst`` on 6 seeded 480² caption
+    rows (references ``a&&b``), batch 2, 5 sampled captions of up to 16
+    tokens, 3 updates, saved at the epoch's end, with the raw mean CIDEr-D
+    printed; (b) ``cli train --criterion clip_scst`` on seeded image_gen rows,
+    2 updates (8 × 8 codes: the preset's code_image_size 128 // 16); (c) ``cli
+    vqgan-encode`` over 256² PNGs and ``decode_code`` of its codes; (d)
+    ``ImageGenTask.evaluate`` (beam 5, 256 codes) with CLIP and VQGAN, 2
+    batches of 2; (e) ``cli train`` on caption + image_gen (1024 codes + eos,
+    ``--tgt-bucket 1025``), 2 updates, each task's loss in (0, 2 ln V]; (f)
+    the fp32 ``gen_code`` search (64 codes) through the kernels and their
+    plain versions: equal codes. The counters of each part must equal the
+    JAX gates' prediction (K1 once per encoder layer of each encode without
+    autograd; K3 and K4 once per encoder layer and twice per decoder layer of
+    each policy-gradient or training forward; nothing else), and each K1,
+    K3 and K4 shape reached is held to its plain version and the fp32
+    function, as in phases 7 and 18; each part's seconds and peak memory.
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
-stage chain, each eval task, each CLI run of phase 19, each part of phase
-20) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+stage chain, each eval task, each CLI run of phase 19, each part of phases
+20 and 21) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
 the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
 Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
@@ -225,7 +245,8 @@ last line
 K1's and K2's entries also carry ``eval_launches``: their launches in each
 eval task of phase 18; K1's, K2's, K3's and K4's ``entry_launches``: theirs
 in each CLI run of phase 19, and ``xla_phase_launches``: theirs in each part
-of phase 20.
+of phase 20; K1's, K3's and K4's ``scst_phase_launches``: theirs in each part
+of phase 21.
 """
 
 from __future__ import annotations
@@ -3061,6 +3082,320 @@ def phase_xla(tree, smi: str, tmp: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: SCST, CLIP-SCST and image generation
+# ---------------------------------------------------------------------------
+
+SCST_ROWS, SCST_UPDATES, SCST_BEAMS, SCST_MAX_LEN = 6, 3, 5, 16  # 3 updates at batch 2: one epoch
+CLIP_SCST_UPDATES = 2
+GEN_ROWS, GEN_BATCH = 4, 2  # ImageGenTask.evaluate: 2 batches of 2
+VQGAN_IMAGES, VQGAN_SIZE = 4, 256
+JOINT_GEN_CODES, JOINT_GEN_UPDATES = 1024, 2  # bench.py's image_gen target: 1024 codes + eos
+GEN_EXACT_CODE_IMAGE = 128  # the fp32 gen_code check: an 8 x 8 code grid
+
+
+def _gen_rows(n: int, codes: int, rng) -> list:
+    """Seeded image_gen TSV rows: id, a caption, ``codes`` VQGAN code ids."""
+    return [[str(i), _SENTENCES[rng.randint(len(_SENTENCES))],
+             " ".join(str(c) for c in rng.randint(0, 8192, codes))] for i in range(n)]
+
+
+def _write_tsv(path: str, rows: list) -> str:
+    with open(path, "w") as f:
+        f.writelines("\t".join(r) + "\n" for r in rows)
+    return path
+
+
+def _recording_scst_fns(scst_module, losses: list):
+    """``make_scst_fns`` whose policy-gradient step records each update's loss."""
+    make = scst_module.make_scst_fns
+
+    def patched(*a, **kw):
+        sample_fn, grad_fn = make(*a, **kw)
+
+        def recorded(*args):
+            state, m = grad_fn(*args)
+            losses.append(float(m["scst_loss"]))
+            return state, m
+        return sample_fn, recorded
+    return patched
+
+
+def _scst_part(tag: str, smi: str, seen: set, run, want_fn) -> dict:
+    """Run ``run()`` with every counter at 0 and the model's encode, decode and
+    forward counted, K1's and K3/K4's first call at each shape recorded: the
+    counters must equal ``want_fn(counts)``; then each new K1, K3 and K4 shape
+    is held to its plain version and the fp32 function. A K4 call whose
+    output gradient is below 1e-3 (the seeded model's advantages are ~0, so
+    the policy gradient nearly vanishes) is also held so with a seeded
+    unit-scale one. → the counters, the run's output, the call counts and
+    seconds."""
+    import gc
+
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+
+    k1_calls, k2_calls, k3_calls, k4_calls = {}, {}, {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with mock.patch.object(ofa, "encode", wraps=ofa.encode) as enc, \
+            mock.patch.object(ofa, "decode", wraps=ofa.decode) as dec, \
+            mock.patch.object(ofa, "forward", wraps=ofa.forward) as fwd, \
+            mock.patch.object(kb, "FlashAttentionTrainable", _recording_attention(k3_calls, k4_calls)), \
+            _recording_k1_k2(k1_calls, k2_calls):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    got = _counters()
+    counts = dict(encode=enc.call_count, decode=dec.call_count, forward=fwd.call_count)
+    want = dict.fromkeys(got, 0)
+    want.update(want_fn(counts))
+    log(f"[scst {tag}] launches {{K1: {got['K1']}, K3: {got['K3']}, K4: {got['K4']}}} over "
+        f"{counts}; {secs:.2f} s, peak {_peak_gb():.2f} GB on {smi}")
+    if got != want:
+        raise AssertionError(f"scst {tag}: launches {got}, expected {want} ({counts})")
+    new_k1 = {k: v for k, v in k1_calls.items() if ("K1", k) not in seen}
+    _check_eval_calls(f"scst {tag}", k1_calls, k2_calls, seen)
+    new_k34 = [k for k in k3_calls if ("K3", k) not in seen]
+    for k in new_k34:
+        seen.add(("K3", k))
+        _check_k3(f"scst {tag} {k}", *k3_calls[k])
+    for k in [k for k in k4_calls if ("K4", k) not in seen]:
+        seen.add(("K4", k))
+        args, kw = k4_calls[k]
+        _check_k4(f"scst {tag} {k}", args, kw)
+        do = args[9]
+        if float(do.float().abs().max()) < 1e-3:
+            g = torch.Generator(device=do.device).manual_seed(SEED + 35)
+            unit = torch.randn(do.shape, generator=g, device=do.device).to(do.dtype)
+            _check_k4(f"scst {tag} {k}, seeded unit do (the update's max |do| "
+                      f"{float(do.float().abs().max()):.1e})", [*args[:9], unit, *args[10:]], kw)
+    log(f"[scst {tag}] {len(new_k1)} new K1 and {len(new_k34)} new K3/K4 shapes held to their "
+        f"plain versions and the fp32 function: {sorted(new_k1) + new_k34}")
+    return dict(out=out, launches=got, counts=counts, secs=secs)
+
+
+def phase_scst(tree, smi: str, tmp: str) -> dict:
+    """Phase 21: SCST, CLIP-SCST and image generation at ``ofa_base`` through the
+    port's entry points, with seeded full-width CLIP ViT-B/16 and VQGAN
+    (written as upstream ``.pt`` files): (a) ``cli train --criterion scst``,
+    (b) ``cli train --criterion clip_scst``, (c) ``cli vqgan-encode`` and
+    ``decode_code`` of its codes, (d) ``ImageGenTask.evaluate``, (e) ``cli
+    train`` on caption + image_gen, (f) the fp32 ``gen_code`` search through
+    the kernels and their plain versions. → each part's counters."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from musketeer_tpu_torch import cli
+    from musketeer_tpu_torch.config import ofa_base
+    from musketeer_tpu_torch.criterions import scst as scst_module
+    from musketeer_tpu_torch.data import FileDataset
+    from musketeer_tpu_torch.models import clip, ofa, vqgan
+    from musketeer_tpu_torch.params import from_jax
+    from musketeer_tpu_torch.tasks import image_gen as image_gen_module
+    from musketeer_tpu_torch.tokenization import default_vocab
+    from musketeer_tpu_torch.training import checkpoint as ckpt_module
+    from musketeer_tpu_torch.training import trainer as trainer_module
+    from musketeer_tpu_torch.utils.cider import CiderD
+
+    cfg = dataclasses.replace(ofa_base(), use_flash_attention=True)
+    Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+    vocab = default_vocab()
+    rng = np.random.RandomState(SEED + 31)
+    seeded = mock.patch.object(cli, "_seeded_params",
+                               lambda cfg, seed, device, dtype: from_jax(tree, cfg, device, dtype))
+    common = ["--arch", "ofa_base", "--device", "cuda", "--batch-size", "2", "--warmup-updates", "1"]
+    launches, seen = {}, set()
+
+    # (a) SCST with the CIDEr-D reward on seeded 480² caption rows
+    cap = _write_tsv(os.path.join(tmp, "scst_caption.tsv"), _eval_rows("caption", SCST_ROWS, IMAGE, rng))
+    losses, cider, compute = [], [], scst_module.compute_rewards
+
+    def recording_rewards(hyps, refs, scorer=None):
+        gts = {f"{b}_{k}": refs[b] for b in range(len(hyps)) for k in range(len(hyps[b]))}
+        res = {f"{b}_{k}": h for b, hs in enumerate(hyps) for k, h in enumerate(hs)}
+        cider.append(float(CiderD().compute_score(gts, res)[0]))
+        return compute(hyps, refs, scorer)
+
+    saves, save = [], ckpt_module.save_checkpoint
+    save_dir = os.path.join(tmp, "scst_run")
+
+    def run_scst():
+        with seeded, mock.patch.object(scst_module, "compute_rewards", recording_rewards), \
+                mock.patch.object(scst_module, "make_scst_fns", _recording_scst_fns(scst_module, losses)), \
+                mock.patch.object(ckpt_module, "save_checkpoint", _timed(save, saves)):
+            return cli.main(["train", "--criterion", "scst", "--tasks", f"caption={cap}", *common,
+                             "--patch-image-size", str(IMAGE), "--scst-sample-beams", str(SCST_BEAMS),
+                             "--scst-max-len-b", str(SCST_MAX_LEN), "--max-update", str(SCST_UPDATES),
+                             "--save-dir", save_dir])
+
+    r = _scst_part("a: cli train --criterion scst", smi, seen, run_scst, lambda c: dict(
+        K1=Le * SCST_UPDATES, K3=Le * SCST_UPDATES + 2 * Ld * c["decode"],
+        K4=Le * SCST_UPDATES + 2 * Ld * c["decode"]))
+    names = sorted(os.path.basename(p) for p in glob.glob(os.path.join(save_dir, "checkpoint*"))
+                   if not p.endswith(".json"))
+    if (r["out"].step != SCST_UPDATES or r["counts"]["encode"] != 2 * SCST_UPDATES
+            or r["counts"]["decode"] != SCST_UPDATES or len(losses) != SCST_UPDATES
+            or not all(math.isfinite(x) for x in losses)
+            or names != ["checkpoint1", "checkpoint_best", "checkpoint_last"]):
+        raise AssertionError(f"scst: step {r['out'].step}, {r['counts']}, losses {losses}, "
+                             f"checkpoints {names}")
+    log(f"[scst a] ofa_base bf16, batch 2 x {SCST_BEAMS} sampled captions of up to "
+        f"{SCST_MAX_LEN} tokens: losses {losses}, raw mean CIDEr-D by update {cider} (the loop's "
+        f"mean_reward is the mean advantage, 0 by construction); {SCST_UPDATES / r['secs']:.3f} "
+        f"updates/s with {len(saves)} saves ({', '.join(f'{s:.2f}' for s in saves)} s: {names})")
+    launches["scst"] = r["launches"]
+    del r
+
+    # (b) CLIP-SCST: seeded full-width CLIP ViT-B/16 and VQGAN, upstream layouts
+    t0 = time.perf_counter()
+    clip_pt, vq_pt = os.path.join(tmp, "clip_vit_b16.pt"), os.path.join(tmp, "vqgan.ckpt")
+    torch.save(clip.init_clip_state_dict(clip.ClipConfig(), torch.Generator().manual_seed(SEED + 32)),
+               clip_pt)
+    torch.save({"state_dict": vqgan.init_vqgan_state_dict(
+        vqgan.VQGANConfig(), torch.Generator().manual_seed(SEED + 33))}, vq_pt)
+    log(f"[scst b] seeded CLIP ViT-B/16 ({os.path.getsize(clip_pt) / 1e6:.0f} MB) and VQGAN "
+        f"({os.path.getsize(vq_pt) / 1e6:.0f} MB) written in {time.perf_counter() - t0:.1f} s")
+    gen = _write_tsv(os.path.join(tmp, "clip_scst.tsv"), _gen_rows(4, 64, rng))
+    losses, sims, similarity = [], [], image_gen_module.clip_similarity
+
+    def recording_similarity(*a, **kw):
+        s = similarity(*a, **kw)
+        sims.append(float(s.mean()))
+        return s
+
+    def run_clip_scst():
+        with seeded, mock.patch.object(image_gen_module, "clip_similarity", recording_similarity), \
+                mock.patch.object(scst_module, "make_scst_fns", _recording_scst_fns(scst_module, losses)):
+            return cli.main(["train", "--criterion", "clip_scst", "--tasks", f"image_gen={gen}",
+                             *common, "--scst-sample-beams", str(SCST_BEAMS),
+                             "--max-update", str(CLIP_SCST_UPDATES), "--clip-pt", clip_pt,
+                             "--vqgan-pt", vq_pt])
+
+    r = _scst_part("b: cli train --criterion clip_scst", smi, seen, run_clip_scst, lambda c: dict(
+        K1=Le * CLIP_SCST_UPDATES, K3=Le * CLIP_SCST_UPDATES + 2 * Ld * c["decode"],
+        K4=Le * CLIP_SCST_UPDATES + 2 * Ld * c["decode"]))
+    if (r["out"].step != CLIP_SCST_UPDATES or r["counts"]["encode"] != 2 * CLIP_SCST_UPDATES
+            or r["counts"]["decode"] != CLIP_SCST_UPDATES or len(losses) != CLIP_SCST_UPDATES
+            or not all(math.isfinite(x) for x in losses + sims)):
+        raise AssertionError(f"clip_scst: step {r['out'].step}, {r['counts']}, losses {losses}, "
+                             f"similarities {sims}")
+    log(f"[scst b] batch 2 x {SCST_BEAMS} sampled 8 x 8 code grids (the preset's code_image_size "
+        f"128 // 16), VQGAN-decoded to 128², CLIP ViT-B/16 at 224²: losses {losses}, raw mean CLIP "
+        f"similarity by update {sims}; {CLIP_SCST_UPDATES / r['secs']:.3f} updates/s")
+    launches["clip_scst"] = r["launches"]
+    del r
+
+    # (c) cli vqgan-encode over 256² PNGs, then decode_code of its codes
+    imgs = _write_tsv(os.path.join(tmp, "vq_images.tsv"),
+                      _eval_rows("caption", VQGAN_IMAGES, VQGAN_SIZE, rng))
+    codes_path = os.path.join(tmp, "vq_codes.tsv")
+    vq_params, vq_cfg = vqgan.convert_vqgan_state_dict(ckpt_module.load_state_dict(vq_pt),
+                                                       device="cuda")
+
+    def run_encode():
+        n = cli.main(["vqgan-encode", "--vqgan", vq_pt, "--data", imgs, "--out", codes_path,
+                      "--image-size", str(VQGAN_SIZE), "--batch-size", "2", "--device", "cuda"])
+        with open(codes_path) as f:
+            codes = [[int(c) for c in line.rstrip("\n").split("\t")[2].split()] for line in f]
+        codes = torch.tensor(codes, device="cuda").view(n, 16, 16)
+        with torch.inference_mode():
+            return codes, vqgan.decode_code(vq_params, vq_cfg, codes)
+
+    r = _scst_part("c: cli vqgan-encode + decode_code", smi, seen, run_encode, lambda c: {})
+    codes, decoded = r["out"]
+    if (tuple(decoded.shape) != (VQGAN_IMAGES, VQGAN_SIZE, VQGAN_SIZE, 3)
+            or not bool(torch.isfinite(decoded).all())
+            or bool(((codes < 0) | (codes >= vq_cfg.codebook_size)).any())):
+        raise AssertionError(f"vqgan-encode: codes {tuple(codes.shape)}, images {tuple(decoded.shape)}")
+    log(f"[scst c] {VQGAN_IMAGES} images of {VQGAN_SIZE}² → 16 x 16 codes ({len(codes.unique())} "
+        f"distinct) → decoded {tuple(decoded.shape)} in [{float(decoded.min()):.3f}, "
+        f"{float(decoded.max()):.3f}]")
+    launches["vqgan-encode"] = r["launches"]
+    del r, codes, decoded
+
+    # (d) ImageGenTask.evaluate with CLIP and VQGAN: beam 5, 256 codes
+    params = from_jax(tree, cfg, "cuda", torch.bfloat16)
+    clip_params, clip_cfg = clip.convert_clip_state_dict(ckpt_module.load_state_dict(clip_pt),
+                                                         device="cuda")
+    task = image_gen_module.ImageGenTask(vocab, clip_params=clip_params, clip_cfg=clip_cfg,
+                                         vqgan_params=vq_params, vqgan_cfg=vq_cfg)
+    gen_eval = _write_tsv(os.path.join(tmp, "image_gen_eval.tsv"), _gen_rows(GEN_ROWS, 256, rng))
+    dumps = os.path.join(tmp, "image_gen_dumps")
+    r = _scst_part("d: ImageGenTask.evaluate", smi, seen, lambda: task.evaluate(
+        params, cfg, FileDataset(gen_eval), batch_size=GEN_BATCH, dump_dir=dumps),
+        lambda c: dict(K1=Le * c["encode"]))
+    out = r["out"]
+    if (r["counts"]["encode"] != GEN_ROWS // GEN_BATCH or out["n"] != GEN_ROWS
+            or not math.isfinite(out["ti_sim"]) or len(os.listdir(dumps)) != GEN_ROWS):
+        raise AssertionError(f"image_gen evaluate: {out}, {r['counts']}")
+    log(f"[scst d] {json.dumps(out)}: {GEN_ROWS} rows at batch {GEN_BATCH}, beam 5, 256 codes "
+        f"each (the task's code_image_size 256 // 16), {GEN_ROWS / r['secs']:.3f} rows/s")
+    launches["image_gen eval"] = r["launches"]
+    del r, params, task, clip_params
+
+    # (e) the joint loader on caption + image_gen (1024 codes + eos, bench.py's target)
+    joint = _write_tsv(os.path.join(tmp, "joint_image_gen.tsv"), _gen_rows(4, JOINT_GEN_CODES, rng))
+    losses = []
+
+    def run_joint():
+        with seeded, mock.patch.object(trainer_module, "make_train_step",
+                                       _recording_steps(trainer_module, losses)):
+            # the targets at bench.py's 1025 tokens: the loader's default bucket
+            # (a multiple of 8, 1032) passes the decoder's 1026 image positions,
+            # in the JAX package too
+            return cli.main(["train", "--tasks", f"caption={cap},image_gen={joint}", *common,
+                             "--patch-image-size", str(IMAGE), "--tgt-bucket",
+                             str(JOINT_GEN_CODES + 1), "--max-update", str(JOINT_GEN_UPDATES)])
+
+    r = _scst_part("e: cli train caption + image_gen", smi, seen, run_joint, lambda c: dict(
+        K3=(Le + 2 * Ld) * c["forward"], K4=(Le + 2 * Ld) * c["forward"]))
+    if r["out"].step != JOINT_GEN_UPDATES or r["counts"]["forward"] != 2 * JOINT_GEN_UPDATES:
+        raise AssertionError(f"joint image_gen: step {r['out'].step}, {r['counts']}")
+    _check_task_losses("joint image_gen", losses, ("caption", "image_gen"), JOINT_GEN_UPDATES,
+                       cfg.vocab_size)
+    log(f"[scst e] losses by update {[{k: round(v, 4) for k, v in m.items()} for m in losses]}; "
+        f"{JOINT_GEN_UPDATES / r['secs']:.3f} updates/s")
+    launches["joint image_gen"] = r["launches"]
+    del r
+
+    # (f) the fp32 gen_code search through the kernels and their plain versions
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+
+    attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = from_jax(tree, cfg32, "cuda", torch.float32)
+    task = image_gen_module.ImageGenTask(vocab, description="base",
+                                         code_image_size=GEN_EXACT_CODE_IMAGE)
+    from musketeer_tpu_torch.data import collate
+
+    b = task.builder("valid")
+    rows = _gen_rows(2, 64, np.random.RandomState(SEED + 34))
+    src = torch.from_numpy(collate([b(row) for row in rows], pad_id=vocab.pad)["src_tokens"])
+    src = src.to("cuda").long()
+    r = _scst_part("f: fp32 gen_code, kernels", smi, seen,
+                   lambda: task.generate_codes(params, cfg32, src), lambda c: dict(K1=Le))
+    codes_k, scores_k = r["out"]
+    with mock.patch.object(attn_module, "flash_attention_inference", k1.flash_attention_plain):
+        codes_p, scores_p = task.generate_codes(params, cfg32, src)
+    gap, lim = _max_err(scores_k, scores_p), FP32_TOL * max(1.0, float(scores_p.abs().max()))
+    log(f"[scst f] fp32 batch 2, beam 5, 64 codes: kernel codes equal to plain's: "
+        f"{torch.equal(codes_k, codes_p)}, max score diff {gap:.3e} (tol {lim:.3e}); distinct "
+        f"codes in each row's best {[len(c.unique()) for c in codes_k[:, 0]]}, rows differ: "
+        f"{not torch.equal(codes_k[0, 0], codes_k[1, 0])}")
+    if not torch.equal(codes_k, codes_p) or not gap <= lim:
+        raise AssertionError("fp32 gen_code: the kernels' codes or scores differ from the plain "
+                             f"versions' (score gap {gap:.3e}, tol {lim:.3e})")
+    launches["gen_code fp32"] = r["launches"]
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3082,6 +3417,10 @@ def main(argv=None) -> int:
     only.add_argument("--xla-only", action="store_true",
                       help="after phases 1-2, run only phase 20 (the XLA attention branch, "
                            "the joint recipe with detection and pure_image, the options), "
+                           "and print no result line")
+    only.add_argument("--scst-only", action="store_true",
+                      help="after phases 1-2, run only phase 21 (SCST, CLIP-SCST, vqgan-encode, "
+                           "image_gen's evaluate and joint training, the fp32 gen_code search), "
                            "and print no result line")
     only.add_argument("--entry-only", action="store_true",
                       help="after phases 1-2, run only phase 19 (the CLI's convert, train "
@@ -3109,6 +3448,12 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_xla(tree, smi, tmp)
         log(f"[done] XLA-branch phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.scst_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_scst(tree, smi, tmp)
+        log(f"[done] SCST and image-generation phase passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.k8_only:
         phase_k8(torch.Generator(device="cuda").manual_seed(SEED), tree, smi, routes)
@@ -3149,6 +3494,10 @@ def main(argv=None) -> int:
         entry_launches = phase_entry(smi, tmp, train_p50_ms)
     with tempfile.TemporaryDirectory() as tmp:
         xla_launches = phase_xla(tree, smi, tmp)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scst_launches = phase_scst(tree, smi, tmp)
+    log(f"[scst] phase 21 done in {time.perf_counter() - t0:.1f} s on {smi}")
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -3176,6 +3525,8 @@ def main(argv=None) -> int:
         if k in ("K1", "K2", "K3", "K4"):  # the CLI's launches (phase 19), phase 20's
             entry["entry_launches"] = {run: n[k] for run, n in entry_launches.items()}
             entry["xla_phase_launches"] = {part: n[k] for part, n in xla_launches.items()}
+        if k in ("K1", "K3", "K4"):  # phase 21's, part by part
+            entry["scst_phase_launches"] = {part: n[k] for part, n in scst_launches.items()}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,28 @@
 """Command-line entry points of the port: train / evaluate / evaluate-all /
-convert (port of ``musketeer_tpu/cli.py``, with its flags and defaults).
+convert / vqgan-encode (port of ``musketeer_tpu/cli.py``, with its flags and
+defaults).
 
 Usage:
   python -m musketeer_tpu_torch.cli train --tasks caption=path.tsv,vqa_gen=path2.tsv \\
       --arch ofa_base --description tep --save-dir ckpts [...]
+  python -m musketeer_tpu_torch.cli train --criterion scst --tasks caption=refs.tsv [...]
+  python -m musketeer_tpu_torch.cli train --criterion clip_scst --tasks image_gen=codes.tsv \\
+      --clip-pt clip.pt --vqgan-pt vqgan.ckpt [...]
   python -m musketeer_tpu_torch.cli evaluate --task caption --data path.tsv \\
       --ckpt ckpts/checkpoint_best [--pt reference.pt]
   python -m musketeer_tpu_torch.cli convert --pt ofa_base.pt --out ckpts/converted
+  python -m musketeer_tpu_torch.cli vqgan-encode --vqgan vqgan.ckpt --data images.tsv \\
+      --out codes.tsv
 
 Every command runs on ``--device`` (default ``cuda``, which must exist: the
 port never falls back to the CPU unasked; ``--device cpu`` runs the kernels'
 plain versions). The model config follows the JAX CLI's: ``evaluate`` and
 ``evaluate-all`` keep the preset's (or the ``.pt``'s) ``use_flash_attention``,
 False, so they run the XLA attention branch as the JAX package's do; ``train``
-sets it from ``--no-flash``. The paths the port lacks raise
-``NotImplementedError`` and name the ROADMAP queue 1 item that holds them.
+sets it from ``--no-flash``. ``train --criterion scst|clip_scst`` runs the
+reward fine-tuning loop (``training/scst_loop.py``). The parallelism options,
+which the port lacks, raise ``NotImplementedError`` and name the ROADMAP
+queue 1 item that holds them.
 """
 
 from __future__ import annotations
@@ -80,16 +88,11 @@ def _task_kwargs(name: str, patch_image_size: int) -> dict:
 
 def _make_task(name: str, vocab, description: str, kw: dict):
     from .tasks import TASK_REGISTRY
-    from .tasks.musketeer import UNPORTED_TASKS
 
-    if name in UNPORTED_TASKS:
-        raise _unported(f"the {name!r} task", UNPORTED_TASKS[name])
     return TASK_REGISTRY[name](vocab, description=description, **kw)
 
 
 def _refuse_unported_train_options(args) -> None:
-    if args.criterion in ("scst", "clip_scst"):
-        raise _unported(f"--criterion {args.criterion}", "SCST and image generation")
     for flag, value in (("--fsdp", args.fsdp), ("--model-parallel", args.model_parallel),
                         ("--pipeline", args.pipeline), ("--seq-parallel", args.seq_parallel)):
         if value > 1:
@@ -110,6 +113,12 @@ def cmd_train(args):
     from .training import init_train_state, train_loop
     from .training.checkpoint import import_pt
 
+    if args.criterion in ("scst", "clip_scst"):
+        # reward fine-tuning (ref: criterions/scst_loss.py, clip_scst_loss.py;
+        # BASELINE configs[4]); it warns on the flags it ignores, as the JAX CLI's
+        from .training.scst_loop import run_scst_cli
+
+        return run_scst_cli(args, _device(args.device))
     _refuse_unported_train_options(args)
     device = _device(args.device)
     vocab = default_vocab()
@@ -358,7 +367,45 @@ def cmd_convert(args):
 
 
 def cmd_vqgan_encode(args):
-    raise _unported("vqgan-encode", "SCST and image generation")
+    """Images → VQGAN code TSV rows (id, image, codes): the data preparation the
+    reference assumes was done offline (its pure_image / image_gen TSVs carry
+    code strings, ref: data/mm_data/image_gen_dataset.py)."""
+    import numpy as np
+    import torch
+
+    from .data import FileDataset
+    from .data.transforms import decode_base64_image
+    from .models.vqgan import convert_vqgan_state_dict, encode_codes
+    from .training.checkpoint import load_state_dict
+
+    device = _device(args.device)
+    params, vcfg = convert_vqgan_state_dict(load_state_dict(args.vqgan), gumbel=args.gumbel,
+                                            device=device)
+    if "encoder" not in params:
+        raise ValueError("checkpoint has no encoder weights")
+    ds = FileDataset(args.data)
+    S = args.image_size
+    n_written = 0
+    try:
+        with open(args.out, "w") as out, torch.inference_mode():
+            for start in range(0, len(ds), args.batch_size):
+                rows = ds.get_batch(list(range(start, min(start + args.batch_size, len(ds)))))
+                imgs = np.stack([
+                    np.asarray(decode_base64_image(r[1]).resize((S, S)), np.float32) / 127.5 - 1.0
+                    for r in rows
+                ])
+                ids = encode_codes(params, vcfg, torch.from_numpy(imgs).to(device)).cpu().numpy()
+                for r, row_ids in zip(rows, ids):
+                    out.write(f"{r[0]}\t{r[1]}\t{' '.join(str(int(c)) for c in row_ids.reshape(-1))}\n")
+                    n_written += 1
+    finally:
+        ds.close()
+    if n_written > 0:
+        logger.info("wrote %d code rows (%dx%d grid) to %s", n_written, ids.shape[1],
+                    ids.shape[2], args.out)
+    else:
+        logger.info("wrote 0 code rows to %s (empty input)", args.out)
+    return n_written
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -394,13 +441,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="enable encouraging loss with this log_end")
     pt.add_argument("--criterion", default="label_smoothed",
                     choices=["label_smoothed", "scst", "clip_scst"],
-                    help="label_smoothed: multi-task CE (default); scst and clip_scst "
-                         "are not ported")
-    pt.add_argument("--scst-sample-beams", type=int, default=5)
-    pt.add_argument("--scst-max-len-b", type=int, default=16)
-    pt.add_argument("--clip-pt", default=None)
-    pt.add_argument("--vqgan-pt", default=None)
-    pt.add_argument("--gumbel", action="store_true")
+                    help="label_smoothed: multi-task CE (default); scst: CIDEr-reward "
+                         "policy gradient on caption data; clip_scst: CLIP-reward policy "
+                         "gradient on image_gen data")
+    pt.add_argument("--scst-sample-beams", type=int, default=5,
+                    help="sampled chains per example for SCST rewards")
+    pt.add_argument("--scst-max-len-b", type=int, default=16,
+                    help="max sampled caption length (scst)")
+    pt.add_argument("--clip-pt", default=None, help="CLIP .pt checkpoint (clip_scst reward model)")
+    pt.add_argument("--vqgan-pt", default=None,
+                    help="VQGAN .pt/.ckpt checkpoint (clip_scst decoder)")
+    pt.add_argument("--gumbel", action="store_true", help="--vqgan-pt is a GumbelVQ checkpoint")
     pt.add_argument("--use-rdrop", action="store_true")
     pt.add_argument("--freeze-encoder-embedding", action="store_true",
                     help="freeze the (shared) token embedding")
@@ -470,12 +521,14 @@ def build_parser() -> argparse.ArgumentParser:
     pa.set_defaults(fn=cmd_evaluate_all)
 
     pv = sub.add_parser("vqgan-encode")
-    pv.add_argument("--vqgan", required=True)
+    pv.add_argument("--vqgan", required=True, help="taming VQGAN .pt/.ckpt")
     pv.add_argument("--gumbel", action="store_true")
-    pv.add_argument("--data", required=True)
-    pv.add_argument("--out", required=True)
+    pv.add_argument("--data", required=True, help="TSV: id \\t image_b64 [...]")
+    pv.add_argument("--out", required=True, help="output TSV: id, image, codes")
     pv.add_argument("--image-size", type=int, default=256)
     pv.add_argument("--batch-size", type=int, default=16)
+    pv.add_argument("--device", default="cuda",
+                    help="torch device to encode on (default cuda, which must be present)")
     pv.set_defaults(fn=cmd_vqgan_encode)
 
     pc = sub.add_parser("convert")

@@ -6,13 +6,13 @@ from .pretrain import (
 )
 from .task_data import (
     CaptionBuilder, Example, GigawordBuilder, GlueBuilder, ImageClassifyBuilder,
-    RefcocoBuilder, SnliVeBuilder, VqaBuilder, collate, parse_ref_dict, pre_caption,
+    ImageGenBuilder, RefcocoBuilder, SnliVeBuilder, VqaBuilder, collate, parse_ref_dict, pre_caption,
     pre_question,
 )
 
 __all__ = [
     "DetectionBuilder", "ImageTextMatchingBuilder", "ImageTextPairBuilder", "PureImageBuilder",
     "TextInfillingBuilder", "VisualGroundingBuilder", "FileDataset", "CaptionBuilder", "Example", "GigawordBuilder", "GlueBuilder",
-    "ImageClassifyBuilder", "RefcocoBuilder", "SnliVeBuilder", "VqaBuilder", "collate",
+    "ImageClassifyBuilder", "ImageGenBuilder", "RefcocoBuilder", "SnliVeBuilder", "VqaBuilder", "collate",
     "parse_ref_dict", "pre_caption", "pre_question",
 ]

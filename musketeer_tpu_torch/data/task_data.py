@@ -10,6 +10,7 @@ does. Row formats (TSV columns):
   snli_ve:        uniq_id, image(b64), hypothesis, caption, label (snli_ve_dataset.py:150)
   image_classify: uniq_id, image(b64), label-name         (image_classify_dataset.py)
   gigaword:       source, target                           (summary_dataset.py:130-160)
+  image_gen:      uniq_id, caption, codes                  (image_gen_dataset.py:120-185)
   glue (cola…):   task-specific text columns + label
 """
 
@@ -397,6 +398,30 @@ class GigawordBuilder(BuilderBase):
         return Example(
             id=row[0][:32], src_ids=src, target_ids=target, prev_ids=prev,
             extras={"target_text": target_text},
+        )
+
+
+class ImageGenBuilder(BuilderBase):
+    """ref: data/mm_data/image_gen_dataset.py:120-185. Row: uniq_id, caption,
+    VQGAN code ids; the target is the codes shifted into the ``<code_k>``
+    band, and ``code_mask`` puts the decoder on image positions.
+    ``code_image_size`` is accepted and unused, as in the JAX builder."""
+
+    task = "image_gen"
+
+    def __init__(self, *a, code_image_size: int = 256, **kw):
+        super().__init__(*a, **kw)
+
+    def __call__(self, row: Sequence[str]) -> Example:
+        uniq_id, text, code = row[0], row[1], row[2]
+        caption = pre_caption(text, self.max_src_length)
+        src = self.wrap_src(self.enc(self.prompt().format(caption)))
+        codes = np.asarray([int(c) for c in code.strip().split()], np.int64)
+        tgt = (codes + self.vocab.code_start).astype(np.int32)  # (ref :137-140)
+        target, prev = self.seq2seq_targets(tgt)
+        return Example(
+            id=uniq_id, src_ids=src, target_ids=target, prev_ids=prev,
+            code_mask=True, extras={"caption": caption},
         )
 
 

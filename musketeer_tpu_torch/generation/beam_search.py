@@ -32,8 +32,11 @@ Sampling draws from a ``torch.Generator`` (Gumbel-max, as
 
 ``int8_cross_kv`` quantizes the cross K/V cache right after
 ``init_decoder_state`` (``ofa.quantize_cross_kv``), as the JAX search does.
-``gen_code`` raises ``NotImplementedError``: the decoder's ``code_masks`` are
-not ported.
+``code_masks_value`` marks every row as a code target (the decoder's image
+positions and rel buckets, in ``init_decoder_state`` and each
+``decode_step``); ``gen_code`` takes the general body and bans the special
+tokens below 4 until the last step (eos only there), with the code band from
+``constraint_range``.
 """
 
 from __future__ import annotations
@@ -203,9 +206,6 @@ def beam_search(
     sampling chains) returns its best alive prefix terminated with eos, with
     its deeply negative score.
     """
-    if code_masks_value or gen_cfg.gen_code:
-        raise NotImplementedError(
-            "musketeer_tpu_torch beam_search does not support gen_code (the decoder's code_masks)")
     models = list(params) if n_models > 1 else [params]
     encs = list(encoder_out) if n_models > 1 else [encoder_out]
     if len(models) != n_models or len(encs) != n_models:
@@ -234,9 +234,12 @@ def beam_search(
         cons_total = (cons_t != pad).sum(dim=1)
         Cc = cons_t.shape[1]
 
+    # gen_code: every row decodes code tokens (image positions and rel buckets)
+    code_masks = torch.ones((N,), dtype=torch.bool, device=device) if code_masks_value else None
     decs = []
     for p, e in zip(models, encs):
-        dec = ofa.init_decoder_state(p, cfg, e, max_len=max_len + 1, beam_size=K)
+        dec = ofa.init_decoder_state(p, cfg, e, max_len=max_len + 1, code_masks=code_masks,
+                                     beam_size=K)
         decs.append(ofa.quantize_cross_kv(dec) if gen_cfg.int8_cross_kv else dec)
 
     fast = use_fast_path(gen_cfg, cfg, trie, prefix_tokens, constraints, allowed_fn, n_models)
@@ -319,7 +322,8 @@ def beam_search(
     def body_fast(s: BeamState) -> BeamState:
         step = s.step
         cur = s.alive_tokens[:, :, step].reshape(N)
-        feats, _ = ofa.decode_step(params, cfg, cur, step, s.decs[0], features_only=True)
+        feats, _ = ofa.decode_step(params, cfg, cur, step, s.decs[0], code_masks=code_masks,
+                                   features_only=True)
         h = feats.to(proj_dtype)
         if gen_cfg.temperature != 1.0:
             h = h / gen_cfg.temperature  # projection is linear with no bias
@@ -366,11 +370,11 @@ def beam_search(
         """The step's logits [N, Vp] (fp32 when tempered); for an ensemble the
         models' log-probs averaged in probability space."""
         if n_models == 1:
-            logits, _ = ofa.decode_step(models[0], cfg, cur, step, dec_list[0])
+            logits, _ = ofa.decode_step(models[0], cfg, cur, step, dec_list[0], code_masks)
             if gen_cfg.temperature != 1.0:
                 logits = logits.float() / gen_cfg.temperature
             return logits
-        logits_m = torch.stack([ofa.decode_step(p, cfg, cur, step, d)[0]
+        logits_m = torch.stack([ofa.decode_step(p, cfg, cur, step, d, code_masks)[0]
                                 for p, d in zip(models, dec_list)]).float()
         if gen_cfg.temperature != 1.0:
             logits_m = logits_m / gen_cfg.temperature
@@ -450,9 +454,10 @@ def beam_search(
         lprobs = torch.where((iota_v == pad)[None, :], NEG_INF, lprobs)
         if gen_cfg.unk_penalty:
             lprobs = lprobs - torch.where((iota_v == unk)[None, :], gen_cfg.unk_penalty, 0.0)
+        if (gen_cfg.gen_code or gen_cfg.gen_box) and step < max_len:
+            # ban specials while generating (ref :389-390)
+            lprobs = torch.where((iota_v < 4)[None, :], NEG_INF, lprobs)
         if gen_cfg.gen_box:
-            if step < max_len:  # ban specials while generating (ref :389-390)
-                lprobs = torch.where((iota_v < 4)[None, :], NEG_INF, lprobs)
             # 4 bins then eos, repeating (ref :391-397)
             lprobs = torch.where((iota_v == Vp - 1)[None, :], NEG_INF, lprobs)
             cs = (gen_cfg.constraint_range[0] if gen_cfg.constraint_range

@@ -456,6 +456,49 @@ def from_jax(params_np: Params, cfg: ModelConfig, device, dtype: torch.dtype) ->
     return to_inference(out, dtype)
 
 
+def clip_vqgan_from_jax(tree, device) -> Params:
+    """A JAX CLIP or VQGAN tree (``models/clip.py`` / ``models/vqgan.py``'s
+    converters' output; numpy or torch leaves) → the port's layout of the same
+    model, in fp32 on ``device``: HWIO convolutions become OIHW
+    (channels_last), ``{"w" [in, out], "b"}`` linears ``[out, in]``, the
+    stacked transformer ``blocks`` a list of per-layer trees, and ``None``
+    entries (a VQGAN level without attention or resampling) absent keys."""
+    def leaf(a) -> torch.Tensor:
+        t = torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+        return t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) \
+            if t.dim() == 4 else t
+
+    def walk(node, key: str = ""):
+        if isinstance(node, dict):
+            if key == "blocks":  # stacked on a leading layer axis
+                n = len(np.asarray(next(iter(_leaf_values(node)))))
+                node = [_index_tree(node, i) for i in range(n)]
+                return [walk(v) for v in node]
+            out = {k: walk(v, k) for k, v in node.items() if v is not None}
+            if set(out) == {"w", "b"} and out["w"].dim() == 2:
+                out["w"] = out["w"].t().contiguous()
+            return out
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return leaf(node)
+
+    return walk(tree)
+
+
+def _leaf_values(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaf_values(v)
+    else:
+        yield tree
+
+
+def _index_tree(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
 def map_leaves(fn, tree):
     """``tree`` with ``fn`` applied to every tensor leaf (dicts and lists kept)."""
     if isinstance(tree, dict):

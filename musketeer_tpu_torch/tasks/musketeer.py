@@ -37,13 +37,6 @@ from ..training.train_step import TaskBatch
 from .base import batch_to_taskbatch
 from .tasks import TASK_REGISTRY, Task
 
-# tasks of the JAX package's registry that the port has not ported, with the
-# ROADMAP queue 1 item that holds each
-UNPORTED_TASKS = {
-    "image_gen": "SCST and image generation",
-}
-
-
 @dataclass
 class SubTaskSpec:
     name: str
@@ -83,10 +76,6 @@ class MusketeerDataLoader:
         self.datasets: Dict[str, FileDataset] = {}
         self.epoch_paths: Dict[str, List[str]] = {}
         for spec in self.specs:
-            if spec.name in UNPORTED_TASKS:
-                raise NotImplementedError(
-                    f"musketeer_tpu_torch does not port the {spec.name!r} task "
-                    f"(ROADMAP queue 1: {UNPORTED_TASKS[spec.name]})")
             task = TASK_REGISTRY[spec.name](vocab, description=description, **spec.task_kwargs)
             self.tasks[spec.name] = task
             builder = task.builder("train")

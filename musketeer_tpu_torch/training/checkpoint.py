@@ -281,3 +281,10 @@ def import_pt(path: str, model_cfg=None, *, device, dtype: torch.dtype = torch.f
     from ..convert import load_checkpoint as _load
 
     return _load(path, model_cfg, device=device, dtype=dtype)
+
+
+def load_state_dict(path: str):
+    """A torch ``.pt`` / ``.ckpt`` (a CLIP or VQGAN checkpoint) → its state
+    dict on the CPU (a Lightning checkpoint's ``state_dict``)."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    return sd.get("state_dict", sd) if isinstance(sd, dict) else sd

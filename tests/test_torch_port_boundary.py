@@ -3,6 +3,7 @@ host code equal to the JAX package's, and refusal of unported options."""
 
 import dataclasses
 import hashlib
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +47,8 @@ def test_port_imports_no_jax():
         f"for m in {modules + ['chip_smoke']!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
         "from musketeer_tpu_torch.tokenization import default_vocab\n"
         "assert default_vocab().encode_text(' a dog on a ½ beach²').tolist()\n"
+        "from musketeer_tpu_torch.tasks.clip_tokenizer import tokenize\n"
+        "assert tokenize(['a dog on a ½ beach²'])[0, 0] == 49406\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and (\n"
         "       m == 'jax' or m.startswith('jax.') or m == 'regex'\n"
         "       or m == 'musketeer_tpu' or m.startswith('musketeer_tpu.'))]\n"
@@ -71,7 +74,11 @@ def test_port_imports_no_jax():
             "musketeer_tpu_torch.training.prefetch",
             "musketeer_tpu_torch.training.metrics", "musketeer_tpu_torch.data.detection",
             "musketeer_tpu_torch.data.pretrain", "musketeer_tpu_torch.tasks.detection",
-            "musketeer_tpu_torch.tasks.pretrain"} <= set(modules)
+            "musketeer_tpu_torch.tasks.pretrain", "musketeer_tpu_torch.models.clip",
+            "musketeer_tpu_torch.models.vqgan", "musketeer_tpu_torch.tasks.clip_tokenizer",
+            "musketeer_tpu_torch.tasks.image_gen", "musketeer_tpu_torch.criterions.scst",
+            "musketeer_tpu_torch.criterions.clip_scst",
+            "musketeer_tpu_torch.training.scst_loop"} <= set(modules)
 
 
 @pytest.mark.parametrize("name", ["dict.txt", "encoder.json", "vocab.bpe"])
@@ -79,6 +86,13 @@ def test_bpe_assets_are_copies(name):
     """The port's BPE assets are byte for byte the JAX package's."""
     ours = (REPO / "musketeer_tpu_torch" / "assets" / "bpe" / name).read_bytes()
     theirs = (REPO / "musketeer_tpu" / "assets" / "bpe" / name).read_bytes()
+    assert hashlib.sha256(ours).hexdigest() == hashlib.sha256(theirs).hexdigest()
+
+
+def test_clip_bpe_asset_is_a_copy():
+    """The port's CLIP vocabulary is byte for byte the JAX package's."""
+    ours = (REPO / "musketeer_tpu_torch" / "assets" / "clip_bpe_vocab.txt.gz").read_bytes()
+    theirs = (REPO / "musketeer_tpu" / "assets" / "clip_bpe_vocab.txt.gz").read_bytes()
     assert hashlib.sha256(ours).hexdigest() == hashlib.sha256(theirs).hexdigest()
 
 
@@ -95,6 +109,16 @@ def test_config_fields_match_jax(cls):
     ours = {f.name: _default(f) for f in dataclasses.fields(getattr(config, cls))}
     theirs = {f.name: _default(f) for f in dataclasses.fields(getattr(jax_config, cls))}
     assert ours == theirs
+
+
+@pytest.mark.parametrize("module,cls", [("clip", "ClipConfig"), ("vqgan", "VQGANConfig")])
+def test_clip_vqgan_configs_match_jax(module, cls):
+    """The restated CLIP and VQGAN configs: field by field, default by default."""
+    ours = getattr(importlib.import_module(f"musketeer_tpu_torch.models.{module}"), cls)
+    theirs = getattr(importlib.import_module(f"musketeer_tpu.models.{module}"), cls)
+    assert [(f.name, _default(f)) for f in dataclasses.fields(ours)] == [
+        (f.name, _default(f)) for f in dataclasses.fields(theirs)]
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
 
 
 @pytest.mark.parametrize("preset", ["ofa_tiny", "ofa_medium", "ofa_base", "ofa_large",
@@ -204,15 +228,34 @@ def test_search_options_route_to_general_body(gen, kw):
     assert use_fast_path(config.GenerationConfig(), cfg)
 
 
-@pytest.mark.parametrize("gen,kw", SEARCH_OPTIONS)
-def test_unported_search_options_raise(gen, kw):
-    """``gen_code``, the one search option still unported (the decoder's code
-    masks), raises before the search starts, whatever it is combined with."""
+@pytest.fixture(scope="module")
+def tiny_params():
     cfg = _tiny_cfgs()[1]
-    enc = ofa.EncoderOut(torch.zeros(1, 3, cfg.embed_dim), torch.zeros(1, 3, dtype=torch.bool),
-                         torch.zeros(1, 3, cfg.embed_dim))
-    gen_cfg = config.GenerationConfig(**gen, gen_code=True)
+    return from_jax(init_ofa_params(cfg, torch.Generator().manual_seed(0), "cpu"), cfg, "cpu",
+                    torch.float32)
+
+
+@pytest.mark.parametrize("gen,kw", SEARCH_OPTIONS)
+def test_unported_search_options_raise(tiny_params, gen, kw):
+    """``gen_code`` used to raise whatever it was combined with (the decoder's
+    code masks were not ported); it now runs with each option on code masks
+    and keeps the specials out until the last step: every row's tokens are
+    ids 4 and up, then eos. (``test_torch_port_image_gen.py`` holds its beam
+    and sampling searches to JAX's.)"""
+    cfg = _tiny_cfgs()[1]
+    rs = np.random.RandomState(0)
+    enc = ofa.EncoderOut(torch.from_numpy(rs.randn(1, 3, cfg.embed_dim).astype(np.float32)),
+                         torch.zeros(1, 3, dtype=torch.bool),
+                         torch.from_numpy(rs.randn(1, 3, cfg.embed_dim).astype(np.float32)))
+    gen_cfg = config.GenerationConfig(**{"beam_size": 4, **gen}, gen_code=True, min_len=4)
+    kw = dict(kw, prefix_tokens=torch.full((1, 2), 700)) if "prefix_tokens" in kw else kw
     n = kw.get("n_models", 1)
-    with pytest.raises(NotImplementedError, match="gen_code"):
-        beam_search([{}] * n if n > 1 else {}, cfg, gen_cfg, [enc] * n if n > 1 else enc,
-                    max_len=4, **kw)
+    toks, scores = beam_search([tiny_params] * n if n > 1 else tiny_params, cfg, gen_cfg,
+                               [enc] * n if n > 1 else enc, max_len=4, code_masks_value=True,
+                               rng=torch.Generator().manual_seed(0), **kw)
+    assert tuple(toks.shape) == (1, 4, 5) and bool(torch.isfinite(scores).all())
+    assert bool((toks[:, :, :4] >= 4).all()) and bool((toks[:, :, 4] == cfg.eos).all())
+    if "constraint_range" in gen:
+        assert bool((toks[:, :, :4] < 10).all())
+    if "prefix_tokens" in kw:
+        assert bool((toks[:, :, :2] == 700).all())

@@ -115,13 +115,21 @@ def test_loader_batches_match_jax(tsvs):
     assert ("patch_norm", "torch.float32") in seen
 
 
-def test_unported_loader_options_raise(tsvs):
-    """``image_gen`` is the one task still refused; ``sample_patch_num`` is
-    accepted (``test_torch_port_pretrain.py`` holds its orders to JAX's)."""
-    with pytest.raises(NotImplementedError, match="image generation"):
-        MusketeerDataLoader(default_vocab(), [SubTaskSpec("image_gen", tsvs["caption"])])
-    MusketeerDataLoader(default_vocab(), [SubTaskSpec("caption", tsvs["caption"],
-                                                      sample_patch_num=16)]).close()
+def test_unported_loader_options_raise(tsvs, tmp_path):
+    """No task or loader option is refused any more: ``image_gen`` (which was)
+    loads, its batches carrying code masks and code targets, and
+    ``sample_patch_num`` is accepted (``test_torch_port_pretrain.py`` holds
+    its orders to JAX's)."""
+    v = default_vocab()
+    path = tmp_path / "gen.tsv"
+    path.write_text("".join(f"{i}\ta red cube {i}\t{' '.join(str(c) for c in range(i, i + 16))}\n"
+                            for i in range(4)))
+    loader = MusketeerDataLoader(v, [SubTaskSpec("image_gen", str(path)),
+                                     SubTaskSpec("caption", tsvs["caption"], sample_patch_num=16)])
+    batch = next(iter(loader.epoch_iterator()))["image_gen"]
+    loader.close()
+    assert bool(batch.code_masks.all()) and batch.patch_images is None
+    assert bool(((batch.target[..., :16] >= v.code_start) & (batch.target[..., :16] < v.code_start + 16 + 4)).all())
 
 
 def test_image_classify_train_augmentation_matches_jax(tsvs):
@@ -453,8 +461,7 @@ def test_cli_evaluate_all(cli_run, tsvs):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--remat"], "parallelism"), (["--criterion", "scst"], "SCST"),
-    (["--fsdp", "2"], "parallelism"), (["--pipeline", "2"], "parallelism"),
+    (["--remat"], "parallelism"), (["--fsdp", "2"], "parallelism"), (["--pipeline", "2"], "parallelism"),
     (["--seq-parallel", "2"], "parallelism"), (["--microbatches", "2"], "parallelism"),
 ])
 def test_cli_unported_paths_raise(tsvs, flags, match):
@@ -467,5 +474,5 @@ def test_cli_refuses_a_missing_cuda_device(tsvs):
     with mock.patch.object(torch.cuda, "is_available", return_value=False):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["evaluate", "--task", "caption", "--data", tsvs["caption"]])
-    with pytest.raises(NotImplementedError, match="image generation"):
-        cli.main(["vqgan-encode", "--vqgan", "x", "--data", "y", "--out", "z"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["vqgan-encode", "--vqgan", "x", "--data", "y", "--out", "z"])

@@ -182,14 +182,17 @@ def test_general_search_matches_jax(models, name):
 
 def test_generate_routes_each_option(models):
     """``generate`` takes the general body for every option the fast path
-    refuses (``use_fast_path`` is the JAX predicate), and ``gen_code`` alone
-    still raises: the decoder's code masks are not ported."""
+    refuses (``use_fast_path`` is the JAX predicate); ``gen_code`` runs there
+    on code masks, specials banned until eos."""
     m = models
     src = torch.from_numpy(m["src"]).long()
     gen = GenerationConfig(beam_size=2, max_len_b=2, unk_penalty=1.0)
     toks, scores = generate(m["params_t"], m["cfg_t"], gen, src)  # text-only ensemble
     assert tuple(toks.shape) == (B, 2, 3) and bool(torch.isfinite(scores).all())
-    with pytest.raises(NotImplementedError, match="gen_code"):
-        generate(m["params_t"][0], m["cfg_t"], GenerationConfig(gen_code=True), src)
+    toks, scores = generate(m["params_t"][0], m["cfg_t"],
+                            GenerationConfig(beam_size=2, max_len_b=3, min_len=3, gen_code=True),
+                            src)
+    assert tuple(toks.shape) == (B, 2, 4) and bool((toks[:, :, :3] >= 4).all())
+    assert bool((toks[:, :, 3] == m["cfg_t"].eos).all())
     with pytest.raises(ValueError, match="rng"):
         generate(m["params_t"][0], m["cfg_t"], GenerationConfig(sampling=True), src)

@@ -221,11 +221,9 @@ def test_task_rows_match_jax(setup, evaluated, case):
 
 
 def test_task_registry_matches_jax():
-    """Every JAX task but ``image_gen`` (SCST and image generation wait)."""
-    from musketeer_tpu_torch.tasks.musketeer import UNPORTED_TASKS
-
-    assert set(UNPORTED_TASKS) == {"image_gen"}
-    assert set(ttasks.TASK_REGISTRY) == set(jtasks.TASK_REGISTRY) - {"image_gen"}
+    """Every JAX task, ``image_gen`` included: the registries are equal."""
+    assert set(ttasks.TASK_REGISTRY) == set(jtasks.TASK_REGISTRY)
+    assert ttasks.TASK_REGISTRY["image_gen"] is ttasks.ImageGenTask
 
 
 def test_allcand_scores_match_jax(setup):
