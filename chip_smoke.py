@@ -11,6 +11,8 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --entry-only   # phases 1, 2 and 19
     python3 chip_smoke.py --xla-only     # phases 1, 2 and 20
     python3 chip_smoke.py --scst-only    # phases 1, 2 and 21
+    python3 chip_smoke.py --parallel-only  # phases 1, 2 and 22
+    python3 chip_smoke.py --multi-card   # phases 1, 2 and 23, on four cards
 
 ``--train-only``, ``--decode-only`` and ``--k8-only`` also run against an
 older tree's package when this file is copied into that tree's root, so that
@@ -226,6 +228,29 @@ Phases; any failure raises and the script exits non-zero:
     K3 and K4 shape reached is held to its plain version and the fp32
     function, as in phases 7 and 18; each part's seconds and peak memory.
 
+22. data-parallel training's pieces on one card: (a) the joint loader over
+    the native TSV reader (g++): every fetch one batched C call
+    (``NativeTsv.batch_calls``), the rows equal to the Python reader's;
+    (b) the ``ofa_large`` joint step (bf16, phase 8's 8 tasks at batch 2 or
+    the largest batch that fits without remat, dropout and drop-path 0.1)
+    for 3 updates without and with ``--remat``: losses within ``BF16_TOL``,
+    K3 twice and K4 once the launches without remat, a lower peak memory,
+    both peaks and step times printed; (c) ``cli train`` (ofa_base,
+    caption + snli_ve at 256², 10 updates) under ``python -m
+    torch.distributed.run --nproc_per_node=1`` on NCCL and without a process
+    group, both at once: the same loss at update 10 within ``BF16_TOL``,
+    the checkpoints' bit-equal leaves counted; (d) MFU: ``utils/flops.py``'s
+    FLOPs of phase 8's and phase 19's training steps and of (b)'s, over the
+    step time and the card's dense bf16 peak (``PEAK_BF16``, by the name
+    ``nvidia-smi`` reports); (e) ``musketeer_tpu_torch.examples.
+    joint_training_demo`` in bf16: every task's metric improves, K3 = K4 > 0.
+
+23. (``--multi-card`` only, on four cards) the data and fsdp axes over
+    NCCL ranks, one per card: ``dryrun_multirank`` in each layout (data 4,
+    fsdp 4, 2 x 2) against one card within 1e-5, then phase 22 (b)'s
+    ``ofa_large`` step under ``--remat`` on one card and on four as data 4
+    and as fsdp 4: state bytes and peak memory per rank, step times, MFU.
+
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
 stage chain, each eval task, each CLI run of phase 19, each part of phases
@@ -246,7 +271,8 @@ K1's and K2's entries also carry ``eval_launches``: their launches in each
 eval task of phase 18; K1's, K2's, K3's and K4's ``entry_launches``: theirs
 in each CLI run of phase 19, and ``xla_phase_launches``: theirs in each part
 of phase 20; K1's, K3's and K4's ``scst_phase_launches``: theirs in each part
-of phase 21.
+of phase 21; K3's and K4's ``remat_launches``: theirs in phase 22's updates
+without and with ``--remat``.
 """
 
 from __future__ import annotations
@@ -2294,8 +2320,10 @@ def _k4_key(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do, causal=False, need_dre
 
 def _recording_attention(k3_calls: dict, k4_calls: dict):
     """The model's K3/K4 autograd Function, keeping the arguments of its first
-    K3 and K4 call at each shape. (The kernel wrappers count their launches
-    through their module's names, so those names stay as they are.)"""
+    K3 and K4 call at each shape; a K3 call inside a backward (``--remat``'s
+    recompute of a checkpointed layer) is kept apart, under its key plus
+    " recompute". (The kernel wrappers count their launches through their
+    module's names, so those names stay as they are.)"""
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
 
     parent = kb.FlashAttentionTrainable
@@ -2303,17 +2331,34 @@ def _recording_attention(k3_calls: dict, k4_calls: dict):
     class Recording(parent):
         @staticmethod
         def forward(ctx, *args):
-            k3_calls.setdefault(_k1_key(*args), ([_snapshot(t) for t in args], {}))
+            key = _k1_key(*args)
+            if torch._C._current_graph_task_id() != -1:
+                key += " recompute"
+            k3_calls.setdefault(key, ([_snapshot(t) for t in args], {}))
             return parent.forward(ctx, *args)
 
         @staticmethod
         def backward(ctx, do):
+            # the saved tensors are unpacked once (a checkpointed layer's may
+            # be unpacked only once) and handed on to the parent's backward
+            ctx = _Unpacked(ctx)
             # K4's arguments as the parent's backward passes them
             args = (*ctx.saved_tensors, do.contiguous(), ctx.causal, ctx.needs_input_grad[5])
             k4_calls.setdefault(_k4_key(*args), ([_snapshot(t) for t in args], {}))
             return parent.backward(ctx, do)
 
     return Recording
+
+
+class _Unpacked:
+    """An autograd ctx whose ``saved_tensors`` were unpacked once."""
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+        self.saved_tensors = ctx.saved_tensors
+
+    def __getattr__(self, name):
+        return getattr(self._ctx, name)
 
 
 def _gap(got, want, base=None) -> float:
@@ -2346,14 +2391,19 @@ def _check_resume(resumed, straight, mid) -> str:
     return ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
 
 
-def _check_train_calls(tag: str, k3_calls: dict, k4_calls: dict) -> None:
-    """Each K3 and K4 call of a training run at a new shape, on the inputs the
-    run gave it, against its plain version and the function in fp32 (as
-    phase 7)."""
-    for key, (a, kw) in k3_calls.items():
-        _check_k3(f"{tag} {key}", a, kw)
-    for key, (a, kw) in k4_calls.items():
-        _check_k4(f"{tag} {key}", a, kw)
+def _check_train_calls(tag: str, k3_calls: dict, k4_calls: dict, seen: set = None) -> int:
+    """Each K3 and K4 call of a training run at a new shape (one not in
+    ``seen``, which then gets it), on the inputs the run gave it, against its
+    plain version and the function in fp32 (as phase 7). → the calls held."""
+    seen = set() if seen is None else seen
+    n = 0
+    for kernel, calls, check in (("K3", k3_calls, _check_k3), ("K4", k4_calls, _check_k4)):
+        for key, (a, kw) in calls.items():
+            if (kernel, key) not in seen:
+                seen.add((kernel, key))
+                check(f"{tag} {key}", a, kw)
+                n += 1
+    return n
 
 
 def _check_task_losses(tag: str, losses: list, tasks, updates: int, vocab_size: int,
@@ -2374,13 +2424,14 @@ def _check_task_losses(tag: str, losses: list, tasks, updates: int, vocab_size: 
     return top
 
 
-def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
+def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms, mfu: dict = None) -> dict:
     """``cli train`` on caption, vqa_gen and snli_ve (batch 2 each, uint8
     transport, prefetch depth 2) from the NormFormer ``.pt``: 4 updates with
     saves every 2, then a resumed run to 6. Each task's loss in (0, 2 ln V]
     at every update; each K3 and K4 shape of the loop held to its plain
     version; a third run, resumed from update 2's checkpoint to 4, against
-    the straight run's state at 4. → K1-K8 launches of the first two runs."""
+    the straight run's state at 4. → K1-K8 launches of the first two runs;
+    ``mfu`` gets the step's FLOPs and time (phase 22)."""
     import glob
     import os
     import shutil
@@ -2418,7 +2469,7 @@ def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
         kw = task_kwargs(name, patch_image_size)
         return {**kw, "answers": VQA_ANSWERS} if name == "vqa_gen" else kw
 
-    rec = dict(step=[], start=[], secs=[], forwards=[], losses=[])
+    rec = dict(step=[], start=[], secs=[], forwards=[], losses=[], shapes=[])
     saves, loads, prefetchers, k3_calls, k4_calls = [], [], [], {}, {}
     make_train_step = trainer_module.make_train_step
     prefetch_cls = trainer_module.PrefetchIterator
@@ -2434,6 +2485,7 @@ def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
         def recorded(state, batches, generator=None):
             rec["step"].append(state.step)
             rec["forwards"].append(_expected_forwards(batches))
+            rec["shapes"].append(_batch_shapes(batches))
             t0 = time.perf_counter()
             rec["start"].append(t0)
             state, m = step(state, batches, generator)
@@ -2450,8 +2502,8 @@ def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
                               _recording_attention(k3_calls, k4_calls)), \
             mock.patch.object(ckpt_module, "save_checkpoint",
                               _timed(ckpt_module.save_checkpoint, saves)), \
-            mock.patch.object(trainer_module, "load_checkpoint",
-                              _timed(trainer_module.load_checkpoint, loads)), \
+            mock.patch.object(ckpt_module, "load_checkpoint",
+                              _timed(ckpt_module.load_checkpoint, loads)), \
             mock.patch.object(trainer_module, "PrefetchIterator", recording_prefetch):
         states, walls = [], []
         for updates in ENTRY_UPDATES:
@@ -2497,6 +2549,9 @@ def _entry_train(cfg, pt: str, tmp: str, smi: str, phase8_ms) -> dict:
         f"{max(0.0, loop_ms - step_ms) / loop_ms:.3f})"
         + (f", phase 8's 8-task step p50 {phase8_ms:.1f} ms" if phase8_ms else "")
         + f"; runs {[round(w, 1) for w in walls]} s on {smi}")
+    if mfu is not None:  # the step's FLOPs by utils/flops.py (the CLI trains without R-Drop)
+        mfu.update(flops=[_step_flops(cfg, sh, rdrop=False) for sh in rec["shapes"][1:]],
+                   secs=rec["secs"][1:], shapes=rec["shapes"][1])
     items = sum(p.producer_items for p in prefetchers)
     log(f"[entry train] prefetch (depth 2, the copy to the card in its thread): {items} "
         f"batches, the producer {sum(p.producer_wall_s for p in prefetchers) / items * 1e3:.1f} "
@@ -2576,10 +2631,11 @@ def _entry_eval(cfg, pt: str, tmp: str, smi: str) -> dict:
     return launches
 
 
-def phase_entry(smi: str, tmp: str, phase8_ms=None) -> dict:
+def phase_entry(smi: str, tmp: str, phase8_ms=None, mfu: dict = None) -> dict:
     """Phase 19: the port's CLI, the way a user runs it, on ``ofa_base`` in
     bf16 at full width and depth with all four NormFormer options (their
-    leaves drawn from a seed). → K1-K8 launches of each CLI run."""
+    leaves drawn from a seed). → K1-K8 launches of each CLI run; ``mfu``
+    gets the training step's FLOPs and time."""
     import os
 
     from musketeer_tpu_torch.params import from_jax
@@ -2606,7 +2662,7 @@ def phase_entry(smi: str, tmp: str, phase8_ms=None) -> dict:
         raise AssertionError(f"infer_config lost a NormFormer option: {back_cfg}")
     log(f"[entry convert] export_pt {export_s:.2f} s; cli convert (its own process) "
         f"{convert_s:.2f} s; import_pt and the converted checkpoint: all {n} leaves bit for bit")
-    launches = {"train": _entry_train(cfg, pt, tmp, smi, phase8_ms)}
+    launches = {"train": _entry_train(cfg, pt, tmp, smi, phase8_ms, mfu)}
     launches.update(_entry_eval(cfg, pt, tmp, smi))
     # 4. the NormFormer caption slice in fp32 through the kernels and the plain versions
     phase_exactness(tree, "slice", dict.fromkeys(NORMFORMER, True))
@@ -3396,6 +3452,428 @@ def phase_scst(tree, smi: str, tmp: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the native TSV reader, --remat at ofa_large, the process-group
+# path, MFU
+# ---------------------------------------------------------------------------
+
+NATIVE_ROWS, NATIVE_BATCH = 20, 2  # per TSV: 10 updates at batch 2 (the CLI logs update 10)
+PG_UPDATES, PG_IMAGE = 10, 256
+REMAT_UPDATES = 3
+REMAT_BATCHES = (2, 1)  # phase 8's batch, then the fallback if it does not fit without remat
+REMAT_RATES = dict(dropout=0.1, activation_dropout=0.1, encoder_drop_path_rate=0.1,
+                   decoder_drop_path_rate=0.1)
+# dense bf16 FLOP/s from NVIDIA's data sheets, by the name nvidia-smi reports
+# (the first key the name contains)
+PEAK_BF16 = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12))
+
+
+def _peak_bf16(smi: str) -> float:
+    name = smi.split(",")[0]
+    for key, peak in PEAK_BF16:
+        if key in name:
+            return peak
+    raise AssertionError(f"no bf16 peak for {name!r} in PEAK_BF16")
+
+
+def _batch_shapes(batches: dict) -> dict:
+    """{task: (rows of all micro-batches, src len, tgt len, image size or None)}."""
+    out = {}
+    for name, b in batches.items():
+        A, B, ts = b.src_tokens.shape
+        img = None if b.patch_images is None else int(b.patch_images.shape[2])
+        out[name] = (A * B, int(ts), int(b.prev_output_tokens.shape[-1]), img)
+    return out
+
+
+def _step_flops(cfg, shapes: dict, rdrop: bool) -> float:
+    """utils/flops.py's FLOPs of one training step over task batches of
+    ``shapes``: forward and backward, no remat recompute (the one convention)."""
+    from musketeer_tpu_torch.utils import flops
+
+    return flops.TRAIN_FWD_BWD_MULT * sum(
+        flops.seq2seq_fwd_flops(cfg, rows, ts, tt, img_size=img, rdrop=rdrop)
+        for rows, ts, tt, img in shapes.values())
+
+
+def _parallel_native(tmp: str, smi: str) -> dict:
+    """(a) the joint loader over the native reader: every fetch one C call,
+    and the rows equal the Python reader's. → the TSV paths."""
+    import os
+
+    import numpy as np
+
+    from musketeer_tpu_torch import native
+    from musketeer_tpu_torch.tasks import MusketeerDataLoader, SubTaskSpec
+    from musketeer_tpu_torch.tokenization import default_vocab
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native TSV reader did not build (g++)")
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 22)
+    paths = {n: _write_tsv(os.path.join(tmp, f"native_{n}.tsv"),
+                           _eval_rows(n, NATIVE_ROWS, PG_IMAGE, rng)) for n in ("caption", "snli_ve")}
+    specs = [SubTaskSpec(n, p, batch_size=NATIVE_BATCH, task_kwargs={"patch_image_size": PG_IMAGE})
+             for n, p in paths.items()]
+    loader = MusketeerDataLoader(default_vocab(), specs)
+    loader.set_epoch(1)
+    native.NativeTsv.batch_calls = 0
+    t0 = time.perf_counter()
+    steps = sum(1 for _ in loader.epoch_iterator())
+    epoch_s = time.perf_counter() - t0
+    calls = native.NativeTsv.batch_calls
+    if steps == 0 or calls != steps * len(specs):
+        raise AssertionError(f"native reader: {calls} batched reads for {steps} steps of "
+                             f"{len(specs)} tasks")
+    reads = []
+    for name, ds in loader.datasets.items():
+        idx = list(range(ds.row_count))[::-1]
+        t0 = time.perf_counter()
+        fast = ds.get_batch(idx)
+        t1 = time.perf_counter()
+        slow = [ds[i] for i in idx]
+        t2 = time.perf_counter()
+        if fast != slow:
+            raise AssertionError(f"native reader: {name}'s rows differ from the Python reader's")
+        reads.append(f"{name} {len(idx)} rows native {(t1 - t0) * 1e3:.2f} ms, Python "
+                     f"{(t2 - t1) * 1e3:.2f} ms")
+    loader.close()
+    log(f"[parallel a] native reader (g++ build or load {build_s:.2f} s): {calls} batched reads "
+        f"over {steps} loader steps of {len(specs)} tasks ({epoch_s:.2f} s with the builders); "
+        f"rows equal to the Python reader's: {'; '.join(reads)}")
+    return paths
+
+
+def _parallel_remat(smi: str, seen: set) -> dict:
+    """(b) the ofa_large joint step in bf16 (phase 8's tasks, dropout and
+    drop-path 0.1), 3 updates with and without --remat from one state and
+    one generator seed: the losses and gradient norms of every update and the
+    parameters after the last bit-equal (the recompute replays the dropout
+    masks and runs the same kernels on the same inputs), K3 2x and K4 1x the
+    launches without remat, a lower peak; each run's new K3/K4 shapes (the
+    recompute's K3 among them) held to their plain versions and the fp32
+    function. → {remat: record}."""
+    from musketeer_tpu_torch.config import ofa_large
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.params import from_jax, trainable
+    from musketeer_tpu_torch.training import init_train_state, make_train_step
+    from musketeer_tpu_torch.training.train_state import named_leaves
+    from musketeer_tpu_torch.training.trainer import step_generator
+
+    cfg0 = dataclasses.replace(ofa_large(), dtype="bfloat16", use_flash_attention=True,
+                               **REMAT_RATES)
+    t0 = time.perf_counter()
+    tree = _random_model_tree(cfg0, SEED + 22)
+    log(f"[parallel b] ofa_large tree ({cfg0.encoder_layers} + {cfg0.decoder_layers} layers, "
+        f"d {cfg0.embed_dim}) drawn on the host in {time.perf_counter() - t0:.1f} s")
+    crit, optim = _train_configs()
+    per_forward = cfg0.encoder_layers + 2 * cfg0.decoder_layers
+    for batch in REMAT_BATCHES:
+        batches = _train_batches(cfg0, TRAIN_TASKS, batch, SEED)
+        forwards = _expected_forwards(batches)
+        runs, calls = {}, {}
+        try:
+            for remat in (False, True):
+                cfg = dataclasses.replace(cfg0, remat=remat)
+                state = init_train_state(trainable(from_jax(tree, cfg, "cuda", torch.float32)),
+                                         optim)._replace(step=TRAIN_STEP0)
+                step = make_train_step(cfg, crit, optim)
+                calls[remat] = ({}, {})
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counters()
+                losses, gnorms, times = [], [], []
+                with mock.patch.object(kb, "FlashAttentionTrainable",
+                                       _recording_attention(*calls[remat])):
+                    for _ in range(REMAT_UPDATES):
+                        t1 = time.perf_counter()
+                        state, m = step(state, batches,
+                                        step_generator(SEED, state.step, "cuda"))
+                        losses.append(float(m["loss"]))
+                        gnorms.append(float(m["gnorm"]))
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t1)
+                runs[remat] = dict(losses=losses, gnorms=gnorms, times=times,
+                                   launches=_counters(), peak=torch.cuda.max_memory_allocated(),
+                                   params=[t.detach().cpu() for _, t in named_leaves(state.params)])
+                del state, step, m
+                torch.cuda.empty_cache()
+        except torch.cuda.OutOfMemoryError:
+            log(f"[parallel b] batch {batch} does not fit (remat {len(runs) > 0}); trying smaller")
+            runs = calls = None
+            torch.cuda.empty_cache()
+            continue
+        break
+    if runs is None:
+        raise AssertionError("ofa_large does not fit at batch 1 without remat")
+    base, rem = runs[False], runs[True]
+    want = dict.fromkeys(base["launches"], 0)
+    want.update(K3=per_forward * forwards * REMAT_UPDATES, K4=per_forward * forwards * REMAT_UPDATES)
+    want_remat = dict(want, K3=2 * want["K3"])
+    equal = sum(torch.equal(a, b) for a, b in zip(rem["params"], base["params"]))
+    flops = _step_flops(cfg0, _batch_shapes(batches), rdrop=crit.use_rdrop)
+    snap = sum(t.numel() * t.element_size() for c in calls[True] for a, _ in c.values()
+               for t in a if torch.is_tensor(t))
+    for tag, r in (("without remat", base), ("--remat", rem)):
+        p50 = statistics.median(r["times"][1:])
+        log(f"[parallel b] ofa_large bf16 {len(TRAIN_TASKS)} tasks x batch {batch} {tag}: "
+            f"losses {r['losses']}, gnorms {r['gnorms']}, peak {r['peak'] / 2**30:.2f} GiB, steps "
+            f"{[round(t * 1e3, 1) for t in r['times']]} ms (p50 after the first {p50 * 1e3:.1f} ms, "
+            f"MFU {flops / p50 / _peak_bf16(smi):.4f}), launches K3 {r['launches']['K3']} "
+            f"K4 {r['launches']['K4']} on {smi}")
+    log(f"[parallel b] remat against none: losses and gnorms bit-equal "
+        f"{rem['losses'] == base['losses'] and rem['gnorms'] == base['gnorms']}; {equal} of "
+        f"{len(base['params'])} parameter leaves bit-equal after update {REMAT_UPDATES}; peak "
+        f"{rem['peak'] / base['peak']:.3f} of it (each peak includes the recorded K3/K4 "
+        f"arguments, {snap / 2**20:.1f} MiB under --remat); time "
+        f"{statistics.median(rem['times'][1:]) / statistics.median(base['times'][1:]):.3f} of it")
+    if base["launches"] != want or rem["launches"] != want_remat:
+        raise AssertionError(f"remat launches {rem['launches']} / {base['launches']}, expected "
+                             f"{want_remat} / {want}")
+    if (rem["losses"] != base["losses"] or rem["gnorms"] != base["gnorms"]
+            or equal != len(base["params"])):
+        raise AssertionError(f"remat changes the updates: losses {rem['losses']} vs "
+                             f"{base['losses']}, gnorms {rem['gnorms']} vs {base['gnorms']}, "
+                             f"{equal} of {len(base['params'])} parameter leaves bit-equal")
+    if not rem["peak"] < base["peak"]:
+        raise AssertionError(f"remat: peak {rem['peak']} not below {base['peak']}")
+    t0 = time.perf_counter()
+    held = [_check_train_calls(f"parallel b {tag}", *calls[remat], seen)
+            for tag, remat in (("without remat", False), ("--remat", True))]
+    log(f"[parallel b] {held[0]} K3/K4 shapes without remat and {held[1]} more under --remat "
+        f"(its recompute's K3) held to their plain versions and the fp32 function "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for r in runs.values():
+        del r["params"]
+    return {"batch": batch, "flops": flops, **{("remat" if k else "plain"): v for k, v in runs.items()}}
+
+
+def _parallel_process_group(paths: dict, tmp: str, smi: str, seen: set) -> dict:
+    """(c) ``cli train`` under ``python -m torch.distributed.run
+    --nproc_per_node=1`` (NCCL), and at the same time on the same card in
+    this process without a process group: the same loss at update 10, the
+    checkpoints compared. The run in this process records its K3/K4 calls,
+    whose shapes are the rank's, and holds each new one to its plain version
+    and the fp32 function."""
+    import os
+    import re
+    import socket
+
+    from musketeer_tpu_torch import cli
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.training import trainer as trainer_module
+    from musketeer_tpu_torch.training.checkpoint import load_checkpoint
+    from musketeer_tpu_torch.training.train_state import named_leaves
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def args(save_dir: str) -> list:
+        return ["train", "--tasks", ",".join(f"{n}={p}" for n, p in paths.items()),
+                "--arch", "ofa_base", "--device", "cuda", "--batch-size", str(NATIVE_BATCH),
+                "--patch-image-size", str(PG_IMAGE), "--max-update", str(PG_UPDATES),
+                "--save-dir", save_dir]
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dirs = {"plain": os.path.join(tmp, "pg_plain"), "torchrun": os.path.join(tmp, "pg_torchrun")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes=1", "--nproc_per_node=1",
+         "--master_addr=localhost", f"--master_port={port}", "-m", "musketeer_tpu_torch.cli",
+         *args(dirs["torchrun"])],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    losses, k3_calls, k4_calls = [], {}, {}
+    try:
+        with mock.patch.object(trainer_module, "make_train_step",
+                               _recording_steps(trainer_module, losses)), \
+                mock.patch.object(kb, "FlashAttentionTrainable",
+                                  _recording_attention(k3_calls, k4_calls)):
+            cli.main(args(dirs["plain"]))
+        out = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli train (torchrun) exited {proc.returncode}:\n{out[-4000:]}")
+    got = re.search(rf"updates {PG_UPDATES} loss ([0-9.eE+-]+) gnorm ([0-9.eE+-]+)", out)
+    if not got or len(losses) != PG_UPDATES:
+        raise AssertionError(f"no update-{PG_UPDATES} log line or {len(losses)} updates: "
+                             f"{out[-2000:]}")
+    loss = {"plain": losses[-1]["loss"], "torchrun": float(got.group(1))}
+    rank_line = next((ln for ln in out.splitlines() if "rank 0 of 1" in ln), "")
+    if "nccl" not in rank_line:
+        raise AssertionError(f"the torchrun rank did not report NCCL: {rank_line!r}")
+    states = {k: load_checkpoint(d, None, device="cpu")[0] for k, d in dirs.items()}
+    pairs = list(zip(named_leaves(states["plain"].params), named_leaves(states["torchrun"].params)))
+    equal = sum(torch.equal(a.detach(), b.detach()) for (_, a), (_, b) in pairs)
+    gap = max(float((a.detach() - b.detach()).abs().max()) for (_, a), (_, b) in pairs)
+    log(f"[parallel c] cli train ofa_base bf16 caption + snli_ve batch {NATIVE_BATCH} at "
+        f"{PG_IMAGE}², {PG_UPDATES} updates: loss at update {PG_UPDATES} without a process group "
+        f"{loss['plain']}, under torchrun (1 rank, {rank_line.split('(')[-1].split(',')[0]}; its "
+        f"log line rounds to 4 places) {loss['torchrun']}; checkpoints: {equal} of {len(pairs)} parameter "
+        f"leaves bit-equal, largest gap {gap:.3e}; both runs at once on the card in {wall:.1f} s "
+        f"on {smi}")
+    if abs(loss["plain"] - loss["torchrun"]) > BF16_TOL * abs(loss["plain"]):
+        raise AssertionError(f"process-group loss {loss['torchrun']} vs {loss['plain']}")
+    t0 = time.perf_counter()
+    held = _check_train_calls("parallel c", k3_calls, k4_calls, seen)
+    log(f"[parallel c] {held} new K3/K4 shapes of the run held to their plain versions and the "
+        f"fp32 function ({time.perf_counter() - t0:.1f} s)")
+    return dict(loss=loss, equal_leaves=equal, leaves=len(pairs))
+
+
+def phase_parallel(smi: str, tmp: str, phase8: dict = None, entry_mfu: dict = None) -> dict:
+    """Phase 22: (a) the native reader, (b) --remat at ofa_large, (c) the
+    process-group path, (d) MFU of phase 8's and phase 19's training steps
+    and of (b)'s, by utils/flops.py over the card's bf16 peak."""
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+
+    t0 = time.perf_counter()
+    seen = set()  # the K3/K4 shapes held to their plain versions so far
+    paths = _parallel_native(tmp, smi)
+    remat = _parallel_remat(smi, seen)
+    pg = _parallel_process_group(paths, tmp, smi, seen)
+    peak = _peak_bf16(smi)
+    rows = []
+    if phase8:
+        crit, _ = _train_configs()
+        from musketeer_tpu_torch.config import ofa_base
+
+        cfg = dataclasses.replace(ofa_base(), dtype="bfloat16")
+        shapes = {n: (TRAIN_BATCH, ts, tt, IMAGE if image else None)
+                  for n, (ts, tt, image, _, _) in TRAIN_TASKS.items()}
+        f = _step_flops(cfg, shapes, rdrop=crit.use_rdrop)
+        rows.append(("phase 8 ofa_base 8 tasks x 2, R-Drop", f, phase8["p50_ms"] / 1e3))
+    if entry_mfu:
+        rows.append(("phase 19 cli train ofa_base NormFormer 3 tasks x 2",
+                     sum(entry_mfu["flops"]) / len(entry_mfu["flops"]),
+                     sum(entry_mfu["secs"]) / len(entry_mfu["secs"])))
+    for key in ("plain", "remat"):
+        rows.append((f"phase 22b ofa_large 8 tasks x {remat['batch']} {key}", remat["flops"],
+                     statistics.median(remat[key]["times"][1:])))
+    mfu = {}
+    # (e) the port's joint-training demo on the card: three tasks, evaluated
+    # before and after, each metric asserted to improve
+    from musketeer_tpu_torch.examples import joint_training_demo
+
+    k1_calls, k2_calls, k3_calls, k4_calls = {}, {}, {}, {}
+    _reset_counters()
+    t1 = time.perf_counter()
+    with mock.patch.object(kb, "FlashAttentionTrainable", _recording_attention(k3_calls, k4_calls)), \
+            _recording_k1_k2(k1_calls, k2_calls):
+        demo = joint_training_demo.main(["--device", "cuda"])
+    demo_launches = _counters()
+    log(f"[parallel e] joint_training_demo: {demo['steps']} steps at {demo['step_ms']} ms, loss "
+        f"{demo['loss_first']} -> {demo['loss_last']}, before {demo['before']}, after "
+        f"{demo['after']}; launches K1 {demo_launches['K1']} K2 {demo_launches['K2']} K3 "
+        f"{demo_launches['K3']} K4 {demo_launches['K4']}; {time.perf_counter() - t1:.1f} s")
+    if demo_launches["K3"] == 0 or demo_launches["K3"] != demo_launches["K4"]:
+        raise AssertionError(f"the demo's training must run K3 and K4: {demo_launches}")
+    held = _check_train_calls("parallel e demo", k3_calls, k4_calls, seen)
+    _check_eval_calls("parallel e demo", k1_calls, k2_calls, seen)
+    log(f"[parallel e] {held} K3/K4 shapes of the demo's training and {len(k1_calls)} K1 and "
+        f"{len(k2_calls)} K2 shapes of its evaluations held to their plain versions and the "
+        f"fp32 function")
+    for tag, flops, secs in rows:
+        mfu[tag] = flops / secs / peak
+        log(f"[parallel d] {tag}: {flops / 1e12:.3f} TFLOP a step (utils/flops.py) in "
+            f"{secs * 1e3:.1f} ms = MFU {mfu[tag]:.4f} of {peak / 1e12:.0f} TFLOP/s bf16 dense, "
+            f"{smi}")
+    log(f"[parallel] phase 22 done in {time.perf_counter() - t0:.1f} s")
+    return dict(remat={k: remat[k]["launches"] for k in ("plain", "remat")}, mfu=mfu, pg=pg)
+
+
+# ---------------------------------------------------------------------------
+# phase 23 (--multi-card, four cards): the data x fsdp axes over NCCL ranks
+# ---------------------------------------------------------------------------
+
+MULTI_RANKS = 4
+MULTI_LAYOUTS = (1, MULTI_RANKS, 2)  # fsdp of the ranks: data 4, fsdp 4, data 2 x fsdp 2
+
+
+def phase_multi_card(smi: str) -> dict:
+    """Phase 23: (a) ``dryrun_multirank`` on 4 NCCL ranks, one per card, in
+    each layout: ``ofa_tiny`` (1 + 1 layers, fp32, K3/K4 on the FMA
+    kernels) on three tasks with R-Drop and drop-worst, against one process
+    on card 0 within 1e-5; (b) phase 22 (b)'s ``ofa_large`` step under
+    ``--remat`` (bf16, phase 8's 8 tasks, 2 rows a task per card, 3
+    updates) on card 0 alone and on the 4 cards as data 4 and as fsdp 4: the
+    state bytes and the peak memory of each rank, the step times, and the
+    losses of the two layouts within BF16_TOL of each other. The ranks'
+    K3/K4 shapes are those of a run on card 0 in this process (each rank
+    holds 2 rows of a task in (a), as ``demo_job(1)`` does, and
+    ``TRAIN_BATCH`` rows in (b), as the one-card run does): that run and
+    (a)'s one-card reference record their calls, and each shape is held to
+    its plain version and the fp32 function."""
+    from musketeer_tpu_torch.config import ofa_large
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.params import from_jax, trainable
+    from musketeer_tpu_torch.parallel import dryrun
+
+    if torch.cuda.device_count() < MULTI_RANKS:
+        raise RuntimeError(f"--multi-card needs {MULTI_RANKS} cards, found "
+                           f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    seen, k3_calls, k4_calls = set(), {}, {}
+    with mock.patch.object(kb, "FlashAttentionTrainable", _recording_attention(k3_calls, k4_calls)):
+        dryrun.run_job(dryrun.demo_job(1), device="cuda:0")  # one rank's shapes
+        for fsdp in MULTI_LAYOUTS:
+            t1 = time.perf_counter()
+            out = dryrun.dryrun_multirank(MULTI_RANKS, fsdp, "cuda")
+            log(f"[multi a] data {MULTI_RANKS // fsdp} x fsdp {fsdp} on NCCL: {out} equal to "
+                f"one card's within 1e-5 ({time.perf_counter() - t1:.1f} s)")
+    held = _check_train_calls("multi a", k3_calls, k4_calls, seen)
+    log(f"[multi a] {held} K3/K4 shapes (a rank's and the one-card reference's) held to their "
+        f"plain versions and the fp32 function")
+    crit, optim = _train_configs()
+    cfg = dataclasses.replace(ofa_large(), dtype="bfloat16", use_flash_attention=True,
+                              remat=True, **REMAT_RATES)
+    params = trainable(from_jax(_random_model_tree(cfg, SEED + 22), cfg, "cpu", torch.float32))
+    runs = {}
+    for name, world, fsdp in (("one card", 1, 1), ("data 4", MULTI_RANKS, 1),
+                              ("fsdp 4", MULTI_RANKS, MULTI_RANKS)):
+        batches = {n: type(b)(*[None if x is None else x.cpu() for x in b]) for n, b in
+                   _train_batches(cfg, TRAIN_TASKS, TRAIN_BATCH * world, SEED).items()}
+        job = dryrun.Job(cfg, crit, optim, params, [batches] * REMAT_UPDATES, update=TRAIN_STEP0,
+                         seed=SEED, keep_state=False)
+        t1 = time.perf_counter()
+        if world == 1:
+            k3_calls, k4_calls = {}, {}
+            with mock.patch.object(kb, "FlashAttentionTrainable",
+                                   _recording_attention(k3_calls, k4_calls)):
+                rec = dryrun.run_job(job, device="cuda:0")
+            rec.update(peaks=[rec["peak"]], rank_state_bytes=[rec["state_bytes"]])
+            held = _check_train_calls("multi b", k3_calls, k4_calls, seen)
+            log(f"[multi b] {held} K3/K4 shapes of the one-card run (each rank's below, the "
+                f"recompute's K3 among them) held to their plain versions and the fp32 function")
+        else:
+            rec = dryrun.run_ranks(world, fsdp, job, "cuda")
+        runs[name] = rec
+        flops = _step_flops(cfg, _batch_shapes(batches), rdrop=crit.use_rdrop)
+        p50 = statistics.median(rec["secs"][1:])
+        log(f"[multi b] ofa_large bf16 --remat, {len(TRAIN_TASKS)} tasks x {TRAIN_BATCH * world} "
+            f"rows on {name}: losses {[m['loss'] for m in rec['metrics']]}, steps "
+            f"{[round(x * 1e3, 1) for x in rec['secs']]} ms (p50 after the first {p50 * 1e3:.1f} "
+            f"ms, {len(TRAIN_TASKS) * TRAIN_BATCH * world / p50:.2f} samples/s, MFU "
+            f"{flops / p50 / (world * _peak_bf16(smi)):.4f}), state per rank "
+            f"{[round(b / 2**30, 3) for b in rec['rank_state_bytes']]} GiB, peak per rank "
+            f"{[round(x / 2**30, 2) for x in rec['peaks']]} GiB ({time.perf_counter() - t1:.1f} s)"
+            f" on {smi}")
+    a, b = runs["data 4"], runs["fsdp 4"]
+    gaps = [abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(b["metrics"], a["metrics"])]
+    log(f"[multi b] fsdp 4 against data 4: loss gaps {gaps} (tol {BF16_TOL}); state per rank "
+        f"{b['rank_state_bytes'][0] / a['rank_state_bytes'][0]:.3f} of it")
+    if not max(gaps) <= BF16_TOL or not b["rank_state_bytes"][0] < a["rank_state_bytes"][0]:
+        raise AssertionError(f"fsdp 4 against data 4: loss gaps {gaps}, state "
+                             f"{b['rank_state_bytes']} vs {a['rank_state_bytes']}")
+    log(f"[multi] phase 23 done in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3422,6 +3900,12 @@ def main(argv=None) -> int:
                       help="after phases 1-2, run only phase 21 (SCST, CLIP-SCST, vqgan-encode, "
                            "image_gen's evaluate and joint training, the fp32 gen_code search), "
                            "and print no result line")
+    only.add_argument("--parallel-only", action="store_true",
+                      help="after phases 1-2, run only phase 22 (the native reader, --remat "
+                           "at ofa_large, the process-group path, MFU), and print no result line")
+    only.add_argument("--multi-card", action="store_true",
+                      help="after phases 1-2, run only phase 23 on four cards (the data and "
+                           "fsdp axes over NCCL ranks), and print no result line")
     only.add_argument("--entry-only", action="store_true",
                       help="after phases 1-2, run only phase 19 (the CLI's convert, train "
                            "with its resume, and evaluate on a NormFormer ofa_base), and print "
@@ -3438,6 +3922,15 @@ def main(argv=None) -> int:
         log(f"[routes] bf16 routes on the tensor cores, counted apart: {sorted(routes)}")
     if opts.train_only:
         phase_train(tree, smi, routes)
+        return 0
+    if opts.multi_card:
+        phase_multi_card(smi)
+        log(f"[done] multi-card phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.parallel_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_parallel(smi, tmp)
+        log(f"[done] parallel phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.entry_only:
         with tempfile.TemporaryDirectory() as tmp:
@@ -3490,14 +3983,17 @@ def main(argv=None) -> int:
     stats["K8"], k8_launches = phase_k8(g, tree, smi)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches = phase_eval(tree, smi, tmp)
+    entry_mfu = {}
     with tempfile.TemporaryDirectory() as tmp:
-        entry_launches = phase_entry(smi, tmp, train_p50_ms)
+        entry_launches = phase_entry(smi, tmp, train_p50_ms, entry_mfu)
     with tempfile.TemporaryDirectory() as tmp:
         xla_launches = phase_xla(tree, smi, tmp)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         scst_launches = phase_scst(tree, smi, tmp)
     log(f"[scst] phase 21 done in {time.perf_counter() - t0:.1f} s on {smi}")
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel = phase_parallel(smi, tmp, {"p50_ms": train_p50_ms}, entry_mfu)
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -3527,6 +4023,8 @@ def main(argv=None) -> int:
             entry["xla_phase_launches"] = {part: n[k] for part, n in xla_launches.items()}
         if k in ("K1", "K3", "K4"):  # phase 21's, part by part
             entry["scst_phase_launches"] = {part: n[k] for part, n in scst_launches.items()}
+        if k in ("K3", "K4"):  # phase 22's ofa_large updates without and with --remat
+            entry["remat_launches"] = {run: n[k] for run, n in parallel["remat"].items()}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,13 @@ joint multi-task training step and loop, both attention branches (the
 kernels' and the XLA one with attention dropout, patch subsampling, prompts
 and code masks), fairseq checkpoint I/O with the NormFormer options, the
 evaluation path (TSV row to metric), the detection and pretraining tasks,
-the CLI, and the JAX package's kernel entry points.
+the CLI, data-parallel and FSDP training over ``torch.distributed`` ranks
+with per-layer activation checkpointing, and the JAX package's kernel entry
+points.
 Layout mirrors the JAX package:
 
-  cli.py                         train / evaluate / evaluate-all / convert (--device)
+  cli.py                         train (one process per rank under torchrun) / evaluate /
+                                 evaluate-all / convert (--device)
   config.py                      model / generation / optimizer / criterion / mesh /
                                  train dataclasses and the arch presets
   params.py                      random init in the JAX layout; JAX tree → port params;
@@ -36,7 +39,12 @@ Layout mirrors the JAX package:
                                  pretraining mixture), collate, train augmentation,
                                  the TSV reader
   utils/                         CIDEr-D, the summary normalizer, eval utilities
-                                 (boxes, IoU, allcand scoring)
+                                 (boxes, IoU, allcand scoring), the FLOPs count (flops.py)
+  native/                        the g++ TSV reader (a batch's rows in one C call)
+  parallel/                      the mesh's axes over torch.distributed ranks and the
+                                 sharding rules (mesh.py), data-parallel and FSDP training
+                                 (data_parallel.py), gloo/NCCL dry runs (dryrun.py)
+  examples/                      the joint-training demo
   tasks/                         Task, iter_batches, the eval, detection and pretraining
                                  tasks (TASK_REGISTRY), the joint loader
                                  (MusketeerDataLoader)

@@ -20,9 +20,16 @@ plain versions). The model config follows the JAX CLI's: ``evaluate`` and
 ``evaluate-all`` keep the preset's (or the ``.pt``'s) ``use_flash_attention``,
 False, so they run the XLA attention branch as the JAX package's do; ``train``
 sets it from ``--no-flash``. ``train --criterion scst|clip_scst`` runs the
-reward fine-tuning loop (``training/scst_loop.py``). The parallelism options,
-which the port lacks, raise ``NotImplementedError`` and name the ROADMAP
-queue 1 item that holds them.
+reward fine-tuning loop (``training/scst_loop.py``).
+
+``train`` runs one process per rank under ``torchrun`` (``env://``; NCCL for
+``--device cuda``, each rank on the card of its local rank, gloo for
+``--device cpu``): the ranks form the mesh's ``data × fsdp`` axes
+(``--fsdp F`` shards the state over F of them) and together compute the
+step of one process on the same ``--batch-size``. ``--remat`` checkpoints
+each encoder and decoder layer. The model, pipeline and sequence axes, which
+the port lacks, raise ``NotImplementedError`` and name the ROADMAP queue 1
+item that holds them.
 """
 
 from __future__ import annotations
@@ -92,35 +99,58 @@ def _make_task(name: str, vocab, description: str, kw: dict):
     return TASK_REGISTRY[name](vocab, description=description, **kw)
 
 
+_NEXT_AXES = "parallelism: the model, pipe and seq axes"
+
+
 def _refuse_unported_train_options(args) -> None:
-    for flag, value in (("--fsdp", args.fsdp), ("--model-parallel", args.model_parallel),
+    for flag, value in (("--model-parallel", args.model_parallel),
                         ("--pipeline", args.pipeline), ("--seq-parallel", args.seq_parallel)):
         if value > 1:
-            raise _unported(f"{flag} {value}", "parallelism")
+            raise _unported(f"{flag} {value}", _NEXT_AXES)
     if args.microbatches:
-        raise _unported(f"--microbatches {args.microbatches}", "parallelism")
-    if args.remat:
-        raise _unported("--remat", "parallelism")
+        raise _unported(f"--microbatches {args.microbatches}", _NEXT_AXES)
 
 
 def cmd_train(args):
     import torch
 
-    from .config import CriterionConfig, MeshConfig, OptimConfig, TrainConfig
-    from .params import trainable
-    from .tasks import MusketeerDataLoader, SubTaskSpec
-    from .tokenization import default_vocab
-    from .training import init_train_state, train_loop
-    from .training.checkpoint import import_pt
+    from .parallel import init_distributed
 
     if args.criterion in ("scst", "clip_scst"):
         # reward fine-tuning (ref: criterions/scst_loss.py, clip_scst_loss.py;
         # BASELINE configs[4]); it warns on the flags it ignores, as the JAX CLI's
         from .training.scst_loop import run_scst_cli
 
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise NotImplementedError(f"--criterion {args.criterion} runs on one rank")
         return run_scst_cli(args, _device(args.device))
     _refuse_unported_train_options(args)
     device = _device(args.device)
+    local_rank = init_distributed(device)
+    if local_rank is not None and device.type == "cuda":
+        device = torch.device("cuda", local_rank)
+    try:
+        world = torch.distributed.get_world_size() if local_rank is not None else 1
+        if world % args.fsdp:
+            raise ValueError(f"--fsdp {args.fsdp} needs a multiple of {args.fsdp} ranks, have "
+                             f"{world} (launch with torchrun --nproc_per_node=N)")
+        return _train(args, device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device):
+    import torch
+
+    from .config import CriterionConfig, MeshConfig, OptimConfig, TrainConfig
+    from .params import trainable
+    from .parallel import DataParallel, make_mesh
+    from .tasks import MusketeerDataLoader, SubTaskSpec
+    from .tokenization import default_vocab
+    from .training import init_train_state, train_loop
+    from .training.checkpoint import import_pt
+
     vocab = default_vocab()
     model_cfg = _preset(args.arch)
     specs = []
@@ -173,7 +203,12 @@ def cmd_train(args):
     # the JAX gates still send what its kernels lack (attention dropout,
     # patch subsampling, prompts, mixed code masks) to the XLA branch
     model_cfg = dataclasses.replace(model_cfg, use_flash_attention=not args.no_flash,
-                                    unroll_layers=args.unroll_layers)
+                                    remat=args.remat, unroll_layers=args.unroll_layers)
+    # the mesh over the ranks (one without a process group); every rank reads
+    # the whole global batch, as the JAX package's one host does, and keeps its block
+    mesh = make_mesh(cfg.mesh)
+    parallel = DataParallel(mesh, params) if torch.distributed.is_initialized() else None
+    lead = mesh.rank == 0
 
     validate_fn = None
     if args.valid_data:
@@ -183,24 +218,33 @@ def cmd_train(args):
         vname = args.valid_task or "snli_ve"
         vtask = _make_task(vname, vocab, args.description,
                            _task_kwargs(vname, args.patch_image_size))
-        vds = FileDataset(args.valid_data)
+        vds = FileDataset(args.valid_data)  # read by every rank
 
         def validate_fn(state):
             m = vtask.evaluate(state.params, model_cfg, vds, batch_size=args.batch_size,
                                limit=args.valid_limit)
             metric = m.get("acc", m.get("cider", m.get("acc@0.5", 0.0)))
-            logger.info("valid %s: %s", vname,
-                        {k: v for k, v in m.items() if k not in ("pairs", "predictions")})
+            if lead:
+                logger.info("valid %s: %s", vname,
+                            {k: v for k, v in m.items() if k not in ("pairs", "predictions")})
             return float(metric)
 
-    state = init_train_state(trainable(params), cfg.optim, ema_decay=cfg.ema_decay)
+    params = trainable(params)
+    if parallel is not None:
+        params = parallel.shard(params)
+    state = init_train_state(params, cfg.optim, ema_decay=cfg.ema_decay)
+    if parallel is not None:
+        logger.info("rank %d of %d (%s, mesh %s): %d bytes of state, %d on one rank",
+                    mesh.rank, mesh.world, torch.distributed.get_backend(), mesh.shape,
+                    parallel.state_bytes(state), parallel.state_bytes(state, full=True))
     try:
         state = train_loop(cfg, model_cfg, state, loader, validate_fn=validate_fn,
                            save_dir=args.save_dir, max_epoch=args.max_epoch,
-                           resume=not args.no_resume)
+                           resume=not args.no_resume, parallel=parallel)
     finally:
         loader.close()
-    logger.info("done at update %d", state.step)
+    if lead:
+        logger.info("done at update %d", state.step)
     return state
 
 
@@ -464,7 +508,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="train on the XLA attention branch (plain PyTorch products) "
                          "instead of the K3/K4 kernels")
     pt.add_argument("--remat", action="store_true",
-                    help="activation checkpointing per layer (not ported)")
+                    help="activation checkpointing: each encoder and decoder layer's "
+                         "activations are recomputed in the backward")
     pt.add_argument("--unroll-layers", action="store_true",
                     help="kept in the config for the JAX CLI's sake: the port's layer "
                          "loops are Python loops, always unrolled")
@@ -475,7 +520,9 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--ema-decay", type=float, default=0.0)
     pt.add_argument("--patience", type=int, default=-1)
     pt.add_argument("--eq-sampling", type=int, default=0)
-    pt.add_argument("--fsdp", type=int, default=1)
+    pt.add_argument("--fsdp", type=int, default=1,
+                    help="ranks (of torchrun's) that shard the parameters, AdamW state "
+                         "and EMA; the rest of the ranks form the data axis")
     pt.add_argument("--model-parallel", type=int, default=1)
     pt.add_argument("--src-bucket", type=int, default=None)
     pt.add_argument("--tgt-bucket", type=int, default=None)

@@ -13,6 +13,11 @@ Static shapes and mask arithmetic, as in the JAX package:
 - drop-best: then keep the (1 − ratio) fraction with the highest loss;
 - the encouraging-loss bonus log(1 − p), linear above ``log_end``;
 - R-Drop: symmetric KL between the two halves of the batch.
+
+Under data parallelism (``comm``, a ``parallel.DataParallel``) each rank
+holds its block of the task batch; drop-worst and drop-best then rank the
+global batch's positions (gathered from every rank) and keep this rank's
+part of the global choice.
 """
 
 from __future__ import annotations
@@ -44,6 +49,18 @@ def _rank(values: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+def _kept_lowest(values: torch.Tensor, keep: torch.Tensor, ratio: float, comm=None,
+                 copies: int = 1) -> torch.Tensor:
+    """``keep`` and, among the kept, the ⌊Σkeep·(1 − ratio)⌋ lowest ``values``
+    (a stable sort); over the global batch when ``comm`` is given."""
+    if comm is not None and comm.distributed:
+        kept = _kept_lowest(comm.gather_rows(values.detach(), copies),
+                            comm.gather_rows(keep, copies), ratio)
+        return comm.local_rows(kept, copies)
+    kth = torch.floor(keep.sum().float() * (1.0 - ratio))
+    return (_rank(values) < kth) & keep
+
+
 def label_smoothed_ce(
     logits: torch.Tensor,  # [B, T, V] raw logits
     targets: torch.Tensor,  # [B, T] int
@@ -62,6 +79,7 @@ def label_smoothed_ce(
     eos_id: int = 2,
     vocab_size: Optional[int] = None,  # real vocab (< V when layout-padded)
     encouraging_log_end: Optional[float] = None,  # enables the encouraging loss
+    comm=None,  # parallel.DataParallel: rank positions over the global batch
 ) -> CELossOut:
     B, T, V = logits.shape
     Vr = vocab_size if vocab_size is not None else V
@@ -104,15 +122,13 @@ def label_smoothed_ce(
         n = (B // 2) * T if use_rdrop else B * T
         k1 = keep[:n]
         l1 = torch.where(k1, loss_per_pos[:n], float("inf"))
-        kth = torch.floor(k1.sum().float() * (1.0 - drop_worst_ratio))
-        kept = (_rank(l1) < kth) & k1
+        kept = _kept_lowest(l1, k1, drop_worst_ratio, comm)
         weights = (torch.cat([kept, kept]) if use_rdrop else kept).float()
 
     if drop_best_ratio > 0.0 and (drop_best_active is None or drop_best_active):
         cur = weights > 0
         lb = torch.where(cur, loss_per_pos, float("-inf"))
-        kth = torch.floor(cur.sum().float() * (1.0 - drop_best_ratio))
-        weights = ((_rank(-lb) < kth) & cur).float()
+        weights = _kept_lowest(-lb, cur, drop_best_ratio, comm, 2 if use_rdrop else 1).float()
 
     ntokens = weights.sum()
     loss = (loss_per_pos * weights).sum()

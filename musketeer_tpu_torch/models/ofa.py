@@ -48,6 +48,11 @@ TPU kernel's tiles; here rel is composed at ``[H, S, S]``. The JAX model draws
 every layer's dropout masks from one key per layer; here each draw advances
 the generator (ROADMAP §3).
 
+``cfg.remat`` checkpoints each layer of ``encode`` and ``decode`` on both
+branches, as the JAX model wraps each in ``jax.checkpoint``
+(``_run_layer``): the backward recomputes the layer with the forward's
+dropout masks, so losses and gradients are those without it.
+
 ``decode_step`` writes the step's K/V into the self cache in place and
 returns the same state object.
 
@@ -79,6 +84,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.decode_cross_attn import decode_cross_attention_int8
@@ -150,6 +156,35 @@ def _drop_path(x: torch.Tensor, rate: Optional[float], gen: Optional[torch.Gener
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
     keep = torch.rand(shape, generator=gen, device=x.device) >= rate
     return torch.where(keep, x / max(1.0 - rate, 1e-6), 0.0)
+
+
+def _run_layer(layer: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+               cfg: ModelConfig, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer(x)``; under ``cfg.remat`` checkpointed (the JAX model's
+    ``jax.checkpoint`` of each layer): only ``x`` is kept, and the backward
+    recomputes the layer. The recompute draws the forward's dropout masks
+    again: ``checkpoint`` restores only the default generators, so the state
+    of ``gen`` is saved before the forward, set for the recompute and put back
+    after it."""
+    if not cfg.remat:
+        return layer(x)
+    if gen is None:
+        return checkpoint(layer, x, use_reentrant=False)
+    start = gen.get_state()
+    calls = [0]
+
+    def replay(xx: torch.Tensor) -> torch.Tensor:
+        calls[0] += 1
+        if calls[0] == 1:  # the forward: draws from where the generator stands
+            return layer(xx)
+        now = gen.get_state()
+        gen.set_state(start)
+        try:
+            return layer(xx)
+        finally:  # also when checkpoint stops the recompute early
+            gen.set_state(now)
+
+    return checkpoint(replay, x, use_reentrant=False)
 
 
 def _drop_path_rates(rate: float, layers: int, on: bool) -> List[Optional[float]]:
@@ -502,8 +537,10 @@ def encode(
     dp_rates = _drop_path_rates(cfg.encoder_drop_path_rate, cfg.encoder_layers,
                                 cfg.encoder_drop_path_rate > 0 and not deterministic)
     for i, layer_p in enumerate(enc["layers"]):
-        x = _encoder_layer(layer_p, cfg, x, functools.partial(attend, i),
-                           generator, deterministic, dp_rates[i])
+        # rel is composed inside attend, so under remat no [H, S, S] is kept
+        layer = functools.partial(_encoder_layer, layer_p, cfg, attend=functools.partial(attend, i),
+                                  gen=generator, deterministic=deterministic, dp_rate=dp_rates[i])
+        x = _run_layer(layer, x, cfg, generator)
 
     x = _layer_norm(enc["layer_norm"], x)
     return EncoderOut(x=x, padding_mask=padding_mask, pos_embed=pos_for_bias)
@@ -681,9 +718,11 @@ def decode(
     dp_rates = _drop_path_rates(cfg.decoder_drop_path_rate, cfg.decoder_layers,
                                 cfg.decoder_drop_path_rate > 0 and not deterministic)
     for i, layer_p in enumerate(dec["layers"]):
-        x = _decoder_layer_full(layer_p, cfg, x, functools.partial(self_attend, i),
-                                functools.partial(cross_attend, i), generator, deterministic,
-                                dp_rates[i])
+        layer = functools.partial(_decoder_layer_full, layer_p, cfg,
+                                  self_attend=functools.partial(self_attend, i),
+                                  cross_attend=functools.partial(cross_attend, i), gen=generator,
+                                  deterministic=deterministic, dp_rate=dp_rates[i])
+        x = _run_layer(layer, x, cfg, generator)
     x = _layer_norm(dec["layer_norm"], x)
     return x if features_only else output_layer(params, cfg, x)
 

@@ -1,0 +1,251 @@
+"""The mesh's five named axes over ``torch.distributed`` ranks, and the
+parameter sharding rules (port of ``musketeer_tpu/parallel/mesh.py``).
+
+Axes, as in the JAX package:
+  data  — batch sharding (DDP: each rank takes its block of every batch and
+          the gradients are summed over ranks)
+  fsdp  — parameter and optimizer-state sharding (ZeRO/FSDP): each leaf the
+          rules shard on ``fsdp`` is held as 1/fsdp per rank
+  model, pipe, seq — tensor, pipeline and sequence parallelism (the port's
+          CLI refuses them above 1)
+
+``make_mesh`` lays ranks out as the JAX ``make_mesh`` lays out devices: rank
+r sits at the row-major coordinate of r in ``(data, fsdp, model, pipe,
+seq)``. The batch axis is split over ``(data, fsdp)`` jointly, as
+``P((DATA, FSDP))`` splits it over devices (``batch_block``).
+
+``_RULES``, ``param_spec``, ``_fit_spec`` and ``_is_layer_stacked`` are the
+JAX package's, with specs as tuples of axis names (None: not sharded)
+instead of ``PartitionSpec``s; they read the JAX layout (stacked ``[L, ...]``
+layers, ``[din, dout]`` linears, HWIO convolutions). ``leaf_spec`` gives the
+same spec for a leaf of the port's tree, in the port's layout.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch.distributed as dist
+
+from ..config import MeshConfig
+
+DATA, FSDP, MODEL, PIPE, SEQ = "data", "fsdp", "model", "pipe", "seq"
+AXES = (DATA, FSDP, MODEL, PIPE, SEQ)
+
+Spec = Tuple  # one entry per dim: None, an axis name, or a tuple of axis names
+
+
+class Mesh:
+    """This rank's place on the five axes, and a process group per axis set
+    (None without a process group: one rank)."""
+
+    def __init__(self, sizes: Sequence[int], rank: int, groups: Dict[frozenset, object]):
+        self.shape: Dict[str, int] = dict(zip(AXES, sizes))
+        self.rank = rank
+        self.world = math.prod(sizes)
+        self.coords: Dict[str, int] = dict(zip(AXES, np.unravel_index(rank, tuple(sizes))))
+        self._groups = groups
+
+    def size(self, *axes: str) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def index(self, *axes: str) -> int:
+        """This rank's row-major index over ``axes`` (in the mesh's axis order)."""
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group(self, *axes: str):
+        """The process group of the ranks that differ from this one only along
+        ``axes`` (``DATA``, ``FSDP`` or both)."""
+        return self._groups.get(frozenset(axes))
+
+
+_GROUP_AXES = ((DATA,), (FSDP,), (DATA, FSDP))
+
+
+def make_mesh(cfg: MeshConfig = MeshConfig(), world: Optional[int] = None) -> Mesh:
+    """The mesh over the process group's ranks (one rank without one), with
+    ``cfg.axis_sizes(world)``; every rank must call it, in the same order."""
+    initialized = dist.is_available() and dist.is_initialized()
+    if world is None:
+        world = dist.get_world_size() if initialized else 1
+    sizes = cfg.axis_sizes(world)
+    rank = dist.get_rank() if initialized else 0
+    groups: Dict[frozenset, object] = {}
+    if initialized:
+        ranks = np.arange(world).reshape(sizes)
+        for axes in _GROUP_AXES:
+            keep = [AXES.index(a) for a in axes]
+            rest = [i for i in range(len(AXES)) if i not in keep]
+            blocks = ranks.transpose(rest + keep).reshape(-1, math.prod(sizes[i] for i in keep))
+            for block in blocks:
+                g = dist.new_group(block.tolist())  # collective: every rank makes every group
+                if rank in block:
+                    groups[frozenset(axes)] = g
+    return Mesh(sizes, rank, groups)
+
+
+def batch_block(n: int, mesh: Mesh) -> slice:
+    """This rank's contiguous block of a batch axis of ``n`` rows, as
+    ``P((DATA, FSDP))`` gives device r its block."""
+    parts = mesh.size(DATA, FSDP)
+    if n % parts:
+        raise ValueError(f"batch of {n} rows does not split over data x fsdp = {parts} ranks")
+    k = n // parts
+    i = mesh.index(DATA, FSDP)
+    return slice(i * k, (i + 1) * k)
+
+
+_NO_BATCH_AXIS = ("patch_norm",)  # [A, 2, 3]: one affine per micro-batch
+
+
+def shard_batches(batches, mesh: Mesh):
+    """The joint loader's step (task → TaskBatch with a leading accumulation
+    axis A and the batch axis second) → this rank's block of every batch."""
+    out = {}
+    for name, b in batches.items():
+        block = batch_block(b.src_tokens.shape[1], mesh)
+        out[name] = type(b)(*[x if x is None or f in _NO_BATCH_AXIS else x[:, block]
+                              for f, x in zip(b._fields, b)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# parameter sharding rules (the JAX package's, in the JAX layout)
+# ---------------------------------------------------------------------------
+# Rules are matched against the flattened param path. First match wins.
+# Layer-stacked leaves have a leading L axis (never sharded).
+#
+# Tensor-parallel choices (standard Megatron layout):
+#   attention q/k/v: out dim (heads) on MODEL;   out_proj: in dim on MODEL
+#   fc1: out dim on MODEL;                        fc2: in dim on MODEL
+#   embed_tokens: vocab dim on FSDP (all-gathered once per step)
+# FSDP shards the largest remaining dim of every big leaf.
+
+_RULES = [
+    # path regex, spec builder (takes ndim incl. any leading L axis)
+    (r"embed_tokens$", lambda nd: (FSDP, MODEL)),
+    (r"(self_attn|encoder_attn)\.(q|k|v)_proj\.w$", lambda nd: _stacked(nd, (None, FSDP, MODEL))),
+    (r"(self_attn|encoder_attn)\.(q|k|v)_proj\.b$", lambda nd: _stacked(nd, (None, MODEL))),
+    (r"(self_attn|encoder_attn)\.out_proj\.w$", lambda nd: _stacked(nd, (None, MODEL, FSDP))),
+    (r"fc1\.w$", lambda nd: _stacked(nd, (None, FSDP, MODEL))),
+    (r"fc1\.b$", lambda nd: _stacked(nd, (None, MODEL))),
+    (r"fc2\.w$", lambda nd: _stacked(nd, (None, MODEL, FSDP))),
+    (r"ffn_layernorm\.(scale|bias)$", lambda nd: _stacked(nd, (None, MODEL))),
+    # big non-layer matrices: shard on fsdp
+    (r"(pos_q_linear|pos_k_linear|self_pos_q_linear|self_pos_k_linear|"
+     r"cross_pos_q_linear|cross_pos_k_linear|image_proj)\.w$", lambda nd: (FSDP, None)),
+    (r"embed_positions$|embed_image_positions$", lambda nd: (FSDP, None)),
+    (r"rel_pos_table$", lambda nd: (None, FSDP, None)),
+    # resnet convs: shard output channels on fsdp where big
+    (r"conv\d$|downsample_conv$|conv1$", lambda nd: _conv_spec(nd)),
+]
+
+
+def _stacked(ndim: int, spec: Spec) -> Spec:
+    """Use `spec` if the leaf has the leading layer axis, else drop it."""
+    if ndim == len(spec):
+        return spec
+    assert ndim == len(spec) - 1
+    return tuple(spec[1:])
+
+
+def _conv_spec(ndim: int) -> Spec:
+    if ndim == 4:  # HWIO
+        return (None, None, None, FSDP)
+    if ndim == 5:  # stacked L,HWIO
+        return (None, None, None, None, FSDP)
+    return ()
+
+
+def param_spec(path: str, ndim: int) -> Spec:
+    for pat, builder in _RULES:
+        if re.search(pat, path):
+            spec = builder(ndim)
+            if len(spec) <= ndim:
+                return spec
+    return ()  # replicate small leaves
+
+
+def _fit_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
+    """Drop sharding on dims the mesh can't divide evenly (e.g. the 1765-row
+    embed_image_positions table) — replication is always correct."""
+    out = []
+    for i, axes in enumerate(spec):
+        if axes is None:
+            out.append(None)
+            continue
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        size = int(np.prod([mesh.shape[n] for n in names]))
+        out.append(axes if shape[i] % size == 0 else None)
+    return tuple(out)
+
+
+def _is_layer_stacked(path: str) -> bool:
+    """Leaves whose leading axis is the transformer layer axis."""
+    return ".layers." in path or path.endswith("rel_pos_table")
+
+
+# ---------------------------------------------------------------------------
+# the port's layout
+# ---------------------------------------------------------------------------
+
+def _per_layer(path: str) -> bool:
+    """A leaf of the port's tree that is one entry of a JAX stacked leaf (a
+    transformer layer, or a ResNet stage's ``rest`` block)."""
+    return ".layers." in path or ".rest." in path
+
+
+def _is_linear(path: str, ndim: int) -> bool:
+    return path.endswith(".w") and ndim == 2
+
+
+def jax_shape(path: str, shape) -> Tuple[int, ...]:
+    """The JAX layout's shape of a port leaf (without the layer axis):
+    linears ``[dout, din]`` → ``[din, dout]``, convolutions OIHW → HWIO."""
+    shape = tuple(shape)
+    if _is_linear(path, len(shape)):
+        return shape[::-1]
+    if len(shape) == 4:
+        o, i, h, w = shape
+        return (h, w, i, o)
+    return shape
+
+
+def _to_port(path: str, spec: Spec, ndim: int) -> Spec:
+    if _is_linear(path, ndim):
+        return spec[::-1]
+    if ndim == 4:
+        h, w, i, o = spec
+        return (o, i, h, w)
+    return spec
+
+
+def leaf_spec(path: str, shape, mesh: Mesh) -> Spec:
+    """The spec of the port's leaf at ``path`` (``named_leaves``' paths) with
+    ``shape``: the JAX leaf's ``param_spec``, fitted to the mesh as
+    ``param_shardings`` fits it, in the port's layout."""
+    jshape = jax_shape(path, shape)
+    stacked = _per_layer(path)
+    nd = len(jshape) + stacked
+    spec = tuple(param_spec(path, nd))
+    spec = spec + (None,) * (nd - len(spec))
+    if stacked:
+        spec = spec[1:]  # the layer axis is never sharded
+    return _to_port(path, _fit_spec(spec, jshape, mesh), len(jshape))
+
+
+def fsdp_dim(path: str, shape, mesh: Mesh) -> Optional[int]:
+    """The dim of the port's leaf that ``fsdp`` shards, or None (replicated)."""
+    if mesh.shape[FSDP] == 1:
+        return None
+    for d, axes in enumerate(leaf_spec(path, shape, mesh)):
+        names = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        if FSDP in names:
+            return d
+    return None

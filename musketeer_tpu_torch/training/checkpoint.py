@@ -21,7 +21,7 @@ import json
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -177,6 +177,33 @@ def load_checkpoint(
         with open(path + ".meta.json") as f:
             meta = json.load(f)
     return state, meta
+
+
+def load_state(save_dir: str, state: TrainState, parallel=None,
+               name: str = "checkpoint_last") -> Tuple[TrainState, Dict[str, Any]]:
+    """``load_checkpoint`` into ``state``'s layout: the whole state, or under
+    ``parallel`` (a ``parallel.DataParallel``, ``state`` this rank's blocks)
+    this rank's blocks of the full state, which every rank reads. A
+    checkpoint saved at any ``data × fsdp`` layout resumes at any other."""
+    if parallel is None:
+        return load_checkpoint(save_dir, state, name)
+    full, meta = load_checkpoint(save_dir, parallel.gather_state(state), name)
+    return parallel.shard_state(full), meta
+
+
+def save_state(state: TrainState, write: Callable[[TrainState], None], parallel=None) -> None:
+    """``write(full state)``: ``state`` itself, or under ``parallel`` the state
+    gathered from every rank's blocks, written by rank 0 between two barriers
+    (every rank calls this; the write has landed when it returns)."""
+    if parallel is None:
+        write(state)
+        return
+    parallel.barrier()
+    full = parallel.gather_state(state)
+    if parallel.mesh.rank == 0:
+        write(full)
+        wait_for_saves()
+    parallel.barrier()
 
 
 def _remove(path: str) -> None:

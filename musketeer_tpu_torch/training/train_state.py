@@ -18,7 +18,7 @@ parameters and the optimizer state in place, which saves a copy of each.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,9 +79,11 @@ class AdamW:
         return {"count": 0, "mu": map_leaves(zeros, params), "nu": map_leaves(zeros, params)}
 
     @torch.no_grad()
-    def update(self, params: Params, grads: List[torch.Tensor], opt_state: Dict[str, Any]) -> None:
+    def update(self, params: Params, grads: List[torch.Tensor], opt_state: Dict[str, Any],
+               norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm) -> None:
         """Apply one update to ``params`` and ``opt_state`` in place; ``grads``
-        are aligned with ``named_leaves(params)`` and may be modified."""
+        are aligned with ``named_leaves(params)`` and may be modified. ``norm``
+        takes the clip's norm (a sharded state's global norm under FSDP)."""
         cfg = self.cfg
         names = named_leaves(params)
         ps = [p for _, p in names]
@@ -91,7 +93,7 @@ class AdamW:
         if frozen:
             grads = [torch.zeros_like(g) if f else g for g, f in zip(grads, frozen)]
         if cfg.clip_norm > 0:
-            gn = float(global_norm(grads))
+            gn = float(norm(grads))
             if not gn < cfg.clip_norm:
                 grads = torch._foreach_div(grads, gn)
                 torch._foreach_mul_(grads, cfg.clip_norm)

@@ -19,6 +19,15 @@ summed over the leading accumulation axis A and divided by A, the global
 norm, and the optimizer update, skipped (params, optimizer state and step
 left as they were) when the norm is not finite. Where the JAX step is one
 jitted program, this one runs eagerly; it updates the state in place.
+
+With ``parallel`` (a ``parallel.DataParallel``) the step is one rank's part
+of a data × fsdp run, given this rank's block of every batch: it gathers the
+parameters (FSDP), counts each task's kept tokens over all ranks before the
+backward (each task's loss is divided by its global count), ranks drop-worst
+and drop-best over the global batch, sums the gradients over the ranks
+(reduce-scattered to the blocks under FSDP), and takes the global norm, so
+that every rank makes the same update and the same skip decision. The loss
+and metrics it returns are the global ones.
 """
 
 from __future__ import annotations
@@ -98,7 +107,7 @@ def _dup(a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def task_loss(params, model_cfg: ModelConfig, crit_cfg: CriterionConfig, batch: TaskBatch,
               generator: Optional[torch.Generator], update_num: int,
-              train: bool = True) -> CELossOut:
+              train: bool = True, comm=None) -> CELossOut:
     """One task's (loss_sum, nll_sum, ntokens)."""
     batch = dequantize_batch(batch, ofa.compute_dtype(model_cfg))
     if crit_cfg.use_rdrop and train:
@@ -114,7 +123,7 @@ def task_loss(params, model_cfg: ModelConfig, crit_cfg: CriterionConfig, batch: 
         code_masks_all=batch.code_masks is not None,
     )
     return label_smoothed_ce(logits, batch.target, constraint_masks=batch.constraint_masks,
-                             conf=batch.conf,
+                             conf=batch.conf, comm=comm,
                              **_ce_options(model_cfg, crit_cfg, update_num, train))
 
 
@@ -137,7 +146,7 @@ def _pack_key(batch: TaskBatch):
 
 def packed_text_loss(params, model_cfg: ModelConfig, crit_cfg: CriterionConfig,
                      group: Dict[str, TaskBatch], generator: Optional[torch.Generator],
-                     update_num: int) -> Tuple[List[str], List[CELossOut]]:
+                     update_num: int, comm=None) -> Tuple[List[str], List[CELossOut]]:
     """ONE forward for G same-shape tasks; the criterion runs per task on its
     rows, so drop-worst ranking, R-Drop halves and token counts stay per task."""
     names = sorted(group)
@@ -180,7 +189,7 @@ def packed_text_loss(params, model_cfg: ModelConfig, crit_cfg: CriterionConfig,
     opts["use_rdrop"] = dup
     outs = [label_smoothed_ce(logits_g[g], tgt_g[g],
                               constraint_masks=None if cm_g is None else cm_g[g],
-                              conf=None if conf_g is None else conf_g[g], **opts)
+                              conf=None if conf_g is None else conf_g[g], comm=comm, **opts)
             for g in range(G)]
     return names, outs
 
@@ -211,8 +220,11 @@ def _pack_vision_stem(params, model_cfg: ModelConfig,
 def multitask_loss(params, model_cfg: ModelConfig, crit_cfg: CriterionConfig,
                    batches: Dict[str, TaskBatch], generator: Optional[torch.Generator],
                    update_num: int, pack_text: bool = True,
-                   pack_vision: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Σ_task loss_t / ntokens_t, and per-task metrics."""
+                   pack_vision: bool = True,
+                   comm=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Σ_task loss_t / ntokens_t, and per-task metrics. With ``comm`` the
+    batches are this rank's blocks and ntokens_t is the global count: the
+    result is this rank's part of the global loss (the parts add up to it)."""
     total = 0.0
     metrics: Dict[str, torch.Tensor] = {}
     dt = ofa.compute_dtype(model_cfg)
@@ -246,32 +258,43 @@ def multitask_loss(params, model_cfg: ModelConfig, crit_cfg: CriterionConfig,
         metrics[f"loss/{name}"] = norm
         metrics[f"nll/{name}"] = out.nll_loss / ntok
 
-    for name, batch in singles:
-        add(name, task_loss(params, model_cfg, crit_cfg, batch, generator, update_num))
+    outs = [(name, task_loss(params, model_cfg, crit_cfg, batch, generator, update_num,
+                             comm=comm))
+            for name, batch in singles]
     # ordered by the key's text, as the JAX step's str(item) orders them (the
     # keys differ within that prefix); str() of an item would print tensors
     for _, group in sorted(groups.items(), key=lambda kv: str(kv[0])):
-        names, outs = packed_text_loss(params, model_cfg, crit_cfg, group, generator, update_num)
-        for name, out in zip(names, outs):
-            add(name, out)
+        outs += zip(*packed_text_loss(params, model_cfg, crit_cfg, group, generator, update_num,
+                                      comm=comm))
+    if comm is not None:  # every task's kept tokens over all ranks, in one collective
+        ntok = comm.all_reduce(torch.stack([o.ntokens for _, o in outs]))
+        outs = [(n, o._replace(ntokens=t)) for (n, o), t in zip(outs, ntok)]
+    for name, out in outs:
+        add(name, out)
     metrics["loss/total"] = total
     return total, metrics
 
 
 def make_train_step(model_cfg: ModelConfig, crit_cfg: CriterionConfig, optim_cfg: OptimConfig,
-                    ema_decay: float = 0.0, pack_text: bool = True, pack_vision: bool = True):
+                    ema_decay: float = 0.0, pack_text: bool = True, pack_vision: bool = True,
+                    parallel=None):
     """Build the train step: ``(state, batches, generator) → (state, metrics)``.
 
     Every tensor in ``batches`` has a leading accumulation axis A (A = 1 for
     no accumulation). ``generator`` (None: no dropout) draws the dropout and
     drop-path masks on the batches' device. The step changes ``state``'s
     parameters and optimizer state in place and returns the state with its
-    step advanced (or as it was, after a non-finite gradient)."""
+    step advanced (or as it was, after a non-finite gradient). ``parallel``
+    (a ``parallel.DataParallel``) makes it one rank's step of a data × fsdp
+    run (see the module docstring)."""
     tx = make_optimizer(optim_cfg)
+    norm = global_norm if parallel is None else parallel.global_norm
 
     def step(state: TrainState, batches: Dict[str, TaskBatch],
              generator: Optional[torch.Generator] = None):
-        ps = [p for _, p in named_leaves(state.params)]
+        params = (state.params if parallel is None
+                  else parallel.gather(state.params, requires_grad=True))
+        ps = [p for _, p in named_leaves(params)]
         for p in ps:
             p.grad = None
         A = next(iter(batches.values())).src_tokens.shape[0]
@@ -279,17 +302,24 @@ def make_train_step(model_cfg: ModelConfig, crit_cfg: CriterionConfig, optim_cfg
         for a in range(A):
             micro = {n: TaskBatch(*[None if x is None else x[a] for x in b])
                      for n, b in batches.items()}
-            loss, metrics = multitask_loss(state.params, model_cfg, crit_cfg, micro, generator,
-                                           state.step, pack_text, pack_vision)
+            loss, metrics = multitask_loss(params, model_cfg, crit_cfg, micro, generator,
+                                           state.step, pack_text, pack_vision, comm=parallel)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
+        if parallel is not None:
+            grads = parallel.reduce_grads(grads)
+            keys = sorted(metrics)
+            summed = parallel.all_reduce(
+                torch.stack([metrics[k].detach() for k in keys] + [loss_sum]))
+            metrics = dict(zip(keys, summed[:-1]))
+            loss_sum = summed[-1]
         if A > 1:
             torch._foreach_div_(grads, float(A))
-        gnorm = global_norm(grads)
+        gnorm = norm(grads)
         finite = bool(torch.isfinite(gnorm))
         if finite:
-            tx.update(state.params, grads, state.opt_state)
+            tx.update(state.params, grads, state.opt_state, norm=norm)
         for p in ps:
             p.grad = None
         if state.ema_params is not None:

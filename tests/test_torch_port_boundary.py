@@ -78,7 +78,10 @@ def test_port_imports_no_jax():
             "musketeer_tpu_torch.models.vqgan", "musketeer_tpu_torch.tasks.clip_tokenizer",
             "musketeer_tpu_torch.tasks.image_gen", "musketeer_tpu_torch.criterions.scst",
             "musketeer_tpu_torch.criterions.clip_scst",
-            "musketeer_tpu_torch.training.scst_loop"} <= set(modules)
+            "musketeer_tpu_torch.training.scst_loop", "musketeer_tpu_torch.native.__init__",
+            "musketeer_tpu_torch.utils.flops", "musketeer_tpu_torch.parallel.mesh",
+            "musketeer_tpu_torch.parallel.data_parallel", "musketeer_tpu_torch.parallel.dryrun",
+            "musketeer_tpu_torch.examples.joint_training_demo"} <= set(modules)
 
 
 @pytest.mark.parametrize("name", ["dict.txt", "encoder.json", "vocab.bpe"])
@@ -202,7 +205,7 @@ def test_unported_model_options_raise(option):
 
 @pytest.mark.parametrize("option", [
     dict(encoder_prompt=True), dict(decoder_prompt=True), dict(interpolate_position=True),
-    dict(use_adapter=True), dict(use_flash_attention=False),
+    dict(use_adapter=True), dict(use_flash_attention=False), dict(remat=True),
 ])
 def test_ported_model_options_pass_the_check(option):
     """The options the XLA branch carries are no longer refused (the

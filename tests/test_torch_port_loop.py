@@ -17,6 +17,7 @@ see CHANGES.md). The CLI runs ``--device cpu --arch ofa_tiny``.
 import dataclasses
 import json
 import random
+import shutil
 import time
 from unittest import mock
 
@@ -461,12 +462,94 @@ def test_cli_evaluate_all(cli_run, tsvs):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--remat"], "parallelism"), (["--fsdp", "2"], "parallelism"), (["--pipeline", "2"], "parallelism"),
-    (["--seq-parallel", "2"], "parallelism"), (["--microbatches", "2"], "parallelism"),
+    (["--model-parallel", "2"], "model, pipe and seq axes"),
+    (["--pipeline", "2"], "model, pipe and seq axes"),
+    (["--seq-parallel", "2"], "model, pipe and seq axes"),
+    (["--microbatches", "2"], "model, pipe and seq axes"),
 ])
 def test_cli_unported_paths_raise(tsvs, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["train", "--tasks", f"caption={tsvs['caption']}", "--device", "cpu", *flags])
+
+
+def test_cli_fsdp_needs_ranks(tsvs, monkeypatch):
+    """``--fsdp 2`` in one process names torchrun; reward fine-tuning refuses
+    a multi-rank launch."""
+    with pytest.raises(ValueError, match="torchrun"):
+        cli.main(["train", "--tasks", f"caption={tsvs['caption']}", "--device", "cpu",
+                  "--fsdp", "2"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="one rank"):
+        cli.main(["train", "--criterion", "scst", "--tasks", f"caption={tsvs['caption']}",
+                  "--device", "cpu"])
+
+
+@pytest.mark.parametrize("mode", ["fsdp2", "remat"])
+def test_cli_train_fsdp_and_remat_match_one_rank(cli_run, tsvs, tmp_path, mode):
+    """``cli train --fsdp 2`` on two gloo ranks (as ``torchrun --nproc_per_node=2``
+    launches it), and ``--remat`` in one process, against ``cli_run``'s
+    one-rank run of the same flags. The remat run's checkpoint equals it bit
+    for bit. The fsdp run's is gathered from the two ranks' halves; the CLI
+    trains the preset in bf16, where a row's products round differently in a
+    batch of one row than of two, so Adam's moves are compared: no parameter
+    moves 4·lr (2·lr for each of the two updates; lr = 1e-4) or more away from
+    the one-rank run's move, and at most 0.1 % by half an lr or more
+    (measured: 0.012 %, the largest 1.98·lr; a step that saw half of the
+    batch, or misplaced a shard, flips far more)."""
+    from musketeer_tpu_torch.parallel.dryrun import run_cli_ranks
+
+    tasks = ",".join(f"{n}={tsvs[n]}" for n in ("caption", "snli_ve"))
+    argv = ["train", "--tasks", tasks, "--arch", "ofa_tiny", "--device", "cpu",
+            "--patch-image-size", str(IMG), "--max-update", "2", "--ema-decay", "0.9",
+            "--save-dir", str(tmp_path / "run"), "--warmup-updates", "1"]
+    if mode == "fsdp2":
+        run_cli_ranks(2, argv + ["--fsdp", "2"])
+    else:
+        cli.main(argv + ["--remat"])
+    got, meta = load_checkpoint(str(tmp_path / "run"), device="cpu")
+    want = cli_run["state"]
+    assert got.step == 2 and meta["num_updates"] == 2 and got.opt_state["count"] == 2
+    leaves = lambda tree: [t.detach() for _, t in named_leaves(tree)]
+    if mode == "remat":
+        for name in ("params", "ema_params"):
+            assert all(torch.equal(x, y) for x, y in zip(leaves(getattr(got, name)),
+                                                         leaves(getattr(want, name)))), name
+        return
+    assert [t.shape for t in leaves(got.params)] == [t.shape for t in leaves(want.params)]
+    before = leaves(from_jax(init_ofa_params(tc.ofa_tiny(), torch.Generator().manual_seed(7),
+                                             "cpu"), tc.ofa_tiny(), "cpu", torch.float32))
+    lr = 1e-4
+    off = torch.cat([((x - p0) - (y - p0)).abs().flatten() for x, y, p0 in
+                     zip(leaves(got.params), leaves(want.params), before)])
+    assert float(off.max()) < 2 * 2 * lr
+    assert float((off >= 0.5 * lr).float().mean()) <= 1e-3
+
+
+def test_cli_train_validates_on_two_ranks(tsvs, tmp_path):
+    """``cli train --fsdp 2 --valid-data`` on two gloo ranks, validating after
+    each update, against the one-rank run of the same flags: every rank
+    validates the gathered parameters (none waits in a collective while
+    another does), and the best metric and checkpoint_best's update are the
+    one-rank run's."""
+    from musketeer_tpu_torch.parallel.dryrun import run_cli_ranks
+
+    tasks = ",".join(f"{n}={tsvs[n]}" for n in ("caption", "snli_ve"))
+    argv = ["train", "--tasks", tasks, "--arch", "ofa_tiny", "--device", "cpu",
+            "--patch-image-size", str(IMG), "--max-update", "2", "--warmup-updates", "1",
+            "--valid-data", tsvs["snli_ve"], "--validate-interval-updates", "1"]
+    cli.main(argv + ["--save-dir", str(tmp_path / "one")])
+    run_cli_ranks(2, argv + ["--fsdp", "2", "--save-dir", str(tmp_path / "two")])
+    metas = {}
+    for run in ("one", "two"):
+        meta = {}
+        for name in ("checkpoint_last", "checkpoint_best"):
+            with open(tmp_path / run / f"{name}.meta.json") as f:
+                meta[name] = json.load(f)
+        last, best = meta["checkpoint_last"], meta["checkpoint_best"]
+        assert last["num_updates"] == 2 and best["val_metric"] is not None
+        metas[run] = (last["best_val"], best["val_metric"], best["num_updates"])
+        shutil.rmtree(tmp_path / run)  # ~0.5 GB of fp32 state a run
+    assert metas["two"] == metas["one"]
 
 
 def test_cli_refuses_a_missing_cuda_device(tsvs):
