@@ -13,6 +13,8 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --scst-only    # phases 1, 2 and 21
     python3 chip_smoke.py --parallel-only  # phases 1, 2 and 22
     python3 chip_smoke.py --multi-card   # phases 1, 2 and 23, on four cards
+    python3 chip_smoke.py --multi-axes-only  # phases 1, 2 and 23 (c), on four cards
+    python3 chip_smoke.py --axes-only    # phases 1, 2 and 24
 
 ``--train-only``, ``--decode-only`` and ``--k8-only`` also run against an
 older tree's package when this file is copied into that tree's root, so that
@@ -245,16 +247,28 @@ Phases; any failure raises and the script exits non-zero:
     ``nvidia-smi`` reports); (e) ``musketeer_tpu_torch.examples.
     joint_training_demo`` in bf16: every task's metric improves, K3 = K4 > 0.
 
-23. (``--multi-card`` only, on four cards) the data and fsdp axes over
-    NCCL ranks, one per card: ``dryrun_multirank`` in each layout (data 4,
-    fsdp 4, 2 x 2) against one card within 1e-5, then phase 22 (b)'s
-    ``ofa_large`` step under ``--remat`` on one card and on four as data 4
-    and as fsdp 4: state bytes and peak memory per rank, step times, MFU.
+23. (``--multi-card`` only, on four cards) the mesh's axes over NCCL
+    ranks, one per card: ``dryrun_multirank`` in each layout (data 4, fsdp
+    4, 2 x 2, and the model, pipe and seq layouts of ``dryrun.AXES_LAYOUTS``:
+    model 2 x fsdp 2, model 4, pipe 4, data 2 x pipe 2 interleaved, seq 4)
+    against one card within 1e-5 in fp32, then phase 22 (b)'s ``ofa_large``
+    step under ``--remat`` on one card and on four as data 4 and as fsdp 4:
+    state bytes and peak memory per rank, step times, MFU; then (c)
+    ``ofa_large`` bf16 ``--remat`` with dropout off at model 4, pipe 4
+    (M = 4 and 8) and seq 4, a spawn each, every rank printing its peak
+    memory as it goes, each layout's losses within ``BF16_TOL`` of one
+    card's on the same batch.
+24. the model, pipe and seq axes at size 1 (``ofa_large`` bf16, 4 + 4
+    layers): the plain step, the whole-mesh step at model 1, pipe 1 with
+    M = 2 and with ``--remat``, seq 1, each within ``BF16_TOL`` of the plain
+    step; the pipelined forward without autograd (K1 at B/M rows); one
+    model rank's shard at model 4 (4 heads, ffn 1024); every K1/K3/K4 shape
+    against its plain version and the fp32 function.
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
 stage chain, each eval task, each CLI run of phase 19, each part of phases
-20 and 21) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+20 and 21, each run of phase 24) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
 the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
 Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
@@ -272,7 +286,8 @@ eval task of phase 18; K1's, K2's, K3's and K4's ``entry_launches``: theirs
 in each CLI run of phase 19, and ``xla_phase_launches``: theirs in each part
 of phase 20; K1's, K3's and K4's ``scst_phase_launches``: theirs in each part
 of phase 21; K3's and K4's ``remat_launches``: theirs in phase 22's updates
-without and with ``--remat``.
+without and with ``--remat``; K1's, K3's and K4's ``axes_launches``: theirs
+in each run of phase 24.
 """
 
 from __future__ import annotations
@@ -3788,7 +3803,7 @@ def phase_parallel(smi: str, tmp: str, phase8: dict = None, entry_mfu: dict = No
 
 
 # ---------------------------------------------------------------------------
-# phase 23 (--multi-card, four cards): the data x fsdp axes over NCCL ranks
+# phase 23 (--multi-card, four cards): the mesh's axes over NCCL ranks
 # ---------------------------------------------------------------------------
 
 MULTI_RANKS = 4
@@ -3808,7 +3823,7 @@ def phase_multi_card(smi: str) -> dict:
     holds 2 rows of a task in (a), as ``demo_job(1)`` does, and
     ``TRAIN_BATCH`` rows in (b), as the one-card run does): that run and
     (a)'s one-card reference record their calls, and each shape is held to
-    its plain version and the fp32 function."""
+    its plain version and the fp32 function; (c) ``_multi_axes``."""
     from musketeer_tpu_torch.config import ofa_large
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
     from musketeer_tpu_torch.params import from_jax, trainable
@@ -3823,8 +3838,11 @@ def phase_multi_card(smi: str) -> dict:
         dryrun.run_job(dryrun.demo_job(1), device="cuda:0")  # one rank's shapes
         for fsdp in MULTI_LAYOUTS:
             t1 = time.perf_counter()
-            out = dryrun.dryrun_multirank(MULTI_RANKS, fsdp, "cuda")
-            log(f"[multi a] data {MULTI_RANKS // fsdp} x fsdp {fsdp} on NCCL: {out} equal to "
+            # the last spawn also runs the model, pipe and seq layouts
+            layouts = list(dryrun.AXES_LAYOUTS) if fsdp == MULTI_LAYOUTS[-1] else []
+            out = dryrun.dryrun_multirank(MULTI_RANKS, fsdp, "cuda", layouts=layouts)
+            log(f"[multi a] data {MULTI_RANKS // fsdp} x fsdp {fsdp}"
+                f"{' and ' + ', '.join(layouts) if layouts else ''} on NCCL: {out} equal to "
                 f"one card's within 1e-5 ({time.perf_counter() - t1:.1f} s)")
     held = _check_train_calls("multi a", k3_calls, k4_calls, seen)
     log(f"[multi a] {held} K3/K4 shapes (a rank's and the one-card reference's) held to their "
@@ -3870,8 +3888,261 @@ def phase_multi_card(smi: str) -> dict:
     if not max(gaps) <= BF16_TOL or not b["rank_state_bytes"][0] < a["rank_state_bytes"][0]:
         raise AssertionError(f"fsdp 4 against data 4: loss gaps {gaps}, state "
                              f"{b['rank_state_bytes']} vs {a['rank_state_bytes']}")
+    runs.update(_multi_axes(smi))
     log(f"[multi] phase 23 done in {time.perf_counter() - t0:.1f} s")
     return runs
+
+
+# (c): ofa_large at the model, pipe and seq axes on the four cards, one spawn
+# a layout: (name, the layout's axes, rows a task in all, its model options).
+# Every rank holds all rows of the step (the axes split the layers, not the
+# batch), so 2 rows a task is a one-card run's batch on every rank; M = 8
+# needs 4 (R-Drop's 8 forward rows a task, one a microbatch).
+MULTI_AXES = (
+    ("model 4", dict(model=MULTI_RANKS), TRAIN_BATCH, {}),
+    ("pipe 4 M4", dict(pipe=MULTI_RANKS), TRAIN_BATCH, dict(pipeline_microbatches=4)),
+    ("seq 4", dict(seq=MULTI_RANKS), TRAIN_BATCH, dict(seq_parallel=True)),
+    ("pipe 4 M8", dict(pipe=MULTI_RANKS), 2 * TRAIN_BATCH, dict(pipeline_microbatches=8)),
+)
+MULTI_AXES_TIMEOUT = 180.0  # seconds a layout's spawn may take, its NCCL timeout less 30
+NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                  encoder_drop_path_rate=0.0, decoder_drop_path_rate=0.0)
+
+
+def _multi_axes(smi: str) -> dict:
+    """Phase 23 (c): ``ofa_large`` bf16 ``--remat`` with dropout off (the
+    pipeline's and the SP gate's condition in training), phase 8's 8 tasks,
+    3 updates, at each layout of ``MULTI_AXES`` on the 4 cards, each in a
+    spawn of its own, every rank printing its state, its steps and its peak
+    memory as it goes; and on card 0 alone in this process on the same
+    batches (the layouts' options act only over a mesh). Each layout's
+    losses are held to the one card's within BF16_TOL, and its step times,
+    samples/s, MFU, state and peak per rank are printed. A layout that fails
+    is reported and the next one runs; the phase then fails."""
+    from musketeer_tpu_torch.config import MeshConfig, ofa_large
+    from musketeer_tpu_torch.params import from_jax, trainable
+    from musketeer_tpu_torch.parallel import dryrun
+
+    crit, optim = _train_configs()
+    base = dataclasses.replace(ofa_large(), dtype="bfloat16", use_flash_attention=True,
+                               remat=True, **NO_DROPOUT)
+    params = trainable(from_jax(_random_model_tree(base, SEED + 22), base, "cpu", torch.float32))
+    steps, refs, runs, failed = {}, {}, {}, []
+
+    def job(cfg, rows: int, report: str):
+        return dryrun.Job(cfg, crit, optim, params, [steps[rows]] * REMAT_UPDATES,
+                          update=TRAIN_STEP0, seed=SEED, keep_state=False, report=report)
+
+    def show(name: str, world: int, rows: int, rec: dict, secs: float) -> None:
+        flops = _step_flops(base, _batch_shapes(steps[rows]), rdrop=crit.use_rdrop)
+        p50 = statistics.median(rec["secs"][1:])
+        log(f"[multi c] ofa_large bf16 --remat, dropout off, {len(TRAIN_TASKS)} tasks x {rows} "
+            f"rows on {name}: losses {[m['loss'] for m in rec['metrics']]}, steps "
+            f"{[round(x * 1e3, 1) for x in rec['secs']]} ms (p50 after the first {p50 * 1e3:.1f} "
+            f"ms, {len(TRAIN_TASKS) * rows / p50:.2f} samples/s, MFU "
+            f"{flops / p50 / (world * _peak_bf16(smi)):.4f}), state per rank "
+            f"{[round(b / 2**30, 3) for b in rec['rank_state_bytes']]} GiB, peak per rank "
+            f"{[round(x / 2**30, 2) for x in rec['peaks']]} GiB ({secs:.1f} s) on {smi}")
+
+    for name, axes, rows, opts in MULTI_AXES:
+        if rows not in steps:
+            steps[rows] = {n: type(b)(*[None if x is None else x.cpu() for x in b]) for n, b in
+                           _train_batches(base, TRAIN_TASKS, rows, SEED).items()}
+            t1 = time.perf_counter()
+            rec = dryrun.run_job(job(base, rows, f"multi c one card {rows}"), device="cuda:0")
+            rec.update(peaks=[rec["peak"]], rank_state_bytes=[rec["state_bytes"]])
+            refs[rows] = runs[f"one card {rows}"] = rec
+            show("one card", 1, rows, rec, time.perf_counter() - t1)
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        try:
+            rec = dryrun.run_layouts(
+                MULTI_RANKS, [(MeshConfig(**axes), job(dataclasses.replace(base, **opts), rows,
+                                                       f"multi c {name}"))],
+                "cuda", timeout=MULTI_AXES_TIMEOUT)[0]
+        except Exception as e:  # reported; the next layout runs, and the phase fails below
+            failed.append(name)
+            log(f"[multi c] {name}: FAILED after {time.perf_counter() - t1:.1f} s: "
+                f"{type(e).__name__}: {e}")
+            continue
+        runs[name] = rec
+        show(name, MULTI_RANKS, rows, rec, time.perf_counter() - t1)
+        ref = refs[rows]["metrics"]
+        gaps = [abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(rec["metrics"], ref)]
+        log(f"[multi c] {name} against one card: loss gaps {gaps} (tol {BF16_TOL})")
+        if not max(gaps) <= BF16_TOL:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"phase 23 (c): {failed} failed or differ from one card")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the model, pipe and seq axes at size 1 on one card
+# ---------------------------------------------------------------------------
+
+# ofa_large at full width, depth cut to 4 + 4 (a pipeline stage's L/P layers);
+# an image task and a text task, 2 rows each (R-Drop: 4), dropout off (the
+# pipeline's and the SP gate's condition in training)
+AXES_LAYERS = 4
+AXES_TASKS = {"caption": TRAIN_TASKS["caption"], "gigaword": (128, 32, False, False, None)}
+AXES_MODEL = 4  # one rank's shard: 16 / 4 heads, ffn 4096 / 4
+
+
+def _one_rank_group():
+    """A process group of this process alone (NCCL), which the model axis's
+    collectives run on when a mesh names no group of its own."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    os.environ.setdefault("MASTER_ADDR", "localhost")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+
+
+def phase_axes(smi: str, seen: set = None) -> dict:
+    """Phase 24: ``ofa_large`` bf16 (4 + 4 layers) through each new path at
+    size 1 on one card, one joint update each from one state: the plain step;
+    the whole-mesh step at model 1 (``DataParallel`` over a world of one);
+    the pipelined encoder and decoder at pipe 1 with M = 2 (GPipe's schedule,
+    each stage's K3/K4 at B/M rows), and with ``--remat`` (the stage's forward
+    on K1, its recompute on K3 and K4); ring attention at seq 1. Each run's
+    loss and gradient norm equal the plain step's within ``BF16_TOL``. The
+    pipelined forward without autograd (validation's) runs K1 at B/M rows.
+    Then one model rank's shard at model 4 (4 heads, ffn 1024): its forward
+    and backward, the model axis's collectives on a process group of one,
+    K3/K4 at 4 heads. The pipe and seq gates open at one rank only here: the
+    model's gate functions are patched to return a mesh of one rank. Every
+    K1/K3/K4 shape of these runs is held to its plain version and the fp32
+    function. → {run: its K1/K3/K4 launches}."""
+    import torch.distributed as dist
+
+    from musketeer_tpu_torch.config import ofa_large
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.parallel import DataParallel, set_mesh
+    from musketeer_tpu_torch.parallel.mesh import Mesh
+    from musketeer_tpu_torch.params import from_jax, trainable
+    from musketeer_tpu_torch.training import init_train_state, make_train_step
+    from musketeer_tpu_torch.training.train_state import named_leaves
+    from musketeer_tpu_torch.training.train_step import multitask_loss
+
+    t0 = time.perf_counter()
+    seen = set() if seen is None else seen
+    cfg0 = dataclasses.replace(ofa_large(), dtype="bfloat16", use_flash_attention=True,
+                               encoder_layers=AXES_LAYERS, decoder_layers=AXES_LAYERS)
+    tree = _random_model_tree(cfg0, SEED + 24)
+    crit, optim = _train_configs()
+    batches = _train_batches(cfg0, AXES_TASKS, TRAIN_BATCH, SEED)
+    one = Mesh((1, 1, 1, 1, 1), 0, {})
+    pipe_gate = lambda cfg: one if cfg.pipeline_microbatches > 0 else None
+    seq_gate = lambda cfg: one if cfg.seq_parallel else None
+    runs = {"plain": {}, "model 1": {}, "pipe 1 M2": dict(pipeline_microbatches=2),
+            "pipe 1 M2 remat": dict(pipeline_microbatches=2, remat=True),
+            "seq 1": dict(seq_parallel=True)}
+    k1_calls, k3_calls, k4_calls = {}, {}, {}
+    out, launches = {}, {}
+    for name, kw in runs.items():
+        cfg = dataclasses.replace(cfg0, **kw)
+        params = trainable(from_jax(tree, cfg, "cuda", torch.float32))
+        state = init_train_state(params, optim)._replace(step=TRAIN_STEP0)
+        par = DataParallel(one, params) if name == "model 1" else None
+        step = make_train_step(cfg, crit, optim, parallel=par)
+        torch.cuda.synchronize()
+        _reset_counters()
+        t1 = time.perf_counter()
+        with mock.patch.object(ofa, "_active_pipe_mesh", pipe_gate), \
+                mock.patch.object(ofa, "_active_seq_mesh", seq_gate), \
+                mock.patch.object(kb, "FlashAttentionTrainable",
+                                  _recording_attention(k3_calls, k4_calls)), \
+                _recording_k1_k2(k1_calls, {}):
+            state, m = step(state, batches, None)
+            torch.cuda.synchronize()
+        c = _counters()
+        launches[name] = {k: c[k] for k in ("K1", "K3", "K4")}
+        out[name] = dict(loss=float(m["loss"]), gnorm=float(m["gnorm"]))
+        log(f"[axes] {name}: loss {out[name]['loss']:.6f} gnorm {out[name]['gnorm']:.6f}, "
+            f"launches {launches[name]}, {time.perf_counter() - t1:.2f} s")
+        del state, step, params
+    ref = out["plain"]
+    for name, r in out.items():
+        gaps = {k: abs(r[k] - ref[k]) / abs(ref[k]) for k in ("loss", "gnorm")}
+        if max(gaps.values()) > BF16_TOL:
+            raise AssertionError(f"[axes] {name} against the plain step: {gaps} > {BF16_TOL}")
+    if launches["model 1"] != launches["plain"] or out["model 1"] != out["plain"]:
+        raise AssertionError(f"[axes] model 1 differs from the plain step: {out}, {launches}")
+    for name in ("pipe 1 M2", "pipe 1 M2 remat"):  # each microbatch's calls
+        n = launches[name]
+        if not (n["K3"] == n["K4"] == 2 * launches["plain"]["K4"]):
+            raise AssertionError(f"[axes] {name}: K3/K4 launches {n} against {launches['plain']}")
+    if launches["pipe 1 M2 remat"]["K1"] != 2 * launches["plain"]["K3"]:
+        raise AssertionError(f"[axes] the remat stage's forward runs K1: {launches}")
+    if launches["seq 1"]["K3"] != 0 or launches["seq 1"]["K4"] != 0:
+        raise AssertionError(f"[axes] ring attention is plain PyTorch: {launches['seq 1']}")
+    # the pipelined forward without autograd (validation's): K1 at B/M rows
+    cfg = dataclasses.replace(cfg0, pipeline_microbatches=2)
+    params = from_jax(tree, cfg, "cuda", torch.bfloat16)
+    b = _micro(batches)["caption"]
+    _reset_counters()
+    with mock.patch.object(ofa, "_active_pipe_mesh", pipe_gate), torch.no_grad(), \
+            _recording_k1_k2(k1_calls, {}):
+        pipelined = ofa.forward(params, cfg, b.src_tokens, b.prev_output_tokens,
+                                b.patch_images.to(torch.bfloat16), b.patch_masks)
+        torch.cuda.synchronize()
+    c = _counters()
+    launches["pipe 1 M2 no grad"] = {k: c[k] for k in ("K1", "K3", "K4")}
+    with torch.no_grad():
+        plain = ofa.forward(params, dataclasses.replace(cfg, pipeline_microbatches=0),
+                            b.src_tokens, b.prev_output_tokens, b.patch_images.to(torch.bfloat16),
+                            b.patch_masks)
+    err = _check_close("[axes] pipelined forward", pipelined[..., :cfg.vocab_size].float(),
+                       plain[..., :cfg.vocab_size].float(), BF16_TOL)
+    want = 2 * (cfg.encoder_layers + 2 * cfg.decoder_layers)  # per microbatch
+    if launches["pipe 1 M2 no grad"] != {"K1": want, "K3": 0, "K4": 0}:
+        raise AssertionError(f"[axes] pipelined forward launches {launches['pipe 1 M2 no grad']}")
+    log(f"[axes] pipelined forward without autograd: logits within {err:.3e} of the plain "
+        f"forward's, launches {launches['pipe 1 M2 no grad']}")
+    # one model rank's shard at model 4
+    _one_rank_group()
+    try:
+        mesh4 = Mesh((1, 1, AXES_MODEL, 1, 1), 0, {})
+        full = trainable(from_jax(tree, cfg0, "cuda", torch.float32))
+        blocks = DataParallel(mesh4, full).shard(full)
+        blocks["embed_tokens"] = full["embed_tokens"]  # the model uses it whole
+        _reset_counters()
+        with set_mesh(mesh4), mock.patch.object(kb, "FlashAttentionTrainable",
+                                                _recording_attention(k3_calls, k4_calls)):
+            loss, _ = multitask_loss(blocks, cfg0, crit, _micro(batches), None, TRAIN_STEP0)
+            loss.backward()
+        torch.cuda.synchronize()
+        c = _counters()
+        launches[f"model {AXES_MODEL} shard"] = {k: c[k] for k in ("K1", "K3", "K4")}
+        grads = [p.grad for _, p in named_leaves(blocks) if p.grad is not None]
+        if not (math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)):
+            raise AssertionError("[axes] the model shard's loss or gradients are not finite")
+        q = blocks["encoder"]["layers"][0]["self_attn"]["q_proj"]["w"]
+        f1 = blocks["encoder"]["layers"][0]["fc1"]["w"]
+        log(f"[axes] model {AXES_MODEL} shard: q_proj {tuple(q.shape)}, fc1 {tuple(f1.shape)}, "
+            f"loss {float(loss):.6f} (a shard's part), {len(grads)} finite gradient leaves, "
+            f"launches {launches[f'model {AXES_MODEL} shard']}")
+    finally:
+        dist.destroy_process_group()
+    shard_keys = [k for k in k3_calls if f" H{cfg0.attention_heads // AXES_MODEL} " in k]
+    if not shard_keys:
+        raise AssertionError(f"[axes] no K3 call at {cfg0.attention_heads // AXES_MODEL} heads")
+    t1 = time.perf_counter()
+    held = _check_train_calls("axes", k3_calls, k4_calls, seen)
+    _check_eval_calls("axes", k1_calls, {}, seen)
+    log(f"[axes] {held} K3/K4 shapes (the model shard's {sorted(shard_keys)} among them) and "
+        f"{len(k1_calls)} K1 shapes held to their plain versions and the fp32 function "
+        f"({time.perf_counter() - t1:.1f} s)")
+    log(f"[axes] phase 24 done in {time.perf_counter() - t0:.1f} s on {smi}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -3904,8 +4175,15 @@ def main(argv=None) -> int:
                       help="after phases 1-2, run only phase 22 (the native reader, --remat "
                            "at ofa_large, the process-group path, MFU), and print no result line")
     only.add_argument("--multi-card", action="store_true",
-                      help="after phases 1-2, run only phase 23 on four cards (the data and "
-                           "fsdp axes over NCCL ranks), and print no result line")
+                      help="after phases 1-2, run only phase 23 on four cards (the mesh's axes "
+                           "over NCCL ranks), and print no result line")
+    only.add_argument("--multi-axes-only", action="store_true",
+                      help="after phases 1-2, run only phase 23 (c) on four cards (ofa_large at "
+                           "the model, pipe and seq axes over NCCL ranks), and print no result "
+                           "line")
+    only.add_argument("--axes-only", action="store_true",
+                      help="after phases 1-2, run only phase 24 (the model, pipe and seq axes "
+                           "at size 1, a model rank's shard), and print no result line")
     only.add_argument("--entry-only", action="store_true",
                       help="after phases 1-2, run only phase 19 (the CLI's convert, train "
                            "with its resume, and evaluate on a NormFormer ofa_base), and print "
@@ -3927,10 +4205,21 @@ def main(argv=None) -> int:
         phase_multi_card(smi)
         log(f"[done] multi-card phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if opts.multi_axes_only:
+        if torch.cuda.device_count() < MULTI_RANKS:
+            raise RuntimeError(f"--multi-axes-only needs {MULTI_RANKS} cards, found "
+                               f"{torch.cuda.device_count()}")
+        _multi_axes(smi)
+        log(f"[done] multi-card axes phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     if opts.parallel_only:
         with tempfile.TemporaryDirectory() as tmp:
             phase_parallel(smi, tmp)
         log(f"[done] parallel phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.axes_only:
+        phase_axes(smi)
+        log(f"[done] axes phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.entry_only:
         with tempfile.TemporaryDirectory() as tmp:
@@ -3994,6 +4283,7 @@ def main(argv=None) -> int:
     log(f"[scst] phase 21 done in {time.perf_counter() - t0:.1f} s on {smi}")
     with tempfile.TemporaryDirectory() as tmp:
         parallel = phase_parallel(smi, tmp, {"p50_ms": train_p50_ms}, entry_mfu)
+    axes_launches = phase_axes(smi)
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -4025,6 +4315,8 @@ def main(argv=None) -> int:
             entry["scst_phase_launches"] = {part: n[k] for part, n in scst_launches.items()}
         if k in ("K3", "K4"):  # phase 22's ofa_large updates without and with --remat
             entry["remat_launches"] = {run: n[k] for run, n in parallel["remat"].items()}
+        if k in ("K1", "K3", "K4"):  # phase 24's runs: the axes at size 1, a model shard
+            entry["axes_launches"] = {run: n[k] for run, n in axes_launches.items()}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

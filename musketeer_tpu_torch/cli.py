@@ -24,12 +24,18 @@ reward fine-tuning loop (``training/scst_loop.py``).
 
 ``train`` runs one process per rank under ``torchrun`` (``env://``; NCCL for
 ``--device cuda``, each rank on the card of its local rank, gloo for
-``--device cpu``): the ranks form the mesh's ``data × fsdp`` axes
-(``--fsdp F`` shards the state over F of them) and together compute the
-step of one process on the same ``--batch-size``. ``--remat`` checkpoints
-each encoder and decoder layer. The model, pipeline and sequence axes, which
-the port lacks, raise ``NotImplementedError`` and name the ROADMAP queue 1
-item that holds them.
+``--device cpu``): the ranks form the mesh's five axes and together compute
+the step of one process on the same ``--batch-size``. ``--fsdp F`` shards
+the state over F of them, ``--model-parallel M`` splits heads and FFN over
+M (Megatron), ``--pipeline P --microbatches N`` splits the layer stacks into
+P stages (GPipe; ``--pipeline-interleave V``: the interleaved schedule),
+``--seq-parallel S`` runs ring attention over S; the rest form the data
+axis. The model options follow the JAX CLI's: without ``--microbatches``
+the pipe ranks run replicated, and the JAX gates that turn an axis off (the
+SP gate under dropout, the pipeline gate under in-layer regularisation)
+turn it off here. ``--remat`` checkpoints each encoder and decoder layer
+(a pipeline stage under ``--microbatches``). ``--criterion scst|clip_scst``
+runs on one rank.
 """
 
 from __future__ import annotations
@@ -65,11 +71,6 @@ def _device(name: str):
     return device
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"musketeer_tpu_torch does not support {what} "
-                               f"(ROADMAP queue 1: {item})")
-
-
 def _preset(arch: str):
     """The preset as it is: ``use_flash_attention`` False, the XLA branch, as
     the JAX CLI's ``evaluate`` runs it."""
@@ -99,18 +100,6 @@ def _make_task(name: str, vocab, description: str, kw: dict):
     return TASK_REGISTRY[name](vocab, description=description, **kw)
 
 
-_NEXT_AXES = "parallelism: the model, pipe and seq axes"
-
-
-def _refuse_unported_train_options(args) -> None:
-    for flag, value in (("--model-parallel", args.model_parallel),
-                        ("--pipeline", args.pipeline), ("--seq-parallel", args.seq_parallel)):
-        if value > 1:
-            raise _unported(f"{flag} {value}", _NEXT_AXES)
-    if args.microbatches:
-        raise _unported(f"--microbatches {args.microbatches}", _NEXT_AXES)
-
-
 def cmd_train(args):
     import torch
 
@@ -124,16 +113,17 @@ def cmd_train(args):
         if int(os.environ.get("WORLD_SIZE", "1")) > 1:
             raise NotImplementedError(f"--criterion {args.criterion} runs on one rank")
         return run_scst_cli(args, _device(args.device))
-    _refuse_unported_train_options(args)
     device = _device(args.device)
     local_rank = init_distributed(device)
     if local_rank is not None and device.type == "cuda":
         device = torch.device("cuda", local_rank)
     try:
         world = torch.distributed.get_world_size() if local_rank is not None else 1
-        if world % args.fsdp:
-            raise ValueError(f"--fsdp {args.fsdp} needs a multiple of {args.fsdp} ranks, have "
-                             f"{world} (launch with torchrun --nproc_per_node=N)")
+        split = args.fsdp * args.model_parallel * args.pipeline * args.seq_parallel
+        if world % split:
+            raise ValueError(f"--fsdp x --model-parallel x --pipeline x --seq-parallel = {split} "
+                             f"needs a multiple of {split} ranks, have {world} "
+                             "(launch with torchrun --nproc_per_node=N)")
         return _train(args, device)
     finally:
         if torch.distributed.is_initialized():
@@ -204,6 +194,15 @@ def _train(args, device):
     # patch subsampling, prompts, mixed code masks) to the XLA branch
     model_cfg = dataclasses.replace(model_cfg, use_flash_attention=not args.no_flash,
                                     remat=args.remat, unroll_layers=args.unroll_layers)
+    if args.microbatches:
+        model_cfg = dataclasses.replace(model_cfg, pipeline_microbatches=args.microbatches,
+                                        pipeline_interleave=args.pipeline_interleave)
+    elif args.pipeline_interleave > 1:
+        logger.warning("--pipeline-interleave=%d is ignored without --microbatches "
+                       "(the interleaved schedule only exists on the pipelined path)",
+                       args.pipeline_interleave)
+    if args.seq_parallel > 1:
+        model_cfg = dataclasses.replace(model_cfg, seq_parallel=True)
     # the mesh over the ranks (one without a process group); every rank reads
     # the whole global batch, as the JAX package's one host does, and keeps its block
     mesh = make_mesh(cfg.mesh)

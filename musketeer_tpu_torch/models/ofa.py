@@ -56,6 +56,24 @@ dropout masks, so losses and gradients are those without it.
 ``decode_step`` writes the step's K/V into the self cache in place and
 returns the same state object.
 
+The mesh's axes (``parallel.mesh.set_mesh``, as the JAX model reads
+``jax.sharding.get_mesh``): under ``model`` a tree of this rank's shards
+runs its block of the heads and of the FFN's hidden units, Megatron style
+(``parallel/tensor_parallel.py``: the replicated stream enters a
+column-split linear and every per-head slice of a replicated tensor through
+``copy_to_model``, the row-split ``out_proj``/``fc2`` leave through
+``reduce_from_model``); on both branches, as GSPMD splits both. Under
+``pipe`` with ``pipeline_microbatches``, the encoder's and the decoder's
+layer stacks run as a pipeline (``parallel/pipeline.py``), where the JAX
+gate lets them: the flash branch, no SP, no code masks on the decoder, and
+no generator or no in-layer regulariser. Under ``seq`` with
+``seq_parallel``, the layers run on this rank's chunk of the stream, with
+ring attention (``parallel/ring_attention.py``), where the JAX SP gate lets
+them (no regulariser unless deterministic, no prompts, no patch
+subsampling; it warns where it closes in the encoder): the stream is padded
+to a multiple of the ring, the chunks are gathered after the stack and the
+padding sliced off.
+
 NormFormer (``scale_attn``, ``scale_fc``, ``scale_heads``, ``scale_resids``),
 where a layer's parameters carry its leaves, as in the JAX model: ``c_attn``
 scales each head's attention output, ``attn_ln`` / ``self_attn_ln`` /
@@ -79,6 +97,7 @@ builds a transposed cross cache for its TPU kernel; the port does neither.
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -90,11 +109,24 @@ from ..config import ModelConfig
 from ..ops.decode_cross_attn import decode_cross_attention_int8
 from ..ops.decode_stack import decode_stack_step, pack_decoder_weights
 from ..ops.flash_attention_bwd import flash_attention
+from ..parallel import tensor_parallel as tp
+from ..parallel.mesh import PIPE, SEQ, get_mesh
+from ..parallel.pipeline import pipeline_scan
+from ..parallel.ring_attention import ring_attention, seq_chunk, seq_gather
 from ..params import check_supported, normformer_flags
 from . import positions as pos_lib
 from .resnet import resnet_forward
 
 Params = Dict[str, Any]
+
+logger = logging.getLogger("musketeer_tpu_torch")
+_warned_once: set = set()
+
+
+def _warn_once(key: str, msg: str, *args) -> None:
+    if key not in _warned_once:
+        _warned_once.add(key)
+        logger.warning(msg, *args)
 
 NEG_INF = -1e9
 
@@ -209,9 +241,25 @@ def _linear_heads(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
     return _split_heads(_linear(p, x), heads).contiguous()
 
 
+def _heads(cfg: ModelConfig) -> int:
+    """The attention heads of this rank: all of them, or its block of them
+    where the forward splits over the mesh's ``model`` axis."""
+    size = tp.model_split()[1]
+    if cfg.attention_heads % size or cfg.ffn_dim % size:
+        raise ValueError(f"{cfg.attention_heads} heads and ffn {cfg.ffn_dim} do not split "
+                         f"over model = {size} ranks")
+    return cfg.attention_heads // size
+
+
+def _row_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ W + b, row-split over this rank's input features where the forward
+    splits over ``model`` (out_proj, fc2)."""
+    return _linear(p, x) if tp.model_split()[1] == 1 else tp.row_linear(p, x)
+
+
 def _out_proj_heads(p: Params, x: torch.Tensor) -> torch.Tensor:
     """``[B, H, T, hd]`` attention output → out_proj ``[B, T, d]``."""
-    return _linear(p, _merge_heads(x))
+    return _row_linear(p, _merge_heads(x))
 
 
 def _apply_adapter(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -222,9 +270,11 @@ def _apply_adapter(p: Params, x: torch.Tensor) -> torch.Tensor:
 def _prompt_kv(embed: torch.Tensor, L: int, H: int, hd: int, B: int,
                dtype: torch.dtype) -> torch.Tensor:
     """``[P, L·2·d]`` prompt table → per-layer prefix K/V ``[L, 2, B, H, P, hd]``
-    (ref: get_encoder_prompt's reshape, unify_transformer.py:700-711)."""
+    (ref: get_encoder_prompt's reshape, unify_transformer.py:700-711), H this
+    rank's heads of the table's."""
     P = embed.shape[0]
-    kv = embed.to(dtype).view(P, L, 2, H, hd).permute(1, 2, 3, 0, 4)
+    kv = embed.to(dtype).view(P, L, 2, -1, hd)
+    kv = tp.local_heads(kv, H, 3).permute(1, 2, 3, 0, 4)
     return kv[:, :, None].expand(L, 2, B, H, P, hd)
 
 
@@ -278,7 +328,7 @@ def xla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, kv: torch.Tensor
     [B, H, Tq, Tk]``, attention dropout in training, and prefix-tuning
     ``prompt_kv`` ``([B, H, P, hd], [B, H, P, hd])`` before the keys."""
     xla_attention.calls += 1
-    H = cfg.attention_heads
+    H = _heads(cfg)
     scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
     q = _split_heads(_linear(p["q_proj"], x) * scaling, H)
     k = _split_heads(_linear(p["k_proj"], kv), H)
@@ -302,6 +352,131 @@ xla_attention.calls = 0
 
 
 # ---------------------------------------------------------------------------
+# the mesh's pipe and seq axes
+# ---------------------------------------------------------------------------
+
+def _active_pipe_mesh(cfg: ModelConfig):
+    """The active mesh when pipeline mode is on and usable, else None."""
+    if cfg.pipeline_microbatches <= 0:
+        return None
+    active = get_mesh()
+    if active is None or active.mesh.shape[PIPE] <= 1:
+        return None
+    return active.mesh
+
+
+def _usable_interleave(cfg: ModelConfig, n_layers: int, mesh, M: int) -> int:
+    """cfg.pipeline_interleave when the interleaved schedule's preconditions
+    hold for this stack (layers divisible by stages·V, microbatches ≤
+    stages), else 1 (plain GPipe), with the JAX model's warning."""
+    V = cfg.pipeline_interleave
+    if V <= 1:
+        return 1
+    Pn = mesh.shape[PIPE]
+    if n_layers % (Pn * V) != 0 or M > Pn:
+        _warn_once(
+            f"interleave-{n_layers}-{Pn}-{V}-{M}",
+            "pipeline_interleave=%d falls back to plain GPipe for this "
+            "%d-layer stack (needs layers %% (stages*V) == 0 with stages=%d "
+            "and microbatches %d <= stages)", V, n_layers, Pn, M,
+        )
+        return 1
+    return V
+
+
+def _active_seq_mesh(cfg: ModelConfig):
+    """The active mesh when sequence parallelism is on and usable, else None."""
+    if not cfg.seq_parallel:
+        return None
+    active = get_mesh()
+    if active is None or active.mesh.shape[SEQ] <= 1:
+        return None
+    return active.mesh
+
+
+def _no_reg(cfg: ModelConfig, drop_path_rate: float) -> bool:
+    """No in-layer regulariser: every dropout rate and the drop-path rate zero."""
+    return (cfg.dropout == 0.0 and cfg.attention_dropout == 0.0
+            and cfg.activation_dropout == 0.0 and drop_path_rate == 0.0)
+
+
+def _microbatches(t: torch.Tensor, M: int) -> torch.Tensor:
+    return t.reshape((M, t.shape[0] // M) + t.shape[1:])
+
+
+def _pad_to(t: torch.Tensor, dim: int, n: int, value=0) -> torch.Tensor:
+    """``t`` padded with ``value`` at the end of ``dim`` to length ``n``."""
+    if t.shape[dim] == n:
+        return t
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, n - t.shape[dim]]
+    return F.pad(t, pad, value=value)
+
+
+def _ring_self_attn(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, kpad, mesh,
+                    causal: bool = False) -> torch.Tensor:
+    """Sequence-parallel self-attention of this rank's chunk ``x [B, S/P, d]``
+    (in the model region): per-position projections, the attention over the
+    ring (``parallel/ring_attention.py``), ``pos_q``/``pos_k`` this rank's
+    chunks and ``rel [H, S/P, S]`` its query rows."""
+    H = _heads(cfg)
+    scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
+    q = _split_heads(_linear(p["q_proj"], x) * scaling, H)
+    k = _split_heads(_linear(p["k_proj"], x), H)
+    v = _split_heads(_linear(p["v_proj"], x), H)
+    out = ring_attention(q, k, v, pos_q.to(q.dtype), pos_k.to(q.dtype), rel.to(q.dtype), kpad,
+                         mesh, causal=causal)
+    return _out_proj_heads(p["out_proj"], _head_scale(p, out))
+
+
+def _encoder_layer_sp(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, padding_mask, mesh):
+    """Pre-LN encoder block under sequence parallelism on this rank's chunk
+    (deterministic only: the SP gate in ``encode`` admits no regulariser)."""
+    h = tp.copy_to_model(_layer_norm(p["self_attn_layer_norm"], x))
+    h = _ring_self_attn(p["self_attn"], cfg, h, pos_q, pos_k, rel, padding_mask, mesh)
+    x = x + _post_ln(p, "attn_ln", h)
+    return _ffn_block(p, cfg, x)
+
+
+def _decoder_layer_sp(p: Params, cfg: ModelConfig, x, pos_q, pos_k, rel, self_pad, enc_x,
+                      enc_pad, cross_pos_q, cross_pos_k, mesh):
+    """Pre-LN decoder block under sequence parallelism on this rank's chunk
+    of the target (deterministic only): causal ring self-attention on global
+    positions, and cross attention of the chunk's query rows against the
+    whole encoder K/V, plain products as in the JAX layer."""
+    h = tp.copy_to_model(_layer_norm(p["self_attn_layer_norm"], x))
+    h = _ring_self_attn(p["self_attn"], cfg, h, pos_q, pos_k, rel, self_pad, mesh, causal=True)
+    x = x + _post_ln(p, "self_attn_ln", h)
+
+    h = tp.copy_to_model(_layer_norm(p["encoder_attn_layer_norm"], x))
+    pc = p["encoder_attn"]
+    H = _heads(cfg)
+    scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
+    q = _split_heads(_linear(pc["q_proj"], h) * scaling, H)
+    k = _split_heads(_linear(pc["k_proj"], enc_x), H)
+    v = _split_heads(_linear(pc["v_proj"], enc_x), H)
+    w = q.float() @ k.float().transpose(-1, -2)
+    w = w + cross_pos_q.to(q.dtype).float() @ cross_pos_k.to(q.dtype).float().transpose(-1, -2)
+    w = w.masked_fill(enc_pad[:, None, None, :], NEG_INF)
+    out = torch.softmax(w, dim=-1).to(x.dtype) @ v
+    h = _out_proj_heads(pc["out_proj"], _head_scale(pc, out))
+    x = x + _post_ln(p, "cross_attn_ln", h)
+    return _ffn_block(p, cfg, x)
+
+
+def _rel_rows(rel_tok: torch.Tensor, rel_img: Optional[torch.Tensor], S: int, S_orig: int,
+              T: int, N: int, q0: int, rows: int) -> torch.Tensor:
+    """Query rows [q0, q0 + rows) of the encoder's ``[H, S, S]`` rel bias: the
+    text block ``rel_tok [H, T, T]`` at the stream's text positions and the
+    image block ``rel_img [H, N, N]`` at its patches, zero elsewhere."""
+    rel = rel_tok.new_zeros((rel_tok.shape[0], rows, S))
+    for block, start, n in ((rel_tok, S_orig - T, T), (rel_img, 0, N)):
+        a, b = max(start, q0), min(start + n, q0 + rows)
+        if block is not None and n and a < b:
+            rel[:, a - q0:b - q0, start:start + n] = block[:, a - start:b - start]
+    return rel
+
+
+# ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
 
@@ -312,26 +487,33 @@ class EncoderOut(NamedTuple):
 
 
 def _pos_proj(lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig, scale_q: bool) -> torch.Tensor:
-    """LN'd positional embeddings → per-head projections ``[B, H, T, hd]`` (compute dtype)."""
+    """LN'd positional embeddings → per-head projections ``[B, H, T, hd]``
+    (compute dtype), H this rank's heads, contiguous (the kernels read them
+    in place)."""
     x = _linear_heads(lin, pos_embed, cfg.attention_heads)
     if scale_q:
         x = x * _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
-    return x
+    return tp.local_heads(x, _heads(cfg), 1).contiguous()
 
 
-def _abs_pos_bias(q_lin: Params, k_lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig):
-    """(pos_q · scaling) · pos_kᵀ per head → ``[B, H, T, T]`` fp32."""
-    H = cfg.attention_heads
+def _abs_pos_bias(q_lin: Params, k_lin: Params, pos_embed: torch.Tensor, cfg: ModelConfig,
+                  k_embed: Optional[torch.Tensor] = None):
+    """(pos_q · scaling) · pos_kᵀ per head → ``[B, H, Tq, Tk]`` fp32, H this
+    rank's heads; the keys' positions are ``k_embed`` (default ``pos_embed``)."""
+    H, Hl = cfg.attention_heads, _heads(cfg)
     scaling = float(cfg.embed_dim / H * cfg.attn_scale_factor) ** -0.5
     pe = pos_embed.float()
-    pos_q = _split_heads(_linear(q_lin, pe), H) * scaling
-    pos_k = _split_heads(_linear(k_lin, pe), H)
+    ke = pe if k_embed is None else k_embed.float()
+    pos_q = tp.local_heads(_split_heads(_linear(q_lin, pe), H) * scaling, Hl, 1)
+    pos_k = tp.local_heads(_split_heads(_linear(k_lin, ke), H), Hl, 1)
     return pos_q @ pos_k.transpose(-1, -2)
 
 
-def _rel_gather(table: torch.Tensor, rp: torch.Tensor) -> torch.Tensor:
-    """table ``[L, Vb, H]`` gathered by bucket ids ``rp [T, T]`` → ``[L, H, T, T]``,
-    contiguous (the attention kernels read rel rows in place)."""
+def _rel_gather(table: torch.Tensor, rp: torch.Tensor, heads: int) -> torch.Tensor:
+    """table ``[L, Vb, H]`` gathered by bucket ids ``rp [T, T]`` → ``[L, heads,
+    T, T]`` (this rank's heads), contiguous (the attention kernels read rel
+    rows in place)."""
+    table = tp.local_heads(table, heads, 2)
     L, Vb, H = table.shape
     T = rp.shape[0]
     flat = table.permute(1, 0, 2).reshape(Vb, L * H)[rp.reshape(-1)]
@@ -343,7 +525,8 @@ def _head_scale(p: Params, out: torch.Tensor) -> torch.Tensor:
     ``[B, H, T, hd]``, in its dtype; the output itself without ``c_attn``."""
     if "c_attn" not in p:
         return out
-    return out * p["c_attn"].to(out.dtype)[None, :, None, None]
+    c = tp.local_heads(p["c_attn"], out.shape[1], 0)
+    return out * c.to(out.dtype)[None, :, None, None]
 
 
 def _post_ln(p: Params, name: str, h: torch.Tensor) -> torch.Tensor:
@@ -354,11 +537,15 @@ def _post_ln(p: Params, name: str, h: torch.Tensor) -> torch.Tensor:
 
 def _ffn_block(p: Params, cfg: ModelConfig, x, gen=None, deterministic=True, dp_rate=None):
     """The pre-LN feed-forward half of a layer, with NormFormer's
-    ``ffn_layernorm`` and ``w_resid`` and the ``adapter`` where the layer has them."""
-    h = _layer_norm(p["final_layer_norm"], x)
+    ``ffn_layernorm`` and ``w_resid`` and the ``adapter`` where the layer has them.
+    Where the forward splits over ``model``, fc1 is column-split and fc2
+    row-split: the hidden units between them (and ``ffn_layernorm``) are this
+    rank's block, with dropout masks drawn per block."""
+    h = tp.copy_to_model(_layer_norm(p["final_layer_norm"], x))
     h = _dropout(_gelu(_linear(p["fc1"], h)), cfg.activation_dropout, gen, deterministic)
-    h = _post_ln(p, "ffn_layernorm", h)
-    h = _dropout(_linear(p["fc2"], h), cfg.dropout, gen, deterministic)
+    if "ffn_layernorm" in p:
+        h = tp.layer_norm(p["ffn_layernorm"], h)
+    h = _dropout(_row_linear(p["fc2"], h), cfg.dropout, gen, deterministic)
     if "adapter" in p:
         h = _apply_adapter(p["adapter"], h)
     if "w_resid" in p:
@@ -368,8 +555,10 @@ def _ffn_block(p: Params, cfg: ModelConfig, x, gen=None, deterministic=True, dp_
 
 def _flash_attn(p: Params, cfg: ModelConfig, x, kv, pos_q, pos_k, rel, kpad, causal: bool):
     """Self (``kv`` is ``x``) or cross attention through ``flash_attention``;
-    ``c_attn`` scales each head's output after the kernel."""
-    H = cfg.attention_heads
+    ``c_attn`` scales each head's output after the kernel. Where the forward
+    splits over ``model``: this rank's heads (``pos_q``, ``pos_k`` and ``rel``
+    are given as its heads), ``x`` and ``kv`` in the model region."""
+    H = _heads(cfg)
     scaling = _scalar(float(cfg.head_dim * cfg.attn_scale_factor) ** -0.5, x.dtype)
     q = _linear_heads(p["q_proj"], x, H) * scaling
     k = _linear_heads(p["k_proj"], kv, H)
@@ -387,7 +576,7 @@ Attend = Callable[[Params, torch.Tensor], torch.Tensor]  # (attention params, po
 def _encoder_layer(p: Params, cfg: ModelConfig, x, attend: Attend,
                    gen=None, deterministic=True, dp_rate=None):
     """Pre-LN encoder block; ``attend`` is the branch's self-attention."""
-    h = attend(p["self_attn"], _layer_norm(p["self_attn_layer_norm"], x))
+    h = attend(p["self_attn"], tp.copy_to_model(_layer_norm(p["self_attn_layer_norm"], x)))
     h = _dropout(_post_ln(p, "attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
     return _ffn_block(p, cfg, x, gen, deterministic, dp_rate)
@@ -452,7 +641,7 @@ def encode(
     dtype = compute_dtype(cfg)
     device = src_tokens.device
     B, T = src_tokens.shape
-    d, H = cfg.embed_dim, cfg.attention_heads
+    d, H = cfg.embed_dim, _heads(cfg)
 
     x_text = params["embed_tokens"][src_tokens].to(dtype) + enc["type_embedding"][0].to(dtype)
     x_text = _layer_norm(enc["layernorm_embedding"], x_text)
@@ -495,27 +684,50 @@ def encode(
     # batch-invariant rel bias (no per-sample subsampling) and no prompts
     use_flash = (cfg.use_flash_attention and sample_patch_order is None
                  and not cfg.encoder_prompt and (deterministic or cfg.attention_dropout == 0.0))
+    # sequence parallelism: ring attention over the mesh's seq axis, on the
+    # flash branch's decomposed positions; the SP layer has no regulariser
+    sp_mesh = _active_seq_mesh(cfg)
+    if sp_mesh is not None and (sample_patch_order is not None or cfg.encoder_prompt or not (
+            deterministic or _no_reg(cfg, cfg.encoder_drop_path_rate))):
+        # a run launched with seq_parallel and dropout would replicate all
+        # work over the seq axis with no speedup: say so
+        _warn_once("sp-gate", "seq_parallel is configured but disabled for this forward "
+                   "(dropout/drop-path active, encoder prompts, or per-sample patch "
+                   "subsampling) — the encoder runs replicated over the seq axis")
+        sp_mesh = None
+    if sp_mesh is not None:
+        use_flash = True
+    S_orig, padding_mask_out, pos_out = S, padding_mask, pos_for_bias
+    if sp_mesh is not None:
+        # the ring shards S evenly: pad to a multiple with masked keys, whose
+        # query rows are sliced off after the stack
+        S = -(-S // sp_mesh.shape[SEQ]) * sp_mesh.shape[SEQ]
+        x = _pad_to(x, 1, S)
+        padding_mask = _pad_to(padding_mask, 1, S, True)
+        pos_for_bias = _pad_to(pos_for_bias, 1, S)
     token_rp = pos_lib.make_token_bucket_position(cfg.token_bucket_size, cfg.max_source_positions)
     token_rp = _index(token_rp[:T, :T], device)
     if use_flash:
         pos_q = _pos_proj(enc["pos_q_linear"], pos_for_bias, cfg, True)
         pos_k = _pos_proj(enc["pos_k_linear"], pos_for_bias, cfg, False)
         # rel gathers for all layers at once, outside the layer loop
-        rel_tok_all = _rel_gather(enc["token_rel_pos_table"].to(dtype), token_rp)
+        rel_tok_all = _rel_gather(enc["token_rel_pos_table"].to(dtype), token_rp, H)
+        rel_img_all = None
         if N:
             full = pos_lib.make_image_bucket_position(cfg.image_bucket_size, cfg.image_num_rel_dis)
             image_rp = _index(full[ids0[:, None], ids0[None, :]], device)
-            rel_img_all = _rel_gather(enc["image_rel_pos_table"].to(dtype), image_rp)
+            rel_img_all = _rel_gather(enc["image_rel_pos_table"].to(dtype), image_rp, H)
+
+        def compose_rel(rel_tok, rel_img, q0: int = 0, rows: int = S) -> torch.Tensor:
+            return _rel_rows(rel_tok, rel_img, S, S_orig, T, N, q0, rows)
 
         def attend(i: int, pa: Params, h: torch.Tensor) -> torch.Tensor:
-            rel = torch.zeros((H, S, S), dtype=dtype, device=device)
-            rel[:, S - T:, S - T:] = rel_tok_all[i]
-            if N:
-                rel[:, :N, :N] = rel_img_all[i]
+            rel = compose_rel(rel_tok_all[i], None if rel_img_all is None else rel_img_all[i])
             return _flash_attn(pa, cfg, h, h, pos_q, pos_k, rel, padding_mask, causal=False)
     else:
         abs_bias = _abs_pos_bias(enc["pos_q_linear"], enc["pos_k_linear"], pos_for_bias, cfg)
-        rel_tok_all = _rel_gather(enc["token_rel_pos_table"].float(), token_rp)
+        rel_tok_all = _rel_gather(enc["token_rel_pos_table"].float(), token_rp, H)
+        image_table = tp.local_heads(enc["image_rel_pos_table"], H, 2)
         Br = 1
         if N:  # image buckets [Br, N, N]: per sample under subsampling, else one for all
             ids = image_ids if sample_patch_order is not None else image_ids[:1]
@@ -529,21 +741,64 @@ def encode(
             rel = torch.zeros((Br, H, S, S), dtype=torch.float32, device=device)
             rel[:, :, S - T:, S - T:] = rel_tok_all[i]
             if N:  # [Br, N, N, H] → [Br, H, N, N]
-                rel[:, :, :N, :N] = enc["image_rel_pos_table"][i].float()[image_rp].permute(0, 3, 1, 2)
+                rel[:, :, :N, :N] = image_table[i].float()[image_rp].permute(0, 3, 1, 2)
             pkv = None if prompt_kv is None else (prompt_kv[i, 0], prompt_kv[i, 1])
             return xla_attention(pa, cfg, h, h, abs_bias + rel, padding_mask, gen=generator,
                                  deterministic=deterministic, prompt_kv=pkv)
 
-    dp_rates = _drop_path_rates(cfg.encoder_drop_path_rate, cfg.encoder_layers,
-                                cfg.encoder_drop_path_rate > 0 and not deterministic)
-    for i, layer_p in enumerate(enc["layers"]):
-        # rel is composed inside attend, so under remat no [H, S, S] is kept
-        layer = functools.partial(_encoder_layer, layer_p, cfg, attend=functools.partial(attend, i),
-                                  gen=generator, deterministic=deterministic, dp_rate=dp_rates[i])
-        x = _run_layer(layer, x, cfg, generator)
+    enc_dp = cfg.encoder_drop_path_rate > 0 and not deterministic
+    dp_rates = _drop_path_rates(cfg.encoder_drop_path_rate, cfg.encoder_layers, enc_dp)
+    # the pipeline takes a forward whose layers draw nothing from the generator
+    pipe_mesh = (_active_pipe_mesh(cfg) if use_flash and sp_mesh is None and (
+        generator is None or _no_reg(cfg, cfg.encoder_drop_path_rate if enc_dp else 0.0))
+        else None)
+    if sp_mesh is not None:
+        # each rank runs its chunk of the stream, its query rows of rel
+        Sl = S // sp_mesh.shape[SEQ]
+        q0 = sp_mesh.coords[SEQ] * Sl
+        x = seq_chunk(x, 1, sp_mesh)
+        pq, pk = seq_chunk(pos_q, 2, sp_mesh), seq_chunk(pos_k, 2, sp_mesh)
+        for i, layer_p in enumerate(enc["layers"]):
+            def layer(xx, i=i, layer_p=layer_p):
+                rel = compose_rel(rel_tok_all[i], None if rel_img_all is None else rel_img_all[i],
+                                  q0, Sl)
+                return _encoder_layer_sp(layer_p, cfg, xx, pq, pk, rel, padding_mask, sp_mesh)
+            x = _run_layer(layer, x, cfg, None)
+        x = seq_gather(x, 1, sp_mesh)
+    elif pipe_mesh is not None:
+        # GPipe (or interleaved) over the layer stack: the stream flows stage
+        # to stage in microbatches, each layer reads its microbatch's masks and
+        # positional projections
+        M = cfg.pipeline_microbatches
+        if B % M:
+            raise ValueError(f"batch {B} not divisible by microbatches {M}")
 
+        def body(pl, layer, _consts, side):
+            rel = compose_rel(layer["rel_tok"], layer.get("rel_img"))
+            new_x = _encoder_layer(layer["p"], cfg, pl["x"], attend=lambda pa, h: _flash_attn(
+                pa, cfg, h, h, side["pos_q"], side["pos_k"], rel, side["pad"], causal=False))
+            return {"x": new_x}
+
+        layers = [dict(p=lp, rel_tok=rel_tok_all[i],
+                       **({} if rel_img_all is None else {"rel_img": rel_img_all[i]}))
+                  for i, lp in enumerate(enc["layers"])]
+        side = {"pad": padding_mask, "pos_q": pos_q, "pos_k": pos_k}
+        out = pipeline_scan(body, {"x": _microbatches(x, M)}, layers, pipe_mesh, remat=cfg.remat,
+                            interleave=_usable_interleave(cfg, cfg.encoder_layers, pipe_mesh, M),
+                            side_mb={k: _microbatches(t, M) for k, t in side.items()})
+        x = out["x"].reshape((B,) + out["x"].shape[2:])
+    else:
+        for i, layer_p in enumerate(enc["layers"]):
+            # rel is composed inside attend, so under remat no [H, S, S] is kept
+            layer = functools.partial(_encoder_layer, layer_p, cfg,
+                                      attend=functools.partial(attend, i), gen=generator,
+                                      deterministic=deterministic, dp_rate=dp_rates[i])
+            x = _run_layer(layer, x, cfg, generator)
+
+    if S != S_orig:
+        x = x[:, :S_orig]
     x = _layer_norm(enc["layer_norm"], x)
-    return EncoderOut(x=x, padding_mask=padding_mask, pos_embed=pos_for_bias)
+    return EncoderOut(x=x, padding_mask=padding_mask_out, pos_embed=pos_out)
 
 
 # ---------------------------------------------------------------------------
@@ -572,10 +827,10 @@ def _decoder_pos_setup(params: Params, cfg: ModelConfig, B: int, T: int,
     """Target positions and the self / cross abs-pos biases: token positions,
     or per sample (``code_masks [B]``) the image grid's under ``image_pos_ln``.
 
-    Returns (tgt_pos_embed [B, T, d], self_bias [B, H, T, T] fp32, cross_bias [B, H, T, S] fp32).
+    Returns (tgt_pos_embed [B, T, d], self_bias [B, H, T, T] fp32, cross_bias [B, H, T, S] fp32),
+    H this rank's heads.
     """
     dec = params["decoder"]
-    H = cfg.attention_heads
     tok_pos = dec["embed_positions"][:T].to(dtype)[None]
     pe = _layer_norm(dec["pos_ln"], tok_pos)
     self_bias = _abs_pos_bias(dec["self_pos_q_linear"], dec["self_pos_k_linear"], pe, cfg)
@@ -587,10 +842,8 @@ def _decoder_pos_setup(params: Params, cfg: ModelConfig, B: int, T: int,
         tgt_pos_embed = torch.where(m, img_pos, tok_pos)
         self_bias = torch.where(m[..., None], bias_img, self_bias)
         pe = torch.where(m, pe_img, pe)
-    scaling = float(cfg.embed_dim / H * cfg.attn_scale_factor) ** -0.5
-    pq = _split_heads(_linear(dec["cross_pos_q_linear"], pe.float()), H) * scaling
-    pk = _split_heads(_linear(dec["cross_pos_k_linear"], encoder_pos.float()), H)
-    cross_bias = pq @ pk.transpose(-1, -2)
+    cross_bias = _abs_pos_bias(dec["cross_pos_q_linear"], dec["cross_pos_k_linear"], pe, cfg,
+                               k_embed=encoder_pos)
     return tgt_pos_embed, self_bias.expand(B, -1, -1, -1), cross_bias
 
 
@@ -612,7 +865,8 @@ def _decoder_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _decoder_rel_bias(params: Params, cfg: ModelConfig, T: int,
                       dtype: torch.dtype = torch.float32, image: bool = False) -> torch.Tensor:
-    """Per-layer self-attention rel bias ``[L, H, T, T]`` in ``dtype``: token
+    """Per-layer self-attention rel bias ``[L, H, T, T]`` in ``dtype`` (this
+    rank's heads): token
     buckets (the grid extends past ``max_target_positions`` for longer
     targets), or with ``image`` the code grid's image buckets."""
     dec = params["decoder"]
@@ -625,17 +879,18 @@ def _decoder_rel_bias(params: Params, cfg: ModelConfig, T: int,
         table = dec["token_rel_pos_table"]
         rp = pos_lib.make_token_bucket_position(
             cfg.token_bucket_size, max(cfg.max_target_positions, T))[:T, :T]
-    return _rel_gather(table.to(dtype), _index(rp, table.device))
+    return _rel_gather(table.to(dtype), _index(rp, table.device), _heads(cfg))
 
 
 def _decoder_layer_full(p: Params, cfg: ModelConfig, x, self_attend: Attend,
                         cross_attend: Attend, gen=None, deterministic=True, dp_rate=None):
     """Pre-LN decoder block over a whole target (teacher forcing);
     ``self_attend`` / ``cross_attend`` are the branch's attentions."""
-    h = self_attend(p["self_attn"], _layer_norm(p["self_attn_layer_norm"], x))
+    h = self_attend(p["self_attn"], tp.copy_to_model(_layer_norm(p["self_attn_layer_norm"], x)))
     h = _dropout(_post_ln(p, "self_attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
-    h = cross_attend(p["encoder_attn"], _layer_norm(p["encoder_attn_layer_norm"], x))
+    h = cross_attend(p["encoder_attn"],
+                     tp.copy_to_model(_layer_norm(p["encoder_attn_layer_norm"], x)))
     h = _dropout(_post_ln(p, "cross_attn_ln", h), cfg.dropout, gen, deterministic)
     x = x + _drop_path(h, dp_rate, gen, deterministic)
     return _ffn_block(p, cfg, x, gen, deterministic, dp_rate)
@@ -663,11 +918,21 @@ def decode(
     dtype = compute_dtype(cfg)
     B, T = prev_output_tokens.shape
     self_pad = prev_output_tokens == cfg.pad
-    enc_x = encoder_out.x.to(dtype)
+    # the cross-attention's keys enter the model region once for all layers
+    enc_x = tp.copy_to_model(encoder_out.x.to(dtype))
     enc_pad = encoder_out.padding_mask
 
     use_flash = (cfg.use_flash_attention and (code_masks is None or code_masks_all)
                  and not cfg.decoder_prompt and (deterministic or cfg.attention_dropout == 0.0))
+    # sequence parallelism over the target: causal ring self-attention and
+    # cross attention of each rank's query rows (see _decoder_layer_sp)
+    sp_mesh = _active_seq_mesh(cfg)
+    if sp_mesh is not None and ((code_masks is not None and not code_masks_all)
+                                or cfg.decoder_prompt
+                                or not (deterministic or _no_reg(cfg, cfg.decoder_drop_path_rate))):
+        sp_mesh = None
+    if sp_mesh is not None:
+        use_flash = True
     if use_flash:
         all_code = code_masks is not None
         if all_code:
@@ -698,7 +963,7 @@ def decode(
         rel_tok = _decoder_rel_bias(params, cfg, T)
         rel_img = None if code_masks is None else _decoder_rel_bias(params, cfg, T, image=True)
         # the JAX model seeds prompts only for batches without code masks
-        prompt_kv = (_prompt_kv(dec["prompt_embedding"], cfg.decoder_layers, cfg.attention_heads,
+        prompt_kv = (_prompt_kv(dec["prompt_embedding"], cfg.decoder_layers, _heads(cfg),
                                 cfg.head_dim, B, dtype)
                      if cfg.decoder_prompt and code_masks is None else None)
 
@@ -715,14 +980,59 @@ def decode(
                                  deterministic=deterministic)
 
     x = _dropout(x, cfg.dropout, generator, deterministic)
-    dp_rates = _drop_path_rates(cfg.decoder_drop_path_rate, cfg.decoder_layers,
-                                cfg.decoder_drop_path_rate > 0 and not deterministic)
-    for i, layer_p in enumerate(dec["layers"]):
-        layer = functools.partial(_decoder_layer_full, layer_p, cfg,
-                                  self_attend=functools.partial(self_attend, i),
-                                  cross_attend=functools.partial(cross_attend, i), gen=generator,
-                                  deterministic=deterministic, dp_rate=dp_rates[i])
-        x = _run_layer(layer, x, cfg, generator)
+    dec_dp = cfg.decoder_drop_path_rate > 0 and not deterministic
+    dp_rates = _drop_path_rates(cfg.decoder_drop_path_rate, cfg.decoder_layers, dec_dp)
+    pipe_mesh = (_active_pipe_mesh(cfg) if use_flash and sp_mesh is None and code_masks is None
+                 and (generator is None
+                      or _no_reg(cfg, cfg.decoder_drop_path_rate if dec_dp else 0.0))
+                 else None)
+    if sp_mesh is not None:
+        # the ring shards T evenly: pad with masked keys (causality already
+        # hides the trailing columns from real rows), slice back after
+        Tp = -(-T // sp_mesh.shape[SEQ]) * sp_mesh.shape[SEQ]
+        Tl = Tp // sp_mesh.shape[SEQ]
+        q0 = sp_mesh.coords[SEQ] * Tl
+        chunk = lambda t, dim: seq_chunk(_pad_to(t, dim, Tp), dim, sp_mesh)
+        x = chunk(x, 1)
+        pq, pk, cpq = chunk(pos_q, 2), chunk(pos_k, 2), chunk(cross_pos_q, 2)
+        kpad = _pad_to(self_pad, 1, Tp, True)
+        for i, layer_p in enumerate(dec["layers"]):
+            def layer(xx, i=i, layer_p=layer_p):
+                rel = _pad_to(_pad_to(rel_all[i], 1, Tp), 2, Tp)[:, q0:q0 + Tl]
+                return _decoder_layer_sp(layer_p, cfg, xx, pq, pk, rel, kpad, enc_x, enc_pad,
+                                         cpq, cross_pos_k, sp_mesh)
+            x = _run_layer(layer, x, cfg, None)
+        x = seq_gather(x, 1, sp_mesh)[:, :T]
+    elif pipe_mesh is not None:
+        M = cfg.pipeline_microbatches
+        if B % M:
+            raise ValueError(f"batch {B} not divisible by microbatches {M}")
+
+        def body(pl, layer, _consts, side):
+            new_x = _decoder_layer_full(
+                layer["p"], cfg, pl["x"],
+                self_attend=lambda pa, h: _flash_attn(pa, cfg, h, h, side["pos_q"], side["pos_k"],
+                                                      layer["rel"], side["self_pad"], causal=True),
+                cross_attend=lambda pa, h: _flash_attn(
+                    pa, cfg, h, side["enc_x"], side["cross_pos_q"], side["cross_pos_k"], None,
+                    side["enc_pad"], causal=False))
+            return {"x": new_x}
+
+        side = {"self_pad": self_pad, "pos_q": pos_q, "pos_k": pos_k, "cross_pos_q": cross_pos_q,
+                "cross_pos_k": cross_pos_k, "enc_x": enc_x, "enc_pad": enc_pad}
+        layers = [{"p": lp, "rel": rel_all[i]} for i, lp in enumerate(dec["layers"])]
+        out = pipeline_scan(body, {"x": _microbatches(x, M)}, layers, pipe_mesh, remat=cfg.remat,
+                            interleave=_usable_interleave(cfg, cfg.decoder_layers, pipe_mesh, M),
+                            side_mb={k: _microbatches(t, M) for k, t in side.items()})
+        x = out["x"].reshape((B,) + out["x"].shape[2:])
+    else:
+        for i, layer_p in enumerate(dec["layers"]):
+            layer = functools.partial(_decoder_layer_full, layer_p, cfg,
+                                      self_attend=functools.partial(self_attend, i),
+                                      cross_attend=functools.partial(cross_attend, i),
+                                      gen=generator, deterministic=deterministic,
+                                      dp_rate=dp_rates[i])
+            x = _run_layer(layer, x, cfg, generator)
     x = _layer_norm(dec["layer_norm"], x)
     return x if features_only else output_layer(params, cfg, x)
 

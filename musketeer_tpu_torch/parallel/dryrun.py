@@ -2,8 +2,8 @@
 
 ``run_ranks`` runs a ``Job`` (the joint step on given parameters and
 batches, optionally resumed from or saved to a checkpoint) on ``world``
-ranks over a ``data × fsdp`` layout (``run_layouts``: several jobs and
-layouts in turn on the same ranks) and returns rank 0's record: each
+ranks over a layout of the mesh's five axes (``run_layouts``: several jobs
+and layouts in turn on the same ranks) and returns rank 0's record: each
 step's loss, gradient norm, metrics and seconds, the full state at the end,
 the bytes of state each rank holds and, on cards, each rank's peak memory.
 The ranks are gloo processes on the CPU, or NCCL processes with rank r on
@@ -11,12 +11,14 @@ card r (``device="cuda"``; their fp32 products in full fp32, no TF32).
 ``run_job`` runs the same job in this process without a process group.
 ``dryrun_multirank(n)`` is the counterpart of the JAX package's
 ``__graft_entry__.dryrun_multichip``: one full multi-task step of a small
-model over an ``n``-rank ``data × fsdp`` layout, checked against the
+model over an ``n``-rank ``data × fsdp`` layout and, with ``layouts``, over
+the model, pipe and seq axes (``AXES_LAYOUTS``), each checked against the
 one-process run. ``run_cli_ranks`` runs ``cli.main`` on gloo ranks, as
-``torchrun`` would launch it.
+``torchrun`` would launch it; ``run_fn`` runs any function on ranks.
 
 Each rank runs on one intra-op thread; ranks find each other at
-``tcp://localhost:<a free port>``.
+``tcp://localhost:<a free port>``. A spawn ends its ranks after its timeout,
+so that a rank left waiting in a collective fails the caller, not hangs it.
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ import dataclasses
 import datetime
 import os
 import socket
+import sys
 import tempfile
 import time
-from typing import Any, Dict, List, Optional, Tuple
+import traceback
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +45,7 @@ from ..training.train_step import make_train_step
 from ..training.trainer import step_generator
 from ..training.prefetch import move_to
 from .data_parallel import DataParallel, state_bytes
-from .mesh import make_mesh, shard_batches
+from .mesh import DATA, FSDP, make_mesh, shard_batches
 
 _TIMEOUT = datetime.timedelta(seconds=300)
 
@@ -65,12 +69,25 @@ class Job:
     load_dir: Optional[str] = None
     save_dir: Optional[str] = None
     keep_state: bool = True  # False: the record holds no tensors (timing runs)
+    report: Optional[str] = None  # a tag: each rank prints its steps and peak memory as it goes
 
 
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _report(job: Job, parallel: Optional[DataParallel], device: torch.device, what: str) -> None:
+    """With ``job.report``, one line of this rank's progress and its peak
+    memory so far (on a card), printed at once: a rank that fails or is
+    ended still shows how far it came."""
+    if job.report is None:
+        return
+    rank = 0 if parallel is None else parallel.mesh.rank
+    peak = (f", peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+            if device.type == "cuda" else "")
+    print(f"[{job.report} rank {rank}] {what}{peak}", flush=True)
 
 
 def run_job(job: Job, parallel: Optional[DataParallel] = None,
@@ -89,19 +106,22 @@ def run_job(job: Job, parallel: Optional[DataParallel] = None,
         step=job.update)
     if job.load_dir is not None:
         state, _ = load_state(job.load_dir, state, parallel)
+    _report(job, parallel, device, f"state {state_bytes(state) / 2**30:.3f} GiB")
     step = make_train_step(job.model_cfg, job.crit_cfg, job.optim_cfg, ema_decay=job.ema_decay,
                            parallel=parallel)
-    rank = 0 if parallel is None else parallel.mesh.rank
+    block = 0 if parallel is None else parallel.mesh.index(DATA, FSDP)
     metrics, secs = [], []
     for i, batches in enumerate(job.steps):
         if parallel is not None:
             batches = shard_batches(batches, parallel.mesh)
         batches = move_to(batches, device)
-        gen = None if job.seed is None else step_generator(job.seed, state.step, device, rank)
+        gen = None if job.seed is None else step_generator(job.seed, state.step, device, block)
         t0 = time.perf_counter()
         state, m = step(state, batches, gen)
         metrics.append({k: float(v) for k, v in m.items()})  # float() waits for the step
         secs.append(time.perf_counter() - t0)
+        _report(job, parallel, device, f"step {i}: loss {metrics[-1]['loss']:.6f}, "
+                f"{secs[-1]:.2f} s")
         if i == 0 and job.save_dir is not None:
             save_state(state, lambda full: save_checkpoint(job.save_dir, full), parallel)
     rec = {"step": state.step, "metrics": metrics, "secs": secs, "state_bytes": state_bytes(state),
@@ -116,8 +136,27 @@ def run_job(job: Job, parallel: Optional[DataParallel] = None,
     return rec
 
 
-def _rank_main(rank: int, world: int, port: int, runs: List[Tuple[int, Job]], out: str,
-               device_type: str) -> None:
+def spawn(fn, args: tuple, world: int, timeout: float = _TIMEOUT.total_seconds()) -> None:
+    """``fn(rank, *args)`` in ``world`` processes; raises if one fails, and
+    ends them all after ``timeout`` seconds (a rank left waiting in a
+    collective for one that raised must not hang its caller)."""
+    ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=world, join=False,
+                                                start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks did not finish in {timeout:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+
+
+def _init_rank(rank: int, world: int, port: int, device_type: str, timeout: float):
+    """Join the ranks' process group (one intra-op thread; NCCL with rank r on
+    card r, fp32 products in full fp32, or gloo) → this rank's device."""
     torch.set_num_threads(1)
     kw = {}
     if device_type == "cuda":
@@ -129,39 +168,69 @@ def _rank_main(rank: int, world: int, port: int, runs: List[Tuple[int, Job]], ou
     else:
         device, backend = torch.device("cpu"), "gloo"
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=world, timeout=_TIMEOUT, **kw)
+                            world_size=world, timeout=datetime.timedelta(seconds=timeout), **kw)
+    return device
+
+
+def _fn_main(rank: int, world: int, port: int, fn, args, mesh_cfg: MeshConfig, out: str,
+             device_type: str, timeout: float) -> None:
+    device = _init_rank(rank, world, port, device_type, timeout)
     try:
-        records = []
-        for fsdp, job in runs:
-            mesh = make_mesh(MeshConfig(data=-1, fsdp=fsdp))
-            rec = run_job(job, DataParallel(mesh, job.params), device)
-            per_rank = [None] * world
-            dist.all_gather_object(per_rank, (rec["peak"], rec["state_bytes"]))
-            rec["peaks"] = [p for p, _ in per_rank]
-            rec["rank_state_bytes"] = [b for _, b in per_rank]
-            records.append(rec)
-        if rank == 0:
-            torch.save(records, out)
-    finally:
-        dist.destroy_process_group()
+        result = fn(make_mesh(mesh_cfg), device, *args)
+        torch.save(result, f"{out}.{rank}")
+    except BaseException:
+        # a rank that raises ends at once, so that the spawn sees it fail and
+        # ends the rest: tearing the group down would wait on its peers,
+        # which wait in a collective for this rank (NCCL)
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
-def run_layouts(world: int, runs: List[Tuple[int, Job]],
-                device_type: str = "cpu") -> List[Dict[str, Any]]:
-    """Run each ``(fsdp, job)`` of ``runs`` in turn on the same ``world``
-    ranks (gloo on the CPU, or NCCL with ``device_type="cuda"``, rank r on
-    card r), ``fsdp`` of them sharding the state (the rest the data axis);
-    rank 0's records."""
+def run_fn(world: int, fn, *args, mesh: MeshConfig = MeshConfig(), device_type: str = "cpu",
+           timeout: float = 120.0) -> List[Any]:
+    """``fn(mesh, device, *args)`` on ``world`` ranks laid out as ``mesh``
+    (gloo, or NCCL with ``device_type="cuda"``) → each rank's result, in rank
+    order. ``fn`` must be importable by name (a module-level function); a
+    rank that has not finished after ``timeout`` seconds fails the call."""
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "records.pt")
-        torch.multiprocessing.spawn(
-            _rank_main, args=(world, _free_port(), runs, out, device_type), nprocs=world,
-            join=True)
-        return torch.load(out, weights_only=False)
+        out = os.path.join(tmp, "result")
+        spawn(_fn_main, (world, _free_port(), fn, args, mesh, out, device_type, timeout), world,
+              timeout + 30)
+        return [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)]
 
 
-def run_ranks(world: int, fsdp: int, job: Job, device_type: str = "cpu") -> Dict[str, Any]:
-    """``run_layouts`` of the one run ``(fsdp, job)``."""
+def _layout(layout) -> MeshConfig:
+    """A layout: a ``MeshConfig``, or an int, the fsdp size of a data × fsdp one."""
+    return layout if isinstance(layout, MeshConfig) else MeshConfig(data=-1, fsdp=layout)
+
+
+def _layouts_rank(mesh, device, runs) -> List[Dict[str, Any]]:
+    records = []
+    for layout, job in runs:
+        mesh = make_mesh(_layout(layout))
+        rec = run_job(job, DataParallel(mesh, job.params), device)
+        per_rank = [None] * mesh.world
+        dist.all_gather_object(per_rank, (rec["peak"], rec["state_bytes"]))
+        rec["peaks"] = [p for p, _ in per_rank]
+        rec["rank_state_bytes"] = [b for _, b in per_rank]
+        records.append(rec if mesh.rank == 0 else None)
+    return records
+
+
+def run_layouts(world: int, runs: List[Tuple[Any, Job]],
+                device_type: str = "cpu", timeout: float = _TIMEOUT.total_seconds()
+                ) -> List[Dict[str, Any]]:
+    """Run each ``(layout, job)`` of ``runs`` in turn on the same ``world``
+    ranks (gloo on the CPU, or NCCL with ``device_type="cuda"``, rank r on
+    card r): a layout is a ``MeshConfig`` or the fsdp size of a data × fsdp
+    one; rank 0's records."""
+    return run_fn(world, _layouts_rank, runs, device_type=device_type, timeout=timeout)[0]
+
+
+def run_ranks(world: int, fsdp, job: Job, device_type: str = "cpu") -> Dict[str, Any]:
+    """``run_layouts`` of the one run ``(fsdp, job)`` (a layout)."""
     return run_layouts(world, [(fsdp, job)], device_type)[0]
 
 
@@ -177,20 +246,21 @@ def _cli_main(rank: int, world: int, port: int, argv: List[str]) -> None:
 def run_cli_ranks(world: int, argv: List[str]) -> None:
     """``cli.main(argv)`` on ``world`` ranks, each with the environment
     ``torchrun --nproc_per_node=world`` gives it (``--device cpu``: gloo)."""
-    torch.multiprocessing.spawn(_cli_main, args=(world, _free_port(), argv), nprocs=world,
-                                join=True)
+    spawn(_cli_main, (world, _free_port(), argv), world)
 
 
-def demo_job(n: int) -> Job:
-    """One update of a small ``ofa_tiny`` on three tasks (an image task and
-    two text tasks that share a packed forward), two micro-batches each, with
-    R-Drop and an active drop-worst, and no dropout."""
+def demo_job(n: int, layers: int = 1, **model) -> Job:
+    """One update of a small ``ofa_tiny`` (``layers`` + ``layers`` layers, the
+    config's other fields from ``model``) on three tasks (an image task and
+    two text tasks that share a packed forward), two micro-batches of 2n rows
+    each, with R-Drop and an active drop-worst, and no dropout."""
     from ..config import ofa_tiny
     from ..params import from_jax, init_ofa_params, trainable
     from ..training.train_step import TaskBatch
 
-    cfg = dataclasses.replace(ofa_tiny(), dtype="float32", encoder_layers=1, decoder_layers=1,
-                              resnet_layers=(1, 1, 1), use_flash_attention=True)
+    cfg = dataclasses.replace(ofa_tiny(), dtype="float32", encoder_layers=layers,
+                              decoder_layers=layers, resnet_layers=(1, 1, 1),
+                              use_flash_attention=True, **model)
     tree = init_ofa_params(cfg, torch.Generator().manual_seed(0), "cpu")
     params = trainable(from_jax(tree, cfg, "cpu", torch.float32))
     rs = np.random.RandomState(0)
@@ -211,31 +281,72 @@ def demo_job(n: int) -> Job:
                ema_decay=0.9)
 
 
-def dryrun_multirank(n: int = 4, fsdp: Optional[int] = None,
-                     device_type: str = "cpu") -> Dict[str, float]:
-    """One full multi-task step over an ``n``-rank layout (``fsdp`` of the
-    ranks, by default 2 where ``n`` is even, the rest ``data``) on gloo, or
-    on NCCL with ``device_type="cuda"`` (n cards), against the one-process
-    run on the CPU or card 0: loss, gradient norm and metrics to 1e-5
-    relative, the parameters, AdamW moments and EMA after the update to
-    1e-5 of the tree's largest value. Returns the multi-rank run's loss and
-    gradient norm."""
-    job = demo_job(n)
-    if fsdp is None:
-        fsdp = 2 if n % 2 == 0 else 1
-    got = run_ranks(n, fsdp, job, device_type)
-    want = run_job(job, device="cuda:0" if device_type == "cuda" else "cpu")
+_NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                   encoder_drop_path_rate=0.0, decoder_drop_path_rate=0.0)
+
+# the layouts over the model, pipe and seq axes that dryrun_multirank runs on
+# four ranks (model 2 x fsdp 2 is __graft_entry__.dryrun_multichip(4)'s), with
+# the model options each needs: 4 + 4 layers, dropout off (the SP gate)
+AXES_LAYOUTS: Dict[str, Tuple[MeshConfig, Dict[str, Any]]] = {
+    "model2_fsdp2": (MeshConfig(fsdp=2, model=2), {}),
+    "model4": (MeshConfig(model=4), {}),
+    "pipe4": (MeshConfig(pipe=4), dict(pipeline_microbatches=4)),
+    "data2_pipe2_interleave2": (MeshConfig(pipe=2),
+                                dict(pipeline_microbatches=2, pipeline_interleave=2)),
+    "seq4": (MeshConfig(seq=4), dict(seq_parallel=True)),
+}
+
+
+def axes_job(name: Optional[str], n: int = 4, **model) -> Job:
+    """``demo_job`` on 4 + 4 layers with dropout off and layout ``name``'s
+    options (None: none), the config's other fields from ``model``."""
+    return demo_job(n, layers=4, **_NO_DROPOUT, **(AXES_LAYOUTS[name][1] if name else {}),
+                    **model)
+
+
+def _check(what: str, got: Dict[str, Any], want: Dict[str, Any]) -> None:
+    """Loss, gradient norm and metrics to 1e-5 relative; the parameters,
+    AdamW moments and EMA after the update to 1e-5 of the tree's largest value."""
     for k, v in want["metrics"][0].items():
         g = got["metrics"][0][k]
         if abs(g - v) > 1e-5 * max(abs(v), 1e-12):
-            raise AssertionError(f"dryrun_multirank({n}): {k} {g} against one rank's {v}")
+            raise AssertionError(f"{what}: {k} {g} against one rank's {v}")
     for key in ("params", "mu", "nu", "ema"):
         tol = 1e-5 * max(float(b.abs().max()) for b in want[key])
         for a, b in zip(got[key], want[key]):
             if float((a - b).abs().max()) > tol:
-                raise AssertionError(f"dryrun_multirank({n}): {key} differs from one rank's")
-    m = got["metrics"][0]
+                raise AssertionError(f"{what}: {key} differs from one rank's")
+
+
+def dryrun_multirank(n: int = 4, fsdp: Optional[int] = None,
+                     device_type: str = "cpu", layouts: Sequence[str] = ()) -> Dict[str, Any]:
+    """One full multi-task step over an ``n``-rank layout (``fsdp`` of the
+    ranks, by default 2 where ``n`` is even, the rest ``data``) on gloo, or
+    on NCCL with ``device_type="cuda"`` (n cards), against the one-process
+    run on the CPU or card 0 (``_check``'s bounds); then, on the same ranks
+    (n = 4), each of ``layouts`` (names of ``AXES_LAYOUTS``: the model, pipe
+    and seq axes) against the one-process run of ``axes_job`` (a layout's
+    options act only over a mesh, so one run serves them all). Returns each
+    run's loss and gradient norm, by layout ("data_fsdp" first)."""
+    job = demo_job(n)
+    if fsdp is None:
+        fsdp = 2 if n % 2 == 0 else 1
+    if layouts and n != 4:
+        raise ValueError("the model, pipe and seq layouts run on 4 ranks")
+    runs = [(fsdp, job)] + [(AXES_LAYOUTS[name][0], axes_job(name)) for name in layouts]
+    recs = run_layouts(n, runs, device_type)
+    one = "cuda:0" if device_type == "cuda" else "cpu"
     backend = "NCCL" if device_type == "cuda" else "gloo"
-    print(f"dryrun_multirank OK: {n} {backend} ranks, mesh data={n // fsdp} fsdp={fsdp}, "
-          f"loss={m['loss']:.6f}, gnorm={m['gnorm']:.6f}")
-    return {"loss": m["loss"], "gnorm": m["gnorm"]}
+    wants = [run_job(job, device=one)]
+    if layouts:
+        wants += [run_job(axes_job(None), device=one)] * len(layouts)
+    out = {}
+    for name, (layout, _), got, want in zip(["data_fsdp", *layouts], runs, recs, wants):
+        _check(f"dryrun_multirank({n}) {name}", got, want)
+        m = got["metrics"][0]
+        sizes = dict(zip(("data", "fsdp", "model", "pipe", "seq"), _layout(layout).axis_sizes(n)))
+        print(f"dryrun_multirank OK: {n} {backend} ranks, mesh "
+              + " ".join(f"{k}={v}" for k, v in sizes.items() if v > 1 or k == "data")
+              + f", loss={m['loss']:.6f}, gnorm={m['gnorm']:.6f}")
+        out[name] = {"loss": m["loss"], "gnorm": m["gnorm"]}
+    return out if layouts else out["data_fsdp"]

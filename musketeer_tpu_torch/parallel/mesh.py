@@ -6,26 +6,39 @@ Axes, as in the JAX package:
           the gradients are summed over ranks)
   fsdp  — parameter and optimizer-state sharding (ZeRO/FSDP): each leaf the
           rules shard on ``fsdp`` is held as 1/fsdp per rank
-  model, pipe, seq — tensor, pipeline and sequence parallelism (the port's
-          CLI refuses them above 1)
+  model — tensor parallelism (Megatron): attention heads and the FFN's
+          hidden units split over ranks (``tensor_parallel.py``)
+  pipe  — pipeline parallelism: the layer stacks split into stages, GPipe or
+          interleaved (``pipeline.py``)
+  seq   — sequence parallelism: ring attention over the sequence's chunks
+          (``ring_attention.py``)
+
+The ranks of one ``model × pipe × seq`` block share a batch block
+(``batch_block``) and compute one replicated loss. ``set_mesh`` makes a mesh
+the one the model's forward splits over, as ``jax.set_mesh`` does for the
+JAX model; ``get_mesh`` reads it.
 
 ``make_mesh`` lays ranks out as the JAX ``make_mesh`` lays out devices: rank
 r sits at the row-major coordinate of r in ``(data, fsdp, model, pipe,
 seq)``. The batch axis is split over ``(data, fsdp)`` jointly, as
 ``P((DATA, FSDP))`` splits it over devices (``batch_block``).
 
-``_RULES``, ``param_spec``, ``_fit_spec`` and ``_is_layer_stacked`` are the
-JAX package's, with specs as tuples of axis names (None: not sharded)
-instead of ``PartitionSpec``s; they read the JAX layout (stacked ``[L, ...]``
-layers, ``[din, dout]`` linears, HWIO convolutions). ``leaf_spec`` gives the
-same spec for a leaf of the port's tree, in the port's layout.
+``_RULES``, ``param_spec`` and ``_fit_spec`` are the JAX package's, with
+specs as tuples of axis names (None: not sharded) instead of
+``PartitionSpec``s; they read the JAX layout (stacked ``[L, ...]`` layers,
+``[din, dout]`` linears, HWIO convolutions). ``leaf_spec`` gives the same
+spec for a leaf of the port's tree, in the port's layout, with one
+deliberate difference: the JAX ``param_shardings`` puts a layer stack's
+``L`` axis on ``pipe`` (each stage holds its own layers), and the port
+holds every layer on every pipe rank (``data_parallel.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -39,8 +52,8 @@ Spec = Tuple  # one entry per dim: None, an axis name, or a tuple of axis names
 
 
 class Mesh:
-    """This rank's place on the five axes, and a process group per axis set
-    (None without a process group: one rank)."""
+    """This rank's place on the five axes, and a process group per set of
+    axes (None where the set spans one rank, and without a process group)."""
 
     def __init__(self, sizes: Sequence[int], rank: int, groups: Dict[frozenset, object]):
         self.shape: Dict[str, int] = dict(zip(AXES, sizes))
@@ -61,11 +74,26 @@ class Mesh:
 
     def group(self, *axes: str):
         """The process group of the ranks that differ from this one only along
-        ``axes`` (``DATA``, ``FSDP`` or both)."""
-        return self._groups.get(frozenset(axes))
+        ``axes``; None where they are this rank alone."""
+        return self._groups.get(_key(self.shape, axes))
+
+    def rank_at(self, **coords: int) -> int:
+        """The global rank at this rank's coordinates with ``coords`` replaced."""
+        c = {**self.coords, **coords}
+        return int(np.ravel_multi_index(tuple(c[a] for a in AXES), tuple(self.shape[a] for a in AXES)))
 
 
-_GROUP_AXES = ((DATA,), (FSDP,), (DATA, FSDP))
+def _key(shape: Dict[str, int], axes) -> frozenset:
+    """A set of axes by the axes in it that span more than one rank (two sets
+    that differ only by axes of size 1 name the same group)."""
+    return frozenset(a for a in axes if shape[a] > 1)
+
+
+# the sets of axes the port communicates over: each axis, the batch (data x
+# fsdp), the norm's (fsdp x model), and the gradient sums' (data x pipe x seq
+# after fsdp's reduce-scatter, data x fsdp x pipe x seq for a replicated leaf)
+_GROUP_AXES = ((DATA,), (FSDP,), (MODEL,), (PIPE,), (SEQ,), (DATA, FSDP), (FSDP, MODEL),
+               (DATA, PIPE, SEQ), (DATA, FSDP, PIPE, SEQ))
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(), world: Optional[int] = None) -> Mesh:
@@ -76,18 +104,52 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), world: Optional[int] = None) -> Me
         world = dist.get_world_size() if initialized else 1
     sizes = cfg.axis_sizes(world)
     rank = dist.get_rank() if initialized else 0
+    shape = dict(zip(AXES, sizes))
     groups: Dict[frozenset, object] = {}
     if initialized:
         ranks = np.arange(world).reshape(sizes)
-        for axes in _GROUP_AXES:
-            keep = [AXES.index(a) for a in axes]
+        for key in dict.fromkeys(_key(shape, axes) for axes in _GROUP_AXES):
+            if not key:
+                continue
+            keep = [i for i, a in enumerate(AXES) if a in key]
             rest = [i for i in range(len(AXES)) if i not in keep]
             blocks = ranks.transpose(rest + keep).reshape(-1, math.prod(sizes[i] for i in keep))
             for block in blocks:
                 g = dist.new_group(block.tolist())  # collective: every rank makes every group
                 if rank in block:
-                    groups[frozenset(axes)] = g
+                    groups[key] = g
     return Mesh(sizes, rank, groups)
+
+
+class Active:
+    """What the model's forward splits over: ``mesh``; ``model_split``, that
+    the parameter tree holds this rank's model shard (a gathered tree runs
+    replicated over ``model``); ``batch_local``, that the batch is this rank's
+    block (a validation batch is the same on every rank)."""
+
+    def __init__(self, mesh: Mesh, model_split: bool = True, batch_local: bool = True):
+        self.mesh = mesh
+        self.model_split = model_split
+        self.batch_local = batch_local
+
+
+_ACTIVE: list = [None]
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Optional[Mesh], model_split: bool = True,
+             batch_local: bool = True) -> Iterator[None]:
+    """Within the block, ``get_mesh()`` is ``mesh`` (None: no mesh)."""
+    prev = _ACTIVE[0]
+    _ACTIVE[0] = None if mesh is None else Active(mesh, model_split, batch_local)
+    try:
+        yield
+    finally:
+        _ACTIVE[0] = prev
+
+
+def get_mesh() -> Optional[Active]:
+    return _ACTIVE[0]
 
 
 def batch_block(n: int, mesh: Mesh) -> slice:
@@ -119,7 +181,8 @@ def shard_batches(batches, mesh: Mesh):
 # parameter sharding rules (the JAX package's, in the JAX layout)
 # ---------------------------------------------------------------------------
 # Rules are matched against the flattened param path. First match wins.
-# Layer-stacked leaves have a leading L axis (never sharded).
+# Layer-stacked leaves have a leading L axis, which the rules never shard
+# (the JAX param_shardings puts it on pipe; the port does not: see above).
 #
 # Tensor-parallel choices (standard Megatron layout):
 #   attention q/k/v: out dim (heads) on MODEL;   out_proj: in dim on MODEL
@@ -186,11 +249,6 @@ def _fit_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
     return tuple(out)
 
 
-def _is_layer_stacked(path: str) -> bool:
-    """Leaves whose leading axis is the transformer layer axis."""
-    return ".layers." in path or path.endswith("rel_pos_table")
-
-
 # ---------------------------------------------------------------------------
 # the port's layout
 # ---------------------------------------------------------------------------
@@ -236,16 +294,18 @@ def leaf_spec(path: str, shape, mesh: Mesh) -> Spec:
     spec = tuple(param_spec(path, nd))
     spec = spec + (None,) * (nd - len(spec))
     if stacked:
-        spec = spec[1:]  # the layer axis is never sharded
+        spec = spec[1:]  # the port holds every layer on every pipe rank (module docstring)
     return _to_port(path, _fit_spec(spec, jshape, mesh), len(jshape))
 
 
-def fsdp_dim(path: str, shape, mesh: Mesh) -> Optional[int]:
-    """The dim of the port's leaf that ``fsdp`` shards, or None (replicated)."""
-    if mesh.shape[FSDP] == 1:
+def sharded_dim(path: str, shape, mesh: Mesh, axis: str) -> Optional[int]:
+    """The dim of the port's leaf that ``axis`` shards, or None (replicated
+    over it, or the axis is one rank)."""
+    if mesh.shape[axis] == 1:
         return None
     for d, axes in enumerate(leaf_spec(path, shape, mesh)):
         names = (axes,) if isinstance(axes, str) else tuple(axes or ())
-        if FSDP in names:
+        if axis in names:
             return d
     return None
+

@@ -59,8 +59,6 @@ Params = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first model option the port lacks."""
     unsupported = {
-        "seq_parallel": cfg.seq_parallel,
-        "pipeline_microbatches": cfg.pipeline_microbatches > 0,
         f"activation_fn={cfg.activation_fn!r}": cfg.activation_fn != "gelu",
     }
     for name, on in unsupported.items():

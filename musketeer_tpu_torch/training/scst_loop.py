@@ -104,7 +104,7 @@ def scst_training(
             for start in range(0, n_rows - batch_size + 1, batch_size):
                 idx = [int(order[start + j]) for j in range(batch_size)]
                 batch = collate([builder(cols) for cols in ds.get_batch(idx)], pad_id=vocab.pad)
-                rng = step_generator(seed, updates, device)
+                rng = step_generator(seed, updates, device, 0)  # one rank: batch block 0
                 if gen_code:
                     state, metrics = clip_scst_train_step(state, vocab, image_gen_task, grad_fn,
                                                           batch, model_cfg, rng)

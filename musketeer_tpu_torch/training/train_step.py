@@ -21,13 +21,18 @@ left as they were) when the norm is not finite. Where the JAX step is one
 jitted program, this one runs eagerly; it updates the state in place.
 
 With ``parallel`` (a ``parallel.DataParallel``) the step is one rank's part
-of a data × fsdp run, given this rank's block of every batch: it gathers the
-parameters (FSDP), counts each task's kept tokens over all ranks before the
-backward (each task's loss is divided by its global count), ranks drop-worst
-and drop-best over the global batch, sums the gradients over the ranks
-(reduce-scattered to the blocks under FSDP), and takes the global norm, so
-that every rank makes the same update and the same skip decision. The loss
-and metrics it returns are the global ones.
+of a run over the whole mesh, given this rank's block of every batch: it
+gathers the parameters (FSDP, and over ``model`` the leaves the model uses
+whole), runs the forward and backward with the mesh active
+(``parallel.mesh.set_mesh``: the model splits heads and FFN over ``model``,
+layer stacks over ``pipe``, sequences over ``seq``), counts each task's kept
+tokens over the data × fsdp ranks before the backward (each task's loss is
+divided by its global count), ranks drop-worst and drop-best over the global
+batch, counts the loss that a model × pipe × seq block replicates once,
+sums the gradients over the ranks (reduce-scattered to the blocks under
+FSDP), and takes the global norm, so that every rank makes the same update
+and the same skip decision. The loss and metrics it returns are the global
+ones.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..config import CriterionConfig, ModelConfig, OptimConfig
 from ..criterions.label_smoothed_ce import CELossOut, label_smoothed_ce
 from ..models import ofa
 from ..models.resnet import resnet_forward
+from ..parallel.mesh import set_mesh
 from .train_state import TrainState, ema_update, global_norm, make_optimizer, named_leaves
 
 
@@ -285,8 +291,8 @@ def make_train_step(model_cfg: ModelConfig, crit_cfg: CriterionConfig, optim_cfg
     drop-path masks on the batches' device. The step changes ``state``'s
     parameters and optimizer state in place and returns the state with its
     step advanced (or as it was, after a non-finite gradient). ``parallel``
-    (a ``parallel.DataParallel``) makes it one rank's step of a data × fsdp
-    run (see the module docstring)."""
+    (a ``parallel.DataParallel``) makes it one rank's step of a run over the
+    whole mesh (see the module docstring)."""
     tx = make_optimizer(optim_cfg)
     norm = global_norm if parallel is None else parallel.global_norm
 
@@ -299,13 +305,16 @@ def make_train_step(model_cfg: ModelConfig, crit_cfg: CriterionConfig, optim_cfg
             p.grad = None
         A = next(iter(batches.values())).src_tokens.shape[0]
         loss_sum = 0.0
-        for a in range(A):
-            micro = {n: TaskBatch(*[None if x is None else x[a] for x in b])
-                     for n, b in batches.items()}
-            loss, metrics = multitask_loss(params, model_cfg, crit_cfg, micro, generator,
-                                           state.step, pack_text, pack_vision, comm=parallel)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
+        scale = 1.0 if parallel is None else parallel.loss_scale
+        # the backward too: a recomputed layer (remat) splits as its forward did
+        with set_mesh(None if parallel is None else parallel.mesh):
+            for a in range(A):
+                micro = {n: TaskBatch(*[None if x is None else x[a] for x in b])
+                         for n, b in batches.items()}
+                loss, metrics = multitask_loss(params, model_cfg, crit_cfg, micro, generator,
+                                               state.step, pack_text, pack_vision, comm=parallel)
+                (loss if scale == 1.0 else loss * scale).backward()
+                loss_sum = loss_sum + loss.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
         if parallel is not None:
             grads = parallel.reduce_grads(grads)

@@ -12,18 +12,21 @@ train.py:238-263). Mid-epoch validation and saves on update intervals,
 Each update's dropout generator is seeded from ``(cfg.seed, update)``, the
 counterpart of the JAX loop's ``jax.random.fold_in(rng, host_step)``, so a
 resumed run draws what a straight run draws; a rank of a multi-rank run
-folds its rank in too.
+folds in the index of its batch block, so that the ranks of one block draw
+alike.
 
 With ``parallel`` (a ``parallel.DataParallel``) the loop is one rank's part
-of a data × fsdp run: every rank reads the loader's whole global batch, as
-the JAX package's one host does, and keeps its block of it
+of a run over the whole mesh: every rank reads the loader's whole global
+batch, as the JAX package's one host does, and keeps its block of it
 (``parallel.shard_batches``). Checkpoints hold the full state, gathered
 from the blocks and written by rank 0 between two barriers; a resume reads
 the full state on every rank and keeps its blocks, so a checkpoint of any
-layout resumes at any other. Every rank validates the gathered parameters,
-so that no rank waits in a collective (and into its backend's timeout)
-while another validates; the metric, like every stop decision, is rank 0's
-on every rank. Rank 0 alone logs and writes TensorBoard.
+layout resumes at any other. Every rank validates the gathered parameters
+(the whole tree: replicated over ``model``) with the mesh active, as the JAX
+loop validates inside its mesh, so that an encoder's pipeline or ring runs
+over its ranks, and no rank waits in a collective (and into its backend's
+timeout) while another validates; the metric, like every stop decision, is
+rank 0's on every rank. Rank 0 alone logs and writes TensorBoard.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from .metrics import MetricsLogger
 from .prefetch import PrefetchIterator, move_to
 from .train_state import TrainState
 from .train_step import make_train_step
-from ..parallel.mesh import shard_batches
+from ..parallel.mesh import DATA, FSDP, set_mesh, shard_batches
 
 logger = logging.getLogger("musketeer_tpu_torch")
 
@@ -68,15 +71,15 @@ class EarlyStopper:
         return self.num_runs >= self.patience
 
 
-def step_generator(seed: int, update: int, device, rank: int = 0) -> torch.Generator:
-    """The dropout generator of update ``update`` on rank ``rank`` (a function
-    of the three alone; rank 0's is the one-process run's). Another rank's
-    seed is a hash of all three, so that no (seed, rank) pair shares its
-    stream with another's."""
-    if rank == 0:
-        value = ((seed << 32) + update) % (1 << 64)
-    else:
-        value = int(np.random.SeedSequence([seed, update, rank]).generate_state(1, np.uint64)[0])
+def step_generator(seed: int, update: int, device, batch_index: int = 0) -> torch.Generator:
+    """The dropout generator of update ``update`` for the ranks that hold batch
+    block ``batch_index`` (``mesh.index(DATA, FSDP)``; 0 is the one-process
+    run's): a function of the three alone. Its seed is a hash of all three,
+    so that no (seed, block) pair shares its stream with another's and every
+    bit of ``seed`` reaches the low 32 bits, the only ones the CPU's mt19937
+    generator keeps. Ranks that share a block (the model, pipe and seq axes)
+    draw the same masks on the activations they replicate."""
+    value = int(np.random.SeedSequence([seed, update, batch_index]).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(value)
 
 
@@ -102,6 +105,7 @@ def train_loop(
     of a data × fsdp run (see the module docstring)."""
     device = state.params["embed_tokens"].device
     rank = 0 if parallel is None else parallel.mesh.rank
+    block = 0 if parallel is None else parallel.mesh.index(DATA, FSDP)
     lead = rank == 0
     step_fn = make_train_step(model_cfg, cfg.criterion, cfg.optim, ema_decay=cfg.ema_decay,
                               parallel=parallel)
@@ -164,8 +168,9 @@ def train_loop(
             return validate_fn(st)
         # every rank validates the gathered parameters (no rank waits in a
         # collective while another validates); rank 0's metric is the one kept
-        st = st._replace(params=parallel.gather(st.params))
-        return agreed(validate_fn(st))
+        st = st._replace(params=parallel.gather(st.params, full=True))
+        with set_mesh(parallel.mesh, model_split=False, batch_local=False):
+            return agreed(validate_fn(st))
 
     epoch = start_epoch
     while epoch <= max_epoch:
@@ -184,7 +189,7 @@ def train_loop(
         try:
             for batches in it:
                 state, metrics = step_fn(state, batches,
-                                         step_generator(cfg.seed, host_step, device, rank))
+                                         step_generator(cfg.seed, host_step, device, block))
                 n_steps += 1
                 host_step += 1
                 num_updates = host_step

@@ -81,6 +81,8 @@ def test_port_imports_no_jax():
             "musketeer_tpu_torch.training.scst_loop", "musketeer_tpu_torch.native.__init__",
             "musketeer_tpu_torch.utils.flops", "musketeer_tpu_torch.parallel.mesh",
             "musketeer_tpu_torch.parallel.data_parallel", "musketeer_tpu_torch.parallel.dryrun",
+            "musketeer_tpu_torch.parallel.tensor_parallel", "musketeer_tpu_torch.parallel.pipeline",
+            "musketeer_tpu_torch.parallel.ring_attention",
             "musketeer_tpu_torch.examples.joint_training_demo"} <= set(modules)
 
 
@@ -194,9 +196,7 @@ def test_from_jax_consumes_every_leaf_once():
         from_jax(missing, cfg_t, "cpu", torch.float32)
 
 
-@pytest.mark.parametrize("option", [
-    dict(seq_parallel=True), dict(pipeline_microbatches=2), dict(activation_fn="relu"),
-])
+@pytest.mark.parametrize("option", [dict(activation_fn="relu")])
 def test_unported_model_options_raise(option):
     cfg = dataclasses.replace(_tiny_cfgs()[1], **option)
     with pytest.raises(NotImplementedError, match=next(iter(option))):
@@ -206,10 +206,13 @@ def test_unported_model_options_raise(option):
 @pytest.mark.parametrize("option", [
     dict(encoder_prompt=True), dict(decoder_prompt=True), dict(interpolate_position=True),
     dict(use_adapter=True), dict(use_flash_attention=False), dict(remat=True),
+    dict(seq_parallel=True), dict(pipeline_microbatches=2, pipeline_interleave=2),
 ])
 def test_ported_model_options_pass_the_check(option):
     """The options the XLA branch carries are no longer refused (the
-    parity tests in ``test_torch_port_xla_branch.py`` hold them to JAX)."""
+    parity tests in ``test_torch_port_xla_branch.py`` hold them to JAX), nor
+    the pipe and seq axes' (``test_torch_port_pipeline.py``,
+    ``test_torch_port_ring.py``)."""
     check_supported(dataclasses.replace(_tiny_cfgs()[1], **option))
 
 

@@ -461,23 +461,14 @@ def test_cli_evaluate_all(cli_run, tsvs):
     assert set(out) == {"caption", "snli_ve"} and out["snli_ve"]["n"] == 2
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--model-parallel", "2"], "model, pipe and seq axes"),
-    (["--pipeline", "2"], "model, pipe and seq axes"),
-    (["--seq-parallel", "2"], "model, pipe and seq axes"),
-    (["--microbatches", "2"], "model, pipe and seq axes"),
-])
-def test_cli_unported_paths_raise(tsvs, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["train", "--tasks", f"caption={tsvs['caption']}", "--device", "cpu", *flags])
-
-
 def test_cli_fsdp_needs_ranks(tsvs, monkeypatch):
-    """``--fsdp 2`` in one process names torchrun; reward fine-tuning refuses
-    a multi-rank launch."""
-    with pytest.raises(ValueError, match="torchrun"):
-        cli.main(["train", "--tasks", f"caption={tsvs['caption']}", "--device", "cpu",
-                  "--fsdp", "2"])
+    """``--fsdp 2`` (and ``--model-parallel``, ``--pipeline``,
+    ``--seq-parallel`` 2) in one process names torchrun; reward fine-tuning
+    refuses a multi-rank launch."""
+    for flag in ("--fsdp", "--model-parallel", "--pipeline", "--seq-parallel"):
+        with pytest.raises(ValueError, match="torchrun"):
+            cli.main(["train", "--tasks", f"caption={tsvs['caption']}", "--device", "cpu",
+                      flag, "2"])
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="one rank"):
         cli.main(["train", "--criterion", "scst", "--tasks", f"caption={tsvs['caption']}",
@@ -523,6 +514,45 @@ def test_cli_train_fsdp_and_remat_match_one_rank(cli_run, tsvs, tmp_path, mode):
                      zip(leaves(got.params), leaves(want.params), before)])
     assert float(off.max()) < 2 * 2 * lr
     assert float((off >= 0.5 * lr).float().mean()) <= 1e-3
+
+
+AXES_FLAGS = {"model2": ["--model-parallel", "2"],
+              "pipe2": ["--pipeline", "2", "--microbatches", "2"],
+              "seq2": ["--seq-parallel", "2"]}
+
+
+@pytest.mark.parametrize("axis", list(AXES_FLAGS))
+def test_cli_train_axes_match_one_rank(cli_run, tsvs, tmp_path, axis):
+    """``cli train --model-parallel 2`` (heads and FFN split), ``--pipeline 2
+    --microbatches 2`` (GPipe, a row a microbatch) and ``--seq-parallel 2``
+    (ring attention: the preset has no dropout, so the SP gate is open) on
+    two gloo ranks, as ``torchrun --nproc_per_node=2`` launches them, against
+    ``cli_run``'s one-rank run of the same flags: the checkpoint (the whole
+    state, gathered) moved as the one-rank run's, within the bounds of the
+    fsdp case (the preset trains in bf16, where split products round
+    otherwise): the CLI logs no loss within two updates, and Adam's moves
+    are its gradients' signs."""
+    from musketeer_tpu_torch.parallel.dryrun import run_cli_ranks
+
+    tasks = ",".join(f"{n}={tsvs[n]}" for n in ("caption", "snli_ve"))
+    # cli_run's flags but its EMA, which moves no parameter (half the checkpoint)
+    argv = ["train", "--tasks", tasks, "--arch", "ofa_tiny", "--device", "cpu",
+            "--patch-image-size", str(IMG), "--max-update", "2",
+            "--save-dir", str(tmp_path / "run"), "--warmup-updates", "1"]
+    run_cli_ranks(2, argv + AXES_FLAGS[axis])
+    got, meta = load_checkpoint(str(tmp_path / "run"), device="cpu")
+    want = cli_run["state"]
+    assert got.step == 2 and meta["num_updates"] == 2 and got.opt_state["count"] == 2
+    leaves = lambda tree: [t.detach() for _, t in named_leaves(tree)]
+    assert [t.shape for t in leaves(got.params)] == [t.shape for t in leaves(want.params)]
+    before = leaves(from_jax(init_ofa_params(tc.ofa_tiny(), torch.Generator().manual_seed(7),
+                                             "cpu"), tc.ofa_tiny(), "cpu", torch.float32))
+    lr = 1e-4
+    off = torch.cat([((x - p0) - (y - p0)).abs().flatten() for x, y, p0 in
+                     zip(leaves(got.params), leaves(want.params), before)])
+    assert float(off.max()) < 2 * 2 * lr
+    assert float((off >= 0.5 * lr).float().mean()) <= 1e-3
+    shutil.rmtree(tmp_path / "run")
 
 
 def test_cli_train_validates_on_two_ranks(tsvs, tmp_path):

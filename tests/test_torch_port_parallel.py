@@ -183,6 +183,7 @@ def test_dryrun_multirank():
     assert np.isfinite(out["loss"]) and out["gnorm"] > 0
 
 
+
 def _jax_specs(cfg, sizes):
     """(path, fitted spec, shape) of every leaf of the JAX tree under ``cfg``,
     on a mesh of ``sizes`` (data, fsdp) of the CPU devices."""
@@ -210,7 +211,6 @@ def test_param_specs_match_jax(preset):
         for path, (spec, shape) in specs.items():
             ours = mesh._fit_spec(mesh.param_spec(path, len(shape)), shape, port_mesh)
             assert ours == spec, path
-            assert mesh._is_layer_stacked(path) == jax_mesh._is_layer_stacked(path)
         # the port's tree, built on the meta device from the JAX shapes
         meta = jax.tree.map(lambda s: torch.empty(s.shape, device="meta"), shapes)
         tree = from_jax(meta, cfg_t, "meta", torch.float32)
@@ -226,10 +226,11 @@ def test_param_specs_match_jax(preset):
             elif leaf.dim() == 4:
                 got = (got[2], got[3], got[1], got[0])  # OIHW → HWIO
             assert got == want, path
-            sharded += mesh.fsdp_dim(path, leaf.shape, port_mesh) is not None
+            sharded += mesh.sharded_dim(path, leaf.shape, port_mesh, mesh.FSDP) is not None
         assert sharded > 20
-        assert mesh.fsdp_dim("encoder.embed_image_positions",
-                             tree["encoder"]["embed_image_positions"].shape, port_mesh) is None
+        assert mesh.sharded_dim("encoder.embed_image_positions",
+                                tree["encoder"]["embed_image_positions"].shape, port_mesh,
+                                mesh.FSDP) is None
 
 
 def test_rank_blocks_follow_the_batch_sharding():
@@ -245,16 +246,36 @@ def test_rank_blocks_follow_the_batch_sharding():
 
 @pytest.mark.parametrize("seed", [1, 1 << 16, (1 << 31) - 1])
 def test_step_generator_rank_streams(seed):
-    """Rank 0 draws the one-process run's stream; every other rank is seeded
-    with a value of its own: no (seed, rank) shares it with another pair, also
-    for seeds of 2^16 and more, where a rank shifted into the seed's bits
-    would; the value is a function of (seed, update, rank) alone."""
+    """Batch block 0 (a one-process run's, the default argument) draws from
+    the generator seeded with SeedSequence([seed, update, 0])'s first word;
+    every block is seeded with a value of its own: no (seed, block)
+    shares it with another pair, also for seeds of 2^16 and more, where a
+    block shifted into the seed's bits would; the value is a function of
+    (seed, update, block) alone; and the CPU masks depend on the seed (the
+    CPU's mt19937 keeps only a seed's low 32 bits)."""
     from musketeer_tpu_torch.training.trainer import step_generator
 
-    one = torch.Generator().manual_seed(((seed << 32) + 3) % (1 << 64))
-    got = step_generator(seed, 3, "cpu", 0)
-    assert torch.equal(torch.rand(8, generator=got), torch.rand(8, generator=one))
-    value = lambda s, update, rank: step_generator(s, update, "cpu", rank).initial_seed()
+    draw = lambda g: torch.rand(8, generator=g)
+    block0 = int(np.random.SeedSequence([seed, 3, 0]).generate_state(1, np.uint64)[0])
+    assert torch.equal(draw(step_generator(seed, 3, "cpu")),
+                       draw(torch.Generator().manual_seed(block0)))
+    assert torch.equal(draw(step_generator(seed, 3, "cpu", 0)), draw(step_generator(seed, 3, "cpu")))
+    value = lambda s, update, block: step_generator(s, update, "cpu", block).initial_seed()
     pairs = [(s, r) for s in (seed, seed + (1 << 16), seed + 2 * (1 << 16)) for r in range(4)]
     assert len({value(s, 3, r) for s, r in pairs}) == len(pairs)
     assert value(seed, 3, 1) == value(seed, 3, 1) != value(seed, 4, 1)
+    assert len({float(draw(step_generator(s, 3, "cpu"))[0]) for s in (seed, seed + 1)}) == 2
+
+
+def test_two_seeds_give_two_cpu_masks():
+    """Two --seed values draw two dropout masks on the CPU, at every update
+    and block (the fault: ``(seed << 32) + update`` kept the update alone)."""
+    from musketeer_tpu_torch.models.ofa import _dropout
+    from musketeer_tpu_torch.training.trainer import step_generator
+
+    x = torch.ones(64, 64)
+    for update in (0, 5):
+        for block in (0, 1):
+            a, b = (_dropout(x, 0.1, step_generator(seed, update, "cpu", block), False)
+                    for seed in (7, 8))
+            assert not torch.equal(a, b)

@@ -272,6 +272,10 @@ CLI_CASES = {
     "train": ["train", "--tasks", "caption={caption}"],
     "train_no_flash": ["train", "--tasks", "caption={caption}", "--no-flash"],
     "train_unroll": ["train", "--tasks", "caption={caption}", "--unroll-layers"],
+    "train_microbatches": ["train", "--tasks", "caption={caption}", "--microbatches", "2",
+                           "--pipeline-interleave", "2"],
+    "train_interleave_alone": ["train", "--tasks", "caption={caption}",
+                               "--pipeline-interleave", "2"],
     "evaluate": ["evaluate", "--task", "caption", "--data", "{caption}"],
     "evaluate_all": ["evaluate-all", "--tasks", "caption={caption}"],
 }
@@ -281,8 +285,11 @@ CLI_CASES = {
 def test_cli_model_config_matches_jax(tsvs, case):
     """The commands build the JAX CLI's ModelConfig: evaluate keeps the
     preset's ``use_flash_attention`` (False, the XLA branch); train sets it
-    from ``--no-flash``."""
+    from ``--no-flash``, and the pipeline's fields from ``--microbatches``
+    (``--pipeline-interleave`` alone is ignored, as there)."""
     argv = [a.format(**tsvs) for a in CLI_CASES[case]] + ["--arch", "ofa_tiny"]
     ref, out = _jax_config(argv), _port_config(argv)
     assert dataclasses.asdict(out) == dataclasses.asdict(ref)
-    assert out.use_flash_attention == (case in ("train", "train_unroll"))
+    assert out.use_flash_attention == (case.startswith("train") and case != "train_no_flash")
+    assert (out.pipeline_microbatches, out.pipeline_interleave) == (
+        (2, 2) if case == "train_microbatches" else (0, 1))
