@@ -15,6 +15,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --multi-card   # phases 1, 2 and 23, on four cards
     python3 chip_smoke.py --multi-axes-only  # phases 1, 2 and 23 (c), on four cards
     python3 chip_smoke.py --axes-only    # phases 1, 2 and 24
+    python3 chip_smoke.py --huge-only    # phases 1, 2 and 25 (ofa_huge, head dim 80)
 
 ``--train-only``, ``--decode-only`` and ``--k8-only`` also run against an
 older tree's package when this file is copied into that tree's root, so that
@@ -32,7 +33,8 @@ Phases; any failure raises and the script exits non-zero:
    ``proj_sm90_kernel`` and K2-q8's ``proj_q8_sm90_kernel``;
    ``decode_attn_sm90.cuh``: K7's cross-attention; ``decode_cross_attn.cu``:
    K6's ``cross_attn_i8_sm90_kernel``; ``bottleneck_sm90.cuh``: K8's
-   ``mk::bneck::kernel``);
+   ``mk::bneck::kernel``), and for each head-dim-80 instance of the
+   attention kernels one line of its registers and spill bytes;
 3. K1 (attention) against its plain PyTorch version at the caption encoder
    shape, and at small causal, cross (``rel=None``), ``skip_max`` and fully
    masked cases; in bf16 also against the function in fp32 on the same bf16
@@ -264,11 +266,34 @@ Phases; any failure raises and the script exits non-zero:
     step; the pipelined forward without autograd (K1 at B/M rows); one
     model rank's shard at model 4 (4 heads, ffn 1024); every K1/K3/K4 shape
     against its plain version and the fp32 function.
+25. ``ofa_huge`` (d 1280, 16 heads of 80, 24 + 12 layers, ResNet (3, 8,
+    36); random weights from a seed, as phase 5's tree): (a) the kernels at
+    its shapes through the functions of phases 3, 4, 10, 11, 12, 7 and 16,
+    with their checks, tolerances and times: K1 at B16 H16 T=S=908 D80 and
+    small D80 cases (causal, cross, skip_max, a fully masked row, ragged T
+    and S), K2 and K2-q8 at N80 D1280 (the row tile and how many times the
+    weight streams printed), K6 at B16 H16 Kb5 S908 D80 and phase 11's small
+    cases at D80, K7 at rows 80 L12 d1280 f5120 Tmax 17 S908 (cache_index 0,
+    5, 16), K3/K4 at B4 H16 T=S=980, causal T90 and cross T90 S990 and phase
+    7's small cases at D80 (without the saved D64 input), K5's main path at
+    H16 D80 and its small cases at D80; (b) the caption slice and serving A
+    and B at ``ofa_huge`` bf16, batch 16, beam 5, 16 tokens, 480² (K1 24
+    times an encode, K2 or K2-q8 once and K6 12 times or K7 once a beam
+    step; p50, samples/s, peak memory), one profiled run of each as phase
+    15's, then each in fp32 at batch 2 through the kernels and their plain
+    versions, as phases 6 and 14; (c) the 8-task joint step in bf16 under
+    ``--remat``, a warm-up and 2 timed updates (losses finite, parameters
+    moved, K3 2 x 48 and K4 48 per transformer forward; p50, peak memory,
+    MFU) and one profiled as phase 8's, then phase 9's fp32 check at
+    ``ofa_huge``. The default run starts phase 25 as ``--huge-only`` in a
+    process of its own and reads its results from its ``[huge kernels]``
+    line.
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
 stage chain, each eval task, each CLI run of phase 19, each part of phases
-20 and 21, each run of phase 24) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+20 and 21, each run of phase 24, and phase 25's slices, K5 calls and timed
+updates) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
 the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
 Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
@@ -287,7 +312,9 @@ in each CLI run of phase 19, and ``xla_phase_launches``: theirs in each part
 of phase 20; K1's, K3's and K4's ``scst_phase_launches``: theirs in each part
 of phase 21; K3's and K4's ``remat_launches``: theirs in phase 22's updates
 without and with ``--remat``; K1's, K3's and K4's ``axes_launches``: theirs
-in each run of phase 24.
+in each run of phase 24. Each of K1, K3–K7 (K5 twice) also carries ``hd80``,
+and K2 and K2-q8 ``d1280``: phase 25's error, times, bound and library time
+at ``ofa_huge``'s shapes and the launches on its main paths.
 """
 
 from __future__ import annotations
@@ -437,8 +464,12 @@ def phase_build() -> float:
     _build.library()
     secs = time.perf_counter() - t0
     log(f"[build] nvcc sm_90a library in {secs:.1f} s")
-    for line in _ptxas_lines(_build.ptxas_log().read_text()):
+    text = _build.ptxas_log().read_text()
+    for line in _ptxas_lines(text):
         log(f"[build] ptxas {line}")
+    for name, regs, stores, loads in _ptxas_hd80(text):
+        log(f"[build] head dim 80: {name}: {regs} registers, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads")
     return secs
 
 
@@ -606,11 +637,12 @@ def _k1_inputs(g, B, H, T, S, D, dtype, rel=True, pad_frac=0.1, masked_row=None)
     return x
 
 
-def phase_k1(g) -> dict:
+def phase_k1(g, shape: dict = K1_SHAPE) -> dict:
+    """K1 at ``shape`` (B, H, T = S, D) and at small cases of its head dim."""
     from musketeer_tpu_torch.ops import flash_attention_infer as k1
 
     names = ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")
-    x = _k1_inputs(g, **K1_SHAPE, dtype=torch.bfloat16)
+    x = _k1_inputs(g, **shape, dtype=torch.bfloat16)
     args = [x[n] for n in names]
     out = k1.flash_attention_inference(*args)
     ref = k1.flash_attention_plain(*args)
@@ -619,7 +651,8 @@ def phase_k1(g) -> dict:
     tol = BF16_TOL * max(1.0, float(ref.float().abs().max()))
     fn_msg = _check_function("K1", out, ref, k1.flash_attention_plain(
         *(_as_f32(x)[n] for n in names)))
-    log(f"[K1] B16 H12 T=S=908 D64 bf16: max abs err {err:.3e} (tol {tol:.3e}); {fn_msg}")
+    log(f"[K1] B{shape['B']} H{shape['H']} T=S={shape['T']} D{shape['D']} bf16: max abs err "
+        f"{err:.3e} (tol {tol:.3e}); {fn_msg}")
     if not (err <= tol and torch.isfinite(out).all()):
         raise AssertionError(f"K1 disagrees with its plain version: {err} > {tol}")
     ms = cuda_ms(lambda: k1.flash_attention_inference(*args), 10)
@@ -634,12 +667,15 @@ def phase_k1(g) -> dict:
         qc, kc, v, attn_mask=mask, scale=1.0))
     del x, args, out, ref, qc, kc, v, mask
 
+    D = shape["D"]
     cases = {
-        "causal": dict(shape=dict(B=2, H=2, T=100, S=100, D=64), causal=True),
-        "cross rel=None": dict(shape=dict(B=2, H=2, T=17, S=130, D=64), rel=False),
-        "skip_max": dict(shape=dict(B=2, H=2, T=70, S=70, D=64), skip_max=True),
-        "fully masked row": dict(shape=dict(B=2, H=2, T=33, S=33, D=64), masked_row=1),
+        "causal": dict(shape=dict(B=2, H=2, T=100, S=100, D=D), causal=True),
+        "cross rel=None": dict(shape=dict(B=2, H=2, T=17, S=130, D=D), rel=False),
+        "skip_max": dict(shape=dict(B=2, H=2, T=70, S=70, D=D), skip_max=True),
+        "fully masked row": dict(shape=dict(B=2, H=2, T=33, S=33, D=D), masked_row=1),
     }
+    if D != K1_SHAPE["D"]:  # ragged T and S: a partial q tile, an odd key tile
+        cases["ragged T and S"] = dict(shape=dict(B=2, H=2, T=70, S=67, D=D))
     for name, c in cases.items():
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
             xs = _k1_inputs(g, **c["shape"], dtype=dtype, rel=c.get("rel", True),
@@ -651,7 +687,7 @@ def phase_k1(g) -> dict:
             fn_msg = "" if dtype != torch.bfloat16 else "; " + _check_function(
                 f"K1 {name}", a, b, k1.flash_attention_plain(
                     *(_as_f32(xs)[n] for n in names), **kw))
-            log(f"[K1] {name} {str(dtype)[6:]}: max abs err {e:.3e}{fn_msg}")
+            log(f"[K1] {name} D{D} {str(dtype)[6:]}: max abs err {e:.3e}{fn_msg}")
             if not e <= tol * max(1.0, float(b.float().abs().max())):
                 raise AssertionError(f"K1 {name} {dtype}: {e}")
             if "masked_row" in c:
@@ -677,12 +713,12 @@ def _timings(tag: str, call, plain, kernel: str, iters: int = 20) -> dict:
     return dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms)
 
 
-def phase_k2(g, routes: frozenset = SM90_ROUTES) -> dict:
+def phase_k2(g, routes: frozenset = SM90_ROUTES, shape: dict = K2_SHAPE) -> dict:
     """K2 at the beam decode shape; ``routes`` without ``K2-sm90`` only for an
     older tree, whose bf16 K2 has no tensor-core route (``--decode-only``)."""
     from musketeer_tpu_torch.ops import topk_projection as k2
 
-    N, D, Vp, vs = (K2_SHAPE[k] for k in ("N", "D", "Vp", "vocab_size"))
+    N, D, Vp, vs = (shape[k] for k in ("N", "D", "Vp", "vocab_size"))
     h = torch.randn(N, D, generator=g, device="cuda").to(torch.bfloat16)
     w = (torch.randn(Vp, D, generator=g, device="cuda") * D ** -0.5).to(torch.bfloat16)
     w[vs:] = 0
@@ -700,7 +736,7 @@ def phase_k2(g, routes: frozenset = SM90_ROUTES) -> dict:
             zip(("logits", "bmax", "Z"), (real(out[0]), *out[1:]), (real(ref[0]), *ref[1:]))}
     fn_msg = _check_function("K2 logits", real(out[0]), real(ref[0]),
                              real(k2.project_plain(h.float(), w.float(), vocab_size=vs)[0]))
-    log(f"[K2] N80 Vp59520 D768 bf16: max abs err logits {errs['logits']:.3e} "
+    log(f"[K2] N{N} Vp{Vp} D{D} bf16: max abs err logits {errs['logits']:.3e} "
         f"bmax {errs['bmax']:.3e} Z {errs['Z']:.3e}; logits {fn_msg}")
     logit_tol = BF16_TOL * max(1.0, float(real(ref[0]).float().abs().max()))
     if not (errs["logits"] <= logit_tol and errs["bmax"] <= FP32_TOL and errs["Z"] <= FP32_TOL):
@@ -796,14 +832,14 @@ SLICES = {
 }
 
 
-def _slice_setup(tree, name: str, dtype: str, model: dict = None):
-    from musketeer_tpu_torch.config import GenerationConfig, ofa_base
+def _slice_setup(tree, name: str, dtype: str, model: dict = None, arch: str = "ofa_base"):
+    from musketeer_tpu_torch.config import ARCH_PRESETS, GenerationConfig
     from musketeer_tpu_torch.models import ofa
     from musketeer_tpu_torch.params import from_jax
 
     spec = SLICES[name]
-    cfg = dataclasses.replace(ofa_base(), dtype=dtype, use_flash_attention=True, **spec["model"],
-                              **(model or {}))
+    cfg = dataclasses.replace(ARCH_PRESETS[arch](), dtype=dtype, use_flash_attention=True,
+                              **spec["model"], **(model or {}))
     params = from_jax(tree, cfg, "cuda", getattr(torch, dtype))
     if spec["q8"]:
         params = ofa.quantize_output_proj(params)
@@ -827,15 +863,17 @@ def _expected_launches(name: str, cfg, steps: int, routes: frozenset = SM90_ROUT
     return want
 
 
-def phase_slice(tree, smi: str, name: str, routes: frozenset = SM90_ROUTES) -> dict:
+def phase_slice(tree, smi: str, name: str, routes: frozenset = SM90_ROUTES,
+                arch: str = "ofa_base") -> dict:
     """One main path: encode + beam search of the slice in bf16, counted and
     timed (``routes`` as in ``phase_k2``)."""
     from musketeer_tpu_torch.models import ofa
 
-    cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16")
+    cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16", arch=arch)
     src, images, masks = _inputs(BATCH, SEED)
-    tag = f"[{name}]"
+    tag = f"[{name}]" if arch == "ofa_base" else f"[{arch} {name}]"
 
+    torch.cuda.reset_peak_memory_stats()
     _caption(params, cfg, gen_cfg, src, images, masks)  # warm-up
     _reset_counters(routes)
     with mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps:
@@ -846,8 +884,8 @@ def phase_slice(tree, smi: str, name: str, routes: frozenset = SM90_ROUTES) -> d
     if not (1 <= steps.call_count <= MAX_LEN + 1 and launches == want):
         raise AssertionError(f"{name}: launches {launches} over {steps.call_count} steps, "
                              f"expected {want}")
-    if tuple(enc.x.shape) != (BATCH, 908, 768) or not bool(torch.isfinite(enc.x).all()):
-        raise AssertionError("encoder output must be finite [16, 908, 768]")
+    if tuple(enc.x.shape) != (BATCH, 908, cfg.embed_dim) or not bool(torch.isfinite(enc.x).all()):
+        raise AssertionError(f"encoder output must be finite [16, 908, {cfg.embed_dim}]")
     _check_tokens(tokens, scores, cfg, BATCH)
     log(f"{tag} first hypothesis: {tokens[0, 0].tolist()} score {float(scores[0, 0]):.4f}")
 
@@ -857,13 +895,13 @@ def phase_slice(tree, smi: str, name: str, routes: frozenset = SM90_ROUTES) -> d
         _caption(params, cfg, gen_cfg, src, images, masks)
         times.append(time.perf_counter() - t0)
     p50 = statistics.median(times)
-    log(f"{tag} ofa_base bf16 batch {BATCH} beam {BEAM} 480²: p50 batch latency "
+    log(f"{tag} {arch} bf16 batch {BATCH} beam {BEAM} 480²: p50 batch latency "
         f"{p50 * 1e3:.1f} ms, {BATCH / p50:.2f} samples/s (runs {[round(t * 1e3, 1) for t in times]} ms) "
-        f"on {smi}")
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
     return launches
 
 
-def phase_exactness(tree, name: str, model: dict = None) -> None:
+def phase_exactness(tree, name: str, model: dict = None, arch: str = "ofa_base") -> None:
     """The slice in fp32 at batch 2 through the kernels and through their plain
     versions: identical tokens, scores within ``FP32_TOL`` · max(1, max|ref|)
     (``model``: options the tree was made with, such as NormFormer's). The
@@ -878,7 +916,7 @@ def phase_exactness(tree, name: str, model: dict = None) -> None:
 
     search_module = importlib.import_module("musketeer_tpu_torch.generation.beam_search")
     attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
-    cfg, params, gen_cfg = _slice_setup(tree, name, "float32", model)
+    cfg, params, gen_cfg = _slice_setup(tree, name, "float32", model, arch)
     src, images, _ = _inputs(2, SEED + 1)
     masks = torch.tensor([True, False], device="cuda")
 
@@ -898,6 +936,7 @@ def phase_exactness(tree, name: str, model: dict = None) -> None:
         raise AssertionError(f"{name}: kernel/plain routing wrong: {before} {mid} {after}")
     _check_tokens(tok_k, sc_k, cfg, 2)
     tag = name if not model else f"{name}, {', '.join(sorted(model))}"
+    tag = tag if arch == "ofa_base" else f"{arch} {tag}"
     gap, lim = _max_err(sc_k, sc_p), FP32_TOL * max(1.0, float(sc_p.abs().max()))
     log(f"[{tag} exact] fp32 batch 2: kernel tokens {tok_k[:, 0].tolist()}; "
         f"max score diff {gap:.3e} (tol {lim:.3e})")
@@ -1060,12 +1099,13 @@ def _k4_saved_case() -> None:
                              f"more than one bf16 step {step:.3e}")
 
 
-def phase_k3_k4(g) -> dict:
+def phase_k3_k4(g, shapes: dict = K34_SHAPES, small: dict = K34_SMALL,
+                saved: bool = True) -> dict:
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
 
     names = ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")
-    cases = [(n, c, torch.bfloat16) for n, c in K34_SHAPES.items()]
-    cases += [(n, c, dtype) for n, c in K34_SMALL.items()
+    cases = [(n, c, torch.bfloat16) for n, c in shapes.items()]
+    cases += [(n, c, dtype) for n, c in small.items()
               for dtype in (torch.float32, torch.bfloat16)]
     stats = {}
     for name, c, dtype in cases:
@@ -1073,13 +1113,13 @@ def phase_k3_k4(g) -> dict:
                        masked_row=c.get("masked_row"))
         args = [x[n] for n in names]
         kw = dict(causal=c.get("causal", False), skip_max=c.get("skip_max", False))
-        tag = f"{name} {str(dtype)[6:]}"
+        tag = f"{name} D{c['shape']['D']} {str(dtype)[6:]}"
         o, lse, o_p, lse_p, e_o = _check_k3(tag, args, kw)
         # K4 on the plain forward's o and lse, so that it alone is compared
         do = (torch.randn(o_p.shape, generator=g, device="cuda") * 0.5).to(dtype)
         bwd_args = (*args, o_p, lse_p, do)
         grads, errs = _check_k4(tag, bwd_args, dict(causal=kw["causal"]))
-        if dtype != torch.bfloat16 or name in K34_SMALL:
+        if dtype != torch.bfloat16 or name in small:
             continue
         times = {
             "K3": (cuda_ms(lambda: kb.flash_attention_fwd(*args, **kw), 10),
@@ -1109,7 +1149,8 @@ def phase_k3_k4(g) -> dict:
                                plain_ms=times["K4"][1], library_ms=_library_k4(x, do),
                                **_bound(_nbytes(*bwd_args, *grads), 8 * unit))
         del x, args, o, lse, o_p, lse_p, do, bwd_args, grads
-    _k4_saved_case()
+    if saved:
+        _k4_saved_case()
     return stats
 
 
@@ -1237,7 +1278,7 @@ def phase_train(tree, smi: str, routes: frozenset = SM90_ROUTES) -> dict:
 
 # the demangled names of K3's and K4's CUDA kernels, on either core (K1 shares
 # K3's kernels but runs 0 times in a training step)
-K3_KERNELS = ("flash_fwd::kernel<", "sm90::kernel<false")
+K3_KERNELS = ("flash_fwd::kernel<", "sm90::kernel<64, false", "sm90::kernel<80, false")
 K4_KERNELS = ("dsum_kernel", "bwd_kv", "bwd_q", "drel_sum")
 
 
@@ -1276,14 +1317,14 @@ def _profile_train_step(step, state, batches, smi: str) -> None:
         f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:8]))
 
 
-def phase_train_exactness(tree) -> None:
-    from musketeer_tpu_torch.config import ofa_base
+def phase_train_exactness(tree, arch: str = "ofa_base") -> None:
+    from musketeer_tpu_torch.config import ARCH_PRESETS
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
     from musketeer_tpu_torch.params import from_jax, trainable
     from musketeer_tpu_torch.training.train_state import global_norm, named_leaves
     from musketeer_tpu_torch.training.train_step import multitask_loss
 
-    cfg = dataclasses.replace(ofa_base(), dtype="float32", use_flash_attention=True)
+    cfg = dataclasses.replace(ARCH_PRESETS[arch](), dtype="float32", use_flash_attention=True)
     crit, _ = _train_configs()
     tasks = {n: TRAIN_TASKS[n] for n in EXACT_TASKS}
     micro = _micro(_train_batches(cfg, tasks, 1, SEED + 1))
@@ -1316,21 +1357,21 @@ def phase_train_exactness(tree) -> None:
         if ratio > worst:
             worst, worst_path = ratio, path
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
-    log(f"[train-exact] fp32 {'+'.join(EXACT_TASKS)} batch 1: loss {loss_k:.6f} vs {loss_p:.6f} "
+    log(f"[train-exact] {arch} fp32 {'+'.join(EXACT_TASKS)} batch 1: loss {loss_k:.6f} vs {loss_p:.6f} "
         f"(rel {rel(loss_k, loss_p):.2e}), grad norm {gn_k:.6f} vs {gn_p:.6f} "
         f"(rel {rel(gn_k, gn_p):.2e}), worst leaf {worst_path} at {worst:.3f} of its bound")
     if rel(loss_k, loss_p) > 1e-5 or rel(gn_k, gn_p) > 1e-5 or worst > 1.0:
         raise AssertionError("fp32 step through K3/K4 differs from the plain versions'")
 
 
-def phase_k2q8(g, routes: frozenset = SM90_ROUTES) -> dict:
+def phase_k2q8(g, routes: frozenset = SM90_ROUTES, shape: dict = K2_SHAPE) -> dict:
     """K2-q8 at the beam decode shape: bf16 features on the tensor-core route
     (``routes`` without ``K2-q8-sm90`` only for an older tree), also against
     the function in fp32 as in phase 3; fp32 features on the FMA kernel alone."""
     from musketeer_tpu_torch.models import ofa
     from musketeer_tpu_torch.ops import topk_projection as k2
 
-    N, D, Vp, vs = (K2_SHAPE[k] for k in ("N", "D", "Vp", "vocab_size"))
+    N, D, Vp, vs = (shape[k] for k in ("N", "D", "Vp", "vocab_size"))
     sm90 = "K2-q8-sm90" in routes
     w = torch.randn(Vp, D, generator=g, device="cuda") * D ** -0.5
     w[vs:] = 0
@@ -1357,7 +1398,7 @@ def phase_k2q8(g, routes: frozenset = SM90_ROUTES) -> dict:
         fn_msg = "" if dtype != torch.bfloat16 else "; logits " + _check_function(
             "K2-q8 logits", real(out[0]), real(ref[0]),
             real(k2.project_plain(h.float(), w8, scale, vocab_size=vs)[0]))
-        log(f"[K2-q8] N80 Vp59520 D768 int8 w, {str(dtype)[6:]} h: max abs err logits {err:.3e}, "
+        log(f"[K2-q8] N{N} Vp{Vp} D{D} int8 w, {str(dtype)[6:]} h: max abs err logits {err:.3e}, "
             f"bmax {_max_err(out[1], ref[1]):.3e}, Z {_max_err(out[2], ref[2]):.3e}{fn_msg}")
         if dtype == torch.bfloat16:
             times = _timings("K2-q8", lambda: k2.project_with_stats(h, w8, scale, vocab_size=vs),
@@ -1393,7 +1434,8 @@ K6_CASES = (("B16 H12 Kb5 S908", K6_SHAPE, torch.bfloat16),
             ("B3 H2 Kb3 S37", dict(B=3, H=2, Kb=3, S=37, D=64), torch.float32))
 
 
-def phase_k6(g, routes: frozenset = SM90_ROUTES) -> dict:
+def phase_k6(g, routes: frozenset = SM90_ROUTES, cases: tuple = K6_CASES,
+             main: dict = K6_SHAPE) -> dict:
     """K6 against its plain version: bf16 on the tensor-core route (``routes``
     without ``K6-sm90`` only for an older tree), also against the function in
     fp32; fp32 on the FMA kernel alone; sample 1 fully padded in every case."""
@@ -1402,7 +1444,7 @@ def phase_k6(g, routes: frozenset = SM90_ROUTES) -> dict:
     names = ("q", "k_i8", "v_i8", "k_scale", "v_scale", "bias", "enc_pad")
     sm90 = "K6-sm90" in routes
     stats = {}
-    for name, shape, dtype in K6_CASES:
+    for name, shape, dtype in cases:
         tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
         x = _k6_inputs(g, **shape, dtype=dtype, full_pad=1)
         args = [x[n] for n in names]
@@ -1420,9 +1462,9 @@ def phase_k6(g, routes: frozenset = SM90_ROUTES) -> dict:
         fn_msg = "" if dtype != torch.bfloat16 else "; " + _check_function(
             f"K6 {name}", out, ref, k6.decode_cross_attention_int8_plain(
                 x["q"].float(), *args[1:]))
-        log(f"[K6] {name} {str(dtype)[6:]}, 10 % padded keys, sample 1 fully padded (exact "
+        log(f"[K6] {name} D{shape['D']} {str(dtype)[6:]}, 10 % padded keys, sample 1 fully padded (exact "
             f"zeros): max abs err {err:.3e}{fn_msg}")
-        if shape is K6_SHAPE:
+        if shape is main:
             times = _timings("K6", lambda: k6.decode_cross_attention_int8(*args),
                              lambda: k6.decode_cross_attention_int8_plain(*args),
                              "cross_attn_i8_sm90_kernel" if sm90 else "kernel")
@@ -1433,8 +1475,8 @@ def phase_k6(g, routes: frozenset = SM90_ROUTES) -> dict:
     return stats
 
 
-def _k7_inputs(g, L, B, Kb, H, f, Tmax, S, dtype):
-    dev, d, rows = "cuda", H * 64, B * Kb
+def _k7_inputs(g, L, B, Kb, H, f, Tmax, S, dtype, hd=64):
+    dev, d, rows = "cuda", H * hd, B * Kb
     rnd = lambda *shape, std=1.0: torch.randn(*shape, generator=g, device=dev) * std
     pack = {"w_self3": rnd(L, 3 * d, d, std=d ** -0.5), "b_self3": rnd(L, 3 * d, std=0.02),
             "w_so": rnd(L, d, d, std=d ** -0.5), "w_cq": rnd(L, d, d, std=d ** -0.5),
@@ -1447,8 +1489,8 @@ def _k7_inputs(g, L, B, Kb, H, f, Tmax, S, dtype):
     cbias = rnd(B, H, S)
     cbias.masked_fill_((torch.rand(B, S, generator=g, device=dev) < 0.1)[:, None, :], -1e9)
     x = dict(x0=rnd(rows, d).to(dtype), sbias=rnd(L, rows, H, Tmax), cbias=cbias,
-             self_k=rnd(L, rows, H, Tmax, 64).to(dtype), self_v=rnd(L, rows, H, Tmax, 64).to(dtype),
-             cross_k=rnd(L, B, H, S, 64).to(dtype), cross_v=rnd(L, B, H, S, 64).to(dtype))
+             self_k=rnd(L, rows, H, Tmax, hd).to(dtype), self_v=rnd(L, rows, H, Tmax, hd).to(dtype),
+             cross_k=rnd(L, B, H, S, hd).to(dtype), cross_v=rnd(L, B, H, S, hd).to(dtype))
     return pack, x
 
 
@@ -1483,16 +1525,42 @@ def _k7_by_kernel(fn) -> dict:
     return parts
 
 
-def phase_k7(g, routes: frozenset = SM90_ROUTES) -> dict:
+def _k7_spans(k7, pack, args, idx: int, scaling: float, tol: float) -> list:
+    """K7 over a stack deeper than phase 12's, in spans of phase 12's depth
+    (``K7_SHAPE``'s L), each span on the plain version's input to its first
+    layer, every output within ``tol`` · max(1, max|ref|) of the plain
+    version's. Between two bf16 computations of the whole stack the rounding
+    differences grow with depth: at 12 layers the kernel and plain differ by
+    ~1.7–1.9 % of max|x_out| at head dim 64 and 80 alike (on an H100),
+    each as close to the fp32 function as the other, which phase_k7 checks
+    on the whole stack. → each output's largest error over the spans."""
+    x0, sbias, cbias, self_k, self_v, cross_k, cross_v = args
+    span, worst, x = K7_SHAPE["L"], [0.0, 0.0, 0.0], x0
+    for l0 in range(0, self_k.shape[0], span):
+        sl = slice(l0, l0 + span)
+        sub = [x, sbias[sl], cbias, self_k[sl], self_v[sl], cross_k[sl], cross_v[sl]]
+        part = {k: v[sl] for k, v in pack.items()}
+        out = k7.decode_stack_step(part, *sub, idx, beam_size=BEAM, scaling=scaling)
+        ref = k7.decode_stack_plain(part, *sub, idx, beam_size=BEAM, scaling=scaling)
+        for i, (n, a, b) in enumerate(zip(("x_out", "k_new", "v_new"), out, ref)):
+            worst[i] = max(worst[i], _check_close(
+                f"K7 {n} cache_index {idx} layers {l0}..{l0 + span - 1}", a, b, tol))
+        x = ref[0]
+    return worst
+
+
+def phase_k7(g, routes: frozenset = SM90_ROUTES, shape: dict = K7_SHAPE, hd: int = 64) -> dict:
     """K7 at the serving B decode shape (``routes`` as in ``phase_k2``)."""
     from musketeer_tpu_torch.ops import decode_stack as k7
 
     names = ("x0", "sbias", "cbias", "self_k", "self_v", "cross_k", "cross_v")
-    scaling = (64 * 2.0) ** -0.5
+    scaling = (hd * 2.0) ** -0.5
+    tag = (f"rows {shape['B'] * shape['Kb']} L{shape['L']} d{shape['H'] * hd} f{shape['f']} "
+           f"Tmax {shape['Tmax']} S{shape['S']} hd{hd}")
     sm90 = "K7-sm90" in routes
     stats = {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
-        pack, x = _k7_inputs(g, **K7_SHAPE, dtype=dtype)
+        pack, x = _k7_inputs(g, **shape, dtype=dtype, hd=hd)
         args = [x[n] for n in names]
         for idx in K7_INDICES:
             call = lambda fn, p=pack, a=args: fn(p, *a, idx, beam_size=BEAM, scaling=scaling)
@@ -1503,9 +1571,16 @@ def phase_k7(g, routes: frozenset = SM90_ROUTES) -> dict:
             if sm90 and routed != (dtype == torch.bfloat16):
                 raise AssertionError(f"K7 {dtype}: bf16 must run the tensor-core route, fp32 the "
                                      f"FMA route ({routed} tensor-core launches)")
-            errs = [_check_close(f"K7 {n} cache_index {idx}", a, b, tol)
-                    for n, a, b in zip(("x_out", "k_new", "v_new"), out, ref)]
-            log(f"[K7] rows 80 L6 d768 f3072 Tmax 17 S908 {str(dtype)[6:]} cache_index {idx}: "
+            if dtype == torch.bfloat16 and shape["L"] > K7_SHAPE["L"]:
+                full = [_max_err(a, b) for a, b in zip(out, ref)]
+                log(f"[K7] {tag} bf16 cache_index {idx}: the whole stack against plain: max abs "
+                    f"diff x_out {full[0]:.3e}, k_new {full[1]:.3e}, v_new {full[2]:.3e} (held to "
+                    f"the fp32 function below, and each span of {K7_SHAPE['L']} layers to plain)")
+                errs = _k7_spans(k7, pack, args, idx, scaling, tol)
+            else:
+                errs = [_check_close(f"K7 {n} cache_index {idx}", a, b, tol)
+                        for n, a, b in zip(("x_out", "k_new", "v_new"), out, ref)]
+            log(f"[K7] {tag} {str(dtype)[6:]} cache_index {idx}: "
                 f"max abs err x_out {errs[0]:.3e}, k_new {errs[1]:.3e}, v_new {errs[2]:.3e} "
                 f"(max |x_out| {float(ref[0].float().abs().max()):.2f})")
             if dtype != torch.bfloat16:
@@ -1545,7 +1620,7 @@ def phase_k7(g, routes: frozenset = SM90_ROUTES) -> dict:
     return stats
 
 
-def phase_profile(tree) -> None:
+def phase_profile(tree, arch: str = "ofa_base") -> None:
     """Device operations per beam step and the device's busy share, from
     torch.profiler, over one run of each slice (after a warm-up run)."""
     from torch.autograd import DeviceType
@@ -1555,7 +1630,8 @@ def phase_profile(tree) -> None:
     from musketeer_tpu_torch.models import ofa
 
     for name in SLICES:
-        cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16")
+        cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16", arch=arch)
+        tag = name if arch == "ofa_base" else f"{arch} {name}"
         src, images, masks = _inputs(BATCH, SEED)
         _caption(params, cfg, gen_cfg, src, images, masks)
         with mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps, \
@@ -1575,14 +1651,14 @@ def phase_profile(tree) -> None:
         search = [e for e in dev if e.time_range.start - first >= enc_us]
         busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
         wall = (t2 - t0) * 1e3
-        log(f"[profile {name}] {len(dev)} device operations, {busy:.2f} ms device time over "
+        log(f"[profile {tag}] {len(dev)} device operations, {busy:.2f} ms device time over "
             f"{wall:.2f} ms wall under the profiler (busy share {busy / wall:.3f}); encode "
             f"{(t1 - t0) * 1e3:.2f} ms wall; search: {steps.call_count} beam steps, about "
             f"{len(search)} device operations ({len(search) / steps.call_count:.1f} per step)")
         dev_us = lambda e: getattr(e, "self_device_time_total",
                                    getattr(e, "self_cuda_time_total", 0))
         top = sorted((e for e in prof.key_averages() if dev_us(e) > 0), key=dev_us, reverse=True)
-        log(f"[profile {name}] device time by operation: " + "; ".join(
+        log(f"[profile {tag}] device time by operation: " + "; ".join(
             f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:6]))
 
 
@@ -1624,15 +1700,15 @@ def _k5_call(k5, x: dict, c: dict, plain: bool = False):
     return fn(*args, x["rel"], x["kpad"], causal=c.get("causal", False), block_q=block_q)
 
 
-def phase_k5(g):
+def phase_k5(g, shapes: dict = K5_SHAPES, small: dict = K5_SMALL):
     """K5's main path (three calls, counted), each against its plain version
     and timed, then the small fp32 and bf16 cases."""
     from musketeer_tpu_torch.ops import flash_attention as k5
 
     xs = {name: _k1_inputs(g, **c["shape"], dtype=torch.bfloat16, rel=not c.get("cross"))
-          for name, c in K5_SHAPES.items()}
+          for name, c in shapes.items()}
     _reset_counters()
-    outs = {name: _k5_call(k5, xs[name], c) for name, c in K5_SHAPES.items()}
+    outs = {name: _k5_call(k5, xs[name], c) for name, c in shapes.items()}
     torch.cuda.synchronize()
     launches = _counters()
     want = dict.fromkeys(launches, 0)
@@ -1642,7 +1718,7 @@ def phase_k5(g):
         raise AssertionError(f"K5 main path: launches {launches}, expected {want}")
 
     stats = {}
-    for name, c in K5_SHAPES.items():
+    for name, c in shapes.items():
         x = xs[name]
         ref = _k5_call(k5, x, c, plain=True)
         torch.cuda.synchronize()
@@ -1671,7 +1747,7 @@ def phase_k5(g):
         del ref
     del xs, outs
 
-    for name, c in K5_SMALL.items():
+    for name, c in small.items():
         dtypes = ((torch.bfloat16, BF16_TOL),) if c.get("rel_f32") else \
             ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL))
         for dtype, tol in dtypes:
@@ -4145,6 +4221,190 @@ def phase_axes(smi: str, seen: set = None) -> dict:
     return launches
 
 
+# phase 25: ofa_huge (d 1280, 16 heads: head dim 80; 24 + 12 layers, ResNet
+# (3, 8, 36)), the one preset whose head dim is not 64
+HUGE = "ofa_huge"
+HUGE_HD = 80
+HUGE_K1 = dict(B=16, H=16, T=908, S=908, D=HUGE_HD)
+HUGE_K2 = dict(N=BATCH * BEAM, D=1280, Vp=59520, vocab_size=59457)
+HUGE_K34 = {n: dict(c, shape=dict(c["shape"], H=16, D=HUGE_HD)) for n, c in K34_SHAPES.items()}
+HUGE_K34_SMALL = {n: dict(c, shape=dict(c["shape"], D=HUGE_HD)) for n, c in K34_SMALL.items()}
+HUGE_K5 = {n: dict(c, shape=dict(c["shape"], H=16, D=HUGE_HD)) for n, c in K5_SHAPES.items()}
+HUGE_K5_SMALL = {n: dict(c, shape=dict(c["shape"], D=HUGE_HD)) for n, c in K5_SMALL.items()}
+HUGE_K6 = dict(B=BATCH, H=16, Kb=BEAM, S=908, D=HUGE_HD)
+HUGE_K6_CASES = tuple((name.replace("H12", "H16"), HUGE_K6 if shape is K6_SHAPE
+                       else dict(shape, D=HUGE_HD), dtype) for name, shape, dtype in K6_CASES)
+HUGE_K7 = dict(L=12, B=BATCH, Kb=BEAM, H=16, f=5120, Tmax=MAX_LEN + 1, S=908)
+# the mangled names of the tensor-core kernels that take the head dim as a
+# template argument (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh, decode_attn_sm90.cuh,
+# decode_cross_attn.cu)
+HEAD_DIM_KERNELS = ("2mk4sm90", "11decode_attn", "cross_attn_i8_sm90_kernel")
+
+
+def _ptxas_hd80(text: str) -> list:
+    """ptxas's registers and spills of each head-dim-80 instance of the
+    tensor-core kernels → [(mangled name, registers, spill stores, spill loads)]."""
+    out, name = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = line.split("'")[1] if "'" in line else line
+            name = m if any(k in m for k in HEAD_DIM_KERNELS) and "ILi80E" in m else None
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = nums[1:3]
+        elif name and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            if all(o[0] != name for o in out):  # an instance built in two sources
+                out.append((name, regs, *spills))
+            name = None
+    return out
+
+
+def _huge_train(tree, smi: str) -> dict:
+    """(c) The joint step of ofa_huge in bf16 under --remat on phase 8's tasks
+    and batches: one warm-up and 2 timed updates through init_train_state and
+    make_train_step; the loss finite at every update, the parameters moved;
+    K3 2x (the recompute) and K4 1x ``encoder_layers + 2 decoder_layers`` per
+    transformer forward, the forwards counted from the step's packing groups;
+    the step's p50, peak memory and MFU (utils/flops.py); one more step under
+    torch.profiler (phase 8's). → its launches."""
+    from musketeer_tpu_torch.config import ofa_huge
+    from musketeer_tpu_torch.params import from_jax, trainable
+    from musketeer_tpu_torch.training import init_train_state, make_train_step
+    from musketeer_tpu_torch.training.train_state import named_leaves
+
+    cfg = dataclasses.replace(ofa_huge(), dtype="bfloat16", use_flash_attention=True, remat=True)
+    crit, optim = _train_configs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(trainable(from_jax(tree, cfg, "cuda", torch.float32)), optim)
+    state = state._replace(step=TRAIN_STEP0)
+    step = make_train_step(cfg, crit, optim)
+    batches = _train_batches(cfg, TRAIN_TASKS, TRAIN_BATCH, SEED)
+    forwards = _expected_forwards(batches)
+    per_forward = cfg.encoder_layers + 2 * cfg.decoder_layers
+    first = [p.detach().flatten()[:4].clone() for _, p in named_leaves(state.params)]
+    n_params = sum(p.numel() for _, p in named_leaves(state.params))
+    losses, times = [], []
+    for i in range(3):
+        if i == 1:
+            _reset_counters()
+        t0 = time.perf_counter()
+        state, m = step(state, batches)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if not (math.isfinite(loss) and float(m["skipped_nonfinite"]) == 0.0):
+            raise AssertionError(f"{HUGE} training step: loss {loss}, skipped "
+                                 f"{float(m['skipped_nonfinite'])}")
+    launches = _counters()
+    want = dict.fromkeys(launches, 0)
+    want.update(K3=2 * 2 * per_forward * forwards, K4=2 * per_forward * forwards)
+    if launches != want:
+        raise AssertionError(f"{HUGE} --remat training launches over 2 updates {launches}, "
+                             f"expected {want}")
+    moved = sum(not torch.equal(p.detach().flatten()[:4], p0)
+                for (_, p), p0 in zip(named_leaves(state.params), first))
+    if moved < len(first) // 2:
+        raise AssertionError(f"{HUGE}: the parameters must move ({moved} of {len(first)} leaves)")
+    p50 = statistics.median(times[1:])
+    flops = _step_flops(cfg, _batch_shapes(batches), rdrop=crit.use_rdrop)
+    samples = TRAIN_BATCH * len(TRAIN_TASKS)
+    log(f"[huge train] {HUGE} ({n_params} trainable parameters) bf16 --remat "
+        f"{len(TRAIN_TASKS)} tasks x batch {TRAIN_BATCH}: "
+        f"losses {[round(x, 4) for x in losses]}, {moved} of {len(first)} parameter leaves moved; "
+        f"steps {[round(t * 1e3, 1) for t in times]} ms, p50 of the 2 timed {p50 * 1e3:.1f} ms, "
+        f"{samples / p50:.2f} samples/s, MFU {flops / p50 / _peak_bf16(smi):.4f} "
+        f"({flops / 1e12:.2f} TFLOP a step, utils/flops.py), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches over the 2 timed "
+        f"updates {launches} ({forwards} transformer forwards a step, {per_forward} attentions "
+        f"each, K3 twice under --remat) on {smi}")
+    _profile_train_step(step, state, batches, smi)
+    del state, step, m
+    torch.cuda.empty_cache()
+    return {k: n // 2 for k, n in launches.items()}  # a step's
+
+
+def phase_huge(smi: str) -> tuple:
+    """Phase 25: ofa_huge. (a) K1, K3/K4, K5, K6 and K7 at head dim 80 and K2,
+    K2-q8 at d 1280 against their plain versions, in the kind and tolerance of
+    phases 3, 4, 7, 10, 11, 12 and 16, timed, with their bounds and library
+    calls; (b) the caption slice and both serving slices at full width and
+    depth, their profile, then their fp32 exactness at batch 2; (c) a --remat
+    training step and its profile, and the fp32 training exactness. → (stats by kernel, each kernel's
+    launches on its main path)."""
+    from musketeer_tpu_torch.config import ofa_huge
+    from musketeer_tpu_torch.ops import _build
+    from musketeer_tpu_torch.ops import topk_projection as k2
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    stats = {"K1": phase_k1(g, HUGE_K1)}
+    rows, d = HUGE_K2["N"], HUGE_K2["D"]
+    for q8 in (False, True):
+        tile, ctas = k2.proj_plan(rows, d, _build.sm_count(torch.device("cuda")), HUGE_K2["Vp"],
+                                  q8=q8)
+        log(f"[huge K2{'-q8' if q8 else ''}] d {d}: row tile {tile} for {rows} rows, so "
+            f"{-(-rows // tile)} row tiles of {ctas} CTAs, each streaming the whole weight")
+    stats["K2"] = phase_k2(g, shape=HUGE_K2)
+    stats["K2-q8"] = phase_k2q8(g, shape=HUGE_K2)
+    stats["K6"] = phase_k6(g, cases=HUGE_K6_CASES, main=HUGE_K6)
+    stats["K7"] = phase_k7(g, shape=HUGE_K7, hd=HUGE_HD)
+    stats.update(phase_k3_k4(g, HUGE_K34, HUGE_K34_SMALL, saved=False))
+    k5_stats, k5_launches = phase_k5(g, HUGE_K5, HUGE_K5_SMALL)
+    stats.update(k5_stats)
+    t1 = time.perf_counter()
+    log(f"[huge a] the kernels at head dim {HUGE_HD} and d {d}: {t1 - t0:.1f} s")
+    tree = _random_model_tree(dataclasses.replace(ofa_huge(), use_flash_attention=True),
+                              SEED + 25)
+    t2 = time.perf_counter()
+    log(f"[huge b] {HUGE} tree drawn on the host in {t2 - t1:.1f} s")
+    launches = {name: phase_slice(tree, smi, name, arch=HUGE) for name in SLICES}
+    phase_profile(tree, HUGE)
+    for name in SLICES:
+        phase_exactness(tree, name, arch=HUGE)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    log(f"[huge b] the caption and serving slices and their fp32 exactness: {t3 - t2:.1f} s")
+    train_launches = _huge_train(tree, smi)
+    phase_train_exactness(tree, HUGE)
+    torch.cuda.empty_cache()
+    log(f"[huge c] the training step and its fp32 exactness: {time.perf_counter() - t3:.1f} s; "
+        f"phase 25 in {time.perf_counter() - t0:.1f} s on {smi}")
+    on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
+               "K3": train_launches, "K4": train_launches, "K5": k5_launches,
+               "K5-cross": k5_launches, "K6": launches["serving A"], "K7": launches["serving B"]}
+    log(HUGE_TAG + json.dumps({k: dict(v, launches=on_path[k][k]) for k, v in stats.items()}))
+    return stats, on_path
+
+
+HUGE_TAG = "[huge kernels] "
+
+
+def _huge_in_own_process() -> tuple:
+    """Phase 25 in the default run: ``--huge-only`` in a process of its own
+    (the library already built), its output printed here. After the earlier
+    phases' some forty torch.profiler sessions, one more in the same process
+    recorded no device operations on the card; a fresh process also starts
+    phase 25 with the card's memory free. → its (stats by kernel, launches by
+    kernel) from its ``HUGE_TAG`` line."""
+    import os
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--huge-only"],
+                         capture_output=True, text=True)
+    print(run.stdout, end="", flush=True)
+    print(run.stderr, end="", file=sys.stderr, flush=True)
+    if run.returncode != 0:
+        raise AssertionError(f"phase 25 (--huge-only) exited with {run.returncode}")
+    line = next(l for l in run.stdout.splitlines() if l.startswith(HUGE_TAG))
+    entries = json.loads(line[len(HUGE_TAG):])
+    return ({k: {n: x for n, x in v.items() if n != "launches"} for k, v in entries.items()},
+            {k: {k: v["launches"]} for k, v in entries.items()})
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4184,6 +4444,10 @@ def main(argv=None) -> int:
     only.add_argument("--axes-only", action="store_true",
                       help="after phases 1-2, run only phase 24 (the model, pipe and seq axes "
                            "at size 1, a model rank's shard), and print no result line")
+    only.add_argument("--huge-only", action="store_true",
+                      help="after phases 1-2, run only phase 25 (ofa_huge: the kernels at head "
+                           "dim 80, the caption and serving slices, a --remat training step), "
+                           "and print no result line")
     only.add_argument("--entry-only", action="store_true",
                       help="after phases 1-2, run only phase 19 (the CLI's convert, train "
                            "with its resume, and evaluate on a NormFormer ofa_base), and print "
@@ -4192,6 +4456,10 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    if opts.huge_only:
+        phase_huge(smi)
+        log(f"[done] ofa_huge phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     from musketeer_tpu_torch.config import ofa_base
 
     tree = _random_model_tree(dataclasses.replace(ofa_base(), use_flash_attention=True), SEED)
@@ -4284,6 +4552,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         parallel = phase_parallel(smi, tmp, {"p50_ms": train_p50_ms}, entry_mfu)
     axes_launches = phase_axes(smi)
+    huge_stats, huge_launches = _huge_in_own_process()
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -4317,6 +4586,9 @@ def main(argv=None) -> int:
             entry["remat_launches"] = {run: n[k] for run, n in parallel["remat"].items()}
         if k in ("K1", "K3", "K4"):  # phase 24's runs: the axes at size 1, a model shard
             entry["axes_launches"] = {run: n[k] for run, n in axes_launches.items()}
+        if k in huge_stats:  # phase 25: ofa_huge, head dim 80 (K2, K2-q8: d 1280)
+            entry["d1280" if k in ("K2", "K2-q8") else "hd80"] = dict(
+                huge_stats[k], launches=huge_launches[k][k])
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

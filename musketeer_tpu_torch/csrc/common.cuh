@@ -1,11 +1,13 @@
 // Shared helpers of the port's CUDA kernels: element type conversions, warp
-// reductions and the launchers' shared-memory opt-in.
+// reductions, the launchers' shared-memory opt-in and the head-dim dispatch.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mk {
 
@@ -49,6 +51,18 @@ struct SmemOptIn {
     return 0;
   }
 };
+
+// The head dims the attention kernels (K1, K3, K4, K5, K6, K7) are compiled
+// for: 64 (ofa_tiny, ofa_medium, ofa_base, ofa_large) and 80 (ofa_huge).
+// ops/_build.py::HEAD_DIMS mirrors this list. Calls f with
+// std::integral_constant<int, D> for the head dim d, or returns
+// cudaErrorInvalidValue for any other.
+template <typename F>
+int with_head_dim(int d, F&& f) {
+  if (d == 64) return f(std::integral_constant<int, 64>{});
+  if (d == 80) return f(std::integral_constant<int, 80>{});
+  return (int)cudaErrorInvalidValue;
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll

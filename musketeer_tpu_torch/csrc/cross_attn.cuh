@@ -17,7 +17,9 @@
 // and widened in registers, dotted with the Kb query rows held in shared
 // memory; all Kb x S scores stay in shared memory for an exact (two-pass)
 // softmax, one warp per beam row. Values: thread (d, part) sums the keys of
-// its part for all Kb beams in registers; the four parts are added in order.
+// its part for all Kb beams in registers; the NT / D parts (4 at D 64, 3 at
+// D 80, with 16 threads idle) are added in order. The head dim D is a
+// template parameter, compiled at 64 and 80.
 #pragma once
 
 #include <stdint.h>
@@ -27,10 +29,8 @@
 namespace mk {
 namespace cross_attn {
 
-constexpr int D = 64;          // head dim
 constexpr int NT = 256;        // threads per block
 constexpr int MAX_KB = 16;     // beams (query rows) of one sample
-constexpr int PARTS = NT / D;  // key partitions of the value product
 constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on sm_90
 constexpr float NEG = -1e9f;
 
@@ -47,11 +47,18 @@ struct Args {
   long long q_bs, q_hs, q_js, bias_bs, bias_hs;
 };
 
+template <int D>
+__host__ __device__ constexpr int parts() {  // key partitions of the value product
+  return NT / D;
+}
+
+template <int D>
 inline size_t smem_bytes(int Kb, int S) {
-  return sizeof(float) * ((size_t)Kb * D + (size_t)Kb * S + (size_t)PARTS * Kb * D);
+  return sizeof(float) * ((size_t)Kb * D + (size_t)Kb * S + (size_t)parts<D>() * Kb * D);
 }
 
 // a D-element row, 16 bytes at a time, widened to fp32
+template <int D>
 __device__ __forceinline__ void load_row(const float* p, float* r) {
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) {
@@ -63,6 +70,7 @@ __device__ __forceinline__ void load_row(const float* p, float* r) {
   }
 }
 
+template <int D>
 __device__ __forceinline__ void load_row(const int8_t* p, float* r) {
 #pragma unroll
   for (int i = 0; i < D / 16; ++i) {
@@ -74,8 +82,9 @@ __device__ __forceinline__ void load_row(const int8_t* p, float* r) {
   }
 }
 
-template <typename T, typename KV, bool kInt8>
+template <int D, typename T, typename KV, bool kInt8>
 __device__ void block(const Args& a, int h, int b) {
+  constexpr int PARTS = parts<D>();
   extern __shared__ __align__(16) float smem[];
   const int Kb = a.Kb, S = a.S, tid = threadIdx.x;
   float* qs = smem;                  // [Kb][D]
@@ -93,7 +102,7 @@ __device__ void block(const Args& a, int h, int b) {
   // scores: one key row per thread
   for (int s = tid; s < S; s += NT) {
     float kr[D];
-    load_row(kp + (long long)s * D, kr);
+    load_row<D>(kp + (long long)s * D, kr);
     for (int j = 0; j < Kb; ++j) {
       const float4* qj = reinterpret_cast<const float4*>(qs + j * D);
       float acc = 0.f;
@@ -137,20 +146,23 @@ __device__ void block(const Args& a, int h, int b) {
   }
   __syncthreads();
 
-  // values: thread (d, part) over the keys s = part (mod PARTS), all beams
+  // values: thread (d, part) over the keys s = part (mod PARTS), all beams;
+  // threads past PARTS * D have no part
   const int d = tid % D, part = tid / D;
-  float acc[MAX_KB];
+  if (part < PARTS) {
+    float acc[MAX_KB];
 #pragma unroll
-  for (int j = 0; j < MAX_KB; ++j) acc[j] = 0.f;
-  for (int s = part; s < S; s += PARTS) {
-    const float v = to_f(vp[(long long)s * D + d]);
+    for (int j = 0; j < MAX_KB; ++j) acc[j] = 0.f;
+    for (int s = part; s < S; s += PARTS) {
+      const float v = to_f(vp[(long long)s * D + d]);
+#pragma unroll
+      for (int j = 0; j < MAX_KB; ++j)
+        if (j < Kb) acc[j] = fmaf(sc[(size_t)j * S + s], v, acc[j]);
+    }
 #pragma unroll
     for (int j = 0; j < MAX_KB; ++j)
-      if (j < Kb) acc[j] = fmaf(sc[(size_t)j * S + s], v, acc[j]);
+      if (j < Kb) red[(part * Kb + j) * D + d] = acc[j];
   }
-#pragma unroll
-  for (int j = 0; j < MAX_KB; ++j)
-    if (j < Kb) red[(part * Kb + j) * D + d] = acc[j];
   __syncthreads();
   T* out = static_cast<T*>(a.out) + b * a.q_bs + h * a.q_hs;
   for (int i = tid; i < Kb * D; i += NT) {
@@ -161,21 +173,21 @@ __device__ void block(const Args& a, int h, int b) {
   }
 }
 
-template <typename T, typename KV, bool kInt8>
+template <int D, typename T, typename KV, bool kInt8>
 __global__ void __launch_bounds__(NT) kernel(Args a) {
-  block<T, KV, kInt8>(a, blockIdx.x, blockIdx.y);
+  block<D, T, KV, kInt8>(a, blockIdx.x, blockIdx.y);
 }
 
 // grid (H, B); returns a CUDA error code (cudaErrorInvalidValue when Kb or
 // the scores do not fit)
-template <typename T, typename KV, bool kInt8>
+template <int D, typename T, typename KV, bool kInt8>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.Kb, a.S);
+  const size_t smem = smem_bytes<D>(a.Kb, a.S);
   if (a.Kb < 1 || a.Kb > MAX_KB || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   static SmemOptIn opt_in;
   if (smem > 48 * 1024)
-    if (const int err = opt_in.ensure((const void*)kernel<T, KV, kInt8>, smem)) return err;
-  kernel<T, KV, kInt8><<<dim3(a.H, B), NT, smem, stream>>>(a);
+    if (const int err = opt_in.ensure((const void*)kernel<D, T, KV, kInt8>, smem)) return err;
+  kernel<D, T, KV, kInt8><<<dim3(a.H, B), NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-// K7's beam-shared cross-attention in bf16 on Hopper: the sample's [S, 64] K
+// K7's beam-shared cross-attention in bf16 on Hopper: the sample's [S, D] K
 // and V rows streamed by TMA, the products on the tensor cores (mma.sync
-// m16n8k16). K6's cross-attention over the int8 cache (decode_cross_attn.cu)
-// takes this layout and the primitives it shares from sm90.cuh.
+// m16n8k16). The head dim D is a template parameter, compiled at 64 and 80.
+// K6's cross-attention over the int8 cache (decode_cross_attn.cu) takes
+// this layout and the primitives it shares from sm90.cuh.
 //
 // For the Kb beams j of sample b and head h, over the sample's S keys, with
 // the TPU kernel's numerics (musketeer_tpu/ops/decode_stack.py::_kernel's
@@ -12,26 +13,33 @@
 // as cross_attn.cuh computes it, exact two-pass softmax included.
 //
 // Design. One CTA per (h, b): a producer warp streams the S / 64 key tiles
-// and then the S / 64 value tiles (64 x 64 bf16, 8 KB, 128-byte swizzled,
-// zeros past S) through a ring of STAGES stages; one consumer warpgroup.
+// and then the S / 64 value tiles (64 x D bf16: 8 KB at D 64, 128-byte
+// swizzled; 10 KB at D 80, flash_fwd_sm90.cuh's two boxes, columns 64..79
+// 32-byte swizzled; zeros past S) through a ring of STAGES stages; one
+// consumer warpgroup.
 //   - Scores: q (the Kb beam rows, padded to 16 with zeros) is the A operand,
-//     held in registers for the whole walk; each of the 8 warps takes 8 keys
-//     of a tile (one n8 block), the B fragments read as 4-byte pairs straight
-//     from the swizzled rows (conflict-free). Scores + the bias row (staged
-//     in shared memory) go to shared memory, fp32 [Kb][S].
+//     held in registers for the whole walk (D / 16 k-steps); each of the 8
+//     warps takes 8 keys of a tile (one n8 block), the B fragments read as
+//     4-byte pairs straight from the swizzled rows (conflict-free). Scores +
+//     the bias row (staged in shared memory) go to shared memory, fp32
+//     [Kb][S].
 //   - Softmax: one warp per beam over the row in shared memory; p rounded
 //     to bf16 into [Kb][S'] (zeros from S to the tile end).
 //   - P.v: A = p (its rows from shared memory), B = the value tile read by
-//     ldmatrix.trans (key-major rows are B's k); each warp owns 8 of the 64
-//     columns, accumulating in fp32 registers across all tiles.
+//     ldmatrix.trans (key-major rows are B's k); warp w owns the n8 column
+//     blocks w and w + 8 < D / 8 (at D 64 one block each; at D 80 warps 0
+//     and 1 also own columns 64..79), accumulating in fp32 registers across
+//     all tiles.
 // Eight warps rather than four: the softmax and the per-tile work are
 // latency-bound chains, and one warp a scheduler leaves them exposed.
 // The value tiles arrive while the softmax runs. Launched with programmatic
 // stream serialization: the K/V copies (the cache, written before the step)
 // start before the kernel waits for the cross-q product.
 //
-// Bound: the cross K/V, 2 x S x 64 x 2 bytes per (b, h), 268 MB a step at
-// the caption decode shape (rows 80, L6, H12, S908), 80 us at 3.35 TB/s.
+// Bound: the cross K/V, 2 x S x D x 2 bytes per (b, h), 268 MB a step at
+// the caption decode shape (rows 80, L6, H12, S908, D64), 80 us at 3.35
+// TB/s; 893 MB at ofa_huge's (L12, H16, D80), 267 us. ptxas (CUDA 12.8):
+// 52 registers at D64, 56 at D80, no spills.
 #pragma once
 
 #include <stdint.h>
@@ -44,34 +52,54 @@ namespace decode_attn {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 64;                  // head dim
-constexpr int BKT = 64;                // keys per tile
-constexpr int STAGES = 8;              // ring depth: value tiles arrive during the softmax
-constexpr int NC = 256;                // consumer threads: two warpgroups, 8 warps
-constexpr int NT = NC + 32;            // + the producer warp
-constexpr int MAX_KB = 16;             // beams of a sample: one m16 tile
-constexpr uint32_t TILE = BKT * D * 2;  // bytes of one 64 x 64 bf16 tile
+constexpr int BKT = 64;                 // keys per tile
+constexpr int STAGES = 8;               // ring depth: value tiles arrive during the softmax
+constexpr int NC = 256;                 // consumer threads: two warpgroups, 8 warps
+constexpr int NT = NC + 32;             // + the producer warp
+constexpr int MAX_KB = 16;              // beams of a sample: one m16 tile
+constexpr uint32_t LO = BKT * 64 * 2;   // bytes of a tile's first box (columns 0..63)
+
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() {  // one 64 x D bf16 tile: both boxes
+  return BKT * D * 2;
+}
 
 struct Args {
-  const bf16* q;      // [B * Kb, H * 64]: row b * Kb + j, columns h * 64 ..
+  const bf16* q;      // [B * Kb, H * D]: row b * Kb + j, columns h * D ..
   const float* bias;  // [B, H, S]
   bf16* out;          // in q's layout
   int B, H, Kb, S, layer;
 };
 
+template <int D>
 inline size_t smem_bytes(int Kb, int S) {
   const int sp = (S + BKT - 1) / BKT * BKT;
-  return 1024 + STAGES * TILE + 16 * STAGES + sizeof(float) * ((size_t)Kb * sp + sp) +
-         2 * (size_t)Kb * (sp + 8);
+  return 1024 + STAGES * tile_bytes<D>() + 16 * STAGES +
+         sizeof(float) * ((size_t)Kb * sp + sp) + 2 * (size_t)Kb * (sp + 8);
 }
+
+// The layer-stacked cross cache's tensor maps: k and v's first boxes (columns
+// 0..63), and at D 80 their second (columns 64..79).
+struct CacheMaps {
+  CUtensorMap k, v, k_hi, v_hi;
+};
 
 using sm90::lds32;
 using sm90::mma16816;
 using sm90::swz;
+using sm90::swz32;
 
-// kmap, vmap: the layer-stacked cache [L * B * H, S, 64] with 64 x 64 boxes
-__global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CUtensorMap kmap,
-                                             const __grid_constant__ CUtensorMap vmap, Args a) {
+// the address of 16-byte unit u (columns 8 u .. 8 u + 7) of key row `key` in
+// a tile at t: the first box's 128-byte swizzle, or the second's 32-byte one
+__device__ __forceinline__ uint32_t unit_addr(uint32_t t, int key, int u) {
+  return u < 8 ? t + swz(key, u) : t + LO + swz32(key, u - 8);
+}
+
+// maps: the layer-stacked cache [L * B * H, S, D] in boxes of 64 rows
+template <int D>
+__global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps maps, Args a) {
+  constexpr uint32_t TILE = tile_bytes<D>();
+  constexpr int NB = (D / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -101,9 +129,12 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CUtensorMap
       for (int it = 0; it < 2 * ntiles; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) sm90::mbar_wait(empty(st), (it / STAGES - 1) & 1);
+        const int row = (it % ntiles) * BKT;
         sm90::mbar_expect_tx(full(st), TILE);
-        sm90::tma_load3(stage(st), it < ntiles ? &kmap : &vmap, full(st), 0,
-                        (it % ntiles) * BKT, bh);
+        sm90::tma_load3(stage(st), it < ntiles ? &maps.k : &maps.v, full(st), 0, row, bh);
+        if constexpr (D > 64)
+          sm90::tma_load3(stage(st) + LO, it < ntiles ? &maps.k_hi : &maps.v_hi, full(st), 64,
+                          row, bh);
       }
     }
     return;  // no block-wide barrier follows
@@ -114,15 +145,15 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CUtensorMap
   sm90::grid_wait();  // q is the cross-q product's
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int d = a.H * D;
-  // q's A fragments for the four 16-deep k-steps: rows g and g + 8 (beams)
-  uint32_t qa[4][4];
+  // q's A fragments for the D / 16 16-deep k-steps: rows g and g + 8 (beams)
+  uint32_t qa[D / 16][4];
   {
     const bf16* q = a.q + (long long)b * Kb * d + h * D;
     auto pair = [&](int j, int c) -> uint32_t {
       return j < Kb ? *reinterpret_cast<const uint32_t*>(q + (long long)j * d + c) : 0u;
     };
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       qa[kk][0] = pair(g, 16 * kk + 2 * t);
       qa[kk][1] = pair(g + 8, 16 * kk + 2 * t);
       qa[kk][2] = pair(g, 16 * kk + 8 + 2 * t);
@@ -138,9 +169,9 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CUtensorMap
     const int key = 8 * warp + g;  // this lane's B column
     float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t b0 = lds32(stage(st) + swz(key, 2 * kk) + 4 * t);
-      const uint32_t b1 = lds32(stage(st) + swz(key, 2 * kk + 1) + 4 * t);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t b0 = lds32(unit_addr(stage(st), key, 2 * kk) + 4 * t);
+      const uint32_t b1 = lds32(unit_addr(stage(st), key, 2 * kk + 1) + 4 * t);
       mma16816(c, qa[kk], b0, b1);
     }
     sm90::mbar_arrive(empty(st));
@@ -169,8 +200,8 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CUtensorMap
   }
   sm90::named_sync(1, NC);
 
-  // P.v: warp w owns columns 8 w .. 8 w + 7 (one n8 block)
-  float o[4] = {0.f, 0.f, 0.f, 0.f};
+  // P.v: warp w owns the n8 column blocks w + 8 n < D / 8
+  float o[NB][4] = {};
   for (int it = ntiles; it < 2 * ntiles; ++it) {
     const int st = it % STAGES, k0 = (it - ntiles) * BKT;
     sm90::mbar_wait(full(st), (it / STAGES) & 1);
@@ -183,45 +214,52 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CUtensorMap
       pa[2] = g < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)g * pst + kc + 8) : 0u;
       pa[3] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)(g + 8) * pst + kc + 8)
                          : 0u;
-      // two 8 x 8 value blocks: keys +0 / +8 of this k-step, the warp's 8 columns
+      // two 8 x 8 value blocks: keys +0 / +8 of this k-step, a block's 8 columns
       const int key = 16 * ks + (lane % 8) + 8 * ((lane / 8) & 1);
-      const uint32_t addr = stage(st) + swz(key, warp);
-      uint32_t r0, r1;
-      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                   : "=r"(r0), "=r"(r1)
-                   : "r"(addr)
-                   : "memory");
-      mma16816(o, pa, r0, r1);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        if (warp + 8 * n >= D / 8) continue;
+        const uint32_t addr = unit_addr(stage(st), key, warp + 8 * n);
+        uint32_t r0, r1;
+        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                     : "=r"(r0), "=r"(r1)
+                     : "r"(addr)
+                     : "memory");
+        mma16816(o[n], pa, r0, r1);
+      }
     }
     sm90::mbar_arrive(empty(st));
   }
 
   bf16* out = a.out + (long long)b * Kb * d + h * D;
-  const int c = 8 * warp + 2 * t;
-  if (g < Kb)
-    *reinterpret_cast<__nv_bfloat162*>(out + (long long)g * d + c) =
-        __floats2bfloat162_rn(o[0], o[1]);
-  if (g + 8 < Kb)
-    *reinterpret_cast<__nv_bfloat162*>(out + (long long)(g + 8) * d + c) =
-        __floats2bfloat162_rn(o[2], o[3]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    if (warp + 8 * n >= D / 8) continue;
+    const int c = 8 * (warp + 8 * n) + 2 * t;
+    if (g < Kb)
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)g * d + c) =
+          __floats2bfloat162_rn(o[n][0], o[n][1]);
+    if (g + 8 < Kb)
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)(g + 8) * d + c) =
+          __floats2bfloat162_rn(o[n][2], o[n][3]);
+  }
 }
 
-// The layer-stacked cross cache [L, B, H, S, 64] bf16 as [L * B * H, S, 64]
-// with 64 x 64 boxes.
-inline int cache_map(CUtensorMap* map, const void* ptr, long long lbh, int S) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)lbh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BKT, 1};
-  return sm90::bf16_map(map, ptr, 3, dims, strides, box);
+// The layer-stacked cross caches [L, B, H, S, D] bf16 as [L * B * H, S, D]
+// in boxes of 64 rows (sm90::head_maps).
+template <int D>
+inline int cache_maps(CacheMaps* m, const void* k, const void* v, long long lbh, int S) {
+  if (const int err = sm90::head_maps(&m->k, &m->k_hi, k, D, S, lbh, BKT)) return err;
+  return sm90::head_maps(&m->v, &m->v_hi, v, D, S, lbh, BKT);
 }
 
 // grid (H, B), with programmatic stream serialization (pdl). A cudaError_t code.
-inline int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int pdl,
-                  cudaStream_t stream) {
+template <int D>
+inline int launch(const CacheMaps& maps, const Args& a, int pdl, cudaStream_t stream) {
   if (a.Kb < 1 || a.Kb > MAX_KB) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a.Kb, a.S);
+  const size_t smem = smem_bytes<D>(a.Kb, a.S);
   static SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)kernel, smem)) return err;
+  if (const int err = opt_in.ensure((const void*)kernel<D>, smem)) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.H, a.B);
   cfg.blockDim = dim3(NT);
@@ -232,7 +270,7 @@ inline int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& 
   attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, kmap, vmap, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel<D>, maps, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

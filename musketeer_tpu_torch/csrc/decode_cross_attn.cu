@@ -17,27 +17,35 @@
 // Bound. At the caption decode shape (B16 H12 Kb5 S908 D64) a call must
 // read 2 x 11.2 MB of int8 K/V plus 2 x 0.7 MB of scales and the bias row:
 // ~24 MB, 7 us at 3.35 TB/s; its 2 x 0.45 G multiply-adds are under 1 us on
-// the tensor cores. It is bound by the bytes.
+// the tensor cores. It is bound by the bytes. At ofa_huge's (B16 H16 Kb5
+// S908 D80) ~40 MB, 12 us.
 //
 // bf16 q (mk_decode_cross_attn_int8_sm90) runs on the tensor cores, in
-// K7's cross-attention layout (decode_attn_sm90.cuh) with the int8 cache:
-//   - one CTA per (h, b): a producer warp streams TMA tiles of 64 keys x 64
-//     int8 (4 KB, unswizzled: the 16-byte loads below are conflict-free as
-//     they lie) through an 8-stage ring, K then V; 8 consumer warps;
-//   - scores: lane (g, t) of warp w loads key 8 w + g's bytes 16 t .. + 15
-//     once and widens them exactly (sm90::widen_i8x4) into its mma.sync B
-//     fragments, word j for k-step j. That permutes the 64 dims inside the
-//     product (k-slot 16 j + s is dim 16 t + 4 j + e, t = (s % 8) / 2,
-//     e = s % 2 + 2 (s / 8)); q's A fragments are loaded in the same
-//     permutation, so every product is unchanged. w = acc * k_scale + bias
-//     with both rows staged once and the pads folded in (k_scale 0, bias
-//     -1e9: w is -1e9 exactly);
+// K7's cross-attention layout (decode_attn_sm90.cuh) with the int8 cache;
+// the head dim D is a template parameter, compiled at 64 and 80:
+//   - one CTA per (h, b): a producer warp streams TMA tiles of 64 keys x D
+//     int8 (4 KB at D 64, 5 KB at D 80, unswizzled) through an 8-stage ring,
+//     K then V; 8 consumer warps;
+//   - scores: lane (g, t) of warp w loads key 8 w + g's bytes D / 4 t ..
+//     D / 4 (t + 1) - 1 once (one 16-byte load at D 64, conflict-free as the
+//     rows lie; five 4-byte loads at D 80, whose 80-byte rows are not
+//     16-byte pieces per lane) and widens them exactly (sm90::widen_i8x4)
+//     into its mma.sync B fragments, word j for k-step j (D / 16 of them).
+//     That permutes the D dims inside the product (k-slot 16 j + s is dim
+//     D / 4 t + 4 j + e, t = (s % 8) / 2, e = s % 2 + 2 (s / 8)); q's A
+//     fragments are loaded in the same permutation, so every product is
+//     unchanged. w = acc * k_scale + bias with both rows staged once and the
+//     pads folded in (k_scale 0, bias -1e9: w is -1e9 exactly);
 //   - softmax: one warp per beam row, clamped and floored, e kept from the
 //     sum's pass, p = e / l * v_scale rounded to bf16;
-//   - P.v: each thread widens 16 bytes of the value tile into a bf16 tile
-//     (two, alternating: one barrier a tile), read by ldmatrix.trans as K7's.
-// Shared memory ~89 KB at Kb 5, S 908: two CTAs an SM, so the 192 (h, b)
-// CTAs of the serving shape run in one wave on 132 SMs. Launched with
+//   - P.v: the threads widen the value tile into a bf16 tile (two,
+//     alternating: one barrier a tile; at D 80 in K7's two-box layout), read
+//     by ldmatrix.trans as K7's: warp w owns the n8 column blocks w and
+//     w + 8 < D / 8.
+// Shared memory ~89 KB at Kb 5, S 908, D 64 (~101 KB at D 80): two CTAs an
+// SM, so the 192 (h, b) CTAs of the ofa_base serving shape (256 at
+// ofa_huge's) run in one wave on 132 SMs. ptxas (CUDA 12.8): 47 registers
+// at D 64, 62 at D 80, no spills. Launched with
 // programmatic stream serialization: the K/V copies start before the kernel
 // waits on the previous kernel; q, the bias, the scales and the pads are
 // read after the wait.
@@ -49,6 +57,7 @@
 
 #include "common.cuh"
 #include "cross_attn.cuh"
+#include "decode_attn_sm90.cuh"  // K7's tile layout (unit_addr)
 #include "sm90.cuh"
 
 namespace {
@@ -57,37 +66,45 @@ namespace sm90 = mk::sm90;
 using bf16 = __nv_bfloat16;
 using sm90::mma16816;
 using sm90::swz;
+using mk::decode_attn::unit_addr;
 
-constexpr int D = 64;                   // head dim
 constexpr int BKT = 64;                 // keys per tile
 constexpr int STAGES = 8;               // ring depth: value tiles arrive during the softmax
 constexpr int NC = 256;                 // consumer threads: 8 warps
 constexpr int NT = NC + 32;             // + the producer warp
 constexpr int MAX_KB = 16;              // beams of a sample: one m16 tile
-constexpr uint32_t KV_TILE = BKT * D;   // bytes of one 64 x 64 int8 K or V tile
-constexpr uint32_t TILE = BKT * D * 2;  // bytes of one 64 x 64 bf16 value tile
 constexpr float NEG_BIAS = -1e9f;       // the score of a padded key
 
+template <int D>
+struct Tiles {
+  static constexpr uint32_t KV = BKT * D;        // bytes of one 64 x D int8 K or V tile
+  static constexpr uint32_t V16 = BKT * D * 2;   // bytes of one 64 x D bf16 value tile
+};
+
 struct Args {
-  const bf16* q;          // [B, H, Kb, 64]
+  const bf16* q;          // [B, H, Kb, D]
   const float* k_scale;   // [B, H, S]
   const float* v_scale;   // [B, H, S]
   const float* bias;      // element (b, h, s) at b * bias_bs + h * bias_hs + s
   const uint8_t* pad;     // [B, S] bool
-  bf16* out;              // [B, H, Kb, 64]
+  bf16* out;              // [B, H, Kb, D]
   int H, Kb, S;
   long long bias_bs, bias_hs;
 };
 
+template <int D>
 inline size_t smem_bytes(int Kb, int S) {
   const int sp = (S + BKT - 1) / BKT * BKT;
-  return 1024 + STAGES * KV_TILE + 2 * TILE + 16 * STAGES +
+  return 1024 + STAGES * Tiles<D>::KV + 2 * Tiles<D>::V16 + 16 * STAGES +
          sizeof(float) * ((size_t)Kb * sp + 3 * (size_t)sp) + 2 * (size_t)Kb * (sp + 8);
 }
 
-// kmap, vmap: this layer's cache [B * H, S, 64] int8 with 64 x 64 boxes
+// kmap, vmap: this layer's cache [B * H, S, D] int8 with 64 x D boxes
+template <int D>
 __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, Args a) {
+  constexpr uint32_t KV_TILE = Tiles<D>::KV, TILE = Tiles<D>::V16;
+  constexpr int NB = (D / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -145,16 +162,16 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   }
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   // q's A fragments in the permuted dim order of the K fragments: k-step j,
-  // rows g and g + 8 (beams), dims 16 t + 4 j .. + 3
-  uint32_t qa[4][4];
+  // rows g and g + 8 (beams), dims D / 4 t + 4 j .. + 3
+  uint32_t qa[D / 16][4];
   {
     const bf16* q = a.q + bh * Kb * D;
     auto quad = [&](int j, int c) -> uint2 {
       return j < Kb ? *reinterpret_cast<const uint2*>(q + j * D + c) : make_uint2(0u, 0u);
     };
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint2 lo = quad(g, 16 * t + 4 * kk), hi = quad(g + 8, 16 * t + 4 * kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint2 lo = quad(g, D / 4 * t + 4 * kk), hi = quad(g + 8, D / 4 * t + 4 * kk);
       qa[kk][0] = lo.x;
       qa[kk][1] = hi.x;
       qa[kk][2] = lo.y;
@@ -167,15 +184,26 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   for (int it = 0; it < ntiles; ++it) {
     const int st = it % STAGES;
     sm90::mbar_wait(full(st), (it / STAGES) & 1);
-    const uint4 kw = *reinterpret_cast<const uint4*>(stage(st) + (8 * warp + g) * D + 16 * t);
-    const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
-    uint32_t kb[4][2];
+    const uint8_t* krow = stage(st) + (8 * warp + g) * D + D / 4 * t;
+    uint32_t words[D / 16];
+    if constexpr (D == 64) {
+      const uint4 kw = *reinterpret_cast<const uint4*>(krow);
+      words[0] = kw.x;
+      words[1] = kw.y;
+      words[2] = kw.z;
+      words[3] = kw.w;
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        words[kk] = *reinterpret_cast<const uint32_t*>(krow + 4 * kk);
+    }
+    uint32_t kb[D / 16][2];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
     sm90::mbar_arrive(empty(st));
     float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
+    for (int kk = 0; kk < D / 16; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
     const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -207,14 +235,16 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   }
   sm90::named_sync(1, NC);
 
-  // P.v: each value tile widened into a bf16 tile (key-major 128-byte rows,
-  // swizzled), then read as K7's; warp w owns columns 8 w .. 8 w + 7
-  float o[4] = {0.f, 0.f, 0.f, 0.f};
+  // P.v: each value tile widened into a bf16 tile (key-major rows in K7's
+  // swizzled layout), then read as K7's; warp w owns the n8 column blocks
+  // w + 8 n < D / 8
+  float o[NB][4] = {};
   for (int it = ntiles; it < 2 * ntiles; ++it) {
     const int st = it % STAGES, k0 = (it - ntiles) * BKT;
     const uint32_t vb = vt + TILE * ((it - ntiles) & 1);
     sm90::mbar_wait(full(st), (it / STAGES) & 1);
-    {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
+    uint8_t* row = smem_raw + (vb - raw);
+    if constexpr (D == 64) {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
       const uint4 vw = *reinterpret_cast<const uint4*>(stage(st) + 16 * tid);
       const uint32_t words[4] = {vw.x, vw.y, vw.z, vw.w};
       uint32_t wv[8];
@@ -222,9 +252,27 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
       for (int k = 0; k < 4; ++k) sm90::widen_i8x4(words[k], wv[2 * k], wv[2 * k + 1]);
       sm90::mbar_arrive(empty(st));
       const int key = tid / 4, u = 2 * (tid % 4);
-      uint8_t* row = smem_raw + (vb - raw);
       *reinterpret_cast<uint4*>(row + swz(key, u)) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
       *reinterpret_cast<uint4*>(row + swz(key, u + 1)) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+    } else {  // 8-byte pieces: piece i is key i / (D / 8), dims 8 (i % (D / 8)) .. + 7
+      constexpr int PIECES = BKT * D / 8, PER = (PIECES + NC - 1) / NC;
+      uint2 vw[PER];
+#pragma unroll
+      for (int r = 0; r < PER; ++r) {
+        const int i = tid + r * NC;
+        vw[r] = i < PIECES ? *reinterpret_cast<const uint2*>(stage(st) + 8 * i) : make_uint2(0, 0);
+      }
+      sm90::mbar_arrive(empty(st));
+#pragma unroll
+      for (int r = 0; r < PER; ++r) {
+        const int i = tid + r * NC;
+        if (i >= PIECES) continue;
+        uint32_t w0, w1, w2, w3;
+        sm90::widen_i8x4(vw[r].x, w0, w1);
+        sm90::widen_i8x4(vw[r].y, w2, w3);
+        *reinterpret_cast<uint4*>(row + (unit_addr(vb, i / (D / 8), i % (D / 8)) - vb)) =
+            make_uint4(w0, w1, w2, w3);
+      }
     }
     // the tile complete; the other tile's readers have passed this barrier
     // before this one is written again
@@ -240,26 +288,36 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
       pa[2] = g < Kb ? *reinterpret_cast<const uint32_t*>(p0 + 8) : 0u;
       pa[3] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(p1 + 8) : 0u;
       const int key = 16 * kq + (lane % 8) + 8 * ((lane / 8) & 1);
-      const uint32_t addr = vb + swz(key, warp);
-      uint32_t r0, r1;
-      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                   : "=r"(r0), "=r"(r1)
-                   : "r"(addr)
-                   : "memory");
-      mma16816(o, pa, r0, r1);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        if (warp + 8 * n >= D / 8) continue;
+        const uint32_t addr = unit_addr(vb, key, warp + 8 * n);
+        uint32_t r0, r1;
+        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                     : "=r"(r0), "=r"(r1)
+                     : "r"(addr)
+                     : "memory");
+        mma16816(o[n], pa, r0, r1);
+      }
     }
   }
 
   bf16* out = a.out + bh * Kb * D;
-  const int c = 8 * warp + 2 * t;
-  if (g < Kb)
-    *reinterpret_cast<__nv_bfloat162*>(out + g * D + c) = __floats2bfloat162_rn(o[0], o[1]);
-  if (g + 8 < Kb)
-    *reinterpret_cast<__nv_bfloat162*>(out + (g + 8) * D + c) =
-        __floats2bfloat162_rn(o[2], o[3]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    if (warp + 8 * n >= D / 8) continue;
+    const int c = 8 * (warp + 8 * n) + 2 * t;
+    if (g < Kb)
+      *reinterpret_cast<__nv_bfloat162*>(out + g * D + c) =
+          __floats2bfloat162_rn(o[n][0], o[n][1]);
+    if (g + 8 < Kb)
+      *reinterpret_cast<__nv_bfloat162*>(out + (g + 8) * D + c) =
+          __floats2bfloat162_rn(o[n][2], o[n][3]);
+  }
 }
 
-// One layer's cache [B * H, S, 64] int8 with 64 x 64 boxes, unswizzled.
+// One layer's cache [B * H, S, D] int8 with 64 x D boxes, unswizzled.
+template <int D>
 inline int cache_map(CUtensorMap* map, const void* ptr, long long bh, int S) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D, (cuuint64_t)S * D};
@@ -270,12 +328,13 @@ inline int cache_map(CUtensorMap* map, const void* ptr, long long bh, int S) {
 
 // grid (H, B), always with programmatic stream serialization. A cudaError_t
 // code (cudaErrorInvalidValue when Kb or the shared memory does not fit).
+template <int D>
 inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int B,
                        cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.Kb, a.S);
+  const size_t smem = smem_bytes<D>(a.Kb, a.S);
   if (a.Kb < 1 || a.Kb > MAX_KB || smem > 232448) return (int)cudaErrorInvalidValue;
   static mk::SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)cross_attn_i8_sm90_kernel, smem)) return err;
+  if (const int err = opt_in.ensure((const void*)cross_attn_i8_sm90_kernel<D>, smem)) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.H, B);
   cfg.blockDim = dim3(NT);
@@ -286,20 +345,20 @@ inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const A
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel, kmap, vmap, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel<D>, kmap, vmap, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// fp32 q and out (the FMA kernel). k, v int8 [B, H, S, 64]; scales fp32
-// [B, H, S]; bias fp32 with strides (bias_bs, bias_hs, 1); pad bool [B, S].
-// Returns a CUDA error code.
+// fp32 q and out (the FMA kernel). k, v int8 [B, H, S, D]; scales fp32
+// [B, H, S]; bias fp32 with strides (bias_bs, bias_hs, 1); pad bool [B, S];
+// D = head_dim, 64 or 80. Returns a CUDA error code.
 extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const void* v,
                                          const void* k_scale, const void* v_scale,
                                          const void* bias, const void* pad, void* out, int B,
                                          int H, int Kb, int S, long long bias_bs,
-                                         long long bias_hs, void* stream) {
+                                         long long bias_hs, int head_dim, void* stream) {
   namespace ca = mk::cross_attn;
   ca::Args a;
   a.q = q;
@@ -313,12 +372,15 @@ extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const voi
   a.H = H;
   a.Kb = Kb;
   a.S = S;
-  a.q_bs = (long long)H * Kb * ca::D;  // q and out: [B, H, Kb, D]
-  a.q_hs = (long long)Kb * ca::D;
-  a.q_js = ca::D;
+  a.q_bs = (long long)H * Kb * head_dim;  // q and out: [B, H, Kb, D]
+  a.q_hs = (long long)Kb * head_dim;
+  a.q_js = head_dim;
   a.bias_bs = bias_bs;
   a.bias_hs = bias_hs;
-  return ca::launch<float, int8_t, true>(a, B, static_cast<cudaStream_t>(stream));
+  return mk::with_head_dim(head_dim, [&](auto d) {
+    return ca::launch<decltype(d)::value, float, int8_t, true>(a, B,
+                                                               static_cast<cudaStream_t>(stream));
+  });
 }
 
 // bf16 q and out (the tensor cores), the other arguments as above; q, k and v
@@ -329,10 +391,7 @@ extern "C" int mk_decode_cross_attn_int8_sm90(const void* q, const void* k, cons
                                               const void* k_scale, const void* v_scale,
                                               const void* bias, const void* pad, void* out,
                                               int B, int H, int Kb, int S, long long bias_bs,
-                                              long long bias_hs, void* stream) {
-  CUtensorMap kmap, vmap;
-  if (const int err = cache_map(&kmap, k, (long long)B * H, S)) return err;
-  if (const int err = cache_map(&vmap, v, (long long)B * H, S)) return err;
+                                              long long bias_hs, int head_dim, void* stream) {
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k_scale = static_cast<const float*>(k_scale);
@@ -345,5 +404,11 @@ extern "C" int mk_decode_cross_attn_int8_sm90(const void* q, const void* k, cons
   a.S = S;
   a.bias_bs = bias_bs;
   a.bias_hs = bias_hs;
-  return launch_sm90(kmap, vmap, a, B, static_cast<cudaStream_t>(stream));
+  return mk::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    CUtensorMap kmap, vmap;
+    if (const int err = cache_map<D>(&kmap, k, (long long)B * H, S)) return err;
+    if (const int err = cache_map<D>(&vmap, v, (long long)B * H, S)) return err;
+    return launch_sm90<D>(kmap, vmap, a, B, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -8,7 +8,7 @@
 //          bias row, later positions masked), softmax, . V (v_new at idx),
 //          out-proj + bias + residual;
 //   cross: LN, (x . Wq + b) * scaling; per sample its Kb beams against its
-//          [S, 64] K/V per head with the bias row (pads folded to -1e9),
+//          [S, D] K/V per head with the bias row (pads folded to -1e9),
 //          softmax, . V, out-proj + bias + residual;
 //   FFN:   LN, fc1 + bias, erf-gelu, fc2 + bias + residual.
 // k_new and v_new of every layer are outputs; the caller writes them into
@@ -29,7 +29,8 @@
 //   4 LN + cross-q product 5 cross-attention     6 out-proj + residual
 //   7 LN + fc1 + gelu      8 fc2 + residual
 // Layer 0 reads x0 where later layers read x. The cross K/V are read in the
-// cache's own [L, B, H, S, 64] layout.
+// cache's own [L, B, H, S, D] layout. The head dim D is a template
+// parameter, compiled at 64 and 80 (d = H D, a multiple of 64 either way).
 //
 // bf16 (mk_decode_stack_step_sm90): the six products run on the
 // weight-streaming tensor-core core (skinny_gemm_sm90.cuh: W tiles by TMA,
@@ -56,7 +57,9 @@
 // K/V and up to 25 MB of self cache: 392 MB, 117 us at 3.35 TB/s; its 4.0 G
 // multiply-adds in the products are ~8 us on the tensor cores. On an H100 the
 // FMA route takes ~4.2 ms a step, the bf16 route ~0.8 ms: its 48 launches
-// each spend ~12 us on fixed latency (PERF.md).
+// each spend ~12 us on fixed latency (PERF.md). At ofa_huge's shape (L12,
+// d1280, f5120, H16, D80) a step must read ~553 MB of weights and ~893 MB of
+// cross K/V: ~0.43 ms at 3.35 TB/s.
 #include <stdint.h>
 
 #include <type_traits>
@@ -73,7 +76,6 @@ using mk::round_to;
 using mk::to_f;
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 64;     // head dim
 constexpr int MT = 32;    // product rows per block
 constexpr int NTL = 64;   // product columns per block
 constexpr int KC = 32;    // depth chunk staged in shared memory
@@ -205,54 +207,75 @@ __global__ void __launch_bounds__(GT) gemm_kernel(const T* __restrict__ A, const
   }
 }
 
-// Self-attention of one step: one warp per (row, head), 2 of the 64 dims per
-// lane. Only positions t <= idx are read: later ones are masked to -1e9 in
-// the TPU kernel, whose exp is exactly 0 after the max subtraction.
-template <typename T>
+// Self-attention of one step: one warp per (row, head), the dim pairs
+// 2 (lane + 32 i) < D per lane (one at D 64; lanes 0..7 a second at D 80).
+// Only positions t <= idx are read: later ones are masked to -1e9 in the TPU
+// kernel, whose exp is exactly 0 after the max subtraction.
+template <int D, typename T>
 __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
     const T* __restrict__ cache_k, const T* __restrict__ cache_v, const float* __restrict__ sbias,
     T* __restrict__ out, int rows, int H, int Tmax, int idx, float scaling) {
+  constexpr int NP = (D / 2 + 31) / 32;  // dim pairs a lane may hold
   extern __shared__ float sa_scores[];  // [SA_WARPS][Tmax]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int task = blockIdx.x * SA_WARPS + warp;
   if (task >= rows * H) return;
   const int row = task / H, h = task % H, d = H * D;
   float* w = sa_scores + warp * Tmax;
-  const long long qo = (long long)row * d + h * D + 2 * lane;  // this lane's dims in [rows, d]
-  const float q0 = round_to<T>(to_f(q[qo]) * scaling);
-  const float q1 = round_to<T>(to_f(q[qo + 1]) * scaling);
+  const long long qo = (long long)row * d + h * D;  // (row, head) in [rows, d]
+  int c[NP];  // this lane's pairs' first dims, or -1
+  float q0[NP], q1[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    c[i] = 2 * (lane + 32 * i) < D ? 2 * (lane + 32 * i) : -1;
+    q0[i] = c[i] < 0 ? 0.f : round_to<T>(to_f(q[qo + c[i]]) * scaling);
+    q1[i] = c[i] < 0 ? 0.f : round_to<T>(to_f(q[qo + c[i] + 1]) * scaling);
+  }
   const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
   const float* sb = sbias + co;
 
   float m = -CUDART_INF_F;
   for (int t = 0; t <= idx; ++t) {
-    const T* kt = t == idx ? k_new + qo : cache_k + (co + t) * D + 2 * lane;
-    const float s = mk::warp_sum(q0 * to_f(kt[0]) + q1 * to_f(kt[1])) + sb[t];
+    const T* kt = t == idx ? k_new + qo : cache_k + (co + t) * D;
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      if (c[i] >= 0) part += q0[i] * to_f(kt[c[i]]) + q1[i] * to_f(kt[c[i] + 1]);
+    const float s = mk::warp_sum(part) + sb[t];
     if (lane == 0) w[t] = s;
     m = fmaxf(m, s);
   }
   __syncwarp();
   float l = 0.f;
   for (int t = 0; t <= idx; ++t) l += expf(w[t] - m);
-  float a0 = 0.f, a1 = 0.f;
+  float a0[NP] = {}, a1[NP] = {};
   for (int t = 0; t <= idx; ++t) {
     const float p = round_to<T>(expf(w[t] - m) / l);
-    const T* vt = t == idx ? v_new + qo : cache_v + (co + t) * D + 2 * lane;
-    a0 = fmaf(p, to_f(vt[0]), a0);
-    a1 = fmaf(p, to_f(vt[1]), a1);
+    const T* vt = t == idx ? v_new + qo : cache_v + (co + t) * D;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      if (c[i] < 0) continue;
+      a0[i] = fmaf(p, to_f(vt[c[i]]), a0[i]);
+      a1[i] = fmaf(p, to_f(vt[c[i] + 1]), a1[i]);
+    }
   }
-  out[qo] = from_f<T>(a0);
-  out[qo + 1] = from_f<T>(a1);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    if (c[i] < 0) continue;
+    out[qo + c[i]] = from_f<T>(a0[i]);
+    out[qo + c[i] + 1] = from_f<T>(a1[i]);
+  }
 }
 
 // The bf16 route's self-attention of one step: one warp per (row, head),
-// lane t on positions t, t + 32, ... <= idx (the full 64-deep dot of q with
+// lane t on positions t, t + 32, ... <= idx (the full D-deep dot of q with
 // that position's key, 16-byte loads), the softmax by warp reductions, then
-// lane l on value dims 2 l, 2 l + 1, summing the positions in order. Every
-// lane's loads are independent of the others', so a warp waits on memory a
-// few times, not once per position; numerics as self_attn_kernel's, the
-// sums in another fp32 order.
+// lane l on the value dim pairs 2 (l + 32 i) < D, summing the positions in
+// order. Every lane's loads are independent of the others', so a warp waits
+// on memory a few times, not once per position; numerics as
+// self_attn_kernel's, the sums in another fp32 order.
+template <int D>
 __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
     const bf16* __restrict__ cache_k, const bf16* __restrict__ cache_v,
@@ -304,15 +327,26 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
   __syncwarp();
   for (int t = lane; t <= idx; t += 32) w[t] = round_to<bf16>(expf(w[t] - m) / l);
   __syncwarp();
-  float a0 = 0.f, a1 = 0.f;
+  constexpr int NP = (D / 2 + 31) / 32;  // dim pairs a lane may hold
+  float a0[NP] = {}, a1[NP] = {};
 #pragma unroll 4
   for (int t = 0; t <= idx; ++t) {
     const bf16* vt = t == idx ? v_new + qo : cache_v + (co + t) * D;
-    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(vt + 2 * lane);
-    a0 = fmaf(w[t], __low2float(v), a0);
-    a1 = fmaf(w[t], __high2float(v), a1);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int c = 2 * (lane + 32 * i);
+      if (c >= D) continue;
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(vt + c);
+      a0[i] = fmaf(w[t], __low2float(v), a0[i]);
+      a1[i] = fmaf(w[t], __high2float(v), a1[i]);
+    }
   }
-  *reinterpret_cast<__nv_bfloat162*>(out + qo + 2 * lane) = __floats2bfloat162_rn(a0, a1);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int c = 2 * (lane + 32 * i);
+    if (c < D)
+      *reinterpret_cast<__nv_bfloat162*>(out + qo + c) = __floats2bfloat162_rn(a0[i], a1[i]);
+  }
 }
 
 template <typename T>
@@ -348,7 +382,7 @@ struct Pack {
     if (err_ != 0) return err_;      \
   } while (0)
 
-template <typename T>
+template <int D, typename T>
 int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, const T* self_k,
          const T* self_v, const T* cross_k, const T* cross_v, T* x, T* k_new, T* v_new,
          T* scratch, int L, int B, int Kb, int H, int S, int Tmax, int f, int idx, float scaling,
@@ -376,7 +410,7 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
                    rows, 3 * d, d, st));
     // 2. self-attention over the cache
     const long long cl = (long long)l * rows * H * Tmax;
-    self_attn_kernel<T><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
+    self_attn_kernel<D, T><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
         qbuf, kn, vn, self_k + cl * D, self_v + cl * D, sbias + cl, attn, rows, H, Tmax, idx,
         scaling);
     MK_TRY((int)cudaGetLastError());
@@ -387,7 +421,7 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
     w_dd = static_cast<const T*>(pk.w_cq) + (long long)l * d * d;
     MK_TRY(gemm<T>(x, w_dd, ln + 2 * d, ln + 3 * d, epi_of<T>(bm + d, q2, d, nullptr, scaling),
                    rows, d, d, st));
-    // 5. beam-shared cross-attention over this layer's [B, H, S, 64] K/V
+    // 5. beam-shared cross-attention over this layer's [B, H, S, D] K/V
     ca::Args a;
     a.q = q2;
     a.k = cross_k + (long long)l * B * H * S * D;
@@ -399,12 +433,12 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
     a.H = H;
     a.Kb = Kb;
     a.S = S;
-    a.q_bs = (long long)Kb * d;  // row b * Kb + j, column h * 64 + dd
+    a.q_bs = (long long)Kb * d;  // row b * Kb + j, column h * D + dd
     a.q_hs = D;
     a.q_js = d;
     a.bias_bs = (long long)H * S;
     a.bias_hs = S;
-    MK_TRY((ca::launch<T, T, false>(a, B, st)));
+    MK_TRY((ca::launch<D, T, T, false>(a, B, st)));
     // 6. out-proj + bias + residual
     w_dd = static_cast<const T*>(pk.w_co) + (long long)l * d * d;
     MK_TRY(gemm<T>(attn, w_dd, nullptr, nullptr, epi_of<T>(bm + 2 * d, x, d, x), rows, d, d, st));
@@ -452,6 +486,7 @@ __global__ void __launch_bounds__(128) row_tile_stats(const bf16* __restrict__ x
 // row statistics of x handed from each residual product to the next
 // LayerNorm. n_tile: the row tile (16, 32, 48, 80); cps: chunks of 64 per
 // split of the q|k|v, d x d, fc1 and fc2 products.
+template <int D>
 int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* cbias,
               const bf16* self_k, const bf16* self_v, const bf16* cross_k, const bf16* cross_v,
               bf16* x, bf16* k_new, bf16* v_new, bf16* scratch, float* part, int* counters,
@@ -465,15 +500,15 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
   bf16* attn = qbuf + rows * d;  // [rows, d] attention output, head-major columns
   bf16* q2 = attn + rows * d;    // [rows, d] cross q (scaled)
   bf16* g = q2 + rows * d;       // [rows, f] gelu(fc1)
-  CUtensorMap m_self3, m_so, m_cq, m_co, m_fc1, m_fc2, m_k, m_v;
+  CUtensorMap m_self3, m_so, m_cq, m_co, m_fc1, m_fc2;
+  mk::decode_attn::CacheMaps m_kv;
   MK_TRY(sk::weight_map(&m_self3, pk.w_self3, L, 3 * d, d, sk::BM));
   MK_TRY(sk::weight_map(&m_so, pk.w_so, L, d, d, sk::BM));
   MK_TRY(sk::weight_map(&m_cq, pk.w_cq, L, d, d, sk::BM));
   MK_TRY(sk::weight_map(&m_co, pk.w_co, L, d, d, sk::BM));
   MK_TRY(sk::weight_map(&m_fc1, pk.w_fc1, L, f, d, sk::BM));
   MK_TRY(sk::weight_map(&m_fc2, pk.w_fc2, L, d, f, sk::BM));
-  MK_TRY(mk::decode_attn::cache_map(&m_k, cross_k, (long long)L * B * H, S));
-  MK_TRY(mk::decode_attn::cache_map(&m_v, cross_v, (long long)L * B * H, S));
+  MK_TRY(mk::decode_attn::cache_maps<D>(&m_kv, cross_k, cross_v, (long long)L * B * H, S));
   // the first LayerNorm's statistics: x0's, by tile
   row_tile_stats<<<(rows * (d / 64) + 3) / 4, 128, 0, st>>>(x0, rows, d, stats);
   MK_TRY((int)cudaGetLastError());
@@ -507,7 +542,7 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
       MK_TRY(product(m_self3, m_xin, l, ln_of(ln), 3 * d, d, cps[0], nullptr, e));
       // 2. self-attention over the cache
       const long long cl = (long long)l * rows * H * Tmax;
-      self_attn_bf16<<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
+      self_attn_bf16<D><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
           qbuf, kn, vn, self_k + cl * D, self_v + cl * D, sbias + cl, attn, rows, H, Tmax, idx,
           scaling);
       MK_TRY((int)cudaGetLastError());
@@ -516,9 +551,9 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
       // 4. LN + cross q, scaled
       MK_TRY(product(m_cq, m_x, l, ln_of(ln + 2 * d), d, d, cps[1], nullptr,
                      epi_of<bf16>(bm + d, q2, d, nullptr, scaling)));
-      // 5. beam-shared cross-attention over this layer's [B, H, S, 64] K/V
+      // 5. beam-shared cross-attention over this layer's [B, H, S, D] K/V
       mk::decode_attn::Args a{q2, cbias, attn, B, H, Kb, S, l};
-      MK_TRY(mk::decode_attn::launch(m_k, m_v, a, pdl, st));
+      MK_TRY(mk::decode_attn::launch<D>(m_kv, a, pdl, st));
       // 6. out-proj + bias + residual; x's statistics for step 7
       MK_TRY(product(m_co, m_attn, l, none, d, d, cps[1], stats,
                      epi_of<bf16>(bm + 2 * d, x, d, x)));
@@ -537,9 +572,10 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
 
 // The fp32 route (FMA kernels). Shapes: the pack as ops/decode_stack.py
 // builds it; x0 [rows, d]; sbias [L, rows, H, Tmax]; cbias [B, H, S]; self_k/
-// self_v [L, rows, H, Tmax, 64]; cross_k/cross_v [L, B, H, S, 64]; outputs
+// self_v [L, rows, H, Tmax, hd]; cross_k/cross_v [L, B, H, S, hd]; outputs
 // x_out [rows, d], k_new/v_new [L, rows, d]; scratch rows * (3 d + f)
-// elements. rows = B * Kb, d = 64 H. Returns a CUDA error code.
+// elements. rows = B * Kb, d = hd H, hd = head_dim (64 or 80). Returns a
+// CUDA error code.
 extern "C" int mk_decode_stack_step(const void* w_self3, const void* b_self3, const void* w_so,
                                     const void* w_cq, const void* w_co, const void* w_fc1,
                                     const void* b_fc1, const void* w_fc2, const void* b_misc,
@@ -548,20 +584,24 @@ extern "C" int mk_decode_stack_step(const void* w_self3, const void* b_self3, co
                                     const void* cross_k, const void* cross_v, void* x_out,
                                     void* k_new, void* v_new, void* scratch, int L, int B, int Kb,
                                     int H, int S, int Tmax, int f, int idx, float scaling,
-                                    void* stream) {
+                                    int head_dim, void* stream) {
   const Pack pk{w_self3, b_self3, w_so, w_cq, w_co, w_fc1, b_fc1, w_fc2, b_misc,
                 static_cast<const float*>(ln)};
   using T = float;
-  return step<T>(pk, static_cast<const T*>(x0), static_cast<const float*>(sbias),
-                 static_cast<const float*>(cbias), static_cast<const T*>(self_k),
-                 static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
-                 static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
-                 static_cast<T*>(v_new), static_cast<T*>(scratch), L, B, Kb, H, S, Tmax, f, idx,
-                 scaling, static_cast<cudaStream_t>(stream));
+  return mk::with_head_dim(head_dim, [&](auto d) {
+    return step<decltype(d)::value, T>(
+        pk, static_cast<const T*>(x0), static_cast<const float*>(sbias),
+        static_cast<const float*>(cbias), static_cast<const T*>(self_k),
+        static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
+        static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
+        static_cast<T*>(v_new), static_cast<T*>(scratch), L, B, Kb, H, S, Tmax, f, idx, scaling,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 // The bf16 route (tensor cores): the fp32 route's arguments in bf16 (sbias,
-// cbias and ln fp32), every bf16 tensor on a 16-byte boundary; part and
+// cbias and ln fp32; head_dim as there), every bf16 tensor on a 16-byte
+// boundary; part and
 // stats fp32, counters int32, as step_sm90 describes them; cps four ints; pdl != 0
 // launches with programmatic stream serialization. Returns a CUDA error code.
 extern "C" int mk_decode_stack_step_sm90(
@@ -572,16 +612,19 @@ extern "C" int mk_decode_stack_step_sm90(
     void* v_new, void* scratch, void* part, void* counters, void* stats, int L, int B, int Kb,
     int H, int S,
     int Tmax, int f, int idx, float scaling, int n_tile, int cps_qkv, int cps_dd, int cps_fc1,
-    int cps_fc2, int pdl, void* stream) {
+    int cps_fc2, int pdl, int head_dim, void* stream) {
   const Pack pk{w_self3, b_self3, w_so, w_cq, w_co, w_fc1, b_fc1, w_fc2, b_misc,
                 static_cast<const float*>(ln)};
   const int cps[4] = {cps_qkv, cps_dd, cps_fc1, cps_fc2};
   using T = __nv_bfloat16;
-  return step_sm90(pk, static_cast<const T*>(x0), static_cast<const float*>(sbias),
-                   static_cast<const float*>(cbias), static_cast<const T*>(self_k),
-                   static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
-                   static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
-                   static_cast<T*>(v_new), static_cast<T*>(scratch), static_cast<float*>(part),
-                   static_cast<int*>(counters), static_cast<float*>(stats), L, B, Kb, H, S, Tmax,
-                   f, idx, scaling, n_tile, cps, pdl, static_cast<cudaStream_t>(stream));
+  return mk::with_head_dim(head_dim, [&](auto d) {
+    return step_sm90<decltype(d)::value>(
+        pk, static_cast<const T*>(x0), static_cast<const float*>(sbias),
+        static_cast<const float*>(cbias), static_cast<const T*>(self_k),
+        static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
+        static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
+        static_cast<T*>(v_new), static_cast<T*>(scratch), static_cast<float*>(part),
+        static_cast<int*>(counters), static_cast<float*>(stats), L, B, Kb, H, S, Tmax, f, idx,
+        scaling, n_tile, cps, pdl, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -43,9 +43,10 @@
 // 14.8 G (320-deep), against ~50 MB of streams, the 23 MB rel and a 46 MB
 // fp32 drel read-modify-write per batch row: ~0.4 GB in all, so the fp32
 // call is bound by the CUDA cores' fp32 FMA rate (~67 TFLOP/s).
-// Each thread owns a 4x4 tile of P/dW and a 4x8 (or 4x4) tile of its
-// gradient accumulators; shared row strides are padded by one word against
-// bank conflicts.
+// Each thread owns a 4x4 tile of P/dW and a 4 x (2 D / 16) (or 4 x D / 16)
+// tile of its gradient accumulators; shared row strides are padded by one
+// word against bank conflicts. The head dim D is a template parameter,
+// compiled at 64 and 80, on either core.
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd.cuh"
 
@@ -53,30 +54,34 @@ namespace {
 
 using mk::to_f;
 
-constexpr int D = mk::flash_fwd::D;
-constexpr int D2 = mk::flash_fwd::D2;
 constexpr int BQ = mk::flash_fwd::BQ;  // query rows per tile
 constexpr int BK = mk::flash_fwd::BK;  // keys per tile
 constexpr int NT = mk::flash_fwd::NT;  // 16 x 16 threads
-constexpr int QS = D2 + 1;
-constexpr int VS = D + 1;
 constexpr int PS = BK + 1;
 constexpr float NEG = mk::flash_fwd::NEG;
 
-constexpr int KV_SMEM_FLOATS = BK * QS + BK * VS + BQ * QS + BQ * VS + 2 * BQ * PS + 2 * BQ;
-constexpr int Q_SMEM_FLOATS = BQ * QS + BQ * VS + BK * QS + BK * VS + BQ * PS + 2 * BQ;
+// The fp32 kernels' shared-memory layout at head dim D.
+template <int D>
+struct Bwd {
+  static constexpr int D2 = 2 * D, QS = D2 + 1, VS = D + 1;
+  static constexpr int KV_SMEM_FLOATS =
+      BK * QS + BK * VS + BQ * QS + BQ * VS + 2 * BQ * PS + 2 * BQ;
+  static constexpr int Q_SMEM_FLOATS = BQ * QS + BQ * VS + BK * QS + BK * VS + BQ * PS + 2 * BQ;
+};
 
 // delta[row] = sum_d dO[row, d] * O[row, d] in fp32; one warp per row.
-template <typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(256) dsum_kernel(const T* __restrict__ o,
                                                    const T* __restrict__ dout,
                                                    float* __restrict__ delta, long long rows) {
+  static_assert(D >= 64 && D <= 96, "two columns a lane, a third on lanes < D - 64");
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // a whole warp leaves together
   const T* op = o + row * D;
   const T* gp = dout + row * D;
   float s = to_f(gp[lane]) * to_f(op[lane]) + to_f(gp[lane + 32]) * to_f(op[lane + 32]);
+  if (D > 64 && lane < D - 64) s += to_f(gp[lane + 64]) * to_f(op[lane + 64]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
@@ -84,8 +89,9 @@ __global__ void __launch_bounds__(256) dsum_kernel(const T* __restrict__ o,
 
 // Rows [r0, r0 + 64) of a [rows, D] stream pair (x | y) into a shared
 // [64][QS] tile, zeros past `rows`.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void load_pair(float* dst, const T* x, const T* y, int r0, int rows) {
+  constexpr int QS = Bwd<D>::QS;
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, c = i % D, t = r0 + r;
     float a = 0.f, p = 0.f;
@@ -99,8 +105,9 @@ __device__ __forceinline__ void load_pair(float* dst, const T* x, const T* y, in
 }
 
 // Rows [r0, r0 + 64) of a [rows, D] stream into a shared [64][VS] tile.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void load_one(float* dst, const T* x, int r0, int rows) {
+  constexpr int VS = Bwd<D>::VS;
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, c = i % D, t = r0 + r;
     dst[r * VS + c] = t < rows ? to_f(x[(long long)t * D + c]) : 0.f;
@@ -110,11 +117,12 @@ __device__ __forceinline__ void load_one(float* dst, const T* x, int r0, int row
 // For the thread's 4x4 entries (query row q0 + ty + 16i, key k0 + tx + 16j)
 // of one (q tile, key tile) pair: P = exp(w - lse) and dW = P (dP - delta),
 // with P = 0 past the ends of the query rows and the keys.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void probs_and_dw(
     const float* qs, const float* ks, const float* dos, const float* vs, const float* lse_s,
     const float* dl_s, const T* relh, long long rel_rs, const uint8_t* kp, int q0, int k0,
     int Tq, int S, int causal, float p[4][4], float dw[4][4]) {
+  constexpr int D2 = Bwd<D>::D2, QS = Bwd<D>::QS, VS = Bwd<D>::VS;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float sc[4][4], dp[4][4];
 #pragma unroll
@@ -166,13 +174,14 @@ __device__ __forceinline__ void probs_and_dw(
 }
 
 // dk, dpos_k, dv for one (b, h, 64-key tile).
-template <typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
     const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
     const uint8_t* __restrict__ kpad, const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dpk,
     T* __restrict__ dv, int H, int Tq, int S, long long rel_hs, long long rel_rs, int causal) {
+  constexpr int QS = Bwd<D>::QS, VS = Bwd<D>::VS, NC = D / 16;  // NC: columns a thread owns
   extern __shared__ float smem[];
   float* ks = smem;             // [BK][QS]  k | pos_k of this block's keys
   float* vs = ks + BK * QS;     // [BK][VS]
@@ -188,22 +197,22 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
   const long long bh = (long long)b * H + h;
   const T* relh = rel ? rel + h * rel_hs : nullptr;
   const uint8_t* kp = kpad + (long long)b * S;
-  load_pair(ks, k + bh * S * D, pk + bh * S * D, k0, S);
-  load_one(vs, v + bh * S * D, k0, S);
+  load_pair<D>(ks, k + bh * S * D, pk + bh * S * D, k0, S);
+  load_one<D>(vs, v + bh * S * D, k0, S);
 
-  float adk[4][8], adv[4][4];  // key rows ty + 16i; columns tx + 16c
+  float adk[4][2 * NC], adv[4][NC];  // key rows ty + 16i; columns tx + 16c
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) adk[i][c] = 0.f;
+    for (int c = 0; c < 2 * NC; ++c) adk[i][c] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) adv[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) adv[i][c] = 0.f;
   }
 
   for (int q0 = 0; q0 < Tq; q0 += BQ) {
     __syncthreads();  // the previous q tile's shared reads are done
-    load_pair(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
-    load_one(dos, dout + bh * Tq * D, q0, Tq);
+    load_pair<D>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
+    load_one<D>(dos, dout + bh * Tq * D, q0, Tq);
     for (int i = threadIdx.x; i < BQ; i += NT) {
       const int t = q0 + i;
       lse_s[i] = t < Tq ? lse[bh * Tq + t] : 0.f;
@@ -212,7 +221,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     __syncthreads();
 
     float p[4][4], dw[4][4];
-    probs_and_dw(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p, dw);
+    probs_and_dw<D>(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p, dw);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -225,22 +234,22 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     // dv[key] += sum_r P[r][key] dO[r];  [dk|dpos_k][key] += sum_r dW[r][key] [q|pos_q][r]
 #pragma unroll 2
     for (int r = 0; r < BQ; ++r) {
-      float pa[4], wa[4], g[4], x[8];
+      float pa[4], wa[4], g[NC], x[2 * NC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         pa[i] = ps[r * PS + ty + 16 * i];
         wa[i] = ws[r * PS + ty + 16 * i];
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) g[c] = dos[r * VS + tx + 16 * c];
+      for (int c = 0; c < NC; ++c) g[c] = dos[r * VS + tx + 16 * c];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) x[c] = qs[r * QS + tx + 16 * c];
+      for (int c = 0; c < 2 * NC; ++c) x[c] = qs[r * QS + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) adv[i][c] = fmaf(pa[i], g[c], adv[i][c]);
+        for (int c = 0; c < NC; ++c) adv[i][c] = fmaf(pa[i], g[c], adv[i][c]);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) adk[i][c] = fmaf(wa[i], x[c], adk[i][c]);
+        for (int c = 0; c < 2 * NC; ++c) adk[i][c] = fmaf(wa[i], x[c], adk[i][c]);
       }
     }
   }
@@ -251,9 +260,9 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     if (s >= S) continue;
     const long long row = (bh * S + s) * D;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < NC; ++c) {
       dk[row + tx + 16 * c] = mk::from_f<T>(adk[i][c]);
-      dpk[row + tx + 16 * c] = mk::from_f<T>(adk[i][c + 4]);
+      dpk[row + tx + 16 * c] = mk::from_f<T>(adk[i][c + NC]);
       dv[row + tx + 16 * c] = mk::from_f<T>(adv[i][c]);
     }
   }
@@ -261,7 +270,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
 
 // dq, dpos_q (and the drel tile) for one (h, 64-row q tile) over batch rows
 // [b0, b1): all of them when drel is wanted, else blockIdx.z alone.
-template <typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(NT) bwd_q_kernel(
     const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
     const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
@@ -269,6 +278,7 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
     const float* __restrict__ delta, T* __restrict__ dq, T* __restrict__ dpq,
     float* __restrict__ drel, int B, int H, int Tq, int S, long long rel_hs, long long rel_rs,
     int causal) {
+  constexpr int QS = Bwd<D>::QS, VS = Bwd<D>::VS, NC = D / 16;  // NC: columns a thread owns
   extern __shared__ float smem[];
   float* qs = smem;             // [BQ][QS]  q | pos_q of this block's rows
   float* dos = qs + BQ * QS;    // [BQ][VS]
@@ -287,28 +297,28 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
     const long long bh = (long long)b * H + h;
     const uint8_t* kp = kpad + (long long)b * S;
     __syncthreads();  // the previous batch row's shared reads are done
-    load_pair(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
-    load_one(dos, dout + bh * Tq * D, q0, Tq);
+    load_pair<D>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
+    load_one<D>(dos, dout + bh * Tq * D, q0, Tq);
     for (int i = threadIdx.x; i < BQ; i += NT) {
       const int t = q0 + i;
       lse_s[i] = t < Tq ? lse[bh * Tq + t] : 0.f;
       dl_s[i] = t < Tq ? delta[bh * Tq + t] : 0.f;
     }
 
-    float adq[4][8];  // query rows ty + 16i; [dq|dpos_q] columns tx + 16c
+    float adq[4][2 * NC];  // query rows ty + 16i; [dq|dpos_q] columns tx + 16c
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) adq[i][c] = 0.f;
+      for (int c = 0; c < 2 * NC; ++c) adq[i][c] = 0.f;
 
     for (int k0 = 0; k0 < S; k0 += BK) {
       __syncthreads();  // the previous key tile's shared reads are done
-      load_pair(ks, k + bh * S * D, pk + bh * S * D, k0, S);
-      load_one(vs, v + bh * S * D, k0, S);
+      load_pair<D>(ks, k + bh * S * D, pk + bh * S * D, k0, S);
+      load_one<D>(vs, v + bh * S * D, k0, S);
       __syncthreads();
 
       float p[4][4], dw[4][4];
-      probs_and_dw(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p,
+      probs_and_dw<D>(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p,
                    dw);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -325,15 +335,15 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
 
 #pragma unroll 2
       for (int j = 0; j < BK; ++j) {
-        float wa[4], x[8];
+        float wa[4], x[2 * NC];
 #pragma unroll
         for (int i = 0; i < 4; ++i) wa[i] = ws[(ty + 16 * i) * PS + j];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) x[c] = ks[j * QS + tx + 16 * c];
+        for (int c = 0; c < 2 * NC; ++c) x[c] = ks[j * QS + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int c = 0; c < 8; ++c) adq[i][c] = fmaf(wa[i], x[c], adq[i][c]);
+          for (int c = 0; c < 2 * NC; ++c) adq[i][c] = fmaf(wa[i], x[c], adq[i][c]);
       }
     }
 
@@ -343,37 +353,37 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
       if (t >= Tq) continue;
       const long long row = (bh * Tq + t) * D;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < NC; ++c) {
         dq[row + tx + 16 * c] = mk::from_f<T>(adq[i][c]);
-        dpq[row + tx + 16 * c] = mk::from_f<T>(adq[i][c + 4]);
+        dpq[row + tx + 16 * c] = mk::from_f<T>(adq[i][c + NC]);
       }
     }
   }
 }
 
 // The dsum pre-pass of either core.
-template <typename T>
+template <int D, typename T>
 int launch_dsum(const void* o, const void* dout, float* delta, int B, int H, int Tq,
                 cudaStream_t stream) {
   const long long rows = (long long)B * H * Tq;
-  dsum_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+  dsum_kernel<D, T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
   return (int)cudaGetLastError();
 }
 
 // The fp32 launches: dsum, key-major, query-major.
-template <typename T>
+template <int D, typename T>
 int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, const void* v,
                const void* rel, const void* kpad, const void* o, const void* dout,
                const float* lse, float* delta, void* dq, void* dpq, void* dk, void* dpk,
                void* dv, float* drel, int B, int H, int Tq, int S, long long rel_hs,
                long long rel_rs, int causal, cudaStream_t stream) {
-  const size_t kv_smem = KV_SMEM_FLOATS * sizeof(float);
-  const size_t q_smem = Q_SMEM_FLOATS * sizeof(float);
+  const size_t kv_smem = Bwd<D>::KV_SMEM_FLOATS * sizeof(float);
+  const size_t q_smem = Bwd<D>::Q_SMEM_FLOATS * sizeof(float);
   static mk::SmemOptIn kv_opt_in, q_opt_in;
-  if (const int err = kv_opt_in.ensure((const void*)bwd_kv_kernel<T>, kv_smem)) return err;
-  if (const int err = q_opt_in.ensure((const void*)bwd_q_kernel<T>, q_smem)) return err;
-  if (const int err = launch_dsum<T>(o, dout, delta, B, H, Tq, stream)) return err;
+  if (const int err = kv_opt_in.ensure((const void*)bwd_kv_kernel<D, T>, kv_smem)) return err;
+  if (const int err = q_opt_in.ensure((const void*)bwd_q_kernel<D, T>, q_smem)) return err;
+  if (const int err = launch_dsum<D, T>(o, dout, delta, B, H, Tq, stream)) return err;
 
   const T* qt = static_cast<const T*>(q);
   const T* pqt = static_cast<const T*>(pq);
@@ -383,13 +393,13 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
   const T* relt = static_cast<const T*>(rel);
   const T* dot = static_cast<const T*>(dout);
   const uint8_t* kp = static_cast<const uint8_t*>(kpad);
-  bwd_kv_kernel<T><<<dim3((S + BK - 1) / BK, H, B), NT, kv_smem, stream>>>(
+  bwd_kv_kernel<D, T><<<dim3((S + BK - 1) / BK, H, B), NT, kv_smem, stream>>>(
       qt, pqt, kt, pkt, vt, relt, kp, dot, lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dpk), static_cast<T*>(dv), H, Tq, S, rel_hs, rel_rs, causal);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  bwd_q_kernel<T><<<dim3((Tq + BQ - 1) / BQ, H, drel ? 1 : B), NT, q_smem, stream>>>(
+  bwd_q_kernel<D, T><<<dim3((Tq + BQ - 1) / BQ, H, drel ? 1 : B), NT, q_smem, stream>>>(
       qt, pqt, kt, pkt, vt, relt, kp, dot, lse, delta, static_cast<T*>(dq),
       static_cast<T*>(dpq), drel, B, H, Tq, S, rel_hs, rel_rs, causal);
   return (int)cudaGetLastError();
@@ -398,29 +408,33 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
 }  // namespace
 
 // K3. bf16 != 0 selects __nv_bfloat16 streams, else float. rel may be null
-// (cross attention); kpad is bool [B, S]; lse is fp32 [B, H, Tq].
+// (cross attention); kpad is bool [B, S]; lse is fp32 [B, H, Tq]; head_dim
+// is 64 or 80.
 extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q,
                                       const void* k, const void* pos_k, const void* v,
                                       const void* rel, const void* kpad, void* out, void* lse,
                                       int B, int H, int Tq, int S, long long rel_head_stride,
                                       long long rel_row_stride, int causal, int skip_max,
-                                      void* stream) {
+                                      int head_dim, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
-  if (bf16)
-    return mk::sm90::launch<false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B,
-                                                  H, Tq, S, S, rel_head_stride, rel_row_stride,
-                                                  causal, skip_max, st);
-  return mk::flash_fwd::launch<float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B, H, Tq,
-                                            S, rel_head_stride, rel_row_stride, causal,
-                                            skip_max, st);
+  return mk::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (bf16)
+      return mk::sm90::launch<D, false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, l,
+                                                       B, H, Tq, S, S, rel_head_stride,
+                                                       rel_row_stride, causal, skip_max, st);
+    return mk::flash_fwd::launch<D, float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B, H,
+                                                 Tq, S, rel_head_stride, rel_row_stride, causal,
+                                                 skip_max, st);
+  });
 }
 
 // K4. Streams as K3's plus the forward output o, its cotangent dout and K3's
 // lse; delta is fp32 scratch [B, H, Tq]. drel receives sum_b dW in fp32, or
 // is null when rel needs no gradient: with fp32 streams a zeroed [H, Tq, S]
 // buffer; with bf16 streams [B, H, Tq, S] scratch for the batch rows' dW,
-// whose first [H, Tq, S] receives the sum.
+// whose first [H, Tq, S] receives the sum. head_dim is 64 or 80.
 extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q,
                                       const void* k, const void* pos_k, const void* v,
                                       const void* rel, const void* kpad, const void* o,
@@ -428,18 +442,21 @@ extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q
                                       void* dpos_q, void* dk, void* dpos_k, void* dv,
                                       void* drel, int B, int H, int Tq, int S,
                                       long long rel_head_stride, long long rel_row_stride,
-                                      int causal, void* stream) {
+                                      int causal, int head_dim, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   auto dl = static_cast<float*>(delta);
   auto dr = static_cast<float*>(drel);
-  if (bf16) {
-    if (const int err = launch_dsum<__nv_bfloat16>(o, dout, dl, B, H, Tq, st)) return err;
-    return mk::sm90::launch_bwd(q, pos_q, k, pos_k, v, rel, kpad, dout, l, dl, dq, dpos_q, dk,
+  return mk::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (bf16) {
+      if (const int err = launch_dsum<D, __nv_bfloat16>(o, dout, dl, B, H, Tq, st)) return err;
+      return mk::sm90::launch_bwd<D>(q, pos_q, k, pos_k, v, rel, kpad, dout, l, dl, dq, dpos_q,
+                                     dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
+                                     rel_row_stride, causal, st);
+    }
+    return launch_bwd<D, float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q, dk,
                                 dpos_k, dv, dr, B, H, Tq, S, rel_head_stride, rel_row_stride,
                                 causal, st);
-  }
-  return launch_bwd<float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q, dk,
-                           dpos_k, dv, dr, B, H, Tq, S, rel_head_stride, rel_row_stride,
-                           causal, st);
+  });
 }

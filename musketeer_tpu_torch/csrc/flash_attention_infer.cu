@@ -10,19 +10,23 @@
 #include "flash_fwd_sm90.cuh"
 
 // bf16 != 0 selects __nv_bfloat16 streams, else float. rel may be null
-// (cross attention); kpad is bool [B, S]. Returns cudaGetLastError().
+// (cross attention); kpad is bool [B, S]; head_dim is 64 or 80. Returns
+// cudaGetLastError().
 extern "C" int mk_flash_attention_infer(int bf16, const void* q, const void* pos_q,
                                         const void* k, const void* pos_k, const void* v,
                                         const void* rel, const void* kpad, void* out, int B,
                                         int H, int Tq, int S, long long rel_head_stride,
                                         long long rel_row_stride, int causal, int skip_max,
-                                        void* stream) {
+                                        int head_dim, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return mk::sm90::launch<false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out,
-                                                  nullptr, B, H, Tq, S, S, rel_head_stride,
+  return mk::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (bf16)
+      return mk::sm90::launch<D, false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out,
+                                                       nullptr, B, H, Tq, S, S, rel_head_stride,
+                                                       rel_row_stride, causal, skip_max, st);
+    return mk::flash_fwd::launch<D, float, false>(q, pos_q, k, pos_k, v, rel, kpad, out,
+                                                  nullptr, B, H, Tq, S, rel_head_stride,
                                                   rel_row_stride, causal, skip_max, st);
-  return mk::flash_fwd::launch<float, false>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B,
-                                             H, Tq, S, rel_head_stride, rel_row_stride, causal,
-                                             skip_max, st);
+  });
 }

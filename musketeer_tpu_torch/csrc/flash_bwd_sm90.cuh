@@ -32,9 +32,13 @@
 //     sit in the accumulator layout, which packed to bf16 pairs is the A
 //     fragment layout: dv += P^T.dO, dk += dW^T.q and dpos_k += dW^T.pos_q
 //     (12 k-steps, B read MN-major from the stage as K1 reads v).
-//     Registers: the three 64x64 fp32 accumulators are 96 a thread and S^T
-//     and dP^T 64 more while P and dW form; those 64 then pack into the 32
-//     registers of the two A operands.
+//     Registers: at D 64 the three 64x64 fp32 accumulators are 96 a thread
+//     and S^T and dP^T 64 more while P and dW form; those 64 then pack into
+//     the 32 registers of the two A operands. At D 80 the three 64x80
+//     accumulators would be 120 a thread, past what 255 registers hold
+//     beside the rest, so the key-major work is two launches of the same
+//     kernel, each rebuilding P and dW: dv and dk (80 registers of
+//     accumulators), then dpos_k (40).
 //     rel is read transposed here: each accumulator pair spans two query rows
 //     of rel[h]. Loaded directly in the accumulator layout that is 32
 //     two-byte loads a thread a tile, each warp load touching 4 rows; instead
@@ -62,13 +66,21 @@
 // as in the TPU kernel and the FMA kernels; causally masked tiles are not
 // skipped for the same reason.
 //
+// The head dim D is a template parameter, compiled at 64 and 80 (its
+// tiles as flash_fwd_sm90.cuh lays them out: at 80 two boxes a tile, the
+// products over the second box m64n64k16 / m64n16k16 with the 32-byte
+// swizzle's descriptors).
+//
 // Bound. At the encoder train shape (B4 H12 T=S=980 D64) the function is 8
 // [T, S] x 64 products (the two score products, dP, dv, dq, dk, dpos_q,
 // dpos_k), 47.2 GFLOP against ~0.1 GB of streams and drel: 0.0477 ms at 989
-// TFLOP/s bf16, set by the operations; these launches do 11 such products.
-// ptxas (CUDA 12.8): 212 registers (key-major), 219 (query-major), no
-// spills, so one CTA of 160 threads per SM; chip_smoke.py's build phase
-// prints the report of each build.
+// TFLOP/s bf16, set by the operations; these launches do 11 such products
+// (14 at D 80, where the key-major launch is two).
+// At ofa_huge's train shape (B4 H16 T=S=980 D80) 8 products are 78.7 GFLOP:
+// 0.080 ms. ptxas (CUDA 12.8): at D64 212 registers (key-major), 219
+// (query-major); at D80 200 (key-major, dv and dk), 156 (key-major,
+// dpos_k), 229 (query-major); no spills, so one CTA of 160 threads per SM;
+// chip_smoke.py's build phase prints the report of each build.
 #pragma once
 
 #include "flash_fwd_sm90.cuh"
@@ -76,14 +88,22 @@
 namespace mk {
 namespace sm90 {
 
-constexpr uint32_t OFF_RING = 3 * TILE;              // after the 3 resident tiles
 constexpr uint32_t ROWS = 2 * BQ * sizeof(float);    // a stage's lse and dsum (key-major)
-constexpr uint32_t OFF_ROWS = OFF_RING + STAGES * STAGE;
 constexpr int REL_STRIDE = BK + 8;                   // bf16 row stride of a staged rel tile
 constexpr uint32_t REL_TILE = BQ * REL_STRIDE * 2;   // bytes; two, one per tile parity
-constexpr uint32_t OFF_REL = OFF_ROWS + STAGES * ROWS;
-constexpr uint32_t OFF_BAR_BWD = OFF_REL + 2 * REL_TILE;
-constexpr size_t SMEM_BWD = OFF_BAR_BWD + 8 * (2 * STAGES + 1) + 1024;
+
+template <int D>
+struct BwdLayout {
+  static constexpr uint32_t TILE = Layout<D>::TILE, STAGE = Layout<D>::STAGE;
+  static constexpr uint32_t OFF_RING = 3 * TILE;  // after the 3 resident tiles
+  static constexpr uint32_t OFF_ROWS = OFF_RING + STAGES * STAGE;
+  static constexpr uint32_t OFF_REL = OFF_ROWS + STAGES * ROWS;
+  static constexpr uint32_t OFF_BAR = OFF_REL + 2 * REL_TILE;
+  static constexpr size_t SMEM = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
+};
+
+// which gradients a key-major launch writes
+enum KvOut { KV_ALL = 0, KV_DV_DK = 1, KV_DPK = 2 };
 
 // a barrier among the consumer warpgroup alone (id 0 is __syncthreads')
 __device__ __forceinline__ void consumer_sync() {
@@ -118,58 +138,67 @@ __device__ __forceinline__ void stage_rel(__nv_bfloat16* buf, const __nv_bfloat1
 }
 
 // sc = [a|pos_a].[b|pos_b]^T and dp = c.d^T, with a, pos_a, c the resident
-// tiles at sa and b, pos_b, d the stage at sb: twelve wgmma k-steps into two
-// fp32 accumulators, issued and committed, not waited.
+// tiles at sa and b, pos_b, d the stage at sb: 3 D / 16 wgmma k-steps into
+// two fp32 accumulators, issued and committed, not waited.
+template <int D>
 __device__ __forceinline__ void issue_s_dp(float (&sc)[32], float (&dp)[32], uint32_t sa,
                                            uint32_t sb) {
-  issue_scores(sc, sa, sb);
+  constexpr uint32_t TILE = Layout<D>::TILE;
+  issue_scores<D>(sc, sa, sb);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_ss(dp, sw128_desc(sa + 2 * TILE + 32 * kk), sw128_desc(sb + 2 * TILE + 32 * kk), kk);
+  if constexpr (D > 64)
+    wgmma_ss(dp, sw32_desc(sa + 2 * TILE + LO), sw32_desc(sb + 2 * TILE + LO), 1);
   wgmma_commit();
   fence_operand(dp);
 }
 
-__device__ __forceinline__ void zero(float (&a)[32]) {
+template <int R>
+__device__ __forceinline__ void zero(float (&a)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) a[i] = 0.f;
+  for (int i = 0; i < R; ++i) a[i] = 0.f;
 }
 
-// This thread's two rows (accumulator halves hh = 0, 1) of a 64 x 64 fp32
+// This thread's two rows (accumulator halves hh = 0, 1) of a 64 x D fp32
 // accumulator, rounded to bf16, at out + off[hh] (rows with off < 0 skipped).
-__device__ __forceinline__ void store_rows(const float (&acc)[32], __nv_bfloat16* out,
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], __nv_bfloat16* out,
                                            const long long (&off)[2], int cq) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (off[hh] < 0) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + off[hh] + 8 * j + cq) =
           __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
 }
 
-// dk, dpos_k and dv for one (b, h, 64-key tile).
+// dk, dpos_k and dv (kOut KV_ALL), dv and dk (KV_DV_DK) or dpos_k (KV_DPK)
+// for one (b, h, 64-key tile). maps: q, pos_q, dO, k, pos_k, v.
+template <int D, int kOut>
 __global__ void __launch_bounds__(NT, 1) bwd_kv(
-    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_pq,
-    const __grid_constant__ CUtensorMap map_do, const __grid_constant__ CUtensorMap map_k,
-    const __grid_constant__ CUtensorMap map_pk, const __grid_constant__ CUtensorMap map_v,
-    const __nv_bfloat16* __restrict__ rel, const uint8_t* __restrict__ kpad,
+    const __grid_constant__ Maps<D, 6> maps, const __nv_bfloat16* __restrict__ rel,
+    const uint8_t* __restrict__ kpad,
     const float* __restrict__ lse, const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dpk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal) {
+  using Lay = BwdLayout<D>;
+  constexpr uint32_t TILE = Lay::TILE;
+  constexpr bool kDv = kOut != KV_DPK, kDk = kOut != KV_DPK, kDpk = kOut != KV_DV_DK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // k, pos_k, v
   uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));  // the same, generic
-  float* const rows_base = reinterpret_cast<float*>(smem + OFF_ROWS);
-  __nv_bfloat16* const rel_base = reinterpret_cast<__nv_bfloat16*>(smem + OFF_REL);
-  const uint32_t bars = base + OFF_BAR_BWD;
+  float* const rows_base = reinterpret_cast<float*>(smem + Lay::OFF_ROWS);
+  __nv_bfloat16* const rel_base = reinterpret_cast<__nv_bfloat16*>(smem + Lay::OFF_REL);
+  const uint32_t bars = base + Lay::OFF_BAR;
   const uint32_t res_full = bars + 16 * STAGES;
   auto full = [=](int st) { return bars + 8u * st; };
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
-  auto stage = [=](int st) { return base + OFF_RING + STAGE * st; };  // q, pos_q, dO
-  auto rows = [=](int st) { return rows_base + 2 * BQ * st; };        // lse[64], dsum[64]
+  auto stage = [=](int st) { return base + Lay::OFF_RING + Lay::STAGE * st; };  // q, pos_q, dO
+  auto rows = [=](int st) { return rows_base + 2 * BQ * st; };  // lse[64], dsum[64]
 
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
@@ -189,18 +218,18 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_expect_tx(res_full, 3 * TILE);
-      tma_load(base, &map_k, res_full, k0, bh);
-      tma_load(base + TILE, &map_pk, res_full, k0, bh);
-      tma_load(base + 2 * TILE, &map_v, res_full, k0, bh);
+      load_tile(base, maps, 3, res_full, k0, bh);
+      load_tile(base + TILE, maps, 4, res_full, k0, bh);
+      load_tile(base + 2 * TILE, maps, 5, res_full, k0, bh);
     }
     for (int it = 0; it < n; ++it) {
       const int st = it % STAGES, q0 = it * BQ;
       if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
       if (lane == 0) {
         mbar_expect_tx(full(st), 3 * TILE);
-        tma_load(stage(st), &map_q, full(st), q0, bh);
-        tma_load(stage(st) + TILE, &map_pq, full(st), q0, bh);
-        tma_load(stage(st) + 2 * TILE, &map_do, full(st), q0, bh);
+        load_tile(stage(st), maps, 0, full(st), q0, bh);
+        load_tile(stage(st) + TILE, maps, 1, full(st), q0, bh);
+        load_tile(stage(st) + 2 * TILE, maps, 2, full(st), q0, bh);
       }
       float* r = rows(st);
       for (int i = lane; i < BQ; i += 32) {
@@ -226,16 +255,16 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     key_pad[hh] = key_ok[hh] && kpad[(long long)b * S + s_of[hh]];
   }
 
-  float adv[32], adk[32], adpk[32], sc[32], dp[32];
+  float adv[D / 2], adk[D / 2], adpk[D / 2], sc[32], dp[32];
   uint32_t pa[16], wa[16];
-  zero(adv);
-  zero(adk);
-  zero(adpk);
+  if constexpr (kDv) zero(adv);
+  if constexpr (kDk) zero(adk);
+  if constexpr (kDpk) zero(adpk);
   mbar_wait(res_full, 0);
   for (int it = 0; it < n; ++it) {
     const int st = it % STAGES, q0 = it * BQ;
     mbar_wait(full(st), (it / STAGES) & 1);
-    issue_s_dp(sc, dp, base, stage(st));
+    issue_s_dp<D>(sc, dp, base, stage(st));
     // rel's tile while the products run, staged in its own layout and read
     // transposed below (each accumulator pair spans two query rows)
     __nv_bfloat16* rt = nullptr;
@@ -268,42 +297,44 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
           dp[i] = p * (dp[i] - (e ? ds.y : ds.x));
         }
     }
-    to_a_fragments(sc, pa);
+    if constexpr (kDv) to_a_fragments(sc, pa);
     to_a_fragments(dp, wa);
-    issue_pv(adv, pa, stage(st) + 2 * TILE);  // dv     += P^T . dO
-    issue_pv(adk, wa, stage(st));             // dk     += dW^T . q
-    issue_pv(adpk, wa, stage(st) + TILE);     // dpos_k += dW^T . pos_q
+    if constexpr (kDv) issue_pv<D>(adv, pa, stage(st) + 2 * TILE);  // dv     += P^T . dO
+    if constexpr (kDk) issue_pv<D>(adk, wa, stage(st));             // dk     += dW^T . q
+    if constexpr (kDpk) issue_pv<D>(adpk, wa, stage(st) + TILE);    // dpos_k += dW^T . pos_q
     wgmma_wait();
-    fence_operand(adv);
-    fence_operand(adk);
-    fence_operand(adpk);
+    if constexpr (kDv) fence_regs(adv);
+    if constexpr (kDk) fence_regs(adk);
+    if constexpr (kDpk) fence_regs(adpk);
     mbar_arrive(empty(st));  // the products have read the stage
   }
 
   long long off[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) off[hh] = key_ok[hh] ? ((long long)bh * S + s_of[hh]) * D : -1;
-  store_rows(adk, dk, off, cq);
-  store_rows(adpk, dpk, off, cq);
-  store_rows(adv, dv, off, cq);
+  if constexpr (kDk) store_rows<D>(adk, dk, off, cq);
+  if constexpr (kDpk) store_rows<D>(adpk, dpk, off, cq);
+  if constexpr (kDv) store_rows<D>(adv, dv, off, cq);
 }
 
-// dq, dpos_q and this batch row's dW (drel's partial) for one (b, h, 64-row q tile).
+// dq, dpos_q and this batch row's dW (drel's partial) for one (b, h, 64-row
+// q tile). maps: q, pos_q, dO, k, pos_k, v.
+template <int D>
 __global__ void __launch_bounds__(NT, 1) bwd_q(
-    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_pq,
-    const __grid_constant__ CUtensorMap map_do, const __grid_constant__ CUtensorMap map_k,
-    const __grid_constant__ CUtensorMap map_pk, const __grid_constant__ CUtensorMap map_v,
-    const __nv_bfloat16* __restrict__ rel, const uint8_t* __restrict__ kpad,
+    const __grid_constant__ Maps<D, 6> maps, const __nv_bfloat16* __restrict__ rel,
+    const uint8_t* __restrict__ kpad,
     const float* __restrict__ lse, const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq,
     __nv_bfloat16* __restrict__ dpq, float* __restrict__ drel_part, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal) {
+  using Lay = BwdLayout<D>;
+  constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // q, pos_q, dO
-  const uint32_t bars = base + OFF_BAR_BWD;
+  const uint32_t bars = base + Lay::OFF_BAR;
   const uint32_t res_full = bars + 16 * STAGES;
   auto full = [=](int st) { return bars + 8u * st; };
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
-  auto stage = [=](int st) { return base + OFF_RING + STAGE * st; };  // k, pos_k, v
+  auto stage = [=](int st) { return base + Lay::OFF_RING + Lay::STAGE * st; };  // k, pos_k, v
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
@@ -322,16 +353,16 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
   if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
     if (threadIdx.x == NC) {
       mbar_expect_tx(res_full, 3 * TILE);
-      tma_load(base, &map_q, res_full, q0, bh);
-      tma_load(base + TILE, &map_pq, res_full, q0, bh);
-      tma_load(base + 2 * TILE, &map_do, res_full, q0, bh);
+      load_tile(base, maps, 0, res_full, q0, bh);
+      load_tile(base + TILE, maps, 1, res_full, q0, bh);
+      load_tile(base + 2 * TILE, maps, 2, res_full, q0, bh);
       for (int it = 0; it < n; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
         mbar_expect_tx(full(st), 3 * TILE);
-        tma_load(stage(st), &map_k, full(st), it * BK, bh);
-        tma_load(stage(st) + TILE, &map_pk, full(st), it * BK, bh);
-        tma_load(stage(st) + 2 * TILE, &map_v, full(st), it * BK, bh);
+        load_tile(stage(st), maps, 3, full(st), it * BK, bh);
+        load_tile(stage(st) + TILE, maps, 4, full(st), it * BK, bh);
+        load_tile(stage(st) + 2 * TILE, maps, 5, full(st), it * BK, bh);
       }
     }
     return;  // no block-wide barrier follows
@@ -354,7 +385,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
   }
 
-  float adq[32], adpq[32], sc[32], dp[32];
+  float adq[D / 2], adpq[D / 2], sc[32], dp[32];
   uint32_t wa[16];
   TileBias<__nv_bfloat16> bias;
   zero(adq);
@@ -363,7 +394,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
   for (int it = 0; it < n; ++it) {
     const int st = it % STAGES, k0 = it * BK, lim = S - k0;
     mbar_wait(full(st), (it / STAGES) & 1);
-    issue_s_dp(sc, dp, base, stage(st));
+    issue_s_dp<D>(sc, dp, base, stage(st));
     load_bias(bias, relh, rel_rs, rel_vec != 0, kp, k0, S, t0, Tq, lane, cq);  // while they run
     wgmma_wait();
     fence_operand(sc);
@@ -397,11 +428,11 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
       }
     }
     to_a_fragments(dp, wa);
-    issue_pv(adq, wa, stage(st));          // dq     += dW . k
-    issue_pv(adpq, wa, stage(st) + TILE);  // dpos_q += dW . pos_k
+    issue_pv<D>(adq, wa, stage(st));          // dq     += dW . k
+    issue_pv<D>(adpq, wa, stage(st) + TILE);  // dpos_q += dW . pos_k
     wgmma_wait();
-    fence_operand(adq);
-    fence_operand(adpq);
+    fence_regs(adq);
+    fence_regs(adpq);
     mbar_arrive(empty(st));  // the products have read the stage
   }
 
@@ -411,8 +442,8 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     const int t = t0 + 8 * hh;
     off[hh] = t < Tq ? ((long long)bh * Tq + t) * D : -1;
   }
-  store_rows(adq, dq, off, cq);
-  store_rows(adpq, dpq, off, cq);
+  store_rows<D>(adq, dq, off, cq);
+  store_rows<D>(adpq, dpq, off, cq);
 }
 
 // drel = the sum over the batch, in order, of the B partials [B, n], into
@@ -443,37 +474,48 @@ __global__ void __launch_bounds__(256) drel_sum(float* __restrict__ part, long l
   }
 }
 
-// Launches the three on `stream` for bf16 streams [B, H, Tq or S, 64] (16-byte
+// Launches the key-major launch (two at D 80), the query-major one and
+// drel's sum on `stream` for bf16 streams [B, H, Tq or S, D] (16-byte
 // aligned), bf16 rel (or null), K3's lse and the pre-pass's dsum (fp32
 // [B, H, Tq]); drel_part is fp32 [B, H, Tq, S] scratch whose first [H, Tq, S]
 // receives drel, or null. Returns a cudaError_t code.
-inline int launch_bwd(const void* q, const void* pq, const void* k, const void* pk,
-                      const void* v, const void* rel, const void* kpad, const void* dout,
-                      const float* lse, const float* dsum, void* dq, void* dpq, void* dk,
-                      void* dpk, void* dv, float* drel_part, int B, int H, int Tq, int S,
-                      long long rel_hs, long long rel_rs, int causal, cudaStream_t stream) {
-  const long long bh = (long long)B * H;
-  CUtensorMap maps[6];  // q, pos_q, dO (Tq rows), k, pos_k, v (S rows)
-  const void* ptrs[6] = {q, pq, dout, k, pk, v};
-  for (int i = 0; i < 6; ++i) {
-    const int err = stream_map(&maps[i], ptrs[i], i < 3 ? Tq : S, bh);
-    if (err) return err;
-  }
+template <int D>
+int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, const void* v,
+               const void* rel, const void* kpad, const void* dout, const float* lse,
+               const float* dsum, void* dq, void* dpq, void* dk, void* dpk, void* dv,
+               float* drel_part, int B, int H, int Tq, int S, long long rel_hs, long long rel_rs,
+               int causal, cudaStream_t stream) {
+  Maps<D, 6> maps;
+  if (const int err = stream_maps<D, 6>(maps, {q, pq, dout, k, pk, v}, {Tq, Tq, Tq, S, S, S},
+                                        (long long)B * H))
+    return err;
   const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % 4 == 0 && rel_rs % 2 == 0 &&
                       rel_hs % 2 == 0 && S % 2 == 0;
-  static SmemOptIn kv_opt_in, q_opt_in;
-  if (const int err = kv_opt_in.ensure((const void*)bwd_kv, SMEM_BWD)) return err;
-  if (const int err = q_opt_in.ensure((const void*)bwd_q, SMEM_BWD)) return err;
+  constexpr size_t smem = BwdLayout<D>::SMEM;
   const auto* relt = static_cast<const __nv_bfloat16*>(rel);
   const auto* kp = static_cast<const uint8_t*>(kpad);
-  bwd_kv<<<dim3((S + BK - 1) / BK, H, B), NT, SMEM_BWD, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], relt, kp, lse, dsum,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dpk),
-      static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs, rel_rs, rel_vec, causal);
-  cudaError_t err = cudaGetLastError();
+  auto kv = [&](auto out) -> cudaError_t {  // one key-major launch writing `out`
+    constexpr int kOut = decltype(out)::value;
+    static SmemOptIn opt_in;
+    if (const int e = opt_in.ensure((const void*)bwd_kv<D, kOut>, smem)) return (cudaError_t)e;
+    bwd_kv<D, kOut><<<dim3((S + BK - 1) / BK, H, B), NT, smem, stream>>>(
+        maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs,
+        rel_rs, rel_vec, causal);
+    return cudaGetLastError();
+  };
+  cudaError_t err;
+  if constexpr (D == 64) {
+    err = kv(std::integral_constant<int, KV_ALL>{});
+  } else {
+    err = kv(std::integral_constant<int, KV_DV_DK>{});
+    if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
+  }
   if (err != cudaSuccess) return (int)err;
-  bwd_q<<<dim3((Tq + BQ - 1) / BQ, H, B), NT, SMEM_BWD, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], relt, kp, lse, dsum,
+  static SmemOptIn q_opt_in;
+  if (const int e = q_opt_in.ensure((const void*)bwd_q<D>, smem)) return e;
+  bwd_q<D><<<dim3((Tq + BQ - 1) / BQ, H, B), NT, smem, stream>>>(
+      maps, relt, kp, lse, dsum,
       static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dpq), drel_part, H, Tq, S,
       rel_hs, rel_rs, rel_vec, causal);
   err = cudaGetLastError();

@@ -28,16 +28,24 @@
 //
 // Design. A CTA owns one (b, h, 64-row query tile), as the FMA core does (15
 // tiles x 192 heads = 2880 CTAs at the encoder shape), with one consumer
-// warpgroup (128 threads) and one producer warp.
+// warpgroup (128 threads) and one producer warp. The head dim D is a
+// template parameter, compiled at 64 (ofa_tiny to ofa_large) and 80
+// (ofa_huge); the host entry points dispatch on it (with_head_dim).
 //   - Operands. The producer loads the q and pos_q tiles once, then streams
-//     64-key tiles of k, pos_k and v (24 KB a stage; K5's first pass only k
-//     and pos_k) through a ring of STAGES stages, each by TMA into the
-//     128-byte swizzled layout wgmma reads, with one mbarrier for "full" and
-//     one for "empty" per stage, so the next tile's copies overlap this
-//     tile's products. The tensor maps are 3-D over [B*H, rows, 64]: rows
-//     past the end are zero-filled and no box reaches into the next head.
-//   - Scores: wgmma m64n64k16, four k-steps over q.k then four over
-//     pos_q.pos_k, into one fp32 accumulator of 32 registers a thread.
+//     64-key tiles of k, pos_k and v (24 KB a stage at D 64, 30 KB at D 80;
+//     K5's first pass only k and pos_k) through a ring of STAGES stages,
+//     each by TMA into the swizzled layout wgmma reads, with one mbarrier for
+//     "full" and one for "empty" per stage, so the next tile's copies overlap
+//     this tile's products. The tensor maps are 3-D over [B*H, rows, D]:
+//     rows past the end are zero-filled and no box reaches into the next
+//     head. A bf16 row of 64 is one 128-byte swizzle row. A row of 80 (160
+//     bytes) is wider than the 128-byte swizzle atom, so a tile is two boxes
+//     (sm90.cuh::head_maps): columns 0..63 under the 128-byte swizzle, then
+//     columns 64..79 (64 rows of 32 bytes, 2 KB) under the 32-byte swizzle,
+//     each with its own wgmma descriptor; nothing is padded.
+//   - Scores: wgmma m64n64k16, D / 16 k-steps over q.k (four on the first
+//     box, at D 80 one more on the second) then as many over pos_q.pos_k,
+//     into one fp32 accumulator of 32 registers a thread.
 //   - rel does not fit a tensor map (a bf16 row of 908 is 1816 bytes, not a
 //     multiple of 16), so each thread reads its own accumulator positions:
 //     two adjacent columns, one 4-byte (bf16) or 8-byte (fp32) load where the
@@ -49,7 +57,8 @@
 //   - P.v: wgmma m64n64k16 x 4 with A = the bf16 probabilities straight from
 //     registers (the fp32 m64n64 accumulator layout, packed in pairs, is the
 //     A-fragment layout) and B = v read MN-major from the stage (the
-//     transpose bit).
+//     transpose bit); at D 80 also m64n16k16 x 4 on the second box, so the
+//     output accumulator is D / 2 fp32 registers a thread (32 or 40).
 //   - K5 keeps its two passes in one CTA: repeating the score products costs
 //     little on tensor cores, where keeping a row block's fp32 scores in
 //     shared memory (64 x S x 4 bytes) would fit 227 KB only up to S ~ 880.
@@ -57,9 +66,11 @@
 // Bound. At the encoder shape (B16 H12 T=S=908 D64) the function is
 // ~60.8 GFLOP against ~150 MB: 0.0615 ms at 989 TFLOP/s bf16, set by the
 // operations; K3 at the encoder train shape (B4 H12 T=S=980) 0.0179 ms, set
-// by the operations too. ptxas (CUDA 12.8): 133 registers (K1), 139 (K5), 149 (K5, fp32
-// rel), no spills, so two CTAs fit an SM; chip_smoke.py's build phase prints
-// the report of each build.
+// by the operations too. At ofa_huge's (H16, D80) K1 is ~101 GFLOP, 0.102
+// ms, and K3 ~29.5 GFLOP, 0.030 ms. ptxas (CUDA 12.8): at D64 135 registers
+// (K1, K3), 139 (K5), 149 (K5, fp32 rel); at D80 141, 141, 157; no spills,
+// so two CTAs fit an SM (shared memory 91,192 bytes a CTA at D64, 113,720 at
+// D80); chip_smoke.py's build phase prints the report of each build.
 #pragma once
 
 #include <stdint.h>
@@ -70,19 +81,42 @@
 namespace mk {
 namespace sm90 {
 
-constexpr int D = 64;                  // head dim: one 128-byte bf16 row
-constexpr int BQ = 64;                 // query rows per CTA (one wgmma M)
-constexpr int BK = 64;                 // keys per tile
-constexpr int STAGES = 3;              // ring depth
-constexpr int NC = 128;                // consumer threads: one warpgroup
-constexpr int NT = NC + 32;            // + the producer warp
-constexpr uint32_t TILE = BK * D * 2;  // bytes of one 64 x 64 bf16 tile
-constexpr uint32_t OFF_KV = 2 * TILE;  // the ring, after q and pos_q
-constexpr uint32_t STAGE = 3 * TILE;   // k, pos_k, v
-constexpr uint32_t OFF_BAR = OFF_KV + STAGES * STAGE;
-// + 1 KB of slack: the base is aligned to 1024 bytes, the 128-byte swizzle's period
-constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
+constexpr int BQ = 64;                // query rows per CTA (one wgmma M)
+constexpr int BK = 64;                // keys per tile
+constexpr int STAGES = 3;             // ring depth
+constexpr int NC = 128;               // consumer threads: one warpgroup
+constexpr int NT = NC + 32;           // + the producer warp
+constexpr uint32_t LO = BK * 64 * 2;  // bytes of a tile's first box (columns 0..63)
 constexpr float NEG = -1e9f;
+
+// The shared-memory layout at head dim D: a 64-row tile is the first box
+// (LO bytes), then at D 80 the second (columns 64..79, 2 KB).
+template <int D>
+struct Layout {
+  static_assert(D == 64 || D == 80, "compiled head dims: 64 and 80 (common.cuh)");
+  static constexpr uint32_t TILE = BK * D * 2;  // bytes of one 64-row bf16 tile
+  static constexpr uint32_t OFF_KV = 2 * TILE;  // the ring, after q and pos_q
+  static constexpr uint32_t STAGE = 3 * TILE;   // k, pos_k, v
+  static constexpr uint32_t OFF_BAR = OFF_KV + STAGES * STAGE;
+  // + 1 KB of slack: the base is aligned to 1024 bytes, the 128-byte swizzle's period
+  static constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
+};
+
+// The tensor maps of N streams: lo[i] the first box of stream i, hi[i] (D 80) the second.
+template <int D, int N>
+struct Maps {
+  CUtensorMap lo[N];
+  CUtensorMap hi[D > 64 ? N : 1];
+};
+
+// rows row .. row + 63 of stream i of head bh into the tile at dst, both
+// boxes, completing on bar
+template <int D, int N>
+__device__ __forceinline__ void load_tile(uint32_t dst, const Maps<D, N>& m, int i, uint32_t bar,
+                                          int row, int bh) {
+  tma_load3(dst, &m.lo[i], bar, 0, row, bh);
+  if constexpr (D > 64) tma_load3(dst + LO, &m.hi[i], bar, 64, row, bh);
+}
 
 
 // ---- rel: two adjacent columns of a row, in rel's dtype ------------------
@@ -141,16 +175,20 @@ __device__ __forceinline__ void load_bias(TileBias<TR>& a, const TR* relh, long 
   }
 }
 
-// sc = [q|pos_q] . [k|pos_k]^T of the stage at sk (k, then pos_k): eight
+// sc = [q|pos_q] . [k|pos_k]^T of the stage at sk (k, then pos_k): 2 D / 16
 // wgmma k-steps into one fp32 accumulator, issued and committed, not waited.
+template <int D>
 __device__ __forceinline__ void issue_scores(float (&sc)[32], uint32_t sq, uint32_t sk) {
+  constexpr uint32_t TILE = Layout<D>::TILE;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)  // q . k
     wgmma_ss(sc, sw128_desc(sq + 32 * kk), sw128_desc(sk + 32 * kk), kk);
+  if constexpr (D > 64) wgmma_ss(sc, sw32_desc(sq + LO), sw32_desc(sk + LO), 1);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)  // + pos_q . pos_k
     wgmma_ss(sc, sw128_desc(sq + TILE + 32 * kk), sw128_desc(sk + TILE + 32 * kk), 1);
+  if constexpr (D > 64) wgmma_ss(sc, sw32_desc(sq + TILE + LO), sw32_desc(sk + TILE + LO), 1);
   wgmma_commit();
   fence_operand(sc);
 }
@@ -198,15 +236,27 @@ __device__ __forceinline__ void mask_scores(float (&sc)[32], const TileBias<TR>&
 }
 
 // acc += P . v over the tile's 64 keys, P (bf16 pairs in the A layout) from
-// registers, v from the stage: issued and committed, not waited.
-__device__ __forceinline__ void issue_pv(float (&acc)[32], const uint32_t (&pa)[16], uint32_t sv) {
+// registers, v from the stage: issued and committed, not waited. acc holds
+// D / 2 fp32 a thread: position i = 4 j + 2 hh + e is column 8 j + cq + e
+// (columns 64..79, j = 8, 9, from the m64n16 products on the second box).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[16],
+                                         uint32_t sv) {
+  float(&lo)[32] = *reinterpret_cast<float(*)[32]>(&acc[0]);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)  // 16 keys = 16 rows of 128 bytes per k-step
-    wgmma_rs(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+    wgmma_rs(lo, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
              sw128_desc(sv + 2048 * kk));
+  if constexpr (D > 64) {
+    float(&hi)[8] = *reinterpret_cast<float(*)[8]>(&acc[32]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 keys = 16 rows of 32 bytes per k-step
+      Wgmma<16>::rs_t(hi, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                      sw32_desc(sv + LO + 512 * kk));
+  }
   wgmma_commit();
-  fence_operand(acc);
+  fence_regs(acc);
 }
 
 // The score accumulator, as probabilities, into P.v's A fragments: positions
@@ -241,22 +291,23 @@ __device__ __forceinline__ float fexp(float x) { return exp2f(x * 1.442695040888
 // the next. Keeping the next tile's score products in flight during this
 // tile's softmax made ptxas serialise every wgmma of the kernel (C7514) and
 // ran slower; the overlap comes from the second CTA on the SM instead.
-template <bool kNorm, typename TR>
+// maps: q, pos_q, k, pos_k, v.
+template <int D, bool kNorm, typename TR>
 __global__ void __launch_bounds__(NT, 2) kernel(
-    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_pq,
-    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_pk,
-    const __grid_constant__ CUtensorMap map_v, const TR* __restrict__ rel,
+    const __grid_constant__ Maps<D, 5> maps, const TR* __restrict__ rel,
     const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
     int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
     int skip_max) {
+  using Lay = Layout<D>;
+  constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;  // q, then pos_q at + TILE
-  const uint32_t bars = base + OFF_BAR;
+  const uint32_t bars = base + Lay::OFF_BAR;
   const uint32_t qbar = bars + 16 * STAGES;
   auto full = [=](int st) { return bars + 8u * st; };
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
-  auto stage = [=](int st) { return base + OFF_KV + STAGE * st; };  // k, pos_k, v
+  auto stage = [=](int st) { return base + Lay::OFF_KV + Lay::STAGE * st; };  // k, pos_k, v
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
@@ -276,17 +327,17 @@ __global__ void __launch_bounds__(NT, 2) kernel(
   if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
     if (threadIdx.x == NC) {
       mbar_expect_tx(qbar, 2 * TILE);
-      tma_load(sq, &map_q, qbar, q0, bh);
-      tma_load(sq + TILE, &map_pq, qbar, q0, bh);
+      load_tile(sq, maps, 0, qbar, q0, bh);
+      load_tile(sq + TILE, maps, 1, qbar, q0, bh);
       for (int it = 0; it < n; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
         const int k0 = (it % ntiles) * BK;
         const bool with_v = !kNorm || it >= ntiles;  // K5's first pass needs no v
         mbar_expect_tx(full(st), (with_v ? 3 : 2) * TILE);
-        tma_load(stage(st), &map_k, full(st), k0, bh);
-        tma_load(stage(st) + TILE, &map_pk, full(st), k0, bh);
-        if (with_v) tma_load(stage(st) + 2 * TILE, &map_v, full(st), k0, bh);
+        load_tile(stage(st), maps, 2, full(st), k0, bh);
+        load_tile(stage(st) + TILE, maps, 3, full(st), k0, bh);
+        if (with_v) load_tile(stage(st) + 2 * TILE, maps, 4, full(st), k0, bh);
       }
     }
     return;  // no block-wide barrier follows
@@ -299,11 +350,11 @@ __global__ void __launch_bounds__(NT, 2) kernel(
   const uint8_t* kp = kpad + (long long)b * S;
   const TR* relh = rel ? rel + h * rel_hs : nullptr;
 
-  float m[2], l[2], rl[2], acc[32], sc[32];
+  float m[2], l[2], rl[2], acc[D / 2], sc[32];
   uint32_t pa[16];
   TileBias<TR> bias;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     m[hh] = (!kNorm && skip_max) ? 0.f : -CUDART_INF_F;
@@ -315,7 +366,7 @@ __global__ void __launch_bounds__(NT, 2) kernel(
   auto scores = [&](int it) {
     const int st = it % STAGES, k0 = (it % ntiles) * BK;
     mbar_wait(full(st), (it / STAGES) & 1);
-    issue_scores(sc, sq, stage(st));
+    issue_scores<D>(sc, sq, stage(st));
     load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
     wgmma_wait();
     fence_operand(sc);
@@ -338,7 +389,7 @@ __global__ void __launch_bounds__(NT, 2) kernel(
         l[hh] *= scale;
         m[hh] = mnew;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           acc[4 * j + 2 * hh] *= scale;
           acc[4 * j + 2 * hh + 1] *= scale;
         }
@@ -396,9 +447,9 @@ __global__ void __launch_bounds__(NT, 2) kernel(
     }
     if (pv) {
       to_a_fragments(sc, pa);  // rounded to bf16
-      issue_pv(acc, pa, stage(st) + 2 * TILE);
+      issue_pv<D>(acc, pa, stage(st) + 2 * TILE);
       wgmma_wait();
-      fence_operand(acc);
+      fence_regs(acc);
     }
     if (it + 1 < n) scores(it + 1);  // before this stage is released: measured faster
     mbar_arrive(empty(st));          // the products have read the stage
@@ -411,7 +462,7 @@ __global__ void __launch_bounds__(NT, 2) kernel(
     const float denom = kNorm ? 1.f : (skip_max ? fmaxf(l[hh], 1e-38f) : l[hh]);
     __nv_bfloat16* o = out + ((long long)bh * Tq + t) * D + cq;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const float a = acc[4 * j + 2 * hh], c = acc[4 * j + 2 * hh + 1];
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
           kNorm ? __floats2bfloat162_rn(a, c) : __floats2bfloat162_rn(a / denom, c / denom);
@@ -424,45 +475,38 @@ __global__ void __launch_bounds__(NT, 2) kernel(
 
 // ---- host side -------------------------------------------------------------
 
-// A [bh, rows, 64] bf16 stream as 64 x 64 boxes, 128-byte swizzled, zeros past the end.
-inline int stream_map(CUtensorMap* map, const void* ptr, int rows, long long bh) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return (int)cudaErrorInvalidDeviceFunction;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};  // bytes
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BK, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+// The tensor maps of N bf16 streams [B*H, rows[i], D] in 64-row boxes.
+template <int D, int N>
+inline int stream_maps(Maps<D, N>& maps, const void* const (&ptrs)[N], const int (&rows)[N],
+                       long long bh) {
+  for (int i = 0; i < N; ++i)
+    if (const int err = head_maps(&maps.lo[i], D > 64 ? &maps.hi[i] : nullptr, ptrs[i], D,
+                                  rows[i], bh, BK))
+      return err;
+  return 0;
 }
 
-// Launches the core on `stream` for bf16 streams [B, H, Tq or S, 64] (16-byte
+// Launches the core on `stream` for bf16 streams [B, H, Tq or S, D] (16-byte
 // aligned) and rel of type TR (or null); K1's walk also writes the fp32
 // logsumexp [B, H, Tq] where lse is not null (K3). Returns a cudaError_t code.
-template <bool kNorm, typename TR>
+template <int D, bool kNorm, typename TR>
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
            const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq, int S,
            int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max,
            cudaStream_t stream) {
-  const long long bh = (long long)B * H;
-  CUtensorMap maps[5];
-  const void* ptrs[5] = {q, pq, k, pk, v};
-  for (int i = 0; i < 5; ++i) {
-    const int err = stream_map(&maps[i], ptrs[i], i < 2 ? Tq : S, bh);
-    if (err) return err;
-  }
+  Maps<D, 5> maps;
+  if (const int err = stream_maps<D, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
+                                        (long long)B * H))
+    return err;
   // a pair of rel columns is one load where base, rows, heads and S keep it aligned
   const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % (2 * sizeof(TR)) == 0 &&
                       rel_rs % 2 == 0 && rel_hs % 2 == 0 && S % 2 == 0;
-  constexpr size_t smem = SMEM_BYTES;
+  constexpr size_t smem = Layout<D>::SMEM_BYTES;
   static SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)kernel<kNorm, TR>, smem)) return err;
+  if (const int err = opt_in.ensure((const void*)kernel<D, kNorm, TR>, smem)) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  kernel<kNorm, TR><<<grid, NT, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const TR*>(rel),
+  kernel<D, kNorm, TR><<<grid, NT, smem, stream>>>(
+      maps, static_cast<const TR*>(rel),
       static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp,
       rel_hs, rel_rs, rel_vec, causal, skip_max);
   return (int)cudaGetLastError();

@@ -2,7 +2,8 @@
 // addresses, mbarriers, TMA copies, wgmma (m64n64k16 for the attention
 // cores, m64nNk16 at the N extents of the beam rows for the weight-streaming
 // products and at N = 64 and 128 for K8, with A from shared memory or from
-// registers; descriptors of 128-byte swizzled and of unswizzled tiles), the
+// registers; descriptors of 128-byte and 32-byte swizzled and of unswizzled
+// tiles; head_maps, the tensor maps of a 64- or 80-wide bf16 head), the
 // exact int8 -> bf16 widening, programmatic dependent launch, and the
 // run-time lookup of cuTensorMapEncodeTiled. Used by flash_fwd_sm90.cuh and
 // flash_bwd_sm90.cuh (K1, K3, K4, K5), skinny_gemm_sm90.cuh (K2, K2-q8, K7),
@@ -71,6 +72,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// Descriptor of a 32-byte swizzled tile: rows of 32 bytes (16 bf16), 8-row
+// groups 256 bytes apart (SBO); LBO is not read at this width. Serves the
+// columns 64..79 of an 80-wide head (head_maps' second box), K-major and read
+// MN-major, as sw128_desc serves columns 0..63.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (16ull << 32) |
+         (3ull << 62);
 }
 
 // Descriptor of a K-major tile without swizzle ("interleave"): 8 x 16-byte
@@ -175,6 +185,12 @@ __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
 // byte offset of (row, 16-byte unit u) in a 128-byte swizzled tile
 __device__ __forceinline__ uint32_t swz(int row, int u) {
   return row * 128 + ((u ^ (row & 7)) * 16);
+}
+
+// byte offset of (row, 16-byte unit u) in a 32-byte swizzled tile: bit 4 of
+// the address flipped by bit 7 (row bit 2), as TMA's 32-byte swizzle writes it
+__device__ __forceinline__ uint32_t swz32(int row, int u) {
+  return row * 32 + ((u ^ ((row >> 2) & 1)) * 16);
 }
 
 // Four int8 (one 32-bit word, byte 0 the lowest) widened to two bf16 pairs,
@@ -336,6 +352,19 @@ struct Wgmma<16> {
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}"
       ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  }
+  // the same with B MN-major in shared memory (the transpose bit), as
+  // wgmma_rs reads v: the 16 columns past 64 of an 80-wide head
+  static __device__ __forceinline__ void rs_t(float (&d)[8], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
@@ -516,6 +545,26 @@ inline int bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_
                     const cuuint64_t* strides, const cuuint32_t* box) {
   return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A bf16 stream [n, rows, D] (D = 64 or 80, 16-byte aligned) as boxes of
+// box_rows rows: columns 0..63 (one 128-byte row) 128-byte swizzled into lo,
+// and for D = 80 columns 64..79 (32 bytes) 32-byte swizzled into hi, since a
+// 160-byte row is wider than the 128-byte swizzle atom. A tile of the stream
+// in shared memory is lo's box (box_rows x 128 bytes), then hi's (box_rows x
+// 32 bytes); rows past the end are zeros. 0 or a cudaError_t code.
+inline int head_maps(CUtensorMap* lo, CUtensorMap* hi, const void* ptr, int D, int rows,
+                     long long n, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};  // bytes
+  const cuuint32_t box_lo[3] = {64, (cuuint32_t)box_rows, 1};
+  if (const int err = tiled_map(lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 3, dims, strides,
+                                box_lo, CU_TENSOR_MAP_SWIZZLE_128B))
+    return err;
+  if (D == 64) return 0;
+  const cuuint32_t box_hi[3] = {(cuuint32_t)D - 64, (cuuint32_t)box_rows, 1};
+  return tiled_map(hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 3, dims, strides, box_hi,
+                   CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 }  // namespace sm90

@@ -120,6 +120,22 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# The head dims the attention kernels (K1, K3, K4, K5, K6, K7) are compiled
+# for, on either core (csrc/common.cuh::with_head_dim): 64 serves ofa_tiny,
+# ofa_medium, ofa_base and ofa_large, 80 serves ofa_huge. The plain versions
+# take any head dim.
+HEAD_DIMS = (64, 80)
+
+
+def check_head_dim(name: str, head_dim: int) -> None:
+    """Raise NotImplementedError, naming ``HEAD_DIMS``, unless the kernels are
+    compiled for ``head_dim``. The CUDA route of each attention wrapper calls
+    it before it checks its tensors' devices."""
+    if head_dim not in HEAD_DIMS:
+        raise NotImplementedError(f"{name}: head dim {head_dim}; the kernels are compiled for "
+                                  f"head dims {HEAD_DIMS}")
+
+
 # the row tiles (wgmma N) of the weight-streaming tensor-core core
 # (csrc/skinny_gemm_sm90.cuh): rows are padded to the smallest that covers
 # them; more rows than the last loop over row tiles

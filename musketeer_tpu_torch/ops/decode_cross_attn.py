@@ -24,8 +24,9 @@ two CTAs an SM; launched with programmatic dependent launch, so its K/V
 copies start before the previous kernel on the stream ends: that kernel must
 not write the cache), its launches also counted in
 ``decode_cross_attention_int8.launches_sm90``; fp32 on the FMA kernel
-(``csrc/cross_attn.cuh``). Unaligned bf16 inputs raise; it never falls back
-from one version to another.
+(``csrc/cross_attn.cuh``). Both are compiled for the head dims
+``_build.HEAD_DIMS`` (64 and 80); another head dim, or unaligned bf16 inputs,
+raise; it never falls back from one version to another.
 """
 
 from __future__ import annotations
@@ -35,19 +36,18 @@ import torch
 from . import _build
 
 NEG_INF = -1e9
-HEAD_DIM = 64  # the kernel's compiled head dim (ofa_tiny and ofa_base)
 MAX_BEAMS = 16  # query rows per sample the kernel holds in registers
 _DTYPES = (torch.float32, torch.bfloat16)
-_SIG = (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.PTR,)
+_SIG = (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.INT, _build.PTR)
 
 
-def sm90_smem(Kb: int, S: int) -> int:
-    """Shared memory of the tensor-core kernel (``smem_bytes``): the 8-stage
-    ring of 4 KB int8 tiles, two 8 KB bf16 value tiles, the mbarriers, the
-    fp32 scores ``[Kb, S']`` and the k_scale, v_scale and bias rows, the bf16
-    probabilities ``[Kb, S' + 8]`` (S' = S rounded up to 64)."""
+def sm90_smem(Kb: int, S: int, D: int = 64) -> int:
+    """Shared memory of the tensor-core kernel (``smem_bytes``) at head dim D:
+    the 8-stage ring of 64 x D int8 tiles, two 64 x D bf16 value tiles, the
+    mbarriers, the fp32 scores ``[Kb, S']`` and the k_scale, v_scale and bias
+    rows, the bf16 probabilities ``[Kb, S' + 8]`` (S' = S rounded up to 64)."""
     sp = -(-S // 64) * 64
-    return 1024 + 8 * 4096 + 2 * 8192 + 128 + 4 * (Kb * sp + 3 * sp) + 2 * Kb * (sp + 8)
+    return 1024 + 8 * 64 * D + 2 * 128 * D + 128 + 4 * (Kb * sp + 3 * sp) + 2 * Kb * (sp + 8)
 
 
 def _route(device: torch.device, q: torch.Tensor, k_i8: torch.Tensor, v_i8: torch.Tensor) -> str:
@@ -100,6 +100,7 @@ def decode_cross_attention_int8(
     kind = _route(q.device, q, k_i8, v_i8)
     if kind == "plain":
         return decode_cross_attention_int8_plain(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad)
+    _build.check_head_dim(name, q.shape[-1])
     _build.require_cuda(name, {"q": q}, _DTYPES)
     _build.require_cuda(name, {"k_i8": k_i8, "v_i8": v_i8}, (torch.int8,))
     _build.require_cuda(name, {"k_scale": k_scale, "v_scale": v_scale}, (torch.float32,))
@@ -113,10 +114,9 @@ def decode_cross_attention_int8(
         raise ValueError(f"{name}: k_i8 and v_i8 must start on 16-byte boundaries (vector loads)")
     B, H, Kb, D = q.shape
     S = k_i8.shape[2]
-    if D != HEAD_DIM or Kb > MAX_BEAMS:
-        raise NotImplementedError(f"{name}: head dim {D} (kernel has {HEAD_DIM}), "
-                                  f"{Kb} beams (kernel holds at most {MAX_BEAMS})")
-    if kind == "sm90" and sm90_smem(Kb, S) > _build.SMEM_MAX:
+    if Kb > MAX_BEAMS:
+        raise NotImplementedError(f"{name}: {Kb} beams (kernel holds at most {MAX_BEAMS})")
+    if kind == "sm90" and sm90_smem(Kb, S, D) > _build.SMEM_MAX:
         raise NotImplementedError(f"{name}: {Kb} beams x {S} keys exceed the tensor-core "
                                   f"kernel's shared memory")
     out = torch.empty_like(q)
@@ -125,7 +125,7 @@ def decode_cross_attention_int8(
         err = _build.kernel_function(entry, _SIG)(
             q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), bias.data_ptr(), enc_pad.data_ptr(), out.data_ptr(), B, H, Kb,
-            S, bias.stride(0), bias.stride(1), _build.stream_of(q),
+            S, bias.stride(0), bias.stride(1), D, _build.stream_of(q),
         )
     _build.check(err, name)
     decode_cross_attention_int8.launches += 1

@@ -35,8 +35,9 @@ split over the card's SMs as ``split_plan`` says; the cross-attention on
 ``csrc/decode_attn_sm90.cuh``, each launched with programmatic dependent
 launch), its launches also counted in
 ``decode_stack_step.launches_sm90``; fp32 on the FMA kernels, which the exact
-fp32 checks hold to the plain version. Unaligned bf16 inputs raise; it never
-falls back from one version to another.
+fp32 checks hold to the plain version. Both routes are compiled for the head
+dims ``_build.HEAD_DIMS`` (64 and 80); another head dim, or unaligned bf16
+inputs, raise; it never falls back from one version to another.
 """
 
 from __future__ import annotations
@@ -49,13 +50,12 @@ import torch.nn.functional as F
 from . import _build
 
 NEG_INF = -1e9
-HEAD_DIM = 64  # the kernel's compiled head dim (ofa_tiny and ofa_base)
 MAX_BEAMS = 16  # query rows per sample the cross-attention holds in registers
 MAX_TMAX = 2048  # self-cache length the kernel's scores fit in shared memory
 _DTYPES = (torch.float32, torch.bfloat16)
 _PACK = ("w_self3", "b_self3", "w_so", "w_cq", "w_co", "w_fc1", "b_fc1", "w_fc2", "b_misc", "ln")
-_SIG = (_build.PTR,) * 21 + (_build.INT,) * 8 + (_build.FLOAT, _build.PTR)
-_SIG_SM90 = (_build.PTR,) * 24 + (_build.INT,) * 8 + (_build.FLOAT,) + (_build.INT,) * 6 + (_build.PTR,)
+_SIG = (_build.PTR,) * 21 + (_build.INT,) * 8 + (_build.FLOAT, _build.INT, _build.PTR)
+_SIG_SM90 = (_build.PTR,) * 24 + (_build.INT,) * 8 + (_build.FLOAT,) + (_build.INT,) * 7 + (_build.PTR,)
 MAX_CPS = 16  # 64-deep chunks of one split (csrc/skinny_gemm_sm90.cuh)
 MAX_SPLITS = 4  # splits of one product that fit MAX_CPS: the last CTA of a tile adds them in turn
 
@@ -156,10 +156,11 @@ def decode_stack_plain(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cr
 def _check_cuda(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v,
                 cache_index: int, beam_size: int) -> None:
     name = "decode_stack_step"
+    L, _, H, Tmax, hd = self_k.shape
+    _build.check_head_dim(name, hd)
     if x0.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x0.device}")
     rows, d = x0.shape
-    L, _, H, Tmax, hd = self_k.shape
     B, S = cross_k.shape[1], cross_k.shape[3]
     f = pack["w_fc1"].shape[1]
     _build.require_cuda(name, {"x0": x0, "self_k": self_k, "self_v": self_v, "cross_k": cross_k,
@@ -179,10 +180,10 @@ def _check_cuda(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v,
     for arg, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} {tuple(t.shape)} != {shape}")
-    if hd != HEAD_DIM or beam_size > MAX_BEAMS or Tmax > MAX_TMAX or rows != B * beam_size:
+    if beam_size > MAX_BEAMS or Tmax > MAX_TMAX or rows != B * beam_size:
         raise NotImplementedError(
-            f"{name}: head dim {hd} (kernel has {HEAD_DIM}), beams {beam_size} (at most "
-            f"{MAX_BEAMS}), Tmax {Tmax} (at most {MAX_TMAX}), rows {rows} != {B} x {beam_size}")
+            f"{name}: beams {beam_size} (at most {MAX_BEAMS}), Tmax {Tmax} (at most "
+            f"{MAX_TMAX}), rows {rows} != {B} x {beam_size}")
     if not 0 <= cache_index < Tmax:
         raise ValueError(f"{name}: cache_index {cache_index} outside [0, {Tmax})")
 
@@ -206,10 +207,12 @@ def _products(d: int, f: int) -> Dict[str, Tuple[int, int]]:
     return {"qkv": (3 * d, d), "dd": (d, d), "fc1": (f, d), "fc2": (d, f)}
 
 
-def _cross_smem(Kb: int, S: int) -> int:
-    """Shared memory of the bf16 cross-attention (``decode_attn::smem_bytes``)."""
+def _cross_smem(Kb: int, S: int, D: int = 64) -> int:
+    """Shared memory of the bf16 cross-attention at head dim D
+    (``decode_attn::smem_bytes``): the 8-stage ring of 64 x D bf16 tiles, the
+    mbarriers, the fp32 scores and bias row, the bf16 probabilities."""
     sp = -(-S // 64) * 64
-    return 1024 + 8 * 8192 + 128 + 4 * (Kb + 1) * sp + 2 * Kb * (sp + 8)
+    return 1024 + 8 * 128 * D + 128 + 4 * (Kb + 1) * sp + 2 * Kb * (sp + 8)
 
 
 def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, cache_index: int,
@@ -219,10 +222,10 @@ def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, ca
     previous launch's tail); ``pdl=False`` serialises them, so that a profile
     can split the step's device time by kernel."""
     rows, d = x0.shape
-    L, _, H, Tmax, _ = self_k.shape
+    L, _, H, Tmax, hd = self_k.shape
     B, S = cross_k.shape[1], cross_k.shape[3]
     f = pack["w_fc1"].shape[1]
-    if d % 64 or _cross_smem(beam_size, S) > _build.SMEM_MAX:
+    if d % 64 or _cross_smem(beam_size, S, hd) > _build.SMEM_MAX:
         raise NotImplementedError(f"decode_stack_step: d {d} (a multiple of 64), or S {S} x beams "
                                   f"{beam_size} in the cross-attention's shared memory")
     n_sm, n_tile = _build.sm_count(x0.device), _build.row_tile(rows)
@@ -249,7 +252,7 @@ def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, ca
             cross_v.data_ptr(), x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             scratch.data_ptr(), part.data_ptr(), counters.data_ptr(), stats.data_ptr(),
             L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, x0.dtype),
-            n_tile, *cps, int(pdl), _build.stream_of(x0))
+            n_tile, *cps, int(pdl), hd, _build.stream_of(x0))
     _build.check(err, "decode_stack_step")
 
 
@@ -276,7 +279,7 @@ def decode_stack_step(
         return decode_stack_plain(*args, cache_index, beam_size, scaling)
     _check_cuda(*args, cache_index, beam_size)
     rows, d = x0.shape
-    L, _, H, Tmax, _ = self_k.shape
+    L, _, H, Tmax, hd = self_k.shape
     B, S = cross_k.shape[1], cross_k.shape[3]
     f = pack["w_fc1"].shape[1]
     dt = x0.dtype
@@ -295,7 +298,7 @@ def decode_stack_step(
                 x0.data_ptr(), sbias.data_ptr(), cbias.data_ptr(), self_k.data_ptr(),
                 self_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(), x_out.data_ptr(),
                 k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
-                L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, dt),
+                L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, dt), hd,
                 _build.stream_of(x0),
             )
         _build.check(err, "decode_stack_step")

@@ -27,7 +27,8 @@ Each wrapper runs its plain PyTorch version for CPU tensors and the CUDA
 kernel (``csrc/flash_attention.cu``) for CUDA tensors, never falling back
 from one to another, and counts its launches. bf16 streams run on the
 tensor-core core that K1 also uses (``csrc/flash_fwd_sm90.cuh``), fp32 on the
-FMA kernel. Like K1 they have no
+FMA kernel, both compiled for the head dims ``_build.HEAD_DIMS`` (64 and 80).
+Like K1 they have no
 backward and refuse inputs that autograd tracks.
 """
 
@@ -42,7 +43,7 @@ from .flash_attention_infer import check_shapes, cuda_args
 
 NEG_INF = -1e9
 _SIG = (_build.INT,) * 2 + (_build.PTR,) * 8 + (_build.INT,) * 5 + (_build.I64,) * 2 \
-    + (_build.INT,) + (_build.PTR,)
+    + (_build.INT,) * 2 + (_build.PTR,)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -118,7 +119,7 @@ def _launch(name: str, q, k, v, pos_q, pos_k, rel: Optional[torch.Tensor], kpad,
             int(q.dtype == torch.bfloat16), int(rel is not None and rel.dtype == torch.float32),
             q.data_ptr(), pos_q.data_ptr(), k.data_ptr(), pos_k.data_ptr(), v.data_ptr(),
             rel_ptr, kpad.data_ptr(), out.data_ptr(), B, H, T, S, Sp, rel_hs, rel_rs,
-            int(causal), _build.stream_of(q),
+            int(causal), q.shape[-1], _build.stream_of(q),
         )
     _build.check(err, name)
     return out

@@ -31,7 +31,9 @@ tensor cores (K3 on ``csrc/flash_fwd_sm90.cuh``, K4 on
 P and dW to bf16 once as the operands of its gradient products; fp32 runs on
 the FMA kernels in full fp32. The tensor-core kernels read their streams by
 TMA, so bf16 q, k, v, pos_q, pos_k (and K4's o and do) must start on 16-byte
-boundaries; the wrappers raise otherwise.
+boundaries; the wrappers raise otherwise. Both cores are compiled for the
+head dims ``_build.HEAD_DIMS`` (64 and 80); at 80 K4's key-major work is two
+launches (``csrc/flash_bwd_sm90.cuh``).
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ from .flash_attention_infer import (
 )
 
 _P, _I, _L = _build.PTR, _build.INT, _build.I64
-_FWD_SIG = (_I,) + (_P,) * 9 + (_I,) * 4 + (_L,) * 2 + (_I,) * 2 + (_P,)
-_BWD_SIG = (_I,) + (_P,) * 17 + (_I,) * 4 + (_L,) * 2 + (_I,) + (_P,)
+_FWD_SIG = (_I,) + (_P,) * 9 + (_I,) * 4 + (_L,) * 2 + (_I,) * 3 + (_P,)
+_BWD_SIG = (_I,) + (_P,) * 17 + (_I,) * 4 + (_L,) * 2 + (_I,) * 2 + (_P,)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               Optional[torch.Tensor]]
@@ -118,7 +120,7 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False,
             int(q.dtype == torch.bfloat16),
             q.data_ptr(), pos_q.data_ptr(), k.data_ptr(), pos_k.data_ptr(), v.data_ptr(),
             rel_ptr, kpad.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, T, S,
-            rel_hs, rel_rs, int(causal), int(skip_max), _build.stream_of(q),
+            rel_hs, rel_rs, int(causal), int(skip_max), q.shape[-1], _build.stream_of(q),
         )
     _build.check(err, name)
     flash_attention_fwd.launches += 1
@@ -162,7 +164,7 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
             rel_ptr, kpad.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dpq.data_ptr(), dk.data_ptr(), dpk.data_ptr(),
             dv.data_ptr(), drel.data_ptr() if drel is not None else None,
-            B, H, T, S, rel_hs, rel_rs, int(causal), _build.stream_of(q),
+            B, H, T, S, rel_hs, rel_rs, int(causal), q.shape[-1], _build.stream_of(q),
         )
     _build.check(err, name)
     flash_attention_bwd.launches += 1

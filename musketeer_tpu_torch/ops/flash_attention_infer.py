@@ -16,8 +16,9 @@ attention.
 ``flash_attention_inference`` runs the plain PyTorch version for CPU tensors
 and the CUDA kernel (``csrc/flash_attention_infer.cu``) for CUDA tensors: bf16
 on the tensor-core core (``csrc/flash_fwd_sm90.cuh``, wgmma fed by TMA), fp32
-on the FMA core (``csrc/flash_fwd.cuh``). It never falls back from one to
-another. It has no backward and refuses
+on the FMA core (``csrc/flash_fwd.cuh``), each compiled for the head dims
+``_build.HEAD_DIMS`` (64 and 80); another head dim raises on CUDA. It never
+falls back from one to another. It has no backward and refuses
 inputs that autograd tracks: the model reaches it through
 ``ops/flash_attention_bwd.py::flash_attention``, which sends differentiated
 calls to K3/K4 instead.
@@ -32,10 +33,23 @@ import torch
 from . import _build
 
 NEG_INF = -1e9
-HEAD_DIM = 64  # the kernel's compiled head dim (ofa_tiny and ofa_base)
 _DTYPES = (torch.float32, torch.bfloat16)
 _SIG = (_build.INT,) + (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 \
-    + (_build.INT,) * 2 + (_build.PTR,)
+    + (_build.INT,) * 3 + (_build.PTR,)
+
+
+def sm90_smem(D: int, bwd: bool = False) -> int:
+    """Shared memory of a CTA of the tensor-core attention core at head dim D
+    (``Layout<D>::SMEM_BYTES`` in ``csrc/flash_fwd_sm90.cuh``: K1, K3, K5), or
+    with ``bwd`` of K4's launches (``BwdLayout<D>::SMEM`` in
+    ``csrc/flash_bwd_sm90.cuh``): 64-row bf16 tiles of 128 D bytes, two
+    resident (q, pos_q; K4 three) and a ring of 3 stages of three, the
+    mbarriers, 1 KB of alignment slack; K4 also each stage's lse and dsum rows
+    and two staged rel tiles of 64 rows of 72 bf16."""
+    tile, bars = 64 * D * 2, 8 * (2 * 3 + 1) + 1024
+    if not bwd:
+        return 2 * tile + 3 * 3 * tile + bars
+    return 3 * tile + 3 * 3 * tile + 3 * 2 * 64 * 4 + 2 * 64 * 72 * 2 + bars
 
 
 def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
@@ -55,9 +69,11 @@ def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
 def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
               rel_f32: bool = False, tma: bool = False) -> Tuple[Optional[int], int, int]:
     """Validate CUDA inputs of the attention kernels → (rel pointer, head and row strides).
+    The head dim must be one of ``_build.HEAD_DIMS``.
     ``rel_f32``: the kernel also reads an fp32 rel (K5), not only one in q's dtype.
     ``tma``: bf16 streams go to the tensor-core kernels (K1, K3, K4, K5), whose
     TMA copies need 16-byte aligned bases."""
+    _build.check_head_dim(name, q.shape[-1])
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     _build.require_cuda(name, {"q": q, "k": k, "v": v, "pos_q": pos_q, "pos_k": pos_k}, _DTYPES)
@@ -69,8 +85,6 @@ def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
                          "with contiguous rows")
     if kpad.device != q.device or not kpad.is_contiguous():
         raise ValueError(f"{name}: kpad must be contiguous on q's device")
-    if q.shape[-1] != HEAD_DIM:
-        raise NotImplementedError(f"{name}: head dim {q.shape[-1]} (kernel has {HEAD_DIM})")
     if tma and q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in (q, k, v, pos_q, pos_k)):
         raise ValueError(f"{name}: bf16 q, k, v, pos_q and pos_k must start on 16-byte "
@@ -144,7 +158,7 @@ def flash_attention_inference(
             int(q.dtype == torch.bfloat16),
             q.data_ptr(), pos_q.data_ptr(), k.data_ptr(), pos_k.data_ptr(), v.data_ptr(),
             rel_ptr, kpad.data_ptr(), out.data_ptr(), B, H, T, S, rel_hs, rel_rs,
-            int(causal), int(skip_max), _build.stream_of(q),
+            int(causal), int(skip_max), q.shape[-1], _build.stream_of(q),
         )
     _build.check(err, name)
     flash_attention_inference.launches += 1
