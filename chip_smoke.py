@@ -257,9 +257,15 @@ Phases; any failure raises and the script exits non-zero:
     step under ``--remat`` on one card and on four as data 4 and as fsdp 4:
     state bytes and peak memory per rank, step times, MFU; then (c)
     ``ofa_large`` bf16 ``--remat`` with dropout off at model 4, pipe 4
-    (M = 4 and 8) and seq 4, a spawn each, every rank printing its peak
-    memory as it goes, each layout's losses within ``BF16_TOL`` of one
-    card's on the same batch.
+    (M = 4; M = 8 at 4 and at 8 rows a task), seq 4 and data 2 x pipe 2
+    interleaved (V = 2), a spawn each with a time limit each, every rank
+    printing its state (a pipe stage holds its own layers: the bytes must be
+    what ``leaf_spec`` reckons), its steps and its peak memory as it goes,
+    its K1/K3/K4 launches counted over the updates (K3 and K4 on every rank;
+    none at seq 4, whose ring attention runs plain products),
+    and where it waits (the pipeline's clock and collective, every thread's
+    stack) while a step runs past a minute; each layout's losses within
+    ``BF16_TOL`` of one card's on the same batch.
 24. the model, pipe and seq axes at size 1 (``ofa_large`` bf16, 4 + 4
     layers): the plain step, the whole-mesh step at model 1, pipe 1 with
     M = 2 and with ``--remat``, seq 1, each within ``BF16_TOL`` of the plain
@@ -3910,13 +3916,20 @@ def phase_multi_card(smi: str) -> dict:
                            f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     seen, k3_calls, k4_calls = set(), {}, {}
+    failed = []  # a part that fails is reported, the next runs, and the phase fails at the end
     with mock.patch.object(kb, "FlashAttentionTrainable", _recording_attention(k3_calls, k4_calls)):
         dryrun.run_job(dryrun.demo_job(1), device="cuda:0")  # one rank's shapes
         for fsdp in MULTI_LAYOUTS:
             t1 = time.perf_counter()
             # the last spawn also runs the model, pipe and seq layouts
             layouts = list(dryrun.AXES_LAYOUTS) if fsdp == MULTI_LAYOUTS[-1] else []
-            out = dryrun.dryrun_multirank(MULTI_RANKS, fsdp, "cuda", layouts=layouts)
+            try:
+                out = dryrun.dryrun_multirank(MULTI_RANKS, fsdp, "cuda", layouts=layouts)
+            except Exception as e:
+                failed.append(f"(a) fsdp {fsdp}")
+                log(f"[multi a] fsdp {fsdp}: FAILED after {time.perf_counter() - t1:.1f} s: "
+                    f"{type(e).__name__}: {e}")
+                continue
             log(f"[multi a] data {MULTI_RANKS // fsdp} x fsdp {fsdp}"
                 f"{' and ' + ', '.join(layouts) if layouts else ''} on NCCL: {out} equal to "
                 f"one card's within 1e-5 ({time.perf_counter() - t1:.1f} s)")
@@ -3962,25 +3975,37 @@ def phase_multi_card(smi: str) -> dict:
     log(f"[multi b] fsdp 4 against data 4: loss gaps {gaps} (tol {BF16_TOL}); state per rank "
         f"{b['rank_state_bytes'][0] / a['rank_state_bytes'][0]:.3f} of it")
     if not max(gaps) <= BF16_TOL or not b["rank_state_bytes"][0] < a["rank_state_bytes"][0]:
-        raise AssertionError(f"fsdp 4 against data 4: loss gaps {gaps}, state "
-                             f"{b['rank_state_bytes']} vs {a['rank_state_bytes']}")
-    runs.update(_multi_axes(smi))
+        failed.append("(b)")
+        log(f"[multi b] FAILED: fsdp 4 against data 4: loss gaps {gaps}, state "
+            f"{b['rank_state_bytes']} vs {a['rank_state_bytes']}")
+    try:
+        runs.update(_multi_axes(smi))
+    except AssertionError as e:
+        failed.append(str(e))
     log(f"[multi] phase 23 done in {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 23: {failed}")
     return runs
 
 
 # (c): ofa_large at the model, pipe and seq axes on the four cards, one spawn
-# a layout: (name, the layout's axes, rows a task in all, its model options).
-# Every rank holds all rows of the step (the axes split the layers, not the
-# batch), so 2 rows a task is a one-card run's batch on every rank; M = 8
-# needs 4 (R-Drop's 8 forward rows a task, one a microbatch).
+# a layout: (name, the layout's axes, rows a task in all, its model options,
+# the seconds its spawn may take, its NCCL timeout less 30). Every rank of
+# model, pipe and seq holds all rows of the step (the axes split the layers,
+# not the batch), so 2 rows a task is a one-card run's batch on every rank;
+# M = 8 needs 4 (R-Drop's 8 forward rows a task, one a microbatch). Data 2 x
+# pipe 2 splits the 2 rows over the data ranks: R-Drop's 2 a rank, one a
+# microbatch, 24 layers in 2 chunks a stage.
 MULTI_AXES = (
-    ("model 4", dict(model=MULTI_RANKS), TRAIN_BATCH, {}),
-    ("pipe 4 M4", dict(pipe=MULTI_RANKS), TRAIN_BATCH, dict(pipeline_microbatches=4)),
-    ("seq 4", dict(seq=MULTI_RANKS), TRAIN_BATCH, dict(seq_parallel=True)),
-    ("pipe 4 M8", dict(pipe=MULTI_RANKS), 2 * TRAIN_BATCH, dict(pipeline_microbatches=8)),
+    ("model 4", dict(model=MULTI_RANKS), TRAIN_BATCH, {}, 180.0),
+    ("pipe 4 M4", dict(pipe=MULTI_RANKS), TRAIN_BATCH, dict(pipeline_microbatches=4), 180.0),
+    ("seq 4", dict(seq=MULTI_RANKS), TRAIN_BATCH, dict(seq_parallel=True), 180.0),
+    ("data 2 x pipe 2 V2", dict(pipe=2), TRAIN_BATCH,
+     dict(pipeline_microbatches=2, pipeline_interleave=2), 180.0),
+    ("pipe 4 M8", dict(pipe=MULTI_RANKS), 2 * TRAIN_BATCH, dict(pipeline_microbatches=8), 300.0),
+    ("pipe 4 M8 8 rows", dict(pipe=MULTI_RANKS), 4 * TRAIN_BATCH,
+     dict(pipeline_microbatches=8), 420.0),
 )
-MULTI_AXES_TIMEOUT = 180.0  # seconds a layout's spawn may take, its NCCL timeout less 30
 NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
                   encoder_drop_path_rate=0.0, decoder_drop_path_rate=0.0)
 
@@ -3993,8 +4018,11 @@ def _multi_axes(smi: str) -> dict:
     memory as it goes; and on card 0 alone in this process on the same
     batches (the layouts' options act only over a mesh). Each layout's
     losses are held to the one card's within BF16_TOL, and its step times,
-    samples/s, MFU, state and peak per rank are printed. A layout that fails
-    is reported and the next one runs; the phase then fails."""
+    samples/s, MFU, state and peak per rank are printed; each rank's state
+    must be the bytes ``leaf_spec`` reckons for its place on the mesh (a
+    pipe stage: its own layers' parameters and moments). A layout that
+    fails or outlives its limit is reported and the next one runs; the phase
+    then fails."""
     from musketeer_tpu_torch.config import MeshConfig, ofa_large
     from musketeer_tpu_torch.params import from_jax, trainable
     from musketeer_tpu_torch.parallel import dryrun
@@ -4020,7 +4048,7 @@ def _multi_axes(smi: str) -> dict:
             f"{[round(b / 2**30, 3) for b in rec['rank_state_bytes']]} GiB, peak per rank "
             f"{[round(x / 2**30, 2) for x in rec['peaks']]} GiB ({secs:.1f} s) on {smi}")
 
-    for name, axes, rows, opts in MULTI_AXES:
+    for name, axes, rows, opts, limit in MULTI_AXES:
         if rows not in steps:
             steps[rows] = {n: type(b)(*[None if x is None else x.cpu() for x in b]) for n, b in
                            _train_batches(base, TRAIN_TASKS, rows, SEED).items()}
@@ -4035,7 +4063,7 @@ def _multi_axes(smi: str) -> dict:
             rec = dryrun.run_layouts(
                 MULTI_RANKS, [(MeshConfig(**axes), job(dataclasses.replace(base, **opts), rows,
                                                        f"multi c {name}"))],
-                "cuda", timeout=MULTI_AXES_TIMEOUT)[0]
+                "cuda", timeout=limit)[0]
         except Exception as e:  # reported; the next layout runs, and the phase fails below
             failed.append(name)
             log(f"[multi c] {name}: FAILED after {time.perf_counter() - t1:.1f} s: "
@@ -4045,8 +4073,17 @@ def _multi_axes(smi: str) -> dict:
         show(name, MULTI_RANKS, rows, rec, time.perf_counter() - t1)
         ref = refs[rows]["metrics"]
         gaps = [abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(rec["metrics"], ref)]
-        log(f"[multi c] {name} against one card: loss gaps {gaps} (tol {BF16_TOL})")
-        if not max(gaps) <= BF16_TOL:
+        log(f"[multi c] {name} against one card: loss gaps {gaps} (tol {BF16_TOL}); state per "
+            f"rank {rec['rank_state_bytes']} bytes, leaf_spec reckons {rec['rank_reckoned_bytes']}"
+            f" (one card {refs[rows]['state_bytes']}); peak per rank "
+            f"{[round(x / 2**30, 2) for x in rec['peaks']]} GiB")
+        log(f"[multi c] {name}: K1/K3/K4 launches over the {REMAT_UPDATES} updates per rank "
+            f"{rec['rank_launches']} (one card {refs[rows]['launches']})")
+        ring = "seq" in axes  # ring attention: plain products, no K3/K4 (phase 24)
+        launched = all(n["K3"] == n["K4"] == 0 if ring else n["K3"] > 0 and n["K4"] > 0
+                       for n in rec["rank_launches"])
+        if (not max(gaps) <= BF16_TOL or rec["rank_state_bytes"] != rec["rank_reckoned_bytes"]
+                or not launched):
             failed.append(name)
     if failed:
         raise AssertionError(f"phase 23 (c): {failed} failed or differ from one card")
@@ -4127,7 +4164,7 @@ def phase_axes(smi: str, seen: set = None) -> dict:
         cfg = dataclasses.replace(cfg0, **kw)
         params = trainable(from_jax(tree, cfg, "cuda", torch.float32))
         state = init_train_state(params, optim)._replace(step=TRAIN_STEP0)
-        par = DataParallel(one, params) if name == "model 1" else None
+        par = DataParallel(one, params, cfg) if name == "model 1" else None
         step = make_train_step(cfg, crit, optim, parallel=par)
         torch.cuda.synchronize()
         _reset_counters()
@@ -4188,7 +4225,7 @@ def phase_axes(smi: str, seen: set = None) -> dict:
     try:
         mesh4 = Mesh((1, 1, AXES_MODEL, 1, 1), 0, {})
         full = trainable(from_jax(tree, cfg0, "cuda", torch.float32))
-        blocks = DataParallel(mesh4, full).shard(full)
+        blocks = DataParallel(mesh4, full, cfg0).shard(full)
         blocks["embed_tokens"] = full["embed_tokens"]  # the model uses it whole
         _reset_counters()
         with set_mesh(mesh4), mock.patch.object(kb, "FlashAttentionTrainable",

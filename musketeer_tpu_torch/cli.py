@@ -206,7 +206,7 @@ def _train(args, device):
     # the mesh over the ranks (one without a process group); every rank reads
     # the whole global batch, as the JAX package's one host does, and keeps its block
     mesh = make_mesh(cfg.mesh)
-    parallel = DataParallel(mesh, params) if torch.distributed.is_initialized() else None
+    parallel = DataParallel(mesh, params, model_cfg) if torch.distributed.is_initialized() else None
     lead = mesh.rank == 0
 
     validate_fn = None

@@ -110,8 +110,8 @@ from ..ops.decode_cross_attn import decode_cross_attention_int8
 from ..ops.decode_stack import decode_stack_step, pack_decoder_weights
 from ..ops.flash_attention_bwd import flash_attention
 from ..parallel import tensor_parallel as tp
-from ..parallel.mesh import PIPE, SEQ, get_mesh
-from ..parallel.pipeline import pipeline_scan
+from ..parallel.mesh import PIPE, SEQ, get_mesh, stack_interleave, stage_layers
+from ..parallel.pipeline import gather_layers, pipeline_scan
 from ..parallel.ring_attention import ring_attention, seq_chunk, seq_gather
 from ..params import check_supported, normformer_flags
 from . import positions as pos_lib
@@ -373,7 +373,7 @@ def _usable_interleave(cfg: ModelConfig, n_layers: int, mesh, M: int) -> int:
     if V <= 1:
         return 1
     Pn = mesh.shape[PIPE]
-    if n_layers % (Pn * V) != 0 or M > Pn:
+    if stack_interleave(cfg, n_layers, Pn, M) == 1:
         _warn_once(
             f"interleave-{n_layers}-{Pn}-{V}-{M}",
             "pipeline_interleave=%d falls back to plain GPipe for this "
@@ -382,6 +382,46 @@ def _usable_interleave(cfg: ModelConfig, n_layers: int, mesh, M: int) -> int:
         )
         return 1
     return V
+
+
+_REL_TABLES = ("token_rel_pos_table", "image_rel_pos_table")
+
+
+def _stack_params(side: Params, cfg: ModelConfig, n_layers: int, pipe_mesh) -> Params:
+    """``side`` (the encoder's or the decoder's parameters) with the layer
+    stack this forward runs. The tree holds all ``n_layers`` layers or, split
+    over ``pipe`` as the JAX ``param_shardings`` splits it
+    (``DataParallel``), this stage's (``mesh.stage_layers``) and their rows
+    of the rel-pos tables. Under the pipeline (``pipe_mesh``) the forward
+    runs this stage's layers and rows; elsewhere all of them, gathered over
+    the active mesh's pipe ranks where the tree holds one stage's, as JAX's
+    GSPMD gathers a sharded stack for the plain layer loop."""
+    layers = side["layers"]
+    tables = [k for k in _REL_TABLES if k in side]
+    if pipe_mesh is not None:
+        P = pipe_mesh.shape[PIPE]
+        stages = stage_layers(cfg, n_layers, P)
+        if stages is None:
+            raise ValueError(f"layers {n_layers} not divisible by stages*interleave {P}*"
+                             f"{stack_interleave(cfg, n_layers, P)}")
+        own = stages[pipe_mesh.coords[PIPE]]
+        if len(layers) == n_layers:  # the whole stack: this stage's part of it
+            rows = {k: side[k][torch.as_tensor(own, device=side[k].device)] for k in tables}
+            return {**side, "layers": [layers[i] for i in own], **rows}
+        if len(layers) != len(own):
+            raise ValueError(f"the tree holds {len(layers)} of {n_layers} layers; pipe stage "
+                             f"{pipe_mesh.coords[PIPE]} runs {len(own)}")
+        return side
+    if len(layers) == n_layers:
+        return side
+    active = get_mesh()
+    if active is None or active.mesh.shape[PIPE] == 1:
+        raise ValueError(f"the tree holds {len(layers)} of {n_layers} layers (a pipe stage's) "
+                         "but no mesh with a pipe axis is active")
+    mesh = active.mesh
+    full, full_tables = gather_layers(layers, [side[k] for k in tables], mesh,
+                                      stage_layers(cfg, n_layers, mesh.shape[PIPE]))
+    return {**side, "layers": full, **dict(zip(tables, full_tables))}
 
 
 def _active_seq_mesh(cfg: ModelConfig):
@@ -705,6 +745,13 @@ def encode(
         x = _pad_to(x, 1, S)
         padding_mask = _pad_to(padding_mask, 1, S, True)
         pos_for_bias = _pad_to(pos_for_bias, 1, S)
+    enc_dp = cfg.encoder_drop_path_rate > 0 and not deterministic
+    dp_rates = _drop_path_rates(cfg.encoder_drop_path_rate, cfg.encoder_layers, enc_dp)
+    # the pipeline takes a forward whose layers draw nothing from the generator
+    pipe_mesh = (_active_pipe_mesh(cfg) if use_flash and sp_mesh is None and (
+        generator is None or _no_reg(cfg, cfg.encoder_drop_path_rate if enc_dp else 0.0))
+        else None)
+    enc = _stack_params(enc, cfg, cfg.encoder_layers, pipe_mesh)
     token_rp = pos_lib.make_token_bucket_position(cfg.token_bucket_size, cfg.max_source_positions)
     token_rp = _index(token_rp[:T, :T], device)
     if use_flash:
@@ -746,12 +793,6 @@ def encode(
             return xla_attention(pa, cfg, h, h, abs_bias + rel, padding_mask, gen=generator,
                                  deterministic=deterministic, prompt_kv=pkv)
 
-    enc_dp = cfg.encoder_drop_path_rate > 0 and not deterministic
-    dp_rates = _drop_path_rates(cfg.encoder_drop_path_rate, cfg.encoder_layers, enc_dp)
-    # the pipeline takes a forward whose layers draw nothing from the generator
-    pipe_mesh = (_active_pipe_mesh(cfg) if use_flash and sp_mesh is None and (
-        generator is None or _no_reg(cfg, cfg.encoder_drop_path_rate if enc_dp else 0.0))
-        else None)
     if sp_mesh is not None:
         # each rank runs its chunk of the stream, its query rows of rel
         Sl = S // sp_mesh.shape[SEQ]
@@ -933,6 +974,14 @@ def decode(
         sp_mesh = None
     if sp_mesh is not None:
         use_flash = True
+    dec_dp = cfg.decoder_drop_path_rate > 0 and not deterministic
+    dp_rates = _drop_path_rates(cfg.decoder_drop_path_rate, cfg.decoder_layers, dec_dp)
+    pipe_mesh = (_active_pipe_mesh(cfg) if use_flash and sp_mesh is None and code_masks is None
+                 and (generator is None
+                      or _no_reg(cfg, cfg.decoder_drop_path_rate if dec_dp else 0.0))
+                 else None)
+    dec = _stack_params(dec, cfg, cfg.decoder_layers, pipe_mesh)
+    params = {**params, "decoder": dec}
     if use_flash:
         all_code = code_masks is not None
         if all_code:
@@ -980,12 +1029,6 @@ def decode(
                                  deterministic=deterministic)
 
     x = _dropout(x, cfg.dropout, generator, deterministic)
-    dec_dp = cfg.decoder_drop_path_rate > 0 and not deterministic
-    dp_rates = _drop_path_rates(cfg.decoder_drop_path_rate, cfg.decoder_layers, dec_dp)
-    pipe_mesh = (_active_pipe_mesh(cfg) if use_flash and sp_mesh is None and code_masks is None
-                 and (generator is None
-                      or _no_reg(cfg, cfg.decoder_drop_path_rate if dec_dp else 0.0))
-                 else None)
     if sp_mesh is not None:
         # the ring shards T evenly: pad with masked keys (causality already
         # hides the trailing columns from real rows), slice back after

@@ -5,7 +5,9 @@ batches, optionally resumed from or saved to a checkpoint) on ``world``
 ranks over a layout of the mesh's five axes (``run_layouts``: several jobs
 and layouts in turn on the same ranks) and returns rank 0's record: each
 step's loss, gradient norm, metrics and seconds, the full state at the end,
-the bytes of state each rank holds and, on cards, each rank's peak memory.
+the bytes of state each rank holds (and as ``leaf_spec`` reckons them), the
+attention kernels' launches over the steps and, on cards, each rank's peak
+memory.
 The ranks are gloo processes on the CPU, or NCCL processes with rank r on
 card r (``device="cuda"``; their fp32 products in full fp32, no TF32).
 ``run_job`` runs the same job in this process without a process group.
@@ -23,12 +25,15 @@ so that a rank left waiting in a collective fails the caller, not hangs it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import faulthandler
 import os
 import socket
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -44,10 +49,11 @@ from ..training.train_state import init_train_state, named_leaves
 from ..training.train_step import make_train_step
 from ..training.trainer import step_generator
 from ..training.prefetch import move_to
-from .data_parallel import DataParallel, state_bytes
+from .data_parallel import DataParallel, reckoned_state_bytes, state_bytes
 from .mesh import DATA, FSDP, make_mesh, shard_batches
 
 _TIMEOUT = datetime.timedelta(seconds=300)
+_WATCH = 60.0  # seconds: a reported step that runs longer prints where the rank waits, so often
 
 
 @dataclasses.dataclass
@@ -90,6 +96,46 @@ def _report(job: Job, parallel: Optional[DataParallel], device: torch.device, wh
     print(f"[{job.report} rank {rank}] {what}{peak}", flush=True)
 
 
+def _attention_launches() -> Dict[str, int]:
+    """The attention kernels' launch counts so far in this process (K1, K3,
+    K4; a call on CPU tensors runs the plain version and counts nothing)."""
+    from ..ops import flash_attention_bwd as kb
+    from ..ops import flash_attention_infer as k1
+
+    return {"K1": k1.flash_attention_inference.launches, "K3": kb.flash_attention_fwd.launches,
+            "K4": kb.flash_attention_bwd.launches}
+
+
+@contextlib.contextmanager
+def _watch(job: Job, parallel: Optional[DataParallel], what: str):
+    """With ``job.report``: while the block runs longer than ``_WATCH``
+    seconds, print every ``_WATCH`` seconds where this rank is (the
+    pipeline's clock and the collective it last posted, and every thread's
+    stack), so that a run that hangs shows where each rank waits."""
+    if job.report is None:
+        yield
+        return
+    done = threading.Event()
+    t0 = time.perf_counter()
+
+    def watch():
+        while not done.wait(_WATCH):
+            rank, progress = (0, {}) if parallel is None else (parallel.mesh.rank,
+                                                                dict(parallel.mesh.progress))
+            print(f"[{job.report} rank {rank}] {what} running for "
+                  f"{time.perf_counter() - t0:.0f} s; pipeline {progress}", flush=True)
+            faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+            sys.stdout.flush()
+
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        done.set()
+        thread.join()
+
+
 def run_job(job: Job, parallel: Optional[DataParallel] = None,
             device="cpu") -> Dict[str, Any]:
     """Run ``job`` on ``device`` in this process: alone, or as one rank of
@@ -106,25 +152,33 @@ def run_job(job: Job, parallel: Optional[DataParallel] = None,
         step=job.update)
     if job.load_dir is not None:
         state, _ = load_state(job.load_dir, state, parallel)
-    _report(job, parallel, device, f"state {state_bytes(state) / 2**30:.3f} GiB")
+    trees = 3 + (state.ema_params is not None)
+    reckoned = (state_bytes(state) if parallel is None
+                else reckoned_state_bytes(job.params, parallel.mesh, trees))
+    _report(job, parallel, device, f"state {state_bytes(state) / 2**30:.3f} GiB (leaf_spec "
+            f"reckons {reckoned / 2**30:.3f} GiB)")
     step = make_train_step(job.model_cfg, job.crit_cfg, job.optim_cfg, ema_decay=job.ema_decay,
                            parallel=parallel)
     block = 0 if parallel is None else parallel.mesh.index(DATA, FSDP)
     metrics, secs = [], []
+    launches0 = _attention_launches()
     for i, batches in enumerate(job.steps):
         if parallel is not None:
             batches = shard_batches(batches, parallel.mesh)
         batches = move_to(batches, device)
         gen = None if job.seed is None else step_generator(job.seed, state.step, device, block)
         t0 = time.perf_counter()
-        state, m = step(state, batches, gen)
-        metrics.append({k: float(v) for k, v in m.items()})  # float() waits for the step
+        with _watch(job, parallel, f"step {i}"):
+            state, m = step(state, batches, gen)
+            metrics.append({k: float(v) for k, v in m.items()})  # float() waits for the step
         secs.append(time.perf_counter() - t0)
         _report(job, parallel, device, f"step {i}: loss {metrics[-1]['loss']:.6f}, "
                 f"{secs[-1]:.2f} s")
         if i == 0 and job.save_dir is not None:
             save_state(state, lambda full: save_checkpoint(job.save_dir, full), parallel)
     rec = {"step": state.step, "metrics": metrics, "secs": secs, "state_bytes": state_bytes(state),
+           "reckoned_bytes": reckoned,
+           "launches": {k: n - launches0[k] for k, n in _attention_launches().items()},
            "peak": torch.cuda.max_memory_allocated(device) if cuda else None}
     if job.keep_state:
         if parallel is not None:
@@ -210,11 +264,12 @@ def _layouts_rank(mesh, device, runs) -> List[Dict[str, Any]]:
     records = []
     for layout, job in runs:
         mesh = make_mesh(_layout(layout))
-        rec = run_job(job, DataParallel(mesh, job.params), device)
+        rec = run_job(job, DataParallel(mesh, job.params, job.model_cfg), device)
         per_rank = [None] * mesh.world
-        dist.all_gather_object(per_rank, (rec["peak"], rec["state_bytes"]))
-        rec["peaks"] = [p for p, _ in per_rank]
-        rec["rank_state_bytes"] = [b for _, b in per_rank]
+        dist.all_gather_object(per_rank, (rec["peak"], rec["state_bytes"], rec["reckoned_bytes"],
+                                          rec["launches"]))
+        rec["peaks"], rec["rank_state_bytes"], rec["rank_reckoned_bytes"], rec["rank_launches"] = (
+            [r[i] for r in per_rank] for i in range(4))
         records.append(rec if mesh.rank == 0 else None)
     return records
 

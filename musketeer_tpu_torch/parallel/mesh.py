@@ -23,14 +23,17 @@ r sits at the row-major coordinate of r in ``(data, fsdp, model, pipe,
 seq)``. The batch axis is split over ``(data, fsdp)`` jointly, as
 ``P((DATA, FSDP))`` splits it over devices (``batch_block``).
 
-``_RULES``, ``param_spec`` and ``_fit_spec`` are the JAX package's, with
-specs as tuples of axis names (None: not sharded) instead of
-``PartitionSpec``s; they read the JAX layout (stacked ``[L, ...]`` layers,
-``[din, dout]`` linears, HWIO convolutions). ``leaf_spec`` gives the same
-spec for a leaf of the port's tree, in the port's layout, with one
-deliberate difference: the JAX ``param_shardings`` puts a layer stack's
-``L`` axis on ``pipe`` (each stage holds its own layers), and the port
-holds every layer on every pipe rank (``data_parallel.py``).
+``_RULES``, ``param_spec``, ``_fit_spec`` and ``_is_layer_stacked`` are the
+JAX package's, with specs as tuples of axis names (None: not sharded)
+instead of ``PartitionSpec``s; they read the JAX layout (stacked ``[L, ...]``
+layers, ``[din, dout]`` linears, HWIO convolutions). ``leaf_spec`` gives the
+spec that the JAX ``param_shardings`` gives, for a leaf of the port's tree in
+the port's layout: a layer stack's ``L`` axis on ``pipe`` (each stage holds
+its own layers, and its rows of the four ``[L, Vb, H]`` rel-pos tables), the
+other dims as the rules say. ``stage_layers`` says which layers each stage
+holds: JAX's contiguous ``L/P`` block, or under the interleaved schedule the
+stage's ``V`` chunks of ``L/(P·V)``, the layers it runs (the same bytes; JAX
+holds the block and permutes the layers inside each step).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from __future__ import annotations
 import contextlib
 import math
 import re
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -61,6 +64,8 @@ class Mesh:
         self.world = math.prod(sizes)
         self.coords: Dict[str, int] = dict(zip(AXES, np.unravel_index(rank, tuple(sizes))))
         self._groups = groups
+        # the pipeline's clock and last collective on this rank (read when a run hangs)
+        self.progress: Dict[str, object] = {}
 
     def size(self, *axes: str) -> int:
         return math.prod(self.shape[a] for a in axes)
@@ -90,10 +95,13 @@ def _key(shape: Dict[str, int], axes) -> frozenset:
 
 
 # the sets of axes the port communicates over: each axis, the batch (data x
-# fsdp), the norm's (fsdp x model), and the gradient sums' (data x pipe x seq
-# after fsdp's reduce-scatter, data x fsdp x pipe x seq for a replicated leaf)
+# fsdp), the norm's (a leaf's squares over the axes that split it: fsdp, model
+# and pipe), and the gradient sums' (data x pipe x seq after fsdp's
+# reduce-scatter, data x fsdp x pipe x seq for a replicated leaf; a stage's
+# layer leaves without pipe)
 _GROUP_AXES = ((DATA,), (FSDP,), (MODEL,), (PIPE,), (SEQ,), (DATA, FSDP), (FSDP, MODEL),
-               (DATA, PIPE, SEQ), (DATA, FSDP, PIPE, SEQ))
+               (FSDP, PIPE), (MODEL, PIPE), (FSDP, MODEL, PIPE),
+               (DATA, PIPE, SEQ), (DATA, FSDP, PIPE, SEQ), (DATA, SEQ), (DATA, FSDP, SEQ))
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(), world: Optional[int] = None) -> Mesh:
@@ -182,7 +190,7 @@ def shard_batches(batches, mesh: Mesh):
 # ---------------------------------------------------------------------------
 # Rules are matched against the flattened param path. First match wins.
 # Layer-stacked leaves have a leading L axis, which the rules never shard
-# (the JAX param_shardings puts it on pipe; the port does not: see above).
+# (param_shardings puts it on pipe: leaf_spec below).
 #
 # Tensor-parallel choices (standard Megatron layout):
 #   attention q/k/v: out dim (heads) on MODEL;   out_proj: in dim on MODEL
@@ -249,6 +257,48 @@ def _fit_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
     return tuple(out)
 
 
+def _is_layer_stacked(path: str) -> bool:
+    """Leaves whose leading axis is the transformer layer axis (a port leaf
+    with ``.layers.`` is one entry of such a leaf)."""
+    return ".layers." in path or path.endswith("rel_pos_table")
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages
+# ---------------------------------------------------------------------------
+
+def _owned(L: int, P: int, V: int, d: int) -> List[List[int]]:
+    """Stage ``d``'s layer indices, chunk by chunk (V chunks of L/(P·V))."""
+    Lc = L // (P * V)
+    return [list(range((v * P + d) * Lc, (v * P + d + 1) * Lc)) for v in range(V)]
+
+
+def stack_interleave(cfg, n_layers: int, stages: int, M: Optional[int] = None) -> int:
+    """The interleave V that a stack of ``n_layers`` runs under ``cfg``'s
+    pipeline over ``stages`` with ``M`` microbatches (default
+    ``cfg.pipeline_microbatches``): ``cfg.pipeline_interleave`` where the
+    interleaved schedule's conditions hold (layers divisible by stages·V,
+    microbatches ≤ stages), else 1 (GPipe)."""
+    V = cfg.pipeline_interleave
+    M = cfg.pipeline_microbatches if M is None else M
+    if V <= 1 or n_layers % (stages * V) or M > stages:
+        return 1
+    return V
+
+
+def stage_layers(cfg, n_layers: int, stages: int) -> Optional[List[List[int]]]:
+    """Each pipe stage's layers of a stack of ``n_layers`` (stage d's at [d]),
+    in the order the stage runs them: its V chunks (``stack_interleave``; V =
+    1 without microbatches, where no pipeline runs: JAX's contiguous
+    ``L/P`` block). None where the stack does not split over the stages
+    (L % P ≠ 0), which replicates it, as ``_fit_spec`` does."""
+    V = stack_interleave(cfg, n_layers, stages) if cfg.pipeline_microbatches > 0 else 1
+    if n_layers % (stages * V):
+        return None
+    return [[i for chunk in _owned(n_layers, stages, V, d) for i in chunk]
+            for d in range(stages)]
+
+
 # ---------------------------------------------------------------------------
 # the port's layout
 # ---------------------------------------------------------------------------
@@ -284,28 +334,41 @@ def _to_port(path: str, spec: Spec, ndim: int) -> Spec:
     return spec
 
 
-def leaf_spec(path: str, shape, mesh: Mesh) -> Spec:
+def leaf_spec(path: str, shape, mesh: Mesh, layers: Optional[int] = None) -> Spec:
     """The spec of the port's leaf at ``path`` (``named_leaves``' paths) with
     ``shape``: the JAX leaf's ``param_spec``, fitted to the mesh as
-    ``param_shardings`` fits it, in the port's layout."""
+    ``param_shardings`` fits it, in the port's layout. A layer-stacked leaf's
+    ``L`` axis goes on ``pipe`` where the mesh has it: a rel-pos table's dim
+    0, or for a leaf of a layer list (``.layers.``, one entry of the JAX
+    ``[L, ...]`` leaf) the list itself, given as ``layers`` (the stack's L):
+    the spec then starts with the list's entry. Without ``layers`` such a
+    leaf's spec is one entry's (a mesh of one pipe stage only)."""
     jshape = jax_shape(path, shape)
     stacked = _per_layer(path)
     nd = len(jshape) + stacked
     spec = tuple(param_spec(path, nd))
     spec = spec + (None,) * (nd - len(spec))
-    if stacked:
-        spec = spec[1:]  # the port holds every layer on every pipe rank (module docstring)
-    return _to_port(path, _fit_spec(spec, jshape, mesh), len(jshape))
+    if mesh.shape[PIPE] > 1 and _is_layer_stacked(path):
+        spec = (PIPE,) + spec[1:]  # pipeline stages own layer blocks (param_shardings)
+    if not stacked:
+        return _to_port(path, _fit_spec(spec, jshape, mesh), len(jshape))
+    if layers is None:
+        if spec[0] is not None:
+            raise ValueError(f"{path}: the layer axis is on pipe; give the stack's layers")
+        return _to_port(path, _fit_spec(spec[1:], jshape, mesh), len(jshape))
+    fitted = _fit_spec(spec, (layers,) + jshape, mesh)
+    return (fitted[0],) + _to_port(path, fitted[1:], len(jshape))
 
 
-def sharded_dim(path: str, shape, mesh: Mesh, axis: str) -> Optional[int]:
+def sharded_dim(path: str, shape, mesh: Mesh, axis: str,
+                layers: Optional[int] = None) -> Optional[int]:
     """The dim of the port's leaf that ``axis`` shards, or None (replicated
-    over it, or the axis is one rank)."""
+    over it, or the axis is one rank); counted as ``leaf_spec(path, shape,
+    mesh, layers)`` counts them (with ``layers``, 0 is a layer list's axis)."""
     if mesh.shape[axis] == 1:
         return None
-    for d, axes in enumerate(leaf_spec(path, shape, mesh)):
+    for d, axes in enumerate(leaf_spec(path, shape, mesh, layers)):
         names = (axes,) if isinstance(axes, str) else tuple(axes or ())
         if axis in names:
             return d
     return None
-

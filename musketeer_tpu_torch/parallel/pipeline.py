@@ -7,9 +7,11 @@ on microbatch t − s when 0 ≤ t − s < M; M + P − 1 clocks in all, a bubbl
 schedule) the L layers split into P·V chunks of L/(P·V), stage d owns chunks
 d, d + P, …, d + (V − 1)·P, and microbatch m runs chunk c = v·P + d at clock
 m + c: M + P·V − 1 clocks of chunk size, M ≤ P. These are the JAX schedules,
-clock for clock; the JAX package's permutation of the stacked layers into
-device-major order is what ``_owned`` reads here, since every pipe rank holds
-the whole layer list.
+clock for clock. A stage holds only its own layers (``mesh.stage_layers``,
+``data_parallel.py``): JAX's stage holds its contiguous L/P block and
+permutes the stacked layers into device-major order inside each step; here
+a stage holds its V chunks, in the order it runs them, so that no step moves
+a layer between stages.
 
 Between clocks a stage sends its output to the next over ``torch.distributed``
 point-to-point (``batch_isend_irecv``, each send matched by the neighbour's
@@ -25,10 +27,19 @@ The backward is the reverse schedule in the same autograd function: clock by
 clock from the last, each active stage takes its output's gradient (the last
 stage from the broadcast's, summed over the stages; the others from the next
 stage), runs the backward of its layers and sends its input's gradient to the
-previous stage. The stages' layers, ``side`` and ``consts`` get each stage's
-part of their gradients: summed over the ``pipe`` ranks, they are the whole.
-With ``remat`` the forward keeps only each clock's input and the backward
-recomputes the stage, as the JAX schedule's ``jax.checkpoint`` of a stage.
+previous stage. A stage's layers get their whole gradient on the stage;
+``side`` and ``consts`` get each stage's part of theirs: summed over the
+``pipe`` ranks, they are the whole. With ``remat`` the forward keeps only
+each clock's input and the backward recomputes the stage, as the JAX
+schedule's ``jax.checkpoint`` of a stage.
+
+``gather_layers`` is the other way a stack runs over ``pipe``: where the
+pipeline's gate is closed, every stage gathers the whole stack (all-gather
+in the forward, reduce-scatter of the gradients to their stages in the
+backward), as JAX's GSPMD gathers a sharded stack for a plain layer loop.
+
+``mesh.progress`` records the pipeline's clock and the collective it last
+posted on this rank; a run that hangs reads it (``dryrun``'s reports).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from torch.utils import _pytree as pytree
 
 from .mesh import PIPE, Mesh
@@ -52,12 +64,6 @@ def _rebuild(tree, tensors: Sequence[torch.Tensor]):
     it = iter(tensors)
     return pytree.tree_unflatten([next(it) if isinstance(x, torch.Tensor) else x
                                   for x in leaves], spec)
-
-
-def _owned(L: int, P: int, V: int, d: int) -> List[List[int]]:
-    """Stage ``d``'s layer indices, chunk by chunk (V chunks of L/(P·V))."""
-    Lc = L // (P * V)
-    return [list(range((v * P + d) * Lc, (v * P + d + 1) * Lc)) for v in range(V)]
 
 
 class _Schedule:
@@ -130,6 +136,7 @@ class _Pipeline(torch.autograd.Function):
         out = [torch.zeros_like(x) for x in pay]
         incoming = None
         for t in range(sched.n_clock):
+            mesh.progress.update(phase="forward", clock=t)
             w = sched.work(t)
             y = None
             if w is not None:
@@ -146,6 +153,8 @@ class _Pipeline(torch.autograd.Function):
             incoming = _step(mesh, sched, t, y, pay)
         if sched.P > 1:  # the last stage's outputs on every stage
             last = mesh.rank_at(**{PIPE: sched.P - 1})
+            mesh.progress.update(phase="forward", clock=sched.n_clock,
+                                 collective=f"broadcast from rank {last}")
             for o in out:
                 buf = _sendable(o)
                 dist.broadcast(buf, last, group=mesh.group(PIPE))
@@ -162,12 +171,15 @@ class _Pipeline(torch.autograd.Function):
                  for g, (s, dt) in zip(g_out, ctx.out_like)]
         if sched.P > 1:  # the stages' shares of the output's gradient, summed on the last
             last = mesh.rank_at(**{PIPE: sched.P - 1})
+            mesh.progress.update(phase="backward", clock=sched.n_clock,
+                                 collective=f"reduce to rank {last}")
             for g in g_out:
                 dist.reduce(g, last, group=mesh.group(PIPE))
         g_targets: List[Optional[torch.Tensor]] = [None] * len(targets)
         g_pay = [torch.zeros_like(g) for g in g_out]
         g_next = None  # the gradient of this stage's output at the clock, from the next stage
         for t in range(sched.n_clock - 1, -1, -1):
+            mesh.progress.update(phase="backward", clock=t)
             w = sched.work(t)
             g_in = None
             if w is not None:
@@ -233,6 +245,7 @@ def _step(mesh, sched: _Schedule, t: int, y, like):
         return y if sched.sends(t) else None
     send_to = _neighbour(mesh, sched, 1) if sched.sends(t) else None
     recv_from = _neighbour(mesh, sched, -1) if sched.sends(t, (sched.d - 1) % sched.P) else None
+    mesh.progress["collective"] = f"send to rank {send_to}, receive from rank {recv_from}"
     return _exchange(mesh.group(PIPE), send_to, y or [], recv_from, [x[0] for x in like])
 
 
@@ -244,47 +257,99 @@ def _step_back(mesh, sched: _Schedule, t: int, g_in, like):
         return g_in if came else None
     send_to = _neighbour(mesh, sched, -1) if came else None
     recv_from = _neighbour(mesh, sched, 1) if t >= 1 and sched.sends(t - 1) else None
+    mesh.progress["collective"] = f"send to rank {send_to}, receive from rank {recv_from}"
     return _exchange(mesh.group(PIPE), send_to, g_in or [], recv_from, [x[0] for x in like])
 
 
 def pipeline_scan(
     body: Callable[[Any, Any, Any, Any], Any],  # (payload, layer, consts, side) -> payload
     payload_mb: Any,  # pytree of tensors [M, ...]: the stream, stage to stage
-    layers: Sequence[Any],  # L pytrees, one per layer
+    layers: Sequence[Any],  # this stage's L/P layers (pytrees), chunk by chunk
     mesh: Mesh,
     consts: Any = None,  # replicated stage-invariant pytree
     remat: bool = False,
     interleave: int = 1,
     side_mb: Any = None,  # pytree of tensors [M, ...]: per-microbatch inputs every layer reads
 ) -> Any:
-    """Run ``body`` over all L layers as a pipeline over ``mesh``'s pipe axis →
-    the payload ``[M, ...]`` after the last layer, on every stage.
+    """Run ``body`` over the stack's L layers as a pipeline over ``mesh``'s
+    pipe axis → the payload ``[M, ...]`` after the last layer, on every stage.
 
-    Requires L % P == 0 (L % (P·V) == 0 and M ≤ P with ``interleave`` V > 1);
-    every pipe rank passes the same ``layers`` and calls this in the same
-    order. ``body`` gets the microbatch's ``side`` entries without the M axis."""
+    ``layers`` are this stage's: ``mesh.stage_layers``' list of it, that is
+    its V chunks of L/(P·V) layers in turn (``interleave`` V; M ≤ P with V >
+    1). Every pipe rank calls this in the same order. ``body`` gets the
+    microbatch's ``side`` entries without the M axis."""
     M = _tensor_leaves(payload_mb)[0].shape[0]
     P, d = mesh.shape[PIPE], mesh.coords[PIPE]
-    L = len(layers)
     V = interleave
-    if L % (P * V):
-        raise ValueError(f"layers {L} not divisible by stages*interleave {P}*{V}")
+    if not layers or len(layers) % V:
+        raise ValueError(f"a stage's {len(layers)} layers do not split into {V} chunks")
     if V > 1 and M > P:
         raise ValueError(f"interleaved schedule needs microbatches {M} <= stages {P}")
-    owned = [i for chunk in _owned(L, P, V, d) for i in chunk]
-    mine = [layers[i] for i in owned]
     consts = () if consts is None else consts
     side_mb = {} if side_mb is None else side_mb
     pay, side, cst = (_tensor_leaves(t) for t in (payload_mb, side_mb, consts))
-    lay = [x for tree in mine for x in _tensor_leaves(tree)]
+    lay = [x for tree in layers for x in _tensor_leaves(tree)]
     tensors = [*pay, *side, *cst, *lay]
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     if P > 1 and not getattr(mesh, "_pipe_ready", False):
         # NCCL: a group's first call must be every rank's, and a clock's
         # sends and receives are a pair's only
+        mesh.progress["collective"] = "the pipe group's first all-reduce"
         dist.all_reduce(torch.zeros(1, device=pay[0].device), group=mesh.group(PIPE))
         mesh._pipe_ready = True
     pay_tree = pytree.tree_map(lambda x: x[0] if isinstance(x, torch.Tensor) else x, payload_mb)
     st = _Setup(body, mesh, _Schedule(M, P, V, d), remat, grad, (len(pay), len(side), len(cst)),
-                (pay_tree, side_mb, consts, mine))
+                (pay_tree, side_mb, consts, list(layers)))
     return _rebuild(payload_mb, _Pipeline.apply(st, *tensors))
+
+
+class _GatherStages(torch.autograd.Function):
+    """Every stage's tensors → all of them, stage by stage; the backward sums
+    the stages' gradients of each stage's tensors onto that stage."""
+
+    @staticmethod
+    def forward(ctx, mesh, *held):
+        stages = mesh.shape[PIPE]
+        ctx.mesh, ctx.stages, ctx.like = mesh, stages, [t.detach() for t in held]
+        flat = _flatten_dense_tensors(ctx.like)
+        out = flat.new_empty(stages * flat.numel())
+        mesh.progress["collective"] = "all-gather of a layer stack"
+        dist.all_gather_into_tensor(out, flat, group=mesh.group(PIPE))
+        n = flat.numel()
+        return tuple(t for d in range(stages)
+                     for t in _unflatten_dense_tensors(out[d * n:(d + 1) * n], ctx.like))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        out = flat.new_empty(flat.numel() // ctx.stages)
+        ctx.mesh.progress["collective"] = "reduce-scatter of a layer stack's gradients"
+        dist.reduce_scatter_tensor(out, flat, group=ctx.mesh.group(PIPE))
+        return (None, *_unflatten_dense_tensors(out, ctx.like))
+
+
+def gather_layers(layers: Sequence[Any], tables: Sequence[torch.Tensor], mesh: Mesh,
+                  stages: Sequence[Sequence[int]]):
+    """This stage's ``layers`` (pytrees) and rows of ``tables`` (``[L/P, ...]``)
+    → the whole stack's: every layer in order and the tables' ``L`` rows, on
+    every pipe rank; ``stages`` is each stage's layer list
+    (``mesh.stage_layers``). Differentiable: each stage's gradients are
+    summed over the pipe ranks onto the stage that holds the layer."""
+    P = mesh.shape[PIPE]
+    leaves = [x for tree in layers for x in _tensor_leaves(tree)] + list(tables)
+    if len({t.dtype for t in leaves}) > 1:
+        raise ValueError("a layer stack's leaves must share one dtype to be gathered")
+    out = _GatherStages.apply(mesh, *leaves)
+    per_stage = len(leaves)
+    order = [i for stage in stages for i in stage]  # the gathered layers' indices
+    full: List[Any] = [None] * len(order)
+    rows: List[List[torch.Tensor]] = [[] for _ in tables]
+    for d in range(P):
+        part = iter(out[d * per_stage:(d + 1) * per_stage])
+        for k, tree in enumerate(layers):
+            full[stages[d][k]] = _rebuild(tree, [next(part) for _ in _tensor_leaves(tree)])
+        for j in range(len(tables)):
+            rows[j].append(next(part))
+    inv = torch.argsort(torch.tensor(order))
+    full_tables = [torch.cat(r)[inv.to(r[0].device)] for r in rows]
+    return full, full_tables

@@ -15,6 +15,14 @@ layers, d 64, 4 heads) with the flash branch, random rel tables, float32.
 The gate (the JAX model's: flash on, no SP, no code masks on the decoder,
 and no generator or no in-layer regulariser) and the interleave downgrade's
 warning are checked in this process.
+
+The pipe axis's state layout: on ``ofa_tiny`` (meta tensors, no ranks) each
+rank's ``DataParallel`` blocks of the parameters, AdamW moments and EMA
+equal, leaf by leaf and in total, the bytes that the JAX ``param_shardings``
+puts on the device at that rank's coordinate of a mesh of the 8 CPU
+devices; and on the ranks, validation's tree (a data 2 × pipe 2 rank's
+blocks gathered with ``full``) equals the tree, and its forward and beam
+search under the mesh equal one rank's.
 """
 
 import dataclasses
@@ -26,9 +34,10 @@ import torch
 
 from musketeer_tpu_torch import config as tc
 from musketeer_tpu_torch.models import ofa
-from musketeer_tpu_torch.parallel import set_mesh
+from musketeer_tpu_torch.parallel import DataParallel, set_mesh
+from musketeer_tpu_torch.parallel.data_parallel import reckoned_state_bytes
 from musketeer_tpu_torch.parallel.dryrun import run_fn
-from musketeer_tpu_torch.parallel.mesh import PIPE, Mesh, make_mesh
+from musketeer_tpu_torch.parallel.mesh import PIPE, Mesh, _owned, make_mesh
 from musketeer_tpu_torch.parallel.pipeline import pipeline_scan
 from musketeer_tpu_torch.params import from_jax, trainable
 from musketeer_tpu_torch.training.train_state import named_leaves
@@ -91,7 +100,9 @@ def _ranks(_, device, scans, model):
         xs, x, c = _scan_inputs(L, M, mb, D, seed, bias=name in ("matches_scan",
                                                                  "interleaved_matches_scan"))
         w = {k: torch.from_numpy(v).requires_grad_() for k, v in xs.items()}
-        layers = [{k: v[i] for k, v in w.items()} for i in range(L)]
+        # this stage's layers, chunk by chunk
+        own = [i for chunk in _owned(L, P, V, mesh.coords[PIPE]) for i in chunk]
+        layers = [{k: v[i] for k, v in w.items()} for i in own]
         body = _single_body if name == "single_stage" else _scan_body
         y = pipeline_scan(body, {"x": torch.from_numpy(x)}, layers, mesh,
                           consts=None if c is None else torch.from_numpy(c), remat=remat,
@@ -104,6 +115,7 @@ def _ranks(_, device, scans, model):
             rec["grad"] = g
         out[name] = rec
     mesh = make_mesh(tc.MeshConfig(pipe=2))
+    out["validation"] = _validate(mesh, *model["forward"])
     for name, (cfg, params, src, imgs, masks, prev) in model.items():
         with set_mesh(mesh):
             if name == "forward":
@@ -122,6 +134,26 @@ def _ranks(_, device, scans, model):
             rec["grads"] = grads
         out[name] = rec
     return out
+
+
+def _validate(mesh, cfg, params, src, imgs, masks, prev):
+    """As ``train_loop`` validates under ``DataParallel``: this rank's blocks
+    gathered with ``full``, the forward and a beam search on them under the
+    mesh with the batch whole on every rank → (the gathered tree's leaves,
+    the stage's layer count, the logits, the tokens)."""
+    from musketeer_tpu_torch.config import GenerationConfig
+    from musketeer_tpu_torch.generation import beam_search
+
+    par = DataParallel(mesh, params, cfg)
+    blocks = par.shard(params)
+    full = par.gather(blocks, full=True)
+    with set_mesh(mesh, model_split=False, batch_local=False), torch.no_grad():
+        logits = ofa.forward(full, cfg, src, prev, imgs, masks)
+        enc = ofa.encode(full, cfg, src, imgs, masks)
+        tokens = beam_search(full, cfg, GenerationConfig(beam_size=2, max_len_b=4), enc,
+                             max_len=4)
+    return {"tree": [t.detach() for _, t in named_leaves(full)],
+            "held": len(blocks["encoder"]["layers"]), "logits": logits, "tokens": tokens}
 
 
 @pytest.fixture(scope="module")
@@ -324,3 +356,100 @@ def test_pipeline_refuses_a_batch_the_microbatches_do_not_split(model_setup, mon
     cfg, params, src, imgs, masks, _ = _port_model_case(model_setup["gpipe"])
     with set_mesh(_fake_pipe_mesh()), pytest.raises(ValueError, match="microbatches"):
         ofa.encode(params, dataclasses.replace(cfg, pipeline_microbatches=3), src, imgs, masks)
+
+
+def test_validation_on_the_gathered_tree_matches_one_rank(port, model_setup):
+    """Each data 2 × pipe 2 rank holds one of the two layers of a stack;
+    gathered with ``full`` (validation's and the checkpoints' tree) the tree
+    equals the whole tree bit for bit, and the forward and beam search on it
+    under the mesh equal one rank's without a mesh."""
+    from musketeer_tpu_torch.config import GenerationConfig
+    from musketeer_tpu_torch.generation import beam_search
+
+    cfg, params, src, imgs, masks, prev = _port_model_case(model_setup["gpipe"])
+    with torch.no_grad():
+        logits = ofa.forward(params, cfg, src, prev, imgs, masks)
+        tokens = beam_search(params, cfg, GenerationConfig(beam_size=2, max_len_b=4),
+                             ofa.encode(params, cfg, src, imgs, masks), max_len=4)
+    for rank in range(4):
+        got = port[rank]["validation"]
+        assert got["held"] == 1
+        assert all(torch.equal(a, b) for a, (_, b) in zip(got["tree"], named_leaves(params)))
+        _close(got["logits"], logits)
+        assert torch.equal(got["tokens"][0], tokens[0])  # the tokens; the scores:
+        _close(got["tokens"][1], tokens[1])
+
+
+# the meshes of the layout test: (data, fsdp, model, pipe), the model options
+LAYOUTS = {
+    "pipe2": ((1, 1, 1, 2), {}),
+    "data2_pipe2": ((2, 1, 1, 2), {}),
+    "fsdp2_pipe2": ((1, 2, 1, 2), {}),
+    "model2_pipe2": ((1, 1, 2, 2), {}),
+    "pipe2_interleave2": ((1, 1, 1, 2), dict(pipeline_microbatches=2, pipeline_interleave=2)),
+}
+
+
+@pytest.fixture(scope="module")
+def tiny_shapes():
+    import jax
+
+    from musketeer_tpu import config as jc
+    from musketeer_tpu.models import ofa as jofa
+
+    cfg_j = jc.ofa_tiny()
+    return cfg_j, jax.eval_shape(lambda: jofa.init_ofa_params(jax.random.PRNGKey(0), cfg_j))
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_pipe_state_layout_matches_param_shardings(tiny_shapes, layout):
+    """Every rank's blocks of the parameters, both AdamW moments and the EMA
+    (``DataParallel.shard_state`` of ``ofa_tiny``'s state) hold, leaf by leaf,
+    the bytes of the JAX ``param_shardings`` shard on the device at the
+    rank's coordinate: a stage its own layers and their rows of the rel-pos
+    tables (under the interleaved schedule its two chunks: the same bytes as
+    JAX's contiguous block); in total ``state_bytes`` and ``leaf_spec``'s
+    reckoning agree."""
+    import jax
+
+    from musketeer_tpu import config as jc
+    from musketeer_tpu.parallel import make_mesh as jax_make_mesh
+    from musketeer_tpu.parallel import mesh as jax_mesh
+    from musketeer_tpu_torch.config import OptimConfig
+    from musketeer_tpu_torch.training import init_train_state
+
+    cfg_j, shapes = tiny_shapes
+    sizes, opts = LAYOUTS[layout]
+    cfg_t = dataclasses.replace(tc.ModelConfig(**dataclasses.asdict(cfg_j)), **opts)
+    world = int(np.prod(sizes))
+    jm = jax_make_mesh(jc.MeshConfig(*sizes), devices=jax.devices()[:world])
+    shardings = dict(jax_mesh._tree_paths(jax_mesh.param_shardings(jm, shapes)))
+    leaves = dict(jax_mesh._tree_paths(shapes))
+    tree = from_jax(jax.tree.map(lambda s: torch.empty(s.shape, device="meta"), shapes),
+                    cfg_t, "meta", torch.float32)
+    state = init_train_state(tree, OptimConfig(), ema_decay=0.9)
+    want_total = 0
+    for rank in range(world):
+        mesh = Mesh((*sizes, 1), rank, {})
+        device = jm.devices[tuple(mesh.coords[a] for a in ("data", "fsdp", "model", "pipe"))
+                            + (0,) * (jm.devices.ndim - 4)]
+        want = {}
+        for path, leaf in leaves.items():
+            idx = shardings[path].devices_indices_map(leaf.shape)[device]
+            want[path] = 4 * int(np.prod([len(range(*i.indices(n))) for i, n in
+                                          zip(idx, leaf.shape)] or [1]))
+        par = DataParallel(mesh, tree, cfg_t)
+        held = par.shard_state(state)
+        for t in (held.params, held.opt_state["mu"], held.opt_state["nu"], held.ema_params):
+            got = {}
+            for path, x in named_leaves(t):
+                got[path] = got.get(path, 0) + x.numel() * x.element_size()
+            assert got == want, [p for p in want if got.get(p) != want[p]]
+        assert par.state_bytes(held) == 4 * sum(want.values()) == reckoned_state_bytes(
+            tree, mesh, 4)
+        assert par.state_bytes(held, full=True) == 4 * sum(
+            4 * int(np.prod(leaf.shape)) for leaf in leaves.values())
+        want_total += sum(want.values())
+        if sizes[3] > 1 and world == 2:  # one stage holds half of every stack
+            assert len(held.params["decoder"]["layers"]) == cfg_t.decoder_layers // 2
+    assert want_total < world * 4 * sum(int(np.prod(leaf.shape)) for leaf in leaves.values())
