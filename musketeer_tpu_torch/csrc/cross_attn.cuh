@@ -17,9 +17,13 @@
 // and widened in registers, dotted with the Kb query rows held in shared
 // memory; all Kb x S scores stay in shared memory for an exact (two-pass)
 // softmax, one warp per beam row. Values: thread (d, part) sums the keys of
-// its part for all Kb beams in registers; the NT / D parts (4 at D 64, 3 at
-// D 80, with 16 threads idle) are added in order. The head dim D is a
-// template parameter, compiled at 64 and 80.
+// its part for all Kb beams in registers; the NT / DP parts (8 at DP 32, 4
+// at 64, 3 at 80 with 16 threads idle, 2 at 128) are added in order. The
+// tile width DP is a template parameter, compiled at 32, 64, 80 and 128 (a
+// head dim D runs on the smallest DP >= D, common.cuh::with_head_dim): q's
+// staged columns past D are zeros, a key row is read to its stride (the
+// cache's rows, padded with zeros to a multiple of 8 or 16 elements), and
+// the threads of the columns past D sum nothing.
 #pragma once
 
 #include <stdint.h>
@@ -36,33 +40,35 @@ constexpr float NEG = -1e9f;
 
 struct Args {
   const void* q;         // T: element (b, h, j, d) at b * q_bs + h * q_hs + j * q_js + d
-  const void* k;         // KV [B, H, S, D]
-  const void* v;         // KV [B, H, S, D]
+  const void* k;         // KV [B, H, S, kv_rs]: rows of D, zeros to kv_rs
+  const void* v;         // KV [B, H, S, kv_rs]
   const float* k_scale;  // [B, H, S] (int8 K/V only)
   const float* v_scale;  // [B, H, S] (int8 K/V only)
   const float* bias;     // element (b, h, s) at b * bias_bs + h * bias_hs + s
   const uint8_t* pad;    // [B, S] bool (int8 only: K7 folds pads into the bias)
   void* out;             // T, in q's layout
   int H, Kb, S;
+  int D, kv_rs;          // the head dim; the cache's row stride (elements; D <= kv_rs <= DP)
   long long q_bs, q_hs, q_js, bias_bs, bias_hs;
 };
 
-template <int D>
+template <int DP>
 __host__ __device__ constexpr int parts() {  // key partitions of the value product
-  return NT / D;
+  return NT / DP;
 }
 
-template <int D>
+template <int DP>
 inline size_t smem_bytes(int Kb, int S) {
-  return sizeof(float) * ((size_t)Kb * D + (size_t)Kb * S + (size_t)parts<D>() * Kb * D);
+  return sizeof(float) * ((size_t)Kb * DP + (size_t)Kb * S + (size_t)parts<DP>() * Kb * DP);
 }
 
-// a D-element row, 16 bytes at a time, widened to fp32
-template <int D>
-__device__ __forceinline__ void load_row(const float* p, float* r) {
+// a row's first n (a multiple of 4 or 16) of DP elements, 16 bytes at a
+// time, widened to fp32; zeros past n
+template <int DP>
+__device__ __forceinline__ void load_row(const float* p, float* r, int n) {
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) {
-    const float4 v = reinterpret_cast<const float4*>(p)[i];
+  for (int i = 0; i < DP / 4; ++i) {
+    const float4 v = 4 * i < n ? reinterpret_cast<const float4*>(p)[i] : make_float4(0, 0, 0, 0);
     r[4 * i] = v.x;
     r[4 * i + 1] = v.y;
     r[4 * i + 2] = v.z;
@@ -70,11 +76,11 @@ __device__ __forceinline__ void load_row(const float* p, float* r) {
   }
 }
 
-template <int D>
-__device__ __forceinline__ void load_row(const int8_t* p, float* r) {
+template <int DP>
+__device__ __forceinline__ void load_row(const int8_t* p, float* r, int n) {
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
-    const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+  for (int i = 0; i < DP / 16; ++i) {
+    const uint4 v = 16 * i < n ? reinterpret_cast<const uint4*>(p)[i] : make_uint4(0, 0, 0, 0);
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 16; ++j)
@@ -82,32 +88,33 @@ __device__ __forceinline__ void load_row(const int8_t* p, float* r) {
   }
 }
 
-template <int D, typename T, typename KV, bool kInt8>
+template <int DP, typename T, typename KV, bool kInt8>
 __device__ void block(const Args& a, int h, int b) {
-  constexpr int PARTS = parts<D>();
+  constexpr int PARTS = parts<DP>();
   extern __shared__ __align__(16) float smem[];
-  const int Kb = a.Kb, S = a.S, tid = threadIdx.x;
-  float* qs = smem;                  // [Kb][D]
-  float* sc = qs + Kb * D;           // [Kb][S] scores, then probabilities
-  float* red = sc + (size_t)Kb * S;  // [PARTS][Kb][D]
+  const int Kb = a.Kb, S = a.S, D = a.D, rs = a.kv_rs, tid = threadIdx.x;
+  float* qs = smem;                  // [Kb][DP], zeros past D
+  float* sc = qs + Kb * DP;          // [Kb][S] scores, then probabilities
+  float* red = sc + (size_t)Kb * S;  // [PARTS][Kb][DP]
   const long long bh = (long long)b * a.H + h;
   const T* q = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
-  const KV* kp = static_cast<const KV*>(a.k) + bh * S * D;
-  const KV* vp = static_cast<const KV*>(a.v) + bh * S * D;
+  const KV* kp = static_cast<const KV*>(a.k) + bh * S * rs;
+  const KV* vp = static_cast<const KV*>(a.v) + bh * S * rs;
   const float* bias = a.bias + b * a.bias_bs + h * a.bias_hs;
 
-  for (int i = tid; i < Kb * D; i += NT) qs[i] = to_f(q[(i / D) * a.q_js + i % D]);
+  for (int i = tid; i < Kb * DP; i += NT)
+    qs[i] = i % DP < D ? to_f(q[(i / DP) * a.q_js + i % DP]) : 0.f;
   __syncthreads();
 
   // scores: one key row per thread
   for (int s = tid; s < S; s += NT) {
-    float kr[D];
-    load_row<D>(kp + (long long)s * D, kr);
+    float kr[DP];
+    load_row<DP>(kp + (long long)s * rs, kr, rs);
     for (int j = 0; j < Kb; ++j) {
-      const float4* qj = reinterpret_cast<const float4*>(qs + j * D);
+      const float4* qj = reinterpret_cast<const float4*>(qs + j * DP);
       float acc = 0.f;
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i) {
+      for (int i = 0; i < DP / 4; ++i) {
         const float4 qv = qj[i];
         acc = fmaf(qv.x, kr[4 * i], acc);
         acc = fmaf(qv.y, kr[4 * i + 1], acc);
@@ -147,47 +154,49 @@ __device__ void block(const Args& a, int h, int b) {
   __syncthreads();
 
   // values: thread (d, part) over the keys s = part (mod PARTS), all beams;
-  // threads past PARTS * D have no part
-  const int d = tid % D, part = tid / D;
+  // threads past PARTS * DP have no part, those of columns d >= D sum nothing
+  const int d = tid % DP, part = tid / DP;
   if (part < PARTS) {
     float acc[MAX_KB];
 #pragma unroll
     for (int j = 0; j < MAX_KB; ++j) acc[j] = 0.f;
-    for (int s = part; s < S; s += PARTS) {
-      const float v = to_f(vp[(long long)s * D + d]);
+    for (int s = part; s < S && d < D; s += PARTS) {
+      const float v = to_f(vp[(long long)s * rs + d]);
 #pragma unroll
       for (int j = 0; j < MAX_KB; ++j)
         if (j < Kb) acc[j] = fmaf(sc[(size_t)j * S + s], v, acc[j]);
     }
 #pragma unroll
     for (int j = 0; j < MAX_KB; ++j)
-      if (j < Kb) red[(part * Kb + j) * D + d] = acc[j];
+      if (j < Kb) red[(part * Kb + j) * DP + d] = acc[j];
   }
   __syncthreads();
   T* out = static_cast<T*>(a.out) + b * a.q_bs + h * a.q_hs;
-  for (int i = tid; i < Kb * D; i += NT) {
-    const int j = i / D, dd = i % D;
+  for (int i = tid; i < Kb * DP; i += NT) {
+    const int j = i / DP, dd = i % DP;
+    if (dd >= D) continue;
     float o = 0.f;
-    for (int p = 0; p < PARTS; ++p) o += red[(p * Kb + j) * D + dd];
+    for (int p = 0; p < PARTS; ++p) o += red[(p * Kb + j) * DP + dd];
     out[j * a.q_js + dd] = from_f<T>(o);
   }
 }
 
-template <int D, typename T, typename KV, bool kInt8>
+template <int DP, typename T, typename KV, bool kInt8>
 __global__ void __launch_bounds__(NT) kernel(Args a) {
-  block<D, T, KV, kInt8>(a, blockIdx.x, blockIdx.y);
+  block<DP, T, KV, kInt8>(a, blockIdx.x, blockIdx.y);
 }
 
 // grid (H, B); returns a CUDA error code (cudaErrorInvalidValue when Kb or
 // the scores do not fit)
-template <int D, typename T, typename KV, bool kInt8>
+template <int DP, typename T, typename KV, bool kInt8>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(a.Kb, a.S);
-  if (a.Kb < 1 || a.Kb > MAX_KB || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<DP>(a.Kb, a.S);
+  if (a.Kb < 1 || a.Kb > MAX_KB || smem > MAX_SMEM || a.D > a.kv_rs || a.kv_rs > DP)
+    return (int)cudaErrorInvalidValue;
   static SmemOptIn opt_in;
   if (smem > 48 * 1024)
-    if (const int err = opt_in.ensure((const void*)kernel<D, T, KV, kInt8>, smem)) return err;
-  kernel<D, T, KV, kInt8><<<dim3(a.H, B), NT, smem, stream>>>(a);
+    if (const int err = opt_in.ensure((const void*)kernel<DP, T, KV, kInt8>, smem)) return err;
+  kernel<DP, T, KV, kInt8><<<dim3(a.H, B), NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 // K7's beam-shared cross-attention in bf16 on Hopper: the sample's [S, D] K
 // and V rows streamed by TMA, the products on the tensor cores (mma.sync
-// m16n8k16). The head dim D is a template parameter, compiled at 64 and 80.
+// m16n8k16). The tile width DP is a template parameter, compiled at 32, 64,
+// 80 and 128; a head dim D runs on the smallest DP >= D
+// (common.cuh::with_head_dim), D itself an argument.
 // K6's cross-attention over the int8 cache (decode_cross_attn.cu) takes
 // this layout and the primitives it shares from sm90.cuh.
 //
@@ -13,12 +15,12 @@
 // as cross_attn.cuh computes it, exact two-pass softmax included.
 //
 // Design. One CTA per (h, b): a producer warp streams the S / 64 key tiles
-// and then the S / 64 value tiles (64 x D bf16: 8 KB at D 64, 128-byte
-// swizzled; 10 KB at D 80, flash_fwd_sm90.cuh's two boxes, columns 64..79
-// 32-byte swizzled; zeros past S) through a ring of STAGES stages; one
-// consumer warpgroup.
-//   - Scores: q (the Kb beam rows, padded to 16 with zeros) is the A operand,
-//     held in registers for the whole walk (D / 16 k-steps); each of the 8
+// and then the S / 64 value tiles (64 x DP bf16 in sm90.cuh::HeadTile's
+// boxes: 8 KB at DP 64, 16 KB at 128; zeros past S and past the cache's row
+// width) through a ring of STAGES stages; one consumer warpgroup.
+//   - Scores: q (the Kb beam rows, padded to 16 with zeros, its columns past
+//     D zeros) is the A operand, held in registers for the whole walk (DP / 16
+//     k-steps); each of the 8
 //     warps takes 8 keys of a tile (one n8 block), the B fragments read as
 //     4-byte pairs straight from the swizzled rows (conflict-free). Scores +
 //     the bias row (staged in shared memory) go to shared memory, fp32
@@ -27,9 +29,13 @@
 //     to bf16 into [Kb][S'] (zeros from S to the tile end).
 //   - P.v: A = p (its rows from shared memory), B = the value tile read by
 //     ldmatrix.trans (key-major rows are B's k); warp w owns the n8 column
-//     blocks w and w + 8 < D / 8 (at D 64 one block each; at D 80 warps 0
-//     and 1 also own columns 64..79), accumulating in fp32 registers across
-//     all tiles.
+//     blocks w + 8 n < DP / 8 (at DP 64 one block each, at 128 two; at 80
+//     warps 0 and 1 also own columns 64..79, at 32 warps 0..3 one block),
+//     accumulating in fp32 registers across all tiles; the columns past D
+//     are stored nowhere. The cache's rows are D wide, or D rounded up to a
+//     multiple of 8 (zeros; a wrapper's padded copy); q and the output keep
+//     the model's head stride D, read and written in bf16 pairs where
+//     aligned, else element by element.
 // Eight warps rather than four: the softmax and the per-tile work are
 // latency-bound chains, and one warp a scheduler leaves them exposed.
 // The value tiles arrive while the softmax runs. Launched with programmatic
@@ -38,8 +44,10 @@
 //
 // Bound: the cross K/V, 2 x S x D x 2 bytes per (b, h), 268 MB a step at
 // the caption decode shape (rows 80, L6, H12, S908, D64), 80 us at 3.35
-// TB/s; 893 MB at ofa_huge's (L12, H16, D80), 267 us. ptxas (CUDA 12.8):
-// 52 registers at D64, 56 at D80, no spills.
+// TB/s; 893 MB at ofa_huge's (L12, H16, D80), 267 us. ptxas (CUDA 12.8): no
+// spills at any instance (chip_smoke.py's build phase prints each one's
+// registers). Where D == DP the compiler knows D (kExact): with D and the
+// tile addressing left to run time, this kernel ran 1.6x longer at DP 80.
 #pragma once
 
 #include <stdint.h>
@@ -57,49 +65,78 @@ constexpr int STAGES = 8;               // ring depth: value tiles arrive during
 constexpr int NC = 256;                 // consumer threads: two warpgroups, 8 warps
 constexpr int NT = NC + 32;             // + the producer warp
 constexpr int MAX_KB = 16;              // beams of a sample: one m16 tile
-constexpr uint32_t LO = BKT * 64 * 2;   // bytes of a tile's first box (columns 0..63)
 
-template <int D>
-__host__ __device__ constexpr uint32_t tile_bytes() {  // one 64 x D bf16 tile: both boxes
-  return BKT * D * 2;
+template <int DP>
+__host__ __device__ constexpr uint32_t tile_bytes() {  // one 64 x DP bf16 tile: every box
+  return sm90::HeadTile<DP>::BYTES;
 }
 
 struct Args {
   const bf16* q;      // [B * Kb, H * D]: row b * Kb + j, columns h * D ..
   const float* bias;  // [B, H, S]
   bf16* out;          // in q's layout
-  int B, H, Kb, S, layer;
+  int B, H, Kb, S, layer, D;
 };
 
-template <int D>
+template <int DP>
 inline size_t smem_bytes(int Kb, int S) {
   const int sp = (S + BKT - 1) / BKT * BKT;
-  return 1024 + STAGES * tile_bytes<D>() + 16 * STAGES +
+  return 1024 + STAGES * tile_bytes<DP>() + 16 * STAGES +
          sizeof(float) * ((size_t)Kb * sp + sp) + 2 * (size_t)Kb * (sp + 8);
 }
 
-// The layer-stacked cross cache's tensor maps: k and v's first boxes (columns
-// 0..63), and at D 80 their second (columns 64..79).
+// The layer-stacked cross cache's tensor maps: k and v's 64-column boxes, and
+// their 16-column ones (sm90.cuh::head_maps).
 struct CacheMaps {
   CUtensorMap k, v, k_hi, v_hi;
 };
 
 using sm90::lds32;
 using sm90::mma16816;
-using sm90::swz;
-using sm90::swz32;
 
-// the address of 16-byte unit u (columns 8 u .. 8 u + 7) of key row `key` in
-// a tile at t: the first box's 128-byte swizzle, or the second's 32-byte one
-__device__ __forceinline__ uint32_t unit_addr(uint32_t t, int key, int u) {
-  return u < 8 ? t + swz(key, u) : t + LO + swz32(key, u - 8);
+// two adjacent bf16 of a row of n elements from column c (zeros past n), one
+// 4-byte load where aligned
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p, int c, int n) {
+  if (c + 1 < n && (reinterpret_cast<uintptr_t>(p + c) & 3u) == 0)
+    return *reinterpret_cast<const uint32_t*>(p + c);
+  const uint32_t lo = c < n ? __bfloat16_as_ushort(p[c]) : 0u;
+  const uint32_t hi = c + 1 < n ? __bfloat16_as_ushort(p[c + 1]) : 0u;
+  return lo | (hi << 16);
 }
 
-// maps: the layer-stacked cache [L * B * H, S, D] in boxes of 64 rows
-template <int D>
+// x and y rounded to bf16 at columns c and c + 1 of a row of n elements
+// (none past n), one 4-byte store where aligned
+__device__ __forceinline__ void st_pair(bf16* p, int c, int n, float x, float y) {
+  if (c + 1 < n && (reinterpret_cast<uintptr_t>(p + c) & 3u) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p + c) = __floats2bfloat162_rn(x, y);
+    return;
+  }
+  if (c < n) p[c] = __float2bfloat16_rn(x);
+  if (c + 1 < n) p[c + 1] = __float2bfloat16_rn(y);
+}
+
+// rows row .. row + 63 of head bh of a stacked cache (maps lo, hi) into the
+// tile at dst, every box of HeadTile<DP>, completing on bar
+template <int DP>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* lo,
+                                          const CUtensorMap* hi, uint32_t bar, int row, int bh) {
+  using HT = sm90::HeadTile<DP>;
+#pragma unroll
+  for (int b = 0; b < HT::NLO; ++b) sm90::tma_load3(dst + b * HT::LO_BOX, lo, bar, 64 * b, row, bh);
+#pragma unroll
+  for (int c = 0; c < HT::NHI; ++c)
+    sm90::tma_load3(dst + HT::NLO * HT::LO_BOX + c * HT::HI_BOX, hi, bar, 64 * HT::NLO + 16 * c,
+                    row, bh);
+}
+
+// maps: the layer-stacked cache [L * B * H, S, Dc] (Dc: D, or D rounded up
+// to a multiple of 8, <= DP) in boxes of 64 rows. kExact: D == DP, known to
+// the compiler (every load and store of q and the output a whole pair)
+template <int DP, bool kExact>
 __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps maps, Args a) {
-  constexpr uint32_t TILE = tile_bytes<D>();
-  constexpr int NB = (D / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
+  using HT = sm90::HeadTile<DP>;
+  constexpr uint32_t TILE = tile_bytes<DP>();
+  constexpr int NB = (DP / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -131,10 +168,10 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
         if (it >= STAGES) sm90::mbar_wait(empty(st), (it / STAGES - 1) & 1);
         const int row = (it % ntiles) * BKT;
         sm90::mbar_expect_tx(full(st), TILE);
-        sm90::tma_load3(stage(st), it < ntiles ? &maps.k : &maps.v, full(st), 0, row, bh);
-        if constexpr (D > 64)
-          sm90::tma_load3(stage(st) + LO, it < ntiles ? &maps.k_hi : &maps.v_hi, full(st), 64,
-                          row, bh);
+        if (it < ntiles)
+          load_rows<DP>(stage(st), &maps.k, &maps.k_hi, full(st), row, bh);
+        else
+          load_rows<DP>(stage(st), &maps.v, &maps.v_hi, full(st), row, bh);
       }
     }
     return;  // no block-wide barrier follows
@@ -144,16 +181,18 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
   sm90::copy_f32(bias, a.bias + ((long long)b * a.H + h) * S, S, S, tid, NC);
   sm90::grid_wait();  // q is the cross-q product's
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int d = a.H * D;
-  // q's A fragments for the D / 16 16-deep k-steps: rows g and g + 8 (beams)
-  uint32_t qa[D / 16][4];
+  const int D = kExact ? DP : a.D, d = a.H * D;
+  // q's A fragments for the DP / 16 16-deep k-steps: rows g and g + 8 (beams)
+  uint32_t qa[DP / 16][4];
   {
     const bf16* q = a.q + (long long)b * Kb * d + h * D;
     auto pair = [&](int j, int c) -> uint32_t {
-      return j < Kb ? *reinterpret_cast<const uint32_t*>(q + (long long)j * d + c) : 0u;
+      if (j >= Kb) return 0u;
+      if constexpr (kExact) return *reinterpret_cast<const uint32_t*>(q + (long long)j * d + c);
+      return ld_pair(q + (long long)j * d, c, D);
     };
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       qa[kk][0] = pair(g, 16 * kk + 2 * t);
       qa[kk][1] = pair(g + 8, 16 * kk + 2 * t);
       qa[kk][2] = pair(g, 16 * kk + 8 + 2 * t);
@@ -169,9 +208,9 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
     const int key = 8 * warp + g;  // this lane's B column
     float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t b0 = lds32(unit_addr(stage(st), key, 2 * kk) + 4 * t);
-      const uint32_t b1 = lds32(unit_addr(stage(st), key, 2 * kk + 1) + 4 * t);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t b0 = lds32(HT::unit(stage(st), key, 2 * kk) + 4 * t);
+      const uint32_t b1 = lds32(HT::unit(stage(st), key, 2 * kk + 1) + 4 * t);
       mma16816(c, qa[kk], b0, b1);
     }
     sm90::mbar_arrive(empty(st));
@@ -200,7 +239,7 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
   }
   sm90::named_sync(1, NC);
 
-  // P.v: warp w owns the n8 column blocks w + 8 n < D / 8
+  // P.v: warp w owns the n8 column blocks w + 8 n < DP / 8
   float o[NB][4] = {};
   for (int it = ntiles; it < 2 * ntiles; ++it) {
     const int st = it % STAGES, k0 = (it - ntiles) * BKT;
@@ -218,8 +257,8 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
       const int key = 16 * ks + (lane % 8) + 8 * ((lane / 8) & 1);
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        if (warp + 8 * n >= D / 8) continue;
-        const uint32_t addr = unit_addr(stage(st), key, warp + 8 * n);
+        if (warp + 8 * n >= DP / 8) continue;
+        const uint32_t addr = HT::unit(stage(st), key, warp + 8 * n);
         uint32_t r0, r1;
         asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                      : "=r"(r0), "=r"(r1)
@@ -234,32 +273,41 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
   bf16* out = a.out + (long long)b * Kb * d + h * D;
 #pragma unroll
   for (int n = 0; n < NB; ++n) {
-    if (warp + 8 * n >= D / 8) continue;
+    if (warp + 8 * n >= DP / 8) continue;
     const int c = 8 * (warp + 8 * n) + 2 * t;
-    if (g < Kb)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)g * d + c) =
-          __floats2bfloat162_rn(o[n][0], o[n][1]);
-    if (g + 8 < Kb)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)(g + 8) * d + c) =
-          __floats2bfloat162_rn(o[n][2], o[n][3]);
+    const float (&r)[4] = o[n];
+    if constexpr (kExact) {
+      if (g < Kb)
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)g * d + c) =
+            __floats2bfloat162_rn(r[0], r[1]);
+      if (g + 8 < Kb)
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)(g + 8) * d + c) =
+            __floats2bfloat162_rn(r[2], r[3]);
+    } else {
+      if (g < Kb) st_pair(out + (long long)g * d, c, D, r[0], r[1]);
+      if (g + 8 < Kb) st_pair(out + (long long)(g + 8) * d, c, D, r[2], r[3]);
+    }
   }
 }
 
-// The layer-stacked cross caches [L, B, H, S, D] bf16 as [L * B * H, S, D]
+// The layer-stacked cross caches [L, B, H, S, Dc] bf16 as [L * B * H, S, Dc]
 // in boxes of 64 rows (sm90::head_maps).
-template <int D>
-inline int cache_maps(CacheMaps* m, const void* k, const void* v, long long lbh, int S) {
-  if (const int err = sm90::head_maps(&m->k, &m->k_hi, k, D, S, lbh, BKT)) return err;
-  return sm90::head_maps(&m->v, &m->v_hi, v, D, S, lbh, BKT);
+template <int DP>
+inline int cache_maps(CacheMaps* m, const void* k, const void* v, long long lbh, int S, int Dc) {
+  if (const int err = sm90::head_maps(&m->k, &m->k_hi, k, Dc, DP, S, lbh, BKT)) return err;
+  return sm90::head_maps(&m->v, &m->v_hi, v, Dc, DP, S, lbh, BKT);
 }
 
 // grid (H, B), with programmatic stream serialization (pdl). A cudaError_t code.
-template <int D>
+template <int DP>
 inline int launch(const CacheMaps& maps, const Args& a, int pdl, cudaStream_t stream) {
-  if (a.Kb < 1 || a.Kb > MAX_KB) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<D>(a.Kb, a.S);
-  static SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)kernel<D>, smem)) return err;
+  if (a.Kb < 1 || a.Kb > MAX_KB || a.D > DP) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<DP>(a.Kb, a.S);
+  const bool exact = a.D == DP;
+  static SmemOptIn opt_in, opt_in_exact;
+  if (const int err = exact ? opt_in_exact.ensure((const void*)kernel<DP, true>, smem)
+                            : opt_in.ensure((const void*)kernel<DP, false>, smem))
+    return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.H, a.B);
   cfg.blockDim = dim3(NT);
@@ -270,7 +318,8 @@ inline int launch(const CacheMaps& maps, const Args& a, int pdl, cudaStream_t st
   attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel<D>, maps, a);
+  const cudaError_t err = exact ? cudaLaunchKernelEx(&cfg, kernel<DP, true>, maps, a)
+                                : cudaLaunchKernelEx(&cfg, kernel<DP, false>, maps, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

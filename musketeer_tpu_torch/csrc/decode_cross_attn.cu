@@ -22,30 +22,37 @@
 //
 // bf16 q (mk_decode_cross_attn_int8_sm90) runs on the tensor cores, in
 // K7's cross-attention layout (decode_attn_sm90.cuh) with the int8 cache;
-// the head dim D is a template parameter, compiled at 64 and 80:
-//   - one CTA per (h, b): a producer warp streams TMA tiles of 64 keys x D
-//     int8 (4 KB at D 64, 5 KB at D 80, unswizzled) through an 8-stage ring,
-//     K then V; 8 consumer warps;
-//   - scores: lane (g, t) of warp w loads key 8 w + g's bytes D / 4 t ..
-//     D / 4 (t + 1) - 1 once (one 16-byte load at D 64, conflict-free as the
-//     rows lie; five 4-byte loads at D 80, whose 80-byte rows are not
-//     16-byte pieces per lane) and widens them exactly (sm90::widen_i8x4)
-//     into its mma.sync B fragments, word j for k-step j (D / 16 of them).
-//     That permutes the D dims inside the product (k-slot 16 j + s is dim
-//     D / 4 t + 4 j + e, t = (s % 8) / 2, e = s % 2 + 2 (s / 8)); q's A
-//     fragments are loaded in the same permutation, so every product is
-//     unchanged. w = acc * k_scale + bias with both rows staged once and the
-//     pads folded in (k_scale 0, bias -1e9: w is -1e9 exactly);
+// the tile width DP is a template parameter, compiled at 32, 64, 80 and 128
+// (a head dim D, a multiple of 16 here, runs on the smallest DP >= D; the
+// wrapper copies any other into a zero-padded cache first):
+//   - one CTA per (h, b): a producer warp streams TMA tiles of 64 keys x DP
+//     int8 (4 KB at DP 64, 8 KB at 128, unswizzled; the map spans the true D,
+//     so the bytes past D are zeros) through an 8-stage ring, K then V; 8
+//     consumer warps;
+//   - scores: lane (g, t) of warp w loads key 8 w + g's bytes DP / 4 t ..
+//     DP / 4 (t + 1) - 1 once (16-byte loads where DP / 4 is a multiple of
+//     16: one at DP 64, two at 128, conflict-free as the rows lie; one
+//     8-byte load at DP 32; five 4-byte loads at DP 80, whose 80-byte rows
+//     are not 16-byte pieces per lane) and widens them exactly
+//     (sm90::widen_i8x4) into its mma.sync B fragments, word j for k-step j
+//     (DP / 16 of them). That permutes the DP dims inside the product (k-slot
+//     16 j + s is dim DP / 4 t + 4 j + e, t = (s % 8) / 2, e = s % 2 + 2 (s /
+//     8)); q's A fragments are loaded in the same permutation (zeros past D),
+//     so every product is unchanged. w = acc * k_scale + bias with both rows
+//     staged once and the pads folded in (k_scale 0, bias -1e9: w is -1e9
+//     exactly);
 //   - softmax: one warp per beam row, clamped and floored, e kept from the
 //     sum's pass, p = e / l * v_scale rounded to bf16;
 //   - P.v: the threads widen the value tile into a bf16 tile (two,
-//     alternating: one barrier a tile; at D 80 in K7's two-box layout), read
-//     by ldmatrix.trans as K7's: warp w owns the n8 column blocks w and
-//     w + 8 < D / 8.
+//     alternating: one barrier a tile; in K7's layout, sm90.cuh::HeadTile),
+//     read by ldmatrix.trans as K7's: warp w owns the n8 column blocks
+//     w + 8 n < DP / 8; the columns past D are stored nowhere.
 // Shared memory ~89 KB at Kb 5, S 908, D 64 (~101 KB at D 80): two CTAs an
 // SM, so the 192 (h, b) CTAs of the ofa_base serving shape (256 at
-// ofa_huge's) run in one wave on 132 SMs. ptxas (CUDA 12.8): 47 registers
-// at D 64, 62 at D 80, no spills. Launched with
+// ofa_huge's) run in one wave on 132 SMs; ~137 KB at DP 128, one CTA an SM
+// (96 CTAs at 6 heads of 128). ptxas (CUDA 12.8): no spills at
+// any instance; where D == DP the compiler knows D (kExact), which at DP 80
+// halved the kernel's time against D read at run time. Launched with
 // programmatic stream serialization: the K/V copies start before the kernel
 // waits on the previous kernel; q, the bias, the scales and the pads are
 // read after the wait.
@@ -66,7 +73,6 @@ namespace sm90 = mk::sm90;
 using bf16 = __nv_bfloat16;
 using sm90::mma16816;
 using sm90::swz;
-using mk::decode_attn::unit_addr;
 
 constexpr int BKT = 64;                 // keys per tile
 constexpr int STAGES = 8;               // ring depth: value tiles arrive during the softmax
@@ -75,10 +81,10 @@ constexpr int NT = NC + 32;             // + the producer warp
 constexpr int MAX_KB = 16;              // beams of a sample: one m16 tile
 constexpr float NEG_BIAS = -1e9f;       // the score of a padded key
 
-template <int D>
+template <int DP>
 struct Tiles {
-  static constexpr uint32_t KV = BKT * D;        // bytes of one 64 x D int8 K or V tile
-  static constexpr uint32_t V16 = BKT * D * 2;   // bytes of one 64 x D bf16 value tile
+  static constexpr uint32_t KV = BKT * DP;                    // one 64 x DP int8 K or V tile
+  static constexpr uint32_t V16 = sm90::HeadTile<DP>::BYTES;  // one 64 x DP bf16 value tile
 };
 
 struct Args {
@@ -88,23 +94,26 @@ struct Args {
   const float* bias;      // element (b, h, s) at b * bias_bs + h * bias_hs + s
   const uint8_t* pad;     // [B, S] bool
   bf16* out;              // [B, H, Kb, D]
-  int H, Kb, S;
+  int H, Kb, S, D;
   long long bias_bs, bias_hs;
 };
 
-template <int D>
+template <int DP>
 inline size_t smem_bytes(int Kb, int S) {
   const int sp = (S + BKT - 1) / BKT * BKT;
-  return 1024 + STAGES * Tiles<D>::KV + 2 * Tiles<D>::V16 + 16 * STAGES +
+  return 1024 + STAGES * Tiles<DP>::KV + 2 * Tiles<DP>::V16 + 16 * STAGES +
          sizeof(float) * ((size_t)Kb * sp + 3 * (size_t)sp) + 2 * (size_t)Kb * (sp + 8);
 }
 
-// kmap, vmap: this layer's cache [B * H, S, D] int8 with 64 x D boxes
-template <int D>
+// kmap, vmap: this layer's cache [B * H, S, D] int8 with 64 x DP boxes.
+// kExact: D == DP, known to the compiler
+template <int DP, bool kExact>
 __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, Args a) {
-  constexpr uint32_t KV_TILE = Tiles<D>::KV, TILE = Tiles<D>::V16;
-  constexpr int NB = (D / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
+  using HT = sm90::HeadTile<DP>;
+  constexpr uint32_t KV_TILE = Tiles<DP>::KV, TILE = Tiles<DP>::V16;
+  constexpr int NB = (DP / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
+  const int D = kExact ? DP : a.D;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -162,16 +171,17 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   }
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   // q's A fragments in the permuted dim order of the K fragments: k-step j,
-  // rows g and g + 8 (beams), dims D / 4 t + 4 j .. + 3
-  uint32_t qa[D / 16][4];
+  // rows g and g + 8 (beams), dims DP / 4 t + 4 j .. + 3 (zeros past D)
+  uint32_t qa[DP / 16][4];
   {
     const bf16* q = a.q + bh * Kb * D;
     auto quad = [&](int j, int c) -> uint2 {
-      return j < Kb ? *reinterpret_cast<const uint2*>(q + j * D + c) : make_uint2(0u, 0u);
+      return j < Kb && c < D ? *reinterpret_cast<const uint2*>(q + j * D + c)
+                             : make_uint2(0u, 0u);
     };
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint2 lo = quad(g, D / 4 * t + 4 * kk), hi = quad(g + 8, D / 4 * t + 4 * kk);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint2 lo = quad(g, DP / 4 * t + 4 * kk), hi = quad(g + 8, DP / 4 * t + 4 * kk);
       qa[kk][0] = lo.x;
       qa[kk][1] = hi.x;
       qa[kk][2] = lo.y;
@@ -184,26 +194,36 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   for (int it = 0; it < ntiles; ++it) {
     const int st = it % STAGES;
     sm90::mbar_wait(full(st), (it / STAGES) & 1);
-    const uint8_t* krow = stage(st) + (8 * warp + g) * D + D / 4 * t;
-    uint32_t words[D / 16];
-    if constexpr (D == 64) {
-      const uint4 kw = *reinterpret_cast<const uint4*>(krow);
-      words[0] = kw.x;
-      words[1] = kw.y;
-      words[2] = kw.z;
-      words[3] = kw.w;
+    const uint8_t* krow = stage(st) + (8 * warp + g) * DP + DP / 4 * t;
+    uint32_t words[DP / 16];
+    if constexpr ((DP / 4) % 16 == 0) {  // 16-byte pieces
+#pragma unroll
+      for (int i = 0; i < DP / 64; ++i) {
+        const uint4 kw = *reinterpret_cast<const uint4*>(krow + 16 * i);
+        words[4 * i] = kw.x;
+        words[4 * i + 1] = kw.y;
+        words[4 * i + 2] = kw.z;
+        words[4 * i + 3] = kw.w;
+      }
+    } else if constexpr ((DP / 4) % 8 == 0) {  // 8-byte pieces
+#pragma unroll
+      for (int i = 0; i < DP / 32; ++i) {
+        const uint2 kw = *reinterpret_cast<const uint2*>(krow + 8 * i);
+        words[2 * i] = kw.x;
+        words[2 * i + 1] = kw.y;
+      }
     } else {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         words[kk] = *reinterpret_cast<const uint32_t*>(krow + 4 * kk);
     }
-    uint32_t kb[D / 16][2];
+    uint32_t kb[DP / 16][2];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
+    for (int kk = 0; kk < DP / 16; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
     sm90::mbar_arrive(empty(st));
     float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
+    for (int kk = 0; kk < DP / 16; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
     const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -237,14 +257,14 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
 
   // P.v: each value tile widened into a bf16 tile (key-major rows in K7's
   // swizzled layout), then read as K7's; warp w owns the n8 column blocks
-  // w + 8 n < D / 8
+  // w + 8 n < DP / 8
   float o[NB][4] = {};
   for (int it = ntiles; it < 2 * ntiles; ++it) {
     const int st = it % STAGES, k0 = (it - ntiles) * BKT;
     const uint32_t vb = vt + TILE * ((it - ntiles) & 1);
     sm90::mbar_wait(full(st), (it / STAGES) & 1);
     uint8_t* row = smem_raw + (vb - raw);
-    if constexpr (D == 64) {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
+    if constexpr (DP == 64) {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
       const uint4 vw = *reinterpret_cast<const uint4*>(stage(st) + 16 * tid);
       const uint32_t words[4] = {vw.x, vw.y, vw.z, vw.w};
       uint32_t wv[8];
@@ -254,8 +274,8 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
       const int key = tid / 4, u = 2 * (tid % 4);
       *reinterpret_cast<uint4*>(row + swz(key, u)) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
       *reinterpret_cast<uint4*>(row + swz(key, u + 1)) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
-    } else {  // 8-byte pieces: piece i is key i / (D / 8), dims 8 (i % (D / 8)) .. + 7
-      constexpr int PIECES = BKT * D / 8, PER = (PIECES + NC - 1) / NC;
+    } else {  // 8-byte pieces: piece i is key i / (DP / 8), dims 8 (i % (DP / 8)) .. + 7
+      constexpr int PIECES = BKT * DP / 8, PER = (PIECES + NC - 1) / NC;
       uint2 vw[PER];
 #pragma unroll
       for (int r = 0; r < PER; ++r) {
@@ -270,7 +290,7 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
         uint32_t w0, w1, w2, w3;
         sm90::widen_i8x4(vw[r].x, w0, w1);
         sm90::widen_i8x4(vw[r].y, w2, w3);
-        *reinterpret_cast<uint4*>(row + (unit_addr(vb, i / (D / 8), i % (D / 8)) - vb)) =
+        *reinterpret_cast<uint4*>(row + (HT::unit(vb, i / (DP / 8), i % (DP / 8)) - vb)) =
             make_uint4(w0, w1, w2, w3);
       }
     }
@@ -290,8 +310,8 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
       const int key = 16 * kq + (lane % 8) + 8 * ((lane / 8) & 1);
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        if (warp + 8 * n >= D / 8) continue;
-        const uint32_t addr = unit_addr(vb, key, warp + 8 * n);
+        if (warp + 8 * n >= DP / 8) continue;
+        const uint32_t addr = HT::unit(vb, key, warp + 8 * n);
         uint32_t r0, r1;
         asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                      : "=r"(r0), "=r"(r1)
@@ -305,8 +325,8 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   bf16* out = a.out + bh * Kb * D;
 #pragma unroll
   for (int n = 0; n < NB; ++n) {
-    if (warp + 8 * n >= D / 8) continue;
     const int c = 8 * (warp + 8 * n) + 2 * t;
+    if (warp + 8 * n >= DP / 8 || c >= D) continue;
     if (g < Kb)
       *reinterpret_cast<__nv_bfloat162*>(out + g * D + c) =
           __floats2bfloat162_rn(o[n][0], o[n][1]);
@@ -316,25 +336,30 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   }
 }
 
-// One layer's cache [B * H, S, D] int8 with 64 x D boxes, unswizzled.
-template <int D>
-inline int cache_map(CUtensorMap* map, const void* ptr, long long bh, int S) {
+// One layer's cache [B * H, S, D] int8 with 64 x DP boxes, unswizzled (the
+// bytes of a box past D zeros).
+template <int DP>
+inline int cache_map(CUtensorMap* map, const void* ptr, long long bh, int S, int D) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D, (cuuint64_t)S * D};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BKT, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)DP, (cuuint32_t)BKT, 1};
   return sm90::tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 3, dims, strides, box,
                          CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // grid (H, B), always with programmatic stream serialization. A cudaError_t
 // code (cudaErrorInvalidValue when Kb or the shared memory does not fit).
-template <int D>
+template <int DP>
 inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int B,
                        cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(a.Kb, a.S);
+  const size_t smem = smem_bytes<DP>(a.Kb, a.S);
   if (a.Kb < 1 || a.Kb > MAX_KB || smem > 232448) return (int)cudaErrorInvalidValue;
-  static mk::SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)cross_attn_i8_sm90_kernel<D>, smem)) return err;
+  const bool exact = a.D == DP;
+  static mk::SmemOptIn opt_in, opt_in_exact;
+  if (const int err =
+          exact ? opt_in_exact.ensure((const void*)cross_attn_i8_sm90_kernel<DP, true>, smem)
+                : opt_in.ensure((const void*)cross_attn_i8_sm90_kernel<DP, false>, smem))
+    return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.H, B);
   cfg.blockDim = dim3(NT);
@@ -345,7 +370,9 @@ inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const A
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel<D>, kmap, vmap, a);
+  const cudaError_t err =
+      exact ? cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel<DP, true>, kmap, vmap, a)
+            : cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel<DP, false>, kmap, vmap, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -353,7 +380,8 @@ inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const A
 
 // fp32 q and out (the FMA kernel). k, v int8 [B, H, S, D]; scales fp32
 // [B, H, S]; bias fp32 with strides (bias_bs, bias_hs, 1); pad bool [B, S];
-// D = head_dim, 64 or 80. Returns a CUDA error code.
+// D = head_dim, a multiple of 16 up to 128 (common.cuh::with_head_dim).
+// Returns a CUDA error code.
 extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const void* v,
                                          const void* k_scale, const void* v_scale,
                                          const void* bias, const void* pad, void* out, int B,
@@ -372,11 +400,13 @@ extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const voi
   a.H = H;
   a.Kb = Kb;
   a.S = S;
+  a.D = a.kv_rs = head_dim;
   a.q_bs = (long long)H * Kb * head_dim;  // q and out: [B, H, Kb, D]
   a.q_hs = (long long)Kb * head_dim;
   a.q_js = head_dim;
   a.bias_bs = bias_bs;
   a.bias_hs = bias_hs;
+  if (head_dim % 16) return (int)cudaErrorInvalidValue;  // the int8 rows' 16-byte loads
   return mk::with_head_dim(head_dim, [&](auto d) {
     return ca::launch<decltype(d)::value, float, int8_t, true>(a, B,
                                                                static_cast<cudaStream_t>(stream));
@@ -402,13 +432,15 @@ extern "C" int mk_decode_cross_attn_int8_sm90(const void* q, const void* k, cons
   a.H = H;
   a.Kb = Kb;
   a.S = S;
+  a.D = head_dim;
   a.bias_bs = bias_bs;
   a.bias_hs = bias_hs;
+  if (head_dim % 16) return (int)cudaErrorInvalidValue;  // the int8 rows' TMA strides
   return mk::with_head_dim(head_dim, [&](auto d) {
-    constexpr int D = decltype(d)::value;
+    constexpr int DP = decltype(d)::value;
     CUtensorMap kmap, vmap;
-    if (const int err = cache_map<D>(&kmap, k, (long long)B * H, S)) return err;
-    if (const int err = cache_map<D>(&vmap, v, (long long)B * H, S)) return err;
-    return launch_sm90<D>(kmap, vmap, a, B, static_cast<cudaStream_t>(stream));
+    if (const int err = cache_map<DP>(&kmap, k, (long long)B * H, S, head_dim)) return err;
+    if (const int err = cache_map<DP>(&vmap, v, (long long)B * H, S, head_dim)) return err;
+    return launch_sm90<DP>(kmap, vmap, a, B, static_cast<cudaStream_t>(stream));
   });
 }

@@ -29,8 +29,12 @@
 //   4 LN + cross-q product 5 cross-attention     6 out-proj + residual
 //   7 LN + fc1 + gelu      8 fc2 + residual
 // Layer 0 reads x0 where later layers read x. The cross K/V are read in the
-// cache's own [L, B, H, S, D] layout. The head dim D is a template
-// parameter, compiled at 64 and 80 (d = H D, a multiple of 64 either way).
+// cache's own [L, B, H, S, Dc] layout. The attention kernels' tile width DP
+// is a template parameter, compiled at 32, 64, 80 and 128; a head dim D
+// runs on the smallest DP >= D (common.cuh::with_head_dim). The hidden
+// state keeps the model's head stride D (d = H D, a multiple of 64); the
+// self and cross caches have rows of Dc, D rounded up to a multiple of 8
+// (the wrapper's zero-padded copies where D is not one).
 //
 // bf16 (mk_decode_stack_step_sm90): the six products run on the
 // weight-streaming tensor-core core (skinny_gemm_sm90.cuh: W tiles by TMA,
@@ -39,7 +43,9 @@
 // the partials summed in split order by the last CTA of each tile; a split-K
 // sum is still one fp32 sum rounded once), the
 // cross-attention on decode_attn_sm90.cuh (K/V tiles by TMA, mma.sync), the
-// self-attention on CUDA cores (self_attn_bf16: a lane per cached position).
+// self-attention on CUDA cores (self_attn_bf16: a lane per cached position;
+// where D is not a multiple of 8, whose rows are then not 16-byte pieces,
+// self_attn_kernel's element-wise walk).
 // Every launch but the self-attention's uses programmatic stream
 // serialization, so each product streams its first weight tiles while the
 // previous launch finishes.
@@ -207,16 +213,18 @@ __global__ void __launch_bounds__(GT) gemm_kernel(const T* __restrict__ A, const
   }
 }
 
-// Self-attention of one step: one warp per (row, head), the dim pairs
-// 2 (lane + 32 i) < D per lane (one at D 64; lanes 0..7 a second at D 80).
-// Only positions t <= idx are read: later ones are masked to -1e9 in the TPU
-// kernel, whose exp is exactly 0 after the max subtraction.
-template <int D, typename T>
+// Self-attention of one step: one warp per (row, head), the dims
+// lane + 32 i < D per lane, element by element (any D, any alignment); the
+// fp32 route's, and the bf16 route's where D is not a multiple of 8. The
+// cache's rows are Dc apart. Only positions t <= idx are read: later ones
+// are masked to -1e9 in the TPU kernel, whose exp is exactly 0 after the max
+// subtraction.
+template <int DP, typename T>
 __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
     const T* __restrict__ cache_k, const T* __restrict__ cache_v, const float* __restrict__ sbias,
-    T* __restrict__ out, int rows, int H, int Tmax, int idx, float scaling) {
-  constexpr int NP = (D / 2 + 31) / 32;  // dim pairs a lane may hold
+    T* __restrict__ out, int rows, int H, int Tmax, int idx, float scaling, int D, int Dc) {
+  constexpr int NE = (DP + 31) / 32;  // dims a lane may hold
   extern __shared__ float sa_scores[];  // [SA_WARPS][Tmax]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int task = blockIdx.x * SA_WARPS + warp;
@@ -224,24 +232,23 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
   const int row = task / H, h = task % H, d = H * D;
   float* w = sa_scores + warp * Tmax;
   const long long qo = (long long)row * d + h * D;  // (row, head) in [rows, d]
-  int c[NP];  // this lane's pairs' first dims, or -1
-  float q0[NP], q1[NP];
+  int c[NE];  // this lane's dims, or -1
+  float qs[NE];
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    c[i] = 2 * (lane + 32 * i) < D ? 2 * (lane + 32 * i) : -1;
-    q0[i] = c[i] < 0 ? 0.f : round_to<T>(to_f(q[qo + c[i]]) * scaling);
-    q1[i] = c[i] < 0 ? 0.f : round_to<T>(to_f(q[qo + c[i] + 1]) * scaling);
+  for (int i = 0; i < NE; ++i) {
+    c[i] = lane + 32 * i < D ? lane + 32 * i : -1;
+    qs[i] = c[i] < 0 ? 0.f : round_to<T>(to_f(q[qo + c[i]]) * scaling);
   }
   const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
   const float* sb = sbias + co;
 
   float m = -CUDART_INF_F;
   for (int t = 0; t <= idx; ++t) {
-    const T* kt = t == idx ? k_new + qo : cache_k + (co + t) * D;
+    const T* kt = t == idx ? k_new + qo : cache_k + (co + t) * Dc;
     float part = 0.f;
 #pragma unroll
-    for (int i = 0; i < NP; ++i)
-      if (c[i] >= 0) part += q0[i] * to_f(kt[c[i]]) + q1[i] * to_f(kt[c[i] + 1]);
+    for (int i = 0; i < NE; ++i)
+      if (c[i] >= 0) part += qs[i] * to_f(kt[c[i]]);
     const float s = mk::warp_sum(part) + sb[t];
     if (lane == 0) w[t] = s;
     m = fmaxf(m, s);
@@ -249,23 +256,17 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
   __syncwarp();
   float l = 0.f;
   for (int t = 0; t <= idx; ++t) l += expf(w[t] - m);
-  float a0[NP] = {}, a1[NP] = {};
+  float a[NE] = {};
   for (int t = 0; t <= idx; ++t) {
     const float p = round_to<T>(expf(w[t] - m) / l);
-    const T* vt = t == idx ? v_new + qo : cache_v + (co + t) * D;
+    const T* vt = t == idx ? v_new + qo : cache_v + (co + t) * Dc;
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      if (c[i] < 0) continue;
-      a0[i] = fmaf(p, to_f(vt[c[i]]), a0[i]);
-      a1[i] = fmaf(p, to_f(vt[c[i] + 1]), a1[i]);
-    }
+    for (int i = 0; i < NE; ++i)
+      if (c[i] >= 0) a[i] = fmaf(p, to_f(vt[c[i]]), a[i]);
   }
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    if (c[i] < 0) continue;
-    out[qo + c[i]] = from_f<T>(a0[i]);
-    out[qo + c[i] + 1] = from_f<T>(a1[i]);
-  }
+  for (int i = 0; i < NE; ++i)
+    if (c[i] >= 0) out[qo + c[i]] = from_f<T>(a[i]);
 }
 
 // The bf16 route's self-attention of one step: one warp per (row, head),
@@ -274,13 +275,16 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
 // lane l on the value dim pairs 2 (l + 32 i) < D, summing the positions in
 // order. Every lane's loads are independent of the others', so a warp waits
 // on memory a few times, not once per position; numerics as
-// self_attn_kernel's, the sums in another fp32 order.
-template <int D>
+// self_attn_kernel's, the sums in another fp32 order. D (head_dim) a
+// multiple of 8, the cache's rows D apart; kExact: D == DP, known to the
+// compiler, which then loads a cached row unpredicated.
+template <int DP, bool kExact>
 __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
     const bf16* __restrict__ cache_k, const bf16* __restrict__ cache_v,
     const float* __restrict__ sbias, bf16* __restrict__ out, int rows, int H, int Tmax, int idx,
-    float scaling) {
+    float scaling, int head_dim) {
+  const int D = kExact ? DP : head_dim;
   extern __shared__ float sa_scores[];  // [SA_WARPS][Tmax]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int task = blockIdx.x * SA_WARPS + warp;
@@ -289,10 +293,11 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
   float* w = sa_scores + warp * Tmax;
   const long long qo = (long long)row * d + h * D;  // (row, head) in [rows, d]
   const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
-  float qf[D];
+  float qf[DP];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const uint4 v = *reinterpret_cast<const uint4*>(q + qo + 8 * i);
+  for (int i = 0; i < DP / 8; ++i) {
+    const uint4 v = 8 * i < D ? *reinterpret_cast<const uint4*>(q + qo + 8 * i)
+                              : make_uint4(0u, 0u, 0u, 0u);
     const uint32_t u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -303,12 +308,13 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
   float m = -CUDART_INF_F;
   for (int t = lane; t <= idx; t += 32) {
     const bf16* kt = t == idx ? k_new + qo : cache_k + (co + t) * D;
-    uint4 kv[D / 8];
+    uint4 kv[DP / 8];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) kv[i] = *reinterpret_cast<const uint4*>(kt + 8 * i);
+    for (int i = 0; i < DP / 8; ++i)
+      kv[i] = 8 * i < D ? *reinterpret_cast<const uint4*>(kt + 8 * i) : make_uint4(0u, 0u, 0u, 0u);
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DP / 8; ++i) {
       const uint32_t u[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -327,7 +333,7 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
   __syncwarp();
   for (int t = lane; t <= idx; t += 32) w[t] = round_to<bf16>(expf(w[t] - m) / l);
   __syncwarp();
-  constexpr int NP = (D / 2 + 31) / 32;  // dim pairs a lane may hold
+  constexpr int NP = (DP / 2 + 31) / 32;  // dim pairs a lane may hold
   float a0[NP] = {}, a1[NP] = {};
 #pragma unroll 4
   for (int t = 0; t <= idx; ++t) {
@@ -382,13 +388,13 @@ struct Pack {
     if (err_ != 0) return err_;      \
   } while (0)
 
-template <int D, typename T>
+template <int DP, typename T>
 int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, const T* self_k,
          const T* self_v, const T* cross_k, const T* cross_v, T* x, T* k_new, T* v_new,
          T* scratch, int L, int B, int Kb, int H, int S, int Tmax, int f, int idx, float scaling,
-         cudaStream_t st) {
+         int D, cudaStream_t st) {
   namespace ca = mk::cross_attn;
-  const int d = H * D, rows = B * Kb;
+  const int d = H * D, rows = B * Kb, Dc = (D + 7) / 8 * 8;
   const size_t sa_smem = sizeof(float) * SA_WARPS * Tmax;
   if (sa_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   T* qbuf = scratch;         // [rows, d] self q (unscaled)
@@ -410,9 +416,9 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
                    rows, 3 * d, d, st));
     // 2. self-attention over the cache
     const long long cl = (long long)l * rows * H * Tmax;
-    self_attn_kernel<D, T><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
-        qbuf, kn, vn, self_k + cl * D, self_v + cl * D, sbias + cl, attn, rows, H, Tmax, idx,
-        scaling);
+    self_attn_kernel<DP, T><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
+        qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
+        scaling, D, Dc);
     MK_TRY((int)cudaGetLastError());
     // 3. out-proj + bias + residual
     w_dd = static_cast<const T*>(pk.w_so) + (long long)l * d * d;
@@ -424,8 +430,8 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
     // 5. beam-shared cross-attention over this layer's [B, H, S, D] K/V
     ca::Args a;
     a.q = q2;
-    a.k = cross_k + (long long)l * B * H * S * D;
-    a.v = cross_v + (long long)l * B * H * S * D;
+    a.k = cross_k + (long long)l * B * H * S * Dc;
+    a.v = cross_v + (long long)l * B * H * S * Dc;
     a.k_scale = a.v_scale = nullptr;
     a.bias = cbias;
     a.pad = nullptr;
@@ -433,12 +439,14 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
     a.H = H;
     a.Kb = Kb;
     a.S = S;
+    a.D = D;
+    a.kv_rs = Dc;
     a.q_bs = (long long)Kb * d;  // row b * Kb + j, column h * D + dd
     a.q_hs = D;
     a.q_js = d;
     a.bias_bs = (long long)H * S;
     a.bias_hs = S;
-    MK_TRY((ca::launch<D, T, T, false>(a, B, st)));
+    MK_TRY((ca::launch<DP, T, T, false>(a, B, st)));
     // 6. out-proj + bias + residual
     w_dd = static_cast<const T*>(pk.w_co) + (long long)l * d * d;
     MK_TRY(gemm<T>(attn, w_dd, nullptr, nullptr, epi_of<T>(bm + 2 * d, x, d, x), rows, d, d, st));
@@ -486,14 +494,14 @@ __global__ void __launch_bounds__(128) row_tile_stats(const bf16* __restrict__ x
 // row statistics of x handed from each residual product to the next
 // LayerNorm. n_tile: the row tile (16, 32, 48, 80); cps: chunks of 64 per
 // split of the q|k|v, d x d, fc1 and fc2 products.
-template <int D>
+template <int DP>
 int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* cbias,
               const bf16* self_k, const bf16* self_v, const bf16* cross_k, const bf16* cross_v,
               bf16* x, bf16* k_new, bf16* v_new, bf16* scratch, float* part, int* counters,
               float* stats, int L, int B, int Kb, int H, int S, int Tmax, int f, int idx,
-              float scaling, int n_tile, const int* cps, int pdl, cudaStream_t st) {
+              float scaling, int n_tile, const int* cps, int pdl, int D, cudaStream_t st) {
   namespace sk = mk::skinny;
-  const int d = H * D, rows = B * Kb;
+  const int d = H * D, rows = B * Kb, Dc = (D + 7) / 8 * 8;
   const size_t sa_smem = sizeof(float) * SA_WARPS * Tmax;
   if (sa_smem > 48 * 1024 || d % 64 || f % 8) return (int)cudaErrorInvalidValue;
   bf16* qbuf = scratch;          // [rows, d] self q (unscaled)
@@ -508,7 +516,7 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
   MK_TRY(sk::weight_map(&m_co, pk.w_co, L, d, d, sk::BM));
   MK_TRY(sk::weight_map(&m_fc1, pk.w_fc1, L, f, d, sk::BM));
   MK_TRY(sk::weight_map(&m_fc2, pk.w_fc2, L, d, f, sk::BM));
-  MK_TRY(mk::decode_attn::cache_maps<D>(&m_kv, cross_k, cross_v, (long long)L * B * H, S));
+  MK_TRY(mk::decode_attn::cache_maps<DP>(&m_kv, cross_k, cross_v, (long long)L * B * H, S, Dc));
   // the first LayerNorm's statistics: x0's, by tile
   row_tile_stats<<<(rows * (d / 64) + 3) / 4, 128, 0, st>>>(x0, rows, d, stats);
   MK_TRY((int)cudaGetLastError());
@@ -542,9 +550,19 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
       MK_TRY(product(m_self3, m_xin, l, ln_of(ln), 3 * d, d, cps[0], nullptr, e));
       // 2. self-attention over the cache
       const long long cl = (long long)l * rows * H * Tmax;
-      self_attn_bf16<D><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
-          qbuf, kn, vn, self_k + cl * D, self_v + cl * D, sbias + cl, attn, rows, H, Tmax, idx,
-          scaling);
+      const dim3 sa_grid((rows * H + SA_WARPS - 1) / SA_WARPS);
+      if (D == DP)
+        self_attn_bf16<DP, true><<<sa_grid, SA_WARPS * 32, sa_smem, st>>>(
+            qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
+            scaling, D);
+      else if (D % 8 == 0)
+        self_attn_bf16<DP, false><<<sa_grid, SA_WARPS * 32, sa_smem, st>>>(
+            qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
+            scaling, D);
+      else
+        self_attn_kernel<DP, bf16><<<sa_grid, SA_WARPS * 32, sa_smem, st>>>(
+            qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
+            scaling, D, Dc);
       MK_TRY((int)cudaGetLastError());
       // 3. out-proj + bias + residual; x's statistics for step 4
       MK_TRY(product(m_so, m_attn, l, none, d, d, cps[1], stats, epi_of<bf16>(bm, x, d, xin)));
@@ -552,8 +570,8 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
       MK_TRY(product(m_cq, m_x, l, ln_of(ln + 2 * d), d, d, cps[1], nullptr,
                      epi_of<bf16>(bm + d, q2, d, nullptr, scaling)));
       // 5. beam-shared cross-attention over this layer's [B, H, S, D] K/V
-      mk::decode_attn::Args a{q2, cbias, attn, B, H, Kb, S, l};
-      MK_TRY(mk::decode_attn::launch<D>(m_kv, a, pdl, st));
+      mk::decode_attn::Args a{q2, cbias, attn, B, H, Kb, S, l, D};
+      MK_TRY(mk::decode_attn::launch<DP>(m_kv, a, pdl, st));
       // 6. out-proj + bias + residual; x's statistics for step 7
       MK_TRY(product(m_co, m_attn, l, none, d, d, cps[1], stats,
                      epi_of<bf16>(bm + 2 * d, x, d, x)));
@@ -572,10 +590,11 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
 
 // The fp32 route (FMA kernels). Shapes: the pack as ops/decode_stack.py
 // builds it; x0 [rows, d]; sbias [L, rows, H, Tmax]; cbias [B, H, S]; self_k/
-// self_v [L, rows, H, Tmax, hd]; cross_k/cross_v [L, B, H, S, hd]; outputs
+// self_v [L, rows, H, Tmax, hc]; cross_k/cross_v [L, B, H, S, hc]; outputs
 // x_out [rows, d], k_new/v_new [L, rows, d]; scratch rows * (3 d + f)
-// elements. rows = B * Kb, d = hd H, hd = head_dim (64 or 80). Returns a
-// CUDA error code.
+// elements. rows = B * Kb, d = hd H, hd = head_dim (up to 128), hc = hd
+// rounded up to a multiple of 8 (the caches' columns past hd zeros).
+// Returns a CUDA error code.
 extern "C" int mk_decode_stack_step(const void* w_self3, const void* b_self3, const void* w_so,
                                     const void* w_cq, const void* w_co, const void* w_fc1,
                                     const void* b_fc1, const void* w_fc2, const void* b_misc,
@@ -588,14 +607,14 @@ extern "C" int mk_decode_stack_step(const void* w_self3, const void* b_self3, co
   const Pack pk{w_self3, b_self3, w_so, w_cq, w_co, w_fc1, b_fc1, w_fc2, b_misc,
                 static_cast<const float*>(ln)};
   using T = float;
-  return mk::with_head_dim(head_dim, [&](auto d) {
+  return mk::with_head_dim((head_dim + 7) / 8 * 8, [&](auto d) {
     return step<decltype(d)::value, T>(
         pk, static_cast<const T*>(x0), static_cast<const float*>(sbias),
         static_cast<const float*>(cbias), static_cast<const T*>(self_k),
         static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
         static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
         static_cast<T*>(v_new), static_cast<T*>(scratch), L, B, Kb, H, S, Tmax, f, idx, scaling,
-        static_cast<cudaStream_t>(stream));
+        head_dim, static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -617,7 +636,7 @@ extern "C" int mk_decode_stack_step_sm90(
                 static_cast<const float*>(ln)};
   const int cps[4] = {cps_qkv, cps_dd, cps_fc1, cps_fc2};
   using T = __nv_bfloat16;
-  return mk::with_head_dim(head_dim, [&](auto d) {
+  return mk::with_head_dim((head_dim + 7) / 8 * 8, [&](auto d) {
     return step_sm90<decltype(d)::value>(
         pk, static_cast<const T*>(x0), static_cast<const float*>(sbias),
         static_cast<const float*>(cbias), static_cast<const T*>(self_k),
@@ -625,6 +644,6 @@ extern "C" int mk_decode_stack_step_sm90(
         static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
         static_cast<T*>(v_new), static_cast<T*>(scratch), static_cast<float*>(part),
         static_cast<int*>(counters), static_cast<float*>(stats), L, B, Kb, H, S, Tmax, f, idx,
-        scaling, n_tile, cps, pdl, static_cast<cudaStream_t>(stream));
+        scaling, n_tile, cps, pdl, head_dim, static_cast<cudaStream_t>(stream));
   });
 }

@@ -42,12 +42,12 @@ constexpr float NEG = ff::NEG;
 
 // The fp32 kernel. Scores of key tile k0 for this thread's 4 x 4 (row, key)
 // pairs: bias added, masks at -1e9, -inf past S (no part of the softmax).
-template <int D>
+template <int DP>
 __device__ __forceinline__ void scores(const float* qs, const float* ks, int tx, int ty, int q0,
                                        int k0, int Tq, int S, const float* relh,
                                        long long rel_rs, const uint8_t* kp, int causal,
                                        float (&sc)[4][4]) {
-  ff::score_tile<D>(qs, ks, tx, ty, sc);
+  ff::score_tile<DP>(qs, ks, tx, ty, sc);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
@@ -66,13 +66,13 @@ __device__ __forceinline__ void scores(const float* qs, const float* ks, int tx,
   }
 }
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(NT) kernel(
     const float* __restrict__ q, const float* __restrict__ pq, const float* __restrict__ k,
     const float* __restrict__ pk, const float* __restrict__ v, const float* __restrict__ rel,
     const uint8_t* __restrict__ kpad, float* __restrict__ out, int H, int Tq, int S, int Sp,
-    long long rel_hs, long long rel_rs, int causal) {
-  constexpr int QS = ff::Dims<D>::QS, VS = ff::Dims<D>::VS;
+    long long rel_hs, long long rel_rs, int causal, int D) {
+  constexpr int QS = ff::Dims<DP>::QS, VS = ff::Dims<DP>::VS;
   extern __shared__ float smem[];
   float* qs = smem;            // [BQ][QS]  q | pos_q
   float* ks = qs + BQ * QS;    // [BK][QS]  k | pos_k
@@ -90,7 +90,7 @@ __global__ void __launch_bounds__(NT) kernel(
   const uint8_t* kp = kpad + (long long)b * S;
   const float* relh = rel ? rel + h * rel_hs : nullptr;
 
-  ff::stage_q<D>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
+  ff::stage_q<DP>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq, D);
 
   // pass 1: each row's max and denominator over the real keys
   float m[4], l[4], sc[4][4];
@@ -101,9 +101,9 @@ __global__ void __launch_bounds__(NT) kernel(
   }
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile's ks reads are done
-    ff::stage_kv<D, float, false>(ks, nullptr, kb, pkb, nullptr, k0, S);
+    ff::stage_kv<DP, float, false>(ks, nullptr, kb, pkb, nullptr, k0, S, D);
     __syncthreads();
-    scores<D>(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
+    scores<DP>(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
@@ -131,23 +131,23 @@ __global__ void __launch_bounds__(NT) kernel(
   }
 
   // pass 2: p = exp(w - m) / l, accumulated against v
-  float acc[4][D / 16];
+  float acc[4][DP / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DP / 16; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    ff::stage_kv<D, float, true>(ks, vs, kb, pkb, vb, k0, S);
+    ff::stage_kv<DP, float, true>(ks, vs, kb, pkb, vb, k0, S, D);
     __syncthreads();
-    scores<D>(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
+    scores<DP>(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         ps[(ty + 16 * i) * PS + tx + 16 * j] = expf(sc[i][j] - m[i]) / l[i];
     __syncthreads();  // ps complete
-    ff::pv_tile<D>(ps, vs, tx, ty, acc);
+    ff::pv_tile<DP>(ps, vs, tx, ty, acc);
   }
 
 #pragma unroll
@@ -155,23 +155,24 @@ __global__ void __launch_bounds__(NT) kernel(
     const int t = q0 + ty + 16 * i;
     if (t >= Tq) continue;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) out[(bh * Tq + t) * D + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < DP / 16; ++j)
+      if (tx + 16 * j < D) out[(bh * Tq + t) * D + tx + 16 * j] = acc[i][j];
   }
 }
 
-template <int D>
+template <int DP>
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
            const void* rel, const void* kpad, void* out, int B, int H, int Tq, int S, int Sp,
-           long long rel_hs, long long rel_rs, int causal, cudaStream_t stream) {
-  constexpr size_t smem = ff::Dims<D>::SMEM_BYTES;
+           long long rel_hs, long long rel_rs, int causal, int D, cudaStream_t stream) {
+  constexpr size_t smem = ff::Dims<DP>::SMEM_BYTES;
   static mk::SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)kernel<D>, smem)) return err;
+  if (const int err = opt_in.ensure((const void*)kernel<DP>, smem)) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  kernel<D><<<grid, NT, smem, stream>>>(
+  kernel<DP><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pq), static_cast<const float*>(k),
       static_cast<const float*>(pk), static_cast<const float*>(v), static_cast<const float*>(rel),
       static_cast<const uint8_t*>(kpad), static_cast<float*>(out), H, Tq, S, Sp, rel_hs, rel_rs,
-      causal);
+      causal, D);
   return (int)cudaGetLastError();
 }
 
@@ -180,7 +181,8 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
 // bf16 != 0 selects __nv_bfloat16 streams (q, k, v, pos_q, pos_k, out), else
 // float; rel_f32 != 0 reads rel as float, else in the streams' type. rel may
 // be null (cross attention); kpad is bool [B, S]; Sp >= S counts the padded
-// keys of the JAX wrapper; head_dim is 64 or 80. Returns cudaGetLastError().
+// keys of the JAX wrapper; head_dim is a multiple of 8 up to 128
+// (common.cuh::with_head_dim). Returns cudaGetLastError().
 extern "C" int mk_flash_attention_k5(int bf16, int rel_f32, const void* q, const void* pos_q,
                                      const void* k, const void* pos_k, const void* v,
                                      const void* rel, const void* kpad, void* out, int B, int H,
@@ -188,17 +190,18 @@ extern "C" int mk_flash_attention_k5(int bf16, int rel_f32, const void* q, const
                                      long long rel_row_stride, int causal, int head_dim,
                                      void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  const int D = head_dim;
   return mk::with_head_dim(head_dim, [&](auto d) {
-    constexpr int D = decltype(d)::value;
+    constexpr int DP = decltype(d)::value;
     if (!bf16)
-      return launch<D>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp, rel_head_stride,
-                       rel_row_stride, causal, st);
+      return launch<DP>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp, rel_head_stride,
+                        rel_row_stride, causal, D, st);
     if (rel_f32)
-      return mk::sm90::launch<D, true, float>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B,
-                                              H, Tq, S, Sp, rel_head_stride, rel_row_stride,
-                                              causal, 0, st);
-    return mk::sm90::launch<D, true, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out,
-                                                    nullptr, B, H, Tq, S, Sp, rel_head_stride,
-                                                    rel_row_stride, causal, 0, st);
+      return mk::sm90::launch<DP, true, float>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B,
+                                               H, Tq, S, Sp, rel_head_stride, rel_row_stride,
+                                               causal, 0, D, st);
+    return mk::sm90::launch<DP, true, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out,
+                                                     nullptr, B, H, Tq, S, Sp, rel_head_stride,
+                                                     rel_row_stride, causal, 0, D, st);
   });
 }

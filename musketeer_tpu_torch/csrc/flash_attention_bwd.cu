@@ -45,8 +45,10 @@
 // call is bound by the CUDA cores' fp32 FMA rate (~67 TFLOP/s).
 // Each thread owns a 4x4 tile of P/dW and a 4 x (2 D / 16) (or 4 x D / 16)
 // tile of its gradient accumulators; shared row strides are padded by one
-// word against bank conflicts. The head dim D is a template parameter,
-// compiled at 64 and 80, on either core.
+// word against bank conflicts. The tile width DP is a template parameter,
+// compiled at 32, 64, 80 and 128 on either core (a head dim D runs on the
+// smallest DP >= D, common.cuh::with_head_dim): the staged columns past D
+// are zeros and no gradient column past D is stored.
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd.cuh"
 
@@ -60,69 +62,71 @@ constexpr int NT = mk::flash_fwd::NT;  // 16 x 16 threads
 constexpr int PS = BK + 1;
 constexpr float NEG = mk::flash_fwd::NEG;
 
-// The fp32 kernels' shared-memory layout at head dim D.
-template <int D>
+// The fp32 kernels' shared-memory layout at tile width DP (231,424 bytes at 128).
+template <int DP>
 struct Bwd {
-  static constexpr int D2 = 2 * D, QS = D2 + 1, VS = D + 1;
+  static constexpr int D2 = 2 * DP, QS = D2 + 1, VS = DP + 1;
   static constexpr int KV_SMEM_FLOATS =
       BK * QS + BK * VS + BQ * QS + BQ * VS + 2 * BQ * PS + 2 * BQ;
   static constexpr int Q_SMEM_FLOATS = BQ * QS + BQ * VS + BK * QS + BK * VS + BQ * PS + 2 * BQ;
 };
 
-// delta[row] = sum_d dO[row, d] * O[row, d] in fp32; one warp per row.
-template <int D, typename T>
+// delta[row] = sum_d dO[row, d] * O[row, d] in fp32; one warp per row, the
+// columns lane, lane + 32, ... of each row a lane.
+template <typename T>
 __global__ void __launch_bounds__(256) dsum_kernel(const T* __restrict__ o,
                                                    const T* __restrict__ dout,
-                                                   float* __restrict__ delta, long long rows) {
-  static_assert(D >= 64 && D <= 96, "two columns a lane, a third on lanes < D - 64");
+                                                   float* __restrict__ delta, long long rows,
+                                                   int D) {
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // a whole warp leaves together
   const T* op = o + row * D;
   const T* gp = dout + row * D;
-  float s = to_f(gp[lane]) * to_f(op[lane]) + to_f(gp[lane + 32]) * to_f(op[lane + 32]);
-  if (D > 64 && lane < D - 64) s += to_f(gp[lane + 64]) * to_f(op[lane + 64]);
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s += to_f(gp[c]) * to_f(op[c]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
 }
 
 // Rows [r0, r0 + 64) of a [rows, D] stream pair (x | y) into a shared
-// [64][QS] tile, zeros past `rows`.
-template <int D, typename T>
-__device__ __forceinline__ void load_pair(float* dst, const T* x, const T* y, int r0, int rows) {
-  constexpr int QS = Bwd<D>::QS;
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D, t = r0 + r;
+// [64][QS] tile, zeros past `rows` and in the columns D .. DP - 1.
+template <int DP, typename T>
+__device__ __forceinline__ void load_pair(float* dst, const T* x, const T* y, int r0, int rows,
+                                          int D) {
+  constexpr int QS = Bwd<DP>::QS;
+  for (int i = threadIdx.x; i < 64 * DP; i += NT) {
+    const int r = i / DP, c = i % DP, t = r0 + r;
     float a = 0.f, p = 0.f;
-    if (t < rows) {
+    if (t < rows && c < D) {
       a = to_f(x[(long long)t * D + c]);
       p = to_f(y[(long long)t * D + c]);
     }
     dst[r * QS + c] = a;
-    dst[r * QS + D + c] = p;
+    dst[r * QS + DP + c] = p;
   }
 }
 
 // Rows [r0, r0 + 64) of a [rows, D] stream into a shared [64][VS] tile.
-template <int D, typename T>
-__device__ __forceinline__ void load_one(float* dst, const T* x, int r0, int rows) {
-  constexpr int VS = Bwd<D>::VS;
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D, t = r0 + r;
-    dst[r * VS + c] = t < rows ? to_f(x[(long long)t * D + c]) : 0.f;
+template <int DP, typename T>
+__device__ __forceinline__ void load_one(float* dst, const T* x, int r0, int rows, int D) {
+  constexpr int VS = Bwd<DP>::VS;
+  for (int i = threadIdx.x; i < 64 * DP; i += NT) {
+    const int r = i / DP, c = i % DP, t = r0 + r;
+    dst[r * VS + c] = t < rows && c < D ? to_f(x[(long long)t * D + c]) : 0.f;
   }
 }
 
 // For the thread's 4x4 entries (query row q0 + ty + 16i, key k0 + tx + 16j)
 // of one (q tile, key tile) pair: P = exp(w - lse) and dW = P (dP - delta),
 // with P = 0 past the ends of the query rows and the keys.
-template <int D, typename T>
+template <int DP, typename T>
 __device__ __forceinline__ void probs_and_dw(
     const float* qs, const float* ks, const float* dos, const float* vs, const float* lse_s,
     const float* dl_s, const T* relh, long long rel_rs, const uint8_t* kp, int q0, int k0,
     int Tq, int S, int causal, float p[4][4], float dw[4][4]) {
-  constexpr int D2 = Bwd<D>::D2, QS = Bwd<D>::QS, VS = Bwd<D>::VS;
+  constexpr int D2 = Bwd<DP>::D2, QS = Bwd<DP>::QS, VS = Bwd<DP>::VS;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float sc[4][4], dp[4][4];
 #pragma unroll
@@ -142,7 +146,7 @@ __device__ __forceinline__ void probs_and_dw(
       for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
   }
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DP; ++d) {
     float a[4], c[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = dos[(ty + 16 * i) * VS + d];
@@ -174,14 +178,15 @@ __device__ __forceinline__ void probs_and_dw(
 }
 
 // dk, dpos_k, dv for one (b, h, 64-key tile).
-template <int D, typename T>
+template <int DP, typename T>
 __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
     const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
     const uint8_t* __restrict__ kpad, const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dpk,
-    T* __restrict__ dv, int H, int Tq, int S, long long rel_hs, long long rel_rs, int causal) {
-  constexpr int QS = Bwd<D>::QS, VS = Bwd<D>::VS, NC = D / 16;  // NC: columns a thread owns
+    T* __restrict__ dv, int H, int Tq, int S, long long rel_hs, long long rel_rs, int causal,
+    int D) {
+  constexpr int QS = Bwd<DP>::QS, VS = Bwd<DP>::VS, NC = DP / 16;  // NC: columns a thread owns
   extern __shared__ float smem[];
   float* ks = smem;             // [BK][QS]  k | pos_k of this block's keys
   float* vs = ks + BK * QS;     // [BK][VS]
@@ -197,8 +202,8 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
   const long long bh = (long long)b * H + h;
   const T* relh = rel ? rel + h * rel_hs : nullptr;
   const uint8_t* kp = kpad + (long long)b * S;
-  load_pair<D>(ks, k + bh * S * D, pk + bh * S * D, k0, S);
-  load_one<D>(vs, v + bh * S * D, k0, S);
+  load_pair<DP>(ks, k + bh * S * D, pk + bh * S * D, k0, S, D);
+  load_one<DP>(vs, v + bh * S * D, k0, S, D);
 
   float adk[4][2 * NC], adv[4][NC];  // key rows ty + 16i; columns tx + 16c
 #pragma unroll
@@ -211,8 +216,8 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
 
   for (int q0 = 0; q0 < Tq; q0 += BQ) {
     __syncthreads();  // the previous q tile's shared reads are done
-    load_pair<D>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
-    load_one<D>(dos, dout + bh * Tq * D, q0, Tq);
+    load_pair<DP>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq, D);
+    load_one<DP>(dos, dout + bh * Tq * D, q0, Tq, D);
     for (int i = threadIdx.x; i < BQ; i += NT) {
       const int t = q0 + i;
       lse_s[i] = t < Tq ? lse[bh * Tq + t] : 0.f;
@@ -221,7 +226,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     __syncthreads();
 
     float p[4][4], dw[4][4];
-    probs_and_dw<D>(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p, dw);
+    probs_and_dw<DP>(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p, dw);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -261,6 +266,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     const long long row = (bh * S + s) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
+      if (tx + 16 * c >= D) continue;
       dk[row + tx + 16 * c] = mk::from_f<T>(adk[i][c]);
       dpk[row + tx + 16 * c] = mk::from_f<T>(adk[i][c + NC]);
       dv[row + tx + 16 * c] = mk::from_f<T>(adv[i][c]);
@@ -270,15 +276,15 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
 
 // dq, dpos_q (and the drel tile) for one (h, 64-row q tile) over batch rows
 // [b0, b1): all of them when drel is wanted, else blockIdx.z alone.
-template <int D, typename T>
+template <int DP, typename T>
 __global__ void __launch_bounds__(NT) bwd_q_kernel(
     const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
     const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
     const uint8_t* __restrict__ kpad, const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, T* __restrict__ dpq,
     float* __restrict__ drel, int B, int H, int Tq, int S, long long rel_hs, long long rel_rs,
-    int causal) {
-  constexpr int QS = Bwd<D>::QS, VS = Bwd<D>::VS, NC = D / 16;  // NC: columns a thread owns
+    int causal, int D) {
+  constexpr int QS = Bwd<DP>::QS, VS = Bwd<DP>::VS, NC = DP / 16;  // NC: columns a thread owns
   extern __shared__ float smem[];
   float* qs = smem;             // [BQ][QS]  q | pos_q of this block's rows
   float* dos = qs + BQ * QS;    // [BQ][VS]
@@ -297,8 +303,8 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
     const long long bh = (long long)b * H + h;
     const uint8_t* kp = kpad + (long long)b * S;
     __syncthreads();  // the previous batch row's shared reads are done
-    load_pair<D>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq);
-    load_one<D>(dos, dout + bh * Tq * D, q0, Tq);
+    load_pair<DP>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq, D);
+    load_one<DP>(dos, dout + bh * Tq * D, q0, Tq, D);
     for (int i = threadIdx.x; i < BQ; i += NT) {
       const int t = q0 + i;
       lse_s[i] = t < Tq ? lse[bh * Tq + t] : 0.f;
@@ -313,12 +319,12 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
 
     for (int k0 = 0; k0 < S; k0 += BK) {
       __syncthreads();  // the previous key tile's shared reads are done
-      load_pair<D>(ks, k + bh * S * D, pk + bh * S * D, k0, S);
-      load_one<D>(vs, v + bh * S * D, k0, S);
+      load_pair<DP>(ks, k + bh * S * D, pk + bh * S * D, k0, S, D);
+      load_one<DP>(vs, v + bh * S * D, k0, S, D);
       __syncthreads();
 
       float p[4][4], dw[4][4];
-      probs_and_dw<D>(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p,
+      probs_and_dw<DP>(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p,
                    dw);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -354,6 +360,7 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
       const long long row = (bh * Tq + t) * D;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
+        if (tx + 16 * c >= D) continue;
         dq[row + tx + 16 * c] = mk::from_f<T>(adq[i][c]);
         dpq[row + tx + 16 * c] = mk::from_f<T>(adq[i][c + NC]);
       }
@@ -362,28 +369,28 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
 }
 
 // The dsum pre-pass of either core.
-template <int D, typename T>
-int launch_dsum(const void* o, const void* dout, float* delta, int B, int H, int Tq,
+template <typename T>
+int launch_dsum(const void* o, const void* dout, float* delta, int B, int H, int Tq, int D,
                 cudaStream_t stream) {
   const long long rows = (long long)B * H * Tq;
-  dsum_kernel<D, T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
+  dsum_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, D);
   return (int)cudaGetLastError();
 }
 
 // The fp32 launches: dsum, key-major, query-major.
-template <int D, typename T>
+template <int DP, typename T>
 int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, const void* v,
                const void* rel, const void* kpad, const void* o, const void* dout,
                const float* lse, float* delta, void* dq, void* dpq, void* dk, void* dpk,
                void* dv, float* drel, int B, int H, int Tq, int S, long long rel_hs,
-               long long rel_rs, int causal, cudaStream_t stream) {
-  const size_t kv_smem = Bwd<D>::KV_SMEM_FLOATS * sizeof(float);
-  const size_t q_smem = Bwd<D>::Q_SMEM_FLOATS * sizeof(float);
+               long long rel_rs, int causal, int D, cudaStream_t stream) {
+  const size_t kv_smem = Bwd<DP>::KV_SMEM_FLOATS * sizeof(float);
+  const size_t q_smem = Bwd<DP>::Q_SMEM_FLOATS * sizeof(float);
   static mk::SmemOptIn kv_opt_in, q_opt_in;
-  if (const int err = kv_opt_in.ensure((const void*)bwd_kv_kernel<D, T>, kv_smem)) return err;
-  if (const int err = q_opt_in.ensure((const void*)bwd_q_kernel<D, T>, q_smem)) return err;
-  if (const int err = launch_dsum<D, T>(o, dout, delta, B, H, Tq, stream)) return err;
+  if (const int err = kv_opt_in.ensure((const void*)bwd_kv_kernel<DP, T>, kv_smem)) return err;
+  if (const int err = q_opt_in.ensure((const void*)bwd_q_kernel<DP, T>, q_smem)) return err;
+  if (const int err = launch_dsum<T>(o, dout, delta, B, H, Tq, D, stream)) return err;
 
   const T* qt = static_cast<const T*>(q);
   const T* pqt = static_cast<const T*>(pq);
@@ -393,15 +400,15 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
   const T* relt = static_cast<const T*>(rel);
   const T* dot = static_cast<const T*>(dout);
   const uint8_t* kp = static_cast<const uint8_t*>(kpad);
-  bwd_kv_kernel<D, T><<<dim3((S + BK - 1) / BK, H, B), NT, kv_smem, stream>>>(
+  bwd_kv_kernel<DP, T><<<dim3((S + BK - 1) / BK, H, B), NT, kv_smem, stream>>>(
       qt, pqt, kt, pkt, vt, relt, kp, dot, lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dpk), static_cast<T*>(dv), H, Tq, S, rel_hs, rel_rs, causal);
+      static_cast<T*>(dpk), static_cast<T*>(dv), H, Tq, S, rel_hs, rel_rs, causal, D);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  bwd_q_kernel<D, T><<<dim3((Tq + BQ - 1) / BQ, H, drel ? 1 : B), NT, q_smem, stream>>>(
+  bwd_q_kernel<DP, T><<<dim3((Tq + BQ - 1) / BQ, H, drel ? 1 : B), NT, q_smem, stream>>>(
       qt, pqt, kt, pkt, vt, relt, kp, dot, lse, delta, static_cast<T*>(dq),
-      static_cast<T*>(dpq), drel, B, H, Tq, S, rel_hs, rel_rs, causal);
+      static_cast<T*>(dpq), drel, B, H, Tq, S, rel_hs, rel_rs, causal, D);
   return (int)cudaGetLastError();
 }
 
@@ -409,7 +416,7 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
 
 // K3. bf16 != 0 selects __nv_bfloat16 streams, else float. rel may be null
 // (cross attention); kpad is bool [B, S]; lse is fp32 [B, H, Tq]; head_dim
-// is 64 or 80.
+// is a multiple of 8 up to 128 (common.cuh::with_head_dim).
 extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q,
                                       const void* k, const void* pos_k, const void* v,
                                       const void* rel, const void* kpad, void* out, void* lse,
@@ -418,15 +425,16 @@ extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q
                                       int head_dim, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
+  const int D = head_dim;
   return mk::with_head_dim(head_dim, [&](auto d) {
-    constexpr int D = decltype(d)::value;
+    constexpr int DP = decltype(d)::value;
     if (bf16)
-      return mk::sm90::launch<D, false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, l,
-                                                       B, H, Tq, S, S, rel_head_stride,
-                                                       rel_row_stride, causal, skip_max, st);
-    return mk::flash_fwd::launch<D, float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B, H,
-                                                 Tq, S, rel_head_stride, rel_row_stride, causal,
-                                                 skip_max, st);
+      return mk::sm90::launch<DP, false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, l,
+                                                        B, H, Tq, S, S, rel_head_stride,
+                                                        rel_row_stride, causal, skip_max, D, st);
+    return mk::flash_fwd::launch<DP, float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B,
+                                                  H, Tq, S, rel_head_stride, rel_row_stride,
+                                                  causal, skip_max, D, st);
   });
 }
 
@@ -434,7 +442,7 @@ extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q
 // lse; delta is fp32 scratch [B, H, Tq]. drel receives sum_b dW in fp32, or
 // is null when rel needs no gradient: with fp32 streams a zeroed [H, Tq, S]
 // buffer; with bf16 streams [B, H, Tq, S] scratch for the batch rows' dW,
-// whose first [H, Tq, S] receives the sum. head_dim is 64 or 80.
+// whose first [H, Tq, S] receives the sum. head_dim as K3's.
 extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q,
                                       const void* k, const void* pos_k, const void* v,
                                       const void* rel, const void* kpad, const void* o,
@@ -447,16 +455,17 @@ extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q
   auto l = static_cast<const float*>(lse);
   auto dl = static_cast<float*>(delta);
   auto dr = static_cast<float*>(drel);
+  const int D = head_dim;
   return mk::with_head_dim(head_dim, [&](auto d) {
-    constexpr int D = decltype(d)::value;
+    constexpr int DP = decltype(d)::value;
     if (bf16) {
-      if (const int err = launch_dsum<D, __nv_bfloat16>(o, dout, dl, B, H, Tq, st)) return err;
-      return mk::sm90::launch_bwd<D>(q, pos_q, k, pos_k, v, rel, kpad, dout, l, dl, dq, dpos_q,
-                                     dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
-                                     rel_row_stride, causal, st);
+      if (const int err = launch_dsum<__nv_bfloat16>(o, dout, dl, B, H, Tq, D, st)) return err;
+      return mk::sm90::launch_bwd<DP>(q, pos_q, k, pos_k, v, rel, kpad, dout, l, dl, dq, dpos_q,
+                                      dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
+                                      rel_row_stride, causal, D, st);
     }
-    return launch_bwd<D, float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q, dk,
-                                dpos_k, dv, dr, B, H, Tq, S, rel_head_stride, rel_row_stride,
-                                causal, st);
+    return launch_bwd<DP, float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q,
+                                 dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
+                                 rel_row_stride, causal, D, st);
   });
 }

@@ -10,8 +10,8 @@
 #include "flash_fwd_sm90.cuh"
 
 // bf16 != 0 selects __nv_bfloat16 streams, else float. rel may be null
-// (cross attention); kpad is bool [B, S]; head_dim is 64 or 80. Returns
-// cudaGetLastError().
+// (cross attention); kpad is bool [B, S]; head_dim is a multiple of 8 up to
+// 128 (common.cuh::with_head_dim). Returns cudaGetLastError().
 extern "C" int mk_flash_attention_infer(int bf16, const void* q, const void* pos_q,
                                         const void* k, const void* pos_k, const void* v,
                                         const void* rel, const void* kpad, void* out, int B,
@@ -20,13 +20,15 @@ extern "C" int mk_flash_attention_infer(int bf16, const void* q, const void* pos
                                         int head_dim, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   return mk::with_head_dim(head_dim, [&](auto d) {
-    constexpr int D = decltype(d)::value;
+    constexpr int DP = decltype(d)::value;
     if (bf16)
-      return mk::sm90::launch<D, false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out,
-                                                       nullptr, B, H, Tq, S, S, rel_head_stride,
-                                                       rel_row_stride, causal, skip_max, st);
-    return mk::flash_fwd::launch<D, float, false>(q, pos_q, k, pos_k, v, rel, kpad, out,
-                                                  nullptr, B, H, Tq, S, rel_head_stride,
-                                                  rel_row_stride, causal, skip_max, st);
+      return mk::sm90::launch<DP, false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out,
+                                                        nullptr, B, H, Tq, S, S, rel_head_stride,
+                                                        rel_row_stride, causal, skip_max,
+                                                        head_dim, st);
+    return mk::flash_fwd::launch<DP, float, false>(q, pos_q, k, pos_k, v, rel, kpad, out,
+                                                   nullptr, B, H, Tq, S, rel_head_stride,
+                                                   rel_row_stride, causal, skip_max, head_dim,
+                                                   st);
   });
 }

@@ -11,20 +11,25 @@
 // fp32 launches stay on the FMA kernels of flash_attention_bwd.cu.
 //
 // Numerics. Scores, bias, masks, P and dW are fp32, as in the TPU kernel. dP
-// comes from the bf16 dO and v with fp32 sums. P and dW are rounded to bf16
-// once, only as the A operands of the dv, dk|dpos_k and dq|dpos_q products
-// (tensor cores take bf16; the TPU kernel widens its operands to fp32). The
-// accumulators are fp32 and each gradient is rounded once to bf16. drel sums
-// the unrounded fp32 dW over the batch, in order.
+// comes from the bf16 dO and v with fp32 sums. Tensor cores take bf16
+// operands where the TPU kernel widens its operands to fp32: P and dW are
+// rounded to bf16 once as the A operands of the dv and dk|dpos_k products;
+// dq|dpos_q take dW split into a bf16 high part and the bf16 rounding of
+// what is left, two products into one fp32 accumulator, so dW enters them
+// to about 16 bits (one rounding of dW to bf16 there put dq 1.78 bf16 steps
+// from the fp32 function on a causal training input, plain PyTorch 0.49).
+// The accumulators are fp32 and each gradient is rounded once to bf16. drel
+// sums the unrounded fp32 dW over the batch, in order.
 //
-// Design. After flash_attention_bwd.cu's dsum pre-pass, two launches, each
-// writing every element of its outputs once (deterministic, no atomics,
-// nothing carried between CTAs), then drel's in-order sum; both launches
-// rebuild P and dW, about 3 of the 11 [T, S] x 64 products. Each CTA has one
+// Design. After flash_attention_bwd.cu's dsum pre-pass, the key-major and
+// the query-major launches, each writing every element of its outputs once
+// (deterministic, no atomics, nothing carried between CTAs), then drel's
+// in-order sum; each launch rebuilds P and dW, 3 of the 13 [T, S] x 64
+// products at DP 64. Each CTA has one
 // consumer warpgroup and a producer warp, as K1's.
 //   - Key-major, one CTA per (b, h, 64-key tile). k, pos_k and v are resident
 //     (one TMA load); the q, pos_q and dO tiles of each 64-row q tile stream
-//     through a ring of STAGES stages (24 KB each, as K1's), beside the tile's
+//     through a ring of STAGES stages (as K1's: 24 KB at DP 64), beside the tile's
 //     64 lse and 64 dsum values, which the producer warp's 32 lanes copy in
 //     and release with their own mbarrier arrivals. The scores come out
 //     transposed, S^T = [k|pos_k].[q|pos_q]^T and dP^T = v.dO^T (12 wgmma
@@ -32,13 +37,13 @@
 //     sit in the accumulator layout, which packed to bf16 pairs is the A
 //     fragment layout: dv += P^T.dO, dk += dW^T.q and dpos_k += dW^T.pos_q
 //     (12 k-steps, B read MN-major from the stage as K1 reads v).
-//     Registers: at D 64 the three 64x64 fp32 accumulators are 96 a thread
+//     Registers: at DP 64 the three 64x64 fp32 accumulators are 96 a thread
 //     and S^T and dP^T 64 more while P and dW form; those 64 then pack into
-//     the 32 registers of the two A operands. At D 80 the three 64x80
-//     accumulators would be 120 a thread, past what 255 registers hold
-//     beside the rest, so the key-major work is two launches of the same
-//     kernel, each rebuilding P and dW: dv and dk (80 registers of
-//     accumulators), then dpos_k (40).
+//     the 32 registers of the two A operands. Wider, three accumulators
+//     would not fit 255 registers beside the rest, so the key-major work is
+//     several launches of the same kernel, each rebuilding P (and dW where
+//     it needs it): at DP 80 dv and dk (80 registers of accumulators), then
+//     dpos_k (40); at DP 128 dv (without dP), dk, dpos_k (64 each).
 //     rel is read transposed here: each accumulator pair spans two query rows
 //     of rel[h]. Loaded directly in the accumulator layout that is 32
 //     two-byte loads a thread a tile, each warp load touching 4 rows; instead
@@ -51,7 +56,10 @@
 //     resident, k, pos_k and v stream as in K1; S and dP in K1's orientation,
 //     rel and the masks by K1's load_bias and mask_scores (rel staged as
 //     above ran slower here, as it did in K1); dq += dW.k and dpos_q +=
-//     dW.pos_k. drel: each CTA writes its batch row's unrounded fp32 dW into
+//     dW.pos_k, each on dW's high and low bf16 parts; at DP 128 two launches
+//     (dq, then dpos_q: 64 registers of accumulators each), each rebuilding
+//     dW. drel: the (first) launch's CTAs write their batch row's unrounded
+//     fp32 dW into
 //     a [B, H, Tq, S] scratch, and drel_sum adds the B rows in order into the
 //     first. Looping over the batch in one CTA per (h, q tile) with a
 //     read-modify-write, as the FMA kernel does, leaves 192 CTAs at the
@@ -66,21 +74,23 @@
 // as in the TPU kernel and the FMA kernels; causally masked tiles are not
 // skipped for the same reason.
 //
-// The head dim D is a template parameter, compiled at 64 and 80 (its
-// tiles as flash_fwd_sm90.cuh lays them out: at 80 two boxes a tile, the
-// products over the second box m64n64k16 / m64n16k16 with the 32-byte
-// swizzle's descriptors).
+// The tile width DP is a template parameter, compiled at 32, 64, 80 and 128
+// (its tiles as flash_fwd_sm90.cuh lays them out, sm90.cuh::HeadTile); the
+// head dim D <= DP is an argument: the tiles' columns past D are zeros,
+// which change no product, and no gradient column past D is stored.
 //
 // Bound. At the encoder train shape (B4 H12 T=S=980 D64) the function is 8
 // [T, S] x 64 products (the two score products, dP, dv, dq, dk, dpos_q,
 // dpos_k), 47.2 GFLOP against ~0.1 GB of streams and drel: 0.0477 ms at 989
-// TFLOP/s bf16, set by the operations; these launches do 11 such products
-// (14 at D 80, where the key-major launch is two).
+// TFLOP/s bf16, set by the operations; these launches do 13 such products
+// (dq and dpos_q two each), 16 at DP 80, 21 at DP 128 (a 64-deep product
+// there 128 deep).
 // At ofa_huge's train shape (B4 H16 T=S=980 D80) 8 products are 78.7 GFLOP:
-// 0.080 ms. ptxas (CUDA 12.8): at D64 212 registers (key-major), 219
-// (query-major); at D80 200 (key-major, dv and dk), 156 (key-major,
-// dpos_k), 229 (query-major); no spills, so one CTA of 160 threads per SM;
-// chip_smoke.py's build phase prints the report of each build.
+// 0.080 ms. ptxas (CUDA 12.8) registers, key-major / query-major: 170 / 191
+// at DP 32; 212 / 219 at 64; 196 (dv and dk), 153 (dpos_k) / 229 at 80; 145
+// (dv), 178 (dk), 178 (dpos_k) / 219, 219 at 128; no spills, so one CTA of
+// 160 threads per SM; chip_smoke.py's build phase prints the report of each
+// build.
 #pragma once
 
 #include "flash_fwd_sm90.cuh"
@@ -92,9 +102,9 @@ constexpr uint32_t ROWS = 2 * BQ * sizeof(float);    // a stage's lse and dsum (
 constexpr int REL_STRIDE = BK + 8;                   // bf16 row stride of a staged rel tile
 constexpr uint32_t REL_TILE = BQ * REL_STRIDE * 2;   // bytes; two, one per tile parity
 
-template <int D>
+template <int DP>
 struct BwdLayout {
-  static constexpr uint32_t TILE = Layout<D>::TILE, STAGE = Layout<D>::STAGE;
+  static constexpr uint32_t TILE = Layout<DP>::TILE, STAGE = Layout<DP>::STAGE;
   static constexpr uint32_t OFF_RING = 3 * TILE;  // after the 3 resident tiles
   static constexpr uint32_t OFF_ROWS = OFF_RING + STAGES * STAGE;
   static constexpr uint32_t OFF_REL = OFF_ROWS + STAGES * ROWS;
@@ -102,8 +112,9 @@ struct BwdLayout {
   static constexpr size_t SMEM = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
 };
 
-// which gradients a key-major launch writes
-enum KvOut { KV_ALL = 0, KV_DV_DK = 1, KV_DPK = 2 };
+// which gradients a key-major launch writes (a bit set), and a query-major one
+enum KvOut { KV_DV = 1, KV_DK = 2, KV_DPK = 4, KV_ALL = 7 };
+enum QOut { Q_DQ = 1, Q_DPQ = 2, Q_ALL = 3 };
 
 // a barrier among the consumer warpgroup alone (id 0 is __syncthreads')
 __device__ __forceinline__ void consumer_sync() {
@@ -137,22 +148,31 @@ __device__ __forceinline__ void stage_rel(__nv_bfloat16* buf, const __nv_bfloat1
     *reinterpret_cast<uint32_t*>(buf + (w + 4 * i) * REL_STRIDE + c) = v[i];
 }
 
-// sc = [a|pos_a].[b|pos_b]^T and dp = c.d^T, with a, pos_a, c the resident
-// tiles at sa and b, pos_b, d the stage at sb: 3 D / 16 wgmma k-steps into
-// two fp32 accumulators, issued and committed, not waited.
-template <int D>
+// sc = [a|pos_a].[b|pos_b]^T and, with kDp, dp = c.d^T, with a, pos_a, c the
+// resident tiles at sa and b, pos_b, d the stage at sb: 3 DP / 16 (2 DP / 16)
+// wgmma k-steps into fp32 accumulators, issued and committed, not waited.
+template <int DP, bool kDp = true>
 __device__ __forceinline__ void issue_s_dp(float (&sc)[32], float (&dp)[32], uint32_t sa,
                                            uint32_t sb) {
-  constexpr uint32_t TILE = Layout<D>::TILE;
-  issue_scores<D>(sc, sa, sb);
-  wgmma_fence();
+  constexpr uint32_t TILE = Layout<DP>::TILE;
+  issue_scores<DP>(sc, sa, sb);
+  if constexpr (kDp) {
+    wgmma_fence();
+    issue_kmajor<DP>(dp, sa + 2 * TILE, sb + 2 * TILE, 0);
+    wgmma_commit();
+    fence_operand(dp);
+  }
+}
+
+// The bf16 rounding of what the A fragments `hi` (x rounded to bf16 pairs,
+// to_a_fragments) leave of x: x - hi is exact in fp32, so hi + lo holds x to
+// about 16 bits.
+__device__ __forceinline__ void to_a_residual(const float (&x)[32], const uint32_t (&hi)[16],
+                                              uint32_t (&lo)[16]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss(dp, sw128_desc(sa + 2 * TILE + 32 * kk), sw128_desc(sb + 2 * TILE + 32 * kk), kk);
-  if constexpr (D > 64)
-    wgmma_ss(dp, sw32_desc(sa + 2 * TILE + LO), sw32_desc(sb + 2 * TILE + LO), 1);
-  wgmma_commit();
-  fence_operand(dp);
+  for (int i = 0; i < 16; ++i)
+    lo[i] = pack_bf16(x[2 * i] - __uint_as_float(hi[i] << 16),
+                      x[2 * i + 1] - __uint_as_float(hi[i] & 0xffff0000u));
 }
 
 template <int R>
@@ -161,33 +181,36 @@ __device__ __forceinline__ void zero(float (&a)[R]) {
   for (int i = 0; i < R; ++i) a[i] = 0.f;
 }
 
-// This thread's two rows (accumulator halves hh = 0, 1) of a 64 x D fp32
-// accumulator, rounded to bf16, at out + off[hh] (rows with off < 0 skipped).
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], __nv_bfloat16* out,
-                                           const long long (&off)[2], int cq) {
+// This thread's two rows (accumulator halves hh = 0, 1) of a 64 x DP fp32
+// accumulator, its first D columns rounded to bf16, at out + off[hh] (rows
+// with off < 0 skipped).
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], __nv_bfloat16* out,
+                                           const long long (&off)[2], int cq, int D) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (off[hh] < 0) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + off[hh] + 8 * j + cq) =
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + off[hh] + 8 * j + cq) =
           __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
 }
 
-// dk, dpos_k and dv (kOut KV_ALL), dv and dk (KV_DV_DK) or dpos_k (KV_DPK)
-// for one (b, h, 64-key tile). maps: q, pos_q, dO, k, pos_k, v.
-template <int D, int kOut>
+// The gradients of kOut's bits among dv, dk and dpos_k for one (b, h,
+// 64-key tile). maps: q, pos_q, dO, k, pos_k, v.
+template <int DP, int kOut>
 __global__ void __launch_bounds__(NT, 1) bwd_kv(
-    const __grid_constant__ Maps<D, 6> maps, const __nv_bfloat16* __restrict__ rel,
+    const __grid_constant__ Maps<DP, 6> maps, const __nv_bfloat16* __restrict__ rel,
     const uint8_t* __restrict__ kpad,
     const float* __restrict__ lse, const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dpk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
-    long long rel_hs, long long rel_rs, int rel_vec, int causal) {
-  using Lay = BwdLayout<D>;
+    long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
+  using Lay = BwdLayout<DP>;
   constexpr uint32_t TILE = Lay::TILE;
-  constexpr bool kDv = kOut != KV_DPK, kDk = kOut != KV_DPK, kDpk = kOut != KV_DV_DK;
+  constexpr bool kDv = kOut & KV_DV, kDk = kOut & KV_DK, kDpk = kOut & KV_DPK;
+  constexpr bool kW = kDk || kDpk;  // dW needed (else P alone, no dP product)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // k, pos_k, v
   uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));  // the same, generic
@@ -255,7 +278,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     key_pad[hh] = key_ok[hh] && kpad[(long long)b * S + s_of[hh]];
   }
 
-  float adv[D / 2], adk[D / 2], adpk[D / 2], sc[32], dp[32];
+  float adv[kDv ? DP / 2 : 1], adk[kDk ? DP / 2 : 1], adpk[kDpk ? DP / 2 : 1], sc[32], dp[32];
   uint32_t pa[16], wa[16];
   if constexpr (kDv) zero(adv);
   if constexpr (kDk) zero(adk);
@@ -264,7 +287,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
   for (int it = 0; it < n; ++it) {
     const int st = it % STAGES, q0 = it * BQ;
     mbar_wait(full(st), (it / STAGES) & 1);
-    issue_s_dp<D>(sc, dp, base, stage(st));
+    issue_s_dp<DP, kW>(sc, dp, base, stage(st));
     // rel's tile while the products run, staged in its own layout and read
     // transposed below (each accumulator pair spans two query rows)
     __nv_bfloat16* rt = nullptr;
@@ -275,7 +298,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     }
     wgmma_wait();
     fence_operand(sc);
-    fence_operand(dp);
+    if constexpr (kW) fence_operand(dp);
 
     // P^T and dW^T in fp32, 0 past S and past Tq; each rounded once to bf16 below
     const float* r = rows(st);
@@ -294,14 +317,14 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
           w = neg ? NEG : w;
           const float p = key_ok[hh] && t < Tq ? fexp(w - (e ? ls.y : ls.x)) : 0.f;
           sc[i] = p;
-          dp[i] = p * (dp[i] - (e ? ds.y : ds.x));
+          if constexpr (kW) dp[i] = p * (dp[i] - (e ? ds.y : ds.x));
         }
     }
     if constexpr (kDv) to_a_fragments(sc, pa);
-    to_a_fragments(dp, wa);
-    if constexpr (kDv) issue_pv<D>(adv, pa, stage(st) + 2 * TILE);  // dv     += P^T . dO
-    if constexpr (kDk) issue_pv<D>(adk, wa, stage(st));             // dk     += dW^T . q
-    if constexpr (kDpk) issue_pv<D>(adpk, wa, stage(st) + TILE);    // dpos_k += dW^T . pos_q
+    if constexpr (kW) to_a_fragments(dp, wa);
+    if constexpr (kDv) issue_pv<DP>(adv, pa, stage(st) + 2 * TILE);  // dv     += P^T . dO
+    if constexpr (kDk) issue_pv<DP>(adk, wa, stage(st));             // dk     += dW^T . q
+    if constexpr (kDpk) issue_pv<DP>(adpk, wa, stage(st) + TILE);    // dpos_k += dW^T . pos_q
     wgmma_wait();
     if constexpr (kDv) fence_regs(adv);
     if constexpr (kDk) fence_regs(adk);
@@ -312,21 +335,23 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
   long long off[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) off[hh] = key_ok[hh] ? ((long long)bh * S + s_of[hh]) * D : -1;
-  if constexpr (kDk) store_rows<D>(adk, dk, off, cq);
-  if constexpr (kDpk) store_rows<D>(adpk, dpk, off, cq);
-  if constexpr (kDv) store_rows<D>(adv, dv, off, cq);
+  if constexpr (kDk) store_rows<DP>(adk, dk, off, cq, D);
+  if constexpr (kDpk) store_rows<DP>(adpk, dpk, off, cq, D);
+  if constexpr (kDv) store_rows<DP>(adv, dv, off, cq, D);
 }
 
-// dq, dpos_q and this batch row's dW (drel's partial) for one (b, h, 64-row
-// q tile). maps: q, pos_q, dO, k, pos_k, v.
-template <int D>
+// The gradients of kOut's bits among dq and dpos_q, and this batch row's dW
+// (drel's partial, where drel_part is not null), for one (b, h, 64-row q
+// tile). maps: q, pos_q, dO, k, pos_k, v.
+template <int DP, int kOut>
 __global__ void __launch_bounds__(NT, 1) bwd_q(
-    const __grid_constant__ Maps<D, 6> maps, const __nv_bfloat16* __restrict__ rel,
+    const __grid_constant__ Maps<DP, 6> maps, const __nv_bfloat16* __restrict__ rel,
     const uint8_t* __restrict__ kpad,
     const float* __restrict__ lse, const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq,
     __nv_bfloat16* __restrict__ dpq, float* __restrict__ drel_part, int H, int Tq, int S,
-    long long rel_hs, long long rel_rs, int rel_vec, int causal) {
-  using Lay = BwdLayout<D>;
+    long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
+  using Lay = BwdLayout<DP>;
+  constexpr bool kDq = kOut & Q_DQ, kDpq = kOut & Q_DPQ;
   constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // q, pos_q, dO
@@ -385,16 +410,16 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
   }
 
-  float adq[D / 2], adpq[D / 2], sc[32], dp[32];
-  uint32_t wa[16];
+  float adq[kDq ? DP / 2 : 1], adpq[kDpq ? DP / 2 : 1], sc[32], dp[32];
+  uint32_t wa[16], wl[16];
   TileBias<__nv_bfloat16> bias;
-  zero(adq);
-  zero(adpq);
+  if constexpr (kDq) zero(adq);
+  if constexpr (kDpq) zero(adpq);
   mbar_wait(res_full, 0);
   for (int it = 0; it < n; ++it) {
     const int st = it % STAGES, k0 = it * BK, lim = S - k0;
     mbar_wait(full(st), (it / STAGES) & 1);
-    issue_s_dp<D>(sc, dp, base, stage(st));
+    issue_s_dp<DP>(sc, dp, base, stage(st));
     load_bias(bias, relh, rel_rs, rel_vec != 0, kp, k0, S, t0, Tq, lane, cq);  // while they run
     wgmma_wait();
     fence_operand(sc);
@@ -427,12 +452,21 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
         }
       }
     }
-    to_a_fragments(dp, wa);
-    issue_pv<D>(adq, wa, stage(st));          // dq     += dW . k
-    issue_pv<D>(adpq, wa, stage(st) + TILE);  // dpos_q += dW . pos_k
+    to_a_fragments(dp, wa);     // dW's high part,
+    to_a_residual(dp, wa, wl);  // then its low part
+    wgmma_fence();
+    if constexpr (kDq) {  // dq += dW . k
+      issue_pv_products<DP>(adq, wa, stage(st));
+      issue_pv_products<DP>(adq, wl, stage(st));
+    }
+    if constexpr (kDpq) {  // dpos_q += dW . pos_k
+      issue_pv_products<DP>(adpq, wa, stage(st) + TILE);
+      issue_pv_products<DP>(adpq, wl, stage(st) + TILE);
+    }
+    wgmma_commit();
     wgmma_wait();
-    fence_regs(adq);
-    fence_regs(adpq);
+    if constexpr (kDq) fence_regs(adq);
+    if constexpr (kDpq) fence_regs(adpq);
     mbar_arrive(empty(st));  // the products have read the stage
   }
 
@@ -442,8 +476,8 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     const int t = t0 + 8 * hh;
     off[hh] = t < Tq ? ((long long)bh * Tq + t) * D : -1;
   }
-  store_rows<D>(adq, dq, off, cq);
-  store_rows<D>(adpq, dpq, off, cq);
+  if constexpr (kDq) store_rows<DP>(adq, dq, off, cq, D);
+  if constexpr (kDpq) store_rows<DP>(adpq, dpq, off, cq, D);
 }
 
 // drel = the sum over the batch, in order, of the B partials [B, n], into
@@ -474,51 +508,65 @@ __global__ void __launch_bounds__(256) drel_sum(float* __restrict__ part, long l
   }
 }
 
-// Launches the key-major launch (two at D 80), the query-major one and
-// drel's sum on `stream` for bf16 streams [B, H, Tq or S, D] (16-byte
-// aligned), bf16 rel (or null), K3's lse and the pre-pass's dsum (fp32
-// [B, H, Tq]); drel_part is fp32 [B, H, Tq, S] scratch whose first [H, Tq, S]
-// receives drel, or null. Returns a cudaError_t code.
-template <int D>
+// Launches the key-major launches (one at DP 32 and 64, two at 80, three at
+// 128), the query-major ones (one, two at 128) and drel's sum on `stream`
+// for bf16 streams [B, H, Tq or S, D] (16-byte aligned, D <= DP a multiple
+// of 8), bf16 rel (or null), K3's lse and the pre-pass's dsum (fp32
+// [B, H, Tq]); drel_part is fp32 [B, H, Tq, S] scratch whose first
+// [H, Tq, S] receives drel, or null. Returns a cudaError_t code.
+template <int DP>
 int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, const void* v,
                const void* rel, const void* kpad, const void* dout, const float* lse,
                const float* dsum, void* dq, void* dpq, void* dk, void* dpk, void* dv,
                float* drel_part, int B, int H, int Tq, int S, long long rel_hs, long long rel_rs,
-               int causal, cudaStream_t stream) {
-  Maps<D, 6> maps;
-  if (const int err = stream_maps<D, 6>(maps, {q, pq, dout, k, pk, v}, {Tq, Tq, Tq, S, S, S},
-                                        (long long)B * H))
+               int causal, int D, cudaStream_t stream) {
+  Maps<DP, 6> maps;
+  if (const int err = stream_maps<DP, 6>(maps, {q, pq, dout, k, pk, v}, {Tq, Tq, Tq, S, S, S},
+                                         (long long)B * H, D))
     return err;
   const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % 4 == 0 && rel_rs % 2 == 0 &&
                       rel_hs % 2 == 0 && S % 2 == 0;
-  constexpr size_t smem = BwdLayout<D>::SMEM;
+  constexpr size_t smem = BwdLayout<DP>::SMEM;
   const auto* relt = static_cast<const __nv_bfloat16*>(rel);
   const auto* kp = static_cast<const uint8_t*>(kpad);
   auto kv = [&](auto out) -> cudaError_t {  // one key-major launch writing `out`
     constexpr int kOut = decltype(out)::value;
     static SmemOptIn opt_in;
-    if (const int e = opt_in.ensure((const void*)bwd_kv<D, kOut>, smem)) return (cudaError_t)e;
-    bwd_kv<D, kOut><<<dim3((S + BK - 1) / BK, H, B), NT, smem, stream>>>(
+    if (const int e = opt_in.ensure((const void*)bwd_kv<DP, kOut>, smem)) return (cudaError_t)e;
+    bwd_kv<DP, kOut><<<dim3((S + BK - 1) / BK, H, B), NT, smem, stream>>>(
         maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs,
-        rel_rs, rel_vec, causal);
+        rel_rs, rel_vec, causal, D);
     return cudaGetLastError();
   };
+  auto qm = [&](auto out, float* part) -> cudaError_t {  // one query-major launch
+    constexpr int kOut = decltype(out)::value;
+    static SmemOptIn opt_in;
+    if (const int e = opt_in.ensure((const void*)bwd_q<DP, kOut>, smem)) return (cudaError_t)e;
+    bwd_q<DP, kOut><<<dim3((Tq + BQ - 1) / BQ, H, B), NT, smem, stream>>>(
+        maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
+        static_cast<__nv_bfloat16*>(dpq), part, H, Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
+    return cudaGetLastError();
+  };
+  using Kv = std::integral_constant<int, KV_ALL>;
   cudaError_t err;
-  if constexpr (D == 64) {
-    err = kv(std::integral_constant<int, KV_ALL>{});
+  if constexpr (DP <= 64) {
+    err = kv(Kv{});
+  } else if constexpr (DP <= 80) {
+    err = kv(std::integral_constant<int, KV_DV | KV_DK>{});
+    if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
   } else {
-    err = kv(std::integral_constant<int, KV_DV_DK>{});
+    err = kv(std::integral_constant<int, KV_DV>{});
+    if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DK>{});
     if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
   }
   if (err != cudaSuccess) return (int)err;
-  static SmemOptIn q_opt_in;
-  if (const int e = q_opt_in.ensure((const void*)bwd_q<D>, smem)) return e;
-  bwd_q<D><<<dim3((Tq + BQ - 1) / BQ, H, B), NT, smem, stream>>>(
-      maps, relt, kp, lse, dsum,
-      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dpq), drel_part, H, Tq, S,
-      rel_hs, rel_rs, rel_vec, causal);
-  err = cudaGetLastError();
+  if constexpr (DP <= 80) {
+    err = qm(std::integral_constant<int, Q_ALL>{}, drel_part);
+  } else {
+    err = qm(std::integral_constant<int, Q_DQ>{}, drel_part);
+    if (err == cudaSuccess) err = qm(std::integral_constant<int, Q_DPQ>{}, nullptr);
+  }
   if (err != cudaSuccess || !drel_part || B == 1) return (int)err;
   const long long n = (long long)H * Tq * S, threads = n % 4 == 0 ? n / 4 : n;
   drel_sum<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(drel_part, n, B);

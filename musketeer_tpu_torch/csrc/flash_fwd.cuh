@@ -32,8 +32,10 @@
 // per 8 shared-memory loads; row strides padded by one word keep the column
 // reads free of bank conflicts. Its floor is the fp32 FMA rate (~67 TFLOP/s),
 // about 1 ms a call; flash_fwd_sm90.cuh is the tensor-core version. The
-// head dim D is a template parameter, compiled at 64 and 80: a thread owns
-// D / 16 output columns of each of its 4 rows.
+// tile width DP is a template parameter, compiled at 32, 64, 80 and 128 (a
+// head dim D runs on the smallest DP >= D, common.cuh::with_head_dim): a
+// thread owns DP / 16 output columns of each of its 4 rows; the staged
+// columns past D are zeros and the stores skip them.
 #pragma once
 
 #include <stdint.h>
@@ -49,61 +51,62 @@ constexpr int NT = 256;        // threads: 16 x 16, each a 4x4 tile
 constexpr int PS = BK + 1;     // shared row strides, +1 word against bank conflicts
 constexpr float NEG = -1e9f;
 
-// The shared-memory layout at head dim D.
-template <int D>
+// The shared-memory layout at tile width DP.
+template <int DP>
 struct Dims {
-  static_assert(D % 16 == 0, "a thread owns D / 16 columns");
-  static constexpr int D2 = 2 * D;   // depth of [q|pos_q]
+  static_assert(DP % 16 == 0, "a thread owns DP / 16 columns");
+  static constexpr int D2 = 2 * DP;  // depth of [q|pos_q]
   static constexpr int QS = D2 + 1;  // shared row strides, +1 word against bank conflicts
-  static constexpr int VS = D + 1;
+  static constexpr int VS = DP + 1;
   static constexpr int SMEM_FLOATS = BQ * QS + BK * QS + BK * VS + BQ * PS;
   static constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 };
 
-// Rows [q0, q0 + BQ) of q | pos_q, widened to fp32, into qs [BQ][QS]; zeros
-// past Tq. qb and pqb point at the (b, h) stream.
-template <int D, typename T>
+// Rows [q0, q0 + BQ) of q | pos_q [*, D], widened to fp32, into qs [BQ][QS];
+// zeros past Tq and in the columns D .. DP - 1. qb and pqb point at the
+// (b, h) stream.
+template <int DP, typename T>
 __device__ __forceinline__ void stage_q(float* qs, const T* __restrict__ qb,
-                                        const T* __restrict__ pqb, int q0, int Tq) {
-  constexpr int QS = Dims<D>::QS;
-  for (int i = threadIdx.x; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D, t = q0 + r;
+                                        const T* __restrict__ pqb, int q0, int Tq, int D) {
+  constexpr int QS = Dims<DP>::QS;
+  for (int i = threadIdx.x; i < BQ * DP; i += NT) {
+    const int r = i / DP, c = i % DP, t = q0 + r;
     float a = 0.f, p = 0.f;
-    if (t < Tq) {
+    if (t < Tq && c < D) {
       a = to_f(qb[(long long)t * D + c]);
       p = to_f(pqb[(long long)t * D + c]);
     }
     qs[r * QS + c] = a;
-    qs[r * QS + D + c] = p;
+    qs[r * QS + DP + c] = p;
   }
 }
 
 // Keys [k0, k0 + BK) of k | pos_k into ks [BK][QS] and, with kV, of v into
-// vs [BK][VS]; zeros past S.
-template <int D, typename T, bool kV>
+// vs [BK][VS]; zeros past S and in the columns D .. DP - 1.
+template <int DP, typename T, bool kV>
 __device__ __forceinline__ void stage_kv(float* ks, float* vs, const T* __restrict__ kb,
                                          const T* __restrict__ pkb, const T* __restrict__ vb,
-                                         int k0, int S) {
-  constexpr int QS = Dims<D>::QS, VS = Dims<D>::VS;
-  for (int i = threadIdx.x; i < BK * D; i += NT) {
-    const int r = i / D, c = i % D, s = k0 + r;
+                                         int k0, int S, int D) {
+  constexpr int QS = Dims<DP>::QS, VS = Dims<DP>::VS;
+  for (int i = threadIdx.x; i < BK * DP; i += NT) {
+    const int r = i / DP, c = i % DP, s = k0 + r;
     float a = 0.f, p = 0.f, w = 0.f;
-    if (s < S) {
+    if (s < S && c < D) {
       a = to_f(kb[(long long)s * D + c]);
       p = to_f(pkb[(long long)s * D + c]);
       if (kV) w = to_f(vb[(long long)s * D + c]);
     }
     ks[r * QS + c] = a;
-    ks[r * QS + D + c] = p;
+    ks[r * QS + DP + c] = p;
     if (kV) vs[r * VS + c] = w;
   }
 }
 
-// sc[i][j] = [q|pos_q][ty + 16 i] . [k|pos_k][tx + 16 j], one 2 D-deep fp32 dot.
-template <int D>
+// sc[i][j] = [q|pos_q][ty + 16 i] . [k|pos_k][tx + 16 j], one 2 DP-deep fp32 dot.
+template <int DP>
 __device__ __forceinline__ void score_tile(const float* qs, const float* ks, int tx, int ty,
                                            float (&sc)[4][4]) {
-  constexpr int D2 = Dims<D>::D2, QS = Dims<D>::QS;
+  constexpr int D2 = Dims<DP>::D2, QS = Dims<DP>::QS;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -123,31 +126,31 @@ __device__ __forceinline__ void score_tile(const float* qs, const float* ks, int
 }
 
 // acc[i][j] += sum_c ps[ty + 16 i][c] . vs[c][tx + 16 j] over the BK keys of a tile.
-template <int D>
+template <int DP>
 __device__ __forceinline__ void pv_tile(const float* ps, const float* vs, int tx, int ty,
-                                        float (&acc)[4][D / 16]) {
-  constexpr int VS = Dims<D>::VS;
+                                        float (&acc)[4][DP / 16]) {
+  constexpr int VS = Dims<DP>::VS;
 #pragma unroll 4
   for (int c = 0; c < BK; ++c) {
-    float p[4], w[D / 16];
+    float p[4], w[DP / 16];
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PS + c];
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) w[j] = vs[c * VS + tx + 16 * j];
+    for (int j = 0; j < DP / 16; ++j) w[j] = vs[c * VS + tx + 16 * j];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
+      for (int j = 0; j < DP / 16; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
   }
 }
 
-template <int D, typename T, bool kLse>
+template <int DP, typename T, bool kLse>
 __global__ void __launch_bounds__(NT) kernel(
     const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
     const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
     const uint8_t* __restrict__ kpad, T* __restrict__ out, float* __restrict__ lse, int H,
-    int Tq, int S, long long rel_hs, long long rel_rs, int causal, int skip_max) {
-  constexpr int QS = Dims<D>::QS, VS = Dims<D>::VS;
+    int Tq, int S, long long rel_hs, long long rel_rs, int causal, int skip_max, int D) {
+  constexpr int QS = Dims<DP>::QS, VS = Dims<DP>::VS;
   extern __shared__ float smem[];
   float* qs = smem;            // [BQ][QS]  q | pos_q
   float* ks = qs + BQ * QS;    // [BK][QS]  k | pos_k
@@ -167,24 +170,24 @@ __global__ void __launch_bounds__(NT) kernel(
   const uint8_t* kp = kpad + (long long)b * S;
   const T* relh = rel ? rel + h * rel_hs : nullptr;
 
-  stage_q<D>(qs, qb, pqb, q0, Tq);
+  stage_q<DP>(qs, qb, pqb, q0, Tq, D);
 
-  float m[4], l[4], acc[4][D / 16];
+  float m[4], l[4], acc[4][DP / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = skip_max ? 0.f : -CUDART_INF_F;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DP / 16; ++j) acc[i][j] = 0.f;
   }
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    stage_kv<D, T, true>(ks, vs, kb, pkb, vb, k0, S);
+    stage_kv<DP, T, true>(ks, vs, kb, pkb, vb, k0, S, D);
     __syncthreads();
 
     float sc[4][4];
-    score_tile<D>(qs, ks, tx, ty, sc);
+    score_tile<DP>(qs, ks, tx, ty, sc);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -220,11 +223,11 @@ __global__ void __launch_bounds__(NT) kernel(
       l[i] = l[i] * scale + rs;
       m[i] = mnew;
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= scale;
+      for (int j = 0; j < DP / 16; ++j) acc[i][j] *= scale;
     }
     __syncthreads();  // ps complete
 
-    pv_tile<D>(ps, vs, tx, ty, acc);
+    pv_tile<DP>(ps, vs, tx, ty, acc);
   }
 
 #pragma unroll
@@ -233,27 +236,27 @@ __global__ void __launch_bounds__(NT) kernel(
     if (t >= Tq) continue;
     const float denom = skip_max ? fmaxf(l[i], 1e-38f) : l[i];
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      out[(bh * Tq + t) * D + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
+    for (int j = 0; j < DP / 16; ++j)
+      if (tx + 16 * j < D) out[(bh * Tq + t) * D + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
     if (kLse && tx == 0) lse[bh * Tq + t] = skip_max ? logf(denom) : m[i] + logf(denom);
   }
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError().
-template <int D, typename T, bool kLse>
+template <int DP, typename T, bool kLse>
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
            const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq,
-           int S, long long rel_hs, long long rel_rs, int causal, int skip_max,
+           int S, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
            cudaStream_t stream) {
-  constexpr size_t smem = Dims<D>::SMEM_BYTES;
+  constexpr size_t smem = Dims<DP>::SMEM_BYTES;
   static SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)kernel<D, T, kLse>, smem)) return err;
+  if (const int err = opt_in.ensure((const void*)kernel<DP, T, kLse>, smem)) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  kernel<D, T, kLse><<<grid, NT, smem, stream>>>(
+  kernel<DP, T, kLse><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pq), static_cast<const T*>(k),
       static_cast<const T*>(pk), static_cast<const T*>(v), static_cast<const T*>(rel),
       static_cast<const uint8_t*>(kpad), static_cast<T*>(out), lse, H, Tq, S, rel_hs, rel_rs,
-      causal, skip_max);
+      causal, skip_max, D);
   return (int)cudaGetLastError();
 }
 

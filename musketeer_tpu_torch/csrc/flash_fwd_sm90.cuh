@@ -28,24 +28,22 @@
 //
 // Design. A CTA owns one (b, h, 64-row query tile), as the FMA core does (15
 // tiles x 192 heads = 2880 CTAs at the encoder shape), with one consumer
-// warpgroup (128 threads) and one producer warp. The head dim D is a
-// template parameter, compiled at 64 (ofa_tiny to ofa_large) and 80
-// (ofa_huge); the host entry points dispatch on it (with_head_dim).
+// warpgroup (128 threads) and one producer warp. The tile width DP is a
+// template parameter, compiled at 32, 64, 80 and 128; a head dim D runs on
+// the smallest DP >= D (common.cuh::with_head_dim), D itself an argument.
 //   - Operands. The producer loads the q and pos_q tiles once, then streams
-//     64-key tiles of k, pos_k and v (24 KB a stage at D 64, 30 KB at D 80;
-//     K5's first pass only k and pos_k) through a ring of STAGES stages,
-//     each by TMA into the swizzled layout wgmma reads, with one mbarrier for
-//     "full" and one for "empty" per stage, so the next tile's copies overlap
-//     this tile's products. The tensor maps are 3-D over [B*H, rows, D]:
-//     rows past the end are zero-filled and no box reaches into the next
-//     head. A bf16 row of 64 is one 128-byte swizzle row. A row of 80 (160
-//     bytes) is wider than the 128-byte swizzle atom, so a tile is two boxes
-//     (sm90.cuh::head_maps): columns 0..63 under the 128-byte swizzle, then
-//     columns 64..79 (64 rows of 32 bytes, 2 KB) under the 32-byte swizzle,
-//     each with its own wgmma descriptor; nothing is padded.
-//   - Scores: wgmma m64n64k16, D / 16 k-steps over q.k (four on the first
-//     box, at D 80 one more on the second) then as many over pos_q.pos_k,
-//     into one fp32 accumulator of 32 registers a thread.
+//     64-key tiles of k, pos_k and v (6 KB x DP / 16 a stage: 24 KB at DP
+//     64, 48 KB at DP 128; K5's first pass only k and pos_k) through a ring
+//     of STAGES stages, each by TMA into the swizzled layout wgmma reads,
+//     with one mbarrier for "full" and one for "empty" per stage, so the next
+//     tile's copies overlap this tile's products. The tensor maps are 3-D
+//     over [B*H, rows, D] at the true D: rows past the end and columns past
+//     D are zero-filled and no box reaches into the next head. A tile is
+//     sm90.cuh::HeadTile's boxes: 64 columns under the 128-byte swizzle (one
+//     at DP 64 and 80, two at 128), then 16 columns under the 32-byte
+//     swizzle (one at 80, two at 32), each with its own wgmma descriptor.
+//   - Scores: wgmma m64n64k16, DP / 16 k-steps over q.k then as many over
+//     pos_q.pos_k, into one fp32 accumulator of 32 registers a thread.
 //   - rel does not fit a tensor map (a bf16 row of 908 is 1816 bytes, not a
 //     multiple of 16), so each thread reads its own accumulator positions:
 //     two adjacent columns, one 4-byte (bf16) or 8-byte (fp32) load where the
@@ -57,8 +55,9 @@
 //   - P.v: wgmma m64n64k16 x 4 with A = the bf16 probabilities straight from
 //     registers (the fp32 m64n64 accumulator layout, packed in pairs, is the
 //     A-fragment layout) and B = v read MN-major from the stage (the
-//     transpose bit); at D 80 also m64n16k16 x 4 on the second box, so the
-//     output accumulator is D / 2 fp32 registers a thread (32 or 40).
+//     transpose bit) on each 64-column box, m64n16k16 x 4 on each 16-column
+//     one, so the output accumulator is DP / 2 fp32 registers a thread
+//     (16 to 64); the columns past D are stored nowhere.
 //   - K5 keeps its two passes in one CTA: repeating the score products costs
 //     little on tensor cores, where keeping a row block's fp32 scores in
 //     shared memory (64 x S x 4 bytes) would fit 227 KB only up to S ~ 880.
@@ -67,10 +66,12 @@
 // ~60.8 GFLOP against ~150 MB: 0.0615 ms at 989 TFLOP/s bf16, set by the
 // operations; K3 at the encoder train shape (B4 H12 T=S=980) 0.0179 ms, set
 // by the operations too. At ofa_huge's (H16, D80) K1 is ~101 GFLOP, 0.102
-// ms, and K3 ~29.5 GFLOP, 0.030 ms. ptxas (CUDA 12.8): at D64 135 registers
-// (K1, K3), 139 (K5), 149 (K5, fp32 rel); at D80 141, 141, 157; no spills,
-// so two CTAs fit an SM (shared memory 91,192 bytes a CTA at D64, 113,720 at
-// D80); chip_smoke.py's build phase prints the report of each build.
+// ms, and K3 ~29.5 GFLOP, 0.030 ms. ptxas (CUDA 12.8), registers of K1/K3,
+// K5, K5 with fp32 rel: 119, 123, 137 at DP 32; 135, 137, 149 at 64; 141,
+// 143, 156 at 80; 185, 188, 203 at 128; no spills. Two CTAs fit an SM below
+// 128 (shared memory 46,136 bytes a CTA at DP 32, 91,192 at 64, 113,720 at
+// 80); at 128 one (181,304 bytes), so no second CTA bounds its registers.
+// chip_smoke.py's build phase prints the report of each build.
 #pragma once
 
 #include <stdint.h>
@@ -86,15 +87,12 @@ constexpr int BK = 64;                // keys per tile
 constexpr int STAGES = 3;             // ring depth
 constexpr int NC = 128;               // consumer threads: one warpgroup
 constexpr int NT = NC + 32;           // + the producer warp
-constexpr uint32_t LO = BK * 64 * 2;  // bytes of a tile's first box (columns 0..63)
 constexpr float NEG = -1e9f;
 
-// The shared-memory layout at head dim D: a 64-row tile is the first box
-// (LO bytes), then at D 80 the second (columns 64..79, 2 KB).
-template <int D>
+// The shared-memory layout at instance width DP: 64-row tiles of HeadTile<DP>.
+template <int DP>
 struct Layout {
-  static_assert(D == 64 || D == 80, "compiled head dims: 64 and 80 (common.cuh)");
-  static constexpr uint32_t TILE = BK * D * 2;  // bytes of one 64-row bf16 tile
+  static constexpr uint32_t TILE = HeadTile<DP>::BYTES;  // bytes of one 64-row bf16 tile
   static constexpr uint32_t OFF_KV = 2 * TILE;  // the ring, after q and pos_q
   static constexpr uint32_t STAGE = 3 * TILE;   // k, pos_k, v
   static constexpr uint32_t OFF_BAR = OFF_KV + STAGES * STAGE;
@@ -102,20 +100,26 @@ struct Layout {
   static constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
 };
 
-// The tensor maps of N streams: lo[i] the first box of stream i, hi[i] (D 80) the second.
-template <int D, int N>
+// The tensor maps of N streams: lo[i] the 64-column boxes of stream i, hi[i]
+// the 16-column ones (sm90.cuh::head_maps).
+template <int DP, int N>
 struct Maps {
-  CUtensorMap lo[N];
-  CUtensorMap hi[D > 64 ? N : 1];
+  CUtensorMap lo[HeadTile<DP>::NLO ? N : 1];
+  CUtensorMap hi[HeadTile<DP>::NHI ? N : 1];
 };
 
-// rows row .. row + 63 of stream i of head bh into the tile at dst, both
-// boxes, completing on bar
-template <int D, int N>
-__device__ __forceinline__ void load_tile(uint32_t dst, const Maps<D, N>& m, int i, uint32_t bar,
-                                          int row, int bh) {
-  tma_load3(dst, &m.lo[i], bar, 0, row, bh);
-  if constexpr (D > 64) tma_load3(dst + LO, &m.hi[i], bar, 64, row, bh);
+// rows row .. row + 63 of stream i of head bh into the tile at dst, every
+// box, completing on bar
+template <int DP, int N>
+__device__ __forceinline__ void load_tile(uint32_t dst, const Maps<DP, N>& m, int i,
+                                          uint32_t bar, int row, int bh) {
+  using HT = HeadTile<DP>;
+#pragma unroll
+  for (int b = 0; b < HT::NLO; ++b) tma_load3(dst + b * HT::LO_BOX, &m.lo[i], bar, 64 * b, row, bh);
+#pragma unroll
+  for (int c = 0; c < HT::NHI; ++c)
+    tma_load3(dst + HT::NLO * HT::LO_BOX + c * HT::HI_BOX, &m.hi[i], bar, 64 * HT::NLO + 16 * c,
+              row, bh);
 }
 
 
@@ -175,20 +179,23 @@ __device__ __forceinline__ void load_bias(TileBias<TR>& a, const TR* relh, long 
   }
 }
 
-// sc = [q|pos_q] . [k|pos_k]^T of the stage at sk (k, then pos_k): 2 D / 16
+// sc (+)= a . b^T over the DP / 16 k-steps of two K-major tiles; acc = 0
+// overwrites sc at the first
+template <int DP>
+__device__ __forceinline__ void issue_kmajor(float (&sc)[32], uint32_t a, uint32_t b, int acc) {
+  using HT = HeadTile<DP>;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss(sc, HT::kdesc(a, kk), HT::kdesc(b, kk), acc || kk);
+}
+
+// sc = [q|pos_q] . [k|pos_k]^T of the stage at sk (k, then pos_k): 2 DP / 16
 // wgmma k-steps into one fp32 accumulator, issued and committed, not waited.
-template <int D>
+template <int DP>
 __device__ __forceinline__ void issue_scores(float (&sc)[32], uint32_t sq, uint32_t sk) {
-  constexpr uint32_t TILE = Layout<D>::TILE;
+  constexpr uint32_t TILE = Layout<DP>::TILE;
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)  // q . k
-    wgmma_ss(sc, sw128_desc(sq + 32 * kk), sw128_desc(sk + 32 * kk), kk);
-  if constexpr (D > 64) wgmma_ss(sc, sw32_desc(sq + LO), sw32_desc(sk + LO), 1);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)  // + pos_q . pos_k
-    wgmma_ss(sc, sw128_desc(sq + TILE + 32 * kk), sw128_desc(sk + TILE + 32 * kk), 1);
-  if constexpr (D > 64) wgmma_ss(sc, sw32_desc(sq + TILE + LO), sw32_desc(sk + TILE + LO), 1);
+  issue_kmajor<DP>(sc, sq, sk, 0);                 // q . k
+  issue_kmajor<DP>(sc, sq + TILE, sk + TILE, 1);   // + pos_q . pos_k
   wgmma_commit();
   fence_operand(sc);
 }
@@ -236,25 +243,38 @@ __device__ __forceinline__ void mask_scores(float (&sc)[32], const TileBias<TR>&
 }
 
 // acc += P . v over the tile's 64 keys, P (bf16 pairs in the A layout) from
-// registers, v from the stage: issued and committed, not waited. acc holds
-// D / 2 fp32 a thread: position i = 4 j + 2 hh + e is column 8 j + cq + e
-// (columns 64..79, j = 8, 9, from the m64n16 products on the second box).
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[16],
-                                         uint32_t sv) {
-  float(&lo)[32] = *reinterpret_cast<float(*)[32]>(&acc[0]);
-  wgmma_fence();
+// registers, v from the stage, each box of the tile one N block: issued, not
+// committed or waited (issue_pv commits). acc holds DP / 2 fp32 a thread:
+// position i = 4 j + 2 hh + e is column 8 j + cq + e (the 64-column boxes'
+// m64n64 products first, then the 16-column boxes' m64n16 ones).
+template <int DP>
+__device__ __forceinline__ void issue_pv_products(float (&acc)[DP / 2], const uint32_t (&pa)[16],
+                                                  uint32_t sv) {
+  using HT = HeadTile<DP>;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)  // 16 keys = 16 rows of 128 bytes per k-step
-    wgmma_rs(lo, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-             sw128_desc(sv + 2048 * kk));
-  if constexpr (D > 64) {
-    float(&hi)[8] = *reinterpret_cast<float(*)[8]>(&acc[32]);
+  for (int b = 0; b < HT::NLO; ++b) {
+    float(&lo)[32] = *reinterpret_cast<float(*)[32]>(&acc[32 * b]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 keys = 16 rows of 128 bytes per k-step
+      wgmma_rs(lo, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+               sw128_desc(sv + b * HT::LO_BOX + 2048 * kk));
+  }
+#pragma unroll
+  for (int c = 0; c < HT::NHI; ++c) {
+    float(&hi)[8] = *reinterpret_cast<float(*)[8]>(&acc[32 * HT::NLO + 8 * c]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)  // 16 keys = 16 rows of 32 bytes per k-step
       Wgmma<16>::rs_t(hi, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                      sw32_desc(sv + LO + 512 * kk));
+                      sw32_desc(sv + HT::NLO * HT::LO_BOX + c * HT::HI_BOX + 512 * kk));
   }
+}
+
+// issue_pv_products, committed, not waited.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&pa)[16],
+                                         uint32_t sv) {
+  wgmma_fence();
+  issue_pv_products<DP>(acc, pa, sv);
   wgmma_commit();
   fence_regs(acc);
 }
@@ -291,14 +311,14 @@ __device__ __forceinline__ float fexp(float x) { return exp2f(x * 1.442695040888
 // the next. Keeping the next tile's score products in flight during this
 // tile's softmax made ptxas serialise every wgmma of the kernel (C7514) and
 // ran slower; the overlap comes from the second CTA on the SM instead.
-// maps: q, pos_q, k, pos_k, v.
-template <int D, bool kNorm, typename TR>
-__global__ void __launch_bounds__(NT, 2) kernel(
-    const __grid_constant__ Maps<D, 5> maps, const TR* __restrict__ rel,
+// maps: q, pos_q, k, pos_k, v; D: the head dim (a multiple of 8, <= DP).
+template <int DP, bool kNorm, typename TR>
+__global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
+    const __grid_constant__ Maps<DP, 5> maps, const TR* __restrict__ rel,
     const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
     int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
-    int skip_max) {
-  using Lay = Layout<D>;
+    int skip_max, int D) {
+  using Lay = Layout<DP>;
   constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -350,11 +370,11 @@ __global__ void __launch_bounds__(NT, 2) kernel(
   const uint8_t* kp = kpad + (long long)b * S;
   const TR* relh = rel ? rel + h * rel_hs : nullptr;
 
-  float m[2], l[2], rl[2], acc[D / 2], sc[32];
+  float m[2], l[2], rl[2], acc[DP / 2], sc[32];
   uint32_t pa[16];
   TileBias<TR> bias;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     m[hh] = (!kNorm && skip_max) ? 0.f : -CUDART_INF_F;
@@ -366,7 +386,7 @@ __global__ void __launch_bounds__(NT, 2) kernel(
   auto scores = [&](int it) {
     const int st = it % STAGES, k0 = (it % ntiles) * BK;
     mbar_wait(full(st), (it / STAGES) & 1);
-    issue_scores<D>(sc, sq, stage(st));
+    issue_scores<DP>(sc, sq, stage(st));
     load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
     wgmma_wait();
     fence_operand(sc);
@@ -389,7 +409,7 @@ __global__ void __launch_bounds__(NT, 2) kernel(
         l[hh] *= scale;
         m[hh] = mnew;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DP / 8; ++j) {
           acc[4 * j + 2 * hh] *= scale;
           acc[4 * j + 2 * hh + 1] *= scale;
         }
@@ -447,7 +467,7 @@ __global__ void __launch_bounds__(NT, 2) kernel(
     }
     if (pv) {
       to_a_fragments(sc, pa);  // rounded to bf16
-      issue_pv<D>(acc, pa, stage(st) + 2 * TILE);
+      issue_pv<DP>(acc, pa, stage(st) + 2 * TILE);
       wgmma_wait();
       fence_regs(acc);
     }
@@ -462,7 +482,8 @@ __global__ void __launch_bounds__(NT, 2) kernel(
     const float denom = kNorm ? 1.f : (skip_max ? fmaxf(l[hh], 1e-38f) : l[hh]);
     __nv_bfloat16* o = out + ((long long)bh * Tq + t) * D + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j >= D) break;  // the zero-filled columns past D
       const float a = acc[4 * j + 2 * hh], c = acc[4 * j + 2 * hh + 1];
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
           kNorm ? __floats2bfloat162_rn(a, c) : __floats2bfloat162_rn(a / denom, c / denom);
@@ -475,40 +496,42 @@ __global__ void __launch_bounds__(NT, 2) kernel(
 
 // ---- host side -------------------------------------------------------------
 
-// The tensor maps of N bf16 streams [B*H, rows[i], D] in 64-row boxes.
-template <int D, int N>
-inline int stream_maps(Maps<D, N>& maps, const void* const (&ptrs)[N], const int (&rows)[N],
-                       long long bh) {
+// The tensor maps of N bf16 streams [B*H, rows[i], D] in 64-row boxes of HeadTile<DP>.
+template <int DP, int N>
+inline int stream_maps(Maps<DP, N>& maps, const void* const (&ptrs)[N], const int (&rows)[N],
+                       long long bh, int D) {
   for (int i = 0; i < N; ++i)
-    if (const int err = head_maps(&maps.lo[i], D > 64 ? &maps.hi[i] : nullptr, ptrs[i], D,
-                                  rows[i], bh, BK))
+    if (const int err = head_maps(&maps.lo[HeadTile<DP>::NLO ? i : 0],
+                                  &maps.hi[HeadTile<DP>::NHI ? i : 0], ptrs[i], D, DP, rows[i],
+                                  bh, BK))
       return err;
   return 0;
 }
 
 // Launches the core on `stream` for bf16 streams [B, H, Tq or S, D] (16-byte
-// aligned) and rel of type TR (or null); K1's walk also writes the fp32
-// logsumexp [B, H, Tq] where lse is not null (K3). Returns a cudaError_t code.
-template <int D, bool kNorm, typename TR>
+// aligned, D <= DP a multiple of 8) and rel of type TR (or null); K1's walk
+// also writes the fp32 logsumexp [B, H, Tq] where lse is not null (K3).
+// Returns a cudaError_t code.
+template <int DP, bool kNorm, typename TR>
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
            const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq, int S,
-           int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max,
+           int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
            cudaStream_t stream) {
-  Maps<D, 5> maps;
-  if (const int err = stream_maps<D, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
-                                        (long long)B * H))
+  Maps<DP, 5> maps;
+  if (const int err = stream_maps<DP, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
+                                         (long long)B * H, D))
     return err;
   // a pair of rel columns is one load where base, rows, heads and S keep it aligned
   const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % (2 * sizeof(TR)) == 0 &&
                       rel_rs % 2 == 0 && rel_hs % 2 == 0 && S % 2 == 0;
-  constexpr size_t smem = Layout<D>::SMEM_BYTES;
+  constexpr size_t smem = Layout<DP>::SMEM_BYTES;
   static SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)kernel<D, kNorm, TR>, smem)) return err;
+  if (const int err = opt_in.ensure((const void*)kernel<DP, kNorm, TR>, smem)) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  kernel<D, kNorm, TR><<<grid, NT, smem, stream>>>(
+  kernel<DP, kNorm, TR><<<grid, NT, smem, stream>>>(
       maps, static_cast<const TR*>(rel),
       static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp,
-      rel_hs, rel_rs, rel_vec, causal, skip_max);
+      rel_hs, rel_rs, rel_vec, causal, skip_max, D);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 // cores, m64nNk16 at the N extents of the beam rows for the weight-streaming
 // products and at N = 64 and 128 for K8, with A from shared memory or from
 // registers; descriptors of 128-byte and 32-byte swizzled and of unswizzled
-// tiles; head_maps, the tensor maps of a 64- or 80-wide bf16 head), the
+// tiles; HeadTile and head_maps, the layout and tensor maps of a bf16 head
+// tile at the instance widths 32, 64, 80 and 128), the
 // exact int8 -> bf16 widening, programmatic dependent launch, and the
 // run-time lookup of cuTensorMapEncodeTiled. Used by flash_fwd_sm90.cuh and
 // flash_bwd_sm90.cuh (K1, K3, K4, K5), skinny_gemm_sm90.cuh (K2, K2-q8, K7),
@@ -76,8 +77,9 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
 
 // Descriptor of a 32-byte swizzled tile: rows of 32 bytes (16 bf16), 8-row
 // groups 256 bytes apart (SBO); LBO is not read at this width. Serves the
-// columns 64..79 of an 80-wide head (head_maps' second box), K-major and read
-// MN-major, as sw128_desc serves columns 0..63.
+// 16-column boxes of a head tile (HeadTile: columns 64..79 at DP 80, both
+// halves at DP 32), K-major and read MN-major, as sw128_desc serves the
+// 64-column ones.
 __device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (16ull << 32) |
          (3ull << 62);
@@ -547,22 +549,61 @@ inline int bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_
                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// A bf16 stream [n, rows, D] (D = 64 or 80, 16-byte aligned) as boxes of
-// box_rows rows: columns 0..63 (one 128-byte row) 128-byte swizzled into lo,
-// and for D = 80 columns 64..79 (32 bytes) 32-byte swizzled into hi, since a
-// 160-byte row is wider than the 128-byte swizzle atom. A tile of the stream
-// in shared memory is lo's box (box_rows x 128 bytes), then hi's (box_rows x
-// 32 bytes); rows past the end are zeros. 0 or a cudaError_t code.
-inline int head_maps(CUtensorMap* lo, CUtensorMap* hi, const void* ptr, int D, int rows,
+// The shared-memory layout of a 64-row bf16 head tile at instance width DP
+// (32, 64, 80, 128; common.cuh::with_head_dim): NLO boxes of 64 columns under
+// the 128-byte swizzle (64 rows of 128 bytes, 8 KB each), then NHI boxes of
+// 16 columns under the 32-byte swizzle (64 rows of 32 bytes, 2 KB each),
+// since a row wider than 128 bytes, or of 64 bytes, is not one 128-byte
+// swizzle row: 32 = 2 x 16, 64 = 64, 80 = 64 + 16, 128 = 2 x 64. Each box
+// has its own wgmma descriptors; a 16-column k-step lies in one box.
+template <int DP>
+struct HeadTile {
+  static_assert(DP == 32 || DP == 64 || DP == 80 || DP == 128, "instances: 32, 64, 80, 128");
+  static constexpr int NLO = DP / 64, NHI = (DP % 64) / 16;
+  static constexpr uint32_t LO_BOX = 64 * 128, HI_BOX = 64 * 32;
+  static constexpr uint32_t BYTES = 64 * DP * 2;
+  // offset of the box that holds 16-column k-step kk, and of the k-step in it
+  static __host__ __device__ constexpr uint32_t kstep(int kk) {
+    return kk < 4 * NLO ? (kk / 4) * LO_BOX + 32 * (kk % 4)
+                        : NLO * LO_BOX + (kk - 4 * NLO) * HI_BOX;
+  }
+  // descriptor of k-step kk of a K-major tile at t (q, k, pos_q, pos_k, dO, v in dP)
+  static __device__ __forceinline__ uint64_t kdesc(uint32_t t, int kk) {
+    return kk < 4 * NLO ? sw128_desc(t + kstep(kk)) : sw32_desc(t + kstep(kk));
+  }
+  // address of 16-byte unit u (columns 8 u .. 8 u + 7, u < DP / 8) of row
+  // `row`, in as few operations as each instance allows (one generic
+  // shift-and-mask form for all made K7's cross-attention 1.2x slower at 80)
+  static __device__ __forceinline__ uint32_t unit(uint32_t t, int row, int u) {
+    if constexpr (NHI == 0) {  // 64-column boxes only
+      return NLO == 1 ? t + swz(row, u) : t + (u >> 3) * LO_BOX + swz(row, u & 7);
+    } else if constexpr (NLO == 0) {  // 16-column boxes only
+      return t + (u >> 1) * HI_BOX + swz32(row, u & 1);
+    } else {  // one of each (DP 80)
+      static_assert(NLO == 1 && NHI == 1, "DP 80: a 64-column box, then a 16-column one");
+      return u < 8 ? t + swz(row, u) : t + LO_BOX + swz32(row, u - 8);
+    }
+  }
+};
+
+// A bf16 stream [n, rows, D] (D a multiple of 8, 16-byte aligned) as the
+// boxes of HeadTile<DP> (DP >= D), each of box_rows rows: lo the 64-column
+// boxes (128-byte swizzle), hi the 16-column ones (32-byte swizzle); a map
+// not needed at DP is left unset. The maps span the true D, so the columns
+// of a box past D, and the rows past the end, are zeros. 0 or a cudaError_t
+// code.
+inline int head_maps(CUtensorMap* lo, CUtensorMap* hi, const void* ptr, int D, int DP, int rows,
                      long long n, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)n};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};  // bytes
-  const cuuint32_t box_lo[3] = {64, (cuuint32_t)box_rows, 1};
-  if (const int err = tiled_map(lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 3, dims, strides,
-                                box_lo, CU_TENSOR_MAP_SWIZZLE_128B))
-    return err;
-  if (D == 64) return 0;
-  const cuuint32_t box_hi[3] = {(cuuint32_t)D - 64, (cuuint32_t)box_rows, 1};
+  if (DP >= 64) {
+    const cuuint32_t box_lo[3] = {64, (cuuint32_t)box_rows, 1};
+    if (const int err = tiled_map(lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 3, dims, strides,
+                                  box_lo, CU_TENSOR_MAP_SWIZZLE_128B))
+      return err;
+  }
+  if (DP % 64 == 0) return 0;
+  const cuuint32_t box_hi[3] = {16, (cuuint32_t)box_rows, 1};
   return tiled_map(hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 3, dims, strides, box_hi,
                    CU_TENSOR_MAP_SWIZZLE_32B);
 }

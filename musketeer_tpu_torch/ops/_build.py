@@ -120,20 +120,44 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# The head dims the attention kernels (K1, K3, K4, K5, K6, K7) are compiled
-# for, on either core (csrc/common.cuh::with_head_dim): 64 serves ofa_tiny,
-# ofa_medium, ofa_base and ofa_large, 80 serves ofa_huge. The plain versions
-# take any head dim.
-HEAD_DIMS = (64, 80)
+# The instances of the attention kernels (K1, K3, K4, K5, K6, K7), on either
+# core (csrc/common.cuh::with_head_dim): tile widths of 32, 64, 80 and 128
+# columns. A head dim D of 1 to MAX_HEAD_DIM runs on the smallest instance
+# that covers it (``head_instance``), its tiles' columns past D zeros; the
+# wrappers hand the kernels a D that is a multiple of 8 (K6's int8 cache: of
+# 16), copying any other into a zero-padded buffer first (``pad_head``). The
+# plain versions take any head dim.
+HEAD_DIMS = (32, 64, 80, 128)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 
 def check_head_dim(name: str, head_dim: int) -> None:
-    """Raise NotImplementedError, naming ``HEAD_DIMS``, unless the kernels are
-    compiled for ``head_dim``. The CUDA route of each attention wrapper calls
-    it before it checks its tensors' devices."""
-    if head_dim not in HEAD_DIMS:
-        raise NotImplementedError(f"{name}: head dim {head_dim}; the kernels are compiled for "
-                                  f"head dims {HEAD_DIMS}")
+    """Raise NotImplementedError, naming the range, unless the kernels take
+    ``head_dim`` (1 to ``MAX_HEAD_DIM``). The CUDA route of each attention
+    wrapper calls it before it checks its tensors' devices."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name}: head dim {head_dim}; the kernels take head dims 1 to {MAX_HEAD_DIM} "
+            f"(instances {HEAD_DIMS})")
+
+
+def head_instance(head_dim: int, unit: int = 8) -> int:
+    """The instance (tile width) a head dim runs on: the smallest of
+    ``HEAD_DIMS`` that covers ``head_dim`` rounded up to ``unit``."""
+    return next(n for n in HEAD_DIMS if n >= -(-head_dim // unit) * unit)
+
+
+def pad_head(t: torch.Tensor, unit: int = 8) -> torch.Tensor:
+    """``t`` itself where its last dimension is a multiple of ``unit``, else a
+    copy zero-padded to the next multiple: rows of whole 16-byte units for
+    the TMA copies and vector loads (bf16: 8 elements; the int8 cache: 16).
+    The zeros add nothing to any product over the head dim."""
+    D = t.shape[-1]
+    if D % unit == 0:
+        return t
+    out = t.new_zeros((*t.shape[:-1], -(-D // unit) * unit))
+    out[..., :D] = t
+    return out
 
 
 # the row tiles (wgmma N) of the weight-streaming tensor-core core

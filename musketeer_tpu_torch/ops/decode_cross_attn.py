@@ -24,9 +24,12 @@ two CTAs an SM; launched with programmatic dependent launch, so its K/V
 copies start before the previous kernel on the stream ends: that kernel must
 not write the cache), its launches also counted in
 ``decode_cross_attention_int8.launches_sm90``; fp32 on the FMA kernel
-(``csrc/cross_attn.cuh``). Both are compiled for the head dims
-``_build.HEAD_DIMS`` (64 and 80); another head dim, or unaligned bf16 inputs,
-raise; it never falls back from one version to another.
+(``csrc/cross_attn.cuh``). Both are compiled at the tile widths
+``_build.HEAD_DIMS`` (32, 64, 80, 128): a head dim up to 128 runs on the
+smallest that covers it, one that is not a multiple of 16 (an int8 row of
+whole 16-byte units) on zero-padded copies of q and the cache (counted in
+``.padded``); a head dim past 128, or unaligned inputs, raise; it never
+falls back from one version to another.
 """
 
 from __future__ import annotations
@@ -42,12 +45,13 @@ _SIG = (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.INT, 
 
 
 def sm90_smem(Kb: int, S: int, D: int = 64) -> int:
-    """Shared memory of the tensor-core kernel (``smem_bytes``) at head dim D:
-    the 8-stage ring of 64 x D int8 tiles, two 64 x D bf16 value tiles, the
-    mbarriers, the fp32 scores ``[Kb, S']`` and the k_scale, v_scale and bias
-    rows, the bf16 probabilities ``[Kb, S' + 8]`` (S' = S rounded up to 64)."""
-    sp = -(-S // 64) * 64
-    return 1024 + 8 * 64 * D + 2 * 128 * D + 128 + 4 * (Kb * sp + 3 * sp) + 2 * Kb * (sp + 8)
+    """Shared memory of the tensor-core kernel (``smem_bytes``) at head dim D,
+    on its instance DP (``_build.head_instance``): the 8-stage ring of
+    64 x DP int8 tiles, two 64 x DP bf16 value tiles, the mbarriers, the fp32
+    scores ``[Kb, S']`` and the k_scale, v_scale and bias rows, the bf16
+    probabilities ``[Kb, S' + 8]`` (S' = S rounded up to 64)."""
+    sp, dp = -(-S // 64) * 64, _build.head_instance(D, 16)
+    return 1024 + 8 * 64 * dp + 2 * 128 * dp + 128 + 4 * (Kb * sp + 3 * sp) + 2 * Kb * (sp + 8)
 
 
 def _route(device: torch.device, q: torch.Tensor, k_i8: torch.Tensor, v_i8: torch.Tensor) -> str:
@@ -97,10 +101,13 @@ def decode_cross_attention_int8(
     """→ [B, H, Kb, D] in q's dtype. Plain version on CPU, CUDA kernel on CUDA."""
     name = "decode_cross_attention_int8"
     _check(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad)
-    kind = _route(q.device, q, k_i8, v_i8)
-    if kind == "plain":
+    if q.device.type == "cpu":
         return decode_cross_attention_int8_plain(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad)
-    _build.check_head_dim(name, q.shape[-1])
+    D = q.shape[-1]
+    _build.check_head_dim(name, D)
+    # the int8 rows as whole 16-byte units (TMA, 16-byte loads), q alike
+    q, k_i8, v_i8 = (_build.pad_head(t, 16) for t in (q, k_i8, v_i8))
+    kind = _route(q.device, q, k_i8, v_i8)
     _build.require_cuda(name, {"q": q}, _DTYPES)
     _build.require_cuda(name, {"k_i8": k_i8, "v_i8": v_i8}, (torch.int8,))
     _build.require_cuda(name, {"k_scale": k_scale, "v_scale": v_scale}, (torch.float32,))
@@ -112,11 +119,11 @@ def decode_cross_attention_int8(
         raise ValueError(f"{name}: all inputs must be on one device")
     if k_i8.data_ptr() % 16 or v_i8.data_ptr() % 16:
         raise ValueError(f"{name}: k_i8 and v_i8 must start on 16-byte boundaries (vector loads)")
-    B, H, Kb, D = q.shape
+    B, H, Kb, Dp = q.shape
     S = k_i8.shape[2]
     if Kb > MAX_BEAMS:
         raise NotImplementedError(f"{name}: {Kb} beams (kernel holds at most {MAX_BEAMS})")
-    if kind == "sm90" and sm90_smem(Kb, S, D) > _build.SMEM_MAX:
+    if kind == "sm90" and sm90_smem(Kb, S, Dp) > _build.SMEM_MAX:
         raise NotImplementedError(f"{name}: {Kb} beams x {S} keys exceed the tensor-core "
                                   f"kernel's shared memory")
     out = torch.empty_like(q)
@@ -125,13 +132,17 @@ def decode_cross_attention_int8(
         err = _build.kernel_function(entry, _SIG)(
             q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), bias.data_ptr(), enc_pad.data_ptr(), out.data_ptr(), B, H, Kb,
-            S, bias.stride(0), bias.stride(1), D, _build.stream_of(q),
+            S, bias.stride(0), bias.stride(1), Dp, _build.stream_of(q),
         )
     _build.check(err, name)
     decode_cross_attention_int8.launches += 1
     decode_cross_attention_int8.launches_sm90 += kind == "sm90"
+    if Dp != D:  # ran on zero-padded copies
+        decode_cross_attention_int8.padded += 1
+        out = out[..., :D].contiguous()
     return out
 
 
 decode_cross_attention_int8.launches = 0  # either route
 decode_cross_attention_int8.launches_sm90 = 0  # the tensor-core route (bf16)
+decode_cross_attention_int8.padded = 0  # the launches that ran on zero-padded copies

@@ -35,9 +35,13 @@ split over the card's SMs as ``split_plan`` says; the cross-attention on
 ``csrc/decode_attn_sm90.cuh``, each launched with programmatic dependent
 launch), its launches also counted in
 ``decode_stack_step.launches_sm90``; fp32 on the FMA kernels, which the exact
-fp32 checks hold to the plain version. Both routes are compiled for the head
-dims ``_build.HEAD_DIMS`` (64 and 80); another head dim, or unaligned bf16
-inputs, raise; it never falls back from one version to another.
+fp32 checks hold to the plain version. Both routes are compiled at the tile
+widths ``_build.HEAD_DIMS`` (32, 64, 80, 128): a head dim up to 128 runs on
+the smallest that covers it; where it is not a multiple of 8 the four
+caches go to the kernels as zero-padded copies (rows of whole 16-byte
+units; counted in ``.padded``), the hidden state keeping the model's head
+stride. A head dim past 128, or unaligned bf16 inputs, raise; it never falls
+back from one version to another.
 """
 
 from __future__ import annotations
@@ -161,6 +165,8 @@ def _check_cuda(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v,
     if x0.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x0.device}")
     rows, d = x0.shape
+    if d != H * hd:
+        raise ValueError(f"{name}: x0's width {d} != {H} heads x {hd}")
     B, S = cross_k.shape[1], cross_k.shape[3]
     f = pack["w_fc1"].shape[1]
     _build.require_cuda(name, {"x0": x0, "self_k": self_k, "self_v": self_v, "cross_k": cross_k,
@@ -208,21 +214,25 @@ def _products(d: int, f: int) -> Dict[str, Tuple[int, int]]:
 
 
 def _cross_smem(Kb: int, S: int, D: int = 64) -> int:
-    """Shared memory of the bf16 cross-attention at head dim D
-    (``decode_attn::smem_bytes``): the 8-stage ring of 64 x D bf16 tiles, the
-    mbarriers, the fp32 scores and bias row, the bf16 probabilities."""
+    """Shared memory of the bf16 cross-attention at head dim D, on its instance
+    DP (``_build.head_instance``; ``decode_attn::smem_bytes``): the 8-stage
+    ring of 64 x DP bf16 tiles, the mbarriers, the fp32 scores and bias row,
+    the bf16 probabilities."""
     sp = -(-S // 64) * 64
-    return 1024 + 8 * 128 * D + 128 + 4 * (Kb + 1) * sp + 2 * Kb * (sp + 8)
+    return 1024 + 8 * 128 * _build.head_instance(D) + 128 + 4 * (Kb + 1) * sp + 2 * Kb * (sp + 8)
 
 
 def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, cache_index: int,
               beam_size: int, scaling: float, out, pdl: bool = True) -> None:
-    """The bf16 route's one C call. Its products and cross-attention start with
-    programmatic dependent launch (their weight and K/V copies overlap the
-    previous launch's tail); ``pdl=False`` serialises them, so that a profile
-    can split the step's device time by kernel."""
+    """The bf16 route's one C call, on caches whose rows are the head dim
+    ``x0.shape[1] / H`` rounded up to a multiple of 8 (``_build.pad_head``).
+    Its products and cross-attention start with programmatic dependent
+    launch (their weight and K/V copies overlap the previous launch's tail);
+    ``pdl=False`` serialises them, so that a profile can split the step's
+    device time by kernel."""
     rows, d = x0.shape
-    L, _, H, Tmax, hd = self_k.shape
+    L, _, H, Tmax, _ = self_k.shape
+    hd = d // H
     B, S = cross_k.shape[1], cross_k.shape[3]
     f = pack["w_fc1"].shape[1]
     if d % 64 or _cross_smem(beam_size, S, hd) > _build.SMEM_MAX:
@@ -272,14 +282,19 @@ def decode_stack_step(
     """→ (x_out [rows, d], k_new, v_new [L, rows, d]). The plain version for CPU
     tensors; on CUDA the tensor-core kernels for bf16, the FMA kernels for fp32."""
     args = (pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v)
+    if x0.device.type == "cpu":
+        return decode_stack_plain(*args, cache_index, beam_size, scaling)
+    _check_cuda(*args, cache_index, beam_size)
+    hd = self_k.shape[-1]
+    # a head dim that is not a multiple of 8: zero-padded copies of the caches
+    self_k, self_v, cross_k, cross_v = (_build.pad_head(c) for c in (self_k, self_v, cross_k,
+                                                                      cross_v))
+    args = (pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v)
     bf16_tensors = {"x0": x0, "self_k": self_k, "self_v": self_v, "cross_k": cross_k,
                     "cross_v": cross_v, **{n: pack[n] for n in _PACK if n != "ln"}}
     kind = _build.route("decode_stack_step", x0.device, x0.dtype, bf16_tensors)
-    if kind == "plain":
-        return decode_stack_plain(*args, cache_index, beam_size, scaling)
-    _check_cuda(*args, cache_index, beam_size)
     rows, d = x0.shape
-    L, _, H, Tmax, hd = self_k.shape
+    L, _, H, Tmax, _ = self_k.shape
     B, S = cross_k.shape[1], cross_k.shape[3]
     f = pack["w_fc1"].shape[1]
     dt = x0.dtype
@@ -303,8 +318,10 @@ def decode_stack_step(
             )
         _build.check(err, "decode_stack_step")
     decode_stack_step.launches += 1
+    decode_stack_step.padded += self_k.shape[-1] != hd
     return x_out, k_new, v_new
 
 
 decode_stack_step.launches = 0  # K7, either route
 decode_stack_step.launches_sm90 = 0  # K7 on the tensor-core route (bf16)
+decode_stack_step.padded = 0  # the launches that ran on zero-padded caches

@@ -27,9 +27,10 @@ Each wrapper runs its plain PyTorch version for CPU tensors and the CUDA
 kernel (``csrc/flash_attention.cu``) for CUDA tensors, never falling back
 from one to another, and counts its launches. bf16 streams run on the
 tensor-core core that K1 also uses (``csrc/flash_fwd_sm90.cuh``), fp32 on the
-FMA kernel, both compiled for the head dims ``_build.HEAD_DIMS`` (64 and 80).
-Like K1 they have no
-backward and refuse inputs that autograd tracks.
+FMA kernel, both compiled at the tile widths ``_build.HEAD_DIMS`` (32, 64,
+80, 128): a head dim up to 128 runs on the smallest that covers it, one that
+is not a multiple of 8 on zero-padded copies (counted in ``.padded``). Like
+K1 they have no backward and refuse inputs that autograd tracks.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash_attention_infer import check_shapes, cuda_args
+from .flash_attention_infer import check_shapes, cuda_args, padded_streams
 
 NEG_INF = -1e9
 _SIG = (_build.INT,) * 2 + (_build.PTR,) * 8 + (_build.INT,) * 5 + (_build.I64,) * 2 \
@@ -110,8 +111,9 @@ def _launch(name: str, q, k, v, pos_q, pos_k, rel: Optional[torch.Tensor], kpad,
     read in its own dtype, q's or fp32; any other raises, never cast."""
     rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, rel_f32=True,
                                         tma=True)
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
     S = k.shape[2]
+    q, k, v, pos_q, pos_k = padded_streams(q, k, v, pos_q, pos_k)
     out = torch.empty_like(q)
     fn = _build.kernel_function("mk_flash_attention_k5", _SIG)
     with torch.cuda.device(q.device):
@@ -123,6 +125,14 @@ def _launch(name: str, q, k, v, pos_q, pos_k, rel: Optional[torch.Tensor], kpad,
         )
     _build.check(err, name)
     return out
+
+
+def _sliced(fn, out: torch.Tensor, D: int) -> torch.Tensor:
+    """K5's output cut back to the head dim where it ran on zero-padded copies."""
+    if out.shape[-1] == D:
+        return out
+    fn.padded += 1
+    return out[..., :D].contiguous()
 
 
 def flash_attention_bias(
@@ -146,7 +156,7 @@ def flash_attention_bias(
         return flash_attention_bias_plain(q, k, v, pos_q, pos_k, rel, kpad, causal, block_q)
     out = _launch(name, q, k, v, pos_q, pos_k, rel, kpad, causal, _round_up(k.shape[2], block_q))
     flash_attention_bias.launches += 1
-    return out
+    return _sliced(flash_attention_bias, out, q.shape[-1])
 
 
 def flash_cross_attention(
@@ -165,8 +175,10 @@ def flash_cross_attention(
         return flash_cross_attention_plain(q, k, v, pos_q, pos_k, kpad, block_q)
     out = _launch(name, q, k, v, pos_q, pos_k, None, kpad, False, _round_up(k.shape[2], 128))
     flash_cross_attention.launches += 1
-    return out
+    return _sliced(flash_cross_attention, out, q.shape[-1])
 
 
 flash_attention_bias.launches = 0
 flash_cross_attention.launches = 0
+flash_attention_bias.padded = 0  # the launches that ran on zero-padded copies
+flash_cross_attention.padded = 0

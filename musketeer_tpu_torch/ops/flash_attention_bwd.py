@@ -28,12 +28,16 @@ from one to the other, and counts its launches (one per call, however many
 CUDA kernels the call runs). The dtype picks the core: bf16 runs on Hopper's
 tensor cores (K3 on ``csrc/flash_fwd_sm90.cuh``, K4 on
 ``csrc/flash_bwd_sm90.cuh``), whose products take bf16 operands, so K4 rounds
-P and dW to bf16 once as the operands of its gradient products; fp32 runs on
-the FMA kernels in full fp32. The tensor-core kernels read their streams by
-TMA, so bf16 q, k, v, pos_q, pos_k (and K4's o and do) must start on 16-byte
-boundaries; the wrappers raise otherwise. Both cores are compiled for the
-head dims ``_build.HEAD_DIMS`` (64 and 80); at 80 K4's key-major work is two
-launches (``csrc/flash_bwd_sm90.cuh``).
+P and dW to bf16 once as the operands of its dv and dk|dpos_k products and
+takes dq|dpos_q on dW's high and low bf16 parts; fp32 runs on the FMA
+kernels in full fp32. The tensor-core kernels read their streams by TMA, so
+bf16 q, k, v, pos_q, pos_k (and K4's o and do) must start on 16-byte
+boundaries; the wrappers raise otherwise. Both cores are compiled at the
+tile widths ``_build.HEAD_DIMS`` (32, 64, 80, 128): a head dim up to 128 runs
+on the smallest that covers it, one that is not a multiple of 8 on
+zero-padded copies (``flash_attention_infer.padded_streams``; counted in
+``.padded``); K4's key-major work is two launches at 80 and three at 128,
+its query-major work two at 128 (``csrc/flash_bwd_sm90.cuh``).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from .flash_attention_infer import (
     check_shapes,
     cuda_args,
     flash_attention_inference,
+    padded_streams,
 )
 
 _P, _I, _L = _build.PTR, _build.INT, _build.I64
@@ -110,8 +115,9 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, pos_q, pos_k, rel, kpad, causal, skip_max)
     rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, tma=True)
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
     S = k.shape[2]
+    q, k, v, pos_q, pos_k = padded_streams(q, k, v, pos_q, pos_k)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     fn = _build.kernel_function("mk_flash_attention_fwd", _FWD_SIG)
@@ -124,6 +130,9 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False,
         )
     _build.check(err, name)
     flash_attention_fwd.launches += 1
+    if out.shape[-1] != D:  # ran on zero-padded copies
+        flash_attention_fwd.padded += 1
+        out = out[..., :D].contiguous()
     return out, lse
 
 
@@ -139,15 +148,16 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
         return flash_attention_bwd_plain(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
                                          causal, need_drel)
     rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, tma=True)
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
     S = k.shape[2]
     _build.require_cuda(name, {"q": q, "o": o, "do": do}, (q.dtype,))
     _build.require_cuda(name, {"lse": lse}, (torch.float32,))
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
             or tuple(lse.shape) != (B, H, T):
         raise ValueError(f"{name}: o and do must be [B, H, T, D] like q, lse [B, H, T]")
-    if q.dtype == torch.bfloat16 and (o.data_ptr() % 16 or do.data_ptr() % 16):
+    if q.dtype == torch.bfloat16 and D % 8 == 0 and (o.data_ptr() % 16 or do.data_ptr() % 16):
         raise ValueError(f"{name}: bf16 o and do must start on 16-byte boundaries (TMA)")
+    q, k, v, pos_q, pos_k, o, do = padded_streams(q, k, v, pos_q, pos_k, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dpq, dpk = torch.empty_like(pos_q), torch.empty_like(pos_k)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -170,11 +180,16 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
     flash_attention_bwd.launches += 1
     if drel is not None and drel.dim() == 4:
         drel = drel[0]
+    if q.shape[-1] != D:  # ran on zero-padded copies
+        flash_attention_bwd.padded += 1
+        dq, dk, dv, dpq, dpk = (g[..., :D].contiguous() for g in (dq, dk, dv, dpq, dpk))
     return dq, dk, dv, dpq, dpk, drel
 
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_fwd.padded = 0  # the launches that ran on zero-padded copies
+flash_attention_bwd.padded = 0
 
 
 # ---------------------------------------------------------------------------

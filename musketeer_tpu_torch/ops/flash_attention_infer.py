@@ -16,9 +16,12 @@ attention.
 ``flash_attention_inference`` runs the plain PyTorch version for CPU tensors
 and the CUDA kernel (``csrc/flash_attention_infer.cu``) for CUDA tensors: bf16
 on the tensor-core core (``csrc/flash_fwd_sm90.cuh``, wgmma fed by TMA), fp32
-on the FMA core (``csrc/flash_fwd.cuh``), each compiled for the head dims
-``_build.HEAD_DIMS`` (64 and 80); another head dim raises on CUDA. It never
-falls back from one to another. It has no backward and refuses
+on the FMA core (``csrc/flash_fwd.cuh``), each compiled at the tile widths
+``_build.HEAD_DIMS`` (32, 64, 80, 128): a head dim of 1 to 128 runs on the
+smallest that covers it, one that is not a multiple of 8 on zero-padded
+copies of the streams (``_build.pad_head``; counted in ``.padded``); a head
+dim past 128 raises on CUDA. It never falls back from one to another. It
+has no backward and refuses
 inputs that autograd tracks: the model reaches it through
 ``ops/flash_attention_bwd.py::flash_attention``, which sends differentiated
 calls to K3/K4 instead.
@@ -39,14 +42,15 @@ _SIG = (_build.INT,) + (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2
 
 
 def sm90_smem(D: int, bwd: bool = False) -> int:
-    """Shared memory of a CTA of the tensor-core attention core at head dim D
-    (``Layout<D>::SMEM_BYTES`` in ``csrc/flash_fwd_sm90.cuh``: K1, K3, K5), or
-    with ``bwd`` of K4's launches (``BwdLayout<D>::SMEM`` in
-    ``csrc/flash_bwd_sm90.cuh``): 64-row bf16 tiles of 128 D bytes, two
-    resident (q, pos_q; K4 three) and a ring of 3 stages of three, the
-    mbarriers, 1 KB of alignment slack; K4 also each stage's lse and dsum rows
-    and two staged rel tiles of 64 rows of 72 bf16."""
-    tile, bars = 64 * D * 2, 8 * (2 * 3 + 1) + 1024
+    """Shared memory of a CTA of the tensor-core attention core at head dim D,
+    on its instance DP (``_build.head_instance``; ``Layout<DP>::SMEM_BYTES``
+    in ``csrc/flash_fwd_sm90.cuh``: K1, K3, K5), or with ``bwd`` of K4's
+    launches (``BwdLayout<DP>::SMEM`` in ``csrc/flash_bwd_sm90.cuh``): 64-row
+    bf16 tiles of 128 DP bytes, two resident (q, pos_q; K4 three) and a ring
+    of 3 stages of three, the mbarriers, 1 KB of alignment slack; K4 also
+    each stage's lse and dsum rows and two staged rel tiles of 64 rows of 72
+    bf16."""
+    tile, bars = 64 * _build.head_instance(D) * 2, 8 * (2 * 3 + 1) + 1024
     if not bwd:
         return 2 * tile + 3 * 3 * tile + bars
     return 3 * tile + 3 * 3 * tile + 3 * 2 * 64 * 4 + 2 * 64 * 72 * 2 + bars
@@ -69,10 +73,11 @@ def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
 def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
               rel_f32: bool = False, tma: bool = False) -> Tuple[Optional[int], int, int]:
     """Validate CUDA inputs of the attention kernels → (rel pointer, head and row strides).
-    The head dim must be one of ``_build.HEAD_DIMS``.
+    The head dim must be at most ``_build.MAX_HEAD_DIM``.
     ``rel_f32``: the kernel also reads an fp32 rel (K5), not only one in q's dtype.
     ``tma``: bf16 streams go to the tensor-core kernels (K1, K3, K4, K5), whose
-    TMA copies need 16-byte aligned bases."""
+    TMA copies need 16-byte aligned bases (a head dim that is not a multiple
+    of 8 runs on fresh zero-padded copies, ``padded_streams``)."""
     _build.check_head_dim(name, q.shape[-1])
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -85,13 +90,21 @@ def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
                          "with contiguous rows")
     if kpad.device != q.device or not kpad.is_contiguous():
         raise ValueError(f"{name}: kpad must be contiguous on q's device")
-    if tma and q.dtype == torch.bfloat16 and any(
+    if tma and q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0 and any(
             t.data_ptr() % 16 for t in (q, k, v, pos_q, pos_k)):
         raise ValueError(f"{name}: bf16 q, k, v, pos_q and pos_k must start on 16-byte "
                          "boundaries (TMA)")
     if rel is None:
         return None, 0, 0
     return rel.data_ptr(), rel.stride(0), rel.stride(1)
+
+
+def padded_streams(*streams):
+    """The streams as the kernels take them: each itself where the head dim is
+    a multiple of 8, else a copy zero-padded to the next multiple
+    (``_build.pad_head``), whose zero columns add nothing to q·k, pos_q·pos_k
+    or P·v; the caller slices its outputs back to the head dim."""
+    return [None if t is None else _build.pad_head(t) for t in streams]
 
 
 def attention_scores(q, k, pos_q, pos_k, rel, kpad, causal: bool) -> torch.Tensor:
@@ -149,8 +162,9 @@ def flash_attention_inference(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, pos_q, pos_k, rel, kpad, causal, skip_max)
     rel_ptr, rel_hs, rel_rs = cuda_args(name, q, k, v, pos_q, pos_k, rel, kpad, tma=True)
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
     S = k.shape[2]
+    q, k, v, pos_q, pos_k = padded_streams(q, k, v, pos_q, pos_k)
     out = torch.empty_like(q)
     fn = _build.kernel_function("mk_flash_attention_infer", _SIG)
     with torch.cuda.device(q.device):
@@ -162,7 +176,11 @@ def flash_attention_inference(
         )
     _build.check(err, name)
     flash_attention_inference.launches += 1
+    if out.shape[-1] != D:  # ran on zero-padded copies
+        flash_attention_inference.padded += 1
+        out = out[..., :D].contiguous()
     return out
 
 
 flash_attention_inference.launches = 0
+flash_attention_inference.padded = 0  # the launches that ran on zero-padded copies
