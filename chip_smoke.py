@@ -17,6 +17,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --axes-only    # phases 1, 2 and 24
     python3 chip_smoke.py --huge-only    # phases 1, 2 and 25 (ofa_huge, head dim 80)
     python3 chip_smoke.py --head-dims-only  # phases 1, 2 and 26 (head dims 8 to 128)
+    python3 chip_smoke.py --shapes-only  # phases 1, 2 and 27 (beams, S, Tmax, d, D past today's)
     python3 chip_smoke.py --k4-only      # phases 1, 2 and K3/K4 at head dims 64 and 80, timed
 
 ``--train-only``, ``--decode-only``, ``--k8-only`` and ``--k4-only`` also run
@@ -313,6 +314,26 @@ Phases; any failure raises and the script exits non-zero:
     launch counter on its path. The default run starts phase 26 as
     ``--head-dims-only`` in a process of its own and reads its
     ``[head dims kernels]`` line.
+27. the decode kernels at every beam count, encoder length, cache length
+    and width the Pallas kernels take: (a) K6 and K7 at 17, 24 and 32 beams
+    (S 908), at 16 and 24 beams with S 1772 (also at head dims 80 and 128),
+    past the bf16 whole row's fit (K6 5 beams at S 4352, K7 at S 4928) and
+    past the FMA route's (16 beams there); K7 at Tmax 2049 and 4096
+    (cache_index 0, 2047, 2048, Tmax - 1) and at d 864 and 800 (L6, f 4d);
+    K2 and K2-q8 at D 5120, 6144 and 8192 (N80, Vp59520); each in bf16 and
+    fp32 against its plain version (bf16 also the fp32 function), its route
+    counters (``.beam_tiled``, ``.chunked``, ``.cache_chunked``,
+    ``.ragged``, ``.streamed``, ``.streamed_q8``) as its plan says, timed by
+    CUDA events beside plain and the bound; (b) best-of-24 image generation
+    (``ImageGenTask(sampling_times=24)``, two prompts, 256 codes, seeded
+    ``ofa_base``) under serving B's and A's flags: the fp32 beam-24 search's
+    codes equal to the plain versions', bf16 sampling's K6/K7 launches (on
+    beam tiles), p50 and device time; the three caption slices at 672²
+    (S 1772), batch 16, beam 16 as phases 5, 6, 13 and 14 (K6 and K7 on
+    their score-chunked routes). The default run starts phase 27 as
+    ``--shapes-only`` in a process of its own and reads its
+    ``[shapes kernels]`` line; after phase 12 it checks that phases 4, 10,
+    11 and 12 took none of these routes.
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
@@ -342,7 +363,9 @@ and K2 and K2-q8 ``d1280``: phase 25's error, times, bound and library time
 at ``ofa_huge``'s shapes and the launches on its main paths; and
 ``head_dims``: phase 26's, by head dim (its instance in ``instance``; the
 launches on the path of the configuration of that head dim, 0 where no
-configuration has it).
+configuration has it); K2's, K2-q8's, K6's and K7's ``shapes``: phase
+27's cases (error, times, bound, the routes they took), their launches on
+the 672² caption paths and (K6, K7) on best-of-24 image generation.
 """
 
 from __future__ import annotations
@@ -915,8 +938,9 @@ def phase_slice(tree, smi: str, name: str, routes: frozenset = SM90_ROUTES,
     if not (1 <= steps.call_count <= MAX_LEN + 1 and launches == want):
         raise AssertionError(f"{name}: launches {launches} over {steps.call_count} steps, "
                              f"expected {want}")
-    if tuple(enc.x.shape) != (BATCH, 908, cfg.embed_dim) or not bool(torch.isfinite(enc.x).all()):
-        raise AssertionError(f"encoder output must be finite [16, 908, {cfg.embed_dim}]")
+    S = (IMAGE // 16) ** 2 + len(PROMPT_IDS)  # the patches and the prompt tokens
+    if tuple(enc.x.shape) != (BATCH, S, cfg.embed_dim) or not bool(torch.isfinite(enc.x).all()):
+        raise AssertionError(f"encoder output must be finite [{BATCH}, {S}, {cfg.embed_dim}]")
     _check_tokens(tokens, scores, cfg, BATCH)
     log(f"{tag} first hypothesis: {tokens[0, 0].tolist()} score {float(scores[0, 0]):.4f}")
 
@@ -926,7 +950,7 @@ def phase_slice(tree, smi: str, name: str, routes: frozenset = SM90_ROUTES,
         _caption(params, cfg, gen_cfg, src, images, masks)
         times.append(time.perf_counter() - t0)
     p50 = statistics.median(times)
-    log(f"{tag} {what} bf16 batch {BATCH} beam {BEAM} 480²: p50 batch latency "
+    log(f"{tag} {what} bf16 batch {BATCH} beam {BEAM} {IMAGE}²: p50 batch latency "
         f"{p50 * 1e3:.1f} ms, {BATCH / p50:.2f} samples/s (runs {[round(t * 1e3, 1) for t in times]} ms) "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
     return launches
@@ -4400,8 +4424,8 @@ def phase_huge(smi: str) -> tuple:
     stats = {"K1": phase_k1(g, HUGE_K1)}
     rows, d = HUGE_K2["N"], HUGE_K2["D"]
     for q8 in (False, True):
-        tile, ctas = k2.proj_plan(rows, d, _build.sm_count(torch.device("cuda")), HUGE_K2["Vp"],
-                                  q8=q8)
+        tile, ctas, _ = k2.proj_plan(rows, d, _build.sm_count(torch.device("cuda")),
+                                     HUGE_K2["Vp"], q8=q8)
         log(f"[huge K2{'-q8' if q8 else ''}] d {d}: row tile {tile} for {rows} rows, so "
             f"{-(-rows // tile)} row tiles of {ctas} CTAs, each streaming the whole weight")
     stats["K2"] = phase_k2(g, shape=HUGE_K2)
@@ -4674,6 +4698,421 @@ def _head_dims_in_own_process() -> dict:
     return json.loads(line[len(HD_TAG):])
 
 
+# phase 27: the decode kernels K6, K7 and K2/K2-q8 at every beam count,
+# encoder length, cache length and width that the Pallas kernels take (the
+# routes of ops/decode_stack.py::stack_plan, ops/decode_cross_attn.py::plan
+# and ops/topk_projection.py::proj_plan), best-of-24 image generation and the
+# caption slices at 672²
+SHAPES_TAG = "[shapes kernels] "
+SHAPES_FP32_TOL = 1e-5  # the fp32 calls of phase 27, as phase 26's
+SHAPES_BOTH = (torch.bfloat16, torch.float32)
+# K6 and K7's cross-attention: (B, Kb, S, D); H from _heads_for(D)
+SHAPES_CROSS = ((4, 17, 908, 64), (4, 24, 908, 64), (4, 32, 908, 64), (16, 16, 1772, 64),
+                (16, 24, 1772, 64), (4, 24, 1772, 80), (4, 24, 1772, 128))
+SHAPES_K6_LONG = ((16, 5, 4352, 64), (4, 16, 4352, 64))  # past the bf16 fit; past the FMA's
+SHAPES_K7_LONG = ((16, 5, 4928, 64), (4, 16, 4928, 64))
+SHAPES_TMAX = (2049, 4096)
+SHAPES_WIDTHS = ((12, 72), (10, 80))  # (H, hd): d 864 and 800, not multiples of 64
+SHAPES_K2_D = (5120, 6144, 8192)
+SHAPES_IMAGE, SHAPES_BEAM = 672, 16  # the caption slices: ofa_base's 42 x 42 image buckets
+GEN_BEST_OF, GEN_PROMPTS = 24, 2
+BLK_K2 = 128  # K2's vocabulary block: one bmax and one bsum each
+
+
+def _route_counts() -> dict:
+    """The launches of the routes that phase 27 adds: beam tiles, score chunks,
+    the self cache in chunks, d % 64 != 0, h streamed (0 where a tree lacks them)."""
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+    from musketeer_tpu_torch.ops import decode_stack as k7
+    from musketeer_tpu_torch.ops import topk_projection as k2
+
+    fns = {"K6": (k6.decode_cross_attention_int8, ("beam_tiled", "chunked")),
+           "K7": (k7.decode_stack_step, ("beam_tiled", "chunked", "cache_chunked", "ragged")),
+           "K2": (k2.project_with_stats, ("streamed",)),
+           "K2-q8": (k2.project_with_stats, ("streamed_q8",))}
+    return {f"{k}.{a}": getattr(fn, a, 0) for k, (fn, attrs) in fns.items() for a in attrs}
+
+
+def _route_moves(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _route_counts().items() if n != before[k]}
+
+
+def _shape_case(kernel: str, tag: str, dtype, call, plain, fn, want: dict, work: dict,
+                iters: int = 5, stats_from: int = None) -> dict:
+    """One phase-27 call: the kernel against its plain version (bf16 within
+    ``BF16_TOL`` and the fp32 function; fp32 within ``SHAPES_FP32_TOL``; the
+    outputs from ``stats_from`` on, fp32 statistics, within ``FP32_TOL`` in
+    bf16 as phase 4 holds them), the route counters moved as ``want``, its
+    time by CUDA events beside plain's and the bound ``work``. ``call``,
+    ``plain``: → a tuple of outputs; ``fn``: the function in fp32 (bf16 only)."""
+    before = _route_counts()
+    out = call()
+    torch.cuda.synchronize()
+    moved = _route_moves(before)
+    if moved != want:
+        raise AssertionError(f"{kernel} {tag} {dtype}: routes {moved}, expected {want}")
+    ref = plain()
+    tol = BF16_TOL if dtype == torch.bfloat16 else SHAPES_FP32_TOL
+    tols = [tol if stats_from is None or i < stats_from else min(tol, FP32_TOL)
+            for i in range(len(out))]
+    err = max(_check_close(f"{kernel} {tag} {dtype} output {i}", a, b, t)
+              for i, (a, b, t) in enumerate(zip(out, ref, tols)))
+    msg = ""
+    if dtype == torch.bfloat16:
+        f = fn()
+        msg = "; " + _check_function(f"{kernel} {tag}", out[0], ref[0], f[0])
+        del f
+    del out, ref
+    ms, plain_ms = cuda_ms(call, iters), cuda_ms(plain, max(2, iters // 2))
+    log(f"[shapes a] {kernel} {tag} {str(dtype)[6:]}: routes {moved}; max abs err {err:.3e}"
+        f"{msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {work['bound_ms']:.4f} ms "
+        f"({work['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, routes=moved, **work)
+
+
+def _shapes_k6(g) -> dict:
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+
+    names = ("q", "k_i8", "v_i8", "k_scale", "v_scale", "bias", "enc_pad")
+    stats = {}
+    for B, Kb, S, D in SHAPES_CROSS + SHAPES_K6_LONG:
+        H = _heads_for(D)
+        for dtype in SHAPES_BOTH:
+            plan = k6.plan(Kb, S, D, fp32=dtype == torch.float32)
+            want = {**({"K6.beam_tiled": 1} if plan["beam_tiles"] > 1 else {}),
+                    **({"K6.chunked": 1} if plan["chunk"] < S else {})}
+            if not want and _must_be_new(dtype, Kb, S):
+                raise AssertionError(f"K6 Kb{Kb} S{S} D{D} {dtype}: a phase-27 shape must take a "
+                                     f"route of the plan past today's ({plan})")
+            x = _k6_inputs(g, B, H, Kb, S, D, dtype, full_pad=1)
+            args = [x[n] for n in names]
+            tag = f"B{B} H{H} Kb{Kb} S{S} D{D}"
+            stats[f"{tag} {str(dtype)[6:]}"] = _shape_case(
+                "K6", tag, dtype, lambda: (k6.decode_cross_attention_int8(*args),),
+                lambda: (k6.decode_cross_attention_int8_plain(*args),),
+                lambda: (k6.decode_cross_attention_int8_plain(x["q"].float(), *args[1:]),),
+                want, _bound(_nbytes(*args) + x["q"].numel() * x["q"].element_size(),
+                             4.0 * B * H * Kb * S * D))
+            del x, args
+    return stats
+
+
+def _must_be_new(dtype, Kb: int, S: int) -> bool:
+    """Whether a phase-27 cross-attention case must take a route past today's:
+    every bf16 case; in fp32 those with more than 16 beams or, at 16 beams,
+    with S past the FMA route's whole row (16 x 4096 scores and more)."""
+    return dtype == torch.bfloat16 or Kb > 16 or Kb * S > 16 * 4096
+
+
+def _shapes_k7_case(g, tag: str, shape: dict, hd: int, indices: tuple, dtype,
+                    must: bool = False) -> dict:
+    from musketeer_tpu_torch.ops import decode_stack as k7
+
+    names = ("x0", "sbias", "cbias", "self_k", "self_v", "cross_k", "cross_v")
+    scaling = (hd * 2.0) ** -0.5
+    pack, x = _k7_inputs(g, **shape, dtype=dtype, hd=hd)
+    args = [x[n] for n in names]
+    out = {}
+    for idx in indices:
+        plan = k7.stack_plan(shape["Kb"], shape["S"], shape["Tmax"], idx, shape["H"] * hd,
+                             shape["H"], fp32=dtype == torch.float32)
+        want = {f"K7.{k}": 1 for k, on in (("beam_tiled", plan["beam_tiles"] > 1),
+                                           ("chunked", plan["chunk"] < shape["S"]),
+                                           ("cache_chunked", plan["cache_chunked"]),
+                                           ("ragged", plan["ragged"])) if on}
+        if must and not want:
+            raise AssertionError(f"K7 {tag} {dtype}: a phase-27 shape must take a route past "
+                                 f"today's ({plan})")
+        call = lambda fn, p=pack, a=args, i=idx: fn(p, *a, i, beam_size=shape["Kb"],
+                                                     scaling=scaling)
+        out[f"{tag} cache_index {idx} {str(dtype)[6:]}"] = _shape_case(
+            "K7", f"{tag} cache_index {idx}", dtype, lambda: call(k7.decode_stack_step),
+            lambda: call(k7.decode_stack_plain),
+            lambda: call(k7.decode_stack_plain, {k: v.float() for k, v in pack.items()},
+                         [a.float() for a in args]),
+            want, _k7_work(pack, x, idx), iters=3)
+    del pack, x, args
+    return out
+
+
+def _shapes_k7(g) -> dict:
+    stats = {}
+    base = dict(L=2, f=3072, Tmax=MAX_LEN + 1)
+    for B, Kb, S, D in SHAPES_CROSS + SHAPES_K7_LONG:
+        H = _heads_for(D)
+        shape = dict(base, B=B, Kb=Kb, S=S, H=H, f=4 * H * D)
+        for dtype in SHAPES_BOTH:
+            stats.update(_shapes_k7_case(g, f"rows {B * Kb} L2 H{H} hd{D} Kb{Kb} S{S}", shape,
+                                         D, (MAX_LEN,), dtype, _must_be_new(dtype, Kb, S)))
+    for Tmax in SHAPES_TMAX:
+        shape = dict(base, B=2, Kb=BEAM, S=908, H=12, Tmax=Tmax)
+        indices = tuple(sorted({0, 2047, 2048, Tmax - 1}))
+        for dtype in SHAPES_BOTH:
+            stats.update(_shapes_k7_case(g, f"rows {2 * BEAM} L2 Tmax {Tmax}", shape, 64,
+                                         indices, dtype))
+    for H, hd in SHAPES_WIDTHS:
+        shape = dict(K7_SHAPE, H=H, f=4 * H * hd)
+        for dtype in SHAPES_BOTH:
+            stats.update(_shapes_k7_case(g, f"rows {BATCH * BEAM} L6 d{H * hd} H{H} hd{hd}",
+                                         shape, hd, (MAX_LEN,), dtype, must=True))
+    return stats
+
+
+def _shapes_k2(g) -> tuple:
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import topk_projection as k2
+
+    N, Vp, vs = K2_SHAPE["N"], K2_SHAPE["Vp"], K2_SHAPE["vocab_size"]
+    stats = {"K2": {}, "K2-q8": {}}
+    for D in SHAPES_K2_D:
+        w = torch.randn(Vp, D, generator=g, device="cuda") * D ** -0.5
+        w[vs:] = 0
+        q = ofa.quantize_output_proj({"embed_tokens": w})
+        w8, scale = q["embed_tokens_q8"], q["embed_tokens_scale"]
+        for dtype in SHAPES_BOTH:
+            h = torch.randn(N, D, generator=g, device="cuda").to(dtype)
+            wd = w.to(dtype)
+            bf16 = dtype == torch.bfloat16
+            if bf16 and not k2.proj_plan(N, D, 132, Vp)[2]:
+                raise AssertionError(f"K2 D{D}: a phase-27 width must stream h")
+            tag = f"N{N} Vp{Vp} D{D}"
+            real = lambda o: (o[0][:, :vs], *o[1:])  # the -1e9 columns would set the tolerance
+            outs = N * Vp * (h.element_size() + 8 / BLK_K2)  # logits, bmax and bsum
+            stats["K2"][f"{tag} {str(dtype)[6:]}"] = _shape_case(
+                "K2", tag, dtype, lambda: real(k2.project_with_stats(h, wd, vocab_size=vs)),
+                lambda: real(k2.project_plain(h, wd, vocab_size=vs)),
+                lambda: real(k2.project_plain(h.float(), wd.float(), vocab_size=vs)),
+                {"K2.streamed": 1} if bf16 else {},
+                _bound(_nbytes(h, wd) + outs, 2.0 * N * Vp * D), stats_from=1)
+            stats["K2-q8"][f"{tag} {str(dtype)[6:]}"] = _shape_case(
+                "K2-q8", tag, dtype,
+                lambda: real(k2.project_with_stats(h, w8, scale, vocab_size=vs)),
+                lambda: real(k2.project_plain(h, w8, scale, vocab_size=vs)),
+                lambda: real(k2.project_plain(h.float(), w8, scale, vocab_size=vs)),
+                {"K2-q8.streamed_q8": 1} if bf16 else {},
+                _bound(_nbytes(h, w8, scale) + outs, 2.0 * N * Vp * D), stats_from=1)
+            del h, wd
+        del w, w8, scale, q
+        torch.cuda.empty_cache()
+    return stats["K2"], stats["K2-q8"]
+
+
+def _gen_search(tree, smi: str, flags: str) -> dict:
+    """Best-of-24 image generation (``ImageGenTask(sampling_times=24)``, 256
+    codes) on two captions under serving ``flags``' options: fp32 beam search
+    at beam 24 through the kernels and their plain versions (equal codes);
+    bf16 best-of-24 sampling, counted (K6/K7 at beam tiles) and timed."""
+    import numpy as np
+
+    from musketeer_tpu_torch.config import ofa_base
+    from musketeer_tpu_torch.data import collate
+    from musketeer_tpu_torch.models import ofa
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+    from musketeer_tpu_torch.ops import decode_stack as k7
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+    from musketeer_tpu_torch.params import from_jax
+    from musketeer_tpu_torch.tasks.image_gen import ImageGenTask
+    from musketeer_tpu_torch.tokenization import default_vocab
+
+    attn_module = importlib.import_module("musketeer_tpu_torch.ops.flash_attention_bwd")
+    vocab = default_vocab()
+    task = ImageGenTask(vocab, description="base", sampling_times=GEN_BEST_OF)
+    b = task.builder("valid")
+    rows = _gen_rows(GEN_PROMPTS, 256, np.random.RandomState(SEED + 27))
+    src = torch.from_numpy(collate([b(r) for r in rows], pad_id=vocab.pad)["src_tokens"])
+    src = src.to("cuda").long()
+    model = SLICES[flags]["model"]
+    gen = dataclasses.replace(task.generation_config(), **SLICES[flags]["gen"])
+    kernel = "K6" if flags == "serving A" else "K7"
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(ofa_base(), dtype=dtype, use_flash_attention=True, **model)
+        params = from_jax(tree, cfg, "cuda", getattr(torch, dtype))
+        gen_cfg = gen if dtype == "bfloat16" else dataclasses.replace(gen, sampling=False)
+        rng = lambda: torch.Generator(device="cuda").manual_seed(SEED + 27)
+
+        def run():
+            with mock.patch.object(task, "generation_config", lambda: gen_cfg):
+                return task.generate_codes(params, cfg, src, rng=rng())
+
+        _reset_counters()
+        before = _route_counts()
+        with mock.patch.object(ofa, "decode_step", wraps=ofa.decode_step) as steps:
+            if dtype == "bfloat16":  # the counted run also gives the device time
+                dev_ms, (codes, scores) = _device_ms_once(run)
+            else:
+                codes, scores = run()
+        torch.cuda.synchronize()
+        launches, moved = _counters(), _route_moves(before)
+        n = steps.call_count
+        per_step = cfg.decoder_layers if kernel == "K6" else 1
+        want = {f"{kernel}.beam_tiled": per_step * n}
+        if (launches[kernel] != per_step * n or moved != want
+                or launches["K1"] != cfg.encoder_layers):
+            raise AssertionError(f"image_gen {flags} {dtype}: launches {launches}, routes {moved} "
+                                 f"over {n} steps (expected {kernel} {per_step} a step on beam "
+                                 "tiles)")
+        grid = task.code_image_size // 16
+        if (tuple(codes.shape) != (GEN_PROMPTS, GEN_BEST_OF, grid, grid)
+                or not bool(torch.isfinite(scores).all())):
+            raise AssertionError(f"image_gen {flags}: codes {tuple(codes.shape)}, scores finite "
+                                 f"{bool(torch.isfinite(scores).all())}")
+        tag = f"[shapes b] image_gen best-of-{GEN_BEST_OF} {flags} {dtype}"
+        if dtype == "float32":
+            with mock.patch.object(attn_module, "flash_attention_inference",
+                                   k1.flash_attention_plain), \
+                    mock.patch.object(ofa, "decode_cross_attention_int8",
+                                      k6.decode_cross_attention_int8_plain), \
+                    mock.patch.object(ofa, "decode_stack_step", k7.decode_stack_plain):
+                codes_p, scores_p = run()
+            gap = _max_err(scores, scores_p)
+            lim = FP32_TOL * max(1.0, float(scores_p.abs().max()))
+            log(f"{tag} beam search (sampling off), {n} steps: codes equal to plain's "
+                f"{torch.equal(codes, codes_p)}, max score diff {gap:.3e} (tol {lim:.3e}); "
+                f"distinct codes in each prompt's best {[len(c.unique()) for c in codes[:, 0]]}")
+            if not torch.equal(codes, codes_p) or not gap <= lim:
+                raise AssertionError(f"image_gen {flags} fp32: the kernels' codes or scores "
+                                     f"differ from the plain versions'")
+        else:
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            p50 = statistics.median(times)
+            log(f"{tag} sampling, {n} steps: {kernel} launches {launches[kernel]}; p50 "
+                f"{p50 * 1e3:.1f} ms (runs {[round(t * 1e3, 1) for t in times]} ms), device "
+                f"time {dev_ms:.1f} ms, {GEN_PROMPTS * GEN_BEST_OF / p50:.2f} images' codes/s "
+                f"on {smi}")
+            out = dict(launches={kernel: launches[kernel], "K1": launches["K1"]}, steps=n,
+                       p50_ms=p50 * 1e3, device_ms=dev_ms)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _device_ms_once(fn) -> tuple:
+    """(the device time (torch.profiler) of the operations one call of ``fn``
+    launches, the call's result). Device activity only: over a 257-step
+    search, the host operations' events would take the profiler tens of
+    seconds to gather."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("torch.profiler recorded no device operations")
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3, out
+
+
+def _shapes_captions(tree, smi: str) -> dict:
+    """The three caption slices at 672² (S 1772), beam 16, batch 16 in bf16
+    (phase 5/13's path: launches, p50, peak memory; one more run's device
+    time) and fp32 at batch 2 through the kernels and their plain versions
+    (phase 6's check); K6 and K7 on their score-chunked routes."""
+    mod = sys.modules[__name__]
+    model = dict(patch_image_size=SHAPES_IMAGE)
+    launches = {}
+    with mock.patch.object(mod, "IMAGE", SHAPES_IMAGE), mock.patch.object(mod, "BEAM", SHAPES_BEAM):
+        for name in SLICES:
+            before = _route_counts()
+            launches[name] = phase_slice(tree, smi, name, model=model)
+            moved = _route_moves(before)
+            cfg, params, gen_cfg = _slice_setup(tree, name, "bfloat16", model)
+            inputs = _inputs(BATCH, SEED)
+            dev_ms, _ = _device_ms_once(lambda: _caption(params, cfg, gen_cfg, *inputs))
+            log(f"[shapes b] {name} at {SHAPES_IMAGE}², beam {SHAPES_BEAM}: device time "
+                f"{dev_ms:.2f} ms an encode + search (torch.profiler) on {smi}")
+            del params
+            for k in ("K6", "K7"):
+                chunked = moved.get(f"{k}.chunked", 0)
+                # phase_slice runs the path 5 times; the counters hold the counted run's launches
+                if launches[name][k] and chunked != 5 * launches[name][k]:
+                    raise AssertionError(f"{name} at {SHAPES_IMAGE}²: {k} launches must all take "
+                                         f"the score-chunked route ({moved})")
+            for part in ("K6.beam_tiled", "K7.beam_tiled", "K2.streamed", "K2-q8.streamed_q8"):
+                if moved.get(part):
+                    raise AssertionError(f"{name} at {SHAPES_IMAGE}²: unexpected route {part}")
+        for name in SLICES:
+            phase_exactness(tree, name, model)
+    return launches
+
+
+def phase_shapes(smi: str) -> dict:
+    """Phase 27: (a) K6, K7, K2 and K2-q8 at the shapes past today's routes,
+    bf16 and fp32, against their plain versions, their routes counted; (b)
+    best-of-24 image generation under serving A and B, and the caption slices
+    at 672². → {kernel: {case: stats}} and the paths' numbers."""
+    from musketeer_tpu_torch.config import ofa_base
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    stats = {"K6": _shapes_k6(g)}
+    torch.cuda.empty_cache()
+    stats["K7"] = _shapes_k7(g)
+    torch.cuda.empty_cache()
+    stats["K2"], stats["K2-q8"] = _shapes_k2(g)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log(f"[shapes a] the kernels at phase 27's shapes: {t1 - t0:.1f} s")
+    tree = _random_model_tree(dataclasses.replace(ofa_base(), use_flash_attention=True),
+                              SEED + 27)
+    t2 = time.perf_counter()
+    log(f"[shapes b] the seeded ofa_base tree in {t2 - t1:.1f} s")
+    paths = {}
+    for f in ("serving B", "serving A"):
+        paths[f"image_gen {f}"] = _gen_search(tree, smi, f)
+        log(f"[shapes b] image_gen under {f}'s flags in {time.perf_counter() - t2:.1f} s")
+        t2 = time.perf_counter()
+    captions = _shapes_captions(tree, smi)
+    log(f"[shapes b] the {SHAPES_IMAGE}² captions in {time.perf_counter() - t2:.1f} s")
+    launches = {"K1": captions["slice"]["K1"], "K2": captions["slice"]["K2"],
+                "K2-q8": captions["serving A"]["K2-q8"], "K6": captions["serving A"]["K6"],
+                "K7": captions["serving B"]["K7"]}
+    log(f"[shapes b] image_gen and the {SHAPES_IMAGE}² captions: {time.perf_counter() - t1:.1f} s;"
+        f" phase 27 in {time.perf_counter() - t0:.1f} s on {smi}")
+    out = {k: dict(cases=v, caption_launches=launches[k]) for k, v in stats.items()}
+    for k in ("K6", "K7"):
+        path = paths["image_gen serving A" if k == "K6" else "image_gen serving B"]
+        out[k]["image_gen_launches"] = path["launches"][k]
+    log(SHAPES_TAG + json.dumps(out))
+    return out
+
+
+def _shapes_in_own_process() -> dict:
+    """Phase 27 in the default run: ``--shapes-only`` in a process of its own
+    (the library already built, as for phases 25 and 26), its output printed
+    here. → its ``SHAPES_TAG`` line's entries."""
+    import os
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--shapes-only"],
+                         capture_output=True, text=True)
+    print(run.stdout, end="", flush=True)
+    print(run.stderr, end="", file=sys.stderr, flush=True)
+    if run.returncode != 0:
+        raise AssertionError(f"phase 27 (--shapes-only) exited with {run.returncode}")
+    line = next(l for l in run.stdout.splitlines() if l.startswith(SHAPES_TAG))
+    return json.loads(line[len(SHAPES_TAG):])
+
+
+def _check_today_routes() -> None:
+    """Phases 4, 10, 11 and 12 (K2, K2-q8, K6, K7 at today's shapes) ran the
+    routes they ran before phase 27's: no beam tiles, score or cache chunks,
+    ragged widths or streamed h."""
+    moved = {k: n for k, n in _route_counts().items() if n}
+    if moved:
+        raise AssertionError(f"phases 4, 10, 11, 12: today's shapes took new routes {moved}")
+    log("[routes] phases 4, 10, 11 and 12 ran today's routes (no beam tiles, score or cache "
+        "chunks, ragged widths or streamed h)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4725,6 +5164,11 @@ def main(argv=None) -> int:
                       help="after phases 1-2, run only phase 26 (the attention kernels at head "
                            "dims 8 to 128, ofa_base in 6 heads of 128 and in 24 of 32), and "
                            "print no result line")
+    only.add_argument("--shapes-only", action="store_true",
+                      help="after phases 1-2, run only phase 27 (K6, K7, K2 and K2-q8 at more "
+                           "than 16 beams, long encoder outputs and caches, ragged widths and "
+                           "wide features; best-of-24 image generation, the captions at 672²), "
+                           "and print no result line")
     only.add_argument("--entry-only", action="store_true",
                       help="after phases 1-2, run only phase 19 (the CLI's convert, train "
                            "with its resume, and evaluate on a NormFormer ofa_base), and print "
@@ -4746,6 +5190,10 @@ def main(argv=None) -> int:
     if opts.head_dims_only:
         phase_head_dims(smi)
         log(f"[done] head-dims phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.shapes_only:
+        phase_shapes(smi)
+        log(f"[done] shapes phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     from musketeer_tpu_torch.config import ofa_base
 
@@ -4807,6 +5255,7 @@ def main(argv=None) -> int:
         phase_k2q8(g, routes)
         phase_k6(g, routes)
         phase_k7(g, routes)
+        _check_today_routes()
         for name in SLICES:
             phase_slice(tree, smi, name, routes)
         phase_profile(tree)
@@ -4815,6 +5264,7 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     stats = {"K1": phase_k1(g), "K2": phase_k2(g), "K2-q8": phase_k2q8(g), "K6": phase_k6(g),
              "K7": phase_k7(g)}
+    _check_today_routes()
     launches = {name: phase_slice(tree, smi, name) for name in SLICES}
     for name in SLICES:
         phase_exactness(tree, name)
@@ -4841,6 +5291,7 @@ def main(argv=None) -> int:
     axes_launches = phase_axes(smi)
     huge_stats, huge_launches = _huge_in_own_process()
     head_dims = _head_dims_in_own_process()
+    shapes = _shapes_in_own_process()
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -4879,6 +5330,8 @@ def main(argv=None) -> int:
                 huge_stats[k], launches=huge_launches[k][k])
         if k in head_dims:  # phase 26: by head dim, 8 to 128
             entry["head_dims"] = head_dims[k]
+        if k in shapes:  # phase 27: the routes past today's shapes
+            entry["shapes"] = shapes[k]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -82,4 +82,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// A softmax row's running max m and sum l of exp(w - m), merged with another
+// part's (m2, l2): the larger max kept, each sum rescaled to it. Two empty
+// parts (both maxes -inf) stay empty. The first pass of the score-chunked
+// attention routes (K6, K7) reduces each row so, a key or a part at a time.
+__device__ __forceinline__ void softmax_merge(float& m, float& l, float m2, float l2) {
+  const float mn = fmaxf(m, m2);
+  if (mn == -CUDART_INF_F) return;
+  l = l * expf(m - mn) + l2 * expf(m2 - mn);
+  m = mn;
+}
+
 }  // namespace mk

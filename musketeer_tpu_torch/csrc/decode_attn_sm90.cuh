@@ -14,7 +14,9 @@
 //   out[j]  = round_bf16(sum_s p[j, s] v[s])   fp32 sums
 // as cross_attn.cuh computes it, exact two-pass softmax included.
 //
-// Design. One CTA per (h, b): a producer warp streams the S / 64 key tiles
+// Design. One CTA per (h, b, beam tile): a tile is 16 beams (a sample's
+// beams past 16 take more tiles, each reading the sample's K/V again, mostly
+// from L2). A producer warp streams the S / 64 key tiles
 // and then the S / 64 value tiles (64 x DP bf16 in sm90.cuh::HeadTile's
 // boxes: 8 KB at DP 64, 16 KB at 128; zeros past S and past the cache's row
 // width) through a ring of STAGES stages; one consumer warpgroup.
@@ -36,6 +38,16 @@
 //     multiple of 8 (zeros; a wrapper's padded copy); q and the output keep
 //     the model's head stride D, read and written in bf16 pairs where
 //     aligned, else element by element.
+// The score-chunked route (kChunked), where the whole row's scores do not
+// fit in shared memory (16 beams at S ~1600 and more, 5 at ~4800): a first
+// pass over the K tiles keeps each row's max and sum of exp (a key at a time
+// in the lane, rescaled as the max moves, then the lanes of a quad and the
+// 8 warps, common.cuh::softmax_merge); a second pass streams K and V tiles in
+// turn, computes each tile's scores again (the same products, the same
+// values), p = exp(w - m) / l rounded to bf16 into one of two 16 x 64 P
+// tiles, and adds P.v as the whole-row route does. The bias row is read
+// from global memory a tile at a time. The same formula, the sum l taken in
+// another order; K is read twice.
 // Eight warps rather than four: the softmax and the per-tile work are
 // latency-bound chains, and one warp a scheduler leaves them exposed.
 // The value tiles arrive while the softmax runs. Launched with programmatic
@@ -64,7 +76,9 @@ constexpr int BKT = 64;                 // keys per tile
 constexpr int STAGES = 8;               // ring depth: value tiles arrive during the softmax
 constexpr int NC = 256;                 // consumer threads: two warpgroups, 8 warps
 constexpr int NT = NC + 32;             // + the producer warp
-constexpr int MAX_KB = 16;              // beams of a sample: one m16 tile
+constexpr int MAX_KB = 16;              // beams of a tile: one m16 A tile
+constexpr int PT = BKT + 8;             // a chunked P tile's row stride (bf16)
+constexpr size_t MAX_SMEM = 232448;     // a block's shared memory on sm_90
 
 template <int DP>
 __host__ __device__ constexpr uint32_t tile_bytes() {  // one 64 x DP bf16 tile: every box
@@ -78,11 +92,21 @@ struct Args {
   int B, H, Kb, S, layer, D;
 };
 
+// the whole-row route at Kb beams of a tile: the ring, the mbarriers, the
+// fp32 scores and bias row, the bf16 probabilities
 template <int DP>
 inline size_t smem_bytes(int Kb, int S) {
   const int sp = (S + BKT - 1) / BKT * BKT;
   return 1024 + STAGES * tile_bytes<DP>() + 16 * STAGES +
          sizeof(float) * ((size_t)Kb * sp + sp) + 2 * (size_t)Kb * (sp + 8);
+}
+
+// the score-chunked route, at any S: the ring, the mbarriers, two bf16 P
+// tiles [16][PT], the warps' row maxes and sums [8][16][2] fp32
+template <int DP>
+constexpr size_t smem_bytes_chunked() {
+  return 1024 + STAGES * tile_bytes<DP>() + 16 * STAGES + 2 * 2 * MAX_KB * PT +
+         sizeof(float) * 2 * (NC / 32) * MAX_KB;
 }
 
 // The layer-stacked cross cache's tensor maps: k and v's 64-column boxes, and
@@ -131,8 +155,10 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* lo,
 
 // maps: the layer-stacked cache [L * B * H, S, Dc] (Dc: D, or D rounded up
 // to a multiple of 8, <= DP) in boxes of 64 rows. kExact: D == DP, known to
-// the compiler (every load and store of q and the output a whole pair)
-template <int DP, bool kExact>
+// the compiler (every load and store of q and the output a whole pair).
+// kChunked: the score-chunked route (see the top of the file). Block z is
+// the beam tile: beams 16 z .. 16 z + 15 of the sample.
+template <int DP, bool kExact, bool kChunked>
 __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps maps, Args a) {
   using HT = sm90::HeadTile<DP>;
   constexpr uint32_t TILE = tile_bytes<DP>();
@@ -141,11 +167,17 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t bars = base + STAGES * TILE;
-  const int h = blockIdx.x, b = blockIdx.y, Kb = a.Kb, S = a.S;
-  const int ntiles = (S + BKT - 1) / BKT, sp = ntiles * BKT, pst = sp + 8;
-  float* sc = reinterpret_cast<float*>(smem_raw + (bars + 16 * STAGES - raw));  // [Kb][sp]
-  float* bias = sc + (size_t)Kb * sp;                                           // [sp]
-  bf16* P = reinterpret_cast<bf16*>(bias + sp);                                 // [Kb][pst]
+  const int h = blockIdx.x, b = blockIdx.y, j0 = MAX_KB * blockIdx.z, S = a.S;
+  const int Kb = min(MAX_KB, a.Kb - j0);  // this tile's beams
+  const int ntiles = (S + BKT - 1) / BKT, sp = ntiles * BKT;
+  const int pst = kChunked ? PT : sp + 8;  // a probability row's stride
+  // the whole-row route: fp32 scores [Kb][sp], the bias row [sp], bf16 P
+  // [Kb][pst]; the chunked route: two bf16 P tiles [16][PT], then each
+  // warp's row maxes and sums [8][16][2] fp32
+  float* sc = reinterpret_cast<float*>(smem_raw + (bars + 16 * STAGES - raw));
+  float* bias = sc + (size_t)Kb * sp;
+  bf16* P = kChunked ? reinterpret_cast<bf16*>(sc) : reinterpret_cast<bf16*>(bias + sp);
+  float* part = reinterpret_cast<float*>(P + 2 * MAX_KB * PT);
   auto full = [=](int st) { return bars + 8u * st; };
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
   auto stage = [=](int st) { return base + TILE * st; };
@@ -161,31 +193,35 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
   sm90::launch_dependents();
 
   const int bh = (a.layer * a.B + b) * a.H + h;
-  if (tid >= NC) {  // the producer warp: K tiles, then V tiles
+  if (tid >= NC) {  // the producer warp: K tiles, then V tiles (chunked: K, then K V K V ..)
     if (tid == NC) {
-      for (int it = 0; it < 2 * ntiles; ++it) {
+      const int total = (kChunked ? 3 : 2) * ntiles;
+      for (int it = 0; it < total; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) sm90::mbar_wait(empty(st), (it / STAGES - 1) & 1);
-        const int row = (it % ntiles) * BKT;
+        const bool value = !kChunked ? it >= ntiles : it >= ntiles && (it - ntiles) % 2 == 1;
+        const int row = (!kChunked || it < ntiles ? it % ntiles : (it - ntiles) / 2) * BKT;
         sm90::mbar_expect_tx(full(st), TILE);
-        if (it < ntiles)
-          load_rows<DP>(stage(st), &maps.k, &maps.k_hi, full(st), row, bh);
-        else
+        if (value)
           load_rows<DP>(stage(st), &maps.v, &maps.v_hi, full(st), row, bh);
+        else
+          load_rows<DP>(stage(st), &maps.k, &maps.k_hi, full(st), row, bh);
       }
     }
     return;  // no block-wide barrier follows
   }
 
+  const float* bias_row = a.bias + ((long long)b * a.H + h) * S;
   // the bias row into shared memory (a constant of the step: before the wait)
-  sm90::copy_f32(bias, a.bias + ((long long)b * a.H + h) * S, S, S, tid, NC);
+  if constexpr (!kChunked) sm90::copy_f32(bias, bias_row, S, S, tid, NC);
   sm90::grid_wait();  // q is the cross-q product's
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int D = kExact ? DP : a.D, d = a.H * D;
+  const long long row0 = (long long)b * a.Kb + j0;  // the tile's first row of q and out
   // q's A fragments for the DP / 16 16-deep k-steps: rows g and g + 8 (beams)
   uint32_t qa[DP / 16][4];
   {
-    const bf16* q = a.q + (long long)b * Kb * d + h * D;
+    const bf16* q = a.q + row0 * d + h * D;
     auto pair = [&](int j, int c) -> uint32_t {
       if (j >= Kb) return 0u;
       if constexpr (kExact) return *reinterpret_cast<const uint32_t*>(q + (long long)j * d + c);
@@ -201,57 +237,29 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
   }
   sm90::named_sync(1, NC);  // the bias row
 
-  // scores: warp w, keys 8 w .. 8 w + 7 of each tile
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it % STAGES;
-    sm90::mbar_wait(full(st), (it / STAGES) & 1);
+  // the scores of keys 8 warp .. + 7 of the K tile in stage st (no bias)
+  auto scores = [&](int st, float (&c)[4]) {
     const int key = 8 * warp + g;  // this lane's B column
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    c[0] = c[1] = c[2] = c[3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const uint32_t b0 = lds32(HT::unit(stage(st), key, 2 * kk) + 4 * t);
       const uint32_t b1 = lds32(HT::unit(stage(st), key, 2 * kk + 1) + 4 * t);
       mma16816(c, qa[kk], b0, b1);
     }
-    sm90::mbar_arrive(empty(st));
-    const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (s + e >= S) continue;
-      if (g < Kb) sc[(size_t)g * sp + s + e] = c[e] + bias[s + e];
-      if (g + 8 < Kb) sc[(size_t)(g + 8) * sp + s + e] = c[2 + e] + bias[s + e];
-    }
-  }
-  sm90::named_sync(1, NC);
-
-  // softmax, one warp per beam row; p rounded to bf16, zeros past S
-  for (int j = warp; j < Kb; j += NC / 32) {
-    const float* row = sc + (size_t)j * sp;
-    float m = -CUDART_INF_F;
-    for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int s = lane; s < S; s += 32) l += expf(row[s] - m);
-    l = warp_sum(l);
-    bf16* pr = P + (size_t)j * pst;
-    for (int s = lane; s < sp; s += 32)
-      pr[s] = __float2bfloat16_rn(s < S ? expf(row[s] - m) / l : 0.f);
-  }
-  sm90::named_sync(1, NC);
-
-  // P.v: warp w owns the n8 column blocks w + 8 n < DP / 8
+  };
+  // acc += P (rows g, g + 8; columns k0 .. k0 + 63 of P's rows) . the V tile in stage st
   float o[NB][4] = {};
-  for (int it = ntiles; it < 2 * ntiles; ++it) {
-    const int st = it % STAGES, k0 = (it - ntiles) * BKT;
-    sm90::mbar_wait(full(st), (it / STAGES) & 1);
+  auto pv = [&](int st, const bf16* Pt, int k0) {
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
       const int kc = k0 + 16 * ks + 2 * t;  // this lane's A columns kc, kc + 1 (and + 8)
       uint32_t pa[4];
-      pa[0] = g < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)g * pst + kc) : 0u;
-      pa[1] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)(g + 8) * pst + kc) : 0u;
-      pa[2] = g < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)g * pst + kc + 8) : 0u;
-      pa[3] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(P + (size_t)(g + 8) * pst + kc + 8)
+      pa[0] = g < Kb ? *reinterpret_cast<const uint32_t*>(Pt + (size_t)g * pst + kc) : 0u;
+      pa[1] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(Pt + (size_t)(g + 8) * pst + kc)
+                         : 0u;
+      pa[2] = g < Kb ? *reinterpret_cast<const uint32_t*>(Pt + (size_t)g * pst + kc + 8) : 0u;
+      pa[3] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(Pt + (size_t)(g + 8) * pst + kc + 8)
                          : 0u;
       // two 8 x 8 value blocks: keys +0 / +8 of this k-step, a block's 8 columns
       const int key = 16 * ks + (lane % 8) + 8 * ((lane / 8) & 1);
@@ -267,10 +275,118 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
         mma16816(o[n], pa, r0, r1);
       }
     }
-    sm90::mbar_arrive(empty(st));
+  };
+
+  if constexpr (!kChunked) {
+    // scores: warp w, keys 8 w .. 8 w + 7 of each tile
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      float c[4];
+      scores(st, c);
+      sm90::mbar_arrive(empty(st));
+      const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (s + e >= S) continue;
+        if (g < Kb) sc[(size_t)g * sp + s + e] = c[e] + bias[s + e];
+        if (g + 8 < Kb) sc[(size_t)(g + 8) * sp + s + e] = c[2 + e] + bias[s + e];
+      }
+    }
+    sm90::named_sync(1, NC);
+
+    // softmax, one warp per beam row; p rounded to bf16, zeros past S
+    for (int j = warp; j < Kb; j += NC / 32) {
+      const float* row = sc + (size_t)j * sp;
+      float m = -CUDART_INF_F;
+      for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
+      m = warp_max(m);
+      float l = 0.f;
+      for (int s = lane; s < S; s += 32) l += expf(row[s] - m);
+      l = warp_sum(l);
+      bf16* pr = P + (size_t)j * pst;
+      for (int s = lane; s < sp; s += 32)
+        pr[s] = __float2bfloat16_rn(s < S ? expf(row[s] - m) / l : 0.f);
+    }
+    sm90::named_sync(1, NC);
+
+    // P.v: warp w owns the n8 column blocks w + 8 n < DP / 8
+    for (int it = ntiles; it < 2 * ntiles; ++it) {
+      const int st = it % STAGES;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      pv(st, P, (it - ntiles) * BKT);
+      sm90::mbar_arrive(empty(st));
+    }
+  } else {
+    // pass 1: each row's max and sum of exp over the K tiles, a key at a time
+    // in the lane, then the lanes of a quad (xor 1, 2), then the 8 warps in order
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};  // rows g, g + 8
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      float c[4];
+      scores(st, c);
+      sm90::mbar_arrive(empty(st));
+      const int s = it * BKT + 8 * warp + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (s + e >= S) continue;
+        const float bi = __ldg(bias_row + s + e);
+        softmax_merge(m[0], l[0], c[e] + bi, 1.f);
+        softmax_merge(m[1], l[1], c[2 + e] + bi, 1.f);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2)
+        softmax_merge(m[r], l[r], __shfl_xor_sync(0xffffffffu, m[r], off),
+                      __shfl_xor_sync(0xffffffffu, l[r], off));
+      if (t == 0) {
+        part[2 * (warp * MAX_KB + g + 8 * r)] = m[r];
+        part[2 * (warp * MAX_KB + g + 8 * r) + 1] = l[r];
+      }
+    }
+    sm90::named_sync(1, NC);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -CUDART_INF_F;
+      l[r] = 0.f;
+      for (int w = 0; w < NC / 32; ++w)
+        softmax_merge(m[r], l[r], part[2 * (w * MAX_KB + g + 8 * r)],
+                      part[2 * (w * MAX_KB + g + 8 * r) + 1]);
+    }
+    // pass 2: per tile, the scores again, p = exp(w - m) / l rounded to bf16
+    // into a P tile (two, alternating: one barrier a tile), then P.v
+    for (int i = 0; i < ntiles; ++i) {
+      const int it = ntiles + 2 * i, st = it % STAGES;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      float c[4];
+      scores(st, c);
+      sm90::mbar_arrive(empty(st));
+      bf16* Pt = P + (i & 1) * MAX_KB * PT;
+      const int col = 8 * warp + 2 * t, s = i * BKT + col;
+      float p[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = s + e < S;
+        const float bi = live ? __ldg(bias_row + s + e) : 0.f;
+        p[0][e] = live && g < Kb ? expf(c[e] + bi - m[0]) / l[0] : 0.f;
+        p[1][e] = live && g + 8 < Kb ? expf(c[2 + e] + bi - m[1]) / l[1] : 0.f;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(Pt + g * PT + col) =
+          __floats2bfloat162_rn(p[0][0], p[0][1]);
+      *reinterpret_cast<__nv_bfloat162*>(Pt + (g + 8) * PT + col) =
+          __floats2bfloat162_rn(p[1][0], p[1][1]);
+      sm90::named_sync(1, NC);
+      const int sv = (it + 1) % STAGES;
+      sm90::mbar_wait(full(sv), ((it + 1) / STAGES) & 1);
+      pv(sv, Pt, 0);
+      sm90::mbar_arrive(empty(sv));
+    }
   }
 
-  bf16* out = a.out + (long long)b * Kb * d + h * D;
+  bf16* out = a.out + row0 * d + h * D;
 #pragma unroll
   for (int n = 0; n < NB; ++n) {
     if (warp + 8 * n >= DP / 8) continue;
@@ -298,18 +414,13 @@ inline int cache_maps(CacheMaps* m, const void* k, const void* v, long long lbh,
   return sm90::head_maps(&m->v, &m->v_hi, v, Dc, DP, S, lbh, BKT);
 }
 
-// grid (H, B), with programmatic stream serialization (pdl). A cudaError_t code.
-template <int DP>
-inline int launch(const CacheMaps& maps, const Args& a, int pdl, cudaStream_t stream) {
-  if (a.Kb < 1 || a.Kb > MAX_KB || a.D > DP) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<DP>(a.Kb, a.S);
-  const bool exact = a.D == DP;
-  static SmemOptIn opt_in, opt_in_exact;
-  if (const int err = exact ? opt_in_exact.ensure((const void*)kernel<DP, true>, smem)
-                            : opt_in.ensure((const void*)kernel<DP, false>, smem))
-    return err;
+template <int DP, bool kExact, bool kChunked>
+inline int launch_one(const CacheMaps& maps, const Args& a, size_t smem, int pdl,
+                      cudaStream_t stream) {
+  static SmemOptIn opt_in;
+  if (const int err = opt_in.ensure((const void*)kernel<DP, kExact, kChunked>, smem)) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.H, a.B);
+  cfg.gridDim = dim3(a.H, a.B, (a.Kb + MAX_KB - 1) / MAX_KB);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -318,9 +429,26 @@ inline int launch(const CacheMaps& maps, const Args& a, int pdl, cudaStream_t st
   attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = exact ? cudaLaunchKernelEx(&cfg, kernel<DP, true>, maps, a)
-                                : cudaLaunchKernelEx(&cfg, kernel<DP, false>, maps, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel<DP, kExact, kChunked>, maps, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// grid (H, B, beam tiles), with programmatic stream serialization (pdl);
+// chunked: the score-chunked route, else the whole-row route, which must fit.
+// A cudaError_t code.
+template <int DP>
+inline int launch(const CacheMaps& maps, const Args& a, int chunked, int pdl,
+                  cudaStream_t stream) {
+  if (a.Kb < 1 || a.D > DP) return (int)cudaErrorInvalidValue;
+  const int kb = a.Kb < MAX_KB ? a.Kb : MAX_KB;  // the beams of a tile
+  const size_t smem = chunked ? smem_bytes_chunked<DP>() : smem_bytes<DP>(kb, a.S);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const bool exact = a.D == DP;
+  if (chunked)
+    return exact ? launch_one<DP, true, true>(maps, a, smem, pdl, stream)
+                 : launch_one<DP, false, true>(maps, a, smem, pdl, stream);
+  return exact ? launch_one<DP, true, false>(maps, a, smem, pdl, stream)
+               : launch_one<DP, false, false>(maps, a, smem, pdl, stream);
 }
 
 }  // namespace decode_attn

@@ -25,7 +25,8 @@
 // the tile width DP is a template parameter, compiled at 32, 64, 80 and 128
 // (a head dim D, a multiple of 16 here, runs on the smallest DP >= D; the
 // wrapper copies any other into a zero-padded cache first):
-//   - one CTA per (h, b): a producer warp streams TMA tiles of 64 keys x DP
+//   - one CTA per (h, b, beam tile of up to 16 beams): a producer warp
+//     streams TMA tiles of 64 keys x DP
 //     int8 (4 KB at DP 64, 8 KB at 128, unswizzled; the map spans the true D,
 //     so the bytes past D are zeros) through an 8-stage ring, K then V; 8
 //     consumer warps;
@@ -47,6 +48,12 @@
 //     alternating: one barrier a tile; in K7's layout, sm90.cuh::HeadTile),
 //     read by ldmatrix.trans as K7's: warp w owns the n8 column blocks
 //     w + 8 n < DP / 8; the columns past D are stored nowhere.
+// Past the whole row's fit (16 beams at S ~1660, 5 at ~4290), the
+// score-chunked route (kChunked) takes K7's two passes (decode_attn_sm90.cuh):
+// each row's max (from -1e8: the clamp) and sum over the K tiles, then per
+// tile the scores again, p = e / max(l, 1e-38) * v_scale into one of two P
+// tiles, the value tile widened, P.v; the scale, bias and pad rows are read
+// a tile at a time from global memory.
 // Shared memory ~89 KB at Kb 5, S 908, D 64 (~101 KB at D 80): two CTAs an
 // SM, so the 192 (h, b) CTAs of the ofa_base serving shape (256 at
 // ofa_huge's) run in one wave on 132 SMs; ~137 KB at DP 128, one CTA an SM
@@ -78,7 +85,8 @@ constexpr int BKT = 64;                 // keys per tile
 constexpr int STAGES = 8;               // ring depth: value tiles arrive during the softmax
 constexpr int NC = 256;                 // consumer threads: 8 warps
 constexpr int NT = NC + 32;             // + the producer warp
-constexpr int MAX_KB = 16;              // beams of a sample: one m16 tile
+constexpr int MAX_KB = 16;              // beams of a tile: one m16 A tile
+constexpr int PT = BKT + 8;             // a chunked P tile's row stride (bf16)
 constexpr float NEG_BIAS = -1e9f;       // the score of a padded key
 
 template <int DP>
@@ -98,6 +106,9 @@ struct Args {
   long long bias_bs, bias_hs;
 };
 
+// the whole-row route at Kb beams of a tile: the ring, two bf16 value tiles,
+// the mbarriers, the fp32 scores [Kb][S'] and the k_scale, v_scale and bias
+// rows, the bf16 probabilities [Kb][S' + 8] (S' = S rounded up to 64)
 template <int DP>
 inline size_t smem_bytes(int Kb, int S) {
   const int sp = (S + BKT - 1) / BKT * BKT;
@@ -105,9 +116,18 @@ inline size_t smem_bytes(int Kb, int S) {
          sizeof(float) * ((size_t)Kb * sp + 3 * (size_t)sp) + 2 * (size_t)Kb * (sp + 8);
 }
 
+// the score-chunked route, at any S: the ring, two bf16 value tiles, the
+// mbarriers, two bf16 P tiles [16][PT], the warps' row maxes and sums
+template <int DP>
+constexpr size_t smem_bytes_chunked() {
+  return 1024 + STAGES * Tiles<DP>::KV + 2 * Tiles<DP>::V16 + 16 * STAGES +
+         2 * 2 * MAX_KB * PT + sizeof(float) * 2 * (NC / 32) * MAX_KB;
+}
+
 // kmap, vmap: this layer's cache [B * H, S, D] int8 with 64 x DP boxes.
-// kExact: D == DP, known to the compiler
-template <int DP, bool kExact>
+// kExact: D == DP, known to the compiler. kChunked: the score-chunked route.
+// Block z is the beam tile: beams 16 z .. 16 z + 15 of the sample.
+template <int DP, bool kExact, bool kChunked>
 __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, Args a) {
   using HT = sm90::HeadTile<DP>;
@@ -119,13 +139,18 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t vt = base + STAGES * KV_TILE;  // two bf16 value tiles
   const uint32_t bars = vt + 2 * TILE;
-  const int h = blockIdx.x, b = blockIdx.y, Kb = a.Kb, S = a.S;
-  const int ntiles = (S + BKT - 1) / BKT, sp = ntiles * BKT, pst = sp + 8;
+  const int h = blockIdx.x, b = blockIdx.y, j0 = MAX_KB * blockIdx.z, S = a.S;
+  const int Kb = min(MAX_KB, a.Kb - j0);  // this tile's beams
+  const int ntiles = (S + BKT - 1) / BKT, sp = ntiles * BKT;
+  const int pst = kChunked ? PT : sp + 8;  // a probability row's stride
+  // the whole-row route: scores, the scale and bias rows, P [Kb][pst]; the
+  // chunked route: two P tiles [16][PT], the warps' row maxes and sums
   float* sc = reinterpret_cast<float*>(smem_raw + (bars + 16 * STAGES - raw));  // [Kb][sp]
   float* ks = sc + (size_t)Kb * sp;  // [sp] k_scale, 0 at pads
   float* vs = ks + sp;               // [sp] v_scale
   float* bias = vs + sp;             // [sp] the bias row, -1e9 at pads
-  bf16* P = reinterpret_cast<bf16*>(bias + sp);  // [Kb][pst]
+  bf16* P = kChunked ? reinterpret_cast<bf16*>(sc) : reinterpret_cast<bf16*>(bias + sp);
+  float* part = reinterpret_cast<float*>(P + 2 * MAX_KB * PT);  // [8][16][2]
   auto full = [=](int st) { return bars + 8u * st; };
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
   auto stage = [=](int st) { return smem_raw + (base + KV_TILE * st - raw); };
@@ -141,40 +166,45 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   sm90::launch_dependents();
 
   const long long bh = (long long)b * a.H + h;
-  if (tid >= NC) {  // the producer warp: K tiles, then V tiles
+  if (tid >= NC) {  // the producer warp: K tiles, then V tiles (chunked: K, then K V K V ..)
     if (tid == NC) {
-      for (int it = 0; it < 2 * ntiles; ++it) {
+      const int total = (kChunked ? 3 : 2) * ntiles;
+      for (int it = 0; it < total; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) sm90::mbar_wait(empty(st), (it / STAGES - 1) & 1);
+        const bool value = !kChunked ? it >= ntiles : it >= ntiles && (it - ntiles) % 2 == 1;
+        const int row = (!kChunked || it < ntiles ? it % ntiles : (it - ntiles) / 2) * BKT;
         sm90::mbar_expect_tx(full(st), KV_TILE);
-        sm90::tma_load3(base + KV_TILE * st, it < ntiles ? &kmap : &vmap, full(st), 0,
-                        (it % ntiles) * BKT, (int)bh);
+        sm90::tma_load3(base + KV_TILE * st, value ? &vmap : &kmap, full(st), 0, row, (int)bh);
       }
     }
     return;  // no block-wide barrier follows
   }
 
   sm90::grid_wait();  // q and the bias row may be the previous kernel's
-  // the scale and bias rows, the pads folded in; zeros past S
   const float* bias_row = a.bias + (long long)b * a.bias_bs + h * a.bias_hs;
-  for (int s = tid; s < sp; s += NC) {
-    float k_s = 0.f, v_s = 0.f, bi = 0.f;
-    if (s < S) {
-      const bool padded = a.pad[(long long)b * S + s] != 0;
-      k_s = padded ? 0.f : a.k_scale[bh * S + s];
-      v_s = a.v_scale[bh * S + s];
-      bi = padded ? NEG_BIAS : bias_row[s];
+  const uint8_t* pad = a.pad + (long long)b * S;
+  if constexpr (!kChunked) {
+    // the scale and bias rows, the pads folded in; zeros past S
+    for (int s = tid; s < sp; s += NC) {
+      float k_s = 0.f, v_s = 0.f, bi = 0.f;
+      if (s < S) {
+        const bool padded = pad[s] != 0;
+        k_s = padded ? 0.f : a.k_scale[bh * S + s];
+        v_s = a.v_scale[bh * S + s];
+        bi = padded ? NEG_BIAS : bias_row[s];
+      }
+      ks[s] = k_s;
+      vs[s] = v_s;
+      bias[s] = bi;
     }
-    ks[s] = k_s;
-    vs[s] = v_s;
-    bias[s] = bi;
   }
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   // q's A fragments in the permuted dim order of the K fragments: k-step j,
   // rows g and g + 8 (beams), dims DP / 4 t + 4 j .. + 3 (zeros past D)
   uint32_t qa[DP / 16][4];
   {
-    const bf16* q = a.q + bh * Kb * D;
+    const bf16* q = a.q + (bh * a.Kb + j0) * D;
     auto quad = [&](int j, int c) -> uint2 {
       return j < Kb && c < D ? *reinterpret_cast<const uint2*>(q + j * D + c)
                              : make_uint2(0u, 0u);
@@ -190,10 +220,8 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
   }
   sm90::named_sync(1, NC);  // the rows
 
-  // scores: warp w, keys 8 w .. 8 w + 7 of each tile
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it % STAGES;
-    sm90::mbar_wait(full(st), (it / STAGES) & 1);
+  // the dots of keys 8 warp .. + 7 of the K tile in stage st (releases the stage)
+  auto scores = [&](int st, float (&c)[4]) {
     const uint8_t* krow = stage(st) + (8 * warp + g) * DP + DP / 4 * t;
     uint32_t words[DP / 16];
     if constexpr ((DP / 4) % 16 == 0) {  // 16-byte pieces
@@ -221,48 +249,13 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
     sm90::mbar_arrive(empty(st));
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    c[0] = c[1] = c[2] = c[3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
-    const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (s + e >= S) continue;
-      if (g < Kb) sc[(size_t)g * sp + s + e] = c[e] * ks[s + e] + bias[s + e];
-      if (g + 8 < Kb) sc[(size_t)(g + 8) * sp + s + e] = c[2 + e] * ks[s + e] + bias[s + e];
-    }
-  }
-  sm90::named_sync(1, NC);
-
-  // softmax, one warp per beam row: the max clamped at -1e8, the sum floored
-  // at 1e-38 (subnormal, kept: no flush to zero), p = e / l * v_scale rounded
-  // to bf16, zeros past S
-  for (int j = warp; j < Kb; j += NC / 32) {
-    float* row = sc + (size_t)j * sp;
-    float m = -CUDART_INF_F;
-    for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
-    m = fmaxf(mk::warp_max(m), -1e8f);
-    float l = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      const float e = expf(row[s] - m);
-      row[s] = e;
-      l += e;
-    }
-    l = fmaxf(mk::warp_sum(l), 1e-38f);
-    bf16* pr = P + (size_t)j * pst;
-    for (int s = lane; s < sp; s += 32)
-      pr[s] = __float2bfloat16_rn(s < S ? row[s] / l * vs[s] : 0.f);
-  }
-  sm90::named_sync(1, NC);
-
-  // P.v: each value tile widened into a bf16 tile (key-major rows in K7's
-  // swizzled layout), then read as K7's; warp w owns the n8 column blocks
-  // w + 8 n < DP / 8
-  float o[NB][4] = {};
-  for (int it = ntiles; it < 2 * ntiles; ++it) {
-    const int st = it % STAGES, k0 = (it - ntiles) * BKT;
-    const uint32_t vb = vt + TILE * ((it - ntiles) & 1);
-    sm90::mbar_wait(full(st), (it / STAGES) & 1);
+  };
+  // the value tile in stage st widened into the bf16 tile at vb (key-major
+  // rows in K7's swizzled layout; releases the stage)
+  auto widen_v = [&](int st, uint32_t vb) {
     uint8_t* row = smem_raw + (vb - raw);
     if constexpr (DP == 64) {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
       const uint4 vw = *reinterpret_cast<const uint4*>(stage(st) + 16 * tid);
@@ -294,15 +287,16 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
             make_uint4(w0, w1, w2, w3);
       }
     }
-    // the tile complete; the other tile's readers have passed this barrier
-    // before this one is written again
-    sm90::named_sync(1, NC);
+  };
+  // o += P (rows g, g + 8; columns k0 .. k0 + 63) . the bf16 value tile at vb
+  float o[NB][4] = {};
+  auto pv = [&](uint32_t vb, const bf16* Pt, int k0) {
 #pragma unroll
     for (int kq = 0; kq < 4; ++kq) {
       const int kc = k0 + 16 * kq + 2 * t;  // this lane's A columns kc, kc + 1 (and + 8)
       uint32_t pa[4];
-      const bf16* p0 = P + (size_t)g * pst + kc;
-      const bf16* p1 = P + (size_t)(g + 8) * pst + kc;
+      const bf16* p0 = Pt + (size_t)g * pst + kc;
+      const bf16* p1 = Pt + (size_t)(g + 8) * pst + kc;
       pa[0] = g < Kb ? *reinterpret_cast<const uint32_t*>(p0) : 0u;
       pa[1] = g + 8 < Kb ? *reinterpret_cast<const uint32_t*>(p1) : 0u;
       pa[2] = g < Kb ? *reinterpret_cast<const uint32_t*>(p0 + 8) : 0u;
@@ -320,9 +314,135 @@ __global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
         mma16816(o[n], pa, r0, r1);
       }
     }
+  };
+
+  if constexpr (!kChunked) {
+    // scores: warp w, keys 8 w .. 8 w + 7 of each tile
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      float c[4];
+      scores(st, c);
+      const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (s + e >= S) continue;
+        if (g < Kb) sc[(size_t)g * sp + s + e] = c[e] * ks[s + e] + bias[s + e];
+        if (g + 8 < Kb) sc[(size_t)(g + 8) * sp + s + e] = c[2 + e] * ks[s + e] + bias[s + e];
+      }
+    }
+    sm90::named_sync(1, NC);
+
+    // softmax, one warp per beam row: the max clamped at -1e8, the sum floored
+    // at 1e-38 (subnormal, kept: no flush to zero), p = e / l * v_scale rounded
+    // to bf16, zeros past S
+    for (int j = warp; j < Kb; j += NC / 32) {
+      float* row = sc + (size_t)j * sp;
+      float m = -CUDART_INF_F;
+      for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
+      m = fmaxf(mk::warp_max(m), -1e8f);
+      float l = 0.f;
+      for (int s = lane; s < S; s += 32) {
+        const float e = expf(row[s] - m);
+        row[s] = e;
+        l += e;
+      }
+      l = fmaxf(mk::warp_sum(l), 1e-38f);
+      bf16* pr = P + (size_t)j * pst;
+      for (int s = lane; s < sp; s += 32)
+        pr[s] = __float2bfloat16_rn(s < S ? row[s] / l * vs[s] : 0.f);
+    }
+    sm90::named_sync(1, NC);
+
+    // P.v: each value tile widened into a bf16 tile, then read as K7's; warp w
+    // owns the n8 column blocks w + 8 n < DP / 8
+    for (int it = ntiles; it < 2 * ntiles; ++it) {
+      const int st = it % STAGES;
+      const uint32_t vb = vt + TILE * ((it - ntiles) & 1);
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      widen_v(st, vb);
+      // the tile complete; the other tile's readers have passed this barrier
+      // before this one is written again
+      sm90::named_sync(1, NC);
+      pv(vb, P, (it - ntiles) * BKT);
+    }
+  } else {
+    // a key's score w = dot * k_scale + bias, the pads folded in (k_scale 0, bias -1e9)
+    auto key_w = [&](float dot, int s) {
+      const bool padded = pad[s] != 0;
+      const float k_s = padded ? 0.f : __ldg(a.k_scale + bh * S + s);
+      const float bi = padded ? NEG_BIAS : __ldg(bias_row + s);
+      return dot * k_s + bi;
+    };
+    // pass 1: each row's max (from -1e8: the clamp) and sum of exp over the K
+    // tiles, a key at a time in the lane, then the lanes of a quad, then the warps
+    float m[2] = {-1e8f, -1e8f}, l[2] = {0.f, 0.f};  // rows g, g + 8
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      float c[4];
+      scores(st, c);
+      const int s = it * BKT + 8 * warp + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (s + e >= S) continue;
+        mk::softmax_merge(m[0], l[0], key_w(c[e], s + e), 1.f);
+        mk::softmax_merge(m[1], l[1], key_w(c[2 + e], s + e), 1.f);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2)
+        mk::softmax_merge(m[r], l[r], __shfl_xor_sync(0xffffffffu, m[r], off),
+                          __shfl_xor_sync(0xffffffffu, l[r], off));
+      if (t == 0) {
+        part[2 * (warp * MAX_KB + g + 8 * r)] = m[r];
+        part[2 * (warp * MAX_KB + g + 8 * r) + 1] = l[r];
+      }
+    }
+    sm90::named_sync(1, NC);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -1e8f;
+      l[r] = 0.f;
+      for (int w = 0; w < NC / 32; ++w)
+        mk::softmax_merge(m[r], l[r], part[2 * (w * MAX_KB + g + 8 * r)],
+                          part[2 * (w * MAX_KB + g + 8 * r) + 1]);
+      l[r] = fmaxf(l[r], 1e-38f);  // subnormal, kept
+    }
+    // pass 2: per tile, the scores again, p = exp(w - m) / l * v_scale rounded
+    // to bf16 into a P tile, the value tile widened (two of each, alternating:
+    // one barrier a tile), then P.v
+    for (int i = 0; i < ntiles; ++i) {
+      const int it = ntiles + 2 * i, st = it % STAGES;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      float c[4];
+      scores(st, c);
+      bf16* Pt = P + (i & 1) * MAX_KB * PT;
+      const int col = 8 * warp + 2 * t, s = i * BKT + col;
+      float p[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = s + e < S;
+        const float v_s = live ? __ldg(a.v_scale + bh * S + s + e) : 0.f;
+        p[0][e] = live && g < Kb ? expf(key_w(c[e], s + e) - m[0]) / l[0] * v_s : 0.f;
+        p[1][e] = live && g + 8 < Kb ? expf(key_w(c[2 + e], s + e) - m[1]) / l[1] * v_s : 0.f;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(Pt + g * PT + col) =
+          __floats2bfloat162_rn(p[0][0], p[0][1]);
+      *reinterpret_cast<__nv_bfloat162*>(Pt + (g + 8) * PT + col) =
+          __floats2bfloat162_rn(p[1][0], p[1][1]);
+      const int sv = (it + 1) % STAGES;
+      const uint32_t vb = vt + TILE * (i & 1);
+      sm90::mbar_wait(full(sv), ((it + 1) / STAGES) & 1);
+      widen_v(sv, vb);
+      sm90::named_sync(1, NC);
+      pv(vb, Pt, 0);
+    }
   }
 
-  bf16* out = a.out + bh * Kb * D;
+  bf16* out = a.out + (bh * a.Kb + j0) * D;
 #pragma unroll
   for (int n = 0; n < NB; ++n) {
     const int c = 8 * (warp + 8 * n) + 2 * t;
@@ -347,21 +467,15 @@ inline int cache_map(CUtensorMap* map, const void* ptr, long long bh, int S, int
                          CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// grid (H, B), always with programmatic stream serialization. A cudaError_t
-// code (cudaErrorInvalidValue when Kb or the shared memory does not fit).
-template <int DP>
-inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int B,
-                       cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>(a.Kb, a.S);
-  if (a.Kb < 1 || a.Kb > MAX_KB || smem > 232448) return (int)cudaErrorInvalidValue;
-  const bool exact = a.D == DP;
-  static mk::SmemOptIn opt_in, opt_in_exact;
+template <int DP, bool kExact, bool kChunked>
+inline int launch_one(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int B,
+                      size_t smem, cudaStream_t stream) {
+  static mk::SmemOptIn opt_in;
   if (const int err =
-          exact ? opt_in_exact.ensure((const void*)cross_attn_i8_sm90_kernel<DP, true>, smem)
-                : opt_in.ensure((const void*)cross_attn_i8_sm90_kernel<DP, false>, smem))
+          opt_in.ensure((const void*)cross_attn_i8_sm90_kernel<DP, kExact, kChunked>, smem))
     return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.H, B);
+  cfg.gridDim = dim3(a.H, B, (a.Kb + MAX_KB - 1) / MAX_KB);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -371,9 +485,25 @@ inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const A
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      exact ? cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel<DP, true>, kmap, vmap, a)
-            : cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel<DP, false>, kmap, vmap, a);
+      cudaLaunchKernelEx(&cfg, cross_attn_i8_sm90_kernel<DP, kExact, kChunked>, kmap, vmap, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// grid (H, B, beam tiles), always with programmatic stream serialization;
+// chunked: the score-chunked route, else the whole-row route, which must
+// fit. A cudaError_t code.
+template <int DP>
+inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int B,
+                       int chunked, cudaStream_t stream) {
+  const size_t smem =
+      chunked ? smem_bytes_chunked<DP>() : smem_bytes<DP>(a.Kb < MAX_KB ? a.Kb : MAX_KB, a.S);
+  if (a.Kb < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
+  const bool exact = a.D == DP;
+  if (chunked)
+    return exact ? launch_one<DP, true, true>(kmap, vmap, a, B, smem, stream)
+                 : launch_one<DP, false, true>(kmap, vmap, a, B, smem, stream);
+  return exact ? launch_one<DP, true, false>(kmap, vmap, a, B, smem, stream)
+               : launch_one<DP, false, false>(kmap, vmap, a, B, smem, stream);
 }
 
 }  // namespace
@@ -386,7 +516,8 @@ extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const voi
                                          const void* k_scale, const void* v_scale,
                                          const void* bias, const void* pad, void* out, int B,
                                          int H, int Kb, int S, long long bias_bs,
-                                         long long bias_hs, int head_dim, void* stream) {
+                                         long long bias_hs, int head_dim, int chunk,
+                                         void* stream) {
   namespace ca = mk::cross_attn;
   ca::Args a;
   a.q = q;
@@ -401,6 +532,7 @@ extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const voi
   a.Kb = Kb;
   a.S = S;
   a.D = a.kv_rs = head_dim;
+  a.chunk = chunk;
   a.q_bs = (long long)H * Kb * head_dim;  // q and out: [B, H, Kb, D]
   a.q_hs = (long long)Kb * head_dim;
   a.q_js = head_dim;
@@ -421,7 +553,8 @@ extern "C" int mk_decode_cross_attn_int8_sm90(const void* q, const void* k, cons
                                               const void* k_scale, const void* v_scale,
                                               const void* bias, const void* pad, void* out,
                                               int B, int H, int Kb, int S, long long bias_bs,
-                                              long long bias_hs, int head_dim, void* stream) {
+                                              long long bias_hs, int head_dim, int chunk,
+                                              void* stream) {
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k_scale = static_cast<const float*>(k_scale);
@@ -441,6 +574,6 @@ extern "C" int mk_decode_cross_attn_int8_sm90(const void* q, const void* k, cons
     CUtensorMap kmap, vmap;
     if (const int err = cache_map<DP>(&kmap, k, (long long)B * H, S, head_dim)) return err;
     if (const int err = cache_map<DP>(&vmap, v, (long long)B * H, S, head_dim)) return err;
-    return launch_sm90<DP>(kmap, vmap, a, B, static_cast<cudaStream_t>(stream));
+    return launch_sm90<DP>(kmap, vmap, a, B, chunk < S, static_cast<cudaStream_t>(stream));
   });
 }

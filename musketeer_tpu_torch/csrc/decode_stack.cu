@@ -32,9 +32,15 @@
 // cache's own [L, B, H, S, Dc] layout. The attention kernels' tile width DP
 // is a template parameter, compiled at 32, 64, 80 and 128; a head dim D
 // runs on the smallest DP >= D (common.cuh::with_head_dim). The hidden
-// state keeps the model's head stride D (d = H D, a multiple of 64); the
+// state keeps the model's head stride D (d = H D, a multiple of 8); the
 // self and cross caches have rows of Dc, D rounded up to a multiple of 8
-// (the wrapper's zero-padded copies where D is not one).
+// (the wrapper's zero-padded copies where D is not one). Where d is not a
+// multiple of 64, each product's last 64-deep chunk is zero-filled by TMA
+// (the maps span the true d), its last 64-row tile is masked on store, and
+// the LayerNorm's row statistics add ceil(d / 64) tiles. The
+// self-attention keeps SA_CHUNK positions' scores a warp in shared memory
+// (any Tmax); the cross-attention runs a sample's beams in tiles of 16 and,
+// past the whole row's fit, its scores in chunks.
 //
 // bf16 (mk_decode_stack_step_sm90): the six products run on the
 // weight-streaming tensor-core core (skinny_gemm_sm90.cuh: W tiles by TMA,
@@ -88,6 +94,7 @@ constexpr int KC = 32;    // depth chunk staged in shared memory
 constexpr int GT = 256;   // threads: column tid % 64, rows 8 * (tid / 64) + 0..7
 constexpr int RPT = 8;    // rows per thread
 constexpr int SA_WARPS = 4;  // self-attention: (row, head) tasks per block
+constexpr int SA_CHUNK = 2048;  // cached positions a warp's scores hold in shared memory
 constexpr float NEG = -1e9f;
 
 template <typename T>
@@ -218,19 +225,21 @@ __global__ void __launch_bounds__(GT) gemm_kernel(const T* __restrict__ A, const
 // fp32 route's, and the bf16 route's where D is not a multiple of 8. The
 // cache's rows are Dc apart. Only positions t <= idx are read: later ones
 // are masked to -1e9 in the TPU kernel, whose exp is exactly 0 after the max
-// subtraction.
+// subtraction. The first ch positions' scores stay in shared memory; those
+// of later positions (idx >= ch) are computed again where they are needed.
 template <int DP, typename T>
 __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
     const T* __restrict__ cache_k, const T* __restrict__ cache_v, const float* __restrict__ sbias,
-    T* __restrict__ out, int rows, int H, int Tmax, int idx, float scaling, int D, int Dc) {
+    T* __restrict__ out, int rows, int H, int Tmax, int idx, float scaling, int D, int Dc,
+    int ch) {
   constexpr int NE = (DP + 31) / 32;  // dims a lane may hold
-  extern __shared__ float sa_scores[];  // [SA_WARPS][Tmax]
+  extern __shared__ float sa_scores[];  // [SA_WARPS][ch]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int task = blockIdx.x * SA_WARPS + warp;
   if (task >= rows * H) return;
   const int row = task / H, h = task % H, d = H * D;
-  float* w = sa_scores + warp * Tmax;
+  float* w = sa_scores + warp * ch;
   const long long qo = (long long)row * d + h * D;  // (row, head) in [rows, d]
   int c[NE];  // this lane's dims, or -1
   float qs[NE];
@@ -241,24 +250,27 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
   }
   const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
   const float* sb = sbias + co;
-
-  float m = -CUDART_INF_F;
-  for (int t = 0; t <= idx; ++t) {
+  auto score = [&](int t) {  // the warp's score of position t, in every lane
     const T* kt = t == idx ? k_new + qo : cache_k + (co + t) * Dc;
     float part = 0.f;
 #pragma unroll
     for (int i = 0; i < NE; ++i)
       if (c[i] >= 0) part += qs[i] * to_f(kt[c[i]]);
-    const float s = mk::warp_sum(part) + sb[t];
-    if (lane == 0) w[t] = s;
+    return mk::warp_sum(part) + sb[t];
+  };
+
+  float m = -CUDART_INF_F;
+  for (int t = 0; t <= idx; ++t) {
+    const float s = score(t);
+    if (lane == 0 && t < ch) w[t] = s;
     m = fmaxf(m, s);
   }
   __syncwarp();
   float l = 0.f;
-  for (int t = 0; t <= idx; ++t) l += expf(w[t] - m);
+  for (int t = 0; t <= idx; ++t) l += expf((t < ch ? w[t] : score(t)) - m);
   float a[NE] = {};
   for (int t = 0; t <= idx; ++t) {
-    const float p = round_to<T>(expf(w[t] - m) / l);
+    const float p = round_to<T>(expf((t < ch ? w[t] : score(t)) - m) / l);
     const T* vt = t == idx ? v_new + qo : cache_v + (co + t) * Dc;
 #pragma unroll
     for (int i = 0; i < NE; ++i)
@@ -277,20 +289,23 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
 // on memory a few times, not once per position; numerics as
 // self_attn_kernel's, the sums in another fp32 order. D (head_dim) a
 // multiple of 8, the cache's rows D apart; kExact: D == DP, known to the
-// compiler, which then loads a cached row unpredicated.
+// compiler, which then loads a cached row unpredicated. The warp's shared
+// memory holds ch positions: the scores of the first ch, then the
+// probabilities of ch positions at a time; where idx >= ch the later
+// positions' scores are computed again, in the sum's pass and in their chunk.
 template <int DP, bool kExact>
 __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
     const bf16* __restrict__ cache_k, const bf16* __restrict__ cache_v,
     const float* __restrict__ sbias, bf16* __restrict__ out, int rows, int H, int Tmax, int idx,
-    float scaling, int head_dim) {
+    float scaling, int head_dim, int ch) {
   const int D = kExact ? DP : head_dim;
-  extern __shared__ float sa_scores[];  // [SA_WARPS][Tmax]
+  extern __shared__ float sa_scores[];  // [SA_WARPS][ch]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int task = blockIdx.x * SA_WARPS + warp;
   if (task >= rows * H) return;
   const int row = task / H, h = task % H, d = H * D;
-  float* w = sa_scores + warp * Tmax;
+  float* w = sa_scores + warp * ch;
   const long long qo = (long long)row * d + h * D;  // (row, head) in [rows, d]
   const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
   float qf[DP];
@@ -305,8 +320,7 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
       qf[8 * i + 2 * j + 1] = round_to<bf16>(__uint_as_float(u[j] & 0xffff0000u) * scaling);
     }
   }
-  float m = -CUDART_INF_F;
-  for (int t = lane; t <= idx; t += 32) {
+  auto score = [&](int t) {  // this lane's score of position t
     const bf16* kt = t == idx ? k_new + qo : cache_k + (co + t) * D;
     uint4 kv[DP / 8];
 #pragma unroll
@@ -322,29 +336,37 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
         s = fmaf(qf[8 * i + 2 * j + 1], __uint_as_float(u[j] & 0xffff0000u), s);
       }
     }
-    s += sbias[co + t];
-    w[t] = s;
+    return s + sbias[co + t];
+  };
+  float m = -CUDART_INF_F;
+  for (int t = lane; t <= idx; t += 32) {
+    const float s = score(t);
+    if (t < ch) w[t] = s;
     m = fmaxf(m, s);
   }
   m = mk::warp_max(m);
   float l = 0.f;
-  for (int t = lane; t <= idx; t += 32) l += expf(w[t] - m);
+  for (int t = lane; t <= idx; t += 32) l += expf((t < ch ? w[t] : score(t)) - m);
   l = mk::warp_sum(l);
-  __syncwarp();
-  for (int t = lane; t <= idx; t += 32) w[t] = round_to<bf16>(expf(w[t] - m) / l);
-  __syncwarp();
   constexpr int NP = (DP / 2 + 31) / 32;  // dim pairs a lane may hold
   float a0[NP] = {}, a1[NP] = {};
+  for (int c0 = 0; c0 <= idx; c0 += ch) {  // positions c0 .. c1 - 1
+    const int c1 = min(idx + 1, c0 + ch);
+    __syncwarp();
+    for (int t = c0 + lane; t < c1; t += 32)
+      w[t - c0] = round_to<bf16>(expf((c0 == 0 ? w[t] : score(t)) - m) / l);
+    __syncwarp();
 #pragma unroll 4
-  for (int t = 0; t <= idx; ++t) {
-    const bf16* vt = t == idx ? v_new + qo : cache_v + (co + t) * D;
+    for (int t = c0; t < c1; ++t) {
+      const bf16* vt = t == idx ? v_new + qo : cache_v + (co + t) * D;
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const int c = 2 * (lane + 32 * i);
-      if (c >= D) continue;
-      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(vt + c);
-      a0[i] = fmaf(w[t], __low2float(v), a0[i]);
-      a1[i] = fmaf(w[t], __high2float(v), a1[i]);
+      for (int i = 0; i < NP; ++i) {
+        const int c = 2 * (lane + 32 * i);
+        if (c >= D) continue;
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(vt + c);
+        a0[i] = fmaf(w[t - c0], __low2float(v), a0[i]);
+        a1[i] = fmaf(w[t - c0], __high2float(v), a1[i]);
+      }
     }
   }
 #pragma unroll
@@ -392,11 +414,11 @@ template <int DP, typename T>
 int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, const T* self_k,
          const T* self_v, const T* cross_k, const T* cross_v, T* x, T* k_new, T* v_new,
          T* scratch, int L, int B, int Kb, int H, int S, int Tmax, int f, int idx, float scaling,
-         int D, cudaStream_t st) {
+         int D, int cross_chunk, cudaStream_t st) {
   namespace ca = mk::cross_attn;
   const int d = H * D, rows = B * Kb, Dc = (D + 7) / 8 * 8;
-  const size_t sa_smem = sizeof(float) * SA_WARPS * Tmax;
-  if (sa_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int ch = Tmax < SA_CHUNK ? Tmax : SA_CHUNK;  // the self-attention's positions a chunk
+  const size_t sa_smem = sizeof(float) * SA_WARPS * ch;
   T* qbuf = scratch;         // [rows, d] self q (unscaled)
   T* attn = qbuf + rows * d;  // [rows, d] attention output, head-major columns
   T* q2 = attn + rows * d;    // [rows, d] cross q (scaled)
@@ -418,7 +440,7 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
     const long long cl = (long long)l * rows * H * Tmax;
     self_attn_kernel<DP, T><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
         qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
-        scaling, D, Dc);
+        scaling, D, Dc, ch);
     MK_TRY((int)cudaGetLastError());
     // 3. out-proj + bias + residual
     w_dd = static_cast<const T*>(pk.w_so) + (long long)l * d * d;
@@ -441,6 +463,7 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
     a.S = S;
     a.D = D;
     a.kv_rs = Dc;
+    a.chunk = cross_chunk;
     a.q_bs = (long long)Kb * d;  // row b * Kb + j, column h * D + dd
     a.q_hs = D;
     a.q_js = d;
@@ -490,20 +513,24 @@ __global__ void __launch_bounds__(128) row_tile_stats(const bf16* __restrict__ x
 // The bf16 route: the products on the weight-streaming core, the
 // cross-attention on decode_attn_sm90.cuh. part: fp32 split-K partials;
 // counters: one int per (row tile, m64 tile) of the widest product, zero on
-// entry (each product leaves them zero); stats: [d / 64][rows][2] fp32, the
-// row statistics of x handed from each residual product to the next
-// LayerNorm. n_tile: the row tile (16, 32, 48, 80); cps: chunks of 64 per
-// split of the q|k|v, d x d, fc1 and fc2 products.
+// entry (each product leaves them zero); stats: [ceil(d / 64)][rows][2]
+// fp32, the row statistics of x handed from each residual product to the
+// next LayerNorm. n_tile: the row tile (16, 32, 48, 80); cps: chunks of 64
+// per split of the q|k|v, d x d, fc1 and fc2 products; cross_chunked: the
+// cross-attention's score-chunked route (decode_attn_sm90.cuh).
 template <int DP>
 int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* cbias,
               const bf16* self_k, const bf16* self_v, const bf16* cross_k, const bf16* cross_v,
               bf16* x, bf16* k_new, bf16* v_new, bf16* scratch, float* part, int* counters,
               float* stats, int L, int B, int Kb, int H, int S, int Tmax, int f, int idx,
-              float scaling, int n_tile, const int* cps, int pdl, int D, cudaStream_t st) {
+              float scaling, int n_tile, const int* cps, int pdl, int D, int cross_chunked,
+              cudaStream_t st) {
   namespace sk = mk::skinny;
   const int d = H * D, rows = B * Kb, Dc = (D + 7) / 8 * 8;
-  const size_t sa_smem = sizeof(float) * SA_WARPS * Tmax;
-  if (sa_smem > 48 * 1024 || d % 64 || f % 8) return (int)cudaErrorInvalidValue;
+  const int ch = Tmax < SA_CHUNK ? Tmax : SA_CHUNK;  // the self-attention's positions a chunk
+  const int tiles = (d + sk::BM - 1) / sk::BM;  // 64-column tiles of x (the last may be short)
+  const size_t sa_smem = sizeof(float) * SA_WARPS * ch;
+  if (d % 8 || f % 8) return (int)cudaErrorInvalidValue;
   bf16* qbuf = scratch;          // [rows, d] self q (unscaled)
   bf16* attn = qbuf + rows * d;  // [rows, d] attention output, head-major columns
   bf16* q2 = attn + rows * d;    // [rows, d] cross q (scaled)
@@ -518,7 +545,7 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
   MK_TRY(sk::weight_map(&m_fc2, pk.w_fc2, L, d, f, sk::BM));
   MK_TRY(mk::decode_attn::cache_maps<DP>(&m_kv, cross_k, cross_v, (long long)L * B * H, S, Dc));
   // the first LayerNorm's statistics: x0's, by tile
-  row_tile_stats<<<(rows * (d / 64) + 3) / 4, 128, 0, st>>>(x0, rows, d, stats);
+  row_tile_stats<<<(rows * tiles + 3) / 4, 128, 0, st>>>(x0, rows, d, stats);
   MK_TRY((int)cudaGetLastError());
   return sk::with_row_tile(n_tile, [&](auto nt) -> int {
     constexpr int N = decltype(nt)::value;
@@ -527,7 +554,6 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
     MK_TRY(sk::weight_map(&m_x, x, 1, rows, d, N));
     MK_TRY(sk::weight_map(&m_attn, attn, 1, rows, d, N));
     MK_TRY(sk::weight_map(&m_g, g, 1, rows, f, N));
-    const int tiles = d / 64;
     auto ln_of = [&](const float* ln_gb) { return sk::LnArgs{ln_gb, ln_gb + d, stats, tiles}; };
     const sk::LnArgs none{nullptr, nullptr, nullptr, 0};
     auto product = [&](const CUtensorMap& w, const CUtensorMap& xm, int l, const sk::LnArgs& ln,
@@ -554,15 +580,15 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
       if (D == DP)
         self_attn_bf16<DP, true><<<sa_grid, SA_WARPS * 32, sa_smem, st>>>(
             qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
-            scaling, D);
+            scaling, D, ch);
       else if (D % 8 == 0)
         self_attn_bf16<DP, false><<<sa_grid, SA_WARPS * 32, sa_smem, st>>>(
             qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
-            scaling, D);
+            scaling, D, ch);
       else
         self_attn_kernel<DP, bf16><<<sa_grid, SA_WARPS * 32, sa_smem, st>>>(
             qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
-            scaling, D, Dc);
+            scaling, D, Dc, ch);
       MK_TRY((int)cudaGetLastError());
       // 3. out-proj + bias + residual; x's statistics for step 4
       MK_TRY(product(m_so, m_attn, l, none, d, d, cps[1], stats, epi_of<bf16>(bm, x, d, xin)));
@@ -571,7 +597,7 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
                      epi_of<bf16>(bm + d, q2, d, nullptr, scaling)));
       // 5. beam-shared cross-attention over this layer's [B, H, S, D] K/V
       mk::decode_attn::Args a{q2, cbias, attn, B, H, Kb, S, l, D};
-      MK_TRY(mk::decode_attn::launch<DP>(m_kv, a, pdl, st));
+      MK_TRY(mk::decode_attn::launch<DP>(m_kv, a, cross_chunked, pdl, st));
       // 6. out-proj + bias + residual; x's statistics for step 7
       MK_TRY(product(m_co, m_attn, l, none, d, d, cps[1], stats,
                      epi_of<bf16>(bm + 2 * d, x, d, x)));
@@ -593,8 +619,9 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
 // self_v [L, rows, H, Tmax, hc]; cross_k/cross_v [L, B, H, S, hc]; outputs
 // x_out [rows, d], k_new/v_new [L, rows, d]; scratch rows * (3 d + f)
 // elements. rows = B * Kb, d = hd H, hd = head_dim (up to 128), hc = hd
-// rounded up to a multiple of 8 (the caches' columns past hd zeros).
-// Returns a CUDA error code.
+// rounded up to a multiple of 8 (the caches' columns past hd zeros);
+// cross_chunk: the keys of the cross-attention's score chunks (S: the whole
+// row; cross_attn.cuh). Returns a CUDA error code.
 extern "C" int mk_decode_stack_step(const void* w_self3, const void* b_self3, const void* w_so,
                                     const void* w_cq, const void* w_co, const void* w_fc1,
                                     const void* b_fc1, const void* w_fc2, const void* b_misc,
@@ -603,7 +630,7 @@ extern "C" int mk_decode_stack_step(const void* w_self3, const void* b_self3, co
                                     const void* cross_k, const void* cross_v, void* x_out,
                                     void* k_new, void* v_new, void* scratch, int L, int B, int Kb,
                                     int H, int S, int Tmax, int f, int idx, float scaling,
-                                    int head_dim, void* stream) {
+                                    int head_dim, int cross_chunk, void* stream) {
   const Pack pk{w_self3, b_self3, w_so, w_cq, w_co, w_fc1, b_fc1, w_fc2, b_misc,
                 static_cast<const float*>(ln)};
   using T = float;
@@ -614,15 +641,16 @@ extern "C" int mk_decode_stack_step(const void* w_self3, const void* b_self3, co
         static_cast<const T*>(self_v), static_cast<const T*>(cross_k),
         static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
         static_cast<T*>(v_new), static_cast<T*>(scratch), L, B, Kb, H, S, Tmax, f, idx, scaling,
-        head_dim, static_cast<cudaStream_t>(stream));
+        head_dim, cross_chunk, static_cast<cudaStream_t>(stream));
   });
 }
 
 // The bf16 route (tensor cores): the fp32 route's arguments in bf16 (sbias,
 // cbias and ln fp32; head_dim as there), every bf16 tensor on a 16-byte
-// boundary; part and
-// stats fp32, counters int32, as step_sm90 describes them; cps four ints; pdl != 0
-// launches with programmatic stream serialization. Returns a CUDA error code.
+// boundary; part and stats fp32, counters int32, as step_sm90 describes
+// them; cps four ints; pdl != 0 launches with programmatic stream
+// serialization; cross_chunked != 0 runs the cross-attention's
+// score-chunked route. Returns a CUDA error code.
 extern "C" int mk_decode_stack_step_sm90(
     const void* w_self3, const void* b_self3, const void* w_so, const void* w_cq,
     const void* w_co, const void* w_fc1, const void* b_fc1, const void* w_fc2, const void* b_misc,
@@ -631,7 +659,7 @@ extern "C" int mk_decode_stack_step_sm90(
     void* v_new, void* scratch, void* part, void* counters, void* stats, int L, int B, int Kb,
     int H, int S,
     int Tmax, int f, int idx, float scaling, int n_tile, int cps_qkv, int cps_dd, int cps_fc1,
-    int cps_fc2, int pdl, int head_dim, void* stream) {
+    int cps_fc2, int pdl, int head_dim, int cross_chunked, void* stream) {
   const Pack pk{w_self3, b_self3, w_so, w_cq, w_co, w_fc1, b_fc1, w_fc2, b_misc,
                 static_cast<const float*>(ln)};
   const int cps[4] = {cps_qkv, cps_dd, cps_fc1, cps_fc2};
@@ -644,6 +672,6 @@ extern "C" int mk_decode_stack_step_sm90(
         static_cast<const T*>(cross_v), static_cast<T*>(x_out), static_cast<T*>(k_new),
         static_cast<T*>(v_new), static_cast<T*>(scratch), static_cast<float*>(part),
         static_cast<int*>(counters), static_cast<float*>(stats), L, B, Kb, H, S, Tmax, f, idx,
-        scaling, n_tile, cps, pdl, head_dim, static_cast<cudaStream_t>(stream));
+        scaling, n_tile, cps, pdl, head_dim, cross_chunked, static_cast<cudaStream_t>(stream));
   });
 }

@@ -148,8 +148,10 @@ __device__ __forceinline__ void permute_x_i8(uint8_t* x, int nst, int nx, int ti
 // group left running), widens into them and issues and commits its eight
 // wgmma. So each half's widening overlaps the other half's products, across
 // stages too; a (the fragments) lives across the caller's stages, and the
-// caller waits for every group before reading acc.
-template <int N>
+// caller waits for every group before reading acc. kRelease false: no
+// arrival on empty_bar, for a stage whose X group the products still read
+// (the caller waits for them and then releases the stage).
+template <int N, bool kRelease = true>
 __device__ __forceinline__ void mma_stage_i8(float (&acc)[2][N / 2], uint32_t (&a)[2][8][4],
                                              const uint8_t* wt, uint32_t xc, uint32_t empty_bar,
                                              int tid) {
@@ -165,7 +167,7 @@ __device__ __forceinline__ void mma_stage_i8(float (&acc)[2][N / 2], uint32_t (&
         v[hf][rr][k] =
             *reinterpret_cast<const uint4*>(row + rr * 1024 + (((2 * t + k) ^ g) * 16));
   }
-  sm90::mbar_arrive(empty_bar);
+  if constexpr (kRelease) sm90::mbar_arrive(empty_bar);
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     sm90::wgmma_wait_n<1>();

@@ -48,6 +48,13 @@
 // overlaps the other half's products; a second consumer warpgroup would
 // double its issue rate.
 //
+// Where no row tile's h fits in shared memory (bf16 D past 4992), h is
+// streamed instead (kStream): each ring stage carries, beside its W tile,
+// h's chunks of the same depth (N x 64 bf16: 10 KB at 80 rows; int8 stages
+// two, which the consumers permute in place and release only after their
+// products), re-read from L2 for every vocab block; the sums over D keep
+// their order, so the logits and statistics are the whole-h route's.
+//
 // fp32 (mk_project_with_stats, mk_project_with_stats_q8) stays on the FMA
 // kernel below: 256 threads, each one vocab column by 8 rows of a 16-row
 // chunk, 32-deep chunks of both operands staged in shared memory; fp32 FMAs
@@ -179,17 +186,23 @@ using bf16 = __nv_bfloat16;
 constexpr uint32_t WT2 = 2 * sk::WTILE;  // a stage: 128 vocab rows x 64 deep (int8: x 128)
 constexpr int LGS = BLK + 8;              // row stride of the logits transpose (bf16)
 
-// nch: the h chunks of 64 deep staged (int8 W: two per 128-deep stage)
+// nch: the h chunks of 64 deep staged (int8 W: two per 128-deep stage);
+// stream: h's chunks streamed beside each W stage (nch: those of one stage)
 template <int N>
-constexpr size_t proj_smem(int nch) {
-  return 1024 + sk::STAGES * WT2 + (size_t)nch * sk::x_chunk_bytes<N>() + 2 * (size_t)N * LGS +
-         sizeof(float) * 5 * N + 8 * (2 * sk::STAGES + 1);
+constexpr size_t proj_smem(int nch, bool stream) {
+  const size_t h_bytes = (stream ? sk::STAGES : 1) * (size_t)nch * sk::x_chunk_bytes<N>();
+  return 1024 + sk::STAGES * WT2 + h_bytes +
+         2 * (size_t)N * LGS + sizeof(float) * 5 * N + 8 * (2 * sk::STAGES + 1);
 }
 
 // The persistent kernel's body; Q8: W int8 with fp32 row scales `scale`.
 // wmap: w as a [1, Vp, D] map with 128-row boxes, 64 deep (bf16) or 128 deep
-// (int8); hmap: h as a [1, rows, D] map with 64 x N boxes.
-template <int N, bool Q8>
+// (int8); hmap: h as a [1, rows, D] map with 64 x N boxes. kStream: h is not
+// kept whole; each stage of the ring carries its W tile and the h chunks of
+// the same depth (one, or two for an int8 stage, which the consumers permute
+// in place before the product; such a stage is released only after its
+// products end). The sums over D run in the same order either way.
+template <int N, bool Q8, bool kStream>
 __device__ __forceinline__ void proj_body(const CUtensorMap* wmap, const CUtensorMap* hmap,
                                           const float* __restrict__ scale,
                                           bf16* __restrict__ logits, float* __restrict__ bmax,
@@ -202,8 +215,9 @@ __device__ __forceinline__ void proj_body(const CUtensorMap* wmap, const CUtenso
   const int nst = (D + SK - 1) / SK, nblk = Vp / BLK;  // stages a block
   const int nx = (D + sk::BKC - 1) / sk::BKC;          // h chunks copied
   const int nch = Q8 ? 2 * nst : nx;                   // h chunks staged
+  constexpr uint32_t XST = (Q8 ? 2 : 1) * sk::x_chunk_bytes<N>();  // h of one stage
   const uint32_t ring = base, xs = base + sk::STAGES * WT2;
-  const uint32_t lg_s = xs + nch * sk::x_chunk_bytes<N>();
+  const uint32_t lg_s = xs + (kStream ? sk::STAGES * XST : nch * sk::x_chunk_bytes<N>());
   bf16* lg = reinterpret_cast<bf16*>(smem_raw + (lg_s - raw));  // [N][LGS] logits tile
   float* red = reinterpret_cast<float*>(lg + N * LGS);           // [4][N] per-warp partials
   float* fin = red + 4 * N;                                      // [N] block max
@@ -224,21 +238,29 @@ __device__ __forceinline__ void proj_body(const CUtensorMap* wmap, const CUtenso
 
   if (tid >= sk::NC) {  // the producer warp: h once, then every block's W stages, back to back
     if (tid == sk::NC) {
-      sk::load_x<N>(xs, hmap, xbar, r0, 0, nx);
+      if constexpr (!kStream) sk::load_x<N>(xs, hmap, xbar, r0, 0, nx);
       int it = 0;
       for (int vb = blockIdx.x; vb < nblk; vb += gridDim.x)
         for (int c = 0; c < nst; ++c, ++it) {
           const int st = it % sk::STAGES;
           if (it >= sk::STAGES) mk::sm90::mbar_wait(empty(st), (it / sk::STAGES - 1) & 1);
-          mk::sm90::mbar_expect_tx(full(st), WT2);
+          if constexpr (kStream) {  // the stage's h chunks (those within D) beside its W tile
+            const int n = min(SK / sk::BKC, nx - c * (SK / sk::BKC));
+            mk::sm90::mbar_expect_tx(full(st), WT2 + n * sk::x_chunk_bytes<N>());
+            for (int k = 0; k < n; ++k)
+              mk::sm90::tma_load3(xs + st * XST + k * sk::x_chunk_bytes<N>(), hmap, full(st),
+                                  c * SK + k * sk::BKC, r0, 0);
+          } else {
+            mk::sm90::mbar_expect_tx(full(st), WT2);
+          }
           mk::sm90::tma_load3(ring + st * WT2, wmap, full(st), c * SK, vb * BLK, 0);
         }
     }
     return;  // no block-wide barrier follows
   }
 
-  mk::sm90::mbar_wait(xbar, 0);
-  if constexpr (Q8) {  // h's depth permuted to match the widened int8 fragments
+  if constexpr (!kStream) mk::sm90::mbar_wait(xbar, 0);
+  if constexpr (Q8 && !kStream) {  // h's depth permuted to match the widened int8 fragments
     sk::permute_x_i8<N, sk::NC>(smem_raw + (xs - raw), nst, nx, tid);
     mk::sm90::fence_async_smem();
     mk::sm90::named_sync(1, sk::NC);
@@ -256,7 +278,24 @@ __device__ __forceinline__ void proj_body(const CUtensorMap* wmap, const CUtenso
     float acc[2][N / 2];
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[0][i] = acc[1][i] = 0.f;
-    if constexpr (Q8) {
+    if constexpr (Q8 && kStream) {
+      uint32_t a[2][8][4];  // the widened fragments
+      for (int c = 0; c < nst; ++c, ++it) {
+        const int st = it % sk::STAGES;
+        mk::sm90::mbar_wait(full(st), (it / sk::STAGES) & 1);
+        // the stage's h group permuted in place; the stage is released after its products
+        sk::permute_x_i8<N, sk::NC>(smem_raw + (xs + st * XST - raw), 1,
+                                    min(2, nx - 2 * c), tid);
+        mk::sm90::fence_async_smem();
+        mk::sm90::named_sync(1, sk::NC);
+        sk::mma_stage_i8<N, false>(acc, a, smem_raw + (ring + st * WT2 - raw), xs + st * XST,
+                                   empty(st), tid);
+        mk::sm90::wgmma_wait();
+        mk::sm90::fence_regs(acc[0]);
+        mk::sm90::fence_regs(acc[1]);
+        mk::sm90::mbar_arrive(empty(st));
+      }
+    } else if constexpr (Q8) {
       uint32_t a[2][8][4];  // the widened fragments, in flight across stages
       for (int c = 0; c < nst; ++c, ++it) {
         const int st = it % sk::STAGES;
@@ -270,10 +309,11 @@ __device__ __forceinline__ void proj_body(const CUtensorMap* wmap, const CUtenso
     } else {
       for (int c = 0; c < nst; ++c, ++it) {
         const int st = it % sk::STAGES;
+        const uint32_t xc = kStream ? xs + st * XST : xs + c * sk::x_chunk_bytes<N>();
         mk::sm90::mbar_wait(full(st), (it / sk::STAGES) & 1);
         mk::sm90::wgmma_fence();
-        sk::mma_chunk<N>(acc[0], ring + st * WT2, xs + c * sk::x_chunk_bytes<N>());
-        sk::mma_chunk<N>(acc[1], ring + st * WT2 + sk::WTILE, xs + c * sk::x_chunk_bytes<N>());
+        sk::mma_chunk<N>(acc[0], ring + st * WT2, xc);
+        sk::mma_chunk<N>(acc[1], ring + st * WT2 + sk::WTILE, xc);
         mk::sm90::wgmma_commit();
         mk::sm90::wgmma_wait();
         mk::sm90::fence_regs(acc[0]);
@@ -344,26 +384,52 @@ __device__ __forceinline__ void proj_body(const CUtensorMap* wmap, const CUtenso
 }
 
 // grid (CTAs, row tiles)
-template <int N>
+template <int N, bool kStream>
 __global__ void __launch_bounds__(sk::NT) proj_sm90_kernel(
     const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap hmap,
     bf16* __restrict__ logits, float* __restrict__ bmax, float* __restrict__ bsum, int rows,
     int D, int Vp, int vocab_size) {
-  proj_body<N, false>(&wmap, &hmap, nullptr, logits, bmax, bsum, rows, D, Vp, vocab_size);
+  proj_body<N, false, kStream>(&wmap, &hmap, nullptr, logits, bmax, bsum, rows, D, Vp,
+                               vocab_size);
 }
 
-template <int N>
+template <int N, bool kStream>
 __global__ void __launch_bounds__(sk::NT) proj_q8_sm90_kernel(
     const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap hmap,
     const float* __restrict__ scale, bf16* __restrict__ logits, float* __restrict__ bmax,
     float* __restrict__ bsum, int rows, int D, int Vp, int vocab_size) {
-  proj_body<N, true>(&wmap, &hmap, scale, logits, bmax, bsum, rows, D, Vp, vocab_size);
+  proj_body<N, true, kStream>(&wmap, &hmap, scale, logits, bmax, bsum, rows, D, Vp, vocab_size);
 }
 
 // scale == nullptr: bf16 w (proj_sm90_kernel); else int8 w (proj_q8_sm90_kernel)
+template <int N, bool kStream>
+int launch_kernel(const CUtensorMap& wmap, const CUtensorMap& hmap, const void* scale,
+                  void* logits, void* bmax, void* bsum, int rows, int D, int Vp, int vocab_size,
+                  int ctas, size_t smem, cudaStream_t stream) {
+  const dim3 grid(ctas, (rows + N - 1) / N);
+  auto* out = static_cast<bf16*>(logits);
+  auto* mx = static_cast<float*>(bmax);
+  auto* sm = static_cast<float*>(bsum);
+  if (scale != nullptr) {
+    static mk::SmemOptIn opt_in;
+    if (const int err = opt_in.ensure((const void*)proj_q8_sm90_kernel<N, kStream>, smem))
+      return err;
+    proj_q8_sm90_kernel<N, kStream><<<grid, sk::NT, smem, stream>>>(
+        wmap, hmap, static_cast<const float*>(scale), out, mx, sm, rows, D, Vp, vocab_size);
+  } else {
+    static mk::SmemOptIn opt_in;
+    if (const int err = opt_in.ensure((const void*)proj_sm90_kernel<N, kStream>, smem))
+      return err;
+    proj_sm90_kernel<N, kStream><<<grid, sk::NT, smem, stream>>>(wmap, hmap, out, mx, sm, rows, D,
+                                                                 Vp, vocab_size);
+  }
+  return (int)cudaGetLastError();
+}
+
+// stream: h streamed beside the W stages (else staged whole, which must fit)
 template <int N>
 int launch_sm90(const void* h, const void* w, const void* scale, void* logits, void* bmax,
-                void* bsum, int rows, int D, int Vp, int vocab_size, int ctas,
+                void* bsum, int rows, int D, int Vp, int vocab_size, int ctas, int stream_h,
                 cudaStream_t stream) {
   const bool q8 = scale != nullptr;
   CUtensorMap wmap, hmap;
@@ -371,24 +437,14 @@ int launch_sm90(const void* h, const void* w, const void* scale, void* logits, v
                          : sk::weight_map(&wmap, w, 1, Vp, D, BLK))
     return err;
   if (const int err = sk::weight_map(&hmap, h, 1, rows, D, N)) return err;
-  const int nch = q8 ? 2 * ((D + sk::BKQ - 1) / sk::BKQ) : (D + sk::BKC - 1) / sk::BKC;
-  const size_t smem = proj_smem<N>(nch);
-  const dim3 grid(ctas, (rows + N - 1) / N);
-  auto* out = static_cast<bf16*>(logits);
-  auto* mx = static_cast<float*>(bmax);
-  auto* sm = static_cast<float*>(bsum);
-  if (q8) {
-    static mk::SmemOptIn opt_in;
-    if (const int err = opt_in.ensure((const void*)proj_q8_sm90_kernel<N>, smem)) return err;
-    proj_q8_sm90_kernel<N><<<grid, sk::NT, smem, stream>>>(
-        wmap, hmap, static_cast<const float*>(scale), out, mx, sm, rows, D, Vp, vocab_size);
-  } else {
-    static mk::SmemOptIn opt_in;
-    if (const int err = opt_in.ensure((const void*)proj_sm90_kernel<N>, smem)) return err;
-    proj_sm90_kernel<N><<<grid, sk::NT, smem, stream>>>(wmap, hmap, out, mx, sm, rows, D, Vp,
-                                                        vocab_size);
-  }
-  return (int)cudaGetLastError();
+  const int nch = stream_h ? (q8 ? 2 : 1)  // a stage's chunks, else all of h's
+                           : (q8 ? 2 * ((D + sk::BKQ - 1) / sk::BKQ) : (D + sk::BKC - 1) / sk::BKC);
+  const size_t smem = proj_smem<N>(nch, stream_h != 0);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  return stream_h ? launch_kernel<N, true>(wmap, hmap, scale, logits, bmax, bsum, rows, D, Vp,
+                                           vocab_size, ctas, smem, stream)
+                  : launch_kernel<N, false>(wmap, hmap, scale, logits, bmax, bsum, rows, D, Vp,
+                                            vocab_size, ctas, smem, stream);
 }
 
 }  // namespace
@@ -404,15 +460,16 @@ extern "C" int mk_project_with_stats(const void* h, const void* w, void* logits,
 
 // bf16 h, w and logits (the tensor-core core), every tensor on a 16-byte
 // boundary, D % 8 == 0, Vp % 128 == 0; n_tile the row tile (16, 32, 48 or
-// 80), ctas the persistent grid. Returns a CUDA error code.
+// 80), ctas the persistent grid; stream_h != 0 streams h's chunks beside the
+// W stages (else h is staged whole). Returns a CUDA error code.
 extern "C" int mk_project_with_stats_sm90(const void* h, const void* w, void* logits, void* bmax,
                                           void* bsum, int N, int D, int Vp, int vocab_size,
-                                          int n_tile, int ctas, void* stream) {
+                                          int n_tile, int ctas, int stream_h, void* stream) {
   if (D % 8 || Vp % BLK || ctas < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return sk::with_row_tile(n_tile, [&](auto nt) -> int {
     return launch_sm90<decltype(nt)::value>(h, w, nullptr, logits, bmax, bsum, N, D, Vp,
-                                            vocab_size, ctas, st);
+                                            vocab_size, ctas, stream_h, st);
   });
 }
 
@@ -426,15 +483,16 @@ extern "C" int mk_project_with_stats_q8(const void* h, const void* w, const void
 
 // K2-q8, bf16 h and logits (the tensor-core core): w int8 [Vp, D], scale fp32
 // [Vp]; h, w and logits on 16-byte boundaries, D % 16 == 0, Vp % 128 == 0;
-// n_tile and ctas as for mk_project_with_stats_sm90. Returns a CUDA error code.
+// n_tile, ctas and stream_h as for mk_project_with_stats_sm90. Returns a CUDA
+// error code.
 extern "C" int mk_project_with_stats_q8_sm90(const void* h, const void* w, const void* scale,
                                              void* logits, void* bmax, void* bsum, int N, int D,
                                              int Vp, int vocab_size, int n_tile, int ctas,
-                                             void* stream) {
+                                             int stream_h, void* stream) {
   if (D % 16 || Vp % BLK || ctas < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return sk::with_row_tile(n_tile, [&](auto nt) -> int {
     return launch_sm90<decltype(nt)::value>(h, w, scale, logits, bmax, bsum, N, D, Vp,
-                                            vocab_size, ctas, st);
+                                            vocab_size, ctas, stream_h, st);
   });
 }

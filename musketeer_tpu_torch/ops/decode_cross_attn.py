@@ -29,7 +29,9 @@ not write the cache), its launches also counted in
 smallest that covers it, one that is not a multiple of 16 (an int8 row of
 whole 16-byte units) on zero-padded copies of q and the cache (counted in
 ``.padded``); a head dim past 128, or unaligned inputs, raise; it never
-falls back from one version to another.
+falls back from one version to another. Any beam count and S: ``plan``
+picks beam tiles of 16 (``.beam_tiled``) and, past the whole score row's
+fit in shared memory, scores in chunks over two passes (``.chunked``).
 """
 
 from __future__ import annotations
@@ -37,21 +39,30 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .decode_stack import BEAM_TILE, cross_plan
 
 NEG_INF = -1e9
-MAX_BEAMS = 16  # query rows per sample the kernel holds in registers
 _DTYPES = (torch.float32, torch.bfloat16)
-_SIG = (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.INT, _build.PTR)
+_SIG = (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.INT,) * 2 + (_build.PTR,)
 
 
 def sm90_smem(Kb: int, S: int, D: int = 64) -> int:
-    """Shared memory of the tensor-core kernel (``smem_bytes``) at head dim D,
-    on its instance DP (``_build.head_instance``): the 8-stage ring of
-    64 x DP int8 tiles, two 64 x DP bf16 value tiles, the mbarriers, the fp32
-    scores ``[Kb, S']`` and the k_scale, v_scale and bias rows, the bf16
-    probabilities ``[Kb, S' + 8]`` (S' = S rounded up to 64)."""
-    sp, dp = -(-S // 64) * 64, _build.head_instance(D, 16)
-    return 1024 + 8 * 64 * dp + 2 * 128 * dp + 128 + 4 * (Kb * sp + 3 * sp) + 2 * Kb * (sp + 8)
+    """Shared memory of the tensor-core kernel's whole-row route
+    (``smem_bytes``) at head dim D, on its instance DP
+    (``_build.head_instance``), for a beam tile of min(Kb, 16) beams: the
+    8-stage ring of 64 x DP int8 tiles, two 64 x DP bf16 value tiles, the
+    mbarriers, the fp32 scores ``[kb, S']`` and the k_scale, v_scale and bias
+    rows, the bf16 probabilities ``[kb, S' + 8]`` (S' = S rounded up to 64)."""
+    kb, sp, dp = min(Kb, BEAM_TILE), -(-S // 64) * 64, _build.head_instance(D, 16)
+    return 1024 + 8 * 64 * dp + 2 * 128 * dp + 128 + 4 * (kb * sp + 3 * sp) + 2 * kb * (sp + 8)
+
+
+def plan(Kb: int, S: int, D: int, fp32: bool, budget: int = _build.SMEM_MAX) -> dict:
+    """K6's route (``decode_stack.cross_plan`` with this kernel's shared memory):
+    ``beam_tiles`` of up to 16 beams, ``chunk`` the keys of a score chunk (S:
+    the whole row). The bf16 route's chunks are its 64-key tiles, with the
+    scale and bias rows read a tile at a time."""
+    return cross_plan(Kb, S, D, fp32, budget, smem=sm90_smem)
 
 
 def _route(device: torch.device, q: torch.Tensor, k_i8: torch.Tensor, v_i8: torch.Tensor) -> str:
@@ -121,22 +132,20 @@ def decode_cross_attention_int8(
         raise ValueError(f"{name}: k_i8 and v_i8 must start on 16-byte boundaries (vector loads)")
     B, H, Kb, Dp = q.shape
     S = k_i8.shape[2]
-    if Kb > MAX_BEAMS:
-        raise NotImplementedError(f"{name}: {Kb} beams (kernel holds at most {MAX_BEAMS})")
-    if kind == "sm90" and sm90_smem(Kb, S, Dp) > _build.SMEM_MAX:
-        raise NotImplementedError(f"{name}: {Kb} beams x {S} keys exceed the tensor-core "
-                                  f"kernel's shared memory")
+    route = plan(Kb, S, Dp, fp32=kind != "sm90")
     out = torch.empty_like(q)
     entry = "mk_decode_cross_attn_int8_sm90" if kind == "sm90" else "mk_decode_cross_attn_int8"
     with torch.cuda.device(q.device):
         err = _build.kernel_function(entry, _SIG)(
             q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), bias.data_ptr(), enc_pad.data_ptr(), out.data_ptr(), B, H, Kb,
-            S, bias.stride(0), bias.stride(1), Dp, _build.stream_of(q),
+            S, bias.stride(0), bias.stride(1), Dp, route["chunk"], _build.stream_of(q),
         )
     _build.check(err, name)
     decode_cross_attention_int8.launches += 1
     decode_cross_attention_int8.launches_sm90 += kind == "sm90"
+    decode_cross_attention_int8.beam_tiled += route["beam_tiles"] > 1
+    decode_cross_attention_int8.chunked += route["chunk"] < S
     if Dp != D:  # ran on zero-padded copies
         decode_cross_attention_int8.padded += 1
         out = out[..., :D].contiguous()
@@ -146,3 +155,5 @@ def decode_cross_attention_int8(
 decode_cross_attention_int8.launches = 0  # either route
 decode_cross_attention_int8.launches_sm90 = 0  # the tensor-core route (bf16)
 decode_cross_attention_int8.padded = 0  # the launches that ran on zero-padded copies
+decode_cross_attention_int8.beam_tiled = 0  # the launches at more than 16 beams (beam tiles)
+decode_cross_attention_int8.chunked = 0  # the launches whose scores ran in chunks

@@ -42,6 +42,16 @@ caches go to the kernels as zero-padded copies (rows of whole 16-byte
 units; counted in ``.padded``), the hidden state keeping the model's head
 stride. A head dim past 128, or unaligned bf16 inputs, raise; it never falls
 back from one version to another.
+
+Both routes take every beam count, encoder length S, cache length Tmax and
+width d that the Pallas kernel takes; ``stack_plan`` names the route a step
+takes, and counters record it: the cross-attention runs a sample's beams in
+tiles of 16 (``.beam_tiled``) and, where a tile's whole score rows do not
+fit in shared memory, its scores in chunks, two passes over K
+(``.chunked``); the self-attention past ``SA_CHUNK`` positions computes the
+later scores again (``.cache_chunked``); a width that is not a multiple of
+64 runs the products on a zero-filled last chunk (``.ragged``). These are
+routes of one kernel picked by the shape, not fallbacks: nothing is retried.
 """
 
 from __future__ import annotations
@@ -54,12 +64,13 @@ import torch.nn.functional as F
 from . import _build
 
 NEG_INF = -1e9
-MAX_BEAMS = 16  # query rows per sample the cross-attention holds in registers
-MAX_TMAX = 2048  # self-cache length the kernel's scores fit in shared memory
+BEAM_TILE = 16  # beams of one cross-attention CTA: one m16 A tile (the FMA route: 16 rows)
+SA_CHUNK = 2048  # cached positions whose scores the self-attention keeps in shared memory
+FMA_CHUNK = 1024  # keys of a score chunk of the fp32 cross-attention, where S does not fit
 _DTYPES = (torch.float32, torch.bfloat16)
 _PACK = ("w_self3", "b_self3", "w_so", "w_cq", "w_co", "w_fc1", "b_fc1", "w_fc2", "b_misc", "ln")
-_SIG = (_build.PTR,) * 21 + (_build.INT,) * 8 + (_build.FLOAT, _build.INT, _build.PTR)
-_SIG_SM90 = (_build.PTR,) * 24 + (_build.INT,) * 8 + (_build.FLOAT,) + (_build.INT,) * 7 + (_build.PTR,)
+_SIG = (_build.PTR,) * 21 + (_build.INT,) * 8 + (_build.FLOAT,) + (_build.INT,) * 2 + (_build.PTR,)
+_SIG_SM90 = (_build.PTR,) * 24 + (_build.INT,) * 8 + (_build.FLOAT,) + (_build.INT,) * 8 + (_build.PTR,)
 MAX_CPS = 16  # 64-deep chunks of one split (csrc/skinny_gemm_sm90.cuh)
 MAX_SPLITS = 4  # splits of one product that fit MAX_CPS: the last CTA of a tile adds them in turn
 
@@ -186,10 +197,8 @@ def _check_cuda(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v,
     for arg, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} {tuple(t.shape)} != {shape}")
-    if beam_size > MAX_BEAMS or Tmax > MAX_TMAX or rows != B * beam_size:
-        raise NotImplementedError(
-            f"{name}: beams {beam_size} (at most {MAX_BEAMS}), Tmax {Tmax} (at most "
-            f"{MAX_TMAX}), rows {rows} != {B} x {beam_size}")
+    if rows != B * beam_size:
+        raise ValueError(f"{name}: rows {rows} != {B} samples x {beam_size} beams")
     if not 0 <= cache_index < Tmax:
         raise ValueError(f"{name}: cache_index {cache_index} outside [0, {Tmax})")
 
@@ -214,12 +223,58 @@ def _products(d: int, f: int) -> Dict[str, Tuple[int, int]]:
 
 
 def _cross_smem(Kb: int, S: int, D: int = 64) -> int:
-    """Shared memory of the bf16 cross-attention at head dim D, on its instance
-    DP (``_build.head_instance``; ``decode_attn::smem_bytes``): the 8-stage
-    ring of 64 x DP bf16 tiles, the mbarriers, the fp32 scores and bias row,
-    the bf16 probabilities."""
-    sp = -(-S // 64) * 64
-    return 1024 + 8 * 128 * _build.head_instance(D) + 128 + 4 * (Kb + 1) * sp + 2 * Kb * (sp + 8)
+    """Shared memory of the bf16 cross-attention's whole-row route at head dim
+    D, on its instance DP (``_build.head_instance``; ``decode_attn::smem_bytes``),
+    for a beam tile of min(Kb, 16) beams: the 8-stage ring of 64 x DP bf16
+    tiles, the mbarriers, the fp32 scores and bias row, the bf16
+    probabilities."""
+    kb, sp = min(Kb, BEAM_TILE), -(-S // 64) * 64
+    return 1024 + 8 * 128 * _build.head_instance(D) + 128 + 4 * (kb + 1) * sp + 2 * kb * (sp + 8)
+
+
+def fma_cross_chunk(Kb: int, S: int, D: int, budget: int = _build.SMEM_MAX) -> int:
+    """The keys of a score chunk of the fp32 cross-attention (K6's and K7's FMA
+    route, ``cross_attn::smem_bytes``) for a beam tile of min(Kb, 16) beams at
+    head dim D: S where the whole row fits ``budget`` bytes of shared memory,
+    else the most keys, a multiple of 64 and at most ``FMA_CHUNK``, that fit."""
+    kb, dp = min(Kb, BEAM_TILE), _build.head_instance(D)
+    fixed = 4 * (kb * dp + (256 // dp) * kb * dp + 2 * kb)
+    if fixed + 4 * kb * S <= budget:
+        return S
+    chunk = min(FMA_CHUNK, (budget - fixed) // (4 * kb) // 64 * 64)
+    if chunk < 64:
+        raise ValueError(f"cross-attention: {budget} bytes of shared memory hold no score chunk")
+    return chunk
+
+
+def cross_plan(Kb: int, S: int, D: int, fp32: bool, budget: int = _build.SMEM_MAX,
+               smem=_cross_smem) -> dict:
+    """The route of K7's (or, with K6's ``smem``, K6's) cross-attention at Kb
+    beams, S keys and head dim D in ``budget`` bytes of shared memory:
+    ``beam_tiles`` CTAs of up to 16 beams per (head, sample), and ``chunk``,
+    the keys of a score chunk: S for the whole-row route (the scores of a
+    row in shared memory: one pass over K, an exact softmax), fewer for the
+    score-chunked route (a first pass over K for each row's max and sum, a
+    second for the probabilities and the values; the bf16 route chunks by
+    its 64-key tiles)."""
+    if fp32:
+        chunk = fma_cross_chunk(Kb, S, D, budget)
+    else:
+        chunk = S if smem(Kb, S, D) <= budget else 64
+    return {"beam_tiles": -(-Kb // BEAM_TILE), "chunk": chunk}
+
+
+def stack_plan(beam_size: int, S: int, Tmax: int, cache_index: int, d: int, H: int, fp32: bool,
+               budget: int = _build.SMEM_MAX, sa_chunk: int = SA_CHUNK) -> dict:
+    """The routes a K7 step takes: the cross-attention's (``cross_plan``);
+    ``cache_chunked`` where the self-attention's positions run past its
+    chunk of ``sa_chunk`` positions (the kernels': ``SA_CHUNK``; its later
+    positions' scores computed again, a chunk of probabilities at a time);
+    ``ragged`` where d is not a multiple of 64 (the products' last 64-deep
+    chunk zero-filled and last 64-row tile masked on store, the LayerNorm's
+    row statistics over ceil(d / 64) tiles)."""
+    return dict(cross_plan(beam_size, S, d // H, fp32, budget),
+                cache_chunked=cache_index >= min(Tmax, sa_chunk), ragged=d % 64 != 0)
 
 
 def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, cache_index: int,
@@ -235,9 +290,7 @@ def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, ca
     hd = d // H
     B, S = cross_k.shape[1], cross_k.shape[3]
     f = pack["w_fc1"].shape[1]
-    if d % 64 or _cross_smem(beam_size, S, hd) > _build.SMEM_MAX:
-        raise NotImplementedError(f"decode_stack_step: d {d} (a multiple of 64), or S {S} x beams "
-                                  f"{beam_size} in the cross-attention's shared memory")
+    chunked = cross_plan(beam_size, S, hd, fp32=False)["chunk"] < S
     n_sm, n_tile = _build.sm_count(x0.device), _build.row_tile(rows)
     rtiles = -(-rows // n_tile)
     cps, part_elems, tiles = [], 1, 1
@@ -252,7 +305,7 @@ def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, ca
     scratch = torch.empty(rows * (3 * d + f), dtype=x0.dtype, device=dev)
     part = torch.empty(part_elems, dtype=torch.float32, device=dev)
     counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
-    stats = torch.empty((d // 64, rows, 2), dtype=torch.float32, device=dev)
+    stats = torch.empty((-(-d // 64), rows, 2), dtype=torch.float32, device=dev)
     x_out, k_new, v_new = out
     fn = _build.kernel_function("mk_decode_stack_step_sm90", _SIG_SM90)
     with torch.cuda.device(dev):
@@ -262,7 +315,7 @@ def _run_sm90(pack: Pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, ca
             cross_v.data_ptr(), x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             scratch.data_ptr(), part.data_ptr(), counters.data_ptr(), stats.data_ptr(),
             L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, x0.dtype),
-            n_tile, *cps, int(pdl), hd, _build.stream_of(x0))
+            n_tile, *cps, int(pdl), hd, int(chunked), _build.stream_of(x0))
     _build.check(err, "decode_stack_step")
 
 
@@ -301,6 +354,7 @@ def decode_stack_step(
     x_out = torch.empty_like(x0)
     k_new = torch.empty((L, rows, d), dtype=dt, device=x0.device)
     v_new = torch.empty_like(k_new)
+    plan = stack_plan(beam_size, S, Tmax, cache_index, d, H, fp32=kind != "sm90")
     if kind == "sm90":
         _run_sm90(*args, cache_index, beam_size, scaling, (x_out, k_new, v_new))
         decode_stack_step.launches_sm90 += 1
@@ -314,14 +368,24 @@ def decode_stack_step(
                 self_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(), x_out.data_ptr(),
                 k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
                 L, B, beam_size, H, S, Tmax, f, int(cache_index), _scalar(scaling, dt), hd,
-                _build.stream_of(x0),
+                plan["chunk"], _build.stream_of(x0),
             )
         _build.check(err, "decode_stack_step")
     decode_stack_step.launches += 1
     decode_stack_step.padded += self_k.shape[-1] != hd
+    decode_stack_step.beam_tiled += plan["beam_tiles"] > 1
+    decode_stack_step.chunked += plan["chunk"] < S
+    decode_stack_step.cache_chunked += plan["cache_chunked"]
+    decode_stack_step.ragged += plan["ragged"]
     return x_out, k_new, v_new
 
 
 decode_stack_step.launches = 0  # K7, either route
 decode_stack_step.launches_sm90 = 0  # K7 on the tensor-core route (bf16)
 decode_stack_step.padded = 0  # the launches that ran on zero-padded caches
+# the launches that ran a route of stack_plan: more than 16 beams (beam tiles),
+# the cross scores in chunks, the self cache past SA_CHUNK, d % 64 != 0
+decode_stack_step.beam_tiled = 0
+decode_stack_step.chunked = 0
+decode_stack_step.cache_chunked = 0
+decode_stack_step.ragged = 0

@@ -15,7 +15,10 @@ CPU tensors and a CUDA kernel (``csrc/topk_projection.cu``) for CUDA tensors,
 picked by dtype (``_build.route``): bf16 on the weight-streaming tensor-core
 core (``csrc/skinny_gemm_sm90.cuh``: a persistent grid, h in shared memory,
 W by TMA, wgmma), its launches also counted in
-``project_with_stats.launches_sm90``; fp32 on the FMA kernel. Unaligned bf16
+``project_with_stats.launches_sm90``; fp32 on the FMA kernel. Where no row
+tile's h fits in shared memory (``proj_plan``), h's chunks stream beside each
+W stage instead (``.streamed``; K2-q8: ``.streamed_q8``), with the sums over
+D in the same order. Unaligned bf16
 inputs raise; it never falls back from one version to another.
 
 K2-q8 (``_proj_kernel_q8``) is the same function over the int8 serving
@@ -45,9 +48,9 @@ NEG_INF = -1e9
 BLK = 128  # block-max granularity
 _DTYPES = (torch.float32, torch.bfloat16)
 _SIG = (_build.PTR,) * 5 + (_build.INT,) * 4 + (_build.PTR,)
-_SIG_SM90 = (_build.PTR,) * 5 + (_build.INT,) * 6 + (_build.PTR,)
+_SIG_SM90 = (_build.PTR,) * 5 + (_build.INT,) * 7 + (_build.PTR,)
 _SIG_Q8 = (_build.PTR,) * 6 + (_build.INT,) * 4 + (_build.PTR,)
-_SIG_Q8_SM90 = (_build.PTR,) * 6 + (_build.INT,) * 6 + (_build.PTR,)
+_SIG_Q8_SM90 = (_build.PTR,) * 6 + (_build.INT,) * 7 + (_build.PTR,)
 
 
 def _logsumexp_from_blocks(bmax: torch.Tensor, bsum: torch.Tensor) -> torch.Tensor:
@@ -77,24 +80,33 @@ def project_plain(features: torch.Tensor, w: torch.Tensor,
     return logits, bmax, _logsumexp_from_blocks(bmax, bsum)
 
 
-def _proj_smem(n_tile: int, D: int, q8: bool = False) -> int:
+def _proj_smem(n_tile: int, D: int, q8: bool = False, stream: bool = False) -> int:
     """Shared memory of the tensor-core kernel (``proj_smem``): the 4-stage
     ring of 16 KB W stages (bf16 128 × 64, or int8 128 × 128), the h rows (in
-    64-deep chunks; int8: whole 128-deep stages), the logits transpose, the
-    reductions, the mbarriers."""
-    nch = 2 * -(-D // 128) if q8 else -(-D // 64)
+    64-deep chunks; int8: whole 128-deep stages; ``stream``: only each
+    stage's chunks of the depth, beside its W tile), the logits transpose,
+    the reductions, the mbarriers."""
+    if stream:
+        nch = 4 * (2 if q8 else 1)
+    else:
+        nch = 2 * -(-D // 128) if q8 else -(-D // 64)
     return 1024 + 4 * 16384 + nch * n_tile * 128 + 2 * n_tile * (BLK + 8) + 20 * n_tile + 72
 
 
-def proj_plan(rows: int, D: int, n_sm: int, Vp: int, q8: bool = False) -> Tuple[int, int]:
-    """(row tile, CTAs) of the tensor-core kernel (int8 ``w`` if ``q8``): the
-    row tile that covers ``rows``, or the largest whose h rows fit in shared
-    memory; one CTA per SM."""
-    fits = [n for n in _build.ROW_TILES if n <= _build.row_tile(rows)
-            and _proj_smem(n, D, q8) <= _build.SMEM_MAX]
-    if not fits:
-        raise NotImplementedError(f"project_with_stats: D {D} leaves no room for h in shared memory")
-    return fits[-1], min(n_sm, Vp // BLK)
+def proj_plan(rows: int, D: int, n_sm: int, Vp: int, q8: bool = False,
+              budget: int = _build.SMEM_MAX) -> Tuple[int, int, bool]:
+    """(row tile, CTAs, stream) of the tensor-core kernel (int8 ``w`` if
+    ``q8``) in ``budget`` bytes of shared memory: h staged whole at the row
+    tile that covers ``rows``, or at the largest whose h rows fit; where none
+    fits, h streamed beside the W stages (``stream``) at the largest row tile
+    up to that cover that fits (one tile over 80 rows: W read once). One CTA
+    per SM."""
+    tiles = [n for n in _build.ROW_TILES if n <= _build.row_tile(rows)]
+    for stream in (False, True):
+        fits = [n for n in tiles if _proj_smem(n, D, q8, stream) <= budget]
+        if fits:
+            return fits[-1], min(n_sm, Vp // BLK), stream
+    raise ValueError(f"project_with_stats: {budget} bytes of shared memory hold no W stages")
 
 
 def _route(device: torch.device, features: torch.Tensor, w: torch.Tensor) -> str:
@@ -138,20 +150,22 @@ def project_with_stats(
     bsum = torch.empty_like(bmax)
     stream = _build.stream_of(features)
     outs = (logits.data_ptr(), bmax.data_ptr(), bsum.data_ptr())
+    streamed = False
     with torch.cuda.device(dev):
         if kind == "sm90":
-            n_tile, ctas = proj_plan(N, D, _build.sm_count(dev), Vp, q8)
+            n_tile, ctas, streamed = proj_plan(N, D, _build.sm_count(dev), Vp, q8)
         if q8 and kind == "sm90":
             err = _build.kernel_function("mk_project_with_stats_q8_sm90", _SIG_Q8_SM90)(
                 features.data_ptr(), w.data_ptr(), w_scale.data_ptr(), *outs, N, D, Vp, vs,
-                n_tile, ctas, stream)
+                n_tile, ctas, int(streamed), stream)
         elif q8:
             err = _build.kernel_function("mk_project_with_stats_q8", _SIG_Q8)(
                 features.data_ptr(), w.data_ptr(), w_scale.data_ptr(), *outs, N, D, Vp, vs,
                 stream)
         elif kind == "sm90":
             err = _build.kernel_function("mk_project_with_stats_sm90", _SIG_SM90)(
-                features.data_ptr(), w.data_ptr(), *outs, N, D, Vp, vs, n_tile, ctas, stream)
+                features.data_ptr(), w.data_ptr(), *outs, N, D, Vp, vs, n_tile, ctas,
+                int(streamed), stream)
         else:
             err = _build.kernel_function("mk_project_with_stats", _SIG)(
                 features.data_ptr(), w.data_ptr(), *outs, N, D, Vp, vs, stream)
@@ -159,9 +173,11 @@ def project_with_stats(
     if q8:
         project_with_stats.launches_q8 += 1
         project_with_stats.launches_q8_sm90 += kind == "sm90"
+        project_with_stats.streamed_q8 += streamed
     else:
         project_with_stats.launches += 1
         project_with_stats.launches_sm90 += kind == "sm90"
+        project_with_stats.streamed += streamed
     return logits, bmax, _logsumexp_from_blocks(bmax, bsum)
 
 
@@ -169,6 +185,8 @@ project_with_stats.launches = 0  # K2, either route
 project_with_stats.launches_sm90 = 0  # K2 on the tensor-core route (bf16)
 project_with_stats.launches_q8 = 0  # K2-q8, either route
 project_with_stats.launches_q8_sm90 = 0  # K2-q8 on the tensor-core route (bf16)
+project_with_stats.streamed = 0  # K2's tensor-core launches with h streamed beside W
+project_with_stats.streamed_q8 = 0  # K2-q8's
 
 
 def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -38,8 +38,10 @@ from musketeer_tpu.ops.decode_stack import pack_decoder_weights as jax_pack
 from musketeer_tpu.ops.decode_stack import transpose_cross_kv
 from musketeer_tpu.ops.topk_projection import project_with_stats as jax_k2
 from musketeer_tpu_torch.ops import _build
+from musketeer_tpu_torch.ops import decode_cross_attn as k6
 from musketeer_tpu_torch.ops import decode_stack as k7
 from musketeer_tpu_torch.ops import topk_projection as k2
+from tests.test_torch_port_serving_kernels import make_stack_inputs
 from tests.test_torch_port_serving_kernels import stack_inputs  # noqa: F401  (fixture)
 
 TOL = 2.0 ** -7 * 2  # chip_smoke.py's BF16_TOL
@@ -67,14 +69,73 @@ def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + 1e-5) * g + b).to(x.dtype)
 
 
+def walk_cross(q, k, v, bias, chunk: int, dt, clamp=None, floor=None, v_scale=None):
+    """The beam-shared cross-attention of K7 and K6 as their routes compute it:
+    q [B, H, Kb, D] fp32, k and v [B, H, S, D], bias [B, H, S] (the pads folded
+    in) → [B, H, Kb, D] in ``dt``. The beams run in tiles of 16. Where
+    ``chunk`` covers S, the whole row: an exact softmax; else the scores in
+    chunks of ``chunk`` keys: a first pass keeps each row's max and sum of
+    exp, rescaled as the max moves, a second forms each chunk's
+    probabilities. p = exp(w − m) / l (times ``v_scale``: K6) is rounded to
+    ``dt``; the value product sums the chunks in order. K6's numerics:
+    ``clamp`` the least max, ``floor`` the least sum."""
+    B, H, Kb, D = q.shape
+    S = k.shape[2]
+    step = chunk if chunk < S else S
+    out = torch.zeros(B, H, Kb, v.shape[-1])
+    for j0 in range(0, Kb, k7.BEAM_TILE):
+        w = q[:, :, j0:j0 + k7.BEAM_TILE] @ k.float().transpose(-1, -2) + bias[:, :, None, :]
+        m = torch.full(w.shape[:-1], -torch.inf if clamp is None else clamp)
+        l = torch.zeros(w.shape[:-1])
+        for c0 in range(0, S, step):
+            wc = w[..., c0:c0 + step]
+            mn = torch.maximum(m, wc.amax(-1))
+            l = l * torch.exp(m - mn) + torch.exp(wc - mn[..., None]).sum(-1)
+            m = mn
+        if floor is not None:
+            l = l.clamp_min(floor)
+        p = torch.exp(w - m[..., None]) / l[..., None]
+        if v_scale is not None:
+            p = p * v_scale[:, :, None, :]
+        p = p.to(dt).float()
+        o = torch.zeros(out[:, :, j0:j0 + k7.BEAM_TILE].shape)
+        for c0 in range(0, S, step):
+            o = o + p[..., c0:c0 + step] @ v[:, :, c0:c0 + step].float()
+        out[:, :, j0:j0 + k7.BEAM_TILE] = o
+    return out.to(dt)
+
+
+def walk_self(q, kc, vc, sb, idx: int, chunk: int, dt):
+    """K7's self-attention of one step as its routes compute it: q [rows, H, hd]
+    fp32 (scaled), the cache kc, vc [rows, H, Tmax, hd] fp32 with the step's
+    K/V at idx, sb [rows, H, Tmax]; the positions after idx masked. The
+    scores' max and sum of exp over positions 0..idx, then the probabilities
+    rounded to ``dt`` and the values summed in position order, ``chunk``
+    positions at a time (the shared memory of a warp)."""
+    w = (q[:, :, None, :] @ kc[:, :, :idx + 1].transpose(-1, -2))[:, :, 0] + sb[:, :, :idx + 1]
+    m = w.amax(-1, keepdim=True)
+    l = torch.exp(w - m).sum(-1, keepdim=True)
+    o = torch.zeros(q.shape)
+    for c0 in range(0, idx + 1, chunk):
+        p = (torch.exp(w[..., c0:c0 + chunk] - m) / l).to(dt).float()
+        o = o + (p[:, :, None, :] @ vc[:, :, c0:c0 + p.shape[-1]])[:, :, 0]
+    return o.to(dt)
+
+
 def walk_stack(pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, idx, beam_size,
-               scaling, cps):
-    """K7 as the tensor-core route computes it → (x_out, k_new, v_new)."""
+               scaling, cps, budget=_build.SMEM_MAX, sa_chunk=k7.SA_CHUNK):
+    """K7 as the tensor-core route (fp32: the FMA route) computes it → (x_out,
+    k_new, v_new); the cross-attention's route as ``k7.stack_plan`` picks it
+    in ``budget`` bytes of shared memory, the self-attention's probabilities
+    ``sa_chunk`` positions at a time. A width d that is not a multiple of 64
+    has a short last 64-deep chunk (zeros past d, as TMA fills them)."""
     rows, d = x0.shape
     L, _, H, Tmax, hd = self_k.shape
     B, dt = rows // beam_size, x0.dtype
     s = k7._scalar(scaling, dt)
     rnd = lambda v: v.to(dt)
+    S = cross_k.shape[3]
+    chunk = k7.stack_plan(beam_size, S, Tmax, idx, d, H, dt == torch.float32, budget)["chunk"]
 
     def product(a, w, bias, k_cps, scale=None, gelu=False, residual=None):
         v = rnd(split_dot(a, w, k_cps))
@@ -88,7 +149,6 @@ def walk_stack(pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, idx, be
     c_qkv, c_dd, c_fc1, c_fc2 = cps
     k_new = torch.empty((L, rows, d), dtype=dt)
     v_new = torch.empty_like(k_new)
-    later = torch.arange(Tmax) > idx
     x = x0
     for l in range(L):
         ln, bm = pack["ln"][l], pack["b_misc"][l]
@@ -98,16 +158,11 @@ def walk_stack(pack, x0, sbias, cbias, self_k, self_v, cross_k, cross_v, idx, be
         kc, vc = self_k[l].float(), self_v[l].float()
         kc[:, :, idx] = kn.float().view(rows, H, hd)
         vc[:, :, idx] = vn.float().view(rows, H, hd)
-        qf = (q * s).float().view(rows, H, 1, hd)
-        w = (qf @ kc.transpose(-1, -2))[:, :, 0] + sbias[l]
-        probs = rnd(torch.softmax(w.masked_fill(later, k7.NEG_INF), dim=-1))
-        o = rnd((probs.float()[:, :, None, :] @ vc)[:, :, 0])
+        o = walk_self((q * s).float().view(rows, H, hd), kc, vc, sbias[l], idx, sa_chunk, dt)
         x = product(o.reshape(rows, d), pack["w_so"][l], bm[0], c_dd, residual=x)
         q2 = product(ln_rows(x, ln[2], ln[3]), pack["w_cq"][l], bm[1], c_dd, scale=s)
         qb = q2.float().view(B, beam_size, H, hd).transpose(1, 2)
-        w2 = qb @ cross_k[l].float().transpose(-1, -2) + cbias[:, :, None, :]
-        p2 = rnd(torch.softmax(w2, dim=-1))
-        o2 = rnd(p2.float() @ cross_v[l].float())
+        o2 = walk_cross(qb, cross_k[l], cross_v[l], cbias, chunk, dt)
         x = product(o2.transpose(1, 2).reshape(rows, d), pack["w_co"][l], bm[2], c_dd, residual=x)
         h1 = product(ln_rows(x, ln[4], ln[5]), pack["w_fc1"][l], pack["b_fc1"][l], c_fc1,
                      gelu=True)
@@ -166,6 +221,71 @@ def test_fp32_stack_walk_is_the_plain_version(stack_inputs, cache_index, split):
     for name, a, b in zip(OUTS, out, ref):
         err = float((a - b).abs().max() / b.abs().max())
         assert err <= 1e-5, f"{name} cache_index {cache_index} {split}: rel err {err}"
+
+
+# past today's routes at a small size: 18 beams (two beam tiles), S 200 in
+# score chunks of 64 keys (a 25 000-byte budget holds no whole row), the
+# self-attention over Tmax 40 in chunks of 16 positions, d 96 = 64 + 32 (3
+# heads of 32: a short last chunk in every product)
+TILED = dict(L=2, B=2, Kb=18, H=3, hd=32, f=384, Tmax=40, S=200)
+TILED_BUDGET, TILED_SA_CHUNK, TILED_CPS = 25000, 16, (1, 2, 1, 4)
+
+
+@pytest.fixture(scope="module")
+def tiled_inputs():
+    return make_stack_inputs(**TILED, seed=5)
+
+
+@pytest.fixture(scope="module")
+def jax_tiled(tiled_inputs):
+    """The Pallas K7 in interpret mode on the tiled shape's inputs in bf16."""
+    s, x = tiled_inputs, tiled_inputs["x"]
+    bf = lambda n: jnp.asarray(x[n], jnp.bfloat16)
+    kt, vt = transpose_cross_kv(bf("cross_k"), bf("cross_v"))
+    pack = jax_pack(jax.tree.map(jnp.asarray, s["layers"]), jnp.bfloat16)
+    return {idx: jax_k7(pack, bf("x0"), jnp.asarray(x["sbias"]), jnp.asarray(x["cbias"]),
+                        bf("self_k"), bf("self_v"), kt, vt, jnp.int32(idx), beam_size=s["Kb"],
+                        scaling=s["scaling"])
+            for idx in (5, 39)}
+
+
+def test_tiled_shape_takes_the_new_routes():
+    """The tiled shape's plan in its budget: beam tiles, score chunks, cache
+    chunks from position 16, a ragged width; in the card's budget the whole
+    row of the bf16 route still fits (so only the budget moves it)."""
+    d, S, Kb = TILED["H"] * TILED["hd"], TILED["S"], TILED["Kb"]
+    for fp32 in (False, True):
+        plan = k7.stack_plan(Kb, S, TILED["Tmax"], 39, d, TILED["H"], fp32, TILED_BUDGET,
+                             TILED_SA_CHUNK)
+        assert plan == dict(beam_tiles=2, chunk=64, cache_chunked=True, ragged=True)
+        assert not k7.stack_plan(Kb, S, TILED["Tmax"], 39, d, TILED["H"], fp32)["cache_chunked"]
+        assert k7.cross_plan(Kb, S, TILED["hd"], fp32)["chunk"] == S
+
+
+@pytest.mark.parametrize("cache_index", [5, 39])
+def test_bf16_tiled_stack_walk_matches_jax_kernel(tiled_inputs, jax_tiled, cache_index):
+    s = tiled_inputs
+    pack, args = _port_args(s, torch.bfloat16)
+    out = walk_stack(pack, *args, cache_index, s["Kb"], s["scaling"], TILED_CPS, TILED_BUDGET,
+                     TILED_SA_CHUNK)
+    for name, a, b in zip(OUTS, out, jax_tiled[cache_index]):
+        b = np.asarray(b.astype(jnp.float32))
+        assert a.dtype == torch.bfloat16 and tuple(a.shape) == b.shape, name
+        err = float(np.abs(a.float().numpy() - b).max())
+        lim = TOL * max(1.0, float(np.abs(b).max()))
+        assert err <= lim, f"{name} cache_index {cache_index}: max abs err {err} > {lim}"
+
+
+@pytest.mark.parametrize("cache_index", [5, 39])
+def test_fp32_tiled_stack_walk_is_the_plain_version(tiled_inputs, cache_index):
+    s = tiled_inputs
+    pack, args = _port_args(s, torch.float32)
+    out = walk_stack(pack, *args, cache_index, s["Kb"], s["scaling"], TILED_CPS, TILED_BUDGET,
+                     TILED_SA_CHUNK)
+    ref = k7.decode_stack_plain(pack, *args, cache_index, s["Kb"], s["scaling"])
+    for name, a, b in zip(OUTS, out, ref):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 1e-5, f"{name} cache_index {cache_index}: rel err {err}"
 
 
 def walk_proj(h: torch.Tensor, w: torch.Tensor, vocab_size: int):
@@ -257,6 +377,44 @@ def test_split_and_row_tile_plans():
     # than MAX_SPLITS splits (100 chunks: 7)
     assert k7.split_plan(64, 64 * 100, 80, 1) == k7.MAX_CPS
     assert -(-100 // k7.MAX_CPS) == 7 > k7.MAX_SPLITS
-    assert k2.proj_plan(80, 768, 132, 59520) == (80, 132)
-    assert k2.proj_plan(80, 1024, 132, 59520) == (48, 132)  # h of 80 rows would not fit
-    assert k2.proj_plan(10, 768, 132, 1024) == (16, 8)
+    assert k2.proj_plan(80, 768, 132, 59520) == (80, 132, False)
+    assert k2.proj_plan(80, 1024, 132, 59520) == (48, 132, False)  # h of 80 rows would not fit
+    assert k2.proj_plan(10, 768, 132, 1024) == (16, 8, False)
+
+
+def test_plans_take_every_phase27_shape():
+    """Every shape of chip_smoke.py's phase 27 (a) gets a route, none raises;
+    the bf16 cross-attention past the whole row's fit takes 64-key chunks, the
+    FMA route past its own fit its largest chunk; today's main shapes (phases
+    4, 10, 11 and 12) keep the routes they have."""
+    import chip_smoke as cs
+
+    for B, Kb, S, D in cs.SHAPES_CROSS + cs.SHAPES_K6_LONG + cs.SHAPES_K7_LONG:
+        for fp32 in (False, True):
+            for plan, smem in ((k7.cross_plan(Kb, S, D, fp32), k7._cross_smem),
+                               (k6.plan(Kb, S, D, fp32), k6.sm90_smem)):
+                assert plan["beam_tiles"] == -(-Kb // 16)
+                if fp32:
+                    assert plan["chunk"] == k7.fma_cross_chunk(Kb, S, D)
+                else:
+                    fits = smem(Kb, S, D) <= _build.SMEM_MAX
+                    assert plan["chunk"] == (S if fits else 64)
+    for Tmax in cs.SHAPES_TMAX:
+        for idx in (0, 2047, 2048, Tmax - 1):
+            plan = k7.stack_plan(cs.BEAM, 908, Tmax, idx, 768, 12, False)
+            assert plan["cache_chunked"] == (idx >= k7.SA_CHUNK)
+    for H, hd in cs.SHAPES_WIDTHS:
+        assert k7.stack_plan(cs.BEAM, 908, 17, 16, H * hd, H, False)["ragged"]
+    for D in cs.SHAPES_K2_D:
+        for q8 in (False, True):
+            assert k2.proj_plan(80, D, 132, 59520, q8) == (80, 132, True)
+    # the widest D whose h rows still fit at some row tile keeps h whole
+    assert k2.proj_plan(80, 4992, 132, 59520) == (16, 132, False)
+    assert k2.proj_plan(80, 5056, 132, 59520) == (80, 132, True)
+    # today's shapes: K6 B16 H12 Kb5 S908, K7 rows 80 S908 Tmax 17, K2 N80 D768
+    for fp32 in (False, True):
+        assert k6.plan(5, 908, 64, fp32) == {"beam_tiles": 1, "chunk": 908}
+        assert k7.stack_plan(5, 908, 17, 16, 768, 12, fp32) == dict(
+            beam_tiles=1, chunk=908, cache_chunked=False, ragged=False)
+    for q8 in (False, True):
+        assert k2.proj_plan(80, 768, 132, 59520, q8) == (80, 132, False)

@@ -329,8 +329,8 @@ def test_shared_memory_plans_fit_at_ofa_huge():
     # K7's cross-attention at rows 80, S908
     assert k7._cross_smem(5, 908, HD) <= _build.SMEM_MAX
     # K2 and K2-q8 at d 1280: h of 80 rows no longer fits, 48 does
-    assert k2.proj_plan(80, 1280, 132, 59520) == (48, 132)
-    assert k2.proj_plan(80, 1280, 132, 59520, q8=True) == (48, 132)
+    assert k2.proj_plan(80, 1280, 132, 59520) == (48, 132, False)
+    assert k2.proj_plan(80, 1280, 132, 59520, q8=True) == (48, 132, False)
 
 
 def test_k6_head_dim_permutation_at_hd80():

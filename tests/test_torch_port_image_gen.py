@@ -17,6 +17,7 @@ attention in Pallas interpret mode, the port's plain K1). Values are held to
 import base64
 import dataclasses
 import io
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -397,17 +398,22 @@ def models():
                 params_t=from_jax(tree, cfg_t, "cpu", torch.float32))
 
 
-@pytest.mark.parametrize("mode", ["beam", "sampling_top1"])
+@pytest.mark.parametrize("mode", ["beam", "sampling_top1", "beam18_stack"])
 def test_gen_code_search_matches_jax(models, mode):
     """``gen_code`` through the general body on one seeded encoder output: the
     decoder on image positions (code masks), specials banned until the last
     step, the code band from ``constraint_range``; with top-k 1 the sampling
-    chains' bookkeeping."""
+    chains' bookkeeping; at beam 18 with ``decode_stack_kernel`` the port's
+    steps through K7's route (past 16 beams: two beam tiles on the card)."""
     m, v = models, default_vocab()
     gen = dict(beam_size=3, max_len_b=16, min_len=16, gen_code=True,
                constraint_range=(v.code_start, v.code_start + v.code_dict_size))
+    cfg_t = m["cfg_t"]
     if mode == "sampling_top1":
         gen.update(sampling=True, sampling_topk=1)
+    if mode == "beam18_stack":
+        gen.update(beam_size=18)
+        cfg_t = dataclasses.replace(cfg_t, decode_stack_kernel=True)
     rs = np.random.RandomState(10)
     x, pos = (rs.randn(2, 12, m["cfg_t"].embed_dim).astype(np.float32) for _ in range(2))
     pad = np.zeros((2, 12), bool)
@@ -418,8 +424,10 @@ def test_gen_code_search_matches_jax(models, mode):
     kt = dict(rng=torch.Generator().manual_seed(3)) if mode == "sampling_top1" else {}
     tj, sj = jax_beam_search(m["params_j"], m["cfg_j"], JaxGenerationConfig(**gen), enc_j,
                              max_len=16, code_masks_value=True, **kj)
-    tt, st = beam_search(m["params_t"], m["cfg_t"], GenerationConfig(**gen), enc_t, max_len=16,
-                         code_masks_value=True, **kt)
+    with mock.patch.object(ofa, "decode_stack_step", wraps=ofa.decode_stack_step) as k7:
+        tt, st = beam_search(m["params_t"], cfg_t, GenerationConfig(**gen), enc_t, max_len=16,
+                             code_masks_value=True, **kt)
+    assert k7.call_count == (17 if mode == "beam18_stack" else 0)  # K7's route, every step
     tj = np.asarray(tj)
     np.testing.assert_array_equal(tt.numpy(), tj)
     _close(st, sj)

@@ -35,7 +35,7 @@ from musketeer_tpu.ops.topk_projection import project_with_stats as jax_k2
 from musketeer_tpu_torch.ops import _build
 from musketeer_tpu_torch.ops import decode_cross_attn as k6
 from musketeer_tpu_torch.ops import topk_projection as k2
-from tests.test_torch_port_decode_walk import walk_stats
+from tests.test_torch_port_decode_walk import walk_cross, walk_stats
 from tests.test_torch_port_serving_kernels import K6_NAMES, _k6_inputs, _q8
 
 TOL = 2.0 ** -7 * 2  # chip_smoke.py's BF16_TOL
@@ -62,8 +62,23 @@ def _lane_sum(e: torch.Tensor) -> torch.Tensor:
     return acc[..., 0]
 
 
-def walk_k6(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad):
-    """K6 as the tensor-core route computes it → [B, H, Kb, D] in q's dtype."""
+def walk_k6(q, k_i8, v_i8, k_scale, v_scale, bias, enc_pad, budget=_build.SMEM_MAX):
+    """K6 as the tensor-core route (fp32: the FMA route) computes it → [B, H,
+    Kb, D] in q's dtype, on the route ``k6.plan`` picks in ``budget`` bytes
+    of shared memory: past 16 beams or the whole row's fit, ``walk_cross``'s
+    beam tiles and score chunks with K6's clamp, floor and v_scale."""
+    B, H, Kb, D = q.shape
+    S = k_i8.shape[2]
+    plan = k6.plan(Kb, S, D, q.dtype == torch.float32, budget)
+    if plan["beam_tiles"] > 1 or plan["chunk"] < S:
+        pad = enc_pad[:, None, :]
+        ks = torch.where(pad, 0.0, k_scale.float())
+        bi = torch.where(pad, k6.NEG_INF, bias.float())
+        # w = dot · k_scale + bias as one product: k_scale folded into the keys
+        # (exact: an int8 times an fp32 scale), the fp32 sums in another order
+        keys = k_i8.float() * ks[..., None]
+        return walk_cross(q.float(), keys, v_i8, bi, plan["chunk"], q.dtype, clamp=-1e8,
+                          floor=1e-38, v_scale=v_scale.float())
     dot = q.float() @ k_i8.float().transpose(-1, -2)  # [B, H, Kb, S]: exact products, fp32 sums
     pad = enc_pad[:, None, :]
     ks = torch.where(pad, 0.0, k_scale.float())[:, :, None, :]
@@ -114,15 +129,24 @@ K6_CASES = {
     "S37, Kb1": dict(Kb=1, S=37, full_pad=None, seed=1),
     "S150, Kb5, a fully padded sample": dict(Kb=5, S=150, full_pad=0, seed=2),
     "S130, Kb16": dict(B=2, Kb=16, S=130, full_pad=None, seed=3),
+    # two beam tiles, the scores in chunks of 64 keys (no whole row in 25 000 bytes)
+    "S200, Kb18, H2, tiled": dict(B=2, Kb=18, S=200, full_pad=1, seed=4, budget=25000),
 }
+
+
+def _case(spec: dict):
+    """A case's inputs and the walk's budget."""
+    spec = dict(spec)
+    budget = spec.pop("budget", _build.SMEM_MAX)
+    return _k6_inputs(**spec), budget
 
 
 @pytest.mark.parametrize("case", list(K6_CASES))
 def test_bf16_k6_walk_matches_jax_kernel(case):
     spec = K6_CASES[case]
-    x = _k6_inputs(**spec)
+    x, budget = _case(spec)
     args = [_bf16(x["q"])] + [torch.from_numpy(x[n]) for n in K6_NAMES[1:]]
-    out = walk_k6(*args)
+    out = walk_k6(*args, budget=budget)
     ref = np.asarray(jax_k6(jnp.asarray(x["q"], jnp.bfloat16),
                             *(jnp.asarray(x[n]) for n in K6_NAMES[1:])).astype(jnp.float32))
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == ref.shape
@@ -139,9 +163,9 @@ def test_bf16_k6_walk_matches_jax_kernel(case):
 
 @pytest.mark.parametrize("case", list(K6_CASES))
 def test_fp32_k6_walk_is_the_plain_version(case):
-    x = _k6_inputs(**K6_CASES[case])
+    x, budget = _case(K6_CASES[case])
     args = [torch.from_numpy(x[n]) for n in K6_NAMES]
-    out, ref = walk_k6(*args), k6.decode_cross_attention_int8_plain(*args)
+    out, ref = walk_k6(*args, budget=budget), k6.decode_cross_attention_int8_plain(*args)
     assert out.dtype == torch.float32
     err = float((out - ref).abs().max() / ref.abs().max())
     assert err <= 1e-5, f"{case}: rel err {err}"
@@ -205,13 +229,15 @@ def test_q8_plan_and_shared_memory():
     assert k2._proj_smem(80, 768, q8=True) == k2._proj_smem(80, 768) <= _build.SMEM_MAX
     # a depth of 64 past the last whole stage: one more zeroed chunk of N rows
     assert k2._proj_smem(16, 64, q8=True) - k2._proj_smem(16, 64) == 16 * 128
-    assert k2.proj_plan(80, 768, 132, 59520, q8=True) == (80, 132)
-    assert k2.proj_plan(80, 1024, 132, 59520, q8=True) == (48, 132)  # h of 80 rows would not fit
-    assert k2.proj_plan(10, 256, 132, 1024, q8=True) == (16, 8)
+    assert k2.proj_plan(80, 768, 132, 59520, q8=True) == (80, 132, False)
+    assert k2.proj_plan(80, 1024, 132, 59520, q8=True) == (48, 132, False)  # h of 80 rows would not fit
+    assert k2.proj_plan(10, 256, 132, 1024, q8=True) == (16, 8, False)
 
 
 def test_k6_shared_memory_leaves_two_ctas_an_sm():
     per_sm = 233472  # an SM's shared memory; each CTA also reserves 1 KB
     assert 2 * (k6.sm90_smem(5, 908) + 1024) <= per_sm  # serving A: 192 CTAs in one wave
-    assert k6.sm90_smem(k6.MAX_BEAMS, 908) <= _build.SMEM_MAX
-    assert k6.sm90_smem(k6.MAX_BEAMS, 4096) > _build.SMEM_MAX  # the wrapper raises there
+    assert k6.sm90_smem(k6.BEAM_TILE, 908) <= _build.SMEM_MAX
+    # past the whole row's fit the scores run in chunks of the 64-key tiles
+    assert k6.sm90_smem(k6.BEAM_TILE, 4096) > _build.SMEM_MAX
+    assert k6.plan(k6.BEAM_TILE, 4096, 64, fp32=False) == {"beam_tiles": 1, "chunk": 64}

@@ -99,12 +99,12 @@ def test_k6_plain_matches_jax_kernel(case):
         assert (out[spec["full_pad"]] == 0).all()
 
 
-@pytest.fixture(scope="module")
-def stack_inputs():
-    """A 2-layer stack (d 256, H 4, f 512) at rows 6 = 2 samples × 3 beams."""
-    L, B, Kb, H, hd, f, Tmax, S = 2, 2, 3, 4, 64, 512, 6, 24
+def make_stack_inputs(L, B, Kb, H, hd, f, Tmax, S, seed=4):
+    """K7's inputs: an L-layer stack (d = H·hd) at rows = B samples × Kb beams,
+    the JAX layers and the port's, the step's tensors; sample 0's last 5
+    keys padded (folded into the bias)."""
     d, rows = H * hd, B * Kb
-    rng = np.random.RandomState(4)
+    rng = np.random.RandomState(seed)
     w = lambda *s: (rng.randn(*s) * 0.05).astype(np.float32)
     lin = lambda din, dout: {"w": w(L, din, dout), "b": w(L, dout)}
     ln = lambda: {"scale": (1 + rng.randn(L, d) * 0.1).astype(np.float32), "bias": w(L, d)}
@@ -128,6 +128,12 @@ def stack_inputs():
         a[i].T if a.ndim == 3 else a[i])), layers) for i in range(L)]
     return dict(layers=layers, port_layers=port_layers, x=x, Kb=Kb, Tmax=Tmax,
                 scaling=float(hd * 2.0) ** -0.5)
+
+
+@pytest.fixture(scope="module")
+def stack_inputs():
+    """A 2-layer stack (d 256, H 4, f 512) at rows 6 = 2 samples × 3 beams."""
+    return make_stack_inputs(L=2, B=2, Kb=3, H=4, hd=64, f=512, Tmax=6, S=24)
 
 
 @pytest.mark.parametrize("cache_index", [0, 2, 5])
