@@ -18,14 +18,17 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --huge-only    # phases 1, 2 and 25 (ofa_huge, head dim 80)
     python3 chip_smoke.py --head-dims-only  # phases 1, 2 and 26 (head dims 8 to 128)
     python3 chip_smoke.py --shapes-only  # phases 1, 2 and 27 (beams, S, Tmax, d, D past today's)
+    python3 chip_smoke.py --wide-heads-only  # phases 1, 2 and 28 (head dims 130 to 256)
     python3 chip_smoke.py --k4-only      # phases 1, 2 and K3/K4 at head dims 64 and 80, timed
+    python3 chip_smoke.py --instances-only  # phases 1, 2 and today's instances' device times
 
-``--train-only``, ``--decode-only``, ``--k8-only`` and ``--k4-only`` also run
-against an older tree's package when this file is copied into that tree's
-root, so that one call can time the training step, or K2, K2-q8, K6, K7 and
-the caption slices, or K8, or K3/K4 at the encoder train shape at head dims
-64 and 80 (phase 7's and phase 25's calls), of both trees on one card; they
-print no result line.
+``--train-only``, ``--decode-only``, ``--k8-only``, ``--k4-only`` and
+``--instances-only`` also run against an older tree's package when this file
+is copied into that tree's root, so that one call can time the training
+step, or K2, K2-q8, K6, K7 and the caption slices, or K8, or K3/K4 at the
+encoder train shape at head dims 64 and 80 (phase 7's and phase 25's calls),
+or the device time of K1, K4, K6 and K7 at head dim 64 and of K1, K3-K7 at
+128, of both trees on one card; they print no result line.
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -334,12 +337,25 @@ Phases; any failure raises and the script exits non-zero:
     ``--shapes-only`` in a process of its own and reads its
     ``[shapes kernels]`` line; after phase 12 it checks that phases 4, 10,
     11 and 12 took none of these routes.
+28. every head dim past 128 up to 256 (the instances 192 and 256: the
+    tensor-core attention core's and K4's outputs in column halves of 128,
+    counted in ``.col_split``; K6's and K7's shallower rings, counted in
+    ``.wide``): (a) phase 26 (a)'s calls at head dims 130 (not a multiple of
+    8), 136 and 200 (not of 16: K6's padded copy), 160, 192 and 256, at
+    ~768 / D heads; K6 and K7 at 256 past the bf16 whole row's fit (16
+    beams, S 1772: the score-chunked route); K3/K4 at 256 on a causal case
+    with a fully masked row; the instance and the routes checked from the
+    counters; (b) ``ofa_base`` split into 4 heads of 192 (``ofa_base_hd192``)
+    and into 3 of 256 (``ofa_base_hd256``) as phase 26 (b). The default run
+    starts phase 28 as ``--wide-heads-only`` in a process of its own and
+    reads its ``[wide heads kernels]`` line; after phases 12 and 16 it
+    checks that phases 3-16 took no route past 128.
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
 stage chain, each eval task, each CLI run of phase 19, each part of phases
 20 and 21, each run of phase 24, phase 25's slices, K5 calls and timed
-updates, and phase 26's slices and steps) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+updates, and phases 26's and 28's slices and steps) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
 the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
 Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
@@ -361,9 +377,10 @@ without and with ``--remat``; K1's, K3's and K4's ``axes_launches``: theirs
 in each run of phase 24. Each of K1, K3–K7 (K5 twice) also carries ``hd80``,
 and K2 and K2-q8 ``d1280``: phase 25's error, times, bound and library time
 at ``ofa_huge``'s shapes and the launches on its main paths; and
-``head_dims``: phase 26's, by head dim (its instance in ``instance``; the
-launches on the path of the configuration of that head dim, 0 where no
-configuration has it); K2's, K2-q8's, K6's and K7's ``shapes``: phase
+``head_dims``: phase 26's and 28's, by head dim (its instance in
+``instance``; the launches on the path of the configuration of that head
+dim, 0 where no configuration has it; K6's and K7's score-chunked cases at
+256 under ``"256 <shape> <dtype>"``); K2's, K2-q8's, K6's and K7's ``shapes``: phase
 27's cases (error, times, bound, the routes they took), their launches on
 the 672² caption paths and (K6, K7) on best-of-24 image generation.
 """
@@ -402,6 +419,9 @@ BF16_OPS_PER_MS = 989e12 / 1e3
 # output's magnitude
 BF16_TOL = 2.0 ** -7 * 2
 FP32_TOL = 1e-4  # fp32: different summation orders only
+# the fp32 outputs of bf16 calls (K4's drel): None holds them to FP32_TOL, as
+# phases 7 and 26 do; phase 28 sets 1e-4 (see WH_DREL_TOL)
+BF16_FP32_OUT_TOL = None
 # K3/K4 at the training step's attention shapes (R-Drop doubles batch 2)
 K34_SHAPES = {
     "encoder": dict(shape=dict(B=4, H=12, T=980, S=980, D=64)),
@@ -1094,13 +1114,15 @@ def _check_k4(tag: str, args, kw: dict):
     ref = kb.flash_attention_bwd_plain(*args, **kw)
     torch.cuda.synchronize()
     errs = {}
+    f32_tol = FP32_TOL if args[0].dtype == torch.float32 or BF16_FP32_OUT_TOL is None \
+        else BF16_FP32_OUT_TOL
     for gname, a, b in zip(GRAD_NAMES, grads, ref):
         if b is None:
             if a is not None:
                 raise AssertionError(f"K4 {tag}: {gname} without rel")
             continue
         errs[gname] = _max_err(a, b)
-        lim = (FP32_TOL if b.dtype == torch.float32 else tol) * max(1.0, float(b.abs().max()))
+        lim = (f32_tol if b.dtype == torch.float32 else tol) * max(1.0, float(b.abs().max()))
         if not (errs[gname] <= lim and bool(torch.isfinite(a).all())):
             raise AssertionError(f"K4 {tag}: {gname} err {errs[gname]} > {lim}")
     msg = ""
@@ -1322,7 +1344,8 @@ def phase_train(tree, smi: str, routes: frozenset = SM90_ROUTES, model: dict = N
 
 # the demangled names of K3's and K4's CUDA kernels, on either core (K1 shares
 # K3's kernels but runs 0 times in a training step)
-K3_KERNELS = ("flash_fwd::kernel<",) + tuple(f"sm90::kernel<{dp}, false" for dp in (32, 64, 80, 128))
+K3_KERNELS = ("flash_fwd::kernel<",) + tuple(f"sm90::kernel<{dp}, false"
+                                             for dp in (32, 64, 80, 128, 192, 256))
 K4_KERNELS = ("dsum_kernel", "bwd_kv", "bwd_q", "drel_sum")
 
 
@@ -1709,13 +1732,33 @@ def phase_profile(tree, arch: str = "ofa_base") -> None:
             f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:6]))
 
 
+def _profiled_device_events(run, activities) -> list:
+    """The device events of one torch.profiler session around ``run()``. A
+    session that records none (CUPTI now and then returns an empty trace on
+    the card, even in a fresh process) is run once more, logged; a second
+    empty one raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            run()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return dev
+        log("[profiler] a session recorded no device operations" +
+            ("; running it once more" if attempt == 0 else ""))
+    raise AssertionError("torch.profiler recorded no device operations")
+
+
 def _device_host_ms(fn, iters: int) -> tuple:
     """Where back-to-back calls of ``fn`` spend their time: the device time of
     the operations they launch (torch.profiler) and the host time of the calls
     alone (perf_counter around the loop, before the closing synchronize), each
     per call, after two warm-ups. CUDA events see the larger of the two."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     fn()
@@ -1725,13 +1768,12 @@ def _device_host_ms(fn, iters: int) -> tuple:
         fn()
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise AssertionError("torch.profiler recorded no device operations")
+
+    dev = _profiled_device_events(run, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters, host_ms
 
 
@@ -4317,7 +4359,13 @@ HUGE_K7 = dict(L=12, B=BATCH, Kb=BEAM, H=16, f=5120, Tmax=MAX_LEN + 1, S=908)
 # template argument (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh, decode_attn_sm90.cuh,
 # decode_cross_attn.cu), and their instances (csrc/common.cuh::with_head_dim)
 HEAD_DIM_KERNELS = ("2mk4sm90", "11decode_attn", "cross_attn_i8_sm90_kernel")
-HEAD_DIM_INSTANCES = (32, 64, 80, 128)
+HEAD_DIM_INSTANCES = (32, 64, 80, 128, 192, 256)
+# the instances past 128 (phase 28) are reported for the FMA kernels too:
+# flash_fwd.cuh's and flash_attention.cu's forwards, flash_attention_bwd.cu's
+# two backward kernels, cross_attn.cuh's, and K7's self-attentions
+WIDE_INSTANCES = (192, 256)
+WIDE_KERNELS = ("9flash_fwd6kernel", "10cross_attn6kernel", "bwd_kv_kernel", "bwd_q_kernel",
+                "self_attn", "_GLOBAL__N_16kernel")
 
 
 def _ptxas_instances(text: str) -> list:
@@ -4329,7 +4377,8 @@ def _ptxas_instances(text: str) -> list:
         if "Compiling entry function" in line:
             m = line.split("'")[1] if "'" in line else line
             dp = next((n for n in HEAD_DIM_INSTANCES if f"ILi{n}E" in m), None)
-            name = m if any(k in m for k in HEAD_DIM_KERNELS) and dp else None
+            kernels = HEAD_DIM_KERNELS + (WIDE_KERNELS if dp in WIDE_INSTANCES else ())
+            name = m if any(k in m for k in kernels) and dp else None
         elif name and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
             spills = nums[1:3]
@@ -4463,25 +4512,31 @@ def phase_huge(smi: str) -> tuple:
 HUGE_TAG = "[huge kernels] "
 
 
-def _huge_in_own_process() -> tuple:
-    """Phase 25 in the default run: ``--huge-only`` in a process of its own
-    (the library already built), its output printed here. After the earlier
-    phases' some forty torch.profiler sessions, one more in the same process
-    recorded no device operations on the card; a fresh process also starts
-    phase 25 with the card's memory free. → its (stats by kernel, launches by
-    kernel) from its ``HUGE_TAG`` line."""
+def _phase_in_own_process(phase: int, flag: str, tag: str) -> dict:
+    """Phase ``phase`` in the default run: this script with ``flag`` in a
+    process of its own (the library already built), its output printed here.
+    After the earlier phases' some forty torch.profiler sessions, one more in
+    the same process recorded no device operations on the card; a fresh
+    process also starts the phase with the card's memory free. → the entries
+    of its ``tag`` line."""
     import os
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--huge-only"],
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
                          capture_output=True, text=True)
     print(run.stdout, end="", flush=True)
     print(run.stderr, end="", file=sys.stderr, flush=True)
     if run.returncode != 0:
-        raise AssertionError(f"phase 25 (--huge-only) exited with {run.returncode}")
-    line = next(l for l in run.stdout.splitlines() if l.startswith(HUGE_TAG))
-    entries = json.loads(line[len(HUGE_TAG):])
+        raise AssertionError(f"phase {phase} ({flag}) exited with {run.returncode}")
+    line = next(l for l in run.stdout.splitlines() if l.startswith(tag))
+    return json.loads(line[len(tag):])
+
+
+def _huge_in_own_process() -> tuple:
+    """Phase 25 (``--huge-only``) in a process of its own. → its (stats by
+    kernel, launches by kernel) from its ``HUGE_TAG`` line."""
+    entries = _phase_in_own_process(25, "--huge-only", HUGE_TAG)
     return ({k: {n: x for n, x in v.items() if n != "launches"} for k, v in entries.items()},
             {k: {k: v["launches"]} for k, v in entries.items()})
 
@@ -4578,13 +4633,13 @@ def _hd_k7(g, D: int, H: int, L: int) -> dict:
     return stats
 
 
-def _hd_kernels(g, D: int, on_path: bool) -> tuple:
+def _hd_kernels(g, D: int, on_path: bool, H: int = None) -> tuple:
     """Phase 26 (a) at head dim D, through phases 3, 7, 11, 12 and 16's
-    functions: H ~ 768 / D heads (``_heads_for``); at a head dim of (b)'s
-    configurations (``on_path``) the main shapes at their full batch and all
-    of the small cases, else batch 4 and a few small cases. → (stats by
-    kernel, K5's launches on its main path)."""
-    H = _heads_for(D)
+    functions: H heads, by default ~ 768 / D (``_heads_for``); at a head dim
+    of (b)'s configurations (``on_path``) the main shapes at their full batch
+    and all of the small cases, else batch 4 and a few small cases. → (stats
+    by kernel, K5's launches on its main path)."""
+    H = H or _heads_for(D)
     B = BATCH if on_path else 4
     with_d = lambda cases, **kw: {n: dict(c, shape=dict(c["shape"], D=D, **kw))
                                   for n, c in cases.items()}
@@ -4609,16 +4664,16 @@ def _hd_kernels(g, D: int, on_path: bool) -> tuple:
     return stats, k5_launches
 
 
-def _hd_config(name: str, model: dict, smi: str) -> dict:
-    """Phase 26 (b): ``ofa_base`` with ``model``'s head count, full width and
-    depth, seeded weights: the three caption slices in bf16 and in fp32
-    through the kernels and their plain versions, phase 8's joint step and
-    phase 9's fp32 check. → each kernel's launches on its path."""
+def _hd_config(name: str, model: dict, smi: str, phase: int = 26) -> dict:
+    """Phase 26 (b) (or 28's): ``ofa_base`` with ``model``'s head count, full
+    width and depth, seeded weights: the three caption slices in bf16 and in
+    fp32 through the kernels and their plain versions, phase 8's joint step
+    and phase 9's fp32 check. → each kernel's launches on its path."""
     from musketeer_tpu_torch.config import ofa_base
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(ofa_base(), use_flash_attention=True, **model)
-    tree = _random_model_tree(cfg, SEED + 26)
+    tree = _random_model_tree(cfg, SEED + phase)
     log(f"[head dims b] {name}: d {cfg.embed_dim}, {cfg.attention_heads} heads of "
         f"{cfg.head_dim}, {cfg.encoder_layers} + {cfg.decoder_layers} layers, ResNet "
         f"{cfg.resnet_layers}; tree drawn in {time.perf_counter() - t0:.1f} s")
@@ -4678,24 +4733,6 @@ def _head_dims(smi: str) -> dict:
                                                 if i >= -(-D // 8) * 8))
     log(HD_TAG + json.dumps(out))
     return out
-
-
-def _head_dims_in_own_process() -> dict:
-    """Phase 26 in the default run: ``--head-dims-only`` in a process of its own
-    (the library already built; torch.profiler starts afresh, as for phase
-    25), its output printed here. → its ``HD_TAG`` line's entries."""
-    import os
-
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--head-dims-only"],
-                         capture_output=True, text=True)
-    print(run.stdout, end="", flush=True)
-    print(run.stderr, end="", file=sys.stderr, flush=True)
-    if run.returncode != 0:
-        raise AssertionError(f"phase 26 (--head-dims-only) exited with {run.returncode}")
-    line = next(l for l in run.stdout.splitlines() if l.startswith(HD_TAG))
-    return json.loads(line[len(HD_TAG):])
 
 
 # phase 27: the decode kernels K6, K7 and K2/K2-q8 at every beam count,
@@ -4997,17 +5034,11 @@ def _device_ms_once(fn) -> tuple:
     launches, the call's result). Device activity only: over a 257-step
     search, the host operations' events would take the profiler tens of
     seconds to gather."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise AssertionError("torch.profiler recorded no device operations")
-    return sum(e.time_range.elapsed_us() for e in dev) / 1e3, out
+    out = []
+    dev = _profiled_device_events(lambda: out.append(fn()), [ProfilerActivity.CUDA])
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3, out[-1]
 
 
 def _shapes_captions(tree, smi: str) -> dict:
@@ -5084,33 +5115,246 @@ def phase_shapes(smi: str) -> dict:
     return out
 
 
-def _shapes_in_own_process() -> dict:
-    """Phase 27 in the default run: ``--shapes-only`` in a process of its own
-    (the library already built, as for phases 25 and 26), its output printed
-    here. → its ``SHAPES_TAG`` line's entries."""
-    import os
+# phase 28: every head dim past 128 up to 256 (the instances 192 and 256: the
+# attention core's and K4's outputs in column halves of 128, K6's and K7's
+# shallower rings, K7's q in shared memory), and ofa_base split into 4 heads
+# of 192 and 3 of 256
+WH_DIMS = (130, 136, 160, 192, 200, 256)  # 130: not a multiple of 8; 136, 200: not of 16 (K6)
+WH_CONFIGS = {"ofa_base_hd192": dict(attention_heads=4),
+              "ofa_base_hd256": dict(attention_heads=3)}
+WH_TAG = "[wide heads kernels] "
+# K6 and K7 at DP 256 past the whole row's fit (the score-chunked route): B, Kb, S
+WH_CHUNKED = (2, 16, 1772)
+# bf16 K4's fp32 drel: phase 7's FP32_TOL. Phase 26 held it to its fp32 calls'
+# 1e-5; at DP 256 the tensor cores' fp32 sums over 512-deep scores (and 256-deep
+# dP) put it 1.3e-5 of max|drel| from plain on an H100 (B2 H3 T=S=300), while
+# the fp32 calls (FMA kernels) stay within 1e-5
+WH_DREL_TOL = 1e-4
+# K3/K4 at DP 256 on a causal case with a fully masked row, as phase 7's small cases
+WH_K4_MASKED = {"causal, fully masked row": dict(shape=dict(B=2, H=2, T=70, S=70, D=256),
+                                                 causal=True, masked_row=1)}
 
-    torch.cuda.synchronize()
+
+def _wide_counts() -> dict:
+    """The launches of the routes past head dim 128: K1, K3, K4 and K5's bf16
+    launches in column halves (``.col_split``), K6's and K7's launches on an
+    instance past 128 (``.wide``); 0 where a tree lacks them."""
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+    from musketeer_tpu_torch.ops import decode_stack as k7
+    from musketeer_tpu_torch.ops import flash_attention as k5
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+
+    fns = {"K1": k1.flash_attention_inference, "K3": kb.flash_attention_fwd,
+           "K4": kb.flash_attention_bwd, "K5": k5.flash_attention_bias,
+           "K5-cross": k5.flash_cross_attention}
+    out = {f"{k}.col_split": getattr(fn, "col_split", 0) for k, fn in fns.items()}
+    out["K6.wide"] = getattr(k6.decode_cross_attention_int8, "wide", 0)
+    out["K7.wide"] = getattr(k7.decode_stack_step, "wide", 0)
+    return out
+
+
+def _wide_moves(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _wide_counts().items() if n != before[k]}
+
+
+def _wide_heads_for(D: int, width: int = 768) -> int:
+    """``_heads_for``, or where no head count near ``width`` makes a multiple of
+    64, the nearest whose width is a multiple of 8 (K7's ragged products)."""
+    try:
+        return _heads_for(D, width)
+    except ValueError:
+        return min((h for h in range(1, 2 * width // D + 2) if h * D % 8 == 0),
+                   key=lambda h: (abs(h * D - width), h))
+
+
+def _wide_chunked(g) -> dict:
+    """K6 and K7 at DP 256, 3 heads, 16 beams and S 1772, past the bf16 whole
+    row's fit, in bf16 and fp32, against plain (``_shape_case``): the
+    score-chunked route on the shallower ring."""
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+
+    B, Kb, S = WH_CHUNKED
+    D, H = 256, 3
+    names = ("q", "k_i8", "v_i8", "k_scale", "v_scale", "bias", "enc_pad")
+    stats = {"K6": {}, "K7": {}}
+    for dtype in SHAPES_BOTH:
+        plan = k6.plan(Kb, S, D, fp32=dtype == torch.float32)
+        want = {"K6.chunked": 1} if plan["chunk"] < S else {}
+        if dtype == torch.bfloat16 and not want:
+            raise AssertionError(f"K6 Kb{Kb} S{S} D{D}: bf16 must take the score-chunked route")
+        x = _k6_inputs(g, B, H, Kb, S, D, dtype, full_pad=1)
+        args = [x[n] for n in names]
+        tag = f"B{B} H{H} Kb{Kb} S{S} D{D}"
+        before = _wide_counts()
+        stats["K6"][f"{tag} {str(dtype)[6:]}"] = _shape_case(
+            "K6", tag, dtype, lambda: (k6.decode_cross_attention_int8(*args),),
+            lambda: (k6.decode_cross_attention_int8_plain(*args),),
+            lambda: (k6.decode_cross_attention_int8_plain(x["q"].float(), *args[1:]),),
+            want, _bound(_nbytes(*args) + x["q"].numel() * x["q"].element_size(),
+                         4.0 * B * H * Kb * S * D), iters=3)
+        if _wide_moves(before).get("K6.wide", 0) < 1:
+            raise AssertionError(f"K6 {tag} {dtype}: must run on the instance 256")
+        del x, args
+        shape = dict(L=2, B=B, Kb=Kb, S=S, H=H, f=4 * H * D, Tmax=MAX_LEN + 1)
+        before = _wide_counts()
+        stats["K7"].update(_shapes_k7_case(g, f"rows {B * Kb} L2 H{H} hd{D} Kb{Kb} S{S}", shape,
+                                           D, (MAX_LEN,), dtype, dtype == torch.bfloat16))
+        if _wide_moves(before).get("K7.wide", 0) < 1:
+            raise AssertionError(f"K7 {tag} {dtype}: must run on the instance 256")
+    return stats
+
+
+def phase_wide_heads(smi: str) -> dict:
+    """Phase 28: (a) the attention kernels at every head dim of ``WH_DIMS``
+    (phase 26's calls at ~768 / D heads), the padded copies and the column
+    halves counted, K6 and K7 on the score-chunked route and K4 on a causal
+    fully masked row at 256; (b) the two configurations of ``WH_CONFIGS``;
+    every fp32 call's check within ``HD_FP32_TOL``, bf16 K4's fp32 drel within
+    ``WH_DREL_TOL``. → {kernel: {head dim: stats, its instance and the
+    launches on its path}}."""
+    module = sys.modules[__name__]
+    with mock.patch.object(module, "FP32_TOL", HD_FP32_TOL), \
+            mock.patch.object(module, "BF16_FP32_OUT_TOL", WH_DREL_TOL):
+        return _wide_heads(smi)
+
+
+def _wide_heads(smi: str) -> dict:
+    from musketeer_tpu_torch.config import ofa_base
+    from musketeer_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    heads = {name: ofa_base().embed_dim // m["attention_heads"] for name, m in WH_CONFIGS.items()}
+    stats, k5_launches = {}, {}
+    for D in WH_DIMS:
+        t1, before, before_w = time.perf_counter(), _padded_counts(), _wide_counts()
+        dp = _build.head_instance(D)
+        if dp != (192 if D <= 192 else 256) or _build.col_halves(D) != 2:
+            raise AssertionError(f"head dim {D}: instance {dp}, {_build.col_halves(D)} halves")
+        stats[D], k5_launches[D] = _hd_kernels(g, D, D in heads.values(), _wide_heads_for(D))
+        padded = {k: n - before[k] for k, n in _padded_counts().items()}
+        unit = {k: 16 if k == "K6" else 8 for k in padded}
+        if any((n > 0) != (D % unit[k] != 0) for k, n in padded.items()):
+            raise AssertionError(f"head dim {D}: launches on zero-padded copies {padded}")
+        wide = _wide_moves(before_w)
+        if set(wide) != set(before_w) or min(wide.values()) < 1:
+            raise AssertionError(f"head dim {D}: every kernel must take its route past 128, "
+                                 f"moved {wide}")
+        log(f"[wide heads a] D{D} on the instance {dp} in {time.perf_counter() - t1:.1f} s; "
+            f"launches on zero-padded copies {padded}, past 128 {wide}")
+        torch.cuda.empty_cache()
+    phase_k3_k4(g, {}, WH_K4_MASKED, saved=False)
+    chunked = _wide_chunked(g)
     torch.cuda.empty_cache()
-    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--shapes-only"],
-                         capture_output=True, text=True)
-    print(run.stdout, end="", flush=True)
-    print(run.stderr, end="", file=sys.stderr, flush=True)
-    if run.returncode != 0:
-        raise AssertionError(f"phase 27 (--shapes-only) exited with {run.returncode}")
-    line = next(l for l in run.stdout.splitlines() if l.startswith(SHAPES_TAG))
-    return json.loads(line[len(SHAPES_TAG):])
+    t2 = time.perf_counter()
+    log(f"[wide heads a] the kernels at head dims {WH_DIMS}: {t2 - t0:.1f} s")
+    on_path = {}
+    for name, model in WH_CONFIGS.items():
+        before = _wide_counts()
+        on_path[heads[name]] = _hd_config(name, model, smi, phase=28)
+        wide = _wide_moves(before)
+        if any(wide.get(k, 0) < 1 for k in ("K1.col_split", "K3.col_split", "K4.col_split",
+                                             "K6.wide", "K7.wide")):
+            raise AssertionError(f"{name}: the paths must run K1, K3, K4 in column halves and "
+                                 f"K6, K7 past 128, moved {wide}")
+        log(f"[wide heads b] {name}: launches past 128 {wide}")
+    log(f"[wide heads b] both configurations: {time.perf_counter() - t2:.1f} s; phase 28 in "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    out = {}
+    for k in HD_KERNELS:
+        out[k] = {}
+        for D in WH_DIMS:
+            n = k5_launches[D][k] if k in ("K5", "K5-cross") else on_path.get(D, {}).get(k, 0)
+            out[k][str(D)] = dict(stats[D][k], launches=n, instance=_build.head_instance(D))
+    for k, cases in chunked.items():
+        for tag, c in cases.items():
+            out[k][f"256 {tag}"] = dict(c, launches=0, instance=256)
+    log(WH_TAG + json.dumps(out))
+    return out
+
+
+# --instances-only: the device times of today's instances, for a parent/change
+# pair (copied into an older tree's root, it times that tree's kernels): K1,
+# K4, K6 and K7 at ofa_base's shapes (head dim 64) and K1, K3, K4, K5, K6, K7
+# at 6 heads of 128 (phase 26's hd 128 cases), bf16
+INSTANCE_CASES = {
+    "K1 B16 H12 T=S=908 D64": ("K1", dict(K1_SHAPE)),
+    "K4 B4 H12 T=S=980 D64": ("K4", dict(K34_SHAPES["encoder"]["shape"])),
+    "K6 B16 H12 Kb5 S908 D64": ("K6", dict(K6_SHAPE)),
+    "K7 rows 80 L6 d768 hd64 S908 Tmax17": ("K7", dict(K7_SHAPE, hd=64)),
+    "K1 B16 H6 T=S=908 D128": ("K1", dict(K1_SHAPE, H=6, D=128)),
+    "K3 B4 H6 T=S=980 D128": ("K3", dict(K34_SHAPES["encoder"]["shape"], H=6, D=128)),
+    "K4 B4 H6 T=S=980 D128": ("K4", dict(K34_SHAPES["encoder"]["shape"], H=6, D=128)),
+    "K5 B16 H6 S908 D128": ("K5", dict(K1_SHAPE, H=6, D=128)),
+    "K6 B16 H6 Kb5 S908 D128": ("K6", dict(K6_SHAPE, H=6, D=128)),
+    "K7 rows 80 L6 d768 hd128 S908 Tmax17": ("K7", dict(K7_SHAPE, H=6, hd=128)),
+}
+INSTANCES_TAG = "[instances] "
+
+
+def _instance_call(g, kernel: str, shape: dict):
+    """One bf16 call of ``kernel`` at ``shape`` on seeded inputs, as a closure."""
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+    from musketeer_tpu_torch.ops import decode_stack as k7
+    from musketeer_tpu_torch.ops import flash_attention as k5
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+
+    names = ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")
+    if kernel == "K6":
+        x = _k6_inputs(g, **shape, dtype=torch.bfloat16, full_pad=1)
+        args = [x[n] for n in ("q", "k_i8", "v_i8", "k_scale", "v_scale", "bias", "enc_pad")]
+        return lambda: k6.decode_cross_attention_int8(*args)
+    if kernel == "K7":
+        hd = shape.pop("hd")
+        pack, x = _k7_inputs(g, **shape, dtype=torch.bfloat16, hd=hd)
+        args = [x[n] for n in ("x0", "sbias", "cbias", "self_k", "self_v", "cross_k", "cross_v")]
+        return lambda: k7.decode_stack_step(pack, *args, K7_INDICES[-1], beam_size=BEAM,
+                                            scaling=(hd * 2.0) ** -0.5)
+    x = _k1_inputs(g, **shape, dtype=torch.bfloat16)
+    args = [x[n] for n in names]
+    if kernel == "K1":
+        return lambda: k1.flash_attention_inference(*args)
+    if kernel == "K3":
+        return lambda: kb.flash_attention_fwd(*args)
+    if kernel == "K5":
+        return lambda: k5.flash_attention_bias(*args)
+    o, lse = kb.flash_attention_fwd_plain(*args)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    return lambda: kb.flash_attention_bwd(*args, o, lse, do)
+
+
+def phase_instances(smi: str) -> dict:
+    """Each case of ``INSTANCE_CASES``: its kernels' device time per call
+    (torch.profiler, the sum over the call's kernels, 10 calls) and the
+    call's time by CUDA events (20 calls), printed as one ``INSTANCES_TAG``
+    line."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    out = {}
+    for name, (kernel, shape) in INSTANCE_CASES.items():
+        call = _instance_call(g, kernel, dict(shape))
+        dev = sum(_device_ms_by_kernel(call, 10).values())
+        ms = cuda_ms(call, 20)
+        out[name] = dict(device_ms=dev, ms=ms)
+        log(f"[instances] {name}: device {dev:.4f} ms, call {ms:.4f} ms per call on {smi}")
+        del call
+        torch.cuda.empty_cache()
+    log(INSTANCES_TAG + json.dumps(out))
+    return out
 
 
 def _check_today_routes() -> None:
     """Phases 4, 10, 11 and 12 (K2, K2-q8, K6, K7 at today's shapes) ran the
     routes they ran before phase 27's: no beam tiles, score or cache chunks,
-    ragged widths or streamed h."""
+    ragged widths or streamed h; and phases 3-12 none of phase 28's routes
+    past head dim 128 (column halves, shallower rings)."""
     moved = {k: n for k, n in _route_counts().items() if n}
+    moved.update({k: n for k, n in _wide_counts().items() if n})
     if moved:
-        raise AssertionError(f"phases 4, 10, 11, 12: today's shapes took new routes {moved}")
-    log("[routes] phases 4, 10, 11 and 12 ran today's routes (no beam tiles, score or cache "
-        "chunks, ragged widths or streamed h)")
+        raise AssertionError(f"phases 3-12: today's shapes took new routes {moved}")
+    log("[routes] phases 3-12 ran today's routes (no beam tiles, score or cache chunks, ragged "
+        "widths, streamed h, column halves or rings past head dim 128)")
 
 
 def main(argv=None) -> int:
@@ -5164,6 +5408,14 @@ def main(argv=None) -> int:
                       help="after phases 1-2, run only phase 26 (the attention kernels at head "
                            "dims 8 to 128, ofa_base in 6 heads of 128 and in 24 of 32), and "
                            "print no result line")
+    only.add_argument("--wide-heads-only", action="store_true",
+                      help="after phases 1-2, run only phase 28 (the attention kernels at head "
+                           "dims 130 to 256, ofa_base in 4 heads of 192 and in 3 of 256), and "
+                           "print no result line")
+    only.add_argument("--instances-only", action="store_true",
+                      help="after phases 1-2, only time today's instances (K1, K4, K6, K7 at "
+                           "head dim 64, K1 and K3-K7 at 128; device time and call time) for a "
+                           "parent/change pair, and print no result line")
     only.add_argument("--shapes-only", action="store_true",
                       help="after phases 1-2, run only phase 27 (K6, K7, K2 and K2-q8 at more "
                            "than 16 beams, long encoder outputs and caches, ragged widths and "
@@ -5194,6 +5446,14 @@ def main(argv=None) -> int:
     if opts.shapes_only:
         phase_shapes(smi)
         log(f"[done] shapes phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.wide_heads_only:
+        phase_wide_heads(smi)
+        log(f"[done] wide-heads phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.instances_only:
+        phase_instances(smi)
+        log(f"[done] instances timed in {time.perf_counter() - t_start:.1f} s")
         return 0
     from musketeer_tpu_torch.config import ofa_base
 
@@ -5274,6 +5534,7 @@ def main(argv=None) -> int:
     phase_profile(tree)
     k5_stats, k5_launches = phase_k5(g)
     stats.update(k5_stats)
+    _check_today_routes()  # phases 3-16
     stats["K8"], k8_launches = phase_k8(g, tree, smi)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches = phase_eval(tree, smi, tmp)
@@ -5290,8 +5551,13 @@ def main(argv=None) -> int:
         parallel = phase_parallel(smi, tmp, {"p50_ms": train_p50_ms}, entry_mfu)
     axes_launches = phase_axes(smi)
     huge_stats, huge_launches = _huge_in_own_process()
-    head_dims = _head_dims_in_own_process()
-    shapes = _shapes_in_own_process()
+    head_dims = _phase_in_own_process(26, "--head-dims-only", HD_TAG)
+    shapes = _phase_in_own_process(27, "--shapes-only", SHAPES_TAG)
+    t0 = time.perf_counter()
+    wide_heads = _phase_in_own_process(28, "--wide-heads-only", WH_TAG)
+    log(f"[wide heads] phase 28 in its own process: {time.perf_counter() - t0:.1f} s")
+    for k, by_dim in wide_heads.items():  # phase 28's head dims join phase 26's
+        head_dims[k].update(by_dim)
 
     # each kernel's launches on its main path
     on_path = {"K1": launches["slice"], "K2": launches["slice"], "K2-q8": launches["serving A"],
@@ -5328,7 +5594,7 @@ def main(argv=None) -> int:
         if k in huge_stats:  # phase 25: ofa_huge, head dim 80 (K2, K2-q8: d 1280)
             entry["d1280" if k in ("K2", "K2-q8") else "hd80"] = dict(
                 huge_stats[k], launches=huge_launches[k][k])
-        if k in head_dims:  # phase 26: by head dim, 8 to 128
+        if k in head_dims:  # phases 26 and 28: by head dim, 8 to 256
             entry["head_dims"] = head_dims[k]
         if k in shapes:  # phase 27: the routes past today's shapes
             entry["shapes"] = shapes[k]

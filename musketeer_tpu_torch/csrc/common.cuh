@@ -53,21 +53,23 @@ struct SmemOptIn {
 };
 
 // The instances of the attention kernels (K1, K3, K4, K5, K6, K7): tile
-// widths 32, 64, 80 and 128 bf16 (or fp32) columns. ops/_build.py::HEAD_DIMS
-// mirrors this list. A head dim d of 8 to 128, a multiple of 8 (the wrappers
-// copy any other into a zero-padded buffer first, K6's int8 cache to a
-// multiple of 16), runs on the smallest instance DP >= d: the tiles' columns
-// d .. DP - 1 are zeros (TMA fills them, or the loads skip them), which add
-// nothing to any product, and the stores skip them. Calls f with
-// std::integral_constant<int, DP>, or returns cudaErrorInvalidValue for any
-// other d; the kernels take d itself as an argument.
+// widths 32, 64, 80, 128, 192 and 256 bf16 (or fp32) columns.
+// ops/_build.py::HEAD_DIMS mirrors this list. A head dim d of 8 to 256, a
+// multiple of 8 (the wrappers copy any other into a zero-padded buffer first,
+// K6's int8 cache to a multiple of 16), runs on the smallest instance DP >= d:
+// the tiles' columns d .. DP - 1 are zeros (TMA fills them, or the loads skip
+// them), which add nothing to any product, and the stores skip them. Calls f
+// with std::integral_constant<int, DP>, or returns cudaErrorInvalidValue for
+// any other d; the kernels take d itself as an argument.
 template <typename F>
 int with_head_dim(int d, F&& f) {
-  if (d < 8 || d > 128 || d % 8) return (int)cudaErrorInvalidValue;
+  if (d < 8 || d > 256 || d % 8) return (int)cudaErrorInvalidValue;
   if (d <= 32) return f(std::integral_constant<int, 32>{});
   if (d <= 64) return f(std::integral_constant<int, 64>{});
   if (d <= 80) return f(std::integral_constant<int, 80>{});
-  return f(std::integral_constant<int, 128>{});
+  if (d <= 128) return f(std::integral_constant<int, 128>{});
+  if (d <= 192) return f(std::integral_constant<int, 192>{});
+  return f(std::integral_constant<int, 256>{});
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -23,9 +23,13 @@
 // clamp), a second computes each chunk's scores again, its probabilities
 // and its values. Values: thread (d, part) sums the keys of
 // its part for all Kb beams in registers; the NT / DP parts (8 at DP 32, 4
-// at 64, 3 at 80 with 16 threads idle, 2 at 128) are added in order. The
-// tile width DP is a template parameter, compiled at 32, 64, 80 and 128 (a
-// head dim D runs on the smallest DP >= D, common.cuh::with_head_dim): q's
+// at 64, 3 at 80 with 16 threads idle, 2 at 128, 1 at 192 with 64 threads
+// idle and at 256) are added in order. Past DP 128 a thread takes its key
+// row 64 dims at a time (a whole row would be DP registers), all the tile's
+// beams' dots carried across the chunks: the same fp32 sums in the same
+// order. The tile width DP is a template parameter, compiled at 32, 64, 80,
+// 128, 192 and 256 (a head dim D runs on the smallest DP >= D,
+// common.cuh::with_head_dim): q's
 // staged columns past D are zeros, a key row is read to its stride (the
 // cache's rows, padded with zeros to a multiple of 8 or 16 elements), and
 // the threads of the columns past D sum nothing.
@@ -118,30 +122,54 @@ __device__ void block(const Args& a, int h, int b, int j0) {
   __syncthreads();
 
   // the scores of keys c0 .. c0 + n - 1 into sc: one key row per thread
+  // the score of key s from its dot with beam j's q
+  auto score = [&](float acc, int s) {
+    if (kInt8) return a.pad[(long long)b * S + s] ? NEG : acc * a.k_scale[bh * S + s] + bias[s];
+    return acc + bias[s];
+  };
   auto scores = [&](int c0, int n) {
     for (int i = tid; i < n; i += NT) {
       const int s = c0 + i;
-      float kr[DP];
-      load_row<DP>(kp + (long long)s * rs, kr, rs);
-      for (int j = 0; j < Kb; ++j) {
-        const float4* qj = reinterpret_cast<const float4*>(qs + j * DP);
-        float acc = 0.f;
+      if constexpr (DP <= 128) {
+        float kr[DP];
+        load_row<DP>(kp + (long long)s * rs, kr, rs);
+        for (int j = 0; j < Kb; ++j) {
+          const float4* qj = reinterpret_cast<const float4*>(qs + j * DP);
+          float acc = 0.f;
 #pragma unroll
-        for (int i4 = 0; i4 < DP / 4; ++i4) {
-          const float4 qv = qj[i4];
-          acc = fmaf(qv.x, kr[4 * i4], acc);
-          acc = fmaf(qv.y, kr[4 * i4 + 1], acc);
-          acc = fmaf(qv.z, kr[4 * i4 + 2], acc);
-          acc = fmaf(qv.w, kr[4 * i4 + 3], acc);
+          for (int i4 = 0; i4 < DP / 4; ++i4) {
+            const float4 qv = qj[i4];
+            acc = fmaf(qv.x, kr[4 * i4], acc);
+            acc = fmaf(qv.y, kr[4 * i4 + 1], acc);
+            acc = fmaf(qv.z, kr[4 * i4 + 2], acc);
+            acc = fmaf(qv.w, kr[4 * i4 + 3], acc);
+          }
+          sc[j * cs + i] = score(acc, s);
         }
-        float w;
-        if (kInt8) {
-          w = acc * a.k_scale[bh * S + s] + bias[s];
-          if (a.pad[(long long)b * S + s]) w = NEG;
-        } else {
-          w = acc + bias[s];
+      } else {  // 64 dims of the key row at a time, every beam's dot carried across
+        float acc[MAX_KB];
+#pragma unroll
+        for (int j = 0; j < MAX_KB; ++j) acc[j] = 0.f;
+        for (int c = 0; c < DP / 64; ++c) {
+          float kr[64];
+          load_row<64>(kp + (long long)s * rs + 64 * c, kr, rs - 64 * c);
+#pragma unroll
+          for (int j = 0; j < MAX_KB; ++j) {
+            if (j >= Kb) break;
+            const float4* qj = reinterpret_cast<const float4*>(qs + j * DP + 64 * c);
+#pragma unroll
+            for (int i4 = 0; i4 < 16; ++i4) {
+              const float4 qv = qj[i4];
+              acc[j] = fmaf(qv.x, kr[4 * i4], acc[j]);
+              acc[j] = fmaf(qv.y, kr[4 * i4 + 1], acc[j]);
+              acc[j] = fmaf(qv.z, kr[4 * i4 + 2], acc[j]);
+              acc[j] = fmaf(qv.w, kr[4 * i4 + 3], acc[j]);
+            }
+          }
         }
-        sc[j * cs + i] = w;
+#pragma unroll
+        for (int j = 0; j < MAX_KB; ++j)
+          if (j < Kb) sc[j * cs + i] = score(acc[j], s);
       }
     }
   };

@@ -1,7 +1,7 @@
 // K7's beam-shared cross-attention in bf16 on Hopper: the sample's [S, D] K
 // and V rows streamed by TMA, the products on the tensor cores (mma.sync
 // m16n8k16). The tile width DP is a template parameter, compiled at 32, 64,
-// 80 and 128; a head dim D runs on the smallest DP >= D
+// 80, 128, 192 and 256; a head dim D runs on the smallest DP >= D
 // (common.cuh::with_head_dim), D itself an argument.
 // K6's cross-attention over the int8 cache (decode_cross_attn.cu) takes
 // this layout and the primitives it shares from sm90.cuh.
@@ -18,8 +18,10 @@
 // beams past 16 take more tiles, each reading the sample's K/V again, mostly
 // from L2). A producer warp streams the S / 64 key tiles
 // and then the S / 64 value tiles (64 x DP bf16 in sm90.cuh::HeadTile's
-// boxes: 8 KB at DP 64, 16 KB at 128; zeros past S and past the cache's row
-// width) through a ring of STAGES stages; one consumer warpgroup.
+// boxes: 8 KB at DP 64, 16 KB at 128, 32 KB at 256; zeros past S and past
+// the cache's row width) through a ring of stages<DP>() stages (8 up to DP
+// 128, 8 x 128 / DP past it: 5 at 192, 4 at 256, so the ring stays 128 KB);
+// one consumer warpgroup.
 //   - Scores: q (the Kb beam rows, padded to 16 with zeros, its columns past
 //     D zeros) is the A operand, held in registers for the whole walk (DP / 16
 //     k-steps); each of the 8
@@ -31,8 +33,9 @@
 //     to bf16 into [Kb][S'] (zeros from S to the tile end).
 //   - P.v: A = p (its rows from shared memory), B = the value tile read by
 //     ldmatrix.trans (key-major rows are B's k); warp w owns the n8 column
-//     blocks w + 8 n < DP / 8 (at DP 64 one block each, at 128 two; at 80
-//     warps 0 and 1 also own columns 64..79, at 32 warps 0..3 one block),
+//     blocks w + 8 n < DP / 8 (at DP 64 one block each, at 128 two, at 256
+//     four; at 80 warps 0 and 1 also own columns 64..79, at 32 warps 0..3
+//     one block, at 192 three each),
 //     accumulating in fp32 registers across all tiles; the columns past D
 //     are stored nowhere. The cache's rows are D wide, or D rounded up to a
 //     multiple of 8 (zeros; a wrapper's padded copy); q and the output keep
@@ -57,8 +60,10 @@
 // Bound: the cross K/V, 2 x S x D x 2 bytes per (b, h), 268 MB a step at
 // the caption decode shape (rows 80, L6, H12, S908, D64), 80 us at 3.35
 // TB/s; 893 MB at ofa_huge's (L12, H16, D80), 267 us. ptxas (CUDA 12.8): no
-// spills at any instance (chip_smoke.py's build phase prints each one's
-// registers). Where D == DP the compiler knows D (kExact): with D and the
+// spills up to DP 192 (88 registers whole-row, 131 / 156 chunked at 192); at
+// 256 96 and 146 / 168, with 8 and 68 bytes of spill where D == DP
+// (chip_smoke.py's build phase prints each one's registers). Where D == DP
+// the compiler knows D (kExact): with D and the
 // tile addressing left to run time, this kernel ran 1.6x longer at DP 80.
 #pragma once
 
@@ -73,7 +78,6 @@ namespace decode_attn {
 using bf16 = __nv_bfloat16;
 
 constexpr int BKT = 64;                 // keys per tile
-constexpr int STAGES = 8;               // ring depth: value tiles arrive during the softmax
 constexpr int NC = 256;                 // consumer threads: two warpgroups, 8 warps
 constexpr int NT = NC + 32;             // + the producer warp
 constexpr int MAX_KB = 16;              // beams of a tile: one m16 A tile
@@ -83,6 +87,13 @@ constexpr size_t MAX_SMEM = 232448;     // a block's shared memory on sm_90
 template <int DP>
 __host__ __device__ constexpr uint32_t tile_bytes() {  // one 64 x DP bf16 tile: every box
   return sm90::HeadTile<DP>::BYTES;
+}
+
+// the ring's depth: 8 (the value tiles arrive during the softmax) up to DP
+// 128, then as many as 8 tiles of 128 columns take
+template <int DP>
+__host__ __device__ constexpr int stages() {
+  return DP <= 128 ? 8 : 8 * 128 / DP;
 }
 
 struct Args {
@@ -97,7 +108,7 @@ struct Args {
 template <int DP>
 inline size_t smem_bytes(int Kb, int S) {
   const int sp = (S + BKT - 1) / BKT * BKT;
-  return 1024 + STAGES * tile_bytes<DP>() + 16 * STAGES +
+  return 1024 + stages<DP>() * tile_bytes<DP>() + 16 * stages<DP>() +
          sizeof(float) * ((size_t)Kb * sp + sp) + 2 * (size_t)Kb * (sp + 8);
 }
 
@@ -105,7 +116,7 @@ inline size_t smem_bytes(int Kb, int S) {
 // tiles [16][PT], the warps' row maxes and sums [8][16][2] fp32
 template <int DP>
 constexpr size_t smem_bytes_chunked() {
-  return 1024 + STAGES * tile_bytes<DP>() + 16 * STAGES + 2 * 2 * MAX_KB * PT +
+  return 1024 + stages<DP>() * tile_bytes<DP>() + 16 * stages<DP>() + 2 * 2 * MAX_KB * PT +
          sizeof(float) * 2 * (NC / 32) * MAX_KB;
 }
 
@@ -162,6 +173,7 @@ template <int DP, bool kExact, bool kChunked>
 __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps maps, Args a) {
   using HT = sm90::HeadTile<DP>;
   constexpr uint32_t TILE = tile_bytes<DP>();
+  constexpr int STAGES = stages<DP>();
   constexpr int NB = (DP / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
@@ -450,6 +462,12 @@ inline int launch(const CacheMaps& maps, const Args& a, int chunked, int pdl,
   return exact ? launch_one<DP, true, false>(maps, a, smem, pdl, stream)
                : launch_one<DP, false, false>(maps, a, smem, pdl, stream);
 }
+
+// launch<dp>, for an instance dp of common.cuh::with_head_dim: defined in
+// decode_attn.cu, the one source that compiles these kernels (K7's
+// decode_stack.cu calls it), so that the two build in parallel.
+int launch_instance(int dp, const CacheMaps& maps, const Args& a, int chunked, int pdl,
+                    cudaStream_t stream);
 
 }  // namespace decode_attn
 }  // namespace mk

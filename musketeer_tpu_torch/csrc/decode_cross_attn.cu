@@ -22,19 +22,21 @@
 //
 // bf16 q (mk_decode_cross_attn_int8_sm90) runs on the tensor cores, in
 // K7's cross-attention layout (decode_attn_sm90.cuh) with the int8 cache;
-// the tile width DP is a template parameter, compiled at 32, 64, 80 and 128
-// (a head dim D, a multiple of 16 here, runs on the smallest DP >= D; the
-// wrapper copies any other into a zero-padded cache first):
+// the tile width DP is a template parameter, compiled at 32, 64, 80, 128, 192
+// and 256 (a head dim D, a multiple of 16 here, runs on the smallest DP >=
+// D; the wrapper copies any other into a zero-padded cache first):
 //   - one CTA per (h, b, beam tile of up to 16 beams): a producer warp
 //     streams TMA tiles of 64 keys x DP
-//     int8 (4 KB at DP 64, 8 KB at 128, unswizzled; the map spans the true D,
-//     so the bytes past D are zeros) through an 8-stage ring, K then V; 8
-//     consumer warps;
+//     int8 (4 KB at DP 64, 8 KB at 128, 16 KB at 256, unswizzled; the map
+//     spans the true D, so the bytes past D are zeros) through a ring of
+//     K7's depth (decode_attn::stages: 8 up to DP 128, 5 at 192, 4 at 256),
+//     K then V; 8 consumer warps;
 //   - scores: lane (g, t) of warp w loads key 8 w + g's bytes DP / 4 t ..
 //     DP / 4 (t + 1) - 1 once (16-byte loads where DP / 4 is a multiple of
-//     16: one at DP 64, two at 128, conflict-free as the rows lie; one
-//     8-byte load at DP 32; five 4-byte loads at DP 80, whose 80-byte rows
-//     are not 16-byte pieces per lane) and widens them exactly
+//     16: one at DP 64, two at 128, three at 192, four at 256,
+//     conflict-free as the rows lie; one 8-byte load at DP 32; five 4-byte
+//     loads at DP 80, whose 80-byte rows are not 16-byte pieces per lane)
+//     and widens them exactly
 //     (sm90::widen_i8x4) into its mma.sync B fragments, word j for k-step j
 //     (DP / 16 of them). That permutes the DP dims inside the product (k-slot
 //     16 j + s is dim DP / 4 t + 4 j + e, t = (s % 8) / 2, e = s % 2 + 2 (s /
@@ -57,7 +59,10 @@
 // Shared memory ~89 KB at Kb 5, S 908, D 64 (~101 KB at D 80): two CTAs an
 // SM, so the 192 (h, b) CTAs of the ofa_base serving shape (256 at
 // ofa_huge's) run in one wave on 132 SMs; ~137 KB at DP 128, one CTA an SM
-// (96 CTAs at 6 heads of 128). ptxas (CUDA 12.8): no spills at
+// (96 CTAs at 6 heads of 128), ~149 KB at 192 and ~169 KB at 256 (64 and 48
+// CTAs at ofa_base's width), where the CTA may take up to 224 registers
+// (q's fragments alone are DP / 4 a thread: 86 and 106 registers whole-row,
+// 143 and 152 chunked). ptxas (CUDA 12.8): no spills at
 // any instance; where D == DP the compiler knows D (kExact), which at DP 80
 // halved the kernel's time against D read at run time. Launched with
 // programmatic stream serialization: the K/V copies start before the kernel
@@ -82,7 +87,6 @@ using sm90::mma16816;
 using sm90::swz;
 
 constexpr int BKT = 64;                 // keys per tile
-constexpr int STAGES = 8;               // ring depth: value tiles arrive during the softmax
 constexpr int NC = 256;                 // consumer threads: 8 warps
 constexpr int NT = NC + 32;             // + the producer warp
 constexpr int MAX_KB = 16;              // beams of a tile: one m16 A tile
@@ -91,6 +95,7 @@ constexpr float NEG_BIAS = -1e9f;       // the score of a padded key
 
 template <int DP>
 struct Tiles {
+  static constexpr int STAGES = mk::decode_attn::stages<DP>();  // ring depth, as K7's
   static constexpr uint32_t KV = BKT * DP;                    // one 64 x DP int8 K or V tile
   static constexpr uint32_t V16 = sm90::HeadTile<DP>::BYTES;  // one 64 x DP bf16 value tile
 };
@@ -112,6 +117,7 @@ struct Args {
 template <int DP>
 inline size_t smem_bytes(int Kb, int S) {
   const int sp = (S + BKT - 1) / BKT * BKT;
+  constexpr int STAGES = Tiles<DP>::STAGES;
   return 1024 + STAGES * Tiles<DP>::KV + 2 * Tiles<DP>::V16 + 16 * STAGES +
          sizeof(float) * ((size_t)Kb * sp + 3 * (size_t)sp) + 2 * (size_t)Kb * (sp + 8);
 }
@@ -120,6 +126,7 @@ inline size_t smem_bytes(int Kb, int S) {
 // mbarriers, two bf16 P tiles [16][PT], the warps' row maxes and sums
 template <int DP>
 constexpr size_t smem_bytes_chunked() {
+  constexpr int STAGES = Tiles<DP>::STAGES;
   return 1024 + STAGES * Tiles<DP>::KV + 2 * Tiles<DP>::V16 + 16 * STAGES +
          2 * 2 * MAX_KB * PT + sizeof(float) * 2 * (NC / 32) * MAX_KB;
 }
@@ -128,9 +135,10 @@ constexpr size_t smem_bytes_chunked() {
 // kExact: D == DP, known to the compiler. kChunked: the score-chunked route.
 // Block z is the beam tile: beams 16 z .. 16 z + 15 of the sample.
 template <int DP, bool kExact, bool kChunked>
-__global__ void __launch_bounds__(NT, 2) cross_attn_i8_sm90_kernel(
+__global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, Args a) {
   using HT = sm90::HeadTile<DP>;
+  constexpr int STAGES = Tiles<DP>::STAGES;
   constexpr uint32_t KV_TILE = Tiles<DP>::KV, TILE = Tiles<DP>::V16;
   constexpr int NB = (DP / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
   const int D = kExact ? DP : a.D;
@@ -510,7 +518,7 @@ inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const A
 
 // fp32 q and out (the FMA kernel). k, v int8 [B, H, S, D]; scales fp32
 // [B, H, S]; bias fp32 with strides (bias_bs, bias_hs, 1); pad bool [B, S];
-// D = head_dim, a multiple of 16 up to 128 (common.cuh::with_head_dim).
+// D = head_dim, a multiple of 16 up to 256 (common.cuh::with_head_dim).
 // Returns a CUDA error code.
 extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const void* v,
                                          const void* k_scale, const void* v_scale,

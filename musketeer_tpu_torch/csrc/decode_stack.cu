@@ -30,8 +30,8 @@
 //   7 LN + fc1 + gelu      8 fc2 + residual
 // Layer 0 reads x0 where later layers read x. The cross K/V are read in the
 // cache's own [L, B, H, S, Dc] layout. The attention kernels' tile width DP
-// is a template parameter, compiled at 32, 64, 80 and 128; a head dim D
-// runs on the smallest DP >= D (common.cuh::with_head_dim). The hidden
+// is a template parameter, compiled at 32, 64, 80, 128, 192 and 256; a head
+// dim D runs on the smallest DP >= D (common.cuh::with_head_dim). The hidden
 // state keeps the model's head stride D (d = H D, a multiple of 8); the
 // self and cross caches have rows of Dc, D rounded up to a multiple of 8
 // (the wrapper's zero-padded copies where D is not one). Where d is not a
@@ -293,6 +293,11 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_kernel(
 // memory holds ch positions: the scores of the first ch, then the
 // probabilities of ch positions at a time; where idx >= ch the later
 // positions' scores are computed again, in the sum's pass and in their chunk.
+// Past DP 128 a lane's whole q and key row would be 1.5 DP registers: q
+// (scaled and rounded, fp32) sits in the warp's shared memory after the
+// scores (read as broadcasts), and the key row is taken 64 dims at a time
+// into the same running sum, in the same order (ptxas: 48 to 52 registers,
+// 4 to 12 bytes of spill at 256).
 template <int DP, bool kExact>
 __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
@@ -300,7 +305,7 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
     const float* __restrict__ sbias, bf16* __restrict__ out, int rows, int H, int Tmax, int idx,
     float scaling, int head_dim, int ch) {
   const int D = kExact ? DP : head_dim;
-  extern __shared__ float sa_scores[];  // [SA_WARPS][ch]
+  extern __shared__ float sa_scores[];  // [SA_WARPS][ch], then past DP 128 [SA_WARPS][DP] q
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int task = blockIdx.x * SA_WARPS + warp;
   if (task >= rows * H) return;
@@ -308,32 +313,71 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
   float* w = sa_scores + warp * ch;
   const long long qo = (long long)row * d + h * D;  // (row, head) in [rows, d]
   const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
-  float qf[DP];
+  constexpr bool kWide = DP > 128;  // q in shared memory, the key row 64 dims at a time
+  constexpr int KC = 64;               // past DP 128: the dims of a key row's chunk
+  float qf[kWide ? 1 : DP];
+  float* const qsh = sa_scores + SA_WARPS * ch + warp * DP;  // the warp's q past DP 128
+  // q's 8 dims 8 i .. 8 i + 7, scaled and rounded, into qf or the warp's shared row
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i) {
-    const uint4 v = 8 * i < D ? *reinterpret_cast<const uint4*>(q + qo + 8 * i)
-                              : make_uint4(0u, 0u, 0u, 0u);
+  for (int i = 0; i < (kWide ? 1 : DP / 8); ++i) {
+    const int u8 = kWide ? lane : i;  // past DP 128 lane l stages unit l (DP / 8 <= 32)
+    const uint4 v = u8 < DP / 8 && 8 * u8 < D ? *reinterpret_cast<const uint4*>(q + qo + 8 * u8)
+                                               : make_uint4(0u, 0u, 0u, 0u);
     const uint32_t u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      qf[8 * i + 2 * j] = round_to<bf16>(__uint_as_float(u[j] << 16) * scaling);
-      qf[8 * i + 2 * j + 1] = round_to<bf16>(__uint_as_float(u[j] & 0xffff0000u) * scaling);
+      const float lo = round_to<bf16>(__uint_as_float(u[j] << 16) * scaling);
+      const float hi = round_to<bf16>(__uint_as_float(u[j] & 0xffff0000u) * scaling);
+      if constexpr (kWide) {
+        if (u8 < DP / 8) {
+          qsh[8 * u8 + 2 * j] = lo;
+          qsh[8 * u8 + 2 * j + 1] = hi;
+        }
+      } else {
+        qf[8 * i + 2 * j] = lo;
+        qf[8 * i + 2 * j + 1] = hi;
+      }
     }
   }
+  if constexpr (kWide) __syncwarp();
   auto score = [&](int t) {  // this lane's score of position t
     const bf16* kt = t == idx ? k_new + qo : cache_k + (co + t) * D;
-    uint4 kv[DP / 8];
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i)
-      kv[i] = 8 * i < D ? *reinterpret_cast<const uint4*>(kt + 8 * i) : make_uint4(0u, 0u, 0u, 0u);
     float s = 0.f;
+    if constexpr (!kWide) {
+      uint4 kv[DP / 8];
 #pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      const uint32_t u[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
+      for (int i = 0; i < DP / 8; ++i)
+        kv[i] = 8 * i < D ? *reinterpret_cast<const uint4*>(kt + 8 * i)
+                          : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s = fmaf(qf[8 * i + 2 * j], __uint_as_float(u[j] << 16), s);
-        s = fmaf(qf[8 * i + 2 * j + 1], __uint_as_float(u[j] & 0xffff0000u), s);
+      for (int i = 0; i < DP / 8; ++i) {
+        const uint32_t u[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s = fmaf(qf[8 * i + 2 * j], __uint_as_float(u[j] << 16), s);
+          s = fmaf(qf[8 * i + 2 * j + 1], __uint_as_float(u[j] & 0xffff0000u), s);
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int c0 = 0; c0 < DP; c0 += KC) {
+        uint4 kv[KC / 8];
+#pragma unroll
+        for (int i = 0; i < KC / 8; ++i)
+          kv[i] = c0 + 8 * i < D ? *reinterpret_cast<const uint4*>(kt + c0 + 8 * i)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int i = 0; i < KC / 8; ++i) {
+          const uint32_t u[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
+          const float4* qv = reinterpret_cast<const float4*>(qsh + c0 + 8 * i);
+          const float4 qa = qv[0], qb = qv[1];
+          const float qq[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s = fmaf(qq[2 * j], __uint_as_float(u[j] << 16), s);
+            s = fmaf(qq[2 * j + 1], __uint_as_float(u[j] & 0xffff0000u), s);
+          }
+        }
       }
     }
     return s + sbias[co + t];
@@ -529,7 +573,8 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
   const int d = H * D, rows = B * Kb, Dc = (D + 7) / 8 * 8;
   const int ch = Tmax < SA_CHUNK ? Tmax : SA_CHUNK;  // the self-attention's positions a chunk
   const int tiles = (d + sk::BM - 1) / sk::BM;  // 64-column tiles of x (the last may be short)
-  const size_t sa_smem = sizeof(float) * SA_WARPS * ch;
+  // the warps' scores, and past DP 128 their q rows (self_attn_bf16)
+  const size_t sa_smem = sizeof(float) * SA_WARPS * (ch + (DP > 128 ? DP : 0));
   if (d % 8 || f % 8) return (int)cudaErrorInvalidValue;
   bf16* qbuf = scratch;          // [rows, d] self q (unscaled)
   bf16* attn = qbuf + rows * d;  // [rows, d] attention output, head-major columns
@@ -597,7 +642,7 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
                      epi_of<bf16>(bm + d, q2, d, nullptr, scaling)));
       // 5. beam-shared cross-attention over this layer's [B, H, S, D] K/V
       mk::decode_attn::Args a{q2, cbias, attn, B, H, Kb, S, l, D};
-      MK_TRY(mk::decode_attn::launch<DP>(m_kv, a, cross_chunked, pdl, st));
+      MK_TRY(mk::decode_attn::launch_instance(DP, m_kv, a, cross_chunked, pdl, st));
       // 6. out-proj + bias + residual; x's statistics for step 7
       MK_TRY(product(m_co, m_attn, l, none, d, d, cps[1], stats,
                      epi_of<bf16>(bm + 2 * d, x, d, x)));
@@ -618,7 +663,7 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
 // builds it; x0 [rows, d]; sbias [L, rows, H, Tmax]; cbias [B, H, S]; self_k/
 // self_v [L, rows, H, Tmax, hc]; cross_k/cross_v [L, B, H, S, hc]; outputs
 // x_out [rows, d], k_new/v_new [L, rows, d]; scratch rows * (3 d + f)
-// elements. rows = B * Kb, d = hd H, hd = head_dim (up to 128), hc = hd
+// elements. rows = B * Kb, d = hd H, hd = head_dim (up to 256), hc = hd
 // rounded up to a multiple of 8 (the caches' columns past hd zeros);
 // cross_chunk: the keys of the cross-attention's score chunks (S: the whole
 // row; cross_attn.cuh). Returns a CUDA error code.

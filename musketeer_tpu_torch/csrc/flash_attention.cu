@@ -37,22 +37,22 @@ namespace {
 
 namespace ff = mk::flash_fwd;
 
-constexpr int BQ = ff::BQ, BK = ff::BK, NT = ff::NT, PS = ff::PS;
+constexpr int NT = ff::NT;
 constexpr float NEG = ff::NEG;
 
-// The fp32 kernel. Scores of key tile k0 for this thread's 4 x 4 (row, key)
+// The fp32 kernel. Scores of key tile k0 for this thread's RI x CJ (row, key)
 // pairs: bias added, masks at -1e9, -inf past S (no part of the softmax).
 template <int DP>
 __device__ __forceinline__ void scores(const float* qs, const float* ks, int tx, int ty, int q0,
                                        int k0, int Tq, int S, const float* relh,
                                        long long rel_rs, const uint8_t* kp, int causal,
-                                       float (&sc)[4][4]) {
+                                       float (&sc)[ff::Dims<DP>::RI][ff::Dims<DP>::CJ]) {
   ff::score_tile<DP>(qs, ks, tx, ty, sc);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < ff::Dims<DP>::RI; ++i) {
     const int t = q0 + ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < ff::Dims<DP>::CJ; ++j) {
       const int s = k0 + tx + 16 * j;
       float w = -CUDART_INF_F;
       if (s < S) {
@@ -72,7 +72,9 @@ __global__ void __launch_bounds__(NT) kernel(
     const float* __restrict__ pk, const float* __restrict__ v, const float* __restrict__ rel,
     const uint8_t* __restrict__ kpad, float* __restrict__ out, int H, int Tq, int S, int Sp,
     long long rel_hs, long long rel_rs, int causal, int D) {
-  constexpr int QS = ff::Dims<DP>::QS, VS = ff::Dims<DP>::VS;
+  using Dm = ff::Dims<DP>;
+  constexpr int QS = Dm::QS, VS = Dm::VS, PS = Dm::PS, BQ = Dm::BQ, BK = Dm::BK;
+  constexpr int RI = Dm::RI, CJ = Dm::CJ;
   extern __shared__ float smem[];
   float* qs = smem;            // [BQ][QS]  q | pos_q
   float* ks = qs + BQ * QS;    // [BK][QS]  k | pos_k
@@ -93,9 +95,9 @@ __global__ void __launch_bounds__(NT) kernel(
   ff::stage_q<DP>(qs, q + bh * Tq * D, pq + bh * Tq * D, q0, Tq, D);
 
   // pass 1: each row's max and denominator over the real keys
-  float m[4], l[4], sc[4][4];
+  float m[RI], l[RI], sc[RI][CJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = -CUDART_INF_F;
     l[i] = 0.f;
   }
@@ -105,15 +107,17 @@ __global__ void __launch_bounds__(NT) kernel(
     __syncthreads();
     scores<DP>(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+    for (int i = 0; i < RI; ++i) {
+      float tmax = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) tmax = fmaxf(tmax, sc[i][j]);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
       const float mnew = fmaxf(m[i], tmax);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) rs += expf(sc[i][j] - mnew);
+      for (int j = 0; j < CJ; ++j) rs += expf(sc[i][j] - mnew);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
       l[i] = l[i] * expf(m[i] - mnew) + rs;
@@ -123,7 +127,7 @@ __global__ void __launch_bounds__(NT) kernel(
   // the wrapper's Sp - S padded keys: score -1e9, v zero
   if (Sp > S) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const float mnew = fmaxf(m[i], NEG);
       l[i] = l[i] * expf(m[i] - mnew) + (float)(Sp - S) * expf(NEG - mnew);
       m[i] = mnew;
@@ -131,9 +135,9 @@ __global__ void __launch_bounds__(NT) kernel(
   }
 
   // pass 2: p = exp(w - m) / l, accumulated against v
-  float acc[4][DP / 16];
+  float acc[RI][DP / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DP / 16; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < S; k0 += BK) {
@@ -142,16 +146,16 @@ __global__ void __launch_bounds__(NT) kernel(
     __syncthreads();
     scores<DP>(qs, ks, tx, ty, q0, k0, Tq, S, relh, rel_rs, kp, causal, sc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < CJ; ++j)
         ps[(ty + 16 * i) * PS + tx + 16 * j] = expf(sc[i][j] - m[i]) / l[i];
     __syncthreads();  // ps complete
     ff::pv_tile<DP>(ps, vs, tx, ty, acc);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= Tq) continue;
 #pragma unroll
@@ -167,7 +171,7 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
   constexpr size_t smem = ff::Dims<DP>::SMEM_BYTES;
   static mk::SmemOptIn opt_in;
   if (const int err = opt_in.ensure((const void*)kernel<DP>, smem)) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  const dim3 grid((Tq + ff::Dims<DP>::BQ - 1) / ff::Dims<DP>::BQ, H, B);
   kernel<DP><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pq), static_cast<const float*>(k),
       static_cast<const float*>(pk), static_cast<const float*>(v), static_cast<const float*>(rel),
@@ -181,7 +185,7 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
 // bf16 != 0 selects __nv_bfloat16 streams (q, k, v, pos_q, pos_k, out), else
 // float; rel_f32 != 0 reads rel as float, else in the streams' type. rel may
 // be null (cross attention); kpad is bool [B, S]; Sp >= S counts the padded
-// keys of the JAX wrapper; head_dim is a multiple of 8 up to 128
+// keys of the JAX wrapper; head_dim is a multiple of 8 up to 256
 // (common.cuh::with_head_dim). Returns cudaGetLastError().
 extern "C" int mk_flash_attention_k5(int bf16, int rel_f32, const void* q, const void* pos_q,
                                      const void* k, const void* pos_k, const void* v,

@@ -3,6 +3,8 @@
 // picks the core: bf16 runs on Hopper's tensor cores (K3 on the core of
 // flash_fwd_sm90.cuh, K4 on flash_bwd_sm90.cuh's two launches), fp32 on the
 // FMA kernels below and in flash_fwd.cuh, which keep full fp32 products.
+// K3's entry point, mk_flash_attention_fwd, is in flash_attention_infer.cu
+// beside K1's, whose kernels it launches (one compile of each instance).
 //
 // K3 replaces musketeer_tpu/ops/flash_attention_bwd.py::_fwd (_fwd_kernel;
 // pallas_call at :265). It is K1's kernel with the per-row
@@ -46,9 +48,12 @@
 // Each thread owns a 4x4 tile of P/dW and a 4 x (2 D / 16) (or 4 x D / 16)
 // tile of its gradient accumulators; shared row strides are padded by one
 // word against bank conflicts. The tile width DP is a template parameter,
-// compiled at 32, 64, 80 and 128 on either core (a head dim D runs on the
-// smallest DP >= D, common.cuh::with_head_dim): the staged columns past D
-// are zeros and no gradient column past D is stored.
+// compiled at 32, 64, 80, 128, 192 and 256 on either core (a head dim D runs
+// on the smallest DP >= D, common.cuh::with_head_dim): the staged columns
+// past D are zeros and no gradient column past D is stored. Past DP 128 the
+// tiles are 32 queries and 32 keys, as flash_fwd.cuh's (a thread's tiles
+// 2 x 2 and 2 x (2 D / 16)): the 64-row layout would need 428 KB at 256, the
+// 32-row one 206 KB (117 / 119 registers at 192, 170 / 180 at 256, no spills).
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd.cuh"
 
@@ -56,15 +61,17 @@ namespace {
 
 using mk::to_f;
 
-constexpr int BQ = mk::flash_fwd::BQ;  // query rows per tile
-constexpr int BK = mk::flash_fwd::BK;  // keys per tile
 constexpr int NT = mk::flash_fwd::NT;  // 16 x 16 threads
-constexpr int PS = BK + 1;
 constexpr float NEG = mk::flash_fwd::NEG;
 
-// The fp32 kernels' shared-memory layout at tile width DP (231,424 bytes at 128).
+// The fp32 kernels' tiles and shared-memory layout at tile width DP (231,424
+// bytes at 128; 205,824 at 256).
 template <int DP>
 struct Bwd {
+  static constexpr int BQ = mk::flash_fwd::Dims<DP>::BQ;  // query rows per tile
+  static constexpr int BK = mk::flash_fwd::Dims<DP>::BK;  // keys per tile
+  static constexpr int R = BQ / 16;  // a thread's rows (and keys) ty + 16 i, tx + 16 j
+  static constexpr int PS = BK + 1;
   static constexpr int D2 = 2 * DP, QS = D2 + 1, VS = DP + 1;
   static constexpr int KV_SMEM_FLOATS =
       BK * QS + BK * VS + BQ * QS + BQ * VS + 2 * BQ * PS + 2 * BQ;
@@ -90,13 +97,13 @@ __global__ void __launch_bounds__(256) dsum_kernel(const T* __restrict__ o,
   if (lane == 0) delta[row] = s;
 }
 
-// Rows [r0, r0 + 64) of a [rows, D] stream pair (x | y) into a shared
-// [64][QS] tile, zeros past `rows` and in the columns D .. DP - 1.
+// Rows [r0, r0 + BQ) of a [rows, D] stream pair (x | y) into a shared
+// [BQ][QS] tile, zeros past `rows` and in the columns D .. DP - 1.
 template <int DP, typename T>
 __device__ __forceinline__ void load_pair(float* dst, const T* x, const T* y, int r0, int rows,
                                           int D) {
   constexpr int QS = Bwd<DP>::QS;
-  for (int i = threadIdx.x; i < 64 * DP; i += NT) {
+  for (int i = threadIdx.x; i < Bwd<DP>::BQ * DP; i += NT) {
     const int r = i / DP, c = i % DP, t = r0 + r;
     float a = 0.f, p = 0.f;
     if (t < rows && c < D) {
@@ -108,60 +115,36 @@ __device__ __forceinline__ void load_pair(float* dst, const T* x, const T* y, in
   }
 }
 
-// Rows [r0, r0 + 64) of a [rows, D] stream into a shared [64][VS] tile.
+// Rows [r0, r0 + BQ) of a [rows, D] stream into a shared [BQ][VS] tile.
 template <int DP, typename T>
 __device__ __forceinline__ void load_one(float* dst, const T* x, int r0, int rows, int D) {
   constexpr int VS = Bwd<DP>::VS;
-  for (int i = threadIdx.x; i < 64 * DP; i += NT) {
+  for (int i = threadIdx.x; i < Bwd<DP>::BQ * DP; i += NT) {
     const int r = i / DP, c = i % DP, t = r0 + r;
     dst[r * VS + c] = t < rows && c < D ? to_f(x[(long long)t * D + c]) : 0.f;
   }
 }
 
-// For the thread's 4x4 entries (query row q0 + ty + 16i, key k0 + tx + 16j)
+// For the thread's R x R entries (query row q0 + ty + 16i, key k0 + tx + 16j)
 // of one (q tile, key tile) pair: P = exp(w - lse) and dW = P (dP - delta),
 // with P = 0 past the ends of the query rows and the keys.
 template <int DP, typename T>
 __device__ __forceinline__ void probs_and_dw(
     const float* qs, const float* ks, const float* dos, const float* vs, const float* lse_s,
     const float* dl_s, const T* relh, long long rel_rs, const uint8_t* kp, int q0, int k0,
-    int Tq, int S, int causal, float p[4][4], float dw[4][4]) {
-  constexpr int D2 = Bwd<DP>::D2, QS = Bwd<DP>::QS, VS = Bwd<DP>::VS;
+    int Tq, int S, int causal, float (&p)[Bwd<DP>::R][Bwd<DP>::R],
+    float (&dw)[Bwd<DP>::R][Bwd<DP>::R]) {
+  constexpr int D2 = Bwd<DP>::D2, QS = Bwd<DP>::QS, VS = Bwd<DP>::VS, R = Bwd<DP>::R;
+  constexpr bool kSplit = DP > 128;  // interleaved partial chains (flash_fwd.cuh::tile_dot)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float sc[4][4], dp[4][4];
+  float sc[R][R], dp[R][R];
+  mk::flash_fwd::tile_dot<R, R, D2, QS, QS, kSplit>(qs, ks, tx, ty, sc);
+  mk::flash_fwd::tile_dot<R, R, DP, VS, VS, kSplit>(dos, vs, tx, ty, dp);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D2; ++d) {
-    float a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
-  }
-#pragma unroll 4
-  for (int d = 0; d < DP; ++d) {
-    float a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = dos[(ty + 16 * i) * VS + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = vs[(tx + 16 * j) * VS + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(a[i], c[j], dp[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i, t = q0 + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int s = k0 + tx + 16 * j;
       float pv = 0.f;
       if (t < Tq && s < S) {
@@ -177,7 +160,7 @@ __device__ __forceinline__ void probs_and_dw(
   }
 }
 
-// dk, dpos_k, dv for one (b, h, 64-key tile).
+// dk, dpos_k, dv for one (b, h, BK-key tile).
 template <int DP, typename T>
 __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     const T* __restrict__ q, const T* __restrict__ pq, const T* __restrict__ k,
@@ -187,6 +170,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     T* __restrict__ dv, int H, int Tq, int S, long long rel_hs, long long rel_rs, int causal,
     int D) {
   constexpr int QS = Bwd<DP>::QS, VS = Bwd<DP>::VS, NC = DP / 16;  // NC: columns a thread owns
+  constexpr int BQ = Bwd<DP>::BQ, BK = Bwd<DP>::BK, R = Bwd<DP>::R, PS = Bwd<DP>::PS;
   extern __shared__ float smem[];
   float* ks = smem;             // [BK][QS]  k | pos_k of this block's keys
   float* vs = ks + BK * QS;     // [BK][VS]
@@ -205,9 +189,9 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
   load_pair<DP>(ks, k + bh * S * D, pk + bh * S * D, k0, S, D);
   load_one<DP>(vs, v + bh * S * D, k0, S, D);
 
-  float adk[4][2 * NC], adv[4][NC];  // key rows ty + 16i; columns tx + 16c
+  float adk[R][2 * NC], adv[R][NC];  // key rows ty + 16i; columns tx + 16c
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
     for (int c = 0; c < 2 * NC; ++c) adk[i][c] = 0.f;
 #pragma unroll
@@ -225,12 +209,12 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     }
     __syncthreads();
 
-    float p[4][4], dw[4][4];
+    float p[R][R], dw[R][R];
     probs_and_dw<DP>(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p, dw);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         ps[(ty + 16 * i) * PS + tx + 16 * j] = p[i][j];
         ws[(ty + 16 * i) * PS + tx + 16 * j] = dw[i][j];
       }
@@ -239,9 +223,9 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
     // dv[key] += sum_r P[r][key] dO[r];  [dk|dpos_k][key] += sum_r dW[r][key] [q|pos_q][r]
 #pragma unroll 2
     for (int r = 0; r < BQ; ++r) {
-      float pa[4], wa[4], g[NC], x[2 * NC];
+      float pa[R], wa[R], g[NC], x[2 * NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         pa[i] = ps[r * PS + ty + 16 * i];
         wa[i] = ws[r * PS + ty + 16 * i];
       }
@@ -250,7 +234,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
 #pragma unroll
       for (int c = 0; c < 2 * NC; ++c) x[c] = qs[r * QS + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) adv[i][c] = fmaf(pa[i], g[c], adv[i][c]);
 #pragma unroll
@@ -260,7 +244,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int s = k0 + ty + 16 * i;
     if (s >= S) continue;
     const long long row = (bh * S + s) * D;
@@ -274,7 +258,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(
   }
 }
 
-// dq, dpos_q (and the drel tile) for one (h, 64-row q tile) over batch rows
+// dq, dpos_q (and the drel tile) for one (h, BQ-row q tile) over batch rows
 // [b0, b1): all of them when drel is wanted, else blockIdx.z alone.
 template <int DP, typename T>
 __global__ void __launch_bounds__(NT) bwd_q_kernel(
@@ -285,6 +269,7 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
     float* __restrict__ drel, int B, int H, int Tq, int S, long long rel_hs, long long rel_rs,
     int causal, int D) {
   constexpr int QS = Bwd<DP>::QS, VS = Bwd<DP>::VS, NC = DP / 16;  // NC: columns a thread owns
+  constexpr int BQ = Bwd<DP>::BQ, BK = Bwd<DP>::BK, R = Bwd<DP>::R, PS = Bwd<DP>::PS;
   extern __shared__ float smem[];
   float* qs = smem;             // [BQ][QS]  q | pos_q of this block's rows
   float* dos = qs + BQ * QS;    // [BQ][VS]
@@ -311,9 +296,9 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
       dl_s[i] = t < Tq ? delta[bh * Tq + t] : 0.f;
     }
 
-    float adq[4][2 * NC];  // query rows ty + 16i; [dq|dpos_q] columns tx + 16c
+    float adq[R][2 * NC];  // query rows ty + 16i; [dq|dpos_q] columns tx + 16c
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < 2 * NC; ++c) adq[i][c] = 0.f;
 
@@ -323,14 +308,14 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
       load_one<DP>(vs, v + bh * S * D, k0, S, D);
       __syncthreads();
 
-      float p[4][4], dw[4][4];
+      float p[R][R], dw[R][R];
       probs_and_dw<DP>(qs, ks, dos, vs, lse_s, dl_s, relh, rel_rs, kp, q0, k0, Tq, S, causal, p,
                    dw);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const int t = q0 + ty + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int s = k0 + tx + 16 * j;
           ws[(ty + 16 * i) * PS + tx + 16 * j] = dw[i][j];
           // this block alone owns drel[h, q tile, :]: batch rows add in order
@@ -341,20 +326,20 @@ __global__ void __launch_bounds__(NT) bwd_q_kernel(
 
 #pragma unroll 2
       for (int j = 0; j < BK; ++j) {
-        float wa[4], x[2 * NC];
+        float wa[R], x[2 * NC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) wa[i] = ws[(ty + 16 * i) * PS + j];
+        for (int i = 0; i < R; ++i) wa[i] = ws[(ty + 16 * i) * PS + j];
 #pragma unroll
         for (int c = 0; c < 2 * NC; ++c) x[c] = ks[j * QS + tx + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int c = 0; c < 2 * NC; ++c) adq[i][c] = fmaf(wa[i], x[c], adq[i][c]);
       }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int t = q0 + ty + 16 * i;
       if (t >= Tq) continue;
       const long long row = (bh * Tq + t) * D;
@@ -400,6 +385,7 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
   const T* relt = static_cast<const T*>(rel);
   const T* dot = static_cast<const T*>(dout);
   const uint8_t* kp = static_cast<const uint8_t*>(kpad);
+  constexpr int BQ = Bwd<DP>::BQ, BK = Bwd<DP>::BK;
   bwd_kv_kernel<DP, T><<<dim3((S + BK - 1) / BK, H, B), NT, kv_smem, stream>>>(
       qt, pqt, kt, pkt, vt, relt, kp, dot, lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dpk), static_cast<T*>(dv), H, Tq, S, rel_hs, rel_rs, causal, D);
@@ -413,30 +399,6 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
 }
 
 }  // namespace
-
-// K3. bf16 != 0 selects __nv_bfloat16 streams, else float. rel may be null
-// (cross attention); kpad is bool [B, S]; lse is fp32 [B, H, Tq]; head_dim
-// is a multiple of 8 up to 128 (common.cuh::with_head_dim).
-extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q,
-                                      const void* k, const void* pos_k, const void* v,
-                                      const void* rel, const void* kpad, void* out, void* lse,
-                                      int B, int H, int Tq, int S, long long rel_head_stride,
-                                      long long rel_row_stride, int causal, int skip_max,
-                                      int head_dim, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto l = static_cast<float*>(lse);
-  const int D = head_dim;
-  return mk::with_head_dim(head_dim, [&](auto d) {
-    constexpr int DP = decltype(d)::value;
-    if (bf16)
-      return mk::sm90::launch<DP, false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, l,
-                                                        B, H, Tq, S, S, rel_head_stride,
-                                                        rel_row_stride, causal, skip_max, D, st);
-    return mk::flash_fwd::launch<DP, float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B,
-                                                  H, Tq, S, rel_head_stride, rel_row_stride,
-                                                  causal, skip_max, D, st);
-  });
-}
 
 // K4. Streams as K3's plus the forward output o, its cotangent dout and K3's
 // lse; delta is fp32 scratch [B, H, Tq]. drel receives sum_b dW in fp32, or
@@ -460,9 +422,9 @@ extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q
     constexpr int DP = decltype(d)::value;
     if (bf16) {
       if (const int err = launch_dsum<__nv_bfloat16>(o, dout, dl, B, H, Tq, D, st)) return err;
-      return mk::sm90::launch_bwd<DP>(q, pos_q, k, pos_k, v, rel, kpad, dout, l, dl, dq, dpos_q,
-                                      dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
-                                      rel_row_stride, causal, D, st);
+      return mk::sm90::launch_bwd_instance(DP, q, pos_q, k, pos_k, v, rel, kpad, dout, l, dl,
+                                           dq, dpos_q, dk, dpos_k, dv, dr, B, H, Tq, S,
+                                           rel_head_stride, rel_row_stride, causal, D, st);
     }
     return launch_bwd<DP, float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q,
                                  dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,

@@ -1,11 +1,14 @@
-// K1: forward-only attention with decomposed positional bias, for sm_90a.
+// K1: forward-only attention with decomposed positional bias, and K3, the
+// training forward, for sm_90a.
 //
-// Replaces the Pallas kernel musketeer_tpu/ops/flash_attention_infer.py::
-// flash_attention_inference (_kernel; pallas_call at :143). bf16 streams run
-// on the tensor-core core of flash_fwd_sm90.cuh (wgmma fed by TMA); fp32
-// streams on the FMA core of flash_fwd.cuh, which K3 shares (K3 also writes
-// the per-row logsumexp). Both files describe the numerics, the translation
-// from the TPU and what bounds the call.
+// Replaces the Pallas kernels musketeer_tpu/ops/flash_attention_infer.py::
+// flash_attention_inference (_kernel; pallas_call at :143) and
+// musketeer_tpu/ops/flash_attention_bwd.py::_fwd (_fwd_kernel; pallas_call
+// at :265). bf16 streams run on the tensor-core core of flash_fwd_sm90.cuh
+// (wgmma fed by TMA); fp32 streams on the FMA core of flash_fwd.cuh (K3 also
+// writes the per-row logsumexp). Both files describe the numerics, the
+// translation from the TPU and what bounds the call. K4 is in
+// flash_attention_bwd.cu.
 #include "flash_fwd.cuh"
 #include "flash_fwd_sm90.cuh"
 
@@ -30,5 +33,31 @@ extern "C" int mk_flash_attention_infer(int bf16, const void* q, const void* pos
                                                    nullptr, B, H, Tq, S, rel_head_stride,
                                                    rel_row_stride, causal, skip_max, head_dim,
                                                    st);
+  });
+}
+
+// K3 (flash_attention_bwd.py's ``_fwd``): K1's walk plus each row's fp32
+// logsumexp in lse [B, H, Tq], on the same cores, so that its bf16 kernels
+// are K1's instances, compiled once. bf16 != 0 selects __nv_bfloat16
+// streams, else float. rel may be null (cross attention); kpad is bool
+// [B, S]; head_dim is a multiple of 8 up to 256 (common.cuh::with_head_dim).
+extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q,
+                                      const void* k, const void* pos_k, const void* v,
+                                      const void* rel, const void* kpad, void* out, void* lse,
+                                      int B, int H, int Tq, int S, long long rel_head_stride,
+                                      long long rel_row_stride, int causal, int skip_max,
+                                      int head_dim, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto l = static_cast<float*>(lse);
+  const int D = head_dim;
+  return mk::with_head_dim(head_dim, [&](auto d) {
+    constexpr int DP = decltype(d)::value;
+    if (bf16)
+      return mk::sm90::launch<DP, false, __nv_bfloat16>(q, pos_q, k, pos_k, v, rel, kpad, out, l,
+                                                        B, H, Tq, S, S, rel_head_stride,
+                                                        rel_row_stride, causal, skip_max, D, st);
+    return mk::flash_fwd::launch<DP, float, true>(q, pos_q, k, pos_k, v, rel, kpad, out, l, B,
+                                                  H, Tq, S, rel_head_stride, rel_row_stride,
+                                                  causal, skip_max, D, st);
   });
 }

@@ -74,10 +74,24 @@
 // as in the TPU kernel and the FMA kernels; causally masked tiles are not
 // skipped for the same reason.
 //
-// The tile width DP is a template parameter, compiled at 32, 64, 80 and 128
-// (its tiles as flash_fwd_sm90.cuh lays them out, sm90.cuh::HeadTile); the
-// head dim D <= DP is an argument: the tiles' columns past D are zeros,
-// which change no product, and no gradient column past D is stored.
+// The tile width DP is a template parameter, compiled at 32, 64, 80, 128,
+// 192 and 256 (its tiles as flash_fwd_sm90.cuh lays them out,
+// sm90.cuh::HeadTile); the head dim D <= DP is an argument: the tiles'
+// columns past D are zeros, which change no product, and no gradient column
+// past D is stored.
+//
+// Past DP 128 (K4 tiled over D). A whole-width gradient would be DP / 2 fp32
+// registers a thread, and the resident and streamed tiles at 3 stages would
+// not fit (316 KB at 192, 414 KB at 256). Each gradient's columns split into
+// halves of 128 (Layout::NCH, a grid dimension, as K1's output): a CTA owns
+// one (b, h, 64-key or 64-row tile, column half), rebuilds P and dW from the
+// full-width score and dP products, as the DP 128 launches already do per
+// gradient, and accumulates its half (64 registers) against the half's
+// 64-column boxes of the stage's tile. The key-major launches stay dv, dk,
+// dpos_k and the query-major ones dq, dpos_q, as at 128. The resident and
+// streamed tiles keep their width, in one stage (BwdLayout::STAGES; 166 KB
+// at 192, 217 KB at 256): each element's sums are the DP 128 instance's, in
+// the same order. Only the first half's CTAs write drel's partial.
 //
 // Bound. At the encoder train shape (B4 H12 T=S=980 D64) the function is 8
 // [T, S] x 64 products (the two score products, dP, dv, dq, dk, dpos_q,
@@ -88,9 +102,10 @@
 // At ofa_huge's train shape (B4 H16 T=S=980 D80) 8 products are 78.7 GFLOP:
 // 0.080 ms. ptxas (CUDA 12.8) registers, key-major / query-major: 170 / 191
 // at DP 32; 212 / 219 at 64; 196 (dv and dk), 153 (dpos_k) / 229 at 80; 145
-// (dv), 178 (dk), 178 (dpos_k) / 219, 219 at 128; no spills, so one CTA of
-// 160 threads per SM; chip_smoke.py's build phase prints the report of each
-// build.
+// (dv), 178 (dk), 178 (dpos_k) / 219, 219 at 128; 153, 174, 174 / 212, 212
+// at 192; 148, 172, 172 / 214, 214 at 256 (shared memory 167,448 and
+// 216,600 bytes); no spills, so one CTA of 160 threads per SM;
+// chip_smoke.py's build phase prints the report of each build.
 #pragma once
 
 #include "flash_fwd_sm90.cuh"
@@ -104,7 +119,9 @@ constexpr uint32_t REL_TILE = BQ * REL_STRIDE * 2;   // bytes; two, one per tile
 
 template <int DP>
 struct BwdLayout {
-  static constexpr uint32_t TILE = Layout<DP>::TILE, STAGE = Layout<DP>::STAGE;
+  static constexpr int STAGES = DP <= 128 ? 3 : 1;  // ring depth
+  static constexpr int VW = Layout<DP>::VW, NCH = Layout<DP>::NCH;  // a CTA's gradient columns
+  static constexpr uint32_t TILE = Layout<DP>::TILE, STAGE = 3 * TILE;
   static constexpr uint32_t OFF_RING = 3 * TILE;  // after the 3 resident tiles
   static constexpr uint32_t OFF_ROWS = OFF_RING + STAGES * STAGE;
   static constexpr uint32_t OFF_REL = OFF_ROWS + STAGES * ROWS;
@@ -183,7 +200,8 @@ __device__ __forceinline__ void zero(float (&a)[R]) {
 
 // This thread's two rows (accumulator halves hh = 0, 1) of a 64 x DP fp32
 // accumulator, its first D columns rounded to bf16, at out + off[hh] (rows
-// with off < 0 skipped).
+// with off < 0 skipped). A column half passes out + its first column and D
+// less that column.
 template <int DP>
 __device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], __nv_bfloat16* out,
                                            const long long (&off)[2], int cq, int D) {
@@ -199,7 +217,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], __nv_bflo
 }
 
 // The gradients of kOut's bits among dv, dk and dpos_k for one (b, h,
-// 64-key tile). maps: q, pos_q, dO, k, pos_k, v.
+// 64-key tile, column half): block x is key tile x / NCH, half x % NCH.
+// maps: q, pos_q, dO, k, pos_k, v.
 template <int DP, int kOut>
 __global__ void __launch_bounds__(NT, 1) bwd_kv(
     const __grid_constant__ Maps<DP, 6> maps, const __nv_bfloat16* __restrict__ rel,
@@ -208,6 +227,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     __nv_bfloat16* __restrict__ dpk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
   using Lay = BwdLayout<DP>;
+  constexpr int STAGES = Lay::STAGES, VW = Lay::VW;
   constexpr uint32_t TILE = Lay::TILE;
   constexpr bool kDv = kOut & KV_DV, kDk = kOut & KV_DK, kDpk = kOut & KV_DPK;
   constexpr bool kW = kDk || kDpk;  // dW needed (else P alone, no dP product)
@@ -223,7 +243,10 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
   auto stage = [=](int st) { return base + Lay::OFF_RING + Lay::STAGE * st; };  // q, pos_q, dO
   auto rows = [=](int st) { return rows_base + 2 * BQ * st; };  // lse[64], dsum[64]
 
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x / Lay::NCH * BK, h = blockIdx.y, b = blockIdx.z;
+  const int half = blockIdx.x % Lay::NCH, c0 = VW * half;  // this CTA's gradient columns
+  const uint32_t cols = DP <= 128 ? 0u : 2u * half * HeadTile<DP>::LO_BOX;  // their boxes
+  const int nbox = Layout<DP>::vboxes(half);
   const int bh = b * H + h;
   const int n = (Tq + BQ - 1) / BQ;
 
@@ -278,7 +301,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     key_pad[hh] = key_ok[hh] && kpad[(long long)b * S + s_of[hh]];
   }
 
-  float adv[kDv ? DP / 2 : 1], adk[kDk ? DP / 2 : 1], adpk[kDpk ? DP / 2 : 1], sc[32], dp[32];
+  float adv[kDv ? VW / 2 : 1], adk[kDk ? VW / 2 : 1], adpk[kDpk ? VW / 2 : 1], sc[32], dp[32];
   uint32_t pa[16], wa[16];
   if constexpr (kDv) zero(adv);
   if constexpr (kDk) zero(adk);
@@ -322,9 +345,10 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     }
     if constexpr (kDv) to_a_fragments(sc, pa);
     if constexpr (kW) to_a_fragments(dp, wa);
-    if constexpr (kDv) issue_pv<DP>(adv, pa, stage(st) + 2 * TILE);  // dv     += P^T . dO
-    if constexpr (kDk) issue_pv<DP>(adk, wa, stage(st));             // dk     += dW^T . q
-    if constexpr (kDpk) issue_pv<DP>(adpk, wa, stage(st) + TILE);    // dpos_k += dW^T . pos_q
+    if constexpr (kDv) issue_pv<DP>(adv, pa, stage(st) + 2 * TILE + cols, nbox);  // dv += P^T.dO
+    if constexpr (kDk) issue_pv<DP>(adk, wa, stage(st) + cols, nbox);            // dk += dW^T.q
+    if constexpr (kDpk)  // dpos_k += dW^T . pos_q
+      issue_pv<DP>(adpk, wa, stage(st) + TILE + cols, nbox);
     wgmma_wait();
     if constexpr (kDv) fence_regs(adv);
     if constexpr (kDk) fence_regs(adk);
@@ -335,14 +359,15 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
   long long off[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) off[hh] = key_ok[hh] ? ((long long)bh * S + s_of[hh]) * D : -1;
-  if constexpr (kDk) store_rows<DP>(adk, dk, off, cq, D);
-  if constexpr (kDpk) store_rows<DP>(adpk, dpk, off, cq, D);
-  if constexpr (kDv) store_rows<DP>(adv, dv, off, cq, D);
+  if constexpr (kDk) store_rows<VW>(adk, dk + c0, off, cq, D - c0);
+  if constexpr (kDpk) store_rows<VW>(adpk, dpk + c0, off, cq, D - c0);
+  if constexpr (kDv) store_rows<VW>(adv, dv + c0, off, cq, D - c0);
 }
 
 // The gradients of kOut's bits among dq and dpos_q, and this batch row's dW
-// (drel's partial, where drel_part is not null), for one (b, h, 64-row q
-// tile). maps: q, pos_q, dO, k, pos_k, v.
+// (drel's partial, where drel_part is not null: the first half's CTAs), for
+// one (b, h, 64-row q tile, column half): block x is q tile x / NCH, half
+// x % NCH. maps: q, pos_q, dO, k, pos_k, v.
 template <int DP, int kOut>
 __global__ void __launch_bounds__(NT, 1) bwd_q(
     const __grid_constant__ Maps<DP, 6> maps, const __nv_bfloat16* __restrict__ rel,
@@ -351,6 +376,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     __nv_bfloat16* __restrict__ dpq, float* __restrict__ drel_part, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
   using Lay = BwdLayout<DP>;
+  constexpr int STAGES = Lay::STAGES, VW = Lay::VW;
   constexpr bool kDq = kOut & Q_DQ, kDpq = kOut & Q_DPQ;
   constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
@@ -361,7 +387,10 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
   auto stage = [=](int st) { return base + Lay::OFF_RING + Lay::STAGE * st; };  // k, pos_k, v
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x / Lay::NCH * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int half = blockIdx.x % Lay::NCH, c0 = VW * half;  // this CTA's gradient columns
+  const uint32_t cols = DP <= 128 ? 0u : 2u * half * HeadTile<DP>::LO_BOX;  // their boxes
+  const int nbox = Layout<DP>::vboxes(half);
   const int bh = b * H + h;
   const int n = (S + BK - 1) / BK;
 
@@ -400,7 +429,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
   const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
   const uint8_t* kp = kpad + (long long)b * S;
   // this row's dW partial of drel: [H, Tq, S] fp32 of batch row b
-  float* const part = drel_part ? drel_part + (long long)b * H * Tq * S : nullptr;
+  float* const part = drel_part && half == 0 ? drel_part + (long long)b * H * Tq * S : nullptr;
   const bool part_vec = S % 2 == 0;  // then a column pair is one aligned float2
   float ls[2], ds[2];
 #pragma unroll
@@ -410,7 +439,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
   }
 
-  float adq[kDq ? DP / 2 : 1], adpq[kDpq ? DP / 2 : 1], sc[32], dp[32];
+  float adq[kDq ? VW / 2 : 1], adpq[kDpq ? VW / 2 : 1], sc[32], dp[32];
   uint32_t wa[16], wl[16];
   TileBias<__nv_bfloat16> bias;
   if constexpr (kDq) zero(adq);
@@ -456,12 +485,12 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     to_a_residual(dp, wa, wl);  // then its low part
     wgmma_fence();
     if constexpr (kDq) {  // dq += dW . k
-      issue_pv_products<DP>(adq, wa, stage(st));
-      issue_pv_products<DP>(adq, wl, stage(st));
+      issue_pv_cols<DP>(adq, wa, stage(st) + cols, nbox);
+      issue_pv_cols<DP>(adq, wl, stage(st) + cols, nbox);
     }
     if constexpr (kDpq) {  // dpos_q += dW . pos_k
-      issue_pv_products<DP>(adpq, wa, stage(st) + TILE);
-      issue_pv_products<DP>(adpq, wl, stage(st) + TILE);
+      issue_pv_cols<DP>(adpq, wa, stage(st) + TILE + cols, nbox);
+      issue_pv_cols<DP>(adpq, wl, stage(st) + TILE + cols, nbox);
     }
     wgmma_commit();
     wgmma_wait();
@@ -476,13 +505,14 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     const int t = t0 + 8 * hh;
     off[hh] = t < Tq ? ((long long)bh * Tq + t) * D : -1;
   }
-  if constexpr (kDq) store_rows<DP>(adq, dq, off, cq, D);
-  if constexpr (kDpq) store_rows<DP>(adpq, dpq, off, cq, D);
+  if constexpr (kDq) store_rows<VW>(adq, dq + c0, off, cq, D - c0);
+  if constexpr (kDpq) store_rows<VW>(adpq, dpq + c0, off, cq, D - c0);
 }
 
 // drel = the sum over the batch, in order, of the B partials [B, n], into
-// partial 0; four elements a thread where n keeps float4s aligned.
-__global__ void __launch_bounds__(256) drel_sum(float* __restrict__ part, long long n, int B) {
+// partial 0; four elements a thread where n keeps float4s aligned. Static:
+// each source that includes this header has its own (one launches it).
+static __global__ void __launch_bounds__(256) drel_sum(float* __restrict__ part, long long n, int B) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n % 4 == 0) {
@@ -509,7 +539,8 @@ __global__ void __launch_bounds__(256) drel_sum(float* __restrict__ part, long l
 }
 
 // Launches the key-major launches (one at DP 32 and 64, two at 80, three at
-// 128), the query-major ones (one, two at 128) and drel's sum on `stream`
+// 128 and past it), the query-major ones (one, two from 128; past 128 each
+// over two column halves) and drel's sum on `stream`
 // for bf16 streams [B, H, Tq or S, D] (16-byte aligned, D <= DP a multiple
 // of 8), bf16 rel (or null), K3's lse and the pre-pass's dsum (fp32
 // [B, H, Tq]); drel_part is fp32 [B, H, Tq, S] scratch whose first
@@ -533,7 +564,7 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
     constexpr int kOut = decltype(out)::value;
     static SmemOptIn opt_in;
     if (const int e = opt_in.ensure((const void*)bwd_kv<DP, kOut>, smem)) return (cudaError_t)e;
-    bwd_kv<DP, kOut><<<dim3((S + BK - 1) / BK, H, B), NT, smem, stream>>>(
+    bwd_kv<DP, kOut><<<dim3((S + BK - 1) / BK * Layout<DP>::NCH, H, B), NT, smem, stream>>>(
         maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs,
         rel_rs, rel_vec, causal, D);
@@ -543,7 +574,7 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
     constexpr int kOut = decltype(out)::value;
     static SmemOptIn opt_in;
     if (const int e = opt_in.ensure((const void*)bwd_q<DP, kOut>, smem)) return (cudaError_t)e;
-    bwd_q<DP, kOut><<<dim3((Tq + BQ - 1) / BQ, H, B), NT, smem, stream>>>(
+    bwd_q<DP, kOut><<<dim3((Tq + BQ - 1) / BQ * Layout<DP>::NCH, H, B), NT, smem, stream>>>(
         maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
         static_cast<__nv_bfloat16*>(dpq), part, H, Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
     return cudaGetLastError();
@@ -572,6 +603,17 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
   drel_sum<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(drel_part, n, B);
   return (int)cudaGetLastError();
 }
+
+// launch_bwd<dp>, for an instance dp of common.cuh::with_head_dim: defined in
+// flash_attention_bwd_sm90.cu, the one source that compiles these kernels
+// (flash_attention_bwd.cu's K4 entry calls it), so that the tensor-core and
+// the FMA kernels of K4 build in parallel.
+int launch_bwd_instance(int dp, const void* q, const void* pq, const void* k, const void* pk,
+                        const void* v, const void* rel, const void* kpad, const void* dout,
+                        const float* lse, const float* dsum, void* dq, void* dpq, void* dk,
+                        void* dpk, void* dv, float* drel_part, int B, int H, int Tq, int S,
+                        long long rel_hs, long long rel_rs, int causal, int D,
+                        cudaStream_t stream);
 
 }  // namespace sm90
 }  // namespace mk

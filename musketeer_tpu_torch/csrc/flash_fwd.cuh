@@ -32,10 +32,14 @@
 // per 8 shared-memory loads; row strides padded by one word keep the column
 // reads free of bank conflicts. Its floor is the fp32 FMA rate (~67 TFLOP/s),
 // about 1 ms a call; flash_fwd_sm90.cuh is the tensor-core version. The
-// tile width DP is a template parameter, compiled at 32, 64, 80 and 128 (a
-// head dim D runs on the smallest DP >= D, common.cuh::with_head_dim): a
-// thread owns DP / 16 output columns of each of its 4 rows; the staged
-// columns past D are zeros and the stores skip them.
+// tile width DP is a template parameter, compiled at 32, 64, 80, 128, 192 and
+// 256 (a head dim D runs on the smallest DP >= D, common.cuh::with_head_dim):
+// a thread owns DP / 16 output columns of each of its rows; the staged
+// columns past D are zeros and the stores skip them. Past DP 128 the tiles
+// are 32 rows and 32 keys (Dims::BQ, BK; a thread then owns a 2 x 2 score
+// tile): 64-row fp32 tiles of [q|pos_q], [k|pos_k] and v would not fit a
+// block's shared memory (345 KB at 256; 168 KB at 32 rows). ptxas (CUDA
+// 12.8): 64 to 80 registers there, 32 bytes of spill in K3's instance at 256.
 #pragma once
 
 #include <stdint.h>
@@ -45,18 +49,19 @@
 namespace mk {
 namespace flash_fwd {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per tile
-constexpr int NT = 256;        // threads: 16 x 16, each a 4x4 tile
-constexpr int PS = BK + 1;     // shared row strides, +1 word against bank conflicts
+constexpr int NT = 256;        // threads: 16 x 16, each an RI x CJ score tile
 constexpr float NEG = -1e9f;
 
-// The shared-memory layout at tile width DP.
+// The tiles and the shared-memory layout at tile width DP.
 template <int DP>
 struct Dims {
   static_assert(DP % 16 == 0, "a thread owns DP / 16 columns");
+  static constexpr int BQ = DP <= 128 ? 64 : 32;  // query rows per block
+  static constexpr int BK = BQ;                    // keys per tile
+  static constexpr int RI = BQ / 16, CJ = BK / 16;  // a thread's rows ty + 16 i, keys tx + 16 j
+  static constexpr int PS = BK + 1;  // shared row strides, +1 word against bank conflicts
   static constexpr int D2 = 2 * DP;  // depth of [q|pos_q]
-  static constexpr int QS = D2 + 1;  // shared row strides, +1 word against bank conflicts
+  static constexpr int QS = D2 + 1;
   static constexpr int VS = DP + 1;
   static constexpr int SMEM_FLOATS = BQ * QS + BK * QS + BK * VS + BQ * PS;
   static constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
@@ -69,7 +74,7 @@ template <int DP, typename T>
 __device__ __forceinline__ void stage_q(float* qs, const T* __restrict__ qb,
                                         const T* __restrict__ pqb, int q0, int Tq, int D) {
   constexpr int QS = Dims<DP>::QS;
-  for (int i = threadIdx.x; i < BQ * DP; i += NT) {
+  for (int i = threadIdx.x; i < Dims<DP>::BQ * DP; i += NT) {
     const int r = i / DP, c = i % DP, t = q0 + r;
     float a = 0.f, p = 0.f;
     if (t < Tq && c < D) {
@@ -88,7 +93,7 @@ __device__ __forceinline__ void stage_kv(float* ks, float* vs, const T* __restri
                                          const T* __restrict__ pkb, const T* __restrict__ vb,
                                          int k0, int S, int D) {
   constexpr int QS = Dims<DP>::QS, VS = Dims<DP>::VS;
-  for (int i = threadIdx.x; i < BK * DP; i += NT) {
+  for (int i = threadIdx.x; i < Dims<DP>::BK * DP; i += NT) {
     const int r = i / DP, c = i % DP, s = k0 + r;
     float a = 0.f, p = 0.f, w = 0.f;
     if (s < S && c < D) {
@@ -102,43 +107,70 @@ __device__ __forceinline__ void stage_kv(float* ks, float* vs, const T* __restri
   }
 }
 
+// acc[i][j] = sum over d < N of a[(ty + 16 i) * AS + d] * b[(tx + 16 j) * BS + d]
+// in fp32: one sequential chain of FMAs, or with kSplit (past DP 128, N of 256
+// and more) four interleaved chains (d % 4) added pairwise at the end, which
+// keep a deep dot's rounding nearer cuBLAS's blocked sums (one 512-deep chain
+// put K4's fp32 dv 1.2e-5 of max|dv| from plain on an H100).
+template <int R, int C, int N, int AS, int BS, bool kSplit>
+__device__ __forceinline__ void tile_dot(const float* a, const float* b, int tx, int ty,
+                                         float (&acc)[R][C]) {
+  constexpr int P = kSplit ? 4 : 1;
+  static_assert(N % P == 0, "whole groups of the interleaved chains");
+  float part[P][R][C];
+#pragma unroll
+  for (int u = 0; u < P; ++u)
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) part[u][i][j] = 0.f;
+#pragma unroll (4 / P)
+  for (int d0 = 0; d0 < N; d0 += P) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int d = d0 + u;
+      float x[R], y[C];
+#pragma unroll
+      for (int i = 0; i < R; ++i) x[i] = a[(ty + 16 * i) * AS + d];
+#pragma unroll
+      for (int j = 0; j < C; ++j) y[j] = b[(tx + 16 * j) * BS + d];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) part[u][i][j] = fmaf(x[i], y[j], part[u][i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      acc[i][j] = kSplit ? (part[0][i][j] + part[1 % P][i][j]) +
+                               (part[2 % P][i][j] + part[3 % P][i][j])
+                         : part[0][i][j];
+}
+
 // sc[i][j] = [q|pos_q][ty + 16 i] . [k|pos_k][tx + 16 j], one 2 DP-deep fp32 dot.
 template <int DP>
 __device__ __forceinline__ void score_tile(const float* qs, const float* ks, int tx, int ty,
-                                           float (&sc)[4][4]) {
-  constexpr int D2 = Dims<DP>::D2, QS = Dims<DP>::QS;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D2; ++d) {
-    float a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
-  }
+                                           float (&sc)[Dims<DP>::RI][Dims<DP>::CJ]) {
+  constexpr int QS = Dims<DP>::QS;
+  tile_dot<Dims<DP>::RI, Dims<DP>::CJ, Dims<DP>::D2, QS, QS, (DP > 128)>(qs, ks, tx, ty, sc);
 }
 
 // acc[i][j] += sum_c ps[ty + 16 i][c] . vs[c][tx + 16 j] over the BK keys of a tile.
 template <int DP>
 __device__ __forceinline__ void pv_tile(const float* ps, const float* vs, int tx, int ty,
-                                        float (&acc)[4][DP / 16]) {
-  constexpr int VS = Dims<DP>::VS;
+                                        float (&acc)[Dims<DP>::RI][DP / 16]) {
+  constexpr int VS = Dims<DP>::VS, PS = Dims<DP>::PS, RI = Dims<DP>::RI;
 #pragma unroll 4
-  for (int c = 0; c < BK; ++c) {
-    float p[4], w[DP / 16];
+  for (int c = 0; c < Dims<DP>::BK; ++c) {
+    float p[RI], w[DP / 16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PS + c];
+    for (int i = 0; i < RI; ++i) p[i] = ps[(ty + 16 * i) * PS + c];
 #pragma unroll
     for (int j = 0; j < DP / 16; ++j) w[j] = vs[c * VS + tx + 16 * j];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < DP / 16; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
   }
@@ -150,7 +182,9 @@ __global__ void __launch_bounds__(NT) kernel(
     const T* __restrict__ pk, const T* __restrict__ v, const T* __restrict__ rel,
     const uint8_t* __restrict__ kpad, T* __restrict__ out, float* __restrict__ lse, int H,
     int Tq, int S, long long rel_hs, long long rel_rs, int causal, int skip_max, int D) {
-  constexpr int QS = Dims<DP>::QS, VS = Dims<DP>::VS;
+  using Dm = Dims<DP>;
+  constexpr int QS = Dm::QS, VS = Dm::VS, PS = Dm::PS, BQ = Dm::BQ, BK = Dm::BK;
+  constexpr int RI = Dm::RI, CJ = Dm::CJ;
   extern __shared__ float smem[];
   float* qs = smem;            // [BQ][QS]  q | pos_q
   float* ks = qs + BQ * QS;    // [BK][QS]  k | pos_k
@@ -172,9 +206,9 @@ __global__ void __launch_bounds__(NT) kernel(
 
   stage_q<DP>(qs, qb, pqb, q0, Tq, D);
 
-  float m[4], l[4], acc[4][DP / 16];
+  float m[RI], l[RI], acc[RI][DP / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = skip_max ? 0.f : -CUDART_INF_F;
     l[i] = 0.f;
 #pragma unroll
@@ -186,15 +220,15 @@ __global__ void __launch_bounds__(NT) kernel(
     stage_kv<DP, T, true>(ks, vs, kb, pkb, vb, k0, S, D);
     __syncthreads();
 
-    float sc[4][4];
+    float sc[RI][CJ];
     score_tile<DP>(qs, ks, tx, ty, sc);
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i, t = q0 + r;
       float tmax = -CUDART_INF_F;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const int s = k0 + tx + 16 * j;
         float w = -CUDART_INF_F;  // past the end: no part of the softmax
         if (s < S) {
@@ -213,7 +247,7 @@ __global__ void __launch_bounds__(NT) kernel(
       const float scale = skip_max ? 1.f : expf(m[i] - mnew);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const float e = expf(sc[i][j] - mnew);
         rs += e;  // the denominator sums the unrounded e, as the TPU kernel does
         ps[r * PS + tx + 16 * j] = round_to<T>(e);
@@ -231,7 +265,7 @@ __global__ void __launch_bounds__(NT) kernel(
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= Tq) continue;
     const float denom = skip_max ? fmaxf(l[i], 1e-38f) : l[i];
@@ -251,7 +285,7 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
   constexpr size_t smem = Dims<DP>::SMEM_BYTES;
   static SmemOptIn opt_in;
   if (const int err = opt_in.ensure((const void*)kernel<DP, T, kLse>, smem)) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  const dim3 grid((Tq + Dims<DP>::BQ - 1) / Dims<DP>::BQ, H, B);
   kernel<DP, T, kLse><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pq), static_cast<const T*>(k),
       static_cast<const T*>(pk), static_cast<const T*>(v), static_cast<const T*>(rel),

@@ -29,12 +29,13 @@
 // Design. A CTA owns one (b, h, 64-row query tile), as the FMA core does (15
 // tiles x 192 heads = 2880 CTAs at the encoder shape), with one consumer
 // warpgroup (128 threads) and one producer warp. The tile width DP is a
-// template parameter, compiled at 32, 64, 80 and 128; a head dim D runs on
-// the smallest DP >= D (common.cuh::with_head_dim), D itself an argument.
+// template parameter, compiled at 32, 64, 80, 128, 192 and 256; a head dim D
+// runs on the smallest DP >= D (common.cuh::with_head_dim), D itself an
+// argument.
 //   - Operands. The producer loads the q and pos_q tiles once, then streams
 //     64-key tiles of k, pos_k and v (6 KB x DP / 16 a stage: 24 KB at DP
 //     64, 48 KB at DP 128; K5's first pass only k and pos_k) through a ring
-//     of STAGES stages, each by TMA into the swizzled layout wgmma reads,
+//     of 3 stages, each by TMA into the swizzled layout wgmma reads,
 //     with one mbarrier for "full" and one for "empty" per stage, so the next
 //     tile's copies overlap this tile's products. The tensor maps are 3-D
 //     over [B*H, rows, D] at the true D: rows past the end and columns past
@@ -61,6 +62,17 @@
 //   - K5 keeps its two passes in one CTA: repeating the score products costs
 //     little on tensor cores, where keeping a row block's fp32 scores in
 //     shared memory (64 x S x 4 bytes) would fit 227 KB only up to S ~ 880.
+//   - Past DP 128 (the instances 192 and 256) a whole-width output would be
+//     DP / 2 fp32 registers a thread (128 at 256), and q, pos_q and 3 stages
+//     of k, pos_k and v would not fit (271 KB at 192, 362 KB at 256). So the
+//     output's columns split over the grid (Layout::NCH column halves): a CTA
+//     owns one (b, h, 64-row q tile, 128-column half of v and out), computes
+//     the full-width scores (the same DP / 16 k-steps) and keeps the 64
+//     accumulator registers of DP 128; its stage holds k, pos_k and its
+//     half of v (one or two 64-column boxes), 2 stages deep (176 KB at 192,
+//     225 KB at 256). Each output element's sums are the DP 128 instance's,
+//     in the same order; the score products are repeated per half, as K5's
+//     second pass repeats them. K3's logsumexp is written by the first half.
 //
 // Bound. At the encoder shape (B16 H12 T=S=908 D64) the function is
 // ~60.8 GFLOP against ~150 MB: 0.0615 ms at 989 TFLOP/s bf16, set by the
@@ -71,7 +83,10 @@
 // 143, 156 at 80; 185, 188, 203 at 128; no spills. Two CTAs fit an SM below
 // 128 (shared memory 46,136 bytes a CTA at DP 32, 91,192 at 64, 113,720 at
 // 80); at 128 one (181,304 bytes), so no second CTA bounds its registers.
-// chip_smoke.py's build phase prints the report of each build.
+// Past 128, one CTA an SM too (181,288 bytes at 192, 230,440 at 256):
+// K1/K3, K5, K5 with fp32 rel 203, 207, 221 registers at 192 and 219, 217,
+// 225 at 256, no spills. chip_smoke.py's build phase prints the report of
+// each build.
 #pragma once
 
 #include <stdint.h>
@@ -84,20 +99,32 @@ namespace sm90 {
 
 constexpr int BQ = 64;                // query rows per CTA (one wgmma M)
 constexpr int BK = 64;                // keys per tile
-constexpr int STAGES = 3;             // ring depth
 constexpr int NC = 128;               // consumer threads: one warpgroup
 constexpr int NT = NC + 32;           // + the producer warp
 constexpr float NEG = -1e9f;
 
-// The shared-memory layout at instance width DP: 64-row tiles of HeadTile<DP>.
+// The shared-memory layout at instance width DP: 64-row tiles of HeadTile<DP>
+// (q, pos_q, k, pos_k) and of HeadTile<VW> (a CTA's columns of v).
 template <int DP>
 struct Layout {
-  static constexpr uint32_t TILE = HeadTile<DP>::BYTES;  // bytes of one 64-row bf16 tile
+  static constexpr int STAGES = DP <= 128 ? 3 : 2;  // ring depth
+  static constexpr int VW = DP <= 128 ? DP : 128;   // columns of v and out a CTA owns
+  static constexpr int NCH = (DP + VW - 1) / VW;    // column halves: 1, or 2 past DP 128
+  static constexpr uint32_t TILE = HeadTile<DP>::BYTES;   // bytes of one 64-row bf16 tile
+  static constexpr uint32_t VTILE = HeadTile<VW>::BYTES;  // bytes of a CTA's v tile
   static constexpr uint32_t OFF_KV = 2 * TILE;  // the ring, after q and pos_q
-  static constexpr uint32_t STAGE = 3 * TILE;   // k, pos_k, v
+  static constexpr uint32_t STAGE = 2 * TILE + VTILE;  // k, pos_k, v's columns
   static constexpr uint32_t OFF_BAR = OFF_KV + STAGES * STAGE;
   // + 1 KB of slack: the base is aligned to 1024 bytes, the 128-byte swizzle's period
   static constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
+  // the 64-column boxes of column half c (past DP 128; DP 192's second: one)
+  static __host__ __device__ constexpr int vboxes(int c) {
+    return DP <= 128 ? 0 : (DP / 64 - 2 * c < 2 ? DP / 64 - 2 * c : 2);
+  }
+  // bytes of column half c's v tile
+  static __host__ __device__ constexpr uint32_t vbytes(int c) {
+    return DP <= 128 ? TILE : vboxes(c) * HeadTile<DP>::LO_BOX;
+  }
 };
 
 // The tensor maps of N streams: lo[i] the 64-column boxes of stream i, hi[i]
@@ -120,6 +147,19 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const Maps<DP, N>& m, in
   for (int c = 0; c < HT::NHI; ++c)
     tma_load3(dst + HT::NLO * HT::LO_BOX + c * HT::HI_BOX, &m.hi[i], bar, 64 * HT::NLO + 16 * c,
               row, bh);
+}
+
+// column half c of stream i's rows row .. row + 63 (Layout::vbytes(c)): the
+// whole tile at DP <= 128, else its 64-column boxes 2 c and 2 c + 1 that exist
+template <int DP, int N>
+__device__ __forceinline__ void load_cols(uint32_t dst, const Maps<DP, N>& m, int i,
+                                          uint32_t bar, int row, int bh, int c) {
+  if constexpr (DP <= 128) {
+    load_tile(dst, m, i, bar, row, bh);
+  } else {
+    for (int b = 0; b < Layout<DP>::vboxes(c); ++b)
+      tma_load3(dst + b * HeadTile<DP>::LO_BOX, &m.lo[i], bar, 128 * c + 64 * b, row, bh);
+  }
 }
 
 
@@ -269,12 +309,27 @@ __device__ __forceinline__ void issue_pv_products(float (&acc)[DP / 2], const ui
   }
 }
 
-// issue_pv_products, committed, not waited.
+// issue_pv_products over a CTA's columns of a tile at sv: the whole tile at
+// DP <= 128; past it nbox 64-column boxes from sv (two, or DP 192's last
+// half: one, into the first 32 registers of acc).
 template <int DP>
-__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&pa)[16],
-                                         uint32_t sv) {
+__device__ __forceinline__ void issue_pv_cols(float (&acc)[Layout<DP>::VW / 2],
+                                              const uint32_t (&pa)[16], uint32_t sv, int nbox) {
+  if constexpr (DP <= 128) {
+    issue_pv_products<DP>(acc, pa, sv);
+  } else if (nbox == 2) {
+    issue_pv_products<128>(acc, pa, sv);
+  } else {
+    issue_pv_products<64>(*reinterpret_cast<float(*)[32]>(&acc[0]), pa, sv);
+  }
+}
+
+// issue_pv_cols, committed, not waited.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&acc)[Layout<DP>::VW / 2],
+                                         const uint32_t (&pa)[16], uint32_t sv, int nbox = 2) {
   wgmma_fence();
-  issue_pv_products<DP>(acc, pa, sv);
+  issue_pv_cols<DP>(acc, pa, sv, nbox);
   wgmma_commit();
   fence_regs(acc);
 }
@@ -312,6 +367,7 @@ __device__ __forceinline__ float fexp(float x) { return exp2f(x * 1.442695040888
 // tile's softmax made ptxas serialise every wgmma of the kernel (C7514) and
 // ran slower; the overlap comes from the second CTA on the SM instead.
 // maps: q, pos_q, k, pos_k, v; D: the head dim (a multiple of 8, <= DP).
+// Block x is (q tile, column half): q tile x / NCH, half x % NCH.
 template <int DP, bool kNorm, typename TR>
 __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     const __grid_constant__ Maps<DP, 5> maps, const TR* __restrict__ rel,
@@ -319,6 +375,7 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
     int skip_max, int D) {
   using Lay = Layout<DP>;
+  constexpr int STAGES = Lay::STAGES, VW = Lay::VW;
   constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -329,7 +386,8 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
   auto stage = [=](int st) { return base + Lay::OFF_KV + Lay::STAGE * st; };  // k, pos_k, v
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x / Lay::NCH * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int half = blockIdx.x % Lay::NCH, c0 = VW * half;  // this CTA's columns of v and out
   const int bh = b * H + h;
   const int ntiles = (S + BK - 1) / BK;
   const int n = kNorm ? 2 * ntiles : ntiles;
@@ -354,10 +412,10 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
         if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
         const int k0 = (it % ntiles) * BK;
         const bool with_v = !kNorm || it >= ntiles;  // K5's first pass needs no v
-        mbar_expect_tx(full(st), (with_v ? 3 : 2) * TILE);
+        mbar_expect_tx(full(st), 2 * TILE + (with_v ? Lay::vbytes(half) : 0));
         load_tile(stage(st), maps, 2, full(st), k0, bh);
         load_tile(stage(st) + TILE, maps, 3, full(st), k0, bh);
-        if (with_v) load_tile(stage(st) + 2 * TILE, maps, 4, full(st), k0, bh);
+        if (with_v) load_cols(stage(st) + 2 * TILE, maps, 4, full(st), k0, bh, half);
       }
     }
     return;  // no block-wide barrier follows
@@ -370,11 +428,11 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
   const uint8_t* kp = kpad + (long long)b * S;
   const TR* relh = rel ? rel + h * rel_hs : nullptr;
 
-  float m[2], l[2], rl[2], acc[DP / 2], sc[32];
+  float m[2], l[2], rl[2], acc[VW / 2], sc[32];
   uint32_t pa[16];
   TileBias<TR> bias;
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < VW / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     m[hh] = (!kNorm && skip_max) ? 0.f : -CUDART_INF_F;
@@ -409,7 +467,7 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
         l[hh] *= scale;
         m[hh] = mnew;
 #pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
+        for (int j = 0; j < VW / 8; ++j) {
           acc[4 * j + 2 * hh] *= scale;
           acc[4 * j + 2 * hh + 1] *= scale;
         }
@@ -467,7 +525,7 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     }
     if (pv) {
       to_a_fragments(sc, pa);  // rounded to bf16
-      issue_pv<DP>(acc, pa, stage(st) + 2 * TILE);
+      issue_pv<DP>(acc, pa, stage(st) + 2 * TILE, Lay::vboxes(half));
       wgmma_wait();
       fence_regs(acc);
     }
@@ -480,16 +538,16 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     const int t = t0 + 8 * hh;
     if (t >= Tq) continue;
     const float denom = kNorm ? 1.f : (skip_max ? fmaxf(l[hh], 1e-38f) : l[hh]);
-    __nv_bfloat16* o = out + ((long long)bh * Tq + t) * D + cq;
+    __nv_bfloat16* o = out + ((long long)bh * Tq + t) * D + c0 + cq;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      if (8 * j >= D) break;  // the zero-filled columns past D
+    for (int j = 0; j < VW / 8; ++j) {
+      if (c0 + 8 * j >= D) break;  // the zero-filled columns past D
       const float a = acc[4 * j + 2 * hh], c = acc[4 * j + 2 * hh + 1];
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
           kNorm ? __floats2bfloat162_rn(a, c) : __floats2bfloat162_rn(a / denom, c / denom);
     }
     // K3: the row's logsumexp, from one thread of the quad that holds it
-    if (!kNorm && lse && (lane & 3) == 0)
+    if (!kNorm && lse && half == 0 && (lane & 3) == 0)
       lse[(long long)bh * Tq + t] = skip_max ? logf(denom) : m[hh] + logf(denom);
   }
 }
@@ -527,7 +585,7 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
   constexpr size_t smem = Layout<DP>::SMEM_BYTES;
   static SmemOptIn opt_in;
   if (const int err = opt_in.ensure((const void*)kernel<DP, kNorm, TR>, smem)) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  const dim3 grid((Tq + BQ - 1) / BQ * Layout<DP>::NCH, H, B);
   kernel<DP, kNorm, TR><<<grid, NT, smem, stream>>>(
       maps, static_cast<const TR*>(rel),
       static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp,

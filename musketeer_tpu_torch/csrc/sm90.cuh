@@ -4,7 +4,7 @@
 // products and at N = 64 and 128 for K8, with A from shared memory or from
 // registers; descriptors of 128-byte and 32-byte swizzled and of unswizzled
 // tiles; HeadTile and head_maps, the layout and tensor maps of a bf16 head
-// tile at the instance widths 32, 64, 80 and 128), the
+// tile at the instance widths 32, 64, 80, 128, 192 and 256), the
 // exact int8 -> bf16 widening, programmatic dependent launch, and the
 // run-time lookup of cuTensorMapEncodeTiled. Used by flash_fwd_sm90.cuh and
 // flash_bwd_sm90.cuh (K1, K3, K4, K5), skinny_gemm_sm90.cuh (K2, K2-q8, K7),
@@ -550,15 +550,17 @@ inline int bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_
 }
 
 // The shared-memory layout of a 64-row bf16 head tile at instance width DP
-// (32, 64, 80, 128; common.cuh::with_head_dim): NLO boxes of 64 columns under
+// (32, 64, 80, 128, 192, 256; common.cuh::with_head_dim): NLO boxes of 64 columns under
 // the 128-byte swizzle (64 rows of 128 bytes, 8 KB each), then NHI boxes of
 // 16 columns under the 32-byte swizzle (64 rows of 32 bytes, 2 KB each),
 // since a row wider than 128 bytes, or of 64 bytes, is not one 128-byte
-// swizzle row: 32 = 2 x 16, 64 = 64, 80 = 64 + 16, 128 = 2 x 64. Each box
+// swizzle row: 32 = 2 x 16, 64 = 64, 80 = 64 + 16, 128 = 2 x 64, 192 = 3 x 64,
+// 256 = 4 x 64. Each box
 // has its own wgmma descriptors; a 16-column k-step lies in one box.
 template <int DP>
 struct HeadTile {
-  static_assert(DP == 32 || DP == 64 || DP == 80 || DP == 128, "instances: 32, 64, 80, 128");
+  static_assert(DP == 32 || DP == 64 || DP == 80 || DP == 128 || DP == 192 || DP == 256,
+                "instances: 32, 64, 80, 128, 192, 256");
   static constexpr int NLO = DP / 64, NHI = (DP % 64) / 16;
   static constexpr uint32_t LO_BOX = 64 * 128, HI_BOX = 64 * 32;
   static constexpr uint32_t BYTES = 64 * DP * 2;

@@ -121,14 +121,18 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 # The instances of the attention kernels (K1, K3, K4, K5, K6, K7), on either
-# core (csrc/common.cuh::with_head_dim): tile widths of 32, 64, 80 and 128
-# columns. A head dim D of 1 to MAX_HEAD_DIM runs on the smallest instance
-# that covers it (``head_instance``), its tiles' columns past D zeros; the
-# wrappers hand the kernels a D that is a multiple of 8 (K6's int8 cache: of
-# 16), copying any other into a zero-padded buffer first (``pad_head``). The
+# core (csrc/common.cuh::with_head_dim): tile widths of 32, 64, 80, 128, 192
+# and 256 columns. A head dim D of 1 to MAX_HEAD_DIM runs on the smallest
+# instance that covers it (``head_instance``), its tiles' columns past D
+# zeros; the wrappers hand the kernels a D that is a multiple of 8 (K6's int8
+# cache: of 16), copying any other into a zero-padded buffer first
+# (``pad_head``). Past ``SPLIT_HEAD_DIM`` the tensor-core attention core and
+# K4 split each output's columns into halves of 128 over the grid
+# (``col_halves``; the wrappers count those launches in ``.col_split``). The
 # plain versions take any head dim.
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128, 192, 256)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+SPLIT_HEAD_DIM = 128
 
 
 def check_head_dim(name: str, head_dim: int) -> None:
@@ -145,6 +149,13 @@ def head_instance(head_dim: int, unit: int = 8) -> int:
     """The instance (tile width) a head dim runs on: the smallest of
     ``HEAD_DIMS`` that covers ``head_dim`` rounded up to ``unit``."""
     return next(n for n in HEAD_DIMS if n >= -(-head_dim // unit) * unit)
+
+
+def col_halves(head_dim: int) -> int:
+    """The column halves of 128 that the tensor-core attention core (K1, K3,
+    K5) and K4 split a head dim's outputs into: 1 up to ``SPLIT_HEAD_DIM``, 2
+    past it (csrc/flash_fwd_sm90.cuh::Layout::NCH)."""
+    return 1 if head_instance(head_dim) <= SPLIT_HEAD_DIM else 2
 
 
 def pad_head(t: torch.Tensor, unit: int = 8) -> torch.Tensor:

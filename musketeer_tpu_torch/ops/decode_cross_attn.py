@@ -25,11 +25,13 @@ copies start before the previous kernel on the stream ends: that kernel must
 not write the cache), its launches also counted in
 ``decode_cross_attention_int8.launches_sm90``; fp32 on the FMA kernel
 (``csrc/cross_attn.cuh``). Both are compiled at the tile widths
-``_build.HEAD_DIMS`` (32, 64, 80, 128): a head dim up to 128 runs on the
-smallest that covers it, one that is not a multiple of 16 (an int8 row of
-whole 16-byte units) on zero-padded copies of q and the cache (counted in
-``.padded``); a head dim past 128, or unaligned inputs, raise; it never
-falls back from one version to another. Any beam count and S: ``plan``
+``_build.HEAD_DIMS`` (32, 64, 80, 128, 192, 256): a head dim up to 256 runs
+on the smallest that covers it, one that is not a multiple of 16 (an int8
+row of whole 16-byte units) on zero-padded copies of q and the cache
+(counted in ``.padded``), one past 128 on a shallower ring of int8 tiles,
+one CTA an SM (counted in ``.wide``); a head dim past 256, or unaligned
+inputs, raise; it never falls back from one version to another. Any beam
+count and S: ``plan``
 picks beam tiles of 16 (``.beam_tiled``) and, past the whole score row's
 fit in shared memory, scores in chunks over two passes (``.chunked``).
 """
@@ -39,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_stack import BEAM_TILE, cross_plan
+from .decode_stack import BEAM_TILE, cross_plan, cross_stages
 
 NEG_INF = -1e9
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -50,11 +52,14 @@ def sm90_smem(Kb: int, S: int, D: int = 64) -> int:
     """Shared memory of the tensor-core kernel's whole-row route
     (``smem_bytes``) at head dim D, on its instance DP
     (``_build.head_instance``), for a beam tile of min(Kb, 16) beams: the
-    8-stage ring of 64 x DP int8 tiles, two 64 x DP bf16 value tiles, the
-    mbarriers, the fp32 scores ``[kb, S']`` and the k_scale, v_scale and bias
-    rows, the bf16 probabilities ``[kb, S' + 8]`` (S' = S rounded up to 64)."""
+    ring of ``cross_stages`` 64 x DP int8 tiles, two 64 x DP bf16 value
+    tiles, the mbarriers, the fp32 scores ``[kb, S']`` and the k_scale,
+    v_scale and bias rows, the bf16 probabilities ``[kb, S' + 8]`` (S' = S
+    rounded up to 64)."""
     kb, sp, dp = min(Kb, BEAM_TILE), -(-S // 64) * 64, _build.head_instance(D, 16)
-    return 1024 + 8 * 64 * dp + 2 * 128 * dp + 128 + 4 * (kb * sp + 3 * sp) + 2 * kb * (sp + 8)
+    st = cross_stages(dp)
+    return (1024 + st * 64 * dp + 2 * 128 * dp + 16 * st + 4 * (kb * sp + 3 * sp)
+            + 2 * kb * (sp + 8))
 
 
 def plan(Kb: int, S: int, D: int, fp32: bool, budget: int = _build.SMEM_MAX) -> dict:
@@ -146,6 +151,7 @@ def decode_cross_attention_int8(
     decode_cross_attention_int8.launches_sm90 += kind == "sm90"
     decode_cross_attention_int8.beam_tiled += route["beam_tiles"] > 1
     decode_cross_attention_int8.chunked += route["chunk"] < S
+    decode_cross_attention_int8.wide += _build.head_instance(Dp, 16) > _build.SPLIT_HEAD_DIM
     if Dp != D:  # ran on zero-padded copies
         decode_cross_attention_int8.padded += 1
         out = out[..., :D].contiguous()
@@ -157,3 +163,4 @@ decode_cross_attention_int8.launches_sm90 = 0  # the tensor-core route (bf16)
 decode_cross_attention_int8.padded = 0  # the launches that ran on zero-padded copies
 decode_cross_attention_int8.beam_tiled = 0  # the launches at more than 16 beams (beam tiles)
 decode_cross_attention_int8.chunked = 0  # the launches whose scores ran in chunks
+decode_cross_attention_int8.wide = 0  # the launches on an instance past 128 (a shallower ring)

@@ -36,12 +36,15 @@ split over the card's SMs as ``split_plan`` says; the cross-attention on
 launch), its launches also counted in
 ``decode_stack_step.launches_sm90``; fp32 on the FMA kernels, which the exact
 fp32 checks hold to the plain version. Both routes are compiled at the tile
-widths ``_build.HEAD_DIMS`` (32, 64, 80, 128): a head dim up to 128 runs on
-the smallest that covers it; where it is not a multiple of 8 the four
-caches go to the kernels as zero-padded copies (rows of whole 16-byte
+widths ``_build.HEAD_DIMS`` (32, 64, 80, 128, 192, 256): a head dim up to 256
+runs on the smallest that covers it; where it is not a multiple of 8 the
+four caches go to the kernels as zero-padded copies (rows of whole 16-byte
 units; counted in ``.padded``), the hidden state keeping the model's head
-stride. A head dim past 128, or unaligned bf16 inputs, raise; it never falls
-back from one version to another.
+stride. Past 128 (``.wide``) the cross-attention's ring is shallower
+(``cross_stages``), the bf16 self-attention holds q in shared memory and
+the fp32 cross-attention takes each key row 64 dims at a time. A head dim
+past 256, or unaligned bf16 inputs, raise; it never falls back from one
+version to another.
 
 Both routes take every beam count, encoder length S, cache length Tmax and
 width d that the Pallas kernel takes; ``stack_plan`` names the route a step
@@ -222,14 +225,22 @@ def _products(d: int, f: int) -> Dict[str, Tuple[int, int]]:
     return {"qkv": (3 * d, d), "dd": (d, d), "fc1": (f, d), "fc2": (d, f)}
 
 
+def cross_stages(dp: int) -> int:
+    """The depth of the bf16 cross-attentions' rings of K/V tiles at instance
+    dp (``decode_attn::stages``, K6's too): 8 up to 128, then as many as 8
+    tiles of 128 columns take (5 at 192, 4 at 256)."""
+    return 8 if dp <= _build.SPLIT_HEAD_DIM else 8 * 128 // dp
+
+
 def _cross_smem(Kb: int, S: int, D: int = 64) -> int:
     """Shared memory of the bf16 cross-attention's whole-row route at head dim
     D, on its instance DP (``_build.head_instance``; ``decode_attn::smem_bytes``),
-    for a beam tile of min(Kb, 16) beams: the 8-stage ring of 64 x DP bf16
-    tiles, the mbarriers, the fp32 scores and bias row, the bf16
+    for a beam tile of min(Kb, 16) beams: the ring of ``cross_stages`` 64 x DP
+    bf16 tiles, the mbarriers, the fp32 scores and bias row, the bf16
     probabilities."""
-    kb, sp = min(Kb, BEAM_TILE), -(-S // 64) * 64
-    return 1024 + 8 * 128 * _build.head_instance(D) + 128 + 4 * (kb + 1) * sp + 2 * kb * (sp + 8)
+    kb, sp, dp = min(Kb, BEAM_TILE), -(-S // 64) * 64, _build.head_instance(D)
+    st = cross_stages(dp)
+    return 1024 + st * 128 * dp + 16 * st + 4 * (kb + 1) * sp + 2 * kb * (sp + 8)
 
 
 def fma_cross_chunk(Kb: int, S: int, D: int, budget: int = _build.SMEM_MAX) -> int:
@@ -373,6 +384,7 @@ def decode_stack_step(
         _build.check(err, "decode_stack_step")
     decode_stack_step.launches += 1
     decode_stack_step.padded += self_k.shape[-1] != hd
+    decode_stack_step.wide += _build.head_instance(hd) > _build.SPLIT_HEAD_DIM
     decode_stack_step.beam_tiled += plan["beam_tiles"] > 1
     decode_stack_step.chunked += plan["chunk"] < S
     decode_stack_step.cache_chunked += plan["cache_chunked"]
@@ -383,6 +395,7 @@ def decode_stack_step(
 decode_stack_step.launches = 0  # K7, either route
 decode_stack_step.launches_sm90 = 0  # K7 on the tensor-core route (bf16)
 decode_stack_step.padded = 0  # the launches that ran on zero-padded caches
+decode_stack_step.wide = 0  # the launches on an instance past 128 (cross_stages, q in shared memory)
 # the launches that ran a route of stack_plan: more than 16 beams (beam tiles),
 # the cross scores in chunks, the self cache past SA_CHUNK, d % 64 != 0
 decode_stack_step.beam_tiled = 0

@@ -28,9 +28,11 @@ kernel (``csrc/flash_attention.cu``) for CUDA tensors, never falling back
 from one to another, and counts its launches. bf16 streams run on the
 tensor-core core that K1 also uses (``csrc/flash_fwd_sm90.cuh``), fp32 on the
 FMA kernel, both compiled at the tile widths ``_build.HEAD_DIMS`` (32, 64,
-80, 128): a head dim up to 128 runs on the smallest that covers it, one that
-is not a multiple of 8 on zero-padded copies (counted in ``.padded``). Like
-K1 they have no backward and refuse inputs that autograd tracks.
+80, 128, 192, 256): a head dim up to 256 runs on the smallest that covers
+it, one that is not a multiple of 8 on zero-padded copies (counted in
+``.padded``), one past 128 in bf16 with the output's columns split into
+halves of 128 (counted in ``.col_split``). Like K1 they have no backward and
+refuse inputs that autograd tracks.
 """
 
 from __future__ import annotations
@@ -128,7 +130,9 @@ def _launch(name: str, q, k, v, pos_q, pos_k, rel: Optional[torch.Tensor], kpad,
 
 
 def _sliced(fn, out: torch.Tensor, D: int) -> torch.Tensor:
-    """K5's output cut back to the head dim where it ran on zero-padded copies."""
+    """K5's output cut back to the head dim where it ran on zero-padded copies;
+    the launch counted in ``fn.col_split`` where it split its columns."""
+    fn.col_split += _build.col_halves(D) > 1 and out.dtype == torch.bfloat16
     if out.shape[-1] == D:
         return out
     fn.padded += 1
@@ -182,3 +186,5 @@ flash_attention_bias.launches = 0
 flash_cross_attention.launches = 0
 flash_attention_bias.padded = 0  # the launches that ran on zero-padded copies
 flash_cross_attention.padded = 0
+flash_attention_bias.col_split = 0  # the bf16 launches split into column halves (D > 128)
+flash_cross_attention.col_split = 0

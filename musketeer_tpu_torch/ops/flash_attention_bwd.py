@@ -33,11 +33,13 @@ takes dq|dpos_q on dW's high and low bf16 parts; fp32 runs on the FMA
 kernels in full fp32. The tensor-core kernels read their streams by TMA, so
 bf16 q, k, v, pos_q, pos_k (and K4's o and do) must start on 16-byte
 boundaries; the wrappers raise otherwise. Both cores are compiled at the
-tile widths ``_build.HEAD_DIMS`` (32, 64, 80, 128): a head dim up to 128 runs
-on the smallest that covers it, one that is not a multiple of 8 on
-zero-padded copies (``flash_attention_infer.padded_streams``; counted in
-``.padded``); K4's key-major work is two launches at 80 and three at 128,
-its query-major work two at 128 (``csrc/flash_bwd_sm90.cuh``).
+tile widths ``_build.HEAD_DIMS`` (32, 64, 80, 128, 192, 256): a head dim up
+to 256 runs on the smallest that covers it, one that is not a multiple of 8
+on zero-padded copies (``flash_attention_infer.padded_streams``; counted in
+``.padded``); K4's key-major work is two launches at 80 and three from 128,
+its query-major work two from 128 (``csrc/flash_bwd_sm90.cuh``); past 128
+the bf16 launches of both split each output's columns into halves of 128
+over the grid (counted in ``.col_split``).
 """
 
 from __future__ import annotations
@@ -130,6 +132,7 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False,
         )
     _build.check(err, name)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
     if out.shape[-1] != D:  # ran on zero-padded copies
         flash_attention_fwd.padded += 1
         out = out[..., :D].contiguous()
@@ -178,6 +181,7 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
         )
     _build.check(err, name)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
     if drel is not None and drel.dim() == 4:
         drel = drel[0]
     if q.shape[-1] != D:  # ran on zero-padded copies
@@ -190,6 +194,8 @@ flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_fwd.padded = 0  # the launches that ran on zero-padded copies
 flash_attention_bwd.padded = 0
+flash_attention_fwd.col_split = 0  # the bf16 launches split into column halves (D > 128)
+flash_attention_bwd.col_split = 0
 
 
 # ---------------------------------------------------------------------------

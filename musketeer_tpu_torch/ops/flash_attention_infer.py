@@ -17,11 +17,13 @@ attention.
 and the CUDA kernel (``csrc/flash_attention_infer.cu``) for CUDA tensors: bf16
 on the tensor-core core (``csrc/flash_fwd_sm90.cuh``, wgmma fed by TMA), fp32
 on the FMA core (``csrc/flash_fwd.cuh``), each compiled at the tile widths
-``_build.HEAD_DIMS`` (32, 64, 80, 128): a head dim of 1 to 128 runs on the
-smallest that covers it, one that is not a multiple of 8 on zero-padded
-copies of the streams (``_build.pad_head``; counted in ``.padded``); a head
-dim past 128 raises on CUDA. It never falls back from one to another. It
-has no backward and refuses
+``_build.HEAD_DIMS`` (32, 64, 80, 128, 192, 256): a head dim of 1 to 256
+runs on the smallest that covers it, one that is not a multiple of 8 on
+zero-padded copies of the streams (``_build.pad_head``; counted in
+``.padded``), one past 128 with the output's columns split into halves of
+128 over the grid (bf16; counted in ``.col_split``); a head dim past 256
+raises on CUDA. It never falls back from one to another. It has no backward
+and refuses
 inputs that autograd tracks: the model reaches it through
 ``ops/flash_attention_bwd.py::flash_attention``, which sends differentiated
 calls to K3/K4 instead.
@@ -47,13 +49,18 @@ def sm90_smem(D: int, bwd: bool = False) -> int:
     in ``csrc/flash_fwd_sm90.cuh``: K1, K3, K5), or with ``bwd`` of K4's
     launches (``BwdLayout<DP>::SMEM`` in ``csrc/flash_bwd_sm90.cuh``): 64-row
     bf16 tiles of 128 DP bytes, two resident (q, pos_q; K4 three) and a ring
-    of 3 stages of three, the mbarriers, 1 KB of alignment slack; K4 also
-    each stage's lse and dsum rows and two staged rel tiles of 64 rows of 72
-    bf16."""
-    tile, bars = 64 * _build.head_instance(D) * 2, 8 * (2 * 3 + 1) + 1024
+    of stages (3 up to DP 128; past it 2, K4's 1) of k, pos_k and v (past
+    128 the CTA's 128 columns of v; K4's three whole tiles), the mbarriers,
+    1 KB of alignment slack; K4 also each stage's lse and dsum rows and two
+    staged rel tiles of 64 rows of 72 bf16."""
+    dp = _build.head_instance(D)
+    tile, split = 64 * dp * 2, dp > _build.SPLIT_HEAD_DIM
     if not bwd:
-        return 2 * tile + 3 * 3 * tile + bars
-    return 3 * tile + 3 * 3 * tile + 3 * 2 * 64 * 4 + 2 * 64 * 72 * 2 + bars
+        stages, vtile = (2, 64 * 128 * 2) if split else (3, tile)
+        return 2 * tile + stages * (2 * tile + vtile) + 8 * (2 * stages + 1) + 1024
+    stages = 1 if split else 3
+    return (3 * tile + stages * (3 * tile + 2 * 64 * 4) + 2 * 64 * 72 * 2
+            + 8 * (2 * stages + 1) + 1024)
 
 
 def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
@@ -176,6 +183,7 @@ def flash_attention_inference(
         )
     _build.check(err, name)
     flash_attention_inference.launches += 1
+    flash_attention_inference.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
     if out.shape[-1] != D:  # ran on zero-padded copies
         flash_attention_inference.padded += 1
         out = out[..., :D].contiguous()
@@ -184,3 +192,4 @@ def flash_attention_inference(
 
 flash_attention_inference.launches = 0
 flash_attention_inference.padded = 0  # the launches that ran on zero-padded copies
+flash_attention_inference.col_split = 0  # the bf16 launches split into column halves (D > 128)

@@ -22,7 +22,7 @@ card; here, on the same seeded numpy inputs:
   within 1e-5 of max|ref|), and the joint step's loss, per-task losses and
   gradient norm within 1e-5 relative of JAX's, every gradient leaf within
   5e-4 of its largest |g| (the bound of ``test_torch_port_train.py``);
-- (iv) with no card: the head-dim check (64, 80, 72 and 8 pass, 136 raises
+- (iv) with no card: the head-dim check (64, 80, 72, 8 and 136 pass, 264 raises
   ``NotImplementedError`` naming the range, before any device check) and the
   shared-memory planners at ``ofa_huge``'s shapes.
 """
@@ -290,24 +290,25 @@ def test_hd80_joint_step_loss_and_gradients_match_jax(pair):
 # ---------------------------------------------------------------------------
 
 def test_head_dim_check_accepts_64_and_80_and_refuses_72():
-    """The head-dim contract: every head dim 1 to 128 passes (72 and 8 among
-    them, on the instances 80 and 32), 136 raises naming the range."""
-    assert _build.HEAD_DIMS == (32, 64, 80, 128)
-    for hd in (64, 80, 72, 8):
+    """The head-dim contract: every head dim 1 to 256 passes (72, 8 and 136
+    among them, on the instances 80, 32 and 192), 264 raises naming the
+    range."""
+    assert _build.HEAD_DIMS == (32, 64, 80, 128, 192, 256)
+    for hd in (64, 80, 72, 8, 136):
         _build.check_head_dim("k", hd)
-    assert [_build.head_instance(hd) for hd in (64, 80, 72, 8)] == [64, 80, 80, 32]
-    with pytest.raises(NotImplementedError, match=r"head dim 136.*1 to 128"):
-        _build.check_head_dim("k", 136)
+    assert [_build.head_instance(hd) for hd in (64, 80, 72, 8, 136)] == [64, 80, 80, 32, 192]
+    with pytest.raises(NotImplementedError, match=r"head dim 264.*1 to 256"):
+        _build.check_head_dim("k", 264)
     # the attention wrappers' CUDA checks refuse it first, before any device check
-    q = torch.empty(1, 2, 8, 136)
+    q = torch.empty(1, 2, 8, 264)
     kpad = torch.zeros(1, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="head dim 136"):
+    with pytest.raises(NotImplementedError, match="head dim 264"):
         k1.cuda_args("flash_attention_inference", q, q, q, q, q, None, kpad)
-    x = torch.empty(10, 272)
+    x = torch.empty(10, 528)
     stack = dict(x0=x, sbias=torch.empty(1, 10, 2, 4), cbias=torch.empty(2, 2, 8),
-                 self_k=torch.empty(1, 10, 2, 4, 136), self_v=torch.empty(1, 10, 2, 4, 136),
-                 cross_k=torch.empty(1, 2, 2, 8, 136), cross_v=torch.empty(1, 2, 2, 8, 136))
-    with pytest.raises(NotImplementedError, match="head dim 136"):
+                 self_k=torch.empty(1, 10, 2, 4, 264), self_v=torch.empty(1, 10, 2, 4, 264),
+                 cross_k=torch.empty(1, 2, 2, 8, 264), cross_v=torch.empty(1, 2, 2, 8, 264))
+    with pytest.raises(NotImplementedError, match="head dim 264"):
         k7._check_cuda({}, *stack.values(), cache_index=0, beam_size=5)
     # on CPU tensors the plain versions take any head dim
     x6 = _k6_inputs(B=2, H=2, Kb=3, S=9, D=72, full_pad=None)

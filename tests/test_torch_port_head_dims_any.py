@@ -338,24 +338,24 @@ def test_zero_padded_copy_is_the_plain_version_at_head_dim_20():
 
 
 def test_head_dim_instances_and_shared_memory_plans():
-    """Every head dim 1 to 128 runs on the smallest instance covering it
-    rounded up to 8 (K6's int8 rows: 16); 0 and 129 raise; each instance's
+    """Every head dim 1 to 256 runs on the smallest instance covering it
+    rounded up to 8 (K6's int8 rows: 16); 0 and 257 raise; each instance's
     shared memory fits a block (K1, K3, K5 two CTAs an SM below 128, K4 and
     the K6 and K7 cross-attentions at the serving shape, B16 Kb5 S908; K6
     two CTAs an SM below 128)."""
-    assert _build.HEAD_DIMS == (32, 64, 80, 128) and _build.MAX_HEAD_DIM == 128
-    for D in range(1, 129):
+    assert _build.HEAD_DIMS == (32, 64, 80, 128, 192, 256) and _build.MAX_HEAD_DIM == 256
+    for D in range(1, 257):
         _build.check_head_dim("k", D)
         r8 = -(-D // 8) * 8
         assert _build.head_instance(D) == min(n for n in _build.HEAD_DIMS if n >= r8), D
         assert _build.head_instance(D, 16) == min(n for n in _build.HEAD_DIMS
                                                   if n >= -(-D // 16) * 16), D
-    for D in (0, 129):
-        with pytest.raises(NotImplementedError, match=r"head dims 1 to 128"):
+    for D in (0, 257):
+        with pytest.raises(NotImplementedError, match=r"head dims 1 to 256"):
             _build.check_head_dim("k", D)
     per_sm = 233472  # an SM's shared memory; each CTA also reserves 1 KB
     smem = {dp: k1.sm90_smem(dp) for dp in _build.HEAD_DIMS}
-    assert smem == {32: 46136, 64: 91192, 80: 113720, 128: 181304}
+    assert smem == {32: 46136, 64: 91192, 80: 113720, 128: 181304, 192: 181288, 256: 230440}
     for dp in _build.HEAD_DIMS:
         assert k1.sm90_smem(dp - 8) == smem[dp] or dp == 32  # a head dim runs on its instance
         assert (2 if dp < 128 else 1) * (smem[dp] + 1024) <= per_sm, dp
