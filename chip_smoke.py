@@ -19,6 +19,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --head-dims-only  # phases 1, 2 and 26 (head dims 8 to 128)
     python3 chip_smoke.py --shapes-only  # phases 1, 2 and 27 (beams, S, Tmax, d, D past today's)
     python3 chip_smoke.py --wide-heads-only  # phases 1, 2 and 28 (head dims 130 to 256)
+    python3 chip_smoke.py --deep-heads-only  # phases 1, 2 and 29 (head dims 264 to 1280)
     python3 chip_smoke.py --k4-only      # phases 1, 2 and K3/K4 at head dims 64 and 80, timed
     python3 chip_smoke.py --instances-only  # phases 1, 2 and today's instances' device times
 
@@ -350,12 +351,25 @@ Phases; any failure raises and the script exits non-zero:
     starts phase 28 as ``--wide-heads-only`` in a process of its own and
     reads its ``[wide heads kernels]`` line; after phases 12 and 16 it
     checks that phases 3-16 took no route past 128.
+29. every head dim past 256 (the deep route: the head dim streamed through
+    the products in chunks of 128 and each output's columns in blocks of
+    128 over the grid, counted in ``.deep``): (a) phase 26 (a)'s calls at
+    head dims 264, 300 (not a multiple of 8), 384, 520 (a short last chunk;
+    264 and 520 not multiples of 16: K6's padded copy), 576, 768 and 1280,
+    at ~768 / D heads, each with the fused backend SDPA takes there; K6 and
+    K7 at 576 on the score-chunked route (16 beams, S 1772); K3/K4 at 384 on
+    a causal case with a fully masked row; bf16 K1 and K4's device time a
+    column block at 384 and 768; (b) ``ofa_base`` split into 2 heads of 384
+    (``ofa_base_hd384``) and into 1 of 768 (``ofa_base_hd768``) as phase 26
+    (b), K1, K3, K4, K6 and K7 on the deep route. The default run starts
+    phase 29 as ``--deep-heads-only`` in a process of its own and reads its
+    ``[deep heads kernels]`` line; phases 3-16 take no deep route.
 
 The counters of every kernel are set to 0 just before each main path (the
 caption slice, the training step, serving A, serving B, K5's calls, the K8
 stage chain, each eval task, each CLI run of phase 19, each part of phases
 20 and 21, each run of phase 24, phase 25's slices, K5 calls and timed
-updates, and phases 26's and 28's slices and steps) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
+updates, and phases 26's, 28's and 29's slices and steps) and read just after. The new phases' bf16 checks allow 2⁻⁶ of
 the reference's largest magnitude, their fp32 checks 1e-4 of it (floored at 1).
 
 Prints a JSON line of the ten kernel entry points (K1–K8, K5 twice: launches
@@ -422,6 +436,13 @@ FP32_TOL = 1e-4  # fp32: different summation orders only
 # the fp32 outputs of bf16 calls (K4's drel): None holds them to FP32_TOL, as
 # phases 7 and 26 do; phase 28 sets 1e-4 (see WH_DREL_TOL)
 BF16_FP32_OUT_TOL = None
+# the reference of the fp32 calls of K1, K3, K4 and K5: False, the fp32 plain
+# version; True (phase 29), the function evaluated in fp64 (the plain version
+# on the inputs widened to fp64), whatever the tolerance: past head dim 256
+# the fp32 plain version's own rounding of the 2 D-deep scores reaches the
+# 1e-5 of max|ref| that the fp32 calls are held to (see F64_NOTE)
+FP32_REF_F64 = False
+F64_NOTE = ("the fp32 plain version against the same fp64 function: max abs err {:.3e}")
 # K3/K4 at the training step's attention shapes (R-Drop doubles batch 2)
 K34_SHAPES = {
     "encoder": dict(shape=dict(B=4, H=12, T=980, S=980, D=64)),
@@ -539,10 +560,38 @@ def phase_build() -> float:
     text = _build.ptxas_log().read_text()
     for line in _ptxas_lines(text):
         log(f"[build] ptxas {line}")
+    for name, regs, stores, loads in _ptxas_deep(text):
+        log(f"[build] deep route: {name}: {regs} registers, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads")
     for dp, name, regs, stores, loads in _ptxas_instances(text):
         log(f"[build] instance {dp}: {name}: {regs} registers, {stores} bytes spill stores, "
             f"{loads} bytes spill loads")
     return secs
+
+
+# the mangled names of the deep route's kernels (common.cuh::DEEP, the
+# instance 0 of the templates on the tile width, and the kernels of their own)
+DEEP_KERNEL_NAMES = ("2mk4sm906kernelILi0E", "11decode_attn6kernelILi0E",
+                     "10cross_attn6kernelILi0E", "cross_attn_i8_sm90_kernelILi0E", "_deep",
+                     "10flash_deep")
+
+
+def _ptxas_deep(text: str) -> list:
+    """ptxas's registers and spills of each deep-route kernel → [(mangled
+    name, registers, spill stores, spill loads)]."""
+    out, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = line.split("'")[1] if "'" in line else line
+            name = m if any(k in m for k in DEEP_KERNEL_NAMES) else None
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = tuple(nums[1:3])
+        elif name and "Used" in line and "registers" in line:
+            if all(o[0] != name for o in out):  # a kernel built in two sources
+                out.append((name, int(line.split("Used")[1].split()[0]), *spills))
+            name = None
+    return out
 
 
 # substrings of the mangled names of the tensor-core kernels: the attention
@@ -576,6 +625,16 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def _as_f32(x: dict) -> dict:
     """The same inputs with every floating tensor widened to fp32."""
     return {n: t.float() if t is not None and t.is_floating_point() else t for n, t in x.items()}
+
+
+def _as_f64(x: dict) -> dict:
+    """The same inputs with every floating tensor widened to fp64."""
+    return {n: t.double() if t is not None and t.is_floating_point() else t for n, t in x.items()}
+
+
+def _widened64(args) -> list:
+    """The same arguments with every floating tensor widened to fp64."""
+    return [t.double() if torch.is_tensor(t) and t.is_floating_point() else t for t in args]
 
 
 def _check_function(name: str, out: torch.Tensor, plain: torch.Tensor, fn: torch.Tensor,
@@ -755,9 +814,13 @@ def phase_k1(g, shape: dict = K1_SHAPE) -> dict:
             kw = dict(causal=c.get("causal", False), skip_max=c.get("skip_max", False))
             a = k1.flash_attention_inference(*(xs[n] for n in names), **kw)
             b = k1.flash_attention_plain(*(xs[n] for n in names), **kw)
+            fn_msg = ""
+            if dtype == torch.float32 and FP32_REF_F64:
+                b64 = k1.flash_attention_plain(*(_as_f64(xs)[n] for n in names), **kw)
+                fn_msg, b = "; against the fp64 function; " + F64_NOTE.format(_max_err(b, b64)), b64
             e = _max_err(a, b)
-            fn_msg = "" if dtype != torch.bfloat16 else "; " + _check_function(
-                f"K1 {name}", a, b, k1.flash_attention_plain(
+            if dtype == torch.bfloat16:
+                fn_msg = "; " + _check_function(f"K1 {name}", a, b, k1.flash_attention_plain(
                     *(_as_f32(xs)[n] for n in names), **kw))
             log(f"[K1] {name} D{D} {str(dtype)[6:]}: max abs err {e:.3e}{fn_msg}")
             if not e <= tol * max(1.0, float(b.float().abs().max())):
@@ -1058,6 +1121,15 @@ def _library_k3(x: dict):
             "16-byte units")
         return None
     qc, kc, v, mask = _sdpa_inputs(x)
+    if x["q"].shape[-1] > 256:  # past 256: only where SDPA's own checks let that kernel run
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        try:
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                torch.nn.functional.scaled_dot_product_attention(qc, kc, v, attn_mask=mask,
+                                                                 scale=1.0)
+        except RuntimeError as e:
+            log(f"[K3] library call not made: {str(e).splitlines()[0][:160]}")
+            return None
     return _library_ms("K3", lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
         qc, kc, v, mask, True, scale=1.0))
 
@@ -1090,11 +1162,15 @@ def _check_k3(tag: str, args, kw: dict):
     tol = BF16_TOL if args[0].dtype == torch.bfloat16 else FP32_TOL
     o, lse = kb.flash_attention_fwd(*args, **kw)
     o_p, lse_p = kb.flash_attention_fwd_plain(*args, **kw)
+    msg = ""
+    if args[0].dtype == torch.float32 and FP32_REF_F64:  # the fp64 function, rounded to fp32
+        o64, lse64 = kb.flash_attention_fwd_plain(*_widened64(args), **kw)
+        msg = "; against the fp64 function; " + F64_NOTE.format(_max_err(o_p, o64))
+        o_p, lse_p = o64.float(), lse64.float()
     e_o, e_lse = _max_err(o, o_p), _elem_rel_err(lse, lse_p)
     if not (e_o <= tol * max(1.0, float(o_p.float().abs().max())) and e_lse <= FP32_TOL
             and bool(torch.isfinite(o).all())):
         raise AssertionError(f"K3 {tag}: o err {e_o}, lse err {e_lse}")
-    msg = ""
     if args[0].dtype == torch.bfloat16:
         msg = "; o " + _check_function(f"K3 {tag}", o, o_p, kb.flash_attention_fwd_plain(
             *_widened(args), **kw)[0])
@@ -1112,6 +1188,12 @@ def _check_k4(tag: str, args, kw: dict):
     tol = BF16_TOL if args[0].dtype == torch.bfloat16 else FP32_TOL
     grads = kb.flash_attention_bwd(*args, **kw)
     ref = kb.flash_attention_bwd_plain(*args, **kw)
+    note = ""
+    if args[0].dtype == torch.float32 and FP32_REF_F64:
+        ref64 = kb.flash_attention_bwd_plain(*_widened64(args), **kw)
+        note = "; against the fp64 function; " + F64_NOTE.format(max(
+            _max_err(a, b) for a, b in zip(ref, ref64) if b is not None))
+        ref = ref64
     torch.cuda.synchronize()
     errs = {}
     f32_tol = FP32_TOL if args[0].dtype == torch.float32 or BF16_FP32_OUT_TOL is None \
@@ -1131,7 +1213,8 @@ def _check_k4(tag: str, args, kw: dict):
         msg = "; " + "; ".join(f"{gname} " + _check_function(f"K4 {tag} {gname}", a, b, f)
                                for gname, a, b, f in zip(GRAD_NAMES, grads, ref, fn)
                                if f is not None)
-    log(f"[K4] {tag}: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + msg)
+    log(f"[K4] {tag}: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + msg
+        + note)
     return grads, errs
 
 
@@ -1845,9 +1928,14 @@ def phase_k5(g, shapes: dict = K5_SHAPES, small: dict = K5_SMALL):
             if c.get("rel_f32"):
                 x["rel"] = torch.randn(x["rel"].shape, generator=g, device="cuda") * 2
             a, b = _k5_call(k5, x, c), _k5_call(k5, x, c, plain=True)
+            fn_msg = ""
+            if dtype == torch.float32 and FP32_REF_F64:
+                b64 = _k5_call(k5, _as_f64(x), c, plain=True)
+                fn_msg, b = "; against the fp64 function; " + F64_NOTE.format(_max_err(b, b64)), b64
             e = _check_close(f"K5 {name} {dtype}", a, b, tol)
-            fn_msg = "" if dtype != torch.bfloat16 else "; " + _check_function(
-                f"K5 {name}", a, b, _k5_call(k5, _as_f32(x), c, plain=True))
+            if dtype == torch.bfloat16:
+                fn_msg = "; " + _check_function(f"K5 {name}", a, b,
+                                                _k5_call(k5, _as_f32(x), c, plain=True))
             log(f"[K5] {name} {c['shape']} {str(dtype)[6:]}: max abs err {e:.3e}{fn_msg}")
             if "masked_row" in c:
                 S = x["k"].shape[2]
@@ -4645,7 +4733,7 @@ def _hd_kernels(g, D: int, on_path: bool, H: int = None) -> tuple:
                                   for n, c in cases.items()}
     pick = lambda cases, names: cases if on_path else {n: cases[n] for n in names}
     log(f"[head dims a] D{D}: {H} heads (width {H * D}), instance "
-        f"{next(n for n in HEAD_DIM_INSTANCES if n >= -(-D // 8) * 8)}")
+        f"{next((n for n in HEAD_DIM_INSTANCES if n >= -(-D // 8) * 8), 'deep')}")
     stats = {"K1": phase_k1(g, dict(B=B, H=H, T=908, S=908, D=D))}
     stats.update(phase_k3_k4(g, with_d(K34_SHAPES, H=H),
                              with_d(pick(K34_SMALL, ("odd batch causal", "cross, odd S"))),
@@ -5168,14 +5256,15 @@ def _wide_heads_for(D: int, width: int = 768) -> int:
                    key=lambda h: (abs(h * D - width), h))
 
 
-def _wide_chunked(g) -> dict:
-    """K6 and K7 at DP 256, 3 heads, 16 beams and S 1772, past the bf16 whole
-    row's fit, in bf16 and fp32, against plain (``_shape_case``): the
-    score-chunked route on the shallower ring."""
+def _wide_chunked(g, D: int = 256, H: int = 3, route: str = "wide") -> dict:
+    """K6 and K7 at head dim D (by default DP 256, 3 heads), 16 beams and S
+    1772, past the bf16 whole row's fit, in bf16 and fp32, against plain
+    (``_shape_case``): the score-chunked route on the shallower ring (phase
+    29: on the deep route, ``route`` "deep")."""
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
 
     B, Kb, S = WH_CHUNKED
-    D, H = 256, 3
+    counts = _deep_counts if route == "deep" else _wide_counts
     names = ("q", "k_i8", "v_i8", "k_scale", "v_scale", "bias", "enc_pad")
     stats = {"K6": {}, "K7": {}}
     for dtype in SHAPES_BOTH:
@@ -5186,22 +5275,22 @@ def _wide_chunked(g) -> dict:
         x = _k6_inputs(g, B, H, Kb, S, D, dtype, full_pad=1)
         args = [x[n] for n in names]
         tag = f"B{B} H{H} Kb{Kb} S{S} D{D}"
-        before = _wide_counts()
+        before = counts()
         stats["K6"][f"{tag} {str(dtype)[6:]}"] = _shape_case(
             "K6", tag, dtype, lambda: (k6.decode_cross_attention_int8(*args),),
             lambda: (k6.decode_cross_attention_int8_plain(*args),),
             lambda: (k6.decode_cross_attention_int8_plain(x["q"].float(), *args[1:]),),
             want, _bound(_nbytes(*args) + x["q"].numel() * x["q"].element_size(),
                          4.0 * B * H * Kb * S * D), iters=3)
-        if _wide_moves(before).get("K6.wide", 0) < 1:
-            raise AssertionError(f"K6 {tag} {dtype}: must run on the instance 256")
+        if counts()[f"K6.{route}"] - before[f"K6.{route}"] < 1:
+            raise AssertionError(f"K6 {tag} {dtype}: must run on the {route} route")
         del x, args
         shape = dict(L=2, B=B, Kb=Kb, S=S, H=H, f=4 * H * D, Tmax=MAX_LEN + 1)
-        before = _wide_counts()
+        before = counts()
         stats["K7"].update(_shapes_k7_case(g, f"rows {B * Kb} L2 H{H} hd{D} Kb{Kb} S{S}", shape,
                                            D, (MAX_LEN,), dtype, dtype == torch.bfloat16))
-        if _wide_moves(before).get("K7.wide", 0) < 1:
-            raise AssertionError(f"K7 {tag} {dtype}: must run on the instance 256")
+        if counts()[f"K7.{route}"] - before[f"K7.{route}"] < 1:
+            raise AssertionError(f"K7 {tag} {dtype}: must run on the {route} route")
     return stats
 
 
@@ -5274,10 +5363,187 @@ def _wide_heads(smi: str) -> dict:
     return out
 
 
+# phase 29: every head dim past 256 (the deep route: the head dim streamed
+# through the products in chunks of 128, each output's columns in blocks of
+# 128 over the grid), and ofa_base as 2 heads of 384 and 1 head of 768
+DEEP_DIMS = (264, 300, 384, 520, 576, 768, 1280)  # 300: not a multiple of 8; 264, 520: of 16
+DEEP_CONFIGS = {"ofa_base_hd384": dict(attention_heads=2),
+                "ofa_base_hd768": dict(attention_heads=1)}
+DEEP_TAG = "[deep heads kernels] "
+DEEP_CHUNKED_D = 576  # K6 and K7 on the score-chunked route at absorbed MLA's q.k width
+# K3/K4 on a causal case with a fully masked row on the deep route
+DEEP_K4_MASKED = {"causal, fully masked row": dict(shape=dict(B=2, H=2, T=70, S=70, D=384),
+                                                   causal=True, masked_row=1)}
+DEEP_KERNELS = ("K1", "K3", "K4", "K5", "K5-cross", "K6", "K7")
+
+
+def _deep_counts() -> dict:
+    """The attention wrappers' launches on the deep route (``.deep``); 0 where
+    a tree lacks it."""
+    from musketeer_tpu_torch.ops import decode_cross_attn as k6
+    from musketeer_tpu_torch.ops import decode_stack as k7
+    from musketeer_tpu_torch.ops import flash_attention as k5
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+
+    fns = {"K1": k1.flash_attention_inference, "K3": kb.flash_attention_fwd,
+           "K4": kb.flash_attention_bwd, "K5": k5.flash_attention_bias,
+           "K5-cross": k5.flash_cross_attention, "K6": k6.decode_cross_attention_int8,
+           "K7": k7.decode_stack_step}
+    return {f"{k}.deep": getattr(fn, "deep", 0) for k, fn in fns.items()}
+
+
+def _deep_moves(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _deep_counts().items() if n != before[k]}
+
+
+def _sdpa_backend(D: int, H: int) -> str:
+    """The fused backend scaled_dot_product_attention takes at K1's inputs of
+    head dim D ([q|pos_q] 2 D wide, a float mask, scale 1), probed in
+    PyTorch's order of preference; "none" where only the math path takes it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    qc, kc, v, mask = _sdpa_inputs(_k1_inputs(g, 2, H, 130, 130, D, torch.bfloat16))
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                torch.nn.functional.scaled_dot_product_attention(qc, kc, v, attn_mask=mask,
+                                                                 scale=1.0)
+            torch.cuda.synchronize()
+            return name.lower()
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def _one_block_ms(g, D: int, H: int) -> dict:
+    """bf16 K1 and K4 at head dim D on the deep route (B4 T=S=908 and the
+    encoder train shape B4 T=S=980, H heads): each kernel's device time
+    (torch.profiler) and that time over the column blocks, what one block of
+    128 output columns costs, every block computing the full-width scores."""
+    from musketeer_tpu_torch.ops import _build
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+
+    names = ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")
+    nch = _build.col_halves(D)
+    out = {}
+    for kernel, T in (("K1", 908), ("K4", 980)):
+        x = _k1_inputs(g, 4, H, T, T, D, torch.bfloat16)
+        args = [x[n] for n in names]
+        if kernel == "K1":
+            call = lambda: k1.flash_attention_inference(*args)
+        else:
+            o, lse = kb.flash_attention_fwd_plain(*args)
+            do = (torch.randn(o.shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+            call = lambda: kb.flash_attention_bwd(*args, o, lse, do)
+        dev = sum(_device_ms_by_kernel(call, 5).values())
+        out[kernel] = dict(device_ms=dev, blocks=nch, block_ms=dev / nch)
+        log(f"[deep heads] {kernel} B4 H{H} T=S={T} D{D}: device {dev:.4f} ms in {nch} column "
+            f"blocks, {dev / nch:.4f} ms a block")
+        del x, args
+    return out
+
+
+def phase_deep_heads(smi: str) -> dict:
+    """Phase 29: (a) the attention kernels at every head dim of ``DEEP_DIMS``
+    (phase 26's calls at ~768 / D heads), the padded copies and the deep route
+    counted, K6 and K7 on the score-chunked route at 576 and K4 on a causal
+    fully masked row at 384, each head dim's SDPA backend, one column block's
+    device time at 384 and 768; (b) the two configurations of
+    ``DEEP_CONFIGS``; every fp32 call's check within ``HD_FP32_TOL``, that of
+    K1, K3, K4 and K5 against the function in fp64 (``FP32_REF_F64``), bf16
+    K4's fp32 drel within ``WH_DREL_TOL``. → {kernel: {head dim: stats, the
+    route and the launches on its path}}."""
+    module = sys.modules[__name__]
+    with mock.patch.object(module, "FP32_TOL", HD_FP32_TOL), \
+            mock.patch.object(module, "BF16_FP32_OUT_TOL", WH_DREL_TOL), \
+            mock.patch.object(module, "FP32_REF_F64", True):
+        return _deep_heads(smi)
+
+
+def _deep_heads(smi: str) -> dict:
+    from musketeer_tpu_torch.config import ofa_base
+    from musketeer_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 290)
+    heads = {name: ofa_base().embed_dim // m["attention_heads"]
+             for name, m in DEEP_CONFIGS.items()}
+    stats, k5_launches, backends = {}, {}, {}
+    for D in DEEP_DIMS:
+        t1, before, before_d = time.perf_counter(), _padded_counts(), _deep_counts()
+        if _build.head_instance(D) != _build.DEEP or _build.col_halves(D) != -(-D // 128):
+            raise AssertionError(f"head dim {D}: instance {_build.head_instance(D)}, "
+                                 f"{_build.col_halves(D)} blocks")
+        H = _wide_heads_for(D)
+        stats[D], k5_launches[D] = _hd_kernels(g, D, D in heads.values(), H)
+        backends[D] = _sdpa_backend(D, H)
+        if backends[D] == "none":  # no fused library kernel takes this head dim
+            for k in ("K1", "K3", "K4", "K5", "K5-cross"):
+                stats[D][k]["library_ms"] = None
+        padded = {k: n - before[k] for k, n in _padded_counts().items()}
+        unit = {k: 16 if k == "K6" else 8 for k in padded}
+        if any((n > 0) != (D % unit[k] != 0) for k, n in padded.items()):
+            raise AssertionError(f"head dim {D}: launches on zero-padded copies {padded}")
+        deep = _deep_moves(before_d)
+        if set(deep) != set(before_d) or min(deep.values()) < 1:
+            raise AssertionError(f"head dim {D}: every kernel must take the deep route, "
+                                 f"moved {deep}")
+        log(f"[deep heads a] D{D} ({H} heads, {_build.col_halves(D)} column blocks) in "
+            f"{time.perf_counter() - t1:.1f} s; launches on zero-padded copies {padded}, on the "
+            f"deep route {deep}; SDPA's fused backend: {backends[D]}")
+        torch.cuda.empty_cache()
+    before = _deep_counts()
+    phase_k3_k4(g, {}, DEEP_K4_MASKED, saved=False)
+    if _deep_moves(before).get("K4.deep", 0) < 2:
+        raise AssertionError("K4's fully masked causal case must run on the deep route")
+    before = _deep_counts()
+    chunked = _wide_chunked(g, DEEP_CHUNKED_D, 1, "deep")
+    if any(_deep_moves(before).get(f"{k}.deep", 0) < 2 for k in ("K6", "K7")):
+        raise AssertionError("K6 and K7's score-chunked cases must run on the deep route")
+    blocks = {D: _one_block_ms(g, D, _wide_heads_for(D)) for D in (384, 768)}
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    log(f"[deep heads a] the kernels at head dims {DEEP_DIMS}: {t2 - t0:.1f} s")
+    on_path = {}
+    for name, model in DEEP_CONFIGS.items():
+        before = _deep_counts()
+        on_path[heads[name]] = _hd_config(name, model, smi, phase=29)
+        deep = _deep_moves(before)
+        if any(deep.get(f"{k}.deep", 0) < 1 for k in ("K1", "K3", "K4", "K6", "K7")):
+            raise AssertionError(f"{name}: the paths must run K1, K3, K4, K6 and K7 on the "
+                                 f"deep route, moved {deep}")
+        log(f"[deep heads b] {name}: launches on the deep route {deep}")
+    log(f"[deep heads b] both configurations: {time.perf_counter() - t2:.1f} s; phase 29 in "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    out = {}
+    for k in DEEP_KERNELS:
+        out[k] = {}
+        for D in DEEP_DIMS:
+            n = k5_launches[D][k] if k in ("K5", "K5-cross") else on_path.get(D, {}).get(k, 0)
+            out[k][str(D)] = dict(stats[D][k], launches=n, instance="deep",
+                                  blocks=_build.col_halves(D))
+            if k not in ("K6", "K7"):  # SDPA's fused backend at this head dim, or "none"
+                out[k][str(D)]["library_backend"] = backends[D]
+            if k in ("K1", "K4") and D in blocks:
+                out[k][str(D)]["one_block"] = blocks[D][k]
+    for k, cases in chunked.items():
+        for tag, c in cases.items():
+            out[k][f"{DEEP_CHUNKED_D} {tag}"] = dict(c, launches=0, instance="deep")
+    log(DEEP_TAG + json.dumps(out))
+    return out
+
+
 # --instances-only: the device times of today's instances, for a parent/change
 # pair (copied into an older tree's root, it times that tree's kernels): K1,
-# K4, K6 and K7 at ofa_base's shapes (head dim 64) and K1, K3, K4, K5, K6, K7
-# at 6 heads of 128 (phase 26's hd 128 cases), bf16
+# K4, K6 and K7 at ofa_base's shapes (head dim 64), K1, K3, K4, K5, K6, K7
+# at 6 heads of 128 (phase 26's hd 128 cases) and K1, K4, K6, K7 at 3 heads
+# of 256 (the widest instance), bf16
 INSTANCE_CASES = {
     "K1 B16 H12 T=S=908 D64": ("K1", dict(K1_SHAPE)),
     "K4 B4 H12 T=S=980 D64": ("K4", dict(K34_SHAPES["encoder"]["shape"])),
@@ -5289,6 +5555,10 @@ INSTANCE_CASES = {
     "K5 B16 H6 S908 D128": ("K5", dict(K1_SHAPE, H=6, D=128)),
     "K6 B16 H6 Kb5 S908 D128": ("K6", dict(K6_SHAPE, H=6, D=128)),
     "K7 rows 80 L6 d768 hd128 S908 Tmax17": ("K7", dict(K7_SHAPE, H=6, hd=128)),
+    "K1 B16 H3 T=S=908 D256": ("K1", dict(K1_SHAPE, H=3, D=256)),
+    "K4 B4 H3 T=S=980 D256": ("K4", dict(K34_SHAPES["encoder"]["shape"], H=3, D=256)),
+    "K6 B16 H3 Kb5 S908 D256": ("K6", dict(K6_SHAPE, H=3, D=256)),
+    "K7 rows 80 L6 d768 hd256 S908 Tmax17": ("K7", dict(K7_SHAPE, H=3, hd=256)),
 }
 INSTANCES_TAG = "[instances] "
 
@@ -5348,9 +5618,11 @@ def _check_today_routes() -> None:
     """Phases 4, 10, 11 and 12 (K2, K2-q8, K6, K7 at today's shapes) ran the
     routes they ran before phase 27's: no beam tiles, score or cache chunks,
     ragged widths or streamed h; and phases 3-12 none of phase 28's routes
-    past head dim 128 (column halves, shallower rings)."""
+    past head dim 128 (column halves, shallower rings) and none of phase 29's
+    deep route."""
     moved = {k: n for k, n in _route_counts().items() if n}
     moved.update({k: n for k, n in _wide_counts().items() if n})
+    moved.update({k: n for k, n in _deep_counts().items() if n})
     if moved:
         raise AssertionError(f"phases 3-12: today's shapes took new routes {moved}")
     log("[routes] phases 3-12 ran today's routes (no beam tiles, score or cache chunks, ragged "
@@ -5412,10 +5684,14 @@ def main(argv=None) -> int:
                       help="after phases 1-2, run only phase 28 (the attention kernels at head "
                            "dims 130 to 256, ofa_base in 4 heads of 192 and in 3 of 256), and "
                            "print no result line")
+    only.add_argument("--deep-heads-only", action="store_true",
+                      help="after phases 1-2, run only phase 29 (the attention kernels at head "
+                           "dims 264 to 1280 on the deep route, ofa_base in 2 heads of 384 and "
+                           "in 1 of 768), and print no result line")
     only.add_argument("--instances-only", action="store_true",
                       help="after phases 1-2, only time today's instances (K1, K4, K6, K7 at "
-                           "head dim 64, K1 and K3-K7 at 128; device time and call time) for a "
-                           "parent/change pair, and print no result line")
+                           "head dims 64 and 256, K1 and K3-K7 at 128; device time and call "
+                           "time) for a parent/change pair, and print no result line")
     only.add_argument("--shapes-only", action="store_true",
                       help="after phases 1-2, run only phase 27 (K6, K7, K2 and K2-q8 at more "
                            "than 16 beams, long encoder outputs and caches, ragged widths and "
@@ -5450,6 +5726,10 @@ def main(argv=None) -> int:
     if opts.wide_heads_only:
         phase_wide_heads(smi)
         log(f"[done] wide-heads phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.deep_heads_only:
+        phase_deep_heads(smi)
+        log(f"[done] deep-heads phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.instances_only:
         phase_instances(smi)
@@ -5556,7 +5836,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     wide_heads = _phase_in_own_process(28, "--wide-heads-only", WH_TAG)
     log(f"[wide heads] phase 28 in its own process: {time.perf_counter() - t0:.1f} s")
-    for k, by_dim in wide_heads.items():  # phase 28's head dims join phase 26's
+    t0 = time.perf_counter()
+    deep_heads = _phase_in_own_process(29, "--deep-heads-only", DEEP_TAG)
+    log(f"[deep heads] phase 29 in its own process: {time.perf_counter() - t0:.1f} s")
+    for k, by_dim in (*wide_heads.items(), *deep_heads.items()):  # phases 28-29 join 26's
         head_dims[k].update(by_dim)
 
     # each kernel's launches on its main path
@@ -5594,7 +5877,7 @@ def main(argv=None) -> int:
         if k in huge_stats:  # phase 25: ofa_huge, head dim 80 (K2, K2-q8: d 1280)
             entry["d1280" if k in ("K2", "K2-q8") else "hd80"] = dict(
                 huge_stats[k], launches=huge_launches[k][k])
-        if k in head_dims:  # phases 26 and 28: by head dim, 8 to 256
+        if k in head_dims:  # phases 26, 28 and 29: by head dim, 8 to 1280
             entry["head_dims"] = head_dims[k]
         if k in shapes:  # phase 27: the routes past today's shapes
             entry["shapes"] = shapes[k]

@@ -53,23 +53,36 @@ struct SmemOptIn {
 };
 
 // The instances of the attention kernels (K1, K3, K4, K5, K6, K7): tile
-// widths 32, 64, 80, 128, 192 and 256 bf16 (or fp32) columns.
-// ops/_build.py::HEAD_DIMS mirrors this list. A head dim d of 8 to 256, a
-// multiple of 8 (the wrappers copy any other into a zero-padded buffer first,
-// K6's int8 cache to a multiple of 16), runs on the smallest instance DP >= d:
-// the tiles' columns d .. DP - 1 are zeros (TMA fills them, or the loads skip
-// them), which add nothing to any product, and the stores skip them. Calls f
-// with std::integral_constant<int, DP>, or returns cudaErrorInvalidValue for
-// any other d; the kernels take d itself as an argument.
+// widths 32, 64, 80, 128, 192 and 256 bf16 (or fp32) columns, and past 256
+// the deep route. ops/_build.py::HEAD_DIMS mirrors this list. A head dim d of
+// 8 to 256, a multiple of 8 (the wrappers copy any other into a zero-padded
+// buffer first, K6's int8 cache to a multiple of 16), runs on the smallest
+// instance DP >= d: the tiles' columns d .. DP - 1 are zeros (TMA fills them,
+// or the loads skip them), which add nothing to any product, and the stores
+// skip them. Any d past 256 (a multiple of 8) runs on the deep route, DEEP:
+// the head dim streams through the products in chunks of DEEP_CHUNK columns
+// (NK = ceil(d / DEEP_CHUNK) of them, the last zero-filled past d) and each
+// output's columns split into blocks of DEEP_CHUNK over the grid, so that a
+// CTA's shared memory and registers are those of one chunk, whatever d.
+// Calls f with std::integral_constant<int, DP> (DEEP past 256), or returns
+// cudaErrorInvalidValue for any other d; the kernels take d itself as an
+// argument.
+constexpr int DEEP = 0;            // the instance tag of the deep route
+constexpr int DEEP_CHUNK = 128;    // its chunk width (columns)
+constexpr int MAX_INSTANCE = 256;  // the widest tile instance
+
+__host__ __device__ constexpr int deep_chunks(int d) { return (d + DEEP_CHUNK - 1) / DEEP_CHUNK; }
+
 template <typename F>
 int with_head_dim(int d, F&& f) {
-  if (d < 8 || d > 256 || d % 8) return (int)cudaErrorInvalidValue;
+  if (d < 8 || d % 8) return (int)cudaErrorInvalidValue;
   if (d <= 32) return f(std::integral_constant<int, 32>{});
   if (d <= 64) return f(std::integral_constant<int, 64>{});
   if (d <= 80) return f(std::integral_constant<int, 80>{});
   if (d <= 128) return f(std::integral_constant<int, 128>{});
   if (d <= 192) return f(std::integral_constant<int, 192>{});
-  return f(std::integral_constant<int, 256>{});
+  if (d <= MAX_INSTANCE) return f(std::integral_constant<int, 256>{});
+  return f(std::integral_constant<int, DEEP>{});
 }
 
 __device__ __forceinline__ float warp_max(float x) {

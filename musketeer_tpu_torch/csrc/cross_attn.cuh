@@ -33,6 +33,13 @@
 // staged columns past D are zeros, a key row is read to its stride (the
 // cache's rows, padded with zeros to a multiple of 8 or 16 elements), and
 // the threads of the columns past D sum nothing.
+// The deep route (DP == DEEP, D past 256; block_deep): q is staged 64 dims
+// at a time and every beam's dot carried across those chunks in the scores
+// (the same chain as past DP 128), and the output's columns split into
+// blocks of DEEP_CHUNK over the grid (block z = beam tile x nch + block):
+// the values' thread (d, part) sums column d of its block, 2 parts; each
+// block computes the scores and the softmax of its beam tile again. Shared
+// memory is that of 64 dims of q and 128 output columns, whatever D.
 #pragma once
 
 #include <stdint.h>
@@ -67,12 +74,19 @@ __host__ __device__ constexpr int parts() {  // key partitions of the value prod
   return NT / DP;
 }
 
+constexpr int DEEP_QC = 64;  // the deep route's dims of q staged at a time
+
 // Kb beams of a tile, score chunks of `chunk` keys: q, the chunk's scores,
-// the value partials, the rows' running max and sum
+// the value partials, the rows' running max and sum (the deep route: 64 dims
+// of q, 128 output columns)
 template <int DP>
 inline size_t smem_bytes(int Kb, int chunk) {
-  return sizeof(float) *
-         ((size_t)Kb * DP + (size_t)Kb * chunk + (size_t)parts<DP>() * Kb * DP + 2 * (size_t)Kb);
+  if constexpr (DP == DEEP)
+    return sizeof(float) * ((size_t)Kb * DEEP_QC + (size_t)Kb * chunk +
+                            (size_t)parts<DEEP_CHUNK>() * Kb * DEEP_CHUNK + 2 * (size_t)Kb);
+  else
+    return sizeof(float) * ((size_t)Kb * DP + (size_t)Kb * chunk +
+                            (size_t)parts<DP>() * Kb * DP + 2 * (size_t)Kb);
 }
 
 // a row's first n (a multiple of 4 or 16) of DP elements, 16 bytes at a
@@ -269,22 +283,175 @@ __device__ void block(const Args& a, int h, int b, int j0) {
   }
 }
 
-template <int DP, typename T, typename KV, bool kInt8>
-__global__ void __launch_bounds__(NT) kernel(Args a) {
-  block<DP, T, KV, kInt8>(a, blockIdx.x, blockIdx.y, MAX_KB * blockIdx.z);
+// The deep route: beams j0 .. of sample b, head h, output columns c0 .. c0 +
+// 127 (block cb). The softmax and its chunked passes as block's.
+template <typename T, typename KV, bool kInt8>
+__device__ void block_deep(const Args& a, int h, int b, int j0, int cb) {
+  constexpr int CW = DEEP_CHUNK, QC = DEEP_QC, PARTS = parts<CW>();
+  extern __shared__ __align__(16) float smem[];
+  const int Kb = min(MAX_KB, a.Kb - j0);  // this tile's beams
+  const int S = a.S, cs = a.chunk, D = a.D, rs = a.kv_rs, tid = threadIdx.x, c0 = CW * cb;
+  float* qs = smem;                   // [Kb][QC] 64 dims of q, zeros past D
+  float* sc = qs + Kb * QC;           // [Kb][cs] a chunk's dots, scores, then probabilities
+  float* red = sc + (size_t)Kb * cs;  // [PARTS][Kb][CW]
+  float* ml = red + PARTS * Kb * CW;  // [Kb][2] each row's running max and sum (chunked)
+  const long long bh = (long long)b * a.H + h;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs + j0 * a.q_js;
+  const KV* kp = static_cast<const KV*>(a.k) + bh * S * rs;
+  const KV* vp = static_cast<const KV*>(a.v) + bh * S * rs;
+  const float* bias = a.bias + b * a.bias_bs + h * a.bias_hs;
+
+  auto score = [&](float acc, int s) {
+    if (kInt8) return a.pad[(long long)b * S + s] ? NEG : acc * a.k_scale[bh * S + s] + bias[s];
+    return acc + bias[s];
+  };
+  // the scores of keys c0k .. c0k + n - 1 into sc: one key row per thread,
+  // 64 dims at a time, every beam's dot carried across the dims in sc
+  auto scores = [&](int c0k, int n) {
+    for (int e0 = 0; e0 < rs; e0 += QC) {
+      __syncthreads();  // the previous readers of qs and sc are done
+      for (int i = tid; i < Kb * QC; i += NT) {
+        const int e = e0 + i % QC;
+        qs[i] = e < D ? to_f(q[(i / QC) * a.q_js + e]) : 0.f;
+      }
+      __syncthreads();
+      const bool last = e0 + QC >= rs;
+      for (int i = tid; i < n; i += NT) {
+        const int s = c0k + i;
+        float kr[QC];
+        load_row<QC>(kp + (long long)s * rs + e0, kr, rs - e0);
+        for (int j = 0; j < Kb; ++j) {
+          const float4* qj = reinterpret_cast<const float4*>(qs + j * QC);
+          float acc = e0 ? sc[j * cs + i] : 0.f;
+#pragma unroll
+          for (int i4 = 0; i4 < QC / 4; ++i4) {
+            const float4 qv = qj[i4];
+            acc = fmaf(qv.x, kr[4 * i4], acc);
+            acc = fmaf(qv.y, kr[4 * i4 + 1], acc);
+            acc = fmaf(qv.z, kr[4 * i4 + 2], acc);
+            acc = fmaf(qv.w, kr[4 * i4 + 3], acc);
+          }
+          sc[j * cs + i] = last ? score(acc, s) : acc;
+        }
+      }
+    }
+  };
+  const int warp = tid / 32, lane = tid % 32;
+  auto probs = [&](int c0k, int n, int j, float m, float l) {
+    float* row = sc + (size_t)j * cs;
+    for (int i = lane; i < n; i += 32) {
+      float p = expf(row[i] - m) / l;
+      if (kInt8) p *= a.v_scale[bh * S + c0k + i];
+      row[i] = round_to<T>(p);
+    }
+  };
+  // values: thread (d, part) over the keys c0k + i, i = part (mod PARTS), all
+  // beams, column c0 + d of the block (none past D)
+  const int d = tid % CW, part = tid / CW;
+  float acc[MAX_KB];
+#pragma unroll
+  for (int j = 0; j < MAX_KB; ++j) acc[j] = 0.f;
+  auto values = [&](int c0k, int n) {
+    for (int i = part; i < n && c0 + d < D; i += PARTS) {
+      const float v = to_f(vp[(long long)(c0k + i) * rs + c0 + d]);
+#pragma unroll
+      for (int j = 0; j < MAX_KB; ++j)
+        if (j < Kb) acc[j] = fmaf(sc[(size_t)j * cs + i], v, acc[j]);
+    }
+  };
+
+  if (S <= cs) {  // the whole row at once: an exact two-pass softmax, one warp per beam row
+    scores(0, S);
+    __syncthreads();
+    for (int j = warp; j < Kb; j += NT / 32) {
+      const float* row = sc + (size_t)j * cs;
+      float m = -CUDART_INF_F;
+      for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
+      m = warp_max(m);
+      if (kInt8) m = fmaxf(m, -1e8f);
+      float l = 0.f;
+      for (int s = lane; s < S; s += 32) l += expf(row[s] - m);
+      l = warp_sum(l);
+      if (kInt8) l = fmaxf(l, 1e-38f);  // subnormal: the build does not flush it
+      probs(0, S, j, m, l);
+    }
+    __syncthreads();
+    values(0, S);
+  } else {  // score chunks of cs keys: pass 1 the rows' max and sum, pass 2 p and the values
+    for (int j = warp; j < Kb; j += NT / 32)
+      if (lane == 0) {
+        ml[2 * j] = kInt8 ? -1e8f : -CUDART_INF_F;  // int8: the max clamped at -1e8
+        ml[2 * j + 1] = 0.f;
+      }
+    for (int k0 = 0; k0 < S; k0 += cs) {
+      const int n = min(cs, S - k0);
+      scores(k0, n);
+      __syncthreads();
+      for (int j = warp; j < Kb; j += NT / 32) {
+        const float* row = sc + (size_t)j * cs;
+        float cm = -CUDART_INF_F;
+        for (int i = lane; i < n; i += 32) cm = fmaxf(cm, row[i]);
+        const float m = ml[2 * j], mn = fmaxf(m, warp_max(cm));
+        float e = 0.f;
+        for (int i = lane; i < n; i += 32) e += expf(row[i] - mn);
+        const float l = ml[2 * j + 1] * expf(m - mn) + warp_sum(e);
+        __syncwarp();
+        if (lane == 0) {
+          ml[2 * j] = mn;
+          ml[2 * j + 1] = l;
+        }
+      }
+    }
+    for (int k0 = 0; k0 < S; k0 += cs) {
+      const int n = min(cs, S - k0);
+      scores(k0, n);
+      __syncthreads();
+      for (int j = warp; j < Kb; j += NT / 32)
+        probs(k0, n, j, ml[2 * j], kInt8 ? fmaxf(ml[2 * j + 1], 1e-38f) : ml[2 * j + 1]);
+      __syncthreads();
+      values(k0, n);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MAX_KB; ++j)
+    if (j < Kb) red[(part * Kb + j) * CW + d] = acc[j];
+  __syncthreads();
+  T* out = static_cast<T*>(a.out) + b * a.q_bs + h * a.q_hs + j0 * a.q_js;
+  for (int i = tid; i < Kb * CW; i += NT) {
+    const int j = i / CW, dd = i % CW;
+    if (c0 + dd >= D) continue;
+    float o = 0.f;
+    for (int p = 0; p < PARTS; ++p) o += red[(p * Kb + j) * CW + dd];
+    out[j * a.q_js + c0 + dd] = from_f<T>(o);
+  }
 }
 
-// grid (H, B, beam tiles); returns a CUDA error code (cudaErrorInvalidValue
-// when a chunk of the scores does not fit)
+template <int DP, typename T, typename KV, bool kInt8>
+__global__ void __launch_bounds__(NT) kernel(Args a) {
+  if constexpr (DP == DEEP) {
+    const int nch = deep_chunks(a.D);
+    block_deep<T, KV, kInt8>(a, blockIdx.x, blockIdx.y, MAX_KB * (blockIdx.z / nch),
+                             blockIdx.z % nch);
+  } else {
+    block<DP, T, KV, kInt8>(a, blockIdx.x, blockIdx.y, MAX_KB * blockIdx.z);
+  }
+}
+
+// grid (H, B, beam tiles; the deep route: beam tiles x column blocks);
+// returns a CUDA error code (cudaErrorInvalidValue when a chunk of the scores
+// does not fit)
 template <int DP, typename T, typename KV, bool kInt8>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes<DP>(a.Kb < MAX_KB ? a.Kb : MAX_KB, a.chunk);
-  if (a.Kb < 1 || a.chunk < 1 || smem > MAX_SMEM || a.D > a.kv_rs || a.kv_rs > DP)
+  if (a.Kb < 1 || a.chunk < 1 || smem > MAX_SMEM || a.D > a.kv_rs ||
+      (DP != DEEP && a.kv_rs > DP))
     return (int)cudaErrorInvalidValue;
   static SmemOptIn opt_in;
   if (smem > 48 * 1024)
     if (const int err = opt_in.ensure((const void*)kernel<DP, T, KV, kInt8>, smem)) return err;
-  kernel<DP, T, KV, kInt8><<<dim3(a.H, B, (a.Kb + MAX_KB - 1) / MAX_KB), NT, smem, stream>>>(a);
+  const int nch = DP == DEEP ? deep_chunks(a.D) : 1;
+  kernel<DP, T, KV, kInt8>
+      <<<dim3(a.H, B, (a.Kb + MAX_KB - 1) / MAX_KB * nch), NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -8,6 +8,7 @@ namespace decode_attn {
 
 int launch_instance(int dp, const CacheMaps& maps, const Args& a, int chunked, int pdl,
                     cudaStream_t stream) {
+  if (dp == DEEP) return launch<DEEP>(maps, a, chunked, pdl, stream);
   return with_head_dim(dp, [&](auto d) -> int {
     constexpr int DP = decltype(d)::value;
     if (DP != dp) return (int)cudaErrorInvalidValue;  // dp must be an instance

@@ -57,6 +57,14 @@
 // stream serialization: the K/V copies (the cache, written before the step)
 // start before the kernel waits for the cross-q product.
 //
+// Past DP 256 (the deep route, DP == DEEP: any D a multiple of 8): 64 x 128
+// tiles on the instance 128's ring of 8; a key tile's scores sum its
+// ceil(D / 128) chunk tiles' products in order, q's fragments of each chunk
+// loaded as it comes, and a CTA owns one 128-column block of the output
+// (grid z = beam tiles x blocks), reading the sample's K tiles again for
+// each block (mostly from L2). ptxas (CUDA 12.8): 64 registers, 92 chunked,
+// no spills.
+//
 // Bound: the cross K/V, 2 x S x D x 2 bytes per (b, h), 268 MB a step at
 // the caption decode shape (rows 80, L6, H12, S908, D64), 80 us at 3.35
 // TB/s; 893 MB at ofa_huge's (L12, H16, D80), 267 us. ptxas (CUDA 12.8): no
@@ -84,13 +92,19 @@ constexpr int MAX_KB = 16;              // beams of a tile: one m16 A tile
 constexpr int PT = BKT + 8;             // a chunked P tile's row stride (bf16)
 constexpr size_t MAX_SMEM = 232448;     // a block's shared memory on sm_90
 
+// a tile's columns: the instance's, or on the deep route (DP == DEEP) a chunk's
+template <int DP>
+__host__ __device__ constexpr int tile_width() {
+  return DP == DEEP ? DEEP_CHUNK : DP;
+}
+
 template <int DP>
 __host__ __device__ constexpr uint32_t tile_bytes() {  // one 64 x DP bf16 tile: every box
-  return sm90::HeadTile<DP>::BYTES;
+  return sm90::HeadTile<tile_width<DP>()>::BYTES;
 }
 
 // the ring's depth: 8 (the value tiles arrive during the softmax) up to DP
-// 128, then as many as 8 tiles of 128 columns take
+// 128 (and on the deep route), then as many as 8 tiles of 128 columns take
 template <int DP>
 __host__ __device__ constexpr int stages() {
   return DP <= 128 ? 8 : 8 * 128 / DP;
@@ -168,18 +182,27 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* lo,
 // to a multiple of 8, <= DP) in boxes of 64 rows. kExact: D == DP, known to
 // the compiler (every load and store of q and the output a whole pair).
 // kChunked: the score-chunked route (see the top of the file). Block z is
-// the beam tile: beams 16 z .. 16 z + 15 of the sample.
+// the beam tile: beams 16 z .. 16 z + 15 of the sample. The deep route (DP
+// == DEEP, D past 256): 64 x 128 tiles (the instance 128's layout); each key
+// tile's scores the sum of its nk = D / 128 chunk tiles' products in order, q's
+// fragments of each chunk loaded as it comes; the CTA owns one 128-column
+// block of v and the output (block z = beam tile x nk + block) and streams
+// that block's value tiles alone.
 template <int DP, bool kExact, bool kChunked>
 __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps maps, Args a) {
-  using HT = sm90::HeadTile<DP>;
+  constexpr bool kDeep = DP == DEEP;
+  constexpr int W = tile_width<DP>();  // a tile's columns
+  using HT = sm90::HeadTile<W>;
   constexpr uint32_t TILE = tile_bytes<DP>();
   constexpr int STAGES = stages<DP>();
-  constexpr int NB = (DP / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
+  constexpr int NB = (W / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t bars = base + STAGES * TILE;
-  const int h = blockIdx.x, b = blockIdx.y, j0 = MAX_KB * blockIdx.z, S = a.S;
+  const int nk = kDeep ? deep_chunks(a.D) : 1;  // the deep route's chunks (and blocks)
+  const int h = blockIdx.x, b = blockIdx.y, j0 = MAX_KB * (blockIdx.z / nk), S = a.S;
+  const int cb = blockIdx.z % nk, c0 = W * cb;  // the deep route's block of v and the output
   const int Kb = min(MAX_KB, a.Kb - j0);  // this tile's beams
   const int ntiles = (S + BKT - 1) / BKT, sp = ntiles * BKT;
   const int pst = kChunked ? PT : sp + 8;  // a probability row's stride
@@ -206,7 +229,24 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
 
   const int bh = (a.layer * a.B + b) * a.H + h;
   if (tid >= NC) {  // the producer warp: K tiles, then V tiles (chunked: K, then K V K V ..)
-    if (tid == NC) {
+    if (kDeep && tid == NC) {  // each K tile as nk chunks; V: the block's columns
+      int seq = 0;
+      auto put = [&](const CUtensorMap* map, int col, int row) {
+        const int st = seq % STAGES;
+        if (seq >= STAGES) sm90::mbar_wait(empty(st), (seq / STAGES - 1) & 1);
+        sm90::mbar_expect_tx(full(st), TILE);
+        sm90::tma_load3(stage(st), map, full(st), col, row, bh);
+        sm90::tma_load3(stage(st) + HT::LO_BOX, map, full(st), col + 64, row, bh);
+        ++seq;
+      };
+      for (int it = 0; it < ntiles; ++it)
+        for (int c = 0; c < nk; ++c) put(&maps.k, W * c, it * BKT);
+      for (int it = 0; it < ntiles; ++it) {
+        if (kChunked)
+          for (int c = 0; c < nk; ++c) put(&maps.k, W * c, it * BKT);
+        put(&maps.v, c0, it * BKT);
+      }
+    } else if (tid == NC) {
       const int total = (kChunked ? 3 : 2) * ntiles;
       for (int it = 0; it < total; ++it) {
         const int st = it % STAGES;
@@ -215,9 +255,9 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
         const int row = (!kChunked || it < ntiles ? it % ntiles : (it - ntiles) / 2) * BKT;
         sm90::mbar_expect_tx(full(st), TILE);
         if (value)
-          load_rows<DP>(stage(st), &maps.v, &maps.v_hi, full(st), row, bh);
+          load_rows<W>(stage(st), &maps.v, &maps.v_hi, full(st), row, bh);
         else
-          load_rows<DP>(stage(st), &maps.k, &maps.k_hi, full(st), row, bh);
+          load_rows<W>(stage(st), &maps.k, &maps.k_hi, full(st), row, bh);
       }
     }
     return;  // no block-wide barrier follows
@@ -228,36 +268,64 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
   if constexpr (!kChunked) sm90::copy_f32(bias, bias_row, S, S, tid, NC);
   sm90::grid_wait();  // q is the cross-q product's
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int D = kExact ? DP : a.D, d = a.H * D;
+  const int D = kExact ? W : a.D, d = a.H * D;
   const long long row0 = (long long)b * a.Kb + j0;  // the tile's first row of q and out
-  // q's A fragments for the DP / 16 16-deep k-steps: rows g and g + 8 (beams)
-  uint32_t qa[DP / 16][4];
-  {
+  // q's A fragments for the W / 16 16-deep k-steps: rows g and g + 8 (beams),
+  // dims e0 + .. (the deep route: chunk e0 / 128's)
+  uint32_t qa[W / 16][4];
+  auto load_qa = [&](int e0) {
     const bf16* q = a.q + row0 * d + h * D;
     auto pair = [&](int j, int c) -> uint32_t {
       if (j >= Kb) return 0u;
       if constexpr (kExact) return *reinterpret_cast<const uint32_t*>(q + (long long)j * d + c);
-      return ld_pair(q + (long long)j * d, c, D);
+      return ld_pair(q + (long long)j * d, e0 + c, D);
     };
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < W / 16; ++kk) {
       qa[kk][0] = pair(g, 16 * kk + 2 * t);
       qa[kk][1] = pair(g + 8, 16 * kk + 2 * t);
       qa[kk][2] = pair(g, 16 * kk + 8 + 2 * t);
       qa[kk][3] = pair(g + 8, 16 * kk + 8 + 2 * t);
     }
-  }
+  };
+  if constexpr (!kDeep) load_qa(0);
   sm90::named_sync(1, NC);  // the bias row
 
-  // the scores of keys 8 warp .. + 7 of the K tile in stage st (no bias)
-  auto scores = [&](int st, float (&c)[4]) {
+  // the scores of keys 8 warp .. + 7 of the K tile in stage st (no bias);
+  // with acc, added to c
+  auto scores = [&](int st, float (&c)[4], bool acc = false) {
     const int key = 8 * warp + g;  // this lane's B column
-    c[0] = c[1] = c[2] = c[3] = 0.f;
+    if (!acc) c[0] = c[1] = c[2] = c[3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < W / 16; ++kk) {
       const uint32_t b0 = lds32(HT::unit(stage(st), key, 2 * kk) + 4 * t);
       const uint32_t b1 = lds32(HT::unit(stage(st), key, 2 * kk + 1) + 4 * t);
       mma16816(c, qa[kk], b0, b1);
+    }
+  };
+  // the deep route's ring, as the consumers walk it: the next tile's stage,
+  // and its release behind a proxy fence (the generic reads of a stage
+  // ordered before the next TMA copy into it; K6's deep route read other
+  // chunks' bytes without it)
+  auto release = [&](int st) {
+    sm90::fence_async_smem();
+    sm90::mbar_arrive(empty(st));
+  };
+  int seq = 0;
+  auto take = [&]() {
+    const int st = seq % STAGES;
+    sm90::mbar_wait(full(st), (seq / STAGES) & 1);
+    ++seq;
+    return st;
+  };
+  // the deep route's scores of a key tile: its nk chunks in order, each
+  // stage released once read
+  auto scores_deep = [&](float (&c)[4]) {
+    for (int ch = 0; ch < nk; ++ch) {
+      const int st = take();
+      load_qa(W * ch);
+      scores(st, c, ch > 0);
+      release(st);
     }
   };
   // acc += P (rows g, g + 8; columns k0 .. k0 + 63 of P's rows) . the V tile in stage st
@@ -277,7 +345,7 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
       const int key = 16 * ks + (lane % 8) + 8 * ((lane / 8) & 1);
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        if (warp + 8 * n >= DP / 8) continue;
+        if (warp + 8 * n >= W / 8) continue;
         const uint32_t addr = HT::unit(stage(st), key, warp + 8 * n);
         uint32_t r0, r1;
         asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
@@ -292,11 +360,15 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
   if constexpr (!kChunked) {
     // scores: warp w, keys 8 w .. 8 w + 7 of each tile
     for (int it = 0; it < ntiles; ++it) {
-      const int st = it % STAGES;
-      sm90::mbar_wait(full(st), (it / STAGES) & 1);
       float c[4];
-      scores(st, c);
-      sm90::mbar_arrive(empty(st));
+      if constexpr (kDeep) {
+        scores_deep(c);
+      } else {
+        const int st = it % STAGES;
+        sm90::mbar_wait(full(st), (it / STAGES) & 1);
+        scores(st, c);
+        sm90::mbar_arrive(empty(st));
+      }
       const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -322,23 +394,35 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
     }
     sm90::named_sync(1, NC);
 
-    // P.v: warp w owns the n8 column blocks w + 8 n < DP / 8
+    // P.v: warp w owns the n8 column blocks w + 8 n < W / 8
     for (int it = ntiles; it < 2 * ntiles; ++it) {
-      const int st = it % STAGES;
-      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      int st;
+      if constexpr (kDeep) {
+        st = take();
+      } else {
+        st = it % STAGES;
+        sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      }
       pv(st, P, (it - ntiles) * BKT);
-      sm90::mbar_arrive(empty(st));
+      if constexpr (kDeep)
+        release(st);
+      else
+        sm90::mbar_arrive(empty(st));
     }
   } else {
     // pass 1: each row's max and sum of exp over the K tiles, a key at a time
     // in the lane, then the lanes of a quad (xor 1, 2), then the 8 warps in order
     float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};  // rows g, g + 8
     for (int it = 0; it < ntiles; ++it) {
-      const int st = it % STAGES;
-      sm90::mbar_wait(full(st), (it / STAGES) & 1);
       float c[4];
-      scores(st, c);
-      sm90::mbar_arrive(empty(st));
+      if constexpr (kDeep) {
+        scores_deep(c);
+      } else {
+        const int st = it % STAGES;
+        sm90::mbar_wait(full(st), (it / STAGES) & 1);
+        scores(st, c);
+        sm90::mbar_arrive(empty(st));
+      }
       const int s = it * BKT + 8 * warp + 2 * t;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -371,11 +455,16 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
     // pass 2: per tile, the scores again, p = exp(w - m) / l rounded to bf16
     // into a P tile (two, alternating: one barrier a tile), then P.v
     for (int i = 0; i < ntiles; ++i) {
-      const int it = ntiles + 2 * i, st = it % STAGES;
-      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      const int it = ntiles + 2 * i;
       float c[4];
-      scores(st, c);
-      sm90::mbar_arrive(empty(st));
+      if constexpr (kDeep) {
+        scores_deep(c);
+      } else {
+        const int st = it % STAGES;
+        sm90::mbar_wait(full(st), (it / STAGES) & 1);
+        scores(st, c);
+        sm90::mbar_arrive(empty(st));
+      }
       bf16* Pt = P + (i & 1) * MAX_KB * PT;
       const int col = 8 * warp + 2 * t, s = i * BKT + col;
       float p[2][2];
@@ -391,18 +480,26 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
       *reinterpret_cast<__nv_bfloat162*>(Pt + (g + 8) * PT + col) =
           __floats2bfloat162_rn(p[1][0], p[1][1]);
       sm90::named_sync(1, NC);
-      const int sv = (it + 1) % STAGES;
-      sm90::mbar_wait(full(sv), ((it + 1) / STAGES) & 1);
+      int sv;
+      if constexpr (kDeep) {
+        sv = take();
+      } else {
+        sv = (it + 1) % STAGES;
+        sm90::mbar_wait(full(sv), ((it + 1) / STAGES) & 1);
+      }
       pv(sv, Pt, 0);
-      sm90::mbar_arrive(empty(sv));
+      if constexpr (kDeep)
+        release(sv);
+      else
+        sm90::mbar_arrive(empty(sv));
     }
   }
 
   bf16* out = a.out + row0 * d + h * D;
 #pragma unroll
   for (int n = 0; n < NB; ++n) {
-    if (warp + 8 * n >= DP / 8) continue;
-    const int c = 8 * (warp + 8 * n) + 2 * t;
+    if (warp + 8 * n >= W / 8) continue;
+    const int c = c0 + 8 * (warp + 8 * n) + 2 * t;
     const float (&r)[4] = o[n];
     if constexpr (kExact) {
       if (g < Kb)
@@ -422,8 +519,9 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
 // in boxes of 64 rows (sm90::head_maps).
 template <int DP>
 inline int cache_maps(CacheMaps* m, const void* k, const void* v, long long lbh, int S, int Dc) {
-  if (const int err = sm90::head_maps(&m->k, &m->k_hi, k, Dc, DP, S, lbh, BKT)) return err;
-  return sm90::head_maps(&m->v, &m->v_hi, v, Dc, DP, S, lbh, BKT);
+  constexpr int W = tile_width<DP>();
+  if (const int err = sm90::head_maps(&m->k, &m->k_hi, k, Dc, W, S, lbh, BKT)) return err;
+  return sm90::head_maps(&m->v, &m->v_hi, v, Dc, W, S, lbh, BKT);
 }
 
 template <int DP, bool kExact, bool kChunked>
@@ -432,7 +530,8 @@ inline int launch_one(const CacheMaps& maps, const Args& a, size_t smem, int pdl
   static SmemOptIn opt_in;
   if (const int err = opt_in.ensure((const void*)kernel<DP, kExact, kChunked>, smem)) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.H, a.B, (a.Kb + MAX_KB - 1) / MAX_KB);
+  const int nk = DP == DEEP ? deep_chunks(a.D) : 1;  // the deep route's column blocks
+  cfg.gridDim = dim3(a.H, a.B, (a.Kb + MAX_KB - 1) / MAX_KB * nk);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -451,16 +550,21 @@ inline int launch_one(const CacheMaps& maps, const Args& a, size_t smem, int pdl
 template <int DP>
 inline int launch(const CacheMaps& maps, const Args& a, int chunked, int pdl,
                   cudaStream_t stream) {
-  if (a.Kb < 1 || a.D > DP) return (int)cudaErrorInvalidValue;
+  if (a.Kb < 1 || (DP != DEEP && a.D > DP)) return (int)cudaErrorInvalidValue;
   const int kb = a.Kb < MAX_KB ? a.Kb : MAX_KB;  // the beams of a tile
   const size_t smem = chunked ? smem_bytes_chunked<DP>() : smem_bytes<DP>(kb, a.S);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const bool exact = a.D == DP;
-  if (chunked)
-    return exact ? launch_one<DP, true, true>(maps, a, smem, pdl, stream)
-                 : launch_one<DP, false, true>(maps, a, smem, pdl, stream);
-  return exact ? launch_one<DP, true, false>(maps, a, smem, pdl, stream)
-               : launch_one<DP, false, false>(maps, a, smem, pdl, stream);
+  if constexpr (DP == DEEP) {  // D is never the instance's
+    return chunked ? launch_one<DP, false, true>(maps, a, smem, pdl, stream)
+                   : launch_one<DP, false, false>(maps, a, smem, pdl, stream);
+  } else {
+    const bool exact = a.D == DP;
+    if (chunked)
+      return exact ? launch_one<DP, true, true>(maps, a, smem, pdl, stream)
+                   : launch_one<DP, false, true>(maps, a, smem, pdl, stream);
+    return exact ? launch_one<DP, true, false>(maps, a, smem, pdl, stream)
+                 : launch_one<DP, false, false>(maps, a, smem, pdl, stream);
+  }
 }
 
 // launch<dp>, for an instance dp of common.cuh::with_head_dim: defined in

@@ -69,6 +69,14 @@
 // waits on the previous kernel; q, the bias, the scales and the pads are
 // read after the wait.
 //
+// Past 256 (the deep route, any D a multiple of 16): 64 x 128 int8 tiles on
+// the instance 128's ring of 8; a key tile's score sums its ceil(D / 128)
+// chunk tiles' products, q's fragments of each chunk loaded as it comes, and
+// a CTA owns one 128-column block of the output (grid z = beam tiles x
+// blocks), so at 1 head of 768 the 16 (h, b) pairs of the serving shape
+// make 96 CTAs; each block reads the sample's K tiles again (mostly from
+// L2). ptxas (CUDA 12.8): 72 registers, 109 chunked, no spills.
+//
 // fp32 q (mk_decode_cross_attn_int8) stays on the FMA kernel of
 // cross_attn.cuh: 256 threads, one key row a thread, widened in registers,
 // fp32 scores, softmax and value sums.
@@ -95,9 +103,10 @@ constexpr float NEG_BIAS = -1e9f;       // the score of a padded key
 
 template <int DP>
 struct Tiles {
-  static constexpr int STAGES = mk::decode_attn::stages<DP>();  // ring depth, as K7's
-  static constexpr uint32_t KV = BKT * DP;                    // one 64 x DP int8 K or V tile
-  static constexpr uint32_t V16 = sm90::HeadTile<DP>::BYTES;  // one 64 x DP bf16 value tile
+  static constexpr int W = DP == mk::DEEP ? mk::DEEP_CHUNK : DP;  // a tile's columns (deep: a chunk's)
+  static constexpr int STAGES = mk::decode_attn::stages<W>();  // ring depth, as K7's
+  static constexpr uint32_t KV = BKT * W;                    // one 64 x W int8 K or V tile
+  static constexpr uint32_t V16 = sm90::HeadTile<W>::BYTES;  // one 64 x W bf16 value tile
 };
 
 struct Args {
@@ -134,20 +143,31 @@ constexpr size_t smem_bytes_chunked() {
 // kmap, vmap: this layer's cache [B * H, S, D] int8 with 64 x DP boxes.
 // kExact: D == DP, known to the compiler. kChunked: the score-chunked route.
 // Block z is the beam tile: beams 16 z .. 16 z + 15 of the sample.
+// The deep route (DP == DEEP, D past 256): the tiles are 64 x 128 chunks
+// (W = 128, the instance 128's layout); each key tile's score is the sum of
+// its nk = D / 128 chunk tiles' products, q's fragments of each chunk loaded
+// as it comes (scores_deep), and the CTA owns one 128-column block of v and
+// the output (block z = beam tile x nk + block), whose value tiles alone
+// it streams.
 template <int DP, bool kExact, bool kChunked>
-__global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kernel(
-    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, Args a) {
-  using HT = sm90::HeadTile<DP>;
+__global__ void __launch_bounds__(NT, DP <= 128 && DP != mk::DEEP ? 2 : 1)
+    cross_attn_i8_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap, Args a) {
+  constexpr bool kDeep = DP == mk::DEEP;
+  constexpr int W = Tiles<DP>::W;  // a tile's columns
+  using HT = sm90::HeadTile<W>;
   constexpr int STAGES = Tiles<DP>::STAGES;
   constexpr uint32_t KV_TILE = Tiles<DP>::KV, TILE = Tiles<DP>::V16;
-  constexpr int NB = (DP / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
+  constexpr int NB = (W / 8 + 7) / 8;  // n8 column blocks a warp owns in P.v
   const int D = kExact ? DP : a.D;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t vt = base + STAGES * KV_TILE;  // two bf16 value tiles
   const uint32_t bars = vt + 2 * TILE;
-  const int h = blockIdx.x, b = blockIdx.y, j0 = MAX_KB * blockIdx.z, S = a.S;
+  const int nk = kDeep ? mk::deep_chunks(a.D) : 1;  // the deep route's chunks (and blocks)
+  const int h = blockIdx.x, b = blockIdx.y, j0 = MAX_KB * (blockIdx.z / nk), S = a.S;
+  const int cb = blockIdx.z % nk, c0 = W * cb;  // the deep route's block of v and the output
   const int Kb = min(MAX_KB, a.Kb - j0);  // this tile's beams
   const int ntiles = (S + BKT - 1) / BKT, sp = ntiles * BKT;
   const int pst = kChunked ? PT : sp + 8;  // a probability row's stride
@@ -175,7 +195,23 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
 
   const long long bh = (long long)b * a.H + h;
   if (tid >= NC) {  // the producer warp: K tiles, then V tiles (chunked: K, then K V K V ..)
-    if (tid == NC) {
+    if (kDeep && tid == NC) {  // each K tile as nk chunks; V: the block's columns
+      int seq = 0;
+      auto put = [&](const CUtensorMap* map, int col, int row) {
+        const int st = seq % STAGES;
+        if (seq >= STAGES) sm90::mbar_wait(empty(st), (seq / STAGES - 1) & 1);
+        sm90::mbar_expect_tx(full(st), KV_TILE);
+        sm90::tma_load3(base + KV_TILE * st, map, full(st), col, row, (int)bh);
+        ++seq;
+      };
+      for (int it = 0; it < ntiles; ++it)
+        for (int c = 0; c < nk; ++c) put(&kmap, W * c, it * BKT);
+      for (int it = 0; it < ntiles; ++it) {
+        if (kChunked)
+          for (int c = 0; c < nk; ++c) put(&kmap, W * c, it * BKT);
+        put(&vmap, c0, it * BKT);
+      }
+    } else if (tid == NC) {
       const int total = (kChunked ? 3 : 2) * ntiles;
       for (int it = 0; it < total; ++it) {
         const int st = it % STAGES;
@@ -209,63 +245,93 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
   }
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   // q's A fragments in the permuted dim order of the K fragments: k-step j,
-  // rows g and g + 8 (beams), dims DP / 4 t + 4 j .. + 3 (zeros past D)
-  uint32_t qa[DP / 16][4];
-  {
-    const bf16* q = a.q + (bh * a.Kb + j0) * D;
+  // rows g and g + 8 (beams), dims W / 4 t + 4 j .. + 3 (zeros past D)
+  uint32_t qa[W / 16][4];
+  const bf16* qrow = a.q + (bh * a.Kb + j0) * D;
+  // the A fragments of dims e0 + .. (the deep route: chunk e0 / 128's)
+  auto load_qa = [&](int e0) {
+    const bf16* q = qrow + e0;
     auto quad = [&](int j, int c) -> uint2 {
-      return j < Kb && c < D ? *reinterpret_cast<const uint2*>(q + j * D + c)
-                             : make_uint2(0u, 0u);
+      return j < Kb && e0 + c < D ? *reinterpret_cast<const uint2*>(q + j * D + c)
+                                  : make_uint2(0u, 0u);
     };
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint2 lo = quad(g, DP / 4 * t + 4 * kk), hi = quad(g + 8, DP / 4 * t + 4 * kk);
+    for (int kk = 0; kk < W / 16; ++kk) {
+      const uint2 lo = quad(g, W / 4 * t + 4 * kk), hi = quad(g + 8, W / 4 * t + 4 * kk);
       qa[kk][0] = lo.x;
       qa[kk][1] = hi.x;
       qa[kk][2] = lo.y;
       qa[kk][3] = hi.y;
     }
-  }
+  };
+  if constexpr (!kDeep) load_qa(0);
   sm90::named_sync(1, NC);  // the rows
 
-  // the dots of keys 8 warp .. + 7 of the K tile in stage st (releases the stage)
-  auto scores = [&](int st, float (&c)[4]) {
-    const uint8_t* krow = stage(st) + (8 * warp + g) * DP + DP / 4 * t;
-    uint32_t words[DP / 16];
-    if constexpr ((DP / 4) % 16 == 0) {  // 16-byte pieces
+  // the dots of keys 8 warp .. + 7 of the K tile in stage st (releases the
+  // stage); with acc, added to c. The deep route releases a stage after a
+  // proxy fence (sm90::fence_async_smem): its ring turns over a chunk at a
+  // time, and without the fence the next TMA copy into a stage overtook some
+  // lanes' generic reads of it (other chunks' and V's bytes in some beams'
+  // scores, run to run, on an H100).
+  auto scores = [&](int st, float (&c)[4], bool acc = false) {
+    const uint8_t* krow = stage(st) + (8 * warp + g) * W + W / 4 * t;
+    uint32_t words[W / 16];
+    if constexpr ((W / 4) % 16 == 0) {  // 16-byte pieces
 #pragma unroll
-      for (int i = 0; i < DP / 64; ++i) {
+      for (int i = 0; i < W / 64; ++i) {
         const uint4 kw = *reinterpret_cast<const uint4*>(krow + 16 * i);
         words[4 * i] = kw.x;
         words[4 * i + 1] = kw.y;
         words[4 * i + 2] = kw.z;
         words[4 * i + 3] = kw.w;
       }
-    } else if constexpr ((DP / 4) % 8 == 0) {  // 8-byte pieces
+    } else if constexpr ((W / 4) % 8 == 0) {  // 8-byte pieces
 #pragma unroll
-      for (int i = 0; i < DP / 32; ++i) {
+      for (int i = 0; i < W / 32; ++i) {
         const uint2 kw = *reinterpret_cast<const uint2*>(krow + 8 * i);
         words[2 * i] = kw.x;
         words[2 * i + 1] = kw.y;
       }
     } else {
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
+      for (int kk = 0; kk < W / 16; ++kk)
         words[kk] = *reinterpret_cast<const uint32_t*>(krow + 4 * kk);
     }
-    uint32_t kb[DP / 16][2];
+    uint32_t kb[W / 16][2];
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
-    sm90::mbar_arrive(empty(st));
-    c[0] = c[1] = c[2] = c[3] = 0.f;
+    for (int kk = 0; kk < W / 16; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
+    if constexpr (!kDeep) sm90::mbar_arrive(empty(st));
+    if (!acc) c[0] = c[1] = c[2] = c[3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
+    for (int kk = 0; kk < W / 16; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
+    if constexpr (kDeep) {
+      sm90::fence_async_smem();
+      sm90::mbar_arrive(empty(st));
+    }
+  };
+  // the deep route's ring, as the consumers walk it: the next tile's stage
+  int seq = 0;
+  auto take = [&]() {
+    const int st = seq % STAGES;
+    sm90::mbar_wait(full(st), (seq / STAGES) & 1);
+    ++seq;
+    return st;
+  };
+  // the deep route's dots of a key tile: its nk chunks in order, q's
+  // fragments of each loaded as it comes
+  auto scores_deep = [&](float (&c)[4]) {
+    for (int ch = 0; ch < nk; ++ch) {
+      const int st = take();
+      load_qa(W * ch);
+      scores(st, c, ch > 0);
+    }
   };
   // the value tile in stage st widened into the bf16 tile at vb (key-major
-  // rows in K7's swizzled layout; releases the stage)
+  // rows in K7's swizzled layout; releases the stage: on the deep route once
+  // the widened words are stored, behind the proxy fence, as the scores')
   auto widen_v = [&](int st, uint32_t vb) {
     uint8_t* row = smem_raw + (vb - raw);
-    if constexpr (DP == 64) {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
+    if constexpr (W == 64) {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
       const uint4 vw = *reinterpret_cast<const uint4*>(stage(st) + 16 * tid);
       const uint32_t words[4] = {vw.x, vw.y, vw.z, vw.w};
       uint32_t wv[8];
@@ -275,15 +341,15 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
       const int key = tid / 4, u = 2 * (tid % 4);
       *reinterpret_cast<uint4*>(row + swz(key, u)) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
       *reinterpret_cast<uint4*>(row + swz(key, u + 1)) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
-    } else {  // 8-byte pieces: piece i is key i / (DP / 8), dims 8 (i % (DP / 8)) .. + 7
-      constexpr int PIECES = BKT * DP / 8, PER = (PIECES + NC - 1) / NC;
+    } else {  // 8-byte pieces: piece i is key i / (W / 8), dims 8 (i % (W / 8)) .. + 7
+      constexpr int PIECES = BKT * W / 8, PER = (PIECES + NC - 1) / NC;
       uint2 vw[PER];
 #pragma unroll
       for (int r = 0; r < PER; ++r) {
         const int i = tid + r * NC;
         vw[r] = i < PIECES ? *reinterpret_cast<const uint2*>(stage(st) + 8 * i) : make_uint2(0, 0);
       }
-      sm90::mbar_arrive(empty(st));
+      if constexpr (!kDeep) sm90::mbar_arrive(empty(st));
 #pragma unroll
       for (int r = 0; r < PER; ++r) {
         const int i = tid + r * NC;
@@ -291,8 +357,12 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
         uint32_t w0, w1, w2, w3;
         sm90::widen_i8x4(vw[r].x, w0, w1);
         sm90::widen_i8x4(vw[r].y, w2, w3);
-        *reinterpret_cast<uint4*>(row + (HT::unit(vb, i / (DP / 8), i % (DP / 8)) - vb)) =
+        *reinterpret_cast<uint4*>(row + (HT::unit(vb, i / (W / 8), i % (W / 8)) - vb)) =
             make_uint4(w0, w1, w2, w3);
+      }
+      if constexpr (kDeep) {
+        sm90::fence_async_smem();
+        sm90::mbar_arrive(empty(st));
       }
     }
   };
@@ -312,7 +382,7 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
       const int key = 16 * kq + (lane % 8) + 8 * ((lane / 8) & 1);
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        if (warp + 8 * n >= DP / 8) continue;
+        if (warp + 8 * n >= W / 8) continue;
         const uint32_t addr = HT::unit(vb, key, warp + 8 * n);
         uint32_t r0, r1;
         asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
@@ -327,10 +397,14 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
   if constexpr (!kChunked) {
     // scores: warp w, keys 8 w .. 8 w + 7 of each tile
     for (int it = 0; it < ntiles; ++it) {
-      const int st = it % STAGES;
-      sm90::mbar_wait(full(st), (it / STAGES) & 1);
       float c[4];
-      scores(st, c);
+      if constexpr (kDeep) {
+        scores_deep(c);
+      } else {
+        const int st = it % STAGES;
+        sm90::mbar_wait(full(st), (it / STAGES) & 1);
+        scores(st, c);
+      }
       const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -363,11 +437,16 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
     sm90::named_sync(1, NC);
 
     // P.v: each value tile widened into a bf16 tile, then read as K7's; warp w
-    // owns the n8 column blocks w + 8 n < DP / 8
+    // owns the n8 column blocks w + 8 n < W / 8
     for (int it = ntiles; it < 2 * ntiles; ++it) {
-      const int st = it % STAGES;
       const uint32_t vb = vt + TILE * ((it - ntiles) & 1);
-      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      int st;
+      if constexpr (kDeep) {
+        st = take();
+      } else {
+        st = it % STAGES;
+        sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      }
       widen_v(st, vb);
       // the tile complete; the other tile's readers have passed this barrier
       // before this one is written again
@@ -386,10 +465,14 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
     // tiles, a key at a time in the lane, then the lanes of a quad, then the warps
     float m[2] = {-1e8f, -1e8f}, l[2] = {0.f, 0.f};  // rows g, g + 8
     for (int it = 0; it < ntiles; ++it) {
-      const int st = it % STAGES;
-      sm90::mbar_wait(full(st), (it / STAGES) & 1);
       float c[4];
-      scores(st, c);
+      if constexpr (kDeep) {
+        scores_deep(c);
+      } else {
+        const int st = it % STAGES;
+        sm90::mbar_wait(full(st), (it / STAGES) & 1);
+        scores(st, c);
+      }
       const int s = it * BKT + 8 * warp + 2 * t;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -423,10 +506,15 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
     // to bf16 into a P tile, the value tile widened (two of each, alternating:
     // one barrier a tile), then P.v
     for (int i = 0; i < ntiles; ++i) {
-      const int it = ntiles + 2 * i, st = it % STAGES;
-      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      const int it = ntiles + 2 * i;
       float c[4];
-      scores(st, c);
+      if constexpr (kDeep) {
+        scores_deep(c);
+      } else {
+        const int st = it % STAGES;
+        sm90::mbar_wait(full(st), (it / STAGES) & 1);
+        scores(st, c);
+      }
       bf16* Pt = P + (i & 1) * MAX_KB * PT;
       const int col = 8 * warp + 2 * t, s = i * BKT + col;
       float p[2][2];
@@ -441,9 +529,14 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
           __floats2bfloat162_rn(p[0][0], p[0][1]);
       *reinterpret_cast<__nv_bfloat162*>(Pt + (g + 8) * PT + col) =
           __floats2bfloat162_rn(p[1][0], p[1][1]);
-      const int sv = (it + 1) % STAGES;
       const uint32_t vb = vt + TILE * (i & 1);
-      sm90::mbar_wait(full(sv), ((it + 1) / STAGES) & 1);
+      int sv;
+      if constexpr (kDeep) {
+        sv = take();
+      } else {
+        sv = (it + 1) % STAGES;
+        sm90::mbar_wait(full(sv), ((it + 1) / STAGES) & 1);
+      }
       widen_v(sv, vb);
       sm90::named_sync(1, NC);
       pv(vb, Pt, 0);
@@ -453,8 +546,8 @@ __global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1) cross_attn_i8_sm90_kern
   bf16* out = a.out + (bh * a.Kb + j0) * D;
 #pragma unroll
   for (int n = 0; n < NB; ++n) {
-    const int c = 8 * (warp + 8 * n) + 2 * t;
-    if (warp + 8 * n >= DP / 8 || c >= D) continue;
+    const int c = c0 + 8 * (warp + 8 * n) + 2 * t;
+    if (warp + 8 * n >= W / 8 || c >= D) continue;
     if (g < Kb)
       *reinterpret_cast<__nv_bfloat162*>(out + g * D + c) =
           __floats2bfloat162_rn(o[n][0], o[n][1]);
@@ -483,7 +576,8 @@ inline int launch_one(const CUtensorMap& kmap, const CUtensorMap& vmap, const Ar
           opt_in.ensure((const void*)cross_attn_i8_sm90_kernel<DP, kExact, kChunked>, smem))
     return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.H, B, (a.Kb + MAX_KB - 1) / MAX_KB);
+  const int nk = DP == mk::DEEP ? mk::deep_chunks(a.D) : 1;  // the deep route's column blocks
+  cfg.gridDim = dim3(a.H, B, (a.Kb + MAX_KB - 1) / MAX_KB * nk);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -506,19 +600,25 @@ inline int launch_sm90(const CUtensorMap& kmap, const CUtensorMap& vmap, const A
   const size_t smem =
       chunked ? smem_bytes_chunked<DP>() : smem_bytes<DP>(a.Kb < MAX_KB ? a.Kb : MAX_KB, a.S);
   if (a.Kb < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
-  const bool exact = a.D == DP;
-  if (chunked)
-    return exact ? launch_one<DP, true, true>(kmap, vmap, a, B, smem, stream)
-                 : launch_one<DP, false, true>(kmap, vmap, a, B, smem, stream);
-  return exact ? launch_one<DP, true, false>(kmap, vmap, a, B, smem, stream)
-               : launch_one<DP, false, false>(kmap, vmap, a, B, smem, stream);
+  if constexpr (DP == mk::DEEP) {  // D is never the instance's
+    return chunked ? launch_one<DP, false, true>(kmap, vmap, a, B, smem, stream)
+                   : launch_one<DP, false, false>(kmap, vmap, a, B, smem, stream);
+  } else {
+    const bool exact = a.D == DP;
+    if (chunked)
+      return exact ? launch_one<DP, true, true>(kmap, vmap, a, B, smem, stream)
+                   : launch_one<DP, false, true>(kmap, vmap, a, B, smem, stream);
+    return exact ? launch_one<DP, true, false>(kmap, vmap, a, B, smem, stream)
+                 : launch_one<DP, false, false>(kmap, vmap, a, B, smem, stream);
+  }
 }
 
 }  // namespace
 
 // fp32 q and out (the FMA kernel). k, v int8 [B, H, S, D]; scales fp32
 // [B, H, S]; bias fp32 with strides (bias_bs, bias_hs, 1); pad bool [B, S];
-// D = head_dim, a multiple of 16 up to 256 (common.cuh::with_head_dim).
+// D = head_dim, a multiple of 16 (common.cuh::with_head_dim; past 256 the
+// deep route).
 // Returns a CUDA error code.
 extern "C" int mk_decode_cross_attn_int8(const void* q, const void* k, const void* v,
                                          const void* k_scale, const void* v_scale,
@@ -579,9 +679,10 @@ extern "C" int mk_decode_cross_attn_int8_sm90(const void* q, const void* k, cons
   if (head_dim % 16) return (int)cudaErrorInvalidValue;  // the int8 rows' TMA strides
   return mk::with_head_dim(head_dim, [&](auto d) {
     constexpr int DP = decltype(d)::value;
+    constexpr int W = Tiles<DP>::W;  // the boxes' columns (the deep route: a chunk's)
     CUtensorMap kmap, vmap;
-    if (const int err = cache_map<DP>(&kmap, k, (long long)B * H, S, head_dim)) return err;
-    if (const int err = cache_map<DP>(&vmap, v, (long long)B * H, S, head_dim)) return err;
+    if (const int err = cache_map<W>(&kmap, k, (long long)B * H, S, head_dim)) return err;
+    if (const int err = cache_map<W>(&vmap, v, (long long)B * H, S, head_dim)) return err;
     return launch_sm90<DP>(kmap, vmap, a, B, chunk < S, static_cast<cudaStream_t>(stream));
   });
 }

@@ -51,7 +51,10 @@
 // cross-attention on decode_attn_sm90.cuh (K/V tiles by TMA, mma.sync), the
 // self-attention on CUDA cores (self_attn_bf16: a lane per cached position;
 // where D is not a multiple of 8, whose rows are then not 16-byte pieces,
-// self_attn_kernel's element-wise walk).
+// self_attn_kernel's element-wise walk). Past head dim 256 (the deep route,
+// common.cuh::DEEP) the self-attention is self_attn_deep on either route (q
+// and the key rows 128 dims at a time, a warp per (row, head, 128-column
+// block)) and the cross-attentions split their outputs likewise.
 // Every launch but the self-attention's uses programmatic stream
 // serialization, so each product streams its first weight tiles while the
 // previous launch finishes.
@@ -421,6 +424,65 @@ __global__ void __launch_bounds__(SA_WARPS * 32) self_attn_bf16(
   }
 }
 
+// The deep route's self-attention (D past 256, either dtype, common.cuh::
+// DEEP): one warp per (row, head, 128-column block of the output), lanes on
+// the head dims, q taken 128 dims at a time (scaled and rounded as it is
+// read, no copy of it kept) into each position's dot, then warp reductions,
+// as self_attn_kernel's: the same sums in the same order. The values sum
+// the block's columns only; each block computes the scores and the softmax
+// of its (row, head) again. Registers and shared memory are those of one
+// 128-dim chunk, whatever D.
+template <typename T>
+__global__ void __launch_bounds__(SA_WARPS * 32) self_attn_deep(
+    const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
+    const T* __restrict__ cache_k, const T* __restrict__ cache_v, const float* __restrict__ sbias,
+    T* __restrict__ out, int rows, int H, int Tmax, int idx, float scaling, int D, int Dc,
+    int ch) {
+  constexpr int CW = mk::DEEP_CHUNK, NE = CW / 32;  // dims of a chunk a lane holds
+  extern __shared__ float sa_scores[];  // [SA_WARPS][ch]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nch = mk::deep_chunks(D);
+  const int task = blockIdx.x * SA_WARPS + warp;
+  if (task >= rows * H * nch) return;
+  const int cb = task % nch, row = task / nch / H, h = task / nch % H, d = H * D;
+  float* w = sa_scores + warp * ch;
+  const long long qo = (long long)row * d + h * D;  // (row, head) in [rows, d]
+  const long long co = ((long long)row * H + h) * Tmax;  // (row, head) in the cache
+  const float* sb = sbias + co;
+  auto score = [&](int t) {  // the warp's score of position t, in every lane
+    const T* kt = t == idx ? k_new + qo : cache_k + (co + t) * Dc;
+    float part = 0.f;
+    for (int c0 = 0; c0 < D; c0 += CW)
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int e = c0 + lane + 32 * i;
+        if (e < D) part += round_to<T>(to_f(q[qo + e]) * scaling) * to_f(kt[e]);
+      }
+    return mk::warp_sum(part) + sb[t];
+  };
+
+  float m = -CUDART_INF_F;
+  for (int t = 0; t <= idx; ++t) {
+    const float s = score(t);
+    if (lane == 0 && t < ch) w[t] = s;
+    m = fmaxf(m, s);
+  }
+  __syncwarp();
+  float l = 0.f;
+  for (int t = 0; t <= idx; ++t) l += expf((t < ch ? w[t] : score(t)) - m);
+  float a[NE] = {};
+  const int c0 = CW * cb;  // this warp's columns c0 + lane + 32 i
+  for (int t = 0; t <= idx; ++t) {
+    const float p = round_to<T>(expf((t < ch ? w[t] : score(t)) - m) / l);
+    const T* vt = t == idx ? v_new + qo : cache_v + (co + t) * Dc;
+#pragma unroll
+    for (int i = 0; i < NE; ++i)
+      if (c0 + lane + 32 * i < D) a[i] = fmaf(p, to_f(vt[c0 + lane + 32 * i]), a[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < NE; ++i)
+    if (c0 + lane + 32 * i < D) out[qo + c0 + lane + 32 * i] = from_f<T>(a[i]);
+}
+
 template <typename T>
 int gemm(const T* A, const T* W, const float* ln_g, const float* ln_b, Epi<T> epi, int M, int N,
          int K, cudaStream_t st) {
@@ -482,9 +544,15 @@ int step(const Pack& pk, const T* x0, const float* sbias, const float* cbias, co
                    rows, 3 * d, d, st));
     // 2. self-attention over the cache
     const long long cl = (long long)l * rows * H * Tmax;
-    self_attn_kernel<DP, T><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem, st>>>(
-        qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
-        scaling, D, Dc, ch);
+    if constexpr (DP == mk::DEEP)
+      self_attn_deep<T><<<(rows * H * mk::deep_chunks(D) + SA_WARPS - 1) / SA_WARPS,
+                          SA_WARPS * 32, sa_smem, st>>>(qbuf, kn, vn, self_k + cl * Dc,
+                                                        self_v + cl * Dc, sbias + cl, attn, rows,
+                                                        H, Tmax, idx, scaling, D, Dc, ch);
+    else
+      self_attn_kernel<DP, T><<<(rows * H + SA_WARPS - 1) / SA_WARPS, SA_WARPS * 32, sa_smem,
+                                st>>>(qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc,
+                                      sbias + cl, attn, rows, H, Tmax, idx, scaling, D, Dc, ch);
     MK_TRY((int)cudaGetLastError());
     // 3. out-proj + bias + residual
     w_dd = static_cast<const T*>(pk.w_so) + (long long)l * d * d;
@@ -622,7 +690,12 @@ int step_sm90(const Pack& pk, const bf16* x0, const float* sbias, const float* c
       // 2. self-attention over the cache
       const long long cl = (long long)l * rows * H * Tmax;
       const dim3 sa_grid((rows * H + SA_WARPS - 1) / SA_WARPS);
-      if (D == DP)
+      if constexpr (DP == mk::DEEP)
+        self_attn_deep<bf16><<<(rows * H * mk::deep_chunks(D) + SA_WARPS - 1) / SA_WARPS,
+                               SA_WARPS * 32, sa_smem, st>>>(
+            qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
+            scaling, D, Dc, ch);
+      else if (D == DP)
         self_attn_bf16<DP, true><<<sa_grid, SA_WARPS * 32, sa_smem, st>>>(
             qbuf, kn, vn, self_k + cl * Dc, self_v + cl * Dc, sbias + cl, attn, rows, H, Tmax, idx,
             scaling, D, ch);

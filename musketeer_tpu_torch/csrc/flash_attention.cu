@@ -30,6 +30,7 @@
 // is ~30 G multiply-adds against ~130 MB of streams and rel: compute bound
 // on the card (0.0615 ms at 989 TFLOP/s). The second pass repeats the score
 // products, 1.67x the function's work.
+#include "flash_deep.cuh"
 #include "flash_fwd.cuh"
 #include "flash_fwd_sm90.cuh"
 
@@ -185,8 +186,9 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
 // bf16 != 0 selects __nv_bfloat16 streams (q, k, v, pos_q, pos_k, out), else
 // float; rel_f32 != 0 reads rel as float, else in the streams' type. rel may
 // be null (cross attention); kpad is bool [B, S]; Sp >= S counts the padded
-// keys of the JAX wrapper; head_dim is a multiple of 8 up to 256
-// (common.cuh::with_head_dim). Returns cudaGetLastError().
+// keys of the JAX wrapper; head_dim is a multiple of 8 (common.cuh::
+// with_head_dim; past 256 the fp32 streams run on flash_deep.cuh's deep
+// route). Returns cudaGetLastError().
 extern "C" int mk_flash_attention_k5(int bf16, int rel_f32, const void* q, const void* pos_q,
                                      const void* k, const void* pos_k, const void* v,
                                      const void* rel, const void* kpad, void* out, int B, int H,
@@ -197,9 +199,15 @@ extern "C" int mk_flash_attention_k5(int bf16, int rel_f32, const void* q, const
   const int D = head_dim;
   return mk::with_head_dim(head_dim, [&](auto d) {
     constexpr int DP = decltype(d)::value;
-    if (!bf16)
-      return launch<DP>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp, rel_head_stride,
-                        rel_row_stride, causal, D, st);
+    if (!bf16) {
+      if constexpr (DP == mk::DEEP)
+        return mk::flash_deep::launch_fwd<mk::flash_deep::K5>(
+            q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B, H, Tq, S, Sp, rel_head_stride,
+            rel_row_stride, causal, 0, D, st);
+      else
+        return launch<DP>(q, pos_q, k, pos_k, v, rel, kpad, out, B, H, Tq, S, Sp,
+                          rel_head_stride, rel_row_stride, causal, D, st);
+    }
     if (rel_f32)
       return mk::sm90::launch<DP, true, float>(q, pos_q, k, pos_k, v, rel, kpad, out, nullptr, B,
                                                H, Tq, S, Sp, rel_head_stride, rel_row_stride,

@@ -55,6 +55,7 @@
 // 2 x 2 and 2 x (2 D / 16)): the 64-row layout would need 428 KB at 256, the
 // 32-row one 206 KB (117 / 119 registers at 192, 170 / 180 at 256, no spills).
 #include "flash_bwd_sm90.cuh"
+#include "flash_deep.cuh"
 #include "flash_fwd.cuh"
 
 namespace {
@@ -404,7 +405,9 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
 // lse; delta is fp32 scratch [B, H, Tq]. drel receives sum_b dW in fp32, or
 // is null when rel needs no gradient: with fp32 streams a zeroed [H, Tq, S]
 // buffer; with bf16 streams [B, H, Tq, S] scratch for the batch rows' dW,
-// whose first [H, Tq, S] receives the sum. head_dim as K3's.
+// whose first [H, Tq, S] receives the sum. head_dim as K3's; past 256 the
+// fp32 streams run on flash_deep.cuh's deep route, bf16 on
+// flash_bwd_sm90.cuh's.
 extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q,
                                       const void* k, const void* pos_k, const void* v,
                                       const void* rel, const void* kpad, const void* o,
@@ -426,8 +429,15 @@ extern "C" int mk_flash_attention_bwd(int bf16, const void* q, const void* pos_q
                                            dq, dpos_q, dk, dpos_k, dv, dr, B, H, Tq, S,
                                            rel_head_stride, rel_row_stride, causal, D, st);
     }
-    return launch_bwd<DP, float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q,
-                                 dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
-                                 rel_row_stride, causal, D, st);
+    if constexpr (DP == mk::DEEP) {
+      if (const int err = launch_dsum<float>(o, dout, dl, B, H, Tq, D, st)) return err;
+      return mk::flash_deep::launch_bwd(q, pos_q, k, pos_k, v, rel, kpad, dout, l, dl, dq,
+                                        dpos_q, dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
+                                        rel_row_stride, causal, D, st);
+    } else {
+      return launch_bwd<DP, float>(q, pos_q, k, pos_k, v, rel, kpad, o, dout, l, dl, dq, dpos_q,
+                                   dk, dpos_k, dv, dr, B, H, Tq, S, rel_head_stride,
+                                   rel_row_stride, causal, D, st);
+    }
   });
 }

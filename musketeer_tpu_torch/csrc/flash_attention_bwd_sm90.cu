@@ -13,11 +13,18 @@ int launch_bwd_instance(int dp, const void* q, const void* pq, const void* k, co
                         void* dpk, void* dv, float* drel_part, int B, int H, int Tq, int S,
                         long long rel_hs, long long rel_rs, int causal, int D,
                         cudaStream_t stream) {
+  if (dp == DEEP)
+    return launch_bwd_deep(q, pq, k, pk, v, rel, kpad, dout, lse, dsum, dq, dpq, dk, dpk, dv,
+                           drel_part, B, H, Tq, S, rel_hs, rel_rs, causal, D, stream);
   return with_head_dim(dp, [&](auto d) -> int {
     constexpr int DP = decltype(d)::value;
-    if (DP != dp) return (int)cudaErrorInvalidValue;  // dp must be an instance
-    return launch_bwd<DP>(q, pq, k, pk, v, rel, kpad, dout, lse, dsum, dq, dpq, dk, dpk, dv,
-                          drel_part, B, H, Tq, S, rel_hs, rel_rs, causal, D, stream);
+    if constexpr (DP == DEEP) {
+      return (int)cudaErrorInvalidValue;  // dp must be an instance
+    } else {
+      if (DP != dp) return (int)cudaErrorInvalidValue;  // dp must be an instance
+      return launch_bwd<DP>(q, pq, k, pk, v, rel, kpad, dout, lse, dsum, dq, dpq, dk, dpk, dv,
+                            drel_part, B, H, Tq, S, rel_hs, rel_rs, causal, D, stream);
+    }
   });
 }
 

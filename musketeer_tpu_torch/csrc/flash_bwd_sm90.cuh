@@ -509,6 +509,271 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
   if constexpr (kDpq) store_rows<VW>(adpq, dpq + c0, off, cq, D - c0);
 }
 
+// ---- the deep route (head dims past 256, common.cuh::DEEP) ----------------
+//
+// Nothing is resident. Each CTA owns one 128-column block of one gradient
+// (block x = tile x nch + block), as past DP 128, and per tile of its walk
+// takes from the ring of Layout<DEEP> (flash_fwd_sm90.cuh::DeepRing) the
+// chunk pairs of the scores ((k, q) chunk by chunk, then (pos_k, pos_q);
+// query-major (q, k), (pos_q, pos_k)), those of dP ((v, dO); query-major
+// (dO, v)), then the block of its gradient's operand (dO, q or pos_q;
+// query-major k or pos_k). The scores and dP sum the chunks' products in
+// that order, each chunk's in a fresh accumulator (deep_products). lse and dsum come
+// from device memory. drel's partial is written by block 0 of the dq launch.
+// Shared memory 216,160 bytes (the ring, two rel tiles), whatever D; ptxas
+// (CUDA 12.8): key-major dv 152, dk and dpos_k 180, query-major 224
+// registers, no spills. Each of the five launches rebuilds the scores in
+// every block and four of them dP: ~(28 nch + 12) T S D operations against
+// the function's 16 (8 products of [T, S] x D), 11x at D 768.
+struct BwdDeep {
+  static constexpr uint32_t OFF_REL = Layout<DEEP>::OFF_BAR;  // after the ring
+  static constexpr uint32_t OFF_BAR = OFF_REL + 2 * REL_TILE;
+  static constexpr size_t SMEM = OFF_BAR + 8 * 2 * Layout<DEEP>::STAGES + 1024;
+};
+
+// The block of one of dv, dk, dpos_k (kOut, a single bit) for one (b, h,
+// 64-key tile, column block). maps: q, pos_q, dO, k, pos_k, v.
+template <int kOut>
+__global__ void __launch_bounds__(NT, 1) bwd_kv_deep(
+    const __grid_constant__ Maps<DEEP_CHUNK, 6> maps, const __nv_bfloat16* __restrict__ rel,
+    const uint8_t* __restrict__ kpad, const float* __restrict__ lse,
+    const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dpk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
+    long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
+  constexpr uint32_t TILE = Layout<DEEP>::TILE;
+  constexpr bool kDv = kOut == KV_DV, kW = !kDv;  // dW needed (else P alone, no dP product)
+  constexpr int kOperand = kDv ? 2 : (kOut == KV_DK ? 0 : 1);  // dO, q or pos_q
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));  // the same, generic
+  __nv_bfloat16* const rel_base = reinterpret_cast<__nv_bfloat16*>(smem + BwdDeep::OFF_REL);
+  const uint32_t bars = base + BwdDeep::OFF_BAR;
+  const int nch = deep_chunks(D), nk = nch;
+  const int k0 = blockIdx.x / nch * BK, h = blockIdx.y, b = blockIdx.z;
+  const int half = blockIdx.x % nch, c0 = DEEP_CHUNK * half;  // this CTA's gradient columns
+  const int bh = b * H + h;
+  const int n = (Tq + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < DeepRing::STAGES; ++st) {
+      mbar_init(bars + 8u * st, 1);
+      mbar_init(bars + 8u * (DeepRing::STAGES + st), NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  DeepRing ring{base, bars};
+
+  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == NC) {
+      for (int it = 0; it < n; ++it) {
+        const int q0 = it * BQ;
+        for (int c = 0; c < 2 * nk; ++c) {  // k . q chunk by chunk, then pos_k . pos_q
+          const int st = ring.put(2 * TILE), i = c < nk ? 0 : 1;
+          load_chunk(ring.slot(st), maps, 3 + i, ring.full(st), c % nk, k0, bh);
+          load_chunk(ring.slot(st) + TILE, maps, i, ring.full(st), c % nk, q0, bh);
+        }
+        for (int c = 0; kW && c < nk; ++c) {  // v . dO
+          const int st = ring.put(2 * TILE);
+          load_chunk(ring.slot(st), maps, 5, ring.full(st), c, k0, bh);
+          load_chunk(ring.slot(st) + TILE, maps, 2, ring.full(st), c, q0, bh);
+        }
+        const int st = ring.put(TILE);  // the operand's block
+        load_chunk(ring.slot(st), maps, kOperand, ring.full(st), half, q0, bh);
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);  // key rows r0 and r0 + 8 of the tile
+  const int cq = 2 * (lane & 3);                          // query columns 8 j + cq and + 1
+  const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
+  int s_of[2];
+  bool key_ok[2], key_pad[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    s_of[hh] = k0 + r0 + 8 * hh;
+    key_ok[hh] = s_of[hh] < S;
+    key_pad[hh] = key_ok[hh] && kpad[(long long)b * S + s_of[hh]];
+  }
+
+  float acc[DEEP_CHUNK / 2], sc[32], dp[32];
+  uint32_t pa[16];
+  zero(acc);
+  for (int it = 0; it < n; ++it) {
+    const int q0 = it * BQ;
+    // rel's tile, staged in its own layout and read transposed below
+    __nv_bfloat16* rt = nullptr;
+    if (relh) {
+      rt = rel_base + (it & 1) * (BQ * REL_STRIDE);  // the other parity is still being read
+      stage_rel(rt, relh, rel_rs, rel_vec != 0, q0, k0, Tq, S);
+      consumer_sync();
+    }
+    deep_products(sc, ring, 2 * nk, false);
+    if constexpr (kW) deep_products(dp, ring, nk, false);
+
+    // P^T (or dW^T) in fp32, 0 past S and past Tq; rounded once to bf16 below
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = q0 + 8 * j + cq + e;
+        const float ls = t < Tq ? __ldg(lse + (long long)bh * Tq + t) : 0.f;
+        const float ds = kW && t < Tq ? __ldg(dsum + (long long)bh * Tq + t) : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * j + 2 * hh + e;
+          float w = sc[i];
+          if (rt) w += __bfloat162float(rt[(8 * j + cq + e) * REL_STRIDE + r0 + 8 * hh]);
+          const bool neg = key_pad[hh] || (causal && s_of[hh] > t);
+          w = neg ? NEG : w;
+          const float p = key_ok[hh] && t < Tq ? fexp(w - ls) : 0.f;
+          sc[i] = kW ? p * (dp[i] - ds) : p;
+        }
+      }
+    }
+    to_a_fragments(sc, pa);
+    const int gs = ring.take();  // dv += P^T.dO, dk += dW^T.q, dpos_k += dW^T.pos_q
+    issue_pv<DEEP_CHUNK>(acc, pa, ring.slot(gs));
+    wgmma_wait();
+    fence_regs(acc);
+    ring.release(gs);
+  }
+
+  long long off[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) off[hh] = key_ok[hh] ? ((long long)bh * S + s_of[hh]) * D : -1;
+  __nv_bfloat16* out = kOut == KV_DV ? dv : (kOut == KV_DK ? dk : dpk);
+  store_rows<DEEP_CHUNK>(acc, out + c0, off, cq, D - c0);
+}
+
+// The block of dq or dpos_q (kOut, a single bit) for one (b, h, 64-row q
+// tile, column block), and with drel_part this batch row's dW (drel's
+// partial; block 0 writes it). maps: q, pos_q, dO, k, pos_k, v.
+template <int kOut>
+__global__ void __launch_bounds__(NT, 1) bwd_q_deep(
+    const __grid_constant__ Maps<DEEP_CHUNK, 6> maps, const __nv_bfloat16* __restrict__ rel,
+    const uint8_t* __restrict__ kpad, const float* __restrict__ lse,
+    const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq,
+    __nv_bfloat16* __restrict__ dpq, float* __restrict__ drel_part, int H, int Tq, int S,
+    long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
+  constexpr uint32_t TILE = Layout<DEEP>::TILE;
+  constexpr int kOperand = kOut == Q_DQ ? 3 : 4;  // k or pos_k
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + BwdDeep::OFF_BAR;
+  const int nch = deep_chunks(D), nk = nch;
+  const int q0 = blockIdx.x / nch * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int half = blockIdx.x % nch, c0 = DEEP_CHUNK * half;  // this CTA's gradient columns
+  const int bh = b * H + h;
+  const int n = (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < DeepRing::STAGES; ++st) {
+      mbar_init(bars + 8u * st, 1);
+      mbar_init(bars + 8u * (DeepRing::STAGES + st), NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  DeepRing ring{base, bars};
+
+  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == NC) {
+      for (int it = 0; it < n; ++it) {
+        const int k0 = it * BK;
+        for (int c = 0; c < 2 * nk; ++c) {  // q . k chunk by chunk, then pos_q . pos_k
+          const int st = ring.put(2 * TILE), i = c < nk ? 0 : 1;
+          load_chunk(ring.slot(st), maps, i, ring.full(st), c % nk, q0, bh);
+          load_chunk(ring.slot(st) + TILE, maps, 3 + i, ring.full(st), c % nk, k0, bh);
+        }
+        for (int c = 0; c < nk; ++c) {  // dO . v
+          const int st = ring.put(2 * TILE);
+          load_chunk(ring.slot(st), maps, 2, ring.full(st), c, q0, bh);
+          load_chunk(ring.slot(st) + TILE, maps, 5, ring.full(st), c, k0, bh);
+        }
+        const int st = ring.put(TILE);  // the operand's block
+        load_chunk(ring.slot(st), maps, kOperand, ring.full(st), half, k0, bh);
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);  // query rows r0 and r0 + 8 of the tile
+  const int cq = 2 * (lane & 3);                          // key columns 8 j + cq and + 1
+  const int t0 = q0 + r0;
+  const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
+  const uint8_t* kp = kpad + (long long)b * S;
+  float* const part = drel_part && half == 0 ? drel_part + (long long)b * H * Tq * S : nullptr;
+  const bool part_vec = S % 2 == 0;  // then a column pair is one aligned float2
+  float ls[2], ds[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + 8 * hh;
+    ls[hh] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
+    ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
+  }
+
+  float acc[DEEP_CHUNK / 2], sc[32], dp[32];
+  uint32_t wa[16], wl[16];
+  TileBias<__nv_bfloat16> bias;
+  zero(acc);
+  for (int it = 0; it < n; ++it) {
+    const int k0 = it * BK, lim = S - k0;
+    load_bias(bias, relh, rel_rs, rel_vec != 0, kp, k0, S, t0, Tq, lane, cq);  // while they run
+    deep_products(sc, ring, 2 * nk, false);
+    deep_products(dp, ring, nk, false);
+    mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
+    // dW in fp32 (P = 0 past S, where the scores are -inf, and past Tq)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const float p = t0 + 8 * hh < Tq ? fexp(sc[i] - ls[hh]) : 0.f;
+      dp[i] = p * (dp[i] - ds[hh]);
+    }
+    if (part) {  // the unrounded dW; this CTA alone writes these elements
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = t0 + 8 * hh;
+        if (t >= Tq) continue;
+        float* d = part + ((long long)h * Tq + t) * S + k0 + cq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + cq;
+          const float2 x = make_float2(dp[4 * j + 2 * hh], dp[4 * j + 2 * hh + 1]);
+          if (c >= lim) continue;
+          if (part_vec) {
+            *reinterpret_cast<float2*>(d + 8 * j) = x;
+          } else {
+            d[8 * j] = x.x;
+            if (c + 1 < lim) d[8 * j + 1] = x.y;
+          }
+        }
+      }
+    }
+    to_a_fragments(dp, wa);     // dW's high part,
+    to_a_residual(dp, wa, wl);  // then its low part
+    const int gs = ring.take();  // dq += dW . k, dpos_q += dW . pos_k
+    wgmma_fence();
+    issue_pv_cols<DEEP_CHUNK>(acc, wa, ring.slot(gs), 2);
+    issue_pv_cols<DEEP_CHUNK>(acc, wl, ring.slot(gs), 2);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    ring.release(gs);
+  }
+
+  long long off[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + 8 * hh;
+    off[hh] = t < Tq ? ((long long)bh * Tq + t) * D : -1;
+  }
+  store_rows<DEEP_CHUNK>(acc, (kOut == Q_DQ ? dq : dpq) + c0, off, cq, D - c0);
+}
+
 // drel = the sum over the batch, in order, of the B partials [B, n], into
 // partial 0; four elements a thread where n keeps float4s aligned. Static:
 // each source that includes this header has its own (one launches it).
@@ -604,7 +869,58 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
   return (int)cudaGetLastError();
 }
 
-// launch_bwd<dp>, for an instance dp of common.cuh::with_head_dim: defined in
+// The deep route's launches on `stream`, the arguments as launch_bwd's (D
+// past 256, a multiple of 8): dv, dk and dpos_k key-major, dq (with drel's
+// partials) and dpos_q query-major, each over nch(D) column blocks, then
+// drel's sum. Returns a cudaError_t code.
+inline int launch_bwd_deep(const void* q, const void* pq, const void* k, const void* pk,
+                           const void* v, const void* rel, const void* kpad, const void* dout,
+                           const float* lse, const float* dsum, void* dq, void* dpq, void* dk,
+                           void* dpk, void* dv, float* drel_part, int B, int H, int Tq, int S,
+                           long long rel_hs, long long rel_rs, int causal, int D,
+                           cudaStream_t stream) {
+  Maps<DEEP_CHUNK, 6> maps;
+  if (const int err = stream_maps<DEEP_CHUNK, 6>(maps, {q, pq, dout, k, pk, v},
+                                                 {Tq, Tq, Tq, S, S, S}, (long long)B * H, D))
+    return err;
+  const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % 4 == 0 && rel_rs % 2 == 0 &&
+                      rel_hs % 2 == 0 && S % 2 == 0;
+  constexpr size_t smem = BwdDeep::SMEM;
+  const int nch = deep_chunks(D);
+  const auto* relt = static_cast<const __nv_bfloat16*>(rel);
+  const auto* kp = static_cast<const uint8_t*>(kpad);
+  auto kv = [&](auto out) -> cudaError_t {  // one key-major launch writing `out`
+    constexpr int kOut = decltype(out)::value;
+    static SmemOptIn opt_in;
+    if (const int e = opt_in.ensure((const void*)bwd_kv_deep<kOut>, smem)) return (cudaError_t)e;
+    bwd_kv_deep<kOut><<<dim3((S + BK - 1) / BK * nch, H, B), NT, smem, stream>>>(
+        maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs,
+        rel_rs, rel_vec, causal, D);
+    return cudaGetLastError();
+  };
+  auto qm = [&](auto out, float* part) -> cudaError_t {  // one query-major launch
+    constexpr int kOut = decltype(out)::value;
+    static SmemOptIn opt_in;
+    if (const int e = opt_in.ensure((const void*)bwd_q_deep<kOut>, smem)) return (cudaError_t)e;
+    bwd_q_deep<kOut><<<dim3((Tq + BQ - 1) / BQ * nch, H, B), NT, smem, stream>>>(
+        maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
+        static_cast<__nv_bfloat16*>(dpq), part, H, Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
+    return cudaGetLastError();
+  };
+  cudaError_t err = kv(std::integral_constant<int, KV_DV>{});
+  if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DK>{});
+  if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
+  if (err == cudaSuccess) err = qm(std::integral_constant<int, Q_DQ>{}, drel_part);
+  if (err == cudaSuccess) err = qm(std::integral_constant<int, Q_DPQ>{}, nullptr);
+  if (err != cudaSuccess || !drel_part || B == 1) return (int)err;
+  const long long n = (long long)H * Tq * S, threads = n % 4 == 0 ? n / 4 : n;
+  drel_sum<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(drel_part, n, B);
+  return (int)cudaGetLastError();
+}
+
+// launch_bwd<dp>, for an instance dp of common.cuh::with_head_dim (DEEP:
+// launch_bwd_deep): defined in
 // flash_attention_bwd_sm90.cu, the one source that compiles these kernels
 // (flash_attention_bwd.cu's K4 entry calls it), so that the tensor-core and
 // the FMA kernels of K4 build in parallel.

@@ -73,6 +73,22 @@
 //     225 KB at 256). Each output element's sums are the DP 128 instance's,
 //     in the same order; the score products are repeated per half, as K5's
 //     second pass repeats them. K3's logsumexp is written by the first half.
+//   - Past DP 256 (the deep route, DP == DEEP: any head dim D, a multiple
+//     of 8) nothing whole-width fits: q and pos_q alone would take 96 KB at
+//     D 384, and beyond 512 more than a block's shared memory. So nothing is
+//     resident and the head dim streams through the products in chunks of
+//     128 columns: for each key tile the producer sends the pairs (q, k) of
+//     chunk 0 .. nk - 1, then (pos_q, pos_k), then the CTA's 128-column block
+//     of v (Layout<DEEP>: a ring of 6 slots of two 64 x 128 tiles, 197,736
+//     bytes whatever D). The scores sum the pairs' products in that order,
+//     each pair's 8 k-steps in a fresh accumulator added in fp32
+//     (deep_products: the tensor cores' accumulation would drift over a
+//     deep score's k-steps), and the output's
+//     columns split into nch = ceil(D / 128) blocks over the grid, each CTA
+//     computing the scores again: ~(4 nch + 2) T S D operations against the
+//     function's 6 (2.3x at D 384, 4.3x at 768). The accumulators are DP
+//     128's; ptxas (CUDA 12.8): 181 registers (K1/K3), 183 (K5), 199 (K5
+//     with fp32 rel), no spills.
 //
 // Bound. At the encoder shape (B16 H12 T=S=908 D64) the function is
 // ~60.8 GFLOP against ~150 MB: 0.0615 ms at 989 TFLOP/s bf16, set by the
@@ -125,7 +141,29 @@ struct Layout {
   static __host__ __device__ constexpr uint32_t vbytes(int c) {
     return DP <= 128 ? TILE : vboxes(c) * HeadTile<DP>::LO_BOX;
   }
+  // the column blocks of v and out at head dim D
+  static __host__ __device__ constexpr int nch(int) { return NCH; }
 };
+
+// The deep route (head dims past 256, common.cuh::DEEP): nothing resident. A
+// ring of STAGES slots, each two 64-row chunks of DEEP_CHUNK columns
+// (HeadTile<128>, 16 KB each): one chunk of a query-side stream and the same
+// chunk of a key-side stream for one score product, or one chunk alone (a
+// CTA's block of v); 197,736 bytes whatever D.
+template <>
+struct Layout<DEEP> {
+  static constexpr int STAGES = 6;
+  static constexpr int VW = DEEP_CHUNK;  // columns of v and out a CTA owns
+  static constexpr uint32_t TILE = HeadTile<DEEP_CHUNK>::BYTES;  // one chunk of 64 rows
+  static constexpr uint32_t OFF_KV = 0;
+  static constexpr uint32_t STAGE = 2 * TILE;
+  static constexpr uint32_t OFF_BAR = STAGES * STAGE;
+  static constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
+  static __host__ __device__ constexpr int nch(int D) { return deep_chunks(D); }
+};
+
+// the tile width of an instance's tensor maps and tiles: the chunk's on the deep route
+__host__ __device__ constexpr int tile_dp(int DP) { return DP == DEEP ? DEEP_CHUNK : DP; }
 
 // The tensor maps of N streams: lo[i] the 64-column boxes of stream i, hi[i]
 // the 16-column ones (sm90.cuh::head_maps).
@@ -162,6 +200,15 @@ __device__ __forceinline__ void load_cols(uint32_t dst, const Maps<DP, N>& m, in
   }
 }
 
+
+// the deep route's chunk c (columns 128 c .. 128 c + 127, zeros past D) of
+// stream i's rows row .. row + 63 into the HeadTile<128> tile at dst
+template <int N>
+__device__ __forceinline__ void load_chunk(uint32_t dst, const Maps<DEEP_CHUNK, N>& m, int i,
+                                           uint32_t bar, int c, int row, int bh) {
+  tma_load3(dst, &m.lo[i], bar, DEEP_CHUNK * c, row, bh);
+  tma_load3(dst + HeadTile<DEEP_CHUNK>::LO_BOX, &m.lo[i], bar, DEEP_CHUNK * c + 64, row, bh);
+}
 
 // ---- rel: two adjacent columns of a row, in rel's dtype ------------------
 
@@ -334,6 +381,62 @@ __device__ __forceinline__ void issue_pv(float (&acc)[Layout<DP>::VW / 2],
   fence_regs(acc);
 }
 
+// The deep route's ring as its threads walk it: item seq (a pair of chunks,
+// or one) sits in slot seq % STAGES, in the slot's (seq / STAGES)-th phase;
+// the producer and the consumers count the same items in the same order.
+struct DeepRing {
+  static constexpr int STAGES = Layout<DEEP>::STAGES;
+  uint32_t base, bars;
+  int seq = 0;
+  __device__ __forceinline__ uint32_t slot(int st) const { return base + Layout<DEEP>::STAGE * st; }
+  __device__ __forceinline__ uint32_t full(int st) const { return bars + 8u * st; }
+  __device__ __forceinline__ uint32_t empty(int st) const { return bars + 8u * (STAGES + st); }
+  // consumers: the next item, once its copies have landed -> its slot
+  __device__ __forceinline__ int take() {
+    const int st = seq % STAGES;
+    mbar_wait(full(st), (seq / STAGES) & 1);
+    ++seq;
+    return st;
+  }
+  __device__ __forceinline__ void release(int st) const { mbar_arrive(empty(st)); }
+  // the producer: the next item's slot, once its readers have released it,
+  // expecting `bytes` of copies
+  __device__ __forceinline__ int put(uint32_t bytes) {
+    const int st = seq % STAGES;
+    if (seq >= STAGES) mbar_wait(empty(st), (seq / STAGES - 1) & 1);
+    mbar_expect_tx(full(st), bytes);
+    ++seq;
+    return st;
+  }
+};
+
+// acc (+)= the sum over the ring's next n items of A . B^T, each item a pair
+// of K-major 64 x 128 chunks (A the slot's first tile, B its second): each
+// item's 8 wgmma k-steps into a fresh fp32 accumulator, then added to acc
+// with fp32 adds, item by item in the ring's order (acc overwritten at the
+// first unless `accumulate`). The tensor cores' own accumulation drops bits
+// at each k-step, so one accumulator carried over the 2 D / 16 k-steps of a
+// deep score drifts with D: at D 1280 it put bf16 K4's drel 1.3e-4 of
+// max|drel| from plain on an H100, past phase 28's 1e-4; a fresh accumulator
+// an item bounds that drift at one chunk's 8 k-steps. Each item is released
+// once its products are done.
+__device__ __forceinline__ void deep_products(float (&acc)[32], DeepRing& r, int n,
+                                              bool accumulate) {
+  float part[32];
+  for (int c = 0; c < n; ++c) {
+    const int st = r.take();
+    wgmma_fence();
+    issue_kmajor<DEEP_CHUNK>(part, r.slot(st), r.slot(st) + Layout<DEEP>::TILE, 0);
+    wgmma_commit();
+    fence_operand(part);
+    wgmma_wait();
+    fence_operand(part);
+    r.release(st);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = accumulate || c ? acc[i] + part[i] : part[i];
+  }
+}
+
 // The score accumulator, as probabilities, into P.v's A fragments: positions
 // 8 kk + 2 m and + 1 are register m of k-step kk.
 __device__ __forceinline__ void to_a_fragments(const float (&p)[32], uint32_t (&pa)[16]) {
@@ -368,13 +471,19 @@ __device__ __forceinline__ float fexp(float x) { return exp2f(x * 1.442695040888
 // ran slower; the overlap comes from the second CTA on the SM instead.
 // maps: q, pos_q, k, pos_k, v; D: the head dim (a multiple of 8, <= DP).
 // Block x is (q tile, column half): q tile x / NCH, half x % NCH.
+// The deep route (DP == DEEP, D past 256): the producer streams, for each key
+// tile, the chunk pairs (q, k) of every chunk, then (pos_q, pos_k), then the
+// CTA's 128-column block of v, through the ring of Layout<DEEP>; the scores
+// sum the pairs' products in that order (deep_products); block x is (q tile,
+// column block), nch(D) blocks.
 template <int DP, bool kNorm, typename TR>
-__global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
-    const __grid_constant__ Maps<DP, 5> maps, const TR* __restrict__ rel,
+__global__ void __launch_bounds__(NT, DP < 128 && DP != DEEP ? 2 : 1) kernel(
+    const __grid_constant__ Maps<tile_dp(DP), 5> maps, const TR* __restrict__ rel,
     const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
     int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
     int skip_max, int D) {
   using Lay = Layout<DP>;
+  constexpr bool kDeep = DP == DEEP;
   constexpr int STAGES = Lay::STAGES, VW = Lay::VW;
   constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
@@ -386,8 +495,9 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
   auto stage = [=](int st) { return base + Lay::OFF_KV + Lay::STAGE * st; };  // k, pos_k, v
 
-  const int q0 = blockIdx.x / Lay::NCH * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int half = blockIdx.x % Lay::NCH, c0 = VW * half;  // this CTA's columns of v and out
+  const int nch = Lay::nch(D);  // column blocks (halves)
+  const int q0 = blockIdx.x / nch * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int half = blockIdx.x % nch, c0 = VW * half;  // this CTA's columns of v and out
   const int bh = b * H + h;
   const int ntiles = (S + BK - 1) / BK;
   const int n = kNorm ? 2 * ntiles : ntiles;
@@ -403,7 +513,24 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
   __syncthreads();
 
   if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
-    if (threadIdx.x == NC) {
+    if constexpr (kDeep) {
+      if (threadIdx.x == NC) {
+        const int nk = deep_chunks(D);
+        DeepRing ring{base, bars};
+        for (int it = 0; it < n; ++it) {
+          const int k0 = (it % ntiles) * BK;
+          for (int c = 0; c < 2 * nk; ++c) {  // q . k chunk by chunk, then pos_q . pos_k
+            const int st = ring.put(2 * TILE), i = c < nk ? 0 : 1;
+            load_chunk(ring.slot(st), maps, i, ring.full(st), c % nk, q0, bh);
+            load_chunk(ring.slot(st) + TILE, maps, i + 2, ring.full(st), c % nk, k0, bh);
+          }
+          if (!kNorm || it >= ntiles) {  // this CTA's block of v
+            const int st = ring.put(TILE);
+            load_chunk(ring.slot(st), maps, 4, ring.full(st), half, k0, bh);
+          }
+        }
+      }
+    } else if (threadIdx.x == NC) {
       mbar_expect_tx(qbar, 2 * TILE);
       load_tile(sq, maps, 0, qbar, q0, bh);
       load_tile(sq + TILE, maps, 1, qbar, q0, bh);
@@ -440,17 +567,25 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     rl[hh] = 0.f;
   }
 
+  DeepRing ring{base, bars};  // the deep route's consumer side
   // the finished, masked scores of tile it into sc
   auto scores = [&](int it) {
-    const int st = it % STAGES, k0 = (it % ntiles) * BK;
-    mbar_wait(full(st), (it / STAGES) & 1);
-    issue_scores<DP>(sc, sq, stage(st));
-    load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
-    wgmma_wait();
-    fence_operand(sc);
-    mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
+    if constexpr (kDeep) {
+      const int k0 = (it % ntiles) * BK;
+      load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
+      deep_products(sc, ring, 2 * deep_chunks(D), false);
+      mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
+    } else {
+      const int st = it % STAGES, k0 = (it % ntiles) * BK;
+      mbar_wait(full(st), (it / STAGES) & 1);
+      issue_scores<DP>(sc, sq, stage(st));
+      load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
+      wgmma_wait();
+      fence_operand(sc);
+      mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
+    }
   };
-  mbar_wait(qbar, 0);
+  if constexpr (!kDeep) mbar_wait(qbar, 0);
   scores(0);
   for (int it = 0; it < n; ++it) {
     const int st = it % STAGES;
@@ -525,12 +660,20 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     }
     if (pv) {
       to_a_fragments(sc, pa);  // rounded to bf16
-      issue_pv<DP>(acc, pa, stage(st) + 2 * TILE, Lay::vboxes(half));
-      wgmma_wait();
-      fence_regs(acc);
+      if constexpr (kDeep) {  // the next item: this CTA's block of v
+        const int vs = ring.take();
+        issue_pv<DEEP_CHUNK>(acc, pa, ring.slot(vs));
+        wgmma_wait();
+        fence_regs(acc);
+        ring.release(vs);
+      } else {
+        issue_pv<DP>(acc, pa, stage(st) + 2 * TILE, Lay::vboxes(half));
+        wgmma_wait();
+        fence_regs(acc);
+      }
     }
     if (it + 1 < n) scores(it + 1);  // before this stage is released: measured faster
-    mbar_arrive(empty(st));          // the products have read the stage
+    if constexpr (!kDeep) mbar_arrive(empty(st));  // the products have read the stage
   }
 
 #pragma unroll
@@ -575,8 +718,9 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
            const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq, int S,
            int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
            cudaStream_t stream) {
-  Maps<DP, 5> maps;
-  if (const int err = stream_maps<DP, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
+  constexpr int TW = tile_dp(DP);
+  Maps<TW, 5> maps;
+  if (const int err = stream_maps<TW, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
                                          (long long)B * H, D))
     return err;
   // a pair of rel columns is one load where base, rows, heads and S keep it aligned
@@ -585,7 +729,7 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
   constexpr size_t smem = Layout<DP>::SMEM_BYTES;
   static SmemOptIn opt_in;
   if (const int err = opt_in.ensure((const void*)kernel<DP, kNorm, TR>, smem)) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ * Layout<DP>::NCH, H, B);
+  const dim3 grid((Tq + BQ - 1) / BQ * Layout<DP>::nch(D), H, B);
   kernel<DP, kNorm, TR><<<grid, NT, smem, stream>>>(
       maps, static_cast<const TR*>(rel),
       static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp,

@@ -122,40 +122,59 @@ def stream_of(t: torch.Tensor) -> int:
 
 # The instances of the attention kernels (K1, K3, K4, K5, K6, K7), on either
 # core (csrc/common.cuh::with_head_dim): tile widths of 32, 64, 80, 128, 192
-# and 256 columns. A head dim D of 1 to MAX_HEAD_DIM runs on the smallest
-# instance that covers it (``head_instance``), its tiles' columns past D
-# zeros; the wrappers hand the kernels a D that is a multiple of 8 (K6's int8
-# cache: of 16), copying any other into a zero-padded buffer first
-# (``pad_head``). Past ``SPLIT_HEAD_DIM`` the tensor-core attention core and
-# K4 split each output's columns into halves of 128 over the grid
-# (``col_halves``; the wrappers count those launches in ``.col_split``). The
-# plain versions take any head dim.
+# and 256 columns, and past ``MAX_INSTANCE`` the deep route. A head dim D of 1
+# to ``MAX_INSTANCE`` runs on the smallest instance that covers it
+# (``head_instance``), its tiles' columns past D zeros; any D past it runs on
+# the deep route (``DEEP``): D streams through the products in chunks of
+# ``DEEP_CHUNK`` columns (``deep_chunks``; the last zero-filled past D) and
+# each output's columns split into blocks of ``DEEP_CHUNK`` over the grid, so
+# that a CTA's shared memory and registers do not grow with D (the wrappers
+# count those launches in ``.deep``). The wrappers hand the kernels a D that
+# is a multiple of 8 (K6's int8 cache: of 16), copying any other into a
+# zero-padded buffer first (``pad_head``). Past ``SPLIT_HEAD_DIM`` the
+# tensor-core attention core and K4 split each output's columns into blocks
+# of 128 over the grid (``col_halves``; the wrappers count those launches in
+# ``.col_split``). The plain versions take any head dim.
 HEAD_DIMS = (32, 64, 80, 128, 192, 256)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_INSTANCE = HEAD_DIMS[-1]
 SPLIT_HEAD_DIM = 128
+DEEP = 0  # the deep route's instance tag (csrc/common.cuh::DEEP)
+DEEP_CHUNK = 128  # its chunk width, and that of an output's column block
 
 
 def check_head_dim(name: str, head_dim: int) -> None:
-    """Raise NotImplementedError, naming the range, unless the kernels take
-    ``head_dim`` (1 to ``MAX_HEAD_DIM``). The CUDA route of each attention
-    wrapper calls it before it checks its tensors' devices."""
-    if not 1 <= head_dim <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{name}: head dim {head_dim}; the kernels take head dims 1 to {MAX_HEAD_DIM} "
-            f"(instances {HEAD_DIMS})")
+    """Raise NotImplementedError unless the kernels take ``head_dim``: any head
+    dim from 1 upward. The CUDA route of each attention wrapper calls it
+    before it checks its tensors' devices."""
+    if head_dim < 1:
+        raise NotImplementedError(f"{name}: head dim {head_dim}; the kernels take head dims "
+                                  "from 1 upward")
 
 
 def head_instance(head_dim: int, unit: int = 8) -> int:
     """The instance (tile width) a head dim runs on: the smallest of
-    ``HEAD_DIMS`` that covers ``head_dim`` rounded up to ``unit``."""
-    return next(n for n in HEAD_DIMS if n >= -(-head_dim // unit) * unit)
+    ``HEAD_DIMS`` that covers ``head_dim`` rounded up to ``unit``, or ``DEEP``
+    past ``MAX_INSTANCE``."""
+    return next((n for n in HEAD_DIMS if n >= -(-head_dim // unit) * unit), DEEP)
+
+
+def deep_chunks(head_dim: int) -> int:
+    """The chunks of ``DEEP_CHUNK`` columns the deep route takes a head dim in
+    (csrc/common.cuh::deep_chunks), the last zero-filled past it."""
+    return -(-head_dim // DEEP_CHUNK)
 
 
 def col_halves(head_dim: int) -> int:
-    """The column halves of 128 that the tensor-core attention core (K1, K3,
-    K5) and K4 split a head dim's outputs into: 1 up to ``SPLIT_HEAD_DIM``, 2
-    past it (csrc/flash_fwd_sm90.cuh::Layout::NCH)."""
-    return 1 if head_instance(head_dim) <= SPLIT_HEAD_DIM else 2
+    """The column blocks that the tensor-core attention core (K1, K3, K5) and
+    K4 split a head dim's outputs into, one block per CTA over the grid: 1 up
+    to ``SPLIT_HEAD_DIM``, 2 halves of 128 up to ``MAX_INSTANCE``
+    (csrc/flash_fwd_sm90.cuh::Layout::NCH), and past it ``deep_chunks``
+    blocks of 128 (``Layout<DEEP>::nch``; the fp32 kernels of the deep route,
+    csrc/flash_deep.cuh, split alike)."""
+    dp = head_instance(head_dim)
+    if dp == DEEP:
+        return deep_chunks(head_dim)
+    return 1 if dp <= SPLIT_HEAD_DIM else 2
 
 
 def pad_head(t: torch.Tensor, unit: int = 8) -> torch.Tensor:

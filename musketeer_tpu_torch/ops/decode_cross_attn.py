@@ -29,9 +29,12 @@ not write the cache), its launches also counted in
 on the smallest that covers it, one that is not a multiple of 16 (an int8
 row of whole 16-byte units) on zero-padded copies of q and the cache
 (counted in ``.padded``), one past 128 on a shallower ring of int8 tiles,
-one CTA an SM (counted in ``.wide``); a head dim past 256, or unaligned
-inputs, raise; it never falls back from one version to another. Any beam
-count and S: ``plan``
+one CTA an SM (counted in ``.wide``), any head dim past 256 on the deep
+route (counted in ``.deep``): each key row streamed in chunks of 128 dims,
+the score summed over them, and the output's columns split into blocks of
+128 over the grid (a CTA per (head, sample, beam tile, block), the instance
+128's tiles and ring); unaligned inputs raise; it never falls back from one
+version to another. Any beam count and S: ``plan``
 picks beam tiles of 16 (``.beam_tiled``) and, past the whole score row's
 fit in shared memory, scores in chunks over two passes (``.chunked``).
 """
@@ -41,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_stack import BEAM_TILE, cross_plan, cross_stages
+from .decode_stack import BEAM_TILE, cross_plan, cross_stages, tile_width
 
 NEG_INF = -1e9
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -51,12 +54,12 @@ _SIG = (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2 + (_build.INT,)
 def sm90_smem(Kb: int, S: int, D: int = 64) -> int:
     """Shared memory of the tensor-core kernel's whole-row route
     (``smem_bytes``) at head dim D, on its instance DP
-    (``_build.head_instance``), for a beam tile of min(Kb, 16) beams: the
-    ring of ``cross_stages`` 64 x DP int8 tiles, two 64 x DP bf16 value
-    tiles, the mbarriers, the fp32 scores ``[kb, S']`` and the k_scale,
-    v_scale and bias rows, the bf16 probabilities ``[kb, S' + 8]`` (S' = S
-    rounded up to 64)."""
-    kb, sp, dp = min(Kb, BEAM_TILE), -(-S // 64) * 64, _build.head_instance(D, 16)
+    (``_build.head_instance``; the deep route: 128, its chunks'), for a beam
+    tile of min(Kb, 16) beams: the ring of ``cross_stages`` 64 x DP int8
+    tiles, two 64 x DP bf16 value tiles, the mbarriers, the fp32 scores
+    ``[kb, S']`` and the k_scale, v_scale and bias rows, the bf16
+    probabilities ``[kb, S' + 8]`` (S' = S rounded up to 64)."""
+    kb, sp, dp = min(Kb, BEAM_TILE), -(-S // 64) * 64, tile_width(_build.head_instance(D, 16))
     st = cross_stages(dp)
     return (1024 + st * 64 * dp + 2 * 128 * dp + 16 * st + 4 * (kb * sp + 3 * sp)
             + 2 * kb * (sp + 8))
@@ -152,6 +155,7 @@ def decode_cross_attention_int8(
     decode_cross_attention_int8.beam_tiled += route["beam_tiles"] > 1
     decode_cross_attention_int8.chunked += route["chunk"] < S
     decode_cross_attention_int8.wide += _build.head_instance(Dp, 16) > _build.SPLIT_HEAD_DIM
+    decode_cross_attention_int8.deep += _build.head_instance(Dp, 16) == _build.DEEP
     if Dp != D:  # ran on zero-padded copies
         decode_cross_attention_int8.padded += 1
         out = out[..., :D].contiguous()
@@ -164,3 +168,4 @@ decode_cross_attention_int8.padded = 0  # the launches that ran on zero-padded c
 decode_cross_attention_int8.beam_tiled = 0  # the launches at more than 16 beams (beam tiles)
 decode_cross_attention_int8.chunked = 0  # the launches whose scores ran in chunks
 decode_cross_attention_int8.wide = 0  # the launches on an instance past 128 (a shallower ring)
+decode_cross_attention_int8.deep = 0  # the launches on the deep route (D > 256)

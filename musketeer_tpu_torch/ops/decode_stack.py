@@ -42,9 +42,13 @@ four caches go to the kernels as zero-padded copies (rows of whole 16-byte
 units; counted in ``.padded``), the hidden state keeping the model's head
 stride. Past 128 (``.wide``) the cross-attention's ring is shallower
 (``cross_stages``), the bf16 self-attention holds q in shared memory and
-the fp32 cross-attention takes each key row 64 dims at a time. A head dim
-past 256, or unaligned bf16 inputs, raise; it never falls back from one
-version to another.
+the fp32 cross-attention takes each key row 64 dims at a time. Any head dim
+past 256 runs on the deep route (``.deep``): the attentions stream the head
+dim in chunks of 128 (the cross-attention's key tiles, the self-attention's
+q and key rows; the fp32 cross-attention's q 64 dims at a time) and split
+their outputs' columns into blocks of 128 over the grid, on the instance
+128's tiles and ring. Unaligned bf16 inputs raise; it never falls back from
+one version to another.
 
 Both routes take every beam count, encoder length S, cache length Tmax and
 width d that the Pallas kernel takes; ``stack_plan`` names the route a step
@@ -225,20 +229,26 @@ def _products(d: int, f: int) -> Dict[str, Tuple[int, int]]:
     return {"qkv": (3 * d, d), "dd": (d, d), "fc1": (f, d), "fc2": (d, f)}
 
 
+def tile_width(dp: int) -> int:
+    """The columns of the cross-attentions' tiles at instance dp: dp, or on the
+    deep route a chunk's (``decode_attn::tile_width``)."""
+    return _build.DEEP_CHUNK if dp == _build.DEEP else dp
+
+
 def cross_stages(dp: int) -> int:
     """The depth of the bf16 cross-attentions' rings of K/V tiles at instance
-    dp (``decode_attn::stages``, K6's too): 8 up to 128, then as many as 8
-    tiles of 128 columns take (5 at 192, 4 at 256)."""
-    return 8 if dp <= _build.SPLIT_HEAD_DIM else 8 * 128 // dp
+    dp (``decode_attn::stages``, K6's too): 8 up to 128 and on the deep route,
+    then as many as 8 tiles of 128 columns take (5 at 192, 4 at 256)."""
+    return 8 if tile_width(dp) <= _build.SPLIT_HEAD_DIM else 8 * 128 // dp
 
 
 def _cross_smem(Kb: int, S: int, D: int = 64) -> int:
     """Shared memory of the bf16 cross-attention's whole-row route at head dim
-    D, on its instance DP (``_build.head_instance``; ``decode_attn::smem_bytes``),
-    for a beam tile of min(Kb, 16) beams: the ring of ``cross_stages`` 64 x DP
-    bf16 tiles, the mbarriers, the fp32 scores and bias row, the bf16
-    probabilities."""
-    kb, sp, dp = min(Kb, BEAM_TILE), -(-S // 64) * 64, _build.head_instance(D)
+    D, on its instance DP (``_build.head_instance``; ``decode_attn::smem_bytes``;
+    the deep route: 128, its chunks'), for a beam tile of min(Kb, 16) beams:
+    the ring of ``cross_stages`` 64 x DP bf16 tiles, the mbarriers, the fp32
+    scores and bias row, the bf16 probabilities."""
+    kb, sp, dp = min(Kb, BEAM_TILE), -(-S // 64) * 64, tile_width(_build.head_instance(D))
     st = cross_stages(dp)
     return 1024 + st * 128 * dp + 16 * st + 4 * (kb + 1) * sp + 2 * kb * (sp + 8)
 
@@ -249,7 +259,10 @@ def fma_cross_chunk(Kb: int, S: int, D: int, budget: int = _build.SMEM_MAX) -> i
     head dim D: S where the whole row fits ``budget`` bytes of shared memory,
     else the most keys, a multiple of 64 and at most ``FMA_CHUNK``, that fit."""
     kb, dp = min(Kb, BEAM_TILE), _build.head_instance(D)
-    fixed = 4 * (kb * dp + (256 // dp) * kb * dp + 2 * kb)
+    if dp == _build.DEEP:  # 64 dims of q, the value partials of a 128-column block
+        fixed = 4 * (kb * 64 + 2 * kb * _build.DEEP_CHUNK + 2 * kb)
+    else:
+        fixed = 4 * (kb * dp + (256 // dp) * kb * dp + 2 * kb)
     if fixed + 4 * kb * S <= budget:
         return S
     chunk = min(FMA_CHUNK, (budget - fixed) // (4 * kb) // 64 * 64)
@@ -385,6 +398,7 @@ def decode_stack_step(
     decode_stack_step.launches += 1
     decode_stack_step.padded += self_k.shape[-1] != hd
     decode_stack_step.wide += _build.head_instance(hd) > _build.SPLIT_HEAD_DIM
+    decode_stack_step.deep += _build.head_instance(hd) == _build.DEEP
     decode_stack_step.beam_tiled += plan["beam_tiles"] > 1
     decode_stack_step.chunked += plan["chunk"] < S
     decode_stack_step.cache_chunked += plan["cache_chunked"]
@@ -396,6 +410,7 @@ decode_stack_step.launches = 0  # K7, either route
 decode_stack_step.launches_sm90 = 0  # K7 on the tensor-core route (bf16)
 decode_stack_step.padded = 0  # the launches that ran on zero-padded caches
 decode_stack_step.wide = 0  # the launches on an instance past 128 (cross_stages, q in shared memory)
+decode_stack_step.deep = 0  # the launches on the deep route (D > 256)
 # the launches that ran a route of stack_plan: more than 16 beams (beam tiles),
 # the cross scores in chunks, the self cache past SA_CHUNK, d % 64 != 0
 decode_stack_step.beam_tiled = 0

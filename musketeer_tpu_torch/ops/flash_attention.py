@@ -29,10 +29,13 @@ from one to another, and counts its launches. bf16 streams run on the
 tensor-core core that K1 also uses (``csrc/flash_fwd_sm90.cuh``), fp32 on the
 FMA kernel, both compiled at the tile widths ``_build.HEAD_DIMS`` (32, 64,
 80, 128, 192, 256): a head dim up to 256 runs on the smallest that covers
-it, one that is not a multiple of 8 on zero-padded copies (counted in
-``.padded``), one past 128 in bf16 with the output's columns split into
-halves of 128 (counted in ``.col_split``). Like K1 they have no backward and
-refuse inputs that autograd tracks.
+it, one past 256 on the deep route, the head dim streamed through the
+products in chunks of 128 (``csrc/flash_fwd_sm90.cuh::Layout<DEEP>``,
+``csrc/flash_deep.cuh``; counted in ``.deep``), one that is not a multiple
+of 8 on zero-padded copies (counted in ``.padded``), one past 128 in bf16
+with the output's columns split into blocks of 128 (counted in
+``.col_split``). Like K1 they have no backward and refuse inputs that
+autograd tracks.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash_attention_infer import check_shapes, cuda_args, padded_streams
+from .flash_attention_infer import check_shapes, cuda_args, padded_streams, widen
 
 NEG_INF = -1e9
 _SIG = (_build.INT,) * 2 + (_build.PTR,) * 8 + (_build.INT,) * 5 + (_build.I64,) * 2 \
@@ -54,11 +57,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _scores(q, k, pos_q, pos_k, rel, kpad, causal: bool) -> torch.Tensor:
-    """fp32 scores ``[B, H, T, S]``: each product and rel in its own dtype, masks at −1e9."""
+    """fp32 (fp64: ``widen``) scores ``[B, H, T, S]``: each product and rel in
+    its own dtype, masks at −1e9."""
     T, S = q.shape[2], k.shape[2]
-    w = q.float() @ k.float().transpose(-1, -2) + pos_q.float() @ pos_k.float().transpose(-1, -2)
+    w = widen(q) @ widen(k).transpose(-1, -2) + widen(pos_q) @ widen(pos_k).transpose(-1, -2)
     if rel is not None:
-        w = w + rel.float()[None]
+        w = w + widen(rel)[None]
     if causal:
         cmask = torch.arange(S, device=q.device)[None, :] > torch.arange(T, device=q.device)[:, None]
         w = w.masked_fill(cmask, NEG_INF)
@@ -75,7 +79,7 @@ def _attend_plain(q, k, v, pos_q, pos_k, rel, kpad, causal: bool, Sp: int) -> to
     e = torch.exp(w - m)
     denom = e.sum(-1, keepdim=True) + (Sp - S) * torch.exp(NEG_INF - m)
     p = (e / denom).to(v.dtype)
-    return (p.float() @ v.float()).to(q.dtype)
+    return (widen(p) @ widen(v)).to(q.dtype)
 
 
 def flash_attention_bias_plain(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False,
@@ -94,7 +98,7 @@ def attention_reference(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False) 
     """The JAX package's reference for numerics tests (same math, materialized
     bias, softmax over the S real keys) → ``[B, H, T, D]`` in v's dtype."""
     p = torch.softmax(_scores(q, k, pos_q, pos_k, rel, kpad, causal), dim=-1).to(v.dtype)
-    return (p.float() @ v.float()).to(v.dtype)
+    return (widen(p) @ widen(v)).to(v.dtype)
 
 
 def _check(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
@@ -131,8 +135,10 @@ def _launch(name: str, q, k, v, pos_q, pos_k, rel: Optional[torch.Tensor], kpad,
 
 def _sliced(fn, out: torch.Tensor, D: int) -> torch.Tensor:
     """K5's output cut back to the head dim where it ran on zero-padded copies;
-    the launch counted in ``fn.col_split`` where it split its columns."""
+    the launch counted in ``fn.col_split`` where it split its columns, in
+    ``fn.deep`` where it ran on the deep route."""
     fn.col_split += _build.col_halves(D) > 1 and out.dtype == torch.bfloat16
+    fn.deep += _build.head_instance(D) == _build.DEEP
     if out.shape[-1] == D:
         return out
     fn.padded += 1
@@ -186,5 +192,7 @@ flash_attention_bias.launches = 0
 flash_cross_attention.launches = 0
 flash_attention_bias.padded = 0  # the launches that ran on zero-padded copies
 flash_cross_attention.padded = 0
-flash_attention_bias.col_split = 0  # the bf16 launches split into column halves (D > 128)
+flash_attention_bias.col_split = 0  # the bf16 launches split into column blocks (D > 128)
 flash_cross_attention.col_split = 0
+flash_attention_bias.deep = 0  # the launches on the deep route (D > 256)
+flash_cross_attention.deep = 0

@@ -39,7 +39,12 @@ on zero-padded copies (``flash_attention_infer.padded_streams``; counted in
 ``.padded``); K4's key-major work is two launches at 80 and three from 128,
 its query-major work two from 128 (``csrc/flash_bwd_sm90.cuh``); past 128
 the bf16 launches of both split each output's columns into halves of 128
-over the grid (counted in ``.col_split``).
+over the grid (counted in ``.col_split``). Any head dim past 256 runs on the
+deep route (``_build.DEEP``; counted in ``.deep``): the head dim streamed
+through the products in chunks of 128 and each output's columns in blocks
+of 128 over the grid (``csrc/flash_fwd_sm90.cuh::Layout<DEEP>``,
+``csrc/flash_bwd_sm90.cuh``'s ``bwd_kv_deep`` and ``bwd_q_deep``, five
+launches; fp32 ``csrc/flash_deep.cuh``).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from .flash_attention_infer import (
     cuda_args,
     flash_attention_inference,
     padded_streams,
+    widen,
 )
 
 _P, _I, _L = _build.PTR, _build.INT, _build.I64
@@ -83,7 +89,7 @@ def flash_attention_fwd_plain(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = F
         e = torch.exp(w - m)
         denom = e.sum(-1, keepdim=True)
         lse = m + torch.log(denom)
-    acc = e.to(v.dtype).float() @ v.float()
+    acc = widen(e.to(v.dtype)) @ widen(v)
     return (acc / denom).to(q.dtype), lse[..., 0]
 
 
@@ -91,16 +97,16 @@ def flash_attention_bwd_plain(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
                               causal: bool = False, need_drel: bool = True) -> Grads:
     """The plain version of K4 → (dq, dk, dv, dpos_q, dpos_k, drel [H, T, S] fp32 or None)."""
     p = torch.exp(attention_scores(q, k, pos_q, pos_k, rel, kpad, causal) - lse[..., None])
-    dof = do.float()
-    dp = dof @ v.float().transpose(-1, -2)
-    dw = p * (dp - (dof * o.float()).sum(-1, keepdim=True))
+    dof = widen(do)
+    dp = dof @ widen(v).transpose(-1, -2)
+    dw = p * (dp - (dof * widen(o)).sum(-1, keepdim=True))
     dwt = dw.transpose(-1, -2)
     return (
-        (dw @ k.float()).to(q.dtype),
-        (dwt @ q.float()).to(k.dtype),
+        (dw @ widen(k)).to(q.dtype),
+        (dwt @ widen(q)).to(k.dtype),
         (p.transpose(-1, -2) @ dof).to(v.dtype),
-        (dw @ pos_k.float()).to(pos_q.dtype),
-        (dwt @ pos_q.float()).to(pos_k.dtype),
+        (dw @ widen(pos_k)).to(pos_q.dtype),
+        (dwt @ widen(pos_q)).to(pos_k.dtype),
         dw.sum(0) if need_drel and rel is not None else None,
     )
 
@@ -133,6 +139,7 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False,
     _build.check(err, name)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
+    flash_attention_fwd.deep += _build.head_instance(D) == _build.DEEP
     if out.shape[-1] != D:  # ran on zero-padded copies
         flash_attention_fwd.padded += 1
         out = out[..., :D].contiguous()
@@ -182,6 +189,7 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
     _build.check(err, name)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
+    flash_attention_bwd.deep += _build.head_instance(D) == _build.DEEP
     if drel is not None and drel.dim() == 4:
         drel = drel[0]
     if q.shape[-1] != D:  # ran on zero-padded copies
@@ -194,8 +202,10 @@ flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_fwd.padded = 0  # the launches that ran on zero-padded copies
 flash_attention_bwd.padded = 0
-flash_attention_fwd.col_split = 0  # the bf16 launches split into column halves (D > 128)
+flash_attention_fwd.col_split = 0  # the bf16 launches split into column blocks (D > 128)
 flash_attention_bwd.col_split = 0
+flash_attention_fwd.deep = 0  # the launches on the deep route (D > 256), either dtype
+flash_attention_bwd.deep = 0
 
 
 # ---------------------------------------------------------------------------

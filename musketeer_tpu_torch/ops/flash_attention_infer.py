@@ -18,12 +18,14 @@ and the CUDA kernel (``csrc/flash_attention_infer.cu``) for CUDA tensors: bf16
 on the tensor-core core (``csrc/flash_fwd_sm90.cuh``, wgmma fed by TMA), fp32
 on the FMA core (``csrc/flash_fwd.cuh``), each compiled at the tile widths
 ``_build.HEAD_DIMS`` (32, 64, 80, 128, 192, 256): a head dim of 1 to 256
-runs on the smallest that covers it, one that is not a multiple of 8 on
-zero-padded copies of the streams (``_build.pad_head``; counted in
-``.padded``), one past 128 with the output's columns split into halves of
-128 over the grid (bf16; counted in ``.col_split``); a head dim past 256
-raises on CUDA. It never falls back from one to another. It has no backward
-and refuses
+runs on the smallest that covers it, any head dim past 256 on the deep
+route (``_build.DEEP``: the head dim streamed through the products in
+chunks of 128, ``csrc/flash_fwd_sm90.cuh::Layout<DEEP>`` and
+``csrc/flash_deep.cuh``; counted in ``.deep``), one that is not a multiple
+of 8 on zero-padded copies of the streams (``_build.pad_head``; counted in
+``.padded``), one past 128 with the output's columns split into blocks of
+128 over the grid (bf16; counted in ``.col_split``). It never falls back
+from one to another. It has no backward and refuses
 inputs that autograd tracks: the model reaches it through
 ``ops/flash_attention_bwd.py::flash_attention``, which sends differentiated
 calls to K3/K4 instead.
@@ -52,8 +54,14 @@ def sm90_smem(D: int, bwd: bool = False) -> int:
     of stages (3 up to DP 128; past it 2, K4's 1) of k, pos_k and v (past
     128 the CTA's 128 columns of v; K4's three whole tiles), the mbarriers,
     1 KB of alignment slack; K4 also each stage's lse and dsum rows and two
-    staged rel tiles of 64 rows of 72 bf16."""
+    staged rel tiles of 64 rows of 72 bf16. On the deep route (``Layout<DEEP>``,
+    ``BwdDeep``), whatever D: a ring of 6 slots of two 64 x 128 chunks, its
+    mbarriers (the forward also the unused q barrier), the slack; K4 also
+    the two rel tiles."""
     dp = _build.head_instance(D)
+    if dp == _build.DEEP:
+        ring, rel = 6 * 2 * 64 * _build.DEEP_CHUNK * 2, 2 * 64 * 72 * 2
+        return ring + rel + 8 * 2 * 6 + 1024 if bwd else ring + 8 * (2 * 6 + 1) + 1024
     tile, split = 64 * dp * 2, dp > _build.SPLIT_HEAD_DIM
     if not bwd:
         stages, vtile = (2, 64 * 128 * 2) if split else (3, tile)
@@ -80,7 +88,7 @@ def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
 def cuda_args(name: str, q, k, v, pos_q, pos_k, rel, kpad,
               rel_f32: bool = False, tma: bool = False) -> Tuple[Optional[int], int, int]:
     """Validate CUDA inputs of the attention kernels → (rel pointer, head and row strides).
-    The head dim must be at most ``_build.MAX_HEAD_DIM``.
+    Any head dim from 1 upward (``_build.check_head_dim``).
     ``rel_f32``: the kernel also reads an fp32 rel (K5), not only one in q's dtype.
     ``tma``: bf16 streams go to the tensor-core kernels (K1, K3, K4, K5), whose
     TMA copies need 16-byte aligned bases (a head dim that is not a multiple
@@ -114,15 +122,24 @@ def padded_streams(*streams):
     return [None if t is None else _build.pad_head(t) for t in streams]
 
 
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the plain versions sum it: in fp32, or in fp64 where it is fp64
+    already (the function evaluated in fp64: a reference for the fp32 kernels
+    where the fp32 plain version's own rounding is as large as the check's
+    tolerance)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def attention_scores(q, k, pos_q, pos_k, rel, kpad, causal: bool) -> torch.Tensor:
-    """fp32 scores ``[B, H, T, S]`` with the bias added and the masks at −1e9."""
+    """fp32 (fp64: ``widen``) scores ``[B, H, T, S]`` with the bias added and
+    the masks at −1e9."""
     T, S = q.shape[2], k.shape[2]
     # bf16 products are exact in fp32: this matches the TPU kernel's
     # fp32-accumulated dots
-    w = q.float() @ k.float().transpose(-1, -2)
-    w = w + pos_q.to(q.dtype).float() @ pos_k.to(q.dtype).float().transpose(-1, -2)
+    w = widen(q) @ widen(k).transpose(-1, -2)
+    w = w + widen(pos_q.to(q.dtype)) @ widen(pos_k.to(q.dtype)).transpose(-1, -2)
     if rel is not None:
-        w = w + rel[:, :T, :S].to(q.dtype).float()[None]
+        w = w + widen(rel[:, :T, :S].to(q.dtype))[None]
     if causal:
         cmask = torch.arange(S, device=q.device)[None, :] > torch.arange(T, device=q.device)[:, None]
         w = w.masked_fill(cmask, NEG_INF)
@@ -142,7 +159,7 @@ def flash_attention_plain(
     else:
         e = torch.exp(w - w.amax(-1, keepdim=True))
         denom = e.sum(-1, keepdim=True)
-    acc = e.to(v.dtype).float() @ v.float()
+    acc = widen(e.to(v.dtype)) @ widen(v)
     return (acc / denom).to(q.dtype)
 
 
@@ -184,6 +201,7 @@ def flash_attention_inference(
     _build.check(err, name)
     flash_attention_inference.launches += 1
     flash_attention_inference.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
+    flash_attention_inference.deep += _build.head_instance(D) == _build.DEEP
     if out.shape[-1] != D:  # ran on zero-padded copies
         flash_attention_inference.padded += 1
         out = out[..., :D].contiguous()
@@ -192,4 +210,5 @@ def flash_attention_inference(
 
 flash_attention_inference.launches = 0
 flash_attention_inference.padded = 0  # the launches that ran on zero-padded copies
-flash_attention_inference.col_split = 0  # the bf16 launches split into column halves (D > 128)
+flash_attention_inference.col_split = 0  # the bf16 launches split into column blocks (D > 128)
+flash_attention_inference.deep = 0  # the launches on the deep route (D > 256), either dtype

@@ -289,26 +289,34 @@ def test_hd80_joint_step_loss_and_gradients_match_jax(pair):
 # (iv) no card
 # ---------------------------------------------------------------------------
 
-def test_head_dim_check_accepts_64_and_80_and_refuses_72():
-    """The head-dim contract: every head dim 1 to 256 passes (72, 8 and 136
-    among them, on the instances 80, 32 and 192), 264 raises naming the
-    range."""
+def test_head_dim_check_takes_every_head_dim_from_1_and_refuses_0():
+    """The head-dim contract: every head dim from 1 upward passes (72, 8 and
+    136 among them, on the instances 80, 32 and 192, and 264 on the deep
+    route), 0 raises naming the range."""
     assert _build.HEAD_DIMS == (32, 64, 80, 128, 192, 256)
-    for hd in (64, 80, 72, 8, 136):
+    for hd in (64, 80, 72, 8, 136, 264):
         _build.check_head_dim("k", hd)
-    assert [_build.head_instance(hd) for hd in (64, 80, 72, 8, 136)] == [64, 80, 80, 32, 192]
-    with pytest.raises(NotImplementedError, match=r"head dim 264.*1 to 256"):
-        _build.check_head_dim("k", 264)
-    # the attention wrappers' CUDA checks refuse it first, before any device check
-    q = torch.empty(1, 2, 8, 264)
+    assert [_build.head_instance(hd) for hd in (64, 80, 72, 8, 136, 264)] == \
+        [64, 80, 80, 32, 192, _build.DEEP]
+    with pytest.raises(NotImplementedError, match=r"head dim 0; .*from 1 upward"):
+        _build.check_head_dim("k", 0)
+    # the attention wrappers' CUDA checks refuse 0 first, before any device
+    # check, and take 264 on to the device check (here: CPU tensors)
     kpad = torch.zeros(1, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="head dim 264"):
+    with pytest.raises(NotImplementedError, match="head dim 0"):
+        q = torch.empty(1, 2, 8, 0)
+        k1.cuda_args("flash_attention_inference", q, q, q, q, q, None, kpad)
+    q = torch.empty(1, 2, 8, 264)
+    with pytest.raises(ValueError, match="unsupported device"):
         k1.cuda_args("flash_attention_inference", q, q, q, q, q, None, kpad)
     x = torch.empty(10, 528)
     stack = dict(x0=x, sbias=torch.empty(1, 10, 2, 4), cbias=torch.empty(2, 2, 8),
                  self_k=torch.empty(1, 10, 2, 4, 264), self_v=torch.empty(1, 10, 2, 4, 264),
                  cross_k=torch.empty(1, 2, 2, 8, 264), cross_v=torch.empty(1, 2, 2, 8, 264))
-    with pytest.raises(NotImplementedError, match="head dim 264"):
+    with pytest.raises(ValueError, match="unsupported device"):
+        k7._check_cuda({}, *stack.values(), cache_index=0, beam_size=5)
+    stack.update(x0=torch.empty(10, 0), self_k=torch.empty(1, 10, 2, 4, 0))
+    with pytest.raises(NotImplementedError, match="head dim 0"):
         k7._check_cuda({}, *stack.values(), cache_index=0, beam_size=5)
     # on CPU tensors the plain versions take any head dim
     x6 = _k6_inputs(B=2, H=2, Kb=3, S=9, D=72, full_pad=None)

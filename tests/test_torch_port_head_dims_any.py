@@ -339,20 +339,22 @@ def test_zero_padded_copy_is_the_plain_version_at_head_dim_20():
 
 def test_head_dim_instances_and_shared_memory_plans():
     """Every head dim 1 to 256 runs on the smallest instance covering it
-    rounded up to 8 (K6's int8 rows: 16); 0 and 257 raise; each instance's
+    rounded up to 8 (K6's int8 rows: 16); 0 raises, 257 runs on the deep
+    route (``test_torch_port_head_dims_deep.py``); each instance's
     shared memory fits a block (K1, K3, K5 two CTAs an SM below 128, K4 and
     the K6 and K7 cross-attentions at the serving shape, B16 Kb5 S908; K6
     two CTAs an SM below 128)."""
-    assert _build.HEAD_DIMS == (32, 64, 80, 128, 192, 256) and _build.MAX_HEAD_DIM == 256
+    assert _build.HEAD_DIMS == (32, 64, 80, 128, 192, 256) and _build.MAX_INSTANCE == 256
     for D in range(1, 257):
         _build.check_head_dim("k", D)
         r8 = -(-D // 8) * 8
         assert _build.head_instance(D) == min(n for n in _build.HEAD_DIMS if n >= r8), D
         assert _build.head_instance(D, 16) == min(n for n in _build.HEAD_DIMS
                                                   if n >= -(-D // 16) * 16), D
-    for D in (0, 257):
-        with pytest.raises(NotImplementedError, match=r"head dims 1 to 256"):
-            _build.check_head_dim("k", D)
+    with pytest.raises(NotImplementedError, match=r"head dim 0; .*from 1 upward"):
+        _build.check_head_dim("k", 0)
+    _build.check_head_dim("k", 257)
+    assert _build.head_instance(257) == _build.DEEP
     per_sm = 233472  # an SM's shared memory; each CTA also reserves 1 KB
     smem = {dp: k1.sm90_smem(dp) for dp in _build.HEAD_DIMS}
     assert smem == {32: 46136, 64: 91192, 80: 113720, 128: 181304, 192: 181288, 256: 230440}

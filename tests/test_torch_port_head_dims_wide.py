@@ -207,7 +207,8 @@ def test_hd256_joint_step_loss_and_gradients_match_jax(pair):
 
 def test_head_dims_past_128_instances_and_shared_memory_plans():
     """Every head dim 129 to 256 runs on 192 or 256 (K6's rows rounded to 16
-    first) in two column halves, and 257 raises; the planners' bytes are the
+    first) in two column halves, and 257 on the deep route in three column
+    blocks; the planners' bytes are the
     layouts' of the CUDA sources at the instances 192 and 256, and each fits
     a block: K1/K3/K5 (``Layout``: q, pos_q, 2 stages of k, pos_k and 128
     columns of v), K4 (``BwdLayout``: 3 resident tiles, 1 stage of 3, the
@@ -220,8 +221,8 @@ def test_head_dims_past_128_instances_and_shared_memory_plans():
         assert _build.head_instance(D) == dp and _build.col_halves(D) == 2, D
         assert _build.head_instance(D, 16) == (192 if -(-D // 16) * 16 <= 192 else 256), D
     assert [_build.col_halves(D) for D in (1, 64, 128)] == [1, 1, 1]
-    with pytest.raises(NotImplementedError, match=r"head dim 257.*1 to 256"):
-        _build.check_head_dim("k", 257)
+    _build.check_head_dim("k", 257)
+    assert _build.head_instance(257) == _build.DEEP and _build.col_halves(257) == 3
     bars, slack = 8, 1024
     for dp in (192, 256):
         tile, vtile = 64 * dp * 2, 64 * 128 * 2
