@@ -570,8 +570,9 @@ def phase_build() -> float:
 
 
 # the mangled names of the deep route's kernels (common.cuh::DEEP, the
-# instance 0 of the templates on the tile width, and the kernels of their own)
-DEEP_KERNEL_NAMES = ("2mk4sm906kernelILi0E", "11decode_attn6kernelILi0E",
+# instance 0 of the templates on the tile width, and the kernels of their own:
+# fwd_deep, bwd_kv_deep, bwd_q_deep, self_attn_deep, flash_deep's)
+DEEP_KERNEL_NAMES = ("11decode_attn6kernelILi0E",
                      "10cross_attn6kernelILi0E", "cross_attn_i8_sm90_kernelILi0E", "_deep",
                      "10flash_deep")
 
@@ -4637,6 +4638,10 @@ HD_CONFIGS = {"ofa_base_hd128": dict(attention_heads=6),
 HD_TAG = "[head dims kernels] "
 HD_FP32_TOL = 1e-5  # phase 26's fp32 calls: the done rule's 1e-5, not the earlier phases' 1e-4
 HD_KERNELS = ("K1", "K3", "K4", "K5", "K5-cross", "K6", "K7")
+# the depth of phases 26, 28 and 29 (b)'s configurations: ofa_base's width,
+# head counts and ResNet at 2 + 2 layers (a head dim takes the same routes at
+# any depth; at 6 + 6 the (b) parts took 72-76 s a phase of a run's 1171 s)
+HD_DEPTH = dict(encoder_layers=2, decoder_layers=2)
 
 
 def _heads_for(D: int, width: int = 768) -> int:
@@ -4753,13 +4758,15 @@ def _hd_kernels(g, D: int, on_path: bool, H: int = None) -> tuple:
 
 
 def _hd_config(name: str, model: dict, smi: str, phase: int = 26) -> dict:
-    """Phase 26 (b) (or 28's): ``ofa_base`` with ``model``'s head count, full
-    width and depth, seeded weights: the three caption slices in bf16 and in
-    fp32 through the kernels and their plain versions, phase 8's joint step
-    and phase 9's fp32 check. → each kernel's launches on its path."""
+    """Phase 26 (b) (or 28's, 29's): ``ofa_base`` with ``model``'s head count,
+    full width, ``HD_DEPTH``'s layers, seeded weights: the three caption
+    slices in bf16 and in fp32 through the kernels and their plain versions,
+    phase 8's joint step and phase 9's fp32 check. → each kernel's launches
+    on its path."""
     from musketeer_tpu_torch.config import ofa_base
 
     t0 = time.perf_counter()
+    model = dict(model, **HD_DEPTH)
     cfg = dataclasses.replace(ofa_base(), use_flash_attention=True, **model)
     tree = _random_model_tree(cfg, SEED + phase)
     log(f"[head dims b] {name}: d {cfg.embed_dim}, {cfg.attention_heads} heads of "
@@ -5424,7 +5431,8 @@ def _one_block_ms(g, D: int, H: int) -> dict:
     """bf16 K1 and K4 at head dim D on the deep route (B4 T=S=908 and the
     encoder train shape B4 T=S=980, H heads): each kernel's device time
     (torch.profiler) and that time over the column blocks, what one block of
-    128 output columns costs, every block computing the full-width scores."""
+    128 output columns costs (a CTA's group of up to three blocks sharing
+    each score tile)."""
     from musketeer_tpu_torch.ops import _build
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
     from musketeer_tpu_torch.ops import flash_attention_infer as k1
@@ -5449,12 +5457,41 @@ def _one_block_ms(g, D: int, H: int) -> dict:
     return out
 
 
+def _deep_plan_stats(D: int, H: int, B: int, stats: dict) -> None:
+    """The deep plan (``flash_attention_infer.deep_plan``) of bf16 K1, K3, K4,
+    K5 and K5-cross at phase 29 (a)'s shapes for head dim D, printed beside
+    each kernel's measured time (``stats[name]["ms"]``): the column blocks a
+    CTA owns, how often each score tile is built (K4: S and dP), the bytes
+    the planner reckons the producers stream into shared memory, and the
+    fill rate those bytes would imply over the measured time. The plan is a
+    model of the kernel, not a count taken on the card, so it stays in the
+    log and out of the kernels line."""
+    from musketeer_tpu_torch.ops import flash_attention_infer as k1
+
+    shapes = {"K1": ("K1", B, 908, 908), "K3": ("K1", 4, 980, 980), "K4": ("K4", 4, 980, 980),
+              "K5": ("K5", B, 908, 908), "K5-cross": ("K5", 4, 90, 990)}
+    for name, (kind, b, T, S) in shapes.items():
+        p = k1.deep_plan(D, kind, B=b, H=H, T=T, S=S)
+        ms = stats[name]["ms"]
+        builds = (f"S {p['score_builds']}x, dP {p['dp_builds']}x (one block a CTA: S "
+                  f"{p['score_builds_one_block']}x, dP {p['dp_builds_one_block']}x)"
+                  if kind == "K4" else
+                  f"{p['score_builds']}x (one block a CTA: {p['score_builds_one_block']}x)")
+        fill = p["bytes"] / (ms * 1e-3) / 1e12
+        log(f"[deep heads plan] {name} D{D} B{b} H{H} T{T} S{S}: {p['blocks']} column blocks a "
+            f"CTA ({p['last_blocks']} in the last group of {p['nch']}), each score tile built "
+            f"{builds} a (q tile, key tile); {p['bytes'] / 1e9:.3f} GB streamed into shared "
+            f"memory (one block a CTA: {p['bytes_one_block'] / 1e9:.3f}); kernel {ms:.4f} ms: "
+            f"{fill:.2f} TB/s derived from the plan's bytes")
+
+
 def phase_deep_heads(smi: str) -> dict:
     """Phase 29: (a) the attention kernels at every head dim of ``DEEP_DIMS``
     (phase 26's calls at ~768 / D heads), the padded copies and the deep route
-    counted, K6 and K7 on the score-chunked route at 576 and K4 on a causal
-    fully masked row at 384, each head dim's SDPA backend, one column block's
-    device time at 384 and 768; (b) the two configurations of
+    counted, each bf16 K1, K3, K4, K5 call's deep plan beside its time
+    (``_deep_plan_stats``), K6 and K7 on the score-chunked route at 576 and
+    K4 on a causal fully masked row at 384, each head dim's SDPA backend, one
+    column block's device time at 384 and 768; (b) the two configurations of
     ``DEEP_CONFIGS``; every fp32 call's check within ``HD_FP32_TOL``, that of
     K1, K3, K4 and K5 against the function in fp64 (``FP32_REF_F64``), bf16
     K4's fp32 drel within ``WH_DREL_TOL``. → {kernel: {head dim: stats, the
@@ -5482,6 +5519,7 @@ def _deep_heads(smi: str) -> dict:
                                  f"{_build.col_halves(D)} blocks")
         H = _wide_heads_for(D)
         stats[D], k5_launches[D] = _hd_kernels(g, D, D in heads.values(), H)
+        _deep_plan_stats(D, H, BATCH if D in heads.values() else 4, stats[D])
         backends[D] = _sdpa_backend(D, H)
         if backends[D] == "none":  # no fused library kernel takes this head dim
             for k in ("K1", "K3", "K4", "K5", "K5-cross"):
@@ -5542,8 +5580,9 @@ def _deep_heads(smi: str) -> dict:
 # --instances-only: the device times of today's instances, for a parent/change
 # pair (copied into an older tree's root, it times that tree's kernels): K1,
 # K4, K6 and K7 at ofa_base's shapes (head dim 64), K1, K3, K4, K5, K6, K7
-# at 6 heads of 128 (phase 26's hd 128 cases) and K1, K4, K6, K7 at 3 heads
-# of 256 (the widest instance), bf16
+# at 6 heads of 128 (phase 26's hd 128 cases), K1, K4, K6, K7 at 3 heads of
+# 256 (the widest instance), and K1, K3, K4, K5 on the deep route at 2 heads
+# of 384 and 1 head of 768 (phase 29's shapes), bf16
 INSTANCE_CASES = {
     "K1 B16 H12 T=S=908 D64": ("K1", dict(K1_SHAPE)),
     "K4 B4 H12 T=S=980 D64": ("K4", dict(K34_SHAPES["encoder"]["shape"])),
@@ -5559,6 +5598,14 @@ INSTANCE_CASES = {
     "K4 B4 H3 T=S=980 D256": ("K4", dict(K34_SHAPES["encoder"]["shape"], H=3, D=256)),
     "K6 B16 H3 Kb5 S908 D256": ("K6", dict(K6_SHAPE, H=3, D=256)),
     "K7 rows 80 L6 d768 hd256 S908 Tmax17": ("K7", dict(K7_SHAPE, H=3, hd=256)),
+    "K1 B16 H2 T=S=908 D384": ("K1", dict(K1_SHAPE, H=2, D=384)),
+    "K3 B4 H2 T=S=980 D384": ("K3", dict(K34_SHAPES["encoder"]["shape"], H=2, D=384)),
+    "K4 B4 H2 T=S=980 D384": ("K4", dict(K34_SHAPES["encoder"]["shape"], H=2, D=384)),
+    "K5 B16 H2 S908 D384": ("K5", dict(K1_SHAPE, H=2, D=384)),
+    "K1 B16 H1 T=S=908 D768": ("K1", dict(K1_SHAPE, H=1, D=768)),
+    "K3 B4 H1 T=S=980 D768": ("K3", dict(K34_SHAPES["encoder"]["shape"], H=1, D=768)),
+    "K4 B4 H1 T=S=980 D768": ("K4", dict(K34_SHAPES["encoder"]["shape"], H=1, D=768)),
+    "K5 B16 H1 S908 D768": ("K5", dict(K1_SHAPE, H=1, D=768)),
 }
 INSTANCES_TAG = "[instances] "
 
@@ -5595,10 +5642,32 @@ def _instance_call(g, kernel: str, shape: dict):
     return lambda: kb.flash_attention_bwd(*args, o, lse, do)
 
 
+def _deep_drel() -> dict:
+    """bf16 K4's drel at head dim 1280 (B4 H1 T=S=980, rel, 10 % padded keys;
+    one seeded input, the same in any tree) against its plain version: the
+    largest error and that over max|drel| (phase 29 holds it to
+    ``WH_DREL_TOL``), so that a parent/change pair compares the deep route's
+    sum order."""
+    from musketeer_tpu_torch.ops import flash_attention_bwd as kb
+
+    g = torch.Generator(device="cuda").manual_seed(1280)
+    x = _k1_inputs(g, 4, 1, 980, 980, 1280, torch.bfloat16)
+    args = [x[n] for n in ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")]
+    o, lse = kb.flash_attention_fwd_plain(*args)
+    do = (torch.randn(o.shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    got = kb.flash_attention_bwd(*args, o, lse, do)[5]
+    ref = kb.flash_attention_bwd_plain(*args, o, lse, do)[5]
+    err, top = _max_err(got, ref), float(ref.abs().max())
+    log(f"[instances] K4 B4 H1 T=S=980 D1280 bf16 drel: max abs err {err:.4e} against plain, "
+        f"max|drel| {top:.3f}: {err / top:.3e} of it")
+    return dict(max_abs_err=err, max_abs=top, relative=err / top)
+
+
 def phase_instances(smi: str) -> dict:
     """Each case of ``INSTANCE_CASES``: its kernels' device time per call
     (torch.profiler, the sum over the call's kernels, 10 calls) and the
-    call's time by CUDA events (20 calls), printed as one ``INSTANCES_TAG``
+    call's time by CUDA events (20 calls), and bf16 K4's drel at head dim
+    1280 against plain (``_deep_drel``), printed as one ``INSTANCES_TAG``
     line."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 29)
     out = {}
@@ -5610,6 +5679,7 @@ def phase_instances(smi: str) -> dict:
         log(f"[instances] {name}: device {dev:.4f} ms, call {ms:.4f} ms per call on {smi}")
         del call
         torch.cuda.empty_cache()
+    out["K4 D1280 drel"] = _deep_drel()
     log(INSTANCES_TAG + json.dumps(out))
     return out
 
@@ -5690,7 +5760,8 @@ def main(argv=None) -> int:
                            "in 1 of 768), and print no result line")
     only.add_argument("--instances-only", action="store_true",
                       help="after phases 1-2, only time today's instances (K1, K4, K6, K7 at "
-                           "head dims 64 and 256, K1 and K3-K7 at 128; device time and call "
+                           "head dims 64 and 256, K1 and K3-K7 at 128) and the deep route (K1, "
+                           "K3, K4, K5 at 2 heads of 384 and 1 of 768; device time and call "
                            "time) for a parent/change pair, and print no result line")
     only.add_argument("--shapes-only", action="store_true",
                       help="after phases 1-2, run only phase 27 (K6, K7, K2 and K2-q8 at more "

@@ -303,10 +303,10 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
       mma16816(c, qa[kk], b0, b1);
     }
   };
-  // the deep route's ring, as the consumers walk it: the next tile's stage,
-  // and its release behind a proxy fence (the generic reads of a stage
-  // ordered before the next TMA copy into it; K6's deep route read other
-  // chunks' bytes without it)
+  // a stage's release, on every route behind a proxy fence (the generic reads
+  // of a stage ordered before the next TMA copy into it; K6's deep route read
+  // other chunks' bytes without it), and the deep route's ring as the
+  // consumers walk it: the next tile's stage
   auto release = [&](int st) {
     sm90::fence_async_smem();
     sm90::mbar_arrive(empty(st));
@@ -367,7 +367,7 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
         const int st = it % STAGES;
         sm90::mbar_wait(full(st), (it / STAGES) & 1);
         scores(st, c);
-        sm90::mbar_arrive(empty(st));
+        release(st);
       }
       const int s = it * BKT + 8 * warp + 2 * t;  // columns s, s + 1
 #pragma unroll
@@ -404,10 +404,7 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
         sm90::mbar_wait(full(st), (it / STAGES) & 1);
       }
       pv(st, P, (it - ntiles) * BKT);
-      if constexpr (kDeep)
-        release(st);
-      else
-        sm90::mbar_arrive(empty(st));
+      release(st);
     }
   } else {
     // pass 1: each row's max and sum of exp over the K tiles, a key at a time
@@ -421,7 +418,7 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
         const int st = it % STAGES;
         sm90::mbar_wait(full(st), (it / STAGES) & 1);
         scores(st, c);
-        sm90::mbar_arrive(empty(st));
+        release(st);
       }
       const int s = it * BKT + 8 * warp + 2 * t;
 #pragma unroll
@@ -463,7 +460,7 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
         const int st = it % STAGES;
         sm90::mbar_wait(full(st), (it / STAGES) & 1);
         scores(st, c);
-        sm90::mbar_arrive(empty(st));
+        release(st);
       }
       bf16* Pt = P + (i & 1) * MAX_KB * PT;
       const int col = 8 * warp + 2 * t, s = i * BKT + col;
@@ -488,10 +485,7 @@ __global__ void __launch_bounds__(NT) kernel(const __grid_constant__ CacheMaps m
         sm90::mbar_wait(full(sv), ((it + 1) / STAGES) & 1);
       }
       pv(sv, Pt, 0);
-      if constexpr (kDeep)
-        release(sv);
-      else
-        sm90::mbar_arrive(empty(sv));
+      release(sv);
     }
   }
 

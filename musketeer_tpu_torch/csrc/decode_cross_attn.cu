@@ -267,12 +267,31 @@ __global__ void __launch_bounds__(NT, DP <= 128 && DP != mk::DEEP ? 2 : 1)
   if constexpr (!kDeep) load_qa(0);
   sm90::named_sync(1, NC);  // the rows
 
+  // A stage's release. Every route releases its stages after a proxy fence
+  // (sm90::fence_async_smem), which orders this thread's generic reads of a
+  // stage before the next TMA copy into it: on the deep route, whose ring
+  // turns over a chunk at a time, that copy overtook some lanes' reads
+  // without the fence (other chunks' and V's bytes in some beams' scores, run
+  // to run, on an H100). On the instances' rings of 8 (DP <= 128) the stages
+  // are released in pairs behind one fence (a fence a stage made K6 3.3 %
+  // slower at hd 64 on an H100; on the rings of 5 and 4 at 192 and 256,
+  // pairs measured slower than a fence a stage): a stage is held until the
+  // next one is read, which never stalls the producer, since the consumers
+  // read the stages in order and the ring holds more than two.
+  constexpr bool kPaired = !kDeep && STAGES >= 8;
+  int held = -1;  // a stage read and not yet released
+  auto release = [&](int st) {
+    if (kPaired && held < 0) {
+      held = st;
+      return;
+    }
+    sm90::fence_async_smem();
+    if (kPaired) sm90::mbar_arrive(empty(held));
+    sm90::mbar_arrive(empty(st));
+    held = -1;
+  };
   // the dots of keys 8 warp .. + 7 of the K tile in stage st (releases the
-  // stage); with acc, added to c. The deep route releases a stage after a
-  // proxy fence (sm90::fence_async_smem): its ring turns over a chunk at a
-  // time, and without the fence the next TMA copy into a stage overtook some
-  // lanes' generic reads of it (other chunks' and V's bytes in some beams'
-  // scores, run to run, on an H100).
+  // stage); with acc, added to c
   auto scores = [&](int st, float (&c)[4], bool acc = false) {
     const uint8_t* krow = stage(st) + (8 * warp + g) * W + W / 4 * t;
     uint32_t words[W / 16];
@@ -300,14 +319,11 @@ __global__ void __launch_bounds__(NT, DP <= 128 && DP != mk::DEEP ? 2 : 1)
     uint32_t kb[W / 16][2];
 #pragma unroll
     for (int kk = 0; kk < W / 16; ++kk) sm90::widen_i8x4(words[kk], kb[kk][0], kb[kk][1]);
-    if constexpr (!kDeep) sm90::mbar_arrive(empty(st));
+    if constexpr (!kDeep) release(st);
     if (!acc) c[0] = c[1] = c[2] = c[3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < W / 16; ++kk) mma16816(c, qa[kk], kb[kk][0], kb[kk][1]);
-    if constexpr (kDeep) {
-      sm90::fence_async_smem();
-      sm90::mbar_arrive(empty(st));
-    }
+    if constexpr (kDeep) release(st);
   };
   // the deep route's ring, as the consumers walk it: the next tile's stage
   int seq = 0;
@@ -327,8 +343,8 @@ __global__ void __launch_bounds__(NT, DP <= 128 && DP != mk::DEEP ? 2 : 1)
     }
   };
   // the value tile in stage st widened into the bf16 tile at vb (key-major
-  // rows in K7's swizzled layout; releases the stage: on the deep route once
-  // the widened words are stored, behind the proxy fence, as the scores')
+  // rows in K7's swizzled layout; releases the stage as the scores do: on the
+  // deep route once the widened words are stored)
   auto widen_v = [&](int st, uint32_t vb) {
     uint8_t* row = smem_raw + (vb - raw);
     if constexpr (W == 64) {  // thread tid: key tid / 4, dims 16 (tid % 4) .. + 15
@@ -337,7 +353,7 @@ __global__ void __launch_bounds__(NT, DP <= 128 && DP != mk::DEEP ? 2 : 1)
       uint32_t wv[8];
 #pragma unroll
       for (int k = 0; k < 4; ++k) sm90::widen_i8x4(words[k], wv[2 * k], wv[2 * k + 1]);
-      sm90::mbar_arrive(empty(st));
+      release(st);
       const int key = tid / 4, u = 2 * (tid % 4);
       *reinterpret_cast<uint4*>(row + swz(key, u)) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
       *reinterpret_cast<uint4*>(row + swz(key, u + 1)) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
@@ -349,7 +365,7 @@ __global__ void __launch_bounds__(NT, DP <= 128 && DP != mk::DEEP ? 2 : 1)
         const int i = tid + r * NC;
         vw[r] = i < PIECES ? *reinterpret_cast<const uint2*>(stage(st) + 8 * i) : make_uint2(0, 0);
       }
-      if constexpr (!kDeep) sm90::mbar_arrive(empty(st));
+      if constexpr (!kDeep) release(st);
 #pragma unroll
       for (int r = 0; r < PER; ++r) {
         const int i = tid + r * NC;
@@ -360,10 +376,7 @@ __global__ void __launch_bounds__(NT, DP <= 128 && DP != mk::DEEP ? 2 : 1)
         *reinterpret_cast<uint4*>(row + (HT::unit(vb, i / (W / 8), i % (W / 8)) - vb)) =
             make_uint4(w0, w1, w2, w3);
       }
-      if constexpr (kDeep) {
-        sm90::fence_async_smem();
-        sm90::mbar_arrive(empty(st));
-      }
+      if constexpr (kDeep) release(st);
     }
   };
   // o += P (rows g, g + 8; columns k0 .. k0 + 63) . the bf16 value tile at vb

@@ -139,13 +139,13 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // rel[h] rows q0 .. q0 + 63, columns k0 .. k0 + 63 into buf [64][REL_STRIDE]
-// (zeros past Tq and S), by the consumer warpgroup: each warp load reads one
+// (zeros past Tq and S), by a warpgroup (tid its thread's index in it): each warp load reads one
 // whole 128-byte row piece, a bf16 pair a lane (a 4-byte load where rel's
 // base, rows and S keep pairs aligned).
 __device__ __forceinline__ void stage_rel(__nv_bfloat16* buf, const __nv_bfloat16* relh,
                                           long long rel_rs, bool vec, int q0, int k0, int Tq,
-                                          int S) {
-  const int c = 2 * (threadIdx.x & 31), w = threadIdx.x >> 5, s = k0 + c;
+                                          int S, int tid) {
+  const int c = 2 * (tid & 31), w = tid >> 5, s = k0 + c;
   uint32_t v[BQ / 4];
 #pragma unroll
   for (int i = 0; i < BQ / 4; ++i) {
@@ -316,7 +316,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     __nv_bfloat16* rt = nullptr;
     if (relh) {
       rt = rel_base + (it & 1) * (BQ * REL_STRIDE);  // the other parity is still being read
-      stage_rel(rt, relh, rel_rs, rel_vec != 0, q0, k0, Tq, S);
+      stage_rel(rt, relh, rel_rs, rel_vec != 0, q0, k0, Tq, S, threadIdx.x);
       consumer_sync();
     }
     wgmma_wait();
@@ -511,267 +511,339 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
 
 // ---- the deep route (head dims past 256, common.cuh::DEEP) ----------------
 //
-// Nothing is resident. Each CTA owns one 128-column block of one gradient
-// (block x = tile x nch + block), as past DP 128, and per tile of its walk
-// takes from the ring of Layout<DEEP> (flash_fwd_sm90.cuh::DeepRing) the
-// chunk pairs of the scores ((k, q) chunk by chunk, then (pos_k, pos_q);
-// query-major (q, k), (pos_q, pos_k)), those of dP ((v, dO); query-major
-// (dO, v)), then the block of its gradient's operand (dO, q or pos_q;
-// query-major k or pos_k). The scores and dP sum the chunks' products in
-// that order, each chunk's in a fresh accumulator (deep_products). lse and dsum come
-// from device memory. drel's partial is written by block 0 of the dq launch.
-// Shared memory 216,160 bytes (the ring, two rel tiles), whatever D; ptxas
-// (CUDA 12.8): key-major dv 152, dk and dpos_k 180, query-major 224
-// registers, no spills. Each of the five launches rebuilds the scores in
-// every block and four of them dP: ~(28 nch + 12) T S D operations against
-// the function's 16 (8 products of [T, S] x D), 11x at D 768.
-struct BwdDeep {
-  static constexpr uint32_t OFF_REL = Layout<DEEP>::OFF_BAR;  // after the ring
-  static constexpr uint32_t OFF_BAR = OFF_REL + 2 * REL_TILE;
-  static constexpr size_t SMEM = OFF_BAR + 8 * 2 * Layout<DEEP>::STAGES + 1024;
+// Nothing is resident. Two launches, each of fwd_deep's shape (a producer
+// warpgroup, the builder warpgroup, DW block warpgroups; flash_fwd_sm90.cuh):
+//   - key-major (bwd_kv_deep): a CTA per (b, h, 64-key tile, gradient g of
+//     dv, dk, dpos_k, group of up to DW column blocks of 128); block x =
+//     (key tile x 3 + g) x groups + group. For each q tile the builder builds
+//     S^T from the chunk pairs (k, q) chunk by chunk, then (pos_k, pos_q),
+//     and, for dk and dpos_k, dP^T from (v, dO), each pair's products in a
+//     fresh accumulator (deep_products), stages rel's tile in shared memory
+//     as bwd_kv does, and writes P^T (dv) or dW^T, rounded to bf16, into one
+//     of two A buffers; block warpgroup w accumulates its block of the
+//     gradient from the buffer times its block of dO, q or pos_q.
+//   - query-major (bwd_q_deep): a CTA per (b, h, 64-row q tile, gradient of
+//     dq, dpos_q, group); block x = (q tile x 2 + g) x groups + group. The
+//     builder builds S from (q, k), then (pos_q, pos_k), and dP from (dO, v),
+//     writes dW's high and low bf16 parts into the buffer (two tiles), and
+//     drel's partial where g = dq and group = 0; the block warpgroups
+//     accumulate dq or dpos_q from both parts times their blocks of k or
+//     pos_k, the high part first.
+// S and dP are built ceil(nch / DW) times per (key tile, q tile) for each
+// gradient: S for five gradients, dP for four (dv needs none), against nch
+// times each on one block a CTA. lse and dsum come from device memory.
+// Shared memory (DeepBwd): the score ring, the block ring, the two A buffers
+// (one tile each key-major, two query-major), key-major one rel tile:
+// 223,344 and 230,512 bytes. ptxas (CUDA 12.8): 96 registers at launch (the
+// builder up to 160), no spills.
+template <bool kQ>
+struct DeepBwd {
+  static constexpr uint32_t OFF_S = 0;
+  static constexpr uint32_t OFF_O = OFF_S + 3 * 2 * CHUNK;  // ScoreRing: 3 slots
+  static constexpr uint32_t OFF_P = OFF_O + 2 * DW * CHUNK; // BlockRing: 2 slots
+  static constexpr uint32_t PBUF = (kQ ? 2 : 1) * PTILE;     // an A buffer
+  static constexpr uint32_t OFF_REL = OFF_P + 2 * PBUF;
+  static constexpr uint32_t OFF_BAR = OFF_REL + (kQ ? 0 : REL_TILE);  // one rel tile
+  static constexpr int NBARS = 2 * 3 + 2 * 2 + 4;
+  static constexpr size_t SMEM = OFF_BAR + 8 * NBARS + 1024;
 };
 
-// The block of one of dv, dk, dpos_k (kOut, a single bit) for one (b, h,
-// 64-key tile, column block). maps: q, pos_q, dO, k, pos_k, v.
-template <int kOut>
-__global__ void __launch_bounds__(NT, 1) bwd_kv_deep(
+// What both deep backward kernels share: the barriers' setup, the rings, the
+// A buffers' mbarriers (full[2], then empty[2]).
+struct DeepBwdCta {
+  uint32_t base, pbars;
+  ScoreRing sring;
+  BlockRing oring;
+  __device__ __forceinline__ DeepBwdCta(uint32_t base_, uint32_t bars)
+      : base(base_), pbars(bars + 16 * 3 + 16 * 2), sring{base_, bars},
+        oring{base_ + 3 * 2 * CHUNK, bars + 16 * 3} {}
+  __device__ __forceinline__ uint32_t pfull(int i) const { return pbars + 8u * i; }
+  __device__ __forceinline__ uint32_t pempty(int i) const { return pbars + 8u * (2 + i); }
+  __device__ __forceinline__ void init() const {
+    sring.init(NC);
+    oring.init(DW * NC);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(pfull(i), NC);
+      mbar_init(pempty(i), DW * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the builder: A buffer i of its np-th tile, once the block warpgroups have
+  // released its use two tiles before
+  __device__ __forceinline__ void wait_empty(int np) const {
+    if (np >= 2) mbar_wait(pempty(np & 1), ((np >> 1) - 1) & 1);
+  }
+  // the builder: buffer np & 1 written (generic stores, then wgmma's reads)
+  __device__ __forceinline__ void publish(int np) const {
+    fence_async_smem();
+    mbar_arrive(pfull(np & 1));
+  }
+  // a block warpgroup, tile it: acc += the A buffer's NP tiles . its block
+  // (w < nb) of the operand ring's slot, then both released
+  template <int NP>
+  __device__ __forceinline__ void block_step(float (&acc)[DEEP_CHUNK / 2], int it, int w, int nb,
+                                             uint32_t pa) {
+    mbar_wait(pfull(it & 1), (it >> 1) & 1);
+    const int os = oring.take();
+    if (w < nb) block_products<NP>(acc, pa + (it & 1) * NP * PTILE, oring.slot(os) + w * CHUNK);
+    oring.release(os);
+    mbar_arrive(pempty(it & 1));
+  }
+};
+
+// The key-major gradients of one (b, h, 64-key tile, gradient, group):
+// maps q, pos_q, dO, k, pos_k, v. kBlocks is DW: a template, so that only
+// the source that launches it compiles it.
+template <int kBlocks>
+__global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_kv_deep(
     const __grid_constant__ Maps<DEEP_CHUNK, 6> maps, const __nv_bfloat16* __restrict__ rel,
     const uint8_t* __restrict__ kpad, const float* __restrict__ lse,
     const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dpk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
-  constexpr uint32_t TILE = Layout<DEEP>::TILE;
-  constexpr bool kDv = kOut == KV_DV, kW = !kDv;  // dW needed (else P alone, no dP product)
-  constexpr int kOperand = kDv ? 2 : (kOut == KV_DK ? 0 : 1);  // dO, q or pos_q
+  static_assert(kBlocks == DW, "the block warpgroups of a deep CTA");
+  using L = DeepBwd<false>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));  // the same, generic
-  __nv_bfloat16* const rel_base = reinterpret_cast<__nv_bfloat16*>(smem + BwdDeep::OFF_REL);
-  const uint32_t bars = base + BwdDeep::OFF_BAR;
-  const int nch = deep_chunks(D), nk = nch;
-  const int k0 = blockIdx.x / nch * BK, h = blockIdx.y, b = blockIdx.z;
-  const int half = blockIdx.x % nch, c0 = DEEP_CHUNK * half;  // this CTA's gradient columns
-  const int bh = b * H + h;
+  __nv_bfloat16* const rel_buf = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_REL);
+  DeepBwdCta cta(base, base + L::OFF_BAR);
+  const uint32_t pbuf = base + L::OFF_P;
+  const int nk = deep_chunks(D), groups = (nk + DW - 1) / DW;
+  const int grp = blockIdx.x % groups, g = blockIdx.x / groups % 3;  // g: dv, dk, dpos_k
+  const int k0 = blockIdx.x / groups / 3 * BK, h = blockIdx.y, b = blockIdx.z;
+  const int blk0 = DW * grp, nb = min(DW, nk - blk0), bh = b * H + h;
+  const bool kW = g != 0;  // dW needed (else P alone, no dP product)
   const int n = (Tq + BQ - 1) / BQ;
+  const int wg = threadIdx.x / NC, tid = threadIdx.x % NC;
 
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < DeepRing::STAGES; ++st) {
-      mbar_init(bars + 8u * st, 1);
-      mbar_init(bars + 8u * (DeepRing::STAGES + st), NC);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) cta.init();
   __syncthreads();
-  DeepRing ring{base, bars};
 
-  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
-    if (threadIdx.x == NC) {
+  if (wg == 0) {  // the producer warpgroup
+    regs_dec<DEEP_PRODUCER_REGS>();
+    if (tid == 0) {
       for (int it = 0; it < n; ++it) {
         const int q0 = it * BQ;
         for (int c = 0; c < 2 * nk; ++c) {  // k . q chunk by chunk, then pos_k . pos_q
-          const int st = ring.put(2 * TILE), i = c < nk ? 0 : 1;
-          load_chunk(ring.slot(st), maps, 3 + i, ring.full(st), c % nk, k0, bh);
-          load_chunk(ring.slot(st) + TILE, maps, i, ring.full(st), c % nk, q0, bh);
+          const int st = cta.sring.put(2 * CHUNK), i = c < nk ? 0 : 1;
+          load_chunk(cta.sring.slot(st), maps, 3 + i, cta.sring.full(st), c % nk, k0, bh);
+          load_chunk(cta.sring.slot(st) + CHUNK, maps, i, cta.sring.full(st), c % nk, q0, bh);
         }
         for (int c = 0; kW && c < nk; ++c) {  // v . dO
-          const int st = ring.put(2 * TILE);
-          load_chunk(ring.slot(st), maps, 5, ring.full(st), c, k0, bh);
-          load_chunk(ring.slot(st) + TILE, maps, 2, ring.full(st), c, q0, bh);
+          const int st = cta.sring.put(2 * CHUNK);
+          load_chunk(cta.sring.slot(st), maps, 5, cta.sring.full(st), c, k0, bh);
+          load_chunk(cta.sring.slot(st) + CHUNK, maps, 2, cta.sring.full(st), c, q0, bh);
         }
-        const int st = ring.put(TILE);  // the operand's block
-        load_chunk(ring.slot(st), maps, kOperand, ring.full(st), half, q0, bh);
+      }
+    } else if (tid == 32) {
+      const int op = g == 0 ? 2 : g - 1;  // dO, q or pos_q
+      for (int it = 0; it < n; ++it) {
+        const int st = cta.oring.put(nb * CHUNK);
+        for (int w = 0; w < nb; ++w)
+          load_chunk(cta.oring.slot(st) + w * CHUNK, maps, op, cta.oring.full(st), blk0 + w,
+                     it * BQ, bh);
       }
     }
     return;  // no block-wide barrier follows
   }
 
-  const int lane = threadIdx.x & 31;
-  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);  // key rows r0 and r0 + 8 of the tile
-  const int cq = 2 * (lane & 3);                          // query columns 8 j + cq and + 1
-  const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);  // key rows r0 and r0 + 8 of the tile
+  const int cq = 2 * (lane & 3);                  // query columns 8 j + cq and + 1
   int s_of[2];
-  bool key_ok[2], key_pad[2];
+  bool key_ok[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     s_of[hh] = k0 + r0 + 8 * hh;
     key_ok[hh] = s_of[hh] < S;
-    key_pad[hh] = key_ok[hh] && kpad[(long long)b * S + s_of[hh]];
   }
 
-  float acc[DEEP_CHUNK / 2], sc[32], dp[32];
-  uint32_t pa[16];
-  zero(acc);
-  for (int it = 0; it < n; ++it) {
-    const int q0 = it * BQ;
-    // rel's tile, staged in its own layout and read transposed below
-    __nv_bfloat16* rt = nullptr;
-    if (relh) {
-      rt = rel_base + (it & 1) * (BQ * REL_STRIDE);  // the other parity is still being read
-      stage_rel(rt, relh, rel_rs, rel_vec != 0, q0, k0, Tq, S);
-      consumer_sync();
-    }
-    deep_products(sc, ring, 2 * nk, false);
-    if constexpr (kW) deep_products(dp, ring, nk, false);
-
-    // P^T (or dW^T) in fp32, 0 past S and past Tq; rounded once to bf16 below
+  if (wg == 1) {  // the builder
+    regs_inc<DEEP_BUILDER_REGS>();
+    const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
+    bool key_pad[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int hh = 0; hh < 2; ++hh) key_pad[hh] = key_ok[hh] && kpad[(long long)b * S + s_of[hh]];
+    float sc[32], dp[32];
+    for (int it = 0; it < n; ++it) {
+      const int q0 = it * BQ;
+      // rel's tile, staged in its own layout and read transposed below
+      if (relh) {
+        if (it) named_sync(3, NC);  // the previous tile's reads are done
+        stage_rel(rel_buf, relh, rel_rs, rel_vec != 0, q0, k0, Tq, S, tid);
+        named_sync(3, NC);
+      }
+      deep_products(sc, cta.sring, 2 * nk);
+      if (kW) deep_products(dp, cta.sring, nk);
+      // P^T (or dW^T) in fp32, 0 past S and past Tq; rounded once to bf16 below
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int t = q0 + 8 * j + cq + e;
-        const float ls = t < Tq ? __ldg(lse + (long long)bh * Tq + t) : 0.f;
-        const float ds = kW && t < Tq ? __ldg(dsum + (long long)bh * Tq + t) : 0.f;
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int i = 4 * j + 2 * hh + e;
-          float w = sc[i];
-          if (rt) w += __bfloat162float(rt[(8 * j + cq + e) * REL_STRIDE + r0 + 8 * hh]);
-          const bool neg = key_pad[hh] || (causal && s_of[hh] > t);
-          w = neg ? NEG : w;
-          const float p = key_ok[hh] && t < Tq ? fexp(w - ls) : 0.f;
-          sc[i] = kW ? p * (dp[i] - ds) : p;
+        for (int e = 0; e < 2; ++e) {
+          const int t = q0 + 8 * j + cq + e;
+          const float ls = t < Tq ? __ldg(lse + (long long)bh * Tq + t) : 0.f;
+          const float ds = kW && t < Tq ? __ldg(dsum + (long long)bh * Tq + t) : 0.f;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = 4 * j + 2 * hh + e;
+            float w = sc[i];
+            if (relh) w += __bfloat162float(rel_buf[(8 * j + cq + e) * REL_STRIDE + r0 + 8 * hh]);
+            const bool neg = key_pad[hh] || (causal && s_of[hh] > t);
+            w = neg ? NEG : w;
+            const float p = key_ok[hh] && t < Tq ? fexp(w - ls) : 0.f;
+            sc[i] = kW ? p * (dp[i] - ds) : p;
+          }
         }
       }
+      cta.wait_empty(it);
+      store_a_tile(pbuf + (it & 1) * PTILE, sc, r0, cq);
+      cta.publish(it);
     }
-    to_a_fragments(sc, pa);
-    const int gs = ring.take();  // dv += P^T.dO, dk += dW^T.q, dpos_k += dW^T.pos_q
-    issue_pv<DEEP_CHUNK>(acc, pa, ring.slot(gs));
-    wgmma_wait();
-    fence_regs(acc);
-    ring.release(gs);
+    return;
   }
 
+  // a block warpgroup: column block blk0 + w of gradient g, if it exists
+  const int w = wg - 2, c0 = DEEP_CHUNK * (blk0 + w);
+  float acc[DEEP_CHUNK / 2];
+  zero(acc);
+  for (int it = 0; it < n; ++it) cta.block_step<1>(acc, it, w, nb, pbuf);
+  if (w >= nb) return;
   long long off[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) off[hh] = key_ok[hh] ? ((long long)bh * S + s_of[hh]) * D : -1;
-  __nv_bfloat16* out = kOut == KV_DV ? dv : (kOut == KV_DK ? dk : dpk);
-  store_rows<DEEP_CHUNK>(acc, out + c0, off, cq, D - c0);
+  store_rows<DEEP_CHUNK>(acc, (g == 0 ? dv : (g == 1 ? dk : dpk)) + c0, off, cq, D - c0);
 }
 
-// The block of dq or dpos_q (kOut, a single bit) for one (b, h, 64-row q
-// tile, column block), and with drel_part this batch row's dW (drel's
-// partial; block 0 writes it). maps: q, pos_q, dO, k, pos_k, v.
-template <int kOut>
-__global__ void __launch_bounds__(NT, 1) bwd_q_deep(
+// The query-major gradients of one (b, h, 64-row q tile, gradient, group),
+// and with drel_part this batch row's dW (drel's partial; the dq CTAs of
+// group 0 write it). maps: q, pos_q, dO, k, pos_k, v. kBlocks as bwd_kv_deep's.
+template <int kBlocks>
+__global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_q_deep(
     const __grid_constant__ Maps<DEEP_CHUNK, 6> maps, const __nv_bfloat16* __restrict__ rel,
     const uint8_t* __restrict__ kpad, const float* __restrict__ lse,
     const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq,
     __nv_bfloat16* __restrict__ dpq, float* __restrict__ drel_part, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
-  constexpr uint32_t TILE = Layout<DEEP>::TILE;
-  constexpr int kOperand = kOut == Q_DQ ? 3 : 4;  // k or pos_k
+  static_assert(kBlocks == DW, "the block warpgroups of a deep CTA");
+  using L = DeepBwd<true>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = base + BwdDeep::OFF_BAR;
-  const int nch = deep_chunks(D), nk = nch;
-  const int q0 = blockIdx.x / nch * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int half = blockIdx.x % nch, c0 = DEEP_CHUNK * half;  // this CTA's gradient columns
-  const int bh = b * H + h;
+  DeepBwdCta cta(base, base + L::OFF_BAR);
+  const uint32_t pbuf = base + L::OFF_P;
+  const int nk = deep_chunks(D), groups = (nk + DW - 1) / DW;
+  const int grp = blockIdx.x % groups, g = blockIdx.x / groups % 2;  // g: dq, dpos_q
+  const int q0 = blockIdx.x / groups / 2 * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int blk0 = DW * grp, nb = min(DW, nk - blk0), bh = b * H + h;
   const int n = (S + BK - 1) / BK;
+  const int wg = threadIdx.x / NC, tid = threadIdx.x % NC;
 
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < DeepRing::STAGES; ++st) {
-      mbar_init(bars + 8u * st, 1);
-      mbar_init(bars + 8u * (DeepRing::STAGES + st), NC);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) cta.init();
   __syncthreads();
-  DeepRing ring{base, bars};
 
-  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
-    if (threadIdx.x == NC) {
+  if (wg == 0) {  // the producer warpgroup
+    regs_dec<DEEP_PRODUCER_REGS>();
+    if (tid == 0) {
       for (int it = 0; it < n; ++it) {
         const int k0 = it * BK;
         for (int c = 0; c < 2 * nk; ++c) {  // q . k chunk by chunk, then pos_q . pos_k
-          const int st = ring.put(2 * TILE), i = c < nk ? 0 : 1;
-          load_chunk(ring.slot(st), maps, i, ring.full(st), c % nk, q0, bh);
-          load_chunk(ring.slot(st) + TILE, maps, 3 + i, ring.full(st), c % nk, k0, bh);
+          const int st = cta.sring.put(2 * CHUNK), i = c < nk ? 0 : 1;
+          load_chunk(cta.sring.slot(st), maps, i, cta.sring.full(st), c % nk, q0, bh);
+          load_chunk(cta.sring.slot(st) + CHUNK, maps, 3 + i, cta.sring.full(st), c % nk, k0, bh);
         }
         for (int c = 0; c < nk; ++c) {  // dO . v
-          const int st = ring.put(2 * TILE);
-          load_chunk(ring.slot(st), maps, 2, ring.full(st), c, q0, bh);
-          load_chunk(ring.slot(st) + TILE, maps, 5, ring.full(st), c, k0, bh);
+          const int st = cta.sring.put(2 * CHUNK);
+          load_chunk(cta.sring.slot(st), maps, 2, cta.sring.full(st), c, q0, bh);
+          load_chunk(cta.sring.slot(st) + CHUNK, maps, 5, cta.sring.full(st), c, k0, bh);
         }
-        const int st = ring.put(TILE);  // the operand's block
-        load_chunk(ring.slot(st), maps, kOperand, ring.full(st), half, k0, bh);
+      }
+    } else if (tid == 32) {
+      for (int it = 0; it < n; ++it) {  // k or pos_k
+        const int st = cta.oring.put(nb * CHUNK);
+        for (int w = 0; w < nb; ++w)
+          load_chunk(cta.oring.slot(st) + w * CHUNK, maps, 3 + g, cta.oring.full(st), blk0 + w,
+                     it * BK, bh);
       }
     }
     return;  // no block-wide barrier follows
   }
 
-  const int lane = threadIdx.x & 31;
-  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);  // query rows r0 and r0 + 8 of the tile
-  const int cq = 2 * (lane & 3);                          // key columns 8 j + cq and + 1
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);  // query rows r0 and r0 + 8 of the tile
+  const int cq = 2 * (lane & 3);                  // key columns 8 j + cq and + 1
   const int t0 = q0 + r0;
-  const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
-  const uint8_t* kp = kpad + (long long)b * S;
-  float* const part = drel_part && half == 0 ? drel_part + (long long)b * H * Tq * S : nullptr;
-  const bool part_vec = S % 2 == 0;  // then a column pair is one aligned float2
-  float ls[2], ds[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int t = t0 + 8 * hh;
-    ls[hh] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
-    ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
-  }
 
-  float acc[DEEP_CHUNK / 2], sc[32], dp[32];
-  uint32_t wa[16], wl[16];
-  TileBias<__nv_bfloat16> bias;
-  zero(acc);
-  for (int it = 0; it < n; ++it) {
-    const int k0 = it * BK, lim = S - k0;
-    load_bias(bias, relh, rel_rs, rel_vec != 0, kp, k0, S, t0, Tq, lane, cq);  // while they run
-    deep_products(sc, ring, 2 * nk, false);
-    deep_products(dp, ring, nk, false);
-    mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
-    // dW in fp32 (P = 0 past S, where the scores are -inf, and past Tq)
+  if (wg == 1) {  // the builder
+    regs_inc<DEEP_BUILDER_REGS>();
+    const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
+    const uint8_t* kp = kpad + (long long)b * S;
+    float* const part =
+        drel_part && g == 0 && grp == 0 ? drel_part + (long long)b * H * Tq * S : nullptr;
+    const bool part_vec = S % 2 == 0;  // then a column pair is one aligned float2
+    float ls[2], ds[2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int hh = (i >> 1) & 1;
-      const float p = t0 + 8 * hh < Tq ? fexp(sc[i] - ls[hh]) : 0.f;
-      dp[i] = p * (dp[i] - ds[hh]);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = t0 + 8 * hh;
+      ls[hh] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
+      ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
     }
-    if (part) {  // the unrounded dW; this CTA alone writes these elements
+    float sc[32], dp[32];
+    TileBias<__nv_bfloat16> bias;
+    for (int it = 0; it < n; ++it) {
+      const int k0 = it * BK, lim = S - k0;
+      load_bias(bias, relh, rel_rs, rel_vec != 0, kp, k0, S, t0, Tq, lane, cq);  // while they run
+      deep_products(sc, cta.sring, 2 * nk);
+      deep_products(dp, cta.sring, nk);
+      mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
+      // dW in fp32 (P = 0 past S, where the scores are -inf, and past Tq)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int t = t0 + 8 * hh;
-        if (t >= Tq) continue;
-        float* d = part + ((long long)h * Tq + t) * S + k0 + cq;
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const float p = t0 + 8 * hh < Tq ? fexp(sc[i] - ls[hh]) : 0.f;
+        dp[i] = p * (dp[i] - ds[hh]);
+      }
+      if (part) {  // the unrounded dW; this CTA alone writes these elements
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = 8 * j + cq;
-          const float2 x = make_float2(dp[4 * j + 2 * hh], dp[4 * j + 2 * hh + 1]);
-          if (c >= lim) continue;
-          if (part_vec) {
-            *reinterpret_cast<float2*>(d + 8 * j) = x;
-          } else {
-            d[8 * j] = x.x;
-            if (c + 1 < lim) d[8 * j + 1] = x.y;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = t0 + 8 * hh;
+          if (t >= Tq) continue;
+          float* d = part + ((long long)h * Tq + t) * S + k0 + cq;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = 8 * j + cq;
+            const float2 x = make_float2(dp[4 * j + 2 * hh], dp[4 * j + 2 * hh + 1]);
+            if (c >= lim) continue;
+            if (part_vec) {
+              *reinterpret_cast<float2*>(d + 8 * j) = x;
+            } else {
+              d[8 * j] = x.x;
+              if (c + 1 < lim) d[8 * j + 1] = x.y;
+            }
           }
         }
       }
+      cta.wait_empty(it);
+      const uint32_t pa = pbuf + (it & 1) * 2 * PTILE;
+      store_a_tile(pa, dp, r0, cq);                 // dW's high part,
+      store_a_tile(pa + PTILE, dp, r0, cq, true);   // then its low part
+      cta.publish(it);
     }
-    to_a_fragments(dp, wa);     // dW's high part,
-    to_a_residual(dp, wa, wl);  // then its low part
-    const int gs = ring.take();  // dq += dW . k, dpos_q += dW . pos_k
-    wgmma_fence();
-    issue_pv_cols<DEEP_CHUNK>(acc, wa, ring.slot(gs), 2);
-    issue_pv_cols<DEEP_CHUNK>(acc, wl, ring.slot(gs), 2);
-    wgmma_commit();
-    wgmma_wait();
-    fence_regs(acc);
-    ring.release(gs);
+    return;
   }
 
+  // a block warpgroup: column block blk0 + w of dq or dpos_q, if it exists
+  const int w = wg - 2, c0 = DEEP_CHUNK * (blk0 + w);
+  float acc[DEEP_CHUNK / 2];
+  zero(acc);
+  for (int it = 0; it < n; ++it) cta.block_step<2>(acc, it, w, nb, pbuf);
+  if (w >= nb) return;
   long long off[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = t0 + 8 * hh;
     off[hh] = t < Tq ? ((long long)bh * Tq + t) * D : -1;
   }
-  store_rows<DEEP_CHUNK>(acc, (kOut == Q_DQ ? dq : dpq) + c0, off, cq, D - c0);
+  store_rows<DEEP_CHUNK>(acc, (g == 0 ? dq : dpq) + c0, off, cq, D - c0);
 }
 
 // drel = the sum over the batch, in order, of the B partials [B, n], into
@@ -870,9 +942,9 @@ int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, con
 }
 
 // The deep route's launches on `stream`, the arguments as launch_bwd's (D
-// past 256, a multiple of 8): dv, dk and dpos_k key-major, dq (with drel's
-// partials) and dpos_q query-major, each over nch(D) column blocks, then
-// drel's sum. Returns a cudaError_t code.
+// past 256, a multiple of 8): the key-major launch (dv, dk, dpos_k), the
+// query-major one (dq with drel's partials, dpos_q), then drel's sum.
+// Returns a cudaError_t code.
 inline int launch_bwd_deep(const void* q, const void* pq, const void* k, const void* pk,
                            const void* v, const void* rel, const void* kpad, const void* dout,
                            const float* lse, const float* dsum, void* dq, void* dpq, void* dk,
@@ -885,34 +957,27 @@ inline int launch_bwd_deep(const void* q, const void* pq, const void* k, const v
     return err;
   const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % 4 == 0 && rel_rs % 2 == 0 &&
                       rel_hs % 2 == 0 && S % 2 == 0;
-  constexpr size_t smem = BwdDeep::SMEM;
-  const int nch = deep_chunks(D);
+  const int groups = (deep_chunks(D) + DW - 1) / DW;
   const auto* relt = static_cast<const __nv_bfloat16*>(rel);
   const auto* kp = static_cast<const uint8_t*>(kpad);
-  auto kv = [&](auto out) -> cudaError_t {  // one key-major launch writing `out`
-    constexpr int kOut = decltype(out)::value;
-    static SmemOptIn opt_in;
-    if (const int e = opt_in.ensure((const void*)bwd_kv_deep<kOut>, smem)) return (cudaError_t)e;
-    bwd_kv_deep<kOut><<<dim3((S + BK - 1) / BK * nch, H, B), NT, smem, stream>>>(
-        maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs,
-        rel_rs, rel_vec, causal, D);
-    return cudaGetLastError();
-  };
-  auto qm = [&](auto out, float* part) -> cudaError_t {  // one query-major launch
-    constexpr int kOut = decltype(out)::value;
-    static SmemOptIn opt_in;
-    if (const int e = opt_in.ensure((const void*)bwd_q_deep<kOut>, smem)) return (cudaError_t)e;
-    bwd_q_deep<kOut><<<dim3((Tq + BQ - 1) / BQ * nch, H, B), NT, smem, stream>>>(
-        maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
-        static_cast<__nv_bfloat16*>(dpq), part, H, Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
-    return cudaGetLastError();
-  };
-  cudaError_t err = kv(std::integral_constant<int, KV_DV>{});
-  if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DK>{});
-  if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
-  if (err == cudaSuccess) err = qm(std::integral_constant<int, Q_DQ>{}, drel_part);
-  if (err == cudaSuccess) err = qm(std::integral_constant<int, Q_DPQ>{}, nullptr);
+  static SmemOptIn kv_opt_in, q_opt_in;
+  const void* kv = (const void*)bwd_kv_deep<DW>;
+  const void* qm = (const void*)bwd_q_deep<DW>;
+  if (const int e = kv_opt_in.ensure(kv, DeepBwd<false>::SMEM)) return e;
+  if (const int e = q_opt_in.ensure(qm, DeepBwd<true>::SMEM)) return e;
+  if (const int e = deep_regs_ok(kv)) return e;
+  if (const int e = deep_regs_ok(qm)) return e;
+  bwd_kv_deep<DW><<<dim3((S + BK - 1) / BK * 3 * groups, H, B), DEEP_THREADS, DeepBwd<false>::SMEM,
+                stream>>>(maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+                          static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H,
+                          Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_q_deep<DW><<<dim3((Tq + BQ - 1) / BQ * 2 * groups, H, B), DEEP_THREADS, DeepBwd<true>::SMEM,
+               stream>>>(maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
+                         static_cast<__nv_bfloat16*>(dpq), drel_part, H, Tq, S, rel_hs, rel_rs,
+                         rel_vec, causal, D);
+  err = cudaGetLastError();
   if (err != cudaSuccess || !drel_part || B == 1) return (int)err;
   const long long n = (long long)H * Tq * S, threads = n % 4 == 0 ? n / 4 : n;
   drel_sum<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(drel_part, n, B);

@@ -74,21 +74,25 @@
 //     in the same order; the score products are repeated per half, as K5's
 //     second pass repeats them. K3's logsumexp is written by the first half.
 //   - Past DP 256 (the deep route, DP == DEEP: any head dim D, a multiple
-//     of 8) nothing whole-width fits: q and pos_q alone would take 96 KB at
-//     D 384, and beyond 512 more than a block's shared memory. So nothing is
-//     resident and the head dim streams through the products in chunks of
-//     128 columns: for each key tile the producer sends the pairs (q, k) of
-//     chunk 0 .. nk - 1, then (pos_q, pos_k), then the CTA's 128-column block
-//     of v (Layout<DEEP>: a ring of 6 slots of two 64 x 128 tiles, 197,736
-//     bytes whatever D). The scores sum the pairs' products in that order,
-//     each pair's 8 k-steps in a fresh accumulator added in fp32
-//     (deep_products: the tensor cores' accumulation would drift over a
-//     deep score's k-steps), and the output's
-//     columns split into nch = ceil(D / 128) blocks over the grid, each CTA
-//     computing the scores again: ~(4 nch + 2) T S D operations against the
-//     function's 6 (2.3x at D 384, 4.3x at 768). The accumulators are DP
-//     128's; ptxas (CUDA 12.8): 181 registers (K1/K3), 183 (K5), 199 (K5
-//     with fp32 rel), no spills.
+//     of 8; fwd_deep) nothing whole-width fits: q and pos_q alone would take
+//     96 KB at D 384, and beyond 512 more than a block's shared memory. So
+//     nothing is resident and the head dim streams through the score
+//     products in chunks of 128 columns (the pairs (q, k) of chunk 0 ..
+//     nk - 1, then (pos_q, pos_k), each pair's 8 k-steps in a fresh
+//     accumulator added in fp32: deep_products). The output splits into nch
+//     = ceil(D / 128) column blocks of 128; a CTA owns up to DW = 3 of them,
+//     one consumer warpgroup each (a 64 x 128 fp32 accumulator, 64 registers
+//     a thread: about 384 columns is what an SM's registers hold), and a
+//     builder warpgroup builds each key tile's scores and P once for them,
+//     passing P through shared memory as wgmma's A operand. The scores are
+//     built ceil(nch / 3) times per (q tile, key tile): once at D 384, twice
+//     at 768 (one block a CTA would build them nch times and stream the
+//     score chunks as often, and that traffic sets the pace). setmaxnreg
+//     moves the producer warpgroup's registers to the builder. At D <= 384 q
+//     and pos_q stay resident and only the key side streams. ptxas (CUDA
+//     12.8): 96 registers at launch in every instance; no spills in K1/K3
+//     (4 bytes with q resident), 6-10 bytes in K5 with bf16 rel, 348-496
+//     with fp32 rel (the builder's 32 fp32 rel values a tile).
 //
 // Bound. At the encoder shape (B16 H12 T=S=908 D64) the function is
 // ~60.8 GFLOP against ~150 MB: 0.0615 ms at 989 TFLOP/s bf16, set by the
@@ -141,29 +145,7 @@ struct Layout {
   static __host__ __device__ constexpr uint32_t vbytes(int c) {
     return DP <= 128 ? TILE : vboxes(c) * HeadTile<DP>::LO_BOX;
   }
-  // the column blocks of v and out at head dim D
-  static __host__ __device__ constexpr int nch(int) { return NCH; }
 };
-
-// The deep route (head dims past 256, common.cuh::DEEP): nothing resident. A
-// ring of STAGES slots, each two 64-row chunks of DEEP_CHUNK columns
-// (HeadTile<128>, 16 KB each): one chunk of a query-side stream and the same
-// chunk of a key-side stream for one score product, or one chunk alone (a
-// CTA's block of v); 197,736 bytes whatever D.
-template <>
-struct Layout<DEEP> {
-  static constexpr int STAGES = 6;
-  static constexpr int VW = DEEP_CHUNK;  // columns of v and out a CTA owns
-  static constexpr uint32_t TILE = HeadTile<DEEP_CHUNK>::BYTES;  // one chunk of 64 rows
-  static constexpr uint32_t OFF_KV = 0;
-  static constexpr uint32_t STAGE = 2 * TILE;
-  static constexpr uint32_t OFF_BAR = STAGES * STAGE;
-  static constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
-  static __host__ __device__ constexpr int nch(int D) { return deep_chunks(D); }
-};
-
-// the tile width of an instance's tensor maps and tiles: the chunk's on the deep route
-__host__ __device__ constexpr int tile_dp(int DP) { return DP == DEEP ? DEEP_CHUNK : DP; }
 
 // The tensor maps of N streams: lo[i] the 64-column boxes of stream i, hi[i]
 // the 16-column ones (sm90.cuh::head_maps).
@@ -381,14 +363,31 @@ __device__ __forceinline__ void issue_pv(float (&acc)[Layout<DP>::VW / 2],
   fence_regs(acc);
 }
 
-// The deep route's ring as its threads walk it: item seq (a pair of chunks,
-// or one) sits in slot seq % STAGES, in the slot's (seq / STAGES)-th phase;
-// the producer and the consumers count the same items in the same order.
-struct DeepRing {
-  static constexpr int STAGES = Layout<DEEP>::STAGES;
+// ---- the deep route (head dims past 256, common.cuh::DEEP) ----------------
+
+constexpr uint32_t CHUNK = HeadTile<DEEP_CHUNK>::BYTES;  // a 64 x 128 bf16 chunk: 16 KB
+constexpr uint32_t PTILE = BQ * BK * 2;  // a 64 x 64 bf16 tile of P (or dW): 8 KB
+constexpr int DW = 3;  // column blocks a deep CTA owns: one block warpgroup each
+// a deep CTA: a producer warpgroup, the builder warpgroup, DW block warpgroups
+constexpr int DEEP_THREADS = NC * (2 + DW);
+// registers a thread at launch (__launch_bounds__(640, 1): 65536 / 640 rounded
+// down to 8), then the producer's and the builder's after setmaxnreg; the
+// block warpgroups keep the launch's: 32 + 160 + 3 x 96 = 5 x 96 (24 + 168 made
+// ptxas spill more in K5 with fp32 rel)
+constexpr int DEEP_LAUNCH_REGS = 96, DEEP_PRODUCER_REGS = 32, DEEP_BUILDER_REGS = 160;
+static_assert(DEEP_PRODUCER_REGS + DEEP_BUILDER_REGS + DW * DEEP_LAUNCH_REGS ==
+                  (2 + DW) * DEEP_LAUNCH_REGS,
+              "setmaxnreg moves registers between warpgroups, within the launch's pool");
+
+// A ring of STAGES slots of SLOT bytes as its threads walk it: item seq sits
+// in slot seq % STAGES, in the slot's (seq / STAGES)-th phase; the producer
+// and the consumers count the same items in the same order. Its mbarriers:
+// full[STAGES], then empty[STAGES].
+template <int STAGES, uint32_t SLOT>
+struct Ring {
   uint32_t base, bars;
   int seq = 0;
-  __device__ __forceinline__ uint32_t slot(int st) const { return base + Layout<DEEP>::STAGE * st; }
+  __device__ __forceinline__ uint32_t slot(int st) const { return base + SLOT * st; }
   __device__ __forceinline__ uint32_t full(int st) const { return bars + 8u * st; }
   __device__ __forceinline__ uint32_t empty(int st) const { return bars + 8u * (STAGES + st); }
   // consumers: the next item, once its copies have landed -> its slot
@@ -408,33 +407,103 @@ struct DeepRing {
     ++seq;
     return st;
   }
+  // mbarrier counts: one arrival (the copies' expect_tx) fills a slot,
+  // `readers` threads empty it
+  __device__ __forceinline__ void init(int readers) const {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), readers);
+    }
+  }
 };
 
-// acc (+)= the sum over the ring's next n items of A . B^T, each item a pair
-// of K-major 64 x 128 chunks (A the slot's first tile, B its second): each
+// The score ring of a deep CTA: slots of two chunks, one of a query-side
+// stream and the same chunk of a key-side stream, for one score product.
+using ScoreRing = Ring<3, 2 * CHUNK>;
+// The forward's chunks of q (and as many of pos_q) that stay resident where
+// the head dim has at most this many (D <= 384: 96 KB); its score ring then
+// streams the key-side chunk alone, and its block ring is one slot deep.
+constexpr int DEEP_RESIDENT_NK = 3;
+using KeyRing = Ring<4, CHUNK>;
+// The operand ring: slots of the DW blocks of 128 columns a CTA's block
+// warpgroups multiply P by (v; K4: dO, q, pos_q, k or pos_k), one per tile.
+using BlockRing = Ring<2, DW * CHUNK>;
+
+// acc = the sum over the ring's next n items of A . B^T, each item a pair of
+// K-major 64 x 128 chunks (A the slot's first tile, B its second): each
 // item's 8 wgmma k-steps into a fresh fp32 accumulator, then added to acc
-// with fp32 adds, item by item in the ring's order (acc overwritten at the
-// first unless `accumulate`). The tensor cores' own accumulation drops bits
-// at each k-step, so one accumulator carried over the 2 D / 16 k-steps of a
-// deep score drifts with D: at D 1280 it put bf16 K4's drel 1.3e-4 of
-// max|drel| from plain on an H100, past phase 28's 1e-4; a fresh accumulator
-// an item bounds that drift at one chunk's 8 k-steps. Each item is released
-// once its products are done.
-__device__ __forceinline__ void deep_products(float (&acc)[32], DeepRing& r, int n,
-                                              bool accumulate) {
+// with fp32 adds, item by item in the ring's order. The tensor cores' own
+// accumulation drops bits at each k-step, so one accumulator carried over the
+// 2 D / 16 k-steps of a deep score drifts with D: at D 1280 it put bf16 K4's
+// drel 1.3e-4 of max|drel| from plain on an H100, past phase 28's 1e-4; a
+// fresh accumulator an item bounds that drift at one chunk's 8 k-steps. Each
+// item is released once its products are done. (Two accumulators taking
+// turns, item c + 1 issued before item c is added, made ptxas serialise every
+// wgmma of the kernel (C7518) and spill: K1 2.7x slower at D 384.) With
+// kResident, A is the resident chunk c at res + c CHUNK and B the slot.
+template <bool kResident = false, class R>
+__device__ __forceinline__ void deep_products(float (&acc)[32], R& r, int n, uint32_t res = 0) {
   float part[32];
   for (int c = 0; c < n; ++c) {
     const int st = r.take();
+    const uint32_t a = kResident ? res + c * CHUNK : r.slot(st);
     wgmma_fence();
-    issue_kmajor<DEEP_CHUNK>(part, r.slot(st), r.slot(st) + Layout<DEEP>::TILE, 0);
+    issue_kmajor<DEEP_CHUNK>(part, a, kResident ? r.slot(st) : r.slot(st) + CHUNK, 0);
     wgmma_commit();
     fence_operand(part);
     wgmma_wait();
     fence_operand(part);
     r.release(st);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = accumulate || c ? acc[i] + part[i] : part[i];
+    for (int i = 0; i < 32; ++i) acc[i] = c ? acc[i] + part[i] : part[i];
   }
+}
+
+// x (a 64 x 64 fp32 accumulator of the builder warpgroup: rows r0 and r0 + 8,
+// columns 8 j + cq and + 1) rounded to bf16 into the K-major tile at dst, as
+// TMA's 128-byte swizzle lays a 64-column box (16-byte unit j of row r at
+// r * 128 + (j ^ (r % 8)) * 16): wgmma's A operand from shared memory. With
+// `residual`, the bf16 rounding of what that rounding leaves of x instead
+// (dW's low part, as to_a_residual).
+__device__ __forceinline__ void store_a_tile(uint32_t dst, const float (&x)[32], int r0, int cq,
+                                             bool residual = false) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float a = x[4 * j + 2 * hh], c = x[4 * j + 2 * hh + 1];
+      if (residual) {
+        const uint32_t hi = pack_bf16(a, c);
+        a -= __uint_as_float(hi << 16);
+        c -= __uint_as_float(hi & 0xffff0000u);
+      }
+      sts32(dst + r * 128 + ((j ^ (r & 7)) << 4) + 2 * cq, pack_bf16(a, c));
+    }
+  }
+}
+
+// acc += the sum over NP K-major 64 x 64 bf16 tiles A_p at pa + p PTILE of
+// A_p . B, B the 64 x 128 chunk at sb read MN-major (its 64-column boxes one
+// N block each): a block warpgroup's product, issued, committed and waited.
+template <int NP>
+__device__ __forceinline__ void block_products(float (&acc)[DEEP_CHUNK / 2], uint32_t pa,
+                                               uint32_t sb) {
+  using HT = HeadTile<DEEP_CHUNK>;
+  wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int b = 0; b < HT::NLO; ++b) {
+      float(&lo)[32] = *reinterpret_cast<float(*)[32]>(&acc[32 * b]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // 16 keys: 32 bytes of A's rows, 16 rows of B's box
+        wgmma_ss_t(lo, sw128_desc(pa + p * PTILE + 32 * kk),
+                   sw128_desc(sb + b * HT::LO_BOX + 2048 * kk));
+    }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(acc);
 }
 
 // The score accumulator, as probabilities, into P.v's A fragments: positions
@@ -471,19 +540,13 @@ __device__ __forceinline__ float fexp(float x) { return exp2f(x * 1.442695040888
 // ran slower; the overlap comes from the second CTA on the SM instead.
 // maps: q, pos_q, k, pos_k, v; D: the head dim (a multiple of 8, <= DP).
 // Block x is (q tile, column half): q tile x / NCH, half x % NCH.
-// The deep route (DP == DEEP, D past 256): the producer streams, for each key
-// tile, the chunk pairs (q, k) of every chunk, then (pos_q, pos_k), then the
-// CTA's 128-column block of v, through the ring of Layout<DEEP>; the scores
-// sum the pairs' products in that order (deep_products); block x is (q tile,
-// column block), nch(D) blocks.
 template <int DP, bool kNorm, typename TR>
-__global__ void __launch_bounds__(NT, DP < 128 && DP != DEEP ? 2 : 1) kernel(
-    const __grid_constant__ Maps<tile_dp(DP), 5> maps, const TR* __restrict__ rel,
+__global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
+    const __grid_constant__ Maps<DP, 5> maps, const TR* __restrict__ rel,
     const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
     int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
     int skip_max, int D) {
   using Lay = Layout<DP>;
-  constexpr bool kDeep = DP == DEEP;
   constexpr int STAGES = Lay::STAGES, VW = Lay::VW;
   constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
@@ -495,7 +558,7 @@ __global__ void __launch_bounds__(NT, DP < 128 && DP != DEEP ? 2 : 1) kernel(
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
   auto stage = [=](int st) { return base + Lay::OFF_KV + Lay::STAGE * st; };  // k, pos_k, v
 
-  const int nch = Lay::nch(D);  // column blocks (halves)
+  const int nch = Lay::NCH;  // column halves
   const int q0 = blockIdx.x / nch * BQ, h = blockIdx.y, b = blockIdx.z;
   const int half = blockIdx.x % nch, c0 = VW * half;  // this CTA's columns of v and out
   const int bh = b * H + h;
@@ -513,24 +576,7 @@ __global__ void __launch_bounds__(NT, DP < 128 && DP != DEEP ? 2 : 1) kernel(
   __syncthreads();
 
   if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
-    if constexpr (kDeep) {
-      if (threadIdx.x == NC) {
-        const int nk = deep_chunks(D);
-        DeepRing ring{base, bars};
-        for (int it = 0; it < n; ++it) {
-          const int k0 = (it % ntiles) * BK;
-          for (int c = 0; c < 2 * nk; ++c) {  // q . k chunk by chunk, then pos_q . pos_k
-            const int st = ring.put(2 * TILE), i = c < nk ? 0 : 1;
-            load_chunk(ring.slot(st), maps, i, ring.full(st), c % nk, q0, bh);
-            load_chunk(ring.slot(st) + TILE, maps, i + 2, ring.full(st), c % nk, k0, bh);
-          }
-          if (!kNorm || it >= ntiles) {  // this CTA's block of v
-            const int st = ring.put(TILE);
-            load_chunk(ring.slot(st), maps, 4, ring.full(st), half, k0, bh);
-          }
-        }
-      }
-    } else if (threadIdx.x == NC) {
+    if (threadIdx.x == NC) {
       mbar_expect_tx(qbar, 2 * TILE);
       load_tile(sq, maps, 0, qbar, q0, bh);
       load_tile(sq + TILE, maps, 1, qbar, q0, bh);
@@ -567,25 +613,17 @@ __global__ void __launch_bounds__(NT, DP < 128 && DP != DEEP ? 2 : 1) kernel(
     rl[hh] = 0.f;
   }
 
-  DeepRing ring{base, bars};  // the deep route's consumer side
   // the finished, masked scores of tile it into sc
   auto scores = [&](int it) {
-    if constexpr (kDeep) {
-      const int k0 = (it % ntiles) * BK;
-      load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
-      deep_products(sc, ring, 2 * deep_chunks(D), false);
-      mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
-    } else {
-      const int st = it % STAGES, k0 = (it % ntiles) * BK;
-      mbar_wait(full(st), (it / STAGES) & 1);
-      issue_scores<DP>(sc, sq, stage(st));
-      load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
-      wgmma_wait();
-      fence_operand(sc);
-      mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
-    }
+    const int st = it % STAGES, k0 = (it % ntiles) * BK;
+    mbar_wait(full(st), (it / STAGES) & 1);
+    issue_scores<DP>(sc, sq, stage(st));
+    load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
+    wgmma_wait();
+    fence_operand(sc);
+    mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
   };
-  if constexpr (!kDeep) mbar_wait(qbar, 0);
+  mbar_wait(qbar, 0);
   scores(0);
   for (int it = 0; it < n; ++it) {
     const int st = it % STAGES;
@@ -660,20 +698,12 @@ __global__ void __launch_bounds__(NT, DP < 128 && DP != DEEP ? 2 : 1) kernel(
     }
     if (pv) {
       to_a_fragments(sc, pa);  // rounded to bf16
-      if constexpr (kDeep) {  // the next item: this CTA's block of v
-        const int vs = ring.take();
-        issue_pv<DEEP_CHUNK>(acc, pa, ring.slot(vs));
-        wgmma_wait();
-        fence_regs(acc);
-        ring.release(vs);
-      } else {
-        issue_pv<DP>(acc, pa, stage(st) + 2 * TILE, Lay::vboxes(half));
-        wgmma_wait();
-        fence_regs(acc);
-      }
+      issue_pv<DP>(acc, pa, stage(st) + 2 * TILE, Lay::vboxes(half));
+      wgmma_wait();
+      fence_regs(acc);
     }
     if (it + 1 < n) scores(it + 1);  // before this stage is released: measured faster
-    if constexpr (!kDeep) mbar_arrive(empty(st));  // the products have read the stage
+    mbar_arrive(empty(st));  // the products have read the stage
   }
 
 #pragma unroll
@@ -695,6 +725,279 @@ __global__ void __launch_bounds__(NT, DP < 128 && DP != DEEP ? 2 : 1) kernel(
   }
 }
 
+// ---- the deep route's kernel ------------------------------------------------
+
+// The shared memory of fwd_deep: with kResident the chunks of q and pos_q;
+// the score ring (ScoreRing; kResident: KeyRing), the operand ring (the DW
+// blocks of v: 2 slots, kResident 1), two buffers of P, the rows' scales
+// (two buffers) and denominators, the mbarriers (score ring, block ring, P
+// full and empty x 2; kResident also q's) and 1 KB of slack for the
+// 1024-byte alignment: 214,896 bytes whatever D, kResident 231,288.
+template <bool kResident>
+struct DeepFwd {
+  using SRing = std::conditional_t<kResident, KeyRing, ScoreRing>;
+  using VRing = std::conditional_t<kResident, Ring<1, DW * CHUNK>, BlockRing>;
+  static constexpr int SSTAGES = kResident ? 4 : 3, VSTAGES = kResident ? 1 : 2;
+  static constexpr uint32_t OFF_S = kResident ? 2 * DEEP_RESIDENT_NK * CHUNK : 0;
+  static constexpr uint32_t OFF_V = OFF_S + SSTAGES * (kResident ? 1 : 2) * CHUNK;
+  static constexpr uint32_t OFF_P = OFF_V + VSTAGES * DW * CHUNK;
+  static constexpr uint32_t OFF_ROWS = OFF_P + 2 * PTILE;  // scale[2][64], l[64] fp32
+  static constexpr uint32_t OFF_BAR = OFF_ROWS + 3 * BQ * 4;
+  static constexpr int NBARS = 2 * SSTAGES + 2 * VSTAGES + 4 + kResident;
+  static constexpr size_t SMEM = OFF_BAR + 8 * NBARS + 1024;
+};
+
+// The deep route (DP == DEEP: any head dim D past 256, a multiple of 8) of
+// K1, K3 (lse not null) and K5 (kNorm), for one (b, h, 64-row q tile, group
+// of up to DW column blocks of 128): block x is q tile x / groups, group
+// x % groups, groups = ceil(nch / DW), nch = ceil(D / 128). Nothing is
+// resident; D streams through the score products in chunks of 128.
+//   - The producer warpgroup (setmaxnreg down to 32): warp 0 streams, for
+//     each key tile, the chunk pairs (q, k) of every chunk, then (pos_q,
+//     pos_k), into the score ring; warp 1 the group's blocks of v of each key
+//     tile (K5: of its second pass) into the block ring.
+//   - The builder warpgroup (setmaxnreg up to 160) builds each key tile's
+//     scores once for the whole group: the pairs' products in that order,
+//     each in a fresh accumulator (deep_products), then rel, the masks and
+//     the softmax as kernel<DP> does; it writes P, rounded to bf16, into one
+//     of two shared-memory buffers as wgmma's A operand, K1's per-row rescale
+//     factor beside it, behind fence.proxy.async (generic stores, then the
+//     async proxy reads them) and the buffer's "full" mbarrier; it waits for
+//     the buffer's "empty" mbarrier before writing it again, so it runs up to
+//     a tile ahead of the block warpgroups.
+//   - Block warpgroup w (of DW, 96 registers) owns column block DW group + w
+//     (none past nch: it then only keeps the barriers' counts): its 64 x 128
+//     fp32 accumulator, rescaled by K1's factors, += P . v from shared memory.
+// Every block of a query tile sees the same scores, m, l and P, bit for bit:
+// one builder computes them for a CTA's blocks, and the CTAs of one query
+// tile run the same instructions on the same chunks. Scores are built
+// ceil(nch / DW) times per (q tile, key tile): once at D 384, twice at 768.
+template <bool kNorm, typename TR, bool kResident>
+__global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
+    const __grid_constant__ Maps<DEEP_CHUNK, 5> maps, const TR* __restrict__ rel,
+    const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
+    int skip_max, int D) {
+  using L = DeepFwd<kResident>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  float* const rows = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::OFF_ROWS);
+  const uint32_t bars = base + L::OFF_BAR;
+  const uint32_t vbars = bars + 16 * L::SSTAGES, pbars = vbars + 16 * L::VSTAGES;
+  const uint32_t qbar = pbars + 32;  // kResident: q and pos_q landed
+  const uint32_t pbuf = base + L::OFF_P;
+  const int nk = deep_chunks(D), groups = (nk + DW - 1) / DW;
+  const int q0 = blockIdx.x / groups * BQ, grp = blockIdx.x % groups;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int blk0 = DW * grp, nb = min(DW, nk - blk0);  // this CTA's column blocks
+  const int ntiles = (S + BK - 1) / BK;
+  const int n = kNorm ? 2 * ntiles : ntiles;
+  const int wg = threadIdx.x / NC, tid = threadIdx.x % NC;
+  typename L::SRing sring{base + L::OFF_S, bars};
+  typename L::VRing vring{base + L::OFF_V, vbars};
+
+  if (threadIdx.x == 0) {
+    sring.init(NC);
+    vring.init(DW * NC);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(pbars + 8u * i, NC);             // full: the builder's threads
+      mbar_init(pbars + 8u * (2 + i), DW * NC);  // empty: the block warpgroups'
+    }
+    if (kResident) mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer warpgroup: one thread of warp 0 and one of warp 1
+    regs_dec<DEEP_PRODUCER_REGS>();
+    if (tid == 0) {
+      if (kResident) {  // q's chunks, then pos_q's, once
+        mbar_expect_tx(qbar, 2 * nk * CHUNK);
+        for (int c = 0; c < 2 * nk; ++c) load_chunk(base + c * CHUNK, maps, c / nk, qbar, c % nk, q0, bh);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int k0 = (it % ntiles) * BK;
+        for (int c = 0; c < 2 * nk; ++c) {  // q . k chunk by chunk, then pos_q . pos_k
+          const int i = c < nk ? 0 : 1;
+          if (kResident) {
+            const int st = sring.put(CHUNK);
+            load_chunk(sring.slot(st), maps, i + 2, sring.full(st), c % nk, k0, bh);
+          } else {
+            const int st = sring.put(2 * CHUNK);
+            load_chunk(sring.slot(st), maps, i, sring.full(st), c % nk, q0, bh);
+            load_chunk(sring.slot(st) + CHUNK, maps, i + 2, sring.full(st), c % nk, k0, bh);
+          }
+        }
+      }
+    } else if (tid == 32) {
+      for (int it = kNorm ? ntiles : 0; it < n; ++it) {  // the group's blocks of v
+        const int st = vring.put(nb * CHUNK), k0 = (it % ntiles) * BK;
+        for (int w = 0; w < nb; ++w)
+          load_chunk(vring.slot(st) + w * CHUNK, maps, 4, vring.full(st), blk0 + w, k0, bh);
+      }
+    }
+    return;  // no block-wide barrier follows
+  }
+
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);  // rows r0 and r0 + 8 of the tile
+  const int cq = 2 * (lane & 3);                  // columns 8 j + cq and + 1
+  const int t0 = q0 + r0;
+  auto pfull = [=](int i) { return pbars + 8u * i; };
+  auto pempty = [=](int i) { return pbars + 8u * (2 + i); };
+
+  if (wg == 1) {  // the builder
+    regs_inc<DEEP_BUILDER_REGS>();
+    const uint8_t* kp = kpad + (long long)b * S;
+    const TR* relh = rel ? rel + h * rel_hs : nullptr;
+    float m[2], l[2], rl[2], sc[32];
+    TileBias<TR> bias;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m[hh] = (!kNorm && skip_max) ? 0.f : -CUDART_INF_F;
+      l[hh] = 0.f;
+      rl[hh] = 0.f;
+    }
+    int np = 0;  // P tiles written
+    if (kResident) mbar_wait(qbar, 0);
+    for (int it = 0; it < n; ++it) {
+      const int k0 = (it % ntiles) * BK;
+      const bool pv = !kNorm || it >= ntiles;
+      load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
+      deep_products<kResident>(sc, sring, 2 * nk, base);
+      mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
+      float scale[2] = {1.f, 1.f};
+      if (!kNorm) {  // K1: the running max; l rescaled to it (acc by the block warpgroups)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float tmax = -CUDART_INF_F;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            tmax = fmaxf(tmax, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+          const float mnew = skip_max ? 0.f : fmaxf(m[hh], quad_max(tmax));
+          scale[hh] = skip_max ? 1.f : fexp(m[hh] - mnew);
+          l[hh] *= scale[hh];
+          m[hh] = mnew;
+        }
+        // e = exp(w - m), rounded to bf16 for P.v
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float rs = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * hh + e;
+              sc[i] = fexp(sc[i] - m[hh]);
+              rs += sc[i];  // the denominator sums the unrounded e, as the TPU kernel does
+            }
+          l[hh] += quad_sum(rs);
+        }
+      } else if (!pv) {  // K5 pass 1: each row's max and denominator
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float tmax = -CUDART_INF_F;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            tmax = fmaxf(tmax, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+          const float mnew = fmaxf(m[hh], quad_max(tmax));
+          float rs = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) rs += fexp(sc[4 * j + 2 * hh + e] - mnew);
+          l[hh] = l[hh] * fexp(m[hh] - mnew) + quad_sum(rs);
+          m[hh] = mnew;
+        }
+        if (it == ntiles - 1) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            if (Sp > S) {  // the wrapper's Sp - S padded keys: score -1e9, v zero
+              const float mnew = fmaxf(m[hh], NEG);
+              l[hh] = l[hh] * fexp(m[hh] - mnew) + (float)(Sp - S) * fexp(NEG - mnew);
+              m[hh] = mnew;
+            }
+            rl[hh] = 1.f / l[hh];
+          }
+        }
+      } else {  // K5 pass 2: p = exp(w - m) / l, by a reciprocal and one correction step
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1;
+          const float e = fexp(sc[i] - m[hh]);
+          const float p = e * rl[hh];
+          sc[i] = fmaf(fmaf(-p, l[hh], e), rl[hh], p);
+        }
+      }
+      if (pv) {  // P (and K1's rescale) for the block warpgroups
+        const int i = np & 1;
+        if (np >= 2) mbar_wait(pempty(i), ((np >> 1) - 1) & 1);
+        store_a_tile(pbuf + i * PTILE, sc, r0, cq);  // rounded to bf16
+        if (!kNorm && (lane & 3) == 0) {
+          rows[BQ * i + r0] = scale[0];
+          rows[BQ * i + r0 + 8] = scale[1];
+        }
+        fence_async_smem();  // the generic stores, then wgmma's reads
+        mbar_arrive(pfull(i));
+        ++np;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = t0 + 8 * hh;
+      const float denom = kNorm ? 1.f : (skip_max ? fmaxf(l[hh], 1e-38f) : l[hh]);
+      if ((lane & 3) == 0) rows[2 * BQ + r0 + 8 * hh] = denom;
+      // K3: the row's logsumexp, by the first group's builder
+      if (!kNorm && lse && grp == 0 && (lane & 3) == 0 && t < Tq)
+        lse[(long long)bh * Tq + t] = skip_max ? logf(denom) : m[hh] + logf(denom);
+    }
+    named_sync(2, (1 + DW) * NC);  // the denominators, to the block warpgroups
+    return;
+  }
+
+  // a block warpgroup: column block blk0 + w, if it exists
+  const int w = wg - 2;
+  const bool has = w < nb;
+  const int c0 = DEEP_CHUNK * (blk0 + w);  // its columns of v and out
+  float acc[DEEP_CHUNK / 2];
+#pragma unroll
+  for (int i = 0; i < DEEP_CHUNK / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < ntiles; ++it) {  // the key tiles with P.v (K5: the second pass)
+    const int i = it & 1;
+    mbar_wait(pfull(i), (it >> 1) & 1);
+    if (!kNorm) {  // K1: acc rescaled to the row's new max
+      const float s0 = rows[BQ * i + r0], s1 = rows[BQ * i + r0 + 8];
+#pragma unroll
+      for (int j = 0; j < DEEP_CHUNK / 8; ++j) {
+        acc[4 * j] *= s0;
+        acc[4 * j + 1] *= s0;
+        acc[4 * j + 2] *= s1;
+        acc[4 * j + 3] *= s1;
+      }
+    }
+    const int vs = vring.take();
+    if (has) block_products<1>(acc, pbuf + i * PTILE, vring.slot(vs) + w * CHUNK);
+    vring.release(vs);
+    mbar_arrive(pempty(i));
+  }
+  named_sync(2, (1 + DW) * NC);
+  if (!has) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + 8 * hh;
+    if (t >= Tq) continue;
+    const float denom = rows[2 * BQ + r0 + 8 * hh];
+    __nv_bfloat16* o = out + ((long long)bh * Tq + t) * D + c0 + cq;
+#pragma unroll
+    for (int j = 0; j < DEEP_CHUNK / 8; ++j) {
+      if (c0 + 8 * j >= D) break;  // the zero-filled columns past D
+      const float a = acc[4 * j + 2 * hh], c = acc[4 * j + 2 * hh + 1];
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          kNorm ? __floats2bfloat162_rn(a, c) : __floats2bfloat162_rn(a / denom, c / denom);
+    }
+  }
+}
+
 // ---- host side -------------------------------------------------------------
 
 // The tensor maps of N bf16 streams [B*H, rows[i], D] in 64-row boxes of HeadTile<DP>.
@@ -709,32 +1012,85 @@ inline int stream_maps(Maps<DP, N>& maps, const void* const (&ptrs)[N], const in
   return 0;
 }
 
+// 0 where a deep kernel has the registers at launch that its setmaxnreg
+// budget assumes (DEEP_LAUNCH_REGS: the builder's increase waits for
+// registers that the producer's decrease frees, so any other count could
+// hang it), else cudaErrorInvalidConfiguration: the launch is refused.
+inline int deep_regs_ok(const void* fn) {
+  cudaFuncAttributes attr;
+  if (const cudaError_t err = cudaFuncGetAttributes(&attr, fn)) return (int)err;
+  return attr.numRegs == DEEP_LAUNCH_REGS ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+// Launches the deep route (fwd_deep; q and pos_q resident where D has at
+// most DEEP_RESIDENT_NK chunks) on `stream`, the arguments as launch's.
+template <bool kNorm, typename TR, bool kResident>
+int launch_deep_as(const void* q, const void* pq, const void* k, const void* pk, const void* v,
+                const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq,
+                int S, int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
+                cudaStream_t stream) {
+  Maps<DEEP_CHUNK, 5> maps;
+  if (const int err = stream_maps<DEEP_CHUNK, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
+                                                 (long long)B * H, D))
+    return err;
+  const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % (2 * sizeof(TR)) == 0 &&
+                      rel_rs % 2 == 0 && rel_hs % 2 == 0 && S % 2 == 0;
+  const void* fn = (const void*)fwd_deep<kNorm, TR, kResident>;
+  constexpr size_t smem = DeepFwd<kResident>::SMEM;
+  static SmemOptIn opt_in;
+  if (const int err = opt_in.ensure(fn, smem)) return err;
+  if (const int err = deep_regs_ok(fn)) return err;
+  const int groups = (deep_chunks(D) + DW - 1) / DW;
+  const dim3 grid((Tq + BQ - 1) / BQ * groups, H, B);
+  fwd_deep<kNorm, TR, kResident><<<grid, DEEP_THREADS, smem, stream>>>(
+      maps, static_cast<const TR*>(rel), static_cast<const uint8_t*>(kpad),
+      static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp, rel_hs, rel_rs, rel_vec, causal,
+      skip_max, D);
+  return (int)cudaGetLastError();
+}
+
+template <bool kNorm, typename TR>
+int launch_deep(const void* q, const void* pq, const void* k, const void* pk, const void* v,
+                const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq,
+                int S, int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
+                cudaStream_t stream) {
+  if (deep_chunks(D) <= DEEP_RESIDENT_NK)
+    return launch_deep_as<kNorm, TR, true>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq, S,
+                                           Sp, rel_hs, rel_rs, causal, skip_max, D, stream);
+  return launch_deep_as<kNorm, TR, false>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq, S, Sp,
+                                          rel_hs, rel_rs, causal, skip_max, D, stream);
+}
+
 // Launches the core on `stream` for bf16 streams [B, H, Tq or S, D] (16-byte
-// aligned, D <= DP a multiple of 8) and rel of type TR (or null); K1's walk
-// also writes the fp32 logsumexp [B, H, Tq] where lse is not null (K3).
-// Returns a cudaError_t code.
+// aligned, D <= DP a multiple of 8; the deep route past 256: launch_deep) and
+// rel of type TR (or null); K1's walk also writes the fp32 logsumexp
+// [B, H, Tq] where lse is not null (K3). Returns a cudaError_t code.
 template <int DP, bool kNorm, typename TR>
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
            const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq, int S,
            int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
            cudaStream_t stream) {
-  constexpr int TW = tile_dp(DP);
-  Maps<TW, 5> maps;
-  if (const int err = stream_maps<TW, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
-                                         (long long)B * H, D))
-    return err;
-  // a pair of rel columns is one load where base, rows, heads and S keep it aligned
-  const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % (2 * sizeof(TR)) == 0 &&
-                      rel_rs % 2 == 0 && rel_hs % 2 == 0 && S % 2 == 0;
-  constexpr size_t smem = Layout<DP>::SMEM_BYTES;
-  static SmemOptIn opt_in;
-  if (const int err = opt_in.ensure((const void*)kernel<DP, kNorm, TR>, smem)) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ * Layout<DP>::nch(D), H, B);
-  kernel<DP, kNorm, TR><<<grid, NT, smem, stream>>>(
-      maps, static_cast<const TR*>(rel),
-      static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp,
-      rel_hs, rel_rs, rel_vec, causal, skip_max, D);
-  return (int)cudaGetLastError();
+  if constexpr (DP == DEEP) {
+    return launch_deep<kNorm, TR>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq, S, Sp, rel_hs,
+                                  rel_rs, causal, skip_max, D, stream);
+  } else {
+    Maps<DP, 5> maps;
+    if (const int err = stream_maps<DP, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
+                                           (long long)B * H, D))
+      return err;
+    // a pair of rel columns is one load where base, rows, heads and S keep it aligned
+    const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % (2 * sizeof(TR)) == 0 &&
+                        rel_rs % 2 == 0 && rel_hs % 2 == 0 && S % 2 == 0;
+    constexpr size_t smem = Layout<DP>::SMEM_BYTES;
+    static SmemOptIn opt_in;
+    if (const int err = opt_in.ensure((const void*)kernel<DP, kNorm, TR>, smem)) return err;
+    const dim3 grid((Tq + BQ - 1) / BQ * Layout<DP>::NCH, H, B);
+    kernel<DP, kNorm, TR><<<grid, NT, smem, stream>>>(
+        maps, static_cast<const TR*>(rel),
+        static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp,
+        rel_hs, rel_rs, rel_vec, causal, skip_max, D);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace sm90

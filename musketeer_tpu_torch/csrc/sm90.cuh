@@ -160,6 +160,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d += A . B, A K-major and B MN-major (the transpose bit) in shared memory:
+// the deep route's P . v, with P written to shared memory by another warpgroup
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MK_WG_D
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : MK_WG_ACC(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// A warpgroup's per-thread register budget moved down to N (the producer) or
+// up to N (a consumer), out of the CTA's pool fixed at launch; every warp of
+// the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // round to nearest even, lo in the low half (the smaller k index)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -127,8 +127,9 @@ def stream_of(t: torch.Tensor) -> int:
 # (``head_instance``), its tiles' columns past D zeros; any D past it runs on
 # the deep route (``DEEP``): D streams through the products in chunks of
 # ``DEEP_CHUNK`` columns (``deep_chunks``; the last zero-filled past D) and
-# each output's columns split into blocks of ``DEEP_CHUNK`` over the grid, so
-# that a CTA's shared memory and registers do not grow with D (the wrappers
+# each output's columns split into blocks of ``DEEP_CHUNK`` (up to three a CTA
+# in the bf16 K1/K3/K4/K5 kernels), so that a CTA's shared memory and
+# registers do not grow with D (the wrappers
 # count those launches in ``.deep``). The wrappers hand the kernels a D that
 # is a multiple of 8 (K6's int8 cache: of 16), copying any other into a
 # zero-padded buffer first (``pad_head``). Past ``SPLIT_HEAD_DIM`` the
@@ -169,8 +170,9 @@ def col_halves(head_dim: int) -> int:
     K4 split a head dim's outputs into, one block per CTA over the grid: 1 up
     to ``SPLIT_HEAD_DIM``, 2 halves of 128 up to ``MAX_INSTANCE``
     (csrc/flash_fwd_sm90.cuh::Layout::NCH), and past it ``deep_chunks``
-    blocks of 128 (``Layout<DEEP>::nch``; the fp32 kernels of the deep route,
-    csrc/flash_deep.cuh, split alike)."""
+    blocks of 128 (the bf16 kernels of the deep route group up to three in a
+    CTA, ``flash_attention_infer.deep_groups``; the fp32 ones,
+    csrc/flash_deep.cuh, take one a CTA)."""
     dp = head_instance(head_dim)
     if dp == DEEP:
         return deep_chunks(head_dim)

@@ -30,7 +30,8 @@ tensor-core core that K1 also uses (``csrc/flash_fwd_sm90.cuh``), fp32 on the
 FMA kernel, both compiled at the tile widths ``_build.HEAD_DIMS`` (32, 64,
 80, 128, 192, 256): a head dim up to 256 runs on the smallest that covers
 it, one past 256 on the deep route, the head dim streamed through the
-products in chunks of 128 (``csrc/flash_fwd_sm90.cuh::Layout<DEEP>``,
+products in chunks of 128, the output in blocks of 128 sharing each score
+tile three a CTA (``csrc/flash_fwd_sm90.cuh::fwd_deep``,
 ``csrc/flash_deep.cuh``; counted in ``.deep``), one that is not a multiple
 of 8 on zero-padded copies (counted in ``.padded``), one past 128 in bf16
 with the output's columns split into blocks of 128 (counted in

@@ -42,9 +42,10 @@ the bf16 launches of both split each output's columns into halves of 128
 over the grid (counted in ``.col_split``). Any head dim past 256 runs on the
 deep route (``_build.DEEP``; counted in ``.deep``): the head dim streamed
 through the products in chunks of 128 and each output's columns in blocks
-of 128 over the grid (``csrc/flash_fwd_sm90.cuh::Layout<DEEP>``,
-``csrc/flash_bwd_sm90.cuh``'s ``bwd_kv_deep`` and ``bwd_q_deep``, five
-launches; fp32 ``csrc/flash_deep.cuh``).
+of 128, up to three a CTA, whose builder warpgroup builds each score (and
+dP) tile once for them (``csrc/flash_fwd_sm90.cuh::fwd_deep``,
+``csrc/flash_bwd_sm90.cuh``'s ``bwd_kv_deep`` and ``bwd_q_deep``, two
+launches; ``flash_attention_infer.deep_plan``; fp32 ``csrc/flash_deep.cuh``).
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ on the FMA core (``csrc/flash_fwd.cuh``), each compiled at the tile widths
 ``_build.HEAD_DIMS`` (32, 64, 80, 128, 192, 256): a head dim of 1 to 256
 runs on the smallest that covers it, any head dim past 256 on the deep
 route (``_build.DEEP``: the head dim streamed through the products in
-chunks of 128, ``csrc/flash_fwd_sm90.cuh::Layout<DEEP>`` and
+chunks of 128, the output in blocks of 128, up to three a CTA sharing each
+score tile, ``csrc/flash_fwd_sm90.cuh::fwd_deep`` (``deep_plan``) and
 ``csrc/flash_deep.cuh``; counted in ``.deep``), one that is not a multiple
 of 8 on zero-padded copies of the streams (``_build.pad_head``; counted in
 ``.padded``), one past 128 with the output's columns split into blocks of
@@ -45,6 +46,95 @@ _SIG = (_build.INT,) + (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2
     + (_build.INT,) * 3 + (_build.PTR,)
 
 
+# The deep route's CTA (csrc/flash_fwd_sm90.cuh: fwd_deep; flash_bwd_sm90.cuh:
+# bwd_kv_deep, bwd_q_deep): a producer warpgroup, a builder warpgroup that
+# builds each score tile (K4: S and dP) once, and ``DEEP_BLOCKS`` block
+# warpgroups, one per column block of 128 a CTA owns (``DW``), fed by a ring
+# of ``DEEP_SCORE_STAGES`` slots of two 64 x 128 bf16 chunks (a score
+# product's pair) and one of ``DEEP_BLOCK_STAGES`` slots of ``DEEP_BLOCKS``
+# chunks (the blocks' operands), with P (K4: P^T or dW^T; dW's high and low
+# parts) handed over in two buffers of 64 x 64 bf16 tiles. Where the head dim
+# has at most ``DEEP_RESIDENT_NK`` chunks (D <= 384) the forward keeps q's and
+# pos_q's chunks resident, streams the key side alone through a ring of
+# ``DEEP_KEY_STAGES`` single chunks, and its block ring is one slot deep.
+DEEP_BLOCKS = 3
+DEEP_SCORE_STAGES = 3
+DEEP_BLOCK_STAGES = 2
+DEEP_RESIDENT_NK = 3
+DEEP_KEY_STAGES = 4
+_CHUNK = 64 * _build.DEEP_CHUNK * 2  # bytes of a 64-row chunk of 128 bf16 columns
+_PTILE = 64 * 64 * 2  # bytes of a 64 x 64 bf16 A tile
+_REL_TILE = 64 * 72 * 2  # a staged rel tile of K4's key-major kernel
+_DEEP_BARS = 2 * DEEP_SCORE_STAGES + 2 * DEEP_BLOCK_STAGES + 4  # the rings', P full/empty x 2
+
+
+def _deep_smem(kind: str) -> int:
+    """Shared memory of a deep CTA (``DeepFwd<kResident>::SMEM``,
+    ``DeepBwd<kQ>::SMEM``): the two rings, two A buffers (one tile;
+    ``"bwd_q"``: two), the forward's rows (two buffers of 64 rescale factors,
+    64 denominators, fp32) or the key-major kernel's rel tile, the mbarriers
+    and 1 KB of alignment slack; ``"fwd_resident"`` q's and pos_q's chunks,
+    the key ring, one block slot and q's mbarrier in place of the rings."""
+    if kind == "fwd_resident":
+        return (2 * DEEP_RESIDENT_NK * _CHUNK + DEEP_KEY_STAGES * _CHUNK + DEEP_BLOCKS * _CHUNK
+                + 2 * _PTILE + 3 * 64 * 4 + 8 * (2 * DEEP_KEY_STAGES + 2 + 4 + 1) + 1024)
+    rings = DEEP_SCORE_STAGES * 2 * _CHUNK + DEEP_BLOCK_STAGES * DEEP_BLOCKS * _CHUNK
+    extra = {"fwd": 2 * _PTILE + 3 * 64 * 4, "bwd_kv": 2 * _PTILE + _REL_TILE,
+             "bwd_q": 2 * 2 * _PTILE}[kind]
+    return rings + extra + 8 * _DEEP_BARS + 1024
+
+
+def deep_groups(D: int) -> list:
+    """The column blocks of 128 each CTA of the deep route owns at head dim D,
+    group by group: ``DEEP_BLOCKS`` each, the last group the rest."""
+    nch = _build.deep_chunks(D)
+    return [min(DEEP_BLOCKS, nch - j) for j in range(0, nch, DEEP_BLOCKS)]
+
+
+def deep_plan(D: int, kernel: str = "K1", B: int = 16, H: int = 1, T: int = 908,
+              S: int = 908) -> dict:
+    """The deep route's plan for ``kernel`` ("K1" (K3 alike), "K5" or "K4") at
+    head dim D (past 256) and streams [B, H, T or S, D]: the column blocks a
+    CTA owns (``blocks``, ``DEEP_BLOCKS``) and the last group's
+    (``last_blocks``), the CTAs per query tile (K4: per key tile of the
+    key-major launch, over its three gradients, and per q tile of the
+    query-major one, over two), how many times each (q tile, key tile)'s
+    score tile is built (``score_builds``; K5 two passes; K4 S over its five
+    gradients and dP over the four that need it, ``dp_builds``), against one
+    block a CTA (``*_one_block``), whether the forward keeps q and pos_q
+    resident (``resident``), the bytes the producers stream into shared
+    memory per call (``bytes``; one block a CTA, nothing resident:
+    ``bytes_one_block``), and the shared memory of a CTA (``smem``; K4 the
+    larger of its kernels')."""
+    groups, nch = deep_groups(D), _build.deep_chunks(D)
+    G, nq, nk = len(groups), -(-T // 64), -(-S // 64)
+    pair = 2 * 2 * nch  # the chunks of one score tile's pairs: (q, k), then (pos_q, pos_k)
+    out = dict(blocks=DEEP_BLOCKS, last_blocks=groups[-1], nch=nch)
+    if kernel in ("K1", "K5"):
+        passes, resident = (2 if kernel == "K5" else 1), nch <= DEEP_RESIDENT_NK
+        if resident:  # q's and pos_q's chunks once, the key side's per key tile
+            chunks = nq * sum(2 * nch + nk * (passes * pair // 2 + nb) for nb in groups)
+        else:
+            chunks = nq * sum(nk * (passes * pair + nb) for nb in groups)
+        one = nq * nch * nk * (passes * pair + 1)
+        out.update(ctas_per_tile=G, score_builds=passes * G, score_builds_one_block=passes * nch,
+                   resident=resident, smem=_deep_smem("fwd_resident" if resident else "fwd"))
+    elif kernel == "K4":
+        dp = 2 * nch  # the chunks of dP's pairs: (v, dO)
+        kv = nk * sum(nq * (pair + (dp if g else 0) + nb) for g in range(3) for nb in groups)
+        qm = nq * 2 * sum(nk * (pair + dp + nb) for nb in groups)
+        chunks = kv + qm
+        one = nk * nch * nq * (3 * pair + 2 * dp + 3) + nq * nch * nk * 2 * (pair + dp + 1)
+        out.update(ctas_per_key_tile=3 * G, ctas_per_q_tile=2 * G, score_builds=5 * G,
+                   dp_builds=4 * G, score_builds_one_block=5 * nch, dp_builds_one_block=4 * nch,
+                   smem=max(_deep_smem("bwd_kv"), _deep_smem("bwd_q")),
+                   smem_kv=_deep_smem("bwd_kv"), smem_q=_deep_smem("bwd_q"))
+    else:
+        raise ValueError(f"deep_plan: kernel {kernel!r} not in ('K1', 'K5', 'K4')")
+    out.update(bytes=B * H * chunks * _CHUNK, bytes_one_block=B * H * one * _CHUNK)
+    return out
+
+
 def sm90_smem(D: int, bwd: bool = False) -> int:
     """Shared memory of a CTA of the tensor-core attention core at head dim D,
     on its instance DP (``_build.head_instance``; ``Layout<DP>::SMEM_BYTES``
@@ -54,14 +144,12 @@ def sm90_smem(D: int, bwd: bool = False) -> int:
     of stages (3 up to DP 128; past it 2, K4's 1) of k, pos_k and v (past
     128 the CTA's 128 columns of v; K4's three whole tiles), the mbarriers,
     1 KB of alignment slack; K4 also each stage's lse and dsum rows and two
-    staged rel tiles of 64 rows of 72 bf16. On the deep route (``Layout<DEEP>``,
-    ``BwdDeep``), whatever D: a ring of 6 slots of two 64 x 128 chunks, its
-    mbarriers (the forward also the unused q barrier), the slack; K4 also
-    the two rel tiles."""
+    staged rel tiles of 64 rows of 72 bf16. On the deep route the deep
+    plan's (``deep_plan``'s ``smem``: the forward's with q resident up to D
+    384; K4 the larger of its two kernels')."""
     dp = _build.head_instance(D)
     if dp == _build.DEEP:
-        ring, rel = 6 * 2 * 64 * _build.DEEP_CHUNK * 2, 2 * 64 * 72 * 2
-        return ring + rel + 8 * 2 * 6 + 1024 if bwd else ring + 8 * (2 * 6 + 1) + 1024
+        return deep_plan(D, "K4" if bwd else "K1")["smem"]
     tile, split = 64 * dp * 2, dp > _build.SPLIT_HEAD_DIM
     if not bwd:
         stages, vtile = (2, 64 * 128 * 2) if split else (3, tile)

@@ -4,8 +4,11 @@ Past ``_build.MAX_INSTANCE`` (256) the attention kernels (K1, K3, K4, K5, K6,
 K7) run on the deep route: the head dim streams through every product in
 chunks of 128 columns (the last zero-filled past D), the score (and K4's dP)
 summed over the chunks in the k-step order of one whole-width product, and
-each output's columns split into blocks of 128 over the grid, every block
-computing the scores again. So a score is the sum a whole-width tile of
+each output's columns split into blocks of 128. The bf16 K1/K3/K5 and K4
+kernels group up to three blocks in a CTA, whose builder warpgroup builds
+each score tile (K4: S and dP) once for all of them
+(``flash_attention_infer.deep_plan``); K6 and K7 compute the scores again in
+every block. So a score is the sum a whole-width tile of
 ``deep_chunks(D) * 128`` columns would give, and every output element the
 sum of its block alone. The kernels run only on the card; here, on the same
 seeded numpy inputs:
@@ -24,12 +27,17 @@ seeded numpy inputs:
   decode steps, and the joint step's loss and gradients to the bounds of
   ``test_torch_port_head_dim.py``; each JAX program compiled once;
 - (iv) with no card: the route, chunk count and column blocks of every head
-  dim 257 to 1280, and the shared-memory planners at chip_smoke.py phase
-  29's serving and training shapes, their bytes against the layouts of the
-  CUDA sources.
+  dim 257 to 1280; the groups of column blocks a CTA owns (D 384, 520,
+  1280, the last group ragged); the deep plan of K1, K5 and K4 at every such head dim
+  (blocks a CTA owns, CTAs per tile, score and dP builds per tile, bytes
+  streamed at the caption and training shapes); and the shared-memory
+  planners at chip_smoke.py phase 29's serving and training shapes, their
+  bytes against the layouts of the CUDA sources.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -109,6 +117,23 @@ def test_k1_walk_past_256_matches_jax_kernel_and_its_column_blocks(D):
 
     whole = torch.cat([block(CHUNK * c) for c in range(nch)], -1)
     assert torch.equal(whole[..., :D], out[..., :D])
+
+
+# a CTA's group of column blocks sharing one score tile: D 384 one group of
+# three, 520 three and a ragged two, 1280 three groups of three and one of one
+GROUPS = {384: [3], 520: [3, 2], 1280: [3, 3, 3, 1]}
+
+
+@pytest.mark.parametrize("D", list(GROUPS))
+def test_deep_groups_give_each_cta_its_column_blocks(D):
+    """Each CTA of the deep route owns a group of column blocks
+    (``deep_groups``), the last group ragged; the plans of K1, K5 and K4 give
+    that many CTAs per tile and the last group's blocks."""
+    assert k1.deep_groups(D) == GROUPS[D]
+    for kernel in ("K1", "K5", "K4"):
+        p = k1.deep_plan(D, kernel)
+        ctas = p["ctas_per_q_tile"] // 2 if kernel == "K4" else p["ctas_per_tile"]
+        assert (ctas, p["last_blocks"]) == (len(GROUPS[D]), GROUPS[D][-1]), kernel
 
 
 @pytest.mark.parametrize("D", list(WALKS))
@@ -239,19 +264,45 @@ def test_head_dims_past_256_route_chunks_and_column_blocks():
 
 def test_deep_shared_memory_plans_match_the_cuda_layouts():
     """The deep route's planners at phase 29's shapes, against the layouts of
-    the CUDA sources, whatever D: K1/K3/K5 (``Layout<DEEP>``: a ring of 6
-    slots of two 64 x 128 bf16 chunks, 13 mbarriers, the slack), K4
-    (``BwdDeep``: the ring, two staged rel tiles, 12 mbarriers), K6 and K7's
-    cross-attentions at the serving shape (B16 Kb5 S908: whole rows on the
-    instance 128's ring of 8) and at Kb16 S1772 (the score-chunked route),
-    and the fp32 cross-attention's chunk (64 dims of q, a 128-column block)."""
-    ring, bars, slack, rel = 6 * 2 * 64 * 128 * 2, 8, 1024, 2 * 64 * 72 * 2
-    fwd, bwd = ring + bars * 13 + slack, ring + rel + bars * 12 + slack
-    assert (fwd, bwd) == (197736, 216160)
+    the CUDA sources: K1/K3/K5 (``DeepFwd<false>``: a score ring of 3 slots
+    of two 64 x 128 bf16 chunks, a block ring of 2 slots of three, two 64 x
+    64 bf16 P tiles, 192 fp32 rows, 14 mbarriers, the slack; up to 3 chunks,
+    D <= 384, ``DeepFwd<true>``: q's and pos_q's 6 chunks resident, a key
+    ring of 4 single chunks, one block slot, 15 mbarriers), K4's
+    key-major kernel (``DeepBwd<false>``: the rings, two P tiles, one staged
+    rel tile) and query-major one (``DeepBwd<true>``: the rings, two buffers
+    of dW's two parts), the planner's constants as the sources state them;
+    K6 and K7's cross-attentions at the serving shape (B16 Kb5 S908: whole
+    rows on the instance 128's ring of 8) and at Kb16 S1772 (the
+    score-chunked route), and the fp32 cross-attention's chunk (64 dims of
+    q, a 128-column block)."""
+    csrc = Path(k1.__file__).resolve().parent.parent / "csrc"
+    fwd_src = (csrc / "flash_fwd_sm90.cuh").read_text()
+    assert int(re.search(r"constexpr int DW = (\d+);", fwd_src)[1]) == k1.DEEP_BLOCKS
+    assert int(re.search(r"using ScoreRing = Ring<(\d+), 2 \* CHUNK>;", fwd_src)[1]) == \
+        k1.DEEP_SCORE_STAGES
+    assert int(re.search(r"using BlockRing = Ring<(\d+), DW \* CHUNK>;", fwd_src)[1]) == \
+        k1.DEEP_BLOCK_STAGES
+    assert int(re.search(r"constexpr int DEEP_RESIDENT_NK = (\d+);", fwd_src)[1]) == \
+        k1.DEEP_RESIDENT_NK
+    assert int(re.search(r"using KeyRing = Ring<(\d+), CHUNK>;", fwd_src)[1]) == \
+        k1.DEEP_KEY_STAGES
+    chunk, ptile, bars, slack, rel = 64 * 128 * 2, 64 * 64 * 2, 8 * 14, 1024, 64 * 72 * 2
+    rings = 3 * 2 * chunk + 2 * 3 * chunk
+    fwd = rings + 2 * ptile + 3 * 64 * 4 + bars + slack
+    fwd_res = 6 * chunk + 4 * chunk + 3 * chunk + 2 * ptile + 3 * 64 * 4 + 8 * 15 + slack
+    assert fwd_res == 231288
+    kv, qm = rings + 2 * ptile + rel + bars + slack, rings + 2 * 2 * ptile + bars + slack
+    assert (fwd, kv, qm) == (214896, 223344, 230512)
+    bwd = max(kv, qm)
+    assert (k1.deep_plan(384, "K4")["smem_kv"], k1.deep_plan(384, "K4")["smem_q"]) == (kv, qm)
     sp, kb = 960, 5  # S 908 in 64-key tiles; the serving beams
     for D in DEEP_DIMS:
-        assert k1.sm90_smem(D) == fwd <= _build.SMEM_MAX, D
+        want = fwd_res if D <= 3 * 128 else fwd
+        assert k1.sm90_smem(D) == want <= _build.SMEM_MAX, D
         assert k1.sm90_smem(D, bwd=True) == bwd <= _build.SMEM_MAX, D
+        assert k1.deep_plan(D, "K5")["smem"] == want, D
+        assert k1.deep_plan(D, "K1")["resident"] == (D <= 384), D
         assert k7.tile_width(_build.head_instance(D)) == 128 and \
             k7.cross_stages(_build.head_instance(D)) == 8, D
         tile = 64 * 128 * 2
@@ -268,3 +319,38 @@ def test_deep_shared_memory_plans_match_the_cuda_layouts():
         fixed = 4 * (16 * 64 + 2 * 16 * 128 + 2 * 16)
         assert k7.fma_cross_chunk(16, 1772, D) == 1772 and \
             fixed + 4 * 16 * 1772 <= _build.SMEM_MAX, D
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K4"])
+def test_deep_plan_builds_each_score_tile_once_for_several_blocks(kernel):
+    """At every head dim 257 to 1280 the deep route's CTA owns up to three
+    column blocks (the last group the rest) and builds each (q tile, key
+    tile)'s score tile ceil(nch / 3) times, K5 in each of its two passes; K4
+    builds S ceil(nch / 3) times for each of its five gradients and dP for
+    the four that need it: against nch times each on one block a CTA. So
+    the bytes streamed into shared memory drop: at the caption shape (B16
+    T=S=908, ~768 / D heads; K4 at the training shape B4 T=S=980) by the
+    ratios the plan gives, for K1 1.1 GB against 4.6 at 2 heads of 384 (q
+    and pos_q resident too) and 3.2 against 8.8 at 1 head of 768."""
+    for D in range(257, 1281, 8):
+        nch = -(-D // 128)
+        G = -(-nch // 3)
+        H = max(1, 768 // D)
+        shape = dict(B=4, T=980, S=980) if kernel == "K4" else dict(B=16, T=908, S=908)
+        p = k1.deep_plan(D, kernel, H=H, **shape)
+        assert p["blocks"] == 3 and p["nch"] == nch and p["last_blocks"] == nch - 3 * (G - 1), D
+        assert sum(k1.deep_groups(D)) == nch and len(k1.deep_groups(D)) == G, D
+        assert p["smem"] <= _build.SMEM_MAX, D
+        if kernel == "K4":
+            assert (p["ctas_per_key_tile"], p["ctas_per_q_tile"]) == (3 * G, 2 * G), D
+            assert (p["score_builds"], p["dp_builds"]) == (5 * G, 4 * G), D
+            assert (p["score_builds_one_block"], p["dp_builds_one_block"]) == (5 * nch, 4 * nch)
+        else:
+            passes = 2 if kernel == "K5" else 1
+            assert p["ctas_per_tile"] == G and p["score_builds"] == passes * G, D
+            assert p["score_builds_one_block"] == passes * nch, D
+        assert p["bytes"] < p["bytes_one_block"], D  # nch >= 3 past 256
+    gb = lambda D, H: (round(k1.deep_plan(D, "K1", H=H)["bytes"] / 1e9, 1),
+                       round(k1.deep_plan(D, "K1", H=H)["bytes_one_block"] / 1e9, 1))
+    if kernel == "K1":
+        assert gb(384, 2) == (1.1, 4.6) and gb(768, 1) == (3.2, 8.8)
