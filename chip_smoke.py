@@ -22,14 +22,16 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --deep-heads-only  # phases 1, 2 and 29 (head dims 264 to 1280)
     python3 chip_smoke.py --k4-only      # phases 1, 2 and K3/K4 at head dims 64 and 80, timed
     python3 chip_smoke.py --instances-only  # phases 1, 2 and today's instances' device times
+    python3 chip_smoke.py --instances-only --case "K3 B4 H2 T=S=980 D384"  # that case alone
 
 ``--train-only``, ``--decode-only``, ``--k8-only``, ``--k4-only`` and
 ``--instances-only`` also run against an older tree's package when this file
 is copied into that tree's root, so that one call can time the training
 step, or K2, K2-q8, K6, K7 and the caption slices, or K8, or K3/K4 at the
 encoder train shape at head dims 64 and 80 (phase 7's and phase 25's calls),
-or the device time of K1, K4, K6 and K7 at head dim 64 and of K1, K3-K7 at
-128, of both trees on one card; they print no result line.
+or the device time of K1, K4, K6 and K7 at head dim 64, of K1, K3-K7 at 128
+and 256, of K1, K3, K4, K5 at 192 and past 256, of both trees on one card;
+they print no result line.
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -338,12 +340,14 @@ Phases; any failure raises and the script exits non-zero:
     ``--shapes-only`` in a process of its own and reads its
     ``[shapes kernels]`` line; after phase 12 it checks that phases 4, 10,
     11 and 12 took none of these routes.
-28. every head dim past 128 up to 256 (the instances 192 and 256: the
-    tensor-core attention core's and K4's outputs in column halves of 128,
-    counted in ``.col_split``; K6's and K7's shallower rings, counted in
-    ``.wide``): (a) phase 26 (a)'s calls at head dims 130 (not a multiple of
-    8), 136 and 200 (not of 16: K6's padded copy), 160, 192 and 256, at
-    ~768 / D heads; K6 and K7 at 256 past the bf16 whole row's fit (16
+28. every head dim past 128 up to 256 (the instances 192 and 256: the bf16
+    K1, K3, K4 and K5 on the pair route, one CTA building each score tile
+    once for both column blocks of 128, counted in ``.pair``; K6's and K7's
+    shallower rings, counted in ``.wide``): (a) phase 26 (a)'s calls at head
+    dims 130 (not a multiple of 8), 136 and 200 (not of 16: K6's padded
+    copy), 160, 192 and 256, at ~768 / D heads, each bf16 K1, K3, K4, K5
+    call's plan beside its time (``_deep_plan_stats``: blocks a CTA, score
+    builds per tile, bytes streamed); K6 and K7 at 256 past the bf16 whole row's fit (16
     beams, S 1772: the score-chunked route); K3/K4 at 256 on a causal case
     with a fully masked row; the instance and the routes checked from the
     counters; (b) ``ofa_base`` split into 4 heads of 192 (``ofa_base_hd192``)
@@ -561,7 +565,9 @@ def phase_build() -> float:
     for line in _ptxas_lines(text):
         log(f"[build] ptxas {line}")
     for name, regs, stores, loads in _ptxas_deep(text):
-        log(f"[build] deep route: {name}: {regs} registers, {stores} bytes spill stores, "
+        # fwd_deep, bwd_kv_deep and bwd_q_deep on the pair route's CTA (2 blocks) or the deep's
+        route = "pair route" if PAIR_KERNEL_MARK in name and "4sm90" in name else "deep route"
+        log(f"[build] {route}: {name}: {regs} registers, {stores} bytes spill stores, "
             f"{loads} bytes spill loads")
     for dp, name, regs, stores, loads in _ptxas_instances(text):
         log(f"[build] instance {dp}: {name}: {regs} registers, {stores} bytes spill stores, "
@@ -575,6 +581,9 @@ def phase_build() -> float:
 DEEP_KERNEL_NAMES = ("11decode_attn6kernelILi0E",
                      "10cross_attn6kernelILi0E", "cross_attn_i8_sm90_kernelILi0E", "_deep",
                      "10flash_deep")
+# the end of the template arguments of fwd_deep, bwd_kv_deep and bwd_q_deep on
+# a CTA of PW = 2 block warpgroups (the pair route, head dims 129 to 256)
+PAIR_KERNEL_MARK = "Li2EEEv"
 
 
 def _ptxas_deep(text: str) -> list:
@@ -1095,21 +1104,18 @@ def _elem_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def _device_ms_by_kernel(fn, iters: int = 5) -> dict:
     """Each CUDA kernel's device time per call of ``fn`` (torch.profiler, after a
     warm-up), keyed by the kernel's name without its namespace and arguments."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+
+    fn()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
-            key = name.split("(")[0].split("<")[0].split("::")[-1]
-            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    for e in _profiled_device_events(run, [ProfilerActivity.CUDA]):
+        name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+        key = name.split("(")[0].split("<")[0].split("::")[-1]
+        out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
     return out
 
 
@@ -1428,8 +1434,10 @@ def phase_train(tree, smi: str, routes: frozenset = SM90_ROUTES, model: dict = N
 
 # the demangled names of K3's and K4's CUDA kernels, on either core (K1 shares
 # K3's kernels but runs 0 times in a training step)
-K3_KERNELS = ("flash_fwd::kernel<",) + tuple(f"sm90::kernel<{dp}, false"
-                                             for dp in (32, 64, 80, 128, 192, 256))
+# K3's kernels in a training step's profile (the bf16 forward past head dim
+# 128, fwd_deep, serves K1 too, but a step launches only K3)
+K3_KERNELS = ("flash_fwd::kernel<", "sm90::fwd_deep<false") + tuple(
+    f"sm90::kernel<{dp}, false" for dp in (32, 64, 80, 128))
 K4_KERNELS = ("dsum_kernel", "bwd_kv", "bwd_q", "drel_sum")
 
 
@@ -1819,21 +1827,22 @@ def phase_profile(tree, arch: str = "ofa_base") -> None:
 def _profiled_device_events(run, activities) -> list:
     """The device events of one torch.profiler session around ``run()``. A
     session that records none (CUPTI now and then returns an empty trace on
-    the card, even in a fresh process) is run once more, logged; a second
-    empty one raises."""
+    the card, even in a fresh process) is run up to twice more, logged,
+    tracing the device alone; a third empty one raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import profile
+    from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(2):
+    for attempt in range(3):
         torch.cuda.synchronize()
-        with profile(activities=activities) as prof:
+        with profile(activities=activities if attempt == 0
+                     else [ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if dev:
             return dev
         log("[profiler] a session recorded no device operations" +
-            ("; running it once more" if attempt == 0 else ""))
+            ("; running it once more, tracing the device alone" if attempt < 2 else ""))
     raise AssertionError("torch.profiler recorded no device operations")
 
 
@@ -4467,7 +4476,8 @@ def _ptxas_instances(text: str) -> list:
             m = line.split("'")[1] if "'" in line else line
             dp = next((n for n in HEAD_DIM_INSTANCES if f"ILi{n}E" in m), None)
             kernels = HEAD_DIM_KERNELS + (WIDE_KERNELS if dp in WIDE_INSTANCES else ())
-            name = m if any(k in m for k in kernels) and dp else None
+            # the pair and deep routes' kernels (their maps' chunk is 128) print on their own
+            name = m if any(k in m for k in kernels) and dp and "_deep" not in m else None
         elif name and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
             spills = nums[1:3]
@@ -5211,9 +5221,9 @@ def phase_shapes(smi: str) -> dict:
 
 
 # phase 28: every head dim past 128 up to 256 (the instances 192 and 256: the
-# attention core's and K4's outputs in column halves of 128, K6's and K7's
-# shallower rings, K7's q in shared memory), and ofa_base split into 4 heads
-# of 192 and 3 of 256
+# bf16 attention core and K4 on the pair route, both column blocks of 128 in
+# one CTA; K6's and K7's shallower rings, K7's q in shared memory), and
+# ofa_base split into 4 heads of 192 and 3 of 256
 WH_DIMS = (130, 136, 160, 192, 200, 256)  # 130: not a multiple of 8; 136, 200: not of 16 (K6)
 WH_CONFIGS = {"ofa_base_hd192": dict(attention_heads=4),
               "ofa_base_hd256": dict(attention_heads=3)}
@@ -5232,7 +5242,7 @@ WH_K4_MASKED = {"causal, fully masked row": dict(shape=dict(B=2, H=2, T=70, S=70
 
 def _wide_counts() -> dict:
     """The launches of the routes past head dim 128: K1, K3, K4 and K5's bf16
-    launches in column halves (``.col_split``), K6's and K7's launches on an
+    launches on the pair route (``.pair``), K6's and K7's launches on an
     instance past 128 (``.wide``); 0 where a tree lacks them."""
     from musketeer_tpu_torch.ops import decode_cross_attn as k6
     from musketeer_tpu_torch.ops import decode_stack as k7
@@ -5243,7 +5253,7 @@ def _wide_counts() -> dict:
     fns = {"K1": k1.flash_attention_inference, "K3": kb.flash_attention_fwd,
            "K4": kb.flash_attention_bwd, "K5": k5.flash_attention_bias,
            "K5-cross": k5.flash_cross_attention}
-    out = {f"{k}.col_split": getattr(fn, "col_split", 0) for k, fn in fns.items()}
+    out = {f"{k}.pair": getattr(fn, "pair", 0) for k, fn in fns.items()}
     out["K6.wide"] = getattr(k6.decode_cross_attention_int8, "wide", 0)
     out["K7.wide"] = getattr(k7.decode_stack_step, "wide", 0)
     return out
@@ -5303,9 +5313,10 @@ def _wide_chunked(g, D: int = 256, H: int = 3, route: str = "wide") -> dict:
 
 def phase_wide_heads(smi: str) -> dict:
     """Phase 28: (a) the attention kernels at every head dim of ``WH_DIMS``
-    (phase 26's calls at ~768 / D heads), the padded copies and the column
-    halves counted, K6 and K7 on the score-chunked route and K4 on a causal
-    fully masked row at 256; (b) the two configurations of ``WH_CONFIGS``;
+    (phase 26's calls at ~768 / D heads), the padded copies and the pair
+    route counted, each bf16 K1, K3, K4, K5 call's plan beside its time
+    (``_deep_plan_stats``), K6 and K7 on the score-chunked route and K4 on a
+    causal fully masked row at 256; (b) the two configurations of ``WH_CONFIGS``;
     every fp32 call's check within ``HD_FP32_TOL``, bf16 K4's fp32 drel within
     ``WH_DREL_TOL``. → {kernel: {head dim: stats, its instance and the
     launches on its path}}."""
@@ -5327,8 +5338,10 @@ def _wide_heads(smi: str) -> dict:
         t1, before, before_w = time.perf_counter(), _padded_counts(), _wide_counts()
         dp = _build.head_instance(D)
         if dp != (192 if D <= 192 else 256) or _build.col_halves(D) != 2:
-            raise AssertionError(f"head dim {D}: instance {dp}, {_build.col_halves(D)} halves")
-        stats[D], k5_launches[D] = _hd_kernels(g, D, D in heads.values(), _wide_heads_for(D))
+            raise AssertionError(f"head dim {D}: instance {dp}, {_build.col_halves(D)} blocks")
+        H = _wide_heads_for(D)
+        stats[D], k5_launches[D] = _hd_kernels(g, D, D in heads.values(), H)
+        _deep_plan_stats(D, H, BATCH if D in heads.values() else 4, stats[D])
         padded = {k: n - before[k] for k, n in _padded_counts().items()}
         unit = {k: 16 if k == "K6" else 8 for k in padded}
         if any((n > 0) != (D % unit[k] != 0) for k, n in padded.items()):
@@ -5340,7 +5353,10 @@ def _wide_heads(smi: str) -> dict:
         log(f"[wide heads a] D{D} on the instance {dp} in {time.perf_counter() - t1:.1f} s; "
             f"launches on zero-padded copies {padded}, past 128 {wide}")
         torch.cuda.empty_cache()
+    before = _wide_counts()
     phase_k3_k4(g, {}, WH_K4_MASKED, saved=False)
+    if _wide_moves(before).get("K4.pair", 0) < 1:
+        raise AssertionError("K4's fully masked causal case must run on the pair route")
     chunked = _wide_chunked(g)
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
@@ -5350,9 +5366,9 @@ def _wide_heads(smi: str) -> dict:
         before = _wide_counts()
         on_path[heads[name]] = _hd_config(name, model, smi, phase=28)
         wide = _wide_moves(before)
-        if any(wide.get(k, 0) < 1 for k in ("K1.col_split", "K3.col_split", "K4.col_split",
-                                             "K6.wide", "K7.wide")):
-            raise AssertionError(f"{name}: the paths must run K1, K3, K4 in column halves and "
+        if any(wide.get(k, 0) < 1 for k in ("K1.pair", "K3.pair", "K4.pair", "K6.wide",
+                                             "K7.wide")):
+            raise AssertionError(f"{name}: the paths must run K1, K3, K4 on the pair route and "
                                  f"K6, K7 past 128, moved {wide}")
         log(f"[wide heads b] {name}: launches past 128 {wide}")
     log(f"[wide heads b] both configurations: {time.perf_counter() - t2:.1f} s; phase 28 in "
@@ -5458,10 +5474,13 @@ def _one_block_ms(g, D: int, H: int) -> dict:
 
 
 def _deep_plan_stats(D: int, H: int, B: int, stats: dict) -> None:
-    """The deep plan (``flash_attention_infer.deep_plan``) of bf16 K1, K3, K4,
-    K5 and K5-cross at phase 29 (a)'s shapes for head dim D, printed beside
-    each kernel's measured time (``stats[name]["ms"]``): the column blocks a
-    CTA owns, how often each score tile is built (K4: S and dP), the bytes
+    """The plan (``flash_attention_infer.deep_plan``) of bf16 K1, K3, K4, K5
+    and K5-cross at phase 28 or 29 (a)'s shapes for head dim D (the pair
+    route up to 256, else the deep route), printed beside each kernel's
+    measured time (``stats[name]["ms"]``): the column blocks a CTA owns, the
+    64-column boxes of the last chunk, how often each score tile is built
+    (K4: S and dP; one block a CTA: the column-split design that ran head
+    dims 129 to 256 before the pair route builds as often), the bytes
     the planner reckons the producers stream into shared memory, and the
     fill rate those bytes would imply over the measured time. The plan is a
     model of the kernel, not a count taken on the card, so it stays in the
@@ -5478,8 +5497,9 @@ def _deep_plan_stats(D: int, H: int, B: int, stats: dict) -> None:
                   if kind == "K4" else
                   f"{p['score_builds']}x (one block a CTA: {p['score_builds_one_block']}x)")
         fill = p["bytes"] / (ms * 1e-3) / 1e12
-        log(f"[deep heads plan] {name} D{D} B{b} H{H} T{T} S{S}: {p['blocks']} column blocks a "
-            f"CTA ({p['last_blocks']} in the last group of {p['nch']}), each score tile built "
+        log(f"[{p['route']} plan] {name} D{D} B{b} H{H} T{T} S{S}: {p['blocks']} column blocks a "
+            f"CTA ({p['last_blocks']} in the last group of {p['nch']}; last chunk "
+            f"{64 * p['last_boxes']} columns), each score tile built "
             f"{builds} a (q tile, key tile); {p['bytes'] / 1e9:.3f} GB streamed into shared "
             f"memory (one block a CTA: {p['bytes_one_block'] / 1e9:.3f}); kernel {ms:.4f} ms: "
             f"{fill:.2f} TB/s derived from the plan's bytes")
@@ -5580,9 +5600,10 @@ def _deep_heads(smi: str) -> dict:
 # --instances-only: the device times of today's instances, for a parent/change
 # pair (copied into an older tree's root, it times that tree's kernels): K1,
 # K4, K6 and K7 at ofa_base's shapes (head dim 64), K1, K3, K4, K5, K6, K7
-# at 6 heads of 128 (phase 26's hd 128 cases), K1, K4, K6, K7 at 3 heads of
-# 256 (the widest instance), and K1, K3, K4, K5 on the deep route at 2 heads
-# of 384 and 1 head of 768 (phase 29's shapes), bf16
+# at 6 heads of 128 (phase 26's hd 128 cases), K1, K3, K4, K5, K6, K7 at 3
+# heads of 256 (the widest instance) and K1, K3, K4, K5 at 4 heads of 192
+# (the pair route's two instances), and K1, K3, K4, K5 on the deep route at 2
+# heads of 384 and 1 head of 768 (phase 29's shapes), bf16
 INSTANCE_CASES = {
     "K1 B16 H12 T=S=908 D64": ("K1", dict(K1_SHAPE)),
     "K4 B4 H12 T=S=980 D64": ("K4", dict(K34_SHAPES["encoder"]["shape"])),
@@ -5595,9 +5616,15 @@ INSTANCE_CASES = {
     "K6 B16 H6 Kb5 S908 D128": ("K6", dict(K6_SHAPE, H=6, D=128)),
     "K7 rows 80 L6 d768 hd128 S908 Tmax17": ("K7", dict(K7_SHAPE, H=6, hd=128)),
     "K1 B16 H3 T=S=908 D256": ("K1", dict(K1_SHAPE, H=3, D=256)),
+    "K3 B4 H3 T=S=980 D256": ("K3", dict(K34_SHAPES["encoder"]["shape"], H=3, D=256)),
     "K4 B4 H3 T=S=980 D256": ("K4", dict(K34_SHAPES["encoder"]["shape"], H=3, D=256)),
+    "K5 B16 H3 S908 D256": ("K5", dict(K1_SHAPE, H=3, D=256)),
     "K6 B16 H3 Kb5 S908 D256": ("K6", dict(K6_SHAPE, H=3, D=256)),
     "K7 rows 80 L6 d768 hd256 S908 Tmax17": ("K7", dict(K7_SHAPE, H=3, hd=256)),
+    "K1 B16 H4 T=S=908 D192": ("K1", dict(K1_SHAPE, H=4, D=192)),
+    "K3 B4 H4 T=S=980 D192": ("K3", dict(K34_SHAPES["encoder"]["shape"], H=4, D=192)),
+    "K4 B4 H4 T=S=980 D192": ("K4", dict(K34_SHAPES["encoder"]["shape"], H=4, D=192)),
+    "K5 B16 H4 S908 D192": ("K5", dict(K1_SHAPE, H=4, D=192)),
     "K1 B16 H2 T=S=908 D384": ("K1", dict(K1_SHAPE, H=2, D=384)),
     "K3 B4 H2 T=S=980 D384": ("K3", dict(K34_SHAPES["encoder"]["shape"], H=2, D=384)),
     "K4 B4 H2 T=S=980 D384": ("K4", dict(K34_SHAPES["encoder"]["shape"], H=2, D=384)),
@@ -5642,44 +5669,51 @@ def _instance_call(g, kernel: str, shape: dict):
     return lambda: kb.flash_attention_bwd(*args, o, lse, do)
 
 
-def _deep_drel() -> dict:
-    """bf16 K4's drel at head dim 1280 (B4 H1 T=S=980, rel, 10 % padded keys;
+def _deep_drel(D: int = 1280, H: int = 1) -> dict:
+    """bf16 K4's drel at head dim D (B4 H T=S=980, rel, 10 % padded keys;
     one seeded input, the same in any tree) against its plain version: the
-    largest error and that over max|drel| (phase 29 holds it to
-    ``WH_DREL_TOL``), so that a parent/change pair compares the deep route's
-    sum order."""
+    largest error and that over max|drel| (phases 28 and 29 hold it to
+    ``WH_DREL_TOL``), so that a parent/change pair compares the sum order of
+    the route past 128 that D takes."""
     from musketeer_tpu_torch.ops import flash_attention_bwd as kb
 
-    g = torch.Generator(device="cuda").manual_seed(1280)
-    x = _k1_inputs(g, 4, 1, 980, 980, 1280, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(D)
+    x = _k1_inputs(g, 4, H, 980, 980, D, torch.bfloat16)
     args = [x[n] for n in ("q", "k", "v", "pos_q", "pos_k", "rel", "kpad")]
     o, lse = kb.flash_attention_fwd_plain(*args)
     do = (torch.randn(o.shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
     got = kb.flash_attention_bwd(*args, o, lse, do)[5]
     ref = kb.flash_attention_bwd_plain(*args, o, lse, do)[5]
     err, top = _max_err(got, ref), float(ref.abs().max())
-    log(f"[instances] K4 B4 H1 T=S=980 D1280 bf16 drel: max abs err {err:.4e} against plain, "
+    log(f"[instances] K4 B4 H{H} T=S=980 D{D} bf16 drel: max abs err {err:.4e} against plain, "
         f"max|drel| {top:.3f}: {err / top:.3e} of it")
     return dict(max_abs_err=err, max_abs=top, relative=err / top)
 
 
-def phase_instances(smi: str) -> dict:
+def phase_instances(smi: str, cases=None) -> dict:
     """Each case of ``INSTANCE_CASES``: its kernels' device time per call
     (torch.profiler, the sum over the call's kernels, 10 calls) and the
-    call's time by CUDA events (20 calls), and bf16 K4's drel at head dim
+    call's time by CUDA events (20 calls); then bf16 K4's drel at 256 and
     1280 against plain (``_deep_drel``), printed as one ``INSTANCES_TAG``
-    line."""
+    line. ``cases`` (names of ``INSTANCE_CASES``) times only those, in that
+    order, drawing their inputs from the same seeded generator, and skips
+    drel: a case alone in its process, or after chosen others."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 29)
     out = {}
-    for name, (kernel, shape) in INSTANCE_CASES.items():
-        call = _instance_call(g, kernel, dict(shape))
+
+    def timed(key, call):
         dev = sum(_device_ms_by_kernel(call, 10).values())
         ms = cuda_ms(call, 20)
-        out[name] = dict(device_ms=dev, ms=ms)
-        log(f"[instances] {name}: device {dev:.4f} ms, call {ms:.4f} ms per call on {smi}")
-        del call
+        out[key] = dict(device_ms=dev, ms=ms)
+        log(f"[instances] {key}: device {dev:.4f} ms, call {ms:.4f} ms per call on {smi}")
+
+    for name in cases or INSTANCE_CASES:
+        kernel, shape = INSTANCE_CASES[name]
+        timed(name, _instance_call(g, kernel, dict(shape)))
         torch.cuda.empty_cache()
-    out["K4 D1280 drel"] = _deep_drel()
+    if not cases:
+        out["K4 D256 drel"] = _deep_drel(256, 3)
+        out["K4 D1280 drel"] = _deep_drel()
     log(INSTANCES_TAG + json.dumps(out))
     return out
 
@@ -5760,9 +5794,13 @@ def main(argv=None) -> int:
                            "in 1 of 768), and print no result line")
     only.add_argument("--instances-only", action="store_true",
                       help="after phases 1-2, only time today's instances (K1, K4, K6, K7 at "
-                           "head dims 64 and 256, K1 and K3-K7 at 128) and the deep route (K1, "
-                           "K3, K4, K5 at 2 heads of 384 and 1 of 768; device time and call "
-                           "time) for a parent/change pair, and print no result line")
+                           "head dim 64, K1 and K3-K7 at 128 and 256, K1, K3, K4, K5 at 192) "
+                           "and the deep route (K1, K3, K4, K5 at 2 heads of 384 and 1 "
+                           "of 768; device time and call time) for a parent/change pair, and "
+                           "print no result line")
+    ap.add_argument("--case", action="append", choices=list(INSTANCE_CASES), metavar="NAME",
+                    help="with --instances-only, time only this case (repeatable, in the order "
+                         "given), and skip drel")
     only.add_argument("--shapes-only", action="store_true",
                       help="after phases 1-2, run only phase 27 (K6, K7, K2 and K2-q8 at more "
                            "than 16 beams, long encoder outputs and caches, ragged widths and "
@@ -5773,6 +5811,8 @@ def main(argv=None) -> int:
                            "with its resume, and evaluate on a NormFormer ofa_base), and print "
                            "no result line")
     opts = ap.parse_args(argv)
+    if opts.case and not opts.instances_only:
+        ap.error("--case goes with --instances-only")
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -5803,7 +5843,7 @@ def main(argv=None) -> int:
         log(f"[done] deep-heads phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if opts.instances_only:
-        phase_instances(smi)
+        phase_instances(smi, opts.case)
         log(f"[done] instances timed in {time.perf_counter() - t_start:.1f} s")
         return 0
     from musketeer_tpu_torch.config import ofa_base

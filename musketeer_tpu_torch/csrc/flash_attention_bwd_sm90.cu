@@ -14,8 +14,8 @@ int launch_bwd_instance(int dp, const void* q, const void* pq, const void* k, co
                         long long rel_hs, long long rel_rs, int causal, int D,
                         cudaStream_t stream) {
   if (dp == DEEP)
-    return launch_bwd_deep(q, pq, k, pk, v, rel, kpad, dout, lse, dsum, dq, dpq, dk, dpk, dv,
-                           drel_part, B, H, Tq, S, rel_hs, rel_rs, causal, D, stream);
+    return launch_bwd_deep<DW>(q, pq, k, pk, v, rel, kpad, dout, lse, dsum, dq, dpq, dk, dpk,
+                               dv, drel_part, B, H, Tq, S, rel_hs, rel_rs, causal, D, stream);
   return with_head_dim(dp, [&](auto d) -> int {
     constexpr int DP = decltype(d)::value;
     if constexpr (DP == DEEP) {

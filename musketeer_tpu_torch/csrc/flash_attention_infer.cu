@@ -73,3 +73,4 @@ extern "C" int mk_flash_attention_fwd(int bf16, const void* q, const void* pos_q
                                                     causal, skip_max, D, st);
   });
 }
+

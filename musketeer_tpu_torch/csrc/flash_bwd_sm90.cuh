@@ -74,24 +74,30 @@
 // as in the TPU kernel and the FMA kernels; causally masked tiles are not
 // skipped for the same reason.
 //
-// The tile width DP is a template parameter, compiled at 32, 64, 80, 128,
-// 192 and 256 (its tiles as flash_fwd_sm90.cuh lays them out,
+// The tile width DP is a template parameter, compiled at 32, 64, 80 and 128
+// (its tiles as flash_fwd_sm90.cuh lays them out,
 // sm90.cuh::HeadTile); the head dim D <= DP is an argument: the tiles'
 // columns past D are zeros, which change no product, and no gradient column
 // past D is stored.
 //
-// Past DP 128 (K4 tiled over D). A whole-width gradient would be DP / 2 fp32
-// registers a thread, and the resident and streamed tiles at 3 stages would
-// not fit (316 KB at 192, 414 KB at 256). Each gradient's columns split into
-// halves of 128 (Layout::NCH, a grid dimension, as K1's output): a CTA owns
-// one (b, h, 64-key or 64-row tile, column half), rebuilds P and dW from the
-// full-width score and dP products, as the DP 128 launches already do per
-// gradient, and accumulates its half (64 registers) against the half's
-// 64-column boxes of the stage's tile. The key-major launches stay dv, dk,
-// dpos_k and the query-major ones dq, dpos_q, as at 128. The resident and
-// streamed tiles keep their width, in one stage (BwdLayout::STAGES; 166 KB
-// at 192, 217 KB at 256): each element's sums are the DP 128 instance's, in
-// the same order. Only the first half's CTAs write drel's partial.
+// Past DP 128 a whole-width gradient would be DP / 2 fp32 registers a thread,
+// and the resident and streamed tiles at 3 stages would not fit (316 KB at
+// 192, 414 KB at 256). So past 128 K4 runs on the CTAs of the deep section
+// below: the head dim streams through the S and dP products in chunks of
+// 128, and each gradient's columns split into blocks of 128, each owned by a
+// block warpgroup, while a builder warpgroup builds S and dP once for the
+// CTA's blocks. At head dims 129 to 256 (the pair route, the instances 192
+// and 256) a CTA owns both blocks of its gradient (PW), so S and dP are built
+// once per gradient: S 5 times and dP 4 times per (key tile, q tile), two
+// launches and drel's sum; where the last chunk holds at most 64 columns (D
+// <= 192) it is one 64-column box. There the key-major builder loads its
+// tile's lse, dsum and rel into registers before the products and stages rel
+// after them, and the query-major one loads rel and the pads as the pair
+// route's forward does (TileBias<TR, true>), so that no load's latency stands
+// between the products and P (clock64 counters in a copy of the builders,
+// H100: forming P^T takes ~4,800 cycles a tile on the pair route, against
+// ~8,300 in the deep route's builder, which loads lse and dsum where it uses
+// them; the products take ~4,100 and ~3,100).
 //
 // Bound. At the encoder train shape (B4 H12 T=S=980 D64) the function is 8
 // [T, S] x 64 products (the two score products, dP, dv, dq, dk, dpos_q,
@@ -102,10 +108,8 @@
 // At ofa_huge's train shape (B4 H16 T=S=980 D80) 8 products are 78.7 GFLOP:
 // 0.080 ms. ptxas (CUDA 12.8) registers, key-major / query-major: 170 / 191
 // at DP 32; 212 / 219 at 64; 196 (dv and dk), 153 (dpos_k) / 229 at 80; 145
-// (dv), 178 (dk), 178 (dpos_k) / 219, 219 at 128; 153, 174, 174 / 212, 212
-// at 192; 148, 172, 172 / 214, 214 at 256 (shared memory 167,448 and
-// 216,600 bytes); no spills, so one CTA of 160 threads per SM;
-// chip_smoke.py's build phase prints the report of each build.
+// (dv), 178 (dk), 178 (dpos_k) / 219, 219 at 128; no spills, so one CTA of 160
+// threads per SM; chip_smoke.py's build phase prints the report of each build.
 #pragma once
 
 #include "flash_fwd_sm90.cuh"
@@ -119,8 +123,7 @@ constexpr uint32_t REL_TILE = BQ * REL_STRIDE * 2;   // bytes; two, one per tile
 
 template <int DP>
 struct BwdLayout {
-  static constexpr int STAGES = DP <= 128 ? 3 : 1;  // ring depth
-  static constexpr int VW = Layout<DP>::VW, NCH = Layout<DP>::NCH;  // a CTA's gradient columns
+  static constexpr int STAGES = 3;  // ring depth
   static constexpr uint32_t TILE = Layout<DP>::TILE, STAGE = 3 * TILE;
   static constexpr uint32_t OFF_RING = 3 * TILE;  // after the 3 resident tiles
   static constexpr uint32_t OFF_ROWS = OFF_RING + STAGES * STAGE;
@@ -138,15 +141,14 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
 }
 
-// rel[h] rows q0 .. q0 + 63, columns k0 .. k0 + 63 into buf [64][REL_STRIDE]
-// (zeros past Tq and S), by a warpgroup (tid its thread's index in it): each warp load reads one
-// whole 128-byte row piece, a bf16 pair a lane (a 4-byte load where rel's
-// base, rows and S keep pairs aligned).
-__device__ __forceinline__ void stage_rel(__nv_bfloat16* buf, const __nv_bfloat16* relh,
-                                          long long rel_rs, bool vec, int q0, int k0, int Tq,
-                                          int S, int tid) {
+// rel[h] rows q0 .. q0 + 63, columns k0 .. k0 + 63 of this thread (tid its
+// index in a warpgroup): each warp load reads one whole 128-byte row piece, a
+// bf16 pair a lane (a 4-byte load where rel's base, rows and S keep pairs
+// aligned), zeros past Tq and S; stage_rel stores them into buf.
+__device__ __forceinline__ void load_rel(uint32_t (&v)[BQ / 4], const __nv_bfloat16* relh,
+                                         long long rel_rs, bool vec, int q0, int k0, int Tq, int S,
+                                         int tid) {
   const int c = 2 * (tid & 31), w = tid >> 5, s = k0 + c;
-  uint32_t v[BQ / 4];
 #pragma unroll
   for (int i = 0; i < BQ / 4; ++i) {
     const int t = q0 + w + 4 * i;
@@ -160,9 +162,25 @@ __device__ __forceinline__ void stage_rel(__nv_bfloat16* buf, const __nv_bfloat1
                (s + 1 < S ? static_cast<uint32_t>(__bfloat16_as_ushort(p[1])) << 16 : 0u);
     }
   }
+}
+
+// load_rel's values into buf [64][REL_STRIDE]
+__device__ __forceinline__ void store_rel(__nv_bfloat16* buf, const uint32_t (&v)[BQ / 4],
+                                          int tid) {
+  const int c = 2 * (tid & 31), w = tid >> 5;
 #pragma unroll
   for (int i = 0; i < BQ / 4; ++i)
     *reinterpret_cast<uint32_t*>(buf + (w + 4 * i) * REL_STRIDE + c) = v[i];
+}
+
+// rel[h] rows q0 .. q0 + 63, columns k0 .. k0 + 63 into buf [64][REL_STRIDE]
+// (zeros past Tq and S), by a warpgroup
+__device__ __forceinline__ void stage_rel(__nv_bfloat16* buf, const __nv_bfloat16* relh,
+                                          long long rel_rs, bool vec, int q0, int k0, int Tq,
+                                          int S, int tid) {
+  uint32_t v[BQ / 4];
+  load_rel(v, relh, rel_rs, vec, q0, k0, Tq, S, tid);
+  store_rel(buf, v, tid);
 }
 
 // sc = [a|pos_a].[b|pos_b]^T and, with kDp, dp = c.d^T, with a, pos_a, c the
@@ -200,7 +218,7 @@ __device__ __forceinline__ void zero(float (&a)[R]) {
 
 // This thread's two rows (accumulator halves hh = 0, 1) of a 64 x DP fp32
 // accumulator, its first D columns rounded to bf16, at out + off[hh] (rows
-// with off < 0 skipped). A column half passes out + its first column and D
+// with off < 0 skipped). A column block passes out + its first column and D
 // less that column.
 template <int DP>
 __device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], __nv_bfloat16* out,
@@ -217,8 +235,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], __nv_bflo
 }
 
 // The gradients of kOut's bits among dv, dk and dpos_k for one (b, h,
-// 64-key tile, column half): block x is key tile x / NCH, half x % NCH.
-// maps: q, pos_q, dO, k, pos_k, v.
+// 64-key tile): block x is the key tile. maps: q, pos_q, dO, k, pos_k, v.
 template <int DP, int kOut>
 __global__ void __launch_bounds__(NT, 1) bwd_kv(
     const __grid_constant__ Maps<DP, 6> maps, const __nv_bfloat16* __restrict__ rel,
@@ -227,7 +244,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     __nv_bfloat16* __restrict__ dpk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
   using Lay = BwdLayout<DP>;
-  constexpr int STAGES = Lay::STAGES, VW = Lay::VW;
+  constexpr int STAGES = Lay::STAGES;
   constexpr uint32_t TILE = Lay::TILE;
   constexpr bool kDv = kOut & KV_DV, kDk = kOut & KV_DK, kDpk = kOut & KV_DPK;
   constexpr bool kW = kDk || kDpk;  // dW needed (else P alone, no dP product)
@@ -243,10 +260,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
   auto stage = [=](int st) { return base + Lay::OFF_RING + Lay::STAGE * st; };  // q, pos_q, dO
   auto rows = [=](int st) { return rows_base + 2 * BQ * st; };  // lse[64], dsum[64]
 
-  const int k0 = blockIdx.x / Lay::NCH * BK, h = blockIdx.y, b = blockIdx.z;
-  const int half = blockIdx.x % Lay::NCH, c0 = VW * half;  // this CTA's gradient columns
-  const uint32_t cols = DP <= 128 ? 0u : 2u * half * HeadTile<DP>::LO_BOX;  // their boxes
-  const int nbox = Layout<DP>::vboxes(half);
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int n = (Tq + BQ - 1) / BQ;
 
@@ -301,7 +315,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     key_pad[hh] = key_ok[hh] && kpad[(long long)b * S + s_of[hh]];
   }
 
-  float adv[kDv ? VW / 2 : 1], adk[kDk ? VW / 2 : 1], adpk[kDpk ? VW / 2 : 1], sc[32], dp[32];
+  float adv[kDv ? DP / 2 : 1], adk[kDk ? DP / 2 : 1], adpk[kDpk ? DP / 2 : 1], sc[32], dp[32];
   uint32_t pa[16], wa[16];
   if constexpr (kDv) zero(adv);
   if constexpr (kDk) zero(adk);
@@ -345,10 +359,9 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
     }
     if constexpr (kDv) to_a_fragments(sc, pa);
     if constexpr (kW) to_a_fragments(dp, wa);
-    if constexpr (kDv) issue_pv<DP>(adv, pa, stage(st) + 2 * TILE + cols, nbox);  // dv += P^T.dO
-    if constexpr (kDk) issue_pv<DP>(adk, wa, stage(st) + cols, nbox);            // dk += dW^T.q
-    if constexpr (kDpk)  // dpos_k += dW^T . pos_q
-      issue_pv<DP>(adpk, wa, stage(st) + TILE + cols, nbox);
+    if constexpr (kDv) issue_pv<DP>(adv, pa, stage(st) + 2 * TILE);  // dv += P^T.dO
+    if constexpr (kDk) issue_pv<DP>(adk, wa, stage(st));             // dk += dW^T.q
+    if constexpr (kDpk) issue_pv<DP>(adpk, wa, stage(st) + TILE);    // dpos_k += dW^T . pos_q
     wgmma_wait();
     if constexpr (kDv) fence_regs(adv);
     if constexpr (kDk) fence_regs(adk);
@@ -359,15 +372,14 @@ __global__ void __launch_bounds__(NT, 1) bwd_kv(
   long long off[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) off[hh] = key_ok[hh] ? ((long long)bh * S + s_of[hh]) * D : -1;
-  if constexpr (kDk) store_rows<VW>(adk, dk + c0, off, cq, D - c0);
-  if constexpr (kDpk) store_rows<VW>(adpk, dpk + c0, off, cq, D - c0);
-  if constexpr (kDv) store_rows<VW>(adv, dv + c0, off, cq, D - c0);
+  if constexpr (kDk) store_rows<DP>(adk, dk, off, cq, D);
+  if constexpr (kDpk) store_rows<DP>(adpk, dpk, off, cq, D);
+  if constexpr (kDv) store_rows<DP>(adv, dv, off, cq, D);
 }
 
 // The gradients of kOut's bits among dq and dpos_q, and this batch row's dW
-// (drel's partial, where drel_part is not null: the first half's CTAs), for
-// one (b, h, 64-row q tile, column half): block x is q tile x / NCH, half
-// x % NCH. maps: q, pos_q, dO, k, pos_k, v.
+// (drel's partial, where drel_part is not null), for one (b, h, 64-row q
+// tile): block x is the q tile. maps: q, pos_q, dO, k, pos_k, v.
 template <int DP, int kOut>
 __global__ void __launch_bounds__(NT, 1) bwd_q(
     const __grid_constant__ Maps<DP, 6> maps, const __nv_bfloat16* __restrict__ rel,
@@ -376,7 +388,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     __nv_bfloat16* __restrict__ dpq, float* __restrict__ drel_part, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
   using Lay = BwdLayout<DP>;
-  constexpr int STAGES = Lay::STAGES, VW = Lay::VW;
+  constexpr int STAGES = Lay::STAGES;
   constexpr bool kDq = kOut & Q_DQ, kDpq = kOut & Q_DPQ;
   constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
@@ -387,10 +399,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
   auto stage = [=](int st) { return base + Lay::OFF_RING + Lay::STAGE * st; };  // k, pos_k, v
 
-  const int q0 = blockIdx.x / Lay::NCH * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int half = blockIdx.x % Lay::NCH, c0 = VW * half;  // this CTA's gradient columns
-  const uint32_t cols = DP <= 128 ? 0u : 2u * half * HeadTile<DP>::LO_BOX;  // their boxes
-  const int nbox = Layout<DP>::vboxes(half);
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int n = (S + BK - 1) / BK;
 
@@ -429,7 +438,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
   const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
   const uint8_t* kp = kpad + (long long)b * S;
   // this row's dW partial of drel: [H, Tq, S] fp32 of batch row b
-  float* const part = drel_part && half == 0 ? drel_part + (long long)b * H * Tq * S : nullptr;
+  float* const part = drel_part ? drel_part + (long long)b * H * Tq * S : nullptr;
   const bool part_vec = S % 2 == 0;  // then a column pair is one aligned float2
   float ls[2], ds[2];
 #pragma unroll
@@ -439,7 +448,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
   }
 
-  float adq[kDq ? VW / 2 : 1], adpq[kDpq ? VW / 2 : 1], sc[32], dp[32];
+  float adq[kDq ? DP / 2 : 1], adpq[kDpq ? DP / 2 : 1], sc[32], dp[32];
   uint32_t wa[16], wl[16];
   TileBias<__nv_bfloat16> bias;
   if constexpr (kDq) zero(adq);
@@ -485,12 +494,12 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     to_a_residual(dp, wa, wl);  // then its low part
     wgmma_fence();
     if constexpr (kDq) {  // dq += dW . k
-      issue_pv_cols<DP>(adq, wa, stage(st) + cols, nbox);
-      issue_pv_cols<DP>(adq, wl, stage(st) + cols, nbox);
+      issue_pv_products<DP>(adq, wa, stage(st));
+      issue_pv_products<DP>(adq, wl, stage(st));
     }
     if constexpr (kDpq) {  // dpos_q += dW . pos_k
-      issue_pv_cols<DP>(adpq, wa, stage(st) + TILE + cols, nbox);
-      issue_pv_cols<DP>(adpq, wl, stage(st) + TILE + cols, nbox);
+      issue_pv_products<DP>(adpq, wa, stage(st) + TILE);
+      issue_pv_products<DP>(adpq, wl, stage(st) + TILE);
     }
     wgmma_commit();
     wgmma_wait();
@@ -505,16 +514,17 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
     const int t = t0 + 8 * hh;
     off[hh] = t < Tq ? ((long long)bh * Tq + t) * D : -1;
   }
-  if constexpr (kDq) store_rows<VW>(adq, dq + c0, off, cq, D - c0);
-  if constexpr (kDpq) store_rows<VW>(adpq, dpq + c0, off, cq, D - c0);
+  if constexpr (kDq) store_rows<DP>(adq, dq, off, cq, D);
+  if constexpr (kDpq) store_rows<DP>(adpq, dpq, off, cq, D);
 }
 
-// ---- the deep route (head dims past 256, common.cuh::DEEP) ----------------
+// ---- past head dim 128: the pair route (129 to 256) and the deep route ----
 //
 // Nothing is resident. Two launches, each of fwd_deep's shape (a producer
-// warpgroup, the builder warpgroup, DW block warpgroups; flash_fwd_sm90.cuh):
+// warpgroup, the builder warpgroup, W block warpgroups: DW on the deep route,
+// PW on the pair route; flash_fwd_sm90.cuh):
 //   - key-major (bwd_kv_deep): a CTA per (b, h, 64-key tile, gradient g of
-//     dv, dk, dpos_k, group of up to DW column blocks of 128); block x =
+//     dv, dk, dpos_k, group of up to W column blocks of 128); block x =
 //     (key tile x 3 + g) x groups + group. For each q tile the builder builds
 //     S^T from the chunk pairs (k, q) chunk by chunk, then (pos_k, pos_q),
 //     and, for dk and dpos_k, dP^T from (v, dO), each pair's products in a
@@ -529,42 +539,51 @@ __global__ void __launch_bounds__(NT, 1) bwd_q(
 //     drel's partial where g = dq and group = 0; the block warpgroups
 //     accumulate dq or dpos_q from both parts times their blocks of k or
 //     pos_k, the high part first.
-// S and dP are built ceil(nch / DW) times per (key tile, q tile) for each
+// S and dP are built ceil(nch / W) times per (key tile, q tile) for each
 // gradient: S for five gradients, dP for four (dv needs none), against nch
-// times each on one block a CTA. lse and dsum come from device memory.
+// times each on one block a CTA. lse and dsum come from device memory. Where
+// the pair route's last chunk is one 64-column box (D <= 192), its copies,
+// products and blocks are that box alone.
 // Shared memory (DeepBwd): the score ring, the block ring, the two A buffers
-// (one tile each key-major, two query-major), key-major one rel tile:
-// 223,344 and 230,512 bytes. ptxas (CUDA 12.8): 96 registers at launch (the
-// builder up to 160), no spills.
-template <bool kQ>
+// (one tile each key-major, two query-major), key-major one rel tile: the
+// deep route 223,344 and 230,512 bytes, the pair route (a score ring of 4
+// slots, a block ring of 2 slots of two chunks) 223,360 and 230,528. ptxas
+// (CUDA 12.8): the deep route 96 registers at launch (the builder up to
+// 160), the pair route 128 (the builder up to 224), no spills.
+template <int W, bool kQ>
 struct DeepBwd {
+  using SRing = typename Cta<W>::SRing;
+  using BRing = typename Cta<W>::BRing;
   static constexpr uint32_t OFF_S = 0;
-  static constexpr uint32_t OFF_O = OFF_S + 3 * 2 * CHUNK;  // ScoreRing: 3 slots
-  static constexpr uint32_t OFF_P = OFF_O + 2 * DW * CHUNK; // BlockRing: 2 slots
+  static constexpr uint32_t OFF_O = OFF_S + SRing::BYTES;
+  static constexpr uint32_t OFF_P = OFF_O + BRing::BYTES;
   static constexpr uint32_t PBUF = (kQ ? 2 : 1) * PTILE;     // an A buffer
   static constexpr uint32_t OFF_REL = OFF_P + 2 * PBUF;
   static constexpr uint32_t OFF_BAR = OFF_REL + (kQ ? 0 : REL_TILE);  // one rel tile
-  static constexpr int NBARS = 2 * 3 + 2 * 2 + 4;
+  static constexpr int NBARS = 2 * SRing::DEPTH + 2 * BRing::DEPTH + 4;
   static constexpr size_t SMEM = OFF_BAR + 8 * NBARS + 1024;
 };
 
-// What both deep backward kernels share: the barriers' setup, the rings, the
-// A buffers' mbarriers (full[2], then empty[2]).
+// What both backward kernels of a CTA of W blocks share: the barriers' setup,
+// the rings, the A buffers' mbarriers (full[2], then empty[2]).
+template <int W>
 struct DeepBwdCta {
+  using SRing = typename Cta<W>::SRing;
+  using BRing = typename Cta<W>::BRing;
   uint32_t base, pbars;
-  ScoreRing sring;
-  BlockRing oring;
+  SRing sring;
+  BRing oring;
   __device__ __forceinline__ DeepBwdCta(uint32_t base_, uint32_t bars)
-      : base(base_), pbars(bars + 16 * 3 + 16 * 2), sring{base_, bars},
-        oring{base_ + 3 * 2 * CHUNK, bars + 16 * 3} {}
+      : base(base_), pbars(bars + 16 * SRing::DEPTH + 16 * BRing::DEPTH), sring{base_, bars},
+        oring{base_ + SRing::BYTES, bars + 16 * SRing::DEPTH} {}
   __device__ __forceinline__ uint32_t pfull(int i) const { return pbars + 8u * i; }
   __device__ __forceinline__ uint32_t pempty(int i) const { return pbars + 8u * (2 + i); }
   __device__ __forceinline__ void init() const {
     sring.init(NC);
-    oring.init(DW * NC);
+    oring.init(W * NC);
     for (int i = 0; i < 2; ++i) {
       mbar_init(pfull(i), NC);
-      mbar_init(pempty(i), DW * NC);
+      mbar_init(pempty(i), W * NC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -579,40 +598,41 @@ struct DeepBwdCta {
     mbar_arrive(pfull(np & 1));
   }
   // a block warpgroup, tile it: acc += the A buffer's NP tiles . its block
-  // (w < nb) of the operand ring's slot, then both released
+  // (w < nb; nbox 64-column boxes) of the operand ring's slot, then both
+  // released
   template <int NP>
   __device__ __forceinline__ void block_step(float (&acc)[DEEP_CHUNK / 2], int it, int w, int nb,
-                                             uint32_t pa) {
+                                             uint32_t pa, int nbox) {
     mbar_wait(pfull(it & 1), (it >> 1) & 1);
     const int os = oring.take();
-    if (w < nb) block_products<NP>(acc, pa + (it & 1) * NP * PTILE, oring.slot(os) + w * CHUNK);
+    if (w < nb)
+      block_products<NP>(acc, pa + (it & 1) * NP * PTILE, oring.slot(os) + w * CHUNK, nbox);
     oring.release(os);
     mbar_arrive(pempty(it & 1));
   }
 };
 
-// The key-major gradients of one (b, h, 64-key tile, gradient, group):
-// maps q, pos_q, dO, k, pos_k, v. kBlocks is DW: a template, so that only
-// the source that launches it compiles it.
-template <int kBlocks>
-__global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_kv_deep(
+// The key-major gradients of one (b, h, 64-key tile, gradient, group) on a
+// CTA of W blocks: maps q, pos_q, dO, k, pos_k, v.
+template <int W>
+__global__ void __launch_bounds__(NC * (2 + W), 1) bwd_kv_deep(
     const __grid_constant__ Maps<DEEP_CHUNK, 6> maps, const __nv_bfloat16* __restrict__ rel,
     const uint8_t* __restrict__ kpad, const float* __restrict__ lse,
     const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dpk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
-  static_assert(kBlocks == DW, "the block warpgroups of a deep CTA");
-  using L = DeepBwd<false>;
+  using L = DeepBwd<W, false>;
+  using C = Cta<W>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));  // the same, generic
   __nv_bfloat16* const rel_buf = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_REL);
-  DeepBwdCta cta(base, base + L::OFF_BAR);
+  DeepBwdCta<W> cta(base, base + L::OFF_BAR);
   const uint32_t pbuf = base + L::OFF_P;
-  const int nk = deep_chunks(D), groups = (nk + DW - 1) / DW;
+  const int nk = deep_chunks(D), groups = (nk + W - 1) / W, lb = last_boxes<W>(D);
   const int grp = blockIdx.x % groups, g = blockIdx.x / groups % 3;  // g: dv, dk, dpos_k
   const int k0 = blockIdx.x / groups / 3 * BK, h = blockIdx.y, b = blockIdx.z;
-  const int blk0 = DW * grp, nb = min(DW, nk - blk0), bh = b * H + h;
+  const int blk0 = W * grp, nb = min(W, nk - blk0), bh = b * H + h;
   const bool kW = g != 0;  // dW needed (else P alone, no dP product)
   const int n = (Tq + BQ - 1) / BQ;
   const int wg = threadIdx.x / NC, tid = threadIdx.x % NC;
@@ -621,28 +641,31 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_kv_deep(
   __syncthreads();
 
   if (wg == 0) {  // the producer warpgroup
-    regs_dec<DEEP_PRODUCER_REGS>();
+    regs_dec<C::PRODUCER_REGS>();
     if (tid == 0) {
       for (int it = 0; it < n; ++it) {
         const int q0 = it * BQ;
         for (int c = 0; c < 2 * nk; ++c) {  // k . q chunk by chunk, then pos_k . pos_q
-          const int st = cta.sring.put(2 * CHUNK), i = c < nk ? 0 : 1;
-          load_chunk(cta.sring.slot(st), maps, 3 + i, cta.sring.full(st), c % nk, k0, bh);
-          load_chunk(cta.sring.slot(st) + CHUNK, maps, i, cta.sring.full(st), c % nk, q0, bh);
+          const int i = c < nk ? 0 : 1, nbox = chunk_boxes(c % nk, nk, lb);
+          const int st = cta.sring.put(2 * chunk_bytes<W>(c % nk, nk, lb));
+          load_chunk(cta.sring.slot(st), maps, 3 + i, cta.sring.full(st), c % nk, k0, bh, nbox);
+          load_chunk(cta.sring.slot(st) + CHUNK, maps, i, cta.sring.full(st), c % nk, q0, bh,
+                     nbox);
         }
         for (int c = 0; kW && c < nk; ++c) {  // v . dO
-          const int st = cta.sring.put(2 * CHUNK);
-          load_chunk(cta.sring.slot(st), maps, 5, cta.sring.full(st), c, k0, bh);
-          load_chunk(cta.sring.slot(st) + CHUNK, maps, 2, cta.sring.full(st), c, q0, bh);
+          const int nbox = chunk_boxes(c, nk, lb);
+          const int st = cta.sring.put(2 * chunk_bytes<W>(c, nk, lb));
+          load_chunk(cta.sring.slot(st), maps, 5, cta.sring.full(st), c, k0, bh, nbox);
+          load_chunk(cta.sring.slot(st) + CHUNK, maps, 2, cta.sring.full(st), c, q0, bh, nbox);
         }
       }
     } else if (tid == 32) {
       const int op = g == 0 ? 2 : g - 1;  // dO, q or pos_q
       for (int it = 0; it < n; ++it) {
-        const int st = cta.oring.put(nb * CHUNK);
+        const int st = cta.oring.put(blocks_bytes<W>(blk0, nb, nk, lb));
         for (int w = 0; w < nb; ++w)
           load_chunk(cta.oring.slot(st) + w * CHUNK, maps, op, cta.oring.full(st), blk0 + w,
-                     it * BQ, bh);
+                     it * BQ, bh, chunk_boxes(blk0 + w, nk, lb));
       }
     }
     return;  // no block-wide barrier follows
@@ -660,7 +683,7 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_kv_deep(
   }
 
   if (wg == 1) {  // the builder
-    regs_inc<DEEP_BUILDER_REGS>();
+    regs_inc<C::BUILDER_REGS>();
     const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
     bool key_pad[2];
 #pragma unroll
@@ -668,22 +691,47 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_kv_deep(
     float sc[32], dp[32];
     for (int it = 0; it < n; ++it) {
       const int q0 = it * BQ;
-      // rel's tile, staged in its own layout and read transposed below
-      if (relh) {
+      // rel's tile, staged in its own layout and read transposed below (the
+      // pair route loads it while the products run, and stores it after them)
+      uint32_t relv[BQ / 4];
+      if (relh && W == PW) load_rel(relv, relh, rel_rs, rel_vec != 0, q0, k0, Tq, S, tid);
+      if (relh && W != PW) {
         if (it) named_sync(3, NC);  // the previous tile's reads are done
         stage_rel(rel_buf, relh, rel_rs, rel_vec != 0, q0, k0, Tq, S, tid);
         named_sync(3, NC);
       }
-      deep_products(sc, cta.sring, 2 * nk);
-      if (kW) deep_products(dp, cta.sring, nk);
+      // the pair route loads this tile's lse and dsum (the 16 query columns of
+      // this thread) into registers while the products run (see the header)
+      float lsv[W == PW ? 16 : 1], dsv[W == PW ? 16 : 1];
+      if constexpr (W == PW) {
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const int t = q0 + 8 * (u >> 1) + cq + (u & 1);
+          lsv[u] = t < Tq ? __ldg(lse + (long long)bh * Tq + t) : 0.f;
+          dsv[u] = kW && t < Tq ? __ldg(dsum + (long long)bh * Tq + t) : 0.f;
+        }
+      }
+      score_products<W>(sc, cta.sring, 2 * nk, 0, nk, lb);
+      if (kW) score_products<W>(dp, cta.sring, nk, 0, nk, lb);
+      if (relh && W == PW) {
+        if (it) named_sync(3, NC);  // the previous tile's reads are done
+        store_rel(rel_buf, relv, tid);
+        named_sync(3, NC);
+      }
       // P^T (or dW^T) in fp32, 0 past S and past Tq; rounded once to bf16 below
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int t = q0 + 8 * j + cq + e;
-          const float ls = t < Tq ? __ldg(lse + (long long)bh * Tq + t) : 0.f;
-          const float ds = kW && t < Tq ? __ldg(dsum + (long long)bh * Tq + t) : 0.f;
+          float ls, ds;
+          if constexpr (W == PW) {
+            ls = lsv[2 * j + e];
+            ds = dsv[2 * j + e];
+          } else {
+            ls = t < Tq ? __ldg(lse + (long long)bh * Tq + t) : 0.f;
+            ds = kW && t < Tq ? __ldg(dsum + (long long)bh * Tq + t) : 0.f;
+          }
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int i = 4 * j + 2 * hh + e;
@@ -707,7 +755,8 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_kv_deep(
   const int w = wg - 2, c0 = DEEP_CHUNK * (blk0 + w);
   float acc[DEEP_CHUNK / 2];
   zero(acc);
-  for (int it = 0; it < n; ++it) cta.block_step<1>(acc, it, w, nb, pbuf);
+  const int nbox = chunk_boxes(blk0 + w, nk, lb);
+  for (int it = 0; it < n; ++it) cta.template block_step<1>(acc, it, w, nb, pbuf, nbox);
   if (w >= nb) return;
   long long off[2];
 #pragma unroll
@@ -717,24 +766,24 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_kv_deep(
 
 // The query-major gradients of one (b, h, 64-row q tile, gradient, group),
 // and with drel_part this batch row's dW (drel's partial; the dq CTAs of
-// group 0 write it). maps: q, pos_q, dO, k, pos_k, v. kBlocks as bwd_kv_deep's.
-template <int kBlocks>
-__global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_q_deep(
+// group 0 write it), on a CTA of W blocks. maps: q, pos_q, dO, k, pos_k, v.
+template <int W>
+__global__ void __launch_bounds__(NC * (2 + W), 1) bwd_q_deep(
     const __grid_constant__ Maps<DEEP_CHUNK, 6> maps, const __nv_bfloat16* __restrict__ rel,
     const uint8_t* __restrict__ kpad, const float* __restrict__ lse,
     const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq,
     __nv_bfloat16* __restrict__ dpq, float* __restrict__ drel_part, int H, int Tq, int S,
     long long rel_hs, long long rel_rs, int rel_vec, int causal, int D) {
-  static_assert(kBlocks == DW, "the block warpgroups of a deep CTA");
-  using L = DeepBwd<true>;
+  using L = DeepBwd<W, true>;
+  using C = Cta<W>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  DeepBwdCta cta(base, base + L::OFF_BAR);
+  DeepBwdCta<W> cta(base, base + L::OFF_BAR);
   const uint32_t pbuf = base + L::OFF_P;
-  const int nk = deep_chunks(D), groups = (nk + DW - 1) / DW;
+  const int nk = deep_chunks(D), groups = (nk + W - 1) / W, lb = last_boxes<W>(D);
   const int grp = blockIdx.x % groups, g = blockIdx.x / groups % 2;  // g: dq, dpos_q
   const int q0 = blockIdx.x / groups / 2 * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int blk0 = DW * grp, nb = min(DW, nk - blk0), bh = b * H + h;
+  const int blk0 = W * grp, nb = min(W, nk - blk0), bh = b * H + h;
   const int n = (S + BK - 1) / BK;
   const int wg = threadIdx.x / NC, tid = threadIdx.x % NC;
 
@@ -742,27 +791,30 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_q_deep(
   __syncthreads();
 
   if (wg == 0) {  // the producer warpgroup
-    regs_dec<DEEP_PRODUCER_REGS>();
+    regs_dec<C::PRODUCER_REGS>();
     if (tid == 0) {
       for (int it = 0; it < n; ++it) {
         const int k0 = it * BK;
         for (int c = 0; c < 2 * nk; ++c) {  // q . k chunk by chunk, then pos_q . pos_k
-          const int st = cta.sring.put(2 * CHUNK), i = c < nk ? 0 : 1;
-          load_chunk(cta.sring.slot(st), maps, i, cta.sring.full(st), c % nk, q0, bh);
-          load_chunk(cta.sring.slot(st) + CHUNK, maps, 3 + i, cta.sring.full(st), c % nk, k0, bh);
+          const int i = c < nk ? 0 : 1, nbox = chunk_boxes(c % nk, nk, lb);
+          const int st = cta.sring.put(2 * chunk_bytes<W>(c % nk, nk, lb));
+          load_chunk(cta.sring.slot(st), maps, i, cta.sring.full(st), c % nk, q0, bh, nbox);
+          load_chunk(cta.sring.slot(st) + CHUNK, maps, 3 + i, cta.sring.full(st), c % nk, k0, bh,
+                     nbox);
         }
         for (int c = 0; c < nk; ++c) {  // dO . v
-          const int st = cta.sring.put(2 * CHUNK);
-          load_chunk(cta.sring.slot(st), maps, 2, cta.sring.full(st), c, q0, bh);
-          load_chunk(cta.sring.slot(st) + CHUNK, maps, 5, cta.sring.full(st), c, k0, bh);
+          const int nbox = chunk_boxes(c, nk, lb);
+          const int st = cta.sring.put(2 * chunk_bytes<W>(c, nk, lb));
+          load_chunk(cta.sring.slot(st), maps, 2, cta.sring.full(st), c, q0, bh, nbox);
+          load_chunk(cta.sring.slot(st) + CHUNK, maps, 5, cta.sring.full(st), c, k0, bh, nbox);
         }
       }
     } else if (tid == 32) {
       for (int it = 0; it < n; ++it) {  // k or pos_k
-        const int st = cta.oring.put(nb * CHUNK);
+        const int st = cta.oring.put(blocks_bytes<W>(blk0, nb, nk, lb));
         for (int w = 0; w < nb; ++w)
           load_chunk(cta.oring.slot(st) + w * CHUNK, maps, 3 + g, cta.oring.full(st), blk0 + w,
-                     it * BK, bh);
+                     it * BK, bh, chunk_boxes(blk0 + w, nk, lb));
       }
     }
     return;  // no block-wide barrier follows
@@ -774,7 +826,7 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_q_deep(
   const int t0 = q0 + r0;
 
   if (wg == 1) {  // the builder
-    regs_inc<DEEP_BUILDER_REGS>();
+    regs_inc<C::BUILDER_REGS>();
     const __nv_bfloat16* relh = rel ? rel + h * rel_hs : nullptr;
     const uint8_t* kp = kpad + (long long)b * S;
     float* const part =
@@ -788,12 +840,12 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_q_deep(
       ds[hh] = t < Tq ? dsum[(long long)bh * Tq + t] : 0.f;
     }
     float sc[32], dp[32];
-    TileBias<__nv_bfloat16> bias;
+    TileBias<__nv_bfloat16, W == PW> bias;
     for (int it = 0; it < n; ++it) {
       const int k0 = it * BK, lim = S - k0;
       load_bias(bias, relh, rel_rs, rel_vec != 0, kp, k0, S, t0, Tq, lane, cq);  // while they run
-      deep_products(sc, cta.sring, 2 * nk);
-      deep_products(dp, cta.sring, nk);
+      score_products<W>(sc, cta.sring, 2 * nk, 0, nk, lb);
+      score_products<W>(dp, cta.sring, nk, 0, nk, lb);
       mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
       // dW in fp32 (P = 0 past S, where the scores are -inf, and past Tq)
 #pragma unroll
@@ -835,7 +887,8 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) bwd_q_deep(
   const int w = wg - 2, c0 = DEEP_CHUNK * (blk0 + w);
   float acc[DEEP_CHUNK / 2];
   zero(acc);
-  for (int it = 0; it < n; ++it) cta.block_step<2>(acc, it, w, nb, pbuf);
+  const int nbox = chunk_boxes(blk0 + w, nk, lb);
+  for (int it = 0; it < n; ++it) cta.template block_step<2>(acc, it, w, nb, pbuf, nbox);
   if (w >= nb) return;
   long long off[2];
 #pragma unroll
@@ -875,108 +928,44 @@ static __global__ void __launch_bounds__(256) drel_sum(float* __restrict__ part,
   }
 }
 
-// Launches the key-major launches (one at DP 32 and 64, two at 80, three at
-// 128 and past it), the query-major ones (one, two from 128; past 128 each
-// over two column halves) and drel's sum on `stream`
-// for bf16 streams [B, H, Tq or S, D] (16-byte aligned, D <= DP a multiple
-// of 8), bf16 rel (or null), K3's lse and the pre-pass's dsum (fp32
-// [B, H, Tq]); drel_part is fp32 [B, H, Tq, S] scratch whose first
-// [H, Tq, S] receives drel, or null. Returns a cudaError_t code.
-template <int DP>
-int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, const void* v,
-               const void* rel, const void* kpad, const void* dout, const float* lse,
-               const float* dsum, void* dq, void* dpq, void* dk, void* dpk, void* dv,
-               float* drel_part, int B, int H, int Tq, int S, long long rel_hs, long long rel_rs,
-               int causal, int D, cudaStream_t stream) {
-  Maps<DP, 6> maps;
-  if (const int err = stream_maps<DP, 6>(maps, {q, pq, dout, k, pk, v}, {Tq, Tq, Tq, S, S, S},
-                                         (long long)B * H, D))
-    return err;
-  const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % 4 == 0 && rel_rs % 2 == 0 &&
-                      rel_hs % 2 == 0 && S % 2 == 0;
-  constexpr size_t smem = BwdLayout<DP>::SMEM;
-  const auto* relt = static_cast<const __nv_bfloat16*>(rel);
-  const auto* kp = static_cast<const uint8_t*>(kpad);
-  auto kv = [&](auto out) -> cudaError_t {  // one key-major launch writing `out`
-    constexpr int kOut = decltype(out)::value;
-    static SmemOptIn opt_in;
-    if (const int e = opt_in.ensure((const void*)bwd_kv<DP, kOut>, smem)) return (cudaError_t)e;
-    bwd_kv<DP, kOut><<<dim3((S + BK - 1) / BK * Layout<DP>::NCH, H, B), NT, smem, stream>>>(
-        maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs,
-        rel_rs, rel_vec, causal, D);
-    return cudaGetLastError();
-  };
-  auto qm = [&](auto out, float* part) -> cudaError_t {  // one query-major launch
-    constexpr int kOut = decltype(out)::value;
-    static SmemOptIn opt_in;
-    if (const int e = opt_in.ensure((const void*)bwd_q<DP, kOut>, smem)) return (cudaError_t)e;
-    bwd_q<DP, kOut><<<dim3((Tq + BQ - 1) / BQ * Layout<DP>::NCH, H, B), NT, smem, stream>>>(
-        maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
-        static_cast<__nv_bfloat16*>(dpq), part, H, Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
-    return cudaGetLastError();
-  };
-  using Kv = std::integral_constant<int, KV_ALL>;
-  cudaError_t err;
-  if constexpr (DP <= 64) {
-    err = kv(Kv{});
-  } else if constexpr (DP <= 80) {
-    err = kv(std::integral_constant<int, KV_DV | KV_DK>{});
-    if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
-  } else {
-    err = kv(std::integral_constant<int, KV_DV>{});
-    if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DK>{});
-    if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
-  }
-  if (err != cudaSuccess) return (int)err;
-  if constexpr (DP <= 80) {
-    err = qm(std::integral_constant<int, Q_ALL>{}, drel_part);
-  } else {
-    err = qm(std::integral_constant<int, Q_DQ>{}, drel_part);
-    if (err == cudaSuccess) err = qm(std::integral_constant<int, Q_DPQ>{}, nullptr);
-  }
-  if (err != cudaSuccess || !drel_part || B == 1) return (int)err;
-  const long long n = (long long)H * Tq * S, threads = n % 4 == 0 ? n / 4 : n;
-  drel_sum<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(drel_part, n, B);
-  return (int)cudaGetLastError();
-}
-
-// The deep route's launches on `stream`, the arguments as launch_bwd's (D
-// past 256, a multiple of 8): the key-major launch (dv, dk, dpos_k), the
-// query-major one (dq with drel's partials, dpos_q), then drel's sum.
-// Returns a cudaError_t code.
-inline int launch_bwd_deep(const void* q, const void* pq, const void* k, const void* pk,
-                           const void* v, const void* rel, const void* kpad, const void* dout,
-                           const float* lse, const float* dsum, void* dq, void* dpq, void* dk,
-                           void* dpk, void* dv, float* drel_part, int B, int H, int Tq, int S,
-                           long long rel_hs, long long rel_rs, int causal, int D,
-                           cudaStream_t stream) {
+// The launches past head dim 128 on a CTA of W blocks (DW: the deep route,
+// PW: the pair route) on `stream`, the arguments as launch_bwd's (D a
+// multiple of 8): the key-major launch (dv, dk, dpos_k), the query-major one
+// (dq with drel's partials, dpos_q), then drel's sum. Returns a cudaError_t
+// code.
+template <int W>
+int launch_bwd_deep(const void* q, const void* pq, const void* k, const void* pk, const void* v,
+                    const void* rel, const void* kpad, const void* dout, const float* lse,
+                    const float* dsum, void* dq, void* dpq, void* dk, void* dpk, void* dv,
+                    float* drel_part, int B, int H, int Tq, int S, long long rel_hs,
+                    long long rel_rs, int causal, int D, cudaStream_t stream) {
   Maps<DEEP_CHUNK, 6> maps;
   if (const int err = stream_maps<DEEP_CHUNK, 6>(maps, {q, pq, dout, k, pk, v},
                                                  {Tq, Tq, Tq, S, S, S}, (long long)B * H, D))
     return err;
   const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % 4 == 0 && rel_rs % 2 == 0 &&
                       rel_hs % 2 == 0 && S % 2 == 0;
-  const int groups = (deep_chunks(D) + DW - 1) / DW;
+  const int groups = (deep_chunks(D) + W - 1) / W;
   const auto* relt = static_cast<const __nv_bfloat16*>(rel);
   const auto* kp = static_cast<const uint8_t*>(kpad);
+  constexpr size_t kv_smem = DeepBwd<W, false>::SMEM, q_smem = DeepBwd<W, true>::SMEM;
   static SmemOptIn kv_opt_in, q_opt_in;
-  const void* kv = (const void*)bwd_kv_deep<DW>;
-  const void* qm = (const void*)bwd_q_deep<DW>;
-  if (const int e = kv_opt_in.ensure(kv, DeepBwd<false>::SMEM)) return e;
-  if (const int e = q_opt_in.ensure(qm, DeepBwd<true>::SMEM)) return e;
-  if (const int e = deep_regs_ok(kv)) return e;
-  if (const int e = deep_regs_ok(qm)) return e;
-  bwd_kv_deep<DW><<<dim3((S + BK - 1) / BK * 3 * groups, H, B), DEEP_THREADS, DeepBwd<false>::SMEM,
-                stream>>>(maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
-                          static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H,
-                          Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
+  const void* kv = (const void*)bwd_kv_deep<W>;
+  const void* qm = (const void*)bwd_q_deep<W>;
+  if (const int e = kv_opt_in.ensure(kv, kv_smem)) return e;
+  if (const int e = q_opt_in.ensure(qm, q_smem)) return e;
+  if (const int e = deep_regs_ok<W>(kv)) return e;
+  if (const int e = deep_regs_ok<W>(qm)) return e;
+  bwd_kv_deep<W><<<dim3((S + BK - 1) / BK * 3 * groups, H, B), cta_threads<W>(), kv_smem,
+                   stream>>>(maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+                             static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv),
+                             H, Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_q_deep<DW><<<dim3((Tq + BQ - 1) / BQ * 2 * groups, H, B), DEEP_THREADS, DeepBwd<true>::SMEM,
-               stream>>>(maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
-                         static_cast<__nv_bfloat16*>(dpq), drel_part, H, Tq, S, rel_hs, rel_rs,
-                         rel_vec, causal, D);
+  bwd_q_deep<W><<<dim3((Tq + BQ - 1) / BQ * 2 * groups, H, B), cta_threads<W>(), q_smem,
+                  stream>>>(maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
+                            static_cast<__nv_bfloat16*>(dpq), drel_part, H, Tq, S, rel_hs, rel_rs,
+                            rel_vec, causal, D);
   err = cudaGetLastError();
   if (err != cudaSuccess || !drel_part || B == 1) return (int)err;
   const long long n = (long long)H * Tq * S, threads = n % 4 == 0 ? n / 4 : n;
@@ -984,8 +973,80 @@ inline int launch_bwd_deep(const void* q, const void* pq, const void* k, const v
   return (int)cudaGetLastError();
 }
 
+// Launches the key-major launches (one at DP 32 and 64, two at 80, three at
+// 128), the query-major ones (one, two at 128) and drel's sum on `stream`
+// for bf16 streams [B, H, Tq or S, D] (16-byte aligned, D <= DP a multiple
+// of 8), bf16 rel (or null), K3's lse and the pre-pass's dsum (fp32
+// [B, H, Tq]); drel_part is fp32 [B, H, Tq, S] scratch whose first
+// [H, Tq, S] receives drel, or null. At DP 192 and 256 the pair route
+// (launch_bwd_deep<PW>).
+// Returns a cudaError_t code.
+template <int DP>
+int launch_bwd(const void* q, const void* pq, const void* k, const void* pk, const void* v,
+               const void* rel, const void* kpad, const void* dout, const float* lse,
+               const float* dsum, void* dq, void* dpq, void* dk, void* dpk, void* dv,
+               float* drel_part, int B, int H, int Tq, int S, long long rel_hs, long long rel_rs,
+               int causal, int D, cudaStream_t stream) {
+  if constexpr (DP > 128) {
+    return launch_bwd_deep<PW>(q, pq, k, pk, v, rel, kpad, dout, lse, dsum, dq, dpq, dk, dpk, dv,
+                               drel_part, B, H, Tq, S, rel_hs, rel_rs, causal, D, stream);
+  } else {
+    Maps<DP, 6> maps;
+    if (const int err = stream_maps<DP, 6>(maps, {q, pq, dout, k, pk, v}, {Tq, Tq, Tq, S, S, S},
+                                           (long long)B * H, D))
+      return err;
+    const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % 4 == 0 && rel_rs % 2 == 0 &&
+                        rel_hs % 2 == 0 && S % 2 == 0;
+    constexpr size_t smem = BwdLayout<DP>::SMEM;
+    const auto* relt = static_cast<const __nv_bfloat16*>(rel);
+    const auto* kp = static_cast<const uint8_t*>(kpad);
+    auto kv = [&](auto out) -> cudaError_t {  // one key-major launch writing `out`
+      constexpr int kOut = decltype(out)::value;
+      static SmemOptIn opt_in;
+      if (const int e = opt_in.ensure((const void*)bwd_kv<DP, kOut>, smem)) return (cudaError_t)e;
+      bwd_kv<DP, kOut><<<dim3((S + BK - 1) / BK, H, B), NT, smem, stream>>>(
+          maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dpk), static_cast<__nv_bfloat16*>(dv), H, Tq, S, rel_hs,
+          rel_rs, rel_vec, causal, D);
+      return cudaGetLastError();
+    };
+    auto qm = [&](auto out, float* part) -> cudaError_t {  // one query-major launch
+      constexpr int kOut = decltype(out)::value;
+      static SmemOptIn opt_in;
+      if (const int e = opt_in.ensure((const void*)bwd_q<DP, kOut>, smem)) return (cudaError_t)e;
+      bwd_q<DP, kOut><<<dim3((Tq + BQ - 1) / BQ, H, B), NT, smem, stream>>>(
+          maps, relt, kp, lse, dsum, static_cast<__nv_bfloat16*>(dq),
+          static_cast<__nv_bfloat16*>(dpq), part, H, Tq, S, rel_hs, rel_rs, rel_vec, causal, D);
+      return cudaGetLastError();
+    };
+    using Kv = std::integral_constant<int, KV_ALL>;
+    cudaError_t err;
+    if constexpr (DP <= 64) {
+      err = kv(Kv{});
+    } else if constexpr (DP <= 80) {
+      err = kv(std::integral_constant<int, KV_DV | KV_DK>{});
+      if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
+    } else {
+      err = kv(std::integral_constant<int, KV_DV>{});
+      if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DK>{});
+      if (err == cudaSuccess) err = kv(std::integral_constant<int, KV_DPK>{});
+    }
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (DP <= 80) {
+      err = qm(std::integral_constant<int, Q_ALL>{}, drel_part);
+    } else {
+      err = qm(std::integral_constant<int, Q_DQ>{}, drel_part);
+      if (err == cudaSuccess) err = qm(std::integral_constant<int, Q_DPQ>{}, nullptr);
+    }
+    if (err != cudaSuccess || !drel_part || B == 1) return (int)err;
+    const long long n = (long long)H * Tq * S, threads = n % 4 == 0 ? n / 4 : n;
+    drel_sum<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(drel_part, n, B);
+    return (int)cudaGetLastError();
+  }
+}
+
 // launch_bwd<dp>, for an instance dp of common.cuh::with_head_dim (DEEP:
-// launch_bwd_deep): defined in
+// launch_bwd_deep<DW>): defined in
 // flash_attention_bwd_sm90.cu, the one source that compiles these kernels
 // (flash_attention_bwd.cu's K4 entry calls it), so that the tensor-core and
 // the FMA kernels of K4 build in parallel.

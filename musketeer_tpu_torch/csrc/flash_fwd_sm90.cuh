@@ -29,9 +29,10 @@
 // Design. A CTA owns one (b, h, 64-row query tile), as the FMA core does (15
 // tiles x 192 heads = 2880 CTAs at the encoder shape), with one consumer
 // warpgroup (128 threads) and one producer warp. The tile width DP is a
-// template parameter, compiled at 32, 64, 80, 128, 192 and 256; a head dim D
-// runs on the smallest DP >= D (common.cuh::with_head_dim), D itself an
-// argument.
+// template parameter, compiled at 32, 64, 80 and 128; a head dim D runs on
+// the smallest DP >= D (common.cuh::with_head_dim), D itself an argument.
+// The instances 192 and 256 (D 129 to 256) and the deep route run on
+// fwd_deep's CTAs (below).
 //   - Operands. The producer loads the q and pos_q tiles once, then streams
 //     64-key tiles of k, pos_k and v (6 KB x DP / 16 a stage: 24 KB at DP
 //     64, 48 KB at DP 128; K5's first pass only k and pos_k) through a ring
@@ -62,37 +63,45 @@
 //   - K5 keeps its two passes in one CTA: repeating the score products costs
 //     little on tensor cores, where keeping a row block's fp32 scores in
 //     shared memory (64 x S x 4 bytes) would fit 227 KB only up to S ~ 880.
-//   - Past DP 128 (the instances 192 and 256) a whole-width output would be
-//     DP / 2 fp32 registers a thread (128 at 256), and q, pos_q and 3 stages
-//     of k, pos_k and v would not fit (271 KB at 192, 362 KB at 256). So the
-//     output's columns split over the grid (Layout::NCH column halves): a CTA
-//     owns one (b, h, 64-row q tile, 128-column half of v and out), computes
-//     the full-width scores (the same DP / 16 k-steps) and keeps the 64
-//     accumulator registers of DP 128; its stage holds k, pos_k and its
-//     half of v (one or two 64-column boxes), 2 stages deep (176 KB at 192,
-//     225 KB at 256). Each output element's sums are the DP 128 instance's,
-//     in the same order; the score products are repeated per half, as K5's
-//     second pass repeats them. K3's logsumexp is written by the first half.
-//   - Past DP 256 (the deep route, DP == DEEP: any head dim D, a multiple
-//     of 8; fwd_deep) nothing whole-width fits: q and pos_q alone would take
-//     96 KB at D 384, and beyond 512 more than a block's shared memory. So
-//     nothing is resident and the head dim streams through the score
-//     products in chunks of 128 columns (the pairs (q, k) of chunk 0 ..
-//     nk - 1, then (pos_q, pos_k), each pair's 8 k-steps in a fresh
-//     accumulator added in fp32: deep_products). The output splits into nch
-//     = ceil(D / 128) column blocks of 128; a CTA owns up to DW = 3 of them,
-//     one consumer warpgroup each (a 64 x 128 fp32 accumulator, 64 registers
-//     a thread: about 384 columns is what an SM's registers hold), and a
-//     builder warpgroup builds each key tile's scores and P once for them,
-//     passing P through shared memory as wgmma's A operand. The scores are
-//     built ceil(nch / 3) times per (q tile, key tile): once at D 384, twice
-//     at 768 (one block a CTA would build them nch times and stream the
-//     score chunks as often, and that traffic sets the pace). setmaxnreg
-//     moves the producer warpgroup's registers to the builder. At D <= 384 q
-//     and pos_q stay resident and only the key side streams. ptxas (CUDA
-//     12.8): 96 registers at launch in every instance; no spills in K1/K3
-//     (4 bytes with q resident), 6-10 bytes in K5 with bf16 rel, 348-496
-//     with fp32 rel (the builder's 32 fp32 rel values a tile).
+//   - Past DP 128 whole-width outputs do not fit a CTA: DP / 2 fp32
+//     accumulator registers a thread (128 at 256), and q, pos_q and 3 stages
+//     of k, pos_k and v would take 271 KB at 192 and 362 KB at 256. So past
+//     128 the head dim streams through the score products in chunks of 128
+//     columns (the pairs (q, k) of chunk 0 .. nk - 1, then (pos_q, pos_k),
+//     each pair's k-steps in a fresh accumulator added in fp32:
+//     deep_products), and the output splits into nch = ceil(D / 128) column
+//     blocks of 128, each owned by one consumer warpgroup of a CTA (a 64 x
+//     128 fp32 accumulator, 64 registers a thread). A builder warpgroup
+//     builds each key tile's scores and P once for the CTA's blocks and
+//     passes P through shared memory as wgmma's A operand; setmaxnreg moves
+//     the producer warpgroup's registers to the builder (fwd_deep).
+//       - The pair route (head dims 129 to 256, the instances 192 and 256,
+//         nch = 2): a CTA owns both blocks, PW = 2 block warpgroups, so each
+//         score tile is built once for the whole output; q and pos_q stay
+//         resident and the key side streams through a ring of 5 chunks.
+//         Where the last chunk holds at most 64 columns (D <= 192) it is one
+//         64-column box: its score products are 4 k-steps, its block's P.v
+//         one N block, and its copies half a chunk. Its builder (224
+//         registers) runs the tile's score k-steps back to back into one
+//         accumulator (chained_products) and issues rel's and the pads'
+//         loads so that nothing waits for them before the masks
+//         (TileBias<TR, true>): ~775 cycles a tile for those loads against
+//         ~1,760 for the guarded ones in the deep route's builder
+//         (clock64 counters in a copy of the builder, H100).
+//       - The deep route (past 256, DP == DEEP: any head dim D, a multiple
+//         of 8): q and pos_q alone would take 96 KB at D 384, and beyond 512
+//         more than a block's shared memory. A CTA owns up to DW = 3 blocks
+//         (about 384 columns is what an SM's registers hold), so the scores
+//         are built ceil(nch / 3) times per (q tile, key tile): once at D
+//         384, twice at 768 (one block a CTA would build them nch times and
+//         stream the score chunks as often, and that traffic sets the pace).
+//         At D <= 384 q and pos_q stay resident and only the key side
+//         streams; past it nothing is resident.
+//     ptxas (CUDA 12.8), deep route: 96 registers at launch in every
+//     instance; no spills in K1/K3 (4 bytes with q resident), 6-10 bytes in
+//     K5 with bf16 rel, 348-496 with fp32 rel (the builder's 32 fp32 rel
+//     values a tile). The pair route: 128 at launch (the builder up to
+//     224), no spills in any instance.
 //
 // Bound. At the encoder shape (B16 H12 T=S=908 D64) the function is
 // ~60.8 GFLOP against ~150 MB: 0.0615 ms at 989 TFLOP/s bf16, set by the
@@ -103,10 +112,7 @@
 // 143, 156 at 80; 185, 188, 203 at 128; no spills. Two CTAs fit an SM below
 // 128 (shared memory 46,136 bytes a CTA at DP 32, 91,192 at 64, 113,720 at
 // 80); at 128 one (181,304 bytes), so no second CTA bounds its registers.
-// Past 128, one CTA an SM too (181,288 bytes at 192, 230,440 at 256):
-// K1/K3, K5, K5 with fp32 rel 203, 207, 221 registers at 192 and 219, 217,
-// 225 at 256, no spills. chip_smoke.py's build phase prints the report of
-// each build.
+// chip_smoke.py's build phase prints the report of each build.
 #pragma once
 
 #include <stdint.h>
@@ -123,28 +129,18 @@ constexpr int NC = 128;               // consumer threads: one warpgroup
 constexpr int NT = NC + 32;           // + the producer warp
 constexpr float NEG = -1e9f;
 
-// The shared-memory layout at instance width DP: 64-row tiles of HeadTile<DP>
-// (q, pos_q, k, pos_k) and of HeadTile<VW> (a CTA's columns of v).
+// The shared-memory layout at instance width DP (32 to 128): 64-row tiles of
+// HeadTile<DP> (q, pos_q, k, pos_k, v).
 template <int DP>
 struct Layout {
-  static constexpr int STAGES = DP <= 128 ? 3 : 2;  // ring depth
-  static constexpr int VW = DP <= 128 ? DP : 128;   // columns of v and out a CTA owns
-  static constexpr int NCH = (DP + VW - 1) / VW;    // column halves: 1, or 2 past DP 128
-  static constexpr uint32_t TILE = HeadTile<DP>::BYTES;   // bytes of one 64-row bf16 tile
-  static constexpr uint32_t VTILE = HeadTile<VW>::BYTES;  // bytes of a CTA's v tile
+  static_assert(DP <= 128, "past 128: the pair route (fwd_deep with PW blocks)");
+  static constexpr int STAGES = 3;  // ring depth
+  static constexpr uint32_t TILE = HeadTile<DP>::BYTES;  // bytes of one 64-row bf16 tile
   static constexpr uint32_t OFF_KV = 2 * TILE;  // the ring, after q and pos_q
-  static constexpr uint32_t STAGE = 2 * TILE + VTILE;  // k, pos_k, v's columns
+  static constexpr uint32_t STAGE = 3 * TILE;   // k, pos_k, v
   static constexpr uint32_t OFF_BAR = OFF_KV + STAGES * STAGE;
   // + 1 KB of slack: the base is aligned to 1024 bytes, the 128-byte swizzle's period
   static constexpr size_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;
-  // the 64-column boxes of column half c (past DP 128; DP 192's second: one)
-  static __host__ __device__ constexpr int vboxes(int c) {
-    return DP <= 128 ? 0 : (DP / 64 - 2 * c < 2 ? DP / 64 - 2 * c : 2);
-  }
-  // bytes of column half c's v tile
-  static __host__ __device__ constexpr uint32_t vbytes(int c) {
-    return DP <= 128 ? TILE : vboxes(c) * HeadTile<DP>::LO_BOX;
-  }
 };
 
 // The tensor maps of N streams: lo[i] the 64-column boxes of stream i, hi[i]
@@ -169,27 +165,15 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const Maps<DP, N>& m, in
               row, bh);
 }
 
-// column half c of stream i's rows row .. row + 63 (Layout::vbytes(c)): the
-// whole tile at DP <= 128, else its 64-column boxes 2 c and 2 c + 1 that exist
-template <int DP, int N>
-__device__ __forceinline__ void load_cols(uint32_t dst, const Maps<DP, N>& m, int i,
-                                          uint32_t bar, int row, int bh, int c) {
-  if constexpr (DP <= 128) {
-    load_tile(dst, m, i, bar, row, bh);
-  } else {
-    for (int b = 0; b < Layout<DP>::vboxes(c); ++b)
-      tma_load3(dst + b * HeadTile<DP>::LO_BOX, &m.lo[i], bar, 128 * c + 64 * b, row, bh);
-  }
-}
-
-
-// the deep route's chunk c (columns 128 c .. 128 c + 127, zeros past D) of
-// stream i's rows row .. row + 63 into the HeadTile<128> tile at dst
+// chunk c (columns 128 c .. 128 c + 127, zeros past D) of stream i's rows
+// row .. row + 63 into the HeadTile<128> tile at dst: its nbox 64-column
+// boxes (1: the first alone, the pair route's short last chunk)
 template <int N>
 __device__ __forceinline__ void load_chunk(uint32_t dst, const Maps<DEEP_CHUNK, N>& m, int i,
-                                           uint32_t bar, int c, int row, int bh) {
+                                           uint32_t bar, int c, int row, int bh, int nbox = 2) {
   tma_load3(dst, &m.lo[i], bar, DEEP_CHUNK * c, row, bh);
-  tma_load3(dst + HeadTile<DEEP_CHUNK>::LO_BOX, &m.lo[i], bar, DEEP_CHUNK * c + 64, row, bh);
+  if (nbox == 2)
+    tma_load3(dst + HeadTile<DEEP_CHUNK>::LO_BOX, &m.lo[i], bar, DEEP_CHUNK * c + 64, row, bh);
 }
 
 // ---- rel: two adjacent columns of a row, in rel's dtype ------------------
@@ -222,22 +206,41 @@ __device__ __forceinline__ float pair_at(float2 r, int e) { return e ? r.y : r.x
 // base, rows and heads keep it aligned, else two scalar loads) and this lane's
 // two pad flags (keys k0 + lane, + 32). Loaded any earlier, during the
 // previous tile's softmax, they compete with it and the kernel ran slower.
-template <typename TR> struct TileBias {
+// kLate (the pair route's builders): every load unconditional, at an index
+// clamped into the tensors, and the pad bytes kept as loaded, so that no
+// instruction waits for a load before mask_scores; the masks drop what lies
+// past S or Tq (mask_scores tests lane < lim for the pads). The guarded
+// loads, whose zero fill waits for them, take ~1,760 cycles a tile in the
+// deep route's builder, the unguarded ones ~775 in the pair route's
+// (clock64 counters in a copy of the builders, H100).
+template <typename TR, bool kLate = false> struct TileBias {
   typename RelPair<TR>::type rv[2][8];
-  bool pad0, pad1;
+  std::conditional_t<kLate, uint8_t, bool> pad0, pad1;
 };
 
-template <typename TR>
-__device__ __forceinline__ void load_bias(TileBias<TR>& a, const TR* relh, long long rel_rs,
+template <typename TR, bool kLate>
+__device__ __forceinline__ void load_bias(TileBias<TR, kLate>& a, const TR* relh, long long rel_rs,
                                           bool rel_vec, const uint8_t* kp, int k0, int S, int t0,
                                           int Tq, int lane, int cq) {
   const int lim = S - k0;  // keys of the tile that exist
-  a.pad0 = lane < lim && kp[k0 + lane];
-  a.pad1 = lane + 32 < lim && kp[k0 + 32 + lane];
+  if constexpr (kLate) {
+    a.pad0 = kp[k0 + min(lane, lim - 1)];
+    a.pad1 = kp[k0 + min(lane + 32, lim - 1)];
+  } else {
+    a.pad0 = lane < lim && kp[k0 + lane];
+    a.pad1 = lane + 32 < lim && kp[k0 + 32 + lane];
+  }
   if (!relh) return;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = t0 + 8 * hh;
+    if (kLate && rel_vec) {  // S even: a pair at c <= lim - 2 lies inside the row
+      const TR* row = relh + (long long)min(t, Tq - 1) * rel_rs + k0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        a.rv[hh][j] = load_pair(row + min(8 * j + cq, lim - 2), true, true);
+      continue;
+    }
     const TR* row = relh + (long long)t * rel_rs + k0 + cq;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -273,8 +276,8 @@ __device__ __forceinline__ void issue_scores(float (&sc)[32], uint32_t sq, uint3
 // does: rel in fp32, then causal and pad masks at -1e9, -inf past S.
 // Accumulator position i = 4 j + 2 hh + e holds row r0 + 8 hh, key
 // k0 + 8 j + cq + e. kEdge: the tile is causal or holds the end of S.
-template <bool kEdge, typename TR>
-__device__ __forceinline__ void mask_tile(float (&sc)[32], const TileBias<TR>& a, bool rel,
+template <bool kEdge, typename TR, bool kLate>
+__device__ __forceinline__ void mask_tile(float (&sc)[32], const TileBias<TR, kLate>& a, bool rel,
                                           unsigned pad_lo, unsigned pad_hi, int lim, int k0,
                                           int t0, int Tq, int causal, int lane) {
   const int cq = 2 * (lane & 3);
@@ -298,17 +301,17 @@ __device__ __forceinline__ void mask_tile(float (&sc)[32], const TileBias<TR>& a
   }
 }
 
-template <typename TR>
-__device__ __forceinline__ void mask_scores(float (&sc)[32], const TileBias<TR>& a, bool rel,
+template <typename TR, bool kLate>
+__device__ __forceinline__ void mask_scores(float (&sc)[32], const TileBias<TR, kLate>& a, bool rel,
                                             int k0, int S, int t0, int Tq, int causal, int lane) {
   const int lim = S - k0, cq = 2 * (lane & 3);
   // the tile's pad bits, shifted so that this thread's columns sit at 8 j' + e
-  const unsigned pad_lo = __ballot_sync(0xffffffffu, a.pad0) >> cq;
-  const unsigned pad_hi = __ballot_sync(0xffffffffu, a.pad1) >> cq;
+  const unsigned pad_lo = __ballot_sync(0xffffffffu, a.pad0 && (!kLate || lane < lim)) >> cq;
+  const unsigned pad_hi = __ballot_sync(0xffffffffu, a.pad1 && (!kLate || lane + 32 < lim)) >> cq;
   if (causal || lim < BK)
-    mask_tile<true, TR>(sc, a, rel, pad_lo, pad_hi, lim, k0, t0, Tq, causal, lane);
+    mask_tile<true>(sc, a, rel, pad_lo, pad_hi, lim, k0, t0, Tq, causal, lane);
   else
-    mask_tile<false, TR>(sc, a, rel, pad_lo, pad_hi, lim, k0, t0, Tq, causal, lane);
+    mask_tile<false>(sc, a, rel, pad_lo, pad_hi, lim, k0, t0, Tq, causal, lane);
 }
 
 // acc += P . v over the tile's 64 keys, P (bf16 pairs in the A layout) from
@@ -338,38 +341,22 @@ __device__ __forceinline__ void issue_pv_products(float (&acc)[DP / 2], const ui
   }
 }
 
-// issue_pv_products over a CTA's columns of a tile at sv: the whole tile at
-// DP <= 128; past it nbox 64-column boxes from sv (two, or DP 192's last
-// half: one, into the first 32 registers of acc).
+// issue_pv_products, committed, not waited.
 template <int DP>
-__device__ __forceinline__ void issue_pv_cols(float (&acc)[Layout<DP>::VW / 2],
-                                              const uint32_t (&pa)[16], uint32_t sv, int nbox) {
-  if constexpr (DP <= 128) {
-    issue_pv_products<DP>(acc, pa, sv);
-  } else if (nbox == 2) {
-    issue_pv_products<128>(acc, pa, sv);
-  } else {
-    issue_pv_products<64>(*reinterpret_cast<float(*)[32]>(&acc[0]), pa, sv);
-  }
-}
-
-// issue_pv_cols, committed, not waited.
-template <int DP>
-__device__ __forceinline__ void issue_pv(float (&acc)[Layout<DP>::VW / 2],
-                                         const uint32_t (&pa)[16], uint32_t sv, int nbox = 2) {
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&pa)[16],
+                                         uint32_t sv) {
   wgmma_fence();
-  issue_pv_cols<DP>(acc, pa, sv, nbox);
+  issue_pv_products<DP>(acc, pa, sv);
   wgmma_commit();
   fence_regs(acc);
 }
 
-// ---- the deep route (head dims past 256, common.cuh::DEEP) ----------------
+// ---- past head dim 128: the pair route (129 to 256) and the deep route ----
 
 constexpr uint32_t CHUNK = HeadTile<DEEP_CHUNK>::BYTES;  // a 64 x 128 bf16 chunk: 16 KB
 constexpr uint32_t PTILE = BQ * BK * 2;  // a 64 x 64 bf16 tile of P (or dW): 8 KB
 constexpr int DW = 3;  // column blocks a deep CTA owns: one block warpgroup each
-// a deep CTA: a producer warpgroup, the builder warpgroup, DW block warpgroups
-constexpr int DEEP_THREADS = NC * (2 + DW);
+constexpr int PW = 2;  // column blocks a CTA of the pair route owns: the whole output
 // registers a thread at launch (__launch_bounds__(640, 1): 65536 / 640 rounded
 // down to 8), then the producer's and the builder's after setmaxnreg; the
 // block warpgroups keep the launch's: 32 + 160 + 3 x 96 = 5 x 96 (24 + 168 made
@@ -378,6 +365,11 @@ constexpr int DEEP_LAUNCH_REGS = 96, DEEP_PRODUCER_REGS = 32, DEEP_BUILDER_REGS 
 static_assert(DEEP_PRODUCER_REGS + DEEP_BUILDER_REGS + DW * DEEP_LAUNCH_REGS ==
                   (2 + DW) * DEEP_LAUNCH_REGS,
               "setmaxnreg moves registers between warpgroups, within the launch's pool");
+// the pair route's (__launch_bounds__(512, 1)): 32 + 224 + 2 x 128 = 4 x 128
+constexpr int PAIR_LAUNCH_REGS = 128, PAIR_PRODUCER_REGS = 32, PAIR_BUILDER_REGS = 224;
+static_assert(PAIR_PRODUCER_REGS + PAIR_BUILDER_REGS + PW * PAIR_LAUNCH_REGS ==
+                  (2 + PW) * PAIR_LAUNCH_REGS,
+              "setmaxnreg moves registers between warpgroups, within the launch's pool");
 
 // A ring of STAGES slots of SLOT bytes as its threads walk it: item seq sits
 // in slot seq % STAGES, in the slot's (seq / STAGES)-th phase; the producer
@@ -385,6 +377,8 @@ static_assert(DEEP_PRODUCER_REGS + DEEP_BUILDER_REGS + DW * DEEP_LAUNCH_REGS ==
 // full[STAGES], then empty[STAGES].
 template <int STAGES, uint32_t SLOT>
 struct Ring {
+  static constexpr int DEPTH = STAGES;
+  static constexpr uint32_t BYTES = STAGES * SLOT;  // its slots' shared memory
   uint32_t base, bars;
   int seq = 0;
   __device__ __forceinline__ uint32_t slot(int st) const { return base + SLOT * st; }
@@ -429,6 +423,68 @@ using KeyRing = Ring<4, CHUNK>;
 // warpgroups multiply P by (v; K4: dO, q, pos_q, k or pos_k), one per tile.
 using BlockRing = Ring<2, DW * CHUNK>;
 
+// The pair route's rings (head dims 129 to 256: nk = 2 chunks, both blocks a
+// CTA): the forward keeps q's and pos_q's 2 chunks each resident and streams
+// the key side through PairKeyRing, its blocks of v through PairBlockRing;
+// K4 streams its score pairs through PairScoreRing.
+using PairScoreRing = Ring<4, 2 * CHUNK>;
+using PairKeyRing = Ring<5, CHUNK>;
+using PairBlockRing = Ring<2, PW * CHUNK>;
+
+// A CTA of W block warpgroups (DW: the deep route, PW: the pair route): its
+// threads, rings and register budget.
+template <int W> struct Cta;
+template <> struct Cta<DW> {
+  using SRing = ScoreRing;
+  using KRing = KeyRing;
+  using BRing = BlockRing;
+  using ResBRing = Ring<1, DW * CHUNK>;  // the block ring beside resident q
+  static constexpr int RESIDENT_NK = DEEP_RESIDENT_NK;
+  static constexpr int LAUNCH_REGS = DEEP_LAUNCH_REGS, PRODUCER_REGS = DEEP_PRODUCER_REGS,
+                       BUILDER_REGS = DEEP_BUILDER_REGS;
+};
+template <> struct Cta<PW> {
+  using SRing = PairScoreRing;
+  using KRing = PairKeyRing;
+  using BRing = PairBlockRing;
+  using ResBRing = PairBlockRing;
+  static constexpr int RESIDENT_NK = 2;
+  static constexpr int LAUNCH_REGS = PAIR_LAUNCH_REGS, PRODUCER_REGS = PAIR_PRODUCER_REGS,
+                       BUILDER_REGS = PAIR_BUILDER_REGS;
+};
+// a CTA of W blocks: a producer warpgroup, the builder warpgroup, W block warpgroups
+template <int W>
+constexpr int cta_threads() { return NC * (2 + W); }
+
+// The 64-column boxes of the last chunk of head dim D on a CTA of W blocks:
+// 1 where the pair route's last chunk holds at most 64 columns (D <= 192),
+// else 2 (a constant 2 on the deep route, whose code it leaves as it was).
+template <int W>
+__device__ __forceinline__ int last_boxes(int D) {
+  return W == PW && D - DEEP_CHUNK * (deep_chunks(D) - 1) <= 64 ? 1 : 2;
+}
+// the boxes of chunk c of nk, the last holding lb
+__device__ __forceinline__ int chunk_boxes(int c, int nk, int lb) { return c == nk - 1 ? lb : 2; }
+// the bytes of chunk c's copies on a CTA of W blocks (the deep route: CHUNK)
+template <int W>
+__device__ __forceinline__ uint32_t chunk_bytes(int c, int nk, int lb) {
+  if constexpr (W == PW)
+    return chunk_boxes(c, nk, lb) * HeadTile<DEEP_CHUNK>::LO_BOX;
+  else
+    return CHUNK;
+}
+// the bytes of the column blocks blk0 .. blk0 + nb - 1's copies
+template <int W>
+__device__ __forceinline__ uint32_t blocks_bytes(int blk0, int nb, int nk, int lb) {
+  if constexpr (W == PW) {
+    uint32_t bytes = 0;
+    for (int w = 0; w < nb; ++w) bytes += chunk_bytes<W>(blk0 + w, nk, lb);
+    return bytes;
+  } else {
+    return nb * CHUNK;
+  }
+}
+
 // acc = the sum over the ring's next n items of A . B^T, each item a pair of
 // K-major 64 x 128 chunks (A the slot's first tile, B its second): each
 // item's 8 wgmma k-steps into a fresh fp32 accumulator, then added to acc
@@ -459,6 +515,50 @@ __device__ __forceinline__ void deep_products(float (&acc)[32], R& r, int n, uin
   }
 }
 
+// The pair route's products (nk = 2 chunks): acc = the sum over the ring's
+// next n items of A . B^T as deep_products takes them, but in one fp32
+// accumulator over all their k-steps (2 D / 16 <= 32 of them for the scores:
+// the order of one whole-width product, as at the instances up to 128), each
+// item's k-steps committed as one group and left running while the next
+// item's are issued; an item's slot is released once the group after it has
+// been committed and its own has completed. Item c is chunk c % nk of its
+// streams; where lb is 1 the last chunk is one 64-column box, 4 k-steps. So
+// the tensor cores see the tile's k-steps back to back, with no wait and no
+// fp32 adds between items.
+template <bool kResident = false, class R>
+__device__ __forceinline__ void chained_products(float (&acc)[32], R& r, int n, uint32_t res,
+                                                 int nk, int lb) {
+  int held = -1;
+  for (int c = 0; c < n; ++c) {
+    const int st = r.take();
+    const uint32_t a = kResident ? res + c * CHUNK : r.slot(st);
+    const uint32_t b = kResident ? r.slot(st) : r.slot(st) + CHUNK;
+    wgmma_fence();
+    if (chunk_boxes(c % nk, nk, lb) == 2)
+      issue_kmajor<DEEP_CHUNK>(acc, a, b, c);
+    else
+      issue_kmajor<64>(acc, a, b, c);
+    wgmma_commit();
+    wgmma_wait_n<1>();
+    if (held >= 0) r.release(held);
+    held = st;
+  }
+  wgmma_wait();
+  fence_operand(acc);
+  r.release(held);
+}
+
+// The score (or dP) products of a CTA of W blocks: chained on the pair route,
+// a fresh accumulator an item on the deep route.
+template <int W, bool kResident = false, class R>
+__device__ __forceinline__ void score_products(float (&acc)[32], R& r, int n, uint32_t res,
+                                               int nk, int lb) {
+  if constexpr (W == PW)
+    chained_products<kResident>(acc, r, n, res, nk, lb);
+  else
+    deep_products<kResident>(acc, r, n, res);
+}
+
 // x (a 64 x 64 fp32 accumulator of the builder warpgroup: rows r0 and r0 + 8,
 // columns 8 j + cq and + 1) rounded to bf16 into the K-major tile at dst, as
 // TMA's 128-byte swizzle lays a 64-column box (16-byte unit j of row r at
@@ -484,17 +584,18 @@ __device__ __forceinline__ void store_a_tile(uint32_t dst, const float (&x)[32],
 }
 
 // acc += the sum over NP K-major 64 x 64 bf16 tiles A_p at pa + p PTILE of
-// A_p . B, B the 64 x 128 chunk at sb read MN-major (its 64-column boxes one
-// N block each): a block warpgroup's product, issued, committed and waited.
-template <int NP>
-__device__ __forceinline__ void block_products(float (&acc)[DEEP_CHUNK / 2], uint32_t pa,
-                                               uint32_t sb) {
+// A_p . B, B the 64 x 128 chunk at sb read MN-major (its first NBOX
+// 64-column boxes one N block each; the columns of a box not read stay as
+// they were): a block warpgroup's product, issued, committed and waited.
+template <int NP, int NBOX>
+__device__ __forceinline__ void block_products_of(float (&acc)[DEEP_CHUNK / 2], uint32_t pa,
+                                                  uint32_t sb) {
   using HT = HeadTile<DEEP_CHUNK>;
   wgmma_fence();
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int b = 0; b < HT::NLO; ++b) {
+    for (int b = 0; b < NBOX; ++b) {
       float(&lo)[32] = *reinterpret_cast<float(*)[32]>(&acc[32 * b]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // 16 keys: 32 bytes of A's rows, 16 rows of B's box
@@ -504,6 +605,16 @@ __device__ __forceinline__ void block_products(float (&acc)[DEEP_CHUNK / 2], uin
   wgmma_commit();
   wgmma_wait();
   fence_regs(acc);
+}
+
+// block_products_of with nbox (1 or 2) boxes of B
+template <int NP>
+__device__ __forceinline__ void block_products(float (&acc)[DEEP_CHUNK / 2], uint32_t pa,
+                                               uint32_t sb, int nbox = 2) {
+  if (nbox == 2)
+    block_products_of<NP, 2>(acc, pa, sb);
+  else
+    block_products_of<NP, 1>(acc, pa, sb);
 }
 
 // The score accumulator, as probabilities, into P.v's A fragments: positions
@@ -539,7 +650,7 @@ __device__ __forceinline__ float fexp(float x) { return exp2f(x * 1.442695040888
 // tile's softmax made ptxas serialise every wgmma of the kernel (C7514) and
 // ran slower; the overlap comes from the second CTA on the SM instead.
 // maps: q, pos_q, k, pos_k, v; D: the head dim (a multiple of 8, <= DP).
-// Block x is (q tile, column half): q tile x / NCH, half x % NCH.
+// Block x is the q tile.
 template <int DP, bool kNorm, typename TR>
 __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     const __grid_constant__ Maps<DP, 5> maps, const TR* __restrict__ rel,
@@ -547,7 +658,7 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
     int skip_max, int D) {
   using Lay = Layout<DP>;
-  constexpr int STAGES = Lay::STAGES, VW = Lay::VW;
+  constexpr int STAGES = Lay::STAGES;
   constexpr uint32_t TILE = Lay::TILE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -558,9 +669,7 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
   auto empty = [=](int st) { return bars + 8u * (STAGES + st); };
   auto stage = [=](int st) { return base + Lay::OFF_KV + Lay::STAGE * st; };  // k, pos_k, v
 
-  const int nch = Lay::NCH;  // column halves
-  const int q0 = blockIdx.x / nch * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int half = blockIdx.x % nch, c0 = VW * half;  // this CTA's columns of v and out
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int ntiles = (S + BK - 1) / BK;
   const int n = kNorm ? 2 * ntiles : ntiles;
@@ -585,10 +694,10 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
         if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
         const int k0 = (it % ntiles) * BK;
         const bool with_v = !kNorm || it >= ntiles;  // K5's first pass needs no v
-        mbar_expect_tx(full(st), 2 * TILE + (with_v ? Lay::vbytes(half) : 0));
+        mbar_expect_tx(full(st), (with_v ? 3 : 2) * TILE);
         load_tile(stage(st), maps, 2, full(st), k0, bh);
         load_tile(stage(st) + TILE, maps, 3, full(st), k0, bh);
-        if (with_v) load_cols(stage(st) + 2 * TILE, maps, 4, full(st), k0, bh, half);
+        if (with_v) load_tile(stage(st) + 2 * TILE, maps, 4, full(st), k0, bh);
       }
     }
     return;  // no block-wide barrier follows
@@ -601,11 +710,11 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
   const uint8_t* kp = kpad + (long long)b * S;
   const TR* relh = rel ? rel + h * rel_hs : nullptr;
 
-  float m[2], l[2], rl[2], acc[VW / 2], sc[32];
+  float m[2], l[2], rl[2], acc[DP / 2], sc[32];
   uint32_t pa[16];
   TileBias<TR> bias;
 #pragma unroll
-  for (int i = 0; i < VW / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     m[hh] = (!kNorm && skip_max) ? 0.f : -CUDART_INF_F;
@@ -640,7 +749,7 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
         l[hh] *= scale;
         m[hh] = mnew;
 #pragma unroll
-        for (int j = 0; j < VW / 8; ++j) {
+        for (int j = 0; j < DP / 8; ++j) {
           acc[4 * j + 2 * hh] *= scale;
           acc[4 * j + 2 * hh + 1] *= scale;
         }
@@ -698,7 +807,7 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     }
     if (pv) {
       to_a_fragments(sc, pa);  // rounded to bf16
-      issue_pv<DP>(acc, pa, stage(st) + 2 * TILE, Lay::vboxes(half));
+      issue_pv<DP>(acc, pa, stage(st) + 2 * TILE);
       wgmma_wait();
       fence_regs(acc);
     }
@@ -711,74 +820,83 @@ __global__ void __launch_bounds__(NT, DP < 128 ? 2 : 1) kernel(
     const int t = t0 + 8 * hh;
     if (t >= Tq) continue;
     const float denom = kNorm ? 1.f : (skip_max ? fmaxf(l[hh], 1e-38f) : l[hh]);
-    __nv_bfloat16* o = out + ((long long)bh * Tq + t) * D + c0 + cq;
+    __nv_bfloat16* o = out + ((long long)bh * Tq + t) * D + cq;
 #pragma unroll
-    for (int j = 0; j < VW / 8; ++j) {
-      if (c0 + 8 * j >= D) break;  // the zero-filled columns past D
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j >= D) break;  // the zero-filled columns past D
       const float a = acc[4 * j + 2 * hh], c = acc[4 * j + 2 * hh + 1];
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
           kNorm ? __floats2bfloat162_rn(a, c) : __floats2bfloat162_rn(a / denom, c / denom);
     }
     // K3: the row's logsumexp, from one thread of the quad that holds it
-    if (!kNorm && lse && half == 0 && (lane & 3) == 0)
+    if (!kNorm && lse && (lane & 3) == 0)
       lse[(long long)bh * Tq + t] = skip_max ? logf(denom) : m[hh] + logf(denom);
   }
 }
 
 // ---- the deep route's kernel ------------------------------------------------
 
-// The shared memory of fwd_deep: with kResident the chunks of q and pos_q;
-// the score ring (ScoreRing; kResident: KeyRing), the operand ring (the DW
-// blocks of v: 2 slots, kResident 1), two buffers of P, the rows' scales
-// (two buffers) and denominators, the mbarriers (score ring, block ring, P
-// full and empty x 2; kResident also q's) and 1 KB of slack for the
-// 1024-byte alignment: 214,896 bytes whatever D, kResident 231,288.
-template <bool kResident>
+// The shared memory of fwd_deep on a CTA of W blocks (Cta<W>): with
+// kResident the chunks of q and pos_q; the score ring (SRing; kResident:
+// KRing), the operand ring (the W blocks of v: BRing, kResident ResBRing),
+// two buffers of P, the rows' scales (two buffers) and denominators, the
+// mbarriers (score ring, block ring, P full and empty x 2; kResident also
+// q's) and 1 KB of slack for the 1024-byte alignment. The deep route:
+// 214,896 bytes whatever D, kResident 231,288; the pair route (always
+// kResident) 231,320.
+template <int W, bool kResident>
 struct DeepFwd {
-  using SRing = std::conditional_t<kResident, KeyRing, ScoreRing>;
-  using VRing = std::conditional_t<kResident, Ring<1, DW * CHUNK>, BlockRing>;
-  static constexpr int SSTAGES = kResident ? 4 : 3, VSTAGES = kResident ? 1 : 2;
-  static constexpr uint32_t OFF_S = kResident ? 2 * DEEP_RESIDENT_NK * CHUNK : 0;
-  static constexpr uint32_t OFF_V = OFF_S + SSTAGES * (kResident ? 1 : 2) * CHUNK;
-  static constexpr uint32_t OFF_P = OFF_V + VSTAGES * DW * CHUNK;
+  using C = Cta<W>;
+  using SRing = std::conditional_t<kResident, typename C::KRing, typename C::SRing>;
+  using VRing = std::conditional_t<kResident, typename C::ResBRing, typename C::BRing>;
+  static constexpr int SSTAGES = SRing::DEPTH, VSTAGES = VRing::DEPTH;
+  static constexpr uint32_t OFF_S = kResident ? 2 * C::RESIDENT_NK * CHUNK : 0;
+  static constexpr uint32_t OFF_V = OFF_S + SRing::BYTES;
+  static constexpr uint32_t OFF_P = OFF_V + VRing::BYTES;
   static constexpr uint32_t OFF_ROWS = OFF_P + 2 * PTILE;  // scale[2][64], l[64] fp32
   static constexpr uint32_t OFF_BAR = OFF_ROWS + 3 * BQ * 4;
   static constexpr int NBARS = 2 * SSTAGES + 2 * VSTAGES + 4 + kResident;
   static constexpr size_t SMEM = OFF_BAR + 8 * NBARS + 1024;
 };
 
-// The deep route (DP == DEEP: any head dim D past 256, a multiple of 8) of
-// K1, K3 (lse not null) and K5 (kNorm), for one (b, h, 64-row q tile, group
-// of up to DW column blocks of 128): block x is q tile x / groups, group
-// x % groups, groups = ceil(nch / DW), nch = ceil(D / 128). Nothing is
-// resident; D streams through the score products in chunks of 128.
+// The routes past head dim 128 (a multiple of 8) of K1, K3 (lse not null)
+// and K5 (kNorm): the deep route (W = DW, D past 256) and the pair route (W =
+// PW, D 129 to 256), for one (b, h, 64-row q tile, group of up to W column
+// blocks of 128): block x is q tile x / groups, group x % groups, groups =
+// ceil(nch / W), nch = ceil(D / 128) (the pair route: one group). D streams
+// through the score products in chunks of 128 (kResident: q's and pos_q's
+// stay in shared memory, the key side streams).
 //   - The producer warpgroup (setmaxnreg down to 32): warp 0 streams, for
 //     each key tile, the chunk pairs (q, k) of every chunk, then (pos_q,
 //     pos_k), into the score ring; warp 1 the group's blocks of v of each key
 //     tile (K5: of its second pass) into the block ring.
-//   - The builder warpgroup (setmaxnreg up to 160) builds each key tile's
-//     scores once for the whole group: the pairs' products in that order,
-//     each in a fresh accumulator (deep_products), then rel, the masks and
+//   - The builder warpgroup (setmaxnreg up to Cta<W>::BUILDER_REGS) builds
+//     each key tile's scores once for the whole group: the pairs' products
+//     in that order (score_products: on the deep route each in a fresh
+//     accumulator, on the pair route chained), then rel, the masks and
 //     the softmax as kernel<DP> does; it writes P, rounded to bf16, into one
 //     of two shared-memory buffers as wgmma's A operand, K1's per-row rescale
 //     factor beside it, behind fence.proxy.async (generic stores, then the
 //     async proxy reads them) and the buffer's "full" mbarrier; it waits for
 //     the buffer's "empty" mbarrier before writing it again, so it runs up to
 //     a tile ahead of the block warpgroups.
-//   - Block warpgroup w (of DW, 96 registers) owns column block DW group + w
-//     (none past nch: it then only keeps the barriers' counts): its 64 x 128
+//   - Block warpgroup w (of W, the launch's registers) owns column block
+//     W group + w (none past nch: it then only keeps the barriers' counts): its 64 x 128
 //     fp32 accumulator, rescaled by K1's factors, += P . v from shared memory.
 // Every block of a query tile sees the same scores, m, l and P, bit for bit:
 // one builder computes them for a CTA's blocks, and the CTAs of one query
 // tile run the same instructions on the same chunks. Scores are built
-// ceil(nch / DW) times per (q tile, key tile): once at D 384, twice at 768.
-template <bool kNorm, typename TR, bool kResident>
-__global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
+// ceil(nch / W) times per (q tile, key tile): once at D 129 to 384, twice at
+// 768. Where the pair route's last chunk is one 64-column box (last_boxes),
+// its copies, score products and block are that box alone.
+template <bool kNorm, typename TR, bool kResident, int W>
+__global__ void __launch_bounds__(NC * (2 + W), 1) fwd_deep(
     const __grid_constant__ Maps<DEEP_CHUNK, 5> maps, const TR* __restrict__ rel,
     const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
     int H, int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int rel_vec, int causal,
     int skip_max, int D) {
-  using L = DeepFwd<kResident>;
+  using L = DeepFwd<W, kResident>;
+  using C = Cta<W>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   float* const rows = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::OFF_ROWS);
@@ -786,10 +904,10 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
   const uint32_t vbars = bars + 16 * L::SSTAGES, pbars = vbars + 16 * L::VSTAGES;
   const uint32_t qbar = pbars + 32;  // kResident: q and pos_q landed
   const uint32_t pbuf = base + L::OFF_P;
-  const int nk = deep_chunks(D), groups = (nk + DW - 1) / DW;
+  const int nk = deep_chunks(D), groups = (nk + W - 1) / W, lb = last_boxes<W>(D);
   const int q0 = blockIdx.x / groups * BQ, grp = blockIdx.x % groups;
   const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
-  const int blk0 = DW * grp, nb = min(DW, nk - blk0);  // this CTA's column blocks
+  const int blk0 = W * grp, nb = min(W, nk - blk0);  // this CTA's column blocks
   const int ntiles = (S + BK - 1) / BK;
   const int n = kNorm ? 2 * ntiles : ntiles;
   const int wg = threadIdx.x / NC, tid = threadIdx.x % NC;
@@ -798,10 +916,10 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
 
   if (threadIdx.x == 0) {
     sring.init(NC);
-    vring.init(DW * NC);
+    vring.init(W * NC);
     for (int i = 0; i < 2; ++i) {
-      mbar_init(pbars + 8u * i, NC);             // full: the builder's threads
-      mbar_init(pbars + 8u * (2 + i), DW * NC);  // empty: the block warpgroups'
+      mbar_init(pbars + 8u * i, NC);            // full: the builder's threads
+      mbar_init(pbars + 8u * (2 + i), W * NC);  // empty: the block warpgroups'
     }
     if (kResident) mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -809,31 +927,35 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
   __syncthreads();
 
   if (wg == 0) {  // the producer warpgroup: one thread of warp 0 and one of warp 1
-    regs_dec<DEEP_PRODUCER_REGS>();
+    regs_dec<C::PRODUCER_REGS>();
     if (tid == 0) {
       if (kResident) {  // q's chunks, then pos_q's, once
-        mbar_expect_tx(qbar, 2 * nk * CHUNK);
-        for (int c = 0; c < 2 * nk; ++c) load_chunk(base + c * CHUNK, maps, c / nk, qbar, c % nk, q0, bh);
+        mbar_expect_tx(qbar, W == PW ? 2 * ((nk - 1) * CHUNK + chunk_bytes<W>(nk - 1, nk, lb))
+                                     : 2 * nk * CHUNK);
+        for (int c = 0; c < 2 * nk; ++c)
+          load_chunk(base + c * CHUNK, maps, c / nk, qbar, c % nk, q0, bh,
+                     chunk_boxes(c % nk, nk, lb));
       }
       for (int it = 0; it < n; ++it) {
         const int k0 = (it % ntiles) * BK;
         for (int c = 0; c < 2 * nk; ++c) {  // q . k chunk by chunk, then pos_q . pos_k
-          const int i = c < nk ? 0 : 1;
+          const int i = c < nk ? 0 : 1, nbox = chunk_boxes(c % nk, nk, lb);
           if (kResident) {
-            const int st = sring.put(CHUNK);
-            load_chunk(sring.slot(st), maps, i + 2, sring.full(st), c % nk, k0, bh);
+            const int st = sring.put(chunk_bytes<W>(c % nk, nk, lb));
+            load_chunk(sring.slot(st), maps, i + 2, sring.full(st), c % nk, k0, bh, nbox);
           } else {
-            const int st = sring.put(2 * CHUNK);
-            load_chunk(sring.slot(st), maps, i, sring.full(st), c % nk, q0, bh);
-            load_chunk(sring.slot(st) + CHUNK, maps, i + 2, sring.full(st), c % nk, k0, bh);
+            const int st = sring.put(2 * chunk_bytes<W>(c % nk, nk, lb));
+            load_chunk(sring.slot(st), maps, i, sring.full(st), c % nk, q0, bh, nbox);
+            load_chunk(sring.slot(st) + CHUNK, maps, i + 2, sring.full(st), c % nk, k0, bh, nbox);
           }
         }
       }
     } else if (tid == 32) {
       for (int it = kNorm ? ntiles : 0; it < n; ++it) {  // the group's blocks of v
-        const int st = vring.put(nb * CHUNK), k0 = (it % ntiles) * BK;
+        const int st = vring.put(blocks_bytes<W>(blk0, nb, nk, lb)), k0 = (it % ntiles) * BK;
         for (int w = 0; w < nb; ++w)
-          load_chunk(vring.slot(st) + w * CHUNK, maps, 4, vring.full(st), blk0 + w, k0, bh);
+          load_chunk(vring.slot(st) + w * CHUNK, maps, 4, vring.full(st), blk0 + w, k0, bh,
+                     chunk_boxes(blk0 + w, nk, lb));
       }
     }
     return;  // no block-wide barrier follows
@@ -847,11 +969,11 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
   auto pempty = [=](int i) { return pbars + 8u * (2 + i); };
 
   if (wg == 1) {  // the builder
-    regs_inc<DEEP_BUILDER_REGS>();
+    regs_inc<C::BUILDER_REGS>();
     const uint8_t* kp = kpad + (long long)b * S;
     const TR* relh = rel ? rel + h * rel_hs : nullptr;
     float m[2], l[2], rl[2], sc[32];
-    TileBias<TR> bias;
+    TileBias<TR, W == PW> bias;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       m[hh] = (!kNorm && skip_max) ? 0.f : -CUDART_INF_F;
@@ -864,7 +986,7 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
       const int k0 = (it % ntiles) * BK;
       const bool pv = !kNorm || it >= ntiles;
       load_bias(bias, relh, rel_rs, rel_vec, kp, k0, S, t0, Tq, lane, cq);  // while they run
-      deep_products<kResident>(sc, sring, 2 * nk, base);
+      score_products<W, kResident>(sc, sring, 2 * nk, base, nk, lb);
       mask_scores(sc, bias, relh != nullptr, k0, S, t0, Tq, causal, lane);
       float scale[2] = {1.f, 1.f};
       if (!kNorm) {  // K1: the running max; l rescaled to it (acc by the block warpgroups)
@@ -951,7 +1073,7 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
       if (!kNorm && lse && grp == 0 && (lane & 3) == 0 && t < Tq)
         lse[(long long)bh * Tq + t] = skip_max ? logf(denom) : m[hh] + logf(denom);
     }
-    named_sync(2, (1 + DW) * NC);  // the denominators, to the block warpgroups
+    named_sync(2, (1 + W) * NC);  // the denominators, to the block warpgroups
     return;
   }
 
@@ -976,11 +1098,13 @@ __global__ void __launch_bounds__(DEEP_THREADS, 1) fwd_deep(
       }
     }
     const int vs = vring.take();
-    if (has) block_products<1>(acc, pbuf + i * PTILE, vring.slot(vs) + w * CHUNK);
+    if (has)
+      block_products<1>(acc, pbuf + i * PTILE, vring.slot(vs) + w * CHUNK,
+                        chunk_boxes(blk0 + w, nk, lb));
     vring.release(vs);
     mbar_arrive(pempty(i));
   }
-  named_sync(2, (1 + DW) * NC);
+  named_sync(2, (1 + W) * NC);
   if (!has) return;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -1012,67 +1136,66 @@ inline int stream_maps(Maps<DP, N>& maps, const void* const (&ptrs)[N], const in
   return 0;
 }
 
-// 0 where a deep kernel has the registers at launch that its setmaxnreg
-// budget assumes (DEEP_LAUNCH_REGS: the builder's increase waits for
-// registers that the producer's decrease frees, so any other count could
-// hang it), else cudaErrorInvalidConfiguration: the launch is refused.
-inline int deep_regs_ok(const void* fn) {
+// 0 where a kernel of a CTA of W blocks has the registers at launch that its
+// setmaxnreg budget assumes (Cta<W>::LAUNCH_REGS: the builder's increase
+// waits for registers that the producer's decrease frees, so any other count
+// could hang it), else cudaErrorInvalidConfiguration: the launch is refused.
+template <int W>
+int deep_regs_ok(const void* fn) {
   cudaFuncAttributes attr;
   if (const cudaError_t err = cudaFuncGetAttributes(&attr, fn)) return (int)err;
-  return attr.numRegs == DEEP_LAUNCH_REGS ? 0 : (int)cudaErrorInvalidConfiguration;
+  return attr.numRegs == Cta<W>::LAUNCH_REGS ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
-// Launches the deep route (fwd_deep; q and pos_q resident where D has at
-// most DEEP_RESIDENT_NK chunks) on `stream`, the arguments as launch's.
-template <bool kNorm, typename TR, bool kResident>
+// Launches fwd_deep on a CTA of W blocks (q and pos_q resident with
+// kResident) on `stream`, the arguments as launch's.
+template <bool kNorm, typename TR, bool kResident, int W>
 int launch_deep_as(const void* q, const void* pq, const void* k, const void* pk, const void* v,
-                const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq,
-                int S, int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
-                cudaStream_t stream) {
+                   const void* rel, const void* kpad, void* out, float* lse, int B, int H,
+                   int Tq, int S, int Sp, long long rel_hs, long long rel_rs, int causal,
+                   int skip_max, int D, cudaStream_t stream) {
   Maps<DEEP_CHUNK, 5> maps;
   if (const int err = stream_maps<DEEP_CHUNK, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
                                                  (long long)B * H, D))
     return err;
   const int rel_vec = rel && reinterpret_cast<uintptr_t>(rel) % (2 * sizeof(TR)) == 0 &&
                       rel_rs % 2 == 0 && rel_hs % 2 == 0 && S % 2 == 0;
-  const void* fn = (const void*)fwd_deep<kNorm, TR, kResident>;
-  constexpr size_t smem = DeepFwd<kResident>::SMEM;
+  const void* fn = (const void*)fwd_deep<kNorm, TR, kResident, W>;
+  constexpr size_t smem = DeepFwd<W, kResident>::SMEM;
   static SmemOptIn opt_in;
   if (const int err = opt_in.ensure(fn, smem)) return err;
-  if (const int err = deep_regs_ok(fn)) return err;
-  const int groups = (deep_chunks(D) + DW - 1) / DW;
+  if (const int err = deep_regs_ok<W>(fn)) return err;
+  const int groups = (deep_chunks(D) + W - 1) / W;
   const dim3 grid((Tq + BQ - 1) / BQ * groups, H, B);
-  fwd_deep<kNorm, TR, kResident><<<grid, DEEP_THREADS, smem, stream>>>(
+  fwd_deep<kNorm, TR, kResident, W><<<grid, cta_threads<W>(), smem, stream>>>(
       maps, static_cast<const TR*>(rel), static_cast<const uint8_t*>(kpad),
       static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp, rel_hs, rel_rs, rel_vec, causal,
       skip_max, D);
   return (int)cudaGetLastError();
 }
 
-template <bool kNorm, typename TR>
-int launch_deep(const void* q, const void* pq, const void* k, const void* pk, const void* v,
-                const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq,
-                int S, int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
-                cudaStream_t stream) {
-  if (deep_chunks(D) <= DEEP_RESIDENT_NK)
-    return launch_deep_as<kNorm, TR, true>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq, S,
-                                           Sp, rel_hs, rel_rs, causal, skip_max, D, stream);
-  return launch_deep_as<kNorm, TR, false>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq, S, Sp,
-                                          rel_hs, rel_rs, causal, skip_max, D, stream);
-}
-
 // Launches the core on `stream` for bf16 streams [B, H, Tq or S, D] (16-byte
-// aligned, D <= DP a multiple of 8; the deep route past 256: launch_deep) and
-// rel of type TR (or null); K1's walk also writes the fp32 logsumexp
-// [B, H, Tq] where lse is not null (K3). Returns a cudaError_t code.
+// aligned, D <= DP a multiple of 8; past 256, DP == DEEP) and rel of type TR
+// (or null); K1's walk also writes the fp32 logsumexp [B, H, Tq] where lse is
+// not null (K3): kernel<DP> up to 128, the pair route (fwd_deep on PW blocks,
+// q and pos_q resident) at 192 and 256, the deep route (DW blocks; q and
+// pos_q resident where D has at most DEEP_RESIDENT_NK chunks) past 256.
+// Returns a cudaError_t code.
 template <int DP, bool kNorm, typename TR>
 int launch(const void* q, const void* pq, const void* k, const void* pk, const void* v,
            const void* rel, const void* kpad, void* out, float* lse, int B, int H, int Tq, int S,
            int Sp, long long rel_hs, long long rel_rs, int causal, int skip_max, int D,
            cudaStream_t stream) {
   if constexpr (DP == DEEP) {
-    return launch_deep<kNorm, TR>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq, S, Sp, rel_hs,
-                                  rel_rs, causal, skip_max, D, stream);
+    if (deep_chunks(D) > DEEP_RESIDENT_NK)
+      return launch_deep_as<kNorm, TR, false, DW>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq,
+                                                  S, Sp, rel_hs, rel_rs, causal, skip_max, D,
+                                                  stream);
+    return launch_deep_as<kNorm, TR, true, DW>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq, S,
+                                               Sp, rel_hs, rel_rs, causal, skip_max, D, stream);
+  } else if constexpr (DP > 128) {
+    return launch_deep_as<kNorm, TR, true, PW>(q, pq, k, pk, v, rel, kpad, out, lse, B, H, Tq, S,
+                                               Sp, rel_hs, rel_rs, causal, skip_max, D, stream);
   } else {
     Maps<DP, 5> maps;
     if (const int err = stream_maps<DP, 5>(maps, {q, pq, k, pk, v}, {Tq, Tq, S, S, S},
@@ -1084,7 +1207,7 @@ int launch(const void* q, const void* pq, const void* k, const void* pk, const v
     constexpr size_t smem = Layout<DP>::SMEM_BYTES;
     static SmemOptIn opt_in;
     if (const int err = opt_in.ensure((const void*)kernel<DP, kNorm, TR>, smem)) return err;
-    const dim3 grid((Tq + BQ - 1) / BQ * Layout<DP>::NCH, H, B);
+    const dim3 grid((Tq + BQ - 1) / BQ, H, B);
     kernel<DP, kNorm, TR><<<grid, NT, smem, stream>>>(
         maps, static_cast<const TR*>(rel),
         static_cast<const uint8_t*>(kpad), static_cast<__nv_bfloat16*>(out), lse, H, Tq, S, Sp,

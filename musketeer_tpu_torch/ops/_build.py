@@ -129,16 +129,18 @@ def stream_of(t: torch.Tensor) -> int:
 # ``DEEP_CHUNK`` columns (``deep_chunks``; the last zero-filled past D) and
 # each output's columns split into blocks of ``DEEP_CHUNK`` (up to three a CTA
 # in the bf16 K1/K3/K4/K5 kernels), so that a CTA's shared memory and
-# registers do not grow with D (the wrappers
-# count those launches in ``.deep``). The wrappers hand the kernels a D that
-# is a multiple of 8 (K6's int8 cache: of 16), copying any other into a
-# zero-padded buffer first (``pad_head``). Past ``SPLIT_HEAD_DIM`` the
-# tensor-core attention core and K4 split each output's columns into blocks
-# of 128 over the grid (``col_halves``; the wrappers count those launches in
-# ``.col_split``). The plain versions take any head dim.
+# registers do not grow with D (the wrappers count those launches in
+# ``.deep``). Past ``WIDE_HEAD_DIM`` up to ``MAX_INSTANCE`` (the instances 192
+# and 256) the bf16 K1/K3/K4/K5 kernels run on the pair route: the deep
+# route's CTA with both column blocks of 128 in one CTA, so that each score
+# tile is built once for the whole output (the wrappers count those launches
+# in ``.pair``); K6 and K7 there take shallower rings (``.wide``). The
+# wrappers hand the kernels a D that is a multiple of 8 (K6's int8 cache: of
+# 16), copying any other into a zero-padded buffer first (``pad_head``). The
+# plain versions take any head dim.
 HEAD_DIMS = (32, 64, 80, 128, 192, 256)
 MAX_INSTANCE = HEAD_DIMS[-1]
-SPLIT_HEAD_DIM = 128
+WIDE_HEAD_DIM = 128
 DEEP = 0  # the deep route's instance tag (csrc/common.cuh::DEEP)
 DEEP_CHUNK = 128  # its chunk width, and that of an output's column block
 
@@ -166,17 +168,20 @@ def deep_chunks(head_dim: int) -> int:
 
 
 def col_halves(head_dim: int) -> int:
-    """The column blocks that the tensor-core attention core (K1, K3, K5) and
-    K4 split a head dim's outputs into, one block per CTA over the grid: 1 up
-    to ``SPLIT_HEAD_DIM``, 2 halves of 128 up to ``MAX_INSTANCE``
-    (csrc/flash_fwd_sm90.cuh::Layout::NCH), and past it ``deep_chunks``
-    blocks of 128 (the bf16 kernels of the deep route group up to three in a
-    CTA, ``flash_attention_infer.deep_groups``; the fp32 ones,
+    """The column blocks of 128 that the tensor-core attention core (K1, K3,
+    K5) and K4 split a head dim's outputs into: 1 up to ``WIDE_HEAD_DIM``,
+    else ``deep_chunks`` (2 on the pair route up to ``MAX_INSTANCE``, one CTA
+    owning both; past it the bf16 kernels of the deep route group up to three
+    in a CTA, ``flash_attention_infer.deep_groups``, and the fp32 ones,
     csrc/flash_deep.cuh, take one a CTA)."""
-    dp = head_instance(head_dim)
-    if dp == DEEP:
-        return deep_chunks(head_dim)
-    return 1 if dp <= SPLIT_HEAD_DIM else 2
+    return 1 if head_dim <= WIDE_HEAD_DIM else deep_chunks(head_dim)
+
+
+def pair_route(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether a call of K1, K3, K4 or K5 at ``head_dim`` runs on the pair
+    route: bf16 at head dims past ``WIDE_HEAD_DIM`` up to ``MAX_INSTANCE``
+    (the instances 192 and 256)."""
+    return dtype == torch.bfloat16 and head_instance(head_dim) > WIDE_HEAD_DIM
 
 
 def pad_head(t: torch.Tensor, unit: int = 8) -> torch.Tensor:

@@ -154,7 +154,7 @@ def decode_cross_attention_int8(
     decode_cross_attention_int8.launches_sm90 += kind == "sm90"
     decode_cross_attention_int8.beam_tiled += route["beam_tiles"] > 1
     decode_cross_attention_int8.chunked += route["chunk"] < S
-    decode_cross_attention_int8.wide += _build.head_instance(Dp, 16) > _build.SPLIT_HEAD_DIM
+    decode_cross_attention_int8.wide += _build.head_instance(Dp, 16) > _build.WIDE_HEAD_DIM
     decode_cross_attention_int8.deep += _build.head_instance(Dp, 16) == _build.DEEP
     if Dp != D:  # ran on zero-padded copies
         decode_cross_attention_int8.padded += 1

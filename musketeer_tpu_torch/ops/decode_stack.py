@@ -239,7 +239,7 @@ def cross_stages(dp: int) -> int:
     """The depth of the bf16 cross-attentions' rings of K/V tiles at instance
     dp (``decode_attn::stages``, K6's too): 8 up to 128 and on the deep route,
     then as many as 8 tiles of 128 columns take (5 at 192, 4 at 256)."""
-    return 8 if tile_width(dp) <= _build.SPLIT_HEAD_DIM else 8 * 128 // dp
+    return 8 if tile_width(dp) <= _build.WIDE_HEAD_DIM else 8 * 128 // dp
 
 
 def _cross_smem(Kb: int, S: int, D: int = 64) -> int:
@@ -397,7 +397,7 @@ def decode_stack_step(
         _build.check(err, "decode_stack_step")
     decode_stack_step.launches += 1
     decode_stack_step.padded += self_k.shape[-1] != hd
-    decode_stack_step.wide += _build.head_instance(hd) > _build.SPLIT_HEAD_DIM
+    decode_stack_step.wide += _build.head_instance(hd) > _build.WIDE_HEAD_DIM
     decode_stack_step.deep += _build.head_instance(hd) == _build.DEEP
     decode_stack_step.beam_tiled += plan["beam_tiles"] > 1
     decode_stack_step.chunked += plan["chunk"] < S

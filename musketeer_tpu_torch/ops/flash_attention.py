@@ -33,10 +33,10 @@ it, one past 256 on the deep route, the head dim streamed through the
 products in chunks of 128, the output in blocks of 128 sharing each score
 tile three a CTA (``csrc/flash_fwd_sm90.cuh::fwd_deep``,
 ``csrc/flash_deep.cuh``; counted in ``.deep``), one that is not a multiple
-of 8 on zero-padded copies (counted in ``.padded``), one past 128 in bf16
-with the output's columns split into blocks of 128 (counted in
-``.col_split``). Like K1 they have no backward and refuse inputs that
-autograd tracks.
+of 8 on zero-padded copies (counted in ``.padded``), one of 129 to 256 in
+bf16 on the pair route, both column blocks of 128 in one CTA sharing each
+score tile (counted in ``.pair``). Like K1 they have no backward and refuse
+inputs that autograd tracks.
 """
 
 from __future__ import annotations
@@ -136,9 +136,9 @@ def _launch(name: str, q, k, v, pos_q, pos_k, rel: Optional[torch.Tensor], kpad,
 
 def _sliced(fn, out: torch.Tensor, D: int) -> torch.Tensor:
     """K5's output cut back to the head dim where it ran on zero-padded copies;
-    the launch counted in ``fn.col_split`` where it split its columns, in
+    the launch counted in ``fn.pair`` where it ran on the pair route, in
     ``fn.deep`` where it ran on the deep route."""
-    fn.col_split += _build.col_halves(D) > 1 and out.dtype == torch.bfloat16
+    fn.pair += _build.pair_route(D, out.dtype)
     fn.deep += _build.head_instance(D) == _build.DEEP
     if out.shape[-1] == D:
         return out
@@ -193,7 +193,7 @@ flash_attention_bias.launches = 0
 flash_cross_attention.launches = 0
 flash_attention_bias.padded = 0  # the launches that ran on zero-padded copies
 flash_cross_attention.padded = 0
-flash_attention_bias.col_split = 0  # the bf16 launches split into column blocks (D > 128)
-flash_cross_attention.col_split = 0
+flash_attention_bias.pair = 0  # the bf16 launches on the pair route (D 129 to 256)
+flash_cross_attention.pair = 0
 flash_attention_bias.deep = 0  # the launches on the deep route (D > 256)
 flash_cross_attention.deep = 0

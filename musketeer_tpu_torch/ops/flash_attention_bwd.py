@@ -36,11 +36,13 @@ boundaries; the wrappers raise otherwise. Both cores are compiled at the
 tile widths ``_build.HEAD_DIMS`` (32, 64, 80, 128, 192, 256): a head dim up
 to 256 runs on the smallest that covers it, one that is not a multiple of 8
 on zero-padded copies (``flash_attention_infer.padded_streams``; counted in
-``.padded``); K4's key-major work is two launches at 80 and three from 128,
-its query-major work two from 128 (``csrc/flash_bwd_sm90.cuh``); past 128
-the bf16 launches of both split each output's columns into halves of 128
-over the grid (counted in ``.col_split``). Any head dim past 256 runs on the
-deep route (``_build.DEEP``; counted in ``.deep``): the head dim streamed
+``.padded``); K4's key-major work is two launches at 80 and three at 128,
+its query-major work two at 128 (``csrc/flash_bwd_sm90.cuh``); from 129 to
+256 the bf16 launches of both run on the pair route (counted in ``.pair``):
+the deep route's CTA below with both column blocks of 128 of an output in
+one CTA, so that K3 builds each score tile once and K4 S 5 times and dP 4
+times per (key tile, q tile), in two launches. Any head dim past 256 runs
+on the deep route (``_build.DEEP``; counted in ``.deep``): the head dim streamed
 through the products in chunks of 128 and each output's columns in blocks
 of 128, up to three a CTA, whose builder warpgroup builds each score (and
 dP) tile once for them (``csrc/flash_fwd_sm90.cuh::fwd_deep``,
@@ -139,7 +141,7 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, rel, kpad, causal: bool = False,
         )
     _build.check(err, name)
     flash_attention_fwd.launches += 1
-    flash_attention_fwd.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
+    flash_attention_fwd.pair += _build.pair_route(D, q.dtype)
     flash_attention_fwd.deep += _build.head_instance(D) == _build.DEEP
     if out.shape[-1] != D:  # ran on zero-padded copies
         flash_attention_fwd.padded += 1
@@ -189,7 +191,7 @@ def flash_attention_bwd(q, k, v, pos_q, pos_k, rel, kpad, o, lse, do,
         )
     _build.check(err, name)
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
+    flash_attention_bwd.pair += _build.pair_route(D, q.dtype)
     flash_attention_bwd.deep += _build.head_instance(D) == _build.DEEP
     if drel is not None and drel.dim() == 4:
         drel = drel[0]
@@ -203,8 +205,8 @@ flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_fwd.padded = 0  # the launches that ran on zero-padded copies
 flash_attention_bwd.padded = 0
-flash_attention_fwd.col_split = 0  # the bf16 launches split into column blocks (D > 128)
-flash_attention_bwd.col_split = 0
+flash_attention_fwd.pair = 0  # the bf16 launches on the pair route (D 129 to 256)
+flash_attention_bwd.pair = 0
 flash_attention_fwd.deep = 0  # the launches on the deep route (D > 256), either dtype
 flash_attention_bwd.deep = 0
 

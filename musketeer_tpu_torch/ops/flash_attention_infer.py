@@ -24,8 +24,9 @@ chunks of 128, the output in blocks of 128, up to three a CTA sharing each
 score tile, ``csrc/flash_fwd_sm90.cuh::fwd_deep`` (``deep_plan``) and
 ``csrc/flash_deep.cuh``; counted in ``.deep``), one that is not a multiple
 of 8 on zero-padded copies of the streams (``_build.pad_head``; counted in
-``.padded``), one past 128 with the output's columns split into blocks of
-128 over the grid (bf16; counted in ``.col_split``). It never falls back
+``.padded``), one of 129 to 256 in bf16 on the pair route (the deep route's
+CTA with both column blocks of 128 in one CTA, each score tile built once
+for the whole output; counted in ``.pair``). It never falls back
 from one to another. It has no backward and refuses
 inputs that autograd tracks: the model reaches it through
 ``ops/flash_attention_bwd.py::flash_attention``, which sends differentiated
@@ -46,92 +47,125 @@ _SIG = (_build.INT,) + (_build.PTR,) * 8 + (_build.INT,) * 4 + (_build.I64,) * 2
     + (_build.INT,) * 3 + (_build.PTR,)
 
 
-# The deep route's CTA (csrc/flash_fwd_sm90.cuh: fwd_deep; flash_bwd_sm90.cuh:
-# bwd_kv_deep, bwd_q_deep): a producer warpgroup, a builder warpgroup that
-# builds each score tile (K4: S and dP) once, and ``DEEP_BLOCKS`` block
-# warpgroups, one per column block of 128 a CTA owns (``DW``), fed by a ring
-# of ``DEEP_SCORE_STAGES`` slots of two 64 x 128 bf16 chunks (a score
-# product's pair) and one of ``DEEP_BLOCK_STAGES`` slots of ``DEEP_BLOCKS``
-# chunks (the blocks' operands), with P (K4: P^T or dW^T; dW's high and low
-# parts) handed over in two buffers of 64 x 64 bf16 tiles. Where the head dim
-# has at most ``DEEP_RESIDENT_NK`` chunks (D <= 384) the forward keeps q's and
-# pos_q's chunks resident, streams the key side alone through a ring of
+# The CTA past head dim 128 (csrc/flash_fwd_sm90.cuh: fwd_deep;
+# flash_bwd_sm90.cuh: bwd_kv_deep, bwd_q_deep): a producer warpgroup, a builder
+# warpgroup that builds each score tile (K4: S and dP) once, and W block
+# warpgroups, one per column block of 128 a CTA owns, fed by a ring of score
+# slots of two 64 x 128 bf16 chunks (a score product's pair) and one of
+# slots of W chunks (the blocks' operands), with P (K4: P^T or dW^T; dW's
+# high and low parts) handed over in two buffers of 64 x 64 bf16 tiles. The
+# deep route (past 256) has ``DEEP_BLOCKS`` block warpgroups (``DW``), a
+# score ring of ``DEEP_SCORE_STAGES`` and a block ring of
+# ``DEEP_BLOCK_STAGES`` slots; where the head dim has at most
+# ``DEEP_RESIDENT_NK`` chunks (D <= 384) the forward keeps q's and pos_q's
+# chunks resident, streams the key side alone through a ring of
 # ``DEEP_KEY_STAGES`` single chunks, and its block ring is one slot deep.
+# The pair route (129 to 256) has ``PAIR_BLOCKS`` (``PW``: both blocks of the
+# output), K4's score ring ``PAIR_SCORE_STAGES`` slots, block rings of
+# ``PAIR_BLOCK_STAGES``, and its forward keeps q and pos_q resident (2 chunks
+# each) beside a key ring of ``PAIR_KEY_STAGES``; where the last chunk holds
+# at most 64 columns (D <= 192) it is one 64-column box, half a chunk.
 DEEP_BLOCKS = 3
 DEEP_SCORE_STAGES = 3
 DEEP_BLOCK_STAGES = 2
 DEEP_RESIDENT_NK = 3
 DEEP_KEY_STAGES = 4
+PAIR_BLOCKS = 2
+PAIR_SCORE_STAGES = 4
+PAIR_BLOCK_STAGES = 2
+PAIR_KEY_STAGES = 5
+_CTA = {  # the rings of a CTA of W block warpgroups: score, block, key, block beside q, resident
+    DEEP_BLOCKS: (DEEP_SCORE_STAGES, DEEP_BLOCK_STAGES, DEEP_KEY_STAGES, 1, DEEP_RESIDENT_NK),
+    PAIR_BLOCKS: (PAIR_SCORE_STAGES, PAIR_BLOCK_STAGES, PAIR_KEY_STAGES, PAIR_BLOCK_STAGES, 2),
+}
 _CHUNK = 64 * _build.DEEP_CHUNK * 2  # bytes of a 64-row chunk of 128 bf16 columns
 _PTILE = 64 * 64 * 2  # bytes of a 64 x 64 bf16 A tile
 _REL_TILE = 64 * 72 * 2  # a staged rel tile of K4's key-major kernel
-_DEEP_BARS = 2 * DEEP_SCORE_STAGES + 2 * DEEP_BLOCK_STAGES + 4  # the rings', P full/empty x 2
 
 
-def _deep_smem(kind: str) -> int:
-    """Shared memory of a deep CTA (``DeepFwd<kResident>::SMEM``,
-    ``DeepBwd<kQ>::SMEM``): the two rings, two A buffers (one tile;
+def cta_blocks(D: int) -> int:
+    """The block warpgroups of the bf16 CTA past head dim 128 at head dim D:
+    ``PAIR_BLOCKS`` up to ``_build.MAX_INSTANCE``, else ``DEEP_BLOCKS``."""
+    return PAIR_BLOCKS if D <= _build.MAX_INSTANCE else DEEP_BLOCKS
+
+
+def _deep_smem(kind: str, W: int = DEEP_BLOCKS) -> int:
+    """Shared memory of a CTA of W blocks (``DeepFwd<W, kResident>::SMEM``,
+    ``DeepBwd<W, kQ>::SMEM``): the two rings, two A buffers (one tile;
     ``"bwd_q"``: two), the forward's rows (two buffers of 64 rescale factors,
     64 denominators, fp32) or the key-major kernel's rel tile, the mbarriers
     and 1 KB of alignment slack; ``"fwd_resident"`` q's and pos_q's chunks,
-    the key ring, one block slot and q's mbarrier in place of the rings."""
+    the key ring, the block ring beside q and q's mbarrier in place of the
+    rings."""
+    score, block, key, res_block, res_nk = _CTA[W]
     if kind == "fwd_resident":
-        return (2 * DEEP_RESIDENT_NK * _CHUNK + DEEP_KEY_STAGES * _CHUNK + DEEP_BLOCKS * _CHUNK
-                + 2 * _PTILE + 3 * 64 * 4 + 8 * (2 * DEEP_KEY_STAGES + 2 + 4 + 1) + 1024)
-    rings = DEEP_SCORE_STAGES * 2 * _CHUNK + DEEP_BLOCK_STAGES * DEEP_BLOCKS * _CHUNK
+        return (2 * res_nk * _CHUNK + key * _CHUNK + res_block * W * _CHUNK + 2 * _PTILE
+                + 3 * 64 * 4 + 8 * (2 * key + 2 * res_block + 4 + 1) + 1024)
+    rings = score * 2 * _CHUNK + block * W * _CHUNK
     extra = {"fwd": 2 * _PTILE + 3 * 64 * 4, "bwd_kv": 2 * _PTILE + _REL_TILE,
              "bwd_q": 2 * 2 * _PTILE}[kind]
-    return rings + extra + 8 * _DEEP_BARS + 1024
+    return rings + extra + 8 * (2 * score + 2 * block + 4) + 1024
 
 
 def deep_groups(D: int) -> list:
-    """The column blocks of 128 each CTA of the deep route owns at head dim D,
-    group by group: ``DEEP_BLOCKS`` each, the last group the rest."""
-    nch = _build.deep_chunks(D)
-    return [min(DEEP_BLOCKS, nch - j) for j in range(0, nch, DEEP_BLOCKS)]
+    """The column blocks of 128 each CTA past head dim 128 owns at head dim D,
+    group by group: ``cta_blocks(D)`` each, the last group the rest (the pair
+    route: one group of both)."""
+    nch, W = _build.deep_chunks(D), cta_blocks(D)
+    return [min(W, nch - j) for j in range(0, nch, W)]
 
 
 def deep_plan(D: int, kernel: str = "K1", B: int = 16, H: int = 1, T: int = 908,
               S: int = 908) -> dict:
-    """The deep route's plan for ``kernel`` ("K1" (K3 alike), "K5" or "K4") at
-    head dim D (past 256) and streams [B, H, T or S, D]: the column blocks a
-    CTA owns (``blocks``, ``DEEP_BLOCKS``) and the last group's
-    (``last_blocks``), the CTAs per query tile (K4: per key tile of the
-    key-major launch, over its three gradients, and per q tile of the
-    query-major one, over two), how many times each (q tile, key tile)'s
-    score tile is built (``score_builds``; K5 two passes; K4 S over its five
-    gradients and dP over the four that need it, ``dp_builds``), against one
-    block a CTA (``*_one_block``), whether the forward keeps q and pos_q
-    resident (``resident``), the bytes the producers stream into shared
-    memory per call (``bytes``; one block a CTA, nothing resident:
-    ``bytes_one_block``), and the shared memory of a CTA (``smem``; K4 the
-    larger of its kernels')."""
-    groups, nch = deep_groups(D), _build.deep_chunks(D)
+    """The plan of the bf16 kernels past head dim 128 for ``kernel`` ("K1"
+    (K3 alike), "K5" or "K4") at head dim D and streams [B, H, T or S, D]:
+    the route (``"pair"`` up to 256, else ``"deep"``), the column blocks a
+    CTA owns (``blocks``, ``cta_blocks``) and the last group's
+    (``last_blocks``), the 64-column boxes of the last chunk
+    (``last_boxes``: 1 on the pair route up to D 192), the CTAs per query
+    tile (K4: per key tile of the key-major launch, over its three
+    gradients, and per q tile of the query-major one, over two), how many
+    times each (q tile, key tile)'s score tile is built (``score_builds``;
+    K5 two passes; K4 S over its five gradients and dP over the four that
+    need it, ``dp_builds``), against one block a CTA (``*_one_block``: the
+    column-split design that ran head dims 129 to 256 before the pair
+    route), whether the forward keeps q and pos_q resident (``resident``),
+    the bytes the producers stream into shared memory per call (``bytes``;
+    one block a CTA, nothing resident: ``bytes_one_block``), and the shared
+    memory of a CTA (``smem``; K4 the larger of its kernels')."""
+    groups, nch, W = deep_groups(D), _build.deep_chunks(D), cta_blocks(D)
+    pair = W == PAIR_BLOCKS
+    lb = 1 if pair and -(-D // 8) * 8 - _build.DEEP_CHUNK * (nch - 1) <= 64 else 2
     G, nq, nk = len(groups), -(-T // 64), -(-S // 64)
-    pair = 2 * 2 * nch  # the chunks of one score tile's pairs: (q, k), then (pos_q, pos_k)
-    out = dict(blocks=DEEP_BLOCKS, last_blocks=groups[-1], nch=nch)
+    row = (nch - 1) * _CHUNK + lb * _CHUNK // 2  # a 64-row tile of one stream, in chunks
+    blk = lambda j: _CHUNK if j < nch - 1 else lb * _CHUNK // 2  # noqa: E731  (block j)
+    starts = [W * i for i in range(G)]
+    gblk = [sum(blk(j) for j in range(s0, s0 + nb)) for s0, nb in zip(starts, groups)]
+    vall = sum(blk(j) for j in range(nch))
+    out = dict(route="pair" if pair else "deep", blocks=W, last_blocks=groups[-1], nch=nch,
+               last_boxes=lb)
     if kernel in ("K1", "K5"):
-        passes, resident = (2 if kernel == "K5" else 1), nch <= DEEP_RESIDENT_NK
+        passes, resident = (2 if kernel == "K5" else 1), nch <= _CTA[W][4]
         if resident:  # q's and pos_q's chunks once, the key side's per key tile
-            chunks = nq * sum(2 * nch + nk * (passes * pair // 2 + nb) for nb in groups)
+            nbytes = nq * sum(2 * row + nk * (passes * 2 * row + v) for v in gblk)
         else:
-            chunks = nq * sum(nk * (passes * pair + nb) for nb in groups)
-        one = nq * nch * nk * (passes * pair + 1)
+            nbytes = nq * sum(nk * (passes * 4 * row + v) for v in gblk)
+        one = nq * nk * (nch * passes * 4 * row + vall)
         out.update(ctas_per_tile=G, score_builds=passes * G, score_builds_one_block=passes * nch,
-                   resident=resident, smem=_deep_smem("fwd_resident" if resident else "fwd"))
+                   resident=resident,
+                   smem=_deep_smem("fwd_resident" if resident else "fwd", W))
     elif kernel == "K4":
-        dp = 2 * nch  # the chunks of dP's pairs: (v, dO)
-        kv = nk * sum(nq * (pair + (dp if g else 0) + nb) for g in range(3) for nb in groups)
-        qm = nq * 2 * sum(nk * (pair + dp + nb) for nb in groups)
-        chunks = kv + qm
-        one = nk * nch * nq * (3 * pair + 2 * dp + 3) + nq * nch * nk * 2 * (pair + dp + 1)
+        kv = nk * nq * sum(4 * row + (2 * row if g else 0) + v for g in range(3) for v in gblk)
+        qm = nq * nk * 2 * sum(6 * row + v for v in gblk)
+        nbytes = kv + qm
+        one = nk * nq * (nch * 16 * row + 3 * vall) + nq * nk * (nch * 12 * row + 2 * vall)
         out.update(ctas_per_key_tile=3 * G, ctas_per_q_tile=2 * G, score_builds=5 * G,
                    dp_builds=4 * G, score_builds_one_block=5 * nch, dp_builds_one_block=4 * nch,
-                   smem=max(_deep_smem("bwd_kv"), _deep_smem("bwd_q")),
-                   smem_kv=_deep_smem("bwd_kv"), smem_q=_deep_smem("bwd_q"))
+                   smem=max(_deep_smem("bwd_kv", W), _deep_smem("bwd_q", W)),
+                   smem_kv=_deep_smem("bwd_kv", W), smem_q=_deep_smem("bwd_q", W))
     else:
         raise ValueError(f"deep_plan: kernel {kernel!r} not in ('K1', 'K5', 'K4')")
-    out.update(bytes=B * H * chunks * _CHUNK, bytes_one_block=B * H * one * _CHUNK)
+    out.update(bytes=B * H * nbytes, bytes_one_block=B * H * one)
     return out
 
 
@@ -141,22 +175,18 @@ def sm90_smem(D: int, bwd: bool = False) -> int:
     in ``csrc/flash_fwd_sm90.cuh``: K1, K3, K5), or with ``bwd`` of K4's
     launches (``BwdLayout<DP>::SMEM`` in ``csrc/flash_bwd_sm90.cuh``): 64-row
     bf16 tiles of 128 DP bytes, two resident (q, pos_q; K4 three) and a ring
-    of stages (3 up to DP 128; past it 2, K4's 1) of k, pos_k and v (past
-    128 the CTA's 128 columns of v; K4's three whole tiles), the mbarriers,
-    1 KB of alignment slack; K4 also each stage's lse and dsum rows and two
-    staged rel tiles of 64 rows of 72 bf16. On the deep route the deep
-    plan's (``deep_plan``'s ``smem``: the forward's with q resident up to D
+    of 3 stages of k, pos_k and v (K4: q, pos_q and dO), the mbarriers, 1 KB
+    of alignment slack; K4 also each stage's lse and dsum rows and two staged
+    rel tiles of 64 rows of 72 bf16. Past 128, on the pair and the deep
+    route, ``deep_plan``'s ``smem`` (the forward's with q resident up to D
     384; K4 the larger of its two kernels')."""
     dp = _build.head_instance(D)
-    if dp == _build.DEEP:
+    if dp == _build.DEEP or dp > _build.WIDE_HEAD_DIM:
         return deep_plan(D, "K4" if bwd else "K1")["smem"]
-    tile, split = 64 * dp * 2, dp > _build.SPLIT_HEAD_DIM
+    tile = 64 * dp * 2
     if not bwd:
-        stages, vtile = (2, 64 * 128 * 2) if split else (3, tile)
-        return 2 * tile + stages * (2 * tile + vtile) + 8 * (2 * stages + 1) + 1024
-    stages = 1 if split else 3
-    return (3 * tile + stages * (3 * tile + 2 * 64 * 4) + 2 * 64 * 72 * 2
-            + 8 * (2 * stages + 1) + 1024)
+        return 2 * tile + 3 * 3 * tile + 8 * 7 + 1024
+    return 3 * tile + 3 * (3 * tile + 2 * 64 * 4) + 2 * 64 * 72 * 2 + 8 * 7 + 1024
 
 
 def check_shapes(name: str, q, k, v, pos_q, pos_k, rel, kpad) -> None:
@@ -288,7 +318,7 @@ def flash_attention_inference(
         )
     _build.check(err, name)
     flash_attention_inference.launches += 1
-    flash_attention_inference.col_split += _build.col_halves(D) > 1 and q.dtype == torch.bfloat16
+    flash_attention_inference.pair += _build.pair_route(D, q.dtype)
     flash_attention_inference.deep += _build.head_instance(D) == _build.DEEP
     if out.shape[-1] != D:  # ran on zero-padded copies
         flash_attention_inference.padded += 1
@@ -298,5 +328,5 @@ def flash_attention_inference(
 
 flash_attention_inference.launches = 0
 flash_attention_inference.padded = 0  # the launches that ran on zero-padded copies
-flash_attention_inference.col_split = 0  # the bf16 launches split into column blocks (D > 128)
+flash_attention_inference.pair = 0  # the bf16 launches on the pair route (D 129 to 256)
 flash_attention_inference.deep = 0  # the launches on the deep route (D > 256), either dtype

@@ -2,11 +2,14 @@
 
 The attention kernels (K1, K3, K4, K5, K6, K7) are compiled at the tile widths
 ``_build.HEAD_DIMS``; past 128 a head dim runs on the instances 192 and 256.
-There the tensor-core attention core (K1, K3, K5) and K4 split each output's
-columns into halves of 128 over the grid: a CTA computes the full-width
-scores (P, and K4's dW) in the same k-step order and accumulates only its
-half of the P·v (or gradient) products, so every output element is the same
-sum, in the same order, as at the instances up to 128; the FMA kernels take
+There the bf16 tensor-core attention core (K1, K3, K5) and K4 run on the pair
+route: the deep route's CTA (a builder warpgroup and one block warpgroup per
+column block of 128) with both blocks of the output in one CTA, so that each
+score tile (K4: S and dP) is built once, in chunks of 128 columns (the last
+one 64-column box up to D 192) whose k-steps run back to back into one fp32
+accumulator, in the order of one whole-width product as at the instances up
+to 128, and each block's P·v (or gradient) products use that one tile
+(``flash_attention_infer.deep_plan``); the FMA kernels take
 32-row tiles, K6's and K7's cross-attentions a shallower ring, K7's
 self-attention and the fp32 cross-attention their key rows 64 dims at a
 time, none of which changes a bf16 sum's order. The kernels run only on the
@@ -16,7 +19,8 @@ card; here, on the same seeded numpy inputs:
   ``test_torch_port_attention_bwd_walk.py``) at D 192 (causal) and 256 (rel,
   padded keys), T = S = 70, against the Pallas kernels in interpret mode, in
   bf16, to chip_smoke.py's tolerance (2⁻⁶ of max(1, max|ref|)); K1's walk
-  also half by half, each 128 columns of v alone, bit-equal to the whole;
+  also block by block, the one score tile against each 128 columns of v
+  alone, bit-equal to the whole;
 - (ii) the K6 and K7 walks at hd 256 against the JAX kernels;
 - (iii) ``ofa_tiny`` widened to hd 256 (d 256, 1 head; 2 + 2 layers, ResNet
   (1, 1, 1), 64² images), float32, the JAX tree bridged by ``from_jax``:
@@ -27,10 +31,15 @@ card; here, on the same seeded numpy inputs:
 - (iv) with no card: every head dim 1 to 256 on its instance, and the
   shared-memory planners at the serving and training shapes and at
   chip_smoke.py phase 28's score-chunked shape, their bytes against the
-  layouts of the CUDA sources.
+  layouts of the CUDA sources; the pair route's plan at every head dim 129
+  to 256 (blocks a CTA, score builds per tile, K4's S and dP builds, the
+  last chunk's boxes, bytes streamed at the caption and training shapes,
+  shared memory), its constants against the CUDA sources.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -90,8 +99,12 @@ def test_k1_walk_past_128_matches_jax_kernel_and_its_column_halves(D):
     out = walk(*t, causal=causal)
     err, lim = _bf16_err(out[..., :D], ref)
     assert out.dtype == torch.bfloat16 and err <= lim, f"D{D}: {err} > {lim}"
-    # a CTA's half: the same scores against v's 128 columns of that half alone
+    # one CTA owns both column blocks of 128 and builds each score tile once
+    # for them: that tile against v's 128 columns of each block alone
     assert _build.col_halves(D) == 2
+    plan = k1.deep_plan(D)
+    assert (plan["route"], plan["blocks"], plan["ctas_per_tile"], plan["score_builds"]) == \
+        ("pair", 2, 1, 1)
 
     def half(c0):  # v's columns c0 .. c0 + 127 alone (zeros elsewhere)
         v = torch.zeros_like(t[2])
@@ -207,14 +220,18 @@ def test_hd256_joint_step_loss_and_gradients_match_jax(pair):
 
 def test_head_dims_past_128_instances_and_shared_memory_plans():
     """Every head dim 129 to 256 runs on 192 or 256 (K6's rows rounded to 16
-    first) in two column halves, and 257 on the deep route in three column
+    first) in two column blocks, and 257 on the deep route in three column
     blocks; the planners' bytes are the
     layouts' of the CUDA sources at the instances 192 and 256, and each fits
-    a block: K1/K3/K5 (``Layout``: q, pos_q, 2 stages of k, pos_k and 128
-    columns of v), K4 (``BwdLayout``: 3 resident tiles, 1 stage of 3, the
-    rows and two rel tiles), K6 and K7's cross-attention at the serving shape
-    (B16 Kb5 S908: whole rows on rings of 5 and 4 tiles) and at phase 28's
-    (Kb16 S1772: past the whole row's fit, so the score-chunked route)."""
+    a block: K1/K3/K5 on the pair route (``DeepFwd<PW, true>``: q's and
+    pos_q's 2 chunks each resident, a key ring of 5 chunks, a block ring of
+    2 slots of two chunks, two P tiles, the rows, 19 mbarriers), K4
+    (``DeepBwd<PW, false>``: a score ring of 4 slots of two chunks, the block
+    ring, two P tiles, a rel tile; ``DeepBwd<PW, true>``: two buffers of two
+    dW tiles in place of the P tiles and rel), K6 and K7's cross-attention at
+    the serving shape (B16 Kb5 S908: whole rows on rings of 5 and 4 tiles)
+    and at phase 28's (Kb16 S1772: past the whole row's fit, so the
+    score-chunked route)."""
     for D in range(129, 257):
         _build.check_head_dim("k", D)
         dp = 192 if -(-D // 8) * 8 <= 192 else 256
@@ -224,12 +241,16 @@ def test_head_dims_past_128_instances_and_shared_memory_plans():
     _build.check_head_dim("k", 257)
     assert _build.head_instance(257) == _build.DEEP and _build.col_halves(257) == 3
     bars, slack = 8, 1024
+    chunk, ptile, rows, rel = 64 * 128 * 2, 64 * 64 * 2, 3 * 64 * 4, 64 * 72 * 2
+    fwd = 4 * chunk + 5 * chunk + 2 * 2 * chunk + 2 * ptile + rows + bars * 19 + slack
+    kv = 4 * 2 * chunk + 2 * 2 * chunk + 2 * ptile + rel + bars * 16 + slack
+    qm = 4 * 2 * chunk + 2 * 2 * chunk + 2 * 2 * ptile + bars * 16 + slack
+    bwd = max(kv, qm)
     for dp in (192, 256):
-        tile, vtile = 64 * dp * 2, 64 * 128 * 2
-        fwd = 2 * tile + 2 * (2 * tile + vtile) + bars * (2 * 2 + 1) + slack
-        bwd = 3 * tile + 1 * 3 * tile + 2 * 64 * 4 + 2 * 64 * 72 * 2 + bars * (2 * 1 + 1) + slack
+        tile = 64 * dp * 2
         assert k1.sm90_smem(dp) == fwd <= _build.SMEM_MAX, dp
         assert k1.sm90_smem(dp, bwd=True) == bwd <= _build.SMEM_MAX, dp
+        assert (k1.deep_plan(dp, "K4")["smem_kv"], k1.deep_plan(dp, "K4")["smem_q"]) == (kv, qm)
         st = {192: 5, 256: 4}[dp]
         assert k7.cross_stages(dp) == st
         sp, kb = 960, 5  # S 908 in 64-key tiles; the serving beams
@@ -248,8 +269,70 @@ def test_head_dims_past_128_instances_and_shared_memory_plans():
             assert plan == {"beam_tiles": 1, "chunk": 64}, dp
         for plan in (k7.cross_plan(16, 1772, dp, fp32=True), k6.plan(16, 1772, dp, fp32=True)):
             assert plan["chunk"] == 1772, dp  # the FMA route: the whole row fits
-    assert (k1.sm90_smem(192), k1.sm90_smem(256)) == (181288, 230440)
-    assert (k1.sm90_smem(192, bwd=True), k1.sm90_smem(256, bwd=True)) == (167448, 216600)
+    assert (k1.sm90_smem(192), k1.sm90_smem(256)) == (231320, 231320)
+    assert (k1.sm90_smem(192, bwd=True), k1.sm90_smem(256, bwd=True)) == (230528, 230528)
+    assert kv == 223360
     # the instances up to 128 keep their layouts
     assert [k7.cross_stages(dp) for dp in (32, 64, 80, 128)] == [8, 8, 8, 8]
     assert k1.sm90_smem(128) == 181304 and k1.sm90_smem(128, bwd=True) == 217656
+
+
+def test_pair_route_constants_match_the_cuda_sources():
+    """The pair route's planner constants as the CUDA sources state them
+    (``csrc/flash_fwd_sm90.cuh``): two block warpgroups a CTA (PW), K4's
+    score ring of 4 slots, the forward's key ring of 5 chunks, block rings of
+    2 slots of PW chunks, q's and pos_q's 2 chunks each resident, and the
+    register budget 32 + 224 + 2 x 128 = 4 x 128 of 512 threads; the column
+    split that ran head dims 129 to 256 before is gone from both sources
+    (``Layout`` and ``BwdLayout`` only up to 128, no column halves)."""
+    csrc = Path(k1.__file__).resolve().parent.parent / "csrc"
+    fwd_src = (csrc / "flash_fwd_sm90.cuh").read_text()
+    bwd_src = (csrc / "flash_bwd_sm90.cuh").read_text()
+    grab = lambda pat, src=fwd_src: int(re.search(pat, src, re.S)[1])  # noqa: E731
+    assert grab(r"constexpr int PW = (\d+);") == k1.PAIR_BLOCKS == 2
+    assert grab(r"using PairScoreRing = Ring<(\d+), 2 \* CHUNK>;") == k1.PAIR_SCORE_STAGES
+    assert grab(r"using PairKeyRing = Ring<(\d+), CHUNK>;") == k1.PAIR_KEY_STAGES
+    assert grab(r"using PairBlockRing = Ring<(\d+), PW \* CHUNK>;") == k1.PAIR_BLOCK_STAGES
+    assert grab(r"struct Cta<PW> \{.*?RESIDENT_NK = (\d+);") == 2
+    regs = [grab(rf"PAIR_{n}_REGS = (\d+)") for n in ("LAUNCH", "PRODUCER", "BUILDER")]
+    assert regs == [128, 32, 224] and regs[1] + regs[2] + 2 * regs[0] == 4 * regs[0]
+    assert 65536 // (128 * (2 + k1.PAIR_BLOCKS)) == regs[0]
+    for src in (fwd_src, bwd_src):
+        assert not re.search(r"\bNCH\b|\bvboxes\b|\bload_cols\b|\bhalf\b =", src)
+    assert "static_assert(DP <= 128" in fwd_src
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K4"])
+def test_pair_plan_builds_each_score_tile_once_for_both_blocks(kernel):
+    """At every head dim 129 to 256 the bf16 CTA owns both column blocks of
+    128 (one CTA per q tile; K4 three per key tile, one a gradient, and two
+    per q tile) and builds each (q tile, key tile)'s score tile once, K5 in
+    each of its two passes; K4 builds S once for each of its five gradients
+    and dP for the four that need it: 5 and 4 against the column split's 10
+    and 8. The last chunk is one 64-column box up to D 192 (on the padded
+    head dim), so the bytes streamed at the caption shape (B16 T=S=908, 4
+    heads of 192 or 3 of 256) and the training shape (B4 T=S=980) are the
+    same at both, the width being 768 at each."""
+    for D in range(129, 257):
+        shape = dict(B=4, T=980, S=980) if kernel == "K4" else dict(B=16, T=908, S=908)
+        p = k1.deep_plan(D, kernel, H=3, **shape)
+        assert (p["route"], p["blocks"], p["last_blocks"], p["nch"]) == ("pair", 2, 2, 2), D
+        assert k1.deep_groups(D) == [2] and _build.col_halves(D) == 2, D
+        assert p["last_boxes"] == (1 if -(-D // 8) * 8 <= 192 else 2), D
+        assert p["smem"] <= _build.SMEM_MAX, D
+        if kernel == "K4":
+            assert (p["ctas_per_key_tile"], p["ctas_per_q_tile"]) == (3, 2), D
+            assert (p["score_builds"], p["dp_builds"]) == (5, 4), D
+            assert (p["score_builds_one_block"], p["dp_builds_one_block"]) == (10, 8), D
+        else:
+            passes = 2 if kernel == "K5" else 1
+            assert (p["ctas_per_tile"], p["score_builds"]) == (1, passes), D
+            assert p["score_builds_one_block"] == 2 * passes, D
+            assert p["resident"], D
+        assert p["bytes"] < p["bytes_one_block"], D
+    shape = dict(B=4, T=980, S=980) if kernel == "K4" else dict(B=16, T=908, S=908)
+    gb = {D: round(k1.deep_plan(D, kernel, H=768 // D, **shape)["bytes"] / 1e9, 3)
+          for D in (192, 256)}
+    assert gb[192] == gb[256], gb
+    want = {"K1": 1.109, "K5": 1.817, "K4": 3.322}[kernel]
+    assert gb[256] == want, gb
